@@ -1,15 +1,17 @@
 """Param-driven random data generators.
 
 The port of the generators of ``flink_ml_tpu/benchmark/datagen.py`` that the
-KMeans benchmark uses (ref: flink-ml-benchmark/.../datagenerator/common/
-InputTableGenerator.java, DenseVectorGenerator.java:34-53).
+KMeans and linear-model benchmarks use (ref: flink-ml-benchmark/.../
+datagenerator/common/InputTableGenerator.java, DenseVectorGenerator.java:34-53,
+LabeledPointWithWeightGenerator.java:50-75).
 
 Below 8 MiB a table is generated on the host with numpy, exactly as the JAX
 package generates it, so both packages see identical tables. From 8 MiB up
 it is generated on the generator's device (by default the CUDA card) with a
-``torch.Generator`` seeded from ``seed``: float32, uniform in [0, 1), never
-crossing the host link. Those numbers are torch's, not ``jax.random``'s: the
-two packages draw different large tables from the same seed.
+``torch.Generator`` seeded from ``seed`` (one stream per column): float32,
+uniform in [0, 1), never crossing the host link. Those numbers are torch's,
+not ``jax.random``'s: the two packages draw different large tables from the
+same seed.
 """
 
 from __future__ import annotations
@@ -33,6 +35,10 @@ _GENERATORS = {}
 # dominates and generating on the device removes it (the JAX package's
 # threshold, so both packages switch at the same size).
 _DEVICE_DATAGEN_MIN_BYTES = 8 << 20
+#: seed offset between the column streams of one generator: an odd 64-bit
+#: constant, so the streams of seeds that differ by less than it never
+#: share a generator seed
+_STREAM_STRIDE = 0x9E3779B97F4A7C15
 
 
 def _register(cls):
@@ -66,9 +72,12 @@ class InputTableGenerator(HasSeed):
     def _rng(self):
         return np.random.default_rng(self.get_seed_or_default())
 
-    def _torch_generator(self, device: torch.device) -> torch.Generator:
-        return torch.Generator(device=device).manual_seed(
-            self.get_seed_or_default())
+    def _torch_generator(self, device: torch.device,
+                         stream: int = 0) -> torch.Generator:
+        """The generator of one column; ``stream`` decorrelates the columns
+        one seed draws (stream 0 is seeded with the seed itself)."""
+        seed = self.get_seed_or_default() + stream * _STREAM_STRIDE
+        return torch.Generator(device=device).manual_seed(seed % (1 << 64))
 
     def _col_names(self, table_idx=0):
         names = self.col_names
@@ -100,3 +109,46 @@ class DenseVectorGenerator(InputTableGenerator, HasVectorDim):
         values = self._rng().random((n, d), dtype=np.float64)
         # raw (n, d) array IS a vector column — no per-row objects
         return Table.from_columns(**{name: values})
+
+
+@_register
+class LabeledPointWithWeightGenerator(InputTableGenerator, HasVectorDim):
+    """Ref: LabeledPointWithWeightGenerator.java: featureArity/labelArity
+    0 → continuous value in [0, 1); positive k → an integer in [0, k), as
+    ``floor(u·k)``; the weight is uniform in [0, 1)."""
+
+    FEATURE_ARITY = IntParam(
+        "featureArity", "Arity of each feature (0 = continuous).", 2,
+        ParamValidators.gt_eq(0))
+    LABEL_ARITY = IntParam(
+        "labelArity", "Arity of label (0 = continuous).", 2,
+        ParamValidators.gt_eq(0))
+
+    def get_data(self) -> Table:
+        n, d = self.num_values, self.vector_dim
+        f_name, l_name, w_name = self._col_names()
+        if n * (d + 2) * 4 >= _DEVICE_DATAGEN_MIN_BYTES:
+            device = resolve_device(self._device)
+
+            def column(shape, arity, stream):
+                u = torch.rand(shape, dtype=torch.float32, device=device,
+                               generator=self._torch_generator(device, stream))
+                return torch.floor_(u.mul_(arity)) if arity else u
+
+            return Table.from_columns(**{
+                f_name: column((n, d), self.feature_arity, 0),
+                l_name: column((n,), self.label_arity, 1),
+                w_name: column((n,), 0, 2)})
+        # the JAX package's host order: features, then label, then weight
+        rng = self._rng()
+
+        def values(arity, shape):
+            if arity == 0:
+                return rng.random(shape, dtype=np.float64)
+            return np.floor(rng.random(shape) * arity)
+
+        features = values(self.feature_arity, (n, d))
+        label = values(self.label_arity, (n,))
+        weight = rng.random(n, dtype=np.float64)
+        return Table.from_columns(**{
+            f_name: features, l_name: label, w_name: weight})

@@ -135,6 +135,11 @@ class Table:
         cols[name] = values
         return Table(cols)
 
+    def with_columns(self, **columns) -> "Table":
+        cols = dict(self._columns)
+        cols.update(columns)
+        return Table(cols)
+
     def _host_column(self, name: str) -> np.ndarray:
         col = self._columns[name]
         return col.cpu().numpy() if _is_device_column(col) else col

@@ -1,9 +1,10 @@
 """Carries model state from the JAX package into the port.
 
 The JAX package's model state, given as numpy arrays (for example
-``model.centroids`` and ``model.weights`` of its ``KMeansModel``), becomes
-the port's model, so that both packages compute on the same model. Saved
-models cross the packages through ``utils/io.py`` instead.
+``model.centroids`` and ``model.weights`` of its ``KMeansModel``, or the
+``coefficients`` of a linear model), becomes the port's model, so that both
+packages compute on the same model. Saved models cross the packages through
+``utils/io.py`` instead.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import numpy as np
 
 from flink_ml_tpu_torch.device import DeviceLike
 from flink_ml_tpu_torch.models.clustering.kmeans import KMeansModel
+from flink_ml_tpu_torch.models.common import LinearModelBase
 
 
 def kmeans_model_from_arrays(centroids, weights, device: DeviceLike = None,
@@ -25,3 +27,18 @@ def kmeans_model_from_arrays(centroids, weights, device: DeviceLike = None,
                          f"{centroids.shape} and {weights.shape}")
     return KMeansModel(centroids=centroids, weights=weights, device=device,
                        **params)
+
+
+def linear_model_from_arrays(model_cls, coefficients,
+                             device: DeviceLike = None,
+                             **params) -> LinearModelBase:
+    """A port linear model of class ``model_cls`` (for example
+    ``LogisticRegressionModel``) from (d,) coefficients; ``params`` are its
+    params by name (``threshold``, ``prediction_col``, ...)."""
+    if not (isinstance(model_cls, type)
+            and issubclass(model_cls, LinearModelBase)):
+        raise TypeError(f"{model_cls!r} is not a linear model class of the port")
+    coefficients = np.asarray(coefficients, np.float64)
+    if coefficients.ndim != 1:
+        raise ValueError(f"coefficients must be (d,), got {coefficients.shape}")
+    return model_cls(coefficients=coefficients, device=device, **params)

@@ -5,7 +5,9 @@
 //   assign_kernel          <- _assign_kernel (:26), pallas_call at :41
 //   lloyd_partials_kernel  <- _lloyd_accum_kernel (:132), pallas_call at :165
 //   reduce_partials_kernel <- the accumulation of _lloyd_accum_kernel into
-//                             out_ref across sequential grid steps (:141-157)
+//                             out_ref across sequential grid steps (:141-157),
+//                             and of _sgd_terms_kernel (:231): the second
+//                             stage of sgd_kernels.cu too
 //
 // What bounds them on an H100: device-memory bytes. At the main-path shape
 // (1,000,000 x 100 float32, k = 10) each call must read the 400 MB input

@@ -1,3 +1,6 @@
-"""The ported algorithms (this slice: KMeans)."""
+"""The ported algorithms (so far: KMeans; LogisticRegression, LinearSVC and
+LinearRegression)."""
 
 from flink_ml_tpu_torch.models import clustering  # noqa: F401
+from flink_ml_tpu_torch.models import classification  # noqa: F401
+from flink_ml_tpu_torch.models import regression  # noqa: F401

@@ -1,0 +1,8 @@
+from flink_ml_tpu_torch.models.classification.logisticregression import (  # noqa: F401
+    LogisticRegression,
+    LogisticRegressionModel,
+)
+from flink_ml_tpu_torch.models.classification.linearsvc import (  # noqa: F401
+    LinearSVC,
+    LinearSVCModel,
+)

@@ -32,7 +32,8 @@ import torch.nn.functional as F
 from flink_ml_tpu_torch.api.stage import Estimator, Model
 from flink_ml_tpu_torch.common.table import Table, as_dense_vector_column
 from flink_ml_tpu_torch.linalg.distance import DistanceMeasure
-from flink_ml_tpu_torch.models.common import IterationRuntimeMixin, guard_final_state
+from flink_ml_tpu_torch.models.common import IterationRuntimeMixin
+from flink_ml_tpu_torch.observability.health import guard_final_state
 from flink_ml_tpu_torch.ops import kernels
 from flink_ml_tpu_torch.params.param import IntParam, ParamValidators, StringParam
 from flink_ml_tpu_torch.params.shared import (

@@ -1,32 +1,43 @@
-"""Shared model plumbing.
+"""Shared model plumbing: Table → tensors, the linear-model bases, and the
+iteration knobs of the iterative estimators.
 
-The port's ``IterationRuntimeMixin`` of ``flink_ml_tpu/models/common.py``
-and the final-state non-finite guard of
-``flink_ml_tpu/observability/health.py``. This slice runs every iterative
-fit as one all-device program: host-driven rounds, listeners, checkpoints
-and supervised restarts come with the iteration and resilience slices, and
-asking for them raises instead of being ignored.
+The port of ``flink_ml_tpu/models/common.py`` (ref: the per-algorithm
+boilerplate of flink-ml-lib, XxxParams + Xxx + XxxModel + XxxModelData,
+collapsed into two base classes: a concrete linear algorithm declares a
+loss and a prediction rule). This slice runs every iterative fit as one
+all-device program: host-driven rounds, listeners, checkpoints and
+supervised restarts come with the iteration and resilience slices, and
+asking for them raises instead of being ignored. The drift and quality
+baselines a traced fit captures come with the observability slice.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import numpy as np
+import torch
 
-
-class NonFiniteState(RuntimeError):
-    """A fit's final state holds NaN or Inf (the JAX package's
-    ``resilience.policy.NonFiniteState``, a terminal failure)."""
-
-    def __init__(self, algo: str):
-        self.algo = algo
-        super().__init__(f"{algo}: non-finite model state after the fit")
-
-
-def guard_final_state(algo: str, *leaves) -> None:
-    """Raises :class:`NonFiniteState` when any host array holds NaN or Inf."""
-    for leaf in leaves:
-        if leaf is not None and not np.all(np.isfinite(np.asarray(leaf))):
-            raise NonFiniteState(algo)
+from flink_ml_tpu_torch.api.stage import Estimator, Model
+from flink_ml_tpu_torch.common.table import Table
+from flink_ml_tpu_torch.linalg.vectors import DenseVector
+from flink_ml_tpu_torch.ops.losses import LossFunc
+from flink_ml_tpu_torch.ops.optimizer import SGD, SGDParams
+from flink_ml_tpu_torch.params.shared import (
+    HasElasticNet,
+    HasFeaturesCol,
+    HasGlobalBatchSize,
+    HasLabelCol,
+    HasLearningRate,
+    HasMaxIter,
+    HasOptimizerMethod,
+    HasPredictionCol,
+    HasRawPredictionCol,
+    HasReg,
+    HasTol,
+    HasWeightCol,
+)
+from flink_ml_tpu_torch.utils import io as rw
 
 
 class IterationRuntimeMixin:
@@ -54,3 +65,123 @@ class IterationRuntimeMixin:
     def set_retry_policy(self, policy):
         raise NotImplementedError(
             "supervised restarts come with the resilience slice of the port")
+
+
+def extract_labeled_points(stage, table: Table):
+    """Table → (features (n, d), labels (n,), weights (n,) or None), the
+    reference's Table→LabeledPointWithWeight map
+    (LogisticRegression.java:72-99). Tensor columns are returned as they
+    are, on their device: a device label column never goes to the host."""
+
+    def scalar_col(name):
+        col = table.column(name)
+        return col if isinstance(col, torch.Tensor) else table.scalars(name)
+
+    x = table.vectors(stage.features_col)
+    y = scalar_col(stage.label_col)
+    w = None
+    if stage.weight_col is not None and stage.weight_col in table:
+        w = scalar_col(stage.weight_col)
+    return x, y, w
+
+
+def prediction_dtype() -> torch.dtype:
+    """Label-column dtype of the linear and online models' predictions:
+    float32, the device width (the JAX package's dense-path dtype)."""
+    return torch.float32
+
+
+def predict_dots(x, coefficients, device: torch.device) -> torch.Tensor:
+    """Margins ``x @ coefficients`` for a dense feature batch, float32 on
+    ``device`` (ref LogisticRegressionModelServable.java:106 dot): one plain
+    matrix-vector product, as the JAX package leaves it to XLA."""
+    xd = torch.as_tensor(x, dtype=torch.float32, device=device)
+    cd = torch.as_tensor(np.asarray(coefficients), dtype=torch.float32,
+                         device=device)
+    return xd @ cd
+
+
+class LinearModelParams(HasFeaturesCol, HasPredictionCol):
+    pass
+
+
+class LinearTrainParams(LinearModelParams, HasLabelCol, HasWeightCol,
+                        HasMaxIter, HasReg, HasElasticNet, HasLearningRate,
+                        HasGlobalBatchSize, HasTol, HasRawPredictionCol,
+                        HasOptimizerMethod):
+    pass
+
+
+class LinearModelBase(Model, LinearTrainParams):
+    """A fitted linear model: coefficient vector + a prediction rule."""
+
+    def __init__(self, coefficients: Optional[np.ndarray] = None, **kwargs):
+        super().__init__(**kwargs)
+        self.coefficients = (None if coefficients is None
+                             else np.asarray(coefficients, np.float64))
+
+    # -- prediction rule, overridden per algorithm ---------------------------
+    def _predict_columns(self, dots: torch.Tensor) -> dict:
+        """The prediction columns, as tensors on the model's device, from
+        the (n,) float32 margins."""
+        raise NotImplementedError
+
+    def transform(self, table: Table) -> Tuple[Table]:
+        if self.coefficients is None:
+            raise ValueError(f"{type(self).__name__} has no model data")
+        x = table.vectors(self.features_col)
+        if not isinstance(x, (np.ndarray, torch.Tensor)):
+            raise NotImplementedError(
+                "sparse features come with a later slice of the port")
+        dots = predict_dots(x, self.coefficients, self.device)
+        return (table.with_columns(**self._predict_columns(dots)),)
+
+    # -- model data as a Table (ref: XxxModelData POJO + table) -------------
+    def set_model_data(self, model_data: Table):
+        col = model_data.column("coefficient")
+        self.coefficients = (col[0].to_array() if col.dtype == object
+                             else np.asarray(col[0], np.float64))
+        return self
+
+    def get_model_data(self) -> Tuple[Table]:
+        return (Table.from_columns(
+            coefficient=[DenseVector(self.coefficients)]),)
+
+    # -- persistence ---------------------------------------------------------
+    def _save_extra(self, path: str) -> None:
+        rw.save_model_arrays(path, "model", {"coefficient": self.coefficients})
+
+    def _load_extra(self, path: str, meta: dict) -> None:
+        self.coefficients = rw.load_model_arrays(path, "model")["coefficient"]
+
+
+class LinearEstimatorBase(Estimator, LinearTrainParams,
+                          IterationRuntimeMixin):
+    """Shared SGD fit path (ref: LogisticRegression.fit:60 → SGD.optimize)."""
+
+    #: subclass hooks
+    loss: LossFunc = None
+    model_class = None
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.last_execution_path = None
+
+    def fit(self, table: Table):
+        x, y, w = extract_labeled_points(self, table)
+        params = SGDParams(
+            learning_rate=self.learning_rate,
+            global_batch_size=self.global_batch_size,
+            max_iter=self.max_iter, tol=self.tol, reg=self.reg,
+            elastic_net=self.elastic_net, method=self.optimizer,
+            momentum=self.momentum, beta1=self.beta1, beta2=self.beta2,
+            eps=self.epsilon)
+        sgd = SGD(params)
+        coeffs, _ = sgd.optimize(self.loss, np.zeros(x.shape[1], np.float32),
+                                 x, y, w, device=self.device,
+                                 tag=type(self).__name__)
+        # benchmark provenance (runner.py executionPath): cuda-sgd when the
+        # rounds ran the kernel, torch-sgd when they ran its plain version
+        self.last_execution_path = sgd.last_execution_path
+        model = self.model_class(coefficients=coeffs, device=self._device)
+        return self.copy_params_to(model)

@@ -53,28 +53,47 @@ def library_path(name: str) -> Path:
 
 def build(name: str) -> Path:
     """Compiles ``csrc/<name>.cu`` unless its current build exists."""
-    out = library_path(name)
-    if out.exists():
-        return out
+    build_all([name])
+    return library_path(name)
+
+
+def build_all(names) -> None:
+    """Compiles every ``csrc/<name>.cu`` of ``names`` whose current build
+    does not exist, one ``nvcc`` for each, all started together; waits for
+    every one of them before it raises on any that failed."""
+    todo = [name for name in names if not library_path(name).exists()]
+    if not todo:
+        return
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a concurrent builder never
-    # sees a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    started = []
     try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")],
-            capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed building {name}.cu (exit {proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}")
-        BUILD_LOGS[name] = proc.stdout + proc.stderr
-        os.replace(tmp, out)
+        for name in todo:
+            # compile to a private name, then rename: a concurrent build
+            # never sees a half-written library
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            started.append((name, library_path(name), tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for name, out, tmp, proc in started:
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed building {name}.cu (exit "
+                              f"{proc.returncode}):\n{stdout}{stderr}")
+                continue
+            BUILD_LOGS[name] = stdout + stderr
+            os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+        for _, _, tmp, proc in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
 
 
 @functools.lru_cache(maxsize=None)

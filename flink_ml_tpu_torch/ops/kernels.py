@@ -1,15 +1,21 @@
-"""KMeans kernels: wrappers, plain versions, launch counts and shape gates.
+"""The port's kernels: wrappers, plain versions, launch counts, shape gates.
 
-The port of the two kernels of ``flink_ml_tpu/ops/pallas_kernels.py`` that
-KMeans runs, written by hand in CUDA C++ for Hopper
-(``csrc/kmeans_kernels.cu``, built by ``_build.py`` at first use):
+The Pallas kernels of ``flink_ml_tpu/ops/pallas_kernels.py`` that the ported
+slices run, written by hand in CUDA C++ for Hopper and built by ``_build.py``
+at first use, one library per source:
 
-- :func:`assign_nearest` — nearest centroid per row, ``argmin_j(‖c_j‖² −
-  2·x·c_j)``, first minimum; only the argmin is written.
-- :func:`lloyd_partial_sums` — the same assignment, then the weighted
-  ``[one_hotᵀ·x | Σ one_hot]`` of one Lloyd round, in two stages in a fixed
-  order (per-block partials, then :func:`lloyd_reduce_partials`), with no
-  atomics, so a call gives the same bits every time.
+- :func:`assign_nearest` (``csrc/kmeans_kernels.cu``): nearest centroid per
+  row, ``argmin_j(‖c_j‖² − 2·x·c_j)``, first minimum; only the argmin is
+  written.
+- :func:`lloyd_partial_sums` (same source): the same assignment, then the
+  weighted ``[one_hotᵀ·x | Σ one_hot]`` of one Lloyd round, in two stages
+  in a fixed order (per-block partials, then :func:`reduce_partials`).
+- :func:`sgd_batch_terms` (``csrc/sgd_kernels.cu``): one SGD round's
+  ``[Σ mult·x | Σ w | Σ loss]`` over the minibatch window, forward dots and
+  loss terms fused into the gradient pass, again in two fixed-order stages
+  (per-block partials, then :func:`reduce_partials`), for any feature width.
+
+No kernel uses atomics, so a call gives the same bits every time.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else. For a CUDA tensor it launches its kernel on the current
@@ -29,8 +35,10 @@ import torch
 import torch.nn.functional as F
 
 from flink_ml_tpu_torch.ops import _build
+from flink_ml_tpu_torch.ops.losses import LossFunc
 
-KERNEL_SOURCE = "kmeans_kernels"
+KMEANS_SOURCE = "kmeans_kernels"
+SGD_SOURCE = "sgd_kernels"
 
 #: what each kernel is and replaces, for reports (chip_smoke.py, PERF.md)
 KERNELS = {
@@ -40,9 +48,14 @@ KERNELS = {
     "lloyd_partial_sums": {
         "route": "cuda", "source": "flink_ml_tpu_torch/csrc/kmeans_kernels.cu",
         "replaces": "flink_ml_tpu/ops/pallas_kernels.py:132"},
-    "lloyd_reduce_partials": {
+    # the second stage of both Lloyd and SGD; it also stands for the
+    # in-order accumulation of _sgd_terms_kernel (pallas_kernels.py:231)
+    "reduce_partials": {
         "route": "cuda", "source": "flink_ml_tpu_torch/csrc/kmeans_kernels.cu",
         "replaces": "flink_ml_tpu/ops/pallas_kernels.py:141"},
+    "sgd_batch_terms": {
+        "route": "cuda", "source": "flink_ml_tpu_torch/csrc/sgd_kernels.cu",
+        "replaces": "flink_ml_tpu/ops/pallas_kernels.py:206"},
 }
 
 #: kernel launches by wrapper since the last :func:`reset_launch_counts`
@@ -98,6 +111,35 @@ def lloyd_kernel_fits(k: int, d: int) -> bool:
     return _layout(k, d, lloyd=True) is not None
 
 
+#: loss name → the sgd kernel's template instance (``enum Loss`` of
+#: ``sgd_kernels.cu``)
+SGD_LOSSES = {"logistic": 0, "hinge": 1, "least_square": 2}
+#: columns of the row tile an sgd block stages at once; wider rows are
+#: staged in chunks of this many, so any d runs the kernel. A multiple of
+#: the kernel's 256 threads, so a column keeps its thread across chunks
+SGD_CHUNK_COLS = 512
+#: floats of x an sgd block stages at once (32 KB), so that about six
+#: blocks share an SM: the fastest tiles from d = 100 to 2,000 on an H100
+#: (scripts/port_sgd_layout_sweep.py, PERF.md)
+SGD_TILE_FLOATS = 8192
+#: window rows of an sgd tile at most
+SGD_MAX_ROWS = 64
+
+
+def _sgd_layout(d: int) -> Tuple[int, int, int]:
+    """``(rows, dc, smem_bytes)`` of an :func:`sgd_batch_terms` launch at
+    feature width ``d``: ``dc`` columns staged at once (d itself up to
+    :data:`SGD_CHUNK_COLS`) of ``rows`` rows, the power of two that brings
+    the staged floats nearest :data:`SGD_TILE_FLOATS` from below (16 to
+    64 rows). The sizes
+    are the ones the layout comment in ``sgd_kernels.cu`` lists: a ``rows``
+    × ``dc`` x chunk, the same columns of the coefficients and three
+    ``rows`` vectors of per-row terms."""
+    dc = min(d, SGD_CHUNK_COLS)
+    rows = min(SGD_MAX_ROWS, 1 << ((SGD_TILE_FLOATS // dc).bit_length() - 1))
+    return rows, dc, 4 * (rows * dc + dc + 3 * rows)
+
+
 # -- plain versions ------------------------------------------------------------
 
 def assign_nearest_plain(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
@@ -118,14 +160,26 @@ def lloyd_partial_sums_plain(x: torch.Tensor, v: torch.Tensor,
     return torch.cat([one_hot.T @ x, one_hot.sum(0)[:, None]], dim=1)
 
 
-def lloyd_reduce_partials_plain(partials: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch :func:`lloyd_reduce_partials`: the sum over the first
-    axis, added in index order as the kernel adds it."""
+def reduce_partials_plain(partials: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch :func:`reduce_partials`: the sum over the first axis,
+    added in index order as the kernel adds it."""
     out = torch.zeros(partials.shape[1:], dtype=partials.dtype,
                       device=partials.device)
     for p in partials:
         out += p
     return out
+
+
+def sgd_batch_terms_plain(xl: torch.Tensor, yl: torch.Tensor,
+                          wl: torch.Tensor, coeffs: torch.Tensor, start: int,
+                          clip: int, lb: int, loss_name: str) -> torch.Tensor:
+    """Plain PyTorch :func:`sgd_batch_terms`: (d+2,) float32."""
+    xb, yb = xl[start:start + lb], yl[start:start + lb]
+    wb = wl[start:start + lb]
+    if clip:
+        wb = torch.where(torch.arange(lb, device=wb.device) >= clip, wb, 0.0)
+    loss_sum, mult = LossFunc.by_name(loss_name).terms(xb @ coeffs, yb, wb)
+    return torch.cat([xb.T @ mult, wb.sum()[None], loss_sum[None]])
 
 
 # -- wrappers ------------------------------------------------------------------
@@ -200,67 +254,148 @@ def lloyd_partial_sums(x: torch.Tensor, v: torch.Tensor,
         return torch.zeros((k, d + 1), dtype=torch.float32, device=x.device)
     partials = _launch_lloyd_partials(x, v, centroids)
     launch_counts["lloyd_partial_sums"] += 1
-    return lloyd_reduce_partials(partials)
+    return reduce_partials(partials)
 
 
-def lloyd_reduce_partials(partials: torch.Tensor) -> torch.Tensor:
-    """(B, k, d+1) per-block partials → (k, d+1), summed in block order:
-    the second stage of :func:`lloyd_partial_sums`."""
-    _check("lloyd_reduce_partials", partials=partials)
-    if partials.ndim != 3 or partials.shape[0] < 1:
-        raise ValueError("lloyd_reduce_partials: partials must be (B, k, d+1) "
-                         f"with B >= 1, got {tuple(partials.shape)}")
+def reduce_partials(partials: torch.Tensor) -> torch.Tensor:
+    """(B, ...) per-block partials → (...), summed in block order: the
+    second stage of :func:`lloyd_partial_sums` ((B, k, d+1)) and of
+    :func:`sgd_batch_terms` ((B, d+2))."""
+    _check("reduce_partials", partials=partials)
+    if partials.ndim < 2 or partials.shape[0] < 1:
+        raise ValueError("reduce_partials: partials must be (B, ...) with "
+                         f"B >= 1, got {tuple(partials.shape)}")
     if not _is_cuda(partials):
-        return lloyd_reduce_partials_plain(partials)
+        return reduce_partials_plain(partials)
     out = _launch_reduce(partials)
-    launch_counts["lloyd_reduce_partials"] += 1
+    launch_counts["reduce_partials"] += 1
     return out
+
+
+def sgd_batch_terms(xl: torch.Tensor, yl: torch.Tensor, wl: torch.Tensor,
+                    coeffs: torch.Tensor, start: int, clip: int, lb: int,
+                    loss_name: str) -> torch.Tensor:
+    """One SGD round's packed terms, one pass over the minibatch window.
+
+    xl: (n, d), yl and wl: (n,), coeffs: (d,), all float32 on one device;
+    the window is rows [start, start + lb) of them, and rows whose window
+    index is below ``clip`` weigh 0. Returns (d+2,) float32 =
+    ``[Σ mult·x | Σ w | Σ loss]`` with the per-row terms of the loss named
+    ``loss_name`` (``ops/losses.py``). lb == 0 gives zeros. Replaces
+    ``sgd_batch_terms`` of ``flink_ml_tpu/ops/pallas_kernels.py``; every
+    window and every ``d`` runs the kernel, with no tile alignment asked of
+    ``start``.
+    """
+    _check("sgd_batch_terms", xl=xl, yl=yl, wl=wl, coeffs=coeffs)
+    n = xl.shape[0]
+    if (xl.ndim != 2 or tuple(coeffs.shape) != (xl.shape[1],)
+            or tuple(yl.shape) != (n,) or tuple(wl.shape) != (n,)):
+        raise ValueError(
+            "sgd_batch_terms: xl must be (n, d), yl and wl (n,), coeffs "
+            f"(d,); got {tuple(xl.shape)}, {tuple(yl.shape)}, "
+            f"{tuple(wl.shape)}, {tuple(coeffs.shape)}")
+    start, clip, lb = int(start), int(clip), int(lb)
+    if start < 0 or lb < 0 or start + lb > n or not 0 <= clip <= lb:
+        raise ValueError(f"sgd_batch_terms: window start={start}, lb={lb}, "
+                         f"clip={clip} does not lie in {n} rows")
+    if loss_name not in SGD_LOSSES:
+        raise ValueError(f"sgd_batch_terms: unknown loss {loss_name!r}; "
+                         f"known: {sorted(SGD_LOSSES)}")
+    if not _is_cuda(xl):
+        return sgd_batch_terms_plain(xl, yl, wl, coeffs, start, clip, lb,
+                                     loss_name)
+    if lb == 0:
+        return torch.zeros(xl.shape[1] + 2, dtype=torch.float32,
+                           device=xl.device)
+    partials = _launch_sgd_terms(xl, yl, wl, coeffs, start, clip, lb,
+                                 loss_name)
+    launch_counts["sgd_batch_terms"] += 1
+    return reduce_partials(partials)
 
 
 # -- launches (CUDA only) --------------------------------------------------------
 
 def build_kernels() -> dict:
-    """Builds and loads the kernels' library now instead of at first use;
-    returns ptxas' report by source (empty for a library built earlier)."""
-    _lib()
+    """Builds and loads every source's library now instead of at first use,
+    the sources compiling at once; returns ptxas' report by source (empty
+    for libraries built earlier)."""
+    _build.build_all(_SIGNATURES)
+    for source in _SIGNATURES:
+        _lib(source)
     return dict(_build.BUILD_LOGS)
 
 
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: each source's C functions: name → (argtypes, restype)
+_SIGNATURES = {
+    KMEANS_SOURCE: {
+        "kmeans_error_string": ([_I], ctypes.c_char_p),
+        "kmeans_blocks_per_sm": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
+        "kmeans_assign_nearest": ([_P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
+                                   _I, _I, _P], _I),
+        "kmeans_lloyd_partials": ([_P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
+                                   _I, _I, _I, _L, _P], _I),
+        "kmeans_reduce_partials": ([_P, _P, _I, _I, _P], _I),
+    },
+    SGD_SOURCE: {
+        "sgd_error_string": ([_I], ctypes.c_char_p),
+        "sgd_blocks_per_sm": ([_I, _I, ctypes.POINTER(_I)], _I),
+        "sgd_terms_partials": ([_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I,
+                                _I, _I, _I, _L, _I, _P], _I),
+    },
+}
+#: the C function that names a CUDA error code, by source
+_ERROR_STRING = {KMEANS_SOURCE: "kmeans_error_string",
+                 SGD_SOURCE: "sgd_error_string"}
+
+
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(KERNEL_SOURCE)
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.kmeans_error_string.argtypes = [I]
-    lib.kmeans_error_string.restype = ctypes.c_char_p
-    lib.kmeans_blocks_per_sm.argtypes = [I, I, I, ctypes.POINTER(I)]
-    lib.kmeans_assign_nearest.argtypes = [P, P, P, P, L, I, I, I, I, I, I, I, P]
-    lib.kmeans_lloyd_partials.argtypes = [P, P, P, P, P, L, I, I, I, I, I, I,
-                                          I, L, P]
-    lib.kmeans_reduce_partials.argtypes = [P, P, I, I, P]
-    for fn in (lib.kmeans_blocks_per_sm, lib.kmeans_assign_nearest,
-               lib.kmeans_lloyd_partials, lib.kmeans_reduce_partials):
-        fn.restype = I
+def _lib(source: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<source>.cu``, its functions typed."""
+    lib = _build.load(source)
+    for name, (argtypes, restype) in _SIGNATURES[source].items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
     return lib
 
 
-def _raise_on_error(rc: int, what: str) -> None:
+def _raise_on_error(source: str, rc: int, what: str) -> None:
     if rc != 0:
-        msg = _lib().kmeans_error_string(rc).decode()
+        msg = getattr(_lib(source), _ERROR_STRING[source])(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def _blocks_on_card(device_index: int, per_sm: int, what: str) -> int:
+    """Blocks the whole card holds at once, given one SM's count."""
+    if per_sm < 1:
+        raise RuntimeError(f"no block of {what} fits an SM of this card")
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return per_sm * sms
 
 
 @functools.lru_cache(maxsize=None)
 def _resident_blocks(device_index: int, lloyd: bool, rows: int, smem: int) -> int:
-    """Blocks of this configuration the whole card holds at once."""
+    """Blocks of this KMeans configuration the whole card holds at once."""
     per_sm = ctypes.c_int(0)
-    _raise_on_error(_lib().kmeans_blocks_per_sm(int(lloyd), rows, smem,
-                                                ctypes.byref(per_sm)),
-                    "occupancy query")
-    if per_sm.value < 1:
-        raise RuntimeError(f"no block of {rows} threads and {smem} bytes of "
-                           "shared memory fits an SM of this card")
-    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    return per_sm.value * sms
+    _raise_on_error(KMEANS_SOURCE, _lib(KMEANS_SOURCE).kmeans_blocks_per_sm(
+        int(lloyd), rows, smem, ctypes.byref(per_sm)), "occupancy query")
+    return _blocks_on_card(device_index, per_sm.value,
+                           f"{rows} threads and {smem} bytes of shared memory")
+
+
+@functools.lru_cache(maxsize=None)
+def _sgd_resident_blocks(device_index: int, loss: int, smem: int) -> int:
+    """Blocks of the sgd kernel's ``loss`` instance the card holds at once."""
+    per_sm = ctypes.c_int(0)
+    _raise_on_error(SGD_SOURCE, _lib(SGD_SOURCE).sgd_blocks_per_sm(
+        loss, smem, ctypes.byref(per_sm)), "occupancy query")
+    return _blocks_on_card(device_index, per_sm.value,
+                           f"{smem} bytes of shared memory")
+
+
+def _device_index(t: torch.Tensor) -> int:
+    return t.device.index if t.device.index is not None else torch.cuda.current_device()
 
 
 def _launch_setup(x: torch.Tensor, k: int, d: int, lloyd: bool):
@@ -269,11 +404,9 @@ def _launch_setup(x: torch.Tensor, k: int, d: int, lloyd: bool):
     if layout is None:
         raise ValueError(f"{what}: no tile for k={k}, d={d} fits a block's "
                          "shared memory; check the shape gate first")
-    device_index = (x.device.index if x.device.index is not None
-                    else torch.cuda.current_device())
     vec4 = int(d % 4 == 0 and x.data_ptr() % 16 == 0)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    return layout, device_index, vec4, stream
+    return layout, _device_index(x), vec4, stream
 
 
 def _launch_assign(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
@@ -284,7 +417,7 @@ def _launch_assign(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
         csq = torch.sum(centroids * centroids, dim=1)
         out = torch.empty(n, dtype=torch.int32, device=x.device)
         grid = min(-(-n // rows), _resident_blocks(dev, False, rows, smem))
-        _raise_on_error(_lib().kmeans_assign_nearest(
+        _raise_on_error(KMEANS_SOURCE, _lib(KMEANS_SOURCE).kmeans_assign_nearest(
             x.data_ptr(), centroids.data_ptr(), csq.data_ptr(), out.data_ptr(),
             n, k, d, rows, kchunk, smem, vec4, grid, stream), "assign_nearest")
     return out
@@ -303,7 +436,7 @@ def _launch_lloyd_partials(x: torch.Tensor, v: torch.Tensor,
         blocks = -(-ntiles // tiles_per_block)  # no block without rows
         partials = torch.empty((blocks, k, d + 1), dtype=torch.float32,
                                device=x.device)
-        _raise_on_error(_lib().kmeans_lloyd_partials(
+        _raise_on_error(KMEANS_SOURCE, _lib(KMEANS_SOURCE).kmeans_lloyd_partials(
             x.data_ptr(), v.data_ptr(), centroids.data_ptr(), csq.data_ptr(),
             partials.data_ptr(), n, k, d, rows, kchunk, smem, vec4, blocks,
             tiles_per_block, stream), "lloyd_partial_sums")
@@ -316,7 +449,29 @@ def _launch_reduce(partials: torch.Tensor) -> torch.Tensor:
         out = torch.empty(partials.shape[1:], dtype=torch.float32,
                           device=partials.device)
         stream = torch.cuda.current_stream(partials.device).cuda_stream
-        _raise_on_error(_lib().kmeans_reduce_partials(
+        _raise_on_error(KMEANS_SOURCE, _lib(KMEANS_SOURCE).kmeans_reduce_partials(
             partials.data_ptr(), out.data_ptr(), blocks, out.numel(), stream),
-            "lloyd_reduce_partials")
+            "reduce_partials")
     return out
+
+
+def _launch_sgd_terms(xl: torch.Tensor, yl: torch.Tensor, wl: torch.Tensor,
+                      coeffs: torch.Tensor, start: int, clip: int, lb: int,
+                      loss_name: str) -> torch.Tensor:
+    d = xl.shape[1]
+    rows, dc, smem = _sgd_layout(d)
+    loss = SGD_LOSSES[loss_name]
+    with torch.cuda.device(xl.device):
+        ntiles = -(-lb // rows)
+        blocks = min(ntiles, _sgd_resident_blocks(_device_index(xl), loss, smem))
+        tiles_per_block = -(-ntiles // blocks)
+        blocks = -(-ntiles // tiles_per_block)  # no block without rows
+        vec4 = int(d % 4 == 0 and xl.data_ptr() % 16 == 0)
+        partials = torch.empty((blocks, d + 2), dtype=torch.float32,
+                               device=xl.device)
+        stream = torch.cuda.current_stream(xl.device).cuda_stream
+        _raise_on_error(SGD_SOURCE, _lib(SGD_SOURCE).sgd_terms_partials(
+            xl.data_ptr(), yl.data_ptr(), wl.data_ptr(), coeffs.data_ptr(),
+            partials.data_ptr(), start, lb, clip, d, dc, rows, smem, vec4,
+            blocks, tiles_per_block, loss, stream), "sgd_batch_terms")
+    return partials

@@ -1,7 +1,8 @@
 """Shared ``Has*`` param mixins.
 
 The port's copy of the mixins from ``flink_ml_tpu/params/shared.py`` that the
-ported stages use (KMeans and the benchmark generators). The names,
+ported stages use (KMeans, the linear models and the benchmark
+generators). The names,
 descriptions, defaults and validators are the JAX package's, so the JSON
 param maps match. The other mixins come with the slices that use them.
 """
@@ -11,6 +12,7 @@ from __future__ import annotations
 import zlib
 
 from flink_ml_tpu_torch.params.param import (
+    FloatParam,
     IntParam,
     LongParam,
     ParamValidators,
@@ -19,8 +21,10 @@ from flink_ml_tpu_torch.params.param import (
 )
 
 __all__ = [
-    "HasDistanceMeasure", "HasFeaturesCol", "HasMaxIter",
-    "HasPredictionCol", "HasSeed",
+    "HasDistanceMeasure", "HasElasticNet", "HasFeaturesCol",
+    "HasGlobalBatchSize", "HasLabelCol", "HasLearningRate", "HasMaxIter",
+    "HasMultiClass", "HasOptimizerMethod", "HasPredictionCol",
+    "HasRawPredictionCol", "HasReg", "HasSeed", "HasTol", "HasWeightCol",
 ]
 
 
@@ -30,9 +34,31 @@ class HasDistanceMeasure(WithParams):
         ParamValidators.in_array("euclidean", "manhattan", "cosine"))
 
 
+class HasElasticNet(WithParams):
+    ELASTIC_NET = FloatParam(
+        "elasticNet", "ElasticNet parameter.", 0.0, ParamValidators.in_range(0.0, 1.0))
+
+
 class HasFeaturesCol(WithParams):
     FEATURES_COL = StringParam(
         "featuresCol", "Features column name.", "features", ParamValidators.not_null())
+
+
+class HasGlobalBatchSize(WithParams):
+    GLOBAL_BATCH_SIZE = IntParam(
+        "globalBatchSize", "Global batch size of training algorithms.", 32,
+        ParamValidators.gt(0))
+
+
+class HasLabelCol(WithParams):
+    LABEL_COL = StringParam(
+        "labelCol", "Label column name.", "label", ParamValidators.not_null())
+
+
+class HasLearningRate(WithParams):
+    LEARNING_RATE = FloatParam(
+        "learningRate", "Learning rate of optimization method.", 0.1,
+        ParamValidators.gt(0))
 
 
 class HasMaxIter(WithParams):
@@ -40,10 +66,48 @@ class HasMaxIter(WithParams):
         "maxIter", "Maximum number of iterations.", 20, ParamValidators.gt(0))
 
 
+class HasMultiClass(WithParams):
+    MULTI_CLASS = StringParam(
+        "multiClass", "Classification type.", "auto",
+        ParamValidators.in_array("auto", "binomial", "multinomial"))
+
+
+class HasOptimizerMethod(WithParams):
+    """The gradient update rule of the SGD family (``ops/optimizer.py``):
+    the reference's stateless "sgd", heavy-ball "momentum", or "adam"; the
+    stateful rules carry per-coordinate moments through the fit."""
+
+    OPTIMIZER = StringParam(
+        "optimizer", "Gradient update rule: sgd, momentum or adam.",
+        "sgd", ParamValidators.in_array("sgd", "momentum", "adam"))
+    MOMENTUM = FloatParam(
+        "momentum", "Heavy-ball decay of the momentum rule.", 0.9,
+        ParamValidators.in_range(0.0, 1.0))
+    BETA1 = FloatParam(
+        "beta1", "Adam first-moment decay.", 0.9,
+        ParamValidators.in_range(0.0, 1.0))
+    BETA2 = FloatParam(
+        "beta2", "Adam second-moment decay.", 0.999,
+        ParamValidators.in_range(0.0, 1.0))
+    EPSILON = FloatParam(
+        "epsilon", "Adam denominator fuzz term.", 1e-8,
+        ParamValidators.gt(0))
+
+
 class HasPredictionCol(WithParams):
     PREDICTION_COL = StringParam(
         "predictionCol", "Prediction column name.", "prediction",
         ParamValidators.not_null())
+
+
+class HasRawPredictionCol(WithParams):
+    RAW_PREDICTION_COL = StringParam(
+        "rawPredictionCol", "Raw prediction column name.", "rawPrediction")
+
+
+class HasReg(WithParams):
+    REG = FloatParam(
+        "reg", "Regularization parameter.", 0.0, ParamValidators.gt_eq(0.0))
 
 
 class HasSeed(WithParams):
@@ -57,3 +121,13 @@ class HasSeed(WithParams):
         if seed is None:
             return zlib.crc32(type(self).__name__.encode()) % (2 ** 31)
         return seed
+
+
+class HasTol(WithParams):
+    TOL = FloatParam(
+        "tol", "Convergence tolerance for iterative algorithms.", 1e-6,
+        ParamValidators.gt_eq(0))
+
+
+class HasWeightCol(WithParams):
+    WEIGHT_COL = StringParam("weightCol", "Weight column name.", None)

@@ -100,7 +100,8 @@ def test_reduce_partials_plain_adds_in_order():
     want = p[0].clone()
     for b in range(1, 9):
         want += p[b]
-    assert torch.equal(kernels.lloyd_reduce_partials(p), want)
+    assert torch.equal(kernels.reduce_partials(p), want)
+    assert torch.equal(kernels.reduce_partials(p[:, 0].contiguous()), want[0])
 
 
 @pytest.mark.parametrize("bad", ["float64", "noncontiguous", "width", "rank",

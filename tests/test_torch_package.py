@@ -20,8 +20,12 @@ import torch
 
 import flink_ml_tpu_torch
 from flink_ml_tpu_torch import Table, device as port_device
+from flink_ml_tpu_torch.models.classification import (
+    LogisticRegression,
+    LogisticRegressionModel,
+)
 from flink_ml_tpu_torch.models.clustering import KMeans, KMeansModel
-from flink_ml_tpu_torch.models.common import NonFiniteState
+from flink_ml_tpu_torch.observability.health import NonFiniteState
 from flink_ml_tpu_torch.ops import kernels
 from flink_ml_tpu_torch.utils import io as rw
 
@@ -60,7 +64,8 @@ def test_no_jax_or_jax_package_imports(path):
 
 def test_port_files_were_found():
     names = {p.name for p in PORT_FILES}
-    assert {"kernels.py", "kmeans.py", "runner.py", "io.py"} <= names
+    assert {"kernels.py", "kmeans.py", "runner.py", "io.py", "optimizer.py",
+            "logisticregression.py"} <= names
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -79,14 +84,18 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
     def no_launch(*args, **kwargs):
         raise AssertionError("a CPU tensor reached a kernel launch")
 
-    for name in ("_launch_assign", "_launch_lloyd_partials", "_launch_reduce"):
+    for name in ("_launch_assign", "_launch_lloyd_partials", "_launch_reduce",
+                 "_launch_sgd_terms"):
         monkeypatch.setattr(kernels, name, no_launch)
     kernels.reset_launch_counts()
     x = np.random.default_rng(1).random((60, 4))
     model = KMeans(k=3, seed=0, max_iter=3, device="cpu").fit(
         Table.from_columns(features=x))
     model.transform(Table.from_columns(features=x))
-    kernels.lloyd_reduce_partials(torch.ones((2, 3, 5)))
+    kernels.reduce_partials(torch.ones((2, 3, 5)))
+    labeled = Table.from_columns(features=x, label=(x[:, 0] > 0.5) * 1.0)
+    LogisticRegression(max_iter=3, device="cpu").fit(labeled).transform(labeled)
+    kernels.reduce_partials(torch.ones((2, 6)))
     assert set(kernels.launch_counts.values()) == {0}
 
 
@@ -108,22 +117,30 @@ def test_cuda_tensors_never_reach_the_plain_versions(monkeypatch):
         calls.append("reduce")
         return p.sum(0)
 
+    def launch_sgd_terms(xl, yl, wl, coeffs, start, clip, lb, loss_name):
+        calls.append("sgd")
+        return torch.zeros((3, coeffs.shape[0] + 2))
+
     # every tensor counts as a CUDA tensor, so the check needs no card
     monkeypatch.setattr(kernels, "_is_cuda", lambda t: True)
     for name in ("assign_nearest_plain", "lloyd_partial_sums_plain",
-                 "lloyd_reduce_partials_plain"):
+                 "reduce_partials_plain", "sgd_batch_terms_plain"):
         monkeypatch.setattr(kernels, name, no_plain)
     monkeypatch.setattr(kernels, "_launch_assign", launch_assign)
     monkeypatch.setattr(kernels, "_launch_lloyd_partials", launch_lloyd)
     monkeypatch.setattr(kernels, "_launch_reduce", launch_reduce)
+    monkeypatch.setattr(kernels, "_launch_sgd_terms", launch_sgd_terms)
     kernels.reset_launch_counts()
     x, c = torch.rand((10, 4)), torch.rand((2, 4))
     kernels.assign_nearest(x, c)
     kernels.lloyd_partial_sums(x, torch.ones(10), c)
-    assert calls == ["assign", "lloyd", "reduce"]
+    kernels.sgd_batch_terms(x, torch.ones(10), torch.ones(10), c[0], 2, 1, 5,
+                            "hinge")
+    assert calls == ["assign", "lloyd", "reduce", "sgd", "reduce"]
     assert kernels.launch_counts == {"assign_nearest": 1,
                                      "lloyd_partial_sums": 1,
-                                     "lloyd_reduce_partials": 1}
+                                     "reduce_partials": 2,
+                                     "sgd_batch_terms": 1}
     kernels.reset_launch_counts()
 
 
@@ -175,3 +192,18 @@ def test_non_finite_final_state_raises():
     with pytest.raises(NonFiniteState):
         KMeans(k=2, seed=0, max_iter=2, device="cpu").fit(
             Table.from_columns(features=x))
+
+
+def test_linear_models_run_on_the_card_by_default(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.random.default_rng(4).random((20, 3))
+    table = Table.from_columns(features=x, label=(x[:, 0] > 0.5) * 1.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LogisticRegression().fit(table)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LogisticRegressionModel(coefficients=np.ones(3)).transform(table)
+    est = LogisticRegression(device="cpu")
+    with pytest.raises(NotImplementedError, match="resilience slice"):
+        est.set_retry_policy(object())
+    with pytest.raises(NotImplementedError, match="iteration slice"):
+        est.set_iteration_config(None, listeners=[object()])
