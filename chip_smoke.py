@@ -34,8 +34,38 @@ Phases, each of which fails the run (no result line, nonzero exit):
    table, save, load and transform again; hold the LR fit against a plain
    PyTorch fit on the card, and small fits of all three models against the
    CPU;
-6. print one ``{"kernels": [...]}`` line with every kernel's launches in
-   its main-path run, error, times and bound, then the result line.
+6. hold the KNN kernel against its plain version on the card: a ragged n,
+   a ragged n_train, k > n_train, k = 1, duplicate train rows, n = 0, an
+   odd d, d = 64, the largest register instance (d = 128, k = 32), and the
+   wide instance: d = 256, an odd d = 769, k = 50 and k = 300, k > n_train
+   and duplicate train rows; reruns must be bit-identical; time kernel,
+   plain version and the library's ``torch.topk(torch.addmm(...))`` on a
+   16,384 x 50,000 x 32 block, the wide instance on the same block (k =
+   33), and the kernel a few times at the main path's 10,000,000 rows;
+7. the same for the segment-sum kernel: 1-D and 2-D values, -1 and
+   out-of-range ids, n = 0, a ragged n, one chunk, hashed 2^18 domains
+   (c = 1 and c = 2), a domain of more than 65,535 segment tiles, values of
+   5,000 columns (column groups), and the sparse FTRL path's two shapes
+   (per-row dots over sorted row ids, per-coordinate gradient and weight
+   sums); timed against ``index_add_`` at the gradient shape (n =
+   1,048,576, c = 2, u = 100), and alone on the hashed c = 2 domain;
+8. drive the KNN main path: the runner on ``knn-benchmark.json`` at full
+   size (10,000,000 x 32 against 50,000 train rows, k = 10), then transform
+   of the same table, save, load and transform again; hold 113,333 of its
+   predictions (first, middle and ragged last rows) against the plain
+   version's neighbours, and small models on the card against the CPU (one
+   of them 300 wide with k = 40, through the wide instance);
+9. drive the FTRL main path: the runner on
+   ``onlinelogisticregression-benchmark.json`` at full size (10,000,000 x
+   100, 100 dense batches), then a sparse stream of the same widths and
+   params (2,000,000 rows, 10 stored values each, 20 batches) through the
+   device CSR engine; hold the sparse fit against a rerun (identical bits)
+   and the float64 host engine, a sparse fit over a hashed 2^18 domain
+   against the host engine, the dense engine on hyperplane labels over
+   the full table against the CPU, transform, save and load, and small
+   dense fits on the card against the CPU;
+10. print one ``{"kernels": [...]}`` line with every kernel's launches in
+    its main-path runs, error, times and bound, then the result line.
 
 Tolerances (float32 throughout, TF32 off):
 - labels: identical, except rows whose two nearest centroids are closer than
@@ -56,8 +86,26 @@ Tolerances (float32 throughout, TF32 off):
   COEFF_ATOL of the plain fit's on the same table, and the final loss
   within COEFF_RTOL: 20 rounds whose gradient sums differ by float32
   reassociation only;
-- small linear fits on the card against the CPU: coefficients rtol
-  SMALL_RTOL, atol SMALL_ATOL (a few hundred rows, sums in another order).
+- small linear and FTRL fits on the card against the CPU: coefficients
+  rtol SMALL_RTOL, atol SMALL_ATOL (a few hundred rows, sums in another
+  order);
+- KNN neighbours: identical, except rows where the two lists differ, and
+  there, position by position, the float64 distances of the two train rows
+  are within TIE_RTOL (relative): a swap at the k-th place or inside the
+  list, which summation order decides. ``max_abs_err`` of the kernels line
+  is the largest such float64 distance gap. Predictions equal the vote of
+  the kernel's neighbours exactly, and differ from the plain vote only on
+  such rows; small models predict identically on the card and the CPU;
+- segment sums: within SUM_RTOL/SUM_ATOL of the plain version (float32
+  sums of up to a million terms in another order; the plain version sums
+  in float64);
+- the sparse FTRL fit: identical coefficients on a rerun, and within
+  CSR_RTOL/CSR_ATOL of the float64 host engine (the JAX package's own bound
+  for its device-CSR engine, tests/test_sparse_training.py); its model
+  scores its own stream above 85% accurate;
+- the full-size dense FTRL fit on hyperplane labels: within BIG_FIT_RTOL,
+  BIG_FIT_ATOL of the CPU's (100 batches whose 100,000-row sums are added
+  in another order).
 """
 
 import itertools
@@ -80,9 +128,16 @@ LINEAR_CONFIGS = {
     "linearsvc": CONFIGS / "linearsvc-benchmark.json",
     "linearregression": CONFIGS / "linearregression-benchmark.json",
 }
-# reduce_partials, the second stage of both, is in neither tuple
-KMEANS_KERNELS = ("assign_nearest", "lloyd_partial_sums")
-SGD_KERNELS = ("sgd_batch_terms",)
+KNN_CONFIG = CONFIGS / "knn-benchmark.json"
+FTRL_CONFIG = CONFIGS / "onlinelogisticregression-benchmark.json"
+# each path's own kernels; reduce_partials, the second stage of Lloyd, SGD
+# and the segment sums, is in none of the tuples
+PATH_KERNELS = {
+    "kmeans": ("assign_nearest", "lloyd_partial_sums"),
+    "linear": ("sgd_batch_terms",),
+    "knn": ("knn_topk_indices",),
+    "ftrl": ("segment_reduce_sum",),
+}
 LOSSES = ("logistic", "hinge", "least_square")
 
 TIE_RTOL = 1e-5
@@ -91,6 +146,8 @@ CENTROID_ATOL = 1e-3
 LABEL_AGREEMENT = 0.99
 COEFF_RTOL, COEFF_ATOL = 1e-4, 1e-6
 SMALL_RTOL, SMALL_ATOL = 1e-5, 1e-6
+CSR_RTOL, CSR_ATOL = 1e-3, 1e-5
+BIG_FIT_RTOL, BIG_FIT_ATOL = 1e-4, 1e-5
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W): device
 # memory bytes per second and fp32 (non-tensor-core) operations per second
@@ -607,11 +664,481 @@ def phase_linear_main_path(K, runner, optimizer, Table):
     return counts
 
 
+def knn_tie_check(x, train, got, want, tag):
+    """Rows where two (n, k) index lists differ must be near ties: at every
+    position the float64 distances of the two train rows are within
+    TIE_RTOL (relative). That covers a swap at the k-th place and a swap of
+    two neighbours inside the list. Returns (rows that differ, the largest
+    absolute float64 distance gap over them)."""
+    rows = torch.nonzero((got != want).any(1)).flatten()
+    if rows.numel() == 0:
+        return 0, 0.0
+    xd, td = x[rows].double(), train.double()
+    d_got = ((xd[:, None, :] - td[got[rows].long()]) ** 2).sum(-1)
+    d_want = ((xd[:, None, :] - td[want[rows].long()]) ** 2).sum(-1)
+    gap = (d_got - d_want).abs()
+    rel = float((gap / torch.maximum(d_got, d_want).clamp_min(1e-30)).max())
+    assert rel <= TIE_RTOL, (
+        f"{tag}: {rows.numel()} rows differ and not at ties: relative gap {rel}")
+    return rows.numel(), float(gap.max())
+
+
+def check_knn(K, x, train, k, tag, block=16_384):
+    """The kernel against its plain version, block by block (the plain
+    version holds a (block, n_train) distance matrix)."""
+    got = K.knn_topk_indices(x, train, k)
+    kk = min(k, train.shape[0])
+    assert got.dtype == torch.int32 and got.shape == (x.shape[0], kk), tag
+    assert torch.equal(got, K.knn_topk_indices(x, train, k)), (
+        f"{tag}: rerun not bit-identical")
+    flips, err = 0, 0.0
+    for s in range(0, x.shape[0], block):
+        want = K.knn_topk_indices_plain(x[s:s + block], train, k)
+        f, e = knn_tie_check(x[s:s + block], train, got[s:s + block], want, tag)
+        flips, err = flips + f, max(err, e)
+    log(f"  knn_topk_indices {tag}: n={x.shape[0]} n_train={train.shape[0]} "
+        f"d={x.shape[1]} k={kk} tie-rows={flips} max|dist gap|={err:.3g}")
+    return got, flips, err
+
+
+def phase_knn_kernel(K):
+    log("phase 6: the KNN kernel against its plain version on the card")
+    g = torch.Generator(device="cuda").manual_seed(13)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device="cuda")
+
+    dup = rand(5_000, 32)
+    dup[100:200] = dup[4_000:4_100]  # exact ties across train tiles
+    dup_wide = rand(5_000, 160)
+    dup_wide[100:200] = dup_wide[4_000:4_100]
+    for n, train, k, tag in [
+            (100_003, rand(5_000, 32), 10, "ragged-n"),
+            (20_000, rand(50_001, 32), 10, "ragged-n_train"),
+            (3_000, rand(7, 32), 10, "k>n_train"),
+            (30_000, rand(20_000, 32), 1, "k=1"),
+            (20_000, dup, 10, "duplicates"),
+            (0, rand(1_000, 32), 10, "n=0"),
+            (10_007, rand(9_999, 7), 10, "odd-d"),
+            (4_000, rand(6_000, 64), 17, "d=64"),
+            (4_000, rand(6_000, 128), 32, "d=128 k=32"),
+            (3_000, rand(6_000, 256), 10, "wide d=256"),
+            (2_000, rand(5_000, 769), 7, "wide odd d=769"),
+            (3_000, rand(6_001, 32), 50, "k=50"),
+            (1_000, rand(3_000, 200), 300, "d=200 k=300"),
+            (500, rand(40, 300), 64, "wide k>n_train"),
+            (5_000, dup_wide, 40, "wide duplicates"),
+    ]:
+        assert (K._knn_layout(min(k, train.shape[0]), train.shape[1]) == (0, 0)
+                ) == (tag.startswith("wide") or k > 32), tag
+        x = rand(n, train.shape[1])
+        got, _, _ = check_knn(K, x, train, k, tag)
+        if tag.endswith("duplicates"):
+            # of two identical train rows, the lower index comes first
+            rows, pos = torch.nonzero(got == 4_050, as_tuple=True)
+            assert rows.numel() and bool((pos > 0).all()), tag
+            assert bool((got[rows, pos - 1] == 150).all()), tag
+
+    # times and bounds on a block of test rows the library call can hold,
+    # at the main path's widths (50,000 train rows, d = 32, k = 10)
+    n, nt, d, k = 16_384, 50_000, 32, 10
+    x, train = rand(n, d), rand(nt, d)
+    _, _, err = check_knn(K, x, train, k, "timed block")
+    tsq = torch.sum(train * train, dim=1)
+    b_ms, b_by = bound_ms(4 * (n * d + nt * d + n * k), 2 * n * nt * d)
+    measured = {"knn_topk_indices": {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: K.knn_topk_indices(x, train, k)),
+        "plain_ms": time_ms(lambda: K.knn_topk_indices_plain(x, train, k),
+                            batches=3, per_batch=3, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by,
+        # one PyTorch call's worth: the distance product and torch.topk
+        # (no tie order promised)
+        "library_ms": time_ms(lambda: torch.topk(
+            torch.addmm(tsq, x, train.T, alpha=-2), k, largest=False)),
+    }}
+    log(f"  knn_topk_indices @ {n} x {nt} x {d}, k={k}: "
+        f"{measured['knn_topk_indices']}")
+    # the wide instance on the same block: k = 33 is past the register lists
+    wide_ms = time_ms(lambda: K.knn_topk_indices(x, train, 33), batches=3,
+                      per_batch=3, warmup=1)
+    log(f"  knn_topk_indices wide instance @ {n} x {nt} x {d}, k=33: "
+        f"{wide_ms:.3f} ms")
+    # the main path's shape: a few calls, each of them about a second
+    big = rand(10_000_000, d)
+    main = time_ms(lambda: K.knn_topk_indices(big, train, k), batches=3,
+                   per_batch=1, warmup=1)
+    main_bound, _ = bound_ms(4 * (big.numel() + nt * d + big.shape[0] * k),
+                             2 * big.shape[0] * nt * d)
+    log(f"  knn_topk_indices @ 10,000,000 x {nt} x {d}: {main:.3f} ms "
+        f"(bound {main_bound:.3f} ms by operations)")
+    del big, x, train, dup, dup_wide
+    torch.cuda.empty_cache()
+    return measured
+
+
+def check_segment(K, values, ids, u, tag):
+    got = K.segment_reduce_sum(values, ids, u)
+    want = K.segment_reduce_sum_plain(values, ids, u)
+    assert got.shape == want.shape and got.dtype == torch.float32, tag
+    assert torch.equal(got, K.segment_reduce_sum(values, ids, u)), (
+        f"{tag}: rerun not bit-identical")
+    err = within_sum_tol(got, want, tag)
+    log(f"  segment_reduce_sum {tag}: n={values.shape[0]} "
+        f"c={1 if values.ndim == 1 else values.shape[1]} u={u} "
+        f"max|err|={err:.3g}")
+    return err
+
+
+def phase_segment_kernel(K):
+    log("phase 7: the segment-sum kernel against its plain version on the card")
+    g = torch.Generator(device="cuda").manual_seed(17)
+
+    def ids_in(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=g, device="cuda",
+                             dtype=torch.int32)
+
+    def vals(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    past_grid = 65_535 * K.SEG_TILE_FLOATS + 4_097  # 65,537 tiles at c = 1
+    for n, c, u, lo, hi, tag in [
+            (1_000_003, 1, 1000, 0, 1000, "1-d ragged-n"),
+            (500_000, 3, 777, 0, 777, "2-d"),
+            (300_000, 2, 100, -1, 130, "-1 and out-of-range ids"),
+            (0, 2, 100, 0, 100, "n=0"),
+            (777, 1, 5, 0, 5, "one chunk"),
+            (2_000_000, 1, 1 << 18, -5, (1 << 18) + 5, "hashed u=2^18"),
+            (1_000_000, 2, 1 << 18, 0, 1 << 18, "hashed u=2^18 c=2"),
+            (100_000, 1, past_grid, -5, past_grid + 5, "65,537 tiles"),
+            (20_000, 5_000, 3, -1, 4, "c=5000 column groups"),
+    ]:
+        v = vals(n) if c == 1 else vals(n, c)
+        ids = ids_in(lo, hi, n)
+        check_segment(K, v, ids, u, tag)
+        if tag == "hashed u=2^18 c=2":
+            hashed_ms = time_ms(lambda: K.segment_reduce_sum(v, ids, u))
+            log(f"  segment_reduce_sum {tag}: {hashed_ms:.4f} ms")
+        del v, ids
+    torch.cuda.empty_cache()
+
+    # the sparse FTRL path's shapes (one batch of 100,000 rows with 10
+    # stored values each, packed to 1,048,576 slots): the per-row dots over
+    # sorted row ids, and the per-coordinate gradient and weight sums
+    nnz, rows_s, d = 1 << 20, 1 << 17, 100
+    row_ids = torch.sort(ids_in(0, 100_000, nnz)).values
+    check_segment(K, vals(nnz), row_ids, rows_s, "FTRL dots")
+    dots_v = vals(nnz)
+    dots_ms = time_ms(lambda: K.segment_reduce_sum(dots_v, row_ids, rows_s))
+    col_ids, gw = ids_in(0, d, nnz), vals(nnz, 2)
+    err = check_segment(K, gw, col_ids, d, "FTRL grad/wsum")
+    b_ms, b_by = bound_ms(4 * (nnz * 2 + nnz + d * 2), nnz * 2)
+    library_ids = col_ids.long()
+    measured = {"segment_reduce_sum": {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: K.segment_reduce_sum(gw, col_ids, d)),
+        "plain_ms": time_ms(lambda: K.segment_reduce_sum_plain(gw, col_ids, d),
+                            batches=3, per_batch=3, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(lambda: torch.zeros(
+            d, 2, device="cuda").index_add_(0, library_ids, gw)),
+    }}
+    log(f"  segment_reduce_sum @ n={nnz}, c=2, u={d}: "
+        f"{measured['segment_reduce_sum']}")
+    partials = K._launch_segment_partials(gw, col_ids, d, 2)
+    stage1 = time_ms(lambda: K._launch_segment_partials(gw, col_ids, d, 2))
+    log(f"  segment stage 1 alone: {stage1:.4f} ms over {partials.shape[0]} "
+        f"chunks; FTRL dots (u={rows_s}, sorted ids): {dots_ms:.4f} ms")
+    return measured
+
+
+def phase_knn_main_path(K, runner, Table):
+    from flink_ml_tpu_torch.models.classification import Knn, knn as knn_mod
+
+    log("phase 8: the KNN main path through the port's entry points")
+    spec = runner.load_config(str(KNN_CONFIG))["KnnModel-predict"]
+    n = spec["inputData"]["paramMap"]["numValues"]
+    k = spec["stage"]["paramMap"]["k"]
+
+    K.reset_launch_counts()
+    row = runner.best_of("KnnModel-predict", spec, runs=2)
+    log("  benchmark row:", json.dumps(row, sort_keys=True))
+    assert row["executionPath"] == "cuda-knn", row["executionPath"]
+    assert row["inputRecordNum"] == n and row["outputRecordNum"] == n
+
+    table = runner.build_generator(spec).get_data()
+    model = runner.build_stage(spec).set_model_data(
+        runner.build_generator(spec, key="modelData").get_data())
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    pred = model.transform(table)[0][model.prediction_col]
+    torch.cuda.synchronize()
+    transform_ms = (time.perf_counter() - start) * 1e3
+    assert model.last_execution_path == "cuda-knn"
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(tmp)
+        loaded = type(model).load(tmp)
+        again = loaded.transform(table)[0][loaded.prediction_col]
+    assert torch.equal(pred, again), "the loaded model predicts otherwise"
+    counts = dict(K.launch_counts)
+    log(f"  transform: {transform_ms:.3f} ms for {n} rows; save/load: same "
+        "predictions")
+    log(f"  launches in the main-path run: {counts}")
+
+    # is the output right: labels from the model data, and the predictions
+    # of the plain version on blocks at the start, middle and ragged end
+    labels = torch.as_tensor(np.unique(model.labels), device="cuda")
+    assert pred.shape == (n,) and bool(torch.isin(pred, labels).all())
+    x = table.vectors(model.features_col)
+    train = torch.as_tensor(model.features, dtype=torch.float32, device="cuda")
+    _, label_idx = np.unique(model.labels, return_inverse=True)
+    label_idx = torch.as_tensor(label_idx, device="cuda")
+    checked = flips = 0
+    for lo, hi in [(0, 40_000), (n // 2 - 20_000, n // 2 + 20_000),
+                   (n - 33_333, n)]:
+        got = K.knn_topk_indices(x[lo:hi], train, k)
+        want = torch.cat([K.knn_topk_indices_plain(x[s:min(s + 16_384, hi)],
+                                                   train, k)
+                          for s in range(lo, hi, 16_384)])
+        f, _ = knn_tie_check(x[lo:hi], train, got, want, f"rows {lo}:{hi}")
+        vote = knn_mod._vote(got, label_idx, len(labels))
+        assert torch.equal(pred[lo:hi], labels.double()[vote]), (
+            f"rows {lo}:{hi}: transform differs from its kernel's neighbours")
+        plain_vote = knn_mod._vote(want, label_idx, len(labels))
+        differ = int((vote != plain_vote).sum())
+        assert differ <= f, f"rows {lo}:{hi}: {differ} votes off the plain ones"
+        checked += hi - lo
+        flips += f
+    log(f"  {checked} predictions against the plain version: tie-rows={flips}")
+    del x, table, pred, again
+    torch.cuda.empty_cache()
+
+    # small models give the same predictions on the card and on the CPU
+    # (blobs far apart: no row near a tie)
+    rng = np.random.default_rng(5)
+    for d, k in [(9, 7), (300, 40)]:  # a register and the wide instance
+        centers = rng.normal(size=(4, d)) * 10
+        which = rng.integers(0, 4, 600)
+        xs = centers[which] + rng.normal(size=(600, d))
+        small = Table.from_columns(features=xs, label=which * 2.5 - 1.0)
+        test = Table.from_columns(features=centers[rng.integers(0, 4, 300)]
+                                  + rng.normal(size=(300, d)))
+        preds = {}
+        for dev in ("cuda", "cpu"):
+            m = Knn(k=k, device=dev).fit(small)
+            preds[dev] = m.transform(test)[0]["prediction"].cpu()
+            assert m.last_execution_path == (
+                "cuda-knn" if dev == "cuda" else "torch-knn")
+        assert torch.equal(preds["cuda"], preds["cpu"]), (d, k)
+    log("  small models (d = 9, k = 7; d = 300, k = 40): card and CPU agree")
+    assert counts["knn_topk_indices"] >= 3 + 2, counts  # runs + transforms
+    return counts
+
+
+def _sparse_stream(Table, sparse, n, d, nnz_per_row, seed, striped=False):
+    """n rows of nnz_per_row stored values at seeded distinct columns of d,
+    labels from a seeded hyperplane, weights in [0.5, 1.5). ``striped``
+    draws the j-th column of a row from the j-th of nnz_per_row equal
+    stripes of d, which keeps a wide domain's draw small."""
+    rng = np.random.default_rng(seed)
+    if striped:
+        stripe = d // nnz_per_row
+        cols = (rng.integers(0, stripe, (n, nnz_per_row))
+                + np.arange(nnz_per_row) * stripe)
+    else:
+        cols = np.sort(rng.random((n, d), dtype=np.float32)
+                       .argpartition(nnz_per_row, axis=1)[:, :nnz_per_row],
+                       axis=1)
+    values = rng.normal(size=(n, nnz_per_row))
+    truth = rng.normal(size=d)
+    y = ((values * truth[cols]).sum(1) > 0).astype(np.float64)
+    import scipy.sparse as sp
+
+    x = sp.csr_matrix((values.ravel(), cols.ravel().astype(np.int32),
+                       np.arange(0, n * nnz_per_row + 1, nnz_per_row)),
+                      shape=(n, d))
+    return Table.from_columns(features=sparse.CsrVectorColumn(x), label=y,
+                              weight=rng.random(n) + 0.5)
+
+
+def phase_ftrl_main_path(K, runner, Table):
+    from flink_ml_tpu_torch.iteration import streaming
+    from flink_ml_tpu_torch.linalg import sparse
+    from flink_ml_tpu_torch.models import online
+
+    log("phase 9: the FTRL main path through the port's entry points")
+    spec = runner.load_config(str(FTRL_CONFIG))["OnlineLogisticRegression"]
+    n = spec["inputData"]["paramMap"]["numValues"]
+    d = spec["inputData"]["paramMap"]["vectorDim"]
+    batch = spec["stage"]["paramMap"]["globalBatchSize"]
+
+    K.reset_launch_counts()
+    row = runner.best_of("OnlineLogisticRegression", spec, runs=2)
+    log("  benchmark row:", json.dumps(row, sort_keys=True))
+    assert row["executionPath"] == "torch-dense-batches", row["executionPath"]
+    assert row["inputRecordNum"] == n and row["outputRecordNum"] == 1
+
+    # the sparse stream: the config's widths and params, 10 stored values a
+    # row; every batch runs the segment kernel
+    stream = _sparse_stream(Table, sparse, 2_000_000, d, 10, seed=23)
+
+    def sparse_fit():
+        est = runner.build_stage(spec).warm_start(np.zeros(d))
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        model = est.fit(stream)
+        torch.cuda.synchronize()
+        return model, est.last_execution_path, (time.perf_counter() - start) * 1e3
+
+    sparse_model, path, sparse_ms = sparse_fit()
+    counts = dict(K.launch_counts)
+    log(f"  sparse stream fit: {sparse_ms:.3f} ms for 2,000,000 rows "
+        f"({path}, version {sparse_model.model_version})")
+    log(f"  launches in the main-path run: {counts}")
+    assert path == "cuda-csr-batches", path
+    assert sparse_model.model_version == 2_000_000 // batch
+    # where the sparse fit's time goes: the host's batching and packing
+    # alone, and the packed batches' copies to the card
+    start = time.perf_counter()
+    packed = []
+    for b in streaming.generate_batches(
+            streaming.StreamTable.from_table(stream, batch), batch):
+        x = sparse.features_matrix(b, "features")
+        packed.append(online._pack_csr_shards(
+            x, b.scalars("label", np.float64),
+            b.scalars("weight", np.float64), 1))
+    pack_ms = (time.perf_counter() - start) * 1e3
+    start = time.perf_counter()
+    for p in packed:
+        [torch.as_tensor(a[0], device="cuda") for a in p]
+    torch.cuda.synchronize()
+    copy_ms = (time.perf_counter() - start) * 1e3
+    log(f"  of which host batching and packing alone: {pack_ms:.3f} ms; "
+        f"copies of the packed batches to the card: {copy_ms:.3f} ms")
+    del packed
+
+    # is the output right: the sparse fit reruns to the same bits and
+    # matches the float64 host engine on the same stream
+    again, _, _ = sparse_fit()
+    assert np.array_equal(again.coefficients, sparse_model.coefficients), (
+        "the sparse fit differs on a rerun")
+    threshold = online.FTRL_SPARSE_MIN_NNZ
+    online.FTRL_SPARSE_MIN_NNZ = 1 << 62
+    try:
+        host, host_path, host_ms = sparse_fit()
+    finally:
+        online.FTRL_SPARSE_MIN_NNZ = threshold
+    assert host_path == "host-csr-batches", host_path
+    diff = np.abs(sparse_model.coefficients - host.coefficients)
+    log(f"  against the host engine ({host_ms:.3f} ms): "
+        f"max|coeff diff|={diff.max():.3g} (max|coeff|="
+        f"{np.abs(host.coefficients).max():.3g})")
+    assert np.all(diff <= CSR_RTOL * np.abs(host.coefficients) + CSR_ATOL)
+    for (va, a), (vb, b) in zip(sparse_model.history, host.history):
+        assert va == vb
+        assert np.all(np.abs(a - b) <= CSR_RTOL * np.abs(b) + CSR_ATOL)
+    out = sparse_model.transform(stream)[0]
+    assert isinstance(out["prediction"], np.ndarray)
+    accuracy = float((out["prediction"] == stream.scalars("label",
+                                                          np.float64)).mean())
+    log(f"  sparse model accuracy on its stream: {accuracy:.4f}")
+    assert accuracy > 0.85, accuracy
+    del stream, out
+
+    # a hashed 2^18 domain: the per-coordinate sums take 128 segment tiles
+    # on the card, and the fit still matches the host engine
+    wide_d = 1 << 18
+    wide = _sparse_stream(Table, sparse, 4 * batch, wide_d, 10, seed=31,
+                          striped=True)
+    wide_fits = {}
+    for name, floor in [("card", threshold), ("host", 1 << 62)]:
+        online.FTRL_SPARSE_MIN_NNZ = floor
+        try:
+            e = runner.build_stage(spec).warm_start(np.zeros(wide_d))
+            wide_fits[name] = (e.fit(wide).coefficients, e.last_execution_path)
+        finally:
+            online.FTRL_SPARSE_MIN_NNZ = threshold
+    assert wide_fits["card"][1] == "cuda-csr-batches", wide_fits["card"][1]
+    assert wide_fits["host"][1] == "host-csr-batches", wide_fits["host"][1]
+    card_c, host_c = wide_fits["card"][0], wide_fits["host"][0]
+    diff = np.abs(card_c - host_c)
+    log(f"  hashed 2^18 domain, {4 * batch} rows: max|coeff diff| against "
+        f"the host engine={diff.max():.3g} (max|coeff|="
+        f"{np.abs(host_c).max():.3g}, {int((host_c != 0).sum())} nonzero)")
+    assert np.all(diff <= CSR_RTOL * np.abs(host_c) + CSR_ATOL)
+    del wide
+
+    # the dense fit on the config's table: version, history, transform,
+    # save/load. Its labels are independent of its features, so l1 holds
+    # every coefficient at 0; the same fit on labels from a hyperplane
+    # learns, and is held against the CPU
+    table = runner.build_generator(spec).get_data()
+    est = runner.build_stage(spec).set_initial_model_data(
+        runner.build_generator(spec, key="modelData").get_data())
+    model = est.fit(table)
+    assert est.last_execution_path == "torch-dense-batches"
+    assert model.model_version == n // batch and len(model.history) == n // batch
+    assert np.isfinite(model.coefficients).all()
+    truth = torch.randn(d, generator=torch.Generator(device="cuda").manual_seed(29),
+                        device="cuda")
+    x = table.column("features")
+    margin = x @ truth
+    learnable = table.with_column(
+        "label", (margin > margin.median()).to(torch.float32))
+    fits = {}
+    for dev in ("cuda", "cpu"):
+        t = learnable if dev == "cuda" else Table.from_columns(
+            **{c: learnable.column(c).cpu() for c in learnable.column_names})
+        e = runner.build_stage(spec, device=dev).warm_start(np.zeros(d))
+        fits[dev] = e.fit(t).coefficients
+        del t
+    diff = np.abs(fits["cuda"] - fits["cpu"])
+    log(f"  dense fit on hyperplane labels against the CPU: max|coeff diff|="
+        f"{diff.max():.3g} (max|coeff|={np.abs(fits['cpu']).max():.3g}, "
+        f"{int((fits['cpu'] != 0).sum())} of {d} nonzero)")
+    assert np.abs(fits["cpu"]).max() > 0.01
+    assert np.all(diff <= BIG_FIT_RTOL * np.abs(fits["cpu"]) + BIG_FIT_ATOL)
+    del x, margin, learnable
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    pred = model.transform(table)[0]
+    torch.cuda.synchronize()
+    transform_ms = (time.perf_counter() - start) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(tmp)
+        loaded = type(model).load(tmp)
+        again = loaded.transform(table)[0]
+    assert torch.equal(pred[model.prediction_col], again[loaded.prediction_col])
+    assert bool(torch.isfinite(pred[model.raw_prediction_col]).all())
+    assert int(pred[model.model_version_col][0]) == n // batch
+    log(f"  FTRL transform: {transform_ms:.3f} ms for {n} rows; save/load: "
+        "same predictions")
+    del table, pred, again
+    torch.cuda.empty_cache()
+
+    # small dense fits give the same model on the card and on the CPU
+    small = _small_linear_table(Table, 31, 600, 7, False)
+    fitted = {}
+    for dev in ("cuda", "cpu"):
+        e = online.OnlineLogisticRegression(
+            device=dev, global_batch_size=100, reg=0.05, elastic_net=0.3,
+            weight_col="weight").warm_start(np.zeros(7))
+        fitted[dev] = e.fit(small).coefficients
+    np.testing.assert_allclose(fitted["cuda"], fitted["cpu"],
+                               rtol=SMALL_RTOL, atol=SMALL_ATOL)
+    log("  small dense fits: card and CPU agree")
+    batches = 2_000_000 // batch
+    assert counts["segment_reduce_sum"] >= 2 * batches, counts
+    assert counts["reduce_partials"] >= 2 * batches, counts
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
+    started = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -629,20 +1156,26 @@ def main() -> int:
     measured = phase_kernels(K)
     measured.update(phase_sgd_kernels(K))
     # each path is driven with the counts at 0 and read just after; a
-    # path's count of the other path's kernels is 0
-    kmeans_counts = phase_main_path(K, runner, kmeans_mod)
-    linear_counts = phase_linear_main_path(K, runner, optimizer, Table)
+    # path's count of another path's kernels is 0
+    counts = {"kmeans": phase_main_path(K, runner, kmeans_mod),
+              "linear": phase_linear_main_path(K, runner, optimizer, Table)}
+    measured.update(phase_knn_kernel(K))
+    measured.update(phase_segment_kernel(K))
+    counts["knn"] = phase_knn_main_path(K, runner, Table)
+    counts["ftrl"] = phase_ftrl_main_path(K, runner, Table)
 
     line = {"kernels": [
         {"name": name, **{key: K.KERNELS[name][key]
                           for key in ("route", "source", "replaces")},
-         "launches": kmeans_counts[name] + linear_counts[name],
+         "launches": sum(c[name] for c in counts.values()),
          **measured[name]}
         for name in K.KERNELS]}
     missing = [r["name"] for r in line["kernels"] if r["launches"] < 1]
-    assert not missing, f"kernels the main path never launched: {missing}"
-    assert not any(linear_counts[k] for k in KMEANS_KERNELS), linear_counts
-    assert not any(kmeans_counts[k] for k in SGD_KERNELS), kmeans_counts
+    assert not missing, f"kernels the main paths never launched: {missing}"
+    for path, path_counts in counts.items():
+        others = [k for p, ks in PATH_KERNELS.items() if p != path for k in ks]
+        assert not any(path_counts[k] for k in others), (path, path_counts)
+    log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(card, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

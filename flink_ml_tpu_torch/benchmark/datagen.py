@@ -1,9 +1,11 @@
 """Param-driven random data generators.
 
 The port of the generators of ``flink_ml_tpu/benchmark/datagen.py`` that the
-KMeans and linear-model benchmarks use (ref: flink-ml-benchmark/.../
-datagenerator/common/InputTableGenerator.java, DenseVectorGenerator.java:34-53,
-LabeledPointWithWeightGenerator.java:50-75).
+KMeans, linear-model, KNN and FTRL benchmarks use (ref: flink-ml-benchmark/
+.../datagenerator/common/InputTableGenerator.java,
+DenseVectorGenerator.java:34-53, LabeledPointWithWeightGenerator.java:50-75),
+and the two model-data generators of the KNN and FTRL configs, which stay on
+the host and draw the JAX package's numbers.
 
 Below 8 MiB a table is generated on the host with numpy, exactly as the JAX
 package generates it, so both packages see identical tables. From 8 MiB up
@@ -19,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from flink_ml_tpu_torch.common.table import Table
+from flink_ml_tpu_torch.common.table import Table, as_dense_vector_column
 from flink_ml_tpu_torch.device import DeviceLike, resolve_device
 from flink_ml_tpu_torch.params.param import (
     ArrayArrayParam,
@@ -152,3 +154,50 @@ class LabeledPointWithWeightGenerator(InputTableGenerator, HasVectorDim):
         weight = rng.random(n, dtype=np.float64)
         return Table.from_columns(**{
             f_name: features, l_name: label, w_name: weight})
+
+
+class HasArraySize(WithParams):
+    ARRAY_SIZE = IntParam("arraySize", "Size of generated arrays.", 1,
+                          ParamValidators.gt(0))
+
+
+class _ModelDataGenerator(HasSeed):
+    """Base of the model-data generators: small host tables, so ``device``
+    is accepted as every generator takes it, and not used."""
+
+    def __init__(self, device: DeviceLike = None, **kwargs):
+        super().__init__(**kwargs)
+
+    def get_data(self) -> Table:
+        raise NotImplementedError
+
+
+@_register
+class LogisticRegressionModelDataGenerator(_ModelDataGenerator, HasVectorDim):
+    """Zero LR model data (coefficient vector + modelVersion 0): the
+    initial model the online trainer requires
+    (OnlineLogisticRegression.java:440 setInitialModelData)."""
+
+    def get_data(self) -> Table:
+        return Table.from_columns(
+            coefficient=as_dense_vector_column(
+                np.zeros((1, self.vector_dim))),
+            modelVersion=np.asarray([0], np.int64))
+
+
+@_register
+class KnnModelDataGenerator(_ModelDataGenerator, HasVectorDim, HasArraySize):
+    """Random KNN model data: arraySize cached train points of vectorDim
+    dims with integer labels in [0, labelArity) (the KnnModel.set_model_data
+    schema: packedFeatures + labels), drawn with numpy from the seed as the
+    JAX package draws them."""
+
+    LABEL_ARITY = IntParam("labelArity", "Number of distinct labels.", 2,
+                           ParamValidators.gt(0))
+
+    def get_data(self) -> Table:
+        rng = np.random.default_rng(self.get_seed_or_default())
+        n = self.array_size
+        return Table.from_columns(
+            packedFeatures=rng.random((n, self.vector_dim)),
+            labels=np.floor(rng.random(n) * self.label_arity))

@@ -1,13 +1,16 @@
 """Benchmark runner CLI.
 
-The port of ``flink_ml_tpu/benchmark/runner.py`` for Estimator rows (ref:
+The port of ``flink_ml_tpu/benchmark/runner.py`` (ref:
 Benchmark.java:41/main:129 + BenchmarkUtils.java:47): parse a JSON config
-(version 1; named benchmarks each holding stage / inputData specs with
-className + paramMap), instantiate through the param system, run, and report
-{totalTimeMs, inputRecordNum, inputThroughput, outputRecordNum,
-outputThroughput} (BenchmarkUtils.java:130-143) plus the JAX package's
-extra columns that apply here. Estimators are timed as
-``fit(input).get_model_data()``, datagen included, as in the reference.
+(version 1; named benchmarks each holding stage / inputData and optional
+modelData specs with className + paramMap), instantiate through the param
+system, run, and report {totalTimeMs, inputRecordNum, inputThroughput,
+outputRecordNum, outputThroughput} (BenchmarkUtils.java:130-143) plus the
+JAX package's extra columns that apply here. Estimators are timed as
+``fit(input).get_model_data()``, other stages as ``transform(input)``,
+datagen included, as in the reference. A modelData table seeds an online
+trainer (``set_initial_model_data``) or becomes a Model's model data
+(``set_model_data``), and its bytes count into ``inputBytes``.
 
 It reads the JAX package's config files in place as data, e.g.
 ``flink_ml_tpu/benchmark/configs/kmeans-benchmark.json``. Timing ends with a
@@ -30,9 +33,10 @@ from typing import Dict
 import numpy as np
 import torch
 
-from flink_ml_tpu_torch.api.stage import Estimator, Stage
+from flink_ml_tpu_torch.api.stage import AlgoOperator, Estimator, Stage
 from flink_ml_tpu_torch.benchmark.datagen import resolve_generator
 from flink_ml_tpu_torch.device import DeviceLike, resolve_device, synchronize
+from flink_ml_tpu_torch.linalg.sparse import is_csr_column
 
 _STAGES: Dict[str, type] = {}
 
@@ -84,37 +88,51 @@ def build_stage(spec: dict, device: DeviceLike = None) -> Stage:
     return stage
 
 
-def build_generator(spec: dict, device: DeviceLike = None):
-    """The spec's input generator, with its params, on ``device``."""
-    gen = resolve_generator(spec["inputData"]["className"])(device=device)
-    gen.params_from_json(spec["inputData"].get("paramMap", {}), strict=True)
+def build_generator(spec: dict, device: DeviceLike = None, key="inputData"):
+    """The spec's ``key`` generator (inputData or modelData), with its
+    params, on ``device``."""
+    gen = resolve_generator(spec[key]["className"])(device=device)
+    gen.params_from_json(spec[key].get("paramMap", {}), strict=True)
     return gen
 
 
 def run_benchmark(name: str, spec: dict, device: DeviceLike = None) -> dict:
     """One named benchmark, datagen included in the measured time."""
     device = resolve_device(device)
-    if "modelData" in spec:
-        raise ValueError(f"{name}: model-data benchmarks come with a later "
-                         "slice of the port")
     stage = build_stage(spec, device)
-    if not isinstance(stage, Estimator):
-        raise ValueError(f"{name}: this slice runs Estimator benchmarks only")
+    if not isinstance(stage, (Estimator, AlgoOperator)):
+        raise ValueError(f"{name}: unsupported stage class {type(stage)}")
     gen = build_generator(spec, device)
+    model_gen = (build_generator(spec, device, "modelData")
+                 if "modelData" in spec else None)
 
     synchronize(device)
     start = time.perf_counter()
     input_table = gen.get_data()
+    model_table = None if model_gen is None else model_gen.get_data()
     synchronize(device)  # honest datagen/execute split
     datagen_ms = (time.perf_counter() - start) * 1000.0
-    outputs = stage.fit(input_table).get_model_data()
-    synchronize(device)
+    if model_table is not None:
+        if isinstance(stage, Estimator) and hasattr(
+                stage, "set_initial_model_data"):
+            # online trainers start from model data instead of consuming it
+            # as a fitted model (OnlineLogisticRegression.java:440)
+            stage.set_initial_model_data(model_table)
+        else:
+            stage.set_model_data(model_table)
+    if isinstance(stage, Estimator):
+        outputs = stage.fit(input_table).get_model_data()
+    else:
+        outputs = stage.transform(input_table)
+    synchronize(device)  # every output column is computed
     total_ms = (time.perf_counter() - start) * 1000.0
 
     output_num = sum(t.num_rows for t in outputs)
     input_num = gen.num_values
     exec_ms = total_ms - datagen_ms
     input_bytes = _table_bytes(input_table)
+    if model_table is not None:
+        input_bytes += _table_bytes(model_table)
     return {
         "device": str(device),
         "deviceName": (torch.cuda.get_device_name(device)
@@ -136,13 +154,17 @@ def run_benchmark(name: str, spec: dict, device: DeviceLike = None) -> dict:
 
 
 def _table_bytes(table) -> int:
-    """Byte size of a Table's columns (tensor, numpy); object columns are
-    estimated from a 256-row sample."""
+    """Byte size of a Table's columns (tensor, numpy, CSR); object columns
+    are estimated from a 256-row sample."""
     total = 0
     for name in table.column_names:
         col = table.column(name)
         if isinstance(col, torch.Tensor):
             total += col.numel() * col.element_size()
+            continue
+        if is_csr_column(col):
+            m = col.to_csr()
+            total += m.data.nbytes + m.indices.nbytes + m.indptr.nbytes
             continue
         if col.dtype != np.dtype(object):
             total += int(col.nbytes)

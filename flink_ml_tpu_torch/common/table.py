@@ -1,10 +1,10 @@
 """Columnar Table.
 
 The port of ``flink_ml_tpu/common/table.py``. A column is a host numpy array
-(numeric, or an object column of vectors) or a ``torch.Tensor`` — a device
-column, kept as it is so that chained stages hand tensors to each other
-without a round trip through the host. CSV parsing and the sparse and
-streaming column kinds come with later slices.
+(numeric, or an object column of vectors), a CSR-backed sparse vector column
+(``linalg/sparse.py``), or a ``torch.Tensor`` — a device column, kept as it
+is so that chained stages hand tensors to each other without a round trip
+through the host. CSV parsing and the row views come with later slices.
 """
 
 from __future__ import annotations
@@ -28,11 +28,18 @@ def _is_device_column(values) -> bool:
     return isinstance(values, torch.Tensor)
 
 
+def _is_csr_column(values) -> bool:
+    """A CsrVectorColumn (``linalg/sparse.py``), duck-typed so that this
+    module needs no scipy."""
+    return getattr(values, "is_csr_vector_column", False)
+
+
 def _as_column(values):
     """Normalize a column. Numeric 2-D arrays are kept as-is — a (n, d) array
     IS a vector column (row i = vector i), which avoids materializing n
     DenseVector objects for large tables."""
-    if isinstance(values, np.ndarray) or _is_device_column(values):
+    if (isinstance(values, np.ndarray) or _is_device_column(values)
+            or _is_csr_column(values)):
         return values
     values = list(values)
     if values and isinstance(values[0], Vector):
@@ -56,6 +63,25 @@ def _as_column(values):
             out[i] = v
         return out
     return arr
+
+
+def _take_rows(col, indices: np.ndarray):
+    if _is_device_column(col):
+        return col[torch.as_tensor(indices, dtype=torch.int64,
+                                   device=col.device)]
+    return col[indices]
+
+
+def _concat_columns(a, b):
+    if _is_csr_column(a):
+        return a.concat(b)
+    if _is_csr_column(b):
+        return b.concat_after(a)  # keep CSR backing either way
+    if _is_device_column(a) or _is_device_column(b):
+        device = (a if _is_device_column(a) else b).device
+        return torch.cat([torch.as_tensor(a, device=device),
+                          torch.as_tensor(b, device=device)])
+    return np.concatenate([a, b])
 
 
 class Table:
@@ -112,9 +138,13 @@ class Table:
         its device (residency preserved for chained stages). A tensor column
         requested at a different dtype is brought to the host at the
         requested precision, as the JAX package does for its device
-        columns. Host columns come back as numpy arrays.
+        columns. Host columns come back as numpy arrays; a CSR column comes
+        back densified (callers that keep sparsity use
+        ``linalg.sparse.features_matrix``).
         """
         col = self.column(name)
+        if _is_csr_column(col):
+            return col.to_dense(dtype)
         if _is_device_column(col):
             if col.dtype == _TORCH_DTYPES.get(np.dtype(dtype)):
                 return col if col.ndim == 2 else col[:, None]
@@ -140,8 +170,38 @@ class Table:
         cols.update(columns)
         return Table(cols)
 
+    def take(self, indices) -> "Table":
+        """Row subset. A unit-step ``slice`` gives views: tensor and numpy
+        columns share this table's storage (copy a column before writing
+        into it), a CSR column slices its matrix. Other slices and index
+        arrays copy."""
+        if isinstance(indices, slice):
+            start, stop, step = indices.indices(self._num_rows)
+            if step == 1:
+                return Table({n: c[start:stop]
+                              for n, c in self._columns.items()})
+            indices = np.arange(start, stop, step)
+        indices = np.asarray(indices)
+        return Table({n: _take_rows(c, indices)
+                      for n, c in self._columns.items()})
+
+    def concat(self, other: "Table") -> "Table":
+        """This table's rows, then ``other``'s (same column names). Tensor
+        columns stay on their device; a host column joined to a tensor
+        column is moved there."""
+        if set(self.column_names) != set(other.column_names):
+            raise ValueError("cannot concat tables with different schemas")
+        if self._num_rows == 0:
+            return Table({n: other.column(n) for n in self.column_names})
+        if other.num_rows == 0:
+            return self
+        return Table({n: _concat_columns(self._columns[n], other.column(n))
+                      for n in self.column_names})
+
     def _host_column(self, name: str) -> np.ndarray:
         col = self._columns[name]
+        if _is_csr_column(col):
+            return col.to_object_column()
         return col.cpu().numpy() if _is_device_column(col) else col
 
     def __repr__(self):

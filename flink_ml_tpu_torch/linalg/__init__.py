@@ -3,6 +3,7 @@
 from flink_ml_tpu_torch.linalg.distance import DistanceMeasure  # noqa: F401
 from flink_ml_tpu_torch.linalg.vectors import (  # noqa: F401
     DenseVector,
+    SparseVector,
     Vector,
     stack_vectors,
 )

@@ -1,8 +1,9 @@
-"""Dense vectors on the host.
+"""Dense and sparse vectors on the host.
 
-The port's copy of what ``Table`` needs from ``flink_ml_tpu/linalg/vectors.py``
-(ref: linalg/DenseVector.java). Sparse vectors and matrices come with the
-slices that use them.
+The port's copy of what ``Table`` and the CSR columns need from
+``flink_ml_tpu/linalg/vectors.py`` (ref: linalg/DenseVector.java,
+SparseVector.java). Matrices and the byte encoding come with the slices that
+use them.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from typing import Iterable, Sequence, Union
 
 import numpy as np
 
-__all__ = ["Vector", "DenseVector", "stack_vectors"]
+__all__ = ["Vector", "DenseVector", "SparseVector", "stack_vectors"]
 
 
 class Vector:
@@ -71,6 +72,66 @@ class DenseVector(Vector):
 
     def __repr__(self):
         return f"DenseVector({self.values.tolist()})"
+
+
+class SparseVector(Vector):
+    """Sparse vector: (size, sorted indices, values) (ref: SparseVector.java)."""
+
+    __slots__ = ("_size", "indices", "values")
+
+    def __init__(self, size: int, indices, values):
+        indices = np.asarray(indices, dtype=np.int64)
+        values = np.asarray(values, dtype=np.float64)
+        if indices.shape != values.shape:
+            raise ValueError("indices and values must have equal length")
+        if indices.size and (indices.min() < 0 or indices.max() >= size):
+            raise ValueError(f"index out of range for size {size}")
+        order = np.argsort(indices, kind="stable")
+        self._size = int(size)
+        self.indices = indices[order]
+        self.values = values[order]
+        if self.indices.size > 1 and np.any(np.diff(self.indices) == 0):
+            raise ValueError("duplicate indices in SparseVector")
+
+    @classmethod
+    def _unchecked(cls, size: int, indices, values) -> "SparseVector":
+        """From already sorted, in-range, duplicate-free int64/float64
+        arrays, without validation (the bulk path of CSR row views)."""
+        v = object.__new__(cls)
+        v._size = size
+        v.indices = indices
+        v.values = values
+        return v
+
+    @property
+    def size(self) -> int:
+        return self._size
+
+    def get(self, i: int) -> float:
+        pos = np.searchsorted(self.indices, i)
+        if pos < len(self.indices) and self.indices[pos] == i:
+            return float(self.values[pos])
+        return 0.0
+
+    def to_array(self) -> np.ndarray:
+        arr = np.zeros(self._size, dtype=np.float64)
+        arr[self.indices] = self.values
+        return arr
+
+    def to_sparse(self) -> "SparseVector":
+        return self
+
+    def __eq__(self, other):
+        return (isinstance(other, SparseVector) and self._size == other._size
+                and np.array_equal(self.indices, other.indices)
+                and np.array_equal(self.values, other.values))
+
+    def __hash__(self):
+        return hash((self._size, self.indices.tobytes(), self.values.tobytes()))
+
+    def __repr__(self):
+        return (f"SparseVector({self._size}, {self.indices.tolist()}, "
+                f"{self.values.tolist()})")
 
 
 def stack_vectors(vectors: Iterable[Vector], dtype=np.float32) -> np.ndarray:

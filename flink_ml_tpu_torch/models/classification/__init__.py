@@ -6,3 +6,7 @@ from flink_ml_tpu_torch.models.classification.linearsvc import (  # noqa: F401
     LinearSVC,
     LinearSVCModel,
 )
+from flink_ml_tpu_torch.models.classification.knn import (  # noqa: F401
+    Knn,
+    KnnModel,
+)

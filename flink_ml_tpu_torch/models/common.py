@@ -20,6 +20,7 @@ import torch
 
 from flink_ml_tpu_torch.api.stage import Estimator, Model
 from flink_ml_tpu_torch.common.table import Table
+from flink_ml_tpu_torch.linalg import sparse
 from flink_ml_tpu_torch.linalg.vectors import DenseVector
 from flink_ml_tpu_torch.ops.losses import LossFunc
 from flink_ml_tpu_torch.ops.optimizer import SGD, SGDParams
@@ -67,21 +68,23 @@ class IterationRuntimeMixin:
             "supervised restarts come with the resilience slice of the port")
 
 
+def scalar_column(table: Table, name: str):
+    """A scalar column: a tensor column as it is, on its device (a device
+    label column never goes to the host); a host column as float32 numpy."""
+    col = table.column(name)
+    return col if isinstance(col, torch.Tensor) else table.scalars(name)
+
+
 def extract_labeled_points(stage, table: Table):
     """Table → (features (n, d), labels (n,), weights (n,) or None), the
     reference's Table→LabeledPointWithWeight map
     (LogisticRegression.java:72-99). Tensor columns are returned as they
-    are, on their device: a device label column never goes to the host."""
-
-    def scalar_col(name):
-        col = table.column(name)
-        return col if isinstance(col, torch.Tensor) else table.scalars(name)
-
+    are, on their device."""
     x = table.vectors(stage.features_col)
-    y = scalar_col(stage.label_col)
+    y = scalar_column(table, stage.label_col)
     w = None
     if stage.weight_col is not None and stage.weight_col in table:
-        w = scalar_col(stage.weight_col)
+        w = scalar_column(table, stage.weight_col)
     return x, y, w
 
 
@@ -91,10 +94,14 @@ def prediction_dtype() -> torch.dtype:
     return torch.float32
 
 
-def predict_dots(x, coefficients, device: torch.device) -> torch.Tensor:
-    """Margins ``x @ coefficients`` for a dense feature batch, float32 on
-    ``device`` (ref LogisticRegressionModelServable.java:106 dot): one plain
-    matrix-vector product, as the JAX package leaves it to XLA."""
+def predict_dots(x, coefficients, device: torch.device):
+    """Margins ``x @ coefficients`` (ref LogisticRegressionModelServable.java
+    :106 dot). A dense batch gives a float32 tensor on ``device``: one plain
+    matrix-vector product, as the JAX package leaves it to XLA. A scipy CSR
+    batch stays a host matvec and gives a float64 numpy array (ref BLAS.hDot,
+    sparse branch)."""
+    if sparse.is_csr(x):
+        return np.asarray(x @ np.asarray(coefficients, np.float64))
     xd = torch.as_tensor(x, dtype=torch.float32, device=device)
     cd = torch.as_tensor(np.asarray(coefficients), dtype=torch.float32,
                          device=device)

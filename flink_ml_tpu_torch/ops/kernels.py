@@ -14,6 +14,12 @@ at first use, one library per source:
   ``[Σ mult·x | Σ w | Σ loss]`` over the minibatch window, forward dots and
   loss terms fused into the gradient pass, again in two fixed-order stages
   (per-block partials, then :func:`reduce_partials`), for any feature width.
+- :func:`segment_reduce_sum` (``csrc/segment_kernels.cu``): per-segment sums
+  of 1-D or 2-D values, ids outside the domain dropped, in two fixed-order
+  stages (per-chunk partials, then :func:`reduce_partials`).
+- :func:`knn_topk_indices` (``csrc/knn_kernels.cu``): the k nearest train
+  rows of every test row, fused distance and top-k over the streamed train
+  set, ties to the lowest index.
 
 No kernel uses atomics, so a call gives the same bits every time.
 
@@ -39,6 +45,8 @@ from flink_ml_tpu_torch.ops.losses import LossFunc
 
 KMEANS_SOURCE = "kmeans_kernels"
 SGD_SOURCE = "sgd_kernels"
+SEGMENT_SOURCE = "segment_kernels"
+KNN_SOURCE = "knn_kernels"
 
 #: what each kernel is and replaces, for reports (chip_smoke.py, PERF.md)
 KERNELS = {
@@ -56,6 +64,12 @@ KERNELS = {
     "sgd_batch_terms": {
         "route": "cuda", "source": "flink_ml_tpu_torch/csrc/sgd_kernels.cu",
         "replaces": "flink_ml_tpu/ops/pallas_kernels.py:206"},
+    "segment_reduce_sum": {
+        "route": "cuda", "source": "flink_ml_tpu_torch/csrc/segment_kernels.cu",
+        "replaces": "flink_ml_tpu/ops/pallas_kernels.py:332"},
+    "knn_topk_indices": {
+        "route": "cuda", "source": "flink_ml_tpu_torch/csrc/knn_kernels.cu",
+        "replaces": "flink_ml_tpu/ops/pallas_kernels.py:421"},
 }
 
 #: kernel launches by wrapper since the last :func:`reset_launch_counts`
@@ -140,6 +154,57 @@ def _sgd_layout(d: int) -> Tuple[int, int, int]:
     return rows, dc, 4 * (rows * dc + dc + 3 * rows)
 
 
+#: warps of a segment block (``kWarps`` of ``segment_kernels.cu``)
+SEG_WARPS = 4
+#: floats of one warp's (ut, cg) accumulator in the segment kernel (16 KB;
+#: the block's four warps take 64 KB and 512 bytes of scratch, so three
+#: blocks share an SM)
+SEG_TILE_FLOATS = 4096
+#: rows a segment chunk holds at least (256 rows, 8 steps, per warp)
+SEG_MIN_CHUNK_ROWS = 1024
+
+
+def _seg_layout(num_segments: int, c: int) -> Tuple[int, int, int, int]:
+    """``(ut, tiles, cg, groups)`` of a :func:`segment_reduce_sum` launch:
+    each warp of a block keeps a private (ut, cg) accumulator in shared
+    memory, ut·cg ≤ :data:`SEG_TILE_FLOATS` (16 KB; four warps take 64 KB
+    of the 227 KB a block may use). The value columns are split into groups
+    of cg = min(c, 4,096) and the segment domain into tiles of ut segments,
+    so every u and c has a layout; every tile is another pass over the ids.
+    FTRL's per-row dots at 131,072 rows take 32 tiles, its per-coordinate
+    (d, 2) sums at d = 100 one, a hashed 2^18 domain with two value columns
+    128."""
+    cg = min(c, SEG_TILE_FLOATS)
+    ut = min(num_segments, SEG_TILE_FLOATS // cg)
+    return ut, -(-num_segments // ut), cg, -(-c // cg)
+
+
+#: the row widths and top-k list lengths of the KNN kernel's register
+#: instances (``knn_topk_kernel<DPAD, KCAP>``), smallest first
+KNN_DPADS = (32, 64, 128)
+KNN_KCAPS = (16, 32)
+
+
+def _knn_layout(k: int, d: int) -> Tuple[int, int]:
+    """``(dpad, kcap)`` of the :func:`knn_topk_indices` instance for ``k``
+    neighbours of ``d``-wide rows; ``(0, 0)`` is the wide instance.
+
+    A register instance holds a thread's test row (d padded to 32, 64 or
+    128 floats) and its sorted top-k list (16 or 32 distances and indices)
+    in registers: at d = 128, k = 32 that is 192 values, and ptxas gives
+    that instance all 255 registers a thread may have and a 128-byte stack
+    frame, so neither bound can grow without spilling. The benchmark's
+    d = 32, k = 10 takes the (32, 16) instance (112 registers, no stack).
+    Any wider row or longer list takes the wide instance
+    (``knn_topk_wide_kernel``): rows staged through shared memory in
+    64-column chunks, the list in a (k, n) scratch in device memory."""
+    dpad = next((p for p in KNN_DPADS if d <= p), None)
+    kcap = next((q for q in KNN_KCAPS if k <= q), None)
+    if dpad is None or kcap is None:
+        return 0, 0
+    return dpad, kcap
+
+
 # -- plain versions ------------------------------------------------------------
 
 def assign_nearest_plain(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
@@ -180,6 +245,56 @@ def sgd_batch_terms_plain(xl: torch.Tensor, yl: torch.Tensor,
         wb = torch.where(torch.arange(lb, device=wb.device) >= clip, wb, 0.0)
     loss_sum, mult = LossFunc.by_name(loss_name).terms(xb @ coeffs, yb, wb)
     return torch.cat([xb.T @ mult, wb.sum()[None], loss_sum[None]])
+
+
+def segment_reduce_sum_plain(values: torch.Tensor, segment_ids: torch.Tensor,
+                             num_segments: int) -> torch.Tensor:
+    """Plain PyTorch :func:`segment_reduce_sum`. Deterministic on the card
+    too (``index_add_`` there is not): the kept rows are sorted by id
+    (stable), summed by a float64 prefix sum and differenced at the segment
+    ends, then rounded to float32."""
+    u = int(num_segments)
+    squeeze = values.ndim == 1
+    v = values[:, None] if squeeze else values
+    keep = (segment_ids >= 0) & (segment_ids < u)
+    ids, order = torch.sort(segment_ids[keep].long(), stable=True)
+    csum = torch.cumsum(v[keep][order].double(), dim=0)
+    counts = torch.bincount(ids, minlength=u)
+    out = torch.zeros((u, v.shape[1]), dtype=torch.float64, device=v.device)
+    hit = counts > 0
+    ends = torch.cumsum(counts, 0)[hit] - 1
+    starts = ends - counts[hit]
+    before = torch.where((starts >= 0)[:, None], csum[starts.clamp_min(0)], 0.0)
+    out[hit] = csum[ends] - before
+    out = out.float()
+    return out[:, 0] if squeeze else out
+
+
+def _topk_lowest_index(d2: torch.Tensor, k: int) -> torch.Tensor:
+    """Column indices of the k smallest entries of each row of ``d2``, in
+    ascending order, ties to the lowest column: the order of
+    ``lax.top_k(-d2, k)``, which ``torch.topk`` does not promise. The ties
+    at the k-th value are resolved explicitly, lowest column first."""
+    n = d2.shape[0]
+    kth = torch.kthvalue(d2, k, dim=1).values[:, None]
+    below = d2 < kth
+    at = d2 == kth
+    need = k - below.sum(1, keepdim=True)
+    keep = below | (at & (torch.cumsum(at, 1, dtype=torch.int32) <= need))
+    cols = torch.nonzero(keep)[:, 1].view(n, k)  # ascending per row
+    order = torch.sort(d2.gather(1, cols), dim=1, stable=True).indices
+    return cols.gather(1, order).to(torch.int32)
+
+
+def knn_topk_indices_plain(x: torch.Tensor, train: torch.Tensor,
+                           k: int) -> torch.Tensor:
+    """Plain PyTorch :func:`knn_topk_indices`: (n, min(k, n_train)) int32.
+    Holds the whole (n, n_train) distance block: callers chunk x."""
+    k = min(int(k), train.shape[0])
+    if x.shape[0] == 0:
+        return torch.empty((0, k), dtype=torch.int32, device=x.device)
+    tsq = torch.sum(train * train, dim=1)
+    return _topk_lowest_index(tsq[None, :] - 2.0 * (x @ train.T), k)
 
 
 # -- wrappers ------------------------------------------------------------------
@@ -313,6 +428,72 @@ def sgd_batch_terms(xl: torch.Tensor, yl: torch.Tensor, wl: torch.Tensor,
     return reduce_partials(partials)
 
 
+def segment_reduce_sum(values: torch.Tensor, segment_ids: torch.Tensor,
+                       num_segments: int) -> torch.Tensor:
+    """Per-segment sums: ``out[s] = Σ values[i]`` over ``segment_ids[i] ==
+    s``.
+
+    values: (n,) or (n, c) float32; segment_ids: (n,) int32 on the same
+    device → (u,) or (u, c) float32 with u = ``num_segments``. Rows whose id
+    lies outside [0, u), the −1 padding included, add nothing; n == 0 gives
+    zeros. Replaces ``segment_reduce_sum`` of
+    ``flink_ml_tpu/ops/pallas_kernels.py``; every u and c runs the kernel.
+    """
+    _check("segment_reduce_sum", values=values)
+    u = int(num_segments)
+    n = values.shape[0] if values.ndim else 0
+    if (values.ndim not in (1, 2) or not isinstance(segment_ids, torch.Tensor)
+            or segment_ids.dtype != torch.int32
+            or tuple(segment_ids.shape) != (n,)
+            or not segment_ids.is_contiguous()
+            or segment_ids.device != values.device or u < 1):
+        raise ValueError(
+            "segment_reduce_sum: values must be (n,) or (n, c) and "
+            "segment_ids a contiguous (n,) int32 tensor on the same device, "
+            f"with num_segments >= 1; got {tuple(values.shape)}, "
+            f"{getattr(segment_ids, 'dtype', type(segment_ids).__name__)} "
+            f"{tuple(getattr(segment_ids, 'shape', ()))}, {u}")
+    if not _is_cuda(values):
+        return segment_reduce_sum_plain(values, segment_ids, u)
+    c = 1 if values.ndim == 1 else values.shape[1]
+    if n == 0 or c == 0:
+        return torch.zeros((u,) if values.ndim == 1 else (u, c),
+                           dtype=torch.float32, device=values.device)
+    partials = _launch_segment_partials(values, segment_ids, u, c)
+    launch_counts["segment_reduce_sum"] += 1
+    out = reduce_partials(partials)
+    return out[:, 0] if values.ndim == 1 else out
+
+
+def knn_topk_indices(x: torch.Tensor, train: torch.Tensor,
+                     k: int) -> torch.Tensor:
+    """Indices of the k nearest train rows of every test row, fused
+    distance and top-k: the (n, n_train) distances never exist.
+
+    x: (n, d), train: (n_train, d) float32 on one device →
+    (n, min(k, n_train)) int32 in ascending order of ‖t‖² − 2·x·t, ties to
+    the lowest train index (``lax.top_k`` parity). Replaces
+    ``knn_topk_indices`` of ``flink_ml_tpu/ops/pallas_kernels.py``; every
+    d and k runs the kernel.
+    """
+    _check("knn_topk_indices", x=x, train=train)
+    if x.ndim != 2 or train.ndim != 2 or x.shape[1] != train.shape[1]:
+        raise ValueError("knn_topk_indices: x must be (n, d) and train "
+                         f"(n_train, d), got {tuple(x.shape)} and "
+                         f"{tuple(train.shape)}")
+    if train.shape[0] < 1 or int(k) < 1:
+        raise ValueError("knn_topk_indices: needs at least one train row "
+                         f"and k >= 1, got {train.shape[0]} and {k}")
+    if not _is_cuda(x):
+        return knn_topk_indices_plain(x, train, k)
+    k = min(int(k), train.shape[0])
+    if x.shape[0] == 0:
+        return torch.empty((0, k), dtype=torch.int32, device=x.device)
+    out = _launch_knn(x, train, k)
+    launch_counts["knn_topk_indices"] += 1
+    return out
+
+
 # -- launches (CUDA only) --------------------------------------------------------
 
 def build_kernels() -> dict:
@@ -343,10 +524,22 @@ _SIGNATURES = {
         "sgd_terms_partials": ([_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I,
                                 _I, _I, _I, _L, _I, _P], _I),
     },
+    SEGMENT_SOURCE: {
+        "segment_error_string": ([_I], ctypes.c_char_p),
+        "segment_blocks_per_sm": ([_I, ctypes.POINTER(_I)], _I),
+        "segment_reduce_partials": ([_P, _P, _P, _L, _I, _I, _I, _I, _L, _I,
+                                     _P], _I),
+    },
+    KNN_SOURCE: {
+        "knn_error_string": ([_I], ctypes.c_char_p),
+        "knn_topk": ([_P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _P], _I),
+    },
 }
 #: the C function that names a CUDA error code, by source
 _ERROR_STRING = {KMEANS_SOURCE: "kmeans_error_string",
-                 SGD_SOURCE: "sgd_error_string"}
+                 SGD_SOURCE: "sgd_error_string",
+                 SEGMENT_SOURCE: "segment_error_string",
+                 KNN_SOURCE: "knn_error_string"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -475,3 +668,58 @@ def _launch_sgd_terms(xl: torch.Tensor, yl: torch.Tensor, wl: torch.Tensor,
             partials.data_ptr(), start, lb, clip, d, dc, rows, smem, vec4,
             blocks, tiles_per_block, loss, stream), "sgd_batch_terms")
     return partials
+
+
+@functools.lru_cache(maxsize=None)
+def _segment_resident_blocks(device_index: int, smem: int) -> int:
+    """Blocks of the segment kernel the card holds at once."""
+    per_sm = ctypes.c_int(0)
+    _raise_on_error(SEGMENT_SOURCE, _lib(SEGMENT_SOURCE).segment_blocks_per_sm(
+        smem, ctypes.byref(per_sm)), "occupancy query")
+    return _blocks_on_card(device_index, per_sm.value,
+                           f"{smem} bytes of shared memory")
+
+
+def _segment_chunks(n: int, blocks: int, resident: int) -> Tuple[int, int]:
+    """``(chunks, rows_per_chunk)`` of a segment launch of ``blocks``
+    segment blocks (tiles × column groups): about two waves of blocks over
+    the card, with at least :data:`SEG_MIN_CHUNK_ROWS` rows in a chunk."""
+    want = max(1, min(-(-n // SEG_MIN_CHUNK_ROWS), -(-2 * resident // blocks)))
+    rows_per_chunk = -(-n // want)
+    return -(-n // rows_per_chunk), rows_per_chunk
+
+
+def _launch_segment_partials(values: torch.Tensor, ids: torch.Tensor, u: int,
+                             c: int) -> torch.Tensor:
+    n = values.shape[0]
+    ut, tiles, cg, groups = _seg_layout(u, c)
+    # the warps' (ut, cg) accumulators and 32-float scratches
+    smem = 4 * SEG_WARPS * (ut * cg + 32)
+    with torch.cuda.device(values.device):
+        chunks, rows_per_chunk = _segment_chunks(
+            n, tiles * groups,
+            _segment_resident_blocks(_device_index(values), smem))
+        partials = torch.empty((chunks, u * c), dtype=torch.float32,
+                               device=values.device)
+        stream = torch.cuda.current_stream(values.device).cuda_stream
+        _raise_on_error(SEGMENT_SOURCE, _lib(SEGMENT_SOURCE).segment_reduce_partials(
+            values.data_ptr(), ids.data_ptr(), partials.data_ptr(), n, u, c,
+            ut, cg, rows_per_chunk, chunks, stream), "segment_reduce_sum")
+    return partials.view(chunks, u, c)
+
+
+def _launch_knn(x: torch.Tensor, train: torch.Tensor, k: int) -> torch.Tensor:
+    n, d = x.shape
+    dpad, kcap = _knn_layout(k, d)
+    with torch.cuda.device(x.device):
+        tsq = torch.sum(train * train, dim=1)
+        out = torch.empty((n, k), dtype=torch.int32, device=x.device)
+        # the wide instance's top-k lists: (k, n) distances and indices
+        scratch = (torch.empty((2, k, n), dtype=torch.float32, device=x.device)
+                   if dpad == 0 else None)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _raise_on_error(KNN_SOURCE, _lib(KNN_SOURCE).knn_topk(
+            x.data_ptr(), train.data_ptr(), tsq.data_ptr(), out.data_ptr(),
+            0 if scratch is None else scratch.data_ptr(), n, train.shape[0],
+            d, k, dpad, kcap, stream), "knn_topk_indices")
+    return out

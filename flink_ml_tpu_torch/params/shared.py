@@ -1,7 +1,7 @@
 """Shared ``Has*`` param mixins.
 
 The port's copy of the mixins from ``flink_ml_tpu/params/shared.py`` that the
-ported stages use (KMeans, the linear models and the benchmark
+ported stages use (KMeans, the linear models, KNN, FTRL and the benchmark
 generators). The names,
 descriptions, defaults and validators are the JAX package's, so the JSON
 param maps match. The other mixins come with the slices that use them.
@@ -21,11 +21,19 @@ from flink_ml_tpu_torch.params.param import (
 )
 
 __all__ = [
-    "HasDistanceMeasure", "HasElasticNet", "HasFeaturesCol",
-    "HasGlobalBatchSize", "HasLabelCol", "HasLearningRate", "HasMaxIter",
+    "HasBatchStrategy", "HasDistanceMeasure", "HasElasticNet",
+    "HasFeaturesCol", "HasGlobalBatchSize", "HasLabelCol", "HasLearningRate",
+    "HasMaxAllowedModelDelayMs", "HasMaxIter", "HasModelVersionCol",
     "HasMultiClass", "HasOptimizerMethod", "HasPredictionCol",
     "HasRawPredictionCol", "HasReg", "HasSeed", "HasTol", "HasWeightCol",
 ]
+
+
+class HasBatchStrategy(WithParams):
+    COUNT_STRATEGY = "count"
+    BATCH_STRATEGY = StringParam(
+        "batchStrategy", "Strategy to create mini batch from online train data.",
+        COUNT_STRATEGY, ParamValidators.in_array(COUNT_STRATEGY))
 
 
 class HasDistanceMeasure(WithParams):
@@ -61,9 +69,24 @@ class HasLearningRate(WithParams):
         ParamValidators.gt(0))
 
 
+class HasMaxAllowedModelDelayMs(WithParams):
+    MAX_ALLOWED_MODEL_DELAY_MS = LongParam(
+        "maxAllowedModelDelayMs",
+        "The maximum difference allowed between the timestamps of the input "
+        "record and the model data that is used to predict that input record.",
+        0, ParamValidators.gt_eq(0))
+
+
 class HasMaxIter(WithParams):
     MAX_ITER = IntParam(
         "maxIter", "Maximum number of iterations.", 20, ParamValidators.gt(0))
+
+
+class HasModelVersionCol(WithParams):
+    MODEL_VERSION_COL = StringParam(
+        "modelVersionCol",
+        "The name of the column which contains the version of the model data "
+        "that the input data is predicted with.", "version")
 
 
 class HasMultiClass(WithParams):

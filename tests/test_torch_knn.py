@@ -1,0 +1,287 @@
+"""The port's KNN, held against the JAX package.
+
+The same numpy inputs, made from a seed, go through the JAX function and
+its counterpart in ``flink_ml_tpu_torch`` on the CPU: the Pallas
+``knn_topk_indices`` kernel in interpret mode (as
+tests/test_pallas_kernels.py runs it) against the port's wrapper on CPU
+tensors, which runs the kernel's plain PyTorch version; the JAX
+``KnnModel.transform`` (its CPU path, ``xla-chunked``) against the port's
+(``torch-knn``).
+
+Tolerances: indices and predictions exactly equal. Test rows are checked in
+float64, and kept only where their k + 1 nearest train rows are at least a
+relative ``GAP`` apart, so float32 sums added in another order cannot
+reorder them; planted duplicate train rows are exact ties, which both
+sides resolve to the lowest index. The CUDA kernel runs only on the card:
+``chip_smoke.py`` holds it against the plain version there.
+"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from flink_ml_tpu import Table as JaxTable
+from flink_ml_tpu.models.classification.knn import Knn as JaxKnn
+from flink_ml_tpu.models.classification.knn import KnnModel as JaxKnnModel
+from flink_ml_tpu.ops import pallas_kernels as pk
+from flink_ml_tpu_torch import Table
+from flink_ml_tpu_torch.benchmark import datagen, runner
+from flink_ml_tpu_torch.convert import knn_model_from_arrays
+from flink_ml_tpu_torch.models.classification import Knn, KnnModel
+from flink_ml_tpu_torch.models.classification import knn as knn_mod
+from flink_ml_tpu_torch.ops import kernels
+from flink_ml_tpu_torch.utils import io as rw
+
+#: smallest relative gap between consecutive float64 distances (among a
+#: row's k + 1 nearest) that the inputs must keep
+GAP = 1e-4
+CONFIG = "flink_ml_tpu/benchmark/configs/knn-benchmark.json"
+
+
+def _without_near_ties(x, train, k):
+    """The rows of x whose k + 1 nearest train rows keep consecutive
+    float64 distances at least GAP apart (relative), unless the train rows
+    are identical (an exact tie); most rows keep."""
+    xd, td = x.astype(np.float64), train.astype(np.float64)
+    d2 = ((xd[:, None, :] - td[None, :, :]) ** 2).sum(-1)
+    order = np.argsort(d2, axis=1, kind="stable")[:, :k + 1]
+    near = np.take_along_axis(d2, order, axis=1)
+    same = np.all(td[order[:, 1:]] == td[order[:, :-1]], axis=-1)
+    gap = np.diff(near, axis=1) / np.maximum(near[:, 1:], 1e-30)
+    keep = np.all(same | (gap >= GAP), axis=1)
+    assert keep.mean() > 0.9
+    return np.ascontiguousarray(x[keep])
+
+
+def _knn_inputs(seed, n, nt, d, k, duplicates=()):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    train = rng.normal(size=(nt, d)).astype(np.float32)
+    for dst, src in duplicates:
+        train[dst] = train[src]
+    return _without_near_ties(x, train, min(k, nt)), train
+
+
+@pytest.mark.parametrize("case,n,nt,d,k", [
+    ("ragged-n", 300, 37, 8, 5),          # n not a multiple of 256
+    ("train-tiles", 300, 2 * pk.KNN_TILE_T + 517, 8, 5),
+    ("k-above-n-train", 10, 3, 4, 5),
+    ("k=1", 257, 400, 6, 1),
+    ("duplicates", 200, pk.KNN_TILE_T + 300, 8, 6),
+])
+def test_knn_topk_plain_matches_pallas(case, n, nt, d, k):
+    dups = ((50, nt - 7), (51, nt // 2), (52, 53)) if case == "duplicates" else ()
+    x, train = _knn_inputs(n + nt + d, n, nt, d, k, dups)
+    n = x.shape[0]
+    want = np.asarray(pk.knn_topk_indices(x, train, k, interpret=True))
+    got = kernels.knn_topk_indices(torch.from_numpy(x), torch.from_numpy(train),
+                                   k)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (n, min(k, nt))
+    np.testing.assert_array_equal(got.numpy(), want)
+    if case == "duplicates":
+        # a row holding the higher index of a planted pair holds the lower
+        # one just before it
+        rows, pos = np.nonzero(want == 53)
+        assert len(rows) and np.all(want[rows, pos - 1] == 52)
+
+
+def test_topk_ties_follow_lax_top_k():
+    # equal distances inside the list and at the k-th place: lowest column
+    # first, as lax.top_k orders them
+    import jax
+
+    d2 = np.array([[3.0, 1.0, 2.0, 1.0, 2.0, 0.5],
+                   [1.0, 1.0, 1.0, 1.0, 0.0, 1.0]], np.float32)
+    for k in (1, 2, 3, 4, 6):
+        want = np.asarray(jax.lax.top_k(-d2, k)[1])
+        got = kernels._topk_lowest_index(torch.from_numpy(d2), k)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_knn_topk_edges_and_checks():
+    x, train = _knn_inputs(3, 20, 9, 5, 4)
+    xt, tt = torch.from_numpy(x), torch.from_numpy(train)
+    empty = kernels.knn_topk_indices(xt[:0], tt, 4)
+    assert empty.dtype == torch.int32 and tuple(empty.shape) == (0, 4)
+    assert tuple(kernels.knn_topk_indices(xt, tt, 50).shape) == (20, 9)
+    with pytest.raises(ValueError, match="train row"):
+        kernels.knn_topk_indices(xt, tt[:0], 3)
+    with pytest.raises(ValueError, match="k >= 1"):
+        kernels.knn_topk_indices(xt, tt, 0)
+    with pytest.raises(ValueError, match="n_train, d"):
+        kernels.knn_topk_indices(xt, tt[:, :4].contiguous(), 3)
+    with pytest.raises(TypeError, match="float32"):
+        kernels.knn_topk_indices(xt.double(), tt, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.knn_topk_indices(xt, torch.zeros((5, 9)).T, 3)
+
+
+def test_knn_layout():
+    # the benchmark's shape takes the (32, 16) register instance
+    assert kernels._knn_layout(10, 32) == (32, 16)
+    assert kernels._knn_layout(17, 33) == (64, 32)
+    assert kernels._knn_layout(32, 128) == (128, 32)
+    assert kernels._knn_layout(1, 1) == (32, 16)
+    # wider rows and longer lists take the wide instance
+    for k, d in [(33, 32), (10, 129), (500, 768)]:
+        assert kernels._knn_layout(k, d) == (0, 0)
+
+
+def test_cuda_tensors_take_the_kernel(monkeypatch):
+    calls = []
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    def launch(x, train, k):
+        calls.append((tuple(x.shape), k))
+        return torch.zeros((x.shape[0], k), dtype=torch.int32)
+
+    monkeypatch.setattr(kernels, "_is_cuda", lambda t: True)
+    monkeypatch.setattr(kernels, "knn_topk_indices_plain", no_plain)
+    monkeypatch.setattr(kernels, "_launch_knn", launch)
+    kernels.reset_launch_counts()
+    x, t = torch.rand((10, 4)), torch.rand((6, 4))
+    kernels.knn_topk_indices(x, t, 8)  # k clamps to n_train
+    # wide rows and long lists take the kernel too
+    kernels.knn_topk_indices(torch.rand((3, 200)), torch.rand((5, 200)), 2)
+    kernels.knn_topk_indices(torch.rand((3, 4)), torch.rand((90, 4)), 40)
+    assert calls == [((10, 4), 6), ((3, 200), 2), ((3, 4), 40)]
+    assert kernels.launch_counts["knn_topk_indices"] == 3
+    kernels.reset_launch_counts()
+
+
+def _labeled(seed, n, d, labels):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d))
+    y = np.asarray(labels, np.float64)[rng.integers(0, len(labels), n)]
+    return x, y
+
+
+@pytest.mark.parametrize("k", [1, 5, 12])
+def test_transform_matches_jax(k):
+    # non-contiguous label values; test rows away from the train rows
+    x, y = _labeled(21 + k, 240, 6, [-3.0, 2.0, 7.5, 10.0])
+    test = _without_near_ties(np.random.default_rng(99).normal(size=(130, 6)),
+                              x.astype(np.float32), k)
+    jax_model = JaxKnn(k=k).fit(JaxTable.from_columns(features=x, label=y))
+    want = jax_model.transform(JaxTable.from_columns(features=test))[0]
+    est = Knn(k=k, device="cpu")
+    model = est.fit(Table.from_columns(features=x, label=y))
+    got = model.transform(Table.from_columns(features=test))[0]
+    assert jax_model.last_execution_path == "xla-chunked"
+    assert model.last_execution_path == "torch-knn"
+    assert got["prediction"].dtype == torch.float64
+    np.testing.assert_array_equal(got["prediction"].numpy(),
+                                  np.asarray(want["prediction"]))
+    assert model.params_to_json_str() == jax_model.params_to_json_str()
+
+
+def test_chunked_transform_matches_one_block(monkeypatch):
+    x, y = _labeled(5, 200, 6, [0.0, 1.0, 2.0])
+    table = Table.from_columns(features=x, label=y)
+    model = Knn(k=5, device="cpu").fit(table)
+    whole = model.transform(table)[0]["prediction"]
+    monkeypatch.setattr(knn_mod, "_MAX_DIST_ELEMS", 6 * 200)  # 6-row chunks
+    assert torch.equal(model.transform(table)[0]["prediction"], whole)
+
+
+def test_k_above_n_train_and_empty_input():
+    x, y = _labeled(8, 4, 3, [1.0, 4.0])
+    model = Knn(k=9, device="cpu").fit(Table.from_columns(features=x, label=y))
+    test = np.random.default_rng(1).normal(size=(7, 3))
+    want = JaxKnn(k=9).fit(JaxTable.from_columns(features=x, label=y)) \
+        .transform(JaxTable.from_columns(features=test))[0]["prediction"]
+    got = model.transform(Table.from_columns(features=test))[0]["prediction"]
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    empty = model.transform(Table.from_columns(features=np.zeros((0, 3))))[0]
+    assert tuple(empty["prediction"].shape) == (0,)
+    with pytest.raises(ValueError, match="no model data"):
+        KnnModel(device="cpu").transform(Table.from_columns(features=test))
+
+
+def test_save_load_model_data_and_jax_saved_model(tmp_path):
+    x, y = _labeled(13, 150, 5, [3.0, 8.0, 9.0])
+    test = np.random.default_rng(4).normal(size=(60, 5))
+    jax_model = JaxKnn(k=4, prediction_col="p").fit(
+        JaxTable.from_columns(features=x, label=y))
+    want = np.asarray(jax_model.transform(
+        JaxTable.from_columns(features=test))[0]["p"])
+
+    jax_model.save(str(tmp_path / "jax"))
+    loaded = rw.load_stage(str(tmp_path / "jax"), device="cpu")
+    assert type(loaded) is KnnModel and loaded.k == 4
+    got = loaded.transform(Table.from_columns(features=test))[0]["p"]
+    np.testing.assert_array_equal(got.numpy(), want)
+
+    loaded.save(str(tmp_path / "port"))
+    again = KnnModel.load(str(tmp_path / "port"), device="cpu")
+    np.testing.assert_array_equal(again.features, x)
+    np.testing.assert_array_equal(again.labels, y)
+    from_data = KnnModel(k=4, prediction_col="p", device="cpu").set_model_data(
+        loaded.get_model_data()[0])
+    got2 = from_data.transform(Table.from_columns(features=test))[0]["p"]
+    np.testing.assert_array_equal(got2.numpy(), want)
+
+    converted = knn_model_from_arrays(jax_model.features, jax_model.labels,
+                                      device="cpu", k=4, prediction_col="p")
+    np.testing.assert_array_equal(
+        converted.transform(Table.from_columns(features=test))[0]["p"].numpy(),
+        want)
+    with pytest.raises(ValueError, match="labels"):
+        knn_model_from_arrays(x, y[:-1])
+
+
+def test_model_data_generator_matches_jax():
+    from flink_ml_tpu.benchmark import datagen as jax_datagen
+
+    params = {"seed": 2, "vectorDim": 7, "arraySize": 40, "labelArity": 5}
+    want = jax_datagen.KnnModelDataGenerator()
+    want.params_from_json(params, strict=True)
+    got = datagen.KnnModelDataGenerator(device="cpu")
+    got.params_from_json(params, strict=True)
+    w, g = want.get_data(), got.get_data()
+    np.testing.assert_array_equal(g.vectors("packedFeatures", np.float64),
+                                  w.vectors("packedFeatures", np.float64))
+    np.testing.assert_array_equal(g.scalars("labels", np.float64),
+                                  w.scalars("labels", np.float64))
+
+
+def test_runner_on_a_shrunken_knn_config():
+    config = runner.load_config(CONFIG)
+    spec = config["KnnModel-predict"]
+    spec["inputData"]["paramMap"]["numValues"] = 3000
+    spec["modelData"]["paramMap"]["arraySize"] = 500
+    row = runner.run_benchmark("KnnModel-predict", spec, device="cpu")
+    assert row["executionPath"] == "torch-knn"
+    assert row["inputRecordNum"] == 3000 and row["outputRecordNum"] == 3000
+    # input rows (3000 x 32 float64 on the host) and model data
+    # (500 x 32 + 500 labels) both count
+    assert row["inputBytes"] == 3000 * 32 * 8 + 500 * 33 * 8
+    assert row["deviceName"] == "cpu"
+    # the same predictions as the JAX model on the same tables
+    model = runner.build_stage(spec, "cpu").set_model_data(
+        runner.build_generator(spec, "cpu", "modelData").get_data())
+    table = runner.build_generator(spec, "cpu").get_data()
+    got = model.transform(table)[0]["prediction"].numpy()
+    from flink_ml_tpu.benchmark import datagen as jax_datagen
+
+    jgen = jax_datagen.KnnModelDataGenerator()
+    jgen.params_from_json(spec["modelData"]["paramMap"], strict=True)
+    jmodel = JaxKnnModel(k=10).set_model_data(jgen.get_data())
+    want = jmodel.transform(JaxTable.from_columns(
+        features=table.vectors("features", np.float64)))[0]["prediction"]
+    # uniform rows in 32 dims: the two packages round their distances
+    # differently, so a vote can flip at a near-tie
+    assert np.mean(got == np.asarray(want)) >= 0.999
+
+
+def test_stage_registry_knows_the_knn_stages():
+    assert runner.resolve_stage(
+        "org.apache.flink.ml.classification.knn.KnnModel") is KnnModel
+    assert runner.resolve_stage("Knn") is Knn
+    spec = json.loads(json.dumps(runner.load_config(CONFIG)["KnnModel-predict"]))
+    stage = runner.build_stage(spec, "cpu")
+    assert isinstance(stage, KnnModel) and stage.k == 10

@@ -65,7 +65,8 @@ def test_no_jax_or_jax_package_imports(path):
 def test_port_files_were_found():
     names = {p.name for p in PORT_FILES}
     assert {"kernels.py", "kmeans.py", "runner.py", "io.py", "optimizer.py",
-            "logisticregression.py"} <= names
+            "logisticregression.py", "knn.py", "online.py", "sparse.py",
+            "streaming.py"} <= names
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -140,7 +141,9 @@ def test_cuda_tensors_never_reach_the_plain_versions(monkeypatch):
     assert kernels.launch_counts == {"assign_nearest": 1,
                                      "lloyd_partial_sums": 1,
                                      "reduce_partials": 2,
-                                     "sgd_batch_terms": 1}
+                                     "sgd_batch_terms": 1,
+                                     "segment_reduce_sum": 0,
+                                     "knn_topk_indices": 0}
     kernels.reset_launch_counts()
 
 
@@ -183,7 +186,7 @@ def test_load_class_maps_jax_paths_without_importing_them(monkeypatch):
         "flink_ml_tpu_torch.models.clustering.kmeans.KMeans") is KMeans
     assert {m for m in sys.modules if m.startswith("flink_ml_tpu.")} == before
     with pytest.raises(ValueError, match="not part of the port"):
-        rw.load_class("flink_ml_tpu.models.classification.knn.Knn")
+        rw.load_class("flink_ml_tpu.models.classification.naivebayes.NaiveBayes")
 
 
 def test_non_finite_final_state_raises():
