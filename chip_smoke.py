@@ -14,7 +14,14 @@ Phases, each of which fails the run (no result line, nonzero exit):
    at the main-path shape (1,000,000 x 100, k = 10), a ragged n, n = 0,
    zero-weight rows, a wide k that makes the kernels stage centroids in
    chunks, and an odd width; reruns must be bit-identical; time kernel,
-   plain version and a one-call PyTorch yardstick;
+   plain version and a one-call PyTorch yardstick; then hold
+   ``reduce_partials`` bit for bit against its plain version at the four
+   partials shapes of the main paths (Lloyd, SGD, FTRL's gradient sums and
+   per-row dots, each made by its path's first stage) and time it and
+   ``torch.sum`` there, eagerly (what a fit's loop pays, host enqueue
+   included) and as device times (calls captured in a CUDA graph and
+   replayed: the host takes longer to enqueue one call than the card to run
+   it);
 3. the same for the SGD kernel, for each loss: the main-path window (the
    first 100,000 rows of a 10,000,000 x 100 table), a window in the middle,
    the clipped window at the end, a ragged window, a one-row window,
@@ -34,14 +41,19 @@ Phases, each of which fails the run (no result line, nonzero exit):
    table, save, load and transform again; hold the LR fit against a plain
    PyTorch fit on the card, and small fits of all three models against the
    CPU;
-6. hold the KNN kernel against its plain version on the card: a ragged n,
-   a ragged n_train, k > n_train, k = 1, duplicate train rows, n = 0, an
-   odd d, d = 64, the largest register instance (d = 128, k = 32), and the
-   wide instance: d = 256, an odd d = 769, k = 50 and k = 300, k > n_train
-   and duplicate train rows; reruns must be bit-identical; time kernel,
-   plain version and the library's ``torch.topk(torch.addmm(...))`` on a
-   16,384 x 50,000 x 32 block, the wide instance on the same block (k =
-   33), and the kernel a few times at the main path's 10,000,000 rows;
+6. hold the KNN kernels against their plain version on the card, printing
+   each case's launch plan and the tiled kernel's blocks per SM: a ragged
+   n, a ragged n_train, k > n_train, k = 1, duplicate train rows, n = 0, an
+   odd d, d = 64, d = 128 with k = 32, d = 256 and an odd d = 769 (x
+   streamed in chunks), and the wide instance (k > 32): k = 50 and k = 300,
+   k > n_train and duplicate train rows; then the train split: 1,000 and
+   16,384 rows against 50,000 train rows (the 16,384 block also forced to 2
+   and 3 splits), duplicate train rows on both sides of a split boundary,
+   and k larger than a split's rows; reruns must be bit-identical, and a
+   split run identical to the same rows in one split; time kernel, plain
+   version and the library's ``torch.topk(torch.addmm(...))`` on a 16,384
+   x 50,000 x 32 block, the wide instance on the same block (k = 33), and
+   the kernel a few times at the main path's 10,000,000 rows;
 7. the same for the segment-sum kernel: 1-D and 2-D values, -1 and
    out-of-range ids, n = 0, a ragged n, one chunk, hashed 2^18 domains
    (c = 1 and c = 2), a domain of more than 65,535 segment tiles, values of
@@ -177,6 +189,24 @@ def time_ms(fn, batches=7, per_batch=10, warmup=3):
     return statistics.median(times)
 
 
+def graph_ms(fn, reps=20):
+    """Device time per call of a short kernel: ``reps`` calls captured in a
+    CUDA graph and replayed, so that the host's enqueue time does not hide
+    the card's."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return time_ms(graph.replay, batches=5, per_batch=5, warmup=1) / reps
+
+
 def rolling_starts(n, lb):
     """A function giving window starts that move on by lb at every call and
     wrap at the end of n rows: a timed call reads rows that the calls just
@@ -294,7 +324,7 @@ def phase_kernels(K):
     partials = K._launch_lloyd_partials(x, v, c)
     r_got = K.reduce_partials(partials)
     r_want = K.reduce_partials_plain(partials)
-    assert torch.equal(r_got, r_want), "reduce differs from the in-order sum"
+    assert torch.equal(r_got, r_want), "reduce differs from its plain version"
     blocks = partials.shape[0]
 
     one_hot = torch.nn.functional.one_hot(a_want.long(), k).float() * v[:, None]
@@ -315,12 +345,6 @@ def phase_kernels(K):
             library=lambda: torch.matmul(one_hot.T, x_aug),
             bytes=4 * (n * d + n + k * d + k + k * (d + 1)),
             ops=2 * n * k * d + 2 * n * (d + 1)),
-        "reduce_partials": dict(
-            err=float((r_got - r_want).abs().max()),
-            kernel=lambda: K.reduce_partials(partials),
-            plain=lambda: K.reduce_partials_plain(partials),
-            library=lambda: torch.sum(partials, dim=0),
-            bytes=4 * (blocks + 1) * k * (d + 1), ops=blocks * k * (d + 1)),
     }
     measured = {}
     for name, r in rows.items():
@@ -332,6 +356,52 @@ def phase_kernels(K):
         log(f"  {name} @ 1M x 100, k=10: {measured[name]}")
     stage1 = time_ms(lambda: K._launch_lloyd_partials(x, v, c))
     log(f"  lloyd stage 1 alone: {stage1:.4f} ms over {blocks} blocks")
+
+    # the shared second stage at the four main paths' partials shapes,
+    # each made by its path's first stage; device times
+    y, w = torch.floor(rand(n) * 2), rand(n)
+    gw = torch.randn(1 << 20, 2, generator=g, device="cuda")
+    col_ids = torch.randint(0, 100, (1 << 20,), generator=g, device="cuda",
+                            dtype=torch.int32)
+    row_ids = torch.sort(torch.randint(0, 100_000, (1 << 20,), generator=g,
+                                       device="cuda", dtype=torch.int32)).values
+    shapes = {
+        "Lloyd": partials,
+        "SGD": K._launch_sgd_terms(x, y, w, rand(d) - 0.5, 0, 0, 100_000,
+                                   "logistic"),
+        "FTRL gradient": K._launch_segment_partials(gw, col_ids, 100, 2),
+        "FTRL per-row dots": K._launch_segment_partials(
+            torch.randn(1 << 20, generator=g, device="cuda"), row_ids,
+            1 << 17, 1),
+    }
+    for tag, p in shapes.items():
+        assert torch.equal(K.reduce_partials(p), K.reduce_partials_plain(p)), (
+            f"reduce differs from its plain version at {tag}")
+        ms = {"eager": time_ms(lambda: K.reduce_partials(p)),
+              "eager sum": time_ms(lambda: torch.sum(p, dim=0)),
+              "device": graph_ms(lambda: K.reduce_partials(p)),
+              "device sum": graph_ms(lambda: torch.sum(p, dim=0))}
+        log(f"  reduce_partials @ {tag} {tuple(p.shape)}: eager "
+            f"{ms['eager']:.5f} ms against torch.sum {ms['eager sum']:.5f} "
+            f"ms; device {ms['device']:.5f} ms against torch.sum "
+            f"{ms['device sum']:.5f} ms; bit-identical to the plain version"
+            + "".join(f"; {kind} SLOWER than torch.sum"
+                      for kind in ("eager", "device")
+                      if ms[kind] > ms[f"{kind} sum"]))
+        if tag == "Lloyd":
+            b_ms, b_by = bound_ms(4 * (blocks + 1) * k * (d + 1),
+                                  blocks * k * (d + 1))
+            # eager times, as every row of the kernels line has them; the
+            # device times of a replayed CUDA graph beside them
+            measured["reduce_partials"] = {
+                "max_abs_err": float((r_got - r_want).abs().max()),
+                "ms": ms["eager"],
+                "plain_ms": time_ms(lambda: K.reduce_partials_plain(p)),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": ms["eager sum"], "device_ms": ms["device"],
+                "library_device_ms": ms["device sum"]}
+    log(f"  reduce_partials @ Lloyd: {measured['reduce_partials']}")
+    del y, w, gw, col_ids, row_ids, shapes
     return measured
 
 
@@ -404,7 +474,7 @@ def phase_sgd_kernels(K):
     partials = K._launch_sgd_terms(x, y, w, c, 0, 0, lb, loss)
     assert torch.equal(K.reduce_partials(partials),
                        K.reduce_partials_plain(partials)), (
-        "reduce differs from the in-order sum")
+        "reduce differs from its plain version")
     blocks = partials.shape[0]
     log(f"  reduce_partials @ ({blocks}, {d + 2}): "
         f"{time_ms(lambda: K.reduce_partials(partials)):.5f} ms")
@@ -701,13 +771,29 @@ def check_knn(K, x, train, k, tag, block=16_384):
     return got, flips, err
 
 
+def knn_plan_line(K, x, nt, k):
+    plan = K._knn_card_plan(x, nt, min(k, nt))
+    return plan, (f"{plan.route}" + (
+        f" kcap={plan.kcap} dpad={plan.dpad} splits={plan.splits} "
+        f"smem={K.knn_tile_smem_bytes(plan.dpad)} B "
+        f"scratch={plan.scratch_bytes} B"
+        if plan.route == "tiled" else f" scratch={plan.scratch_bytes} B"))
+
+
 def phase_knn_kernel(K):
-    log("phase 6: the KNN kernel against its plain version on the card")
+    log("phase 6: the KNN kernels against their plain version on the card")
     g = torch.Generator(device="cuda").manual_seed(13)
 
     def rand(*shape):
         return torch.rand(shape, generator=g, device="cuda")
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for kcap in K.KNN_KCAPS:
+        for dpad in (32, 128, 256):
+            log(f"  knn_tile_kernel<{kcap}> at dpad={dpad}: "
+                f"{K._knn_resident_blocks(0, kcap, dpad) // sms} block(s) "
+                f"per SM ({K.knn_tile_smem_bytes(dpad)} bytes of shared "
+                f"memory)")
     dup = rand(5_000, 32)
     dup[100:200] = dup[4_000:4_100]  # exact ties across train tiles
     dup_wide = rand(5_000, 160)
@@ -722,22 +808,56 @@ def phase_knn_kernel(K):
             (10_007, rand(9_999, 7), 10, "odd-d"),
             (4_000, rand(6_000, 64), 17, "d=64"),
             (4_000, rand(6_000, 128), 32, "d=128 k=32"),
-            (3_000, rand(6_000, 256), 10, "wide d=256"),
-            (2_000, rand(5_000, 769), 7, "wide odd d=769"),
-            (3_000, rand(6_001, 32), 50, "k=50"),
-            (1_000, rand(3_000, 200), 300, "d=200 k=300"),
+            (3_000, rand(6_000, 256), 10, "d=256"),
+            (2_000, rand(5_000, 769), 7, "odd d=769"),
+            (3_000, rand(6_001, 32), 50, "wide k=50"),
+            (1_000, rand(3_000, 200), 300, "wide d=200 k=300"),
             (500, rand(40, 300), 64, "wide k>n_train"),
             (5_000, dup_wide, 40, "wide duplicates"),
     ]:
-        assert (K._knn_layout(min(k, train.shape[0]), train.shape[1]) == (0, 0)
-                ) == (tag.startswith("wide") or k > 32), tag
         x = rand(n, train.shape[1])
+        plan, line = knn_plan_line(K, x, train.shape[0], k)
+        assert (plan.route == "wide") == tag.startswith("wide"), (tag, line)
+        log(f"  plan {tag}: {line}")
         got, _, _ = check_knn(K, x, train, k, tag)
         if tag.endswith("duplicates"):
             # of two identical train rows, the lower index comes first
             rows, pos = torch.nonzero(got == 4_050, as_tuple=True)
             assert rows.numel() and bool((pos > 0).all()), tag
             assert bool((got[rows, pos - 1] == 150).all()), tag
+
+    # the train split: small batches against the main path's train set;
+    # a split run must equal the same rows in one split
+    nt, d = 50_000, 32
+    train = rand(nt, d)
+    for n in (1_000, 16_384):
+        x = rand(n, d)
+        plan, line = knn_plan_line(K, x, nt, 10)
+        log(f"  plan {n} x {nt}: {line}")
+        got, _, _ = check_knn(K, x, train, 10, f"split n={n}")
+        for splits in sorted({1, 2, 3} - {plan.splits}):
+            assert torch.equal(got, K._launch_knn(x, train, 10, splits)), (
+                f"n={n}: {splits} splits differ from {plan.splits}")
+        if n == 1_000:
+            assert plan.splits > 1, line
+    # duplicate train rows on both sides of a split boundary: test rows
+    # next to them take both twins, the lower index first
+    x = rand(1_000, d)
+    lo = K.knn_split_bounds(nt, K._knn_card_plan(x, nt, 10).splits)[1][0]
+    twins = train.clone()
+    twins[lo - 50:lo] = twins[lo:lo + 50]
+    x[:50] = twins[lo:lo + 50] + 1e-3 * rand(50, d)
+    got, _, _ = check_knn(K, x, twins, 10, "duplicates across a split")
+    want = torch.stack([torch.arange(lo - 50, lo), torch.arange(lo, lo + 50)],
+                       1).to(torch.int32).cuda()
+    assert torch.equal(got[:50, :2], want), "twins across a split: order"
+    # k larger than a split's rows: 148 train rows are two tiles, the second
+    # of 20 rows, and 1,000 test rows split them
+    x, small = rand(1_000, d), rand(148, d)
+    plan, line = knn_plan_line(K, x, 148, 32)
+    log(f"  plan k>split rows: {line}")
+    assert plan.splits == 2, line
+    check_knn(K, x, small, 32, "k>split rows")
 
     # times and bounds on a block of test rows the library call can hold,
     # at the main path's widths (50,000 train rows, d = 32, k = 10)
@@ -759,7 +879,7 @@ def phase_knn_kernel(K):
     }}
     log(f"  knn_topk_indices @ {n} x {nt} x {d}, k={k}: "
         f"{measured['knn_topk_indices']}")
-    # the wide instance on the same block: k = 33 is past the register lists
+    # the wide instance on the same block: k = 33 is past the tiled lists
     wide_ms = time_ms(lambda: K.knn_topk_indices(x, train, 33), batches=3,
                       per_batch=3, warmup=1)
     log(f"  knn_topk_indices wide instance @ {n} x {nt} x {d}, k=33: "
@@ -771,7 +891,18 @@ def phase_knn_kernel(K):
     main_bound, _ = bound_ms(4 * (big.numel() + nt * d + big.shape[0] * k),
                              2 * big.shape[0] * nt * d)
     log(f"  knn_topk_indices @ 10,000,000 x {nt} x {d}: {main:.3f} ms "
-        f"(bound {main_bound:.3f} ms by operations)")
+        f"(bound {main_bound:.3f} ms by operations, "
+        f"{main_bound / main:.1%} of it)")
+    # the split at work: a serving-size batch and the block, planned and
+    # forced into another number of splits
+    for rows in (1_000, n):
+        xs = x[:rows]
+        plan = K._knn_card_plan(xs, nt, k)
+        for splits in (plan.splits, 1 if plan.splits > 1 else 2):
+            log(f"  knn_topk_indices @ {rows} x {nt} x {d}, {splits} "
+                f"split(s){' (plan)' if splits == plan.splits else ''}: "
+                + "%.4f ms" % time_ms(lambda: K._launch_knn(xs, train, k,
+                                                           splits)))
     del big, x, train, dup, dup_wide
     torch.cuda.empty_cache()
     return measured
@@ -916,7 +1047,7 @@ def phase_knn_main_path(K, runner, Table):
     # small models give the same predictions on the card and on the CPU
     # (blobs far apart: no row near a tie)
     rng = np.random.default_rng(5)
-    for d, k in [(9, 7), (300, 40)]:  # a register and the wide instance
+    for d, k in [(9, 7), (300, 40)]:  # the tiled and the wide instance
         centers = rng.normal(size=(4, d)) * 10
         which = rng.integers(0, 4, 600)
         xs = centers[which] + rng.normal(size=(600, d))

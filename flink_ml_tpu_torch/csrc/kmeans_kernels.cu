@@ -4,10 +4,11 @@
 // Replaces, in flink_ml_tpu/ops/pallas_kernels.py:
 //   assign_kernel          <- _assign_kernel (:26), pallas_call at :41
 //   lloyd_partials_kernel  <- _lloyd_accum_kernel (:132), pallas_call at :165
-//   reduce_partials_kernel <- the accumulation of _lloyd_accum_kernel into
-//                             out_ref across sequential grid steps (:141-157),
+//   reduce_tile_kernel,    <- the accumulation of _lloyd_accum_kernel into
+//   reduce_rows_kernel        out_ref across sequential grid steps (:141-157),
 //                             and of _sgd_terms_kernel (:231): the second
-//                             stage of sgd_kernels.cu too
+//                             stage of sgd_kernels.cu and segment_kernels.cu
+//                             too
 //
 // What bounds them on an H100: device-memory bytes. At the main-path shape
 // (1,000,000 x 100 float32, k = 10) each call must read the 400 MB input
@@ -20,9 +21,9 @@
 //
 // Determinism, with no atomics: a Lloyd block owns a contiguous range of
 // row tiles and adds into its shared-memory accumulator in row order, one
-// thread per output column; reduce_partials_kernel then sums the per-block
-// partials in block order. The same inputs on the same card give the same
-// bits.
+// thread per output column; reduce_tile_kernel (or reduce_rows_kernel)
+// then sums the per-block partials in a fixed two-level order. The same
+// inputs on the same card give the same bits.
 //
 // Arithmetic: full fp32 FMA, no TF32 and no tensor cores. The distance rule
 // is the Pallas kernel's: d2_j = ||c_j||^2 - 2 x.c_j, first minimum over
@@ -220,16 +221,116 @@ __global__ void lloyd_partials_kernel(const float* __restrict__ x,
   for (int i = threadIdx.x; i < k * w; i += T) dst[i] = acc[i];
 }
 
-// out[i] = sum over b of partials[b][i], in block order.
-__global__ void reduce_partials_kernel(const float* __restrict__ partials,
-                                       float* __restrict__ out, int blocks,
-                                       int width) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= width) return;
+// out[i] = the sum over b of partials[b][i] in a fixed two-level order,
+// the one reduce_partials_plain follows, so the two agree bit for bit:
+// - the B rows are cut into Q contiguous slices of L = ceil(B / 32) rows
+//   (Q = ceil(B / L) <= 32, the last slice possibly shorter), and each
+//   slice is added in row order from 0: s = 0, s += partials[r][i];
+// - the Q slice sums are added by a fixed pairwise tree: at strides 1, 2,
+//   4, 8, 16, sum j (j a multiple of twice the stride) takes sum j + stride
+//   when that exists. The result is sum 0.
+// Every call on the same shape adds in the same order, so reruns and a
+// resumed fit give the same bits.
+//
+// What bounds it on an H100: latency. The partials are small (391 x 1,010
+// for Lloyd, 782 x 102 for SGD): their bytes take a tenth of a microsecond
+// at 3.35 TB/s, but the exact block order of the Pallas grid, one chain of
+// B dependent adds per column, took about 8 ns a row in the best
+// design found for it (kept and timed in scripts/port_reduce_order.py)
+// and lost to torch.sum at Lloyd's, SGD's and FTRL's gradient shapes.
+// Slices cut the chain to L adds plus five tree levels:
+// - reduce_tile_kernel: a block of kRedThreads threads owns a tile of
+//   kRedCols columns (one 32-byte sector of a row), so narrow partials
+//   still spread over many SMs (SGD's 102 columns are 13 blocks, Lloyd's
+//   1,010 are 127); thread (j, c) adds slice j of column c, its loads issued
+//   kRedBatch at a time, a warp's load reading four rows' sectors whole;
+//   the slice sums meet in shared memory, and thread c < kRedCols adds
+//   column c's tree in registers;
+// - reduce_rows_kernel, for partials of at most kRedSlices rows whose rows
+//   are 16-byte aligned (FTRL's 131,072 per-row dots come in 25 chunks):
+//   every slice is one row, and a thread adds the tree over the rows for
+//   four neighbouring columns, all B 16-byte loads in flight at once.
+// No atomics.
+constexpr int kRedCols = 8;     // columns of a tile block
+constexpr int kRedSlices = 32;  // slices at most
+constexpr int kRedThreads = kRedCols * kRedSlices;
+constexpr int kRedBatch = 32;   // loads in flight per thread
+constexpr int kRedVec = 4;      // columns a reduce_rows_kernel thread adds
+
+// s = 0, s += p[r * width] for the rows r of [r0, r1), issued in batches
+__device__ __forceinline__ float slice_sum(const float* __restrict__ p,
+                                           int64_t width, int r0, int r1) {
   float s = 0.f;
-#pragma unroll 8
-  for (int b = 0; b < blocks; ++b) s += partials[(int64_t)b * width + i];
-  out[i] = s;
+  int r = r0;
+  for (; r + kRedBatch <= r1; r += kRedBatch) {
+    float v[kRedBatch];
+#pragma unroll
+    for (int b = 0; b < kRedBatch; ++b) v[b] = p[(r + b) * width];
+#pragma unroll
+    for (int b = 0; b < kRedBatch; ++b) s += v[b];
+  }
+  for (; r < r1; ++r) s += p[r * width];
+  return s;
+}
+
+// t[0] += t[1], t[2] += t[3], ...; then at strides 2, 4, 8, 16; t[i + stride]
+// only where it is one of the q slices
+__device__ __forceinline__ float slice_tree(float (&t)[kRedSlices], int q) {
+#pragma unroll
+  for (int stride = 1; stride < kRedSlices; stride *= 2)
+#pragma unroll
+    for (int i = 0; i + stride < kRedSlices; i += 2 * stride)
+      if (i + stride < q) t[i] += t[i + stride];
+  return t[0];
+}
+
+__global__ void __launch_bounds__(kRedThreads)
+    reduce_tile_kernel(const float* __restrict__ partials,
+                       float* __restrict__ out, int blocks, int width,
+                       int slice_rows) {
+  __shared__ float sums[kRedSlices][kRedCols];
+  const int c = threadIdx.x % kRedCols, j = threadIdx.x / kRedCols;
+  const int col = blockIdx.x * kRedCols + c;
+  const int q = (blocks + slice_rows - 1) / slice_rows;  // slices
+  sums[j][c] = col < width && j < q
+                   ? slice_sum(partials + col, width, j * slice_rows,
+                               min(blocks, (j + 1) * slice_rows))
+                   : 0.f;
+  __syncthreads();
+  if (j != 0 || col >= width) return;
+  float t[kRedSlices];
+#pragma unroll
+  for (int i = 0; i < kRedSlices; ++i) t[i] = sums[i][c];
+  out[col] = slice_tree(t, q);
+}
+
+__global__ void __launch_bounds__(256)
+    reduce_rows_kernel(const float* __restrict__ partials,
+                       float* __restrict__ out, int blocks, int width) {
+  const int col = (blockIdx.x * 256 + threadIdx.x) * kRedVec;
+  if (col >= width) return;
+  float4 v[kRedSlices];
+#pragma unroll
+  for (int j = 0; j < kRedSlices; ++j) {
+    v[j] = j < blocks ? *reinterpret_cast<const float4*>(
+                            partials + (int64_t)j * width + col)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+    v[j].x += 0.f;  // s = 0, s += partials[j]: -0 becomes +0, as there
+    v[j].y += 0.f;
+    v[j].z += 0.f;
+    v[j].w += 0.f;
+  }
+#pragma unroll
+  for (int stride = 1; stride < kRedSlices; stride *= 2)
+#pragma unroll
+    for (int i = 0; i + stride < kRedSlices; i += 2 * stride)
+      if (i + stride < blocks) {
+        v[i].x += v[i + stride].x;
+        v[i].y += v[i + stride].y;
+        v[i].z += v[i + stride].z;
+        v[i].w += v[i + stride].w;
+      }
+  *reinterpret_cast<float4*>(out + col) = v[0];
 }
 
 int64_t smem_floats(int lloyd, int k, int d, int rows, int kchunk) {
@@ -303,12 +404,21 @@ int kmeans_lloyd_partials(const float* x, const float* v, const float* c,
   return (int)cudaGetLastError();
 }
 
+// (blocks, width) partials -> (width,) sums in the two-level order:
+// reduce_rows_kernel where every slice is one row and the rows are 16-byte
+// aligned, else reduce_tile_kernel.
 int kmeans_reduce_partials(const float* partials, float* out, int blocks,
                            int width, void* stream) {
-  const int threads = 128;
-  reduce_partials_kernel<<<(width + threads - 1) / threads, threads, 0,
-                           (cudaStream_t)stream>>>(partials, out, blocks,
-                                                   width);
+  if (blocks < 1 || width < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (blocks <= kRedSlices && width % kRedVec == 0 &&
+      ((uintptr_t)partials | (uintptr_t)out) % 16 == 0)
+    reduce_rows_kernel<<<(width / kRedVec + 255) / 256, 256, 0, s>>>(
+        partials, out, blocks, width);
+  else
+    reduce_tile_kernel<<<(width + kRedCols - 1) / kRedCols, kRedThreads, 0,
+                         s>>>(partials, out, blocks, width,
+                              (blocks + kRedSlices - 1) / kRedSlices);
   return (int)cudaGetLastError();
 }
 

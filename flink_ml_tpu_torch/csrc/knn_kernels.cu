@@ -1,8 +1,9 @@
-// KNN kernel for Hopper (sm_90a): fused distance + top-k over the streamed
+// KNN kernels for Hopper (sm_90a): fused distance + top-k over the streamed
 // train set, in plain fp32 CUDA C++.
 //
 // Replaces, in flink_ml_tpu/ops/pallas_kernels.py:
-//   knn_topk_kernel<DPAD, KCAP> <- _knn_kernel (:421), pallas_call at :482
+//   knn_tile_kernel<KCAP>, knn_merge_kernel<KCAP>, knn_topk_wide_kernel
+//     <- _knn_kernel (:421), pallas_call at :482
 //
 // Output: for each test row x_i of x (n, d), the indices of the k train rows
 // t_j of train (nt, d) with the smallest ||t_j||^2 - 2 x_i.t_j (||x_i||^2 is
@@ -15,137 +16,619 @@
 // test rows against 50,000 train rows, d = 32) the 2 n nt d = 3.2e13
 // operations take about 0.48 s at 67 TFLOP/s, while its bytes (1.28 GB of x,
 // 6.4 MB of train, 400 MB of output) take about 0.5 ms at 3.35 TB/s. So the
-// design feeds the FMA units: one thread per test row holds its row in
-// registers (DPAD floats, zero past d) and its sorted top-k list (KCAP
-// distances and indices) in registers (the wider instances put part of the
-// list on the stack: ptxas -v, printed by chip_smoke.py); the block streams
-// the train set through shared memory, kTileT rows at a time, and every
-// float4 of a train row, read from shared memory as a broadcast to the whole
-// warp, feeds four FMAs of each thread. The (n, nt) distance matrix never
-// exists, not even a tile of it.
+// design feeds the FMA units from registers, as a matrix product does, and
+// the (n, nt) distance matrix never exists in device memory.
 //
-// Top-k insertion: a candidate enters only when its distance is strictly
-// below the current k-th; it goes before the first entry it is strictly
-// below, and the entries after it shift down by one. Train rows arrive in
-// ascending index order, so among equal distances the earlier, lower index
-// stays ahead: the lax.top_k rule that the Pallas merge keeps (:430-435). The
-// ragged last train tile is masked by its row count (the Pallas kernel pads
-// it with +inf norms instead).
+// knn_tile_kernel<KCAP> (k <= KCAP, KCAP 16 or 32; any d):
+// - Distance tiles by register blocking. A block of 256 threads owns 128
+//   test rows and walks train tiles of 128 rows; each thread accumulates an
+//   8 x 8 micro-tile of dot products (test rows ty*4 + {0..3} and 64 + ty*4
+//   + {0..3}, train rows tx*4 + {0..3} and 64 + tx*4 + {0..3}, tx = t % 16,
+//   ty = t / 16: a quarter-warp's float4 reads are 128 contiguous bytes, so
+//   no bank conflicts). x and train sit transposed ([column][row]) in shared
+//   memory, so one column step costs a thread four float4 loads for 64
+//   FMAs. Columns are walked 32 at a time, so any d works; each dot is one
+//   fma chain in column order, zero columns past d adding exact zeros.
+// - Copies overlap the FMAs. The wrapper hands the train set over transposed
+//   and zero-padded ((dpad, ntp), dpad and ntp multiples of 32 and 128) with
+//   its norms padded by +inf, so a (train tile, 32-column chunk) step is a
+//   32 x 128 box of it: one TMA tensor copy, issued by one thread and
+//   counted by an mbarrier, into a double buffer, the next step's copy in
+//   flight while this step's FMAs run, and no thread spends instructions on
+//   its addresses; the box's norms come by cp.async. The x tile is loaded
+//   once per block when dpad <= 128; wider rows stream their x chunk beside
+//   the train chunk (4-byte cp.async, zero-filled past n and d). Padded
+//   train rows score +inf and never enter a list.
+// - Selection keeps lax.top_k's order, in registers. Test row r's 128
+//   candidates of a tile lie with the 16 lanes of one half-warp (those
+//   with ty = r / 4 % 16), and so does r's sorted list: entry j of it with
+//   lane j % 16, in slot j / 16 (KCAP / 16 slots a lane). After a tile's
+//   last chunk each thread forms tsq - 2 dot for its 64 pairs (fmaf(-2,
+//   dot, tsq): -2 dot is exact, so this rounds as the subtraction does) and
+//   keeps those strictly below its row's k-th distance (kth, in every lane
+//   of the half-warp). A threshold from before the tile's own insertions is
+//   higher than the current one and only admits extra candidates. On a
+//   tile where a row's list is not yet full (the first of each split),
+//   candidates above the k-th smallest of the 16 lanes' minima are dropped
+//   too: k candidates of the tile lie at or below it, so none above can
+//   enter (k <= 16). The half-warp then walks its rows' survivors in
+//   ascending train index (ballot, lowest lane, lowest column) and inserts
+//   each one with the rule of the Pallas merge (:430-435): a candidate
+//   enters only when strictly below the current k-th, goes before the first
+//   entry it is strictly below (its place is the count of entries at or
+//   below it, a ballot), and the entries after it shift down by one (a
+//   shuffle). Among equal distances the earlier, lower index stays ahead.
+//   A round inserts the next survivor of each of the half-warp's 8 rows, so
+//   the rows' shuffles overlap; a row with no survivor in the warp costs two
+//   votes, a warp with none at all one. No shared memory, no barrier and no
+//   owner thread serialises it.
+// - Train split for small batches. Blocks are (test tile, split): grid.y
+//   cuts the train tiles into `splits` contiguous ranges when the test
+//   tiles alone would leave SMs idle (ops/kernels.py `_knn_plan`). With one
+//   split the lanes write the indices; with more, each (test tile, split)
+//   writes its sorted (distance, index) list to a (splits, n, k) scratch,
+//   padded with +inf where a split holds fewer than k rows, and
+//   knn_merge_kernel<KCAP> merges the lists of each row in split order with
+//   the same strict-less insertion: the earlier split, which holds the
+//   lower indices, wins ties. Both give the same lists as one pass over the
+//   whole train set.
+// - Shared memory, in floats (tile_smem_bytes; knn_tile_smem_bytes tells
+//   the Python side): xs [dpad][128] (resident) or [2][32][128] (streamed),
+//   ts [2][32][128], tsq [2][128], then two mbarriers: 49 KB at d = 32, at
+//   most 97 KB.
+//   Registers bound the block to one per SM (8 warps): the 64 accumulators,
+//   the lists and the selection's temporaries take about 180 a thread, and
+//   held to 128 for two blocks they spill (chip_smoke.py prints ptxas'
+//   registers and spills and the blocks per SM). Built with
+//   -DKNN_PHASE_CLOCKS, block (0, 0) adds up clock64() per phase of its
+//   steps for knn_phase_cycles_read, and with -DKNN_NO_SELECTION the tiles
+//   skip selection: scripts/port_knn_phases.py builds and times both.
 //
-// Determinism: each thread adds its row's products in a fixed order (four
-// partial sums over the float4 lanes, then (a0 + a1) + (a2 + a3)); no atomics,
-// and no data shared between threads but the read-only tile. The same inputs
-// on the same card give the same bits.
+// Lists longer than 32 take knn_topk_wide_kernel, with the same insertion
+// rule: the block stages its 128 test rows and a tile of kWideT train rows
+// through shared memory kWideD columns at a time (the test chunk
+// transposed, so that each thread reads its own row without bank
+// conflicts), each thread carries kWideT partial dots in registers across
+// the column chunks, one fma chain per dot in column order, and merges the
+// finished tile into its sorted list, which lives in a (k, n) scratch in
+// device memory (entry q of row i at q * n + i, so that a warp's accesses
+// coalesce). Its shared memory, in floats: xs [kWideD][kThreads + 1], ts
+// [kWideT][kWideD], tsq [kWideT].
 //
-// Shared memory, in floats: ts [kTileT][DPAD] the train tile (zero past d),
-// then tsq [kTileT] its norms.
-//
-// Wider rows (d > 128) or longer lists (k > 32) take the wide instance,
-// knn_topk_wide_kernel, with the same insertion rule: the block stages its
-// 128 test rows and a tile of kWideT train rows through shared memory
-// kWideD columns at a time (the test chunk transposed, so that each thread
-// reads its own row without bank conflicts), each thread carries kWideT
-// partial dots in registers across the column chunks, one fma chain per
-// dot in column order, and merges the finished tile into its sorted list,
-// which lives in a (k, n) scratch in device memory (entry q of row i at
-// q * n + i, so that a warp's accesses coalesce). Its shared memory, in
-// floats: xs [kWideD][kThreads + 1], ts [kWideT][kWideD], tsq [kWideT].
+// Arithmetic: full fp32 FMA, no TF32 and no tensor cores (TF32 would move
+// distances far past the tie tolerance the card check allows and flip
+// neighbours). Determinism: every dot is one fixed fma chain, every list
+// is built in a fixed order, no atomics; the same inputs on the same card
+// give the same bits, whatever the split.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;  // test rows per block, one per thread
-constexpr int kTileT = 128;    // train rows per shared-memory tile
+// -- tiled kernel ---------------------------------------------------------
 
-constexpr int smem_bytes(int dpad) { return 4 * (kTileT * dpad + kTileT); }
+constexpr int kTM = 128;             // test rows per block
+constexpr int kTN = 128;             // train rows per tile
+constexpr int kDK = 32;              // columns per step
+constexpr int kTileThreads = 256;    // 16 x 16 threads, 8 x 8 dots each
+constexpr int kXResMax = 128;        // widest dpad whose x tile stays resident
+constexpr unsigned kFull = 0xffffffffu;
 
-// Train rows [j0, j0 + rows) -> ts[r * DPAD + f] (zero for f >= d and for
-// r >= rows), their norms -> tsq_s[r].
-template <int DPAD>
-__device__ void load_train_tile(const float* __restrict__ train,
-                                const float* __restrict__ tsq, float* ts,
-                                float* tsq_s, int64_t j0, int rows, int d) {
-  for (int i = threadIdx.x; i < kTileT * DPAD; i += kThreads) {
-    const int r = i / DPAD, f = i - r * DPAD;
-    ts[i] = (r < rows && f < d) ? train[(j0 + r) * d + f] : 0.f;
-  }
-  for (int r = threadIdx.x; r < kTileT; r += kThreads)
-    tsq_s[r] = (r < rows) ? tsq[j0 + r] : 0.f;
+__host__ __device__ constexpr int64_t tile_smem_bytes(int dpad) {
+  return 4 * ((int64_t)(dpad <= kXResMax ? dpad * kTM : 2 * kDK * kTM) +
+              2 * kDK * kTN + 2 * kTN) +
+         16;  // two mbarriers
 }
 
-template <int DPAD, int KCAP>
-__global__ void __launch_bounds__(kThreads)
-    knn_topk_kernel(const float* __restrict__ x,
-                    const float* __restrict__ train,
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+// The train chunks come by TMA: thread 0 arms an mbarrier with the bytes
+// it expects and issues one 2D tensor copy, which completes them; every
+// thread waits on the barrier's phase.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// rows [row, row + kDK) and columns [col, col + kTN) of the (dpad, ntp)
+// tensor `map` describes -> dst, [kDK][kTN]
+__device__ __forceinline__ void tma_chunk(float* dst, const CUtensorMap* map,
+                                          int col, int row, uint64_t* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(4 * kDK * kTN)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// Inserts (dist, j) into the sorted register list (bd, bi) of capacity
+// KCAP, of which the first k entries count, and refreshes kth (its k-th
+// distance): strict "less than", the entries after the new one shift down.
+template <int KCAP>
+__device__ __forceinline__ void insert_sorted(float (&bd)[KCAP],
+                                              int (&bi)[KCAP], float& kth,
+                                              int k, float dist, int j) {
+  if (!(dist < kth)) return;
+  float cd = dist;
+  int ci = j;
+  bool shift = false;  // once placed, every later entry moves down
+#pragma unroll
+  for (int q = 0; q < KCAP; ++q) {
+    const bool take = shift || cd < bd[q];
+    const float td = bd[q];
+    const int ti = bi[q];
+    bd[q] = take ? cd : td;
+    bi[q] = take ? ci : ti;
+    cd = take ? td : cd;
+    ci = take ? ti : ci;
+    shift = take;
+  }
+  // entries past k - 1 only ever shift; the guard is the k-th
+#pragma unroll
+  for (int q = 0; q < KCAP; ++q)
+    if (q == k - 1) kth = bd[q];
+}
+
+__device__ __forceinline__ float row_min(const float (&v)[8]) {
+  return fminf(fminf(fminf(v[0], v[1]), fminf(v[2], v[3])),
+               fminf(fminf(v[4], v[5]), fminf(v[6], v[7])));
+}
+
+// One row's list spread over a half-warp: entry j in lane j % 16, slot
+// j / 16. Every lane of the warp calls these together (the shuffles and
+// ballots are warp-wide; `half` is this lane's 0 or 16).
+template <int SL>
+struct HalfList {
+  float d[SL];
+  int i[SL];
+
+  // Entry k - 1, in every lane of the half-warp.
+  __device__ __forceinline__ float kth(int k) const {
+    float v = d[0];
+#pragma unroll
+    for (int s = 1; s < SL; ++s)
+      if ((k - 1) >> 4 == s) v = d[s];
+    return __shfl_sync(kFull, v, (k - 1) & 15, 16);
+  }
+
+  // Inserts (cd, ci) where `ins` (the same in all lanes of a half-warp).
+  __device__ __forceinline__ void insert(bool ins, float cd, int ci, int hl,
+                                         int half) {
+    int pos = 0;  // entries at or below cd: a prefix of the sorted list
+#pragma unroll
+    for (int s = 0; s < SL; ++s)
+      pos += __popc((__ballot_sync(kFull, d[s] <= cd) >> half) & 0xffffu);
+    float ud[SL];
+    int ui[SL];
+#pragma unroll
+    for (int s = 0; s < SL; ++s) {
+      ud[s] = __shfl_up_sync(kFull, d[s], 1, 16);
+      ui[s] = __shfl_up_sync(kFull, i[s], 1, 16);
+    }
+#pragma unroll
+    for (int s = 1; s < SL; ++s) {  // entry 16 s - 1 is lane 15, slot s - 1
+      const float ld = __shfl_sync(kFull, d[s - 1], 15, 16);
+      const int li = __shfl_sync(kFull, i[s - 1], 15, 16);
+      if (hl == 0) {
+        ud[s] = ld;
+        ui[s] = li;
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < SL; ++s) {
+      const int j = 16 * s + hl;
+      const bool at = ins && j == pos, after = ins && j > pos;
+      d[s] = at ? cd : after ? ud[s] : d[s];
+      i[s] = at ? ci : after ? ui[s] : i[s];
+    }
+  }
+};
+
+#ifdef KNN_PHASE_CLOCKS
+// per thread of block (0, 0): cycles in the copy wait, the barrier, the copy
+// issue, the FMAs, the epilogue and the insertion rounds of all its steps
+constexpr int kPhases = 6;
+__device__ long long knn_phase_cycles[kTileThreads * kPhases];
+#define PHASE_START() long long phase_t_ = clock64()
+#define PHASE_END(q)                      \
+  do {                                    \
+    const long long now_ = clock64();     \
+    phase_c_[q] += now_ - phase_t_;       \
+    phase_t_ = now_;                      \
+  } while (0)
+#else
+#define PHASE_START() \
+  do {                \
+  } while (0)
+#define PHASE_END(q) \
+  do {               \
+  } while (0)
+#endif
+
+template <int KCAP>
+__global__ void __launch_bounds__(kTileThreads, 1)
+    knn_tile_kernel(const __grid_constant__ CUtensorMap train_map,
+                    const float* __restrict__ x,
                     const float* __restrict__ tsq, int* __restrict__ out,
-                    int64_t n, int64_t nt, int d, int k) {
-  extern __shared__ __align__(16) float smem[];
-  float* ts = smem;
-  float* tsq_s = ts + kTileT * DPAD;
+                    float* __restrict__ sd, int* __restrict__ si, int64_t n,
+                    int d, int dpad, int ntp, int k, int splits) {
+  constexpr int SL = KCAP / 16;
+  extern __shared__ __align__(128) float smem[];
+  const bool xres = dpad <= kXResMax;
+  const int nchunks = dpad / kDK;
+  float* xs = smem;
+  float* ts = xs + (xres ? dpad * kTM : 2 * kDK * kTM);
+  float* tsq_s = ts + 2 * kDK * kTN;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(tsq_s + 2 * kTN);
   const float inf = __int_as_float(0x7f800000);
 
-  const int64_t row = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  const bool live = row < n;
-  float xr[DPAD];
+  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
+  const int half = t & 16;  // this lane's half of the warp: lanes half..+15
+  const int64_t i0 = (int64_t)blockIdx.x * kTM;
+  const int tiles = ntp / kTN;
+  const int tile0 = (int)((int64_t)blockIdx.y * tiles / splits);
+  const int tile1 = (int)((int64_t)(blockIdx.y + 1) * tiles / splits);
+  const int nsteps = (tile1 - tile0) * nchunks;
+
+  // step s: train tile tile0 + s / nchunks, columns of chunk s % nchunks,
+  // into buffer s & 1
+  auto issue = [&](int s) {
+    const int tile = tile0 + s / nchunks, c = s - (s / nchunks) * nchunks;
+    const int b = s & 1, j0 = tile * kTN;
+    if (t == 0)
+      tma_chunk(ts + b * kDK * kTN, &train_map, j0, c * kDK, &bars[b]);
+    if (c == 0 && t < kTN / 4)
+      cp_async16(tsq_s + (tile & 1) * kTN + 4 * t, tsq + j0 + 4 * t);
+    if (!xres) {
+      float* xdst = xs + b * kDK * kTM;
+      for (int e = t; e < kDK * kTM; e += kTileThreads) {
+        const int f = e / kTM, i = e - f * kTM, col = c * kDK + f;
+        const bool ok = i0 + i < n && col < d;
+        cp_async4(xdst + e, ok ? x + (i0 + i) * d + col : x, ok ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  if (t == 0) {
+    mbar_init(&bars[0]);
+    mbar_init(&bars[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (nsteps > 0) issue(0);
+  if (xres) {
+    for (int e = t; e < dpad * kTM; e += kTileThreads) {
+      const int f = e / kTM, i = e - f * kTM;
+      xs[e] = (i0 + i < n && f < d) ? x[(i0 + i) * d + f] : 0.f;
+    }
+  }
+
+  // rows p of this thread: (p < 4 ? 0 : 64) + ty * 4 + p % 4, shared with
+  // the 15 other lanes of its half-warp; their lists and k-th distances
+  HalfList<SL> list[8];
+  float kth[8];
 #pragma unroll
-  for (int f = 0; f < DPAD; ++f)
-    xr[f] = (live && f < d) ? x[row * d + f] : 0.f;
+  for (int p = 0; p < 8; ++p) {
+#pragma unroll
+    for (int s = 0; s < SL; ++s) {
+      list[p].d[s] = inf;
+      list[p].i[s] = 0;
+    }
+    kth[p] = inf;
+  }
+  float acc[8][8];
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
+
+#ifdef KNN_PHASE_CLOCKS
+  long long phase_c_[kPhases] = {0, 0, 0, 0, 0, 0};
+#endif
+  for (int s = 0; s < nsteps; ++s) {
+    PHASE_START();
+    mbar_wait(&bars[s & 1], (s >> 1) & 1);
+    cp_async_wait_all();
+    PHASE_END(0);
+    __syncthreads();  // step s is in shared memory; step s - 1 is read
+    PHASE_END(1);
+    if (s + 1 < nsteps) issue(s + 1);  // in flight during these FMAs
+    PHASE_END(2);
+    const int c = s % nchunks, b = s & 1;
+    const float* xc = xs + (xres ? c : b) * kDK * kTM;
+    const float* tc = ts + b * kDK * kTN;
+#pragma unroll
+    for (int kk = 0; kk < kDK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(xc + kk * kTM + ty * 4);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(xc + kk * kTM + 64 + ty * 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(tc + kk * kTN + tx * 4);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(tc + kk * kTN + 64 + tx * 4);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int p = 0; p < 8; ++p)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) acc[p][q] = fmaf(a[p], bb[q], acc[p][q]);
+    }
+    PHASE_END(3);
+    if (c != nchunks - 1) continue;
+#ifdef KNN_NO_SELECTION
+    {  // the distance tiles alone: fold the dots into a sink
+      float z = 0.f;
+#pragma unroll
+      for (int p = 0; p < 8; ++p)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          z += acc[p][q];
+          acc[p][q] = 0.f;
+        }
+      if (z == 1234.5f) out[0] = 7;
+      continue;
+    }
+#endif
+
+    // the tile is done: distances, then the survivors into the lists
+    const int tile = tile0 + s / nchunks, j0 = tile * kTN;
+    const float* tq = tsq_s + (tile & 1) * kTN;
+    const float4 q0 = *reinterpret_cast<const float4*>(tq + tx * 4);
+    const float4 q1 = *reinterpret_cast<const float4*>(tq + 64 + tx * 4);
+    const float tn[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+    bool filling = false;
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) acc[p][q] = fmaf(-2.f, acc[p][q], tn[q]);
+      filling |= kth[p] == inf;
+    }
+    // row p's survivors: bit q of byte p % 4 of keep[p / 4]
+    unsigned keep[2] = {0u, 0u};
+    if (__any_sync(kFull, filling) && k <= 16) {
+      // a list is not full yet: drop what lies above the k-th smallest of
+      // the half-warp's 16 lane minima (ties by lane)
+#pragma unroll
+      for (int p = 0; p < 8; ++p) {
+        const float lo = row_min(acc[p]);
+        int rank = 0;
+#pragma unroll
+        for (int l = 0; l < 16; ++l) {
+          const float o = __shfl_sync(kFull, lo, l, 16);
+          rank += (o < lo) || (o == lo && l < tx);
+        }
+        const unsigned at =
+            (__ballot_sync(kFull, rank == k - 1) >> half) & 0xffffu;
+        const float bound = __shfl_sync(kFull, lo, __ffs(at) - 1, 16);
+        unsigned m = 0;
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          m |= (unsigned)(acc[p][q] < kth[p] && acc[p][q] <= bound) << q;
+        keep[p >> 2] |= m << (8 * (p & 3));
+      }
+    } else {
+#pragma unroll
+      for (int p = 0; p < 8; ++p) {
+        if (row_min(acc[p]) < kth[p]) {  // rare once the lists are full
+          unsigned m = 0;
+#pragma unroll
+          for (int q = 0; q < 8; ++q) m |= (unsigned)(acc[p][q] < kth[p]) << q;
+          keep[p >> 2] |= m << (8 * (p & 3));
+        }
+      }
+    }
+    PHASE_END(4);
+    // the survivors into the lists, a round at a time: a round inserts the
+    // next survivor of each of the half-warp's 8 rows, the rows' shuffles
+    // independent of each other; columns g * 64 + lane * 4 + q % 4 (g = q
+    // / 4) ascend by g, then lane, then q
+    while (__any_sync(kFull, (keep[0] | keep[1]) != 0)) {
+#pragma unroll
+      for (int p = 0; p < 8; ++p) {
+        const int sh = 8 * (p & 3);
+        const unsigned row = (keep[p >> 2] >> sh) & 0xffu;
+        const unsigned lo_all = __ballot_sync(kFull, row & 15u);
+        const unsigned hi_all = __ballot_sync(kFull, row >> 4);
+        if (!(lo_all | hi_all)) continue;  // row p has none in either half
+        const unsigned lo4 = (lo_all >> half) & 0xffffu;
+        const unsigned hi4 = (hi_all >> half) & 0xffffu;
+        const unsigned lanes = lo4 ? lo4 : hi4;
+        const int src = lanes ? __ffs(lanes) - 1 : 0;
+        const unsigned mine = lo4 ? row & 15u : row;
+        const int q = mine ? __ffs(mine) - 1 : 0;
+        float mv = acc[p][0];
+#pragma unroll
+        for (int r = 1; r < 8; ++r) mv = q == r ? acc[p][r] : mv;
+        const float cd = __shfl_sync(kFull, mv, src, 16);
+        const int cq = __shfl_sync(kFull, q, src, 16);
+        if (lanes && tx == src) keep[p >> 2] &= ~(1u << (sh + q));
+        list[p].insert(lanes != 0 && cd < kth[p], cd,
+                       j0 + (cq & 4) * 16 + 4 * src + (cq & 3), tx, half);
+        kth[p] = list[p].kth(k);
+      }
+    }
+    PHASE_END(5);
+#pragma unroll
+    for (int p = 0; p < 8; ++p)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
+  }
+#ifdef KNN_PHASE_CLOCKS
+  if (blockIdx.x == 0 && blockIdx.y == 0)
+    for (int q = 0; q < kPhases; ++q)
+      knn_phase_cycles[t * kPhases + q] = phase_c_[q];
+#endif
+
+  // each lane writes its entries of its 8 rows
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    const int64_t row = i0 + (p < 4 ? 0 : 64) + ty * 4 + (p & 3);
+    if (row >= n) continue;
+#pragma unroll
+    for (int s = 0; s < SL; ++s) {
+      const int j = 16 * s + tx;
+      if (j >= k) continue;
+      if (splits == 1) {
+        out[row * k + j] = list[p].i[s];
+      } else {
+        const int64_t at = ((int64_t)blockIdx.y * n + row) * k + j;
+        sd[at] = list[p].d[s];
+        si[at] = list[p].i[s];
+      }
+    }
+  }
+}
+
+constexpr int kMergeThreads = 128;
+
+// One thread per test row: the splits' sorted lists, (splits, n, k), merged
+// in split order into the row's k indices.
+template <int KCAP>
+__global__ void __launch_bounds__(kMergeThreads)
+    knn_merge_kernel(const float* __restrict__ sd,
+                     const int* __restrict__ si, int* __restrict__ out,
+                     int64_t n, int k, int splits) {
+  const int64_t row = (int64_t)blockIdx.x * kMergeThreads + threadIdx.x;
+  if (row >= n) return;
   float bd[KCAP];
   int bi[KCAP];
 #pragma unroll
   for (int q = 0; q < KCAP; ++q) {
-    bd[q] = inf;
-    bi[q] = 0;
+    bd[q] = q < k ? sd[row * k + q] : __int_as_float(0x7f800000);
+    bi[q] = q < k ? si[row * k + q] : 0;
   }
-  float kth = inf;  // the k-th smallest distance so far
-
-  for (int64_t j0 = 0; j0 < nt; j0 += kTileT) {
-    const int rows = (int)min((int64_t)kTileT, nt - j0);
-    __syncthreads();  // every thread is done with the last tile
-    load_train_tile<DPAD>(train, tsq, ts, tsq_s, j0, rows, d);
-    __syncthreads();
-    for (int r = 0; r < rows; ++r) {
-      const float4* tp = reinterpret_cast<const float4*>(ts + r * DPAD);
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+  float kth = __int_as_float(0x7f800000);
 #pragma unroll
-      for (int q = 0; q < DPAD / 4; ++q) {
-        const float4 tv = tp[q];
-        a0 = fmaf(xr[4 * q + 0], tv.x, a0);
-        a1 = fmaf(xr[4 * q + 1], tv.y, a1);
-        a2 = fmaf(xr[4 * q + 2], tv.z, a2);
-        a3 = fmaf(xr[4 * q + 3], tv.w, a3);
-      }
-      const float dist = tsq_s[r] - 2.0f * ((a0 + a1) + (a2 + a3));
-      if (dist < kth) {
-        float cd = dist;
-        int ci = (int)(j0 + r);
-        bool shift = false;  // once placed, every later entry moves down
-#pragma unroll
-        for (int q = 0; q < KCAP; ++q) {
-          const bool take = shift || cd < bd[q];
-          const float td = bd[q];
-          const int ti = bi[q];
-          bd[q] = take ? cd : td;
-          bi[q] = take ? ci : ti;
-          cd = take ? td : cd;
-          ci = take ? ti : ci;
-          shift = take;
-        }
-        // entries past k - 1 only ever shift; the guard is the k-th
-#pragma unroll
-        for (int q = 0; q < KCAP; ++q)
-          if (q == k - 1) kth = bd[q];
-      }
+  for (int q = 0; q < KCAP; ++q)
+    if (q == k - 1) kth = bd[q];
+  for (int s = 1; s < splits; ++s) {
+    const int64_t base = ((int64_t)s * n + row) * k;
+    for (int q = 0; q < k; ++q) {
+      const float dist = sd[base + q];
+      if (!(dist < kth)) break;  // the split's list is sorted: none after
+      insert_sorted<KCAP>(bd, bi, kth, k, dist, si[base + q]);
     }
   }
-  if (live) {
 #pragma unroll
-    for (int q = 0; q < KCAP; ++q)
-      if (q < k) out[row * k + q] = bi[q];
-  }
+  for (int q = 0; q < KCAP; ++q)
+    if (q < k) out[row * k + q] = bi[q];
 }
+
+// The (dpad, ntp) transposed train set as a TMA tensor, read in boxes of
+// kDK rows by kTN columns. cuTensorMapEncodeTiled comes from the driver
+// through the runtime, so the library links no libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+cudaError_t encode_train_map(CUtensorMap* map, const float* trainT, int dpad,
+                             int ntp) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                            cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess) return e;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)ntp, (cuuint64_t)dpad};
+  const cuuint64_t strides[1] = {(cuuint64_t)ntp * sizeof(float)};
+  const cuuint32_t box[2] = {kTN, kDK};
+  const cuuint32_t elems[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                const_cast<float*>(trainT), dims, strides, box, elems,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+template <int KCAP>
+cudaError_t launch_tiled(const CUtensorMap& train_map, const float* x,
+                         const float* tsq, int* out, float* scratch,
+                         int64_t n, int d, int dpad, int ntp, int k,
+                         int splits, cudaStream_t stream) {
+  const int smem = (int)tile_smem_bytes(dpad);
+  cudaError_t e = cudaFuncSetAttribute(
+      knn_tile_kernel<KCAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return e;
+  float* sd = splits > 1 ? scratch : nullptr;
+  int* si = splits > 1 ? reinterpret_cast<int*>(scratch + splits * n * k)
+                       : nullptr;
+  const dim3 grid((unsigned)((n + kTM - 1) / kTM), (unsigned)splits);
+  knn_tile_kernel<KCAP><<<grid, kTileThreads, smem, stream>>>(
+      train_map, x, tsq, out, sd, si, n, d, dpad, ntp, k, splits);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  knn_merge_kernel<KCAP><<<(unsigned)((n + kMergeThreads - 1) /
+                                      kMergeThreads),
+                           kMergeThreads, 0, stream>>>(sd, si, out, n, k,
+                                                       splits);
+  return cudaGetLastError();
+}
+
+// -- wide kernel (k > 32) -------------------------------------------------
+
+constexpr int kThreads = 128;  // test rows per block, one per thread
 
 constexpr int kWideT = 32;              // train rows per tile, wide kernel
 constexpr int kWideD = 64;              // columns staged at once
@@ -242,22 +725,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int DPAD, int KCAP>
-cudaError_t launch(const float* x, const float* train, const float* tsq,
-                   int* out, int64_t n, int64_t nt, int d, int k,
-                   cudaStream_t stream) {
-  if (d > DPAD || k > KCAP) return cudaErrorInvalidValue;
-  const int smem = smem_bytes(DPAD);
-  cudaError_t e = cudaFuncSetAttribute(
-      knn_topk_kernel<DPAD, KCAP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  knn_topk_kernel<DPAD, KCAP><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      x, train, tsq, out, n, nt, d, k);
-  return cudaGetLastError();
-}
-
 cudaError_t launch_wide(const float* x, const float* train, const float* tsq,
                         int* out, float* scratch, int64_t n, int64_t nt,
                         int d, int k, cudaStream_t stream) {
@@ -282,31 +749,67 @@ const char* knn_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// The (n, k) int32 indices of the k nearest train rows of each test row, for
-// 1 <= k <= nt: (dpad, kcap) one of the register instances, with d <= dpad
-// and k <= kcap, or (0, 0) for the wide instance, which takes any d and k
-// and a scratch of 2 k n floats (ops/kernels.py `_knn_layout` picks them).
-int knn_topk(const float* x, const float* train, const float* tsq, int* out,
-             float* scratch, long long n, long long nt, int d, int k,
-             int dpad, int kcap, void* stream) {
-  if (n < 1 || nt < 1 || nt > 0x7fffffffLL || d < 1 || k < 1 || k > nt)
+// Shared memory of a knn_tile_kernel block at this padded width.
+long long knn_tile_smem_bytes(int dpad) { return tile_smem_bytes(dpad); }
+
+// Resident blocks of one SM for knn_tile_kernel<kcap> at this padded width.
+int knn_tile_blocks_per_sm(int kcap, int dpad, int* out) {
+  const void* fn = kcap == 16 ? (const void*)knn_tile_kernel<16>
+                              : (const void*)knn_tile_kernel<32>;
+  if ((kcap != 16 && kcap != 32) || dpad < kDK || dpad % kDK != 0)
+    return (int)cudaErrorInvalidValue;
+  const int smem = (int)tile_smem_bytes(dpad);
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, fn, kTileThreads, (size_t)smem);
+}
+
+// The (n, k) int32 indices of the k nearest train rows of each test row,
+// 1 <= k <= kcap (16 or 32), through the tiled kernel: trainT is the
+// (dpad, ntp) transposed train set, zero past d and past the train rows,
+// tsq its (ntp,) norms, +inf past the train rows; splits train ranges, with
+// a scratch of 2 splits n k floats when splits > 1 (ops/kernels.py
+// `_knn_plan` picks them).
+int knn_topk_tiled(const float* x, const float* trainT, const float* tsq,
+                   int* out, float* scratch, long long n, int d, int dpad,
+                   int ntp, int k, int kcap, int splits, void* stream) {
+  if (n < 1 || d < 1 || dpad < d || dpad % kDK != 0 || ntp < kTN ||
+      ntp % kTN != 0 || k < 1 || k > kcap || splits < 1 ||
+      splits > 65535 || splits > ntp / kTN || (splits > 1 && !scratch) ||
+      (int64_t)(n + kTM - 1) / kTM > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dpad == 0 && kcap == 0)
-    return (int)launch_wide(x, train, tsq, out, scratch, (int64_t)n,
-                            (int64_t)nt, d, k, s);
-#define KNN_CASE(DP, KC)                                                   \
-  if (dpad == DP && kcap == KC)                                            \
-    return (int)launch<DP, KC>(x, train, tsq, out, (int64_t)n, (int64_t)nt, \
-                               d, k, s);
-  KNN_CASE(32, 16)
-  KNN_CASE(32, 32)
-  KNN_CASE(64, 16)
-  KNN_CASE(64, 32)
-  KNN_CASE(128, 16)
-  KNN_CASE(128, 32)
-#undef KNN_CASE
+  CUtensorMap map;
+  const cudaError_t e = encode_train_map(&map, trainT, dpad, ntp);
+  if (e != cudaSuccess) return (int)e;
+  if (kcap == 16)
+    return (int)launch_tiled<16>(map, x, tsq, out, scratch, (int64_t)n, d,
+                                 dpad, ntp, k, splits, s);
+  if (kcap == 32)
+    return (int)launch_tiled<32>(map, x, tsq, out, scratch, (int64_t)n, d,
+                                 dpad, ntp, k, splits, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// The same for any k <= nt through the wide instance, with a scratch of
+// 2 k n floats.
+int knn_topk_wide(const float* x, const float* train, const float* tsq,
+                  int* out, float* scratch, long long n, long long nt, int d,
+                  int k, void* stream) {
+  if (n < 1 || nt < 1 || nt > 0x7fffffffLL || d < 1 || k < 1 || k > nt)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_wide(x, train, tsq, out, scratch, (int64_t)n,
+                          (int64_t)nt, d, k, (cudaStream_t)stream);
+}
+
+#ifdef KNN_PHASE_CLOCKS
+// Block (0, 0)'s knn_phase_cycles of the last launch, into host memory.
+int knn_phase_cycles_read(long long* host) {
+  return (int)cudaMemcpyFromSymbol(host, knn_phase_cycles,
+                                   sizeof(knn_phase_cycles));
+}
+#endif
 
 }  // extern "C"

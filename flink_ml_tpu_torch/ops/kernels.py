@@ -33,9 +33,10 @@ tests and ``chip_smoke.py`` hold the kernels against them.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -125,6 +126,18 @@ def lloyd_kernel_fits(k: int, d: int) -> bool:
     return _layout(k, d, lloyd=True) is not None
 
 
+#: most slices of the :func:`reduce_partials` order (``kRedSlices`` of
+#: ``kmeans_kernels.cu``, whose launches choose their own tiling)
+REDUCE_SLICES = 32
+
+
+def reduce_slices(blocks: int) -> Tuple[int, int]:
+    """``(slice_rows, slices)``: how :func:`reduce_partials` cuts B = blocks
+    rows into contiguous slices, ⌈B / 32⌉ rows each, the last one shorter."""
+    slice_rows = -(-blocks // REDUCE_SLICES)
+    return slice_rows, -(-blocks // slice_rows)
+
+
 #: loss name → the sgd kernel's template instance (``enum Loss`` of
 #: ``sgd_kernels.cu``)
 SGD_LOSSES = {"logistic": 0, "hinge": 1, "least_square": 2}
@@ -179,30 +192,78 @@ def _seg_layout(num_segments: int, c: int) -> Tuple[int, int, int, int]:
     return ut, -(-num_segments // ut), cg, -(-c // cg)
 
 
-#: the row widths and top-k list lengths of the KNN kernel's register
-#: instances (``knn_topk_kernel<DPAD, KCAP>``), smallest first
-KNN_DPADS = (32, 64, 128)
+#: test rows of a tiled KNN block, and train rows of one of its tiles
+#: (``kTM``, ``kTN`` of ``knn_kernels.cu``): the train set's padding
+KNN_TILE_ROWS = 128
+#: columns a tiled KNN step stages (``kDK``); d is padded to a multiple
+KNN_CHUNK_COLS = 32
+#: list capacities of the tiled instances (``knn_tile_kernel<KCAP>``);
+#: longer lists take the wide instance
 KNN_KCAPS = (16, 32)
 
 
-def _knn_layout(k: int, d: int) -> Tuple[int, int]:
-    """``(dpad, kcap)`` of the :func:`knn_topk_indices` instance for ``k``
-    neighbours of ``d``-wide rows; ``(0, 0)`` is the wide instance.
+class KnnPlan(NamedTuple):
+    """How :func:`knn_topk_indices` launches: ``route`` "tiled"
+    (``knn_tile_kernel<kcap>``, then ``knn_merge_kernel`` when ``splits``
+    > 1) or "wide" (``knn_topk_wide_kernel``, k > 32); the train set
+    transposed to (``dpad``, ``ntp``), ``tiles`` train tiles cut into
+    ``splits`` contiguous ranges; the scratch the wrapper allocates, in
+    bytes. The kernel sizes its own shared memory (``knn_tile_smem_bytes``
+    of ``knn_kernels.cu``)."""
+    route: str
+    kcap: int
+    dpad: int
+    ntp: int
+    tiles: int
+    splits: int
+    scratch_bytes: int
 
-    A register instance holds a thread's test row (d padded to 32, 64 or
-    128 floats) and its sorted top-k list (16 or 32 distances and indices)
-    in registers: at d = 128, k = 32 that is 192 values, and ptxas gives
-    that instance all 255 registers a thread may have and a 128-byte stack
-    frame, so neither bound can grow without spilling. The benchmark's
-    d = 32, k = 10 takes the (32, 16) instance (112 registers, no stack).
-    Any wider row or longer list takes the wide instance
-    (``knn_topk_wide_kernel``): rows staged through shared memory in
-    64-column chunks, the list in a (k, n) scratch in device memory."""
-    dpad = next((p for p in KNN_DPADS if d <= p), None)
-    kcap = next((q for q in KNN_KCAPS if k <= q), None)
-    if dpad is None or kcap is None:
-        return 0, 0
-    return dpad, kcap
+
+def _knn_splits(test_tiles: int, tiles: int, resident: int) -> int:
+    """Train splits S of a tiled launch: the S that minimises the kernel's
+    time, which goes as its waves of blocks over S, ⌈test_tiles·S /
+    resident⌉ / S, the smallest S among equals, and never more than the
+    train tiles (no empty split). S = 1 whenever the test tiles fill the
+    card (or there are none)."""
+    if test_tiles < 1 or test_tiles >= resident:
+        return 1
+    top = min(tiles, 65535, 2 * -(-resident // test_tiles))
+    return min(range(1, top + 1),
+               key=lambda s: (-(-test_tiles * s // resident) / s, s))
+
+
+def _knn_plan(n: int, nt: int, d: int, k: int, resident: int) -> KnnPlan:
+    """The launch of :func:`knn_topk_indices` for ``k`` neighbours among
+    ``nt`` train rows of ``n`` test rows of width ``d``, on a card that
+    holds ``resident`` tiled blocks at once (132 on an H100: one block per
+    SM, bound by registers).
+
+    Lists up to 32 long take the tiled kernel, any d. Its blocks are (test
+    tile, train split), the splits chosen by :func:`_knn_splits`: the
+    10,000,000-row benchmark and a 16,384-row block (128 test tiles) take
+    S = 1, 1,000 rows S = 33 on an H100. With S > 1 each split writes its
+    (n, k) distances and indices to a scratch of 8·S·n·k bytes that the
+    merge stage reads. Longer lists take the wide instance, whose (k, n)
+    list scratch is 8·k·n bytes."""
+    if k > KNN_KCAPS[-1]:  # its shared memory is the kernel's own affair
+        return KnnPlan("wide", 0, d, nt, 0, 1, 8 * k * n)
+    kcap = next(c for c in KNN_KCAPS if k <= c)
+    dpad = -(-d // KNN_CHUNK_COLS) * KNN_CHUNK_COLS
+    tiles = -(-nt // KNN_TILE_ROWS)
+    splits = _knn_splits(-(-n // KNN_TILE_ROWS), tiles, resident)
+    scratch = 8 * splits * n * k if splits > 1 else 0
+    return KnnPlan("tiled", kcap, dpad, tiles * KNN_TILE_ROWS, tiles, splits,
+                   scratch)
+
+
+def knn_split_bounds(nt: int, splits: int) -> list:
+    """The ``(lo, hi)`` train rows of each split of the tiled kernel:
+    contiguous runs of whole train tiles (``tile0``/``tile1`` of
+    ``knn_tile_kernel``), the last one ragged."""
+    tiles = -(-nt // KNN_TILE_ROWS)
+    return [(s * tiles // splits * KNN_TILE_ROWS,
+             min(nt, (s + 1) * tiles // splits * KNN_TILE_ROWS))
+            for s in range(splits)]
 
 
 # -- plain versions ------------------------------------------------------------
@@ -226,13 +287,25 @@ def lloyd_partial_sums_plain(x: torch.Tensor, v: torch.Tensor,
 
 
 def reduce_partials_plain(partials: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch :func:`reduce_partials`: the sum over the first axis,
-    added in index order as the kernel adds it."""
-    out = torch.zeros(partials.shape[1:], dtype=partials.dtype,
-                      device=partials.device)
-    for p in partials:
-        out += p
-    return out
+    """Plain PyTorch :func:`reduce_partials`: the sum over the first axis in
+    the kernel's fixed two-level order. The B rows are cut into contiguous
+    slices (:func:`reduce_slices`), each added in row order from 0; then
+    the slice sums are added by a fixed pairwise tree (pairs (0, 1), (2,
+    3), ..., an odd last one carried to the next level) until one is
+    left."""
+    blocks = partials.shape[0]
+    flat = partials.reshape(blocks, -1)
+    rows, slices = reduce_slices(blocks)
+    sums = torch.zeros((slices, flat.shape[1]), dtype=partials.dtype,
+                       device=partials.device)
+    for i in range(rows):
+        step = flat[i::rows]  # row i of every slice that has one
+        sums[:step.shape[0]] += step
+    while sums.shape[0] > 1:
+        half = sums.shape[0] // 2
+        pairs = sums[0:2 * half:2] + sums[1:2 * half:2]
+        sums = torch.cat([pairs, sums[2 * half:]])
+    return sums[0].reshape(partials.shape[1:])
 
 
 def sgd_batch_terms_plain(xl: torch.Tensor, yl: torch.Tensor,
@@ -295,6 +368,41 @@ def knn_topk_indices_plain(x: torch.Tensor, train: torch.Tensor,
         return torch.empty((0, k), dtype=torch.int32, device=x.device)
     tsq = torch.sum(train * train, dim=1)
     return _topk_lowest_index(tsq[None, :] - 2.0 * (x @ train.T), k)
+
+
+def knn_split_topk_plain(x: torch.Tensor, train: torch.Tensor, k: int,
+                         bounds) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch first stage of a split :func:`knn_topk_indices`: for
+    each contiguous train range ``(lo, hi)`` of ``bounds``, each test row's
+    sorted top-k of that range, as (S, n, k) float32 distances and int32
+    train indices; a range of fewer than k rows is padded with (+inf, 0),
+    as the kernel leaves its list. One (n, n_train) distance block serves
+    every range, so the ranges see the same distances as one pass."""
+    tsq = torch.sum(train * train, dim=1)
+    d2 = tsq[None, :] - 2.0 * (x @ train.T)
+    n = x.shape[0]
+    dists = torch.full((len(bounds), n, k), float("inf"), device=x.device)
+    idx = torch.zeros((len(bounds), n, k), dtype=torch.int32, device=x.device)
+    for s, (lo, hi) in enumerate(bounds):
+        kk = min(k, hi - lo)
+        cols = _topk_lowest_index(d2[:, lo:hi], kk).long()
+        dists[s, :, :kk] = d2[:, lo:hi].gather(1, cols)
+        idx[s, :, :kk] = (cols + lo).to(torch.int32)
+    return dists, idx
+
+
+def knn_merge_topk_plain(dists: torch.Tensor, idx: torch.Tensor,
+                         k: int) -> torch.Tensor:
+    """Plain PyTorch merge stage of a split :func:`knn_topk_indices` (the
+    kernel's ``knn_merge_kernel``): (S, n, k) sorted per-split lists, in
+    split order, → (n, k) int32. A stable sort of the lists laid end to end
+    keeps equal distances in split order, then list order: ascending train
+    index, as the kernel's strict-less insertion does."""
+    s, n, kk = dists.shape
+    flat_d = dists.permute(1, 0, 2).reshape(n, s * kk)
+    flat_i = idx.permute(1, 0, 2).reshape(n, s * kk)
+    order = torch.sort(flat_d, dim=1, stable=True).indices[:, :k]
+    return flat_i.gather(1, order)
 
 
 # -- wrappers ------------------------------------------------------------------
@@ -373,15 +481,18 @@ def lloyd_partial_sums(x: torch.Tensor, v: torch.Tensor,
 
 
 def reduce_partials(partials: torch.Tensor) -> torch.Tensor:
-    """(B, ...) per-block partials → (...), summed in block order: the
-    second stage of :func:`lloyd_partial_sums` ((B, k, d+1)) and of
-    :func:`sgd_batch_terms` ((B, d+2))."""
+    """(B, ...) per-block partials → (...), summed over B in a fixed
+    two-level order (:func:`reduce_partials_plain`): the second stage of
+    :func:`lloyd_partial_sums` ((B, k, d+1)), :func:`sgd_batch_terms`
+    ((B, d+2)) and :func:`segment_reduce_sum` ((B, u, c))."""
     _check("reduce_partials", partials=partials)
     if partials.ndim < 2 or partials.shape[0] < 1:
         raise ValueError("reduce_partials: partials must be (B, ...) with "
                          f"B >= 1, got {tuple(partials.shape)}")
     if not _is_cuda(partials):
         return reduce_partials_plain(partials)
+    if partials.numel() == 0:
+        return partials.new_zeros(partials.shape[1:])
     out = _launch_reduce(partials)
     launch_counts["reduce_partials"] += 1
     return out
@@ -532,7 +643,11 @@ _SIGNATURES = {
     },
     KNN_SOURCE: {
         "knn_error_string": ([_I], ctypes.c_char_p),
-        "knn_topk": ([_P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _P], _I),
+        "knn_tile_smem_bytes": ([_I], _L),
+        "knn_tile_blocks_per_sm": ([_I, _I, ctypes.POINTER(_I)], _I),
+        "knn_topk_tiled": ([_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I,
+                            _P], _I),
+        "knn_topk_wide": ([_P, _P, _P, _P, _P, _L, _L, _I, _I, _P], _I),
     },
 }
 #: the C function that names a CUDA error code, by source
@@ -591,6 +706,27 @@ def _device_index(t: torch.Tensor) -> int:
     return t.device.index if t.device.index is not None else torch.cuda.current_device()
 
 
+#: the context of a launch on the card that is already current
+_CURRENT_CARD = contextlib.nullcontext()
+
+
+def _on_card(t: torch.Tensor):
+    """A context in which ``t``'s card is the current one, where the C side
+    launches: a no-op when it already is, as in a one-card process, so that a
+    launch does not pay the host time of a device switch and its undo."""
+    index = _device_index(t)
+    if index == torch.cuda.current_device():
+        return _CURRENT_CARD
+    return torch.cuda.device(index)
+
+
+def _stream(t: torch.Tensor) -> int:
+    """The handle of the current stream of ``t``'s card (the raw handle, not
+    a ``torch.cuda.Stream`` object, which takes longer to make than a short
+    kernel takes to run)."""
+    return torch._C._cuda_getCurrentRawStream(_device_index(t))
+
+
 def _launch_setup(x: torch.Tensor, k: int, d: int, lloyd: bool):
     what = "lloyd_partial_sums" if lloyd else "assign_nearest"
     layout = _layout(k, d, lloyd)
@@ -598,14 +734,14 @@ def _launch_setup(x: torch.Tensor, k: int, d: int, lloyd: bool):
         raise ValueError(f"{what}: no tile for k={k}, d={d} fits a block's "
                          "shared memory; check the shape gate first")
     vec4 = int(d % 4 == 0 and x.data_ptr() % 16 == 0)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = _stream(x)
     return layout, _device_index(x), vec4, stream
 
 
 def _launch_assign(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     n, d = x.shape
     k = centroids.shape[0]
-    with torch.cuda.device(x.device):
+    with _on_card(x):
         (rows, kchunk, smem), dev, vec4, stream = _launch_setup(x, k, d, False)
         csq = torch.sum(centroids * centroids, dim=1)
         out = torch.empty(n, dtype=torch.int32, device=x.device)
@@ -620,7 +756,7 @@ def _launch_lloyd_partials(x: torch.Tensor, v: torch.Tensor,
                            centroids: torch.Tensor) -> torch.Tensor:
     n, d = x.shape
     k = centroids.shape[0]
-    with torch.cuda.device(x.device):
+    with _on_card(x):
         (rows, kchunk, smem), dev, vec4, stream = _launch_setup(x, k, d, True)
         csq = torch.sum(centroids * centroids, dim=1)
         ntiles = -(-n // rows)
@@ -637,14 +773,12 @@ def _launch_lloyd_partials(x: torch.Tensor, v: torch.Tensor,
 
 
 def _launch_reduce(partials: torch.Tensor) -> torch.Tensor:
-    blocks = partials.shape[0]
-    with torch.cuda.device(partials.device):
-        out = torch.empty(partials.shape[1:], dtype=torch.float32,
-                          device=partials.device)
-        stream = torch.cuda.current_stream(partials.device).cuda_stream
+    out = torch.empty(partials.shape[1:], dtype=torch.float32,
+                      device=partials.device)
+    with _on_card(partials):
         _raise_on_error(KMEANS_SOURCE, _lib(KMEANS_SOURCE).kmeans_reduce_partials(
-            partials.data_ptr(), out.data_ptr(), blocks, out.numel(), stream),
-            "reduce_partials")
+            partials.data_ptr(), out.data_ptr(), partials.shape[0],
+            out.numel(), _stream(partials)), "reduce_partials")
     return out
 
 
@@ -654,7 +788,7 @@ def _launch_sgd_terms(xl: torch.Tensor, yl: torch.Tensor, wl: torch.Tensor,
     d = xl.shape[1]
     rows, dc, smem = _sgd_layout(d)
     loss = SGD_LOSSES[loss_name]
-    with torch.cuda.device(xl.device):
+    with _on_card(xl):
         ntiles = -(-lb // rows)
         blocks = min(ntiles, _sgd_resident_blocks(_device_index(xl), loss, smem))
         tiles_per_block = -(-ntiles // blocks)
@@ -662,7 +796,7 @@ def _launch_sgd_terms(xl: torch.Tensor, yl: torch.Tensor, wl: torch.Tensor,
         vec4 = int(d % 4 == 0 and xl.data_ptr() % 16 == 0)
         partials = torch.empty((blocks, d + 2), dtype=torch.float32,
                                device=xl.device)
-        stream = torch.cuda.current_stream(xl.device).cuda_stream
+        stream = _stream(xl)
         _raise_on_error(SGD_SOURCE, _lib(SGD_SOURCE).sgd_terms_partials(
             xl.data_ptr(), yl.data_ptr(), wl.data_ptr(), coeffs.data_ptr(),
             partials.data_ptr(), start, lb, clip, d, dc, rows, smem, vec4,
@@ -695,31 +829,85 @@ def _launch_segment_partials(values: torch.Tensor, ids: torch.Tensor, u: int,
     ut, tiles, cg, groups = _seg_layout(u, c)
     # the warps' (ut, cg) accumulators and 32-float scratches
     smem = 4 * SEG_WARPS * (ut * cg + 32)
-    with torch.cuda.device(values.device):
+    with _on_card(values):
         chunks, rows_per_chunk = _segment_chunks(
             n, tiles * groups,
             _segment_resident_blocks(_device_index(values), smem))
         partials = torch.empty((chunks, u * c), dtype=torch.float32,
                                device=values.device)
-        stream = torch.cuda.current_stream(values.device).cuda_stream
+        stream = _stream(values)
         _raise_on_error(SEGMENT_SOURCE, _lib(SEGMENT_SOURCE).segment_reduce_partials(
             values.data_ptr(), ids.data_ptr(), partials.data_ptr(), n, u, c,
             ut, cg, rows_per_chunk, chunks, stream), "segment_reduce_sum")
     return partials.view(chunks, u, c)
 
 
-def _launch_knn(x: torch.Tensor, train: torch.Tensor, k: int) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _knn_resident_blocks(device_index: int, kcap: int, dpad: int) -> int:
+    """Blocks of the tiled KNN kernel the whole card holds at once."""
+    per_sm = ctypes.c_int(0)
+    _raise_on_error(KNN_SOURCE, _lib(KNN_SOURCE).knn_tile_blocks_per_sm(
+        kcap, dpad, ctypes.byref(per_sm)), "occupancy query")
+    return _blocks_on_card(device_index, per_sm.value,
+                           f"knn_tile_kernel<{kcap}> at dpad={dpad}")
+
+
+def knn_tile_smem_bytes(dpad: int) -> int:
+    """Shared memory of a tiled KNN block at padded width ``dpad``, as the
+    kernel sizes it (CUDA only: it asks the built library)."""
+    return _lib(KNN_SOURCE).knn_tile_smem_bytes(dpad)
+
+
+def _knn_card_plan(x: torch.Tensor, nt: int, k: int) -> KnnPlan:
+    """:func:`_knn_plan` for this card."""
     n, d = x.shape
-    dpad, kcap = _knn_layout(k, d)
-    with torch.cuda.device(x.device):
+    plan = _knn_plan(n, nt, d, k, 1)
+    if plan.route == "wide":
+        return plan
+    resident = _knn_resident_blocks(_device_index(x), plan.kcap, plan.dpad)
+    return _knn_plan(n, nt, d, k, resident)
+
+
+def _launch_knn(x: torch.Tensor, train: torch.Tensor, k: int,
+                splits: Optional[int] = None) -> torch.Tensor:
+    """Launches the KNN kernels as :func:`_knn_plan` says; ``splits``
+    overrides the plan's train split (1 to its train tiles), which the card
+    check uses to hold split and unsplit runs against each other."""
+    n, d = x.shape
+    nt = train.shape[0]
+    with _on_card(x):
+        plan = _knn_card_plan(x, nt, k)
         tsq = torch.sum(train * train, dim=1)
         out = torch.empty((n, k), dtype=torch.int32, device=x.device)
-        # the wide instance's top-k lists: (k, n) distances and indices
-        scratch = (torch.empty((2, k, n), dtype=torch.float32, device=x.device)
-                   if dpad == 0 else None)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        _raise_on_error(KNN_SOURCE, _lib(KNN_SOURCE).knn_topk(
-            x.data_ptr(), train.data_ptr(), tsq.data_ptr(), out.data_ptr(),
-            0 if scratch is None else scratch.data_ptr(), n, train.shape[0],
-            d, k, dpad, kcap, stream), "knn_topk_indices")
+        stream = _stream(x)
+        lib = _lib(KNN_SOURCE)
+        if plan.route == "wide":
+            # the wide instance's top-k lists: (k, n) distances and indices
+            scratch = torch.empty((2, k, n), dtype=torch.float32,
+                                  device=x.device)
+            _raise_on_error(KNN_SOURCE, lib.knn_topk_wide(
+                x.data_ptr(), train.data_ptr(), tsq.data_ptr(), out.data_ptr(),
+                scratch.data_ptr(), n, nt, d, k, stream), "knn_topk_indices")
+            return out
+        if splits is not None:
+            if not 1 <= splits <= plan.tiles:
+                raise ValueError(f"knn_topk_indices: splits={splits} outside "
+                                 f"[1, {plan.tiles}]")
+            plan = plan._replace(
+                splits=splits, scratch_bytes=8 * splits * n * k if splits > 1
+                else 0)
+        # the train set transposed and padded: zero columns past d and
+        # train rows past nt, whose norms are +inf, so they never enter a list
+        train_t = torch.zeros((plan.dpad, plan.ntp), dtype=torch.float32,
+                              device=x.device)
+        train_t[:d, :nt] = train.T
+        tsq_p = torch.full((plan.ntp,), float("inf"), device=x.device)
+        tsq_p[:nt] = tsq
+        scratch = (torch.empty(plan.scratch_bytes // 4, dtype=torch.float32,
+                               device=x.device) if plan.splits > 1 else None)
+        _raise_on_error(KNN_SOURCE, lib.knn_topk_tiled(
+            x.data_ptr(), train_t.data_ptr(), tsq_p.data_ptr(), out.data_ptr(),
+            0 if scratch is None else scratch.data_ptr(), n, d, plan.dpad,
+            plan.ntp, k, plan.kcap, plan.splits, stream),
+            "knn_topk_indices")
     return out

@@ -1,0 +1,149 @@
+#!/usr/bin/env python3
+"""Where a tile's time goes in the port's tiled KNN kernel
+(``knn_tile_kernel`` of ``flink_ml_tpu_torch/csrc/knn_kernels.cu``), on one
+CUDA card.
+
+Run from the repository root on a machine with a CUDA card and nvcc:
+
+    python3 scripts/port_knn_phases.py [--out FILE]
+
+Builds the committed source twice more beside the real library, with the
+source's own switches: ``-DKNN_PHASE_CLOCKS`` reads ``clock64()`` between
+the phases of each step of the main loop (copy wait, barrier, copy issue,
+FMAs, the tile's epilogue of distances and survivor masks, and the
+insertion rounds), whose per-thread totals the first block keeps; and
+``-DKNN_NO_SELECTION`` folds each finished tile into a sink (no
+selection), which times the distance tiles alone. All three
+run on the 16,384 x 50,000 x 32, k = 10 block of the card check with one
+train split. Prints ptxas' registers and spills of the two copies' k <= 16
+instance, the blocks per SM of the real one, the times (CUDA events) and
+the mean cycles per tile of each phase.
+"""
+
+import argparse
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from flink_ml_tpu_torch.ops import _build  # noqa: E402
+from flink_ml_tpu_torch.ops import kernels as K  # noqa: E402
+
+PHASES = ("copy wait", "barrier", "copy issue", "FMAs", "epilogue", "rounds")
+
+
+def tile_ptxas(log):
+    """ptxas' stack, spill and register lines of knn_tile_kernel<16>."""
+    lines, current = [], ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            current = line
+        elif ("knn_tile_kernelILi16E" in current
+              and ("registers" in line or "spill" in line)):
+            lines.append(line.strip())
+    return lines
+
+
+def build(tmp, define):
+    """The KNN source built with ``-D<define>``, and its ptxas lines."""
+    lib_path = Path(tmp) / f"libknn-{define}.so"
+    built = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, f"-D{define}",
+                            "-o", str(lib_path),
+                            str(_build.CSRC_DIR / f"{K.KNN_SOURCE}.cu")],
+                           capture_output=True, text=True)
+    if built.returncode != 0:
+        raise SystemExit(built.stderr)
+    ptxas = tile_ptxas(built.stderr)
+    lib = ctypes.CDLL(str(lib_path))
+    for fn, (argtypes, restype) in K._SIGNATURES[K.KNN_SOURCE].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib, ptxas
+
+
+def time_ms(fn, batches=5, per_batch=5, warmup=2):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(per_batch):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / per_batch)
+    return statistics.median(times)
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--out", help="also write the result as JSON here")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("port_knn_phases: no CUDA device", file=sys.stderr)
+        return 2
+    K.build_kernels()
+    with tempfile.TemporaryDirectory() as tmp:
+        timed, timed_ptxas = build(tmp, "KNN_PHASE_CLOCKS")
+        sink, sink_ptxas = build(tmp, "KNN_NO_SELECTION")
+    real = K._lib(K.KNN_SOURCE)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print("card:", card)
+
+    n, nt, d, k = 16_384, 50_000, 32, 10
+    g = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.rand((n, d), generator=g, device="cuda")
+    train = torch.rand((nt, d), generator=g, device="cuda")
+    plan = K._knn_plan(n, nt, d, k, 1)
+    train_t = torch.zeros((plan.dpad, plan.ntp), device="cuda")
+    train_t[:d, :nt] = train.T
+    tsq = torch.full((plan.ntp,), float("inf"), device="cuda")
+    tsq[:nt] = torch.sum(train * train, dim=1)
+    out = torch.empty((n, k), dtype=torch.int32, device="cuda")
+
+    def launch(lib):
+        rc = lib.knn_topk_tiled(
+            x.data_ptr(), train_t.data_ptr(), tsq.data_ptr(), out.data_ptr(),
+            0, n, d, plan.dpad, plan.ntp, k, plan.kcap, 1,
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, rc
+
+    per_sm = ctypes.c_int(0)
+    assert real.knn_tile_blocks_per_sm(plan.kcap, plan.dpad,
+                                       ctypes.byref(per_sm)) == 0
+    result = {"card": card, "shape": [n, nt, d, k], "splits": 1,
+              "blocks_per_sm": per_sm.value,
+              "ptxas": {"timed": timed_ptxas, "no_selection": sink_ptxas},
+              "ms": {name: time_ms(lambda: launch(lib))
+                     for name, lib in (("real", real), ("timed", timed),
+                                       ("no_selection", sink))}}
+    launch(timed)
+    torch.cuda.synchronize()
+    buf = (ctypes.c_longlong * (256 * 6))()
+    timed.knn_phase_cycles_read.argtypes = [ctypes.c_void_p]
+    assert timed.knn_phase_cycles_read(buf) == 0
+    tiles = plan.tiles
+    cycles = [statistics.mean(buf[t * 6 + q] for t in range(256)) / tiles
+              for q in range(6)]
+    result["cycles_per_tile"] = dict(zip(PHASES, cycles))
+    print(json.dumps(result, indent=1))
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(result, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

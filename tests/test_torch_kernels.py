@@ -94,14 +94,72 @@ def test_assign_nearest_first_minimum_on_ties():
     assert got.tolist() == [1, 0]
 
 
+def _two_level_sum(p):
+    """The fixed order of the reduce kernel, in numpy float32: the B rows
+    cut into at most 32 contiguous slices of ceil(B / 32) rows, each added
+    in row order from 0, then the slice sums added by a pairwise tree."""
+    b = p.shape[0]
+    rows = -(-b // 32)
+    sums = []
+    for lo in range(0, b, rows):
+        s = np.zeros(p.shape[1:], np.float32)
+        for r in range(lo, min(b, lo + rows)):
+            s = s + p[r]
+        sums.append(s)
+    stride = 1
+    while stride < 32:
+        for i in range(0, 32, 2 * stride):
+            if i + stride < len(sums):
+                sums[i] = sums[i] + sums[i + stride]
+        stride *= 2
+    return sums[0]
+
+
 def test_reduce_partials_plain_adds_in_order():
+    # a fixed order: 9 rows are 9 slices of one row, then the tree
     rng = np.random.default_rng(5)
-    p = torch.from_numpy(rng.normal(size=(9, 3, 4)).astype(np.float32))
-    want = p[0].clone()
-    for b in range(1, 9):
-        want += p[b]
-    assert torch.equal(kernels.reduce_partials(p), want)
-    assert torch.equal(kernels.reduce_partials(p[:, 0].contiguous()), want[0])
+    p = rng.normal(size=(9, 3, 4)).astype(np.float32)
+    want = torch.from_numpy(_two_level_sum(p))
+    pt = torch.from_numpy(p)
+    assert torch.equal(kernels.reduce_partials(pt), want)
+    assert torch.equal(kernels.reduce_partials(pt[:, 0].contiguous()), want[0])
+    # -0 rows sum to +0, as the kernel's s = 0, s += p does
+    zero = kernels.reduce_partials(torch.full((3, 2), -0.0))
+    assert not torch.signbit(zero).any()
+
+
+# the main paths' partials shapes (Lloyd, SGD, FTRL's gradient sums and
+# per-row dots at the card's chunk counts) and the most blocks a launch
+# may have
+REDUCE_SHAPES = [(391, 10, 101), (782, 102), (1024, 100, 2), (25, 131_072, 1),
+                 (65_535, 102)]
+
+
+@pytest.mark.parametrize("shape", REDUCE_SHAPES)
+def test_reduce_layout_fits_and_covers(shape):
+    # the order's slices: at most 32, contiguous, none empty, covering the
+    # rows; partials of at most 32 rows (FTRL's per-row dots) are one row a
+    # slice. The kernels pick their own tiling from (B, width) and the
+    # rows' alignment, with a static 1 KiB of shared memory a block.
+    blocks = shape[0]
+    slice_rows, slices = kernels.reduce_slices(blocks)
+    assert 1 <= slices <= kernels.REDUCE_SLICES
+    assert (slices - 1) * slice_rows < blocks <= slices * slice_rows
+    assert (slice_rows == 1) == (blocks <= kernels.REDUCE_SLICES)
+    p = np.random.default_rng(blocks).normal(size=(blocks, 2)).astype(np.float32)
+    assert torch.equal(kernels.reduce_partials_plain(torch.from_numpy(p)),
+                       torch.from_numpy(_two_level_sum(p)))
+
+
+@pytest.mark.parametrize("shape", [(391, 3), (782, 5), (1024, 2, 3), (25, 7),
+                                   (33, 4), (2_049, 2), (1, 5), (32, 4),
+                                   (64, 3)])
+def test_reduce_partials_plain_follows_the_kernel_order(shape):
+    p = np.random.default_rng(sum(shape)).normal(size=shape).astype(np.float32)
+    got = kernels.reduce_partials_plain(torch.from_numpy(p))
+    assert torch.equal(got, torch.from_numpy(_two_level_sum(p)))
+    np.testing.assert_allclose(got.numpy(), p.astype(np.float64).sum(0),
+                               rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("bad", ["float64", "noncontiguous", "width", "rank",
@@ -145,3 +203,4 @@ def test_layout_gate_main_path_and_limits():
                 rows, kchunk, smem = layout
                 assert rows % 32 == 0 and kchunk % 16 == 0
                 assert smem <= kernels.SMEM_BLOCK_BYTES
+

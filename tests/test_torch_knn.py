@@ -119,14 +119,20 @@ def test_knn_topk_edges_and_checks():
 
 
 def test_knn_layout():
-    # the benchmark's shape takes the (32, 16) register instance
-    assert kernels._knn_layout(10, 32) == (32, 16)
-    assert kernels._knn_layout(17, 33) == (64, 32)
-    assert kernels._knn_layout(32, 128) == (128, 32)
-    assert kernels._knn_layout(1, 1) == (32, 16)
-    # wider rows and longer lists take the wide instance
-    for k, d in [(33, 32), (10, 129), (500, 768)]:
-        assert kernels._knn_layout(k, d) == (0, 0)
+    # every list up to 32 long takes the tiled kernel, whatever d: the
+    # benchmark's k = 10, d = 32 the k <= 16 instance, d padded to the
+    # 32-column chunks
+    for (k, d), (kcap, dpad) in {(10, 32): (16, 32), (17, 33): (32, 64),
+                                 (32, 128): (32, 128), (1, 1): (16, 32),
+                                 (10, 129): (16, 160),
+                                 (32, 768): (32, 768)}.items():
+        plan = kernels._knn_plan(100, 1000, d, k, 132)
+        assert (plan.route, plan.kcap, plan.dpad) == ("tiled", kcap, dpad)
+        assert plan.ntp == 1024 and plan.tiles == 8
+    # longer lists take the wide instance, with its (k, n) list scratch
+    for k, d in [(33, 32), (500, 768)]:
+        plan = kernels._knn_plan(100, 1000, d, k, 132)
+        assert plan.route == "wide" and plan.scratch_bytes == 8 * k * 100
 
 
 def test_cuda_tensors_take_the_kernel(monkeypatch):
@@ -151,6 +157,60 @@ def test_cuda_tensors_take_the_kernel(monkeypatch):
     assert calls == [((10, 4), 6), ((3, 200), 2), ((3, 4), 40)]
     assert kernels.launch_counts["knn_topk_indices"] == 3
     kernels.reset_launch_counts()
+
+
+def test_knn_launch_plan():
+    # an H100 holds 132 blocks of the tiled kernel (one per SM); 264 is a
+    # card that holds two per SM
+    nt, d, k = 50_000, 32, 10
+    for n, resident, splits in [(10_000_000, 132, 1), (10_000_000, 264, 1),
+                                (16_384, 132, 1), (16_384, 264, 2),
+                                (1_000, 132, 33), (1_000, 264, 33),
+                                (1, 132, 132)]:
+        plan = kernels._knn_plan(n, nt, d, k, resident)
+        assert plan.splits == splits, (n, resident, plan)
+        # the scratch holds each split's (n, k) distances and indices
+        assert plan.scratch_bytes == (8 * splits * n * k if splits > 1 else 0)
+        bounds = kernels.knn_split_bounds(nt, splits)
+        # contiguous, whole train tiles, none empty, covering every row
+        assert bounds[0][0] == 0 and bounds[-1][1] == nt
+        assert all(hi > lo for lo, hi in bounds)
+        assert all(a[1] == b[0] and b[0] % kernels.KNN_TILE_ROWS == 0
+                   for a, b in zip(bounds, bounds[1:]))
+        # the split costs no more than one: its waves of blocks over S
+        waves = -(-(-(-n // 128)) * splits // resident)
+        assert waves / splits <= -(-(-(-n // 128)) // resident)
+    # never more splits than train tiles
+    plan = kernels._knn_plan(10, 300, d, k, 132)
+    assert plan.tiles == 3 and plan.splits == 3
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
+def test_knn_merge_plain_matches_one_pass(splits):
+    # 7 train tiles, the last of 5 rows: fewer than k; train rows that are
+    # exact duplicates on both sides of every split boundary; test rows next
+    # to those pairs, so the pairs are their nearest
+    nt, d, k = 6 * kernels.KNN_TILE_ROWS + 5, 8, 8
+    rng = np.random.default_rng(40 + splits)
+    train = rng.normal(size=(nt, d)).astype(np.float32)
+    bounds = kernels.knn_split_bounds(nt, splits)
+    pairs = [(lo - 1, lo) for lo, _ in bounds[1:]] or [(100, 101)]
+    for low, high in pairs:
+        train[high] = train[low]
+    x = rng.normal(size=(70, d)).astype(np.float32)
+    x[:len(pairs)] = train[[low for low, _ in pairs]] + 1e-3
+    xt, tt = torch.from_numpy(x), torch.from_numpy(train)
+    dists, idx = kernels.knn_split_topk_plain(xt, tt, k, bounds)
+    assert tuple(dists.shape) == tuple(idx.shape) == (splits, 70, k)
+    if splits == 7:  # the last split holds 5 rows: padded with (+inf, 0)
+        assert torch.isinf(dists[-1, :, 5:]).all() and not idx[-1, :, 5:].any()
+    got = kernels.knn_merge_topk_plain(dists, idx, k)
+    want = kernels.knn_topk_indices_plain(xt, tt, k)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, want)
+    # of two identical train rows, the lower index comes first
+    for row, (low, high) in enumerate(pairs):
+        assert got[row, :2].tolist() == [low, high]
 
 
 def _labeled(seed, n, d, labels):
