@@ -15,9 +15,11 @@ Phases, each of which fails the run (no result line, nonzero exit):
    zero-weight rows, a wide k that makes the kernels stage centroids in
    chunks, and an odd width; reruns must be bit-identical; time kernel,
    plain version and a one-call PyTorch yardstick; then hold
-   ``reduce_partials`` bit for bit against its plain version at the four
-   partials shapes of the main paths (Lloyd, SGD, FTRL's gradient sums and
-   per-row dots, each made by its path's first stage) and time it and
+   ``reduce_partials`` bit for bit against its plain version at four
+   partials shapes (Lloyd's and SGD's, made by their paths' first stages,
+   and the (1024, 100, 2) and (25, 131072, 1) shapes the segment sums gave
+   it until they took their own second stage, from a seeded tensor) and
+   time it and
    ``torch.sum`` there, eagerly (what a fit's loop pays, host enqueue
    included) and as device times (calls captured in a CUDA graph and
    replayed: the host takes longer to enqueue one call than the card to run
@@ -54,13 +56,17 @@ Phases, each of which fails the run (no result line, nonzero exit):
    version and the library's ``torch.topk(torch.addmm(...))`` on a 16,384
    x 50,000 x 32 block, the wide instance on the same block (k = 33), and
    the kernel a few times at the main path's 10,000,000 rows;
-7. the same for the segment-sum kernel: 1-D and 2-D values, -1 and
+7. the same for the segment-sum kernels: 1-D and 2-D values, -1 and
    out-of-range ids, n = 0, a ragged n, one chunk, hashed 2^18 domains
    (c = 1 and c = 2), a domain of more than 65,535 segment tiles, values of
-   5,000 columns (column groups), and the sparse FTRL path's two shapes
-   (per-row dots over sorted row ids, per-coordinate gradient and weight
-   sums); timed against ``index_add_`` at the gradient shape (n =
-   1,048,576, c = 2, u = 100), and alone on the hashed c = 2 domain;
+   5,000 columns (column groups), and the sparse FTRL path's shapes: the
+   per-row dots as the path packs them (1,000,000 ascending row ids, ten
+   a row, then 48,576 padding slots with id 0 and value 0), the same over
+   sorted random row ids without padding, and the per-coordinate gradient
+   and weight sums; timed eagerly and as device times (a replayed CUDA
+   graph) against ``index_add_`` at the gradient shape (n = 1,048,576, c =
+   2, u = 100) and at both dots layouts (u = 131,072), with their byte
+   bounds, and as device times on the hashed domains;
 8. drive the KNN main path: the runner on ``knn-benchmark.json`` at full
    size (10,000,000 x 32 against 50,000 train rows, k = 10), then transform
    of the same table, save, load and transform again; hold 113,333 of its
@@ -142,8 +148,8 @@ LINEAR_CONFIGS = {
 }
 KNN_CONFIG = CONFIGS / "knn-benchmark.json"
 FTRL_CONFIG = CONFIGS / "onlinelogisticregression-benchmark.json"
-# each path's own kernels; reduce_partials, the second stage of Lloyd, SGD
-# and the segment sums, is in none of the tuples
+# each path's own kernels; reduce_partials, the second stage of Lloyd and
+# SGD, is in none of the tuples
 PATH_KERNELS = {
     "kmeans": ("assign_nearest", "lloyd_partial_sums"),
     "linear": ("sgd_batch_terms",),
@@ -357,22 +363,18 @@ def phase_kernels(K):
     stage1 = time_ms(lambda: K._launch_lloyd_partials(x, v, c))
     log(f"  lloyd stage 1 alone: {stage1:.4f} ms over {blocks} blocks")
 
-    # the shared second stage at the four main paths' partials shapes,
-    # each made by its path's first stage; device times
+    # the shared second stage at Lloyd's and SGD's partials shapes, each
+    # made by its path's first stage, and at the two shapes the segment
+    # sums gave it until they took their own second stage (FTRL's gradient
+    # and per-row dots partials), from a seeded tensor; device times
     y, w = torch.floor(rand(n) * 2), rand(n)
-    gw = torch.randn(1 << 20, 2, generator=g, device="cuda")
-    col_ids = torch.randint(0, 100, (1 << 20,), generator=g, device="cuda",
-                            dtype=torch.int32)
-    row_ids = torch.sort(torch.randint(0, 100_000, (1 << 20,), generator=g,
-                                       device="cuda", dtype=torch.int32)).values
     shapes = {
         "Lloyd": partials,
         "SGD": K._launch_sgd_terms(x, y, w, rand(d) - 0.5, 0, 0, 100_000,
                                    "logistic"),
-        "FTRL gradient": K._launch_segment_partials(gw, col_ids, 100, 2),
-        "FTRL per-row dots": K._launch_segment_partials(
-            torch.randn(1 << 20, generator=g, device="cuda"), row_ids,
-            1 << 17, 1),
+        "FTRL gradient": torch.randn(1024, 100, 2, generator=g, device="cuda"),
+        "FTRL per-row dots": torch.randn(25, 1 << 17, 1, generator=g,
+                                         device="cuda"),
     }
     for tag, p in shapes.items():
         assert torch.equal(K.reduce_partials(p), K.reduce_partials_plain(p)), (
@@ -401,7 +403,7 @@ def phase_kernels(K):
                 "library_ms": ms["eager sum"], "device_ms": ms["device"],
                 "library_device_ms": ms["device sum"]}
     log(f"  reduce_partials @ Lloyd: {measured['reduce_partials']}")
-    del y, w, gw, col_ids, row_ids, shapes
+    del y, w, shapes
     return measured
 
 
@@ -933,6 +935,7 @@ def phase_segment_kernel(K):
         return torch.randn(shape, generator=g, device="cuda")
 
     past_grid = 65_535 * K.SEG_TILE_FLOATS + 4_097  # 65,537 tiles at c = 1
+    hashed = {}
     for n, c, u, lo, hi, tag in [
             (1_000_003, 1, 1000, 0, 1000, "1-d ragged-n"),
             (500_000, 3, 777, 0, 777, "2-d"),
@@ -947,39 +950,58 @@ def phase_segment_kernel(K):
         v = vals(n) if c == 1 else vals(n, c)
         ids = ids_in(lo, hi, n)
         check_segment(K, v, ids, u, tag)
-        if tag == "hashed u=2^18 c=2":
-            hashed_ms = time_ms(lambda: K.segment_reduce_sum(v, ids, u))
-            log(f"  segment_reduce_sum {tag}: {hashed_ms:.4f} ms")
+        if tag.startswith("hashed"):
+            hashed[tag] = (v, ids, u)  # timed below
         del v, ids
     torch.cuda.empty_cache()
 
     # the sparse FTRL path's shapes (one batch of 100,000 rows with 10
     # stored values each, packed to 1,048,576 slots): the per-row dots over
-    # sorted row ids, and the per-coordinate gradient and weight sums
-    nnz, rows_s, d = 1 << 20, 1 << 17, 100
-    row_ids = torch.sort(ids_in(0, 100_000, nnz)).values
-    check_segment(K, vals(nnz), row_ids, rows_s, "FTRL dots")
-    dots_v = vals(nnz)
-    dots_ms = time_ms(lambda: K.segment_reduce_sum(dots_v, row_ids, rows_s))
+    # the packed row ids (ascending, ten a row, then id-0 padding whose
+    # values are 0) and over sorted random row ids without padding, and the
+    # per-coordinate gradient and weight sums
+    nnz, rows_b, rows_s, d = 1 << 20, 100_000, 1 << 17, 100
+    packed = torch.zeros(nnz, dtype=torch.int32, device="cuda")
+    packed[:10 * rows_b] = torch.arange(
+        rows_b, dtype=torch.int32, device="cuda").repeat_interleave(10)
+    packed_v = vals(nnz)
+    packed_v[10 * rows_b:] = 0.0
+    sorted_ids = torch.sort(ids_in(0, rows_b, nnz)).values
+    sorted_v = vals(nnz)
     col_ids, gw = ids_in(0, d, nnz), vals(nnz, 2)
-    err = check_segment(K, gw, col_ids, d, "FTRL grad/wsum")
-    b_ms, b_by = bound_ms(4 * (nnz * 2 + nnz + d * 2), nnz * 2)
-    library_ids = col_ids.long()
-    measured = {"segment_reduce_sum": {
-        "max_abs_err": err,
-        "ms": time_ms(lambda: K.segment_reduce_sum(gw, col_ids, d)),
-        "plain_ms": time_ms(lambda: K.segment_reduce_sum_plain(gw, col_ids, d),
-                            batches=3, per_batch=3, warmup=1),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": time_ms(lambda: torch.zeros(
-            d, 2, device="cuda").index_add_(0, library_ids, gw)),
-    }}
-    log(f"  segment_reduce_sum @ n={nnz}, c=2, u={d}: "
-        f"{measured['segment_reduce_sum']}")
-    partials = K._launch_segment_partials(gw, col_ids, d, 2)
-    stage1 = time_ms(lambda: K._launch_segment_partials(gw, col_ids, d, 2))
-    log(f"  segment stage 1 alone: {stage1:.4f} ms over {partials.shape[0]} "
-        f"chunks; FTRL dots (u={rows_s}, sorted ids): {dots_ms:.4f} ms")
+    timed = {}
+    for tag, v, ids, u in [("FTRL dots padded", packed_v, packed, rows_s),
+                           ("FTRL dots sorted", sorted_v, sorted_ids, rows_s),
+                           ("FTRL grad/wsum", gw, col_ids, d)]:
+        err = check_segment(K, v, ids, u, tag)
+        c = 1 if v.ndim == 1 else v.shape[1]
+        library_ids = ids.long()  # every id of these shapes lies in [0, u)
+        library_out = torch.zeros((u, c) if c > 1 else (u,), device="cuda")
+
+        def library():
+            return library_out.zero_().index_add_(0, library_ids, v)
+
+        b_ms, b_by = bound_ms(4 * (v.numel() + ids.numel() + u * c),
+                              v.numel())
+        timed[tag] = {
+            "max_abs_err": err,
+            "ms": time_ms(lambda: K.segment_reduce_sum(v, ids, u)),
+            "plain_ms": time_ms(lambda: K.segment_reduce_sum_plain(v, ids, u),
+                                batches=3, per_batch=3, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(library),
+            "device_ms": graph_ms(lambda: K.segment_reduce_sum(v, ids, u)),
+            "library_device_ms": graph_ms(library)}
+        log(f"  segment_reduce_sum {tag} @ n={nnz}, c={c}, u={u}: "
+            f"{timed[tag]}")
+    for tag, (v, ids, u) in hashed.items():
+        log(f"  segment_reduce_sum {tag}: device "
+            + "%.5f ms, eager %.5f ms" % (
+                graph_ms(lambda: K.segment_reduce_sum(v, ids, u)),
+                time_ms(lambda: K.segment_reduce_sum(v, ids, u))))
+    # the kernels line: the per-coordinate shape, the per-row dots beside
+    measured = {"segment_reduce_sum": {**timed["FTRL grad/wsum"],
+                                       "per_row_dots": timed["FTRL dots padded"]}}
     return measured
 
 
@@ -1259,8 +1281,9 @@ def phase_ftrl_main_path(K, runner, Table):
                                rtol=SMALL_RTOL, atol=SMALL_ATOL)
     log("  small dense fits: card and CPU agree")
     batches = 2_000_000 // batch
+    # two segment calls a batch, each one C entry with its own second stage
     assert counts["segment_reduce_sum"] >= 2 * batches, counts
-    assert counts["reduce_partials"] >= 2 * batches, counts
+    assert counts["reduce_partials"] == 0, counts
     return counts
 
 

@@ -15,8 +15,10 @@ at first use, one library per source:
   loss terms fused into the gradient pass, again in two fixed-order stages
   (per-block partials, then :func:`reduce_partials`), for any feature width.
 - :func:`segment_reduce_sum` (``csrc/segment_kernels.cu``): per-segment sums
-  of 1-D or 2-D values, ids outside the domain dropped, in two fixed-order
-  stages (per-chunk partials, then :func:`reduce_partials`).
+  of 1-D or 2-D values, ids outside the domain dropped, in three stages
+  launched by one C entry: each row chunk's id range, per-item partials of
+  only the segment tiles a chunk meets, then a fixed-order combine of them
+  (:func:`segment_plan_plain` mirrors the plan).
 - :func:`knn_topk_indices` (``csrc/knn_kernels.cu``): the k nearest train
   rows of every test row, fused distance and top-k over the streamed train
   set, ties to the lowest index.
@@ -175,6 +177,102 @@ SEG_WARPS = 4
 SEG_TILE_FLOATS = 4096
 #: rows a segment chunk holds at least (256 rows, 8 steps, per warp)
 SEG_MIN_CHUNK_ROWS = 1024
+#: row chunks of a segment call at most (``kMaxChunks``)
+SEG_MAX_CHUNKS = 1024
+#: mean rows of a run of equal ids over an item's chunks at least, for its
+#: steps to sum runs by segmented scans (``kScanRunRows``)
+SEG_SCAN_RUN_ROWS = 4
+
+
+def _seg_smem(ut: int, cg: int) -> int:
+    """Dynamic shared memory of a segment tile block: the warps' (ut, cg)
+    accumulators and 32-float scratches (``smem_bytes`` of the source)."""
+    return 4 * SEG_WARPS * (ut * cg + 32)
+
+
+def _segment_chunks(n: int, blocks: int, resident: int) -> Tuple[int, int, int]:
+    """``(chunks, rows_per_chunk, slots)`` of a segment call over n rows
+    with ``blocks`` tile-groups (tiles × column groups), on a card that
+    holds ``resident`` tile blocks at once: chunks of at least
+    :data:`SEG_MIN_CHUNK_ROWS` rows, at most :data:`SEG_MAX_CHUNKS` of
+    them, and ``slots`` items a tile-group at most, so that a domain that
+    every chunk meets runs about two waves of blocks (the partial scratch
+    is ``blocks × slots`` tile slabs; only the slabs of real items are
+    written)."""
+    want = max(1, min(n // SEG_MIN_CHUNK_ROWS, SEG_MAX_CHUNKS))
+    rows = -(-n // want)
+    chunks = -(-n // rows)
+    return chunks, rows, max(1, min(chunks, -(-2 * resident // blocks)))
+
+
+class SegmentPlan(NamedTuple):
+    """How a :func:`segment_reduce_sum` call spreads its work, as the
+    kernels compute it on the card. ``ranges``: each row chunk's lowest and
+    highest in-range id, (2^31 − 1, −1) for a chunk with none, and its runs
+    (rows whose id differs from the row before), (chunks, 3) int64; None
+    when there is one tile, which every chunk meets. ``items``: for every
+    tile, its items in slot order, each ``(chunk indices, a, e, scan)``
+    with the tile-local segment range [a, e) that the item zeroes, fills
+    and writes, and whether its steps may sum runs by segmented scans
+    (runs of :data:`SEG_SCAN_RUN_ROWS` rows or more on average)."""
+    ut: int
+    tiles: int
+    cg: int
+    groups: int
+    chunks: int
+    rows_per_chunk: int
+    slots: int
+    ranges: Optional[torch.Tensor]
+    items: list
+
+
+def segment_plan_plain(segment_ids: torch.Tensor, num_segments: int, c: int,
+                       resident: int) -> SegmentPlan:
+    """Plain mirror of the segment kernels' plan for ids (n,) int32, n >= 1,
+    on a card that holds ``resident`` tile blocks: ``segment_ranges_kernel``
+    gives each chunk's range; in ``segment_tiles_kernel`` a chunk meets a
+    tile when its range overlaps the tile's segments, the m chunks that
+    meet tile t are cut in chunk order into q = min(m, slots) items of
+    ranks [i·m // q, (i + 1)·m // q), an item's range is the union of its
+    chunks' ranges within the tile, and it scans where its chunks' runs are
+    :data:`SEG_SCAN_RUN_ROWS` rows long or more on average."""
+    u, n = int(num_segments), segment_ids.shape[0]
+    ut, tiles, cg, groups = _seg_layout(u, c)
+    chunks, rows, slots = _segment_chunks(n, tiles * groups, resident)
+    ranges = None
+    if tiles > 1:
+        ranges = torch.empty((chunks, 3), dtype=torch.int64)
+        for b in range(chunks):
+            ids = segment_ids[b * rows:(b + 1) * rows].long()
+            runs = 1 + int((ids[1:] != ids[:-1]).sum())
+            ids = ids[(ids >= 0) & (ids < u)]
+            ranges[b] = (torch.stack([ids.min(), ids.max(), torch.tensor(runs)])
+                         if ids.numel() else torch.tensor([2 ** 31 - 1, -1, runs]))
+    spans = None if ranges is None else ranges.tolist()
+    items = []
+    for t in range(tiles):
+        s0 = t * ut
+        us = min(ut, u - s0)
+        if spans is None:
+            met = list(range(chunks))
+        else:
+            met = [b for b, (lo, hi, _) in enumerate(spans)
+                   if lo < s0 + us and hi >= s0]
+        m, tile_items = len(met), []
+        q = min(m, slots)
+        for i in range(q):
+            part = tuple(met[i * m // q:(i + 1) * m // q])
+            a, e, scan = 0, us, False
+            if spans is not None:
+                a = max(min(spans[b][0] for b in part), s0) - s0
+                e = min(max(spans[b][1] for b in part) + 1, s0 + us) - s0
+                rows_in = sum(min(n, (b + 1) * rows) - b * rows for b in part)
+                scan = (SEG_SCAN_RUN_ROWS * sum(spans[b][2] for b in part)
+                        <= rows_in)
+            tile_items.append((part, a, e, scan))
+        items.append(tile_items)
+    return SegmentPlan(ut, tiles, cg, groups, chunks, rows, slots, ranges,
+                       items)
 
 
 def _seg_layout(num_segments: int, c: int) -> Tuple[int, int, int, int]:
@@ -183,10 +281,10 @@ def _seg_layout(num_segments: int, c: int) -> Tuple[int, int, int, int]:
     memory, ut·cg ≤ :data:`SEG_TILE_FLOATS` (16 KB; four warps take 64 KB
     of the 227 KB a block may use). The value columns are split into groups
     of cg = min(c, 4,096) and the segment domain into tiles of ut segments,
-    so every u and c has a layout; every tile is another pass over the ids.
-    FTRL's per-row dots at 131,072 rows take 32 tiles, its per-coordinate
-    (d, 2) sums at d = 100 one, a hashed 2^18 domain with two value columns
-    128."""
+    so every u and c has a layout; a row chunk is read once for every tile
+    it meets (:func:`segment_plan_plain`). FTRL's per-row dots at 131,072
+    rows take 32 tiles, its per-coordinate (d, 2) sums at d = 100 one, a
+    hashed 2^18 domain with two value columns 128."""
     cg = min(c, SEG_TILE_FLOATS)
     ut = min(num_segments, SEG_TILE_FLOATS // cg)
     return ut, -(-num_segments // ut), cg, -(-c // cg)
@@ -483,8 +581,8 @@ def lloyd_partial_sums(x: torch.Tensor, v: torch.Tensor,
 def reduce_partials(partials: torch.Tensor) -> torch.Tensor:
     """(B, ...) per-block partials → (...), summed over B in a fixed
     two-level order (:func:`reduce_partials_plain`): the second stage of
-    :func:`lloyd_partial_sums` ((B, k, d+1)), :func:`sgd_batch_terms`
-    ((B, d+2)) and :func:`segment_reduce_sum` ((B, u, c))."""
+    :func:`lloyd_partial_sums` ((B, k, d+1)) and :func:`sgd_batch_terms`
+    ((B, d+2))."""
     _check("reduce_partials", partials=partials)
     if partials.ndim < 2 or partials.shape[0] < 1:
         raise ValueError("reduce_partials: partials must be (B, ...) with "
@@ -548,7 +646,8 @@ def segment_reduce_sum(values: torch.Tensor, segment_ids: torch.Tensor,
     device → (u,) or (u, c) float32 with u = ``num_segments``. Rows whose id
     lies outside [0, u), the −1 padding included, add nothing; n == 0 gives
     zeros. Replaces ``segment_reduce_sum`` of
-    ``flink_ml_tpu/ops/pallas_kernels.py``; every u and c runs the kernel.
+    ``flink_ml_tpu/ops/pallas_kernels.py``; every u and c runs the kernels,
+    all three stages from one C call.
     """
     _check("segment_reduce_sum", values=values)
     u = int(num_segments)
@@ -567,13 +666,12 @@ def segment_reduce_sum(values: torch.Tensor, segment_ids: torch.Tensor,
     if not _is_cuda(values):
         return segment_reduce_sum_plain(values, segment_ids, u)
     c = 1 if values.ndim == 1 else values.shape[1]
+    shape = (u,) if values.ndim == 1 else (u, c)
     if n == 0 or c == 0:
-        return torch.zeros((u,) if values.ndim == 1 else (u, c),
-                           dtype=torch.float32, device=values.device)
-    partials = _launch_segment_partials(values, segment_ids, u, c)
+        return torch.zeros(shape, dtype=torch.float32, device=values.device)
+    out = _launch_segment(values, segment_ids, u, c, shape)
     launch_counts["segment_reduce_sum"] += 1
-    out = reduce_partials(partials)
-    return out[:, 0] if values.ndim == 1 else out
+    return out
 
 
 def knn_topk_indices(x: torch.Tensor, train: torch.Tensor,
@@ -637,9 +735,9 @@ _SIGNATURES = {
     },
     SEGMENT_SOURCE: {
         "segment_error_string": ([_I], ctypes.c_char_p),
-        "segment_blocks_per_sm": ([_I, ctypes.POINTER(_I)], _I),
-        "segment_reduce_partials": ([_P, _P, _P, _L, _I, _I, _I, _I, _L, _I,
-                                     _P], _I),
+        "segment_blocks_per_sm": ([_I, _I, ctypes.POINTER(_I)], _I),
+        "segment_reduce_sum": ([_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _L,
+                                _I, _I, _P], _I),
     },
     KNN_SOURCE: {
         "knn_error_string": ([_I], ctypes.c_char_p),
@@ -805,41 +903,40 @@ def _launch_sgd_terms(xl: torch.Tensor, yl: torch.Tensor, wl: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _segment_resident_blocks(device_index: int, smem: int) -> int:
-    """Blocks of the segment kernel the card holds at once."""
+def _segment_resident_blocks(device_index: int, one_tile: bool,
+                             smem: int) -> int:
+    """Blocks of the segment tile kernel (its one-tile instance or the
+    other) the card holds at once."""
     per_sm = ctypes.c_int(0)
     _raise_on_error(SEGMENT_SOURCE, _lib(SEGMENT_SOURCE).segment_blocks_per_sm(
-        smem, ctypes.byref(per_sm)), "occupancy query")
+        int(one_tile), smem, ctypes.byref(per_sm)), "occupancy query")
     return _blocks_on_card(device_index, per_sm.value,
                            f"{smem} bytes of shared memory")
 
 
-def _segment_chunks(n: int, blocks: int, resident: int) -> Tuple[int, int]:
-    """``(chunks, rows_per_chunk)`` of a segment launch of ``blocks``
-    segment blocks (tiles × column groups): about two waves of blocks over
-    the card, with at least :data:`SEG_MIN_CHUNK_ROWS` rows in a chunk."""
-    want = max(1, min(-(-n // SEG_MIN_CHUNK_ROWS), -(-2 * resident // blocks)))
-    rows_per_chunk = -(-n // want)
-    return -(-n // rows_per_chunk), rows_per_chunk
-
-
-def _launch_segment_partials(values: torch.Tensor, ids: torch.Tensor, u: int,
-                             c: int) -> torch.Tensor:
+def _launch_segment(values: torch.Tensor, ids: torch.Tensor, u: int, c: int,
+                    shape: Tuple[int, ...]) -> torch.Tensor:
     n = values.shape[0]
     ut, tiles, cg, groups = _seg_layout(u, c)
-    # the warps' (ut, cg) accumulators and 32-float scratches
-    smem = 4 * SEG_WARPS * (ut * cg + 32)
+    blocks = tiles * groups
     with _on_card(values):
-        chunks, rows_per_chunk = _segment_chunks(
-            n, tiles * groups,
-            _segment_resident_blocks(_device_index(values), smem))
-        partials = torch.empty((chunks, u * c), dtype=torch.float32,
+        chunks, rows_per_chunk, slots = _segment_chunks(
+            n, blocks, _segment_resident_blocks(
+                _device_index(values), tiles == 1, _seg_smem(ut, cg)))
+        out = torch.empty(shape, dtype=torch.float32, device=values.device)
+        # scratch, written by the kernels before they read it: the items'
+        # tile slabs; the chunks' ranges and runs (int4), the items' ranges
+        # (int2), the item counts
+        partials = torch.empty(blocks * slots * ut * cg, dtype=torch.float32,
                                device=values.device)
-        stream = _stream(values)
-        _raise_on_error(SEGMENT_SOURCE, _lib(SEGMENT_SOURCE).segment_reduce_partials(
-            values.data_ptr(), ids.data_ptr(), partials.data_ptr(), n, u, c,
-            ut, cg, rows_per_chunk, chunks, stream), "segment_reduce_sum")
-    return partials.view(chunks, u, c)
+        meta = torch.empty(4 * chunks + 2 * blocks * slots + blocks,
+                           dtype=torch.int32, device=values.device)
+        _raise_on_error(SEGMENT_SOURCE, _lib(SEGMENT_SOURCE).segment_reduce_sum(
+            values.data_ptr(), ids.data_ptr(), out.data_ptr(),
+            partials.data_ptr(), meta.data_ptr(), n, u, c, ut, cg,
+            rows_per_chunk, chunks, slots, _stream(values)),
+            "segment_reduce_sum")
+    return out
 
 
 @functools.lru_cache(maxsize=None)

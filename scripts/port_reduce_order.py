@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Times the port's ``reduce_partials`` (a fixed two-level order: slices,
 then a tree) against the exact block order and ``torch.sum`` on one CUDA
-card, at the partials shapes of the main paths (Lloyd, SGD, FTRL's
-gradient sums and per-row dots), each made by its path's first stage.
+card, at the partials shapes of the main paths (Lloyd and SGD, each made
+by its path's first stage) and at the two shapes the FTRL segment sums
+gave it until they took their own second stage (gradient sums (1024, 100,
+2) and per-row dots (25, 131072, 1), from a seeded tensor).
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
@@ -202,8 +204,9 @@ def exact_plain(p):
 
 
 def main_path_partials(seed=3):
-    """The partials the main paths hand to reduce_partials, made from their
-    first stages at the benchmark shapes."""
+    """The partials Lloyd and SGD hand to reduce_partials, made from their
+    first stages at the benchmark shapes, and seeded tensors of the FTRL
+    segment sums' former partials shapes."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rand(*shape):
@@ -215,14 +218,10 @@ def main_path_partials(seed=3):
     y, w = torch.floor(rand(1_000_000) * 2), rand(1_000_000)
     shapes["sgd"] = K._launch_sgd_terms(x, y, w, rand(100) - 0.5, 0, 0,
                                         100_000, "logistic")
-    gw = torch.randn(1 << 20, 2, generator=g, device="cuda")
-    ids = torch.randint(0, 100, (1 << 20,), generator=g, device="cuda",
-                        dtype=torch.int32)
-    shapes["ftrl_grad"] = K._launch_segment_partials(gw, ids, 100, 2)
-    rows = torch.sort(torch.randint(0, 100_000, (1 << 20,), generator=g,
-                                    device="cuda", dtype=torch.int32)).values
-    shapes["ftrl_dots"] = K._launch_segment_partials(
-        torch.randn(1 << 20, generator=g, device="cuda"), rows, 1 << 17, 1)
+    shapes["ftrl_grad"] = torch.randn(1024, 100, 2, generator=g,
+                                      device="cuda")
+    shapes["ftrl_dots"] = torch.randn(25, 1 << 17, 1, generator=g,
+                                      device="cuda")
     shapes["B=65535"] = torch.randn(65_535, 102, generator=g, device="cuda")
     return shapes
 

@@ -141,11 +141,20 @@ def test_segment_layout():
 
 
 def test_segment_chunks_cover_every_row():
+    # (n, tile-groups, resident) -> chunks, rows a chunk, item slots a tile
+    assert kernels._segment_chunks(1_048_576, 32, 396) == (1024, 1024, 25)
+    assert kernels._segment_chunks(1_048_576, 1, 2112) == (1024, 1024, 1024)
+    assert kernels._segment_chunks(2_000_000, 64, 396) == (1024, 1954, 13)
     for n, tiles, resident in [(1_048_576, 1, 396), (1_048_576, 32, 396),
-                               (5, 1, 396), (3000, 64, 10)]:
-        chunks, rows = kernels._segment_chunks(n, tiles, resident)
+                               (5, 1, 396), (3000, 64, 10),
+                               (100_000, 65_537, 396), (10 ** 8, 128, 396)]:
+        chunks, rows, slots = kernels._segment_chunks(n, tiles, resident)
         assert chunks * rows >= n > (chunks - 1) * rows
         assert chunks == 1 or rows >= kernels.SEG_MIN_CHUNK_ROWS
+        assert chunks <= kernels.SEG_MAX_CHUNKS
+        assert 1 <= slots <= chunks
+        # about two waves of blocks when every chunk meets every tile
+        assert slots == chunks or tiles * slots >= 2 * resident
 
 
 def test_segment_reduce_checks():
@@ -165,15 +174,14 @@ def test_cuda_tensors_take_the_segment_kernel(monkeypatch):
     def no_plain(*args, **kwargs):
         raise AssertionError("a CUDA tensor reached a plain version")
 
-    def launch(values, ids, u, c):
+    def launch(values, ids, u, c, shape):
         calls.append((tuple(values.shape), u, c))
-        return torch.zeros((3, u, c))
+        return torch.zeros(shape)
 
     monkeypatch.setattr(kernels, "_is_cuda", lambda t: True)
     for name in ("segment_reduce_sum_plain", "reduce_partials_plain"):
         monkeypatch.setattr(kernels, name, no_plain)
-    monkeypatch.setattr(kernels, "_launch_segment_partials", launch)
-    monkeypatch.setattr(kernels, "_launch_reduce", lambda p: p.sum(0))
+    monkeypatch.setattr(kernels, "_launch_segment", launch)
     kernels.reset_launch_counts()
     ids = torch.zeros(8, dtype=torch.int32)
     assert tuple(kernels.segment_reduce_sum(torch.ones(8), ids, 5).shape) == (5,)
@@ -188,8 +196,9 @@ def test_cuda_tensors_take_the_segment_kernel(monkeypatch):
                                             5).shape) == (5, 5000)
     assert calls == [((8,), 5, 1), ((8, 2), 5, 2), ((8,), 1 << 20, 1),
                      ((8, 5000), 5, 5000)]
+    # one C entry a call: every stage is the segment kernel's own
     assert kernels.launch_counts["segment_reduce_sum"] == 4
-    assert kernels.launch_counts["reduce_partials"] == 4
+    assert kernels.launch_counts["reduce_partials"] == 0
     kernels.reset_launch_counts()
 
 
