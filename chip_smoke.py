@@ -14,7 +14,9 @@ Phases, each of which fails the run (no result line, nonzero exit):
    at the main-path shape (1,000,000 x 100, k = 10), a ragged n, n = 0,
    zero-weight rows, a wide k that makes the kernels stage centroids in
    chunks, and an odd width; reruns must be bit-identical; time kernel,
-   plain version and a one-call PyTorch yardstick; then hold
+   plain version and a one-call PyTorch yardstick, and Lloyd's first stage
+   alone, eagerly and as device time (``stage1_device_ms`` of its row in
+   the kernels line); then hold
    ``reduce_partials`` bit for bit against its plain version at four
    partials shapes (Lloyd's and SGD's, made by their paths' first stages,
    and the (1024, 100, 2) and (25, 131072, 1) shapes the segment sums gave
@@ -361,7 +363,10 @@ def phase_kernels(K):
             "bound_by": b_by, "library_ms": time_ms(r["library"])}
         log(f"  {name} @ 1M x 100, k=10: {measured[name]}")
     stage1 = time_ms(lambda: K._launch_lloyd_partials(x, v, c))
-    log(f"  lloyd stage 1 alone: {stage1:.4f} ms over {blocks} blocks")
+    stage1_device = graph_ms(lambda: K._launch_lloyd_partials(x, v, c))
+    measured["lloyd_partial_sums"]["stage1_device_ms"] = stage1_device
+    log(f"  lloyd stage 1 alone: {stage1:.4f} ms over {blocks} blocks; "
+        f"device {stage1_device:.4f} ms")
 
     # the shared second stage at Lloyd's and SGD's partials shapes, each
     # made by its path's first stage, and at the two shapes the segment

@@ -25,6 +25,24 @@
 // then sums the per-block partials in a fixed two-level order. The same
 // inputs on the same card give the same bits.
 //
+// Accumulation by label runs: once a tile's labels are known, each row's
+// thread ranks its (label, row) key among the tile's keys (a count over
+// the tile, no atomics) and writes its entry (where its label's
+// accumulator and its x row lie, and its weight) to that place, so the
+// tile's rows stand in label order, ascending rows within a label. Thread
+// f then walks that order once: it takes acc[j][f] into a register where
+// label j's run begins, adds the run's rows with fmaf(weight, x, acc), and
+// stores it where the run ends. Each accumulator sees the same adds in the
+// same order as a row-order walk that adds acc[lab[r]][f] += v[r] * x[r][f]
+// straight into shared memory, so the bits are the same; but the chain of
+// dependent adds runs through a register, not a shared-memory round trip
+// per row, and a batch of rows' loads is issued before their adds. Only
+// the labels a tile holds are touched, whatever k.
+//
+// Tile copies: each thread issues kLoadBatch loads of x before it stores
+// any of them to shared memory, so that enough bytes are in flight to
+// cover device-memory latency at three blocks per SM.
+//
 // Arithmetic: full fp32 FMA, no TF32 and no tensor cores. The distance rule
 // is the Pallas kernel's: d2_j = ||c_j||^2 - 2 x.c_j, first minimum over
 // ascending j (strict <), as jnp.argmin and torch.argmin pick it.
@@ -33,13 +51,17 @@
 // it and passes rows = blockDim.x, kchunk and the byte count):
 //   cT  [d][kchunk]     centroid chunk, transposed; first, so 16-byte aligned
 //   csq [kchunk]
-//   acc [k][d+1]        Lloyd only: the block's [sums | counts]
 //   xs  [rows][d | 1]   x tile; an odd row stride keeps the per-row reads
 //                       of the 32 threads of a warp on 32 different banks
-//   vs  [rows]          Lloyd only: row weights
-//   lab [rows] (int)    Lloyd only: the tile's assignments
-// Centroids beyond the staged chunk are scored chunk by chunk, so any k
-// works; the gate on d is the tile's shared memory.
+//   ent [rows][2]       Lloyd only: in label order, each row's offsets in
+//                       acc and xs, (label * (d+1)) << 16 | row * (d | 1),
+//                       and its weight; until the tile is ranked, its first
+//                       rows ints hold the tile's keys, (label << kRowBits
+//                       | row) by row
+//   acc [k][d+1]        Lloyd only: the block's [sums | counts]
+// Every array before acc starts 16-byte aligned (kchunk is a multiple of
+// 16 and rows of 32). Centroids beyond the staged chunk are scored chunk by
+// chunk, so any k works; the gate on d is the tile's shared memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,6 +69,12 @@
 namespace {
 
 constexpr int KG = 16;  // centroids scored together, in registers
+constexpr int kLoadBatch = 16;  // loads of x a thread has in flight
+constexpr int kAccBatch = 8;   // rows whose loads an accumulating thread
+                               // issues before their adds
+constexpr int kRowBits = 10;   // a key's row bits: rows <= 1024
+constexpr int kOffBits = 16;   // an ent offset's bits: the accumulator and
+                               // the x tile hold fewer than 2^16 floats
 
 __host__ __device__ __forceinline__ int x_stride(int d) { return d | 1; }
 
@@ -64,29 +92,53 @@ __device__ void stage_centroids(const float* __restrict__ c,
     csq_s[j] = (j < kc) ? csq[j0 + j] : 0.f;
 }
 
-// Rows [r0, r0 + rows) of x (row-major, d wide) -> xs[r * x_stride + f].
+__device__ __forceinline__ void store_x(float* dst, float q) { dst[0] = q; }
+__device__ __forceinline__ void store_x(float* dst, float4 q) {
+  dst[0] = q.x;
+  dst[1] = q.y;
+  dst[2] = q.z;
+  dst[3] = q.w;
+}
+
+// Elements i, i + T, ..., i + (kLoadBatch - 1) T of src (V = float or a
+// float4 that stays in one row) -> the x tile: all the loads, then all the
+// stores; kAll says every element is below n, else each is checked.
+template <bool kAll, typename V>
+__device__ __forceinline__ void copy_batch(const V* __restrict__ src,
+                                           float* xs, int i, int n, int d) {
+  constexpr int kWidth = sizeof(V) / sizeof(float);
+  const int T = blockDim.x;
+  V q[kLoadBatch];
+#pragma unroll
+  for (int b = 0; b < kLoadBatch; ++b)
+    if (kAll || i + b * T < n) q[b] = src[i + b * T];
+#pragma unroll
+  for (int b = 0; b < kLoadBatch; ++b)
+    if (kAll || i + b * T < n) {
+      const int e = kWidth * (i + b * T), r = e / d;
+      store_x(xs + r * x_stride(d) + (e - r * d), q[b]);
+    }
+}
+
+template <typename V>
+__device__ __forceinline__ void copy_tile(const V* __restrict__ src,
+                                          float* xs, int n, int d) {
+  const int T = blockDim.x;
+  int i = threadIdx.x;
+  for (; i + (kLoadBatch - 1) * T < n; i += kLoadBatch * T)
+    copy_batch<true>(src, xs, i, n, d);
+  if (i < n) copy_batch<false>(src, xs, i, n, d);
+}
+
+// Rows [r0, r0 + rows) of x (row-major, d wide) -> xs[r * x_stride + f];
+// each thread issues kLoadBatch loads, then stores them.
 __device__ void load_tile(const float* __restrict__ x, float* xs, int64_t r0,
                           int rows, int d, bool vec4) {
-  const int xst = x_stride(d);
   const float* src = x + r0 * d;
-  const int total = rows * d;
-  if (vec4) {  // d % 4 == 0 and x 16-byte aligned: a float4 stays in one row
-    const float4* s4 = reinterpret_cast<const float4*>(src);
-    for (int i = threadIdx.x; i < total / 4; i += blockDim.x) {
-      const float4 q = s4[i];
-      const int e = 4 * i, r = e / d, f = e - r * d;
-      float* dst = xs + r * xst + f;
-      dst[0] = q.x;
-      dst[1] = q.y;
-      dst[2] = q.z;
-      dst[3] = q.w;
-    }
-  } else {
-    for (int i = threadIdx.x; i < total; i += blockDim.x) {
-      const int r = i / d, f = i - r * d;
-      xs[r * xst + f] = src[i];
-    }
-  }
+  if (vec4)  // d % 4 == 0 and x 16-byte aligned: a float4 stays in one row
+    copy_tile(reinterpret_cast<const float4*>(src), xs, rows * d / 4, d);
+  else
+    copy_tile(src, xs, rows * d, d);
 }
 
 // Scores one row (in shared memory) against the staged chunk, keeping the
@@ -174,6 +226,106 @@ __global__ void assign_kernel(const float* __restrict__ x,
   }
 }
 
+#ifdef LLOYD_PHASE_CLOCKS
+// per thread of block 0: cycles in the barrier before the copy, the copy,
+// the barrier after it (a barrier of its own in this build only), scoring,
+// the barrier after the labels, the ordering by label and the accumulation
+// of all its tiles
+constexpr int kPhases = 7;
+__device__ long long lloyd_phase_cycles[1024 * kPhases];
+#define PHASE_START() long long phase_t_ = clock64()
+#define PHASE_END(q)                  \
+  do {                                \
+    const long long now_ = clock64(); \
+    phase_c_[q] += now_ - phase_t_;   \
+    phase_t_ = now_;                  \
+  } while (0)
+#define PHASE_BARRIER() __syncthreads()
+#else
+#define PHASE_START() \
+  do {                \
+  } while (0)
+#define PHASE_END(q) \
+  do {               \
+  } while (0)
+#define PHASE_BARRIER() \
+  do {                  \
+  } while (0)
+#endif
+
+// The place of this row's key among the tile's keys: the count of smaller
+// keys. Keys are (label << kRowBits | row), all different, so the places
+// order the rows by label, ascending rows within a label. Four counts, one
+// per lane of an int4, keep four short chains of adds in flight.
+__device__ __forceinline__ int rank_in_tile(const int* keys, int rows,
+                                            int key) {
+  const int4* k4 = reinterpret_cast<const int4*>(keys);
+  int r0 = 0, r1 = 0, r2 = 0, r3 = 0, q = 0;
+#pragma unroll 4
+  for (; q + 4 <= rows; q += 4) {
+    const int4 kk = k4[q / 4];
+    r0 += kk.x < key;
+    r1 += kk.y < key;
+    r2 += kk.z < key;
+    r3 += kk.w < key;
+  }
+  for (; q < rows; ++q) r0 += keys[q] < key;
+  return (r0 + r1) + (r2 + r3);
+}
+
+// Column f of [x | 1] over the tile's rows in label order: a run of label j
+// adds into a register that takes acc[j][f] where the run begins and is
+// stored back where it ends, one fmaf(weight, x, acc) a row. The adds each
+// accumulator sees, and their order, are those of a row-order walk. Rows
+// come kAccBatch at a time, and all their loads are issued before any add:
+// the weight, the value and acc[label][f] of every row. A label's run
+// begins once in a tile, after the last store to its accumulator, so the
+// value loaded with the row where it begins is the current one, and no
+// load waits inside the chain of adds. A ragged tile's last rows come one
+// at a time. A run is told by its accumulator offset, label * (d + 1).
+__device__ __forceinline__ void accumulate_column(const int2* ent,
+                                                  const float* xs, float* acc,
+                                                  int rows, int f, int d) {
+  constexpr unsigned kOffMask = (1u << kOffBits) - 1;
+  const bool xcol = f < d;
+  const float* col = xs + min(f, d - 1);
+  float* accf = acc + f;
+  unsigned cur = (unsigned)ent[0].x >> kOffBits;
+  float a = accf[cur];
+  int p = 0;
+  for (; p + kAccBatch <= rows; p += kAccBatch) {
+    unsigned lab[kAccBatch];
+    float wt[kAccBatch], val[kAccBatch], start[kAccBatch];
+#pragma unroll
+    for (int b = 0; b < kAccBatch; ++b) {
+      const int2 e = ent[p + b];
+      lab[b] = (unsigned)e.x >> kOffBits;
+      wt[b] = __int_as_float(e.y);
+      val[b] = col[e.x & kOffMask];
+      start[b] = accf[lab[b]];
+    }
+#pragma unroll
+    for (int b = 0; b < kAccBatch; ++b) {
+      if (lab[b] != cur) {
+        accf[cur] = a;
+        cur = lab[b];
+        a = start[b];
+      }
+      a = fmaf(wt[b], xcol ? val[b] : 1.0f, a);
+    }
+  }
+  for (; p < rows; ++p) {
+    const int2 e = ent[p];
+    if ((unsigned)e.x >> kOffBits != cur) {
+      accf[cur] = a;
+      cur = (unsigned)e.x >> kOffBits;
+      a = accf[cur];
+    }
+    a = fmaf(__int_as_float(e.y), xcol ? col[e.x & kOffMask] : 1.0f, a);
+  }
+  accf[cur] = a;
+}
+
 __global__ void lloyd_partials_kernel(const float* __restrict__ x,
                                       const float* __restrict__ v,
                                       const float* __restrict__ c,
@@ -184,41 +336,62 @@ __global__ void lloyd_partials_kernel(const float* __restrict__ x,
   extern __shared__ __align__(16) float smem[];
   const int T = blockDim.x;
   const int w = d + 1;
+  const int xst = x_stride(d);
   float* cT = smem;
   float* csq_s = cT + kchunk * d;
-  float* acc = csq_s + kchunk;
-  float* xs = acc + k * w;
-  float* vs = xs + T * x_stride(d);
-  int* lab = reinterpret_cast<int*>(vs + T);
-  const int xst = x_stride(d);
+  float* xs = csq_s + kchunk;
+  int2* ent = reinterpret_cast<int2*>(xs + T * xst);
+  int* keys = reinterpret_cast<int*>(ent);  // until the tile is ranked
+  float* acc = reinterpret_cast<float*>(ent + T);
+  const int me = threadIdx.x;
 
-  for (int i = threadIdx.x; i < k * w; i += T) acc[i] = 0.f;
+  for (int i = me; i < k * w; i += T) acc[i] = 0.f;
   if (k <= kchunk) stage_centroids(c, csq, cT, csq_s, 0, k, kchunk, d);
 
   const int64_t ntiles = (n + T - 1) / T;
   const int64_t t0 = (int64_t)blockIdx.x * tiles_per_block;
   const int64_t t1 = min(ntiles, t0 + tiles_per_block);
+#ifdef LLOYD_PHASE_CLOCKS
+  long long phase_c_[kPhases] = {0, 0, 0, 0, 0, 0, 0};
+#endif
   for (int64_t t = t0; t < t1; ++t) {
     const int64_t r0 = t * T;
     const int rows = (int)min((int64_t)T, n - r0);
+    PHASE_START();
     __syncthreads();  // every thread is done with the last tile
+    PHASE_END(0);
+    const float weight = me < rows ? v[r0 + me] : 0.f;  // this row's
     load_tile(x, xs, r0, rows, d, vec4 != 0);
-    if ((int)threadIdx.x < rows) vs[threadIdx.x] = v[r0 + threadIdx.x];
-    const int j = nearest(c, csq, cT, csq_s, xs, rows, k, kchunk, d);
-    if ((int)threadIdx.x < rows) lab[threadIdx.x] = j;
-    __syncthreads();  // the tile's assignments are in shared memory
-    // thread f owns column f of [x | 1]: no two threads touch one address,
-    // and every column adds its rows in row order
-    for (int f = threadIdx.x; f < w; f += T) {
-      for (int r = 0; r < rows; ++r) {
-        const float val = (f < d) ? xs[r * xst + f] : 1.0f;
-        acc[lab[r] * w + f] += vs[r] * val;
-      }
-    }
+    PHASE_END(1);
+    PHASE_BARRIER();
+    PHASE_END(2);
+    const int label = nearest(c, csq, cT, csq_s, xs, rows, k, kchunk, d);
+    const int key = (label << kRowBits) | me;
+    if (me < rows) keys[me] = key;
+    PHASE_END(3);
+    __syncthreads();  // the tile's keys are in shared memory
+    PHASE_END(4);
+    const int rank = me < rows ? rank_in_tile(keys, rows, key) : 0;
+    __syncthreads();  // every key is read: ent may take their place
+    if (me < rows)
+      ent[rank] = make_int2((int)((unsigned)(label * w) << kOffBits |
+                                  (unsigned)(me * xst)),
+                            __float_as_int(weight));
+    __syncthreads();  // the tile's rows are in label order
+    PHASE_END(5);
+    // thread f owns column f of [x | 1]: no two threads touch one address
+    for (int f = me; f < w; f += T)
+      accumulate_column(ent, xs, acc, rows, f, d);
+    PHASE_END(6);
   }
+#ifdef LLOYD_PHASE_CLOCKS
+  if (blockIdx.x == 0)
+    for (int q = 0; q < kPhases; ++q)
+      lloyd_phase_cycles[me * kPhases + q] = phase_c_[q];
+#endif
   __syncthreads();
   float* dst = partials + (int64_t)blockIdx.x * k * w;
-  for (int i = threadIdx.x; i < k * w; i += T) dst[i] = acc[i];
+  for (int i = me; i < k * w; i += T) dst[i] = acc[i];
 }
 
 // out[i] = the sum over b of partials[b][i] in a fixed two-level order,
@@ -343,8 +516,10 @@ int64_t smem_floats(int lloyd, int k, int d, int rows, int kchunk) {
 // were written for.
 cudaError_t check_config(int lloyd, int k, int d, int rows, int kchunk,
                          int smem) {
-  if (k < 1 || d < 1 || rows < 32 || rows > 1024 || rows % 32 != 0 ||
-      kchunk < KG || kchunk % KG != 0 ||
+  if (k < 1 || d < 1 || rows < 32 || rows > (1 << kRowBits) ||
+      rows % 32 != 0 || kchunk < KG || kchunk % KG != 0 ||
+      (lloyd && ((int64_t)k * (d + 1) > (1 << kOffBits) ||
+                 (int64_t)rows * x_stride(d) > (1 << kOffBits))) ||
       (int64_t)smem < 4 * smem_floats(lloyd, k, d, rows, kchunk))
     return cudaErrorInvalidValue;
   return cudaSuccess;
@@ -421,5 +596,13 @@ int kmeans_reduce_partials(const float* partials, float* out, int blocks,
                               (blocks + kRedSlices - 1) / kRedSlices);
   return (int)cudaGetLastError();
 }
+
+#ifdef LLOYD_PHASE_CLOCKS
+// Block 0's lloyd_phase_cycles of the last launch, into host memory.
+int kmeans_lloyd_phase_cycles_read(long long* host) {
+  return (int)cudaMemcpyFromSymbol(host, lloyd_phase_cycles,
+                                   sizeof(lloyd_phase_cycles));
+}
+#endif
 
 }  // extern "C"

@@ -102,7 +102,8 @@ def _layout(k: int, d: int, lloyd: bool) -> Optional[Tuple[int, int, int]]:
     one block's shared memory. The sizes are the ones the layout comment
     in ``kmeans_kernels.cu`` lists: a transposed chunk of ``kchunk``
     centroids and their norms, a ``rows`` × ``(d | 1)`` x tile and, for
-    Lloyd, the ``k`` × ``(d + 1)`` accumulator, row weights and labels."""
+    Lloyd, the tile's ``rows`` (label and row, weight) pairs in label
+    order and the ``k`` × ``(d + 1)`` accumulator."""
     cap = max(_KG, CENTROID_CHUNK_BYTES // (4 * (d + 1)) // _KG * _KG)
     want = min(-(-k // _KG) * _KG, cap)
     for rows in _TILE_ROWS:

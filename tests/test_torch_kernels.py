@@ -184,10 +184,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
             kernels.assign_nearest(x, c)
 
 
+#: shared memory of one Hopper SM, and what the card keeps of it per block
+SM_SMEM_BYTES, BLOCK_RESERVED_BYTES = 228 * 1024, 1024
+
+
 def test_layout_gate_main_path_and_limits():
     # the KMeans benchmark shape fits one 128-row tile with all 10 centroids
     rows, kchunk, smem = kernels._layout(10, 100, lloyd=True)
     assert (rows, kchunk) == (128, 16) and smem <= kernels.SMEM_BLOCK_BYTES
+    # cT, csq, the x tile, the (key, weight) pairs and the accumulator
+    assert smem == 4 * (16 * 100 + 16 + 128 * 101 + 2 * 128 + 10 * 101)
+    # room for 3 such blocks in an SM
+    assert 3 * (smem + BLOCK_RESERVED_BYTES) <= SM_SMEM_BYTES
     assert kernels.lloyd_kernel_fits(10, 100) and kernels.assign_kernel_fits(10, 100)
     # wide k: assign scores centroids chunk by chunk, so any k fits
     rows, kchunk, _ = kernels._layout(5000, 100, lloyd=False)
@@ -204,3 +212,14 @@ def test_layout_gate_main_path_and_limits():
                 assert rows % 32 == 0 and kchunk % 16 == 0
                 assert smem <= kernels.SMEM_BLOCK_BYTES
 
+
+
+def test_layout_largest_lloyd_k_at_d100():
+    # the (k, d+1) accumulator sets the gate: at d = 100 the largest k runs
+    # 32-row tiles of one 16-centroid chunk, and one more does not fit
+    rows, kchunk, smem = kernels._layout(526, 100, lloyd=True)
+    assert (rows, kchunk) == (32, 16)
+    assert smem == 4 * (16 * 100 + 16 + 32 * 101 + 2 * 32 + 526 * 101)
+    assert smem <= kernels.SMEM_BLOCK_BYTES
+    assert kernels.lloyd_kernel_fits(526, 100)
+    assert not kernels.lloyd_kernel_fits(527, 100)
