@@ -18,10 +18,11 @@ Phases, each of which fails the run (no result line, nonzero exit):
    alone, eagerly and as device time (``stage1_device_ms`` of its row in
    the kernels line); then hold
    ``reduce_partials`` bit for bit against its plain version at four
-   partials shapes (Lloyd's and SGD's, made by their paths' first stages,
-   and the (1024, 100, 2) and (25, 131072, 1) shapes the segment sums gave
-   it until they took their own second stage, from a seeded tensor) and
-   time it and
+   partials shapes (Lloyd's, made by its path's first stage, and, from
+   seeded tensors, SGD's (blocks, 102) and the (1024, 100, 2) and (25,
+   131072, 1) shapes the segment sums gave it, the shapes of the second
+   stages that SGD and the segment sums since took into their own C
+   entries) and time it and
    ``torch.sum`` there, eagerly (what a fit's loop pays, host enqueue
    included) and as device times (calls captured in a CUDA graph and
    replayed: the host takes longer to enqueue one call than the card to run
@@ -31,8 +32,13 @@ Phases, each of which fails the run (no result line, nonzero exit):
    the clipped window at the end, a ragged window, a one-row window,
    zero-weight rows, an odd width, rows so wide that the kernel stages
    them in column chunks (d = 1,500, and an odd d = 6,001), and margins
-   that overflow exp for the logistic loss; the timed calls move their
-   window on by lb each call, so none finds its rows in L2;
+   that overflow exp for the logistic loss, printing each case's launch
+   plan (register or chunked instance, grid); the C entry's output must
+   equal ``reduce_partials_plain`` of the partials the same call wrote, bit
+   for bit; time the whole call and its first stage alone, eagerly and as
+   device times (``device_ms``, ``stage1_device_ms`` and
+   ``library_device_ms`` of its row in the kernels line); the timed calls
+   move their window on by lb each call, so none finds its rows in L2;
 4. drive the KMeans main path as a user would: the benchmark runner on
    ``flink_ml_tpu/benchmark/configs/kmeans-benchmark.json`` (KMeans fit at
    full size), then transform of the same table, save, load and transform
@@ -150,10 +156,10 @@ LINEAR_CONFIGS = {
 }
 KNN_CONFIG = CONFIGS / "knn-benchmark.json"
 FTRL_CONFIG = CONFIGS / "onlinelogisticregression-benchmark.json"
-# each path's own kernels; reduce_partials, the second stage of Lloyd and
-# SGD, is in none of the tuples
+# each path's own kernels; reduce_partials is Lloyd's second stage alone
+# (SGD and the segment sums launch their own from their C entries)
 PATH_KERNELS = {
-    "kmeans": ("assign_nearest", "lloyd_partial_sums"),
+    "kmeans": ("assign_nearest", "lloyd_partial_sums", "reduce_partials"),
     "linear": ("sgd_batch_terms",),
     "knn": ("knn_topk_indices",),
     "ftrl": ("segment_reduce_sum",),
@@ -368,15 +374,15 @@ def phase_kernels(K):
     log(f"  lloyd stage 1 alone: {stage1:.4f} ms over {blocks} blocks; "
         f"device {stage1_device:.4f} ms")
 
-    # the shared second stage at Lloyd's and SGD's partials shapes, each
-    # made by its path's first stage, and at the two shapes the segment
-    # sums gave it until they took their own second stage (FTRL's gradient
-    # and per-row dots partials), from a seeded tensor; device times
-    y, w = torch.floor(rand(n) * 2), rand(n)
+    # the second stage at Lloyd's partials shape, made by its path's first
+    # stage, and, from seeded tensors, at the shapes of the second stages
+    # SGD and the segment sums took into their own C entries (SGD's block
+    # partials at the main window; FTRL's gradient and per-row dots
+    # partials); device times
+    sgd_blocks = K._sgd_card_plan(x, 100_000, "logistic").blocks
     shapes = {
         "Lloyd": partials,
-        "SGD": K._launch_sgd_terms(x, y, w, rand(d) - 0.5, 0, 0, 100_000,
-                                   "logistic"),
+        "SGD": torch.randn(sgd_blocks, d + 2, generator=g, device="cuda"),
         "FTRL gradient": torch.randn(1024, 100, 2, generator=g, device="cuda"),
         "FTRL per-row dots": torch.randn(25, 1 << 17, 1, generator=g,
                                          device="cuda"),
@@ -408,7 +414,7 @@ def phase_kernels(K):
                 "library_ms": ms["eager sum"], "device_ms": ms["device"],
                 "library_device_ms": ms["device sum"]}
     log(f"  reduce_partials @ Lloyd: {measured['reduce_partials']}")
-    del y, w, shapes
+    del shapes
     return measured
 
 
@@ -421,8 +427,10 @@ def check_sgd(K, x, y, w, c, start, clip, lb, loss, tag):
                                               loss)), (
         f"{tag}: rerun not bit-identical")
     err = within_sum_tol(got, want, tag)
+    plan = K._sgd_card_plan(x, lb, loss)
     log(f"  sgd_batch_terms {loss} {tag}: start={start} clip={clip} lb={lb} "
-        f"d={x.shape[1]} max|err|={err:.3g}")
+        f"d={x.shape[1]} max|err|={err:.3g}; {plan.instance} v={plan.v} "
+        f"vec4={plan.vec4} grid={plan.blocks} of {plan.resident} resident")
     return got, want, err
 
 
@@ -470,21 +478,24 @@ def phase_sgd_kernels(K):
             cd = (rand(dd) - 0.5) / dd ** 0.5
             check_sgd(K, xd, y[:rows].contiguous(), w[:rows].contiguous(), cd,
                       5, 3, rows - 9, loss, tag)
-            assert (K._sgd_layout(dd)[1] < dd) == (dd > K.SGD_CHUNK_COLS), tag
+            wide_row = dd > K.SGD_REG_COLS
+            assert K._sgd_card_plan(xd, rows - 9, loss).instance == (
+                "chunked" if wide_row else "registers"), tag
     # margins far past exp's float32 range: the multipliers must come out
     # as +-0 or +-w, and the loss finite
     big = c * 1000
     got, want, _ = check_sgd(K, x, y, w, big, 0, 0, lb, "logistic", "overflow")
 
-    # the shared second stage on this path's partials
+    # the C entry's second stage against the plain order of its own
+    # partials, for every loss
+    for loss in LOSSES:
+        ws = K._launch_sgd_terms(x, y, w, c, 0, 0, lb, loss)
+        assert torch.equal(ws[-1], K.reduce_partials_plain(ws[:-1])), (
+            f"{loss}: the combine differs from reduce_partials_plain")
+    blocks = ws.shape[0] - 1
+    log(f"  sgd combine of ({blocks}, {d + 2}) partials: bit-identical to "
+        "reduce_partials_plain for every loss")
     loss = "logistic"
-    partials = K._launch_sgd_terms(x, y, w, c, 0, 0, lb, loss)
-    assert torch.equal(K.reduce_partials(partials),
-                       K.reduce_partials_plain(partials)), (
-        "reduce differs from its plain version")
-    blocks = partials.shape[0]
-    log(f"  reduce_partials @ ({blocks}, {d + 2}): "
-        f"{time_ms(lambda: K.reduce_partials(partials)):.5f} ms")
 
     # times and bounds at the main-path window size, logistic instance; each
     # timed call takes the next window of the table (cold in L2)
@@ -513,12 +524,21 @@ def phase_sgd_kernels(K):
         measured[name] = {
             "max_abs_err": r["err"], "ms": time_ms(r["kernel"]),
             "plain_ms": time_ms(r["plain"]), "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": time_ms(r["library"])}
-        log(f"  {name} @ lb=100,000 of 10M x 100: {measured[name]}")
+            "bound_by": b_by, "library_ms": time_ms(r["library"]),
+            "device_ms": graph_ms(r["kernel"]),
+            "library_device_ms": graph_ms(r["library"])}
     stage1_start = rolling_starts(n, lb)
-    stage1 = time_ms(lambda: K._launch_sgd_terms(x, y, w, c, stage1_start(),
-                                                 0, lb, loss))
-    log(f"  sgd stage 1 alone: {stage1:.4f} ms over {blocks} blocks")
+
+    def stage1_call():
+        return K._launch_sgd_terms(x, y, w, c, stage1_start(), 0, lb, loss,
+                                   combine=False)
+
+    stage1 = time_ms(stage1_call)
+    measured["sgd_batch_terms"]["stage1_device_ms"] = graph_ms(stage1_call)
+    log(f"  sgd_batch_terms @ lb=100,000 of 10M x 100: "
+        f"{measured['sgd_batch_terms']}")
+    log(f"  sgd stage 1 alone: {stage1:.4f} ms over {blocks} blocks; device "
+        f"{measured['sgd_batch_terms']['stage1_device_ms']:.4f} ms")
     hot = time_ms(lambda: K.sgd_batch_terms(x, y, w, c, 0, 0, lb, loss))
     log(f"  sgd_batch_terms on one window again and again (warm L2): "
         f"{hot:.4f} ms")
@@ -537,7 +557,7 @@ def phase_sgd_kernels(K):
                                               loss)),
             time_ms(lambda: K.sgd_batch_terms_plain(xw, yw, ww, cw, 0, 0,
                                                     wide_rows, loss))))
-    del x, y, w, mult, partials, xw
+    del x, y, w, mult, ws, xw
     torch.cuda.empty_cache()
     return measured
 
@@ -737,7 +757,8 @@ def phase_linear_main_path(K, runner, optimizer, Table):
     log("  small fits of the three models: card and CPU agree")
 
     assert counts["sgd_batch_terms"] >= max_iter * fits, counts
-    assert counts["reduce_partials"] >= max_iter * fits, counts
+    # one C entry a round launches both stages
+    assert counts["reduce_partials"] == 0, counts
     return counts
 
 

@@ -5,10 +5,9 @@
 //   assign_kernel          <- _assign_kernel (:26), pallas_call at :41
 //   lloyd_partials_kernel  <- _lloyd_accum_kernel (:132), pallas_call at :165
 //   reduce_tile_kernel,    <- the accumulation of _lloyd_accum_kernel into
-//   reduce_rows_kernel        out_ref across sequential grid steps (:141-157),
-//                             and of _sgd_terms_kernel (:231): the second
-//                             stage of sgd_kernels.cu and segment_kernels.cu
-//                             too
+//   reduce_rows_kernel        out_ref across sequential grid steps (:141-157)
+//                             (sgd_kernels.cu keeps its own copy of
+//                             reduce_tile_kernel as its second stage)
 //
 // What bounds them on an H100: device-memory bytes. At the main-path shape
 // (1,000,000 x 100 float32, k = 10) each call must read the 400 MB input
@@ -406,10 +405,10 @@ __global__ void lloyd_partials_kernel(const float* __restrict__ x,
 // resumed fit give the same bits.
 //
 // What bounds it on an H100: latency. The partials are small (391 x 1,010
-// for Lloyd, 782 x 102 for SGD): their bytes take a tenth of a microsecond
-// at 3.35 TB/s, but the exact block order of the Pallas grid, one chain of
-// B dependent adds per column, took about 8 ns a row in the best
-// design found for it (kept and timed in scripts/port_reduce_order.py)
+// for Lloyd, some hundreds x 102 for SGD): their bytes take a tenth of a
+// microsecond at 3.35 TB/s, but the exact block order of the Pallas grid,
+// one chain of B dependent adds per column, took about 8 ns a row in the
+// best design found for it (kept and timed in scripts/port_reduce_order.py)
 // and lost to torch.sum at Lloyd's, SGD's and FTRL's gradient shapes.
 // Slices cut the chain to L adds plus five tree levels:
 // - reduce_tile_kernel: a block of kRedThreads threads owns a tile of

@@ -1,11 +1,14 @@
-// SGD kernel for Hopper (sm_90a): one round's fused forward, loss terms and
-// gradient over the minibatch window, in plain fp32 CUDA C++.
+// SGD kernels for Hopper (sm_90a): one round's fused forward, loss terms and
+// gradient over the minibatch window, in plain fp32 CUDA C++, both stages
+// launched on the caller's stream by one C entry, sgd_batch_terms.
 //
 // Replaces, in flink_ml_tpu/ops/pallas_kernels.py:
-//   sgd_terms_kernel<LOSS> <- _sgd_terms_kernel (:206), pallas_call at :282
-// The accumulation of _sgd_terms_kernel into out_ref across sequential grid
-// steps (:231) is the second stage, reduce_partials_kernel of
-// kmeans_kernels.cu, which sums the per-block partials in block order.
+//   sgd_rows_kernel<LOSS, V, VEC4>  <- _sgd_terms_kernel (:206), pallas_call
+//   sgd_terms_kernel<LOSS>             at :282 (rows of at most kRegCols
+//                                      columns, and wider rows)
+//   sgd_combine_kernel              <- the accumulation of _sgd_terms_kernel
+//                                      into out_ref across sequential grid
+//                                      steps (:231)
 //
 // Output, over the window rows [start, start + lb) of x (n, d), y (n,),
 // w (n,): the packed (d + 2,) vector [sum mult * x | sum w | sum loss], where
@@ -16,40 +19,60 @@
 // What bounds it on an H100: device-memory bytes. At the main-path window
 // (lb = 100,000 rows, d = 100) a call must read 40.8 MB once, about 0.012 ms
 // at 3.35 TB/s, while its 4 * lb * d = 40 MFLOP of fp32 take about 0.0006 ms
-// at 67 TFLOP/s. So the design reads every row of the window from device
-// memory once where the row tile fits shared memory: a block stages a tile
-// of rows with coalesced (16-byte where aligned) loads, each warp takes a
-// row's dot with the coefficients and its loss terms, and thread j adds
-// mult * x[:, j] of the tile into column j of the block's partial. The
-// (lb,) dots and multipliers never exist in device memory.
+// at 67 TFLOP/s. What a byte-bound kernel lacks is bytes in flight: about
+// 25 KB per SM cover 3.35 TB/s over a microsecond of loaded latency.
 //
-// Any d: a tile is staged `dc` columns at a time. Up to SGD_CHUNK_COLS
-// columns (ops/kernels.py) dc = d and the tile is staged once. Wider rows
-// build each dot up across the column chunks, then take a second pass over
-// the chunks for mult * x (the last chunk is still staged, so it is read
-// once; the others twice, the second time mostly from L2).
+// Stage 1, rows of at most kRegCols columns (sgd_rows_kernel): a persistent
+// grid, each warp owning one contiguous run of window rows (the runs differ
+// by at most one row; ops/kernels.py `sgd_runs` mirrors them). A lane keeps
+// its 4 * V columns of a row in registers (V float4s, 16-byte loads where d
+// is a multiple of 4 and x is 16-byte aligned, else scalar loads of columns
+// lane, lane + 32, ...), and the loads of the run's next R rows are issued
+// before the current R are consumed (a register double buffer, R * V <= 4:
+// at d = 100 a warp keeps 1.6 KB in flight). The labels and weights come 32
+// rows at a time, one coalesced load per lane, and reach the lanes by
+// shuffles. The R rows' dots are summed over the warp together (rows_sum),
+// which leaves each row's dot in 32 / R lanes, so the lanes evaluate the R
+// rows' terms at once; each row's multiplier is then shuffled to every
+// lane, which adds mult * x into its columns' sums in registers, in row
+// order. No shared memory or barrier inside the row loop, and no device
+// memory written but the block's partial: the warps' sums meet in shared
+// memory once and are added in warp order.
 //
-// Determinism, with no atomics: a block owns a contiguous range of row
-// tiles and adds them in row order; column j of the block's partial is only
-// ever touched by thread j % blockDim.x (dc is d or a multiple of
-// blockDim.x, so every chunk maps column j to the same thread), and the
-// weight and loss sums by thread 0. The partial is the block's own row of
-// `partials` in device memory, so d has no shared-memory limit. The same
-// inputs on the same card give the same bits.
+// Stage 1, wider rows (sgd_terms_kernel, the kernel of the port's first
+// slice): a block stages a tile of rows `dc` columns at a time in shared
+// memory, builds each row's dot across the column chunks, then takes a
+// second pass over the chunks for mult * x (the last chunk is still staged,
+// so it is read once; the others twice, the second time mostly from L2).
+// Column j of the block's partial is only ever touched by thread j % 256 (dc
+// is d or a multiple of 256), the weight and loss sums by thread 0.
+//
+// Stage 2 (sgd_combine_kernel): the per-block partials summed in the fixed
+// two-level order of reduce_partials (kmeans_kernels.cu, kept here as its
+// own copy): at most 32 contiguous slices, each added in row order from 0,
+// then a fixed pairwise tree. So the output equals reduce_partials_plain of
+// the partials, bit for bit.
+//
+// Determinism, with no atomics: every sum has a fixed order given the
+// launch plan, which depends only on (lb, d, the card), so the same inputs
+// on the same card give the same bits.
 //
 // Arithmetic: full fp32 (FMA), no TF32, no fast-math intrinsics. The logistic
 // loss is softplus(-m) = max(-m, 0) + log1p(exp(-|m|)), which never
 // overflows; its multiplier -w * ys / (exp(m) + 1) is +-0 once exp(m)
 // overflows to inf (|m| > 88), as in the reference.
 //
-// Shared memory, in floats, in this order (ops/kernels.py `_sgd_layout`
-// sizes it and passes rows, dc and the byte count):
-//   xs   [rows][dc]  a column chunk of the row tile; first, so 16-byte aligned
-//   cs   [dc]        the same columns of the coefficients
-//   mult [rows]      the tile's dots, built up chunk by chunk, then its
-//                    multipliers
-//   wv   [rows]      the tile's masked weights
-//   lv   [rows]      the tile's weighted losses
+// Shared memory, in floats:
+//   sgd_rows_kernel: part [kWarps][d + 2], the warps' partials;
+//   sgd_terms_kernel, in this order (ops/kernels.py `_sgd_layout` sizes it
+//   and passes rows, dc and the byte count):
+//     xs   [rows][dc]  a column chunk of the row tile; first, so 16-byte
+//                      aligned
+//     cs   [dc]        the same columns of the coefficients
+//     mult [rows]      the tile's dots, built up chunk by chunk, then its
+//                      multipliers
+//     wv   [rows]      the tile's masked weights
+//     lv   [rows]      the tile's weighted losses
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,6 +80,10 @@
 namespace {
 
 constexpr int kThreads = 256;  // threads per block: 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxV = 4;               // float4s of a row a lane holds at most
+constexpr int kRegCols = 128 * kMaxV;  // widest row sgd_rows_kernel takes
+constexpr unsigned kAll = 0xffffffffu;
 
 enum Loss { kLogistic = 0, kHinge = 1, kLeastSquare = 2 };
 
@@ -84,10 +111,237 @@ __device__ __forceinline__ void row_terms(float dot, float y, float w,
 // Sum over the 32 lanes of a warp, in a fixed order; every lane gets it.
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kAll, v, off);
   return v;
 }
+
+// ---------------------------------------------------------------------------
+// Stage 1 for rows of at most kRegCols columns.
+
+// Rows a warp loads at once: R * V float4s a lane, twice for the double
+// buffer.
+template <int V>
+constexpr int kBatchRows = V == 1 ? 4 : V == 2 ? 2 : 1;
+// Blocks an SM must hold at least (24 or 16 warps, so 80 or 128 registers
+// a thread): the warps' loads in flight are what covers the latency of
+// device memory.
+template <int V>
+constexpr int kMinBlocks = V <= 2 ? 3 : 2;
+
+// Column of a row that element k of a lane's 4 * V floats holds.
+template <bool VEC4>
+__device__ __forceinline__ int column(int k, int lane) {
+  return VEC4 ? 4 * (lane + 32 * (k / 4)) + k % 4 : lane + 32 * k;
+}
+
+// Each row's v[r] summed over the warp, R rows at once, in a fixed order:
+// at offsets 16, 8, ... a lane keeps half of its rows and sends the other
+// half to its partner (lane ^ offset), until one row is left in each lane,
+// then a butterfly over the remaining offsets. Lane l ends with the sum of
+// row l / (32 / R), the same bits in each of those 32 / R lanes (a + b and
+// b + a are one float).
+template <int R>
+__device__ __forceinline__ float rows_sum(float (&v)[R], int lane) {
+#pragma unroll
+  for (int n = R; n > 1; n /= 2) {
+    const int off = 16 * n / R;
+    const bool upper = (lane & off) != 0;
+#pragma unroll
+    for (int i = 0; i < n / 2; ++i) {
+      const float keep = upper ? v[i + n / 2] : v[i];
+      const float send = upper ? v[i] : v[i + n / 2];
+      v[i] = keep + __shfl_xor_sync(kAll, send, off);
+    }
+  }
+  float s = v[0];
+#pragma unroll
+  for (int off = 16 / R; off > 0; off >>= 1)
+    s += __shfl_xor_sync(kAll, s, off);
+  return s;
+}
+
+// A lane's columns of R rows from table row `row` on, rows past `last`
+// (the run's last row) read as copies of it; columns past d read 0.
+template <int V, int R, bool VEC4>
+__device__ __forceinline__ void load_rows(float (&buf)[R][4 * V],
+                                          const float* __restrict__ x,
+                                          int64_t row, int64_t last, int d,
+                                          int lane) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float* p = x + min(row + r, last) * (int64_t)d;
+    if (VEC4) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int col = column<true>(4 * v, lane);
+        float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (col < d) t = __ldcs(reinterpret_cast<const float4*>(p + col));
+        buf[r][4 * v] = t.x;
+        buf[r][4 * v + 1] = t.y;
+        buf[r][4 * v + 2] = t.z;
+        buf[r][4 * v + 3] = t.w;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4 * V; ++k) {
+        const int col = column<false>(k, lane);
+        buf[r][k] = col < d ? __ldcs(p + col) : 0.f;
+      }
+    }
+  }
+}
+
+// Labels and masked weights of the run's rows [i, i + 32), one a lane; 0
+// past the run's `len` rows. Window index of run row j: r0 + j.
+__device__ __forceinline__ void load_labels(const float* __restrict__ y,
+                                            const float* __restrict__ w,
+                                            int64_t base, int64_t r0,
+                                            int64_t i, int64_t len,
+                                            int64_t clip, int lane, float& yv,
+                                            float& wv) {
+  const int64_t j = i + lane;
+  yv = 0.f;
+  wv = 0.f;
+  if (j < len) {
+    yv = __ldcs(y + base + j);
+    if (r0 + j >= clip) wv = __ldcs(w + base + j);
+  }
+}
+
+// The R rows of `buf` (run rows i .. i + R - 1, of which those at len and
+// past are copies that add nothing): their dots, terms and mult * x. The
+// labels and weights of run rows i - j0 .. i - j0 + 31 are in the lanes'
+// yv and wv.
+template <int LOSS, int V, int R>
+__device__ __forceinline__ void consume(const float (&buf)[R][4 * V],
+                                        const float (&c)[4 * V],
+                                        float (&g)[4 * V], int64_t i,
+                                        int64_t len, float yv, float wv,
+                                        int j0, int lane, float& lsum,
+                                        float& wsum) {
+  constexpr int F = 4 * V, G = 32 / R;
+  float v[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < F; ++k) s = fmaf(buf[r][k], c[k], s);
+    v[r] = s;
+  }
+  const float dot = rows_sum<R>(v, lane);
+  const int mine = lane / G;  // the batch row whose terms this lane takes
+  const float yy = __shfl_sync(kAll, yv, j0 + mine);
+  const float ww = __shfl_sync(kAll, wv, j0 + mine);
+  float loss, m;
+  row_terms<LOSS>(dot, yy, ww, loss, m);
+  if (i + mine >= len) loss = m = 0.f;
+  if (lane % G == 0) {
+    lsum += loss;
+    wsum += ww;
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float mr = __shfl_sync(kAll, m, r * G);
+#pragma unroll
+    for (int k = 0; k < F; ++k) g[k] = fmaf(mr, buf[r][k], g[k]);
+  }
+}
+
+// One batch, run rows i .. i + R - 1 in `cur`: the next batch's loads go
+// out into `nxt` (with the labels and weights of the next group of 32 run
+// rows where the next batch opens one) before `cur` is consumed.
+template <int LOSS, int V, int R, bool VEC4>
+__device__ __forceinline__ void step(
+    float (&cur)[R][4 * V], float (&nxt)[R][4 * V],
+    const float* __restrict__ x, const float* __restrict__ y,
+    const float* __restrict__ w, const float (&c)[4 * V], float (&g)[4 * V],
+    int64_t base, int64_t last, int64_t r0, int64_t i, int64_t len,
+    int64_t clip, int d, int lane, float& yv, float& wv, float& lsum,
+    float& wsum) {
+  const int j0 = (int)(i & 31);  // the batch's first lane of yv and wv
+  const bool opens = j0 == 32 - R;
+  float ny = 0.f, nw = 0.f;
+  if (i + R < len) {
+    load_rows<V, R, VEC4>(nxt, x, base + i + R, last, d, lane);
+    if (opens) load_labels(y, w, base, r0, i + R, len, clip, lane, ny, nw);
+  }
+  consume<LOSS, V, R>(cur, c, g, i, len, yv, wv, j0, lane, lsum, wsum);
+  if (opens) {
+    yv = ny;
+    wv = nw;
+  }
+}
+
+template <int LOSS, int V, bool VEC4>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<V>)
+    sgd_rows_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                    const float* __restrict__ w,
+                    const float* __restrict__ coeffs,
+                    float* __restrict__ partials, int64_t start, int64_t lb,
+                    int64_t clip, int d) {
+  constexpr int R = kBatchRows<V>, F = 4 * V;
+  extern __shared__ __align__(16) float part[];  // [kWarps][d + 2]
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  // the warp's run of window rows [r0, r0 + len)
+  const int64_t warps = (int64_t)gridDim.x * kWarps;
+  const int64_t gw = (int64_t)blockIdx.x * kWarps + warp;
+  const int64_t q = lb / warps, rem = lb % warps;
+  const int64_t r0 = gw * q + min(gw, rem);
+  const int64_t len = q + (gw < rem ? 1 : 0);
+
+  float c[F], g[F];
+#pragma unroll
+  for (int k = 0; k < F; ++k) {
+    const int col = column<VEC4>(k, lane);
+    c[k] = col < d ? __ldg(coeffs + col) : 0.f;
+    g[k] = 0.f;
+  }
+  float lsum = 0.f, wsum = 0.f;
+  if (len > 0) {
+    const int64_t base = start + r0;       // table row of run row 0
+    const int64_t last = base + len - 1;  // table row of the run's last row
+    float a[R][F], b[R][F];
+    float yv, wv;
+    load_labels(y, w, base, r0, 0, len, clip, lane, yv, wv);
+    load_rows<V, R, VEC4>(a, x, base, last, d, lane);
+    // not unrolled: across unrolled batches ptxas hoists every row's
+    // address into registers, and spilled at V = 4 and for scalar loads
+#pragma unroll 1
+    for (int64_t i = 0; i < len; i += 2 * R) {
+      step<LOSS, V, R, VEC4>(a, b, x, y, w, c, g, base, last, r0, i, len,
+                             clip, d, lane, yv, wv, lsum, wsum);
+      if (i + R < len)
+        step<LOSS, V, R, VEC4>(b, a, x, y, w, c, g, base, last, r0, i + R,
+                               len, clip, d, lane, yv, wv, lsum, wsum);
+    }
+  }
+  // the block's partial: each warp's sums into its row of part, then the
+  // warps' rows added in warp order
+  float* mine = part + warp * (d + 2);
+#pragma unroll
+  for (int k = 0; k < F; ++k) {
+    const int col = column<VEC4>(k, lane);
+    if (col < d) mine[col] = g[k];
+  }
+  wsum = warp_sum(wsum);
+  lsum = warp_sum(lsum);
+  if (lane == 0) {
+    mine[d] = wsum;
+    mine[d + 1] = lsum;
+  }
+  __syncthreads();
+  float* dst = partials + (int64_t)blockIdx.x * (d + 2);
+  for (int j = threadIdx.x; j < d + 2; j += kThreads) {
+    float s = part[j];
+#pragma unroll
+    for (int q2 = 1; q2 < kWarps; ++q2) s += part[q2 * (d + 2) + j];
+    dst[j] = s;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Stage 1 for wider rows: tiles staged in shared memory, column chunk by
+// column chunk.
 
 // Columns [0, dw) of nr rows of stride ld at src -> dst[nr][dw]. With vec4,
 // src, ld and dw are multiples of 4 floats and src is 16-byte aligned.
@@ -205,37 +459,128 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// Stage 2: out[i] = the sum over b of partials[b][i] in reduce_partials'
+// fixed two-level order (kmeans_kernels.cu): the B rows cut into Q
+// contiguous slices of L = ceil(B / 32) rows, each added in row order from
+// 0 (s = 0, s += partials[r][i]); then the slice sums added by a fixed
+// pairwise tree at strides 1, 2, 4, 8, 16. A block of kCombThreads threads
+// owns kCombCols columns; thread (j, c) adds slice j of column c, its loads
+// issued kCombBatch at a time; thread c < kCombCols adds column c's tree.
+constexpr int kCombCols = 8;     // columns of a combine block
+constexpr int kCombSlices = 32;  // slices at most
+constexpr int kCombThreads = kCombCols * kCombSlices;
+constexpr int kCombBatch = 32;   // loads in flight per thread
+
+// s = 0, s += p[r * width] for the rows r of [r0, r1), issued in batches
+__device__ __forceinline__ float slice_sum(const float* __restrict__ p,
+                                           int64_t width, int r0, int r1) {
+  float s = 0.f;
+  int r = r0;
+  for (; r + kCombBatch <= r1; r += kCombBatch) {
+    float v[kCombBatch];
+#pragma unroll
+    for (int b = 0; b < kCombBatch; ++b) v[b] = p[(r + b) * width];
+#pragma unroll
+    for (int b = 0; b < kCombBatch; ++b) s += v[b];
+  }
+  for (; r < r1; ++r) s += p[r * width];
+  return s;
+}
+
+__global__ void __launch_bounds__(kCombThreads)
+    sgd_combine_kernel(const float* __restrict__ partials,
+                       float* __restrict__ out, int blocks, int width,
+                       int slice_rows) {
+  __shared__ float sums[kCombSlices][kCombCols];
+  const int c = threadIdx.x % kCombCols, j = threadIdx.x / kCombCols;
+  const int col = blockIdx.x * kCombCols + c;
+  const int q = (blocks + slice_rows - 1) / slice_rows;  // slices
+  sums[j][c] = col < width && j < q
+                   ? slice_sum(partials + col, width, j * slice_rows,
+                               min(blocks, (j + 1) * slice_rows))
+                   : 0.f;
+  __syncthreads();
+  if (j != 0 || col >= width) return;
+  float t[kCombSlices];
+#pragma unroll
+  for (int i = 0; i < kCombSlices; ++i) t[i] = sums[i][c];
+  // t[0] += t[1], t[2] += t[3], ...; then at strides 2, 4, 8, 16;
+  // t[i + stride] only where it is one of the q slices
+#pragma unroll
+  for (int stride = 1; stride < kCombSlices; stride *= 2)
+#pragma unroll
+    for (int i = 0; i + stride < kCombSlices; i += 2 * stride)
+      if (i + stride < q) t[i] += t[i + stride];
+  out[col] = t[0];
+}
+
+// ---------------------------------------------------------------------------
+// Instances and launch checks.
+
 int64_t smem_floats(int dc, int rows) {
   return (int64_t)rows * dc + dc + 3 * (int64_t)rows;
 }
 
-const void* kernel_of(int loss) {
+template <int LOSS>
+const void* rows_kernel_of(int v, int vec4) {
+  switch (2 * v + (vec4 != 0)) {
+    case 2: return (const void*)sgd_rows_kernel<LOSS, 1, false>;
+    case 3: return (const void*)sgd_rows_kernel<LOSS, 1, true>;
+    case 4: return (const void*)sgd_rows_kernel<LOSS, 2, false>;
+    case 5: return (const void*)sgd_rows_kernel<LOSS, 2, true>;
+    case 6: return (const void*)sgd_rows_kernel<LOSS, 3, false>;
+    case 7: return (const void*)sgd_rows_kernel<LOSS, 3, true>;
+    case 8: return (const void*)sgd_rows_kernel<LOSS, 4, false>;
+    case 9: return (const void*)sgd_rows_kernel<LOSS, 4, true>;
+    default: return nullptr;
+  }
+}
+
+// The stage-1 instance: sgd_rows_kernel<loss, v, vec4> for v = 1..4, or
+// sgd_terms_kernel<loss> for v = 0.
+const void* kernel_of(int loss, int v, int vec4) {
   switch (loss) {
     case kLogistic:
-      return (const void*)sgd_terms_kernel<kLogistic>;
+      return v ? rows_kernel_of<kLogistic>(v, vec4)
+               : (const void*)sgd_terms_kernel<kLogistic>;
     case kHinge:
-      return (const void*)sgd_terms_kernel<kHinge>;
+      return v ? rows_kernel_of<kHinge>(v, vec4)
+               : (const void*)sgd_terms_kernel<kHinge>;
     case kLeastSquare:
-      return (const void*)sgd_terms_kernel<kLeastSquare>;
+      return v ? rows_kernel_of<kLeastSquare>(v, vec4)
+               : (const void*)sgd_terms_kernel<kLeastSquare>;
     default:
       return nullptr;
   }
 }
 
-// The launch configuration the Python side chose must be one this kernel
-// was written for: dc is d, or a multiple of the block's threads below d.
-cudaError_t check_config(int loss, int d, int dc, int rows, int smem) {
-  if (kernel_of(loss) == nullptr || d < 1 || rows < 1 || dc < 1 ||
-      !(dc == d || (dc < d && dc % kThreads == 0)) ||
-      (int64_t)smem < 4 * smem_floats(dc, rows))
-    return cudaErrorInvalidValue;
-  return cudaSuccess;
+// Dynamic shared memory of a stage-1 block: the warps' partials for the
+// register instance, the Python side's tile layout for the other.
+int stage1_smem(int v, int d, int smem) {
+  return v ? 4 * kWarps * (d + 2) : smem;
 }
 
-cudaError_t allow_smem(int loss, int smem) {
-  return cudaFuncSetAttribute(kernel_of(loss),
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem);
+// The launch the Python side planned must be one these kernels were
+// written for: v = ceil(d / 128) up to kRegCols columns, else the chunked
+// instance with dc = d or a multiple of the block's threads below d and
+// tiles that cover the window; vec4 only for 16-byte rows at an aligned x.
+cudaError_t check_config(const float* x, long long start, long long lb,
+                         long long clip, int d, int v, int vec4, int blocks,
+                         int rows, int dc, int smem,
+                         long long tiles_per_block, int loss) {
+  if (kernel_of(loss, v, vec4) == nullptr || d < 1 || blocks < 1 ||
+      start < 0 || lb < 1 || clip < 0 || clip > lb ||
+      (vec4 && (d % 4 != 0 || (uintptr_t)x % 16 != 0)))
+    return cudaErrorInvalidValue;
+  if (d <= kRegCols) return v == (d + 127) / 128 ? cudaSuccess
+                                                 : cudaErrorInvalidValue;
+  if (v != 0 || rows < 1 || dc < 1 || tiles_per_block < 1 ||
+      !(dc == d || (dc < d && dc % kThreads == 0)) ||
+      (int64_t)smem < 4 * smem_floats(dc, rows) ||
+      (int64_t)blocks * tiles_per_block * rows < lb)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -246,40 +591,56 @@ const char* sgd_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Resident blocks of one SM for the loss's instance at this shared memory.
-int sgd_blocks_per_sm(int loss, int smem, int* out) {
-  if (kernel_of(loss) == nullptr) return (int)cudaErrorInvalidValue;
-  cudaError_t e = allow_smem(loss, smem);
+// Resident blocks of one SM for a stage-1 instance (v and vec4 as in
+// sgd_batch_terms; smem is the chunked instance's, 0 for the other). Lets
+// the instance use its dynamic shared memory first: the one place the
+// attribute is set, so a process sets it once per instance (the Python side
+// caches the answer).
+int sgd_blocks_per_sm(int loss, int v, int vec4, int d, int smem, int* out) {
+  const void* fn = kernel_of(loss, v, vec4);
+  if (fn == nullptr || d < 1) return (int)cudaErrorInvalidValue;
+  const int bytes = stage1_smem(v, d, smem);
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, kernel_of(loss), kThreads, (size_t)smem);
+      out, fn, kThreads, (size_t)bytes);
 }
 
-int sgd_terms_partials(const float* x, const float* y, const float* w,
-                       const float* coeffs, float* partials, long long start,
-                       long long lb, long long clip, int d, int dc, int rows,
-                       int smem, int vec4, int blocks,
-                       long long tiles_per_block, int loss, void* stream) {
-  cudaError_t e = check_config(loss, d, dc, rows, smem);
-  if (e == cudaSuccess) e = allow_smem(loss, smem);
+// One SGD round's terms: stage 1 writes `blocks` partial rows of d + 2
+// floats to ws, then (where `combine`) stage 2 writes their sum to the d + 2
+// floats after them; both on `stream`. v, vec4, blocks and the chunked
+// layout (rows, dc, smem, tiles_per_block) are ops/kernels.py's plan.
+int sgd_batch_terms(const float* x, const float* y, const float* w,
+                    const float* coeffs, float* ws, long long start,
+                    long long lb, long long clip, int d, int v, int vec4,
+                    int blocks, int rows, int dc, int smem,
+                    long long tiles_per_block, int loss, int combine,
+                    void* stream) {
+  cudaError_t e = check_config(x, start, lb, clip, d, v, vec4, blocks, rows,
+                               dc, smem, tiles_per_block, loss);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = (cudaStream_t)stream;
-#define SGD_LAUNCH(L)                                                       \
-  sgd_terms_kernel<L><<<blocks, kThreads, smem, s>>>(                       \
-      x, y, w, coeffs, partials, (int64_t)start, (int64_t)lb, (int64_t)clip, \
-      d, dc, rows, (int64_t)tiles_per_block, vec4)
-  switch (loss) {
-    case kLogistic:
-      SGD_LAUNCH(kLogistic);
-      break;
-    case kHinge:
-      SGD_LAUNCH(kHinge);
-      break;
-    default:
-      SGD_LAUNCH(kLeastSquare);
-      break;
+  const void* fn = kernel_of(loss, v, vec4);
+  int64_t start64 = start, lb64 = lb, clip64 = clip, tpb64 = tiles_per_block;
+  float* partials = ws;
+  if (v) {
+    void* args[] = {&x, &y, &w, &coeffs, &partials, &start64, &lb64, &clip64,
+                    &d};
+    e = cudaLaunchKernel(fn, dim3(blocks), dim3(kThreads), args,
+                         (size_t)stage1_smem(v, d, smem), s);
+  } else {
+    void* args[] = {&x,       &y,    &w,  &coeffs, &partials, &start64,
+                    &lb64,    &clip64, &d, &dc,     &rows,     &tpb64,
+                    &vec4};
+    e = cudaLaunchKernel(fn, dim3(blocks), dim3(kThreads), args,
+                         (size_t)smem, s);
   }
-#undef SGD_LAUNCH
+  if (e != cudaSuccess || !combine) return (int)e;
+  const int width = d + 2;
+  sgd_combine_kernel<<<(width + kCombCols - 1) / kCombCols, kCombThreads, 0,
+                       s>>>(ws, ws + (int64_t)blocks * width, blocks, width,
+                            (blocks + kCombSlices - 1) / kCombSlices);
   return (int)cudaGetLastError();
 }
 

@@ -12,8 +12,10 @@ at first use, one library per source:
   in a fixed order (per-block partials, then :func:`reduce_partials`).
 - :func:`sgd_batch_terms` (``csrc/sgd_kernels.cu``): one SGD round's
   ``[Σ mult·x | Σ w | Σ loss]`` over the minibatch window, forward dots and
-  loss terms fused into the gradient pass, again in two fixed-order stages
-  (per-block partials, then :func:`reduce_partials`), for any feature width.
+  loss terms fused into the gradient pass, for any feature width, in two
+  fixed-order stages launched by one C entry (per-block partials, then
+  their sum in :func:`reduce_partials`' order; :func:`_sgd_plan` and
+  :func:`sgd_runs` mirror the launch).
 - :func:`segment_reduce_sum` (``csrc/segment_kernels.cu``): per-segment sums
   of 1-D or 2-D values, ids outside the domain dropped, in three stages
   launched by one C entry: each row chunk's id range, per-item partials of
@@ -59,8 +61,7 @@ KERNELS = {
     "lloyd_partial_sums": {
         "route": "cuda", "source": "flink_ml_tpu_torch/csrc/kmeans_kernels.cu",
         "replaces": "flink_ml_tpu/ops/pallas_kernels.py:132"},
-    # the second stage of both Lloyd and SGD; it also stands for the
-    # in-order accumulation of _sgd_terms_kernel (pallas_kernels.py:231)
+    # Lloyd's second stage (SGD's has its own copy in sgd_kernels.cu)
     "reduce_partials": {
         "route": "cuda", "source": "flink_ml_tpu_torch/csrc/kmeans_kernels.cu",
         "replaces": "flink_ml_tpu/ops/pallas_kernels.py:141"},
@@ -141,33 +142,102 @@ def reduce_slices(blocks: int) -> Tuple[int, int]:
     return slice_rows, -(-blocks // slice_rows)
 
 
-#: loss name → the sgd kernel's template instance (``enum Loss`` of
+#: loss name → the sgd kernels' template instance (``enum Loss`` of
 #: ``sgd_kernels.cu``)
 SGD_LOSSES = {"logistic": 0, "hinge": 1, "least_square": 2}
-#: columns of the row tile an sgd block stages at once; wider rows are
-#: staged in chunks of this many, so any d runs the kernel. A multiple of
-#: the kernel's 256 threads, so a column keeps its thread across chunks
+#: warps of an sgd stage-1 block (``kWarps`` of ``sgd_kernels.cu``)
+SGD_WARPS = 8
+#: widest row the register instance of stage 1 takes (``kRegCols``): a lane
+#: holds V = ⌈d / 128⌉ ≤ 4 float4s of a row; wider rows take the chunked
+#: instance
+SGD_REG_COLS = 512
+#: rows a warp of the register instance takes at least before the grid
+#: grows (up to the blocks the card holds at once): its double-buffered
+#: loads need a run to fill
+SGD_WARP_ROWS = 16
+#: columns of the row tile a chunked block stages at once; wider rows are
+#: staged in chunks of this many. A multiple of the kernel's 256 threads, so
+#: a column keeps its thread across chunks
 SGD_CHUNK_COLS = 512
-#: floats of x an sgd block stages at once (32 KB), so that about six
+#: floats of x a chunked block stages at once (32 KB), so that about six
 #: blocks share an SM: the fastest tiles from d = 100 to 2,000 on an H100
 #: (scripts/port_sgd_layout_sweep.py, PERF.md)
 SGD_TILE_FLOATS = 8192
-#: window rows of an sgd tile at most
+#: window rows of a chunked tile at most
 SGD_MAX_ROWS = 64
 
 
 def _sgd_layout(d: int) -> Tuple[int, int, int]:
-    """``(rows, dc, smem_bytes)`` of an :func:`sgd_batch_terms` launch at
-    feature width ``d``: ``dc`` columns staged at once (d itself up to
-    :data:`SGD_CHUNK_COLS`) of ``rows`` rows, the power of two that brings
-    the staged floats nearest :data:`SGD_TILE_FLOATS` from below (16 to
-    64 rows). The sizes
-    are the ones the layout comment in ``sgd_kernels.cu`` lists: a ``rows``
-    × ``dc`` x chunk, the same columns of the coefficients and three
-    ``rows`` vectors of per-row terms."""
+    """``(rows, dc, smem_bytes)`` of a chunked :func:`sgd_batch_terms`
+    block at feature width ``d``: ``dc`` columns staged at once (d itself up
+    to :data:`SGD_CHUNK_COLS`) of ``rows`` rows, the power of two that
+    brings the staged floats nearest :data:`SGD_TILE_FLOATS` from below (16
+    to 64 rows). The sizes are the ones the layout comment in
+    ``sgd_kernels.cu`` lists: a ``rows`` × ``dc`` x chunk, the same columns
+    of the coefficients and three ``rows`` vectors of per-row terms."""
     dc = min(d, SGD_CHUNK_COLS)
     rows = min(SGD_MAX_ROWS, 1 << ((SGD_TILE_FLOATS // dc).bit_length() - 1))
     return rows, dc, 4 * (rows * dc + dc + 3 * rows)
+
+
+def _sgd_width_class(d: int) -> int:
+    """V, the float4s of a row a lane of the register instance holds
+    (⌈d / 128⌉), or 0 for rows wider than :data:`SGD_REG_COLS`, which the
+    chunked instance takes."""
+    return -(-d // 128) if d <= SGD_REG_COLS else 0
+
+
+class SgdPlan(NamedTuple):
+    """How :func:`sgd_batch_terms` launches stage 1 (the C entry checks it):
+    ``instance`` "registers" (``sgd_rows_kernel<loss, v, vec4>``, d ≤
+    :data:`SGD_REG_COLS`: each warp a contiguous run of rows, one row in
+    registers) or "chunked" (``sgd_terms_kernel<loss>``: each block
+    ``tiles_per_block`` tiles of ``rows`` rows, staged ``dc`` columns at a
+    time in ``smem`` bytes); ``blocks`` of the grid, of the ``resident``
+    the card holds at once; ``vec4`` where rows are read as float4s."""
+    instance: str
+    v: int
+    vec4: int
+    blocks: int
+    resident: int
+    rows: int
+    dc: int
+    smem: int
+    tiles_per_block: int
+
+
+def _sgd_plan(lb: int, d: int, resident: int, vec4: int = 0) -> SgdPlan:
+    """The launch of :func:`sgd_batch_terms` for a window of ``lb`` ≥ 1 rows
+    of width ``d`` on a card that holds ``resident`` blocks of the instance
+    at once. The register instance runs a persistent grid: enough blocks
+    that every warp has :data:`SGD_WARP_ROWS` rows, up to ``resident``
+    (lb = 100,000 fills the card: about 30 rows a warp on an H100). The
+    chunked one cuts the window into tiles, at most ``resident`` blocks of
+    them, and no block without rows."""
+    v = _sgd_width_class(d)
+    if v:
+        blocks = max(1, min(resident, -(-lb // (SGD_WARPS * SGD_WARP_ROWS))))
+        return SgdPlan("registers", v, vec4, blocks, resident, 0, 0, 0, 0)
+    rows, dc, smem = _sgd_layout(d)
+    ntiles = -(-lb // rows)
+    tiles_per_block = -(-ntiles // min(ntiles, resident))
+    return SgdPlan("chunked", 0, vec4, -(-ntiles // tiles_per_block), resident,
+                   rows, dc, smem, tiles_per_block)
+
+
+def sgd_runs(plan: SgdPlan, lb: int) -> list:
+    """The window rows ``(r0, r1)`` each worker of a plan's stage 1 takes,
+    in order: every warp of the register instance (``sgd_rows_kernel``: W
+    warps in all, warp g the ⌊lb / W⌋ rows from g·⌊lb / W⌋ + min(g, lb mod
+    W), one more for the first lb mod W warps), or every block of the
+    chunked one (``tiles_per_block`` contiguous tiles, the last ragged)."""
+    if plan.instance == "registers":
+        warps = plan.blocks * SGD_WARPS
+        q, rem = divmod(lb, warps)
+        return [(g * q + min(g, rem), g * q + min(g, rem) + q + (g < rem))
+                for g in range(warps)]
+    span = plan.tiles_per_block * plan.rows
+    return [(b * span, min(lb, (b + 1) * span)) for b in range(plan.blocks)]
 
 
 #: warps of a segment block (``kWarps`` of ``segment_kernels.cu``)
@@ -511,7 +581,7 @@ def _is_cuda(t: torch.Tensor) -> bool:
 
 
 def _check(name: str, **tensors: torch.Tensor) -> None:
-    device = None
+    first = None
     for arg, t in tensors.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name}: {arg} must be a torch.Tensor, "
@@ -520,12 +590,16 @@ def _check(name: str, **tensors: torch.Tensor) -> None:
             raise TypeError(f"{name}: {arg} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
-        if t.device.type not in ("cpu", "cuda"):
+        if not (t.is_cuda or t.is_cpu):
             raise ValueError(f"{name}: {arg} is on {t.device}; the kernels "
                              "run on CUDA and their plain versions on the CPU")
-        if device is not None and t.device != device:
-            raise ValueError(f"{name}: inputs are on {device} and {t.device}")
-        device = t.device
+        # get_device() is the card's index, or -1 on the CPU: cheaper to
+        # compare than torch.device objects, on the path of every launch
+        if first is None:
+            first = t
+        elif t.get_device() != first.get_device():
+            raise ValueError(f"{name}: inputs are on {first.device} and "
+                             f"{t.device}")
 
 
 def _check_points(name: str, x, centroids, v=None) -> None:
@@ -582,8 +656,8 @@ def lloyd_partial_sums(x: torch.Tensor, v: torch.Tensor,
 def reduce_partials(partials: torch.Tensor) -> torch.Tensor:
     """(B, ...) per-block partials → (...), summed over B in a fixed
     two-level order (:func:`reduce_partials_plain`): the second stage of
-    :func:`lloyd_partial_sums` ((B, k, d+1)) and :func:`sgd_batch_terms`
-    ((B, d+2))."""
+    :func:`lloyd_partial_sums` ((B, k, d+1)), and the order of
+    :func:`sgd_batch_terms`' own."""
     _check("reduce_partials", partials=partials)
     if partials.ndim < 2 or partials.shape[0] < 1:
         raise ValueError("reduce_partials: partials must be (B, ...) with "
@@ -608,8 +682,8 @@ def sgd_batch_terms(xl: torch.Tensor, yl: torch.Tensor, wl: torch.Tensor,
     ``[Σ mult·x | Σ w | Σ loss]`` with the per-row terms of the loss named
     ``loss_name`` (``ops/losses.py``). lb == 0 gives zeros. Replaces
     ``sgd_batch_terms`` of ``flink_ml_tpu/ops/pallas_kernels.py``; every
-    window and every ``d`` runs the kernel, with no tile alignment asked of
-    ``start``.
+    window and every ``d`` runs the kernels, both stages from one C call,
+    with no tile alignment asked of ``start``.
     """
     _check("sgd_batch_terms", xl=xl, yl=yl, wl=wl, coeffs=coeffs)
     n = xl.shape[0]
@@ -632,10 +706,9 @@ def sgd_batch_terms(xl: torch.Tensor, yl: torch.Tensor, wl: torch.Tensor,
     if lb == 0:
         return torch.zeros(xl.shape[1] + 2, dtype=torch.float32,
                            device=xl.device)
-    partials = _launch_sgd_terms(xl, yl, wl, coeffs, start, clip, lb,
-                                 loss_name)
+    ws = _launch_sgd_terms(xl, yl, wl, coeffs, start, clip, lb, loss_name)
     launch_counts["sgd_batch_terms"] += 1
-    return reduce_partials(partials)
+    return ws[ws.shape[0] - 1]  # a positive index takes less host time
 
 
 def segment_reduce_sum(values: torch.Tensor, segment_ids: torch.Tensor,
@@ -730,9 +803,9 @@ _SIGNATURES = {
     },
     SGD_SOURCE: {
         "sgd_error_string": ([_I], ctypes.c_char_p),
-        "sgd_blocks_per_sm": ([_I, _I, ctypes.POINTER(_I)], _I),
-        "sgd_terms_partials": ([_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I,
-                                _I, _I, _I, _L, _I, _P], _I),
+        "sgd_blocks_per_sm": ([_I, _I, _I, _I, _I, ctypes.POINTER(_I)], _I),
+        "sgd_batch_terms": ([_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I,
+                             _I, _I, _I, _L, _I, _I, _P], _I),
     },
     SEGMENT_SOURCE: {
         "segment_error_string": ([_I], ctypes.c_char_p),
@@ -792,13 +865,18 @@ def _resident_blocks(device_index: int, lloyd: bool, rows: int, smem: int) -> in
 
 
 @functools.lru_cache(maxsize=None)
-def _sgd_resident_blocks(device_index: int, loss: int, smem: int) -> int:
-    """Blocks of the sgd kernel's ``loss`` instance the card holds at once."""
+def _sgd_resident_blocks(device_index: int, loss: int, v: int, vec4: int,
+                         smem: int) -> int:
+    """Blocks of an sgd stage-1 instance the card holds at once: the
+    register instance ``v`` (sized for its widest rows, 128·v columns) or
+    the chunked one (v = 0) at ``smem`` bytes. The query also lets the
+    instance use its dynamic shared memory, once per process."""
     per_sm = ctypes.c_int(0)
     _raise_on_error(SGD_SOURCE, _lib(SGD_SOURCE).sgd_blocks_per_sm(
-        loss, smem, ctypes.byref(per_sm)), "occupancy query")
+        loss, v, vec4, 128 * v or 1, smem, ctypes.byref(per_sm)),
+        "occupancy query")
     return _blocks_on_card(device_index, per_sm.value,
-                           f"{smem} bytes of shared memory")
+                           f"sgd stage 1 (v={v}, {smem} bytes)")
 
 
 def _device_index(t: torch.Tensor) -> int:
@@ -881,26 +959,42 @@ def _launch_reduce(partials: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@functools.lru_cache(maxsize=256)
+def _sgd_plan_on(device_index: int, loss: int, d: int, lb: int,
+                 vec4: int) -> SgdPlan:
+    """:func:`_sgd_plan` on one card, cached: a fit asks for the same
+    window shape every round."""
+    v = _sgd_width_class(d)
+    resident = _sgd_resident_blocks(device_index, loss, v, vec4,
+                                    0 if v else _sgd_layout(d)[2])
+    return _sgd_plan(lb, d, resident, vec4)
+
+
+def _sgd_card_plan(xl: torch.Tensor, lb: int, loss_name: str) -> SgdPlan:
+    """:func:`_sgd_plan` for ``xl``'s card and alignment."""
+    d = xl.shape[1]
+    return _sgd_plan_on(_device_index(xl), SGD_LOSSES[loss_name], d, lb,
+                        int(d % 4 == 0 and xl.data_ptr() % 16 == 0))
+
+
 def _launch_sgd_terms(xl: torch.Tensor, yl: torch.Tensor, wl: torch.Tensor,
                       coeffs: torch.Tensor, start: int, clip: int, lb: int,
-                      loss_name: str) -> torch.Tensor:
+                      loss_name: str, combine: bool = True) -> torch.Tensor:
+    """One C call: the (blocks + 1, d + 2) workspace, stage 1's per-block
+    partials in its first rows and (where ``combine``, else left unwritten)
+    their fixed-order sum in the last."""
     d = xl.shape[1]
-    rows, dc, smem = _sgd_layout(d)
-    loss = SGD_LOSSES[loss_name]
     with _on_card(xl):
-        ntiles = -(-lb // rows)
-        blocks = min(ntiles, _sgd_resident_blocks(_device_index(xl), loss, smem))
-        tiles_per_block = -(-ntiles // blocks)
-        blocks = -(-ntiles // tiles_per_block)  # no block without rows
-        vec4 = int(d % 4 == 0 and xl.data_ptr() % 16 == 0)
-        partials = torch.empty((blocks, d + 2), dtype=torch.float32,
-                               device=xl.device)
-        stream = _stream(xl)
-        _raise_on_error(SGD_SOURCE, _lib(SGD_SOURCE).sgd_terms_partials(
+        plan = _sgd_card_plan(xl, lb, loss_name)
+        ws = torch.empty((plan.blocks + 1, d + 2), dtype=torch.float32,
+                         device=xl.device)
+        _raise_on_error(SGD_SOURCE, _lib(SGD_SOURCE).sgd_batch_terms(
             xl.data_ptr(), yl.data_ptr(), wl.data_ptr(), coeffs.data_ptr(),
-            partials.data_ptr(), start, lb, clip, d, dc, rows, smem, vec4,
-            blocks, tiles_per_block, loss, stream), "sgd_batch_terms")
-    return partials
+            ws.data_ptr(), start, lb, clip, d, plan.v, plan.vec4, plan.blocks,
+            plan.rows, plan.dc, plan.smem, plan.tiles_per_block,
+            SGD_LOSSES[loss_name], int(combine), _stream(xl)),
+            "sgd_batch_terms")
+    return ws
 
 
 @functools.lru_cache(maxsize=None)

@@ -204,9 +204,10 @@ def exact_plain(p):
 
 
 def main_path_partials(seed=3):
-    """The partials Lloyd and SGD hand to reduce_partials, made from their
-    first stages at the benchmark shapes, and seeded tensors of the FTRL
-    segment sums' former partials shapes."""
+    """The partials of Lloyd's and SGD's first stages at the benchmark
+    shapes (SGD's second stage is its own since it took one C entry, in
+    the same order), and seeded tensors of the FTRL segment sums' former
+    partials shapes."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rand(*shape):
@@ -216,8 +217,10 @@ def main_path_partials(seed=3):
     shapes = {"lloyd": K._launch_lloyd_partials(
         x, torch.ones(1_000_000, device="cuda"), c)}
     y, w = torch.floor(rand(1_000_000) * 2), rand(1_000_000)
+    # stage 1 alone; its workspace's last row is the output, left unwritten
     shapes["sgd"] = K._launch_sgd_terms(x, y, w, rand(100) - 0.5, 0, 0,
-                                        100_000, "logistic")
+                                        100_000, "logistic",
+                                        combine=False)[:-1]
     shapes["ftrl_grad"] = torch.randn(1024, 100, 2, generator=g,
                                       device="cuda")
     shapes["ftrl_dots"] = torch.randn(25, 1 << 17, 1, generator=g,

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Times the port's ``sgd_batch_terms`` kernel over tile layouts and widths.
+"""Times the port's chunked ``sgd_batch_terms`` kernel over tile layouts and
+widths.
 
 Run from the repository root on a machine with one CUDA card:
 
     python3 scripts/port_sgd_layout_sweep.py [--out F]
 
-For each feature width d it builds a table of two 400 MB windows on the
-card and times the logistic instance of the kernel (stage 1 and the
-in-order reduce) at every (rows, chunk columns) layout of the sweep, and at
-the layout ``ops/kernels.py`` chooses, with CUDA events; the calls take the
+Rows of up to ``SGD_REG_COLS`` columns take the register instance, which
+has no tile layout; for each wider feature width d it builds a table of two
+400 MB windows on the card and times the logistic instance of the chunked
+kernel (stage 1 and the fixed-order combine) at every (rows, chunk
+columns) layout of the sweep, and at the layout ``ops/kernels.py``
+chooses, with CUDA events; the calls take the
 two windows in turn, so none finds its rows in L2. Beside each time: the
 plain PyTorch version's time and the byte bound (the window's x, y and w,
 the coefficients and the output, read or written once, at 3.35 TB/s).
@@ -30,7 +33,7 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-WIDTHS = (100, 192, 256, 512, 1000, 2000, 6001)
+WIDTHS = (1000, 2000, 6001)
 #: (rows, chunk columns); chunks are multiples of the kernel's 256 threads
 LAYOUTS = ((64, 512), (32, 512), (16, 512), (64, 256), (32, 256), (16, 256),
            (8, 256))
@@ -106,6 +109,10 @@ def main(argv=None) -> int:
                 smem = 4 * (rows * dc + dc + 3 * rows)
                 K._sgd_layout = lambda _d, r=(rows, dc, smem): r
                 key = f"{rows}x{chunk}"
+            # plans are cached by shape, and the occupancy query that lets
+            # the kernel use a layout's shared memory by instance
+            K._sgd_plan_on.cache_clear()
+            K._sgd_resident_blocks.cache_clear()
             got = K.sgd_batch_terms(x, y, w, c, 0, 0, lb, "logistic")
             if not bool(((got - want).abs()
                          <= 1e-4 * want.abs() + 1e-3).all()):
@@ -117,6 +124,8 @@ def main(argv=None) -> int:
             else:
                 line["ms"][key] = ms
         K._sgd_layout = chosen_layout
+        K._sgd_plan_on.cache_clear()
+        K._sgd_resident_blocks.cache_clear()
         text = json.dumps(line)
         print(text, flush=True)
         lines.append(text)

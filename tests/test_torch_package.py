@@ -119,7 +119,7 @@ def test_cuda_tensors_never_reach_the_plain_versions(monkeypatch):
         return p.sum(0)
 
     def launch_sgd_terms(xl, yl, wl, coeffs, start, clip, lb, loss_name):
-        calls.append("sgd")
+        calls.append("sgd")  # both stages: one C call, no reduce_partials
         return torch.zeros((3, coeffs.shape[0] + 2))
 
     # every tensor counts as a CUDA tensor, so the check needs no card
@@ -137,10 +137,10 @@ def test_cuda_tensors_never_reach_the_plain_versions(monkeypatch):
     kernels.lloyd_partial_sums(x, torch.ones(10), c)
     kernels.sgd_batch_terms(x, torch.ones(10), torch.ones(10), c[0], 2, 1, 5,
                             "hinge")
-    assert calls == ["assign", "lloyd", "reduce", "sgd", "reduce"]
+    assert calls == ["assign", "lloyd", "reduce", "sgd"]
     assert kernels.launch_counts == {"assign_nearest": 1,
                                      "lloyd_partial_sums": 1,
-                                     "reduce_partials": 2,
+                                     "reduce_partials": 1,
                                      "sgd_batch_terms": 1,
                                      "segment_reduce_sum": 0,
                                      "knn_topk_indices": 0}

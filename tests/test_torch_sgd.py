@@ -20,6 +20,9 @@ Tolerances, all float32 against float32:
   reassociation over a long fit could ask for.
 """
 
+import contextlib
+import ctypes
+
 import numpy as np
 import pytest
 import scipy.sparse
@@ -316,21 +319,58 @@ def test_sgd_fit_keeps_float32_and_device_tensors():
 
 
 def test_the_sgd_layout_takes_any_width():
-    """No width is refused: rows wider than a chunk are staged in chunks of
-    columns that keep a column on one thread (a multiple of 256)."""
-    assert kernels._sgd_layout(100) == (64, 100, 4 * (64 * 100 + 100 + 192))
-    assert kernels._sgd_layout(256)[0] == 32
-    for d in (1, 7, 200, 512, 513, 6_001, 10 ** 5, 10 ** 7):
+    """No width is refused: rows of up to 512 columns take the register
+    instance (V = ⌈d / 128⌉ float4s a lane) on a persistent grid, wider
+    rows the chunked one, staged in chunks of columns that keep a column on
+    one thread (a multiple of 256)."""
+    for d in (1, 7, 100, 128, 129, 256, 300, 511, 512):
+        plan = kernels._sgd_plan(100_000, d, 396)
+        assert plan.instance == "registers" and plan.v == -(-d // 128)
+        assert plan.blocks == 396 and plan.tiles_per_block == 0
+    assert kernels._sgd_plan(1_000, 100, 396).blocks == 8  # 16 rows a warp
+    assert kernels._sgd_layout(1_500) == (16, 512, 4 * (16 * 512 + 512 + 48))
+    for d in (513, 1_500, 6_001, 10 ** 5, 10 ** 7):
+        plan = kernels._sgd_plan(100_000, d, 792)
         rows, dc, smem = kernels._sgd_layout(d)
+        assert plan.instance == "chunked" and plan.v == 0
+        assert (plan.rows, plan.dc, plan.smem) == (rows, dc, smem)
         assert 16 <= rows <= 64 and rows & (rows - 1) == 0
         assert rows * dc <= kernels.SGD_TILE_FLOATS
         assert smem <= kernels.SMEM_BLOCK_BYTES
-        assert dc == d if d <= kernels.SGD_CHUNK_COLS else dc % 256 == 0
+        assert dc % 256 == 0 and plan.blocks <= 792
+
+
+@pytest.mark.parametrize("d", [7, 100, 512, 513, 6_001])
+@pytest.mark.parametrize("lb", [1, 31, 100, 100_003])
+def test_the_sgd_plan_covers_the_window_once(lb, d):
+    """Stage 1's workers (warps of the register instance, blocks of the
+    chunked one) take contiguous runs that cover [0, lb) once, in order;
+    the register instance's runs differ by at most one row, and its grid
+    gives every warp SGD_WARP_ROWS rows or fills the card."""
+    resident = 396
+    plan = kernels._sgd_plan(lb, d, resident)
+    assert plan.instance == ("registers" if d <= 512 else "chunked")
+    assert 1 <= plan.blocks <= resident
+    runs = kernels.sgd_runs(plan, lb)
+    assert runs[0][0] == 0 and runs[-1][1] == lb
+    assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+    lengths = [r1 - r0 for r0, r1 in runs]
+    if plan.instance == "registers":
+        assert len(runs) == plan.blocks * kernels.SGD_WARPS
+        assert max(lengths) - min(lengths) <= 1
+        assert (plan.blocks == resident or plan.blocks == -(-lb // (
+            kernels.SGD_WARPS * kernels.SGD_WARP_ROWS)))
+    else:
+        span = plan.tiles_per_block * plan.rows
+        assert len(runs) == plan.blocks and min(lengths) >= 1
+        assert all(n == span for n in lengths[:-1])
 
 
 def test_a_wide_row_on_the_card_launches_the_kernel(monkeypatch):
     """A CUDA tensor of any width reaches the kernel launch every round and
-    never the plain version (every tensor counts as a CUDA tensor here)."""
+    never the plain version (every tensor counts as a CUDA tensor here);
+    the round's terms are the last row of the launch's workspace, and no
+    second stage is launched from Python."""
     launched = []
 
     def no_plain(*args, **kwargs):
@@ -344,7 +384,7 @@ def test_a_wide_row_on_the_card_launches_the_kernel(monkeypatch):
     monkeypatch.setattr(kernels, "sgd_batch_terms_plain", no_plain)
     monkeypatch.setattr(kernels, "reduce_partials_plain", no_plain)
     monkeypatch.setattr(kernels, "_launch_sgd_terms", launch)
-    monkeypatch.setattr(kernels, "_launch_reduce", lambda p: p.sum(0))
+    monkeypatch.setattr(kernels, "_launch_reduce", no_plain)
     kernels.reset_launch_counts()
     wide = 10 ** 4
     x, y, _ = _data(61, 50, wide)
@@ -353,8 +393,71 @@ def test_a_wide_row_on_the_card_launches_the_kernel(monkeypatch):
     assert launched == [(wide, 0, 0, 20), (wide, 20, 0, 20), (wide, 30, 10, 20),
                         (wide, 0, 0, 20)]
     assert kernels.launch_counts["sgd_batch_terms"] == 4
-    assert kernels.launch_counts["reduce_partials"] == 4
+    assert kernels.launch_counts["reduce_partials"] == 0
     kernels.reset_launch_counts()
+
+
+class _FakeSgdLibrary:
+    """Stands in for the built ``sgd_kernels`` library on the CPU: its one
+    C entry reads the tensors behind the pointers it is given, computes the
+    round's terms with the plain version and writes them where the kernel's
+    second stage would, the row after the ``blocks`` partial rows."""
+
+    def __init__(self, n):
+        self.n, self.calls = n, []
+
+    def sgd_batch_terms(self, x, y, w, coeffs, ws, start, lb, clip, d, v,
+                        vec4, blocks, rows, dc, smem, tiles_per_block, loss,
+                        combine, stream):
+        self.calls.append(dict(start=start, lb=lb, clip=clip, d=d, v=v,
+                               blocks=blocks, loss=loss, combine=combine))
+
+        def tensor(ptr, count):
+            arr = (ctypes.c_float * count).from_address(ptr)
+            return torch.from_numpy(np.ctypeslib.as_array(arr).copy())
+
+        name = {i: k for k, i in kernels.SGD_LOSSES.items()}[loss]
+        out = kernels.sgd_batch_terms_plain(
+            tensor(x, self.n * d).view(self.n, d), tensor(y, self.n),
+            tensor(w, self.n), tensor(coeffs, d), start, clip, lb, name)
+        ctypes.memmove(ws + 4 * blocks * (d + 2), out.numpy().ctypes.data,
+                       4 * (d + 2))
+        return 0
+
+
+@pytest.mark.parametrize("d", [5, 600])
+def test_one_c_call_per_round_on_the_card_path(monkeypatch, d):
+    """On the card path every round is one call of the C entry, with both
+    stages (combine = 1) and the plan's instance, and no reduce_partials
+    launch; the fit it gives is the plain fit (a stand-in library computes
+    the terms with the plain version and writes them where the kernel
+    would)."""
+    x, y, w = _data(81, 70, d)
+    fake = _FakeSgdLibrary(70)
+    monkeypatch.setattr(kernels, "_is_cuda", lambda t: True)
+    monkeypatch.setattr(kernels, "_lib", lambda source: fake)
+    monkeypatch.setattr(kernels, "_on_card", lambda t: contextlib.nullcontext())
+    monkeypatch.setattr(kernels, "_stream", lambda t: 0)
+    monkeypatch.setattr(kernels, "_device_index", lambda t: 0)
+    monkeypatch.setattr(kernels, "_sgd_resident_blocks", lambda *a: 264)
+    kernels.reset_launch_counts()
+    prm = optimizer.SGDParams(max_iter=5, global_batch_size=30, reg=0.01)
+    card = optimizer.sgd_rounds(kernels.sgd_batch_terms, "logistic", prm,
+                                _t(x), _t(y), _t(w), torch.zeros(d))
+    counts = dict(kernels.launch_counts)
+    kernels.reset_launch_counts()
+    assert counts["sgd_batch_terms"] == 5 and counts["reduce_partials"] == 0
+    assert len(fake.calls) == 5
+    v = 0 if d > 512 else 1
+    for call in fake.calls:
+        assert call["combine"] == 1 and call["d"] == d and call["v"] == v
+        assert call["loss"] == kernels.SGD_LOSSES["logistic"]
+        assert call["blocks"] == kernels._sgd_plan(call["lb"], d, 264).blocks
+    monkeypatch.setattr(kernels, "_is_cuda", lambda t: False)
+    plain = optimizer.sgd_rounds(kernels.sgd_batch_terms, "logistic", prm,
+                                 _t(x), _t(y), _t(w), torch.zeros(d))
+    for got, want in zip(card, plain):
+        assert torch.equal(torch.as_tensor(got), torch.as_tensor(want))
 
 
 def test_every_round_runs_the_kernel_wrapper(monkeypatch):
