@@ -90,7 +90,25 @@ Phases, each of which fails the run (no result line, nonzero exit):
    against the host engine, the dense engine on hyperplane labels over
    the full table against the CPU, transform, save and load, and small
    dense fits on the card against the CPU;
-10. print one ``{"kernels": [...]}`` line with every kernel's launches in
+10. drive the iteration runtime's modes on the LR and KMeans configs at
+    full size (phases 5 and 4's tables): K-round segments between
+    checkpoints (K = 5 for LR, 3 for KMeans; a timed CheckpointManager in a
+    temporary directory), host rounds with a listener that records the
+    epochs, and a supervised fit (``set_retry_policy(RetryPolicy(
+    backoff_s=0))``) under ``faults.chaos(at={"epoch-boundary": [2]})``,
+    which fails at its second boundary and resumes from the first one's
+    checkpoint; each fit must equal the all-device fit of the same table
+    bit for bit (KMeans transform too), each segment boundary must cost one
+    ``read_boundary`` fetch, and the chaos run one restart; print each
+    mode's fit ms beside the all-device fit's, the boundaries and fetches,
+    the checkpoint save and restore ms and bytes, and, on one more segment
+    fit, the host-clock split of its boundaries (fetch, save with its
+    fsyncs, npz write and gc, restore, clear, the rest); then phase 9's
+    sparse FTRL stream with a checkpoint every 5 batches, clean and with a
+    fault at its third save resumed from the second on the rest of the
+    stream, both equal to the stream without checkpoints bit for bit
+    (coefficients, version, history) and launching the segment kernel;
+11. print one ``{"kernels": [...]}`` line with every kernel's launches in
     its main-path runs, error, times and bound, then the result line.
 
 Tolerances (float32 throughout, TF32 off):
@@ -136,6 +154,7 @@ Tolerances (float32 throughout, TF32 off):
 
 import itertools
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -163,6 +182,11 @@ PATH_KERNELS = {
     "linear": ("sgd_batch_terms",),
     "knn": ("knn_topk_indices",),
     "ftrl": ("segment_reduce_sum",),
+    # the LR and KMeans fits in the iteration runtime's modes, KMeans
+    # transform after each, and FTRL's sparse stream with a checkpoint
+    # interval
+    "iteration": ("sgd_batch_terms", "assign_nearest", "lloyd_partial_sums",
+                  "reduce_partials", "segment_reduce_sum"),
 }
 LOSSES = ("logistic", "hinge", "least_square")
 
@@ -1313,6 +1337,342 @@ def phase_ftrl_main_path(K, runner, Table):
     return counts
 
 
+def _checkpoint_stats(CheckpointManager):
+    """A CheckpointManager that times its saves and restores and records
+    the bytes of the leaves each one moved."""
+
+    class Timed(CheckpointManager):
+        def __init__(self, base_dir):
+            super().__init__(base_dir)
+            self.saves, self.restores = [], []
+
+        def save(self, carry, epoch, extras=None):
+            start = time.perf_counter()
+            path = super().save(carry, epoch, extras)
+            self.saves.append((epoch, (time.perf_counter() - start) * 1e3,
+                               _nbytes(carry)))
+            return path
+
+        def restore(self, template_carry):
+            start = time.perf_counter()
+            restored = super().restore(template_carry)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - start) * 1e3
+            self.restores.append(
+                (None, ms, 0) if restored is None
+                else (restored[1], ms, _nbytes(restored[0])))
+            return restored
+
+    return Timed
+
+
+def _nbytes(tree):
+    """Bytes of a carry's leaves (tensors and numpy arrays in tuples)."""
+    if isinstance(tree, (tuple, list)):
+        return sum(_nbytes(child) for child in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return np.asarray(tree).nbytes
+
+
+def _host_split(run, wraps):
+    """``run()`` with each named callable of ``wraps`` ([(name, owner,
+    attribute)]) wrapped for the run only → (run's result, {name: [host ms,
+    calls]})."""
+    spent = {name: [0.0, 0] for name, _, _ in wraps}
+    undo = []
+    for name, owner, attr in wraps:
+        real = getattr(owner, attr)
+
+        def timed(*args, _real=real, _name=name, **kwargs):
+            start = time.perf_counter()
+            try:
+                return _real(*args, **kwargs)
+            finally:
+                spent[_name][0] += (time.perf_counter() - start) * 1e3
+                spent[_name][1] += 1
+
+        setattr(owner, attr, timed)
+        undo.append((owner, attr, real))
+    try:
+        return run(), spent
+    finally:
+        for owner, attr, real in reversed(undo):
+            setattr(owner, attr, real)
+
+
+def phase_iteration_modes(K, runner, Table):
+    """Phase 10: the iteration runtime's modes on the card at the LR and
+    KMeans benchmark configs' full size, each held bit for bit against the
+    all-device fit of the same table."""
+    from flink_ml_tpu_torch.iteration import checkpoint, iteration
+    from flink_ml_tpu_torch.iteration.checkpoint import CheckpointManager
+    from flink_ml_tpu_torch.linalg import sparse
+    from flink_ml_tpu_torch.resilience import InjectedFault, RetryPolicy, faults
+
+    log("phase 10: iteration modes on the card")
+    Timed = _checkpoint_stats(CheckpointManager)
+    fetches = []
+    real_read_boundary = iteration.read_boundary
+
+    def counting_read_boundary(boundary):
+        assert isinstance(boundary, torch.Tensor) and boundary.shape == (2,)
+        fetches.append(1)
+        return real_read_boundary(boundary)
+
+    class CountingPlan(faults.FaultPlan):
+        """A fault plan that also counts every boundary it is asked about."""
+
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            self.boundaries = 0
+
+        def decide(self, site):
+            self.boundaries += site == "epoch-boundary"
+            return super().decide(site)
+
+    class Epochs(iteration.IterationListener):
+        def __init__(self):
+            self.epochs = []
+
+        def on_epoch_watermark_incremented(self, epoch, carry):
+            self.epochs.append(epoch)
+
+    def timed_fit(est, table):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        model = est.fit(table)
+        torch.cuda.synchronize()
+        return model, (time.perf_counter() - start) * 1e3
+
+    iteration.read_boundary = counting_read_boundary
+    K.reset_launch_counts()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_iteration_")
+    summary = {}
+    try:
+        cases = [
+            ("LR", runner.load_config(str(LINEAR_CONFIGS["logisticregression"]))
+             ["logisticregression"], 5, ("sgd_batch_terms",), "cuda-sgd"),
+            ("KMeans", runner.load_config(str(CONFIG))["KMeans"], 3,
+             ("lloyd_partial_sums", "reduce_partials"), "cuda-lloyd"),
+        ]
+        for name, spec, k, kernels_of_fit, path in cases:
+            table = runner.build_generator(spec).get_data()
+            max_iter = spec["stage"]["paramMap"]["maxIter"]
+            n = table.num_rows
+            boundaries = -(-max_iter // k)
+
+            def result(model):
+                return (model.coefficients if name == "LR"
+                        else np.concatenate([model.centroids.ravel(),
+                                             model.weights]))
+
+            plain_est = runner.build_stage(spec)
+            plain, _ = timed_fit(plain_est, table)
+            plain_ms = min(timed_fit(runner.build_stage(spec), table)[1]
+                           for _ in range(2))
+            assert plain_est.last_execution_path == path
+            want = result(plain)
+            if name == "KMeans":
+                want_labels = plain.transform(table)[0][plain.prediction_col]
+
+            def check_mode(tag, model, est, before, plan, fit_ms, expect_path):
+                launched = {kern: K.launch_counts[kern] - before[kern]
+                            for kern in K.launch_counts}
+                assert est.last_execution_path == expect_path, (
+                    tag, est.last_execution_path)
+                assert np.array_equal(result(model), want), (
+                    f"{name} {tag}: differs from the all-device fit")
+                for kern in kernels_of_fit:
+                    assert launched[kern] >= max_iter, (tag, launched)
+                if name == "KMeans":
+                    labels = model.transform(table)[0][model.prediction_col]
+                    assert torch.equal(labels, want_labels), tag
+                log(f"  {name} {tag}: fit {fit_ms:.3f} ms against the "
+                    f"all-device fit's {plain_ms:.3f} ms ({n} rows, "
+                    f"{max_iter} rounds); boundaries {plan.boundaries}; "
+                    f"launches { {k: v for k, v in launched.items() if v} }; "
+                    "bit-identical")
+                return launched
+
+            # (a) K-round segments between checkpoints
+            runs = []
+            for attempt in range(2):
+                mgr = Timed(f"{workdir}/{name}-segments-{attempt}")
+                est = runner.build_stage(spec).set_iteration_config(
+                    iteration.IterationConfig(checkpoint_interval=k,
+                                              checkpoint_manager=mgr))
+                before, seg_fetches = dict(K.launch_counts), len(fetches)
+                with faults.chaos(plan=CountingPlan()) as plan:
+                    model, fit_ms = timed_fit(est, table)
+                runs.append((fit_ms, mgr, len(fetches) - seg_fetches, plan))
+                launched = check_mode(f"segments (K={k})", model, est, before,
+                                      plan, fit_ms, path + "-segments")
+            fit_ms, mgr, seg_fetches, plan = min(runs, key=lambda r: r[0])
+            assert plan.boundaries == boundaries and seg_fetches == boundaries, (
+                plan.boundaries, seg_fetches)
+            saves = mgr.saves
+            assert [e for e, _, _ in saves] == [
+                k * i for i in range(1, boundaries) if k * i < max_iter], saves
+            assert mgr.list_checkpoints() == []
+            log(f"  {name} segments: boundary fetches {seg_fetches} for "
+                f"{boundaries} boundaries; checkpoint saves {len(saves)}, "
+                f"ms {[round(ms, 3) for _, ms, _ in saves]}, "
+                f"{saves[0][2]} bytes of leaves each")
+            summary[name] = {"segments_ms": fit_ms, "plain_ms": plain_ms,
+                             "boundaries": boundaries,
+                             "fetches": seg_fetches,
+                             "save_ms": statistics.median(
+                                 ms for _, ms, _ in saves),
+                             "save_bytes": saves[0][2]}
+
+            # where a boundary's time goes: the host clock around each call
+            # the segment driver makes there, on one more segment fit
+            mgr = Timed(f"{workdir}/{name}-split")
+            est = runner.build_stage(spec).set_iteration_config(
+                iteration.IterationConfig(checkpoint_interval=k,
+                                          checkpoint_manager=mgr))
+            (model, split_fit_ms), spent = _host_split(
+                lambda: timed_fit(est, table), [
+                    ("fetch", iteration, "read_boundary"),
+                    ("save", mgr, "save"), ("fsync", checkpoint.os, "fsync"),
+                    ("npz", checkpoint.np, "savez"), ("gc", mgr, "_gc"),
+                    ("restore", mgr, "restore"), ("clear", mgr, "clear")])
+            assert np.array_equal(result(model), want), "split run differs"
+            assert spent["fetch"][1] == boundaries, spent
+            rest = split_fit_ms - sum(spent[part][0] for part in
+                                      ("fetch", "save", "restore", "clear"))
+            split = {part: round(ms, 4) for part, (ms, _) in spent.items()}
+            split.update(fit=round(split_fit_ms, 4), rest=round(rest, 4))
+            log(f"  {name} boundary split (host ms over {boundaries} "
+                f"boundaries, {len(mgr.saves)} saves; fsync, npz and gc are "
+                f"inside save; rest = fit - fetch - save - restore - clear): "
+                f"{json.dumps(split, sort_keys=True)}; fsync calls "
+                f"{spent['fsync'][1]}")
+            summary[name]["split_ms"] = split
+
+            # (b) host rounds with a listener
+            listener = Epochs()
+            est = runner.build_stage(spec).set_iteration_config(
+                iteration.IterationConfig(mode="host"), listeners=[listener])
+            before, host_fetches = dict(K.launch_counts), len(fetches)
+            with faults.chaos(plan=CountingPlan()) as plan:
+                model, fit_ms = timed_fit(est, table)
+            check_mode("host rounds", model, est, before, plan, fit_ms,
+                       path + "-rounds")
+            assert listener.epochs == list(range(max_iter)), listener.epochs
+            assert len(fetches) == host_fetches  # a round's stop, not a segment
+            summary[name]["rounds_ms"] = fit_ms
+
+            # (c) supervised: a fault at the second boundary, a restart from
+            # the first boundary's checkpoint
+            mgr = Timed(f"{workdir}/{name}-chaos")
+            est = (runner.build_stage(spec)
+                   .set_iteration_config(iteration.IterationConfig(
+                       checkpoint_interval=k, checkpoint_manager=mgr))
+                   .set_retry_policy(RetryPolicy(backoff_s=0)))
+            before = dict(K.launch_counts)
+            with faults.chaos(plan=CountingPlan(at={"epoch-boundary": [2]})
+                              ) as plan:
+                model, fit_ms = timed_fit(est, table)
+            check_mode("supervised chaos", model, est, before, plan, fit_ms,
+                       path + "-segments")
+            restarts = len(mgr.restores) - 1
+            resumed = [r for r in mgr.restores if r[0] is not None]
+            assert restarts == 1 and len(resumed) == 1, mgr.restores
+            assert resumed[0][0] == k, resumed
+            assert plan.boundaries == boundaries + 1, plan.boundaries
+            log(f"  {name} supervised chaos: restarts {restarts}, resumed "
+                f"from epoch {resumed[0][0]}; restore {resumed[0][1]:.3f} ms, "
+                f"{resumed[0][2]} bytes of leaves")
+            summary[name].update(chaos_ms=fit_ms, restarts=restarts,
+                                 restore_ms=resumed[0][1],
+                                 restore_bytes=resumed[0][2])
+            del table
+            torch.cuda.empty_cache()
+
+        # FTRL's sparse stream (phase 9's) with a checkpoint every 5
+        # batches: a due save takes the state to the host and the next
+        # batch places it again. A fault at the third save ends a fit,
+        # which resumes from the second save on the rest of the stream. Both
+        # end with the bytes of the stream without checkpoints.
+        spec = runner.load_config(str(FTRL_CONFIG))["OnlineLogisticRegression"]
+        d = spec["inputData"]["paramMap"]["vectorDim"]
+        batch = spec["stage"]["paramMap"]["globalBatchSize"]
+        stream = _sparse_stream(Table, sparse, 2_000_000, d, 10, seed=23)
+        batches, interval = stream.num_rows // batch, 5
+
+        def ftrl_fit(rows, config=None):
+            est = runner.build_stage(spec).warm_start(np.zeros(d))
+            if config is not None:
+                est.set_iteration_config(config)
+            before = K.launch_counts["segment_reduce_sum"]
+            model, fit_ms = timed_fit(est, rows)
+            assert est.last_execution_path == "cuda-csr-batches", (
+                est.last_execution_path)
+            launched = K.launch_counts["segment_reduce_sum"] - before
+            assert launched >= 2 * (rows.num_rows // batch), launched
+            return model, fit_ms
+
+        def assert_same(tag, model, clean):
+            assert np.array_equal(model.coefficients, clean.coefficients), tag
+            assert model.model_version == clean.model_version == batches, tag
+            assert len(model.history) == len(clean.history), tag
+            for (va, a), (vb, b) in zip(model.history, clean.history):
+                assert va == vb and np.array_equal(a, b), (tag, va, vb)
+
+        clean, clean_ms = ftrl_fit(stream)
+        saved_mgr = Timed(f"{workdir}/FTRL")
+        saved, saved_ms = ftrl_fit(stream, iteration.IterationConfig(
+            checkpoint_interval=interval, checkpoint_manager=saved_mgr))
+        assert_same("FTRL checkpointed", saved, clean)
+        assert [e for e, _, _ in saved_mgr.saves] == list(
+            range(interval, batches + 1, interval)), saved_mgr.saves
+        assert saved_mgr.list_checkpoints() == []
+        mgr = Timed(f"{workdir}/FTRL-crash")
+        config = iteration.IterationConfig(checkpoint_interval=interval,
+                                           checkpoint_manager=mgr)
+        crashed = runner.build_stage(spec).warm_start(np.zeros(d))
+        crashed.set_iteration_config(config)
+        with faults.chaos(at={"checkpoint-save": [3]}):
+            try:
+                crashed.fit(stream)
+                raise AssertionError("FTRL: the fault at the third save "
+                                     "did not end the fit")
+            except InjectedFault:
+                pass
+        assert mgr.list_checkpoints() == [f"ckpt-{interval:08d}",
+                                          f"ckpt-{2 * interval:08d}"]
+        resumed, resumed_ms = ftrl_fit(
+            stream.take(slice(2 * interval * batch, None)), config)
+        assert_same("FTRL resumed", resumed, clean)
+        restored = [r for r in mgr.restores if r[0] is not None]
+        assert [r[0] for r in restored] == [2 * interval], mgr.restores
+        assert mgr.list_checkpoints() == []
+        log(f"  FTRL sparse stream ({stream.num_rows} rows, {batches} "
+            f"batches): {clean_ms:.3f} ms without checkpoints, "
+            f"{saved_ms:.3f} ms with a save every {interval} batches (saves "
+            f"ms {[round(ms, 3) for _, ms, _ in saved_mgr.saves]}, bytes "
+            f"{[b for _, _, b in saved_mgr.saves]}); resumed from batch "
+            f"{restored[0][0]} on the last {batches - 2 * interval} batches "
+            f"in {resumed_ms:.3f} ms, restore {restored[0][1]:.3f} ms, "
+            f"{restored[0][2]} bytes; both bit-identical")
+        summary["FTRL"] = {"plain_ms": clean_ms, "checkpointed_ms": saved_ms,
+                           "resumed_ms": resumed_ms,
+                           "restore_ms": restored[0][1],
+                           "restore_bytes": restored[0][2]}
+        del stream
+    finally:
+        iteration.read_boundary = real_read_boundary
+        shutil.rmtree(workdir, ignore_errors=True)
+    counts = dict(K.launch_counts)
+    log(f"  launches in the iteration-modes run: {counts}")
+    log("  iteration modes:", json.dumps(summary, sort_keys=True))
+    for kern in PATH_KERNELS["iteration"]:
+        assert counts[kern] >= 1, counts
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1343,6 +1703,7 @@ def main() -> int:
     measured.update(phase_segment_kernel(K))
     counts["knn"] = phase_knn_main_path(K, runner, Table)
     counts["ftrl"] = phase_ftrl_main_path(K, runner, Table)
+    counts["iteration"] = phase_iteration_modes(K, runner, Table)
 
     line = {"kernels": [
         {"name": name, **{key: K.KERNELS[name][key]
@@ -1353,7 +1714,8 @@ def main() -> int:
     missing = [r["name"] for r in line["kernels"] if r["launches"] < 1]
     assert not missing, f"kernels the main paths never launched: {missing}"
     for path, path_counts in counts.items():
-        others = [k for p, ks in PATH_KERNELS.items() if p != path for k in ks]
+        others = {k for p, ks in PATH_KERNELS.items() if p != path
+                  for k in ks} - set(PATH_KERNELS[path])
         assert not any(path_counts[k] for k in others), (path, path_counts)
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(card, flush=True)

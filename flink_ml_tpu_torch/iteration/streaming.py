@@ -10,9 +10,8 @@ that the online trainers need:
   ``DataStreamUtils.generateBatchData`` (DataStreamUtils.java:734). Tensor
   columns stay on their device.
 - ``StreamCheckpointer``: the per-batch listener and checkpoint plumbing of
-  an unbounded fit. Listeners run; checkpoints need the iteration runtime's
-  checkpoint manager, which comes with the iteration slice of the port, so
-  a config that names one raises.
+  an unbounded fit (restore, due saves, and the clear at the end of the
+  stream).
 
 ``window_stream`` and ``iterate_unbounded`` come with the slice that ports
 the windowed online estimators.
@@ -73,33 +72,50 @@ def generate_batches(stream: StreamTable, global_batch_size: int,
 
 class StreamCheckpointer:
     """Listener and checkpoint plumbing for unbounded fits: a checkpoint is
-    the (state, batch count) snapshot between batches. Without a config it
-    is inert; its listeners run after every batch and at the end of the
-    stream. A config with a checkpoint manager raises, until the iteration
-    runtime's checkpoints are ported."""
+    the (state, batch count) snapshot between batches.
+
+    Resume semantics are at-least-once: the restored state continues from
+    wherever the incoming stream currently is; replaying the exact source
+    position is the source's concern, as in the reference.
+    """
 
     def __init__(self, config=None, listeners=()):
-        if getattr(config, "checkpoint_manager", None) is not None:
-            raise NotImplementedError(
-                "stream checkpoints come with the iteration slice of the "
-                "port; this slice runs listeners only")
+        self.mgr = getattr(config, "checkpoint_manager", None)
+        self.interval = getattr(config, "checkpoint_interval", 0)
         self.listeners = tuple(listeners)
         self.batches = 0
 
+    def restore(self, template_state):
+        """The newest valid (state, batch count), or None."""
+        if self.mgr is None:
+            return None
+        restored = self.mgr.restore(template_state)
+        if restored is not None:
+            self.batches = restored[1]
+        return restored
+
     def after_batch(self, state_fn) -> None:
         """``state_fn`` is a zero-argument thunk giving the state; it runs
-        only when a listener needs the state, so an inert checkpointer adds
-        no per-batch cost."""
+        only when a listener or a due checkpoint needs the state, so an
+        inert checkpointer adds no per-batch cost."""
         self.batches += 1
-        if not self.listeners:
+        due = (self.mgr is not None and self.interval
+               and self.batches % self.interval == 0)
+        if not self.listeners and not due:
             return
         state = state_fn()
         for lst in self.listeners:
             lst.on_epoch_watermark_incremented(self.batches - 1, state)
+        if due:
+            self.mgr.save(state, self.batches)
 
     def complete(self, state_fn) -> None:
-        """The stream ended (a bounded fixture's end): notify listeners."""
+        """The stream ended (a bounded fixture's end): notify listeners and
+        discard the checkpoints. A crash mid-stream skips this, keeping the
+        resume point."""
         if self.listeners:
             state = state_fn()
             for lst in self.listeners:
                 lst.on_iteration_terminated(state)
+        if self.mgr is not None:
+            self.mgr.clear()

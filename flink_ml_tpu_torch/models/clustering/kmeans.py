@@ -12,13 +12,18 @@ KMeansModelData.java, KMeansParams.java}):
 - termination: maxIter rounds (TerminateOnMaxIter);
 - predict: nearest-centroid index.
 
-The input moves to the device once; the rounds are a Python loop over device
-tensors with no host synchronisation until the final centroids are fetched.
-For the euclidean measure each round's partials come from the hand-written
-``lloyd_partial_sums`` kernel and transform from ``assign_nearest``
-(``ops/kernels.py``). The other measures, and shapes whose tile does not fit
-a block's shared memory, run plain PyTorch (``torch-lloyd``), as the JAX
-package runs them in XLA.
+The input moves to the device once; the rounds run through the iteration
+runtime (``iteration/iteration.py``) with the carry ``(centroids, counts)``:
+as a Python loop over device tensors with no host synchronisation until the
+final centroids are fetched (``cuda-lloyd``), as K-round segments between
+checkpoints (``-segments``), or as host rounds with listeners (``-rounds``);
+the same rounds in the same order, so every mode gives the same bits. For
+the euclidean measure each round's partials come from the hand-written
+``lloyd_partial_sums`` kernel in every mode, host rounds included (where
+the JAX package's host rounds use XLA partials), and transform from
+``assign_nearest`` (``ops/kernels.py``). The other measures, and shapes
+whose tile does not fit a block's shared memory, run plain PyTorch
+(``torch-lloyd``), as the JAX package runs them in XLA.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch.nn.functional as F
 
 from flink_ml_tpu_torch.api.stage import Estimator, Model
 from flink_ml_tpu_torch.common.table import Table, as_dense_vector_column
+from flink_ml_tpu_torch.iteration import iteration
 from flink_ml_tpu_torch.linalg.distance import DistanceMeasure
 from flink_ml_tpu_torch.models.common import IterationRuntimeMixin
 from flink_ml_tpu_torch.observability.health import guard_final_state
@@ -160,11 +166,13 @@ class KMeans(Estimator, KMeansParams, IterationRuntimeMixin):
         self.last_execution_path = None
 
     def fit(self, table: Table) -> KMeansModel:
+        return self._supervised_fit(lambda: self._fit_once(table))
+
+    def _fit_once(self, table: Table) -> KMeansModel:
         device = self.device
         x = _on_device(table.vectors(self.features_col), device)
         n, dim = x.shape
         k = self.k
-        centroids = initial_centroids(x, k, self.get_seed_or_default())
         v = torch.ones(n, dtype=torch.float32, device=device)
 
         if (self.distance_measure == "euclidean"
@@ -175,9 +183,23 @@ class KMeans(Estimator, KMeansParams, IterationRuntimeMixin):
             partials_fn = _measure_partials(
                 DistanceMeasure.get_instance(self.distance_measure))
             path = "torch-lloyd"
-        counts = torch.zeros(k, dtype=torch.float32, device=device)
-        for _ in range(self.max_iter):
-            centroids, counts = lloyd_round(partials_fn, x, v, centroids)
+
+        def body(carry, epoch):
+            centroids, _ = carry
+            return lloyd_round(partials_fn, x, v, centroids)
+
+        config, listeners = self._iteration_config, self._iteration_listeners
+        if iteration.device_checkpoint_segment(config, listeners):
+            path += "-segments"
+        elif iteration.needs_host_loop(config, listeners):
+            path += "-rounds"
+        # a fresh carry per attempt, the JAX package's leaves: (centroids
+        # (k, d) f32, counts (k,) f32); the rounds never update it in place
+        init = (initial_centroids(x, k, self.get_seed_or_default()),
+                torch.zeros(k, dtype=torch.float32, device=device))
+        centroids, counts = iteration.iterate_bounded(
+            init, body, max_iter=self.max_iter, config=config,
+            listeners=listeners)
         # benchmark provenance (runner.py executionPath)
         self.last_execution_path = path
 

@@ -4,11 +4,11 @@ iteration knobs of the iterative estimators.
 The port of ``flink_ml_tpu/models/common.py`` (ref: the per-algorithm
 boilerplate of flink-ml-lib, XxxParams + Xxx + XxxModel + XxxModelData,
 collapsed into two base classes: a concrete linear algorithm declares a
-loss and a prediction rule). This slice runs every iterative fit as one
-all-device program: host-driven rounds, listeners, checkpoints and
-supervised restarts come with the iteration and resilience slices, and
-asking for them raises instead of being ignored. The drift and quality
-baselines a traced fit captures come with the observability slice.
+loss and a prediction rule). The iterative estimators take an
+``IterationConfig`` with listeners (host rounds, K-round checkpointed
+segments, resume) and a ``RetryPolicy`` (supervised restarts) through
+:class:`IterationRuntimeMixin`. The drift and quality baselines a traced fit
+captures come with the observability slice.
 """
 
 from __future__ import annotations
@@ -38,34 +38,45 @@ from flink_ml_tpu_torch.params.shared import (
     HasTol,
     HasWeightCol,
 )
+from flink_ml_tpu_torch.resilience.supervisor import run_supervised
 from flink_ml_tpu_torch.utils import io as rw
 
 
 class IterationRuntimeMixin:
-    """Runtime (non-Param) iteration knobs shared by iterative estimators.
-    Only the all-device mode exists in this slice of the port."""
+    """Runtime (non-Param) iteration knobs shared by iterative estimators:
+    host-mode rounds, listeners, mid-fit checkpoint/resume and supervised
+    restarts. Ref: in the reference these are Flink runtime settings
+    (checkpoint interval, restart strategy) configured on the environment,
+    not stage params, hence not part of the JSON param map here either."""
 
     _iteration_config = None
+    _iteration_listeners = ()
+    _retry_policy = None
 
     def set_iteration_config(self, config, listeners=()):
-        """Accepts a config that asks for the all-device program only;
-        host rounds, listeners, checkpoints and per-round init raise."""
-        wants_host = bool(listeners) or (config is not None and (
-            getattr(config, "mode", "device") != "device"
-            or getattr(config, "checkpoint_interval", 0) != 0
-            or getattr(config, "checkpoint_manager", None) is not None
-            or getattr(config, "per_round_init", None) is not None))
-        if wants_host:
-            raise NotImplementedError(
-                "host-driven rounds, iteration listeners and checkpoints "
-                "come with the iteration slice of the port; this slice "
-                "runs the all-device program only")
         self._iteration_config = config
+        self._iteration_listeners = tuple(listeners)
         return self
 
     def set_retry_policy(self, policy):
-        raise NotImplementedError(
-            "supervised restarts come with the resilience slice of the port")
+        """Run ``.fit`` under supervision: retryable failures (injected
+        faults, I/O errors) restart the fit, which resumes from the newest
+        checkpoint that passes integrity validation when a
+        CheckpointManager is configured. Device faults are terminal
+        (``resilience/policy.py``). Ref: Flink's per-job
+        RestartStrategies, a runtime setting, not a Param."""
+        self._retry_policy = policy
+        return self
+
+    def _supervised_fit(self, fit_once):
+        """Route a zero-argument fit thunk through ``run_supervised`` when a
+        retry policy is set; a plain call otherwise."""
+        if self._retry_policy is None:
+            return fit_once()
+        cfg = self._iteration_config
+        mgr = cfg.checkpoint_manager if cfg is not None else None
+        return run_supervised(fit_once, mgr=mgr, policy=self._retry_policy,
+                              listeners=self._iteration_listeners)
 
 
 def scalar_column(table: Table, name: str):
@@ -175,6 +186,9 @@ class LinearEstimatorBase(Estimator, LinearTrainParams,
         self.last_execution_path = None
 
     def fit(self, table: Table):
+        return self._supervised_fit(lambda: self._fit_once(table))
+
+    def _fit_once(self, table: Table):
         x, y, w = extract_labeled_points(self, table)
         params = SGDParams(
             learning_rate=self.learning_rate,
@@ -186,9 +200,11 @@ class LinearEstimatorBase(Estimator, LinearTrainParams,
         sgd = SGD(params)
         coeffs, _ = sgd.optimize(self.loss, np.zeros(x.shape[1], np.float32),
                                  x, y, w, device=self.device,
+                                 config=self._iteration_config,
+                                 listeners=self._iteration_listeners,
                                  tag=type(self).__name__)
-        # benchmark provenance (runner.py executionPath): cuda-sgd when the
-        # rounds ran the kernel, torch-sgd when they ran its plain version
+        # benchmark provenance (runner.py executionPath): cuda-sgd[-...]
+        # when the rounds ran the kernel, torch-sgd[-...] its plain version
         self.last_execution_path = sgd.last_execution_path
         model = self.model_class(coefficients=coeffs, device=self._device)
         return self.copy_params_to(model)

@@ -27,8 +27,13 @@ the host (float64) only for a host batch, a listener and the end of the
 fit. Each batch's coefficients join the model's history; device snapshots
 are fetched in stacked copies of up to ``_HISTORY_DEV_CAP``.
 
-One device and no mesh: the sharded update, checkpoints, the health series
-and the drift and quality baselines come with later slices of the port.
+An ``IterationConfig`` with a checkpoint manager snapshots the host view
+every ``checkpoint_interval`` batches, and a fit restores the newest valid
+snapshot before it reads the stream (``iteration/streaming.py``). A retry
+policy is stored and, as in the JAX package, not applied to the stream.
+
+One device and no mesh: the sharded update, the health series and the drift
+and quality baselines come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -326,16 +331,7 @@ class OnlineLogisticRegression(Estimator, OnlineLogisticRegressionParams,
     def __init__(self, **kwargs):
         super().__init__(**kwargs)
         self._initial_model_data: Optional[Table] = None
-        self._iteration_listeners = ()
         self.last_execution_path = None
-
-    def set_iteration_config(self, config, listeners=()):
-        """Listeners run after every batch and at the end of the stream; a
-        config that asks for checkpoints raises (``StreamCheckpointer``)."""
-        StreamCheckpointer(config, listeners)
-        self._iteration_config = config
-        self._iteration_listeners = tuple(listeners)
-        return self
 
     def set_initial_model_data(self, model_data: Table):
         """Ref: OnlineLogisticRegression.setInitialModelData:440."""
@@ -411,6 +407,15 @@ class OnlineLogisticRegression(Estimator, OnlineLogisticRegressionParams,
             hc = (np.stack([c for _, c in history])
                   if history else np.zeros((0,) + coeffs.shape))
             return coeffs, z, n, version, hv, hc
+
+        # a restored state is the host view pack() gives: the trimmed (d,)
+        # float64 arrays, the version and the history as stacked arrays,
+        # the same bytes whichever engine (or package) wrote it
+        restored = ckpt.restore(pack())
+        if restored is not None:
+            coeffs, z, n, version, hv, hc = restored[0]
+            version = int(version)
+            history[:] = [(int(v), c) for v, c in zip(hv, hc)]
 
         def commit_device_state(new_state):
             nonlocal state_dev, version

@@ -1,9 +1,10 @@
 """The always-on final-state guard of a fit.
 
 The port's copy of ``guard_final_state`` of
-``flink_ml_tpu/observability/health.py`` and of the terminal
-``NonFiniteState`` of ``flink_ml_tpu/resilience/policy.py``: a cheap
-non-finite check over host arrays a fit has already fetched. The health
+``flink_ml_tpu/observability/health.py``: a cheap non-finite check over
+host arrays a fit has already fetched. It raises the terminal
+:class:`NonFiniteState` of ``resilience/policy.py`` (re-exported here), so a
+supervised fit that diverges fails at once instead of restarting. The health
 series, divergence events and their telemetry come with the observability
 slice of the port.
 """
@@ -14,13 +15,9 @@ import math
 
 import numpy as np
 
+from flink_ml_tpu_torch.resilience.policy import NonFiniteState
 
-class NonFiniteState(RuntimeError):
-    """A fit's final state holds NaN or Inf (a terminal failure)."""
-
-    def __init__(self, algo: str):
-        self.algo = algo
-        super().__init__(f"{algo}: non-finite model state after the fit")
+__all__ = ["NonFiniteState", "guard_final_state"]
 
 
 def guard_final_state(algo: str, *leaves, loss=None) -> None:

@@ -19,6 +19,8 @@ import tempfile
 from pathlib import Path
 from typing import Dict
 
+from flink_ml_tpu_torch.resilience.policy import KernelBuildError
+
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PACKAGE_DIR / "csrc"
 BUILD_DIR = _PACKAGE_DIR / "_build"
@@ -38,7 +40,7 @@ def _nvcc() -> str:
     default = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(default):
         return default
-    raise RuntimeError(
+    raise KernelBuildError(
         "nvcc not found on PATH or under /usr/local/cuda: the port's CUDA "
         "kernels are built from csrc/ at first use on a machine with the "
         "CUDA toolkit")
@@ -86,7 +88,7 @@ def build_all(names) -> None:
             BUILD_LOGS[name] = stdout + stderr
             os.replace(tmp, out)
         if failed:
-            raise RuntimeError("\n".join(failed))
+            raise KernelBuildError("\n".join(failed))
     finally:
         for _, _, tmp, proc in started:
             if proc.poll() is None:

@@ -47,6 +47,7 @@ import torch.nn.functional as F
 
 from flink_ml_tpu_torch.ops import _build
 from flink_ml_tpu_torch.ops.losses import LossFunc
+from flink_ml_tpu_torch.resilience.policy import KernelLaunchError
 
 KMEANS_SOURCE = "kmeans_kernels"
 SGD_SOURCE = "sgd_kernels"
@@ -843,13 +844,13 @@ def _lib(source: str) -> ctypes.CDLL:
 def _raise_on_error(source: str, rc: int, what: str) -> None:
     if rc != 0:
         msg = getattr(_lib(source), _ERROR_STRING[source])(rc).decode()
-        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+        raise KernelLaunchError(f"{what}: CUDA error {rc} ({msg})")
 
 
 def _blocks_on_card(device_index: int, per_sm: int, what: str) -> int:
     """Blocks the whole card holds at once, given one SM's count."""
     if per_sm < 1:
-        raise RuntimeError(f"no block of {what} fits an SM of this card")
+        raise KernelLaunchError(f"no block of {what} fits an SM of this card")
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
     return per_sm * sms
 

@@ -24,10 +24,17 @@ until it fetches the final coefficients and loss, once. The JAX package's
 while program for more than 64 rounds gives the same results by
 construction, so this one loop serves every ``maxIter``.
 
+With an ``IterationConfig`` the same rounds run through the iteration
+runtime (``iteration/iteration.py``): K-round segments between checkpoints,
+each a masked loop like the plain fit's with one boundary fetch, or host
+rounds of one round each with listeners, checkpoints and a stop fetch a
+round. Every mode launches ``sgd_batch_terms`` with the same windows in the
+same order, so each gives the plain fit's bits.
+
 This slice runs one device and dense features: the per-shard batch shares,
-the sharded update, tensor parallelism, the segment, host-round and CSR
-paths and the health telemetry come with the parallel, iteration and
-observability slices of the port, and asking for them raises.
+the sharded update, tensor parallelism, the CSR path and the health
+telemetry come with the parallel, sparse and observability slices of the
+port, and asking for them raises.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ import numpy as np
 import torch
 
 from flink_ml_tpu_torch.device import DeviceLike, resolve_device
+from flink_ml_tpu_torch.iteration import iteration
 from flink_ml_tpu_torch.observability.health import guard_final_state
 from flink_ml_tpu_torch.ops import kernels
 from flink_ml_tpu_torch.ops.losses import LossFunc
@@ -139,17 +147,60 @@ def _apply_packed(prm: SGDParams, rule, coeffs: torch.Tensor, opt: tuple,
     return coeffs_out, opt_out, mean_loss
 
 
-def _static_batch_schedule(local_n: int, lb: int, max_iter: int):
+def _static_batch_schedule(local_n: int, lb: int, max_iter: int,
+                           offset: int = 0):
     """The minibatch schedule as Python ints: round r slices [start,
-    start+lb) with clip-at-end and wrap-to-zero (SGD.java:262-284). Returns
-    [(start, first_valid)] per round; rows before ``first_valid`` (the clip
-    overlap) weigh 0."""
-    sched, offset = [], 0
+    start+lb) with clip-at-end and wrap-to-zero (SGD.java:262-284), from the
+    window offset ``offset``. Returns [(start, first_valid)] per round; rows
+    before ``first_valid`` (the clip overlap) weigh 0."""
+    sched = []
     for _ in range(max_iter):
         start = min(offset, local_n - lb)
         sched.append((start, offset - start))  # 0 unless clipped
-        offset = 0 if offset + lb >= local_n else offset + lb
+        offset = _next_offset(local_n, lb, offset)
     return sched
+
+
+def _next_offset(local_n: int, lb: int, offset: int) -> int:
+    """The window offset after a round that started at ``offset``."""
+    return 0 if offset + lb >= local_n else offset + lb
+
+
+def _offset_after(local_n: int, lb: int, offset: int, rounds: int) -> int:
+    for _ in range(rounds):
+        offset = _next_offset(local_n, lb, offset)
+    return offset
+
+
+def _masked_rounds(batch_terms: BatchTerms, loss_name: str, prm: SGDParams,
+                   x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                   coeffs: torch.Tensor, opt: tuple, offset: int,
+                   rounds: int):
+    """``rounds`` rounds from the window ``offset`` with the tol stop as a
+    mask → (coeffs, opt, mean_loss at the stopping round, rounds run,
+    stop), all tensors on the device; nothing here waits for the device. A
+    round after the stop changes nothing."""
+    n = x.shape[0]
+    lb = min(prm.global_batch_size, n)
+    rule = _update_rule(prm)
+    mean_loss = torch.full((), float("inf"), dtype=torch.float32,
+                           device=coeffs.device)
+    ran = torch.zeros((), dtype=torch.int32, device=coeffs.device)
+    stop = torch.zeros((), dtype=torch.bool, device=coeffs.device)
+    for start, clip in _static_batch_schedule(n, lb, rounds, offset):
+        packed = batch_terms(x, y, w, coeffs, start, clip, lb, loss_name)
+        updated, new_opt, new_loss = _apply_packed(prm, rule, coeffs, opt,
+                                                   packed)
+        # the tol stop as a mask: a round after it changes nothing
+        active = torch.logical_not(stop)
+        coeffs = torch.where(active, updated, coeffs)
+        opt = tuple(torch.where(active, nw, old)
+                    for nw, old in zip(new_opt, opt))
+        mean_loss = torch.where(active, new_loss, mean_loss)
+        ran = ran + active.to(torch.int32)
+        stop = torch.logical_or(stop, torch.logical_and(active,
+                                                        new_loss < prm.tol))
+    return coeffs, opt, mean_loss, ran, stop
 
 
 def sgd_rounds(batch_terms: BatchTerms, loss_name: str, prm: SGDParams,
@@ -160,28 +211,10 @@ def sgd_rounds(batch_terms: BatchTerms, loss_name: str, prm: SGDParams,
     ``batch_terms`` (:func:`kernels.sgd_batch_terms` or its plain version)
     → (coeffs, mean_loss at the stopping round, rounds run), all tensors on
     the device; nothing here waits for the device."""
-    n = x.shape[0]
-    lb = min(prm.global_batch_size, n)
-    rule = _update_rule(prm)
     opt = _init_opt(prm, coeffs.shape[0], coeffs.device)
-    mean_loss = torch.full((), float("inf"), dtype=torch.float32,
-                           device=coeffs.device)
-    epoch = torch.zeros((), dtype=torch.int32, device=coeffs.device)
-    stop = torch.zeros((), dtype=torch.bool, device=coeffs.device)
-    for start, clip in _static_batch_schedule(n, lb, prm.max_iter):
-        packed = batch_terms(x, y, w, coeffs, start, clip, lb, loss_name)
-        updated, new_opt, new_loss = _apply_packed(prm, rule, coeffs, opt,
-                                                   packed)
-        # the tol stop as a mask: a round after it changes nothing
-        active = torch.logical_not(stop)
-        coeffs = torch.where(active, updated, coeffs)
-        opt = tuple(torch.where(active, nw, old)
-                    for nw, old in zip(new_opt, opt))
-        mean_loss = torch.where(active, new_loss, mean_loss)
-        epoch = epoch + active.to(torch.int32)
-        stop = torch.logical_or(stop, torch.logical_and(active,
-                                                        new_loss < prm.tol))
-    return coeffs, mean_loss, epoch
+    coeffs, _, mean_loss, ran, _ = _masked_rounds(
+        batch_terms, loss_name, prm, x, y, w, coeffs, opt, 0, prm.max_iter)
+    return coeffs, mean_loss, ran
 
 
 def _on_device(values, device: torch.device) -> torch.Tensor:
@@ -198,9 +231,65 @@ class SGD:
         self.params = params
         self.last_execution_path = None
 
+    def _iterate(self, loss_name: str, x: torch.Tensor, y: torch.Tensor,
+                 w: torch.Tensor, coeffs0: torch.Tensor, seg_k: int, config,
+                 listeners) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The rounds through the iteration runtime → (coeffs, mean_loss),
+        device tensors. The carry is the JAX package's, leaf for leaf:
+        ``(coeffs (d,) f32, offsets (1,) int32, mean_loss f32, opt)``, so
+        the two packages' checkpoints hold the same leaves. ``offsets`` (the
+        window offset) is a host numpy array: the schedule is Python ints,
+        so a restored offset needs no device read. Each call builds a fresh
+        carry, and no carry tensor is updated in place."""
+        prm = self.params
+        n, d = x.shape
+        lb = min(prm.global_batch_size, n)
+        batch_terms = kernels.sgd_batch_terms
+        init = (coeffs0, np.zeros(1, np.int32),
+                torch.full((), float("inf"), dtype=torch.float32,
+                           device=coeffs0.device),
+                _init_opt(prm, d, coeffs0.device))
+
+        if seg_k:
+            def run_segment(carry, epoch0, limit):
+                coeffs, offsets, _, opt = carry
+                offset = int(offsets[0])
+                coeffs, opt, mean_loss, ran, stop = _masked_rounds(
+                    batch_terms, loss_name, prm, x, y, w, coeffs, opt,
+                    offset, limit - epoch0)
+                # the boundary's one fetch: [epoch, stop]
+                epoch, stop = iteration.read_boundary(
+                    torch.stack([ran + epoch0, stop.to(torch.int32)]))
+                epoch = int(epoch)
+                offsets = np.asarray(
+                    [_offset_after(n, lb, offset, epoch - epoch0)], np.int32)
+                return (coeffs, offsets, mean_loss, opt), epoch, bool(stop)
+
+            final = iteration.run_segmented(run_segment, init, prm.max_iter,
+                                            seg_k, config.checkpoint_manager)
+        else:
+            def body(carry, epoch):
+                # one round of the segments' own function, so every mode
+                # runs the same update
+                coeffs, offsets, _, opt = carry
+                offset = int(offsets[0])
+                coeffs, opt, mean_loss, _, _ = _masked_rounds(
+                    batch_terms, loss_name, prm, x, y, w, coeffs, opt,
+                    offset, 1)
+                return (coeffs, np.asarray([_next_offset(n, lb, offset)],
+                                           np.int32), mean_loss, opt)
+
+            final = iteration.iterate_bounded(
+                init, body, max_iter=prm.max_iter,
+                terminate=lambda carry, epoch: carry[2] < prm.tol,
+                config=config, listeners=listeners)
+        coeffs, _, mean_loss, _ = final
+        return coeffs, mean_loss
+
     def optimize(self, loss_func: LossFunc, init_coeffs,
                  features, labels, weights=None,
                  device: DeviceLike = None,
+                 config=None, listeners=(),
                  tag: Optional[str] = None) -> Tuple[np.ndarray, float]:
         """Returns (coeffs (d,) float64 np.ndarray, final mean loss float).
 
@@ -210,6 +299,12 @@ class SGD:
         ``weights=None`` means ones. Rounds run the ``sgd_batch_terms``
         kernel on the card (``cuda-sgd``), and its plain PyTorch version on
         the CPU (``torch-sgd``).
+
+        With ``config``/``listeners`` (an ``IterationConfig`` with host
+        hooks) the rounds run through the iteration runtime, resumable from
+        a checkpoint with the all-device fit's results: K-round segments
+        when the only hook is a device-mode checkpoint interval
+        (``-segments``), host rounds otherwise (``-rounds``).
         ``tag`` names the fit in a :class:`NonFiniteState` error (the
         estimator's class name; ``SGD[<loss>]`` by default).
         """
@@ -231,11 +326,19 @@ class SGD:
                              f"coefficients must be ({d},), got "
                              f"{tuple(coeffs.shape)}")
 
-        coeffs, mean_loss, _ = sgd_rounds(kernels.sgd_batch_terms,
-                                          loss_func.NAME, prm, x, y, w, coeffs)
+        base = "cuda-sgd" if device.type == "cuda" else "torch-sgd"
+        seg_k = iteration.device_checkpoint_segment(config, listeners)
+        if not seg_k and not iteration.needs_host_loop(config, listeners):
+            coeffs, mean_loss, _ = sgd_rounds(kernels.sgd_batch_terms,
+                                              loss_func.NAME, prm, x, y, w,
+                                              coeffs)
+            path = base
+        else:
+            coeffs, mean_loss = self._iterate(loss_func.NAME, x, y, w, coeffs,
+                                              seg_k, config, listeners)
+            path = base + ("-segments" if seg_k else "-rounds")
         # benchmark provenance (runner.py executionPath)
-        self.last_execution_path = ("cuda-sgd" if device.type == "cuda"
-                                    else "torch-sgd")
+        self.last_execution_path = path
 
         # the one host synchronisation of the fit
         final = torch.cat([coeffs, mean_loss[None]]).cpu().numpy()

@@ -21,6 +21,8 @@ Tolerances:
 - model versions, history versions and stream batches exactly.
 """
 
+import json
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -37,7 +39,12 @@ from flink_ml_tpu.parallel import create_mesh, set_default_mesh
 from flink_ml_tpu_torch import Table
 from flink_ml_tpu_torch.benchmark import datagen, runner
 from flink_ml_tpu_torch.convert import online_lr_model_from_arrays
-from flink_ml_tpu_torch.iteration import streaming
+from flink_ml_tpu_torch.iteration import (
+    CheckpointManager,
+    IterationConfig,
+    IterationListener,
+    streaming,
+)
 from flink_ml_tpu_torch.linalg import sparse
 from flink_ml_tpu_torch.linalg.vectors import DenseVector, SparseVector
 from flink_ml_tpu_torch.models import online
@@ -46,6 +53,7 @@ from flink_ml_tpu_torch.models.online import (
     OnlineLogisticRegressionModel,
 )
 from flink_ml_tpu_torch.ops import kernels
+from flink_ml_tpu_torch.resilience import RetryPolicy
 from flink_ml_tpu_torch.utils import io as rw
 
 SUM_RTOL, SUM_ATOL = 1e-5, 1e-5
@@ -372,16 +380,16 @@ def test_fit_edges_and_knobs(tmp_path):
                                          model_version=4)
     est.warm_start(seed)
     assert est._initial_model_data.scalars("modelVersion", np.int64)[0] == 4
-    with pytest.raises(NotImplementedError, match="resilience slice"):
-        est.set_retry_policy(object())
-
-    from flink_ml_tpu.iteration.iteration import IterationConfig
-    from flink_ml_tpu.iteration.checkpoint import CheckpointManager
-
-    with pytest.raises(NotImplementedError, match="iteration slice"):
-        est.set_iteration_config(IterationConfig(
-            checkpoint_interval=2,
-            checkpoint_manager=CheckpointManager(str(tmp_path / "ckpt"))))
+    # the retry policy is stored (the JAX package's FTRL fit stores it and
+    # does not supervise the stream); a checkpointing config is stored and
+    # runs (test_stream_checkpoint_resumes_to_the_same_bytes)
+    policy = RetryPolicy(max_restarts=1)
+    assert est.set_retry_policy(policy) is est and est._retry_policy is policy
+    config = IterationConfig(
+        checkpoint_interval=2,
+        checkpoint_manager=CheckpointManager(str(tmp_path / "ckpt")))
+    assert est.set_iteration_config(config) is est
+    assert est._iteration_config is config
 
 
 class _Recorder:
@@ -419,6 +427,136 @@ def test_stream_checkpointer_is_inert_without_config():
 
 
 # -- transform, model data, persistence ----------------------------------------
+
+class _Crash(Exception):
+    pass
+
+
+class _CrashAt(IterationListener):
+    """Dies when the given batch (0-based) completes, before its save."""
+
+    def __init__(self, at):
+        self.at = at
+
+    def on_epoch_watermark_incremented(self, epoch, state):
+        if epoch == self.at:
+            raise _Crash()
+
+
+def _engine_stream(engine, monkeypatch, table_cls=Table, csr_cls=None):
+    """``rows(lo, hi)``: a table of rows [lo, hi) of a 600-row stream of
+    width 8 for one FTRL engine (the engine's nnz gate patched)."""
+    if engine == "dense":
+        x, y, w = _dense_data(11, 600, 8)
+        return lambda lo, hi: table_cls.from_columns(f=x[lo:hi], l=y[lo:hi],
+                                                     w=w[lo:hi])
+    x, y, w = _sparse_matrix(12, 600, 8, 0.5)
+    monkeypatch.setattr(online, "FTRL_SPARSE_MIN_NNZ",
+                        1 if engine == "csr-device" else 1 << 60)
+    monkeypatch.setenv("FLINK_ML_TPU_FTRL_SPARSE_MIN_NNZ", str(1 << 60))
+    csr_cls = csr_cls or sparse.CsrVectorColumn
+    return lambda lo, hi: table_cls.from_columns(f=csr_cls(x[lo:hi]),
+                                                 l=y[lo:hi], w=w[lo:hi])
+
+
+def _snapshot_layout(mgr):
+    name, = mgr.list_checkpoints()
+    with open(f"{mgr.base_dir}/{name}/manifest.json") as f:
+        manifest = json.load(f)
+    return name, [(r["dtype"], tuple(r["shape"])) for r in manifest["leaves"]]
+
+
+@pytest.mark.parametrize("engine", ["dense", "csr-device", "csr-host"])
+def test_stream_checkpoint_resumes_to_the_same_bytes(tmp_path, monkeypatch,
+                                                      engine):
+    """A stream killed after its 4th batch resumes from the snapshot of its
+    2nd on the rest of the stream and ends with the uninterrupted fit's
+    bytes: coefficients, version and history. Every engine snapshots the
+    same host view (trimmed (d,) float64 state, version, stacked
+    history)."""
+    rows = _engine_stream(engine, monkeypatch)
+
+    def estimator():
+        return OnlineLogisticRegression(device="cpu", **PARAMS).warm_start(
+            np.zeros(8))
+
+    clean = estimator().fit(rows(0, 600))
+    mgr = CheckpointManager(str(tmp_path / "ckpt"))
+    config = IterationConfig(checkpoint_interval=2, checkpoint_manager=mgr)
+    with pytest.raises(_Crash):
+        estimator().set_iteration_config(
+            config, listeners=[_CrashAt(3)]).fit(rows(0, 600))
+    assert _snapshot_layout(mgr) == ("ckpt-00000002", [
+        ("float64", (8,)), ("float64", (8,)), ("float64", (8,)),
+        ("int64", ()), ("int64", (2,)), ("float64", (2, 8))])
+    est = estimator().set_iteration_config(config)
+    resumed = est.fit(rows(200, 600))
+    assert est.last_execution_path == {
+        "dense": "torch-dense-batches", "csr-device": "torch-csr-batches",
+        "csr-host": "host-csr-batches"}[engine]
+    np.testing.assert_array_equal(resumed.coefficients, clean.coefficients)
+    assert resumed.model_version == clean.model_version == 6
+    assert [v for v, _ in resumed.history] == [1, 2, 3, 4, 5, 6]
+    for (_, a), (_, b) in zip(resumed.history, clean.history):
+        np.testing.assert_array_equal(a, b)
+    assert mgr.list_checkpoints() == []  # the completed stream cleared
+
+
+@pytest.mark.parametrize("engine", ["dense", "csr-host"])
+def test_stream_checkpoint_restores_across_packages(one_device_mesh, tmp_path,
+                                                    monkeypatch, engine):
+    """A snapshot that either package wrote mid-stream restores in the
+    other, with the same leaves, and the resumed fit ends within the
+    tolerance of the writer's uninterrupted fit."""
+    from flink_ml_tpu.iteration import checkpoint as jax_ckpt
+    from flink_ml_tpu.iteration import iteration as jax_iter
+
+    rows = _engine_stream(engine, monkeypatch)
+    jax_rows = _engine_stream(engine, monkeypatch, JaxTable,
+                              jax_sparse.CsrVectorColumn)
+
+    class JaxCrashAt(jax_iter.IterationListener):
+        def on_epoch_watermark_incremented(self, epoch, state):
+            if epoch == 3:
+                raise _Crash()
+
+    def jax_estimator():
+        est = jax_online.OnlineLogisticRegression(**PARAMS)
+        return est.set_initial_model_data(JaxTable.from_columns(
+            coefficient=[JaxDenseVector(np.zeros(8))]))
+
+    def port_estimator():
+        return OnlineLogisticRegression(device="cpu", **PARAMS).warm_start(
+            np.zeros(8))
+
+    layouts = {}
+    for writer in ("jax", "port"):
+        base = str(tmp_path / writer)
+        jax_mgr, port_mgr = (jax_ckpt.CheckpointManager(base),
+                             CheckpointManager(base))
+        jax_cfg = jax_iter.IterationConfig(checkpoint_interval=2,
+                                           checkpoint_manager=jax_mgr)
+        port_cfg = IterationConfig(checkpoint_interval=2,
+                                   checkpoint_manager=port_mgr)
+        with pytest.raises(_Crash):
+            if writer == "jax":
+                jax_estimator().set_iteration_config(
+                    jax_cfg, listeners=[JaxCrashAt()]).fit(jax_rows(0, 600))
+            else:
+                port_estimator().set_iteration_config(
+                    port_cfg, listeners=[_CrashAt(3)]).fit(rows(0, 600))
+        layouts[writer] = _snapshot_layout(port_mgr)
+        if writer == "jax":
+            want = jax_estimator().fit(jax_rows(0, 600))
+            got = port_estimator().set_iteration_config(port_cfg).fit(
+                rows(200, 600))
+        else:
+            want = port_estimator().fit(rows(0, 600))
+            got = jax_estimator().set_iteration_config(jax_cfg).fit(
+                jax_rows(200, 600))
+        _check_fit(got, want, RTOL, ATOL)
+    assert layouts["jax"] == layouts["port"]
+
 
 def test_transform_matches_jax(one_device_mesh):
     x, y, w = _dense_data(9, 120, 6)

@@ -20,6 +20,7 @@ import torch
 
 import flink_ml_tpu_torch
 from flink_ml_tpu_torch import Table, device as port_device
+from flink_ml_tpu_torch.iteration import IterationConfig, IterationListener
 from flink_ml_tpu_torch.models.classification import (
     LogisticRegression,
     LogisticRegressionModel,
@@ -27,6 +28,7 @@ from flink_ml_tpu_torch.models.classification import (
 from flink_ml_tpu_torch.models.clustering import KMeans, KMeansModel
 from flink_ml_tpu_torch.observability.health import NonFiniteState
 from flink_ml_tpu_torch.ops import kernels
+from flink_ml_tpu_torch.resilience import RetryPolicy
 from flink_ml_tpu_torch.utils import io as rw
 
 REPO = Path(__file__).resolve().parent.parent
@@ -66,7 +68,8 @@ def test_port_files_were_found():
     names = {p.name for p in PORT_FILES}
     assert {"kernels.py", "kmeans.py", "runner.py", "io.py", "optimizer.py",
             "logisticregression.py", "knn.py", "online.py", "sparse.py",
-            "streaming.py"} <= names
+            "streaming.py", "iteration.py", "checkpoint.py", "policy.py",
+            "faults.py", "supervisor.py"} <= names
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -163,19 +166,26 @@ def test_kmeans_fit_runs_every_round_through_the_partials_wrapper(monkeypatch):
 
 
 def test_iteration_modes_of_later_slices_raise():
-    from flink_ml_tpu.iteration.iteration import IterationConfig
-
-    est = KMeans(k=2, device="cpu")
+    """Host rounds, listeners, checkpoints and supervision raised until the
+    iteration slice of the port, whence the name, kept so the test's history
+    stays one line; now the estimator stores them and its fit runs them
+    (tests/test_torch_iteration.py holds their results)."""
+    est = KMeans(k=2, seed=0, max_iter=3, device="cpu")
     assert est.set_iteration_config(IterationConfig()) is est
     assert est.set_iteration_config(None) is est
     for config in (IterationConfig(mode="host"),
                    IterationConfig(checkpoint_interval=2)):
-        with pytest.raises(NotImplementedError, match="iteration slice"):
-            est.set_iteration_config(config)
-    with pytest.raises(NotImplementedError, match="iteration slice"):
-        est.set_iteration_config(None, listeners=[object()])
-    with pytest.raises(NotImplementedError, match="resilience slice"):
-        est.set_retry_policy(object())
+        assert est.set_iteration_config(config) is est
+        assert est._iteration_config is config
+    listener = IterationListener()
+    assert est.set_iteration_config(None, listeners=[listener]) is est
+    assert est._iteration_listeners == (listener,)
+    policy = RetryPolicy(max_restarts=1)
+    assert est.set_retry_policy(policy) is est and est._retry_policy is policy
+    table = Table.from_columns(
+        features=np.random.default_rng(5).random((30, 3)))
+    est.set_iteration_config(IterationConfig(mode="host")).fit(table)
+    assert est.last_execution_path == "torch-lloyd-rounds"
 
 
 def test_load_class_maps_jax_paths_without_importing_them(monkeypatch):
@@ -205,8 +215,13 @@ def test_linear_models_run_on_the_card_by_default(monkeypatch):
         LogisticRegression().fit(table)
     with pytest.raises(RuntimeError, match="CUDA"):
         LogisticRegressionModel(coefficients=np.ones(3)).transform(table)
+    # the iteration modes keep the card as the default device
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LogisticRegression().set_iteration_config(
+            IterationConfig(mode="host")).fit(table)
     est = LogisticRegression(device="cpu")
-    with pytest.raises(NotImplementedError, match="resilience slice"):
-        est.set_retry_policy(object())
-    with pytest.raises(NotImplementedError, match="iteration slice"):
-        est.set_iteration_config(None, listeners=[object()])
+    policy = RetryPolicy(max_restarts=0)
+    assert est.set_retry_policy(policy) is est and est._retry_policy is policy
+    listener = IterationListener()
+    assert est.set_iteration_config(None, listeners=[listener]) is est
+    assert est._iteration_listeners == (listener,)
