@@ -108,7 +108,26 @@ Phases, each of which fails the run (no result line, nonzero exit):
     fault at its third save resumed from the second on the rest of the
     stream, both equal to the stream without checkpoints bit for bit
     (coefficients, version, history) and launching the segment kernel;
-11. print one ``{"kernels": [...]}`` line with every kernel's launches in
+11. drive the data-parallel layer (``flink_ml_tpu_torch/parallel/``) at
+    full size: the LR config (10,000,000 x 100, global batch 100,000, 20
+    rounds) with no mesh, on one shard (bit for bit the fit with no mesh,
+    20 launches) and on eight virtual shards of the card with the
+    replicated and the sharded update (each 8 x 20 ``sgd_batch_terms``
+    launches, 12,500 rows a shard; sharded against replicated rtol 1e-5;
+    the eight-shard fit against its plain rounds); the eight-shard fit in
+    segments of K = 5 with a fault at the second boundary, resumed by the
+    supervisor, bit for bit the all-device fit (replicated sgd, and
+    sharded adam, whose moments are sharded checkpoint leaves); the same
+    fit through torch.distributed (NCCL at world size 1), bit for bit the
+    one-shard fit; the KMeans config on one and eight shards (8 x 10 Lloyd
+    launches; eight against one shard within the main path's KMeans
+    tolerance, below); phase 9's dense FTRL table on hyperplane labels and
+    its sparse stream on one and eight shards (the segment kernel on every
+    shard; eight against one within BIG_FIT_RTOL/ATOL); and a 4,003 x 20 LR
+    table with a global batch of 801 (uneven local batches, a padded last
+    shard) on eight shards, on the card against the CPU; print each fit's
+    ms on one shard against eight, and the launches;
+12. print one ``{"kernels": [...]}`` line with every kernel's launches in
     its main-path runs, error, times and bound, then the result line.
 
 Tolerances (float32 throughout, TF32 off):
@@ -149,11 +168,22 @@ Tolerances (float32 throughout, TF32 off):
   scores its own stream above 85% accurate;
 - the full-size dense FTRL fit on hyperplane labels: within BIG_FIT_RTOL,
   BIG_FIT_ATOL of the CPU's (100 batches whose 100,000-row sums are added
-  in another order).
+  in another order);
+- phase 11: a fit on eight shards differs from the one-shard fit only in
+  the order its sums are added (per shard, then across the shards), so
+  it is held as the fits that add in another order are: the KMeans fit
+  by CENTROID_ATOL and LABEL_AGREEMENT (the labels of both fits' centroids
+  under the plain assignment), the FTRL fits by BIG_FIT_RTOL/ATOL; the LR
+  fit on eight shards takes other batches than on one (each shard its
+  own local batch), so it is held against its own plain rounds by
+  COEFF_RTOL/ATOL; the sharded update against the replicated one by rtol
+  1e-5 (virtual shards add in the same order, so both are expected bit
+  for bit, and the line says whether they were).
 """
 
 import itertools
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -161,6 +191,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -187,6 +218,10 @@ PATH_KERNELS = {
     # interval
     "iteration": ("sgd_batch_terms", "assign_nearest", "lloyd_partial_sums",
                   "reduce_partials", "segment_reduce_sum"),
+    # the LR, KMeans and FTRL fits on one and eight shards: a launch per
+    # shard, and reduce_partials for the cross-shard sums
+    "parallel": ("sgd_batch_terms", "lloyd_partial_sums", "reduce_partials",
+                 "segment_reduce_sum"),
 }
 LOSSES = ("logistic", "hinge", "least_square")
 
@@ -1673,6 +1708,284 @@ def phase_iteration_modes(K, runner, Table):
     return counts
 
 
+def _timed_fit(est, table):
+    """(model, ms): host clock around ``est.fit`` ended by a synchronize."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    model = est.fit(table)
+    torch.cuda.synchronize()
+    return model, (time.perf_counter() - start) * 1e3
+
+
+def phase_parallel(K, runner, optimizer, Table):
+    """Phase 11: the data-parallel layer on the card: the LR, KMeans and
+    FTRL fits on one shard and on eight virtual shards of the card, with
+    the replicated and the sharded update, a segmented LR fit resumed after
+    a fault, and an LR fit through torch.distributed (NCCL, world size
+    1)."""
+    from flink_ml_tpu_torch.iteration import iteration
+    from flink_ml_tpu_torch.iteration.checkpoint import CheckpointManager
+    from flink_ml_tpu_torch.linalg import sparse
+    from flink_ml_tpu_torch.parallel import (create_mesh, init_distributed,
+                                             shutdown_distributed)
+    from flink_ml_tpu_torch.parallel import update_sharding as upd
+    from flink_ml_tpu_torch.resilience import RetryPolicy, faults
+
+    log("phase 11: the data-parallel layer on the card")
+    card = torch.device("cuda")
+    meshes = {None: None, 1: create_mesh((1,), devices=[card]),
+              8: create_mesh((8,), devices=[card] * 8)}
+    K.reset_launch_counts()
+    summary = {}
+
+    def fit(spec, table, p, sharded=False, reps=2, setup=None):
+        """The spec's estimator on ``p`` shards (None: no mesh asked for),
+        fitted ``reps`` times → (model, best ms, launches of one fit)."""
+        runs = []
+        with mock.patch.dict(os.environ, {upd.ENV: str(int(sharded))}):
+            for _ in range(reps):
+                est = runner.build_stage(spec, mesh=meshes[p])
+                if setup is not None:
+                    est = setup(est)
+                before = dict(K.launch_counts)
+                model, ms = _timed_fit(est, table)
+                runs.append((ms, model, {k: K.launch_counts[k] - before[k]
+                                         for k in K.launch_counts}))
+        ms, model, launched = min(runs, key=lambda r: r[0])
+        return model, ms, {k: v for k, v in launched.items() if v}
+
+    def same(a, b):
+        return bool(np.array_equal(a, b))
+
+    # (a) LR at full size: no mesh, one shard, eight shards replicated and
+    # sharded, then the segmented fit resumed after a fault and NCCL
+    spec = runner.load_config(str(LINEAR_CONFIGS["logisticregression"]))[
+        "logisticregression"]
+    max_iter = spec["stage"]["paramMap"]["maxIter"]
+    gb = spec["stage"]["paramMap"]["globalBatchSize"]
+    table = runner.build_generator(spec).get_data()
+    nomesh, nomesh_ms, _ = fit(spec, table, None)
+    one, one_ms, one_l = fit(spec, table, 1)
+    assert same(one.coefficients, nomesh.coefficients), (
+        "LR on one shard differs from the fit with no mesh")
+    assert one_l == {"sgd_batch_terms": max_iter}, one_l
+    rep, rep_ms, rep_l = fit(spec, table, 8)
+    assert rep_l == {"sgd_batch_terms": 8 * max_iter,
+                     "reduce_partials": max_iter}, rep_l
+    sh, sh_ms, sh_l = fit(spec, table, 8, sharded=True)
+    assert sh_l == {"sgd_batch_terms": 8 * max_iter,
+                    "reduce_partials": 2 * max_iter}, sh_l
+    np.testing.assert_allclose(sh.coefficients, rep.coefficients, rtol=1e-5)
+    # the eight-shard fit against its plain rounds on the card (launches of
+    # the comparison are not the path's)
+    saved = dict(K.launch_counts)
+    est = runner.build_stage(spec)
+    x, y = table.vectors(est.features_col), table.column(est.label_col)
+    prm = optimizer.SGDParams(
+        learning_rate=est.learning_rate, global_batch_size=gb,
+        max_iter=max_iter, tol=est.tol, reg=est.reg,
+        elastic_net=est.elastic_net)
+    plain, _, _ = optimizer.sgd_rounds(
+        K.sgd_batch_terms_plain, "logistic", prm, x, y,
+        torch.ones(table.num_rows, device=card), torch.zeros(
+            x.shape[1], device=card), mesh=meshes[8])
+    K.launch_counts.update(saved)
+    plain = plain.double().cpu().numpy()
+    diff = np.abs(rep.coefficients - plain)
+    assert np.all(diff <= COEFF_RTOL * np.abs(plain) + COEFF_ATOL), diff.max()
+    log(f"  LR ({table.num_rows} x {x.shape[1]}, {max_iter} rounds, global "
+        f"batch {gb}, {gb // 8} rows a shard on 8): fit ms no mesh "
+        f"{nomesh_ms:.3f}, 1 shard {one_ms:.3f} (bit-identical), 8 shards "
+        f"{rep_ms:.3f}, 8 sharded {sh_ms:.3f} (bit-identical to replicated: "
+        f"{same(sh.coefficients, rep.coefficients)}); launches 1 shard "
+        f"{one_l}, 8 shards {rep_l}, 8 sharded {sh_l}; 8 shards against "
+        f"their plain rounds max|diff|={diff.max():.3g}, against 1 shard "
+        f"max|diff|={np.abs(rep.coefficients - one.coefficients).max():.3g}")
+    summary["LR"] = {"nomesh_ms": nomesh_ms, "p1_ms": one_ms, "p8_ms": rep_ms,
+                     "p8_sharded_ms": sh_ms, "p1_launches": one_l,
+                     "p8_launches": rep_l, "p8_sharded_launches": sh_l}
+
+    # segments: K = 5 with a fault at the second boundary, resumed by the
+    # supervisor from the first boundary's checkpoint, bit for bit the
+    # eight-shard all-device fit; replicated sgd, and sharded adam (its
+    # moments are Sharded leaves of the checkpoint)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        for tag, sharded, method in [("replicated", False, "sgd"),
+                                     ("sharded adam", True, "adam")]:
+            def optimizer_of(est, method=method):
+                est.optimizer = method
+                return est
+
+            want = rep.coefficients if method == "sgd" else fit(
+                spec, table, 8, sharded, 1, optimizer_of)[0].coefficients
+            mgr = CheckpointManager(f"{workdir}/{method}")
+
+            def segmented(est, mgr=mgr, method=method):
+                est.optimizer = method
+                return (est.set_iteration_config(iteration.IterationConfig(
+                    checkpoint_interval=5, checkpoint_manager=mgr))
+                    .set_retry_policy(RetryPolicy(backoff_s=0)))
+
+            with faults.chaos(at={"epoch-boundary": [2]}):
+                got, seg_ms, seg_l = fit(spec, table, 8, sharded, 1,
+                                         segmented)
+            assert same(got.coefficients, want), f"LR segments {tag} differ"
+            assert mgr.list_checkpoints() == []
+            log(f"  LR 8-shard segments (K=5, {tag}), a fault at boundary "
+                f"2 resumed: {seg_ms:.3f} ms, bit-identical to the "
+                f"all-device fit; launches {seg_l}")
+            summary["LR"][f"segments_{method}_ms"] = seg_ms
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # torch.distributed: NCCL at world size 1, the default mesh one shard
+    # per rank; bit for bit the one-shard in-process fit
+    rendezvous = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    try:
+        init_distributed(init_method=f"file://{rendezvous}/store",
+                         world_size=1, rank=0, device=card)
+        import torch.distributed as dist
+
+        assert dist.get_backend() == "nccl"
+        nccl, nccl_ms, nccl_l = fit(spec, table, None)
+    finally:
+        shutdown_distributed()
+        shutil.rmtree(rendezvous, ignore_errors=True)
+    assert same(nccl.coefficients, one.coefficients), (
+        "LR through NCCL differs from the one-shard fit")
+    log(f"  LR through torch.distributed (NCCL, world size 1): {nccl_ms:.3f} "
+        f"ms, bit-identical to 1 shard; launches {nccl_l}")
+    summary["LR"]["nccl_ms"] = nccl_ms
+    del table, x, y
+    torch.cuda.empty_cache()
+
+    # (b) KMeans at full size on 1 and 8 shards
+    spec = runner.load_config(str(CONFIG))["KMeans"]
+    max_iter = spec["stage"]["paramMap"]["maxIter"]
+    table = runner.build_generator(spec).get_data()
+    n = table.num_rows
+    one, one_ms, one_l = fit(spec, table, 1)
+    assert one_l == {"lloyd_partial_sums": max_iter,
+                     "reduce_partials": max_iter}, one_l
+    rep, rep_ms, rep_l = fit(spec, table, 8)
+    # per shard a Lloyd call (two stages), then the cross-shard sum
+    assert rep_l == {"lloyd_partial_sums": 8 * max_iter,
+                     "reduce_partials": 9 * max_iter}, rep_l
+    sh, sh_ms, sh_l = fit(spec, table, 8, sharded=True)
+    assert sh_l == rep_l, sh_l
+    np.testing.assert_allclose(sh.centroids, rep.centroids, rtol=1e-5)
+    assert same(sh.weights, rep.weights)
+    x = table.vectors(runner.build_stage(spec).features_col)
+    diff = float(np.abs(rep.centroids - one.centroids).max())
+    c8 = torch.as_tensor(rep.centroids, dtype=torch.float32, device=card)
+    c1 = torch.as_tensor(one.centroids, dtype=torch.float32, device=card)
+    agree = float((K.assign_nearest_plain(x, c8)
+                   == K.assign_nearest_plain(x, c1)).float().mean())
+    moved = int(np.abs(rep.weights - one.weights).sum())
+    log(f"  KMeans ({n} x {x.shape[1]}, k = {rep.centroids.shape[0]}, "
+        f"{max_iter} rounds): fit ms 1 shard {one_ms:.3f}, 8 shards "
+        f"{rep_ms:.3f}, 8 sharded {sh_ms:.3f} (bit-identical to replicated: "
+        f"{same(sh.centroids, rep.centroids)}); launches 1 shard {one_l}, 8 "
+        f"shards {rep_l}; 8 against 1 shard: max|centroid diff|={diff:.3g}, "
+        f"label agreement {agree:.6f}, {moved} of {n} counts moved")
+    assert rep.weights.sum() == n
+    assert diff <= CENTROID_ATOL and agree >= LABEL_AGREEMENT
+    summary["KMeans"] = {"p1_ms": one_ms, "p8_ms": rep_ms,
+                         "p8_sharded_ms": sh_ms, "p1_launches": one_l,
+                         "p8_launches": rep_l, "centroid_diff": diff}
+    del table, x
+    torch.cuda.empty_cache()
+
+    # (c) FTRL: the config's dense table on hyperplane labels, and phase 9's
+    # sparse stream, on 1 and 8 shards
+    spec = runner.load_config(str(FTRL_CONFIG))["OnlineLogisticRegression"]
+    d = spec["inputData"]["paramMap"]["vectorDim"]
+    batch = spec["stage"]["paramMap"]["globalBatchSize"]
+    table = runner.build_generator(spec).get_data()
+    truth = torch.randn(d, generator=torch.Generator(device="cuda").manual_seed(
+        29), device="cuda")
+    margin = table.column("features") @ truth
+    table = table.with_column("label",
+                              (margin > margin.median()).to(torch.float32))
+    batches = table.num_rows // batch
+
+    def warm(est):
+        return est.warm_start(np.zeros(d))
+
+    for kind, rows, engine, kernel in [
+            ("dense", table, "torch-dense-batches", None),
+            ("sparse", _sparse_stream(Table, sparse, 2_000_000, d, 10,
+                                      seed=23),
+             "cuda-csr-batches", "segment_reduce_sum")]:
+        b = rows.num_rows // batch
+        fits = {}
+        for p, sharded in [(1, False), (8, False), (8, True)]:
+            est_box = []
+
+            def setup(est, est_box=est_box):
+                est_box.append(est)
+                return warm(est)
+
+            model, ms, launched = fit(spec, rows, p, sharded, 2, setup)
+            assert est_box[-1].last_execution_path == engine, (
+                est_box[-1].last_execution_path)
+            fits[p, sharded] = (model, ms, launched)
+        (m1, ms1, l1), (m8, ms8, l8), (s8, mss8, ls8) = (
+            fits[1, False], fits[8, False], fits[8, True])
+        if kernel:
+            assert l1 == {kernel: 2 * b}, l1
+            assert l8 == {kernel: 2 * 8 * b, "reduce_partials": b}, l8
+            assert ls8 == l8, ls8
+        else:
+            assert l1 == {} and l8 == {"reduce_partials": b} == ls8, (l1, l8)
+        np.testing.assert_allclose(s8.coefficients, m8.coefficients,
+                                   rtol=1e-5, atol=1e-7)
+        diff = np.abs(m8.coefficients - m1.coefficients)
+        assert m8.model_version == m1.model_version == b
+        assert np.all(diff <= BIG_FIT_RTOL * np.abs(m1.coefficients)
+                      + BIG_FIT_ATOL), diff.max()
+        log(f"  FTRL {kind} ({rows.num_rows} rows, {b} batches): fit ms 1 "
+            f"shard {ms1:.3f}, 8 shards {ms8:.3f}, 8 sharded {mss8:.3f} "
+            f"(bit-identical to replicated: "
+            f"{same(s8.coefficients, m8.coefficients)}); launches 1 shard "
+            f"{l1}, 8 shards {l8}; 8 against 1 shard max|coeff diff|="
+            f"{diff.max():.3g} (max|coeff|={np.abs(m1.coefficients).max():.3g})")
+        summary[f"FTRL {kind}"] = {"p1_ms": ms1, "p8_ms": ms8,
+                                   "p8_sharded_ms": mss8, "p1_launches": l1,
+                                   "p8_launches": l8}
+        del rows
+    del table, margin
+    torch.cuda.empty_cache()
+
+    # (d) a small fit with uneven local batches and a padded last shard
+    # (4,003 rows of 20, global batch 801) on 8 shards: card against CPU
+    from flink_ml_tpu_torch.models.classification import LogisticRegression
+
+    small = _small_linear_table(Table, 41, 4003, 20, False)
+    for sharded in (False, True):
+        fitted = {}
+        with mock.patch.dict(os.environ, {upd.ENV: str(int(sharded))}):
+            for dev in ("cuda", "cpu"):
+                est = LogisticRegression(
+                    device=dev, mesh=create_mesh((8,), devices=[dev] * 8),
+                    max_iter=15, global_batch_size=801, learning_rate=0.05,
+                    reg=0.01, elastic_net=0.3, weight_col="weight")
+                fitted[dev] = est.fit(small).coefficients
+        np.testing.assert_allclose(fitted["cuda"], fitted["cpu"],
+                                   rtol=SMALL_RTOL, atol=SMALL_ATOL)
+    log("  LR on 8 shards, 4,003 x 20, global batch 801 (local batches 101 "
+        "and 100, last shard 500 of 501 rows): card and CPU agree, "
+        "replicated and sharded")
+
+    counts = dict(K.launch_counts)
+    log(f"  launches in the data-parallel run: {counts}")
+    log("  data-parallel:", json.dumps(summary, sort_keys=True))
+    for kern in PATH_KERNELS["parallel"]:
+        assert counts[kern] >= 1, counts
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1704,6 +2017,7 @@ def main() -> int:
     counts["knn"] = phase_knn_main_path(K, runner, Table)
     counts["ftrl"] = phase_ftrl_main_path(K, runner, Table)
     counts["iteration"] = phase_iteration_modes(K, runner, Table)
+    counts["parallel"] = phase_parallel(K, runner, optimizer, Table)
 
     line = {"kernels": [
         {"name": name, **{key: K.KERNELS[name][key]

@@ -9,8 +9,13 @@ The port of ``flink_ml_tpu/api/stage.py`` (ref: flink-ml-core/.../ml/api/):
       └─ Estimator.fit(*tables) -> Model
 
 Every stage takes ``device=`` (see ``flink_ml_tpu_torch.device``): ``None``
-runs on the CUDA card. The tracing and profiling wrapper the JAX package
-puts around fit and transform comes with the observability slice.
+runs on the CUDA card. An estimator also takes ``mesh=``, the data shards
+its fit splits the rows over (``parallel/mesh.py``; a runtime setting like
+the device, not a param, not saved); ``None`` is the default mesh, one shard
+on the stage's device unless
+:func:`~flink_ml_tpu_torch.parallel.set_default_mesh` or
+``init_distributed`` set another. The tracing and profiling wrapper the JAX
+package puts around fit and transform comes with the observability slice.
 """
 
 from __future__ import annotations
@@ -80,6 +85,18 @@ class Model(Transformer):
 
 class Estimator(Stage):
     """fit(*tables) -> Model (ref: Estimator.java)."""
+
+    def __init__(self, mesh=None, **kwargs):
+        super().__init__(**kwargs)
+        self._mesh = mesh
+
+    @property
+    def mesh(self):
+        """The mesh this estimator fits on, resolved at each call
+        (``parallel.mesh.resolve_mesh``)."""
+        from flink_ml_tpu_torch.parallel.mesh import resolve_mesh
+
+        return resolve_mesh(self._mesh, self._device)
 
     def fit(self, *inputs: Table) -> Model:
         raise NotImplementedError

@@ -14,9 +14,11 @@ trainer (``set_initial_model_data``) or becomes a Model's model data
 
 It reads the JAX package's config files in place as data, e.g.
 ``flink_ml_tpu/benchmark/configs/kmeans-benchmark.json``. Timing ends with a
-``torch.cuda.synchronize()``. The row names the device it ran on; the mesh,
-native-kernel and compile provenance of the JAX rows has no counterpart
-here yet and is left out.
+``torch.cuda.synchronize()``. The row names the device it ran on and, as the
+JAX rows do, the mesh an estimator fitted on (:func:`_mesh_provenance`:
+``deviceCount``, ``meshShape``, ``updateSharding``,
+``optStateBytesPerReplica``); the native-kernel and compile provenance of
+the JAX rows has no counterpart here yet and is left out.
 
     python -m flink_ml_tpu_torch.benchmark.runner CONFIG [--device cpu]
 """
@@ -37,6 +39,7 @@ from flink_ml_tpu_torch.api.stage import AlgoOperator, Estimator, Stage
 from flink_ml_tpu_torch.benchmark.datagen import resolve_generator
 from flink_ml_tpu_torch.device import DeviceLike, resolve_device, synchronize
 from flink_ml_tpu_torch.linalg.sparse import is_csr_column
+from flink_ml_tpu_torch.parallel import update_sharding
 
 _STAGES: Dict[str, type] = {}
 
@@ -81,9 +84,12 @@ def load_config(path: str) -> dict:
     return config
 
 
-def build_stage(spec: dict, device: DeviceLike = None) -> Stage:
-    """The spec's stage, with its params, on ``device``."""
-    stage = resolve_stage(spec["stage"]["className"])(device=device)
+def build_stage(spec: dict, device: DeviceLike = None, mesh=None) -> Stage:
+    """The spec's stage, with its params, on ``device``; an estimator fits on
+    ``mesh`` (default: the default mesh, ``parallel/mesh.py``)."""
+    cls = resolve_stage(spec["stage"]["className"])
+    stage = (cls(device=device, mesh=mesh) if issubclass(cls, Estimator)
+             else cls(device=device))
     stage.params_from_json(spec["stage"].get("paramMap", {}), strict=True)
     return stage
 
@@ -96,10 +102,25 @@ def build_generator(spec: dict, device: DeviceLike = None, key="inputData"):
     return gen
 
 
-def run_benchmark(name: str, spec: dict, device: DeviceLike = None) -> dict:
-    """One named benchmark, datagen included in the measured time."""
+def _mesh_provenance(mesh) -> dict:
+    """``deviceCount`` (distinct physical devices) and ``meshShape``
+    (``"data=8"``) of the mesh the fit ran on, ``updateSharding`` (whether
+    the cross-replica sharded update was armed) and
+    ``optStateBytesPerReplica`` (the per-replica update-state bytes the fit
+    recorded; 1/N of the optimizer state when sharded): the JAX rows' mesh
+    provenance (``flink_ml_tpu/benchmark/runner.py:201-230``)."""
+    return {"deviceCount": mesh.device_count,
+            "meshShape": ",".join(f"{a}={n}" for a, n in mesh.shape.items()),
+            **update_sharding.provenance()}
+
+
+def run_benchmark(name: str, spec: dict, device: DeviceLike = None,
+                  mesh=None) -> dict:
+    """One named benchmark, datagen included in the measured time; an
+    estimator fits on ``mesh`` (default: the default mesh)."""
     device = resolve_device(device)
-    stage = build_stage(spec, device)
+    update_sharding.reset_last()
+    stage = build_stage(spec, device, mesh)
     if not isinstance(stage, (Estimator, AlgoOperator)):
         raise ValueError(f"{name}: unsupported stage class {type(stage)}")
     gen = build_generator(spec, device)
@@ -150,6 +171,8 @@ def run_benchmark(name: str, spec: dict, device: DeviceLike = None) -> dict:
         "achievedGBps": input_bytes / max(exec_ms, 1e-9) / 1e6,
         **({"executionPath": stage.last_execution_path}
            if getattr(stage, "last_execution_path", None) else {}),
+        **(_mesh_provenance(stage.mesh) if isinstance(stage, Estimator)
+           else {}),
     }
 
 

@@ -19,10 +19,12 @@ everything else (tensors, numpy arrays, numpy and Python scalars) a leaf.
 ``torch.utils._pytree`` keeps dicts in insertion order, which would change
 the leaf order, so the port walks its own.
 
-Placement: a save copies each tensor leaf to the host once (``.cpu()``);
-:meth:`CheckpointManager._place` puts a restored leaf onto its template
-leaf's device and dtype; a numpy or Python template leaf gets the host
-array as it is.
+Placement: a save copies each tensor leaf to the host once (``.cpu()``),
+and writes a dim-0-sharded leaf (``parallel.update_sharding.Sharded``) as
+its global (padded) view, as the JAX package's ``np.asarray`` of a sharded
+leaf does; :meth:`CheckpointManager._place` puts a restored leaf onto its
+template leaf's device and dtype, and a sharded one back onto its mesh's
+layout; a numpy or Python template leaf gets the host array as it is.
 
 Failure behavior: ``restore()`` validates the newest checkpoint against its
 manifest and, on any corruption (missing or unreadable manifest or leaves,
@@ -125,6 +127,16 @@ def _leaf_digest(arr: np.ndarray) -> Optional[str]:
     if arr.dtype == object:  # pointer bytes are not content: no digest
         return None
     return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def _host_leaf(leaf) -> np.ndarray:
+    """A carry leaf as the host array a checkpoint holds: a tensor comes to
+    the host once, through ``.cpu()``; a sharded leaf as its global view."""
+    if hasattr(leaf, "global_view"):
+        leaf = leaf.global_view()
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
 
 
 def _fsync_path(path: str) -> None:
@@ -287,9 +299,7 @@ class CheckpointManager:
         ckpt_dir = os.path.join(self.base_dir, f"ckpt-{epoch:08d}")
         tmp_dir = ckpt_dir + ".tmp"
         os.makedirs(tmp_dir, exist_ok=True)
-        # a tensor leaf comes to the host once, through .cpu()
-        host_leaves = [x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
-                       else np.asarray(x) for x in leaves]
+        host_leaves = [_host_leaf(x) for x in leaves]
         leaves_path = os.path.join(tmp_dir, "leaves.npz")
         np.savez(leaves_path,
                  **{f"leaf_{i}": x for i, x in enumerate(host_leaves)})
@@ -352,8 +362,11 @@ class CheckpointManager:
         return list_checkpoint_names(self.base_dir)
 
     def _place(self, host: np.ndarray, tmpl):
-        """One restored host leaf onto the template leaf's device and dtype;
-        a numpy or Python template leaf gets the host array as it is."""
+        """One restored host leaf onto the template leaf's device and dtype
+        (a sharded template leaf: onto its mesh's layout); a numpy or Python
+        template leaf gets the host array as it is."""
+        if hasattr(tmpl, "like_global"):
+            return tmpl.like_global(host)
         if isinstance(tmpl, torch.Tensor):
             return torch.as_tensor(host, dtype=tmpl.dtype, device=tmpl.device)
         return host
@@ -370,8 +383,8 @@ class CheckpointManager:
                 host_leaves, epoch = load_validated(ckpt_dir, len(t_leaves))
                 if self.repad_dim0:
                     host_leaves = [
-                        repad_leading(h, t.shape if isinstance(
-                            t, torch.Tensor) else np.shape(t))
+                        repad_leading(h, t.shape if hasattr(t, "shape")
+                                      else np.shape(t))
                         for h, t in zip(host_leaves, t_leaves)]
             except CorruptCheckpoint as e:
                 quarantine_checkpoint(ckpt_dir, str(e))

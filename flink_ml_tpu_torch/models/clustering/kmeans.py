@@ -12,9 +12,13 @@ KMeansModelData.java, KMeansParams.java}):
 - termination: maxIter rounds (TerminateOnMaxIter);
 - predict: nearest-centroid index.
 
-The input moves to the device once; the rounds run through the iteration
-runtime (``iteration/iteration.py``) with the carry ``(centroids, counts)``:
-as a Python loop over device tensors with no host synchronisation until the
+The input moves to the device once, split by rows over the estimator's mesh
+(``parallel/``; by default one shard), and each round sums the shards'
+partials over the mesh (or, with ``FLINK_ML_TPU_UPDATE_SHARDING=1``, updates
+the centroid rows sharded, ``parallel/update_sharding.py``); sharding only
+reassociates the sums. The rounds run through the iteration runtime
+(``iteration/iteration.py``) with the carry ``(centroids, counts)``: as a
+Python loop over device tensors with no host synchronisation until the
 final centroids are fetched (``cuda-lloyd``), as K-round segments between
 checkpoints (``-segments``), or as host rounds with listeners (``-rounds``);
 the same rounds in the same order, so every mode gives the same bits. For
@@ -41,6 +45,9 @@ from flink_ml_tpu_torch.linalg.distance import DistanceMeasure
 from flink_ml_tpu_torch.models.common import IterationRuntimeMixin
 from flink_ml_tpu_torch.observability.health import guard_final_state
 from flink_ml_tpu_torch.ops import kernels
+from flink_ml_tpu_torch.parallel import collective as C
+from flink_ml_tpu_torch.parallel import update_sharding as _upd
+from flink_ml_tpu_torch.parallel.mesh import Mesh
 from flink_ml_tpu_torch.params.param import IntParam, ParamValidators, StringParam
 from flink_ml_tpu_torch.params.shared import (
     HasDistanceMeasure,
@@ -84,28 +91,64 @@ def _measure_partials(measure: DistanceMeasure) -> Partials:
     return partials
 
 
-def lloyd_round(partials_fn: Partials, x: torch.Tensor, v: torch.Tensor,
-                centroids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One Lloyd round — the port's ``_lloyd_round_math``: the local
-    [weighted sums | counts], then the renormalization in which an empty
-    cluster keeps its position (ref CentroidsUpdateAccumulator)."""
-    packed = partials_fn(x, v, centroids)
-    sums, counts = packed[:, :-1], packed[:, -1]
-    new = torch.where(counts[:, None] > 0,
-                      sums / torch.clamp_min(counts[:, None], 1), centroids)
-    return new, counts
+def _renormalize(sums, counts, centroids):
+    """ref CentroidsUpdateAccumulator: the mean of each cluster's rows; an
+    empty cluster keeps its position."""
+    return torch.where(counts[:, None] > 0,
+                       sums / torch.clamp_min(counts[:, None], 1), centroids)
 
 
-def initial_centroids(x: torch.Tensor, k: int, seed: int) -> torch.Tensor:
-    """k distinct random rows of x (ref selectRandomCentroids), drawn with
-    numpy's ``default_rng(seed).choice`` as the JAX package draws them; with
-    fewer rows than clusters the rows repeat cyclically."""
+def lloyd_round(partials_fn: Partials, x, v, centroids: torch.Tensor,
+                mesh=None, sharded: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One Lloyd round, the port of ``_lloyd_round_math``: each local
+    shard's [weighted sums | counts] (``x`` and ``v`` are lists of the
+    shards' rows and weights, or one shard's tensors), their sum over the
+    mesh, then the renormalization. With ``sharded`` the centroid update is
+    cross-replica sharded: the (k, d+1) partials reduce-scatter over
+    centroid rows padded to the shard multiple (padded rows count 0), each
+    shard renormalizes its own rows, and the centroids all-gather and are
+    trimmed to k."""
+    if isinstance(x, torch.Tensor):
+        x, v = [x], [v]
+    mesh = mesh if mesh is not None else Mesh([centroids.device])
+    parts = [partials_fn(xs, vs, centroids.to(xs.device))
+             for xs, vs in zip(x, v)]
+    if not sharded:
+        packed = C.sum_shards(parts, mesh)
+        sums, counts = packed[:, :-1], packed[:, -1]
+        return _renormalize(sums, counts, centroids), counts
+    stack = C.stack_shards(mesh, parts)
+    k = centroids.shape[0]
+    kp = _upd.padded_len(k, mesh.size)
+
+    def apply_fn(p_slice, c_slice, _state):
+        sums, counts = p_slice[:, :-1], p_slice[:, -1]
+        return (_renormalize(sums, counts, c_slice), counts[:, None]), None
+
+    (new_c, counts_col), _ = _upd.sharded_apply(
+        mesh, _upd.pad_leading(stack, kp, dim=1),
+        _upd.pad_leading(centroids, kp), None, apply_fn)
+    return new_c[:k], counts_col[:k, 0]
+
+
+def initial_centroids(x, k: int, seed: int,
+                      device: Optional[torch.device] = None) -> torch.Tensor:
+    """k distinct random rows of x (a tensor or a host array; ref
+    selectRandomCentroids), drawn with numpy's ``default_rng(seed).choice``
+    as the JAX package draws them, float32 on ``device`` (default: x's);
+    with fewer rows than clusters the rows repeat cyclically."""
     n = x.shape[0]
     rng = np.random.default_rng(seed)
     idx = rng.choice(n, size=min(k, n), replace=False)
     if len(idx) < k:
         idx = np.resize(idx, k)
-    return x[torch.as_tensor(idx, device=x.device)].clone()
+    if isinstance(x, torch.Tensor):
+        rows = x[torch.as_tensor(idx, device=x.device)]
+    else:
+        rows = torch.as_tensor(np.asarray(x)[idx])
+    return rows.to(device=device or rows.device,
+                   dtype=torch.float32).clone()
 
 
 class KMeansModel(Model, KMeansModelParams):
@@ -169,11 +212,17 @@ class KMeans(Estimator, KMeansParams, IterationRuntimeMixin):
         return self._supervised_fit(lambda: self._fit_once(table))
 
     def _fit_once(self, table: Table) -> KMeansModel:
-        device = self.device
-        x = _on_device(table.vectors(self.features_col), device)
-        n, dim = x.shape
+        mesh = self.mesh
+        features = table.vectors(self.features_col)
+        rows = C.ensure_on_mesh(mesh, features)
+        x = rows.parts
+        device = x[0].device
+        dim = x[0].shape[1]
         k = self.k
-        v = torch.ones(n, dtype=torch.float32, device=device)
+        v = C.ones_on_mesh(mesh, rows.n).parts
+        # the cross-replica sharded centroid update (update_sharding.py);
+        # the carry stays (k, d) either way
+        sharded = _upd.enabled()
 
         if (self.distance_measure == "euclidean"
                 and kernels.lloyd_kernel_fits(k, dim)):
@@ -186,7 +235,7 @@ class KMeans(Estimator, KMeansParams, IterationRuntimeMixin):
 
         def body(carry, epoch):
             centroids, _ = carry
-            return lloyd_round(partials_fn, x, v, centroids)
+            return lloyd_round(partials_fn, x, v, centroids, mesh, sharded)
 
         config, listeners = self._iteration_config, self._iteration_listeners
         if iteration.device_checkpoint_segment(config, listeners):
@@ -195,7 +244,8 @@ class KMeans(Estimator, KMeansParams, IterationRuntimeMixin):
             path += "-rounds"
         # a fresh carry per attempt, the JAX package's leaves: (centroids
         # (k, d) f32, counts (k,) f32); the rounds never update it in place
-        init = (initial_centroids(x, k, self.get_seed_or_default()),
+        init = (initial_centroids(features, k, self.get_seed_or_default(),
+                                  device),
                 torch.zeros(k, dtype=torch.float32, device=device))
         centroids, counts = iteration.iterate_bounded(
             init, body, max_iter=self.max_iter, config=config,
@@ -203,6 +253,10 @@ class KMeans(Estimator, KMeansParams, IterationRuntimeMixin):
         # benchmark provenance (runner.py executionPath)
         self.last_execution_path = path
 
+        # per-replica update-state accounting (benchmark provenance): the
+        # centroid carry is all-gathered every round, so it is full size
+        _upd.record_state_bytes("KMeans", (centroids, counts), mesh.size,
+                                sharded)
         # the one host synchronisation of the fit
         centroids = centroids.cpu().numpy().astype(np.float64)
         counts = counts.cpu().numpy().astype(np.float64)

@@ -199,10 +199,9 @@ class LinearEstimatorBase(Estimator, LinearTrainParams,
             eps=self.epsilon)
         sgd = SGD(params)
         coeffs, _ = sgd.optimize(self.loss, np.zeros(x.shape[1], np.float32),
-                                 x, y, w, device=self.device,
-                                 config=self._iteration_config,
+                                 x, y, w, config=self._iteration_config,
                                  listeners=self._iteration_listeners,
-                                 tag=type(self).__name__)
+                                 tag=type(self).__name__, mesh=self.mesh)
         # benchmark provenance (runner.py executionPath): cuda-sgd[-...]
         # when the rounds ran the kernel, torch-sgd[-...] its plain version
         self.last_execution_path = sgd.last_execution_path

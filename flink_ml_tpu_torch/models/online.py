@@ -12,8 +12,8 @@ the model version goes up by one per batch (CreateLrModelData:235-258).
 
 A batch runs on one of three engines, each named in ``executionPath``:
 
-- ``torch-dense``: a dense batch, on the estimator's device in plain
-  PyTorch (two matrix-vector products and the elementwise rule).
+- ``torch-dense``: a dense batch, on the devices of the estimator's mesh in
+  plain PyTorch (two matrix-vector products and the elementwise rule).
 - ``cuda-csr``: a sparse batch with at least :data:`FTRL_SPARSE_MIN_NNZ`
   stored values, on the card: its three segment sums (the per-row dots, then
   the per-coordinate gradient and weight sums as two value columns) run the
@@ -32,8 +32,17 @@ every ``checkpoint_interval`` batches, and a fit restores the newest valid
 snapshot before it reads the stream (``iteration/streaming.py``). A retry
 policy is stored and, as in the JAX package, not applied to the stream.
 
-One device and no mesh: the sharded update, the health series and the drift
-and quality baselines come with later slices of the port.
+The device engines run on the estimator's mesh (``parallel/``; by default
+one shard), as the JAX package's ``_ftrl_program`` and
+``_ftrl_sparse_program`` do: a batch's rows are split over the shards
+(dense: contiguous row views; device CSR: one :func:`_pack_csr_shards` row
+range per shard), each shard computes its gradient partial, and the partials
+are summed over the mesh. With ``FLINK_ML_TPU_UPDATE_SHARDING=1`` the sum is
+reduce-scattered and each shard updates its 1/N slice of w, z and n; z and n
+stay sharded between batches, while the host view and the checkpoints stay
+the trimmed (d,) float64 arrays in both modes. The host engine keeps its own
+row-range split. The health series and the drift and quality baselines come
+with later slices of the port.
 """
 
 from __future__ import annotations
@@ -59,6 +68,9 @@ from flink_ml_tpu_torch.models.common import (
 )
 from flink_ml_tpu_torch.observability.health import guard_final_state
 from flink_ml_tpu_torch.ops import kernels
+from flink_ml_tpu_torch.parallel import collective as C
+from flink_ml_tpu_torch.parallel import mapreduce as mr
+from flink_ml_tpu_torch.parallel import update_sharding as _upd
 from flink_ml_tpu_torch.params.param import FloatParam, ParamValidators
 from flink_ml_tpu_torch.params.shared import (
     HasBatchStrategy,
@@ -107,41 +119,100 @@ def _ftrl_apply(xp, g, coeffs, z, n, alpha, beta, l1, l2):
     return coeffs, z, n
 
 
-def _dense_step(x, y, coeffs, z, n, alpha, beta, l1, l2):
-    """One dense batch (x (rows, d), y (rows,) float32 on the state's
-    device): the gradient sum over the batch divided by its row count."""
-    dots = x @ coeffs
-    p = 1.0 / (1.0 + torch.exp(-dots))
-    g = ((p - y) @ x) / max(float(x.shape[0]), 1.0)
-    return _ftrl_apply(torch, g, coeffs, z, n, alpha, beta, l1, l2)
+def _sigmoid(dots: torch.Tensor) -> torch.Tensor:
+    return 1.0 / (1.0 + torch.exp(-dots))
 
 
-def _sparse_step(packed, coeffs, z, n, alpha, beta, l1, l2):
-    """One sparse batch on the device: the twin of the host engine
-    (gradient and weight sums accumulate only at a row's stored values).
-    ``packed`` is one shard of :func:`_pack_csr_shards` as tensors; padded
-    slots carry validity 0 and padded rows own no slot."""
-    vals, col, row, valid, yb, wb = packed
-    rows_s, d = yb.shape[0], coeffs.shape[0]
-    rl = row.long()
-    dots = kernels.segment_reduce_sum(vals * coeffs[col.long()] * valid, row,
-                                      rows_s)
-    p = 1.0 / (1.0 + torch.exp(-dots))
-    # gradient and weight sums share one pass: two value columns
-    gw = kernels.segment_reduce_sum(torch.stack([vals * (p - yb)[rl] * valid,
-                                                 wb[rl] * valid], dim=1),
-                                    col, d)
-    grad, wsum = gw[:, 0], gw[:, 1]
-    g = torch.where(wsum != 0, grad / torch.where(wsum != 0, wsum, 1.0), 0.0)
-    return _ftrl_apply(torch, g, coeffs, z, n, alpha, beta, l1, l2)
+def _true_width(coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The coefficients a shard's rows multiply: the first ``x.shape[1]``
+    (the sharded update pads the state), on x's device."""
+    d = x.shape[1]
+    c = coeffs if coeffs.shape[0] == d else coeffs[:d]
+    return c if c.device == x.device else c.to(x.device)
+
+
+def _ftrl_update(mesh, sharded: bool, g, coeffs, z, n, hyper):
+    """The FTRL rule on the reduced gradient ``g``: on the whole state, or,
+    with ``sharded``, on each shard's slices (``g`` then holds this
+    process's reduce-scattered slices and z, n are
+    :class:`~update_sharding.Sharded`), the coefficients all-gathered."""
+    if not sharded:
+        return _ftrl_apply(torch, g, coeffs, z, n, *hyper)
+
+    def apply_fn(g_slice, c_slice, zn):
+        w2, z2, n2 = _ftrl_apply(torch, g_slice, c_slice, zn[0], zn[1],
+                                 *hyper)
+        return w2, (z2, n2)
+
+    w, (z, n) = _upd.apply_slices(mesh, g, coeffs, (z, n), apply_fn)
+    return w, z, n
+
+
+def _ftrl_program(mesh, hyper, sharded: bool):
+    """One dense FTRL batch as a map-reduce program over the mesh, the port
+    of ``_ftrl_program``: ``step(shard_args, n_rows, coeffs, z, n) ->
+    (coeffs, z, n)``, ``shard_args`` each shard's (x, y) rows. The map is
+    the shard's gradient ``Σ (σ(x·w) − y)·x`` (padded to the state's
+    length), the reduce a sum (reduce-scattered with ``sharded``), the
+    update the FTRL rule on the gradient divided by the batch's row count
+    (the dense branch of CalculateLocalGradient:364-388, which ignores the
+    weight column)."""
+    prog = mr.MapReduceProgram(mesh)
+
+    def map_fn(shard, x, y, n_rows, coeffs, z, n):
+        p = _sigmoid(x @ _true_width(coeffs, x))
+        return {"grad": _upd.pad_leading((p - y) @ x, coeffs.shape[0])}
+
+    def update_fn(red, n_rows, coeffs, z, n):
+        g = red["grad"] / max(float(n_rows), 1.0)
+        return _ftrl_update(mesh, sharded, g, coeffs, z, n, hyper)
+
+    return prog.build(map_fn, update_fn, reduce={
+        "grad": mr.reduce_scatter if sharded else mr.reduce_sum})
+
+
+def _ftrl_sparse_program(mesh, hyper, sharded: bool):
+    """One sparse FTRL batch on the device as a map-reduce program, the
+    port of ``_ftrl_sparse_program`` and the twin of the host engine:
+    ``step(shard_args, coeffs, z, n) -> (coeffs, z, n)``, ``shard_args``
+    each shard's :func:`_pack_csr_shards` row as tensors. The map is the
+    shard's segment sums on the card's ``segment_reduce_sum`` kernel: the
+    per-row dots, then the per-coordinate gradient and weight sums as two
+    value columns, accumulated only at a row's stored values; padded slots
+    carry validity 0 and padded rows own no slot. The reduce sums the
+    (d, 2) gradient and weight columns (reduce-scattered with
+    ``sharded``); the update divides by the weight sum where it is not
+    0."""
+    prog = mr.MapReduceProgram(mesh)
+
+    def map_fn(shard, vals, col, row, valid, yb, wb, coeffs, z, n):
+        rl = row.long()
+        c = coeffs if coeffs.device == vals.device else coeffs.to(vals.device)
+        dots = kernels.segment_reduce_sum(vals * c[col.long()] * valid, row,
+                                          yb.shape[0])
+        p = _sigmoid(dots)
+        # gradient and weight sums share one pass: two value columns
+        return {"gw": kernels.segment_reduce_sum(
+            torch.stack([vals * (p - yb)[rl] * valid, wb[rl] * valid], dim=1),
+            col, c.shape[0])}
+
+    def update_fn(red, coeffs, z, n):
+        gw = red["gw"]
+        grad, wsum = gw[..., 0], gw[..., 1]
+        g = torch.where(wsum != 0, grad / torch.where(wsum != 0, wsum, 1.0),
+                        0.0)
+        return _ftrl_update(mesh, sharded, g, coeffs, z, n, hyper)
+
+    return prog.build(map_fn, update_fn, reduce={
+        "gw": mr.reduce_scatter if sharded else mr.reduce_sum})
 
 
 def _pack_csr_shards(x, y, w, n_shards: int):
     """Split a scipy CSR batch into ``n_shards`` row ranges and pack each
     as padded (values, col, local row, valid) rows of one (S, nnz_s) quad
     plus (S, rows_s) y/w blocks, nnz_s and rows_s rounded up to powers of
-    two: the host marshalling of the sparse device engine (one shard on one
-    device)."""
+    two: the host marshalling of the sparse device engine, one row per data
+    shard."""
     n_rows = x.shape[0]
     base, rem = divmod(n_rows, n_shards)
     bounds, lo = [], 0
@@ -368,36 +439,52 @@ class OnlineLogisticRegression(Estimator, OnlineLogisticRegressionParams,
             self._initial_model_data)
         coeffs = np.array(seed.coefficients, np.float64)
         version = seed.model_version
-        device = self.device
+        d = coeffs.shape[0]  # the model's width; the device state may pad
+        mesh = self.mesh
+        device = mesh.devices[mesh.local_shards[0]]
         hyper = (self.alpha, self.beta, self.elastic_net * self.reg,
                  (1.0 - self.elastic_net) * self.reg)
+        # the cross-replica sharded update: z and n live on the device as
+        # 1/N slices per shard, coefficients padded to the shard multiple
+        sharded = _upd.enabled()
+        dp = _upd.padded_len(d, mesh.size) if sharded else d
+        dense_step = _ftrl_program(mesh, hyper, sharded)
+        sparse_step = _ftrl_sparse_program(mesh, hyper, sharded)
         z = np.zeros_like(coeffs)
         n = np.zeros_like(coeffs)
         history: List[Tuple[int, object]] = []
         ckpt = StreamCheckpointer(self._iteration_config,
                                   self._iteration_listeners)
-        state_dev = None  # (coeffs, z, n) float32 on the device, or None
+        # (coeffs, z, n) float32 on the device, or None; with the sharded
+        # update z and n are Sharded. The host view is the trimmed (d,)
+        # float64 arrays either way, so checkpoints do not depend on it
+        state_dev = None
         dev_pending: List[int] = []  # history entries still on the device
 
         def to_host():
             nonlocal coeffs, z, n, state_dev
             if state_dev is not None:
-                coeffs, z, n = (a.cpu().numpy().astype(np.float64)
-                                for a in state_dev)
+                coeffs, z, n = (
+                    (a.global_view() if isinstance(a, _upd.Sharded) else a)
+                    .cpu().numpy().astype(np.float64)[:d] for a in state_dev)
                 state_dev = None
 
         def device_state():
             if state_dev is not None:
                 return state_dev
-            return tuple(torch.as_tensor(a, dtype=torch.float32, device=device)
+            w, zz, nn = (torch.as_tensor(np.pad(a, (0, dp - d)),
+                                         dtype=torch.float32, device=device)
                          for a in (coeffs, z, n))
+            if sharded:
+                zz, nn = _upd.place_opt_state(mesh, (zz, nn))
+            return w, zz, nn
 
         def materialize_history():
             if dev_pending:
                 stacked = torch.stack([history[i][1] for i in dev_pending])
                 stacked = stacked.cpu().numpy().astype(np.float64)
                 for j, i in enumerate(dev_pending):
-                    history[i] = (history[i][0], stacked[j])
+                    history[i] = (history[i][0], stacked[j][:d])
                 dev_pending.clear()
 
         def pack():
@@ -417,9 +504,17 @@ class OnlineLogisticRegression(Estimator, OnlineLogisticRegressionParams,
             version = int(version)
             history[:] = [(int(v), c) for v, c in zip(hv, hc)]
 
+        state_recorded = False
+
         def commit_device_state(new_state):
-            nonlocal state_dev, version
+            nonlocal state_dev, version, state_recorded
             state_dev = new_state
+            if not state_recorded:
+                # per-replica optimizer-state bytes (benchmark provenance),
+                # measured from the committed z/n buffers
+                state_recorded = True
+                _upd.record_state_bytes(type(self).__name__, new_state[1:],
+                                        mesh.size, sharded)
             version += 1
             dev_pending.append(len(history))
             history.append((version, state_dev[0]))
@@ -434,12 +529,13 @@ class OnlineLogisticRegression(Estimator, OnlineLogisticRegressionParams,
             # branch is float64 whatever is asked
             x = sparse.features_matrix(batch, self.features_col, np.float32)
             if not sparse.is_csr(x):
-                xb = torch.as_tensor(x, dtype=torch.float32,
-                                     device=device).contiguous()
-                yb = torch.as_tensor(scalar_column(batch, self.label_col),
-                                     dtype=torch.float32, device=device)
-                commit_device_state(_dense_step(xb, yb, *device_state(),
-                                                *hyper))
+                # the batch's rows split over the mesh, each shard's rows a
+                # view of the batch placed once
+                xb = C.ensure_on_mesh(mesh, x).parts
+                yb = C.ensure_on_mesh(
+                    mesh, scalar_column(batch, self.label_col)).parts
+                commit_device_state(dense_step(list(zip(xb, yb)), x.shape[0],
+                                               *device_state()))
                 batches["torch-dense"] += 1
                 continue
             y = batch.scalars(self.label_col, np.float64)
@@ -448,10 +544,13 @@ class OnlineLogisticRegression(Estimator, OnlineLogisticRegressionParams,
                      and self.weight_col in batch
                      else np.ones(x.shape[0], np.float64))
             if x.nnz >= FTRL_SPARSE_MIN_NNZ:
-                packed = tuple(torch.as_tensor(a[0], device=device)
-                               for a in _pack_csr_shards(x, y, w_col, 1))
-                commit_device_state(_sparse_step(packed, *device_state(),
-                                                 *hyper))
+                # one row range of the batch per shard, packed on the host
+                packed = _pack_csr_shards(x, y, w_col, mesh.size)
+                shard_args = [tuple(torch.as_tensor(a[s],
+                                                    device=mesh.devices[s])
+                                    for a in packed)
+                              for s in mesh.local_shards]
+                commit_device_state(sparse_step(shard_args, *device_state()))
                 batches["cuda-csr" if device.type == "cuda"
                         else "torch-csr"] += 1
                 continue

@@ -4,25 +4,32 @@ The port of the dense, all-device fit of ``flink_ml_tpu/ops/optimizer.py``
 (ref: flink-ml-lib/.../common/optimizer/SGD.java:67), with the same
 semantics:
 
-- the local batch is ``globalBatchSize`` rows, sliced in order from the data
-  with clip-at-end and wrap-to-zero (SGD.java:206-213, 262-284): the window
-  of the last round before a wrap is pulled back to end at the last row,
-  and the rows it repeats weigh 0;
-- per round: the minibatch's ``[Σ grad | Σ w | Σ loss]``, then the update
-  rule (sgd, momentum or adam), then regularization (SGD.java:231-243); a
-  round whose weights sum to 0 changes neither the coefficients nor the
-  moments;
+- the rows are split over a mesh's data shards as contiguous blocks of
+  ``ceil(n/p)`` rows (``parallel/``); each shard takes a local batch of
+  ``globalBatchSize/p`` rows (+1 for the first ``globalBatchSize%p``
+  shards), sliced in order from its own rows with clip-at-end and
+  wrap-to-zero (SGD.java:206-213, 262-284): the window of the last round
+  before a wrap is pulled back to end at the shard's last row, and the rows
+  it repeats weigh 0;
+- per round: the shards' ``[Σ grad | Σ w | Σ loss]`` summed over the mesh,
+  then the update rule (sgd, momentum or adam), then regularization
+  (SGD.java:231-243); a round whose weights sum to 0 changes neither the
+  coefficients nor the moments. With the sharded update the gradient is
+  reduce-scattered and each shard updates its slice of the coefficients and
+  of the moments, which stay sharded (``parallel/update_sharding.py``);
 - termination: ``maxIter`` rounds, or the round whose data loss
   ``loss / Σ w`` falls below ``tol``.
 
-The schedule depends only on (n, batch), so it is Python ints, and the fit
-is a Python loop of rounds over device tensors: one ``sgd_batch_terms``
-call (``ops/kernels.py``) and the shared update tail per round. The tol stop
-is a mask, as in the JAX package's unrolled program: rounds after it run and
-are discarded by ``torch.where``, so the fit never waits for the device
-until it fetches the final coefficients and loss, once. The JAX package's
-while program for more than 64 rounds gives the same results by
-construction, so this one loop serves every ``maxIter``.
+The schedule depends only on (n, p, batch), so it is Python ints
+(:class:`ShardSchedule`), and the fit is a Python loop of rounds over device
+tensors: one ``sgd_batch_terms`` call (``ops/kernels.py``) per shard, the
+cross-shard sum, and the shared update tail per round. The tol stop is a
+mask, as in the JAX package's unrolled program: rounds after it run and are
+discarded by ``torch.where``, so the fit never waits for the device until it
+fetches the final coefficients and loss, once. The JAX package's while
+program for more than 64 rounds gives the same results by construction, so
+this one loop serves every ``maxIter``. The default mesh is one shard, whose
+fit is the one-device fit, launch for launch.
 
 With an ``IterationConfig`` the same rounds run through the iteration
 runtime (``iteration/iteration.py``): K-round segments between checkpoints,
@@ -31,26 +38,28 @@ rounds of one round each with listeners, checkpoints and a stop fetch a
 round. Every mode launches ``sgd_batch_terms`` with the same windows in the
 same order, so each gives the plain fit's bits.
 
-This slice runs one device and dense features: the per-shard batch shares,
-the sharded update, tensor parallelism, the CSR path and the health
-telemetry come with the parallel, sparse and observability slices of the
-port, and asking for them raises.
+Dense features only: tensor parallelism over a ``model`` axis, the CSR path
+and the health telemetry come with later slices of the port, and asking for
+them raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from flink_ml_tpu_torch.device import DeviceLike, resolve_device
+from flink_ml_tpu_torch.device import DeviceLike
 from flink_ml_tpu_torch.iteration import iteration
 from flink_ml_tpu_torch.observability.health import guard_final_state
 from flink_ml_tpu_torch.ops import kernels
 from flink_ml_tpu_torch.ops.losses import LossFunc
 from flink_ml_tpu_torch.ops.regularization import regularize
+from flink_ml_tpu_torch.parallel import collective as C
+from flink_ml_tpu_torch.parallel import update_sharding as _upd
+from flink_ml_tpu_torch.parallel.mesh import Mesh, resolve_mesh
 
 #: ``batch_terms(xl, yl, wl, coeffs, start, clip, lb, loss_name) -> (d+2,)``
 BatchTerms = Callable[..., torch.Tensor]
@@ -119,10 +128,20 @@ def _update_rule(prm: SGDParams):
     return rule
 
 
-def _init_opt(prm: SGDParams, d: int, device: torch.device) -> tuple:
-    """The rule's zero moment state, float32 on ``device``."""
-    opt = tuple(torch.zeros(d, dtype=torch.float32, device=device)
-                for _ in range(_OPT_VECTORS[prm.method]))
+def _init_opt(prm: SGDParams, d: int, device: torch.device, mesh=None,
+              sharded: bool = False) -> tuple:
+    """The rule's zero moment state, float32: (d,) vectors on ``device``,
+    or, with ``sharded``, :class:`~update_sharding.Sharded` vectors of
+    ``d`` (padded) rows cut over ``mesh``; adam's step is a replicated
+    scalar either way."""
+    def vector():
+        if not sharded:
+            return torch.zeros(d, dtype=torch.float32, device=device)
+        return _upd.Sharded(mesh, [
+            torch.zeros(d // mesh.size, dtype=torch.float32,
+                        device=mesh.devices[s]) for s in mesh.local_shards])
+
+    opt = tuple(vector() for _ in range(_OPT_VECTORS[prm.method]))
     if prm.method == "adam":
         opt += (torch.zeros((), dtype=torch.float32, device=device),)
     return opt
@@ -147,55 +166,160 @@ def _apply_packed(prm: SGDParams, rule, coeffs: torch.Tensor, opt: tuple,
     return coeffs_out, opt_out, mean_loss
 
 
-def _static_batch_schedule(local_n: int, lb: int, max_iter: int,
-                           offset: int = 0):
-    """The minibatch schedule as Python ints: round r slices [start,
-    start+lb) with clip-at-end and wrap-to-zero (SGD.java:262-284), from the
-    window offset ``offset``. Returns [(start, first_valid)] per round; rows
-    before ``first_valid`` (the clip overlap) weigh 0."""
-    sched = []
-    for _ in range(max_iter):
-        start = min(offset, local_n - lb)
-        sched.append((start, offset - start))  # 0 unless clipped
-        offset = _next_offset(local_n, lb, offset)
-    return sched
-
-
 def _next_offset(local_n: int, lb: int, offset: int) -> int:
     """The window offset after a round that started at ``offset``."""
     return 0 if offset + lb >= local_n else offset + lb
 
 
-def _offset_after(local_n: int, lb: int, offset: int, rounds: int) -> int:
-    for _ in range(rounds):
-        offset = _next_offset(local_n, lb, offset)
-    return offset
+class ShardSchedule:
+    """The per-shard minibatch schedule of a p-shard mesh, as Python ints
+    (the JAX package's ``_sgd_round_math``, SGD.java:206-213, 262-284).
+
+    Shard ``s`` holds ``real[s]`` rows of a padded length ``ls``. Its local
+    batch is ``lb_s = gb//p + (s < gb%p)`` rows (capped at ``ls``): the low
+    shard ids take the remainder. Each round it weighs its real rows in
+    ``[offset_s, offset_s + lb_s)``, and its offset wraps to 0 at ``ls``. At
+    p = 1 this is the one-device schedule, window for window."""
+
+    def __init__(self, global_batch_size: int, n_shards: int, ls: int,
+                 real):
+        lb_base, lb_rem = divmod(int(global_batch_size), int(n_shards))
+        self.ls = int(ls)
+        self.real = list(real)
+        self.lb_max = min(lb_base + (1 if lb_rem else 0), self.ls)
+        self.lbs = [min(lb_base + (1 if s < lb_rem else 0), self.ls)
+                    for s in range(n_shards)]
+
+    def window(self, shard: int, offset: int) -> Tuple[int, int, int]:
+        """The ``sgd_batch_terms`` window ``(start, clip, lb)`` of shard
+        ``shard`` at ``offset``, over its real rows: the JAX window of
+        ``lb_max`` rows starts at ``min(offset, ls - lb_max)``, its rows
+        below ``clip = offset - start`` weigh 0, and it ends where the
+        shard's batch or its real rows end. ``lb <= clip`` means that no
+        real row is in the batch."""
+        start = min(offset, self.ls - self.lb_max)
+        end = min(offset + self.lbs[shard], self.real[shard])
+        return start, offset - start, end - start
+
+    def windows(self, shards, offsets, rounds: int) -> list:
+        """The windows of ``rounds`` rounds from ``offsets``: per round, one
+        :meth:`window` per shard of ``shards``."""
+        offsets = [int(o) for o in offsets]
+        out = []
+        for _ in range(rounds):
+            out.append([self.window(s, offsets[s]) for s in shards])
+            offsets = [_next_offset(self.ls, lb, o)
+                       for lb, o in zip(self.lbs, offsets)]
+        return out
+
+    def advance(self, offsets, rounds: int = 1) -> np.ndarray:
+        """Every shard's offset after ``rounds`` rounds, (p,) int32."""
+        out = [int(o) for o in offsets]
+        for s, lb in enumerate(self.lbs):
+            for _ in range(rounds):
+                out[s] = _next_offset(self.ls, lb, out[s])
+        return np.asarray(out, np.int32)
+
+
+class ShardData(NamedTuple):
+    """A fit's rows split over the mesh (``collective.ensure_on_mesh``)."""
+    x: C.RowShards
+    y: C.RowShards
+    w: C.RowShards
+
+    @classmethod
+    def place(cls, mesh, features, labels, weights=None) -> "ShardData":
+        x = C.ensure_on_mesh(mesh, features)
+        y = C.ensure_on_mesh(mesh, labels)
+        w = (C.ones_on_mesh(mesh, x.n) if weights is None
+             else C.ensure_on_mesh(mesh, weights))
+        return cls(x, y, w)
+
+
+def _round_partials(batch_terms: BatchTerms, loss_name: str, shards,
+                    windows, coeffs: torch.Tensor) -> list:
+    """Every local shard's ``[Σ grad | Σ w | Σ loss]`` for one round: one
+    ``batch_terms`` launch per shard whose window holds a real row, zeros
+    for the others. ``shards`` are the local shards' (x, y, w) rows,
+    ``windows`` their ``(start, clip, lb)`` this round."""
+    parts = []
+    for (x, y, w), (start, clip, lb) in zip(shards, windows):
+        d = x.shape[1]
+        if lb > clip:
+            # the kernel sees the true width: coeffs may carry the sharded
+            # update's padding, and a shard may live on another device
+            c = coeffs if coeffs.shape[0] == d else coeffs[:d]
+            if c.device != x.device:
+                c = c.to(x.device)
+            parts.append(batch_terms(x, y, w, c, start, clip, lb, loss_name))
+        else:
+            parts.append(torch.zeros(d + 2, dtype=torch.float32,
+                                     device=x.device))
+    return parts
+
+
+def _apply_round(prm: SGDParams, rule, mesh, sharded: bool,
+                 coeffs: torch.Tensor, opt: tuple, parts: list):
+    """The update tail of a round from the local shards' (d+2,) partials →
+    (coeffs, opt, mean_loss): the stack all-reduced and
+    :func:`_apply_packed`; or, with ``sharded``, the JAX package's sharded
+    tail: ``[Σ w | Σ loss]`` all-reduced, the gradient reduce-scattered,
+    each shard's coefficient and moment slices updated, the coefficients
+    all-gathered."""
+    if not sharded:
+        return _apply_packed(prm, rule, coeffs, opt,
+                             C.sum_shards(parts, mesh))
+    stack = C.stack_shards(mesh, parts)
+    tail = C.all_reduce_sum(stack[:, -2:], mesh)
+    total_w, total_loss = tail[0], tail[1]
+    has_weight = total_w > 0
+
+    def apply_fn(g_slice, c_slice, opt_slice):
+        upd, new_opt = rule(g_slice, total_w, c_slice, opt_slice)
+        upd, _ = regularize(upd, prm.reg, prm.elastic_net,
+                            prm.learning_rate)
+        # a zero-weight round leaves coefficients and moments as they are
+        return (torch.where(has_weight, upd, c_slice),
+                tuple(torch.where(has_weight, n, o)
+                      for n, o in zip(new_opt, opt_slice)))
+
+    grads = _upd.pad_leading(stack[:, :-2], coeffs.shape[0], dim=1)
+    coeffs, opt = _upd.sharded_apply(mesh, grads, coeffs, opt, apply_fn)
+    return coeffs, opt, total_loss / torch.clamp_min(total_w, 1e-30)
+
+
+def _where(active: torch.Tensor, new, old):
+    """``torch.where(active, new, old)``, slice by slice for a
+    :class:`~update_sharding.Sharded` leaf."""
+    if isinstance(new, _upd.Sharded):
+        return new.map(lambda n, o: torch.where(active, n, o), old)
+    return torch.where(active, new, old)
 
 
 def _masked_rounds(batch_terms: BatchTerms, loss_name: str, prm: SGDParams,
-                   x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
-                   coeffs: torch.Tensor, opt: tuple, offset: int,
-                   rounds: int):
-    """``rounds`` rounds from the window ``offset`` with the tol stop as a
-    mask → (coeffs, opt, mean_loss at the stopping round, rounds run,
-    stop), all tensors on the device; nothing here waits for the device. A
-    round after the stop changes nothing."""
-    n = x.shape[0]
-    lb = min(prm.global_batch_size, n)
+                   mesh, sharded: bool, data: ShardData,
+                   coeffs: torch.Tensor, opt: tuple, offsets, rounds: int):
+    """``rounds`` rounds from the shards' window ``offsets`` with the tol
+    stop as a mask → (coeffs, opt, mean_loss at the stopping round, rounds
+    run, stop), all tensors on the device; nothing here waits for the
+    device. A round after the stop changes nothing."""
+    sched = ShardSchedule(prm.global_batch_size, mesh.size, data.x.ls,
+                          data.x.real)
+    shards = list(zip(data.x.parts, data.y.parts, data.w.parts))
     rule = _update_rule(prm)
     mean_loss = torch.full((), float("inf"), dtype=torch.float32,
                            device=coeffs.device)
     ran = torch.zeros((), dtype=torch.int32, device=coeffs.device)
     stop = torch.zeros((), dtype=torch.bool, device=coeffs.device)
-    for start, clip in _static_batch_schedule(n, lb, rounds, offset):
-        packed = batch_terms(x, y, w, coeffs, start, clip, lb, loss_name)
-        updated, new_opt, new_loss = _apply_packed(prm, rule, coeffs, opt,
-                                                   packed)
+    for windows in sched.windows(mesh.local_shards, offsets, rounds):
+        parts = _round_partials(batch_terms, loss_name, shards, windows,
+                                coeffs)
+        updated, new_opt, new_loss = _apply_round(prm, rule, mesh, sharded,
+                                                  coeffs, opt, parts)
         # the tol stop as a mask: a round after it changes nothing
         active = torch.logical_not(stop)
         coeffs = torch.where(active, updated, coeffs)
-        opt = tuple(torch.where(active, nw, old)
-                    for nw, old in zip(new_opt, opt))
+        opt = tuple(_where(active, nw, old) for nw, old in zip(new_opt, opt))
         mean_loss = torch.where(active, new_loss, mean_loss)
         ran = ran + active.to(torch.int32)
         stop = torch.logical_or(stop, torch.logical_and(active,
@@ -205,15 +329,20 @@ def _masked_rounds(batch_terms: BatchTerms, loss_name: str, prm: SGDParams,
 
 def sgd_rounds(batch_terms: BatchTerms, loss_name: str, prm: SGDParams,
                x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
-               coeffs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
-                                              torch.Tensor]:
-    """Every round of a fit on device tensors, with each round's terms from
-    ``batch_terms`` (:func:`kernels.sgd_batch_terms` or its plain version)
-    → (coeffs, mean_loss at the stopping round, rounds run), all tensors on
+               coeffs: torch.Tensor, mesh=None) -> Tuple[torch.Tensor,
+                                                         torch.Tensor,
+                                                         torch.Tensor]:
+    """Every round of a replicated fit on device tensors, with each round's
+    terms from ``batch_terms`` (:func:`kernels.sgd_batch_terms` or its
+    plain version), on ``mesh`` (default: one shard on x's device) →
+    (coeffs, mean_loss at the stopping round, rounds run), all tensors on
     the device; nothing here waits for the device."""
+    mesh = mesh if mesh is not None else Mesh([x.device])
     opt = _init_opt(prm, coeffs.shape[0], coeffs.device)
     coeffs, _, mean_loss, ran, _ = _masked_rounds(
-        batch_terms, loss_name, prm, x, y, w, coeffs, opt, 0, prm.max_iter)
+        batch_terms, loss_name, prm, mesh, False,
+        ShardData.place(mesh, x, y, w), coeffs, opt,
+        np.zeros(mesh.size, np.int32), prm.max_iter)
     return coeffs, mean_loss, ran
 
 
@@ -231,39 +360,35 @@ class SGD:
         self.params = params
         self.last_execution_path = None
 
-    def _iterate(self, loss_name: str, x: torch.Tensor, y: torch.Tensor,
-                 w: torch.Tensor, coeffs0: torch.Tensor, seg_k: int, config,
-                 listeners) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _iterate(self, loss_name: str, mesh, sharded: bool, data: ShardData,
+                 init, seg_k: int, config, listeners
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The rounds through the iteration runtime → (coeffs, mean_loss),
         device tensors. The carry is the JAX package's, leaf for leaf:
-        ``(coeffs (d,) f32, offsets (1,) int32, mean_loss f32, opt)``, so
-        the two packages' checkpoints hold the same leaves. ``offsets`` (the
-        window offset) is a host numpy array: the schedule is Python ints,
-        so a restored offset needs no device read. Each call builds a fresh
-        carry, and no carry tensor is updated in place."""
+        ``(coeffs f32, offsets (p,) int32, mean_loss f32, opt)``, with the
+        coefficients and moments padded and the moments
+        :class:`~update_sharding.Sharded` under the sharded update, so the
+        two packages' checkpoints hold the same leaves. ``offsets`` (the
+        shards' window offsets) is a host numpy array: the schedule is
+        Python ints, so a restored offset needs no device read. Each call
+        builds a fresh carry, and no carry tensor is updated in place."""
         prm = self.params
-        n, d = x.shape
-        lb = min(prm.global_batch_size, n)
+        sched = ShardSchedule(prm.global_batch_size, mesh.size, data.x.ls,
+                              data.x.real)
         batch_terms = kernels.sgd_batch_terms
-        init = (coeffs0, np.zeros(1, np.int32),
-                torch.full((), float("inf"), dtype=torch.float32,
-                           device=coeffs0.device),
-                _init_opt(prm, d, coeffs0.device))
 
         if seg_k:
             def run_segment(carry, epoch0, limit):
                 coeffs, offsets, _, opt = carry
-                offset = int(offsets[0])
                 coeffs, opt, mean_loss, ran, stop = _masked_rounds(
-                    batch_terms, loss_name, prm, x, y, w, coeffs, opt,
-                    offset, limit - epoch0)
+                    batch_terms, loss_name, prm, mesh, sharded, data, coeffs,
+                    opt, offsets, limit - epoch0)
                 # the boundary's one fetch: [epoch, stop]
                 epoch, stop = iteration.read_boundary(
                     torch.stack([ran + epoch0, stop.to(torch.int32)]))
                 epoch = int(epoch)
-                offsets = np.asarray(
-                    [_offset_after(n, lb, offset, epoch - epoch0)], np.int32)
-                return (coeffs, offsets, mean_loss, opt), epoch, bool(stop)
+                return ((coeffs, sched.advance(offsets, epoch - epoch0),
+                         mean_loss, opt), epoch, bool(stop))
 
             final = iteration.run_segmented(run_segment, init, prm.max_iter,
                                             seg_k, config.checkpoint_manager)
@@ -272,12 +397,10 @@ class SGD:
                 # one round of the segments' own function, so every mode
                 # runs the same update
                 coeffs, offsets, _, opt = carry
-                offset = int(offsets[0])
                 coeffs, opt, mean_loss, _, _ = _masked_rounds(
-                    batch_terms, loss_name, prm, x, y, w, coeffs, opt,
-                    offset, 1)
-                return (coeffs, np.asarray([_next_offset(n, lb, offset)],
-                                           np.int32), mean_loss, opt)
+                    batch_terms, loss_name, prm, mesh, sharded, data, coeffs,
+                    opt, offsets, 1)
+                return coeffs, sched.advance(offsets), mean_loss, opt
 
             final = iteration.iterate_bounded(
                 init, body, max_iter=prm.max_iter,
@@ -290,23 +413,32 @@ class SGD:
                  features, labels, weights=None,
                  device: DeviceLike = None,
                  config=None, listeners=(),
-                 tag: Optional[str] = None) -> Tuple[np.ndarray, float]:
+                 tag: Optional[str] = None,
+                 mesh=None) -> Tuple[np.ndarray, float]:
         """Returns (coeffs (d,) float64 np.ndarray, final mean loss float).
 
         ``features`` (n, d), ``labels`` and ``weights`` (n,) are numpy arrays
-        or tensors; tensors already on ``device`` (default: the CUDA card)
-        stay there, host arrays are placed once as float32, and
-        ``weights=None`` means ones. Rounds run the ``sgd_batch_terms``
-        kernel on the card (``cuda-sgd``), and its plain PyTorch version on
-        the CPU (``torch-sgd``).
+        or tensors; ``weights=None`` means ones. The rows are split over
+        ``mesh`` (``parallel/mesh.py``; default :func:`resolve_mesh`: the
+        default mesh when one was set, else one shard on ``device``, the
+        CUDA card by default) as contiguous views: a tensor already on the
+        shards' device stays there, a host array is placed once as float32.
+        Each shard takes its own local batch of the global batch per round
+        (:class:`ShardSchedule`) and the shards' terms are summed before the
+        update; with ``FLINK_ML_TPU_UPDATE_SHARDING=1`` the update is the
+        cross-replica sharded one (``parallel/update_sharding.py``). Rounds
+        run the ``sgd_batch_terms`` kernel on the card (``cuda-sgd``), one
+        launch per shard, and its plain PyTorch version on the CPU
+        (``torch-sgd``).
 
         With ``config``/``listeners`` (an ``IterationConfig`` with host
         hooks) the rounds run through the iteration runtime, resumable from
         a checkpoint with the all-device fit's results: K-round segments
         when the only hook is a device-mode checkpoint interval
         (``-segments``), host rounds otherwise (``-rounds``).
-        ``tag`` names the fit in a :class:`NonFiniteState` error (the
-        estimator's class name; ``SGD[<loss>]`` by default).
+        ``tag`` names the fit in a :class:`NonFiniteState` error and in the
+        state-bytes record (the estimator's class name; ``SGD[<loss>]`` by
+        default).
         """
         prm = self.params
         _check_method(prm)
@@ -314,28 +446,44 @@ class SGD:
             raise NotImplementedError(
                 "sparse (CSR) features come with a later slice of the port; "
                 "this slice fits dense features only")
-        device = resolve_device(device)
-        x = _on_device(features, device)
-        n, d = x.shape
-        y = _on_device(labels, device)
-        w = (torch.ones(n, dtype=torch.float32, device=device)
-             if weights is None else _on_device(weights, device))
+        mesh = resolve_mesh(mesh, device)
+        p = mesh.size
+        data = ShardData.place(mesh, features, labels, weights)
+        d = data.x.parts[0].shape[1]
+        device = mesh.devices[mesh.local_shards[0]]
         coeffs = _on_device(init_coeffs, device)
         if coeffs.shape != (d,):
-            raise ValueError(f"features are {tuple(x.shape)}, so the "
+            raise ValueError(f"features are ({data.x.n}, {d}), so the "
                              f"coefficients must be ({d},), got "
                              f"{tuple(coeffs.shape)}")
+        # the cross-replica sharded update: the coefficient carry padded to
+        # the shard multiple (padded coordinates stay exactly zero)
+        sharded = _upd.enabled()
+        dp = _upd.padded_len(d, p) if sharded else d
+        coeffs = _upd.pad_leading(coeffs, dp)
+        algo = tag or f"SGD[{loss_func.NAME}]"
+        # a fresh carry per call, the JAX package's make_init: the opt tuple
+        # rides at the end so a method="sgd" carry keeps the stateless leaves
+        init = (coeffs, np.zeros(p, np.int32),
+                torch.full((), float("inf"), dtype=torch.float32,
+                           device=device),
+                _init_opt(prm, dp, device, mesh, sharded))
+        opt_leaves = list(init[3])
+        if opt_leaves:
+            _upd.record_state_bytes(f"{algo}.moments", opt_leaves, p, sharded)
+        _upd.record_state_bytes(algo, [coeffs] + opt_leaves, p, sharded)
 
         base = "cuda-sgd" if device.type == "cuda" else "torch-sgd"
         seg_k = iteration.device_checkpoint_segment(config, listeners)
         if not seg_k and not iteration.needs_host_loop(config, listeners):
-            coeffs, mean_loss, _ = sgd_rounds(kernels.sgd_batch_terms,
-                                              loss_func.NAME, prm, x, y, w,
-                                              coeffs)
+            coeffs, _, mean_loss, _, _ = _masked_rounds(
+                kernels.sgd_batch_terms, loss_func.NAME, prm, mesh, sharded,
+                data, init[0], init[3], init[1], prm.max_iter)
             path = base
         else:
-            coeffs, mean_loss = self._iterate(loss_func.NAME, x, y, w, coeffs,
-                                              seg_k, config, listeners)
+            coeffs, mean_loss = self._iterate(loss_func.NAME, mesh, sharded,
+                                              data, init, seg_k, config,
+                                              listeners)
             path = base + ("-segments" if seg_k else "-rounds")
         # benchmark provenance (runner.py executionPath)
         self.last_execution_path = path
@@ -343,6 +491,6 @@ class SGD:
         # the one host synchronisation of the fit
         final = torch.cat([coeffs, mean_loss[None]]).cpu().numpy()
         out = final[:d].astype(np.float64)
-        loss = float(final[d])
-        guard_final_state(tag or f"SGD[{loss_func.NAME}]", out, loss=loss)
+        loss = float(final[-1])
+        guard_final_state(algo, out, loss=loss)
         return out, loss

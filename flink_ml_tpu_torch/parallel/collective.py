@@ -1,0 +1,243 @@
+"""Collectives over a mesh's data shards, and row placement.
+
+The port of ``flink_ml_tpu/parallel/collective.py:184-297,432-479`` (ref:
+AllReduceImpl.java:71-102 for the sum, BroadcastUtils.java:65 for broadcast,
+SharedProgressAligner.java:277-292 for the termination vote).
+
+A primitive takes the values of this process's shards, stacked on dim 0: all
+N shards on an in-process mesh, the one shard of the rank under
+``torch.distributed`` (so ``x[i]`` is the value of shard
+``mesh.local_shards[i]``). The two backends behind the one interface:
+
+- **in-process**: the cross-shard sum of float32 values is
+  ``kernels.reduce_partials`` on the stack: the hand-written kernel on the
+  card, in its fixed two-level order, so reruns give the same bits, and its
+  plain version on the CPU. Other dtypes add the shards in shard order.
+  ``reduce_scatter`` is that sum cut into N dim-0 slices in
+  :func:`shard_index` order, and ``all_gather`` a concatenation. At one
+  shard every primitive is the identity and launches nothing.
+- **torch.distributed**: ``all_reduce``, ``all_gather_into_tensor`` and
+  ``reduce_scatter_tensor`` on NCCL; gloo takes ``all_reduce`` plus the
+  owned slice for the scatter and ``all_gather`` of a list for the gather.
+
+Placement (:func:`ensure_on_mesh`) never pads a tensor by copying it: shard
+``s`` is the contiguous row view ``x[s*ls : min((s+1)*ls, n)]`` with ``ls =
+ceil(n / p)``, and the rows a padded last shard lacks are left to the window
+arithmetic of the fits. The JAX package's ``ml.collective`` accounting comes
+with the observability slice.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Sequence
+
+import torch
+
+from flink_ml_tpu_torch.ops import kernels
+from flink_ml_tpu_torch.parallel.mesh import Mesh
+
+
+def _is_nccl(mesh: Mesh) -> bool:
+    import torch.distributed as dist
+
+    return dist.get_backend(mesh.group) == "nccl"
+
+
+def _stack_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum over dim 0 of an in-process stack, in a fixed order."""
+    n = x.shape[0]
+    if n == 1:
+        return x[0]
+    if x.dtype == torch.float32:
+        out = kernels.reduce_partials(x.reshape(n, -1).contiguous())
+        return out.reshape(x.shape[1:])
+    out = x[0].clone()
+    for i in range(1, n):
+        out = out + x[i]
+    return out
+
+
+def stack_shards(mesh: Mesh, values: Sequence[torch.Tensor]) -> torch.Tensor:
+    """This process's per-shard values as one (L, ...) stack on the first
+    local shard's device (the collectives' input)."""
+    dev = mesh.devices[mesh.local_shards[0]]
+    values = [v if v.device == dev else v.to(dev) for v in values]
+    return values[0][None] if len(values) == 1 else torch.stack(values)
+
+
+def all_reduce_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum over every shard of the mesh, the same on each (ref:
+    AllReduceImpl.java:54 allReduceSum)."""
+    if not mesh.distributed:
+        return _stack_sum(x)
+    import torch.distributed as dist
+
+    out = x[0].clone()
+    dist.all_reduce(out, group=mesh.group)
+    return out
+
+
+def sum_shards(values: Sequence[torch.Tensor], mesh: Mesh) -> torch.Tensor:
+    """:func:`all_reduce_sum` of this process's per-shard values given as a
+    list; the one value itself on a one-shard in-process mesh (no stack is
+    built: the default mesh's fits pay nothing for the layer)."""
+    if len(values) == 1 and not mesh.distributed:
+        return values[0]
+    return all_reduce_sum(stack_shards(mesh, values), mesh)
+
+
+def all_reduce_mean(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    return all_reduce_sum(x, mesh) / mesh.size
+
+
+def all_reduce_max(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    if not mesh.distributed:
+        return x[0] if x.shape[0] == 1 else x.amax(dim=0)
+    import torch.distributed as dist
+
+    out = x[0].clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=mesh.group)
+    return out
+
+
+def reduce_scatter(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum over every shard, each shard keeping its own 1/N slice of dim
+    0: an (L, chunk, ...) stack of this process's slices. Dim 0 of a value
+    must be a multiple of the shard count (pad with zeros: a zero gradient
+    is inert through every update rule here); the slices are in
+    :func:`shard_index` order, so :func:`all_gather` of them rebuilds the
+    sum."""
+    p = mesh.size
+    rows = x.shape[1]
+    if rows % p:
+        raise ValueError(f"reduce_scatter: dim 0 of {rows} is not a multiple "
+                         f"of the {p} shards (pad it with padded_len)")
+    chunk = rows // p
+    if not mesh.distributed:
+        return _stack_sum(x).reshape((p, chunk) + tuple(x.shape[2:]))
+    import torch.distributed as dist
+
+    if _is_nccl(mesh):
+        out = x.new_empty((chunk,) + tuple(x.shape[2:]))
+        dist.reduce_scatter_tensor(out, x[0].contiguous(), group=mesh.group)
+        return out[None]
+    total = all_reduce_sum(x, mesh)
+    return total[mesh.rank * chunk:(mesh.rank + 1) * chunk][None]
+
+
+def all_gather(x, mesh: Mesh) -> torch.Tensor:
+    """This process's (L, chunk, ...) slices (a stack or a list) gathered
+    over every shard into the (N * chunk, ...) whole, in shard order."""
+    parts = list(x)
+    if not mesh.distributed:
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+    import torch.distributed as dist
+
+    part = parts[0].contiguous()
+    if _is_nccl(mesh):
+        out = part.new_empty((mesh.size * part.shape[0],)
+                             + tuple(part.shape[1:]))
+        dist.all_gather_into_tensor(out, part, group=mesh.group)
+        return out
+    gathered = [torch.empty_like(part) for _ in range(mesh.size)]
+    dist.all_gather(gathered, part, group=mesh.group)
+    return torch.cat(gathered)
+
+
+def shard_index(mesh: Mesh) -> tuple:
+    """The shards this process computes, in the order of dim 0 of the
+    primitives' stacks; the slice order of :func:`reduce_scatter`."""
+    return mesh.local_shards
+
+
+def broadcast_from(x: torch.Tensor, mesh: Mesh, src: int = 0) -> torch.Tensor:
+    """Shard ``src``'s value, on every shard (ref: the .broadcast() edges)."""
+    if not mesh.distributed:
+        return x[src]
+    import torch.distributed as dist
+
+    out = x[0].clone()
+    dist.broadcast(out, src, group=mesh.group)
+    return out
+
+
+def termination_vote(local_count: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """True iff the global count is zero: the reference coordinator's
+    termination rule (SharedProgressAligner.java:277-292) as one sum."""
+    return all_reduce_sum(local_count, mesh) == 0
+
+
+def renormalized_sum(x: torch.Tensor, include: torch.Tensor,
+                     mesh: Mesh) -> torch.Tensor:
+    """Partial-participation sum (arXiv:2208.09740): a shard whose 0/1
+    ``include`` (one per local shard) is 0 adds zero, and the sum is scaled
+    by ``n_shards / participants`` so the expected update stays unbiased.
+    With every shard included it equals :func:`all_reduce_sum` bit for
+    bit (a factor of exactly 1)."""
+    dtype = x.dtype if x.is_floating_point() else torch.float32
+    inc = include.to(dtype)
+    total = all_reduce_sum(x.to(dtype) * inc.reshape(
+        (-1,) + (1,) * (x.ndim - 1)), mesh)
+    participants = all_reduce_sum(inc.reshape(-1, 1), mesh)[0]
+    return total * (mesh.size / torch.clamp_min(participants, 1.0))
+
+
+# -- row placement ---------------------------------------------------------------
+
+def shard_len(n: int, n_shards: int) -> int:
+    """Rows per shard, the last one padded: ``ceil(n / p)`` (1 for n = 0)."""
+    return -(-int(n) // int(n_shards)) if n else 1
+
+
+class RowShards(NamedTuple):
+    """A table's rows split over a mesh: ``parts[i]`` is the contiguous row
+    view of shard ``mesh.local_shards[i]``, on its device; ``n`` the rows of
+    the whole table, ``ls`` the rows per shard (:func:`shard_len`), and
+    ``real[s]`` the rows shard ``s`` really holds (``ls`` but for a short
+    last shard or empty ones past the end)."""
+    parts: List[torch.Tensor]
+    n: int
+    ls: int
+    real: List[int]
+
+
+def _real_rows(n: int, ls: int, n_shards: int) -> List[int]:
+    return [max(0, min(ls, n - s * ls)) for s in range(n_shards)]
+
+
+def ensure_on_mesh(mesh: Mesh, array, dtype=torch.float32) -> RowShards:
+    """Place a host array or a tensor on the mesh, split by rows. A tensor
+    already on the shards' device with ``dtype`` is viewed, not copied; a
+    host array goes to the device once (under ``torch.distributed``, only
+    the rank's own rows)."""
+    n = int(array.shape[0])
+    p = mesh.size
+    if p == 1 and not mesh.distributed:
+        return RowShards([torch.as_tensor(array, dtype=dtype,
+                                          device=mesh.devices[0]).contiguous()],
+                         n, n or 1, [n])
+    ls = shard_len(n, p)
+    real = _real_rows(n, ls, p)
+    local = mesh.local_shards
+    devices = {str(mesh.devices[s]) for s in local}
+    if len(devices) == 1 and not mesh.distributed:
+        full = torch.as_tensor(array, dtype=dtype,
+                               device=mesh.devices[local[0]]).contiguous()
+        parts = [full[s * ls:s * ls + real[s]] for s in local]
+    else:
+        parts = [torch.as_tensor(array[s * ls:s * ls + real[s]], dtype=dtype,
+                                 device=mesh.devices[s]).contiguous()
+                 for s in local]
+    return RowShards(parts, n, ls, real)
+
+
+def ones_on_mesh(mesh: Mesh, n: int, dtype=torch.float32) -> RowShards:
+    """A length-``n`` ones column split as :func:`ensure_on_mesh` splits
+    ``n`` rows: the default sample weights, made on the devices."""
+    p = mesh.size
+    ls = shard_len(n, p)
+    real = _real_rows(n, ls, p)
+    parts = [torch.ones(real[s], dtype=dtype, device=mesh.devices[s])
+             for s in mesh.local_shards]
+    return RowShards(parts, int(n), ls, real)
+

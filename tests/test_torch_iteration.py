@@ -18,6 +18,14 @@ mesh, and through the port on CPU tensors (the kernels' plain versions).
   test_fusion.py: an off-phase restore realigns to the K-grid, the final
   boundary is not snapshotted, and a boundary costs one fetch (counted by
   wrapping ``read_boundary``).
+- On an 8-shard mesh (JAX: 8 host devices; the port: 8 virtual shards),
+  with the sharded update: the SGD carry (padded coefficients and moments,
+  (8,) offsets) holds the JAX package's leaves, and a JAX checkpoint
+  restored by the port and saved again is the same bytes (sha256); each
+  package resumes the other's sharded checkpoint to the writer's fit
+  (rtol 1e-5, atol 1e-7); and the counterparts of tests/test_mapreduce.py
+  :366 (a sharded segment fit resumed bit for bit) and :393 (FTRL resumed
+  across the sharding modes).
 """
 
 import collections
@@ -51,6 +59,8 @@ from flink_ml_tpu_torch.iteration.iteration import (
 from flink_ml_tpu_torch.models.classification import LogisticRegression
 from flink_ml_tpu_torch.models.clustering import KMeans
 from flink_ml_tpu_torch.resilience import faults
+from flink_ml_tpu_torch.parallel import create_mesh as port_create_mesh
+from flink_ml_tpu_torch.parallel import update_sharding as port_upd
 
 BODY_RTOL = 1e-6
 FIT_RTOL, FIT_ATOL = 1e-5, 1e-7
@@ -682,3 +692,188 @@ def test_one_fetch_per_boundary(tmp_path, monkeypatch, model, k, boundaries):
     assert [e for e, _ in fetched] == [min(k * (i + 1), max_iter)
                                        for i in range(boundaries)]
     assert all(s == 0 for _, s in fetched)
+
+
+# -- the sharded carry at p = 8 -------------------------------------------------
+
+@pytest.fixture
+def eight_shards(monkeypatch):
+    """Both packages on 8 shards with the sharded update armed: the JAX
+    package on its default mesh of 8 host devices, the port on 8 virtual
+    CPU shards (passed to its estimators)."""
+    monkeypatch.setenv(port_upd.ENV, "1")
+    set_default_mesh(create_mesh(devices=jax.devices()[:8]))
+    try:
+        yield port_create_mesh((8,), devices=["cpu"] * 8)
+    finally:
+        set_default_mesh(None)
+
+
+class _RestoreRecorder(CheckpointManager):
+    """Records the carries the port restores."""
+
+    def __init__(self, base_dir):
+        super().__init__(base_dir)
+        self.restored = []
+
+    def restore(self, template_carry):
+        out = super().restore(template_carry)
+        self.restored.append(out)
+        return out
+
+
+def _sharded_lr(mesh, method, **overrides):
+    return _port("lr", mesh=mesh, optimizer=method, **overrides)
+
+
+@pytest.mark.parametrize("method", ["momentum", "adam"])
+def test_sharded_sgd_carry_is_the_jax_carry(tmp_path, eight_shards, method):
+    """At p = 8 with the sharded update both packages checkpoint the carry
+    (coefficients and moments padded to 8 rows, (8,) int32 offsets, the
+    loss, adam's step) with the same leaves; the port restores a JAX
+    checkpoint onto its sharded layout and, saved again, it is the JAX
+    checkpoint byte for byte."""
+    jax_base, port_base = str(tmp_path / "jax"), str(tmp_path / "port")
+    with pytest.raises(_Crash):
+        _jax("lr", optimizer=method).set_iteration_config(
+            jax_iter.IterationConfig(checkpoint_interval=2,
+                                     checkpoint_manager=_JaxCrashingManager(
+                                         jax_base, 4))).fit(_lr_table(JaxTable))
+    with pytest.raises(_Crash):
+        _sharded_lr(eight_shards, method).set_iteration_config(
+            IterationConfig(checkpoint_interval=2, checkpoint_manager=(
+                _CrashingManager(port_base, 4)))).fit(_lr_table(Table))
+    jax_manifest, jax_leaves = _manifest_and_leaves(
+        os.path.join(jax_base, "ckpt-00000002"))
+    port_manifest, _ = _manifest_and_leaves(
+        os.path.join(port_base, "ckpt-00000002"))
+    layout = [(r["dtype"], r["shape"]) for r in jax_manifest["leaves"]]
+    moments = [("float32", [8])] * {"momentum": 1, "adam": 2}[method]
+    assert layout == ([("float32", [8]), ("int32", [8]), ("float32", [])]
+                      + moments + ([("float32", [])] if method == "adam"
+                                   else []))
+    assert [(r["dtype"], r["shape"]) for r in port_manifest["leaves"]] == \
+        layout
+    # the port resumes the JAX snapshot: restored onto Sharded moments
+    recorder = _RestoreRecorder(jax_base)
+    _sharded_lr(eight_shards, method).set_iteration_config(IterationConfig(
+        checkpoint_interval=2, checkpoint_manager=recorder)).fit(
+        _lr_table(Table))
+    carry, epoch = recorder.restored[0]
+    assert epoch == 2
+    assert all(isinstance(m, port_upd.Sharded) and len(m.slices) == 8
+               for m in carry[3][:len(moments)])
+    again = CheckpointManager(str(tmp_path / "again")).save(carry, epoch)
+    again_manifest, again_leaves = _manifest_and_leaves(again)
+    assert again_manifest == jax_manifest
+    for key in jax_leaves:
+        np.testing.assert_array_equal(again_leaves[key], jax_leaves[key])
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_sharded_checkpoint_resumes_in_the_other_package(tmp_path,
+                                                         eight_shards,
+                                                         writer):
+    """A sharded 8-shard adam fit killed at epoch 8 leaves its epoch-6
+    snapshot; the other package resumes from it and ends within the
+    tolerance of the writer's uninterrupted fit."""
+    base = str(tmp_path / "ckpt")
+    port_est = _sharded_lr(eight_shards, "adam")
+    jax_est = _jax("lr", optimizer="adam")
+    if writer == "jax":
+        bad = _JaxCrashingManager(base, 8)
+        writer_est, writer_table, cfg_cls = (jax_est, _lr_table(JaxTable),
+                                             jax_iter.IterationConfig)
+        reader, reader_table, reader_cfg = (port_est, _lr_table(Table),
+                                            IterationConfig)
+        reader_mgr = CheckpointManager(base)
+    else:
+        bad = _CrashingManager(base, 8)
+        writer_est, writer_table, cfg_cls = (port_est, _lr_table(Table),
+                                             IterationConfig)
+        reader, reader_table, reader_cfg = (jax_est, _lr_table(JaxTable),
+                                            jax_iter.IterationConfig)
+        reader_mgr = jax_ckpt.CheckpointManager(base)
+    with pytest.raises(_Crash):
+        writer_est.set_iteration_config(cfg_cls(
+            checkpoint_interval=2, checkpoint_manager=bad)).fit(writer_table)
+    assert bad.list_checkpoints()[-1] == "ckpt-00000006"
+    want = writer_est.set_iteration_config(None).fit(
+        writer_table).coefficients
+    got = reader.set_iteration_config(reader_cfg(
+        checkpoint_interval=2, checkpoint_manager=reader_mgr)).fit(
+        reader_table).coefficients
+    np.testing.assert_allclose(got, want, rtol=FIT_RTOL, atol=FIT_ATOL)
+
+
+@pytest.mark.parametrize("model", ["lr", "km"])
+@pytest.mark.parametrize("mode", FIT_MODES)
+def test_sharded_carry_in_every_mode_is_the_all_device_fit(
+        tmp_path, eight_shards, model, mode):
+    """On 8 shards with the sharded update (LR with adam, whose moments are
+    Sharded carry leaves), segments, host rounds and checkpointed host
+    rounds give the all-device fit's bits."""
+    kw = ({"mesh": eight_shards, "optimizer": "adam"} if model == "lr"
+          else {"mesh": eight_shards})
+    plain = _port(model, **kw).fit(_table(model, Table))
+    cfg = _configs(IterationConfig, CheckpointManager,
+                   str(tmp_path / "port"))[mode]()
+    est = _port(model, **kw).set_iteration_config(cfg)
+    got = est.fit(_table(model, Table))
+    assert est.last_execution_path == PATHS[model, mode]
+    np.testing.assert_array_equal(_result(model, got), _result(model, plain))
+
+
+def test_sgd_segmented_restart_resumes_sharded_state(tmp_path, eight_shards):
+    """The counterpart of the JAX package's test of the same name: a
+    sharded segment fit killed at a boundary resumes from its checkpoint
+    (the padded, Sharded carry round-trips) and ends bit for bit as the
+    uninterrupted sharded fit."""
+    clean = _sharded_lr(eight_shards, "adam").fit(_lr_table(Table))
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    cfg = IterationConfig(checkpoint_interval=2, checkpoint_manager=mgr)
+    with faults.chaos(at={"epoch-boundary": [2]}):
+        with pytest.raises(faults.InjectedFault):
+            _sharded_lr(eight_shards, "adam").set_iteration_config(cfg).fit(
+                _lr_table(Table))
+    assert mgr.list_checkpoints()  # a mid-fit snapshot survived the crash
+    resumed = _sharded_lr(eight_shards, "adam").set_iteration_config(
+        cfg).fit(_lr_table(Table))
+    np.testing.assert_array_equal(resumed.coefficients, clean.coefficients)
+    assert not mgr.list_checkpoints()  # success cleared them
+
+
+def test_ftrl_checkpoint_resume_across_sharding_modes(tmp_path, monkeypatch):
+    """The counterpart of the JAX package's test of the same name: the host
+    checkpoint view is the trimmed (d,) state in both modes, so a
+    replicated 8-shard fit's mid-stream snapshot resumes under the sharded
+    update and ends at the uninterrupted replicated fit."""
+    from flink_ml_tpu_torch.iteration.streaming import StreamTable
+    from flink_ml_tpu_torch.models.online import OnlineLogisticRegression
+
+    mesh = port_create_mesh((8,), devices=["cpu"] * 8)
+    x = np.random.default_rng(5).normal(size=(600, 6))
+    y = (x @ [1, -1, 2, 0.5, -0.3, 1] > 0).astype(float)
+    t = Table.from_columns(features=x, label=y)
+
+    def est(cfg=None, listeners=()):
+        e = OnlineLogisticRegression(global_batch_size=100, device="cpu",
+                                     mesh=mesh).warm_start(np.zeros(6))
+        if cfg is not None:
+            e.set_iteration_config(cfg, listeners=listeners)
+        return e
+
+    monkeypatch.delenv(port_upd.ENV, raising=False)
+    expected = est().fit(StreamTable.from_table(t, 100))
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    cfg = IterationConfig(mode="host", checkpoint_interval=2,
+                          checkpoint_manager=mgr)
+    with pytest.raises(_Crash):
+        est(cfg, [_CrashAt(2)]).fit(StreamTable.from_table(t, 100))
+    assert mgr.list_checkpoints()
+    monkeypatch.setenv(port_upd.ENV, "1")
+    tail = t.take(np.arange(200, 600))
+    resumed = est(cfg).fit(StreamTable.from_table(tail, 100))
+    assert resumed.model_version == expected.model_version == 6
+    np.testing.assert_allclose(resumed.coefficients, expected.coefficients,
+                               rtol=FIT_RTOL, atol=FIT_ATOL)

@@ -69,7 +69,8 @@ def test_port_files_were_found():
     assert {"kernels.py", "kmeans.py", "runner.py", "io.py", "optimizer.py",
             "logisticregression.py", "knn.py", "online.py", "sparse.py",
             "streaming.py", "iteration.py", "checkpoint.py", "policy.py",
-            "faults.py", "supervisor.py"} <= names
+            "faults.py", "supervisor.py", "mesh.py", "collective.py",
+            "mapreduce.py", "update_sharding.py"} <= names
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

@@ -202,8 +202,14 @@ def test_zero_weight_round_leaves_coefficients_and_moments():
 @pytest.mark.parametrize("lb", [1, 3, 10, 32, 100])
 @pytest.mark.parametrize("max_iter", [1, 5, 40])
 def test_static_batch_schedule_matches_jax(n, lb, max_iter):
+    """The port's schedule on one shard (``ShardSchedule``) takes the JAX
+    package's static windows: (start, first valid row), every window lb
+    rows long."""
     lb = min(lb, n)
-    got = optimizer._static_batch_schedule(n, lb, max_iter)
+    sched = optimizer.ShardSchedule(lb, 1, n, [n])
+    windows = sched.windows((0,), [0], max_iter)
+    assert all(w[0][2] == lb for w in windows)
+    got = [(start, clip) for ((start, clip, _),) in windows]
     assert got == jax_opt._static_batch_schedule(n, lb, max_iter)
     assert all(0 <= s <= n - lb and 0 <= c <= lb for s, c in got)
 
