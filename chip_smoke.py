@@ -127,7 +127,25 @@ Phases, each of which fails the run (no result line, nonzero exit):
     table with a global batch of 801 (uneven local batches, a padded last
     shard) on eight shards, on the card against the CPU; print each fit's
     ms on one shard against eight, and the launches;
-12. print one ``{"kernels": [...]}`` line with every kernel's launches in
+12. observability on the card (``flink_ml_tpu_torch/observability/``): the
+    LR and KMeans configs at full size (phase 10's tables) in segment fits
+    (K = 5 and 3), supervised, with a fault at the second boundary, with
+    tracing and health armed (``FLINK_ML_TPU_TRACE_DIR`` and
+    ``FLINK_ML_TPU_HEALTH=1``): the trace must nest fit → segment →
+    ``checkpoint.save``, hold one resumed ``checkpoint.restore`` and one
+    ``supervisor.restart``, count ``boundaryFetches`` equal to
+    ``boundaries`` and 20 and 10 ``rounds``, and record a finite health
+    series over every round of the resumed attempt (the ``epochs`` gauge at
+    20 and 10); each model must equal the same fit unarmed bit for bit.
+    Then one profiled LR fit, one profiled KMeans fit and one profiled
+    KMeans transform (``FLINK_ML_TPU_PROFILE_CAPTURE=1``, each into its own
+    trace dir): each ``profile.json`` must read ``source: "device"``, with
+    device rows for ``sgd_batch_terms``, ``lloyd_partial_sums``,
+    ``reduce_partials`` and ``assign_nearest``, and every roofline share
+    of the efficiency report at most 100%. Prints the profiled device ms
+    per launch, the shares, the kernel builds phase 1 recorded, and the
+    armed and unarmed fit ms (host clock, best of two);
+13. print one ``{"kernels": [...]}`` line with every kernel's launches in
     its main-path runs, error, times and bound, then the result line.
 
 Tolerances (float32 throughout, TF32 off):
@@ -183,6 +201,7 @@ Tolerances (float32 throughout, TF32 off):
 
 import itertools
 import json
+import math
 import os
 import shutil
 import statistics
@@ -222,6 +241,10 @@ PATH_KERNELS = {
     # shard, and reduce_partials for the cross-shard sums
     "parallel": ("sgd_batch_terms", "lloyd_partial_sums", "reduce_partials",
                  "segment_reduce_sum"),
+    # the traced, health-armed and profiled LR and KMeans fits, and a
+    # profiled KMeans transform
+    "observability": ("sgd_batch_terms", "assign_nearest",
+                      "lloyd_partial_sums", "reduce_partials"),
 }
 LOSSES = ("logistic", "hinge", "least_square")
 
@@ -289,6 +312,9 @@ def rolling_starts(n, lb):
 
 
 def bound_ms(nbytes, ops):
+    """The least time the card could take for work of ``nbytes`` bytes and
+    ``ops`` fp32 operations (``ops/kernels.py`` ``launch_cost`` counts
+    both), and which of the two bounds it."""
     by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     by_ops = ops / PEAK_FP32_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
@@ -409,19 +435,18 @@ def phase_kernels(K):
             plain=lambda: K.assign_nearest_plain(x, c),
             # one PyTorch call for the same labels
             library=lambda: torch.cdist(x, c).argmin(1),
-            bytes=4 * (n * d + k * d + k + n), ops=2 * n * k * d),
+            cost=K.launch_cost("assign_nearest", n=n, k=k, d=d)),
         "lloyd_partial_sums": dict(
             err=float((p_got - p_want).abs().max()),
             kernel=lambda: K.lloyd_partial_sums(x, v, c),
             plain=lambda: K.lloyd_partial_sums_plain(x, v, c),
             # the one-hot product alone, given the labels
             library=lambda: torch.matmul(one_hot.T, x_aug),
-            bytes=4 * (n * d + n + k * d + k + k * (d + 1)),
-            ops=2 * n * k * d + 2 * n * (d + 1)),
+            cost=K.launch_cost("lloyd_partial_sums", n=n, k=k, d=d)),
     }
     measured = {}
     for name, r in rows.items():
-        b_ms, b_by = bound_ms(r["bytes"], r["ops"])
+        b_ms, b_by = bound_ms(*r["cost"])
         measured[name] = {
             "max_abs_err": r["err"], "ms": time_ms(r["kernel"]),
             "plain_ms": time_ms(r["plain"]), "bound_ms": b_ms,
@@ -461,8 +486,8 @@ def phase_kernels(K):
                       for kind in ("eager", "device")
                       if ms[kind] > ms[f"{kind} sum"]))
         if tag == "Lloyd":
-            b_ms, b_by = bound_ms(4 * (blocks + 1) * k * (d + 1),
-                                  blocks * k * (d + 1))
+            b_ms, b_by = bound_ms(*K.launch_cost(
+                "reduce_partials", blocks=blocks, inner=k * (d + 1)))
             # eager times, as every row of the kernels line has them; the
             # device times of a replayed CUDA graph beside them
             measured["reduce_partials"] = {
@@ -575,11 +600,11 @@ def phase_sgd_kernels(K):
             plain=lambda: K.sgd_batch_terms_plain(x, y, w, c, plain_start(),
                                                   0, lb, loss),
             library=library,
-            bytes=4 * (lb * d + 2 * lb + d + d + 2), ops=4 * lb * d),
+            cost=K.launch_cost("sgd_batch_terms", lb=lb, d=d)),
     }
     measured = {}
     for name, r in rows.items():
-        b_ms, b_by = bound_ms(r["bytes"], r["ops"])
+        b_ms, b_by = bound_ms(*r["cost"])
         measured[name] = {
             "max_abs_err": r["err"], "ms": time_ms(r["kernel"]),
             "plain_ms": time_ms(r["plain"]), "bound_ms": b_ms,
@@ -952,7 +977,8 @@ def phase_knn_kernel(K):
     x, train = rand(n, d), rand(nt, d)
     _, _, err = check_knn(K, x, train, k, "timed block")
     tsq = torch.sum(train * train, dim=1)
-    b_ms, b_by = bound_ms(4 * (n * d + nt * d + n * k), 2 * n * nt * d)
+    b_ms, b_by = bound_ms(*K.launch_cost("knn_topk_indices", n=n, nt=nt, d=d,
+                                         k=k))
     measured = {"knn_topk_indices": {
         "max_abs_err": err,
         "ms": time_ms(lambda: K.knn_topk_indices(x, train, k)),
@@ -975,8 +1001,8 @@ def phase_knn_kernel(K):
     big = rand(10_000_000, d)
     main = time_ms(lambda: K.knn_topk_indices(big, train, k), batches=3,
                    per_batch=1, warmup=1)
-    main_bound, _ = bound_ms(4 * (big.numel() + nt * d + big.shape[0] * k),
-                             2 * big.shape[0] * nt * d)
+    main_bound, _ = bound_ms(*K.launch_cost(
+        "knn_topk_indices", n=big.shape[0], nt=nt, d=d, k=k))
     log(f"  knn_topk_indices @ 10,000,000 x {nt} x {d}: {main:.3f} ms "
         f"(bound {main_bound:.3f} ms by operations, "
         f"{main_bound / main:.1%} of it)")
@@ -1066,8 +1092,8 @@ def phase_segment_kernel(K):
         def library():
             return library_out.zero_().index_add_(0, library_ids, v)
 
-        b_ms, b_by = bound_ms(4 * (v.numel() + ids.numel() + u * c),
-                              v.numel())
+        b_ms, b_by = bound_ms(*K.launch_cost("segment_reduce_sum",
+                                             n=v.shape[0], c=c, u=u))
         timed[tag] = {
             "max_abs_err": err,
             "ms": time_ms(lambda: K.segment_reduce_sum(v, ids, u)),
@@ -1986,6 +2012,177 @@ def phase_parallel(K, runner, optimizer, Table):
     return counts
 
 
+def _armed(**env):
+    """The environment of ``env`` for a block (names of the
+    ``flink_ml_tpu_torch.observability`` switches)."""
+    return mock.patch.dict(os.environ, {k: str(v) for k, v in env.items()})
+
+
+def phase_observability(K, runner):
+    """Phase 12: the observability core on the card: traced, health-armed
+    supervised segment fits of the LR and KMeans configs at full size, each
+    held bit for bit against the same fit unarmed, then profiled fits whose
+    device time the in-program profile reads per kernel."""
+    from flink_ml_tpu_torch.iteration import iteration
+    from flink_ml_tpu_torch.iteration.checkpoint import CheckpointManager
+    from flink_ml_tpu_torch.observability import (compilestats, exporters,
+                                                  health, profiling, tracing)
+    from flink_ml_tpu_torch.resilience import RetryPolicy, faults
+
+    log("phase 12: observability on the card")
+    builds = compilestats.compile_totals()
+    grp = exporters.metrics.group("ml", "compile")
+    cached = sum(grp.get_counter("cached", labels={"fn": src})
+                 for src in (K.KMEANS_SOURCE, K.SGD_SOURCE, K.SEGMENT_SOURCE,
+                             K.KNN_SOURCE))
+    log(f"  kernel builds recorded in phase 1: {builds['count']} compiled "
+        f"(their nvcc wall times, which overlap, sum to "
+        f"{builds['timeMs']:.1f} ms), {cached} cached")
+    assert builds["count"] + cached == 4, (builds, cached)
+    K.reset_launch_counts()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_observability_")
+    tracer = tracing.tracer
+    summary = {}
+    try:
+        cases = [
+            ("LR", runner.load_config(str(LINEAR_CONFIGS["logisticregression"]))
+             ["logisticregression"], 5, "LogisticRegression"),
+            ("KMeans", runner.load_config(str(CONFIG))["KMeans"], 3,
+             "KMeans"),
+        ]
+        for name, spec, k, algo in cases:
+            table = runner.build_generator(spec).get_data()
+            max_iter = spec["stage"]["paramMap"]["maxIter"]
+            runs = {"unarmed": [], "armed": []}
+
+            def result(model):
+                return (model.coefficients if name == "LR"
+                        else np.concatenate([model.centroids.ravel(),
+                                             model.weights]))
+
+            def supervised(tag, trace_dir=None):
+                mgr = CheckpointManager(f"{workdir}/{name}-{tag}")
+                est = (runner.build_stage(spec)
+                       .set_iteration_config(iteration.IterationConfig(
+                           checkpoint_interval=k, checkpoint_manager=mgr))
+                       .set_retry_policy(RetryPolicy(backoff_s=0)))
+                env = ({} if trace_dir is None else
+                       {tracing.TRACE_DIR_ENV: trace_dir,
+                        health.HEALTH_ENV: 1})
+                if trace_dir is not None:
+                    # the trace dir's snapshot is the process registry:
+                    # start it empty, so it holds this fit's series alone
+                    exporters.metrics.clear()
+                with _armed(**env), faults.chaos(at={"epoch-boundary": [2]}):
+                    model, ms = _timed_fit(est, table)
+                tracer.shutdown()
+                runs["unarmed" if trace_dir is None else "armed"].append(ms)
+                return result(model)
+
+            # unarmed, armed, armed, unarmed: the host's drift falls on both
+            want = supervised("unarmed-0")
+            trace_dir = f"{workdir}/{name}-trace"
+            got = supervised("armed-0", trace_dir)
+            supervised("armed-1", f"{workdir}/{name}-trace-1")
+            assert np.array_equal(supervised("unarmed-1"), want)
+            assert np.array_equal(got, want), f"{name}: armed fit differs"
+
+            spans = exporters.read_spans(trace_dir)
+            by_id = {sp["id"]: sp for sp in spans}
+            (fit,) = [sp for sp in spans if sp["name"] == f"{algo}.fit"]
+            segments = [sp for sp in spans if sp["name"] == "segment"]
+            saves = [sp for sp in spans if sp["name"] == "checkpoint.save"]
+            restores = [sp for sp in spans
+                        if sp["name"] == "checkpoint.restore"]
+            resumed = [sp for sp in restores if "checkpoint" in sp["attrs"]]
+            restarts = [ev for sp in spans for ev in sp["events"]
+                        if ev["name"] == "supervisor.restart"]
+            assert fit["parent"] is None
+            assert segments and all(sp["parent"] == fit["id"]
+                                    for sp in segments)
+            assert saves and all(by_id[sp["parent"]]["name"] == "segment"
+                                 for sp in saves)
+            assert len(resumed) == 1 and resumed[0]["attrs"]["epoch"] == k, (
+                restores)
+            assert len(restarts) == 1, restarts
+            assert fit["attrs"]["hbm_peak_bytes"] > 0
+            snap = exporters.read_metrics(trace_dir)
+            it = snap["ml.iteration"]["counters"]
+            assert it["boundaryFetches"] == it["boundaries"], it
+            assert it["rounds"] == max_iter, it
+            hgroup = snap["ml.health"]
+            series = sorted(
+                (ev["attrs"] for sp in spans for ev in sp["events"]
+                 if ev["name"] == "ml.convergence"),
+                key=lambda a: a["epoch"])
+            assert [a["epoch"] for a in series] == list(range(k, max_iter))
+            assert all(math.isfinite(v) for a in series
+                       for key, v in a.items()
+                       if key not in ("algo", "epoch"))
+            assert hgroup["gauges"][f'epochs{{algo="{algo}"}}'] == max_iter
+            summary[name] = {
+                "unarmed_ms": min(runs["unarmed"]),
+                "armed_ms": min(runs["armed"]),
+                "boundaries": it["boundaries"], "rounds": it["rounds"],
+                "spans": len(spans), "health_rows": len(series),
+                "peak_bytes": fit["attrs"]["hbm_peak_bytes"]}
+            log(f"  {name} supervised segments (K={k}), traced and "
+                f"health-armed: {json.dumps(summary[name], sort_keys=True)}; "
+                "bit-identical to unarmed")
+
+            # profiled: the next traced fit (and, for KMeans, transform)
+            # captures a torch.profiler window
+            profiled = {}
+            regions = [("fit", lambda: runner.build_stage(spec).fit(table))]
+            if name == "KMeans":
+                model = runner.build_stage(spec).fit(table)
+                regions.append(("transform", lambda: model.transform(table)))
+            for region, call in regions:
+                pdir = f"{workdir}/{name}-{region}-profile"
+                profiling.reset()
+                with _armed(**{tracing.TRACE_DIR_ENV: pdir,
+                               profiling.CAPTURE_ENV: 1}):
+                    call()
+                    torch.cuda.synchronize()
+                tracer.shutdown()
+                report = profiling.read_profile(pdir)
+                eff = profiling.efficiency_report(pdir)
+                assert report["source"] == "device", report["source"]
+                for row in eff["fns"]:
+                    if row["fn"] == "torch":
+                        continue
+                    launches = row["launches"]
+                    share = row["utilization"]
+                    assert launches, f"no launch cost in the window: {row}"
+                    assert share is not None and 0.0 < share <= 1.0, row
+                    profiled[row["fn"]] = {
+                        "device_ms": row["deviceMs"], "launches": launches,
+                        "ms_per_launch": row["deviceMs"] / launches,
+                        "bound_ms": row["boundMs"], "share": share,
+                        "bound": row["bound"]}
+                torch_ms = sum(r["deviceMs"] for r in eff["fns"]
+                               if r["fn"] == "torch")
+                log(f"  {name} profiled {region}: PyTorch's own kernels "
+                    f"{torch_ms:.4f} ms of device time; "
+                    f"{len(report['ops'])} distinct kernels")
+            for fn, row in sorted(profiled.items()):
+                log(f"  {name} profile {fn}: {json.dumps(row, sort_keys=True)}")
+            summary[name]["profile"] = profiled
+            del table
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    counts = dict(K.launch_counts)
+    seen = set(summary["LR"]["profile"]) | set(summary["KMeans"]["profile"])
+    missing = set(PATH_KERNELS["observability"]) - seen
+    assert not missing, f"no device rows in the profiles for {missing}"
+    log(f"  launches in the observability run: {counts}")
+    log("  observability:", json.dumps(summary, sort_keys=True))
+    for kern in PATH_KERNELS["observability"]:
+        assert counts[kern] >= 1, counts
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1999,8 +2196,12 @@ def main() -> int:
     from flink_ml_tpu_torch.benchmark import runner
     from flink_ml_tpu_torch.models.clustering import kmeans as kmeans_mod
     from flink_ml_tpu_torch.ops import kernels as K
+    from flink_ml_tpu_torch.observability import compilestats
     from flink_ml_tpu_torch.ops import optimizer
 
+    # build accounting (ml.compile) sees phase 1's builds; it records
+    # builds only, so the unarmed phases 4-11 record nothing
+    compilestats.install()
     phase_build(K)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2018,6 +2219,7 @@ def main() -> int:
     counts["ftrl"] = phase_ftrl_main_path(K, runner, Table)
     counts["iteration"] = phase_iteration_modes(K, runner, Table)
     counts["parallel"] = phase_parallel(K, runner, optimizer, Table)
+    counts["observability"] = phase_observability(K, runner)
 
     line = {"kernels": [
         {"name": name, **{key: K.KERNELS[name][key]

@@ -17,8 +17,10 @@ It reads the JAX package's config files in place as data, e.g.
 ``torch.cuda.synchronize()``. The row names the device it ran on and, as the
 JAX rows do, the mesh an estimator fitted on (:func:`_mesh_provenance`:
 ``deviceCount``, ``meshShape``, ``updateSharding``,
-``optStateBytesPerReplica``); the native-kernel and compile provenance of
-the JAX rows has no counterpart here yet and is left out.
+``optStateBytesPerReplica``) and the kernel builds the run paid for
+(``compileCount`` / ``compileTimeMs``, ``observability/compilestats.py``);
+with ``FLINK_ML_TPU_TRACE_DIR`` armed the run is a ``benchmark.run`` span.
+The native-kernel provenance of the JAX rows has no counterpart here yet.
 
     python -m flink_ml_tpu_torch.benchmark.runner CONFIG [--device cpu]
 """
@@ -39,6 +41,7 @@ from flink_ml_tpu_torch.api.stage import AlgoOperator, Estimator, Stage
 from flink_ml_tpu_torch.benchmark.datagen import resolve_generator
 from flink_ml_tpu_torch.device import DeviceLike, resolve_device, synchronize
 from flink_ml_tpu_torch.linalg.sparse import is_csr_column
+from flink_ml_tpu_torch.observability import compilestats, tracing
 from flink_ml_tpu_torch.parallel import update_sharding
 
 _STAGES: Dict[str, type] = {}
@@ -117,7 +120,36 @@ def _mesh_provenance(mesh) -> dict:
 def run_benchmark(name: str, spec: dict, device: DeviceLike = None,
                   mesh=None) -> dict:
     """One named benchmark, datagen included in the measured time; an
-    estimator fits on ``mesh`` (default: the default mesh)."""
+    estimator fits on ``mesh`` (default: the default mesh). With
+    ``FLINK_ML_TPU_TRACE_DIR`` armed the whole run is a ``benchmark.run``
+    span (datagen and fit/transform nested inside), as in the JAX package.
+
+    Every run carries its build accounting: ``compileCount`` /
+    ``compileTimeMs`` are the ``nvcc`` builds this run triggered (0 once
+    the process has built its kernels, or found them built)."""
+    compilestats.install()
+    with tracing.tracer.span("benchmark.run", benchmark=name,
+                             stage=spec["stage"]["className"]) as sp:
+        before = compilestats.compile_totals_split()["perfn"]
+        result = _run_benchmark(name, spec, device, mesh)
+        after = compilestats.compile_totals_split()["perfn"]
+        result["compileCount"] = after["count"] - before["count"]
+        result["compileTimeMs"] = round(
+            after["timeMs"] - before["timeMs"], 3)
+        sp.set_attribute("totalTimeMs", round(result["totalTimeMs"], 3))
+        sp.set_attribute("inputThroughput",
+                         round(result["inputThroughput"], 1))
+        sp.set_attribute("compileCount", result["compileCount"])
+        sp.set_attribute("compileTimeMs", result["compileTimeMs"])
+        if "deviceCount" in result:
+            sp.set_attribute("deviceCount", result["deviceCount"])
+            sp.set_attribute("meshShape", result["meshShape"])
+    tracing.maybe_dump_root_metrics()
+    return result
+
+
+def _run_benchmark(name: str, spec: dict, device: DeviceLike,
+                   mesh) -> dict:
     device = resolve_device(device)
     update_sharding.reset_last()
     stage = build_stage(spec, device, mesh)
@@ -205,7 +237,8 @@ def best_of(name: str, spec: dict, runs: int = 3,
     """The measurement protocol of the JAX package: one identical warmup
     run, then the best inputThroughput of ``runs``. The warmup's time rides
     on the row as ``warmupTimeMs`` (it includes building the kernels when
-    this process has not built them yet)."""
+    this process has not built them yet), and its builds as
+    ``warmupCompileTimeMs`` / ``warmupCompileCount``."""
     warmup = run_benchmark(name, spec, device)
     best = None
     for _ in range(runs):
@@ -213,6 +246,8 @@ def best_of(name: str, spec: dict, runs: int = 3,
         if best is None or r["inputThroughput"] > best["inputThroughput"]:
             best = r
     best["warmupTimeMs"] = warmup["totalTimeMs"]
+    best["warmupCompileTimeMs"] = warmup["compileTimeMs"]
+    best["warmupCompileCount"] = warmup["compileCount"]
     return best
 
 

@@ -31,8 +31,14 @@ manifest and, on any corruption (missing or unreadable manifest or leaves,
 digest mismatch, dtype/shape drift, leaf-count mismatch), quarantines the
 directory as ``ckpt-*.corrupt`` and falls back to the next-older one, never
 raising mid-recovery. No surviving checkpoint means a fresh start (None).
-The ``ml.checkpoint`` metrics and trace spans of the JAX package come with
-the port's observability slice.
+
+Instrumentation, the JAX package's: a ``checkpoint.save`` span (``epoch``,
+``bytes``, ``leaves``), a ``checkpoint.restore`` span (``epoch``,
+``checkpoint``, ``bytes``, or ``result="fresh-start"``), a
+``checkpoint.quarantine`` event, and the ``ml.checkpoint`` group's
+``opMs{op=}`` / ``opBytes{op=}`` histograms and ``ops{op=}`` /
+``quarantined`` counters, recorded while the tracer is armed. None of it
+touches the bytes written.
 """
 
 from __future__ import annotations
@@ -43,14 +49,38 @@ import json
 import logging
 import os
 import shutil
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from flink_ml_tpu_torch.common.metrics import ML_GROUP, metrics
+from flink_ml_tpu_torch.observability import tracing
 from flink_ml_tpu_torch.resilience import faults
 
 logger = logging.getLogger(__name__)
+
+#: bucket bounds for checkpoint payload-size histograms (bytes)
+_BYTE_BUCKETS = tuple(4.0 ** i for i in range(4, 19))  # 256 B .. 64 GB
+
+
+def _ckpt_group():
+    return metrics.group(ML_GROUP, "checkpoint")
+
+
+def _observe(op: str, ms: float, nbytes: int) -> None:
+    """Record one save/restore into the ml.checkpoint histograms, labeled
+    by operation so both directions share one metric name (while the
+    tracer is armed)."""
+    if not tracing.tracer.active:
+        return
+    labels: Dict[str, str] = {"op": op}
+    group = _ckpt_group()
+    group.histogram("opMs", labels=labels).observe(ms)
+    group.histogram("opBytes", buckets=_BYTE_BUCKETS,
+                    labels=labels).observe(nbytes)
+    group.counter("ops", labels=labels)
 
 #: manifest schema: 1 = epoch + num_leaves only (legacy, still restorable);
 #: 2 = adds per-leaf {sha256, dtype, shape} integrity records
@@ -227,8 +257,9 @@ def list_checkpoint_names(base_dir: str) -> List[str]:
 
 def quarantine_checkpoint(ckpt_dir: str, reason: str) -> str:
     """Rename a corrupt checkpoint directory to ``*.corrupt`` (never delete:
-    forensic evidence); returns the quarantine path (or ``"<removed>"`` when
-    the rename itself failed)."""
+    forensic evidence), count it (``ml.checkpoint quarantined``) and emit
+    the ``checkpoint.quarantine`` trace event; returns the quarantine path
+    (or ``"<removed>"`` when the rename itself failed)."""
     target = ckpt_dir + ".corrupt"
     n = 0
     while os.path.exists(target):
@@ -241,6 +272,11 @@ def quarantine_checkpoint(ckpt_dir: str, reason: str) -> str:
         target = "<removed>"
     logger.warning("corrupt checkpoint %s quarantined as %s (%s)",
                    ckpt_dir, target, reason)
+    if tracing.tracer.active:
+        _ckpt_group().counter("quarantined")
+    tracing.tracer.event("checkpoint.quarantine",
+                         checkpoint=os.path.basename(ckpt_dir),
+                         reason=reason)
     return target
 
 
@@ -294,12 +330,23 @@ class CheckpointManager:
         """Save one checkpoint. ``extras`` maps artifact names to JSON
         documents written as ``<name>.json`` beside the manifest inside the
         atomic rename (ignored by integrity validation)."""
+        start = time.perf_counter()
+        with tracing.tracer.span("checkpoint.save", epoch=epoch) as sp:
+            ckpt_dir, nbytes = self._save(carry, epoch, sp, extras)
+        _observe("save", (time.perf_counter() - start) * 1000.0, nbytes)
+        return ckpt_dir
+
+    def _save(self, carry: Any, epoch: int, sp,
+              extras: Optional[Dict[str, dict]]) -> Tuple[str, int]:
         faults.inject("checkpoint-save", epoch=epoch)
         leaves, _ = tree_flatten(carry)
         ckpt_dir = os.path.join(self.base_dir, f"ckpt-{epoch:08d}")
         tmp_dir = ckpt_dir + ".tmp"
         os.makedirs(tmp_dir, exist_ok=True)
         host_leaves = [_host_leaf(x) for x in leaves]
+        nbytes = int(sum(x.nbytes for x in host_leaves))
+        sp.set_attribute("bytes", nbytes)
+        sp.set_attribute("leaves", len(host_leaves))
         leaves_path = os.path.join(tmp_dir, "leaves.npz")
         np.savez(leaves_path,
                  **{f"leaf_{i}": x for i, x in enumerate(host_leaves)})
@@ -332,7 +379,7 @@ class CheckpointManager:
         os.rename(tmp_dir, ckpt_dir)
         _fsync_path(self.base_dir)  # persist the directory entry itself
         self._gc()
-        return ckpt_dir
+        return ckpt_dir, nbytes
 
     def clear(self) -> None:
         """Discard all checkpoints (called when an iteration completes)."""
@@ -376,20 +423,30 @@ class CheckpointManager:
         the template's structure, devices and dtypes; corrupt checkpoints are
         quarantined (``ckpt-*.corrupt``) and skipped in favor of the
         next-older one. None if no valid checkpoint exists."""
+        start = time.perf_counter()
         t_leaves, treedef = tree_flatten(template_carry)
-        for name in reversed(self.list_checkpoints()):
-            ckpt_dir = os.path.join(self.base_dir, name)
-            try:
-                host_leaves, epoch = load_validated(ckpt_dir, len(t_leaves))
-                if self.repad_dim0:
-                    host_leaves = [
-                        repad_leading(h, t.shape if hasattr(t, "shape")
-                                      else np.shape(t))
-                        for h, t in zip(host_leaves, t_leaves)]
-            except CorruptCheckpoint as e:
-                quarantine_checkpoint(ckpt_dir, str(e))
-                continue
-            restored = [self._place(host, tmpl)
-                        for host, tmpl in zip(host_leaves, t_leaves)]
-            return treedef.unflatten(restored), epoch
+        with tracing.tracer.span("checkpoint.restore") as sp:
+            for name in reversed(self.list_checkpoints()):
+                ckpt_dir = os.path.join(self.base_dir, name)
+                try:
+                    host_leaves, epoch = load_validated(ckpt_dir,
+                                                        len(t_leaves))
+                    if self.repad_dim0:
+                        host_leaves = [
+                            repad_leading(h, t.shape if hasattr(t, "shape")
+                                          else np.shape(t))
+                            for h, t in zip(host_leaves, t_leaves)]
+                except CorruptCheckpoint as e:
+                    quarantine_checkpoint(ckpt_dir, str(e))
+                    continue
+                restored = [self._place(host, tmpl)
+                            for host, tmpl in zip(host_leaves, t_leaves)]
+                nbytes = int(sum(x.nbytes for x in host_leaves))
+                sp.set_attribute("epoch", epoch)
+                sp.set_attribute("checkpoint", name)
+                sp.set_attribute("bytes", nbytes)
+                _observe("restore", (time.perf_counter() - start) * 1000.0,
+                         nbytes)
+                return treedef.unflatten(restored), epoch
+            sp.set_attribute("result", "fresh-start")
         return None

@@ -33,22 +33,34 @@ Two choices of the port, where the JAX package compiles a ``while_loop``:
 
 A torch carry is never updated in place: every round returns new tensors,
 so listeners may hold lagged carries and a supervised retry never meets a
-consumed one (the JAX package's donation has no counterpart here). The
-``ml.iteration`` metrics, tracing spans, mesh statistics and elastic hooks
-of the JAX drivers come with the port's observability and multi-process
-slices.
+consumed one (the JAX package's donation has no counterpart here).
+
+Instrumentation, the JAX drivers' own: each segment runs in a ``segment``
+span (``epoch_from``, ``epoch_to``, ``rounds``; a follows-from link to the
+previous segment) and each host round in an ``epoch`` span (``host_ms``,
+``device_ms``); the ``ml.iteration`` group counts ``boundaries``,
+``boundaryFetches`` and ``rounds`` and keeps ``lastSegmentMs``,
+``lastRoundMs`` and the ``epochMs{mode=}`` / ``segmentMs{mode=}``
+histograms; a boundary samples device memory. Where the JAX package
+records the metrics on every fit, the port records them only while the
+tracer is armed (``FLINK_ML_TPU_TRACE_DIR``, or the live ring): unarmed, a
+boundary costs one env check. The mesh statistics and elastic hooks of the
+JAX drivers come with the port's multi-process slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
+from flink_ml_tpu_torch.common.metrics import ML_GROUP, metrics
 from flink_ml_tpu_torch.device import DeviceLike, resolve_device
 from flink_ml_tpu_torch.iteration.checkpoint import tree_flatten
+from flink_ml_tpu_torch.observability import compilestats, tracing
 from flink_ml_tpu_torch.resilience import faults
 
 Carry = Any
@@ -56,12 +68,20 @@ Body = Callable[[Carry, int], Carry]
 Terminate = Callable[[Carry, int], Any]  # -> bool scalar (tensor or host)
 
 
+def _iteration_group():
+    return metrics.group(ML_GROUP, "iteration")
+
+
 def read_boundary(boundary) -> list:
-    """The host values of a segment boundary, ``[epoch, stop]`` stacked in
-    one int32 tensor: one ``.cpu()``, the one device→host transfer of a
-    boundary. Returns numpy scalars in order."""
+    """The host values of a segment boundary, ``[epoch, stop]`` (and
+    whatever a fit stacks after them) in one int32 tensor: one ``.cpu()``,
+    the one device→host transfer of a boundary, counted into ``ml.iteration
+    boundaryFetches`` inside a traced call. Returns numpy scalars in
+    order."""
     if isinstance(boundary, torch.Tensor):
         boundary = boundary.cpu().numpy()
+    if tracing.tracer.current() is not None:  # inside a traced segment
+        _iteration_group().counter("boundaryFetches")
     return list(np.asarray(boundary))
 
 
@@ -180,22 +200,49 @@ def run_segmented(run_segment, initial_carry, max_iter: int, K: int, mgr):
     A restore off the K-grid (a snapshot of another interval or mode)
     realigns at the first segment, so later boundaries checkpoint on-grid.
     """
+    tracer = tracing.tracer
+    armed = tracer.active
     carry, epoch = initial_carry, 0
     restored = mgr.restore(carry)
     if restored is not None:
         carry, epoch = restored
     stop = False
+    prev_ctx = None
     while epoch < max_iter and not stop:
         # realign to the K-grid so `epoch % K == 0` keeps firing after an
         # off-phase restore
         limit = min(epoch + K - epoch % K, max_iter)
-        carry, e, s = run_segment(carry, epoch, limit)
-        epoch, stop = int(e), bool(s)
-        # chaos site: the segment boundary is this mode's epoch boundary
-        faults.inject("epoch-boundary", epoch=epoch)
-        done = epoch >= max_iter or stop
-        if epoch % K == 0 and not done:
-            mgr.save(carry, epoch)
+        seg_start = time.perf_counter()
+        # each segment follows from the previous one: the carry-handoff
+        # edge of the trace
+        with tracer.span("segment", epoch_from=epoch, epoch_to=limit,
+                         links=[prev_ctx] if prev_ctx else None) as sp:
+            carry, e, s = run_segment(carry, epoch, limit)
+            rounds = int(e) - epoch
+            epoch, stop = int(e), bool(s)
+            sp.set_attribute("rounds", rounds)
+            if armed:
+                _iteration_group().counter("boundaries")
+            # chaos site: the segment boundary is this mode's epoch boundary
+            faults.inject("epoch-boundary", epoch=epoch)
+            done = epoch >= max_iter or stop
+            if epoch % K == 0 and not done:
+                mgr.save(carry, epoch)
+            if tracer.enabled:
+                # the boundary already waited for the device: the sample
+                # costs no extra synchronisation
+                compilestats.sample_memory("segment", span=sp)
+            prev_ctx = tracing.context_of(sp)
+        if armed:
+            seg_ms = (time.perf_counter() - seg_start) * 1000.0
+            group = _iteration_group()
+            group.counter("rounds", rounds)
+            group.gauge("lastSegmentMs", seg_ms)
+            group.gauge("lastRoundMs", seg_ms / max(rounds, 1))
+            mode = {"mode": "device-segment"}
+            group.histogram("epochMs", labels=mode).observe(
+                seg_ms / max(rounds, 1))
+            group.histogram("segmentMs", labels=mode).observe(seg_ms)
     mgr.clear()
     return carry
 
@@ -287,6 +334,8 @@ def _host_loop(initial_carry, body, max_iter, terminate, config, listeners,
     checkpoint run; then one fetch reads it, the only host wait of a round
     beyond what a listener or a save asks for. With ``jit_round=False`` the
     body is plain host code and its stop is read at once."""
+    tracer = tracing.tracer
+    armed = tracer.active
     carry = initial_carry
     start_epoch = 0
     mgr = config.checkpoint_manager
@@ -295,20 +344,50 @@ def _host_loop(initial_carry, body, max_iter, terminate, config, listeners,
         if restored is not None:
             carry, start_epoch = restored
 
+    prev_ctx = None
     for epoch in range(start_epoch, max_iter):
-        if config.per_round_init is not None:
-            carry = config.per_round_init(carry, epoch)
-        carry = body(carry, epoch)
-        stop = terminate(carry, epoch) if terminate is not None else False
-        if not jit_round:
+        round_start = time.perf_counter()
+        # epoch N follows from epoch N-1: the carry-handoff edge
+        with tracer.span("epoch", epoch=epoch,
+                         links=[prev_ctx] if prev_ctx else None) as sp:
+            if config.per_round_init is not None:
+                carry = config.per_round_init(carry, epoch)
+            carry = body(carry, epoch)
+            stop = terminate(carry, epoch) if terminate is not None else False
+            if not jit_round:
+                stop = bool(stop)
+            faults.inject("epoch-boundary", epoch=epoch)
+            # listeners and checkpoints run while the round's device work
+            # may still be in flight
+            host_start = time.perf_counter()
+            for lst in listeners:
+                lst.on_epoch_watermark_incremented(epoch, carry)
+            if mgr is not None and config.checkpoint_interval and \
+                    (epoch + 1) % config.checkpoint_interval == 0:
+                mgr.save(carry, epoch + 1)
+            host_ms = (time.perf_counter() - host_start) * 1000.0
             stop = bool(stop)
-        faults.inject("epoch-boundary", epoch=epoch)
-        for lst in listeners:
-            lst.on_epoch_watermark_incremented(epoch, carry)
-        if mgr is not None and config.checkpoint_interval and \
-                (epoch + 1) % config.checkpoint_interval == 0:
-            mgr.save(carry, epoch + 1)
-        if bool(stop):
+            # the round's wall time: host_ms is listener and checkpoint
+            # work, device_ms the enqueue and the residual wait on the
+            # stop bit
+            total_ms = (time.perf_counter() - round_start) * 1000.0
+            sp.set_attribute("host_ms", round(host_ms, 3))
+            sp.set_attribute("device_ms", round(total_ms - host_ms, 3))
+            if tracer.enabled:
+                compilestats.sample_memory("epoch", span=sp)
+            prev_ctx = tracing.context_of(sp)
+        if armed:
+            group = _iteration_group()
+            mode = {"mode": "host"}
+            group.gauge("lastRoundMs", total_ms)
+            group.gauge("lastRoundHostMs", host_ms)
+            group.gauge("lastRoundDeviceMs", total_ms - host_ms)
+            group.histogram("epochMs", labels=mode).observe(total_ms)
+            group.histogram("epochHostMs", labels=mode).observe(host_ms)
+            group.histogram("epochDeviceMs", labels=mode).observe(
+                total_ms - host_ms)
+            group.counter("rounds")
+        if stop:
             break
     for lst in listeners:
         lst.on_iteration_terminated(carry)

@@ -28,6 +28,14 @@ the JAX package's host rounds use XLA partials), and transform from
 ``assign_nearest`` (``ops/kernels.py``). The other measures, and shapes
 whose tile does not fit a block's shared memory, run plain PyTorch
 (``torch-lloyd``), as the JAX package runs them in XLA.
+
+With health telemetry armed (``observability/health.py``) each round also
+computes its Frobenius centre shift on the device: the all-device fit and
+its segments fetch the shifts with the final centroids (one transfer) and
+record the ``centerShift`` series; host rounds take the JAX package's
+:meth:`~health.ConvergenceListener.for_centroids`. The JAX package keeps
+only the final-state guard in its segment mode; the port records the
+series there too, at no extra transfer.
 """
 
 from __future__ import annotations
@@ -43,7 +51,7 @@ from flink_ml_tpu_torch.common.table import Table, as_dense_vector_column
 from flink_ml_tpu_torch.iteration import iteration
 from flink_ml_tpu_torch.linalg.distance import DistanceMeasure
 from flink_ml_tpu_torch.models.common import IterationRuntimeMixin
-from flink_ml_tpu_torch.observability.health import guard_final_state
+from flink_ml_tpu_torch.observability import health as _health
 from flink_ml_tpu_torch.ops import kernels
 from flink_ml_tpu_torch.parallel import collective as C
 from flink_ml_tpu_torch.parallel import update_sharding as _upd
@@ -233,20 +241,34 @@ class KMeans(Estimator, KMeansParams, IterationRuntimeMixin):
                 DistanceMeasure.get_instance(self.distance_measure))
             path = "torch-lloyd"
 
+        config, listeners = self._iteration_config, self._iteration_listeners
+        seg = iteration.device_checkpoint_segment(config, listeners)
+        host_rounds = not seg and iteration.needs_host_loop(config, listeners)
+        health_on = _health.armed()
+        # armed, every device-mode round's centre shift: (epoch, 0-dim
+        # tensor) pairs, fetched with the final centroids
+        shifts = [] if health_on and not host_rounds else None
+
         def body(carry, epoch):
             centroids, _ = carry
-            return lloyd_round(partials_fn, x, v, centroids, mesh, sharded)
+            new = lloyd_round(partials_fn, x, v, centroids, mesh, sharded)
+            if shifts is not None:
+                shifts.append((epoch, torch.linalg.vector_norm(
+                    new[0] - centroids)))
+            return new
 
-        config, listeners = self._iteration_config, self._iteration_listeners
-        if iteration.device_checkpoint_segment(config, listeners):
+        if seg:
             path += "-segments"
-        elif iteration.needs_host_loop(config, listeners):
+        elif host_rounds:
             path += "-rounds"
         # a fresh carry per attempt, the JAX package's leaves: (centroids
         # (k, d) f32, counts (k,) f32); the rounds never update it in place
         init = (initial_centroids(features, k, self.get_seed_or_default(),
                                   device),
                 torch.zeros(k, dtype=torch.float32, device=device))
+        if health_on and host_rounds:
+            listeners = tuple(listeners) + (
+                _health.ConvergenceListener.for_centroids("KMeans", init[0]),)
         centroids, counts = iteration.iterate_bounded(
             init, body, max_iter=self.max_iter, config=config,
             listeners=listeners)
@@ -257,10 +279,20 @@ class KMeans(Estimator, KMeansParams, IterationRuntimeMixin):
         # centroid carry is all-gathered every round, so it is full size
         _upd.record_state_bytes("KMeans", (centroids, counts), mesh.size,
                                 sharded)
-        # the one host synchronisation of the fit
-        centroids = centroids.cpu().numpy().astype(np.float64)
-        counts = counts.cpu().numpy().astype(np.float64)
-        guard_final_state("KMeans", centroids)
+        # the one host synchronisation of the fit (the shifts ride along)
+        parts = [centroids.flatten(), counts]
+        if shifts:
+            parts.append(torch.stack([shift for _, shift in shifts]))
+        final = torch.cat(parts).cpu().numpy().astype(np.float64)
+        centroids = final[:k * dim].reshape(k, dim)
+        counts = final[k * dim:k * dim + k]
+        if not health_on:
+            _health.guard_final_state("KMeans", centroids)
+        elif shifts is not None:
+            s = final[k * dim + k:]
+            _health.check_fit("KMeans", {"centerShift": s},
+                              finite=bool(np.isfinite(s).all()),
+                              epoch0=shifts[0][0] if shifts else 0)
         model = KMeansModel(centroids=centroids, weights=counts,
                             device=self._device)
         return self.copy_params_to(model)

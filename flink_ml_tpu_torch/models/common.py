@@ -7,8 +7,11 @@ collapsed into two base classes: a concrete linear algorithm declares a
 loss and a prediction rule). The iterative estimators take an
 ``IterationConfig`` with listeners (host rounds, K-round checkpointed
 segments, resume) and a ``RetryPolicy`` (supervised restarts) through
-:class:`IterationRuntimeMixin`. The drift and quality baselines a traced fit
-captures come with the observability slice.
+:class:`IterationRuntimeMixin`. A traced fit records its spans, metrics and
+health series through the port's observability layer (``observability/``);
+the drift and quality baselines a traced JAX fit also captures (its
+``models/common.py:186-230``) wait for the port's drift and evaluation
+modules.
 """
 
 from __future__ import annotations

@@ -41,18 +41,28 @@ are summed over the mesh. With ``FLINK_ML_TPU_UPDATE_SHARDING=1`` the sum is
 reduce-scattered and each shard updates its 1/N slice of w, z and n; z and n
 stay sharded between batches, while the host view and the checkpoints stay
 the trimmed (d,) float64 arrays in both modes. The host engine keeps its own
-row-range split. The health series and the drift and quality baselines come
-with later slices of the port.
+row-range split.
+
+With health telemetry armed (``observability/health.py``) each device batch
+also returns its mean logloss, from the pre-update coefficients; the losses
+stay on the device and drain in stacked fetches of up to
+``_HISTORY_DEV_CAP`` into the per-batch ``loss`` series of ``ml.health``
+(host batches compute theirs in float64), and a non-finite batch raises the
+terminal ``NonFiniteState``. While the tracer is armed, ``set_model_data``
+records the ``ml.model version`` gauge. The drift and quality baselines
+come with later slices of the port.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from flink_ml_tpu_torch.api.stage import Estimator, Model
+from flink_ml_tpu_torch.common.metrics import VERSION_GAUGE, metrics
 from flink_ml_tpu_torch.common.table import Table, as_dense_vector_column
 from flink_ml_tpu_torch.iteration.streaming import (
     StreamCheckpointer,
@@ -66,7 +76,8 @@ from flink_ml_tpu_torch.models.common import (
     prediction_dtype,
     scalar_column,
 )
-from flink_ml_tpu_torch.observability.health import guard_final_state
+from flink_ml_tpu_torch.observability import health as _health
+from flink_ml_tpu_torch.observability import tracing
 from flink_ml_tpu_torch.ops import kernels
 from flink_ml_tpu_torch.parallel import collective as C
 from flink_ml_tpu_torch.parallel import mapreduce as mr
@@ -148,7 +159,13 @@ def _ftrl_update(mesh, sharded: bool, g, coeffs, z, n, hyper):
     return w, z, n
 
 
-def _ftrl_program(mesh, hyper, sharded: bool):
+def _xent(dots: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Per-row binary logloss from the margins, stable:
+    ``log(1 + e^d) - y·d``."""
+    return torch.logaddexp(torch.zeros_like(dots), dots) - y * dots
+
+
+def _ftrl_program(mesh, hyper, sharded: bool, health: bool = False):
     """One dense FTRL batch as a map-reduce program over the mesh, the port
     of ``_ftrl_program``: ``step(shard_args, n_rows, coeffs, z, n) ->
     (coeffs, z, n)``, ``shard_args`` each shard's (x, y) rows. The map is
@@ -156,22 +173,33 @@ def _ftrl_program(mesh, hyper, sharded: bool):
     length), the reduce a sum (reduce-scattered with ``sharded``), the
     update the FTRL rule on the gradient divided by the batch's row count
     (the dense branch of CalculateLocalGradient:364-388, which ignores the
-    weight column)."""
+    weight column). With ``health`` the step also returns the batch's mean
+    logloss (from the pre-update coefficients' margins) as a 0-dim device
+    tensor."""
     prog = mr.MapReduceProgram(mesh)
 
     def map_fn(shard, x, y, n_rows, coeffs, z, n):
-        p = _sigmoid(x @ _true_width(coeffs, x))
-        return {"grad": _upd.pad_leading((p - y) @ x, coeffs.shape[0])}
+        dots = x @ _true_width(coeffs, x)
+        p = _sigmoid(dots)
+        partials = {"grad": _upd.pad_leading((p - y) @ x, coeffs.shape[0])}
+        if health:
+            partials["loss"] = torch.sum(_xent(dots, y))
+        return partials
 
     def update_fn(red, n_rows, coeffs, z, n):
         g = red["grad"] / max(float(n_rows), 1.0)
-        return _ftrl_update(mesh, sharded, g, coeffs, z, n, hyper)
+        out = _ftrl_update(mesh, sharded, g, coeffs, z, n, hyper)
+        if health:
+            return out + (red["loss"] / max(float(n_rows), 1.0),)
+        return out
 
-    return prog.build(map_fn, update_fn, reduce={
-        "grad": mr.reduce_scatter if sharded else mr.reduce_sum})
+    reduce = {"grad": mr.reduce_scatter if sharded else mr.reduce_sum}
+    if health:
+        reduce["loss"] = mr.reduce_sum
+    return prog.build(map_fn, update_fn, reduce=reduce)
 
 
-def _ftrl_sparse_program(mesh, hyper, sharded: bool):
+def _ftrl_sparse_program(mesh, hyper, sharded: bool, health: bool = False):
     """One sparse FTRL batch on the device as a map-reduce program, the
     port of ``_ftrl_sparse_program`` and the twin of the host engine:
     ``step(shard_args, coeffs, z, n) -> (coeffs, z, n)``, ``shard_args``
@@ -182,7 +210,8 @@ def _ftrl_sparse_program(mesh, hyper, sharded: bool):
     carry validity 0 and padded rows own no slot. The reduce sums the
     (d, 2) gradient and weight columns (reduce-scattered with
     ``sharded``); the update divides by the weight sum where it is not
-    0."""
+    0. With ``health`` the step also returns the batch's weighted mean
+    logloss (padded rows weigh 0) as a 0-dim device tensor."""
     prog = mr.MapReduceProgram(mesh)
 
     def map_fn(shard, vals, col, row, valid, yb, wb, coeffs, z, n):
@@ -192,19 +221,29 @@ def _ftrl_sparse_program(mesh, hyper, sharded: bool):
                                           yb.shape[0])
         p = _sigmoid(dots)
         # gradient and weight sums share one pass: two value columns
-        return {"gw": kernels.segment_reduce_sum(
+        partials = {"gw": kernels.segment_reduce_sum(
             torch.stack([vals * (p - yb)[rl] * valid, wb[rl] * valid], dim=1),
             col, c.shape[0])}
+        if health:
+            partials["lossNum"] = torch.sum(wb * _xent(dots, yb))
+            partials["lossDen"] = torch.sum(wb)
+        return partials
 
     def update_fn(red, coeffs, z, n):
         gw = red["gw"]
         grad, wsum = gw[..., 0], gw[..., 1]
         g = torch.where(wsum != 0, grad / torch.where(wsum != 0, wsum, 1.0),
                         0.0)
-        return _ftrl_update(mesh, sharded, g, coeffs, z, n, hyper)
+        out = _ftrl_update(mesh, sharded, g, coeffs, z, n, hyper)
+        if health:
+            return out + (red["lossNum"]
+                          / torch.clamp_min(red["lossDen"], 1e-30),)
+        return out
 
-    return prog.build(map_fn, update_fn, reduce={
-        "gw": mr.reduce_scatter if sharded else mr.reduce_sum})
+    reduce = {"gw": mr.reduce_scatter if sharded else mr.reduce_sum}
+    if health:
+        reduce["lossNum"] = reduce["lossDen"] = mr.reduce_sum
+    return prog.build(map_fn, update_fn, reduce=reduce)
 
 
 def _pack_csr_shards(x, y, w, n_shards: int):
@@ -379,6 +418,11 @@ class OnlineLogisticRegressionModel(Model,
         if "modelVersion" in model_data:
             self.model_version = int(model_data.scalars("modelVersion",
                                                         np.int64)[0])
+        if tracing.tracer.active:
+            # only the version gauge: LR model data carries no timestamp,
+            # and a wall-clock stand-in would clobber other models' real
+            # timestamps
+            metrics.model_group().gauge(VERSION_GAUGE, self.model_version)
         return self
 
     def get_model_data(self) -> Tuple[Table]:
@@ -448,8 +492,36 @@ class OnlineLogisticRegression(Estimator, OnlineLogisticRegressionParams,
         # 1/N slices per shard, coefficients padded to the shard multiple
         sharded = _upd.enabled()
         dp = _upd.padded_len(d, mesh.size) if sharded else d
-        dense_step = _ftrl_program(mesh, hyper, sharded)
-        sparse_step = _ftrl_sparse_program(mesh, hyper, sharded)
+        # per-batch model health (observability/health.py): armed, every
+        # device batch returns its mean logloss; the scalars stay on the
+        # device and drain in stacked fetches at the history's cadence, so
+        # no batch waits for the device on their account
+        health_on = _health.armed()
+        algo = type(self).__name__
+        loss_pending: List[torch.Tensor] = []
+        loss_series: List[float] = []
+        dense_step = _ftrl_program(mesh, hyper, sharded, health_on)
+        sparse_step = _ftrl_sparse_program(mesh, hyper, sharded, health_on)
+
+        def check_losses(final=False):
+            """Drain the pending device losses (one fetch); a non-finite
+            batch records the series and raises NonFiniteState."""
+            if loss_pending:
+                loss_series.extend(
+                    float(v) for v in torch.stack(loss_pending).cpu().numpy())
+                loss_pending.clear()
+            if loss_series and not all(np.isfinite(loss_series)):
+                _health.check_fit(algo, {"loss": loss_series}, finite=False)
+            elif final:
+                _health.check_fit(algo, {"loss": loss_series}, finite=True)
+
+        def device_batch(out):
+            if health_on:
+                *out, loss = out
+                loss_pending.append(loss)
+                if len(loss_pending) >= _HISTORY_DEV_CAP:
+                    check_losses()
+            commit_device_state(tuple(out))
         z = np.zeros_like(coeffs)
         n = np.zeros_like(coeffs)
         history: List[Tuple[int, object]] = []
@@ -534,8 +606,8 @@ class OnlineLogisticRegression(Estimator, OnlineLogisticRegressionParams,
                 xb = C.ensure_on_mesh(mesh, x).parts
                 yb = C.ensure_on_mesh(
                     mesh, scalar_column(batch, self.label_col)).parts
-                commit_device_state(dense_step(list(zip(xb, yb)), x.shape[0],
-                                               *device_state()))
+                device_batch(dense_step(list(zip(xb, yb)), x.shape[0],
+                                        *device_state()))
                 batches["torch-dense"] += 1
                 continue
             y = batch.scalars(self.label_col, np.float64)
@@ -550,11 +622,18 @@ class OnlineLogisticRegression(Estimator, OnlineLogisticRegressionParams,
                                                     device=mesh.devices[s])
                                     for a in packed)
                               for s in mesh.local_shards]
-                commit_device_state(sparse_step(shard_args, *device_state()))
+                device_batch(sparse_step(shard_args, *device_state()))
                 batches["cuda-csr" if device.type == "cuda"
                         else "torch-csr"] += 1
                 continue
             to_host()  # the host engine runs on the float64 host state
+            if health_on:
+                dots = x @ coeffs
+                loss_series.append(float(np.sum(w_col * (
+                    np.logaddexp(0.0, dots) - y * dots)))
+                    / max(float(w_col.sum()), 1e-30))
+                if not math.isfinite(loss_series[-1]):
+                    check_losses()
             coeffs, z, n = _host_step(x, y, w_col, coeffs, z, n, *hyper)
             version += 1
             batches["host-csr"] += 1
@@ -564,7 +643,13 @@ class OnlineLogisticRegression(Estimator, OnlineLogisticRegressionParams,
         ckpt.complete(pack)
         to_host()
         materialize_history()
-        guard_final_state(type(self).__name__, coeffs)
+        if health_on:
+            # end-of-stream drain: the whole per-batch loss series lands in
+            # ml.health; a non-finite batch raises NonFiniteState
+            check_losses(final=True)
+        # the batch loss comes from the PRE-update coefficients, so a
+        # divergence in the last update shows only in the state
+        _health.guard_final_state(algo, coeffs)
         # benchmark provenance (runner.py executionPath): where the batch
         # updates ran, in the JAX package's form
         active = [(k, v) for k, v in batches.items() if v]

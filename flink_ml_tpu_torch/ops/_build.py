@@ -4,7 +4,10 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain C interface, under ``flink_ml_tpu_torch/_build/``
 (listed in ``.gitignore``). The library's file name carries a hash of the
 source and the flags, so an edited source builds anew and an unchanged one
-is loaded from the earlier build. Nothing here runs at import time.
+is loaded from the earlier build. Nothing here runs at import time. Each
+source's build, or the library found from an earlier one, is reported once
+per process to ``observability/compilestats.py`` (``ml.compile`` under
+``fn=<source>``), which records it once compile accounting is installed.
 """
 
 from __future__ import annotations
@@ -16,9 +19,11 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 from typing import Dict
 
+from flink_ml_tpu_torch.observability import compilestats
 from flink_ml_tpu_torch.resilience.policy import KernelBuildError
 
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -31,6 +36,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: ptxas' report (registers, shared memory, spills) of each source built by
 #: this process, by source name
 BUILD_LOGS: Dict[str, str] = {}
+
+#: sources whose build (or cached library) this process has reported
+_REPORTED = set()
+
+
+def _report(name: str, ms: float, cached: bool) -> None:
+    if name not in _REPORTED:
+        _REPORTED.add(name)
+        compilestats.note_build(name, ms, cached)
 
 
 def _nvcc() -> str:
@@ -69,6 +83,7 @@ def build_all(names) -> None:
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     started = []
+    t0 = time.perf_counter()
     try:
         for name in todo:
             # compile to a private name, then rename: a concurrent build
@@ -87,6 +102,9 @@ def build_all(names) -> None:
                 continue
             BUILD_LOGS[name] = stdout + stderr
             os.replace(tmp, out)
+            # wall time from the common start until this build was
+            # collected (the builds run at once)
+            _report(name, (time.perf_counter() - t0) * 1000.0, cached=False)
         if failed:
             raise KernelBuildError("\n".join(failed))
     finally:
@@ -101,4 +119,6 @@ def build_all(names) -> None:
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, loaded once per process."""
-    return ctypes.CDLL(str(build(name)))
+    path = build(name)
+    _report(name, 0.0, cached=True)  # a no-op when this process built it
+    return ctypes.CDLL(str(path))

@@ -30,7 +30,11 @@ No kernel uses atomics, so a call gives the same bits every time.
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else. For a CUDA tensor it launches its kernel on the current
 stream and adds one to its entry of :data:`launch_counts`, or raises: there
-is no fallback. The ``*_plain`` versions compute the same functions in plain
+is no fallback. Inside a traced call (``FLINK_ML_TPU_TRACE_DIR``: a span
+open on the thread) a launch also records the bytes and operations
+:func:`launch_cost` gives for it (``observability/compilestats.py`` ``capture_cost``), which the
+in-program profile holds its device time against; :data:`KERNEL_SYMBOLS`
+names the kernel each CUDA symbol serves there. The ``*_plain`` versions compute the same functions in plain
 PyTorch; a wrapper runs its plain version only for CPU tensors, and the
 tests and ``chip_smoke.py`` hold the kernels against them.
 """
@@ -45,6 +49,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from flink_ml_tpu_torch.observability import compilestats
+from flink_ml_tpu_torch.observability.tracing import tracer as _tracer
 from flink_ml_tpu_torch.ops import _build
 from flink_ml_tpu_torch.ops.losses import LossFunc
 from flink_ml_tpu_torch.resilience.policy import KernelLaunchError
@@ -77,6 +83,24 @@ KERNELS = {
         "replaces": "flink_ml_tpu/ops/pallas_kernels.py:421"},
 }
 
+#: each ``__global__`` function of the sources → the wrapper it serves
+#: (device-time attribution of a profile, observability/profiling.py)
+KERNEL_SYMBOLS = {
+    "assign_kernel": "assign_nearest",
+    "lloyd_partials_kernel": "lloyd_partial_sums",
+    "reduce_rows_kernel": "reduce_partials",
+    "reduce_tile_kernel": "reduce_partials",
+    "sgd_rows_kernel": "sgd_batch_terms",
+    "sgd_terms_kernel": "sgd_batch_terms",
+    "sgd_combine_kernel": "sgd_batch_terms",
+    "segment_ranges_kernel": "segment_reduce_sum",
+    "segment_tiles_kernel": "segment_reduce_sum",
+    "segment_combine_kernel": "segment_reduce_sum",
+    "knn_tile_kernel": "knn_topk_indices",
+    "knn_merge_kernel": "knn_topk_indices",
+    "knn_topk_wide_kernel": "knn_topk_indices",
+}
+
 #: kernel launches by wrapper since the last :func:`reset_launch_counts`
 launch_counts = {name: 0 for name in KERNELS}
 
@@ -84,6 +108,53 @@ launch_counts = {name: 0 for name in KERNELS}
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def launch_cost(name: str, **dims: int) -> Tuple[int, int]:
+    """``(bytes, operations)`` of one call of the kernel ``name``: the bytes
+    the function must move (each float32 input read once, each output
+    written once) and the operations it does on its inputs, for the shapes
+    in ``dims``. The one count of a kernel's work: the least time the card
+    could take (``chip_smoke.py``'s ``bound_ms``) and the roofline share of
+    a profile (``observability/profiling.py``) both read it.
+
+    - ``assign_nearest``, ``lloyd_partial_sums``: ``n``, ``k``, ``d``;
+    - ``reduce_partials``: ``blocks`` partials of ``inner`` floats each;
+    - ``sgd_batch_terms``: a window of ``lb`` rows of ``d`` features;
+    - ``segment_reduce_sum``: ``n`` rows of ``c`` values into ``u``
+      segments;
+    - ``knn_topk_indices``: ``n`` test rows, ``nt`` train rows, ``d``
+      features, ``k`` neighbours.
+    """
+    g = dims.get
+    if name == "assign_nearest":
+        n, k, d = g("n"), g("k"), g("d")
+        return 4 * (n * d + k * d + k + n), 2 * n * k * d
+    if name == "lloyd_partial_sums":
+        n, k, d = g("n"), g("k"), g("d")
+        return (4 * (n * d + n + k * d + k + k * (d + 1)),
+                2 * n * k * d + 2 * n * (d + 1))
+    if name == "reduce_partials":
+        blocks, inner = g("blocks"), g("inner")
+        return 4 * (blocks + 1) * inner, blocks * inner
+    if name == "sgd_batch_terms":
+        lb, d = g("lb"), g("d")
+        return 4 * (lb * d + 2 * lb + d + d + 2), 4 * lb * d
+    if name == "segment_reduce_sum":
+        n, c, u = g("n"), g("c"), g("u")
+        return 4 * (n * c + n + u * c), n * c
+    if name == "knn_topk_indices":
+        n, nt, d, k = g("n"), g("nt"), g("d"), g("k")
+        return 4 * (n * d + nt * d + n * k), 2 * n * nt * d
+    raise KeyError(f"launch_cost: unknown kernel {name!r}")
+
+
+def _capture_cost(name: str, **dims: int) -> None:
+    """Record one launch's :func:`launch_cost`. A wrapper calls it inside a
+    traced call only (a span open on this thread: the tracer is armed),
+    after counting the launch; the open-span check is a thread-local read,
+    cheaper than the tracer's env lookup, on the path of every launch."""
+    compilestats.capture_cost(name, *launch_cost(name, **dims))
 
 
 # -- shape gates -------------------------------------------------------------
@@ -631,6 +702,9 @@ def assign_nearest(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
         return torch.empty(0, dtype=torch.int32, device=x.device)
     out = _launch_assign(x, centroids)
     launch_counts["assign_nearest"] += 1
+    if _tracer.current() is not None:
+        _capture_cost("assign_nearest", n=x.shape[0],
+                      k=centroids.shape[0], d=x.shape[1])
     return out
 
 
@@ -651,6 +725,8 @@ def lloyd_partial_sums(x: torch.Tensor, v: torch.Tensor,
         return torch.zeros((k, d + 1), dtype=torch.float32, device=x.device)
     partials = _launch_lloyd_partials(x, v, centroids)
     launch_counts["lloyd_partial_sums"] += 1
+    if _tracer.current() is not None:
+        _capture_cost("lloyd_partial_sums", n=x.shape[0], k=k, d=d)
     return reduce_partials(partials)
 
 
@@ -669,6 +745,9 @@ def reduce_partials(partials: torch.Tensor) -> torch.Tensor:
         return partials.new_zeros(partials.shape[1:])
     out = _launch_reduce(partials)
     launch_counts["reduce_partials"] += 1
+    if _tracer.current() is not None:
+        _capture_cost("reduce_partials", blocks=partials.shape[0],
+                      inner=partials.numel() // partials.shape[0])
     return out
 
 
@@ -709,6 +788,8 @@ def sgd_batch_terms(xl: torch.Tensor, yl: torch.Tensor, wl: torch.Tensor,
                            device=xl.device)
     ws = _launch_sgd_terms(xl, yl, wl, coeffs, start, clip, lb, loss_name)
     launch_counts["sgd_batch_terms"] += 1
+    if _tracer.current() is not None:
+        _capture_cost("sgd_batch_terms", lb=lb, d=xl.shape[1])
     return ws[ws.shape[0] - 1]  # a positive index takes less host time
 
 
@@ -746,6 +827,8 @@ def segment_reduce_sum(values: torch.Tensor, segment_ids: torch.Tensor,
         return torch.zeros(shape, dtype=torch.float32, device=values.device)
     out = _launch_segment(values, segment_ids, u, c, shape)
     launch_counts["segment_reduce_sum"] += 1
+    if _tracer.current() is not None:
+        _capture_cost("segment_reduce_sum", n=n, c=c, u=u)
     return out
 
 
@@ -775,6 +858,9 @@ def knn_topk_indices(x: torch.Tensor, train: torch.Tensor,
         return torch.empty((0, k), dtype=torch.int32, device=x.device)
     out = _launch_knn(x, train, k)
     launch_counts["knn_topk_indices"] += 1
+    if _tracer.current() is not None:
+        _capture_cost("knn_topk_indices", n=x.shape[0],
+                      nt=train.shape[0], d=x.shape[1], k=k)
     return out
 
 

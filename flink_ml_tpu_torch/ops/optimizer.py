@@ -38,9 +38,16 @@ rounds of one round each with listeners, checkpoints and a stop fetch a
 round. Every mode launches ``sgd_batch_terms`` with the same windows in the
 same order, so each gives the plain fit's bits.
 
-Dense features only: tensor parallelism over a ``model`` axis, the CSR path
-and the health telemetry come with later slices of the port, and asking for
-them raises.
+With health telemetry armed (``observability/health.py``: a trace dir or
+``FLINK_ML_TPU_HEALTH``) each round also computes its float32 ``[loss,
+update norm, parameter norm]`` row on the device; the rows ride the fit's
+final fetch (all-device), each segment's boundary fetch (segments), or a
+listener that fetches them once at termination (host rounds), so no round
+waits for the device on their account, and the series lands in
+``ml.health``. Unarmed, no row is computed.
+
+Dense features only: tensor parallelism over a ``model`` axis and the CSR
+path come with later slices of the port, and asking for them raises.
 """
 
 from __future__ import annotations
@@ -53,7 +60,7 @@ import torch
 
 from flink_ml_tpu_torch.device import DeviceLike
 from flink_ml_tpu_torch.iteration import iteration
-from flink_ml_tpu_torch.observability.health import guard_final_state
+from flink_ml_tpu_torch.observability import health as _health
 from flink_ml_tpu_torch.ops import kernels
 from flink_ml_tpu_torch.ops.losses import LossFunc
 from flink_ml_tpu_torch.ops.regularization import regularize
@@ -298,11 +305,14 @@ def _where(active: torch.Tensor, new, old):
 
 def _masked_rounds(batch_terms: BatchTerms, loss_name: str, prm: SGDParams,
                    mesh, sharded: bool, data: ShardData,
-                   coeffs: torch.Tensor, opt: tuple, offsets, rounds: int):
+                   coeffs: torch.Tensor, opt: tuple, offsets, rounds: int,
+                   rows: Optional[list] = None):
     """``rounds`` rounds from the shards' window ``offsets`` with the tol
     stop as a mask → (coeffs, opt, mean_loss at the stopping round, rounds
     run, stop), all tensors on the device; nothing here waits for the
-    device. A round after the stop changes nothing."""
+    device. A round after the stop changes nothing. With ``rows`` (health
+    armed) each round appends its :func:`~health.health_row` as a device
+    tensor; the caller keeps the rows of the rounds run."""
     sched = ShardSchedule(prm.global_batch_size, mesh.size, data.x.ls,
                           data.x.real)
     shards = list(zip(data.x.parts, data.y.parts, data.w.parts))
@@ -318,6 +328,9 @@ def _masked_rounds(batch_terms: BatchTerms, loss_name: str, prm: SGDParams,
                                                   coeffs, opt, parts)
         # the tol stop as a mask: a round after it changes nothing
         active = torch.logical_not(stop)
+        if rows is not None:
+            # rows after the stop are cut off on the host (by rounds run)
+            rows.append(_health.health_row(new_loss, coeffs, updated))
         coeffs = torch.where(active, updated, coeffs)
         opt = tuple(_where(active, nw, old) for nw, old in zip(new_opt, opt))
         mean_loss = torch.where(active, new_loss, mean_loss)
@@ -353,6 +366,25 @@ def _on_device(values, device: torch.device) -> torch.Tensor:
                            device=device).contiguous()
 
 
+def _finish_fit_health(algo: str, health_on: bool, hist, epochs: int,
+                       mean_loss, coeffs_host, epoch0: int = 0) -> None:
+    """The shared health tail of the SGD fit paths (the JAX package's
+    ``_finish_fit_health``): armed, record the executed slice ``[epoch0,
+    epochs)`` of the (max_iter, 3) host series and classify divergence
+    (raising the terminal NonFiniteState on a non-finite row); otherwise
+    run the cheap always-on guard over the already-fetched final state."""
+    if health_on and hist is not None:
+        h = np.asarray(hist, np.float64)
+        lo = min(int(epoch0), h.shape[0])
+        hi = min(int(epochs), h.shape[0])
+        _health.check_fit(
+            algo, {"loss": h[lo:hi, 0], "updateNorm": h[lo:hi, 1],
+                   "paramNorm": h[lo:hi, 2]},
+            finite=bool(np.isfinite(h[lo:hi]).all()), epoch0=lo)
+    else:
+        _health.guard_final_state(algo, coeffs_host, loss=mean_loss)
+
+
 class SGD:
     """Ref: Optimizer/SGD: optimize(initModel, trainData) → fitted coeffs."""
 
@@ -361,34 +393,62 @@ class SGD:
         self.last_execution_path = None
 
     def _iterate(self, loss_name: str, mesh, sharded: bool, data: ShardData,
-                 init, seg_k: int, config, listeners
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The rounds through the iteration runtime → (coeffs, mean_loss),
-        device tensors. The carry is the JAX package's, leaf for leaf:
-        ``(coeffs f32, offsets (p,) int32, mean_loss f32, opt)``, with the
-        coefficients and moments padded and the moments
+                 init, seg_k: int, config, listeners, algo: str,
+                 health_on: bool) -> Tuple[torch.Tensor, torch.Tensor, dict]:
+        """The rounds through the iteration runtime → (coeffs, mean_loss,
+        health state), device tensors. The carry is the JAX package's, leaf
+        for leaf: ``(coeffs f32, offsets (p,) int32, mean_loss f32, opt)``,
+        with the coefficients and moments padded and the moments
         :class:`~update_sharding.Sharded` under the sharded update, so the
         two packages' checkpoints hold the same leaves. ``offsets`` (the
         shards' window offsets) is a host numpy array: the schedule is
         Python ints, so a restored offset needs no device read. Each call
-        builds a fresh carry, and no carry tensor is updated in place."""
+        builds a fresh carry, and no carry tensor is updated in place.
+
+        With health armed a segment's rows ride its boundary fetch into
+        the health state's (max_iter, 3) host ``hist`` (a non-finite row
+        fails the fit at that boundary), and host rounds gain a
+        :class:`~health.ConvergenceListener`; the health state stays
+        outside the checkpointed carry, so a snapshot is the same with
+        telemetry on or off."""
         prm = self.params
         sched = ShardSchedule(prm.global_batch_size, mesh.size, data.x.ls,
                               data.x.real)
         batch_terms = kernels.sgd_batch_terms
+        hstate = {"hist": None, "first": None, "epoch": 0}
 
         if seg_k:
+            if health_on:
+                hstate["hist"] = np.full((prm.max_iter, 3), np.nan,
+                                         np.float32)
+
             def run_segment(carry, epoch0, limit):
                 coeffs, offsets, _, opt = carry
+                if hstate["first"] is None:
+                    hstate["first"] = epoch0
+                rows = [] if health_on else None
                 coeffs, opt, mean_loss, ran, stop = _masked_rounds(
                     batch_terms, loss_name, prm, mesh, sharded, data, coeffs,
-                    opt, offsets, limit - epoch0)
-                # the boundary's one fetch: [epoch, stop]
-                epoch, stop = iteration.read_boundary(
-                    torch.stack([ran + epoch0, stop.to(torch.int32)]))
-                epoch = int(epoch)
+                    opt, offsets, limit - epoch0, rows)
+                # the boundary's one fetch: [epoch, stop], then the
+                # segment's health rows as their float32 bits
+                boundary = torch.stack([ran + epoch0, stop.to(torch.int32)])
+                if rows:
+                    boundary = torch.cat([boundary, torch.stack(rows).view(
+                        torch.int32).flatten()])
+                vals = iteration.read_boundary(boundary)
+                epoch, stop = int(vals[0]), bool(vals[1])
+                if rows:
+                    got = np.asarray(vals[2:], np.int32).view(
+                        np.float32).reshape(-1, 3)[:epoch - epoch0]
+                    hstate["hist"][epoch0:epoch] = got
+                    hstate["epoch"] = epoch
+                    if not np.isfinite(got).all():
+                        # a NaN state fails the fit at this boundary
+                        _finish_fit_health(algo, True, hstate["hist"], epoch,
+                                           None, None, hstate["first"])
                 return ((coeffs, sched.advance(offsets, epoch - epoch0),
-                         mean_loss, opt), epoch, bool(stop))
+                         mean_loss, opt), epoch, stop)
 
             final = iteration.run_segmented(run_segment, init, prm.max_iter,
                                             seg_k, config.checkpoint_manager)
@@ -402,12 +462,17 @@ class SGD:
                     opt, offsets, 1)
                 return coeffs, sched.advance(offsets), mean_loss, opt
 
+            if health_on:
+                # host rounds: the series rides a listener that reads the
+                # lagged carries and fetches its rows once, at termination
+                listeners = tuple(listeners) + (
+                    _health.ConvergenceListener.for_params(algo, init[0]),)
             final = iteration.iterate_bounded(
                 init, body, max_iter=prm.max_iter,
                 terminate=lambda carry, epoch: carry[2] < prm.tol,
                 config=config, listeners=listeners)
         coeffs, _, mean_loss, _ = final
-        return coeffs, mean_loss
+        return coeffs, mean_loss, hstate
 
     def optimize(self, loss_func: LossFunc, init_coeffs,
                  features, labels, weights=None,
@@ -474,23 +539,40 @@ class SGD:
         _upd.record_state_bytes(algo, [coeffs] + opt_leaves, p, sharded)
 
         base = "cuda-sgd" if device.type == "cuda" else "torch-sgd"
+        health_on = _health.armed()
         seg_k = iteration.device_checkpoint_segment(config, listeners)
-        if not seg_k and not iteration.needs_host_loop(config, listeners):
-            coeffs, _, mean_loss, _, _ = _masked_rounds(
+        hstate = {"hist": None, "first": None, "epoch": 0}
+        rows = None
+        host_rounds = not seg_k and iteration.needs_host_loop(config,
+                                                              listeners)
+        if not seg_k and not host_rounds:
+            rows = [] if health_on and prm.max_iter > 0 else None
+            coeffs, _, mean_loss, ran, _ = _masked_rounds(
                 kernels.sgd_batch_terms, loss_func.NAME, prm, mesh, sharded,
-                data, init[0], init[3], init[1], prm.max_iter)
+                data, init[0], init[3], init[1], prm.max_iter, rows)
             path = base
         else:
-            coeffs, mean_loss = self._iterate(loss_func.NAME, mesh, sharded,
-                                              data, init, seg_k, config,
-                                              listeners)
+            coeffs, mean_loss, hstate = self._iterate(
+                loss_func.NAME, mesh, sharded, data, init, seg_k, config,
+                listeners, algo, health_on)
             path = base + ("-segments" if seg_k else "-rounds")
         # benchmark provenance (runner.py executionPath)
         self.last_execution_path = path
 
-        # the one host synchronisation of the fit
-        final = torch.cat([coeffs, mean_loss[None]]).cpu().numpy()
+        # the one host synchronisation of the fit (the health rows and the
+        # rounds run ride along when armed)
+        parts = [coeffs, mean_loss[None]]
+        if rows:
+            parts += [ran.to(torch.float32)[None], torch.stack(rows).flatten()]
+        final = torch.cat(parts).cpu().numpy()
+        dp = coeffs.shape[0]
         out = final[:d].astype(np.float64)
-        loss = float(final[-1])
-        guard_final_state(algo, out, loss=loss)
+        loss = float(final[dp])
+        if rows:
+            hstate = {"hist": final[dp + 2:].reshape(-1, 3),
+                      "first": 0, "epoch": int(final[dp + 1])}
+        if not (health_on and host_rounds):  # their listener reported
+            _finish_fit_health(algo, health_on, hstate["hist"],
+                               hstate["epoch"], loss, out,
+                               hstate["first"] or 0)
         return out, loss

@@ -23,18 +23,95 @@ N shards on an in-process mesh, the one shard of the rank under
 Placement (:func:`ensure_on_mesh`) never pads a tensor by copying it: shard
 ``s`` is the contiguous row view ``x[s*ls : min((s+1)*ls, n)]`` with ``ls =
 ceil(n / p)``, and the rows a padded last shard lacks are left to the window
-arithmetic of the fits. The JAX package's ``ml.collective`` accounting comes
-with the observability slice.
+arithmetic of the fits.
+
+Accounting, the JAX package's host-collective one (``_HostOp``): inside a
+traced call (a span open on the thread), each cross-shard primitive and
+each placement opens a
+``collective.host`` span (``op``, ``devices``, ``payload_bytes``: one
+shard's bytes) on the caller's thread and records ``ml.collective
+opMs{op=,devices=}`` and ``payloadBytes{op=,devices=}`` (a primitive on
+one in-process shard, the identity, records nothing). The JAX package's
+trace-time ``tracedOps`` count of in-program collectives has no eager
+counterpart. Unarmed, a call costs one env check.
 """
 
 from __future__ import annotations
 
+import functools
+import time
 from typing import List, NamedTuple, Sequence
 
 import torch
 
+from flink_ml_tpu_torch.common.metrics import ML_GROUP, metrics
+from flink_ml_tpu_torch.observability import tracing
 from flink_ml_tpu_torch.ops import kernels
 from flink_ml_tpu_torch.parallel.mesh import Mesh
+
+#: byte-shaped histogram bounds for collective payloads (the default
+#: buckets are latency-shaped)
+PAYLOAD_BUCKETS = (256.0, 4096.0, 65536.0, 1048576.0, 16777216.0,
+                   268435456.0, 4294967296.0)
+
+class _HostOp:
+    """Time one host-side collective or placement op into ``ml.collective
+    opMs{op=,devices=}`` (+ ``payloadBytes``), inside a ``collective.host``
+    span when a trace dir is armed."""
+
+    __slots__ = ("op", "devices", "nbytes", "_t0", "_span_cm")
+
+    def __init__(self, op: str, mesh: Mesh, nbytes: int = 0):
+        self.op = op
+        self.devices = mesh.size
+        self.nbytes = int(nbytes)
+        self._span_cm = None
+
+    def __enter__(self):
+        if tracing.tracer.enabled:
+            self._span_cm = tracing.tracer.span(
+                "collective.host", op=self.op, devices=self.devices,
+                payload_bytes=self.nbytes)
+            self._span_cm.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        ms = (time.perf_counter() - self._t0) * 1000.0
+        labels = {"op": self.op, "devices": str(self.devices)}
+        group = metrics.group(ML_GROUP, "collective")
+        group.histogram("opMs", labels=labels).observe(ms)
+        if self.nbytes:
+            group.histogram("payloadBytes", buckets=PAYLOAD_BUCKETS,
+                            labels=labels).observe(self.nbytes)
+        if self._span_cm is not None:
+            self._span_cm.__exit__(*exc)
+        return False
+
+
+def _accounted(op: str):
+    """Decorate a primitive ``fn(x, mesh, ...)`` (``x`` an (L, ...) stack
+    or a list of this process's shard values; its payload is one shard's
+    bytes) with a :class:`_HostOp` inside a traced call (a span open on
+    this thread) when the op crosses shards; otherwise the call costs an
+    attribute check (at one in-process shard every primitive is the
+    identity) or a thread-local read."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def accounted(x, mesh: Mesh, *args, **kwargs):
+            if ((mesh.size == 1 and not mesh.distributed)
+                    or tracing.tracer.current() is None):
+                return fn(x, mesh, *args, **kwargs)
+            first = x[0] if len(x) else None
+            nbytes = (0 if first is None
+                      else first.numel() * first.element_size())
+            with _HostOp(op, mesh, nbytes):
+                return fn(x, mesh, *args, **kwargs)
+
+        return accounted
+
+    return wrap
 
 
 def _is_nccl(mesh: Mesh) -> bool:
@@ -65,6 +142,7 @@ def stack_shards(mesh: Mesh, values: Sequence[torch.Tensor]) -> torch.Tensor:
     return values[0][None] if len(values) == 1 else torch.stack(values)
 
 
+@_accounted("all_reduce_sum")
 def all_reduce_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The sum over every shard of the mesh, the same on each (ref:
     AllReduceImpl.java:54 allReduceSum)."""
@@ -90,6 +168,7 @@ def all_reduce_mean(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return all_reduce_sum(x, mesh) / mesh.size
 
 
+@_accounted("all_reduce_max")
 def all_reduce_max(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     if not mesh.distributed:
         return x[0] if x.shape[0] == 1 else x.amax(dim=0)
@@ -100,6 +179,7 @@ def all_reduce_max(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return out
 
 
+@_accounted("reduce_scatter")
 def reduce_scatter(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The sum over every shard, each shard keeping its own 1/N slice of dim
     0: an (L, chunk, ...) stack of this process's slices. Dim 0 of a value
@@ -121,10 +201,11 @@ def reduce_scatter(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
         out = x.new_empty((chunk,) + tuple(x.shape[2:]))
         dist.reduce_scatter_tensor(out, x[0].contiguous(), group=mesh.group)
         return out[None]
-    total = all_reduce_sum(x, mesh)
+    total = all_reduce_sum.__wrapped__(x, mesh)  # accounted as this op
     return total[mesh.rank * chunk:(mesh.rank + 1) * chunk][None]
 
 
+@_accounted("all_gather")
 def all_gather(x, mesh: Mesh) -> torch.Tensor:
     """This process's (L, chunk, ...) slices (a stack or a list) gathered
     over every shard into the (N * chunk, ...) whole, in shard order."""
@@ -150,6 +231,7 @@ def shard_index(mesh: Mesh) -> tuple:
     return mesh.local_shards
 
 
+@_accounted("broadcast")
 def broadcast_from(x: torch.Tensor, mesh: Mesh, src: int = 0) -> torch.Tensor:
     """Shard ``src``'s value, on every shard (ref: the .broadcast() edges)."""
     if not mesh.distributed:
@@ -210,6 +292,16 @@ def ensure_on_mesh(mesh: Mesh, array, dtype=torch.float32) -> RowShards:
     already on the shards' device with ``dtype`` is viewed, not copied; a
     host array goes to the device once (under ``torch.distributed``, only
     the rank's own rows)."""
+    if tracing.tracer.current() is None:
+        return _ensure_on_mesh(mesh, array, dtype)
+    nbytes = (array.numel() * array.element_size()
+              if isinstance(array, torch.Tensor)
+              else int(getattr(array, "nbytes", 0)))
+    with _HostOp("ensure_on_mesh", mesh, nbytes):
+        return _ensure_on_mesh(mesh, array, dtype)
+
+
+def _ensure_on_mesh(mesh: Mesh, array, dtype) -> RowShards:
     n = int(array.shape[0])
     p = mesh.size
     if p == 1 and not mesh.distributed:

@@ -34,9 +34,9 @@ import contextlib
 import logging
 import os
 import random
-import threading
 from typing import Dict, Iterable, Optional, Sequence
 
+from flink_ml_tpu_torch.common.locks import make_lock
 from flink_ml_tpu_torch.resilience.policy import InjectedFault
 
 _ENV_FLAG = "FLINK_ML_TPU_CHAOS"
@@ -67,7 +67,7 @@ class FaultPlan:
                          for s, counts in at.items()})
         self.sites = None if sites is None else frozenset(sites)
         self._counts: Dict[str, int] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("resilience.faults.plan")
 
     def decide(self, site: str) -> int:
         """Count this call; return the (1-based) call number when it should
@@ -89,7 +89,7 @@ _active: Optional[FaultPlan] = None  # programmatic plan (beats env)
 _suppress = 0
 _env_key = None
 _env_plan: Optional[FaultPlan] = None
-_state_lock = threading.Lock()
+_state_lock = make_lock("resilience.faults.state")
 
 
 def _parse_at(spec: str) -> Dict[str, list]:

@@ -7,8 +7,11 @@ work (an estimator's fit with a ``CheckpointManager``, or a bare
 ``run_segmented`` driver) after retryable failures. Recovery is the
 checkpoint layer's: on re-entry the iteration restores the newest checkpoint
 that passes integrity validation, so the supervisor only classifies, backs
-off, sweeps crash debris and tries again. The ``ml.resilience`` metrics and
-trace events of the JAX package come with the port's observability slice.
+off, sweeps crash debris and tries again. As in the JAX package, every
+failure counts into ``ml.resilience`` (``failures``, ``restarts``,
+``recoveries``, ``lastBackoffMs``, ``backoffMs``; recorded while the tracer
+is armed) and restarts and recovery emit the ``supervisor.restart``
+(``attempt``, ``error``, ``detail``) and ``supervisor.recovered`` events.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import logging
 import time
 from typing import Callable, Optional, Sequence
 
+from flink_ml_tpu_torch.common.metrics import ML_GROUP, metrics
+from flink_ml_tpu_torch.observability import tracing
 from flink_ml_tpu_torch.resilience.policy import (
     TERMINAL,
     RestartsExhausted,
@@ -24,6 +29,10 @@ from flink_ml_tpu_torch.resilience.policy import (
 )
 
 logger = logging.getLogger(__name__)
+
+
+def _group():
+    return metrics.group(ML_GROUP, "resilience")
 
 
 def _notify(listeners: Sequence, event: str, *args) -> None:
@@ -60,6 +69,7 @@ def run_supervised(fn: Callable[[], object],
     starts fresh when none survives).
     """
     policy = policy or RetryPolicy()
+    tracer = tracing.tracer
     deadline = (time.monotonic() + policy.deadline_s
                 if policy.deadline_s is not None else None)
     attempt = 0  # completed restarts so far
@@ -67,6 +77,8 @@ def run_supervised(fn: Callable[[], object],
         try:
             result = fn()
         except Exception as e:  # noqa: BLE001 — classified right below
+            if tracer.active:
+                _group().counter("failures")
             if policy.classify(e) == TERMINAL:
                 raise
             if attempt >= policy.max_restarts:
@@ -86,6 +98,13 @@ def run_supervised(fn: Callable[[], object],
                 "supervised run failed (%s: %s); restart %d/%d in %.3gs",
                 type(e).__name__, e, attempt, policy.max_restarts, delay)
             _notify(listeners, "on_restart", attempt, e)
+            tracer.event("supervisor.restart", attempt=attempt,
+                         error=type(e).__name__, detail=str(e))
+            if tracer.active:
+                group = _group()
+                group.counter("restarts")
+                group.gauge("lastBackoffMs", delay * 1000.0)
+                group.histogram("backoffMs").observe(delay * 1000.0)
             if mgr is not None and hasattr(mgr, "sweep_orphans"):
                 # a crash between makedirs and the atomic rename leaves a
                 # ckpt-*.tmp corpse; clear it before the next attempt
@@ -95,6 +114,9 @@ def run_supervised(fn: Callable[[], object],
             continue
         if attempt:
             _notify(listeners, "on_recovered", attempt)
+            tracer.event("supervisor.recovered", attempt=attempt)
+            if tracer.active:
+                _group().counter("recoveries")
             logger.info("supervised run recovered after %d restart(s)",
                         attempt)
         return result
