@@ -145,7 +145,28 @@ Phases, each of which fails the run (no result line, nonzero exit):
     of the efficiency report at most 100%. Prints the profiled device ms
     per launch, the shares, the kernel builds phase 1 recorded, and the
     armed and unarmed fit ms (host clock, best of two);
-13. print one ``{"kernels": [...]}`` line with every kernel's launches in
+13. the serving path (``flink_ml_tpu_torch/servable/``, ``serving/``,
+    ``observability/server.py``) at the FTRL config's width of 100
+    features: an LR fit on the card of a seeded 1,000,000 x 100 table with
+    hyperplane labels (the LR config's params; drift and quality capture
+    armed; it must launch ``sgd_batch_terms``) is published as v1 with
+    both baselines; the registry's loader builds the device-predict
+    servable; a micro-batcher (buckets 8, 32, 128; window 1 ms) is warmed
+    on its device thread, ``/healthz`` must say ok and ``/serving`` show
+    ``lr@v1``; six 1-row requests time the first ticks after warmup, on
+    this batcher and on a second one warmed on the caller's thread; then a
+    closed loop of 400 requests of 1, 2 and 4 rows from 64 callers, with
+    labeled feedback, during which an FTRL fit of the same table is
+    published as v2 and hot-swapped in by the watcher; then the same mix
+    with one ``transform`` per request. Gates: every response's dots
+    within SERVE_RTOL/SERVE_ATOL of the host float64 predict of the version
+    that served it and its predictions exact except rows with |dot| <
+    SERVE_ATOL (counted), no error or rejection, the registry at v2 with
+    responses from both versions, no kernel build after warmup, no
+    swallowed telemetry fault, and a finite drift PSI and live AUC per
+    version. Prints both runs' throughput and p50/p90/p99, the first and
+    steady ticks, the warmup report, batch fill and padding waste;
+14. print one ``{"kernels": [...]}`` line with every kernel's launches in
     its main-path runs, error, times and bound, then the result line.
 
 Tolerances (float32 throughout, TF32 off):
@@ -187,6 +208,9 @@ Tolerances (float32 throughout, TF32 off):
 - the full-size dense FTRL fit on hyperplane labels: within BIG_FIT_RTOL,
   BIG_FIT_ATOL of the CPU's (100 batches whose 100,000-row sums are added
   in another order);
+- phase 13: the served dots are a float32 product of 100 terms against
+  the host's float64 one: within SERVE_RTOL relative, SERVE_ATOL absolute
+  (margins that close to zero are the rows whose prediction may flip);
 - phase 11: a fit on eight shards differs from the one-shard fit only in
   the order its sums are added (per shard, then across the shards), so
   it is held as the fits that add in another order are: the KMeans fit
@@ -201,6 +225,7 @@ Tolerances (float32 throughout, TF32 off):
 
 import itertools
 import json
+import logging
 import math
 import os
 import shutil
@@ -208,6 +233,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 from unittest import mock
@@ -245,6 +271,9 @@ PATH_KERNELS = {
     # profiled KMeans transform
     "observability": ("sgd_batch_terms", "assign_nearest",
                       "lloyd_partial_sums", "reduce_partials"),
+    # the producer LR fit of the serving path (its FTRL fit runs dense
+    # batches, which launch no kernel; serving's product is one torch call)
+    "serving": ("sgd_batch_terms",),
 }
 LOSSES = ("logistic", "hinge", "least_square")
 
@@ -256,6 +285,9 @@ COEFF_RTOL, COEFF_ATOL = 1e-4, 1e-6
 SMALL_RTOL, SMALL_ATOL = 1e-5, 1e-6
 CSR_RTOL, CSR_ATOL = 1e-3, 1e-5
 BIG_FIT_RTOL, BIG_FIT_ATOL = 1e-4, 1e-5
+SERVE_RTOL, SERVE_ATOL = 1e-5, 1e-4
+# phase 13's request sizes (rows), serve_bench.py's mix
+SERVE_SIZES = (1, 2, 4)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W): device
 # memory bytes per second and fp32 (non-tensor-core) operations per second
@@ -2183,6 +2215,349 @@ def phase_observability(K, runner):
     return counts
 
 
+def _get_json(port, route):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                timeout=10) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+class _Counting(logging.Handler):
+    """Counts the servable wrapper's swallowed telemetry faults."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.faults = []
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if msg.startswith("serving ") and msg.endswith(" failed"):
+            self.faults.append(msg)
+
+
+def phase_serving(K, runner, card_line):
+    """Phase 13: the serving path on the card. An LR fit on the card
+    (1,000,000 x 100, drift and quality capture armed) is published as v1
+    with both baselines; the registry's loader builds the device-predict
+    servable; a micro-batcher over the registry is warmed and serves a
+    closed loop of 400 requests of 1, 2 and 4 rows from 64 callers while an
+    FTRL fit of the same table, published as v2 mid-run, is hot-swapped in
+    by the watcher. Every response is held against the host float64
+    predict of the version that served it."""
+    from flink_ml_tpu_torch import Table
+    from flink_ml_tpu_torch.linalg.vectors import DenseVector
+    from flink_ml_tpu_torch.models.classification import LogisticRegression
+    from flink_ml_tpu_torch.models.online import OnlineLogisticRegression
+    from flink_ml_tpu_torch.observability import drift, evaluation, server
+    from flink_ml_tpu_torch.servable import (DataFrame, DataTypes,
+                                             LogisticRegressionModelServable,
+                                             Row)
+    from flink_ml_tpu_torch.servable.lr import LogisticRegressionModelData
+    from flink_ml_tpu_torch.serving import (BatcherConfig, LoadGenConfig,
+                                            MicroBatcher, ModelRegistry,
+                                            compile_count, publish_model,
+                                            run_loadgen, warm)
+
+    log("phase 13: the serving path on the card")
+    spec = runner.load_config(str(FTRL_CONFIG))["OnlineLogisticRegression"]
+    d = spec["inputData"]["paramMap"]["vectorDim"]
+    ftrl_params = spec["stage"]["paramMap"]
+    lr_params = runner.load_config(str(LINEAR_CONFIGS["logisticregression"]))[
+        "logisticregression"]["stage"]["paramMap"]
+    n = 1_000_000
+    K.reset_launch_counts()
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    x = torch.randn(n, d, generator=gen, device="cuda")
+    truth = np.random.default_rng(37).normal(size=d)
+    margin = x @ torch.as_tensor(truth, dtype=torch.float32, device="cuda")
+    thr = float(margin.median())
+    table = Table.from_columns(features=x,
+                               label=(margin > thr).to(torch.float32))
+    del margin
+    with _armed(FLINK_ML_TPU_DRIFT=1, FLINK_ML_TPU_QUALITY=1):
+        t0 = time.perf_counter()
+        v1 = LogisticRegression(
+            max_iter=lr_params["maxIter"], reg=lr_params["reg"],
+            elastic_net=lr_params["elasticNet"],
+            learning_rate=lr_params["learningRate"],
+            global_batch_size=lr_params["globalBatchSize"],
+            tol=lr_params["tol"]).fit(table)
+        torch.cuda.synchronize()
+        v1_ms = (time.perf_counter() - t0) * 1e3
+        fit_launches = dict(K.launch_counts)
+        assert fit_launches["sgd_batch_terms"] > 0, fit_launches
+        ftrl = OnlineLogisticRegression(
+            global_batch_size=ftrl_params["globalBatchSize"],
+            reg=ftrl_params["reg"], elastic_net=ftrl_params["elasticNet"],
+            alpha=ftrl_params["alpha"], beta=ftrl_params["beta"])
+        v2 = ftrl.warm_start(np.zeros(d)).fit(table)
+    for model in (v1, v2):
+        assert model.drift_baseline is not None
+        assert model.quality_baseline is not None
+    log(f"  producer fits on {n} x {d}: LR {v1_ms:.1f} ms "
+        f"({fit_launches['sgd_batch_terms']} sgd_batch_terms launches), "
+        f"FTRL {ftrl.last_execution_path} version {v2.model_version}; "
+        f"training AUC LR {v1.quality_baseline.sketch.auc():.4f}, FTRL "
+        f"{v2.quality_baseline.sketch.auc():.4f}")
+    del table, x
+    torch.cuda.empty_cache()
+    coefs = {1: np.asarray(v1.coefficients, np.float64),
+             2: np.asarray(v2.coefficients, np.float64)}
+
+    workdir = tempfile.mkdtemp(prefix="serving-")
+    watch = os.path.join(workdir, "models")
+    faults = _Counting()
+    api_log = logging.getLogger("flink_ml_tpu_torch.servable.api")
+    api_log.addHandler(faults)
+    served = {}   # request ordinal -> (version, served dots)
+    ticks = []    # (version, thread, rows, ms, product ms) per transform
+
+    def loader(leaves, version):
+        sv = LogisticRegressionModelServable().set_device_predict(True)
+        sv.model_data = LogisticRegressionModelData(
+            np.asarray(leaves[0], np.float64), version)
+        inner_dots, inner_transform = sv._device_dots, sv.transform
+        last = {}
+
+        def device_dots(xb):
+            t = time.perf_counter()
+            last["dots"] = inner_dots(xb)
+            last["ms"] = (time.perf_counter() - t) * 1e3
+            return last["dots"]
+
+        def transform(df):
+            t = time.perf_counter()
+            out = inner_transform(df)
+            ms = (time.perf_counter() - t) * 1e3
+            ticks.append((version, threading.current_thread().name,
+                          df.num_rows(), ms, last["ms"]))
+            offset = 0
+            for seq, rows in getattr(df, "request_segments", None) or ():
+                served[seq] = (version, last["dots"][offset:offset + rows])
+                offset += rows
+            return out
+
+        sv._device_dots, sv.transform = device_dots, transform
+        return sv
+
+    def frame_rows(i):
+        return np.random.default_rng(1000 + i).normal(
+            size=(SERVE_SIZES[i % len(SERVE_SIZES)], d))
+
+    def frame(i):
+        return DataFrame(["features"], [DataTypes.vector()],
+                         [Row([DenseVector(r)]) for r in frame_rows(i)])
+
+    reg = batcher = None
+    try:
+        publish_model(watch, [coefs[1]], 1, baseline=v1.drift_baseline,
+                      quality_baseline=v1.quality_baseline)
+        reg = ModelRegistry(watch, loader, model="lr",
+                            probe=lambda: frame(10**6),
+                            poll_interval_s=0.01)
+        adopted = reg.poll()
+        assert adopted and reg.version == 1, (
+            "v1 was not adopted", _serving_group().snapshot().get(
+                "counters", {}))
+        batcher = MicroBatcher(reg, BatcherConfig(buckets=(8, 32, 128),
+                                                  window_ms=1.0)).start()
+        report = warm(batcher)
+        builds_after_warmup = compile_count()
+        assert report["thread"] == "device-stage", report
+        srv = server.maybe_start(0)
+        assert srv is not None
+        code, health_doc = _get_json(srv.port, "/healthz")
+        assert code == 200 and health_doc["status"] == "ok", health_doc
+        code, serving_doc = _get_json(srv.port, "/serving")
+        assert serving_doc["serving"]["servable"] == "lr@v1", serving_doc
+        log(f"  warmup: {json.dumps(report, sort_keys=True)}; /healthz "
+            f"{health_doc['status']}, /serving "
+            f"{serving_doc['serving']['servable']}")
+
+        # the first ticks after warmup, one 1-row request each: warmed on
+        # the batcher's device thread, then on the caller's thread (a
+        # second batcher warmed before it started); the whole transform
+        # and its device product (copy in, product, fetch) apart
+        def first_ticks(b, label):
+            start = len(ticks)
+            for i in range(20):
+                b.submit(frame(2 * 10**6 + i)).result(timeout=30)
+            mine = ticks[start:]
+            out = {}
+            for key, col in (("transform", 3), ("product", 4)):
+                ms = [t[col] for t in mine]
+                out[key] = {"first_ms": ms[0],
+                            "rest_median_ms": statistics.median(ms[1:]),
+                            "rest_max_ms": max(ms[1:])}
+            log(f"  first tick after warmup on the {label}: transform "
+                f"{out['transform']['first_ms']:.3f} ms (the next 19: "
+                f"median {out['transform']['rest_median_ms']:.3f}, max "
+                f"{out['transform']['rest_max_ms']:.3f}), its product "
+                f"{out['product']['first_ms']:.3f} ms (median "
+                f"{out['product']['rest_median_ms']:.3f}, max "
+                f"{out['product']['rest_max_ms']:.3f})")
+            return out
+
+        tick_probe = {"device-stage": first_ticks(batcher, "device stage")}
+        other = MicroBatcher(reg, BatcherConfig(buckets=(8, 32, 128),
+                                                window_ms=1.0))
+        assert warm(other, gate=False)["thread"] == "caller"
+        other.start()
+        try:
+            tick_probe["caller"] = first_ticks(other, "caller's thread")
+        finally:
+            other.stop()
+
+        # the load run: 400 requests from 64 callers; v2 is published
+        # after the 100th response and the watcher swaps it in under load
+        reg.start_watcher()
+        results = {}
+        swap = {}
+
+        def feedback(i, frm, fut):
+            out = fut.result()
+            results[i] = (fut.request_id, out)
+            xs = frame_rows(i)
+            evaluation.record_feedback(
+                fut.request_id, (xs @ truth > thr).astype(np.float64))
+
+        def tick(done):
+            if done == 100:
+                swap["published_ms"] = time.perf_counter()
+                publish_model(watch, [coefs[2]], 2,
+                              baseline=v2.drift_baseline,
+                              quality_baseline=v2.quality_baseline)
+                deadline = time.monotonic() + 30
+                while reg.version != 2 and time.monotonic() < deadline:
+                    time.sleep(0.001)
+                swap["adopt_ms"] = (time.perf_counter()
+                                    - swap["published_ms"]) * 1e3
+
+        cfg = LoadGenConfig(mode="closed", requests=400, concurrency=64)
+        load_start = len(ticks)
+        batched = run_loadgen(batcher.submit, frame, cfg, tick=tick,
+                              feedback=feedback)
+        builds_after_load = compile_count()
+        load_ticks = [t for t in ticks[load_start:]
+                      if t[1] == "flink-ml-tpu-batcher-dev"]
+        per_request_preds = {}
+
+        def keep(i, frm, fut):
+            per_request_preds[i] = fut.result().get("prediction").values
+
+        per_request = run_loadgen(lambda f: reg.active.transform(f), frame,
+                                  cfg, feedback=keep)
+    finally:
+        if batcher is not None:
+            batcher.stop()
+        if reg is not None:
+            reg.stop()
+        server.stop()
+        api_log.removeHandler(faults)
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # gates
+    for name, res in (("batched", batched), ("per-request", per_request)):
+        assert res["ok"] == 400 and res["errors"] == 0 and \
+            res["rejected"] == 0, (name, res)
+    assert reg.version == 2, reg.version
+    versions = {}
+    near_zero, worst = 0, 0.0
+    for i in range(400):
+        seq, out = results[i]
+        version, dots = served[seq]
+        versions[version] = versions.get(version, 0) + 1
+        host = frame_rows(i) @ coefs[version]
+        np.testing.assert_allclose(dots, host, rtol=SERVE_RTOL,
+                                   atol=SERVE_ATOL)
+        worst = max(worst, float(np.max(np.abs(dots - host))))
+        pred = np.asarray(out.get("prediction").values)
+        clear = np.abs(host) >= SERVE_ATOL
+        near_zero += int((~clear).sum())
+        assert np.array_equal(pred[clear], (host[clear] >= 0)
+                              .astype(np.float64)), (i, version)
+    assert set(versions) == {1, 2}, versions
+    for i, pred in per_request_preds.items():
+        host = frame_rows(i) @ coefs[2]
+        clear = np.abs(host) >= SERVE_ATOL
+        near_zero += int((~clear).sum())
+        assert np.array_equal(np.asarray(pred)[clear], (host[clear] >= 0)
+                              .astype(np.float64)), i
+    assert len(per_request_preds) == 400
+    assert builds_after_load == builds_after_warmup, (
+        builds_after_warmup, builds_after_load)
+    assert not faults.faults, faults.faults
+    grp = _serving_group()
+    rejected_swaps = {k: v for k, v in grp.snapshot().get(
+        "counters", {}).items() if k.startswith("swapRejected")}
+    assert not rejected_swaps, rejected_swaps
+    drift_psi, auc = {}, {}
+    for version in (1, 2):
+        name = f"lr@v{version}"
+        verdict = drift.evaluate(name, emit=False)
+        drift_psi[name] = verdict["series"]["prediction"]["psi"]
+        auc[name] = evaluation.evaluate(name, emit=False)["live"]["auc"]
+        assert math.isfinite(drift_psi[name]), verdict
+        assert math.isfinite(auc[name]), auc
+    fills = {}
+    for version in (1, 2):
+        labels = {"servable": f"lr@v{version}"}
+        fills[f"lr@v{version}"] = {
+            "batchFill": grp.get_gauge("batchFill", labels=labels),
+            "paddingWaste": grp.get_gauge("paddingWaste", labels=labels)}
+    tick_ms = [t[3] for t in load_ticks]
+    product_ms = [t[4] for t in load_ticks]
+    summary = {
+        "card": card_line, "rows": n, "dim": d,
+        "producer": {"lr_fit_ms": v1_ms,
+                     "sgd_batch_terms": fit_launches["sgd_batch_terms"],
+                     "ftrl_path": ftrl.last_execution_path},
+        "warmup": report, "first_ticks": tick_probe,
+        "batched": {k: batched[k] for k in ("throughput_rps", "rows_per_s",
+                                            "latency_ms", "wall_s")},
+        "per_request": {k: per_request[k] for k in (
+            "throughput_rps", "rows_per_s", "latency_ms", "wall_s")},
+        "load_ticks": {"count": len(tick_ms),
+                       "rows": sum(t[2] for t in load_ticks),
+                       "median_ms": statistics.median(tick_ms),
+                       "max_ms": max(tick_ms),
+                       "product_median_ms": statistics.median(product_ms),
+                       "product_share": sum(product_ms) / sum(tick_ms)},
+        "served_by_version": versions, "swap_adopt_ms": swap.get("adopt_ms"),
+        "near_zero_rows": near_zero, "max_abs_dot_err": worst,
+        "builds": {"after_warmup": builds_after_warmup,
+                   "after_load": builds_after_load},
+        "telemetry_faults": len(faults.faults), "drift_psi": drift_psi,
+        "live_auc": auc, "fill": fills}
+    for name, res in (("batched", batched), ("per-request", per_request)):
+        lat = res["latency_ms"]
+        log(f"  {name}: {res['throughput_rps']} requests/s, "
+            f"{res['rows_per_s']} rows/s, p50 {lat['p50']} ms, p90 "
+            f"{lat['p90']} ms, p99 {lat['p99']} ms")
+    log(f"  served by version: {versions}; v2 adopted "
+        f"{swap.get('adopt_ms', float('nan')):.1f} ms after its publish; "
+        f"rows with |dot| < {SERVE_ATOL}: {near_zero}; max |dot err| "
+        f"{worst:.3g}; kernel builds after warmup / after load "
+        f"{builds_after_warmup} / {builds_after_load}")
+    log(f"  load ticks: {len(tick_ms)}, median {statistics.median(tick_ms):.3f}"
+        f" ms, max {max(tick_ms):.3f} ms, the device product "
+        f"{100 * sum(product_ms) / sum(tick_ms):.1f}% of their time; fill {json.dumps(fills)}; drift "
+        f"psi {json.dumps(drift_psi)}; live AUC {json.dumps(auc)}")
+    log(f"  {card_line}")
+    log("  serving:", json.dumps(summary, sort_keys=True, default=str))
+    counts = dict(K.launch_counts)
+    for kern in PATH_KERNELS["serving"]:
+        assert counts[kern] >= 1, counts
+    return counts
+
+
+def _serving_group():
+    from flink_ml_tpu_torch.common.metrics import metrics
+
+    return metrics.group("ml", "serving")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2220,6 +2595,7 @@ def main() -> int:
     counts["iteration"] = phase_iteration_modes(K, runner, Table)
     counts["parallel"] = phase_parallel(K, runner, optimizer, Table)
     counts["observability"] = phase_observability(K, runner)
+    counts["serving"] = phase_serving(K, runner, card)
 
     line = {"kernels": [
         {"name": name, **{key: K.KERNELS[name][key]

@@ -31,7 +31,8 @@ from flink_ml_tpu_torch.common import locks
 from flink_ml_tpu_torch.common.metrics import PROFILE_DIR_ENV, profile
 from flink_ml_tpu_torch.common.table import Table
 from flink_ml_tpu_torch.device import DeviceLike, resolve_device
-from flink_ml_tpu_torch.observability import compilestats, profiling, tracing
+from flink_ml_tpu_torch.observability import (compilestats, profiling, server,
+                                              tracing)
 from flink_ml_tpu_torch.params.param import WithParams
 from flink_ml_tpu_torch.utils import io as rw
 
@@ -50,13 +51,17 @@ def _profiled(method, kind: str):
     one-shot device profile of ``FLINK_ML_TPU_PROFILE_CAPTURE=1``
     (profiling.maybe_profile_fit), and a device-memory watermark sampled
     as the ROOT span closes (a no-op while CUDA is uninitialised); the
-    outermost call snapshots the registry into the trace dir. The JAX
-    package's live metrics endpoint (``server.maybe_start()``) joins this
-    wrapper with the serving slice, and its recompile-storm window has no
+    outermost call snapshots the registry into the trace dir. Every call
+    first starts the env-armed live metrics endpoint
+    (``server.maybe_start()``, ``FLINK_ML_TPU_METRICS_PORT``; one dict
+    lookup when unarmed). The JAX package's recompile-storm window has no
     counterpart (nothing is traced per shape)."""
 
     @functools.wraps(method)
     def wrapper(self, *args, **kwargs):
+        # arming the endpoint flips tracer.active, so spans reach the
+        # /spans/recent ring even without a trace dir
+        server.maybe_start()
         trace_dir = os.environ.get(PROFILE_DIR_ENV)
         tracer = tracing.tracer
         if not trace_dir and not tracer.active:

@@ -2,12 +2,13 @@
 
 The port's copy of what ``Table`` and the CSR columns need from
 ``flink_ml_tpu/linalg/vectors.py`` (ref: linalg/DenseVector.java,
-SparseVector.java). Matrices and the byte encoding come with the slices that
-use them.
+SparseVector.java), with the JAX package's byte encoding of a vector (the
+servable's model data). Matrices come with the slices that use them.
 """
 
 from __future__ import annotations
 
+import struct
 from typing import Iterable, Sequence, Union
 
 import numpy as np
@@ -30,6 +31,20 @@ class Vector:
 
     def to_dense(self) -> "DenseVector":
         return DenseVector(self.to_array())
+
+    # -- wire codec (the JAX package's bytes: a kind byte, then little-endian
+    # int64 sizes and float64 values) ---------------------------------------
+    def to_bytes(self) -> bytes:
+        raise NotImplementedError
+
+    @staticmethod
+    def from_bytes(data: bytes) -> "Vector":
+        kind = data[0]
+        if kind == 0:
+            return DenseVector._decode(data)
+        if kind == 1:
+            return SparseVector._decode(data)
+        raise ValueError(f"unknown vector kind byte {kind}")
 
 
 class DenseVector(Vector):
@@ -72,6 +87,16 @@ class DenseVector(Vector):
 
     def __repr__(self):
         return f"DenseVector({self.values.tolist()})"
+
+    def to_bytes(self) -> bytes:
+        return (b"\x00" + struct.pack("<q", self.size)
+                + self.values.astype("<f8").tobytes())
+
+    @staticmethod
+    def _decode(data: bytes) -> "DenseVector":
+        (n,) = struct.unpack_from("<q", data, 1)
+        values = np.frombuffer(data, dtype="<f8", count=n, offset=9)
+        return DenseVector(values.copy())
 
 
 class SparseVector(Vector):
@@ -132,6 +157,20 @@ class SparseVector(Vector):
     def __repr__(self):
         return (f"SparseVector({self._size}, {self.indices.tolist()}, "
                 f"{self.values.tolist()})")
+
+    def to_bytes(self) -> bytes:
+        nnz = len(self.indices)
+        return (b"\x01" + struct.pack("<qq", self._size, nnz)
+                + self.indices.astype("<i8").tobytes()
+                + self.values.astype("<f8").tobytes())
+
+    @staticmethod
+    def _decode(data: bytes) -> "SparseVector":
+        size, nnz = struct.unpack_from("<qq", data, 1)
+        indices = np.frombuffer(data, dtype="<i8", count=nnz, offset=17)
+        values = np.frombuffer(data, dtype="<f8", count=nnz,
+                               offset=17 + 8 * nnz)
+        return SparseVector(size, indices.copy(), values.copy())
 
 
 def stack_vectors(vectors: Iterable[Vector], dtype=np.float32) -> np.ndarray:

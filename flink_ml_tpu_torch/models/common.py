@@ -8,10 +8,10 @@ loss and a prediction rule). The iterative estimators take an
 ``IterationConfig`` with listeners (host rounds, K-round checkpointed
 segments, resume) and a ``RetryPolicy`` (supervised restarts) through
 :class:`IterationRuntimeMixin`. A traced fit records its spans, metrics and
-health series through the port's observability layer (``observability/``);
-the drift and quality baselines a traced JAX fit also captures (its
-``models/common.py:186-230``) wait for the port's drift and evaluation
-modules.
+health series through the port's observability layer (``observability/``),
+and attaches the drift and quality baselines of a row-capped training
+sample to the fitted model (``drift_baseline``, ``quality_baseline``), as
+the JAX package's ``models/common.py:186-230`` does.
 """
 
 from __future__ import annotations
@@ -108,6 +108,12 @@ def prediction_dtype() -> torch.dtype:
     return torch.float32
 
 
+def to_host(a):
+    """A tensor as a host numpy array (one ``.cpu()``); anything else as it
+    is."""
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else a
+
+
 def predict_dots(x, coefficients, device: torch.device):
     """Margins ``x @ coefficients`` (ref LogisticRegressionModelServable.java
     :106 dot). A dense batch gives a float32 tensor on ``device``: one plain
@@ -120,6 +126,69 @@ def predict_dots(x, coefficients, device: torch.device):
     cd = torch.as_tensor(np.asarray(coefficients), dtype=torch.float32,
                          device=device)
     return xd @ cd
+
+
+def _capture_drift_baseline(estimator, model, x, coeffs) -> None:
+    """The traced-fit drift seam (observability/drift.py): sketch a
+    row-capped sample of the training inputs per feature plus the final
+    model's predictions on that sample, attaching the
+    :class:`~flink_ml_tpu_torch.observability.drift.DriftBaseline` to the
+    fitted model — ``serving.publish_model`` ships it beside the
+    checkpoint manifest so live traffic is compared against the
+    distribution THIS model was trained on. The sample's margins are
+    computed on the fit's device; only the sample comes to the host.
+    Armed like the rich health tier (trace dir or ``FLINK_ML_TPU_DRIFT``);
+    a capture failure is logged and never fails the fit."""
+    try:
+        from flink_ml_tpu_torch.observability import drift
+
+        if not drift.capture_armed():
+            return
+        xs = drift.sample_rows(x)
+        dots = predict_dots(xs, coeffs, model.device)
+        pred = model._predict_columns(dots).get(model.prediction_col)
+        drift.capture_fit_baseline(model, type(estimator).__name__,
+                                   features=to_host(xs),
+                                   predictions=to_host(pred))
+    except Exception:  # noqa: BLE001 — telemetry must not sink the fit
+        import logging
+
+        logging.getLogger(__name__).warning(
+            "drift baseline capture failed", exc_info=True)
+
+
+def _capture_quality_baseline(estimator, model, x, y, coeffs) -> None:
+    """The traced-fit quality seam (observability/evaluation.py):
+    sketch the final model's positive-class scores on the same
+    row-capped training sample against the matching labels, attaching
+    the :class:`~flink_ml_tpu_torch.observability.evaluation
+    .QualityBaseline` to the fitted model — the live-AUC anchor
+    ``publish_model`` ships as ``quality-baseline.json``. Non-binary
+    labels (regression fits) sketch nothing, so no baseline attaches.
+    Armed like drift capture; a failure is logged and never fails the
+    fit."""
+    try:
+        from flink_ml_tpu_torch.observability import drift, evaluation
+
+        if not evaluation.capture_armed():
+            return
+        xs = drift.sample_rows(x)
+        ys = np.asarray(to_host(y)).ravel()[:xs.shape[0]]
+        dots = predict_dots(xs, coeffs, model.device)
+        cols = model._predict_columns(dots)
+        raw = cols.get(getattr(model, "raw_prediction_col", None))
+        scores = evaluation.positive_scores(
+            raw_values=(None if raw is None else to_host(raw)),
+            predictions=to_host(cols.get(model.prediction_col)))
+        if scores is not None:
+            evaluation.capture_fit_baseline(
+                model, type(estimator).__name__, scores=scores,
+                labels=ys)
+    except Exception:  # noqa: BLE001 — telemetry must not sink the fit
+        import logging
+
+        logging.getLogger(__name__).warning(
+            "quality baseline capture failed", exc_info=True)
 
 
 class LinearModelParams(HasFeaturesCol, HasPredictionCol):
@@ -209,4 +278,7 @@ class LinearEstimatorBase(Estimator, LinearTrainParams,
         # when the rounds ran the kernel, torch-sgd[-...] its plain version
         self.last_execution_path = sgd.last_execution_path
         model = self.model_class(coefficients=coeffs, device=self._device)
-        return self.copy_params_to(model)
+        model = self.copy_params_to(model)
+        _capture_drift_baseline(self, model, x, coeffs)
+        _capture_quality_baseline(self, model, x, y, coeffs)
+        return model

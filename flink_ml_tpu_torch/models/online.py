@@ -49,8 +49,10 @@ stay on the device and drain in stacked fetches of up to
 ``_HISTORY_DEV_CAP`` into the per-batch ``loss`` series of ``ml.health``
 (host batches compute theirs in float64), and a non-finite batch raises the
 terminal ``NonFiniteState``. While the tracer is armed, ``set_model_data``
-records the ``ml.model version`` gauge. The drift and quality baselines
-come with later slices of the port.
+records the ``ml.model version`` gauge. A fit of a Table with drift or
+quality capture armed attaches the baselines of a row-capped training
+sample to the model (``drift_baseline``, ``quality_baseline``), as the JAX
+package's fit does; the sample's margins are computed on the fit's device.
 """
 
 from __future__ import annotations
@@ -75,6 +77,7 @@ from flink_ml_tpu_torch.models.common import (
     predict_dots,
     prediction_dtype,
     scalar_column,
+    to_host,
 )
 from flink_ml_tpu_torch.observability import health as _health
 from flink_ml_tpu_torch.observability import tracing
@@ -441,6 +444,44 @@ class OnlineLogisticRegressionModel(Model,
         self.model_version = int(arrays["modelVersion"][0])
 
 
+def _capture_baselines(est, model, data: Table, coeffs, version: int,
+                       device: torch.device) -> None:
+    """The fit-time baselines of the JAX package's FTRL fit (its
+    ``models/online.py:939-997``): a row-capped sample of the training
+    table's features, the FINAL model's 0/1 predictions on it (drift) and
+    its positive-class probabilities against the labels (quality), each
+    when armed. Table fits only — an unbounded stream has no finite
+    training set to summarize. A failure is logged, never raised: the fit
+    just produced a valid model."""
+    from flink_ml_tpu_torch.observability import drift, evaluation
+
+    want_drift, want_quality = drift.capture_armed(), \
+        evaluation.capture_armed()
+    if not (want_drift or want_quality):
+        return
+    algo = type(est).__name__
+    try:
+        xs = drift.sample_rows(sparse.features_matrix(data, est.features_col))
+        fdots = np.asarray(to_host(predict_dots(xs, coeffs, device)),
+                           np.float64)
+        if want_drift:
+            drift.capture_fit_baseline(
+                model, algo, features=to_host(xs),
+                predictions=(fdots >= 0).astype(np.float64),
+                version=version)
+        if want_quality:
+            ys = np.asarray(to_host(scalar_column(data, est.label_col)
+                                    [:xs.shape[0]]), np.float64)
+            evaluation.capture_fit_baseline(
+                model, algo, scores=1.0 / (1.0 + np.exp(-fdots)),
+                labels=ys, version=version)
+    except Exception:  # noqa: BLE001 — see the docstring
+        import logging
+
+        logging.getLogger(__name__).warning(
+            "fit baseline capture failed", exc_info=True)
+
+
 class OnlineLogisticRegression(Estimator, OnlineLogisticRegressionParams,
                                IterationRuntimeMixin):
     def __init__(self, **kwargs):
@@ -661,4 +702,6 @@ class OnlineLogisticRegression(Estimator, OnlineLogisticRegressionParams,
         model = OnlineLogisticRegressionModel(
             coefficients=coeffs, model_version=version, device=self._device)
         model.history = history
+        if isinstance(data, Table):
+            _capture_baselines(self, model, data, coeffs, version, device)
         return self.copy_params_to(model)

@@ -12,7 +12,12 @@ a trace dir) arms the convergence series (``health``);
 ``FLINK_ML_TPU_PROFILE_CAPTURE=1`` with a trace dir captures a
 ``torch.profiler`` window of the next fit and writes ``profile.json``: per
 kernel device time and roofline share (``profiling``). Unarmed, each seam
-costs one env or attribute check and records nothing.
+costs one env or attribute check and records nothing. The serving path's
+halves: drift detection (``drift``: training-time baselines, mergeable
+live sketches, PSI / JS / KS per model version), continuous evaluation
+(``evaluation``: feedback-joined AUC and calibration) and the live
+endpoint (``server``, ``FLINK_ML_TPU_METRICS_PORT``: ``/metrics``,
+``/healthz``, ``/serving``, ``/drift``, ``/quality``, ``/profilez`` ...).
 """
 
 from flink_ml_tpu_torch.observability.compilestats import (
@@ -20,6 +25,17 @@ from flink_ml_tpu_torch.observability.compilestats import (
     compile_stats,
     compile_totals,
     sample_memory,
+)
+from flink_ml_tpu_torch.observability.drift import (
+    DRIFT_EVENT,
+    DriftBaseline,
+    SketchGroup,
+    StreamingSketch,
+    capture_fit_baseline,
+    compare_sketches,
+    drift_report,
+    install_baseline,
+    observe_transform,
 )
 from flink_ml_tpu_torch.observability.exporters import (
     chrome_trace,
@@ -53,6 +69,11 @@ from flink_ml_tpu_torch.observability.profiling import (
     parse_profile_dir,
     profile_window,
 )
+from flink_ml_tpu_torch.observability.server import (
+    METRICS_PORT_ENV,
+    TelemetryServer,
+    maybe_start,
+)
 from flink_ml_tpu_torch.observability.tracing import (
     TRACE_DIR_ENV,
     TRACE_PARENT_ENV,
@@ -71,33 +92,45 @@ __all__ = [
     "CAPTURE_ENV",
     "CONVERGENCE_EVENT",
     "ConvergenceListener",
+    "DRIFT_EVENT",
+    "DriftBaseline",
     "HEALTH_EVENT",
+    "METRICS_PORT_ENV",
+    "SketchGroup",
+    "StreamingSketch",
     "Span",
     "TRACE_DIR_ENV",
+    "TelemetryServer",
     "TRACE_PARENT_ENV",
     "TraceContext",
     "Tracer",
     "boot_phase",
     "boot_to_ready_ms",
     "capture_cost",
+    "capture_fit_baseline",
     "capture_now",
     "check_fit",
+    "compare_sketches",
     "chrome_trace",
     "compile_stats",
     "compile_totals",
     "context_of",
     "convergence_row",
     "current_context",
+    "drift_report",
     "dump_metrics",
     "efficiency_report",
     "event",
     "finite_sentinel",
     "fresh_context",
     "guard_final_state",
+    "install_baseline",
     "latest_trace_dir",
     "mark_ready",
+    "maybe_start",
     "maybe_profile_fit",
     "observe_serving",
+    "observe_transform",
     "parse_profile_dir",
     "profile_window",
     "prometheus_text",

@@ -228,9 +228,10 @@ def dump_metrics(trace_dir: str,
     (``metrics-p<k>-<pid>.json`` in a multi-process runtime — see
     :func:`artifact_suffix`; overwrite: the newest snapshot per process
     supersedes earlier ones). The lock watchdog's state dumps alongside
-    as ``locks-<pid>.json`` (a no-op for processes that never armed it);
-    the drift and evaluation dumps of the JAX package come with those
-    modules."""
+    as ``locks-<pid>.json`` (a no-op for processes that never armed it),
+    and, when the drift and evaluation modules are loaded (the serving
+    path loads them), their live state as ``drift-<pid>.json`` and
+    ``quality-<pid>.json``."""
     os.makedirs(trace_dir, exist_ok=True)
     if registry is metrics:
         # fold the span-ring eviction tally into ml.tracing
@@ -259,6 +260,13 @@ def dump_metrics(trace_dir: str,
     os.replace(tmp, path)
     # lock-watchdog acquisition graph rides alongside as
     # locks-<suffix>.json (a no-op for processes that never armed it)
+    for name in ("drift", "evaluation"):
+        mod = sys.modules.get(f"flink_ml_tpu_torch.observability.{name}")
+        if mod is not None:
+            try:
+                mod.dump_state(trace_dir)
+            except OSError:
+                pass  # the metrics snapshot is the primary artifact
     try:
         from flink_ml_tpu_torch.common import locks as locks_mod
 

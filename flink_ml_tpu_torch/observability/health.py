@@ -21,9 +21,9 @@ metric names and events:
   events. Unarmed, a fit computes no health tensor at all.
 
 The serving helpers (:func:`observe_serving` and its siblings) are pure
-host code, ported ahead of the serving slice that calls them. The
-``flink-ml-tpu-trace health`` view (``health_summary``, ``render_health``,
-``main``) comes with the port's CLI.
+host code that the servables' ``_served`` wrapper and the micro-batcher
+call. The ``flink-ml-tpu-trace health`` view (``health_summary``,
+``render_health``, ``main``) comes with the port's CLI.
 """
 
 from __future__ import annotations
@@ -635,3 +635,17 @@ def _parse_labels(label_str: str) -> Dict[str, str]:
             r"\\(.)", lambda m: {"n": "\n"}.get(m.group(1), m.group(1)),
             v)
     return out
+
+
+def _json_safe(obj):
+    """Recursively replace non-finite floats with their string names so
+    the structure serializes as STRICT JSON (the text format has no
+    NaN/Infinity tokens)."""
+    if isinstance(obj, float) and not math.isfinite(obj):
+        return repr(obj).replace("inf", "Infinity").replace(
+            "nan", "NaN")
+    if isinstance(obj, dict):
+        return {k: _json_safe(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_json_safe(v) for v in obj]
+    return obj

@@ -13,7 +13,7 @@ and artifact names:
   raising into the workload. Arming paths: :data:`CAPTURE_ENV` profiles the
   next traced fit (:func:`maybe_profile_fit`, api/stage.py) or the next N
   batcher ticks (:func:`batch_tick`); :func:`capture_now` is the body of the
-  live ``/profilez`` route, which the serving slice's server wires.
+  live ``/profilez`` route (observability/server.py).
   ``CAPTURE_ENV=0`` is the kill-switch for every path. The flight
   recorder's incident capture, and the ``efficiency`` view of the trace
   CLI, come with those modules.

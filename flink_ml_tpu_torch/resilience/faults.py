@@ -23,9 +23,12 @@ every process, on every platform and in both packages.
 
 Injection sites of the port: ``checkpoint-save`` (entry of
 ``CheckpointManager.save``), ``checkpoint-publish`` (after the tmp dir is
-written, before the atomic rename) and ``epoch-boundary`` (host rounds and
-device segment boundaries). The JAX package's other sites name layers that
-later slices port.
+written, before the atomic rename), ``epoch-boundary`` (host rounds and
+device segment boundaries), and the serving registry's ``canary-probe``
+(entry of a candidate's probe; transient, the candidate is not condemned),
+``model-swap`` (the swap commit, before the atomic assignment) and
+``model-rollback`` (entry of ``ModelRegistry.rollback``). The JAX package's
+other sites name layers that later slices port.
 """
 
 from __future__ import annotations

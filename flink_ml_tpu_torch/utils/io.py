@@ -89,6 +89,11 @@ def load_stage_params(path: str, device=None):
     return stage, meta
 
 
+def stage_path(path: str, index: int) -> str:
+    """The directory of a pipeline's ``index``-th stage."""
+    return os.path.join(path, "stages", str(index))
+
+
 def save_model_arrays(path: str, name: str, arrays: Dict[str, np.ndarray]) -> None:
     """Numeric model data under <path>/data (ref: saveModelData:298)."""
     missing = [k for k, v in arrays.items() if v is None]
