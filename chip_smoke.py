@@ -166,7 +166,44 @@ Phases, each of which fails the run (no result line, nonzero exit):
     swallowed telemetry fault, and a finite drift PSI and live AUC per
     version. Prints both runs' throughput and p50/p90/p99, the first and
     steady ticks, the warmup report, batch fill and padding waste;
-14. print one ``{"kernels": [...]}`` line with every kernel's launches in
+14. the ops loop (``observability/{slo,flightrecorder,fleet}.py``,
+    ``serving/controller.py``) at the FTRL config's width, with a trace
+    dir, a fleet dir (beacons every 0.2 s), drift and quality capture and
+    an incident bundle for every trigger (50 ms profile each) armed: v1,
+    an LR fit on the card of OPS_V1_ROWS seeded rows with labels from a
+    hyperplane whose weights sum to 0 (balanced under any mean shift),
+    is published with both baselines and served by a registry of
+    device-predict servables through a micro-batcher warmed on its device
+    thread. Traffic drives of OPS_DRIVE_ROWS rows in requests of
+    OPS_REQUEST_ROWS rows from OPS_CALLERS callers, with
+    labeled feedback, feed a buffer of the last two drives; the
+    controller's retrain is an FTRL ``warm_start`` refit of four passes
+    over that buffer packed as a CSR column (64-row batches of 6,400
+    stored values: ``cuda-csr-batches``, ``segment_reduce_sum``) that
+    returns the leaves and both fresh baselines. Twice at one seed,
+    under ``faults.chaos`` at the five ``CONTROLLER_SITES`` (rate 0.2),
+    stepped by ``step()``: traffic shifted by +OPS_SHIFT triggers on
+    drift and the cycle ramps the canary (0.25, 0.5, 1.0), bakes and
+    swaps in v2, whose drift then reads clean; a rigged refit (finite,
+    one class on shifted traffic) is promoted straight after its probe,
+    the bake regresses and the registry rolls back to v2 without a
+    re-probe, recording a ``rollback`` incident; an honest cycle swaps
+    v4 in. After the second run a fourth cycle runs on the controller's
+    own thread (``start()``), which names the card, retrains on it and
+    swaps, while ``/slo``, ``/incidents``, ``/fleet`` and ``/controller``
+    answer 200 and the fleet CLI's ``--check`` reads 0 with the serving
+    and controller roles alive. Gates: identical transitions and
+    outcomes in both runs, every retrain on ``cuda-csr-batches`` with
+    segment launches and the serving version's coefficients untouched,
+    no error or rejection, every response within SERVE_RTOL/SERVE_ATOL of
+    the host float64 predict of the version that served it (predictions
+    exact but for |dot| < SERVE_ATOL), no kernel build after warmup, an
+    impossible latency SLO leaving an ``slo`` bundle, and the port's
+    CLIs: controller ``--check`` 0, incident ``--check`` 4, then 0 after
+    ``--ack``. Prints each cycle's outcome, wall ms and publish-to-swap
+    ms, each retrain's ms and segment launches, batched requests/s and
+    p99 during the ramp, and the incident and beacon counts;
+15. print one ``{"kernels": [...]}`` line with every kernel's launches in
     its main-path runs, error, times and bound, then the result line.
 
 Tolerances (float32 throughout, TF32 off):
@@ -274,6 +311,9 @@ PATH_KERNELS = {
     # the producer LR fit of the serving path (its FTRL fit runs dense
     # batches, which launch no kernel; serving's product is one torch call)
     "serving": ("sgd_batch_terms",),
+    # the ops loop: the v1 LR fit, and every retrain an FTRL refit through
+    # the device-CSR engine
+    "ops": ("sgd_batch_terms", "segment_reduce_sum"),
 }
 LOSSES = ("logistic", "hinge", "least_square")
 
@@ -288,6 +328,20 @@ BIG_FIT_RTOL, BIG_FIT_ATOL = 1e-4, 1e-5
 SERVE_RTOL, SERVE_ATOL = 1e-5, 1e-4
 # phase 13's request sizes (rows), serve_bench.py's mix
 SERVE_SIZES = (1, 2, 4)
+# phase 14: the v1 fit's rows; the traffic's mean shift (every feature, in
+# standard deviations); rows per traffic drive, of which the retrain buffer
+# keeps the last two drives, in requests of OPS_REQUEST_ROWS rows from
+# OPS_CALLERS closed-loop callers; the refit's batch
+# (6,400 stored values, past FTRL_SPARSE_MIN_NNZ) and its passes over the
+# buffer; the drift sample floor; the chaos plan at the five controller
+# sites
+OPS_V1_ROWS = 200_000
+OPS_SHIFT = 3.0
+OPS_DRIVE_ROWS = 512
+OPS_REQUEST_ROWS, OPS_CALLERS = 4, 16
+OPS_RETRAIN_BATCH, OPS_RETRAIN_PASSES = 64, 4
+OPS_MIN_COUNT = 400
+OPS_CHAOS_SEED, OPS_CHAOS_RATE = 20260804, 0.2
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W): device
 # memory bytes per second and fp32 (non-tensor-core) operations per second
@@ -2236,6 +2290,49 @@ class _Counting(logging.Handler):
             self.faults.append(msg)
 
 
+def _recording_loader(served, ticks, coefs=None, device="cuda"):
+    """The registry loader of phases 13 and 14: a device-predict LR
+    servable whose transform records, for each request of the batch, the
+    version that served it and its dots (``served[ordinal]``), and for
+    each transform (version, thread, rows, ms, device-product ms)
+    (``ticks``); ``coefs[version]`` keeps each loaded coefficient."""
+    from flink_ml_tpu_torch.servable import LogisticRegressionModelServable
+    from flink_ml_tpu_torch.servable.lr import LogisticRegressionModelData
+
+    def loader(leaves, version):
+        coef = np.asarray(leaves[0], np.float64)
+        if coefs is not None:
+            coefs[version] = coef
+        sv = LogisticRegressionModelServable().set_device_predict(
+            True, device=device)
+        sv.model_data = LogisticRegressionModelData(coef, version)
+        inner_dots, inner_transform = sv._device_dots, sv.transform
+        last = {}
+
+        def device_dots(xb):
+            t = time.perf_counter()
+            last["dots"] = inner_dots(xb)
+            last["ms"] = (time.perf_counter() - t) * 1e3
+            return last["dots"]
+
+        def transform(df):
+            t = time.perf_counter()
+            out = inner_transform(df)
+            ms = (time.perf_counter() - t) * 1e3
+            ticks.append((version, threading.current_thread().name,
+                          df.num_rows(), ms, last["ms"]))
+            offset = 0
+            for seq, rows in getattr(df, "request_segments", None) or ():
+                served[seq] = (version, last["dots"][offset:offset + rows])
+                offset += rows
+            return out
+
+        sv._device_dots, sv.transform = device_dots, transform
+        return sv
+
+    return loader
+
+
 def phase_serving(K, runner, card_line):
     """Phase 13: the serving path on the card. An LR fit on the card
     (1,000,000 x 100, drift and quality capture armed) is published as v1
@@ -2250,10 +2347,7 @@ def phase_serving(K, runner, card_line):
     from flink_ml_tpu_torch.models.classification import LogisticRegression
     from flink_ml_tpu_torch.models.online import OnlineLogisticRegression
     from flink_ml_tpu_torch.observability import drift, evaluation, server
-    from flink_ml_tpu_torch.servable import (DataFrame, DataTypes,
-                                             LogisticRegressionModelServable,
-                                             Row)
-    from flink_ml_tpu_torch.servable.lr import LogisticRegressionModelData
+    from flink_ml_tpu_torch.servable import DataFrame, DataTypes, Row
     from flink_ml_tpu_torch.serving import (BatcherConfig, LoadGenConfig,
                                             MicroBatcher, ModelRegistry,
                                             compile_count, publish_model,
@@ -2312,34 +2406,7 @@ def phase_serving(K, runner, card_line):
     api_log.addHandler(faults)
     served = {}   # request ordinal -> (version, served dots)
     ticks = []    # (version, thread, rows, ms, product ms) per transform
-
-    def loader(leaves, version):
-        sv = LogisticRegressionModelServable().set_device_predict(True)
-        sv.model_data = LogisticRegressionModelData(
-            np.asarray(leaves[0], np.float64), version)
-        inner_dots, inner_transform = sv._device_dots, sv.transform
-        last = {}
-
-        def device_dots(xb):
-            t = time.perf_counter()
-            last["dots"] = inner_dots(xb)
-            last["ms"] = (time.perf_counter() - t) * 1e3
-            return last["dots"]
-
-        def transform(df):
-            t = time.perf_counter()
-            out = inner_transform(df)
-            ms = (time.perf_counter() - t) * 1e3
-            ticks.append((version, threading.current_thread().name,
-                          df.num_rows(), ms, last["ms"]))
-            offset = 0
-            for seq, rows in getattr(df, "request_segments", None) or ():
-                served[seq] = (version, last["dots"][offset:offset + rows])
-                offset += rows
-            return out
-
-        sv._device_dots, sv.transform = device_dots, transform
-        return sv
+    loader = _recording_loader(served, ticks)
 
     def frame_rows(i):
         return np.random.default_rng(1000 + i).normal(
@@ -2462,21 +2529,10 @@ def phase_serving(K, runner, card_line):
         assert res["ok"] == 400 and res["errors"] == 0 and \
             res["rejected"] == 0, (name, res)
     assert reg.version == 2, reg.version
-    versions = {}
-    near_zero, worst = 0, 0.0
-    for i in range(400):
-        seq, out = results[i]
-        version, dots = served[seq]
-        versions[version] = versions.get(version, 0) + 1
-        host = frame_rows(i) @ coefs[version]
-        np.testing.assert_allclose(dots, host, rtol=SERVE_RTOL,
-                                   atol=SERVE_ATOL)
-        worst = max(worst, float(np.max(np.abs(dots - host))))
-        pred = np.asarray(out.get("prediction").values)
-        clear = np.abs(host) >= SERVE_ATOL
-        near_zero += int((~clear).sum())
-        assert np.array_equal(pred[clear], (host[clear] >= 0)
-                              .astype(np.float64)), (i, version)
+    assert sorted(results) == list(range(400)), len(results)
+    versions, near_zero, worst = _check_responses(
+        [(seq, frame_rows(i), out) for i, (seq, out) in results.items()],
+        served, coefs)
     assert set(versions) == {1, 2}, versions
     for i, pred in per_request_preds.items():
         host = frame_rows(i) @ coefs[2]
@@ -2552,6 +2608,464 @@ def phase_serving(K, runner, card_line):
     return counts
 
 
+def _check_responses(responses, served, coefs):
+    """Hold every response against the host float64 predict of the
+    version that served it (phase 13's tolerances); returns (versions
+    served, rows with |dot| < SERVE_ATOL, max |dot err|)."""
+    versions, near_zero, worst = {}, 0, 0.0
+    for seq, rows, out in responses:
+        version, dots = served[seq]
+        versions[version] = versions.get(version, 0) + 1
+        host = rows @ coefs[version]
+        np.testing.assert_allclose(dots, host, rtol=SERVE_RTOL,
+                                   atol=SERVE_ATOL)
+        worst = max(worst, float(np.max(np.abs(dots - host))))
+        pred = np.asarray(out.get("prediction").values)
+        clear = np.abs(host) >= SERVE_ATOL
+        near_zero += int((~clear).sum())
+        assert np.array_equal(pred[clear], (host[clear] >= 0)
+                              .astype(np.float64)), (seq, version)
+    return versions, near_zero, worst
+
+
+def phase_ops_loop(K, runner, card_line, device="cuda"):
+    """Phase 14: the ops loop on the card (item 14 of the module
+    docstring). ``device`` is the card; ``"cpu"`` runs the same logic on
+    the plain kernels, a rehearsal that launches no kernel and takes the
+    CPU's sparse engine."""
+    import collections
+    import contextlib
+    import io
+
+    from flink_ml_tpu_torch import Table
+    from flink_ml_tpu_torch.device import synchronize
+    from flink_ml_tpu_torch.models.classification import LogisticRegression
+    from flink_ml_tpu_torch.observability import (exporters, fleet,
+                                                  flightrecorder, server,
+                                                  slo, tracing)
+    from flink_ml_tpu_torch.serving import controller as controller_mod
+
+    log("phase 14: the ops loop on the card")
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    retrain_path = "cuda-csr-batches" if on_card else "torch-csr-batches"
+    spec = runner.load_config(str(FTRL_CONFIG))["OnlineLogisticRegression"]
+    d = spec["inputData"]["paramMap"]["vectorDim"]
+    ftrl_params = spec["stage"]["paramMap"]
+    lr_params = runner.load_config(str(LINEAR_CONFIGS["logisticregression"]))[
+        "logisticregression"]["stage"]["paramMap"]
+    # sum(w_true) == 0: the labels stay balanced under any mean shift of
+    # the features, so a candidate predicting one class is drift, and an
+    # honest refit never is
+    mags = np.resize([1.0, 2.0, 1.5], d // 2)
+    w_true = np.stack([mags, -mags], axis=1).ravel()
+    root = tempfile.mkdtemp(prefix="ops-loop-")
+    trace_dir = os.path.join(root, "trace")
+    fleet_dir = os.path.join(root, "fleet")
+    env = {
+        # fit-time baselines; drift judged by the controller's own
+        # evaluations (the per-observation cadence is left long), on at
+        # least OPS_MIN_COUNT observations a series: 33 series of 32
+        # bins sit well under the thresholds on same-distribution
+        # windows of that size
+        "FLINK_ML_TPU_DRIFT": 1, "FLINK_ML_TPU_QUALITY": 1,
+        "FLINK_ML_TPU_DRIFT_INTERVAL_S": 3600,
+        "FLINK_ML_TPU_DRIFT_MIN_COUNT": OPS_MIN_COUNT,
+        "FLINK_ML_TPU_FLEET_DIR": fleet_dir,
+        "FLINK_ML_TPU_FLEET_BEACON_S": 0.2,
+        # every incident of the run gets its bundle (a drift verdict and
+        # the rollback it causes fire one step apart), each with a short
+        # profile window
+        "FLINK_ML_TPU_INCIDENT_DEBOUNCE_S": 0,
+        "FLINK_ML_TPU_INCIDENT_MAX": 64,
+        "FLINK_ML_TPU_INCIDENT_PROFILE_MS": 50}
+    K.reset_launch_counts()
+    cli_out = io.StringIO()  # the CLIs' reports, shown when a gate fails
+    quiet = contextlib.redirect_stdout(cli_out)
+    with _armed(**env):
+        tracing.tracer.configure(trace_dir)
+        srv = server.maybe_start(0)
+        assert srv is not None
+        try:
+            # v1: an LR fit on the card of seeded rows from the unshifted
+            # distribution, with drift and quality baselines
+            gen = torch.Generator(device=dev).manual_seed(43)
+            x = torch.randn(OPS_V1_ROWS, d, generator=gen, device=dev)
+            w = torch.as_tensor(w_true, dtype=torch.float32, device=dev)
+            table = Table.from_columns(features=x,
+                                       label=((x @ w) > 0).to(torch.float32))
+            t0 = time.perf_counter()
+            v1 = LogisticRegression(
+                max_iter=lr_params["maxIter"], reg=lr_params["reg"],
+                elastic_net=lr_params["elasticNet"],
+                learning_rate=lr_params["learningRate"],
+                global_batch_size=lr_params["globalBatchSize"],
+                tol=lr_params["tol"], device=dev).fit(table)
+            synchronize(dev)
+            v1_ms = (time.perf_counter() - t0) * 1e3
+            v1_launches = K.launch_counts["sgd_batch_terms"]
+            assert v1.drift_baseline is not None
+            assert v1.quality_baseline is not None
+            del table, x
+            coef1 = np.asarray(v1.coefficients, np.float64)
+            log(f"  v1: LR fit of {OPS_V1_ROWS} x {d} in {v1_ms:.1f} ms "
+                f"({v1_launches} sgd_batch_terms launches), training AUC "
+                f"{v1.quality_baseline.sketch.auc():.4f}")
+
+            runs = [_ops_scenario(
+                i, threaded=(i == 2), d=d, dev=dev, w_true=w_true,
+                coef1=coef1, v1=v1, root=root, ftrl_params=ftrl_params,
+                retrain_path=retrain_path, K=K, on_card=on_card,
+                fleet_dir=fleet_dir, srv=srv, quiet=quiet)
+                for i in (1, 2)]
+            assert runs[0]["det"] == runs[1]["det"], (
+                "chaos runs at one seed diverged", runs[0]["det"],
+                runs[1]["det"])
+
+            # an impossible latency SLO, evaluated emitting, is an incident
+            (impossible,) = slo.evaluate_slos(
+                [slo.SLO(name="impossible-latency", kind="latency",
+                         threshold_ms=1e-6)], emit=True)
+            assert not impossible["ok"], impossible
+        finally:
+            server.stop()
+            tracing.tracer.shutdown()
+        exporters.dump_metrics(trace_dir)
+        with quiet:
+            controller_rc = controller_mod.main([trace_dir, "--check"])
+            incident_rc = flightrecorder.main([trace_dir, "--check"])
+            flightrecorder.main([trace_dir, "--ack"])
+            acked_rc = flightrecorder.main([trace_dir, "--check"])
+        bundles = flightrecorder.read_incidents(trace_dir,
+                                                include_spans=False)
+        beacons, invalid = fleet.read_beacons(fleet_dir)
+    shutil.rmtree(root, ignore_errors=True)
+    kinds = collections.Counter(b["kind"] for b in bundles)
+    profiled = sum(1 for b in bundles if b.get("device_profile"))
+    report = cli_out.getvalue()[-4000:]
+    assert controller_rc == 0, (controller_rc, report)
+    assert (incident_rc, acked_rc) == (4, 0), (incident_rc, acked_rc)
+    # the fleet --check ran while the serving and controller roles were
+    # alive (cycle 4); a stopped member reads dead two intervals later
+    fleet_rc = runs[1]["report"]["threaded"]["fleet_check"]
+    assert fleet_rc == 0 and invalid == 0, (fleet_rc, invalid)
+    assert kinds["rollback"] == 2 and kinds["slo"] >= 1, kinds
+    counts = dict(K.launch_counts)
+    summary = {"card": card_line, "dim": d, "v1_rows": OPS_V1_ROWS,
+               "v1_fit_ms": v1_ms, "v1_sgd_batch_terms": v1_launches,
+               "runs": [r["report"] for r in runs],
+               "incidents": dict(kinds), "incident_profiles": profiled,
+               "incident_subjects": [
+                   [b["kind"], b["attrs"].get("servable",
+                                              b["attrs"].get("slo"))]
+                   for b in bundles],
+               "beacons": len(beacons), "launches": counts,
+               "exits": {"controller": controller_rc,
+                         "incident": incident_rc, "incident_acked": acked_rc,
+                         "fleet": fleet_rc}}
+    for r in runs:
+        rep = r["report"]
+        for c in rep["cycles"]:
+            log(f"  run {rep['run']} cycle {c['cycle']}: {c['outcome']} in "
+                f"{c['wall_ms']:.1f} ms wall ({c['steps']} steps), "
+                f"publish-to-swap "
+                + (f"{c['publish_to_swap_ms']:.1f} ms"
+                   if c["publish_to_swap_ms"] is not None else "-"))
+        for t in rep["retrains"]:
+            log(f"  run {rep['run']} retrain on {t['thread']}: {t['path']},"
+                f" {t['ms']:.1f} ms, {t['launches']} segment_reduce_sum "
+                f"launches")
+        ramp = rep["ramp"]
+        log(f"  run {rep['run']} ramp: {ramp['drives']} drives, "
+            f"{ramp['requests_per_s']:.1f} batched requests/s, p99 "
+            f"{ramp['p99_ms']:.3f} ms (worst drive); {rep['requests']} "
+            f"requests, 0 errors, 0 rejections; served by version "
+            f"{rep['served_by_version']}; max |dot err| "
+            f"{rep['max_abs_dot_err']:.3g}")
+    log(f"  incident bundles: {dict(kinds)} ({profiled} with a profile); "
+        f"beacons: {len(beacons)}; controller --check {controller_rc}, "
+        f"incident --check {incident_rc} then {acked_rc} after --ack, "
+        f"fleet --check {fleet_rc}")
+    log(f"  {card_line}")
+    log("  ops loop:", json.dumps(summary, sort_keys=True, default=str))
+    if on_card:
+        for kern in PATH_KERNELS["ops"]:
+            assert counts[kern] >= 1, counts
+    return counts
+
+
+def _ops_scenario(run, threaded, d, dev, w_true, coef1, v1, root,
+                  ftrl_params, retrain_path, K, on_card, fleet_dir, srv,
+                  quiet):
+    """One run of phase 14's scenario under the seeded chaos plan: a
+    drift-triggered cycle that swaps, a rigged cycle that the bake rolls
+    back, an honest cycle that swaps; with ``threaded``, then a fourth
+    cycle on the controller's own thread. Returns the run's
+    deterministic shape (``det``) and its report."""
+    import collections
+    import dataclasses
+    import threading as th
+
+    import scipy.sparse as sp
+
+    from flink_ml_tpu_torch import Table
+    from flink_ml_tpu_torch.common.metrics import metrics
+    from flink_ml_tpu_torch.device import synchronize
+    from flink_ml_tpu_torch.linalg import sparse
+    from flink_ml_tpu_torch.linalg.vectors import DenseVector
+    from flink_ml_tpu_torch.models.online import OnlineLogisticRegression
+    from flink_ml_tpu_torch.observability import drift, evaluation
+    from flink_ml_tpu_torch.resilience import RetryPolicy, faults
+    from flink_ml_tpu_torch.servable import DataFrame, DataTypes, Row
+    from flink_ml_tpu_torch.serving import (BatcherConfig, ControllerConfig,
+                                            LoadGenConfig, MicroBatcher,
+                                            ModelRegistry, OpsController,
+                                            compile_count, publish_model,
+                                            run_loadgen, warm)
+    from flink_ml_tpu_torch.serving.controller import (BAKING, PUBLISHING,
+                                                       RAMPING, WATCHING)
+
+    metrics.clear()
+    drift.clear()
+    evaluation.clear()
+    rng = np.random.default_rng(7)
+    watch = os.path.join(root, f"models-{run}")
+    buffer = collections.deque(maxlen=2 * OPS_DRIVE_ROWS)
+    buffer_lock = th.Lock()
+    served, coefs, retrains, responses, ramp_drives = {}, {}, [], [], []
+    totals = {"requests": 0, "errors": 0, "rejected": 0}
+    rigged = {"on": False}
+
+    def frames_of(x):
+        return [DataFrame(["features"], [DataTypes.vector()],
+                          [Row([DenseVector(r)])
+                           for r in x[i:i + OPS_REQUEST_ROWS]])
+                for i in range(0, len(x), OPS_REQUEST_ROWS)]
+
+    def drive(shift):
+        x = rng.normal(size=(OPS_DRIVE_ROWS, d)) + shift
+        y = (x @ w_true > 0).astype(np.float64)
+        with buffer_lock:
+            buffer.extend(zip(x, y))
+        frames = frames_of(x)
+
+        def feedback(i, frm, fut):
+            rows = slice(OPS_REQUEST_ROWS * i, OPS_REQUEST_ROWS * (i + 1))
+            responses.append((fut.request_id, x[rows], fut.result()))
+            evaluation.record_feedback(fut.request_id, y[rows])
+
+        res = run_loadgen(batcher.submit, lambda i: frames[i],
+                          LoadGenConfig(mode="closed", requests=len(frames),
+                                        concurrency=OPS_CALLERS),
+                          feedback=feedback)
+        for key in totals:
+            totals[key] += res[key]
+        return res
+
+    def retrain(trigger):
+        active = reg.active
+        before = np.array(active.model_data.coefficient, copy=True)
+        with buffer_lock:
+            rows = list(buffer)
+        # a few passes over the buffer: one pass of FTRL's per-coordinate
+        # steps learns little more than the shift itself
+        xb = np.concatenate([np.stack([r for r, _ in rows])]
+                            * OPS_RETRAIN_PASSES)
+        yb = np.tile([label for _, label in rows], OPS_RETRAIN_PASSES)
+        est = OnlineLogisticRegression(
+            global_batch_size=OPS_RETRAIN_BATCH, reg=ftrl_params["reg"],
+            elastic_net=ftrl_params["elasticNet"],
+            alpha=ftrl_params["alpha"], beta=ftrl_params["beta"],
+            device=dev).warm_start(before, model_version=reg.version or 0)
+        start = K.launch_counts["segment_reduce_sum"]
+        t0 = time.perf_counter()
+        model = est.fit(Table.from_columns(
+            features=sparse.CsrVectorColumn(sp.csr_matrix(xb)), label=yb))
+        synchronize(dev)
+        retrains.append({
+            "path": est.last_execution_path,
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "launches": K.launch_counts["segment_reduce_sum"] - start,
+            "thread": th.current_thread().name,
+            # the refit wrote nothing into what the serving version holds
+            "serving_untouched": bool(np.array_equal(
+                active.model_data.coefficient, before))})
+        coef = np.asarray(model.coefficients, np.float64)
+        if rigged["on"]:
+            rigged["on"] = False
+            # finite garbage: passes the probe, predicts one class on
+            # any mean-shifted traffic
+            coef = np.abs(coef) * 10.0 + 1.0
+        return [coef], model.drift_baseline, model.quality_baseline
+
+    cfg = ControllerConfig(
+        ramp_stages=(0.25, 0.5, 1.0), stage_min_requests=8,
+        bake_min_requests=8, stage_timeout_s=600.0, cooldown_s=0.0,
+        max_error_ratio=0.02,
+        policy=RetryPolicy(max_restarts=8, backoff_s=0.01,
+                           max_backoff_s=0.05))
+    cycles = []
+
+    def run_cycle(shift, max_steps=120):
+        before = dict(ctrl._outcomes)
+        t_trigger = t_publish = t_swap = None
+        for step in range(max_steps):
+            res = drive(shift)
+            state0 = ctrl.state
+            if state0 == RAMPING:
+                ramp_drives.append(res)
+            t = time.perf_counter()
+            state = ctrl.step()
+            if state0 == WATCHING and state != WATCHING:
+                t_trigger, first = t, step
+            if state0 == PUBLISHING and t_publish is None:
+                t_publish = t
+            if state == BAKING and state0 != BAKING:
+                t_swap = time.perf_counter()
+            if state == WATCHING and ctrl._outcomes != before:
+                outcome = [k for k, v in ctrl._outcomes.items()
+                           if v > before.get(k, 0)][0]
+                cycles.append({
+                    "cycle": ctrl.cycle, "outcome": outcome,
+                    "steps": step - first + 1,
+                    "wall_ms": (time.perf_counter() - t_trigger) * 1e3,
+                    "publish_to_swap_ms": (
+                        (t_swap - t_publish) * 1e3 if t_swap else None)})
+                return outcome
+        raise AssertionError(f"no cycle ended within {max_steps} steps: "
+                             f"{ctrl.state}, {ctrl.transitions[-5:]}")
+
+    publish_model(watch, [coef1], 1, baseline=v1.drift_baseline,
+                  quality_baseline=v1.quality_baseline)
+    reg = ModelRegistry(watch, _recording_loader(served, [], coefs, dev),
+                        model="lr", probe=lambda: frames_of(
+                            rng.normal(size=(4, d)))[0])
+    ctrl = OpsController(reg, retrain, cfg)
+    batcher = None
+    try:
+        with faults.chaos(seed=OPS_CHAOS_SEED, rate=OPS_CHAOS_RATE,
+                          sites=faults.CONTROLLER_SITES):
+            for _ in range(50):
+                if reg.poll():
+                    break
+            assert reg.version == 1, reg.version
+            batcher = MicroBatcher(reg, BatcherConfig(
+                buckets=(8, 32, 128), window_ms=1.0)).start()
+            with faults.suppressed():
+                report = warm(batcher)
+            builds = compile_count()
+            # 1: the traffic shifts; drift triggers a cycle that swaps
+            assert run_cycle(OPS_SHIFT) == "swapped", ctrl.transitions
+            assert reg.version == 2, reg.version
+            drive(OPS_SHIFT)
+            v2_drift = drift.evaluate("lr@v2", emit=False)
+            assert not v2_drift["drifted"], v2_drift
+            # 2: a rigged refit; promoted straight after its probe, so
+            # the bake judges it, and the rollback restores v2
+            rigged["on"] = True
+            ctrl.config = dataclasses.replace(cfg, ramp_stages=())
+            assert run_cycle(-OPS_SHIFT) == "rolled-back", ctrl.transitions
+            ctrl.config = cfg
+            assert reg.version == 2 and 3 in reg._rejected, reg.version
+            assert drift.baseline_for("lr@v3") is None
+            # 3: an honest cycle swaps a healthy version in
+            assert run_cycle(-OPS_SHIFT) == "swapped", ctrl.transitions
+            assert reg.version == 4, reg.version
+            drive(-OPS_SHIFT)
+            v4_drift = drift.evaluate("lr@v4", emit=False)
+            assert not v4_drift["drifted"], v4_drift
+        det = {"transitions": [(t["from"], t["to"], t["cycle"])
+                               for t in ctrl.transitions],
+               "outcomes": dict(ctrl._outcomes),
+               "final_version": reg.version,
+               "rejected": sorted(reg._rejected)}
+        threaded_report = None
+        if threaded:
+            threaded_report = _ops_threaded_cycle(
+                ctrl, cfg, reg, drive, retrains, cycles, fleet_dir, srv,
+                quiet, on_card)
+        builds_after = compile_count()
+    finally:
+        if batcher is not None:
+            batcher.stop()
+        ctrl.stop()
+        reg.stop()
+    assert totals["errors"] == 0 and totals["rejected"] == 0, totals
+    assert builds_after == builds, (builds, builds_after)
+    for r in retrains:
+        assert r["path"] == retrain_path, retrains
+        assert r["serving_untouched"], retrains
+        if on_card:
+            assert r["launches"] >= 1, retrains
+    versions, near_zero, worst = _check_responses(responses, served, coefs)
+    ramp = {"drives": len(ramp_drives),
+            "requests_per_s": statistics.mean(
+                r["throughput_rps"] for r in ramp_drives),
+            "p99_ms": max(r["latency_ms"]["p99"] for r in ramp_drives)}
+    return {"det": det, "report": {
+        "run": run, "cycles": cycles, "retrains": retrains, "ramp": ramp,
+        "requests": totals["requests"], "served_by_version": versions,
+        "near_zero_rows": near_zero, "max_abs_dot_err": worst,
+        "builds_after_warmup": builds_after - builds, "warmup": report,
+        "transitions": len(det["transitions"]),
+        "outcomes": det["outcomes"], "threaded": threaded_report}}
+
+
+def _ops_threaded_cycle(ctrl, cfg, reg, drive, retrains, cycles, fleet_dir,
+                        srv, quiet, on_card):
+    """Cycle 4 of phase 14 on the controller's own thread: the traffic
+    shifts back, the thread names the card, retrains on it and swaps,
+    while this thread keeps serving. The fleet, SLO, incident and
+    controller routes are read while it runs."""
+    import dataclasses
+
+    from flink_ml_tpu_torch.observability import fleet
+    from flink_ml_tpu_torch.serving.controller import WATCHING
+
+    ctrl.config = dataclasses.replace(cfg, check_interval_s=0.05)
+    for _ in range(2):  # the refit's buffer holds only the new traffic
+        drive(OPS_SHIFT)
+    before = dict(ctrl._outcomes)
+    version = reg.version
+    t0 = time.perf_counter()
+    ctrl.start()
+    routes, fleet_rc, roles = {}, None, []
+    try:
+        deadline = time.monotonic() + 120.0
+        while not (ctrl.state == WATCHING and ctrl._outcomes != before):
+            assert time.monotonic() < deadline, ctrl.transitions[-5:]
+            drive(OPS_SHIFT)
+            if not routes:
+                for route in ("/slo", "/incidents", "/fleet",
+                              "/controller"):
+                    code, _ = _get_json(srv.port, route)
+                    routes[route] = code
+                with quiet:
+                    fleet_rc = fleet.main([fleet_dir, "--check"])
+                roles = [(row["role"], row["state"]) for row in
+                         fleet.FleetView(fleet_dir).membership()]
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ctrl.stop()
+    outcome = [k for k, v in ctrl._outcomes.items()
+               if v > before.get(k, 0)][0]
+    bound = ctrl._bound_device
+    cycles.append({"cycle": ctrl.cycle, "outcome": outcome, "steps": None,
+                   "wall_ms": wall_ms, "publish_to_swap_ms": None,
+                   "thread": True})
+    assert outcome == "swapped" and reg.version == version + 1, (
+        outcome, reg.version, ctrl.transitions[-6:])
+    assert retrains[-1]["thread"] == "flink-ml-tpu-ops-controller", retrains
+    assert set(routes.values()) == {200}, routes
+    assert fleet_rc == 0, fleet_rc
+    assert any("serving" in role and "controller" in role
+               and state == "alive" for role, state in roles), roles
+    if on_card:
+        assert bound == reg.active.device, (bound, reg.active.device)
+    return {"outcome": outcome, "wall_ms": wall_ms, "routes": routes,
+            "fleet_check": fleet_rc, "roles": roles, "bound": str(bound)}
+
+
 def _serving_group():
     from flink_ml_tpu_torch.common.metrics import metrics
 
@@ -2596,6 +3110,7 @@ def main() -> int:
     counts["parallel"] = phase_parallel(K, runner, optimizer, Table)
     counts["observability"] = phase_observability(K, runner)
     counts["serving"] = phase_serving(K, runner, card)
+    counts["ops"] = phase_ops_loop(K, runner, card)
 
     line = {"kernels": [
         {"name": name, **{key: K.KERNELS[name][key]

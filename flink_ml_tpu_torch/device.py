@@ -31,6 +31,21 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return default_device() if device is None else torch.device(device)
 
 
+def name_thread_device(device, named: Optional[torch.device] = None
+                       ) -> Optional[torch.device]:
+    """Make the CUDA ``device`` the calling thread's current device, unless
+    ``named`` (the device this thread named last) already is it; returns
+    the device the thread has named. PyTorch keeps the current device, and
+    the cuBLAS handles that go with it, per thread, so a thread that
+    launches work for a servable names the servable's card first. A host
+    device (or None) names nothing."""
+    if (isinstance(device, torch.device) and device.type == "cuda"
+            and device != named):
+        torch.cuda.set_device(device)
+        return device
+    return named
+
+
 def synchronize(device: Optional[torch.device]) -> None:
     """Wait for the work queued on ``device`` (a no-op on the CPU)."""
     if device is not None and device.type == "cuda":

@@ -17,7 +17,13 @@ halves: drift detection (``drift``: training-time baselines, mergeable
 live sketches, PSI / JS / KS per model version), continuous evaluation
 (``evaluation``: feedback-joined AUC and calibration) and the live
 endpoint (``server``, ``FLINK_ML_TPU_METRICS_PORT``: ``/metrics``,
-``/healthz``, ``/serving``, ``/drift``, ``/quality``, ``/profilez`` ...).
+``/healthz``, ``/serving``, ``/drift``, ``/quality``, ``/slo``,
+``/incidents``, ``/fleet``, ``/profilez`` ...). The ops halves: SLOs
+with multi-window burn rates (``slo``), the flight recorder
+(``flightrecorder``) that dumps ``incident-<seq>/`` evidence bundles on
+SLO violations, drift, quality regressions, divergence and rollbacks,
+and the fleet plane (``fleet``: per-process beacons folded into
+membership and fleet-level windowed quantiles).
 """
 
 from flink_ml_tpu_torch.observability.compilestats import (
@@ -47,6 +53,12 @@ from flink_ml_tpu_torch.observability.exporters import (
     resolve_trace_dir,
     write_chrome_trace,
 )
+from flink_ml_tpu_torch.observability.flightrecorder import (
+    INCIDENT_EVENT,
+    acknowledge,
+    read_incidents,
+    record_incident,
+)
 from flink_ml_tpu_torch.observability.health import (
     CONVERGENCE_EVENT,
     HEALTH_EVENT,
@@ -69,6 +81,14 @@ from flink_ml_tpu_torch.observability.profiling import (
     parse_profile_dir,
     profile_window,
 )
+from flink_ml_tpu_torch.observability.slo import (
+    SLO,
+    SLO_EVENT,
+    SLO_SPEC_ENV,
+    default_slos,
+    evaluate_slos,
+    load_specs,
+)
 from flink_ml_tpu_torch.observability.server import (
     METRICS_PORT_ENV,
     TelemetryServer,
@@ -89,6 +109,16 @@ from flink_ml_tpu_torch.observability.tracing import (
 )
 
 __all__ = [
+    "INCIDENT_EVENT",
+    "SLO",
+    "SLO_EVENT",
+    "SLO_SPEC_ENV",
+    "acknowledge",
+    "default_slos",
+    "evaluate_slos",
+    "load_specs",
+    "read_incidents",
+    "record_incident",
     "CAPTURE_ENV",
     "CONVERGENCE_EVENT",
     "ConvergenceListener",

@@ -39,9 +39,9 @@ Three stages:
   the ``/drift`` live route (observability/server.py).
 
 The trace-dir reader and the ``flink-ml-tpu-trace drift`` view
-(``read_state``, ``render_drift``, ``main``) come with the port's CLI, and
-the flight-recorder incident a drifted verdict records in the JAX package
-with the port's flight recorder.
+(``read_state``, ``render_drift``, ``main``) come with the port's CLI. An
+emitting evaluation that reads drifted records a ``drift`` incident bundle
+(observability/flightrecorder.py).
 """
 
 from __future__ import annotations
@@ -975,6 +975,20 @@ def evaluate(servable: str, emit: bool = True,
                         DRIFT_EVENT, servable=servable, feature=name,
                         over=",".join(over),
                         **{s: stats[s] for s in STAT_NAMES})
+    if emit and result["drifted"]:
+        try:
+            # flight recorder (observability/flightrecorder.py): the
+            # live sketches and span ring that explain the shift are
+            # rotating windows — freeze them with the verdict
+            # (debounced/capped; no-op without an armed trace dir)
+            from flink_ml_tpu_torch.observability import flightrecorder
+
+            flightrecorder.record_incident(
+                "drift", servable=servable,
+                drifted=",".join(result["drifted"]))
+        except Exception:  # noqa: BLE001 — recording must never break
+            # the evaluation (the ops controller acts on this verdict)
+            pass
     with _lock:
         _last_results[servable] = result
     return result

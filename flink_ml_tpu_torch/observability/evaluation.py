@@ -29,10 +29,11 @@ Three layers:
   (observability/server.py).
 
 The trace-dir reader and the ``flink-ml-tpu-trace quality`` view
-(``read_state``, ``render_quality``, ``main``) come with the port's CLI;
-the quality SLO kind and the canary stage with ``slo.py`` and the ops
-controller, and the flight-recorder incident of a degraded verdict with
-the port's flight recorder.
+(``read_state``, ``render_quality``, ``main``) come with the port's CLI.
+The quality SLO kind (observability/slo.py) and the ops controller's canary
+stage (serving/controller.py) read these verdicts, and an emitting
+evaluation that reads degraded records a ``quality`` incident bundle
+(observability/flightrecorder.py).
 """
 
 from __future__ import annotations
@@ -830,6 +831,18 @@ def evaluate(servable: str, emit: bool = True,
             baselineAuc=(round(base_metrics["auc"], 6)
                          if base_metrics is not None else None),
             n=live["n"])
+        try:
+            # flight recorder (observability/flightrecorder.py): the
+            # joined window and span ring that explain the regression
+            # are rotating state — freeze them with the verdict
+            # (debounced/capped; no-op without an armed trace dir)
+            from flink_ml_tpu_torch.observability import flightrecorder
+
+            flightrecorder.record_incident(
+                "quality", servable=servable, over=",".join(over))
+        except Exception:  # noqa: BLE001 — recording must never break
+            # the evaluation (the ops controller acts on this verdict)
+            pass
     with _lock:
         _last_results[servable] = result
     return result

@@ -292,9 +292,10 @@ def classify_divergence(series: Dict[str, Sequence[float]],
 
 def report_divergence(algo: str, kind: str,
                       epoch: Optional[int] = None, **detail) -> None:
-    """Emit the ``ml.health`` divergence event + labeled counter (the
-    JAX package also trips its flight recorder here; that comes with the
-    port's flightrecorder module)."""
+    """Emit the ``ml.health`` divergence event + labeled counter, and
+    trip the flight recorder — the divergence that precedes a terminal
+    :class:`NonFiniteState` is exactly the moment the convergence-series
+    spans and recent metrics still explain what blew up."""
     _health_group().counter("divergences",
                             labels={"algo": algo, "kind": kind})
     attrs = {"algo": algo, "kind": kind}
@@ -302,6 +303,17 @@ def report_divergence(algo: str, kind: str,
         attrs["epoch"] = int(epoch)
     attrs.update(detail)
     tracing.tracer.event(HEALTH_EVENT, **attrs)
+    try:
+        from flink_ml_tpu_torch.observability import flightrecorder
+
+        payload = dict(attrs)
+        # the event's "kind" (non-finite / exploding-norm) must not
+        # collide with the incident's own kind parameter
+        payload["divergence"] = payload.pop("kind")
+        flightrecorder.record_incident("divergence", **payload)
+    except Exception:  # noqa: BLE001 — recording must never mask the
+        # divergence verdict (the caller may be about to raise on it)
+        pass
 
 
 def check_fit(algo: str, series: Dict[str, Sequence[float]],

@@ -14,9 +14,10 @@ and artifact names:
   next traced fit (:func:`maybe_profile_fit`, api/stage.py) or the next N
   batcher ticks (:func:`batch_tick`); :func:`capture_now` is the body of the
   live ``/profilez`` route (observability/server.py).
-  ``CAPTURE_ENV=0`` is the kill-switch for every path. The flight
-  recorder's incident capture, and the ``efficiency`` view of the trace
-  CLI, come with those modules.
+  :func:`capture_incident_profile` grabs a short window into a flight
+  recorder incident bundle (observability/flightrecorder.py).
+  ``CAPTURE_ENV=0`` is the kill-switch for every path. The ``efficiency``
+  view of the trace CLI comes with that module.
 
 - **Attribution.** A stdlib-only parser of the exported trace
   (:func:`parse_profile_dir`) folds the device-lane events (``cat:
@@ -75,6 +76,10 @@ CAPTURE_ENV = "FLINK_ML_TPU_PROFILE_CAPTURE"
 #: env var: batcher ticks one armed capture spans (default 3)
 TICKS_ENV = "FLINK_ML_TPU_PROFILE_TICKS"
 DEFAULT_TICKS = 3
+#: env var: length of the bounded window a flight-recorder incident
+#: captures into its bundle (default 200 ms; 0 disables)
+INCIDENT_MS_ENV = "FLINK_ML_TPU_INCIDENT_PROFILE_MS"
+DEFAULT_INCIDENT_MS = 200
 #: env var: upper bound the /profilez route clamps requests to
 PROFILEZ_MAX_MS_ENV = "FLINK_ML_TPU_PROFILEZ_MAX_MS"
 DEFAULT_PROFILEZ_MAX_MS = 2000
@@ -330,6 +335,42 @@ def capture_now(ms: int) -> Optional[dict]:
         time.sleep(ms / 1000.0)
     return {"label": handle.label, "dir": handle.dir, "ms": ms,
             "report": handle.report}
+
+
+def _backend_ready() -> bool:
+    """True when a capture cannot initialize the card: no card is
+    present (the window records the host alone), or CUDA is already
+    initialized in this process. Telemetry never initializes a backend —
+    a profiler window with CUDA activities on a process that has not
+    touched the card yet would bring up its context (and CUPTI) from
+    inside an incident dump."""
+    import torch
+
+    return (not torch.cuda.is_available()) or torch.cuda.is_initialized()
+
+
+def capture_incident_profile(bundle_dir: str) -> bool:
+    """Flight-recorder hook: grab a short bounded profile into an
+    incident bundle (raw trace under ``<bundle>/profile/``, attribution
+    at ``<bundle>/profile.json``). Refuses — returning False, never
+    raising or initializing the card — when capture is killed,
+    :data:`INCIDENT_MS_ENV` is 0, or the card is present but this
+    process has not initialized CUDA yet."""
+    if capture_disabled():
+        return False
+    ms = _env_int(INCIDENT_MS_ENV, DEFAULT_INCIDENT_MS)
+    if ms <= 0:
+        return False
+    if not _backend_ready():
+        return False  # never initialize a backend from telemetry
+    ms = min(ms, DEFAULT_PROFILEZ_MAX_MS)
+    out = os.path.join(bundle_dir, "profile")
+    with profile_window("incident", out_dir=out,
+                        artifact_dir=bundle_dir) as handle:
+        if handle is None:
+            return False
+        time.sleep(ms / 1000.0)
+    return True
 
 
 def _ticks() -> int:

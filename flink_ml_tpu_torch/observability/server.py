@@ -68,11 +68,7 @@ route             serves                                      response with no d
                   one at a time, owning process only
 ================  ==========================================  =============================
 
-Any other path: 404 JSON naming the known routes. ``/slo``,
-``/incidents`` and ``/fleet`` keep their rows but need modules the port
-does not have yet (``slo.py``, ``flightrecorder.py``, ``fleet.py``):
-their handlers raise :class:`NotImplementedError` naming the queue item,
-which the dispatcher's route guard answers with its 500.
+Any other path: 404 JSON naming the known routes.
 
 **Owning process only.** Forked children never listen:
 :func:`maybe_start` refuses in any pid other than the one that imported
@@ -285,10 +281,14 @@ class _Handler(BaseHTTPRequestHandler):
                    _JSON_CTYPE)
 
     def _route_slo(self) -> None:
-        raise NotImplementedError(
-            "/slo needs observability/slo.py, which the port does not "
-            "have yet (ROADMAP.md Queue 1, item 1: the ops controller "
-            "and slo)")
+        from flink_ml_tpu_torch.observability import slo
+
+        verdicts = slo.evaluate_slos(slo.active_slos(), emit=True)
+        self._send(200, json.dumps(
+            {"source": "windowed", "verdicts": verdicts,
+             "violated": [v["slo"] for v in verdicts
+                          if not v["ok"]]},
+            default=str), _JSON_CTYPE)
 
     def _route_serving(self) -> None:
         provider = _serving_status
@@ -329,9 +329,21 @@ class _Handler(BaseHTTPRequestHandler):
                                    default=str), _JSON_CTYPE)
 
     def _route_incidents(self) -> None:
-        raise NotImplementedError(
-            "/incidents needs observability/flightrecorder.py, which the "
-            "port does not have yet (ROADMAP.md Queue 1, item 2)")
+        from flink_ml_tpu_torch.observability import flightrecorder
+
+        trace_dir = tracing.tracer.trace_dir
+        # include_spans=False: a polling monitor must not re-parse
+        # every bundle's span evidence per scrape; the meta's own
+        # "spans" count says how much each bundle holds
+        rows = (flightrecorder.read_incidents(trace_dir,
+                                              include_spans=False)
+                if trace_dir else [])
+        slim = [{k: v for k, v in r.items() if k != "recent_spans"}
+                for r in rows]
+        self._send(200, json.dumps(
+            {"trace_dir": trace_dir, "incidents": slim,
+             "dropped_spans": tracing.tracer.mirror_dropped()},
+            default=str), _JSON_CTYPE)
 
     def _route_spans_recent(self) -> None:
         # deque.append is thread-safe but ITERATION is not: serving
@@ -348,9 +360,20 @@ class _Handler(BaseHTTPRequestHandler):
                                    default=str), _JSON_CTYPE)
 
     def _route_fleet(self) -> None:
-        raise NotImplementedError(
-            "/fleet needs observability/fleet.py, which the port does not "
-            "have yet (ROADMAP.md Queue 1, item 2)")
+        from flink_ml_tpu_torch.observability import fleet
+        from flink_ml_tpu_torch.observability.health import _json_safe
+
+        base = fleet.fleet_dir()
+        resolved = fleet.find_fleet_dir(base) if base else None
+        if resolved is None:
+            self._send(200, json.dumps({"fleet": None,
+                                        "fleetDir": base}),
+                       _JSON_CTYPE)
+            return
+        view = fleet.FleetView(resolved)
+        self._send(200, json.dumps(
+            _json_safe({"fleet": view.report()}), default=str),
+            _JSON_CTYPE)
 
     def _route_profilez(self) -> None:
         # on-demand device profile: /profilez?ms=250 captures a bounded

@@ -27,8 +27,11 @@ written, before the atomic rename), ``epoch-boundary`` (host rounds and
 device segment boundaries), and the serving registry's ``canary-probe``
 (entry of a candidate's probe; transient, the candidate is not condemned),
 ``model-swap`` (the swap commit, before the atomic assignment) and
-``model-rollback`` (entry of ``ModelRegistry.rollback``). The JAX package's
-other sites name layers that later slices port.
+``model-rollback`` (entry of ``ModelRegistry.rollback``), and the ops
+controller's ``controller-retrain`` (each retrain attempt, before the
+caller's refit) and ``controller-publish`` (each publish attempt)
+(serving/controller.py). The JAX package's other sites name layers that
+later slices port.
 """
 
 from __future__ import annotations
@@ -41,6 +44,11 @@ from typing import Dict, Iterable, Optional, Sequence
 
 from flink_ml_tpu_torch.common.locks import make_lock
 from flink_ml_tpu_torch.resilience.policy import InjectedFault
+
+#: the ops-loop subset (serving/controller.py + registry canary/swap/
+#: rollback seams) — what a chaos drive of the ops loop arms
+CONTROLLER_SITES = ("controller-retrain", "controller-publish",
+                    "canary-probe", "model-swap", "model-rollback")
 
 _ENV_FLAG = "FLINK_ML_TPU_CHAOS"
 _ENV_SEED = "FLINK_ML_TPU_CHAOS_SEED"

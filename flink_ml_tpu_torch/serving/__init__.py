@@ -14,12 +14,13 @@ package turns it into a server:
   data: manifest-validated, health-probed, atomic, rolled back on any
   failure — the online-learning (FTRL) → serving handoff — plus canary
   fraction routing and first-class rollback to v(N-1);
+- :mod:`controller` — the self-healing ops loop: drift/SLO/quality
+  violation → warm-start retrain → publish with a fresh baseline →
+  canary → staged ramp → swap, with automatic rollback when the canary's
+  error/drift/latency gauges regress;
 - :mod:`loadgen` — closed/open-loop load generation with exact latency
   percentiles, the one request-driving path for benchmarks, smokes and
   tests.
-
-The JAX package's ops controller (``serving/controller.py``) is the
-port's next slice.
 
 Ref parity: the reference stops at the synchronous servable interface
 (TransformerServable.transform); the runtime around it — Flink's job
@@ -35,6 +36,10 @@ from flink_ml_tpu_torch.serving.batcher import (  # noqa: F401
     WINDOW_ENV,
     BatcherConfig,
     MicroBatcher,
+)
+from flink_ml_tpu_torch.serving.controller import (  # noqa: F401
+    ControllerConfig,
+    OpsController,
 )
 from flink_ml_tpu_torch.serving.loadgen import (  # noqa: F401
     LoadGenConfig,
@@ -60,6 +65,8 @@ __all__ = [
     "WINDOW_ENV",
     "BatcherConfig",
     "MicroBatcher",
+    "ControllerConfig",
+    "OpsController",
     "LoadGenConfig",
     "percentiles",
     "run_loadgen",

@@ -46,9 +46,10 @@ request through the admission queue AND the pad→device handoff — the
 tick's pad/batch spans record explicit ``follows_from`` links back to the
 requests they serve (and the batch to the pad that prepared it), and a
 ``serving.resolve`` span in the request's own trace closes the
-submit→pad→batch→resolve chain. The JAX package's mesh-sharded dispatch
-(a mesh of more than one data shard) and its fleet beacon wait for the
-port's ``meshstats`` and ``fleet`` modules.
+submit→pad→batch→resolve chain. While it runs, the batcher writes a
+``serving`` fleet beacon (observability/fleet.py). The JAX package's
+mesh-sharded dispatch (a mesh of more than one data shard) waits for the
+port's ``meshstats`` module.
 """
 
 from __future__ import annotations
@@ -69,6 +70,7 @@ from flink_ml_tpu_torch.common.locks import (
     make_condition,
 )
 from flink_ml_tpu_torch.common.metrics import ML_GROUP, RATIO_BUCKETS, metrics
+from flink_ml_tpu_torch.device import name_thread_device
 from flink_ml_tpu_torch.observability import profiling, tracing
 from flink_ml_tpu_torch.observability.health import (
     COUNT_BUCKETS,
@@ -387,6 +389,16 @@ class MicroBatcher:
 
         self._prev_status = server.get_serving_status()
         server.set_serving_status(self.status)
+        # join the fleet telemetry plane while serving: periodic
+        # beacons carry this replica's windowed queueMs/batchMs slices
+        # and load row (observability/fleet.py; no-op when no fleet
+        # dir resolves)
+        try:
+            from flink_ml_tpu_torch.observability import fleet
+
+            self._fleet_token = fleet.start_beacon(role="serving")
+        except Exception:
+            self._fleet_token = None
         return self
 
     def stop(self, drain: bool = True) -> None:
@@ -419,6 +431,13 @@ class MicroBatcher:
         # it when we started
         server.clear_serving_status(self.status, self._prev_status)
         self._prev_status = None
+        try:
+            from flink_ml_tpu_torch.observability import fleet
+
+            fleet.stop_beacon(getattr(self, "_fleet_token", None))
+            self._fleet_token = None
+        except Exception:
+            pass
 
     def __enter__(self) -> "MicroBatcher":
         return self.start()
@@ -449,11 +468,8 @@ class MicroBatcher:
         current device before its tick (a no-op for a host servable and
         once the thread has named it): the current device is per thread,
         and this thread must not inherit whatever another thread set."""
-        device = getattr(servable, "device", None)
-        if (isinstance(device, torch.device) and device.type == "cuda"
-                and device != self._bound_device):
-            torch.cuda.set_device(device)
-            self._bound_device = device
+        self._bound_device = name_thread_device(
+            getattr(servable, "device", None), self._bound_device)
 
     # -- admission -----------------------------------------------------------
     def submit(self, df: DataFrame, deadline_ms=...) -> Future:

@@ -60,10 +60,9 @@ restarts it with exponential backoff (counted
 ``watcherRestarts{model=}``) instead of silently killing hot-swap for
 the rest of the process.
 
-The canary and rollback seams are the ops controller's (the JAX
-package's serving/controller.py, the port's next slice). The
-flight-recorder incident a JAX rollback records comes with the port's
-flight recorder.
+The canary and rollback seams are the ops controller's
+(serving/controller.py), and a rollback records a ``rollback`` incident
+bundle (observability/flightrecorder.py).
 """
 
 from __future__ import annotations
@@ -534,6 +533,20 @@ class ModelRegistry:
                              restored=(restored if restored is not None
                                        else "none"),
                              reason=reason)
+        try:
+            # a rollback IS an incident: the evidence that condemned
+            # the demoted version is in the span ring / windowed
+            # metrics RIGHT NOW and rotates away — freeze it
+            # (observability/flightrecorder.py; debounced, capped,
+            # no-op without an armed trace dir)
+            from flink_ml_tpu_torch.observability import flightrecorder
+
+            flightrecorder.record_incident(
+                "rollback", model=self.model, demoted=bad_version,
+                restored=restored, reason=reason)
+        except Exception:  # noqa: BLE001 — recording must never undo
+            # the rollback that just protected serving
+            pass
         # a demoted version's windows hold exactly the violated samples
         # that condemned it — a later re-canary of the same model must
         # seed fresh ones, not inherit the stale verdict

@@ -18,9 +18,9 @@ same outcome in both:
   quality baselines;
 - the loadgen: ``percentiles`` equal to the JAX function's, outcome
   classes, the open loop;
-- the server: the ``/healthz``, ``/serving``, ``/metrics`` and ``/drift``
-  bodies carry the JAX server's keys; ``/slo``, ``/incidents`` and
-  ``/fleet`` answer 500 naming the missing module.
+- the server: the ``/healthz``, ``/serving``, ``/metrics``, ``/drift``,
+  ``/slo``, ``/incidents`` and ``/fleet`` bodies carry the JAX server's
+  keys.
 
 Port-only cases: the LR device predict through the batcher equals the
 per-request ``transform`` (``device="cpu"``), warmup holds the readiness
@@ -628,16 +628,21 @@ def test_non_finite_candidates_rejected_once(pkg, tmp_path):
     reg = pkg.serving.ModelRegistry(
         str(tmp_path / f"models-{pkg.name}"), loader, model="nan",
         probe=lambda: feature_frame(pkg, 4, dim=6))
+    grp = serving_group(pkg)
+    # the registry is process-wide: other files may have rejected a
+    # "nan" model before this test
+    before = {reason: grp.get_counter("swapRejected", labels={
+        "model": "nan", "reason": reason})
+        for reason in ("non-finite", "probe-non-finite")}
     pkg.serving.publish_model(reg.watch_dir, [np.arange(1.0, 7.0)], 1)
     assert reg.poll()
     pkg.serving.publish_model(reg.watch_dir, [np.full(6, np.nan)], 2)
     assert not reg.poll() and not reg.poll()
     pkg.serving.publish_model(reg.watch_dir, [np.arange(1.0, 7.0)], 3)
     assert not reg.poll()
-    grp = serving_group(pkg)
     for reason in ("non-finite", "probe-non-finite"):
         assert grp.get_counter("swapRejected", labels={
-            "model": "nan", "reason": reason}) == 1
+            "model": "nan", "reason": reason}) == before[reason] + 1
     pkg.serving.publish_model(reg.watch_dir, [np.arange(2.0, 8.0)], 4)
     assert reg.poll() and reg.version == 4
 
@@ -859,7 +864,8 @@ def test_route_bodies_match_the_jax_server():
     jax_ns.server.stop()
     _, pb = _served_session(port_ns)
     for name in ("healthz-before", "healthz-gated", "/serving", "/drift",
-                 "/quality", "/controller", "/spans/recent", "/nope"):
+                 "/quality", "/controller", "/spans/recent", "/nope",
+                 "/slo", "/incidents", "/fleet"):
         (jcode, jbody), (pcode, pbody) = jb[name], pb[name]
         assert jcode == pcode, (name, jcode, pcode)
         jdoc, pdoc = json.loads(jbody), json.loads(pbody)
@@ -881,11 +887,13 @@ def test_route_bodies_match_the_jax_server():
                 for body in (jb["/metrics"][1], pb["/metrics"][1])]
     serving = [{f for f in fams if "serving" in f} for fams in families]
     assert serving[0] and serving[0] == serving[1]
-    for route, module in (("/slo", "slo.py"),
-                          ("/incidents", "flightrecorder.py"),
-                          ("/fleet", "fleet.py")):
-        code, body = pb[route]
-        assert code == 500 and module in body
+    for route in ("/slo", "/incidents", "/fleet"):
+        assert pb[route][0] == 200, route
+    slo_doc = json.loads(pb["/slo"][1])
+    assert [v["slo"] for v in slo_doc["verdicts"]] == [
+        v["slo"] for v in json.loads(jb["/slo"][1])["verdicts"]]
+    assert json.loads(pb["/incidents"][1])["incidents"] == []
+    assert json.loads(pb["/fleet"][1])["fleet"] is None
     assert set(port_ns.server.ROUTE_TABLE) == set(
         jax_ns.server.ROUTE_TABLE)
 
