@@ -203,7 +203,40 @@ Phases, each of which fails the run (no result line, nonzero exit):
     ``--ack``. Prints each cycle's outcome, wall ms and publish-to-swap
     ms, each retrain's ms and segment launches, batched requests/s and
     p99 during the ramp, and the incident and beacon counts;
-15. print one ``{"kernels": [...]}`` line with every kernel's launches in
+15. Pipeline, Graph and the dense feature transformers
+    (``flink_ml_tpu_torch/api/{pipeline,graph}.py``, ``models/feature/``,
+    ``ops/{columnar,quantile,stats}.py``, ``models/classification/
+    naivebayes.py``), every stage call inside a guard that fails any Table
+    read taking a tensor column to the host: (a) the README's pipeline,
+    ``Pipeline([StandardScaler(withMean, withStd), LogisticRegression])``
+    on the LR config's 10,000,000 x 100 table with the config's params:
+    fit (exactly 20 ``sgd_batch_terms`` launches, the scaled column handed
+    to the LR stage as a float32 tensor on the card), save, load and
+    transform (the reloaded model predicts the same, bit for bit); the
+    scaler's statistics within STAT_RTOL of float64 statistics over a host
+    copy of the rows, and the LR coefficients within COEFF_RTOL/ATOL of
+    LogisticRegression alone on the pre-scaled column; (b)
+    ``Pipeline([MinMaxScaler, KMeans])`` on the KMeans config's table:
+    Lloyd, reduce and assignment launches, labels equal to KMeans alone
+    on the pre-scaled column but for ties (TIE_RTOL); (c)
+    ``examples/graph_example.py``'s DAG (StandardScaler → LR) on
+    GRAPH_ROWS seeded rows: fit, save, load, transform, with (a)'s
+    equalities; (d) the sixteen FEATURE_CONFIGS through the runner, uncut
+    (one warmup, one timed run), then the stage once more on the same
+    generated table, its output's first FEATURE_ROWS rows held against
+    the port on the CPU on a host copy of those rows (continuous outputs
+    within FEATURE_RTOL/ATOL given the card's statistics, through
+    ``convert.py``; bucket ids, binarized values and selected columns
+    exactly, but for values within EDGE_ATOL of a split or threshold;
+    NaiveBayes's predictions exactly, its model against a CPU fit of a
+    host copy of all rows), and the statistics against float64 ones over
+    all rows (plain PyTorch float64 on the card; ``kthvalue`` for
+    RobustScaler; the selector's ANOVA p-values by float64 sums and
+    scipy) within STAT_RTOL. Prints each part's host ms (synchronized),
+    each runner row's totalTimeMs, executeTimeMs, achievedGBps and
+    deviceName, and the phase's launches (those of ``PATH_KERNELS[
+    "pipeline"]``, each at least once; the runner rows launch none);
+16. print one ``{"kernels": [...]}`` line with every kernel's launches in
     its main-path runs, error, times and bound, then the result line.
 
 Tolerances (float32 throughout, TF32 off):
@@ -248,6 +281,11 @@ Tolerances (float32 throughout, TF32 off):
 - phase 13: the served dots are a float32 product of 100 terms against
   the host's float64 one: within SERVE_RTOL relative, SERVE_ATOL absolute
   (margins that close to zero are the rows whose prediction may flip);
+- phase 15: scaler statistics within STAT_RTOL of float64 ones (float32
+  sums over up to 10,000,000 rows); continuous feature outputs within
+  FEATURE_RTOL/FEATURE_ATOL of the CPU's on the same rows and statistics
+  (float32 products and sums in another order); discrete outputs exact
+  but within EDGE_ATOL of an edge;
 - phase 11: a fit on eight shards differs from the one-shard fit only in
   the order its sums are added (per shard, then across the shards), so
   it is held as the fits that add in another order are: the KMeans fit
@@ -260,6 +298,7 @@ Tolerances (float32 throughout, TF32 off):
   for bit, and the line says whether they were).
 """
 
+import contextlib
 import itertools
 import json
 import logging
@@ -314,7 +353,19 @@ PATH_KERNELS = {
     # the ops loop: the v1 LR fit, and every retrain an FTRL refit through
     # the device-CSR engine
     "ops": ("sgd_batch_terms", "segment_reduce_sum"),
+    # Pipeline([StandardScaler, LogisticRegression]) and the graph of the
+    # same two stages fit through SGD; Pipeline([MinMaxScaler, KMeans])
+    # fits through Lloyd and predicts through the assignment
+    "pipeline": ("sgd_batch_terms", "assign_nearest", "lloyd_partial_sums",
+                 "reduce_partials"),
 }
+# phase 15's configs, run uncut through the runner
+FEATURE_CONFIGS = (
+    "standardscaler", "minmaxscaler", "maxabsscaler", "robustscaler",
+    "vectorassembler", "normalizer", "bucketizer", "binarizer",
+    "elementwiseproduct", "polynomialexpansion", "dct", "interaction",
+    "vectorslicer", "univariatefeatureselector", "variancethresholdselector",
+    "naivebayes")
 LOSSES = ("logistic", "hinge", "least_square")
 
 TIE_RTOL = 1e-5
@@ -342,6 +393,15 @@ OPS_REQUEST_ROWS, OPS_CALLERS = 4, 16
 OPS_RETRAIN_BATCH, OPS_RETRAIN_PASSES = 64, 4
 OPS_MIN_COUNT = 400
 OPS_CHAOS_SEED, OPS_CHAOS_RATE = 20260804, 0.2
+# phase 15: the graph's seeded rows; the rows of a host copy each feature
+# config's output is held against the CPU on; the statistics' tolerance;
+# the continuous outputs' tolerance; how near a split or threshold a value
+# may lie for its discrete output to be left unchecked
+GRAPH_ROWS = 200_000
+FEATURE_ROWS = 65_536
+STAT_RTOL = 1e-4
+FEATURE_RTOL, FEATURE_ATOL = 1e-5, 1e-6
+EDGE_ATOL = 1e-6
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W): device
 # memory bytes per second and fp32 (non-tensor-core) operations per second
@@ -2233,7 +2293,10 @@ def phase_observability(K, runner):
                 tracer.shutdown()
                 report = profiling.read_profile(pdir)
                 eff = profiling.efficiency_report(pdir)
-                assert report["source"] == "device", report["source"]
+                lost = (report["launches"], report["launchesWithoutKernel"])
+                assert report["source"] == "device", (
+                    report["source"], "launches and those without a kernel "
+                    "on the device lane:", lost)
                 for row in eff["fns"]:
                     if row["fn"] == "torch":
                         continue
@@ -2250,7 +2313,9 @@ def phase_observability(K, runner):
                                if r["fn"] == "torch")
                 log(f"  {name} profiled {region}: PyTorch's own kernels "
                     f"{torch_ms:.4f} ms of device time; "
-                    f"{len(report['ops'])} distinct kernels")
+                    f"{len(report['ops'])} distinct kernels; {lost[0]} "
+                    f"launches, {lost[1]} without a kernel on the device "
+                    "lane")
             for fn, row in sorted(profiled.items()):
                 log(f"  {name} profile {fn}: {json.dumps(row, sort_keys=True)}")
             summary[name]["profile"] = profiled
@@ -3066,6 +3131,479 @@ def _ops_threaded_cycle(ctrl, cfg, reg, drive, retrains, cycles, fleet_dir,
             "fleet_check": fleet_rc, "roles": roles, "bound": str(bound)}
 
 
+@contextlib.contextmanager
+def _uncounted(K):
+    """Launches inside are a reference's, not the path's: the counts are
+    put back as they were when the block ends."""
+    saved = dict(K.launch_counts)
+    try:
+        yield
+    finally:
+        K.launch_counts.update(saved)
+
+
+@contextlib.contextmanager
+def _no_off_ramp(Table):
+    """Within the block, a Table read that would bring a tensor column to
+    the host fails: the pipelines' stages must keep such a column on its
+    device (their statistics, a few numbers, may come to the host)."""
+    real = {name: getattr(Table, name)
+            for name in ("vectors", "scalars", "_host_column")}
+
+    def guarded(name):
+        def read(self, col, *args, **kwargs):
+            out = real[name](self, col, *args, **kwargs)
+            raw = self.column(col)
+            assert not (isinstance(raw, torch.Tensor)
+                        and not isinstance(out, torch.Tensor)), (
+                f"Table.{name}({col!r}) took a tensor column to the host")
+            return out
+        return read
+
+    with mock.patch.multiple(Table, **{n: guarded(n) for n in real}):
+        yield
+
+
+def _synced_ms(fn):
+    """(result, host ms) of ``fn()``, ended by ``torch.cuda.synchronize()``
+    (where there is a card)."""
+    on_card = torch.cuda.is_available()
+    if on_card:
+        torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn()
+    if on_card:
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - start) * 1e3
+
+
+def _f64_moments(x, chunk=1_000_000):
+    """Per-column float64 mean and centered sum of squares of a tensor
+    (n, d), in plain PyTorch float64 over row chunks on its device (give
+    it a host copy for a reference off the card)."""
+    x = torch.as_tensor(x)
+    n = x.shape[0]
+    total = torch.zeros(x.shape[1], dtype=torch.float64, device=x.device)
+    for i in range(0, n, chunk):
+        total += x[i:i + chunk].double().sum(0)
+    mean = total / n
+    varsum = torch.zeros_like(mean)
+    for i in range(0, n, chunk):
+        varsum += ((x[i:i + chunk].double() - mean) ** 2).sum(0)
+    return mean.cpu().numpy(), varsum.cpu().numpy()
+
+
+def _fit_spy(est, col):
+    """Record what ``est.fit`` is handed in column ``col`` by the stage
+    before it."""
+    seen, real_fit = [], est.fit
+
+    def fit(table):
+        seen.append(table.column(col))
+        return real_fit(table)
+
+    est.fit = fit
+    return seen
+
+
+def _assert_on(seen, device, tag):
+    assert len(seen) == 1 and isinstance(seen[0], torch.Tensor), (tag, seen)
+    assert seen[0].device.type == device, tag
+    assert seen[0].dtype == torch.float32, tag
+
+
+def _pipeline_readme(K, runner, Table, F, Pipeline, PipelineModel, device):
+    """(a) StandardScaler → LogisticRegression at the LR config's width."""
+    spec = runner.load_config(str(LINEAR_CONFIGS["logisticregression"]))[
+        "logisticregression"]
+    max_iter = spec["stage"]["paramMap"]["maxIter"]
+    table = runner.build_generator(spec, device).get_data()
+    n, d = table.column("features").shape
+    lr = runner.build_stage(spec, device).set_features_col("scaled")
+    seen = _fit_spy(lr, "scaled")
+    pipe = Pipeline([F.StandardScaler(input_col="features",
+                                      output_col="scaled", with_mean=True,
+                                      with_std=True, device=device), lr])
+    with _no_off_ramp(Table):
+        before = K.launch_counts["sgd_batch_terms"]
+        model, fit_ms = _synced_ms(lambda: pipe.fit(table))
+        fit_launches = K.launch_counts["sgd_batch_terms"] - before
+        out, transform_ms = _synced_ms(lambda: model.transform(table)[0])
+        with tempfile.TemporaryDirectory() as tmp:
+            def save_load():
+                model.save(tmp)
+                return PipelineModel.load(tmp, device=device)
+            loaded, save_load_ms = _synced_ms(save_load)
+        again = loaded.transform(table)[0]
+        with _uncounted(K):
+            # the scaler alone, for the byte bounds (best of three each)
+            scaler = F.StandardScaler(input_col="features",
+                                      output_col="scaled", with_mean=True,
+                                      with_std=True, device=device)
+            scaler_fit_ms = min(_synced_ms(lambda: scaler.fit(table))[1]
+                                for _ in range(3))
+            smodel = model.stages[0]
+            scaler_transform_ms = min(
+                _synced_ms(lambda: smodel.transform(table))[1]
+                for _ in range(3))
+            scaled = smodel.transform(table)[0]
+            alone = runner.build_stage(spec, device) \
+                .set_features_col("scaled").fit(scaled)
+    _assert_on(seen, device, "README pipeline")
+    assert fit_launches == (max_iter if device == "cuda" else 0), fit_launches
+    assert out["scaled"].device.type == device
+    pred = out["prediction"]
+    assert pred.device.type == device and pred.shape == (n,)
+    assert torch.equal(pred, again["prediction"]), "the reloaded model differs"
+    assert torch.equal(out["rawPrediction"], again["rawPrediction"])
+    mean64, varsum64 = _f64_moments(
+        torch.as_tensor(table.column("features")).cpu())
+    std64 = np.sqrt(varsum64 / (n - 1))
+    mean_err = float(np.max(np.abs(smodel.mean - mean64) / np.abs(mean64)))
+    std_err = float(np.max(np.abs(smodel.std - std64) / np.abs(std64)))
+    assert mean_err <= STAT_RTOL and std_err <= STAT_RTOL, (mean_err, std_err)
+    coeffs, plain = model.stages[1].coefficients, alone.coefficients
+    assert np.all(np.abs(coeffs - plain)
+                  <= COEFF_RTOL * np.abs(plain) + COEFF_ATOL)
+    row = {"rows": n, "width": d, "fit_ms": fit_ms,
+           "transform_ms": transform_ms, "save_load_ms": save_load_ms,
+           "sgd_launches": fit_launches, "scaler_fit_ms": scaler_fit_ms,
+           "scaler_transform_ms": scaler_transform_ms,
+           "stat_rel_err": max(mean_err, std_err),
+           "coeff_max_diff": float(np.abs(coeffs - plain).max())}
+    log(f"  (a) README pipeline, {n} x {d}: fit {fit_ms:.3f} ms "
+        f"({fit_launches} sgd launches), transform {transform_ms:.3f} ms, "
+        f"save/load {save_load_ms:.3f} ms; scaler alone: fit "
+        f"{scaler_fit_ms:.3f} ms, transform {scaler_transform_ms:.3f} ms; "
+        f"statistics within {row['stat_rel_err']:.3g} of float64; "
+        f"coefficients within {row['coeff_max_diff']:.3g} of LR alone")
+    return row
+
+
+def _pipeline_kmeans(K, runner, Table, F, Pipeline, device):
+    """(b) MinMaxScaler → KMeans at the KMeans config's width."""
+    spec = runner.load_config(str(CONFIG))["KMeans"]
+    table = runner.build_generator(spec, device).get_data()
+    km = runner.build_stage(spec, device).set_features_col("scaled")
+    seen = _fit_spy(km, "scaled")
+    pipe = Pipeline([F.MinMaxScaler(input_col="features",
+                                    output_col="scaled", device=device), km])
+    with _no_off_ramp(Table):
+        before = dict(K.launch_counts)
+        model, fit_ms = _synced_ms(lambda: pipe.fit(table))
+        out, transform_ms = _synced_ms(lambda: model.transform(table)[0])
+        launches = {k: K.launch_counts[k] - before[k]
+                    for k in PATH_KERNELS["kmeans"]}
+        with _uncounted(K):
+            scaled = model.stages[0].transform(table)[0]
+            alone = runner.build_stage(spec, device) \
+                .set_features_col("scaled")
+            alone_model = alone.fit(scaled)
+            want = alone_model.transform(scaled)[0]["prediction"]
+    _assert_on(seen, device, "MinMaxScaler → KMeans")
+    assert device != "cuda" or all(v >= 1 for v in launches.values()), \
+        launches
+    got = out["prediction"]
+    assert got.device.type == device and got.shape == (table.num_rows,)
+    c = torch.as_tensor(alone_model.centroids, dtype=torch.float32,
+                        device=device)
+    ties = tie_rows_ok(scaled.column("scaled"), c, got, want)
+    row = {"fit_ms": fit_ms, "transform_ms": transform_ms,
+           "launches": launches, "tie_flips": ties}
+    log(f"  (b) MinMaxScaler → KMeans, {table.num_rows} x 100, k = "
+        f"{spec['stage']['paramMap']['k']}: fit {fit_ms:.3f} ms, transform "
+        f"{transform_ms:.3f} ms, launches {launches}; labels against KMeans "
+        f"alone: tie-flips={ties}")
+    return row
+
+
+def _graph_example(K, runner, Table, F, GraphBuilder, GraphModel,
+                   LogisticRegression, device):
+    """(c) examples/graph_example.py's DAG on 200,000 seeded rows."""
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(GRAPH_ROWS, 3)) * 5
+    y = (x @ [1.0, -1.0, 2.0] > 0).astype(np.float64)
+    table = Table.from_columns(features=x, label=y)
+    lr_params = dict(features_col="scaled", max_iter=20,
+                     global_batch_size=GRAPH_ROWS, device=device)
+    builder = GraphBuilder()
+    source = builder.create_table_id()
+    (scaled_id,) = builder.add_estimator(
+        F.StandardScaler(input_col="features", output_col="scaled",
+                         device=device), [source])
+    lr = LogisticRegression(**lr_params)
+    seen = _fit_spy(lr, "scaled")
+    (pred_id,) = builder.add_estimator(lr, [scaled_id])
+    graph = builder.build_estimator([source], [pred_id])
+    with _no_off_ramp(Table):
+        before = K.launch_counts["sgd_batch_terms"]
+        model, fit_ms = _synced_ms(lambda: graph.fit(table))
+        launches = K.launch_counts["sgd_batch_terms"] - before
+        out, transform_ms = _synced_ms(lambda: model.transform(table)[0])
+        with tempfile.TemporaryDirectory() as tmp:
+            model.save(tmp)
+            loaded = GraphModel.load(tmp, device=device)
+        again = loaded.transform(table)[0]
+        smodel = model.nodes[0].stage
+        with _uncounted(K):
+            alone = LogisticRegression(**lr_params).fit(
+                smodel.transform(table)[0])
+    _assert_on(seen, device, "graph")
+    assert launches == (20 if device == "cuda" else 0), launches
+    assert torch.equal(out["prediction"], again["prediction"])
+    np.testing.assert_allclose(smodel.mean, x.mean(axis=0), rtol=STAT_RTOL)
+    np.testing.assert_allclose(smodel.std, x.std(axis=0, ddof=1),
+                               rtol=STAT_RTOL)
+    coeffs, plain = model.nodes[1].stage.coefficients, alone.coefficients
+    assert np.all(np.abs(coeffs - plain)
+                  <= COEFF_RTOL * np.abs(plain) + COEFF_ATOL)
+    accuracy = float((out["prediction"].cpu().numpy() == y).mean())
+    row = {"fit_ms": fit_ms, "transform_ms": transform_ms,
+           "sgd_launches": launches, "accuracy": accuracy}
+    log(f"  (c) graph StandardScaler → LogisticRegression, {GRAPH_ROWS} x 3: "
+        f"fit {fit_ms:.3f} ms, transform {transform_ms:.3f} ms, accuracy "
+        f"{accuracy:.4f}; reloaded graph predicts the same")
+    return row
+
+
+def _head(col, n=FEATURE_ROWS):
+    return col[:n].cpu() if isinstance(col, torch.Tensor) else col[:n]
+
+
+def _near(x, edges):
+    """Rows of ``x`` (CPU tensor) within EDGE_ATOL of any of ``edges``."""
+    x = x.double()
+    near = torch.zeros_like(x, dtype=torch.bool)
+    for e in edges:
+        near |= (x - float(e)).abs() <= EDGE_ATOL
+    return near
+
+
+def _check_continuous(got, want, tag):
+    err = float((got - want).abs().max())
+    excess = float(((got - want).abs() - FEATURE_RTOL * want.abs()
+                    - FEATURE_ATOL).max())
+    assert excess <= 0, f"{tag}: off by {excess} over tolerance"
+    return err
+
+
+def _selection_ok(got, p_ref, k, tag):
+    order = np.argsort(p_ref, kind="stable")
+    want = set(order[:k].tolist())
+    cut = p_ref[order[k - 1]]
+    swapped = want ^ set(int(i) for i in got)
+    assert all(abs(p_ref[i] - cut) <= EDGE_ATOL for i in swapped), (
+        tag, sorted(swapped))
+    return len(swapped)
+
+
+def _anova_p_reference(x, y, chunk=1_000_000):
+    """float64 one-way ANOVA p-values of a card tensor against its labels,
+    in plain PyTorch float64 on the card (row chunks) and scipy."""
+    from scipy import stats as sstats
+
+    classes, yi = torch.unique(y, return_inverse=True)
+    c, (n, d) = int(classes.shape[0]), x.shape
+    sums = torch.zeros((c, d), dtype=torch.float64, device=x.device)
+    sq = torch.zeros_like(sums)
+    for i in range(0, n, chunk):
+        xc = x[i:i + chunk].double()
+        sums.index_add_(0, yi[i:i + chunk], xc)
+        sq.index_add_(0, yi[i:i + chunk], xc * xc)
+    counts = torch.bincount(yi, minlength=c).double()[:, None]
+    sums, sq, counts = (t.cpu().numpy() for t in (sums, sq, counts))
+    means = sums / counts
+    ssw = (sq - sums * means).sum(axis=0)
+    grand = sums.sum(axis=0) / n
+    ssb = (counts * (means - grand) ** 2).sum(axis=0)
+    f = (ssb / (c - 1)) / (ssw / (n - c))
+    return sstats.f.sf(f, c - 1, n - c)
+
+
+def _check_feature_row(name, spec, runner, Table, F, convert, NaiveBayes,
+                       device):
+    """Run the config's stage once more on the same generated table, and hold
+    its output against the port on the CPU on the first FEATURE_ROWS rows
+    of a host copy (statistics against float64 references over all rows)."""
+    from flink_ml_tpu_torch.api.stage import Estimator
+
+    table = runner.build_generator(spec, device).get_data()
+    stage = runner.build_stage(spec, device)
+    head = Table.from_columns(**{c: _head(table.column(c))
+                                 for c in table.column_names})
+    with _no_off_ramp(Table):
+        if isinstance(stage, Estimator):
+            model, stage_ms = _synced_ms(lambda: stage.fit(table))
+            out = (model.transform(table)[0]
+                   if name != "naivebayes" else None)
+        else:
+            out, stage_ms = _synced_ms(lambda: stage.transform(table)[0])
+    check = {"stage_ms": stage_ms}
+    n = table.num_rows
+    if name in ("standardscaler", "minmaxscaler", "maxabsscaler",
+                "robustscaler"):
+        x = table.column(stage.input_col)
+        if name == "standardscaler":
+            mean, varsum = _f64_moments(x)
+            ref = {"mean": mean, "std": np.sqrt(varsum / (n - 1))}
+            build = convert.standard_scaler_model_from_arrays
+        elif name == "minmaxscaler":
+            lo, hi = torch.aminmax(x, dim=0)
+            ref = {"data_min": lo.double().cpu().numpy(),
+                   "data_max": hi.double().cpu().numpy()}
+            build = convert.min_max_scaler_model_from_arrays
+        elif name == "maxabsscaler":
+            ref = {"max_abs": x.abs().amax(0).double().cpu().numpy()}
+            build = convert.max_abs_scaler_model_from_arrays
+        else:
+            qs = [torch.kthvalue(x, int(np.floor(q * (n - 1))) + 1, dim=0)
+                  .values.double().cpu().numpy()
+                  for q in (stage.lower, 0.5, stage.upper)]
+            ref = {"medians": qs[1], "ranges": qs[2] - qs[0]}
+            build = convert.robust_scaler_model_from_arrays
+        worst = 0.0
+        for key, want in ref.items():
+            got = getattr(model, key)
+            rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
+            worst = max(worst, float(rel.max()))
+        assert worst <= STAT_RTOL, (name, worst)
+        check["stat_rel_err"] = worst
+        cpu_model = model.copy_params_to(build(
+            *(getattr(model, k) for k in model.STAT_NAMES), device="cpu"))
+        got = _head(out.column(model.output_col))
+        assert out.column(model.output_col).device.type == device
+        want = cpu_model.transform(head)[0].column(model.output_col)
+        check["max_abs_err"] = _check_continuous(got, want, name)
+    elif name == "variancethresholdselector":
+        _, varsum = _f64_moments(table.column(stage.input_col))
+        variances = varsum / (n - 1)
+        thr = stage.variance_threshold
+        want = np.nonzero(variances > thr)[0]
+        edge = np.abs(variances - thr) <= EDGE_ATOL
+        assert set(model.indices) ^ set(want) <= set(np.nonzero(edge)[0])
+        cpu_model = model.copy_params_to(
+            convert.variance_threshold_selector_model_from_arrays(
+                model.indices, device="cpu"))
+        got = _head(out.column(model.output_col))
+        assert torch.equal(got, cpu_model.transform(head)[0]
+                           .column(model.output_col)), name
+        check["selected"] = len(model.indices)
+    elif name == "univariatefeatureselector":
+        p_ref = _anova_p_reference(table.column(stage.features_col),
+                                   table.column(stage.label_col))
+        k = int(stage.selection_threshold or 50)
+        check["swapped"] = _selection_ok(model.indices, p_ref, k, name)
+        cpu_model = model.copy_params_to(
+            convert.univariate_feature_selector_model_from_arrays(
+                model.indices, device="cpu"))
+        got = _head(out.column(model.output_col))
+        assert torch.equal(got, cpu_model.transform(head)[0]
+                           .column(model.output_col)), name
+        check["selected"] = len(model.indices)
+    elif name == "naivebayes":
+        host = Table.from_columns(
+            **{c: table.column(c).cpu() for c in table.column_names})
+        cpu_model = NaiveBayes(device="cpu").fit(host)
+        for key in ("pi", "floors", "labels"):
+            np.testing.assert_allclose(getattr(model, key),
+                                       getattr(cpu_model, key),
+                                       rtol=STAT_RTOL)
+        assert all(m.keys() == c.keys() and np.allclose(
+            [m[v] for v in m], [c[v] for v in m], rtol=STAT_RTOL)
+            for row_m, row_c in zip(model.theta, cpu_model.theta)
+            for m, c in zip(row_m, row_c))
+        with _no_off_ramp(Table):
+            pred, check["predict_ms"] = _synced_ms(
+                lambda: model.transform(table)[0].column(
+                    model.prediction_col))
+        assert pred.device.type == device
+        want = cpu_model.transform(head)[0].column(model.prediction_col)
+        assert torch.equal(_head(pred), want), name
+    else:
+        cpu_stage = runner.build_stage(spec, device="cpu")
+        want_table = cpu_stage.transform(head)[0]
+        cols = (stage.output_cols if hasattr(stage, "OUTPUT_COLS")
+                else [stage.output_col])
+        ins = (stage.input_cols if hasattr(stage, "INPUT_COLS")
+               else [stage.input_col])
+        assert out.num_rows == n, (name, out.num_rows)
+        errs = []
+        for i, col in enumerate(cols):
+            full = out.column(col)
+            assert isinstance(full, torch.Tensor), (name, col)
+            assert full.device.type == device, (name, col)
+            got, want = _head(full), want_table.column(col)
+            if name in ("binarizer", "bucketizer"):
+                edges = ([stage.thresholds[i]] if name == "binarizer"
+                         else stage.splits_array[i])
+                far = ~_near(head.column(ins[i]), edges)
+                assert torch.equal(got[far], want[far]), (name, col)
+                check["near_edge"] = int((~far).sum())
+            else:
+                errs.append(_check_continuous(got, want, f"{name} {col}"))
+        if errs:
+            check["max_abs_err"] = max(errs)
+    del table, out
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return check
+
+
+def phase_pipelines(K, runner, Table, device="cuda"):
+    """Phase 15: Pipeline, Graph and the dense feature transformers on the
+    card (see the module docstring). ``device`` is the card; ``"cpu"``
+    runs the same logic on the CPU, without launch counts (a rehearsal,
+    with ``runner.load_config`` patched to cut the rows)."""
+    from flink_ml_tpu_torch import convert
+    from flink_ml_tpu_torch.api import (GraphBuilder, GraphModel, Pipeline,
+                                        PipelineModel)
+    from flink_ml_tpu_torch.models import feature as F
+    from flink_ml_tpu_torch.models.classification import (LogisticRegression,
+                                                          NaiveBayes)
+
+    log("phase 15: pipelines, graphs and the dense feature transformers "
+        "on the card")
+    started = time.perf_counter()
+    K.reset_launch_counts()
+    summary = {
+        "readme": _pipeline_readme(K, runner, Table, F, Pipeline,
+                                   PipelineModel, device),
+        "kmeans": _pipeline_kmeans(K, runner, Table, F, Pipeline, device),
+        "graph": _graph_example(K, runner, Table, F, GraphBuilder,
+                                GraphModel, LogisticRegression, device)}
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    # the pipelines' own fits and transforms, their references uncounted
+    counts = dict(K.launch_counts)
+    if device == "cuda":
+        own = {"sgd_batch_terms": summary["readme"]["sgd_launches"]
+               + summary["graph"]["sgd_launches"],
+               **summary["kmeans"]["launches"]}
+        assert {k: v for k, v in counts.items() if v} == own, (counts, own)
+    rows = {}
+    for name in FEATURE_CONFIGS:
+        ((key, spec),) = runner.load_config(
+            str(CONFIGS / f"{name}-benchmark.json")).items()
+        with _no_off_ramp(Table):
+            row = runner.best_of(key, spec, runs=1, device=device)
+        check = _check_feature_row(name, spec, runner, Table, F, convert,
+                                   NaiveBayes, device)
+        rows[name] = {k: row[k] for k in ("totalTimeMs", "executeTimeMs",
+                                          "achievedGBps", "deviceName",
+                                          "inputRecordNum")}
+        rows[name].update(check)
+        log(f"  (d) {name}: " + json.dumps(rows[name], sort_keys=True))
+    summary["configs"] = rows
+    # the runner rows and their checks launch no kernel of the port
+    assert dict(K.launch_counts) == counts, (counts, dict(K.launch_counts))
+    log(f"  launches in the pipelines run: {counts}")
+    log(f"  phase 15: {time.perf_counter() - started:.1f} s")
+    log("  pipelines:", json.dumps(summary, sort_keys=True))
+    for kern in PATH_KERNELS["pipeline"]:
+        assert device != "cuda" or counts[kern] >= 1, counts
+    return counts
+
+
 def _serving_group():
     from flink_ml_tpu_torch.common.metrics import metrics
 
@@ -3111,6 +3649,7 @@ def main() -> int:
     counts["observability"] = phase_observability(K, runner)
     counts["serving"] = phase_serving(K, runner, card)
     counts["ops"] = phase_ops_loop(K, runner, card)
+    counts["pipeline"] = phase_pipelines(K, runner, Table)
 
     line = {"kernels": [
         {"name": name, **{key: K.KERNELS[name][key]

@@ -1,9 +1,10 @@
 """Param-driven random data generators.
 
 The port of the generators of ``flink_ml_tpu/benchmark/datagen.py`` that the
-KMeans, linear-model, KNN and FTRL benchmarks use (ref: flink-ml-benchmark/
-.../datagenerator/common/InputTableGenerator.java,
-DenseVectorGenerator.java:34-53, LabeledPointWithWeightGenerator.java:50-75),
+KMeans, linear-model, KNN, FTRL, NaiveBayes and dense feature benchmarks use
+(ref: flink-ml-benchmark/.../datagenerator/common/InputTableGenerator.java,
+DenseVectorGenerator.java:34-53, LabeledPointWithWeightGenerator.java:50-75,
+DoubleGenerator.java:37-66),
 and the two model-data generators of the KNN and FTRL configs, which stay on
 the host and draw the JAX package's numbers.
 
@@ -154,6 +155,41 @@ class LabeledPointWithWeightGenerator(InputTableGenerator, HasVectorDim):
         weight = rng.random(n, dtype=np.float64)
         return Table.from_columns(**{
             f_name: features, l_name: label, w_name: weight})
+
+
+@_register
+class DoubleGenerator(InputTableGenerator):
+    """arity 0 → uniform [0,1) doubles; arity > 0 → random integers in
+    [0, arity) as doubles (ref: DoubleGenerator.java:37-66). From 8 MiB of
+    columns up, each column is a float32 tensor drawn on the device from
+    its own stream (the 100M-row Bucketizer config never crosses the host
+    link); below, float64 numpy columns drawn as the JAX package draws
+    them."""
+
+    ARITY = IntParam("arity", "Arity of generated values.", 0,
+                     ParamValidators.gt_eq(0))
+
+    def get_data(self) -> Table:
+        arity = self.arity
+        names = self._col_names()
+        n = self.num_values
+        if n * len(names) * 4 >= _DEVICE_DATAGEN_MIN_BYTES:
+            device = resolve_device(self._device)
+
+            def column(stream):
+                u = torch.rand((n,), dtype=torch.float32, device=device,
+                               generator=self._torch_generator(device, stream))
+                return torch.floor_(u.mul_(arity)) if arity else u
+
+            return Table.from_columns(**{
+                name: column(stream) for stream, name in enumerate(names)})
+        rng = self._rng()
+        if arity > 0:
+            cols = {name: rng.integers(0, arity, n).astype(np.float64)
+                    for name in names}
+        else:
+            cols = {name: rng.random(n, dtype=np.float64) for name in names}
+        return Table.from_columns(**cols)
 
 
 class HasArraySize(WithParams):

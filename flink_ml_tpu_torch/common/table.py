@@ -4,12 +4,14 @@ The port of ``flink_ml_tpu/common/table.py``. A column is a host numpy array
 (numeric, or an object column of vectors), a CSR-backed sparse vector column
 (``linalg/sparse.py``), or a ``torch.Tensor`` — a device column, kept as it
 is so that chained stages hand tensors to each other without a round trip
-through the host. CSV parsing and the row views come with later slices.
+through the host. CSV files are parsed by the JAX package's general path
+(per-column float64 or object); its native all-numeric parser comes with
+the native host kernels.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, Iterable, List, Sequence
 
 import numpy as np
 import torch
@@ -65,10 +67,14 @@ def _as_column(values):
     return arr
 
 
-def _take_rows(col, indices: np.ndarray):
+def _take_rows(col, indices):
+    """Rows ``indices`` (a host array, or an int64 tensor) of one column: a
+    tensor column gathers on its device, a host column on the host."""
     if _is_device_column(col):
         return col[torch.as_tensor(indices, dtype=torch.int64,
                                    device=col.device)]
+    if isinstance(indices, torch.Tensor):
+        indices = indices.cpu().numpy()
     return col[indices]
 
 
@@ -104,6 +110,83 @@ class Table:
     @staticmethod
     def from_columns(**columns) -> "Table":
         return Table(columns)
+
+    @staticmethod
+    def from_rows(rows: Iterable[Sequence], names: Sequence[str]) -> "Table":
+        rows = list(rows)
+        cols = {name: [row[i] for row in rows] for i, name in enumerate(names)}
+        return Table(cols)
+
+    @staticmethod
+    def from_data_frame(df) -> "Table":
+        """From a servable DataFrame (``flink_ml_tpu_torch.servable``)."""
+        return Table({name: df.get(name).values for name in df.column_names})
+
+    @staticmethod
+    def from_csv(path: str, header: bool = True, delimiter: str = ",",
+                 names: Sequence[str] = None) -> "Table":
+        """Load a delimiter-separated file: a column is float64 when every
+        cell parses, an object column of strings otherwise. ``names``
+        overrides the column names; with ``header=True`` the header row is
+        still skipped."""
+        import csv as _csv
+        import io as _io
+
+        with open(path, "rb") as f:
+            data = f.read()
+        first_nl = data.find(b"\n")
+        first_line = (data if first_nl < 0 else data[:first_nl]) \
+            .decode().rstrip("\r")
+        # quote-aware header parse (a quoted cell may contain the delimiter)
+        header_cells = next(_csv.reader([first_line], delimiter=delimiter),
+                            [])
+        n_cols = len(header_cells)
+        if header:
+            if names is None:
+                names = [c.strip() for c in header_cells]
+            data = b"" if first_nl < 0 else data[first_nl + 1:]
+        elif names is None:
+            names = [f"c{i}" for i in range(n_cols)]
+        names = list(names)
+        if len(names) != n_cols:
+            raise ValueError(f"{len(names)} names for {n_cols} columns")
+        rows = list(_csv.reader(_io.StringIO(data.decode()),
+                                delimiter=delimiter))
+        rows = [r for r in rows if r]
+        cols = {}
+        for i, name in enumerate(names):
+            raw = [r[i] if i < len(r) else "" for r in rows]
+            try:
+                cols[name] = np.asarray([float(v) for v in raw],
+                                        dtype=np.float64)
+            except ValueError:
+                cols[name] = np.asarray(raw, dtype=object)
+        return Table(cols)
+
+    def to_csv(self, path: str, header: bool = True,
+               delimiter: str = ",") -> None:
+        """Write scalar columns as delimiter-separated text (vector columns
+        are rejected: model data keeps its binary format)."""
+        import csv as _csv
+
+        names = self.column_names
+        for name in names:
+            if _is_csr_column(self._columns[name]):
+                raise ValueError(
+                    f"column {name!r} is not scalar; to_csv writes scalar "
+                    "columns only")
+            col = self._host_column(name)
+            if col.ndim != 1 or (
+                    col.dtype == object and len(col)
+                    and isinstance(col[0], (Vector, list, tuple, np.ndarray))):
+                raise ValueError(
+                    f"column {name!r} is not scalar; to_csv writes scalar "
+                    "columns only")
+        with open(path, "w", newline="") as f:
+            writer = _csv.writer(f, delimiter=delimiter)
+            if header:
+                writer.writerow(names)
+            writer.writerows(zip(*(self._host_column(n) for n in names)))
 
 
     # -- schema / access -----------------------------------------------------
@@ -170,20 +253,38 @@ class Table:
         cols.update(columns)
         return Table(cols)
 
+    def select(self, *names: str) -> "Table":
+        return Table({n: self.column(n) for n in names})
+
+    def drop(self, *names: str) -> "Table":
+        return Table({n: c for n, c in self._columns.items()
+                      if n not in names})
+
+    def rename(self, mapping: Dict[str, str]) -> "Table":
+        return Table({mapping.get(n, n): c for n, c in self._columns.items()})
+
     def take(self, indices) -> "Table":
         """Row subset. A unit-step ``slice`` gives views: tensor and numpy
         columns share this table's storage (copy a column before writing
         into it), a CSR column slices its matrix. Other slices and index
-        arrays copy."""
+        arrays copy. An int64 index tensor keeps a device row drop on the
+        device: tensor columns gather there, and only host columns bring
+        the indices to the host."""
         if isinstance(indices, slice):
             start, stop, step = indices.indices(self._num_rows)
             if step == 1:
                 return Table({n: c[start:stop]
                               for n, c in self._columns.items()})
             indices = np.arange(start, stop, step)
-        indices = np.asarray(indices)
+        if not isinstance(indices, torch.Tensor):
+            indices = np.asarray(indices)
         return Table({n: _take_rows(c, indices)
                       for n, c in self._columns.items()})
+
+    def head(self, n: int) -> "Table":
+        """The first ``n`` rows, as views (see :meth:`take`)."""
+        # clamp below too: slice(0, -1) would mean "all but the last row"
+        return self.take(slice(0, max(0, min(n, self._num_rows))))
 
     def concat(self, other: "Table") -> "Table":
         """This table's rows, then ``other``'s (same column names). Tensor
@@ -198,11 +299,20 @@ class Table:
         return Table({n: _concat_columns(self._columns[n], other.column(n))
                       for n in self.column_names})
 
+    # -- row view (collect parity with table.execute().collect()) -----------
     def _host_column(self, name: str) -> np.ndarray:
         col = self._columns[name]
         if _is_csr_column(col):
             return col.to_object_column()
         return col.cpu().numpy() if _is_device_column(col) else col
+
+    def rows(self) -> List[tuple]:
+        names = self.column_names
+        cols = [self._host_column(n) for n in names]
+        return [tuple(c[i] for c in cols) for i in range(self._num_rows)]
+
+    def to_dict(self) -> Dict[str, list]:
+        return {n: list(self._host_column(n)) for n in self._columns}
 
     def __repr__(self):
         return f"Table({self.column_names}, num_rows={self._num_rows})"

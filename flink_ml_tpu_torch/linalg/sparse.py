@@ -5,8 +5,9 @@ BLAS.hDot, flink-ml-servable-core/.../linalg/BLAS.java:78, and of FTRL,
 OnlineLogisticRegression.java:364-388). A sparse vector column stays one
 host scipy CSR matrix, float64, end to end: a hashed 2^18-wide column
 stacked dense would not fit anywhere. The trainers that take CSR (FTRL)
-move a batch's stored values to the device themselves; the moments helper
-and the bulk constructor of the JAX module come with the feature slices.
+move a batch's stored values to the device themselves; the feature
+transformers keep a CSR column CSR (O(nnz)) where their op preserves
+sparsity.
 """
 
 from __future__ import annotations
@@ -92,6 +93,21 @@ class CsrVectorColumn:
 
 def is_csr_column(col) -> bool:
     return getattr(col, "is_csr_vector_column", False)
+
+
+def column_moments(m):
+    """Per-column (mean, centered sum of squares, stored count) of a CSR
+    matrix in O(nnz), two-pass: the implicit zeros add (n − nnz_col)·mean²
+    to the centered sum. StandardScaler keeps the reference's one-pass
+    Σx²−n·mean² instead, for parity."""
+    n = m.shape[0]
+    mean = np.asarray(m.sum(axis=0)).ravel() / max(n, 1)
+    centered = m.data - mean[m.indices]
+    nnz_col = np.asarray(m.getnnz(axis=0)).ravel()
+    varsum = (np.bincount(m.indices, weights=centered * centered,
+                          minlength=m.shape[1])
+              + (n - nnz_col) * mean * mean)
+    return mean, varsum, nnz_col
 
 
 def is_sparse_column(col) -> bool:

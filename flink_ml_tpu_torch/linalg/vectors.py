@@ -2,8 +2,9 @@
 
 The port's copy of what ``Table`` and the CSR columns need from
 ``flink_ml_tpu/linalg/vectors.py`` (ref: linalg/DenseVector.java,
-SparseVector.java), with the JAX package's byte encoding of a vector (the
-servable's model data). Matrices come with the slices that use them.
+SparseVector.java, DenseMatrix.java, Vectors.java, VectorWithNorm.java),
+with the JAX package's byte encoding of a vector (the servable's model
+data).
 """
 
 from __future__ import annotations
@@ -13,7 +14,10 @@ from typing import Iterable, Sequence, Union
 
 import numpy as np
 
-__all__ = ["Vector", "DenseVector", "SparseVector", "stack_vectors"]
+__all__ = [
+    "Vector", "DenseVector", "SparseVector", "DenseMatrix", "Vectors",
+    "VectorWithNorm", "stack_vectors",
+]
 
 
 class Vector:
@@ -31,6 +35,11 @@ class Vector:
 
     def to_dense(self) -> "DenseVector":
         return DenseVector(self.to_array())
+
+    def to_sparse(self) -> "SparseVector":
+        arr = self.to_array()
+        idx = np.nonzero(arr)[0]
+        return SparseVector(arr.shape[0], idx, arr[idx])
 
     # -- wire codec (the JAX package's bytes: a kind byte, then little-endian
     # int64 sizes and float64 values) ---------------------------------------
@@ -64,11 +73,17 @@ class DenseVector(Vector):
     def get(self, i: int) -> float:
         return float(self.values[i])
 
+    def set(self, i: int, value: float) -> None:
+        self.values[i] = value
+
     def to_array(self) -> np.ndarray:
         return self.values
 
     def to_dense(self) -> "DenseVector":
         return self
+
+    def clone(self) -> "DenseVector":
+        return DenseVector(self.values.copy())
 
     def __len__(self):
         return self.size
@@ -171,6 +186,84 @@ class SparseVector(Vector):
         values = np.frombuffer(data, dtype="<f8", count=nnz,
                                offset=17 + 8 * nnz)
         return SparseVector(size, indices.copy(), values.copy())
+
+
+class DenseMatrix:
+    """Dense row-major float64 matrix (ref: DenseMatrix.java, which is
+    column-major; row-major here, numpy's native order)."""
+
+    __slots__ = ("values",)
+
+    def __init__(self, num_rows: int = None, num_cols: int = None,
+                 values=None):
+        if values is None:
+            self.values = np.zeros((num_rows, num_cols), dtype=np.float64)
+        else:
+            arr = np.asarray(values, dtype=np.float64)
+            if arr.ndim == 1:
+                arr = arr.reshape(num_rows, num_cols)
+            self.values = arr
+
+    @property
+    def num_rows(self) -> int:
+        return self.values.shape[0]
+
+    @property
+    def num_cols(self) -> int:
+        return self.values.shape[1]
+
+    def get(self, i: int, j: int) -> float:
+        return float(self.values[i, j])
+
+    def set(self, i: int, j: int, value: float) -> None:
+        self.values[i, j] = value
+
+    def to_array(self) -> np.ndarray:
+        return self.values
+
+    def __eq__(self, other):
+        return (isinstance(other, DenseMatrix)
+                and np.array_equal(self.values, other.values))
+
+    def __repr__(self):
+        return f"DenseMatrix({self.num_rows}x{self.num_cols})"
+
+    def to_bytes(self) -> bytes:
+        return (b"\x02" + struct.pack("<qq", self.num_rows, self.num_cols)
+                + self.values.astype("<f8").tobytes())
+
+    @staticmethod
+    def from_bytes(data: bytes) -> "DenseMatrix":
+        rows, cols = struct.unpack_from("<qq", data, 1)
+        values = np.frombuffer(data, dtype="<f8", count=rows * cols, offset=17)
+        return DenseMatrix(rows, cols, values.copy())
+
+
+class VectorWithNorm:
+    """A vector with its cached L2 norm (ref: VectorWithNorm.java)."""
+
+    __slots__ = ("vector", "l2_norm")
+
+    def __init__(self, vector: Vector, l2_norm: float = None):
+        self.vector = vector
+        if l2_norm is None:
+            l2_norm = float(np.linalg.norm(vector.to_array()))
+        self.l2_norm = l2_norm
+
+
+class Vectors:
+    """Factory methods (ref: Vectors.java)."""
+
+    @staticmethod
+    def dense(*values) -> DenseVector:
+        if len(values) == 1 and isinstance(values[0],
+                                           (list, tuple, np.ndarray)):
+            return DenseVector(values[0])
+        return DenseVector(values)
+
+    @staticmethod
+    def sparse(size: int, indices, values) -> SparseVector:
+        return SparseVector(size, indices, values)
 
 
 def stack_vectors(vectors: Iterable[Vector], dtype=np.float32) -> np.ndarray:

@@ -10,3 +10,7 @@ from flink_ml_tpu_torch.models.classification.knn import (  # noqa: F401
     Knn,
     KnnModel,
 )
+from flink_ml_tpu_torch.models.classification.naivebayes import (  # noqa: F401
+    NaiveBayes,
+    NaiveBayesModel,
+)

@@ -456,6 +456,9 @@ class ProfileParseError(ValueError):
 #: Chrome-trace event categories that are the card's own lanes
 DEVICE_CATEGORIES = ("kernel",)
 
+#: host-side categories whose kernel launches are matched to the device lane
+_LAUNCH_CATEGORIES = ("cuda_runtime", "cuda_driver")
+
 _SYMBOL = re.compile(r"([A-Za-z_][A-Za-z0-9_]*)\s*(?:<|\()")
 
 
@@ -524,10 +527,12 @@ def parse_trace_file(path: str) -> dict:
     :data:`DEVICE_CATEGORIES` (the kernels CUPTI saw the card run); with
     none present (a CPU capture) every complete event is folded instead,
     under ``fn="host"``, and the report says so (``source:
-    host-fallback``)."""
+    host-fallback``). ``launches`` counts the host's kernel launches and
+    ``launchesWithoutKernel`` those whose kernel the device lane lacks."""
     events = _load_trace(path)["traceEvents"]
     device = any(isinstance(ev, dict) and ev.get("ph") == "X"
                  and ev.get("cat") in DEVICE_CATEGORIES for ev in events)
+    launched, ran = _launch_correlations(events)
     source = "device" if device else "host-fallback"
     op_ms: Dict[Tuple[str, str], float] = {}
     op_count: Dict[Tuple[str, str], int] = {}
@@ -569,7 +574,30 @@ def parse_trace_file(path: str) -> dict:
     total = sum(r["deviceMs"] for r in fn_rows) if fn_rows else \
         sum(r["selfMs"] for r in ops)
     return {"source": source, "totalMs": round(total, 6),
-            "ops": ops, "fns": fn_rows}
+            "ops": ops, "fns": fn_rows, "launches": len(launched),
+            "launchesWithoutKernel": len(launched - ran)}
+
+
+def _launch_correlations(events) -> Tuple[set, set]:
+    """(correlation ids of the host's kernel launches, correlation ids of
+    the kernels on the device lane). A launch whose id the device lane
+    lacks is a kernel the capture dropped: a ``host-fallback`` window with
+    launches in it lost its kernels, one without launched none."""
+    launched, ran = set(), set()
+    for ev in events:
+        if not isinstance(ev, dict) or ev.get("ph") != "X":
+            continue
+        args = ev.get("args")
+        corr = args.get("correlation") if isinstance(args, dict) else None
+        if corr is None:
+            continue
+        cat = ev.get("cat")
+        if cat in DEVICE_CATEGORIES:
+            ran.add(corr)
+        elif cat in _LAUNCH_CATEGORIES and \
+                "LaunchKernel" in str(ev.get("name", "")):
+            launched.add(corr)
+    return launched, ran
 
 
 def parse_profile_dir(profile_dir: str) -> dict:

@@ -12,7 +12,7 @@ The port's copy of ``flink_ml_tpu/params/param.py``. Reference behavior
 
 The JSON written here is byte-for-byte what the JAX package writes for the
 same params, so saved models and benchmark configs cross the two packages.
-The vector- and window-valued params come with the slices that use them.
+The window-valued param comes with the slice that uses it.
 """
 
 from __future__ import annotations
@@ -248,6 +248,36 @@ DoubleArrayArrayParam = FloatArrayArrayParam
 
 class StringArrayArrayParam(ArrayArrayParam):
     elem_coerce = staticmethod(str)
+
+
+class VectorParam(Param):
+    """Param holding a DenseVector/SparseVector (ref: VectorParam.java)."""
+
+    def coerce(self, value):
+        from flink_ml_tpu_torch.linalg.vectors import Vector, Vectors
+        if value is None or isinstance(value, Vector):
+            return value
+        return Vectors.dense(value)
+
+    def json_encode(self, value):
+        if value is None:
+            return None
+        from flink_ml_tpu_torch.linalg.vectors import SparseVector
+        if isinstance(value, SparseVector):
+            return {"kind": "sparse", "size": int(value.size),
+                    "indices": [int(i) for i in value.indices],
+                    "values": [float(v) for v in value.values]}
+        return {"kind": "dense", "values": [float(v) for v in value.to_array()]}
+
+    def json_decode(self, value):
+        if value is None:
+            return None
+        from flink_ml_tpu_torch.linalg.vectors import Vectors
+        if isinstance(value, dict) and value.get("kind") == "sparse":
+            return Vectors.sparse(value["size"], value["indices"], value["values"])
+        if isinstance(value, dict):
+            return Vectors.dense(value["values"])
+        return Vectors.dense(value)
 
 
 class WithParams:

@@ -1,8 +1,9 @@
 """Shared ``Has*`` param mixins.
 
 The port's copy of the mixins from ``flink_ml_tpu/params/shared.py`` that the
-ported stages use (KMeans, the linear models, KNN, FTRL and the benchmark
-generators). The names,
+ported stages use (KMeans, the linear models, KNN, FTRL, the feature
+transformers, selectors, statistical tests, the evaluator, NaiveBayes and
+the benchmark generators). The names,
 descriptions, defaults and validators are the JAX package's, so the JSON
 param maps match. The other mixins come with the slices that use them.
 """
@@ -12,20 +13,24 @@ from __future__ import annotations
 import zlib
 
 from flink_ml_tpu_torch.params.param import (
+    BooleanParam,
     FloatParam,
     IntParam,
     LongParam,
     ParamValidators,
+    StringArrayParam,
     StringParam,
     WithParams,
 )
 
 __all__ = [
     "HasBatchStrategy", "HasDistanceMeasure", "HasElasticNet",
-    "HasFeaturesCol", "HasGlobalBatchSize", "HasLabelCol", "HasLearningRate",
+    "HasFeaturesCol", "HasFlatten", "HasGlobalBatchSize", "HasHandleInvalid",
+    "HasInputCol", "HasInputCols", "HasLabelCol", "HasLearningRate",
     "HasMaxAllowedModelDelayMs", "HasMaxIter", "HasModelVersionCol",
-    "HasMultiClass", "HasOptimizerMethod", "HasPredictionCol",
-    "HasRawPredictionCol", "HasReg", "HasSeed", "HasTol", "HasWeightCol",
+    "HasMultiClass", "HasOptimizerMethod", "HasOutputCol", "HasOutputCols",
+    "HasPredictionCol", "HasRawPredictionCol", "HasReg", "HasRelativeError",
+    "HasSeed", "HasTol", "HasWeightCol",
 ]
 
 
@@ -52,10 +57,36 @@ class HasFeaturesCol(WithParams):
         "featuresCol", "Features column name.", "features", ParamValidators.not_null())
 
 
+class HasFlatten(WithParams):
+    FLATTEN = BooleanParam(
+        "flatten",
+        "If false, the returned table contains only a single row, otherwise, "
+        "one row per feature.", False)
+
+
 class HasGlobalBatchSize(WithParams):
     GLOBAL_BATCH_SIZE = IntParam(
         "globalBatchSize", "Global batch size of training algorithms.", 32,
         ParamValidators.gt(0))
+
+
+class HasHandleInvalid(WithParams):
+    ERROR_INVALID = "error"
+    SKIP_INVALID = "skip"
+    KEEP_INVALID = "keep"
+    HANDLE_INVALID = StringParam(
+        "handleInvalid", "Strategy to handle invalid entries.", ERROR_INVALID,
+        ParamValidators.in_array(ERROR_INVALID, SKIP_INVALID, KEEP_INVALID))
+
+
+class HasInputCol(WithParams):
+    INPUT_COL = StringParam(
+        "inputCol", "Input column name.", "input", ParamValidators.not_null())
+
+
+class HasInputCols(WithParams):
+    INPUT_COLS = StringArrayParam(
+        "inputCols", "Input column names.", None, ParamValidators.non_empty_array())
 
 
 class HasLabelCol(WithParams):
@@ -117,6 +148,16 @@ class HasOptimizerMethod(WithParams):
         ParamValidators.gt(0))
 
 
+class HasOutputCol(WithParams):
+    OUTPUT_COL = StringParam(
+        "outputCol", "Output column name.", "output", ParamValidators.not_null())
+
+
+class HasOutputCols(WithParams):
+    OUTPUT_COLS = StringArrayParam(
+        "outputCols", "Output column names.", None, ParamValidators.non_empty_array())
+
+
 class HasPredictionCol(WithParams):
     PREDICTION_COL = StringParam(
         "predictionCol", "Prediction column name.", "prediction",
@@ -131,6 +172,13 @@ class HasRawPredictionCol(WithParams):
 class HasReg(WithParams):
     REG = FloatParam(
         "reg", "Regularization parameter.", 0.0, ParamValidators.gt_eq(0.0))
+
+
+class HasRelativeError(WithParams):
+    RELATIVE_ERROR = FloatParam(
+        "relativeError",
+        "The relative target precision for the approximate quantile algorithm.",
+        0.001, ParamValidators.in_range(0, 1))
 
 
 class HasSeed(WithParams):

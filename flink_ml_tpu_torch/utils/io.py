@@ -6,6 +6,8 @@ loadModelData:317):
 
     <path>/metadata.json          {"className", "timestamp", "paramMap", "extra"}
     <path>/data/<name>.npz        numeric model arrays
+    <path>/data/<name>.json       non-numeric model data
+    <path>/stages/<i>/...         nested stages (Pipeline, Graph)
 
 A model saved by the JAX package names a ``flink_ml_tpu.`` class; loading it
 here resolves the class of the same path in ``flink_ml_tpu_torch`` instead,
@@ -112,3 +114,16 @@ def save_model_arrays(path: str, name: str, arrays: Dict[str, np.ndarray]) -> No
 def load_model_arrays(path: str, name: str) -> Dict[str, np.ndarray]:
     with np.load(os.path.join(path, "data", name + ".npz"), allow_pickle=False) as z:
         return {k: z[k] for k in z.files}
+
+
+def save_model_json(path: str, name: str, data: Any) -> None:
+    """Non-numeric model data under <path>/data (NaiveBayes's tables)."""
+    data_dir = os.path.join(path, "data")
+    os.makedirs(data_dir, exist_ok=True)
+    with open(os.path.join(data_dir, name + ".json"), "w") as f:
+        json.dump(data, f)
+
+
+def load_model_json(path: str, name: str) -> Any:
+    with open(os.path.join(path, "data", name + ".json")) as f:
+        return json.load(f)

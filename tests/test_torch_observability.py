@@ -1158,3 +1158,96 @@ def test_forked_children_never_profile(tmp_path, monkeypatch):
     monkeypatch.setattr(profiling, "_owner_pid", -1)
     with profiling.profile_window("x", out_dir=str(tmp_path)) as handle:
         assert handle is None
+
+
+# -- the profiler window's edges (phase 12's profiled KMeans transform) ------
+
+FIXTURES = Path(__file__).parent / "fixtures" / "profiling"
+
+
+def test_a_port_transform_window_parses_as_device_and_without_kernels_as_host():
+    """A window shaped as the card's one-kernel KMeans transform capture:
+    its kernel lane makes it a device capture attributed to
+    ``assign_nearest``; the same window with every kernel event missing
+    (what a capture whose kernels fall outside the window keeps) reads as
+    ``host-fallback``, the signature phase 12 guards against."""
+    path = FIXTURES / "port_transform.trace.json"
+    report = profiling.parse_trace_file(str(path))
+    assert report["source"] == "device"
+    assert report["launches"] == 3 and report["launchesWithoutKernel"] == 0
+    fns = {row["fn"]: row for row in report["fns"]}
+    assert set(fns) == {"assign_nearest", "torch"}
+    assert fns["assign_nearest"]["count"] == 1
+    assert fns["assign_nearest"]["deviceMs"] == pytest.approx(0.2199)
+    assert fns["torch"]["count"] == 2
+    doc = json.loads(path.read_text())
+    doc["traceEvents"] = [ev for ev in doc["traceEvents"]
+                          if ev.get("cat") not in profiling.DEVICE_CATEGORIES]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "stripped.trace.json"
+        out.write_text(json.dumps(doc))
+        host = profiling.parse_trace_file(str(out))
+    assert host["source"] == "host-fallback" and host["fns"] == []
+    # the capture names its cause: three launches whose kernels it lost
+    assert host["launches"] == 3 and host["launchesWithoutKernel"] == 3
+
+
+@pytest.mark.parametrize("dropped", [(), ("assign_kernel",),
+                                     ("assign_kernel", "reduce_kernel")])
+def test_a_window_reports_the_launches_its_device_lane_lost(dropped,
+                                                            tmp_path):
+    """Each kernel missing from the device lane is one launch without its
+    kernel (matched by correlation id); launches of no kernel
+    (``cudaMemcpyAsync``, ``cudaFuncSetAttribute``) never count."""
+    doc = json.loads((FIXTURES / "port_transform.trace.json").read_text())
+    doc["traceEvents"] = [
+        ev for ev in doc["traceEvents"]
+        if not (ev.get("cat") == "kernel"
+                and any(k in ev["name"] for k in dropped))]
+    out = tmp_path / "window.trace.json"
+    out.write_text(json.dumps(doc))
+    report = profiling.parse_trace_file(str(out))
+    assert report["source"] == "device"
+    assert report["launches"] == 3
+    assert report["launchesWithoutKernel"] == len(dropped)
+    fns = {row["fn"]: row["count"] for row in report["fns"]}
+    assert sum(fns.values()) == 3 - len(dropped)
+
+
+@pytest.mark.parametrize("card", [True, False])
+def test_trace_window_stops_after_the_card_finished(card, tmp_path,
+                                                    monkeypatch):
+    """With the card in use the window stops only after the card finished
+    what it was given (synchronize, stop, export); without it, nothing
+    waits for a card."""
+    from flink_ml_tpu_torch.common import metrics as metrics_mod
+
+    calls = []
+
+    class FakeProfiler:
+        def __init__(self, activities):
+            calls.append(("profile", len(activities)))
+
+        def start(self):
+            calls.append("start")
+
+        def stop(self):
+            calls.append("stop")
+
+        def export_chrome_trace(self, path):
+            calls.append("export")
+            Path(path).write_text("{}")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: card)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: card)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a: calls.append("synchronize"))
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfiler)
+    prof = metrics_mod.start_trace()
+    path = metrics_mod.stop_trace(prof, str(tmp_path))
+    if card:
+        assert calls == [("profile", 2), "start", "synchronize", "stop",
+                         "export"]
+    else:
+        assert calls == [("profile", 1), "start", "stop", "export"]
+    assert Path(path).parent == tmp_path

@@ -70,7 +70,10 @@ def test_port_files_were_found():
             "logisticregression.py", "knn.py", "online.py", "sparse.py",
             "streaming.py", "iteration.py", "checkpoint.py", "policy.py",
             "faults.py", "supervisor.py", "mesh.py", "collective.py",
-            "mapreduce.py", "update_sharding.py"} <= names
+            "mapreduce.py", "update_sharding.py", "pipeline.py", "graph.py",
+            "columnar.py", "blas.py", "functions.py", "scalers.py",
+            "quantile.py", "vectorops.py", "stats.py", "selectors.py",
+            "tests.py", "binaryclassification.py", "naivebayes.py"} <= names
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -197,7 +200,7 @@ def test_load_class_maps_jax_paths_without_importing_them(monkeypatch):
         "flink_ml_tpu_torch.models.clustering.kmeans.KMeans") is KMeans
     assert {m for m in sys.modules if m.startswith("flink_ml_tpu.")} == before
     with pytest.raises(ValueError, match="not part of the port"):
-        rw.load_class("flink_ml_tpu.models.classification.naivebayes.NaiveBayes")
+        rw.load_class("flink_ml_tpu.models.recommendation.swing.Swing")
 
 
 def test_non_finite_final_state_raises():
