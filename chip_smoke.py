@@ -236,8 +236,43 @@ Phases, each of which fails the run (no result line, nonzero exit):
     each runner row's totalTimeMs, executeTimeMs, achievedGBps and
     deviceName, and the phase's launches (those of ``PATH_KERNELS[
     "pipeline"]``, each at least once; the runner rows launch none);
-16. print one ``{"kernels": [...]}`` line with every kernel's launches in
-    its main-path runs, error, times and bound, then the result line.
+16. the text, discrete and misc feature transformers
+    (``flink_ml_tpu_torch/models/feature/{text,discrete,misc}.py``) with
+    the host pool (``common/hostpool.py``) and the native host kernels
+    (``native/``, built with g++): (a) ``examples/sparse_text_pipeline_
+    example.py``'s chain as written (3,000 docs, HashingTF at 2^18, FTRL
+    with a batch of 500: its ~2,900 stored values a batch take the host
+    engine), then with the device engine's floor under the batches' size
+    (``cuda-csr-batches``, segment launches); each above 0.9 accurate;
+    (b) the ``hashingtf`` config's table as shipped (10,000,000 rows of
+    10 tokens, seed 2) through HashingTF (2^18, one CSR column), IDF fit
+    and transform and FTRL in TEXT_BATCH batches on ``cuda-csr``, labels
+    the sign of a seeded ±1 sum of each row's tokens: the hashed column
+    never densified, a rerun identical, the first TEXT_PREFIX_BATCHES
+    batches within CSR_RTOL/CSR_ATOL of the float64 host engine, accuracy
+    above TEXT_ACCURACY (a CPU run of the same stream at full size read
+    1.0); prints each stage's host ms (synchronized), the packing alone
+    and the launches; (c) the fourteen TEXT_CONFIGS through the runner,
+    uncut (one warmup, one timed run; rows name the card), then the stage
+    once more on a generated table: card stages (CountVectorizer's dense
+    counts, also timed alone on ids already on the card against their
+    byte bound; IDF; KBinsDiscretizer; VectorIndexer; Imputer;
+    SQLTransformer; FeatureHasher's hashing) held on the first
+    FEATURE_ROWS rows against the port's host path on a host copy of those
+    rows, host stages against the row-at-a-time path (ragged object
+    columns): tokens, indices and counts exactly, IDF and Imputer within
+    FEATURE_RTOL/ATOL; (d) after CUDA is up: ``native.factorize_i64`` on
+    HOST_KEYS seeded keys against a numpy first-appearance factorization,
+    ``csv_parse_numeric`` and ``Table.from_csv`` against Python's ``csv``,
+    a forked ``map_row_shards`` over the CountVectorizer config's first
+    HOST_POOL_ROWS rows against the serial one, and a ``hostpool-hang``
+    chaos run ending in ``WorkerTimeout`` with every child reaped; then
+    ``benchmark-demo.json`` through ``run_benchmarks`` (its two broken
+    rows reported as DEMO_FAILURES); the launches are those of
+    ``PATH_KERNELS["text"]``;
+17. print one ``{"kernels": [...]}`` line with every kernel's launches in
+    its main-path runs (in all and by path), error, times and bound, then
+    the result line.
 
 Tolerances (float32 throughout, TF32 off):
 - labels: identical, except rows whose two nearest centroids are closer than
@@ -358,6 +393,9 @@ PATH_KERNELS = {
     # fits through Lloyd and predicts through the assignment
     "pipeline": ("sgd_batch_terms", "assign_nearest", "lloyd_partial_sums",
                  "reduce_partials"),
+    # the sparse text example's and the hashed stream's FTRL fits through
+    # the device-CSR engine (one C entry: no reduce_partials)
+    "text": ("segment_reduce_sum",),
 }
 # phase 15's configs, run uncut through the runner
 FEATURE_CONFIGS = (
@@ -402,6 +440,29 @@ FEATURE_ROWS = 65_536
 STAT_RTOL = 1e-4
 FEATURE_RTOL, FEATURE_ATOL = 1e-5, 1e-6
 EDGE_ATOL = 1e-6
+
+# phase 16: the configs run uncut through the runner; the hashed stream's
+# global batch, the prefix (in batches) held against the host engine, and
+# the accuracy its model must reach on its own stream; the keys of the
+# native factorize check, the rows of the CSV check, the CountVectorizer
+# rows of the pool check, and the wedged worker's deadline; the demo
+# config's two broken rows as the JAX runner reports them
+TEXT_CONFIGS = (
+    "tokenizer", "regextokenizer", "ngram", "stopwordsremover", "hashingtf",
+    "featurehasher", "countvectorizer", "idf", "stringindexer",
+    "onehotencoder", "kbinsdiscretizer", "vectorindexer", "imputer",
+    "sqltransformer")
+TEXT_BATCH = 100_000
+TEXT_PREFIX_BATCHES = 10
+TEXT_ACCURACY = 0.95
+HOST_KEYS = 10_000_000
+HOST_CSV_ROWS = 200_000
+HOST_POOL_ROWS = 1_000_000
+HANG_DEADLINE_S = 2.0
+DEMO_FAILURES = {
+    "Undefined-Parameter": "ValueError: unknown parameter 'featureCol' for "
+                           "KMeans",
+    "Unmatch-Input": "ValueError: too many values to unpack (expected 1)"}
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W): device
 # memory bytes per second and fp32 (non-tensor-core) operations per second
@@ -3604,6 +3665,564 @@ def phase_pipelines(K, runner, Table, device="cuda"):
     return counts
 
 
+# -- phase 16: the text, discrete and misc feature transformers ---------------
+
+def _sparse_text_example(K, Table, device):
+    """(a) examples/sparse_text_pipeline_example.py's chain on the port:
+    3,000 docs, HashingTF at 2^18, FTRL with a batch of 500."""
+    from flink_ml_tpu_torch.common.table import as_dense_vector_column
+    from flink_ml_tpu_torch.models import feature as F
+    from flink_ml_tpu_torch.models import online
+
+    rng = np.random.default_rng(8)
+    good = ["great", "excellent", "love", "wonderful", "best"]
+    bad = ["terrible", "awful", "hate", "worst", "broken"]
+    neutral = ["the", "a", "product", "it", "was", "very"]
+
+    def doc(label):
+        pool = (good if label else bad) + neutral
+        return " ".join(rng.choice(pool, size=8))
+
+    labels = rng.integers(0, 2, 3000).astype(np.float64)
+    texts = np.asarray([doc(label) for label in labels])
+    table = Table.from_columns(text=texts, label=labels)
+    tokens = F.Tokenizer(input_col="text", output_col="words",
+                         device=device).transform(table)[0]
+    hashed = F.HashingTF(input_col="words", output_col="features",
+                         device=device).transform(tokens)[0]
+    m = hashed.column("features").to_csr()
+    dim = m.shape[1]
+    init = Table.from_columns(
+        coefficient=as_dense_vector_column(np.zeros((1, dim))),
+        modelVersion=np.asarray([0]))
+    runs = {}
+    threshold = online.FTRL_SPARSE_MIN_NNZ
+    # as written, a 500-doc batch holds about 2,900 stored values, below
+    # the device engine's floor: the host engine runs it. Then the same
+    # chain with the floor under the batches' size, through cuda-csr
+    per_batch = int(np.diff(m.indptr[::500]).min())
+    for name, floor in (("as_written", threshold), ("card", per_batch)):
+        online.FTRL_SPARSE_MIN_NNZ = floor
+        try:
+            before = K.launch_counts["segment_reduce_sum"]
+            est = online.OnlineLogisticRegression(
+                global_batch_size=500, alpha=0.5, beta=1.0, device=device)
+            model, fit_ms = _synced_ms(
+                lambda: est.set_initial_model_data(init).fit(hashed))
+            launches = K.launch_counts["segment_reduce_sum"] - before
+        finally:
+            online.FTRL_SPARSE_MIN_NNZ = threshold
+        out = model.transform(hashed)[0]
+        acc = float(np.mean(np.asarray(out["prediction"]) == labels))
+        assert acc > 0.9, (name, acc)
+        runs[name] = {"engine": est.last_execution_path, "fit_ms": fit_ms,
+                      "accuracy": acc, "segment_launches": launches,
+                      "versions": model.model_version}
+    assert dim == 1 << 18 and runs["card"]["engine"] == (
+        "cuda-csr-batches" if device == "cuda" else "torch-csr-batches")
+    assert device != "cuda" or runs["card"]["segment_launches"] >= 12
+    log(f"  (a) sparse text example, 3,000 docs x 2^18: "
+        + json.dumps(runs, sort_keys=True))
+    return runs
+
+
+def _text_labels(col, seed):
+    """Labels of a one-character token matrix: a seeded half of its
+    distinct tokens counts +1, the rest -1, and a row is 1 when its sum is
+    positive (0 on a tie)."""
+    assert col.dtype == np.dtype("<U1"), col.dtype
+    cps = col.view(np.int32)
+    distinct = np.flatnonzero(np.bincount(cps.reshape(-1)))
+    rng = np.random.default_rng(seed)
+    plus = rng.permutation(distinct)[: len(distinct) // 2]
+    weight = np.full(int(distinct.max()) + 1, -1, np.int8)
+    weight[plus] = 1
+    return (weight[cps].sum(axis=1, dtype=np.int64) > 0).astype(np.float64)
+
+
+@contextlib.contextmanager
+def _never_densified(sparse):
+    """Within the block, densifying a CSR column (or its matrix) fails."""
+    import scipy.sparse as sp
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a hashed column was densified")
+
+    with mock.patch.object(sparse.CsrVectorColumn, "to_dense", refuse), \
+            mock.patch.object(sp.csr_matrix, "toarray", refuse), \
+            mock.patch.object(sp.csr_matrix, "todense", refuse):
+        yield
+
+
+def _hashed_stream(K, runner, Table, device):
+    """(b) HashingTF → IDF → FTRL at the hashingtf config's full width."""
+    from flink_ml_tpu_torch.linalg import sparse
+    from flink_ml_tpu_torch.models import feature as F
+    from flink_ml_tpu_torch.models import online
+
+    ((key, spec),) = runner.load_config(
+        str(CONFIGS / "hashingtf-benchmark.json")).items()
+    seed = spec["inputData"]["paramMap"]["seed"]
+    table, gen_ms = _synced_ms(
+        lambda: runner.build_generator(spec, device).get_data())
+    col = table.column("input")
+    n, w = col.shape
+    labels, label_ms = _synced_ms(lambda: _text_labels(col, seed))
+    tf = runner.build_stage(spec, device).set_output_col("tf")
+    stages = {"datagen_ms": gen_ms, "labels_ms": label_ms}
+    before = dict(K.launch_counts)
+    with _never_densified(sparse):
+        hashed, stages["hashingtf_ms"] = _synced_ms(
+            lambda: tf.transform(table)[0])
+        idf = F.IDF(input_col="tf", output_col="tfidf", device=device)
+        idf_model, stages["idf_fit_ms"] = _synced_ms(lambda: idf.fit(hashed))
+        scored, stages["idf_transform_ms"] = _synced_ms(
+            lambda: idf_model.transform(hashed)[0])
+        stream = Table.from_columns(features=scored.column("tfidf"),
+                                    label=labels)
+        m = stream.column("features").to_csr()
+        dim = m.shape[1]
+
+        def fit(rows=None):
+            data = stream if rows is None else stream.take(slice(0, rows))
+            est = online.OnlineLogisticRegression(
+                global_batch_size=TEXT_BATCH, alpha=0.5, beta=1.0,
+                device=device).warm_start(np.zeros(dim))
+            model, ms = _synced_ms(lambda: est.fit(data))
+            return model, est.last_execution_path, ms
+
+        model, engine, stages["ftrl_fit_ms"] = fit()
+        launches = K.launch_counts["segment_reduce_sum"] - \
+            before["segment_reduce_sum"]
+        # where the fit's time goes: the host's batching and packing alone
+        from flink_ml_tpu_torch.iteration import streaming
+
+        def pack():
+            for b in streaming.generate_batches(
+                    streaming.StreamTable.from_table(stream, TEXT_BATCH),
+                    TEXT_BATCH):
+                online._pack_csr_shards(
+                    sparse.features_matrix(b, "features"),
+                    b.scalars("label", np.float64),
+                    np.ones(b.num_rows), 1)
+        _, stages["ftrl_pack_alone_ms"] = _synced_ms(pack)
+        out, stages["ftrl_transform_ms"] = _synced_ms(
+            lambda: model.transform(stream)[0])
+        with _uncounted(K):
+            again, _, _ = fit()
+            prefix = min(n, TEXT_PREFIX_BATCHES * TEXT_BATCH)
+            head_model, head_engine, _ = fit(prefix)
+            threshold = online.FTRL_SPARSE_MIN_NNZ
+            online.FTRL_SPARSE_MIN_NNZ = 1 << 62
+            try:
+                host_model, host_engine, stages["host_prefix_fit_ms"] = \
+                    fit(prefix)
+            finally:
+                online.FTRL_SPARSE_MIN_NNZ = threshold
+    batches = -(-n // TEXT_BATCH)
+    assert engine == ("cuda-csr-batches" if device == "cuda"
+                      else "torch-csr-batches"), engine
+    assert head_engine == engine and host_engine == "host-csr-batches"
+    assert model.model_version == batches
+    assert device != "cuda" or launches >= 2 * batches, launches
+    assert np.array_equal(again.coefficients, model.coefficients), (
+        "the hashed stream's fit differs on a rerun")
+    diff = np.abs(head_model.coefficients - host_model.coefficients)
+    excess = diff - CSR_RTOL * np.abs(host_model.coefficients) - CSR_ATOL
+    assert excess.max() <= 0, float(excess.max())
+    accuracy = float(np.mean(np.asarray(out["prediction"]) == labels))
+    assert accuracy > TEXT_ACCURACY, accuracy
+    row = {"rows": n, "tokens_per_row": w, "dim": dim, "nnz": int(m.nnz),
+           "batches": batches, "engine": engine,
+           "segment_launches": launches, "accuracy": accuracy,
+           "host_engine_max_diff": float(diff.max()),
+           "nonzero_coefficients": int((model.coefficients != 0).sum()),
+           **stages}
+    log(f"  (b) HashingTF → IDF → FTRL, {n} x {w} tokens, 2^18 wide: "
+        + json.dumps(row, sort_keys=True))
+    del table, hashed, scored, stream, out
+    return row
+
+
+def _token_rows(col):
+    """The head rows of a token column as a ragged object column (rows are
+    token lists), which the text ops take row by row."""
+    out = np.empty(len(col), dtype=object)
+    out[:] = [list(map(str, row)) for row in col]
+    return out
+
+
+def _string_rows(col):
+    return np.asarray([str(v) for v in col], dtype=object)
+
+
+def _cells_equal(got, want, tag):
+    got = [list(map(str, r)) for r in got]
+    want = [list(map(str, r)) for r in want]
+    assert got == want, tag
+
+
+def _csr_equal(got, want, tag, rtol=0.0):
+    g = got.to_csr() if hasattr(got, "to_csr") else got
+    w = want.to_csr() if hasattr(want, "to_csr") else want
+    assert g.shape == w.shape, (tag, g.shape, w.shape)
+    assert np.array_equal(g.indptr, w.indptr), tag
+    assert np.array_equal(g.indices, w.indices), tag
+    np.testing.assert_allclose(g.data, w.data, rtol=rtol, atol=0,
+                               err_msg=tag)
+
+
+def _host_table(head):
+    """A Table of host copies of ``head``'s columns (numpy, as the host
+    path takes them)."""
+    from flink_ml_tpu_torch import Table
+
+    return Table.from_columns(**{
+        c: (head.column(c).cpu().numpy()
+            if isinstance(head.column(c), torch.Tensor) else head.column(c))
+        for c in head.column_names})
+
+
+def _check_text_row(name, spec, runner, Table, device):
+    """Run the config's stage once more on a generated table: the card's
+    output (or the vectorized host path's) on the first FEATURE_ROWS rows
+    against the port's host path on a host copy of those rows (card
+    stages), or against the row-at-a-time path (host stages)."""
+    from flink_ml_tpu_torch.api.stage import Estimator
+    from flink_ml_tpu_torch.models import feature as F
+    from flink_ml_tpu_torch.models.feature import text
+
+    table = runner.build_generator(spec, device).get_data()
+    stage = runner.build_stage(spec, device)
+    head = table.take(slice(0, FEATURE_ROWS))
+    host = _host_table(head)
+    check = {}
+    if isinstance(stage, Estimator):
+        model, check["fit_ms"] = _synced_ms(lambda: stage.fit(table))
+        with mock.patch.object(text, "_device_token_counts",
+                               _recording(text._device_token_counts)) as rec:
+            out, check["transform_ms"] = _synced_ms(
+                lambda: model.transform(table)[0])
+        cpu_model = model.copy_params_to(type(model)(device="cpu"))
+        cpu_model.set_model_data(*model.get_model_data())
+    else:
+        out, check["transform_ms"] = _synced_ms(
+            lambda: stage.transform(table)[0])
+        cpu_model = runner.build_stage(spec, "cpu")
+    if name == "countvectorizer":
+        got = _head(out.column(model.output_col))
+        assert isinstance(got, torch.Tensor) and got.dtype == torch.float32
+        assert out.column(model.output_col).device.type == device
+        ragged = Table.from_columns(input=_token_rows(head.column("input")))
+        want = cpu_model.transform(ragged)[0].column(model.output_col)
+        assert torch.equal(got, torch.as_tensor(
+            want.to_csr().toarray(), dtype=torch.float32)), name
+        head_fit = F.CountVectorizer(input_col="input", device="cpu")
+        assert (head_fit.fit(host).vocabulary
+                == head_fit.fit(ragged).vocabulary), name
+        check["vocabulary"] = len(model.vocabulary)
+        # the dense counts: the call the transform made (the ids' copies to
+        # the card included), then the same ids already on the card, timed
+        # with CUDA events (the card's work alone), against the byte bound
+        ((ids1, u, min_tf, binary, w, dev), ms) = rec.calls[0]
+        check["dense_counts_ms"] = ms
+        check["dense_counts_device_ms"] = _device_counts_ms(
+            text, ids1, (u, min_tf, binary, w, dev), device)
+        nbytes = ids1.nbytes + 4 * ids1.shape[0] * u
+        check["dense_bound_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
+        del ids1, rec.calls[:]
+    elif name == "idf":
+        x = table.column(stage.input_col)
+        df = (x != 0).sum(dim=0).cpu().numpy()
+        assert np.array_equal(model.doc_freq, df), name
+        got = _head(out.column(model.output_col))
+        want = cpu_model.transform(host)[0].column(model.output_col)
+        check["max_abs_err"] = _check_continuous(got, want, name)
+    elif name in ("kbinsdiscretizer", "vectorindexer", "imputer",
+                  "sqltransformer"):
+        if name == "kbinsdiscretizer":
+            sub = table.column(stage.input_col)[:stage.sub_samples] \
+                .double().cpu().numpy()
+            for j, edges in enumerate(model.bin_edges):
+                want = np.unique(np.linspace(sub[:, j].min(),
+                                             sub[:, j].max(),
+                                             stage.num_bins + 1))
+                assert np.array_equal(edges, want), (name, j)
+        if name == "vectorindexer":
+            # the card's screen and the host's fit on a copy of the head
+            # rows find the same categorical dimensions there
+            head_maps = F.VectorIndexer(
+                input_col=stage.input_col, max_categories=stage.max_categories,
+                device="cpu").fit(host).category_maps
+            assert set(model.category_maps) <= set(head_maps), name
+            check["categorical_dims"] = sorted(model.category_maps)
+            check["head_categorical_dims"] = sorted(head_maps)
+        if name == "imputer":
+            for c, s in zip(stage.input_cols, model.surrogates):
+                mean, _ = _f64_moments(table.column(c)[:, None])
+                assert abs(s - mean[0]) <= STAT_RTOL * abs(mean[0]), (c, s)
+        outs = (out.column_names if name == "sqltransformer"
+                else getattr(model, "output_cols", None)
+                or [model.output_col])
+        want_table = cpu_model.transform(host)[0]
+        errs = []
+        for c in outs:
+            full = out.column(c)
+            assert isinstance(full, torch.Tensor), (name, c)
+            assert full.device.type == device, (name, c)
+            got = _head(full).double()
+            want = torch.as_tensor(np.asarray(want_table.column(c)),
+                                   dtype=torch.float64)
+            if name == "imputer":
+                errs.append(_check_continuous(got, want, f"{name} {c}"))
+            else:
+                assert torch.equal(got, want), (name, c)
+        check["max_abs_err"] = max(errs) if errs else 0.0
+    elif name == "featurehasher":
+        got = out.column(stage.output_col)[:FEATURE_ROWS]
+        want = stage.copy_params_to(F.FeatureHasher(device="cpu")) \
+            .transform(host)[0].column(stage.output_col)
+        _csr_equal(got, want, name)
+        check["nnz_per_row"] = out.column(stage.output_col).to_csr().nnz \
+            / table.num_rows
+    elif name == "stringindexer":
+        ragged = Table.from_columns(
+            **{c: _string_rows(head.column(c)) for c in stage.input_cols})
+        got = _head(out.column(model.output_cols[0]))
+        want = cpu_model.transform(ragged)[0].column(model.output_cols[0])
+        assert out.num_rows == table.num_rows
+        assert np.array_equal(got, want), name
+        head_fit = runner.build_stage(spec, "cpu")
+        assert (head_fit.fit(host).string_arrays
+                == head_fit.fit(ragged).string_arrays), name
+        check["vocabulary"] = len(model.string_arrays[0])
+    elif name == "onehotencoder":
+        vals = np.asarray(head.column(model.input_cols[0]), np.float64)
+        size = model.category_sizes[0] - (1 if model.drop_last else 0)
+        rows, cols = [], []
+        for i, v in enumerate(vals):
+            if int(v) < size:
+                rows.append(i)
+                cols.append(int(v))
+        import scipy.sparse as sp
+
+        want = sp.csr_matrix((np.ones(len(rows)), (rows, cols)),
+                             shape=(len(vals), size))
+        _csr_equal(out.column(model.output_cols[0])[:FEATURE_ROWS], want,
+                   name)
+        check["categories"] = model.category_sizes[0]
+    else:
+        # tokenizer, regextokenizer, ngram, stopwordsremover, hashingtf:
+        # the vectorized path against the row-at-a-time path
+        cols = (stage.output_cols if hasattr(stage, "OUTPUT_COLS")
+                else [stage.output_col])
+        ins = (stage.input_cols if hasattr(stage, "INPUT_COLS")
+               else [stage.input_col])
+        ragged = Table.from_columns(**{
+            c: (_token_rows(head.column(c)) if head.column(c).ndim == 2
+                else _string_rows(head.column(c))) for c in ins})
+        want_table = cpu_model.transform(ragged)[0]
+        for c in cols:
+            got = out.column(c)
+            if name == "hashingtf":
+                _csr_equal(got[:FEATURE_ROWS], want_table.column(c), name)
+                check["nnz_per_row"] = got.to_csr().nnz / table.num_rows
+            else:
+                _cells_equal(got[:FEATURE_ROWS], want_table.column(c), name)
+                check["form"] = ("token matrix" if isinstance(got, np.ndarray)
+                                 and got.ndim == 2 else "object column")
+    check["rows"] = table.num_rows
+    del table, out
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return check
+
+
+def _recording(fn):
+    """``fn`` wrapped to keep each call's arguments and its synchronized
+    host ms in ``.calls``."""
+    def call(*args):
+        out, ms = _synced_ms(lambda: fn(*args))
+        call.calls.append((args, ms))
+        return out
+    call.calls = []
+    return call
+
+
+def _device_counts_ms(text, ids1, args, device):
+    """Device ms of the dense counts on ids already on the card (CUDA
+    events around one call after a warmup; host ms on the CPU)."""
+    ids = torch.from_numpy(ids1).to(device)
+    text._device_token_counts(ids, *args)
+    if device != "cuda":
+        return _synced_ms(lambda: text._device_token_counts(ids, *args))[1]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = text._device_token_counts(ids, *args)
+    end.record()
+    end.synchronize()
+    del out, ids
+    return start.elapsed_time(end)
+
+
+def _host_machinery(K, runner, cv_table):
+    """(d) the native kernels and the host pool, after CUDA is up."""
+    import csv as _csv
+
+    from flink_ml_tpu_torch import Table as PortTable
+    from flink_ml_tpu_torch import native
+    from flink_ml_tpu_torch.common import hostpool
+    from flink_ml_tpu_torch.models.feature import text
+    from flink_ml_tpu_torch.resilience import faults
+    from flink_ml_tpu_torch.resilience.policy import WorkerTimeout
+
+    row = {}
+    keys = np.random.default_rng(16).integers(-(1 << 40), 1 << 40,
+                                              HOST_KEYS) % 1_000_003
+    (uniq, codes), row["factorize_ms"] = _synced_ms(
+        lambda: native.factorize_i64(keys))
+    u, first, inv = np.unique(keys, return_index=True, return_inverse=True)
+    order = np.argsort(first, kind="stable")
+    rank = np.empty(len(order), np.int64)
+    rank[order] = np.arange(len(order))
+    assert np.array_equal(codes, rank[inv.reshape(-1)]), "factorize codes"
+    assert np.array_equal(uniq, u[order]), "factorize uniq"
+    row["factorize_distinct"] = len(uniq)
+
+    rng = np.random.default_rng(17)
+    data = np.round(rng.normal(size=(HOST_CSV_ROWS, 5)) * 1e3, 3)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "numbers.csv")
+        with open(path, "w", newline="") as f:
+            writer = _csv.writer(f)
+            writer.writerow([f"c{i}" for i in range(5)])
+            writer.writerows(data.tolist())
+        with open(path, newline="") as f:
+            rows = list(_csv.reader(f))[1:]
+        want = np.asarray([[float(v) for v in r] for r in rows])
+        with open(path, "rb") as f:
+            raw = f.read()
+        body = raw[raw.index(b"\n") + 1:]
+        parsed, row["csv_parse_ms"] = _synced_ms(
+            lambda: native.csv_parse_numeric(body, 5))
+        assert np.array_equal(parsed, want), "csv_parse_numeric"
+        t = PortTable.from_csv(path)
+        assert all(np.array_equal(t.column(f"c{i}"), want[:, i])
+                   for i in range(5)), "Table.from_csv"
+
+    col = cv_table.column("input")[:HOST_POOL_ROWS]
+    fn = lambda lo, hi: text._cv_shard_counts(col, lo, hi)  # noqa: E731
+    serial, row["pool_serial_ms"] = _synced_ms(
+        lambda: text._merge_shard_counts(hostpool.map_row_shards(
+            fn, len(col), workers=1)))
+    pooled, row["pool_forked_ms"] = _synced_ms(
+        lambda: text._merge_shard_counts(hostpool.map_row_shards(
+            fn, len(col), workers=hostpool.host_parallelism(),
+            shard_cap=len(col) // 8)))
+    assert all(np.array_equal(a, b) for a, b in zip(serial, pooled))
+    row["pool_workers"] = hostpool.host_parallelism()
+    assert row["pool_workers"] >= 2, row
+
+    pids, real_fork = [], os.fork
+
+    def fork():
+        pid = real_fork()
+        if pid:
+            pids.append(pid)
+        return pid
+
+    start = time.perf_counter()
+    with mock.patch.object(hostpool.os, "fork", fork), \
+            faults.chaos(at={"hostpool-hang": [1]}):
+        try:
+            hostpool.map_row_shards(lambda lo, hi: hi - lo, 100_000,
+                                    workers=2, min_rows=16,
+                                    timeout_s=HANG_DEADLINE_S)
+            raise AssertionError("the wedged worker did not time out")
+        except WorkerTimeout:
+            pass
+    row["hang_timeout_ms"] = (time.perf_counter() - start) * 1e3
+    assert row["hang_timeout_ms"] < HANG_DEADLINE_S * 1e3 + 10_000
+    for pid in pids:
+        try:
+            os.waitpid(pid, os.WNOHANG)
+            raise AssertionError(f"child {pid} was left behind")
+        except ChildProcessError:
+            pass
+    row["hang_children_reaped"] = len(pids)
+    log("  (d) host machinery after CUDA is up: "
+        + json.dumps(row, sort_keys=True))
+    return row
+
+
+def _benchmark_demo(K, runner, device):
+    """``benchmark-demo.json`` through the port's runner: its KMeans rows
+    run, and its two broken rows are reported as the JAX runner reports
+    them. Its KMeans launches are phase 4's path, not counted here."""
+    with _uncounted(K):
+        results = runner.run_benchmarks(
+            runner.load_config(str(CONFIGS / "benchmark-demo.json")),
+            device=device)
+    failed = {name: e["exception"] for name, e in results.items()
+              if "exception" in e}
+    assert failed == DEMO_FAILURES, failed
+    rows = {name: e["results"]["totalTimeMs"] for name, e in results.items()
+            if "results" in e}
+    assert len(rows) == len(results) - 2
+    log("  benchmark-demo.json: " + json.dumps(
+        {"rows": rows, "failed": failed}, sort_keys=True))
+    return {"rows": len(rows), "failed": sorted(failed)}
+
+
+def phase_text(K, runner, Table, device="cuda"):
+    """Phase 16: the text, discrete and misc feature transformers on the
+    card, with the host pool and the native host kernels (see the module
+    docstring). ``device`` is the card; ``"cpu"`` runs the same logic on
+    the CPU, without launch counts (a rehearsal, with
+    ``runner.load_config`` patched to cut the rows)."""
+    log("phase 16: the text, discrete and misc feature transformers on "
+        "the card")
+    started = time.perf_counter()
+    K.reset_launch_counts()
+    summary = {"sparse_example": _sparse_text_example(K, Table, device),
+               "hashed_stream": _hashed_stream(K, runner, Table, device)}
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    counts = dict(K.launch_counts)
+    rows, cv_table = {}, None
+    for name in TEXT_CONFIGS:
+        ((key, spec),) = runner.load_config(
+            str(CONFIGS / f"{name}-benchmark.json")).items()
+        row = runner.best_of(key, spec, runs=1, device=device)
+        check = _check_text_row(name, spec, runner, Table, device)
+        rows[name] = {k: row[k] for k in ("totalTimeMs", "dataGenTimeMs",
+                                          "executeTimeMs", "deviceName",
+                                          "inputRecordNum", "nativeThreads")}
+        rows[name].update(check)
+        log(f"  (c) {name}: " + json.dumps(rows[name], sort_keys=True))
+        if device == "cuda":
+            assert row["deviceName"] == torch.cuda.get_device_name(0)
+    summary["configs"] = rows
+    # the runner rows and their checks launch no kernel of the port
+    assert dict(K.launch_counts) == counts, (counts, dict(K.launch_counts))
+    ((_, cv_spec),) = runner.load_config(
+        str(CONFIGS / "countvectorizer-benchmark.json")).items()
+    cv_spec["inputData"]["paramMap"]["numValues"] = min(
+        HOST_POOL_ROWS, cv_spec["inputData"]["paramMap"]["numValues"])
+    cv_table = runner.build_generator(cv_spec, device).get_data()
+    summary["host"] = _host_machinery(K, runner, cv_table)
+    summary["demo"] = _benchmark_demo(K, runner, device)
+    assert dict(K.launch_counts) == counts, (counts, dict(K.launch_counts))
+    log(f"  launches in the text run: {counts}")
+    log(f"  phase 16: {time.perf_counter() - started:.1f} s")
+    log("  text:", json.dumps(summary, sort_keys=True, default=str))
+    for kern in PATH_KERNELS["text"]:
+        assert device != "cuda" or counts[kern] >= 1, counts
+    return counts
+
+
 def _serving_group():
     from flink_ml_tpu_torch.common.metrics import metrics
 
@@ -3650,11 +4269,14 @@ def main() -> int:
     counts["serving"] = phase_serving(K, runner, card)
     counts["ops"] = phase_ops_loop(K, runner, card)
     counts["pipeline"] = phase_pipelines(K, runner, Table)
+    counts["text"] = phase_text(K, runner, Table)
 
     line = {"kernels": [
         {"name": name, **{key: K.KERNELS[name][key]
                           for key in ("route", "source", "replaces")},
          "launches": sum(c[name] for c in counts.values()),
+         "launches_by_path": {path: c[name] for path, c in counts.items()
+                              if c[name]},
          **measured[name]}
         for name in K.KERNELS]}
     missing = [r["name"] for r in line["kernels"] if r["launches"] < 1]

@@ -1,12 +1,13 @@
 """Param-driven random data generators.
 
 The port of the generators of ``flink_ml_tpu/benchmark/datagen.py`` that the
-KMeans, linear-model, KNN, FTRL, NaiveBayes and dense feature benchmarks use
+KMeans, linear-model, KNN, FTRL, NaiveBayes, feature and text benchmarks use
 (ref: flink-ml-benchmark/.../datagenerator/common/InputTableGenerator.java,
 DenseVectorGenerator.java:34-53, LabeledPointWithWeightGenerator.java:50-75,
-DoubleGenerator.java:37-66),
-and the two model-data generators of the KNN and FTRL configs, which stay on
-the host and draw the JAX package's numbers.
+DoubleGenerator.java:37-66, RandomStringGenerator.java,
+RandomStringArrayGenerator.java),
+and the model-data generators of the KNN, FTRL and KMeans configs, which
+stay on the host and draw the JAX package's numbers.
 
 Below 8 MiB a table is generated on the host with numpy, exactly as the JAX
 package generates it, so both packages see identical tables. From 8 MiB up
@@ -14,7 +15,10 @@ it is generated on the generator's device (by default the CUDA card) with a
 ``torch.Generator`` seeded from ``seed`` (one stream per column): float32,
 uniform in [0, 1), never crossing the host link. Those numbers are torch's,
 not ``jax.random``'s: the two packages draw different large tables from the
-same seed.
+same seed. The string generators stay on the host at every size and draw
+the JAX package's numbers: their columns are fixed-width ``<U`` numpy
+arrays (an ``(n, arraySize)`` token matrix for the array generator), the
+form the text transformers' vectorized paths consume.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from flink_ml_tpu_torch.common.functions import narrow_uint
 from flink_ml_tpu_torch.common.table import Table, as_dense_vector_column
 from flink_ml_tpu_torch.device import DeviceLike, resolve_device
 from flink_ml_tpu_torch.params.param import (
@@ -197,6 +202,87 @@ class HasArraySize(WithParams):
                           ParamValidators.gt(0))
 
 
+class HasNumDistinctValues(WithParams):
+    NUM_DISTINCT_VALUES = IntParam(
+        "numDistinctValues", "Number of distinct values of the data.", 10,
+        ParamValidators.gt(0))
+
+
+def _codes_to_strings(ints: np.ndarray, k: int) -> np.ndarray:
+    """Integer codes → fixed-width '<U' string array: one str() per
+    distinct value, then one gather (a sparse draw from a huge domain only
+    materializes the codes actually drawn)."""
+    if ints.size == 0:
+        return np.zeros(ints.shape, dtype="<U1")
+    if k > ints.size:
+        uniq = np.unique(ints)
+        strs = np.array([str(v) for v in uniq])
+        return _string_gather(strs, np.searchsorted(uniq, ints))
+    tokens = np.array([str(v) for v in range(k)])
+    return _string_gather(tokens, ints)
+
+
+def _string_gather(tokens: np.ndarray, ints: np.ndarray) -> np.ndarray:
+    """``tokens[ints]`` through an integer view of the fixed-width string
+    buffer, as chunked ``np.take(mode='clip', out=...)`` into one buffer
+    (element-wise '<U' fancy indexing and one-shot gathers were several
+    times slower at 1e9 tokens in the JAX package's measurements). The
+    codes are in range by construction; the assert makes a break of that
+    fail loudly instead of clip clamping it."""
+    it = tokens.dtype.itemsize  # '<U' itemsize is 4·width
+    unit, step = (np.int64, it // 8) if it % 8 == 0 else (np.int32, it // 4)
+    tv = np.ascontiguousarray(tokens.view(unit).reshape(len(tokens), step))
+    flat = ints.reshape(-1)
+    assert flat.size == 0 or (int(flat.max()) < len(tokens)
+                              and int(flat.min()) >= 0), (
+        f"token codes out of range: [{flat.min()}, {flat.max()}] vs "
+        f"{len(tokens)} tokens")
+    out = np.empty((flat.shape[0], step), unit)
+    chunk = 8 << 20
+    if step == 1:
+        tv1, out1 = tv.reshape(-1), out.reshape(-1)
+        for lo in range(0, flat.shape[0], chunk):
+            np.take(tv1, flat[lo:lo + chunk], mode="clip",
+                    out=out1[lo:lo + chunk])
+    else:
+        for lo in range(0, flat.shape[0], chunk):
+            np.take(tv, flat[lo:lo + chunk], axis=0, mode="clip",
+                    out=out[lo:lo + chunk])
+    return out.view(tokens.dtype).reshape(ints.shape)
+
+
+@_register
+class RandomStringGenerator(InputTableGenerator, HasNumDistinctValues):
+    """Strings drawn from numDistinctValues distinct tokens
+    (ref: RandomStringGenerator.java); a host '<U' column."""
+
+    def get_data(self) -> Table:
+        rng = self._rng()
+        k = self.num_distinct_values
+        cols = {name: _codes_to_strings(
+                    rng.integers(0, k, self.num_values, dtype=narrow_uint(k)),
+                    k)
+                for name in self._col_names()}
+        return Table.from_columns(**cols)
+
+
+@_register
+class RandomStringArrayGenerator(InputTableGenerator, HasNumDistinctValues,
+                                 HasArraySize):
+    """Token arrays of arraySize tokens drawn from numDistinctValues
+    distinct tokens (ref: RandomStringArrayGenerator.java), as one
+    (numValues, arraySize) host '<U' token matrix: row i is document i."""
+
+    def get_data(self) -> Table:
+        rng = self._rng()
+        k = self.num_distinct_values
+        cols = {name: _codes_to_strings(
+                    rng.integers(0, k, (self.num_values, self.array_size),
+                                 dtype=narrow_uint(k)), k)
+                for name in self._col_names()}
+        return Table.from_columns(**cols)
+
+
 class _ModelDataGenerator(HasSeed):
     """Base of the model-data generators: small host tables, so ``device``
     is accepted as every generator takes it, and not used."""
@@ -237,3 +323,20 @@ class KnnModelDataGenerator(_ModelDataGenerator, HasVectorDim, HasArraySize):
         return Table.from_columns(
             packedFeatures=rng.random((n, self.vector_dim)),
             labels=np.floor(rng.random(n) * self.label_arity))
+
+
+@_register
+class KMeansModelDataGenerator(_ModelDataGenerator, HasVectorDim,
+                               HasArraySize):
+    """Random KMeans model data, arraySize centroids of vectorDim dims and
+    unit weights (ref: datagenerator/clustering/
+    KMeansModelDataGenerator.java), drawn with numpy from the seed as the
+    JAX package draws them."""
+
+    def get_data(self) -> Table:
+        rng = np.random.default_rng(self.get_seed_or_default())
+        k = self.array_size
+        centroids = rng.random((k, self.vector_dim))
+        return Table.from_columns(
+            centroid=as_dense_vector_column(centroids),
+            weight=np.ones(k))

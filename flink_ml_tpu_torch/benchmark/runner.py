@@ -19,8 +19,9 @@ JAX rows do, the mesh an estimator fitted on (:func:`_mesh_provenance`:
 ``deviceCount``, ``meshShape``, ``updateSharding``,
 ``optStateBytesPerReplica``) and the kernel builds the run paid for
 (``compileCount`` / ``compileTimeMs``, ``observability/compilestats.py``);
-with ``FLINK_ML_TPU_TRACE_DIR`` armed the run is a ``benchmark.run`` span.
-The native-kernel provenance of the JAX rows has no counterpart here yet.
+and the thread count the native host kernels ran with (``nativeThreads``,
+:func:`_native_provenance`); with ``FLINK_ML_TPU_TRACE_DIR`` armed the run
+is a ``benchmark.run`` span.
 
     python -m flink_ml_tpu_torch.benchmark.runner CONFIG [--device cpu]
 """
@@ -103,6 +104,17 @@ def build_generator(spec: dict, device: DeviceLike = None, key="inputData"):
     gen = resolve_generator(spec[key]["className"])(device=device)
     gen.params_from_json(spec[key].get("paramMap", {}), strict=True)
     return gen
+
+
+def _native_provenance() -> dict:
+    """``nativeThreads``: the validated FLINK_ML_TPU_NATIVE_THREADS value
+    the row's native factorize and doc-freq kernels ran with (1 = one
+    thread, the default): the JAX rows' native provenance
+    (``flink_ml_tpu/benchmark/runner.py:189``). Reading it builds
+    nothing."""
+    from flink_ml_tpu_torch import native
+
+    return {"nativeThreads": native.native_threads()}
 
 
 def _mesh_provenance(mesh) -> dict:
@@ -205,6 +217,7 @@ def _run_benchmark(name: str, spec: dict, device: DeviceLike,
            if getattr(stage, "last_execution_path", None) else {}),
         **(_mesh_provenance(stage.mesh) if isinstance(stage, Estimator)
            else {}),
+        **_native_provenance(),
     }
 
 

@@ -4,9 +4,9 @@ The port of ``flink_ml_tpu/common/table.py``. A column is a host numpy array
 (numeric, or an object column of vectors), a CSR-backed sparse vector column
 (``linalg/sparse.py``), or a ``torch.Tensor`` — a device column, kept as it
 is so that chained stages hand tensors to each other without a round trip
-through the host. CSV files are parsed by the JAX package's general path
-(per-column float64 or object); its native all-numeric parser comes with
-the native host kernels.
+through the host. CSV files take the native all-numeric parser
+(``native.csv_parse_numeric``) first, and are parsed per column (float64
+or object) when a cell is not numeric.
 """
 
 from __future__ import annotations
@@ -125,8 +125,9 @@ class Table:
     @staticmethod
     def from_csv(path: str, header: bool = True, delimiter: str = ",",
                  names: Sequence[str] = None) -> "Table":
-        """Load a delimiter-separated file: a column is float64 when every
-        cell parses, an object column of strings otherwise. ``names``
+        """Load a delimiter-separated file. An all-numeric file takes the
+        native C++ parse; otherwise a column is float64 when every cell
+        parses, an object column of strings otherwise. ``names``
         overrides the column names; with ``header=True`` the header row is
         still skipped."""
         import csv as _csv
@@ -150,6 +151,13 @@ class Table:
         names = list(names)
         if len(names) != n_cols:
             raise ValueError(f"{len(names)} names for {n_cols} columns")
+        from flink_ml_tpu_torch import native
+
+        parsed = native.csv_parse_numeric(data, n_cols, delimiter) \
+            if data else np.empty((0, n_cols))
+        if parsed is not None:
+            return Table({name: parsed[:, i].copy()
+                          for i, name in enumerate(names)})
         rows = list(_csv.reader(_io.StringIO(data.decode()),
                                 delimiter=delimiter))
         rows = [r for r in rows if r]

@@ -6,8 +6,14 @@ The JAX package's model state, given as numpy arrays (for example
 a ``KnnModel``, the ``coefficients`` and ``model_version`` of an FTRL
 model, the per-dimension statistics of a scaler model, the selected
 ``indices`` of a selector model, or the ``theta``, ``pi``, ``labels`` and
-``floors`` of a ``NaiveBayesModel``), becomes the port's model, so that
-both packages compute on the same model. Saved models cross the packages
+``floors`` of a ``NaiveBayesModel``, the ``vocabulary`` of a
+``CountVectorizerModel``, the ``idf``, ``doc_freq`` and ``num_docs`` of an
+``IDFModel``, the ``string_arrays`` of a ``StringIndexerModel`` or
+``IndexToStringModel``, the ``category_sizes`` of a ``OneHotEncoderModel``,
+the ``bin_edges`` of a ``KBinsDiscretizerModel``, the ``category_maps`` of a
+``VectorIndexerModel``, the ``surrogates`` of an ``ImputerModel``, or the
+``coeff_a`` and ``coeff_b`` of a ``MinHashLSHModel``), becomes the port's
+model, so that both packages compute on the same model. Saved models cross the packages
 through ``utils/io.py`` instead.
 """
 
@@ -20,6 +26,14 @@ from flink_ml_tpu_torch.models.classification.knn import KnnModel
 from flink_ml_tpu_torch.models.classification.naivebayes import NaiveBayesModel
 from flink_ml_tpu_torch.models.clustering.kmeans import KMeansModel
 from flink_ml_tpu_torch.models.common import LinearModelBase
+from flink_ml_tpu_torch.models.feature.discrete import (
+    IndexToStringModel,
+    KBinsDiscretizerModel,
+    OneHotEncoderModel,
+    StringIndexerModel,
+    VectorIndexerModel,
+)
+from flink_ml_tpu_torch.models.feature.misc import ImputerModel, MinHashLSHModel
 from flink_ml_tpu_torch.models.feature.scalers import (
     MaxAbsScalerModel,
     MinMaxScalerModel,
@@ -29,6 +43,10 @@ from flink_ml_tpu_torch.models.feature.scalers import (
 from flink_ml_tpu_torch.models.feature.selectors import (
     UnivariateFeatureSelectorModel,
     VarianceThresholdSelectorModel,
+)
+from flink_ml_tpu_torch.models.feature.text import (
+    CountVectorizerModel,
+    IDFModel,
 )
 from flink_ml_tpu_torch.models.online import OnlineLogisticRegressionModel
 
@@ -172,3 +190,74 @@ def naive_bayes_model_from_arrays(theta, pi, labels, floors,
              for row in theta]
     return NaiveBayesModel(theta=theta, pi=pi, labels=labels, floors=floors,
                            device=device, **params)
+
+
+def count_vectorizer_model_from_arrays(vocabulary, device: DeviceLike = None,
+                                       **params) -> CountVectorizerModel:
+    """A port ``CountVectorizerModel`` from its ``vocabulary`` (tokens in
+    index order)."""
+    return CountVectorizerModel(vocabulary=[str(t) for t in vocabulary],
+                                device=device, **params)
+
+
+def idf_model_from_arrays(idf, doc_freq, num_docs: int,
+                          device: DeviceLike = None, **params) -> IDFModel:
+    """A port ``IDFModel`` from (d,) ``idf`` and ``doc_freq`` and the
+    document count."""
+    idf = np.asarray(idf, np.float64)
+    doc_freq = np.asarray(doc_freq, np.int64)
+    if idf.ndim != 1 or idf.shape != doc_freq.shape:
+        raise ValueError(f"idf and doc_freq must be (d,) arrays of one size, "
+                         f"got {idf.shape} and {doc_freq.shape}")
+    return IDFModel(idf=idf, doc_freq=doc_freq, num_docs=int(num_docs),
+                    device=device, **params)
+
+
+def string_indexer_model_from_arrays(string_arrays, device: DeviceLike = None,
+                                     inverse: bool = False, **params):
+    """A port ``StringIndexerModel`` (``IndexToStringModel`` with
+    ``inverse``) from one list of strings per input column."""
+    cls = IndexToStringModel if inverse else StringIndexerModel
+    return cls(string_arrays=[[str(v) for v in arr] for arr in string_arrays],
+               device=device, **params)
+
+
+def one_hot_encoder_model_from_arrays(category_sizes,
+                                      device: DeviceLike = None,
+                                      **params) -> OneHotEncoderModel:
+    """A port ``OneHotEncoderModel`` from the category count per column."""
+    return OneHotEncoderModel(category_sizes=[int(c) for c in category_sizes],
+                              device=device, **params)
+
+
+def kbins_discretizer_model_from_arrays(bin_edges, device: DeviceLike = None,
+                                        **params) -> KBinsDiscretizerModel:
+    """A port ``KBinsDiscretizerModel`` from the bin edges per dimension."""
+    return KBinsDiscretizerModel(bin_edges=list(bin_edges), device=device,
+                                 **params)
+
+
+def vector_indexer_model_from_arrays(category_maps, device: DeviceLike = None,
+                                     **params) -> VectorIndexerModel:
+    """A port ``VectorIndexerModel`` from ``{dim: {value: index}}``."""
+    maps = {int(d): {float(v): int(i) for v, i in m.items()}
+            for d, m in category_maps.items()}
+    return VectorIndexerModel(category_maps=maps, device=device, **params)
+
+
+def imputer_model_from_arrays(surrogates, device: DeviceLike = None,
+                              **params) -> ImputerModel:
+    """A port ``ImputerModel`` from one surrogate per input column."""
+    return ImputerModel(surrogates=np.asarray(surrogates, np.float64)
+                        .tolist(), device=device, **params)
+
+
+def minhash_lsh_model_from_arrays(coeff_a, coeff_b, device: DeviceLike = None,
+                                  **params) -> MinHashLSHModel:
+    """A port ``MinHashLSHModel`` from its (h,) int64 hash coefficients."""
+    coeff_a, coeff_b = (np.asarray(c, np.int64) for c in (coeff_a, coeff_b))
+    if coeff_a.ndim != 1 or coeff_a.shape != coeff_b.shape:
+        raise ValueError(f"coeff_a and coeff_b must be (h,) arrays of one "
+                         f"size, got {coeff_a.shape} and {coeff_b.shape}")
+    return MinHashLSHModel(coeff_a=coeff_a, coeff_b=coeff_b, device=device,
+                           **params)

@@ -110,6 +110,17 @@ def column_moments(m):
     return mean, varsum, nnz_col
 
 
+def build_csr_column(n: int, size: int, sorted_row_ids, col_idx,
+                     values) -> CsrVectorColumn:
+    """Row-major (row, column, value) triples → a CSR-backed column.
+    ``sorted_row_ids`` must be ascending; the triples are the CSR buffers
+    (no per-row SparseVector loop)."""
+    indptr = np.searchsorted(sorted_row_ids, np.arange(n + 1, dtype=np.int64))
+    return CsrVectorColumn(sp.csr_matrix(
+        (np.asarray(values, np.float64), np.asarray(col_idx, np.int64),
+         indptr), shape=(n, size)))
+
+
 def is_sparse_column(col) -> bool:
     """True for a CSR-backed column or an object column holding at least
     one SparseVector row: a column with any sparse row takes the CSR path

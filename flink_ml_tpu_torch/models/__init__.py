@@ -1,7 +1,8 @@
 """The ported algorithms (so far: KMeans; LogisticRegression, LinearSVC and
 LinearRegression; Knn; NaiveBayes; OnlineLogisticRegression; the dense
-feature scalers, vector ops and selectors; the statistical tests and the
-binary classification evaluator)."""
+feature scalers, vector ops and selectors; the text, discrete and misc
+feature ops; the statistical tests and the binary classification
+evaluator)."""
 
 from flink_ml_tpu_torch.models import clustering  # noqa: F401
 from flink_ml_tpu_torch.models import classification  # noqa: F401

@@ -14,3 +14,7 @@ from flink_ml_tpu_torch.models.classification.naivebayes import (  # noqa: F401
     NaiveBayes,
     NaiveBayesModel,
 )
+from flink_ml_tpu_torch.models.online import (  # noqa: F401,E402
+    OnlineLogisticRegression,
+    OnlineLogisticRegressionModel,
+)

@@ -1,6 +1,7 @@
 """Feature engineering ops (ref: flink-ml-lib feature/): the dense scalers,
-vector ops and selectors. The discrete, text and miscellaneous ops and
-OnlineStandardScaler come with later slices of the port."""
+vector ops and selectors, the text ops, the discrete encoders and the
+miscellaneous ops. OnlineStandardScaler comes with a later slice of the
+port."""
 
 from flink_ml_tpu_torch.models.feature.scalers import (  # noqa: F401
     MaxAbsScaler,
@@ -23,9 +24,41 @@ from flink_ml_tpu_torch.models.feature.vectorops import (  # noqa: F401
     VectorAssembler,
     VectorSlicer,
 )
+from flink_ml_tpu_torch.models.feature.text import (  # noqa: F401
+    CountVectorizer,
+    CountVectorizerModel,
+    FeatureHasher,
+    HashingTF,
+    IDF,
+    IDFModel,
+    NGram,
+    RegexTokenizer,
+    StopWordsRemover,
+    Tokenizer,
+)
+from flink_ml_tpu_torch.models.feature.discrete import (  # noqa: F401
+    IndexToString,
+    IndexToStringModel,
+    KBinsDiscretizer,
+    KBinsDiscretizerModel,
+    OneHotEncoder,
+    OneHotEncoderModel,
+    StringIndexer,
+    StringIndexerModel,
+    VectorIndexer,
+    VectorIndexerModel,
+)
 from flink_ml_tpu_torch.models.feature.selectors import (  # noqa: F401
     UnivariateFeatureSelector,
     UnivariateFeatureSelectorModel,
     VarianceThresholdSelector,
     VarianceThresholdSelectorModel,
+)
+from flink_ml_tpu_torch.models.feature.misc import (  # noqa: F401
+    Imputer,
+    ImputerModel,
+    MinHashLSH,
+    MinHashLSHModel,
+    RandomSplitter,
+    SQLTransformer,
 )

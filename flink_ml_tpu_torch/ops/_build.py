@@ -1,4 +1,5 @@
-"""Builds the port's CUDA sources at first use and loads them with ctypes.
+"""Builds the port's CUDA and host C++ sources at first use and loads them
+with ctypes.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain C interface, under ``flink_ml_tpu_torch/_build/``
@@ -8,6 +9,12 @@ is loaded from the earlier build. Nothing here runs at import time. Each
 source's build, or the library found from an earlier one, is reported once
 per process to ``observability/compilestats.py`` (``ml.compile`` under
 ``fn=<source>``), which records it once compile accounting is installed.
+
+The host kernels (``csrc/host/*.cpp``, the native tier of ``native/``) build
+the same way with ``g++`` into one library, :func:`load_host`: at first
+use, content-addressed over every source and the flags, written to a
+private name and renamed, reported as ``fn=host_native``. A missing
+``g++`` or a failed build raises :class:`KernelBuildError`.
 """
 
 from __future__ import annotations
@@ -29,6 +36,11 @@ from flink_ml_tpu_torch.resilience.policy import KernelBuildError
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PACKAGE_DIR / "csrc"
 BUILD_DIR = _PACKAGE_DIR / "_build"
+
+HOST_CSRC_DIR = CSRC_DIR / "host"
+HOST_LIBRARY = "host_native"
+GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-pthread",
+             "-std=c++17")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -121,4 +133,59 @@ def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, loaded once per process."""
     path = build(name)
     _report(name, 0.0, cached=True)  # a no-op when this process built it
+    return ctypes.CDLL(str(path))
+
+
+def _host_sources():
+    return sorted(HOST_CSRC_DIR.glob("*.cpp"))
+
+
+def host_library_path() -> Path:
+    """Where ``csrc/host/*.cpp`` build to (content-addressed over every
+    source, its name and the flags)."""
+    digest = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    for src in _host_sources():
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"lib{HOST_LIBRARY}-{digest.hexdigest()[:16]}.so"
+
+
+def build_host() -> Path:
+    """Compiles ``csrc/host/*.cpp`` into one library with ``g++`` unless its
+    current build exists."""
+    out = host_library_path()
+    if out.exists():
+        return out
+    sources = _host_sources()
+    if not sources:
+        raise KernelBuildError(f"no host kernel sources under {HOST_CSRC_DIR}")
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise KernelBuildError(
+            "g++ not found on PATH: the port's host kernels are built from "
+            "csrc/host/ at first use")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([gxx, *GXX_FLAGS, *map(str, sources), "-o", tmp],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise KernelBuildError(
+                f"g++ failed building {HOST_LIBRARY} (exit {proc.returncode}):"
+                f"\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+        _report(HOST_LIBRARY, (time.perf_counter() - t0) * 1000.0,
+                cached=False)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load_host() -> ctypes.CDLL:
+    """The built host-kernel library, loaded once per process."""
+    path = build_host()
+    _report(HOST_LIBRARY, 0.0, cached=True)
     return ctypes.CDLL(str(path))

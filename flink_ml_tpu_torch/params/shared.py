@@ -3,7 +3,7 @@
 The port's copy of the mixins from ``flink_ml_tpu/params/shared.py`` that the
 ported stages use (KMeans, the linear models, KNN, FTRL, the feature
 transformers, selectors, statistical tests, the evaluator, NaiveBayes and
-the benchmark generators). The names,
+the benchmark generators, the text, discrete and misc transformers). The names,
 descriptions, defaults and validators are the JAX package's, so the JSON
 param maps match. The other mixins come with the slices that use them.
 """
@@ -24,11 +24,11 @@ from flink_ml_tpu_torch.params.param import (
 )
 
 __all__ = [
-    "HasBatchStrategy", "HasDistanceMeasure", "HasElasticNet",
+    "HasBatchStrategy", "HasCategoricalCols", "HasDistanceMeasure", "HasElasticNet",
     "HasFeaturesCol", "HasFlatten", "HasGlobalBatchSize", "HasHandleInvalid",
     "HasInputCol", "HasInputCols", "HasLabelCol", "HasLearningRate",
     "HasMaxAllowedModelDelayMs", "HasMaxIter", "HasModelVersionCol",
-    "HasMultiClass", "HasOptimizerMethod", "HasOutputCol", "HasOutputCols",
+    "HasMultiClass", "HasNumFeatures", "HasOptimizerMethod", "HasOutputCol", "HasOutputCols",
     "HasPredictionCol", "HasRawPredictionCol", "HasReg", "HasRelativeError",
     "HasSeed", "HasTol", "HasWeightCol",
 ]
@@ -39,6 +39,11 @@ class HasBatchStrategy(WithParams):
     BATCH_STRATEGY = StringParam(
         "batchStrategy", "Strategy to create mini batch from online train data.",
         COUNT_STRATEGY, ParamValidators.in_array(COUNT_STRATEGY))
+
+
+class HasCategoricalCols(WithParams):
+    CATEGORICAL_COLS = StringArrayParam(
+        "categoricalCols", "Categorical column names.", (), ParamValidators.not_null())
 
 
 class HasDistanceMeasure(WithParams):
@@ -124,6 +129,13 @@ class HasMultiClass(WithParams):
     MULTI_CLASS = StringParam(
         "multiClass", "Classification type.", "auto",
         ParamValidators.in_array("auto", "binomial", "multinomial"))
+
+
+class HasNumFeatures(WithParams):
+    NUM_FEATURES = IntParam(
+        "numFeatures",
+        "The number of features. It will be the length of the output vector.",
+        262144, ParamValidators.gt(0))
 
 
 class HasOptimizerMethod(WithParams):

@@ -30,8 +30,12 @@ device segment boundaries), and the serving registry's ``canary-probe``
 ``model-rollback`` (entry of ``ModelRegistry.rollback``), and the ops
 controller's ``controller-retrain`` (each retrain attempt, before the
 caller's refit) and ``controller-publish`` (each publish attempt)
-(serving/controller.py). The JAX package's other sites name layers that
-later slices port.
+(serving/controller.py), the host pool's ``hostpool-child`` (a forked
+worker raises ``InjectedFault``) and ``hostpool-hang`` (a forked worker
+wedges until its deadline kills it) (common/hostpool.py, decided in the
+parent before each fork), and ``native-kernel`` (entry of every native
+host kernel, native/__init__.py). The JAX package's other sites name
+layers that later slices port.
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 tensor takes.
 
 - No module of ``flink_ml_tpu_torch`` and not ``chip_smoke.py`` imports
-  ``jax`` or the JAX package (checked on the source, not by importing).
+  ``jax``, the JAX package or ``pandas`` (the card's machine has no
+  pandas; checked on the source, not by importing).
 - Without a CUDA card the default device raises instead of running on the
   CPU.
 - A CPU tensor reaches only the plain versions of the kernels, and a CUDA
@@ -40,7 +41,7 @@ PORT_FILES = sorted(p for p in PORT_DIR.rglob("*.py")
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "flink_ml_tpu")
+    return top in ("jax", "jaxlib", "flink_ml_tpu", "pandas")
 
 
 @pytest.mark.parametrize(
@@ -73,7 +74,9 @@ def test_port_files_were_found():
             "mapreduce.py", "update_sharding.py", "pipeline.py", "graph.py",
             "columnar.py", "blas.py", "functions.py", "scalers.py",
             "quantile.py", "vectorops.py", "stats.py", "selectors.py",
-            "tests.py", "binaryclassification.py", "naivebayes.py"} <= names
+            "tests.py", "binaryclassification.py", "naivebayes.py",
+            "hostpool.py", "text.py", "discrete.py", "misc.py"} <= names
+    assert (PORT_DIR / "native" / "__init__.py") in PORT_FILES
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
