@@ -270,7 +270,41 @@ Phases, each of which fails the run (no result line, nonzero exit):
     ``benchmark-demo.json`` through ``run_benchmarks`` (its two broken
     rows reported as DEMO_FAILURES); the launches are those of
     ``PATH_KERNELS["text"]``;
-17. print one ``{"kernels": [...]}`` line with every kernel's launches in
+17. the online estimators, the CSR-fed linear models and the host
+    algorithms, each path with the counts at 0: (a) OnlineKMeans over the
+    KMeans config's table (1,000,000 x 100, k = 10) in 100 batches of
+    STREAM_BATCH rows, decay STREAM_DECAY, from KMeansModelDataGenerator's
+    model: one ``lloyd_partial_sums`` and one ``reduce_partials`` launch a
+    batch and no assignment; a rerun bit-identical; the first batch's
+    partials against the plain version (TIE_RTOL); every batch's update,
+    from a recording rerun's states, against the plain update and the JAX
+    package's float64 update (its ``models/online.py`` :1043-1060) from
+    the same state, rows assigned otherwise being ties (TIE_RTOL), within
+    STEP_ATOL, or CENTROID_ATOL for a batch with tie rows; the whole-fit
+    differences over the first STREAM_REPLAY_BATCHES batches against the
+    same stream on the CPU and a float64 numpy replay are reported, not
+    held: independent runs on these structureless rows part at their first
+    tie flip and then drift apart; (b) OnlineStandardScaler over the LR
+    config's table (10,000,000 x 100) in count windows of SCALER_WINDOW
+    rows (100 models), again with SCALER_OFFSET added to every feature
+    (the cancellation case), and in event-time tumbling windows on a
+    seeded timestamp column: means and stds against float64 two-pass
+    moments; launches ``PATH_KERNELS["online"]``; (c) the hashingtf
+    config's table (phase 16's hashed column and labels) through
+    LogisticRegression with the LR config's paramMap on ``cuda-csr``:
+    exactly two ``segment_reduce_sum`` launches a round, the column never
+    densified, a rerun identical, the coefficients within BIG_FIT_RTOL/ATOL
+    of the CPU fit, accuracy at least SPARSE_ACCURACY, the transform on the
+    CSR column; LinearSVC on the same table; a host-rounds fit with a
+    checkpoint every SPARSE_CKPT_INTERVAL rounds interrupted at round
+    SPARSE_CRASH_ROUND and resumed, equal to the uninterrupted fit;
+    launches ``PATH_KERNELS["sparse_linear"]``; (d)
+    ``agglomerativeclustering-benchmark.json`` through ``run_benchmarks``,
+    uncut, its row naming the card; (e) Swing on a seeded purchase log of
+    SWING_USERS x SWING_PER_USER purchases: the native scorer equal to the
+    Python oracle on the first SWING_PREFIX_USERS users' groupings, and
+    timed on the whole log; (d) and (e) launch no kernel;
+18. print one ``{"kernels": [...]}`` line with every kernel's launches in
     its main-path runs (in all and by path), error, times and bound, then
     the result line.
 
@@ -396,6 +430,12 @@ PATH_KERNELS = {
     # the sparse text example's and the hashed stream's FTRL fits through
     # the device-CSR engine (one C entry: no reduce_partials)
     "text": ("segment_reduce_sum",),
+    # OnlineKMeans: one Lloyd partials call and its second stage a batch
+    # (OnlineStandardScaler launches no kernel of the port)
+    "online": ("lloyd_partial_sums", "reduce_partials"),
+    # LogisticRegression and LinearSVC on a CSR column: two segment sums a
+    # round (the per-row dots, then the gradient)
+    "sparse_linear": ("segment_reduce_sum",),
 }
 # phase 15's configs, run uncut through the runner
 FEATURE_CONFIGS = (
@@ -463,6 +503,39 @@ DEMO_FAILURES = {
     "Undefined-Parameter": "ValueError: unknown parameter 'featureCol' for "
                            "KMeans",
     "Unmatch-Input": "ValueError: too many values to unpack (expected 1)"}
+
+# phase 17: (a) OnlineKMeans's global batch over the KMeans table, its decay,
+# the batches replayed in float64 numpy and run on the CPU, and the
+# tolerance of each batch's step against the plain and the float64 one
+# from the same state (batch sums of ~1,000 rows in another order or
+# width, divided by the count: about 1e-7; a step with tie rows is held by
+# CENTROID_ATOL); (b) OnlineStandardScaler's
+# count window over the LR table, the constant offset of the cancellation
+# case, the event-time window and its timestamps' seed, and the statistics'
+# tolerances (relative, against float64 two-pass moments of the same
+# float32 values: the means and the stds are float64 sums of exact values
+# added in another order; with the offset, Σx² − n·m² cancels seven
+# digits of float64); (c) the host-rounds fit's checkpoint interval and the
+# round it is interrupted at, and the accuracy bar of the CSR fits on
+# their own table; (e) Swing's seeded purchase log (users, the items they
+# draw from, purchases each) and the prefix held against the Python oracle
+STREAM_BATCH = 10_000
+STREAM_DECAY = 0.5
+STREAM_REPLAY_BATCHES = 10
+STEP_ATOL = 1e-5
+SCALER_WINDOW = 100_000
+SCALER_OFFSET = 1e3
+SCALER_EVENT_MS = 150_000
+SCALER_TS_SEED = 17
+SCALER_MEAN_RTOL = 1e-12
+SCALER_STD_RTOL = 1e-9
+SCALER_OFFSET_STD_RTOL = 1e-6
+SPARSE_CKPT_INTERVAL = 5
+SPARSE_CRASH_ROUND = 12
+SPARSE_ACCURACY = 0.75
+SWING_SEED = 17
+SWING_USERS, SWING_ITEMS, SWING_PER_USER = 20_000, 10_000, 20
+SWING_PREFIX_USERS = 2_000
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W): device
 # memory bytes per second and fp32 (non-tensor-core) operations per second
@@ -3754,8 +3827,10 @@ def _never_densified(sparse):
         yield
 
 
-def _hashed_stream(K, runner, Table, device):
-    """(b) HashingTF → IDF → FTRL at the hashingtf config's full width."""
+def _hashed_stream(K, runner, Table, device, keep=None):
+    """(b) HashingTF → IDF → FTRL at the hashingtf config's full width.
+    With ``keep`` (a dict), the HashingTF column and its labels are left
+    there for phase 17 (c)."""
     from flink_ml_tpu_torch.linalg import sparse
     from flink_ml_tpu_torch.models import feature as F
     from flink_ml_tpu_torch.models import online
@@ -3840,6 +3915,8 @@ def _hashed_stream(K, runner, Table, device):
            **stages}
     log(f"  (b) HashingTF → IDF → FTRL, {n} x {w} tokens, 2^18 wide: "
         + json.dumps(row, sort_keys=True))
+    if keep is not None:
+        keep["hashed"], keep["labels"] = hashed.column("tf"), labels
     del table, hashed, scored, stream, out
     return row
 
@@ -4176,18 +4253,20 @@ def _benchmark_demo(K, runner, device):
     return {"rows": len(rows), "failed": sorted(failed)}
 
 
-def phase_text(K, runner, Table, device="cuda"):
+def phase_text(K, runner, Table, device="cuda", keep=None):
     """Phase 16: the text, discrete and misc feature transformers on the
     card, with the host pool and the native host kernels (see the module
     docstring). ``device`` is the card; ``"cpu"`` runs the same logic on
     the CPU, without launch counts (a rehearsal, with
-    ``runner.load_config`` patched to cut the rows)."""
+    ``runner.load_config`` patched to cut the rows). ``keep`` receives the
+    hashed stream's column and labels for phase 17."""
     log("phase 16: the text, discrete and misc feature transformers on "
         "the card")
     started = time.perf_counter()
     K.reset_launch_counts()
     summary = {"sparse_example": _sparse_text_example(K, Table, device),
-               "hashed_stream": _hashed_stream(K, runner, Table, device)}
+               "hashed_stream": _hashed_stream(K, runner, Table, device,
+                                               keep)}
     if device == "cuda":
         torch.cuda.empty_cache()
     counts = dict(K.launch_counts)
@@ -4221,6 +4300,496 @@ def phase_text(K, runner, Table, device="cuda"):
     for kern in PATH_KERNELS["text"]:
         assert device != "cuda" or counts[kern] >= 1, counts
     return counts
+
+
+# -- phase 17: the online estimators, CSR-fed linear models and host algorithms --
+
+def _decayed_update(c, w, sums, counts, decay):
+    """The JAX package's OnlineKMeans update (its ``models/online.py``
+    :1051-1060) in float64 numpy, from a batch's sums and counts."""
+    w = w * decay
+    hit = counts > 0
+    w = np.where(hit, w + counts, w)
+    lam = np.where(hit, counts / np.where(hit, w, 1.0), 0.0)
+    means = sums / np.maximum(counts, 1.0)[:, None]
+    c = np.where(hit[:, None],
+                 (1.0 - lam)[:, None] * c + lam[:, None] * means, c)
+    return c, w
+
+
+def _replay_online_kmeans(x, centroids, weights, batch, decay):
+    """The JAX package's OnlineKMeans fit (its ``models/online.py``
+    :1043-1060) in float64 numpy over the rows of ``x``, batch by batch:
+    float64 distances, first-minimum assignment, float64 sums."""
+    c, w = centroids.astype(np.float64), weights.astype(np.float64)
+    k = c.shape[0]
+    for lo in range(0, x.shape[0] - batch + 1, batch):
+        xb = x[lo:lo + batch]
+        d2 = ((xb * xb).sum(1)[:, None] - 2.0 * xb @ c.T
+              + (c * c).sum(1)[None, :])
+        assign = np.argmin(d2, axis=1)
+        counts = np.bincount(assign, minlength=k).astype(np.float64)
+        sums = np.zeros_like(c)
+        np.add.at(sums, assign, xb)
+        c, w = _decayed_update(c, w, sums, counts, decay)
+    return c, w
+
+
+class _StateRecorder:
+    """A stream listener keeping the host state after every batch."""
+
+    def __init__(self):
+        self.states = []
+
+    def on_epoch_watermark_incremented(self, batch, state):
+        self.states.append(tuple(np.array(a) for a in state))
+
+    def on_iteration_terminated(self, state):
+        pass
+
+
+def _online_kmeans_steps(K, x, init_c, init_w, states, device):
+    """Every batch's update of a fit, held from the same state against
+    (1) the plain one: the plain partials of the batch's rows on the
+    float32 centroids the fit scored, then the float64 update; and (2) the
+    JAX package's: float64 distances to the float64 centroids, float64
+    sums, the float64 update. Rows assigned otherwise than by the kernel
+    must be ties (TIE_RTOL); a batch without such rows is held by
+    STEP_ATOL, one with them by CENTROID_ATOL. → {"plain"/"f64":
+    (largest difference, tie rows)}."""
+    prev_c, prev_w = init_c, init_w
+    out = {"plain": (0.0, 0), "f64": (0.0, 0)}
+    ones = torch.ones(STREAM_BATCH, dtype=torch.float32, device=device)
+    for b, (c, w) in enumerate(states):
+        xb = x[b * STREAM_BATCH:(b + 1) * STREAM_BATCH]
+        c32 = torch.as_tensor(prev_c, dtype=torch.float32, device=device)
+        c64 = torch.as_tensor(prev_c, dtype=torch.float64, device=device)
+        labels = K.assign_nearest(xb, c32).long()
+        packed = K.lloyd_partial_sums_plain(xb, ones, c32).double().cpu()
+        plain = (packed[:, :-1].numpy(), packed[:, -1].numpy(),
+                 tie_rows_ok(xb, c32, labels,
+                             K.assign_nearest_plain(xb, c32).long()))
+        xd = xb.double()
+        d2 = ((xd * xd).sum(1)[:, None] - 2.0 * xd @ c64.T
+              + (c64 * c64).sum(1)[None, :])
+        l64 = torch.argmin(d2, dim=1)
+        sums = torch.zeros_like(c64).index_add_(0, l64, xd)
+        counts = torch.bincount(l64, minlength=c64.shape[0]).double()
+        f64 = (sums.cpu().numpy(), counts.cpu().numpy(),
+               tie_rows_ok(xb, c64, labels, l64))
+        for name, (sums, counts, flips) in (("plain", plain), ("f64", f64)):
+            want_c, _ = _decayed_update(prev_c, prev_w, sums, counts,
+                                        STREAM_DECAY)
+            diff = float(np.abs(c - want_c).max())
+            assert diff <= (CENTROID_ATOL if flips else STEP_ATOL), (
+                name, b, diff, flips)
+            worst, ties = out[name]
+            out[name] = (max(worst, diff), ties + flips)
+        prev_c, prev_w = c, w
+    return out
+
+
+def _online_kmeans(K, runner, Table, device):
+    """(a) OnlineKMeans over the KMeans config's table in STREAM_BATCH-row
+    batches, from KMeansModelDataGenerator's initial model."""
+    from flink_ml_tpu_torch.benchmark import datagen
+    from flink_ml_tpu_torch.models import online
+
+    spec = runner.load_config(str(CONFIG))["KMeans"]
+    data = spec["inputData"]["paramMap"]
+    k, d = spec["stage"]["paramMap"]["k"], data["vectorDim"]
+    table = runner.build_generator(spec, device).get_data()
+    n = table.num_rows
+    gen = datagen.KMeansModelDataGenerator(device=device)
+    gen.params_from_json({"arraySize": k, "vectorDim": d,
+                          "seed": data["seed"]}, strict=True)
+    init = gen.get_data()
+    batches = n // STREAM_BATCH
+
+    def fit(rows, dev):
+        est = online.OnlineKMeans(
+            k=k, global_batch_size=STREAM_BATCH, decay_factor=STREAM_DECAY,
+            device=dev).set_initial_model_data(init)
+        model, ms = _synced_ms(lambda: est.fit(rows))
+        return est, model, ms
+
+    before = dict(K.launch_counts)
+    est, model, fit_ms = fit(table, device)
+    launches = {name: K.launch_counts[name] - before[name]
+                for name in ("lloyd_partial_sums", "reduce_partials",
+                             "assign_nearest")}
+    x = table.column("features")
+    init_c = init.vectors("centroid", np.float64)
+    init_w = init.scalars("weight", np.float64)
+    c0 = torch.as_tensor(init_c, dtype=torch.float32, device=device)
+    ones = torch.ones(STREAM_BATCH, dtype=torch.float32, device=device)
+    head = table.take(slice(0, STREAM_REPLAY_BATCHES * STREAM_BATCH))
+    with _uncounted(K):
+        _, again, warm_ms = fit(table, device)
+        # the first batch's partials against the plain version (TIE_RTOL)
+        check_lloyd(K, x[:STREAM_BATCH], ones, c0, "online kmeans batch 0")
+        batch_ms = (time_ms(lambda: K.lloyd_partial_sums(
+            x[:STREAM_BATCH], ones, c0)) if device == "cuda" else None)
+        # every batch's update against the plain one from the same state
+        recorder = _StateRecorder()
+        steps = online.OnlineKMeans(
+            k=k, global_batch_size=STREAM_BATCH, decay_factor=STREAM_DECAY,
+            device=device).set_initial_model_data(init)
+        recorded = steps.set_iteration_config(
+            None, listeners=[recorder]).fit(table)
+        steps = _online_kmeans_steps(K, x, init_c, init_w, recorder.states,
+                                     device)
+        _, head_model, _ = fit(head, device)
+    host_head = head.column("features").cpu()
+    _, cpu_model, cpu_ms = fit(Table.from_columns(features=host_head), "cpu")
+    replay_c, replay_w = _replay_online_kmeans(
+        host_head.double().numpy(), init_c, init_w, STREAM_BATCH,
+        STREAM_DECAY)
+    path = "cuda-lloyd-stream" if device == "cuda" else "torch-lloyd-stream"
+    assert est.last_execution_path == path, est.last_execution_path
+    for other in (again, recorded):
+        assert np.array_equal(other.centroids, model.centroids) and \
+            np.array_equal(other.weights, model.weights), (
+                "OnlineKMeans differs on a rerun")
+    assert len(recorder.states) == batches
+    assert model.centroids.shape == (k, d) and \
+        np.isfinite(model.centroids).all()
+    # independent runs on these structureless rows part at their first
+    # tie flip and then drift apart, so the whole-prefix differences are
+    # reported; the steps above are what is held
+    cpu_diff = float(np.abs(head_model.centroids - cpu_model.centroids).max())
+    replay_diff = float(np.abs(head_model.centroids - replay_c).max())
+    if device == "cuda":
+        assert launches == {"lloyd_partial_sums": batches,
+                            "reduce_partials": batches,
+                            "assign_nearest": 0}, launches
+    row = {"rows": n, "dim": d, "k": k, "batches": batches,
+           "path": est.last_execution_path, "fit_ms": fit_ms,
+           "ms_per_batch": fit_ms / batches, "rerun_fit_ms": warm_ms,
+           "rerun_ms_per_batch": warm_ms / batches,
+           "lloyd_call_ms_at_batch": batch_ms, "launches": launches,
+           "max_step_diff_vs_plain": steps["plain"][0],
+           "step_tie_rows_vs_plain": steps["plain"][1],
+           "max_step_diff_vs_f64": steps["f64"][0],
+           "step_tie_rows_vs_f64": steps["f64"][1],
+           "prefix_batches": STREAM_REPLAY_BATCHES,
+           "prefix_cpu_fit_ms": cpu_ms,
+           "prefix_max_centroid_diff_vs_cpu": cpu_diff,
+           "prefix_max_centroid_diff_vs_f64_replay": replay_diff,
+           "weight_sum": float(model.weights.sum())}
+    log("  (a) OnlineKMeans: " + json.dumps(row, sort_keys=True))
+    del table, x, host_head, head
+    return row
+
+
+def _online_scaler(K, runner, Table, device):
+    """(b) OnlineStandardScaler over the LR config's table: count windows,
+    the same with a constant offset (the cancellation case), and event-time
+    tumbling windows on a seeded timestamp column."""
+    from flink_ml_tpu_torch.common.window import (
+        CountTumblingWindows,
+        EventTimeTumblingWindows,
+    )
+    from flink_ml_tpu_torch.iteration.streaming import StreamTable
+    from flink_ml_tpu_torch.models import online
+
+    spec = runner.load_config(
+        str(LINEAR_CONFIGS["logisticregression"]))["logisticregression"]
+    x = runner.build_generator(spec, device).get_data().column("features")
+    n = x.shape[0]
+
+    def fit(data, windows, **kwargs):
+        est = online.OnlineStandardScaler(
+            input_col="features", output_col="scaled", windows=windows,
+            device=device)
+        return _synced_ms(lambda: est.fit(data, **kwargs))
+
+    def check(model, ref, tag, std_rtol):
+        mean, varsum = ref
+        std = np.sqrt(varsum / (n - 1))
+        mean_err = float(np.max(np.abs(model.mean - mean) / np.abs(mean)))
+        std_err = float(np.max(np.abs(model.std - std) / std))
+        assert mean_err <= SCALER_MEAN_RTOL, (tag, mean_err)
+        assert std_err <= std_rtol, (tag, std_err)
+        return {"mean_rel_err": mean_err, "std_rel_err": std_err}
+
+    row = {"rows": n, "dim": x.shape[1]}
+    windows = CountTumblingWindows.of(SCALER_WINDOW)
+    model, row["count_fit_ms"] = fit(Table.from_columns(features=x), windows)
+    again, row["count_rerun_ms"] = fit(Table.from_columns(features=x),
+                                       windows)
+    assert np.array_equal(again.std, model.std)
+    assert len(model.history) == n // SCALER_WINDOW
+    assert model.model_version == n // SCALER_WINDOW - 1
+    row["ms_per_window"] = row["count_fit_ms"] / len(model.history)
+    row["rerun_ms_per_window"] = row["count_rerun_ms"] / len(model.history)
+    ref = _f64_moments(x)
+    row["count"] = check(model, ref, "count windows", SCALER_STD_RTOL)
+    head = x[:FEATURE_ROWS]
+    out = model.transform(Table.from_columns(features=head))[0]["scaled"]
+    assert out.dtype == torch.float32 and out.device == head.device
+    want = head.double() / torch.as_tensor(model.std, device=head.device)
+    within_sum_tol(out.double(), want, "online scaler transform")
+
+    shifted = x + SCALER_OFFSET
+    model, row["offset_fit_ms"] = fit(Table.from_columns(features=shifted),
+                                      windows)
+    row["offset"] = check(model, _f64_moments(shifted), "offset",
+                          SCALER_OFFSET_STD_RTOL)
+    del shifted
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    ts = np.cumsum(np.random.default_rng(SCALER_TS_SEED).integers(
+        0, 3, n)).astype(np.int64)
+    stream = StreamTable.from_table(Table.from_columns(features=x, ts=ts),
+                                    SCALER_WINDOW)
+    model, row["event_fit_ms"] = fit(
+        stream, EventTimeTumblingWindows.of(SCALER_EVENT_MS),
+        timestamp_col="ts")
+    ends = ((np.unique(ts // SCALER_EVENT_MS) + 1) * SCALER_EVENT_MS)
+    assert model.history_timestamps == ends.tolist()
+    row["event_windows"] = len(model.history)
+    row["event"] = check(model, ref, "event-time windows", SCALER_STD_RTOL)
+    log("  (b) OnlineStandardScaler: " + json.dumps(row, sort_keys=True))
+    del x, stream, head, out
+    return row
+
+
+def phase_online(K, runner, Table, device="cuda"):
+    """Phase 17, the online path: (a) OnlineKMeans and (b)
+    OnlineStandardScaler on the card (see the module docstring).
+    ``device="cpu"`` runs the same logic on the CPU, without launch counts
+    (a rehearsal, with ``runner.load_config`` patched to cut the rows)."""
+    log("phase 17: the online estimators on the card")
+    started = time.perf_counter()
+    K.reset_launch_counts()
+    summary = {"online_kmeans": _online_kmeans(K, runner, Table, device)}
+    summary["online_scaler"] = _online_scaler(K, runner, Table, device)
+    counts = dict(K.launch_counts)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    log(f"  launches in the online run: {counts}")
+    log(f"  phase 17 (a, b): {time.perf_counter() - started:.1f} s")
+    log("  online:", json.dumps(summary, sort_keys=True, default=str))
+    for kern in PATH_KERNELS["online"]:
+        assert device != "cuda" or counts[kern] >= 1, counts
+    return counts
+
+
+class _Crash(Exception):
+    pass
+
+
+def _hashed_table(runner, Table, device, keep):
+    """The hashingtf config's table through HashingTF (2^18 wide) with
+    phase 16 (b)'s labels: ``keep``'s copy when phase 16 left one."""
+    if keep and "hashed" in keep:
+        return keep.pop("hashed"), keep.pop("labels")
+    ((_, spec),) = runner.load_config(
+        str(CONFIGS / "hashingtf-benchmark.json")).items()
+    table = runner.build_generator(spec, device).get_data()
+    labels = _text_labels(table.column("input"),
+                          spec["inputData"]["paramMap"]["seed"])
+    tf = runner.build_stage(spec, device).set_output_col("tf")
+    return tf.transform(table)[0].column("tf"), labels
+
+
+def phase_sparse_linear(K, runner, Table, device="cuda", keep=None):
+    """Phase 17 (c): LogisticRegression and LinearSVC on the hashed CSR
+    column, on the card's segment kernel (see the module docstring)."""
+    from flink_ml_tpu_torch.iteration import (
+        CheckpointManager,
+        IterationConfig,
+        IterationListener,
+    )
+    from flink_ml_tpu_torch.linalg import sparse
+    from flink_ml_tpu_torch.models import classification
+
+    log("phase 17 (c): CSR-fed linear models on the card")
+    started = time.perf_counter()
+    spec = runner.load_config(
+        str(LINEAR_CONFIGS["logisticregression"]))["logisticregression"]
+    pm = spec["stage"]["paramMap"]
+    params = dict(max_iter=pm["maxIter"], reg=pm["reg"],
+                  elastic_net=pm["elasticNet"],
+                  learning_rate=pm["learningRate"],
+                  global_batch_size=pm["globalBatchSize"], tol=pm["tol"])
+    (col, labels), prep_ms = _synced_ms(
+        lambda: _hashed_table(runner, Table, device, keep))
+    data = Table.from_columns(features=col, label=labels)
+    m = col.to_csr()
+    n, dim = m.shape
+
+    class CrashAt(IterationListener):
+        def on_epoch_watermark_incremented(self, epoch, carry):
+            if epoch == SPARSE_CRASH_ROUND:
+                raise _Crash()
+
+    def fit(cls, dev=device, config=None, listeners=()):
+        est = cls(device=dev, **params)
+        if config is not None:
+            est.set_iteration_config(config, listeners)
+        model, ms = _synced_ms(lambda: est.fit(data))
+        return est, model, ms
+
+    path = "cuda-csr" if device == "cuda" else "torch-csr"
+    row = {"rows": n, "dim": dim, "nnz": int(m.nnz), "prep_ms": prep_ms}
+    K.reset_launch_counts()
+    with _never_densified(sparse):
+        est, model, row["lr_fit_ms"] = fit(classification.LogisticRegression)
+        row["lr_launches"] = K.launch_counts["segment_reduce_sum"]
+        out, row["lr_transform_ms"] = _synced_ms(
+            lambda: model.transform(data)[0])
+        pred = out["prediction"].cpu().numpy()
+        row["lr_accuracy"] = float(np.mean(pred == labels))
+        svc, svc_model, row["svc_fit_ms"] = fit(classification.LinearSVC)
+        svc_pred = svc_model.transform(data)[0]["prediction"].cpu().numpy()
+        row["svc_accuracy"] = float(np.mean(svc_pred == labels))
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = IterationConfig(mode="host",
+                                  checkpoint_interval=SPARSE_CKPT_INTERVAL,
+                                  checkpoint_manager=CheckpointManager(tmp))
+            try:
+                fit(classification.LogisticRegression, config=cfg,
+                    listeners=[CrashAt()])
+                raise AssertionError("the host-rounds fit did not crash")
+            except _Crash:
+                pass
+            rounds, resumed, row["resumed_fit_ms"] = fit(
+                classification.LogisticRegression, config=cfg)
+        counts = dict(K.launch_counts)
+        with _uncounted(K):
+            _, again, _ = fit(classification.LogisticRegression)
+            row.update(_csr_split(K, m, labels, params, device))
+        _, cpu_model, row["cpu_fit_ms"] = fit(
+            classification.LogisticRegression, dev="cpu")
+    assert est.last_execution_path == path, est.last_execution_path
+    assert svc.last_execution_path == path, svc.last_execution_path
+    assert rounds.last_execution_path == path + "-rounds"
+    rounds_per_fit = params["max_iter"]
+    if device == "cuda":
+        assert row["lr_launches"] == 2 * rounds_per_fit, row["lr_launches"]
+    assert np.array_equal(again.coefficients, model.coefficients), (
+        "the CSR fit differs on a rerun")
+    assert np.array_equal(resumed.coefficients, model.coefficients), (
+        "the resumed host-rounds fit differs from the uninterrupted one")
+    diff = np.abs(model.coefficients - cpu_model.coefficients)
+    excess = diff - BIG_FIT_RTOL * np.abs(cpu_model.coefficients) - \
+        BIG_FIT_ATOL
+    assert excess.max() <= 0, float(excess.max())
+    assert row["lr_accuracy"] >= SPARSE_ACCURACY, row["lr_accuracy"]
+    assert row["svc_accuracy"] >= SPARSE_ACCURACY, row["svc_accuracy"]
+    row.update({"path": est.last_execution_path,
+                "max_coeff_diff_vs_cpu": float(diff.max()),
+                "nonzero_coefficients": int((model.coefficients != 0).sum()),
+                "launches": counts})
+    log("  (c) CSR linear fits: " + json.dumps(row, sort_keys=True))
+    log(f"  phase 17 (c): {time.perf_counter() - started:.1f} s")
+    del data, col, m, out
+    for kern in PATH_KERNELS["sparse_linear"]:
+        assert device != "cuda" or counts[kern] >= 1, counts
+    return counts
+
+
+def _csr_split(K, m, labels, params, device):
+    """Where a CSR fit's time goes: the matrix's placement on the device,
+    the rounds alone on the placed data, and the two segment sums of the
+    first window (the per-row dots, then the gradient over the feature
+    width), eagerly."""
+    from flink_ml_tpu_torch.ops import losses, optimizer
+    from flink_ml_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh([torch.device(device)])
+    data, place_ms = _synced_ms(
+        lambda: optimizer.ShardData.place_csr(mesh, m, labels))
+    prm = optimizer.SGDParams(
+        learning_rate=params["learning_rate"],
+        global_batch_size=params["global_batch_size"],
+        max_iter=params["max_iter"], tol=params["tol"], reg=params["reg"],
+        elastic_net=params["elastic_net"])
+    dim = m.shape[1]
+
+    def rounds():
+        return optimizer._masked_rounds(
+            optimizer.csr_batch_terms, losses.BinaryLogisticLoss.NAME, prm,
+            mesh, False, data, torch.zeros(dim, device=device), (),
+            np.zeros(1, np.int32), prm.max_iter)
+
+    _, rounds_ms = _synced_ms(rounds)
+    shard = data.x.parts[0]
+    lb = min(prm.global_batch_size, m.shape[0])
+    hi = int(shard.indptr_host[lb])
+    vals, cols = shard.data[:hi], shard.indices[:hi]
+    local = shard.rows[:hi]
+    out = {"place_ms": place_ms, "rounds_ms": rounds_ms,
+           "rounds_ms_per_round": rounds_ms / prm.max_iter,
+           "window_values": hi}
+    if device == "cuda":
+        out["dots_call_ms"] = time_ms(
+            lambda: K.segment_reduce_sum(vals, local, lb))
+        out["grad_call_ms"] = time_ms(
+            lambda: K.segment_reduce_sum(vals, cols, dim))
+    return out
+
+
+def _swing_log(seed, users, items, per_user):
+    rng = np.random.default_rng(seed)
+    user = np.repeat(np.arange(users, dtype=np.int64), per_user)
+    item = rng.integers(0, items, users * per_user).astype(np.int64)
+    return user, item
+
+
+def phase_host_algorithms(K, runner, Table, device="cuda"):
+    """Phase 17 (d, e): the agglomerativeclustering config through
+    ``run_benchmarks``, and Swing's native scorer; neither launches a
+    kernel of the port."""
+    from flink_ml_tpu_torch.models.recommendation import Swing
+
+    log("phase 17 (d, e): AgglomerativeClustering and Swing")
+    started = time.perf_counter()
+    counts = dict(K.launch_counts)
+    config = runner.load_config(
+        str(CONFIGS / "agglomerativeclustering-benchmark.json"))
+    ((name, entry),) = runner.run_benchmarks(config, device).items()
+    assert "exception" not in entry, entry
+    res = entry["results"]
+    want_name = (torch.cuda.get_device_name(0) if device == "cuda"
+                 else "cpu")
+    assert res["deviceName"] == want_name, res["deviceName"]
+    n = config[name]["inputData"]["paramMap"]["numValues"]
+    assert res["inputRecordNum"] == n and res["outputRecordNum"] == 2 * n - 1
+    agg = {k: res[k] for k in ("totalTimeMs", "dataGenTimeMs",
+                               "executeTimeMs", "deviceName",
+                               "inputRecordNum", "outputRecordNum")}
+    log(f"  (d) {name}: " + json.dumps(agg, sort_keys=True))
+
+    user, item = _swing_log(SWING_SEED, SWING_USERS, SWING_ITEMS,
+                            SWING_PER_USER)
+    op = Swing(device=device)
+    out, swing_ms = _synced_ms(lambda: op.transform(
+        Table.from_columns(user=user, item=item))[0])
+    # the oracle on a prefix of the log: the same groupings, both scorers
+    head = SWING_PREFIX_USERS * SWING_PER_USER
+    groups = op._groupings(user[:head], item[:head])
+    native_ranked = op._score_native(*groups, op.alpha2)
+    assert native_ranked == op._score_python(*groups, op.alpha2), (
+        "the native Swing scorer differs from the Python oracle")
+    full_groups = op._groupings(user, item)
+    _, native_ms = _synced_ms(lambda: op._score_native(*full_groups,
+                                                       op.alpha2))
+    recs = list(out.column(op.output_col))
+    assert out.num_rows > 0 and all(
+        len(r.split(";")) <= op.k for r in recs)
+    swing = {"purchases": int(user.size), "users": SWING_USERS,
+             "items": SWING_ITEMS, "prefix_purchases": head,
+             "prefix_items_checked": len(native_ranked),
+             "output_rows": out.num_rows, "transform_ms": swing_ms,
+             "native_scorer_ms": native_ms}
+    log("  (e) Swing: " + json.dumps(swing, sort_keys=True))
+    log(f"  phase 17 (d, e): {time.perf_counter() - started:.1f} s")
+    assert dict(K.launch_counts) == counts, (counts, dict(K.launch_counts))
+    return {"agglomerative": agg, "swing": swing}
 
 
 def _serving_group():
@@ -4269,7 +4838,11 @@ def main() -> int:
     counts["serving"] = phase_serving(K, runner, card)
     counts["ops"] = phase_ops_loop(K, runner, card)
     counts["pipeline"] = phase_pipelines(K, runner, Table)
-    counts["text"] = phase_text(K, runner, Table)
+    keep = {}
+    counts["text"] = phase_text(K, runner, Table, keep=keep)
+    counts["online"] = phase_online(K, runner, Table)
+    counts["sparse_linear"] = phase_sparse_linear(K, runner, Table, keep=keep)
+    phase_host_algorithms(K, runner, Table)
 
     line = {"kernels": [
         {"name": name, **{key: K.KERNELS[name][key]

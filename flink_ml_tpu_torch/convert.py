@@ -12,7 +12,9 @@ model, the per-dimension statistics of a scaler model, the selected
 ``IndexToStringModel``, the ``category_sizes`` of a ``OneHotEncoderModel``,
 the ``bin_edges`` of a ``KBinsDiscretizerModel``, the ``category_maps`` of a
 ``VectorIndexerModel``, the ``surrogates`` of an ``ImputerModel``, or the
-``coeff_a`` and ``coeff_b`` of a ``MinHashLSHModel``), becomes the port's
+``coeff_a`` and ``coeff_b`` of a ``MinHashLSHModel``, the ``centroids`` and
+``weights`` of an ``OnlineKMeansModel``, or the ``mean``, ``std`` and
+``model_version`` of an ``OnlineStandardScalerModel``), becomes the port's
 model, so that both packages compute on the same model. Saved models cross the packages
 through ``utils/io.py`` instead.
 """
@@ -48,20 +50,34 @@ from flink_ml_tpu_torch.models.feature.text import (
     CountVectorizerModel,
     IDFModel,
 )
-from flink_ml_tpu_torch.models.online import OnlineLogisticRegressionModel
+from flink_ml_tpu_torch.models.online import (
+    OnlineKMeansModel,
+    OnlineLogisticRegressionModel,
+    OnlineStandardScalerModel,
+)
 
 
 def kmeans_model_from_arrays(centroids, weights, device: DeviceLike = None,
-                             **params) -> KMeansModel:
-    """A port ``KMeansModel`` from (k, d) centroids and (k,) weights;
-    ``params`` are its params by name (``k``, ``distance_measure``, ...)."""
+                             model_cls=KMeansModel, **params) -> KMeansModel:
+    """A port ``KMeansModel`` (or ``model_cls``) from (k, d) centroids and
+    (k,) weights; ``params`` are its params by name (``k``,
+    ``distance_measure``, ...)."""
     centroids = np.asarray(centroids, np.float64)
     weights = np.asarray(weights, np.float64)
     if centroids.ndim != 2 or weights.shape != (centroids.shape[0],):
         raise ValueError(f"centroids must be (k, d) and weights (k,), got "
                          f"{centroids.shape} and {weights.shape}")
-    return KMeansModel(centroids=centroids, weights=weights, device=device,
-                       **params)
+    return model_cls(centroids=centroids, weights=weights, device=device,
+                     **params)
+
+
+def online_kmeans_model_from_arrays(centroids, weights,
+                                    device: DeviceLike = None,
+                                    **params) -> OnlineKMeansModel:
+    """A port ``OnlineKMeansModel`` from (k, d) centroids and (k,) weights;
+    ``params`` are its params by name."""
+    return kmeans_model_from_arrays(centroids, weights, device,
+                                    model_cls=OnlineKMeansModel, **params)
 
 
 def linear_model_from_arrays(model_cls, coefficients,
@@ -113,6 +129,23 @@ def _stat_model(model_cls, stats: dict, device: DeviceLike, params: dict):
         raise ValueError(f"statistics must be (d,) arrays of one size, got "
                          f"{ {k: v.shape for k, v in stats.items()} }")
     return model_cls(device=device, **stats, **params)
+
+
+def online_standard_scaler_model_from_arrays(
+        mean, std, model_version: int = 0, timestamp: int = 0,
+        with_mean: bool = False, with_std: bool = True,
+        device: DeviceLike = None, **params) -> OnlineStandardScalerModel:
+    """A port ``OnlineStandardScalerModel`` from (d,) ``mean`` and ``std``,
+    its version, timestamp and flags; ``params`` are its params by name
+    (``input_col``, ``model_version_col``, ...)."""
+    mean = np.asarray(mean, np.float64)
+    std = np.asarray(std, np.float64)
+    if mean.ndim != 1 or std.shape != mean.shape:
+        raise ValueError(f"mean and std must be (d,) arrays of one size, got "
+                         f"{mean.shape} and {std.shape}")
+    return OnlineStandardScalerModel(
+        mean=mean, std=std, model_version=model_version, timestamp=timestamp,
+        with_mean=with_mean, with_std=with_std, device=device, **params)
 
 
 def standard_scaler_model_from_arrays(mean, std, device: DeviceLike = None,

@@ -14,4 +14,6 @@ from flink_ml_tpu_torch.iteration.iteration import (  # noqa: F401
 from flink_ml_tpu_torch.iteration.streaming import (  # noqa: F401
     StreamTable,
     generate_batches,
+    iterate_unbounded,
+    window_stream,
 )

@@ -403,3 +403,8 @@ class Iterations:
     """Namespace parity with iteration/Iterations.java."""
 
     iterate_bounded_streams_until_termination = staticmethod(iterate_bounded)
+
+    @staticmethod
+    def iterate_unbounded_streams(*args, **kwargs):
+        from flink_ml_tpu_torch.iteration.streaming import iterate_unbounded
+        return iterate_unbounded(*args, **kwargs)

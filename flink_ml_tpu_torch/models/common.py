@@ -90,11 +90,12 @@ def scalar_column(table: Table, name: str):
 
 
 def extract_labeled_points(stage, table: Table):
-    """Table → (features (n, d), labels (n,), weights (n,) or None), the
-    reference's Table→LabeledPointWithWeight map
+    """Table → (features (n, d) dense or scipy CSR, labels (n,), weights (n,)
+    or None), the reference's Table→LabeledPointWithWeight map
     (LogisticRegression.java:72-99). Tensor columns are returned as they
-    are, on their device."""
-    x = table.vectors(stage.features_col)
+    are, on their device; a sparse vector column stays CSR, so wide hashed
+    features (2^18 dims) are never densified (ref BLAS.java:78)."""
+    x = sparse.features_matrix(table, stage.features_col)
     y = scalar_column(table, stage.label_col)
     w = None
     if stage.weight_col is not None and stage.weight_col in table:
@@ -128,7 +129,7 @@ def predict_dots(x, coefficients, device: torch.device):
     return xd @ cd
 
 
-def _capture_drift_baseline(estimator, model, x, coeffs) -> None:
+def _capture_drift_baseline(estimator, model, x) -> None:
     """The traced-fit drift seam (observability/drift.py): sketch a
     row-capped sample of the training inputs per feature plus the final
     model's predictions on that sample, attaching the
@@ -145,8 +146,8 @@ def _capture_drift_baseline(estimator, model, x, coeffs) -> None:
         if not drift.capture_armed():
             return
         xs = drift.sample_rows(x)
-        dots = predict_dots(xs, coeffs, model.device)
-        pred = model._predict_columns(dots).get(model.prediction_col)
+        pred = model._predict_columns(model._dots(xs)).get(
+            model.prediction_col)
         drift.capture_fit_baseline(model, type(estimator).__name__,
                                    features=to_host(xs),
                                    predictions=to_host(pred))
@@ -157,7 +158,7 @@ def _capture_drift_baseline(estimator, model, x, coeffs) -> None:
             "drift baseline capture failed", exc_info=True)
 
 
-def _capture_quality_baseline(estimator, model, x, y, coeffs) -> None:
+def _capture_quality_baseline(estimator, model, x, y) -> None:
     """The traced-fit quality seam (observability/evaluation.py):
     sketch the final model's positive-class scores on the same
     row-capped training sample against the matching labels, attaching
@@ -174,8 +175,7 @@ def _capture_quality_baseline(estimator, model, x, y, coeffs) -> None:
             return
         xs = drift.sample_rows(x)
         ys = np.asarray(to_host(y)).ravel()[:xs.shape[0]]
-        dots = predict_dots(xs, coeffs, model.device)
-        cols = model._predict_columns(dots)
+        cols = model._predict_columns(model._dots(xs))
         raw = cols.get(getattr(model, "raw_prediction_col", None))
         scores = evaluation.positive_scores(
             raw_values=(None if raw is None else to_host(raw)),
@@ -217,14 +217,23 @@ class LinearModelBase(Model, LinearTrainParams):
         raise NotImplementedError
 
     def transform(self, table: Table) -> Tuple[Table]:
+        """The prediction columns, tensors on this model's device. A sparse
+        feature column stays CSR: its margins are a float64 host product
+        (:func:`predict_dots`), rounded to float32 on the way to the
+        device, so the predictions are the dense column's."""
         if self.coefficients is None:
             raise ValueError(f"{type(self).__name__} has no model data")
-        x = table.vectors(self.features_col)
-        if not isinstance(x, (np.ndarray, torch.Tensor)):
-            raise NotImplementedError(
-                "sparse features come with a later slice of the port")
+        x = sparse.features_matrix(table, self.features_col)
+        return (table.with_columns(**self._predict_columns(self._dots(x))),)
+
+    def _dots(self, x) -> torch.Tensor:
+        """The (n,) float32 margins of dense or CSR rows, on this model's
+        device."""
         dots = predict_dots(x, self.coefficients, self.device)
-        return (table.with_columns(**self._predict_columns(dots)),)
+        if isinstance(dots, np.ndarray):
+            dots = torch.as_tensor(dots, dtype=torch.float32,
+                                   device=self.device)
+        return dots
 
     # -- model data as a Table (ref: XxxModelData POJO + table) -------------
     def set_model_data(self, model_data: Table):
@@ -261,7 +270,7 @@ class LinearEstimatorBase(Estimator, LinearTrainParams,
         return self._supervised_fit(lambda: self._fit_once(table))
 
     def _fit_once(self, table: Table):
-        x, y, w = extract_labeled_points(self, table)
+        x, y, w = extract_labeled_points(self, table)  # x may be CSR
         params = SGDParams(
             learning_rate=self.learning_rate,
             global_batch_size=self.global_batch_size,
@@ -275,10 +284,11 @@ class LinearEstimatorBase(Estimator, LinearTrainParams,
                                  listeners=self._iteration_listeners,
                                  tag=type(self).__name__, mesh=self.mesh)
         # benchmark provenance (runner.py executionPath): cuda-sgd[-...]
-        # when the rounds ran the kernel, torch-sgd[-...] its plain version
+        # / cuda-csr[-...] when the rounds ran the kernels, torch-sgd[-...]
+        # / torch-csr[-...] their plain versions
         self.last_execution_path = sgd.last_execution_path
         model = self.model_class(coefficients=coeffs, device=self._device)
         model = self.copy_params_to(model)
-        _capture_drift_baseline(self, model, x, coeffs)
-        _capture_quality_baseline(self, model, x, y, coeffs)
+        _capture_drift_baseline(self, model, x)
+        _capture_quality_baseline(self, model, x, y)
         return model

@@ -1,7 +1,6 @@
 """Feature engineering ops (ref: flink-ml-lib feature/): the dense scalers,
-vector ops and selectors, the text ops, the discrete encoders and the
-miscellaneous ops. OnlineStandardScaler comes with a later slice of the
-port."""
+vector ops and selectors, the text ops, the discrete encoders, the
+miscellaneous ops and OnlineStandardScaler (``models/online.py``)."""
 
 from flink_ml_tpu_torch.models.feature.scalers import (  # noqa: F401
     MaxAbsScaler,
@@ -61,4 +60,8 @@ from flink_ml_tpu_torch.models.feature.misc import (  # noqa: F401
     MinHashLSHModel,
     RandomSplitter,
     SQLTransformer,
+)
+from flink_ml_tpu_torch.models.online import (  # noqa: F401,E402
+    OnlineStandardScaler,
+    OnlineStandardScalerModel,
 )

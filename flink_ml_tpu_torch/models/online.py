@@ -1,7 +1,37 @@
-"""Online logistic regression (FTRL-proximal).
+"""Online (unbounded-stream) algorithms: FTRL logistic regression,
+OnlineKMeans and OnlineStandardScaler.
 
-The port of the FTRL half of ``flink_ml_tpu/models/online.py`` (ref:
-OnlineLogisticRegression.java:75). Per global batch: the per-coordinate
+The port of ``flink_ml_tpu/models/online.py``. A fit consumes a
+:class:`~flink_ml_tpu_torch.iteration.streaming.StreamTable` (or a bounded
+Table chopped into global batches) and the fitted model records every
+versioned snapshot, the host-side form of the reference's unbounded
+model-data stream.
+
+OnlineKMeans (ref: OnlineKMeans.java:76, ModelDataLocalUpdater:295-324):
+per global batch, weights *= decayFactor (the one-task case of
+decay/parallelism); a cluster the batch hits gains its row count, λ =
+count/weight, centroid = (1−λ)·centroid + λ·mean of its rows; a cluster the
+batch misses keeps its weight and position. The batch's per-centroid
+``[Σ x | count]`` comes from the hand-written ``lloyd_partial_sums`` kernel
+on the card (``cuda-lloyd-stream``; one launch and its ``reduce_partials``
+per batch) under the euclidean measure when ``lloyd_kernel_fits``; other
+measures and shapes take KMeans's plain partials (``torch-lloyd-stream``,
+as the CPU does). The partials are float32; the centroids and weights are
+float64 tensors on the batch's device, updated by ``torch.where`` with no
+host copy per batch (the JAX package keeps float64 numpy and assigns by
+float64 distances, so near-ties may split differently).
+
+OnlineStandardScaler (ref: feature/standardscaler/OnlineStandardScaler.java):
+per window (count, tumbling or session windows, ``windows`` param), the
+cumulative mean and unbiased std of all rows seen, emitted as a versioned
+model stamped with the window end (time windows) or the wall clock. A
+window's column sums and sums of squares are taken where the column lives,
+in float64 (a tensor column on its device, a host column in numpy), and
+the running totals stay float64: ``(Σx² − n·m²)/(n−1)`` cancels in float32
+when |mean| ≫ std. The per-window ``history`` entry is the one (2, d) host
+copy of a window.
+
+FTRL (ref: OnlineLogisticRegression.java:75). Per global batch: the per-coordinate
 gradient g_i = Σ (σ(x·w) − y)·x_i, normalized by the batch's row count
 (dense batches, CalculateLocalGradient:364-388's dense branch, which ignores
 the weight column) or by the weight sum at the coordinate's stored values
@@ -58,20 +88,29 @@ package's fit does; the sample's margins are computed on the fit's device.
 from __future__ import annotations
 
 import math
+import time
 from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from flink_ml_tpu_torch.api.stage import Estimator, Model
+from flink_ml_tpu_torch.common import window as W
 from flink_ml_tpu_torch.common.metrics import VERSION_GAUGE, metrics
 from flink_ml_tpu_torch.common.table import Table, as_dense_vector_column
 from flink_ml_tpu_torch.iteration.streaming import (
     StreamCheckpointer,
     StreamTable,
     generate_batches,
+    window_stream,
 )
 from flink_ml_tpu_torch.linalg import sparse
+from flink_ml_tpu_torch.linalg.distance import DistanceMeasure
+from flink_ml_tpu_torch.models.clustering.kmeans import (
+    KMeansModel,
+    KMeansModelParams,
+    _measure_partials,
+)
 from flink_ml_tpu_torch.models.common import (
     IterationRuntimeMixin,
     predict_dots,
@@ -81,23 +120,32 @@ from flink_ml_tpu_torch.models.common import (
 )
 from flink_ml_tpu_torch.observability import health as _health
 from flink_ml_tpu_torch.observability import tracing
-from flink_ml_tpu_torch.ops import kernels
+from flink_ml_tpu_torch.ops import columnar, kernels
 from flink_ml_tpu_torch.parallel import collective as C
 from flink_ml_tpu_torch.parallel import mapreduce as mr
 from flink_ml_tpu_torch.parallel import update_sharding as _upd
-from flink_ml_tpu_torch.params.param import FloatParam, ParamValidators
+from flink_ml_tpu_torch.params.param import (
+    BooleanParam,
+    FloatParam,
+    ParamValidators,
+)
 from flink_ml_tpu_torch.params.shared import (
     HasBatchStrategy,
+    HasDecayFactor,
     HasElasticNet,
     HasFeaturesCol,
     HasGlobalBatchSize,
+    HasInputCol,
     HasLabelCol,
     HasMaxAllowedModelDelayMs,
     HasModelVersionCol,
+    HasOutputCol,
     HasPredictionCol,
     HasRawPredictionCol,
     HasReg,
+    HasSeed,
     HasWeightCol,
+    HasWindows,
 )
 from flink_ml_tpu_torch.utils import io as rw
 
@@ -705,3 +753,328 @@ class OnlineLogisticRegression(Estimator, OnlineLogisticRegressionParams,
         if isinstance(data, Table):
             _capture_baselines(self, model, data, coeffs, version, device)
         return self.copy_params_to(model)
+
+
+# ---------------------------------------------------------------------------
+# OnlineKMeans
+# ---------------------------------------------------------------------------
+
+class OnlineKMeansParams(KMeansModelParams, HasBatchStrategy,
+                         HasGlobalBatchSize, HasDecayFactor, HasSeed):
+    pass
+
+
+class OnlineKMeansModel(KMeansModel):
+    """Ref: OnlineKMeansModel.java: a KMeansModel fed by a stream of
+    versioned model data; it predicts as KMeansModel does, from the
+    snapshot consumed last."""
+
+
+def decayed_centroids(centroids: torch.Tensor, weights: torch.Tensor,
+                      packed: torch.Tensor, decay: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One OnlineKMeans update (ModelDataLocalUpdater:295-324) from a
+    batch's (k, d+1) ``[Σ x | count]``: float64 (k, d) centroids and (k,)
+    weights in, the new ones out, on their device. A cluster the batch
+    misses keeps its weight (decayed) and its position."""
+    packed = packed.to(torch.float64)
+    sums, counts = packed[:, :-1], packed[:, -1]
+    weights = weights * decay
+    hit = counts > 0
+    weights = torch.where(hit, weights + counts, weights)
+    lam = torch.where(hit, counts / torch.where(hit, weights, 1.0), 0.0)
+    means = sums / torch.clamp_min(counts, 1.0)[:, None]
+    centroids = torch.where(
+        hit[:, None],
+        (1.0 - lam)[:, None] * centroids + lam[:, None] * means, centroids)
+    return centroids, weights
+
+
+class OnlineKMeans(Estimator, OnlineKMeansParams, IterationRuntimeMixin):
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self._initial_model_data: Optional[Table] = None
+        self.last_execution_path = None
+
+    def set_initial_model_data(self, model_data: Table):
+        """Ref: OnlineKMeans.setInitialModelData:345."""
+        self._initial_model_data = model_data
+        return self
+
+    def fit(self, data: Union[Table, StreamTable]) -> OnlineKMeansModel:
+        """Folds every global batch of ``data`` into the initial model's
+        centroids on this stage's device; the centroids come to the host
+        once, at the end (and when a listener or a due checkpoint asks for
+        the state)."""
+        if self._initial_model_data is None:
+            raise ValueError("initial model data must be set before fit "
+                             "(setInitialModelData)")
+        seed_model = KMeansModel().set_model_data(self._initial_model_data)
+        centroids = np.array(seed_model.centroids, np.float64)
+        weights = np.array(seed_model.weights, np.float64)
+        k, d = centroids.shape
+        device = self.device
+        decay = self.decay_factor
+
+        ckpt = StreamCheckpointer(self._iteration_config,
+                                  self._iteration_listeners)
+        restored = ckpt.restore((centroids, weights))
+        if restored is not None:
+            centroids, weights = restored[0]
+        state = tuple(torch.as_tensor(np.asarray(a, np.float64),
+                                      device=device)
+                      for a in (centroids, weights))
+
+        def host_state():
+            return tuple(a.cpu().numpy() for a in state)
+
+        if (self.distance_measure == "euclidean"
+                and kernels.lloyd_kernel_fits(k, d)):
+            partials_fn = kernels.lloyd_partial_sums
+            path = ("cuda-lloyd-stream" if device.type == "cuda"
+                    else "torch-lloyd-stream")
+        else:
+            partials_fn = _measure_partials(
+                DistanceMeasure.get_instance(self.distance_measure))
+            path = "torch-lloyd-stream"
+        ones = None
+        for batch in _as_stream(data, self.global_batch_size):
+            x = torch.as_tensor(batch.vectors(self.features_col),
+                                dtype=torch.float32, device=device)
+            if ones is None or ones.shape[0] != x.shape[0]:
+                ones = torch.ones(x.shape[0], dtype=torch.float32,
+                                  device=device)
+            packed = partials_fn(x.contiguous(), ones,
+                                 state[0].to(torch.float32))
+            state = decayed_centroids(state[0], state[1], packed, decay)
+            ckpt.after_batch(host_state)
+        # benchmark provenance (runner.py executionPath)
+        self.last_execution_path = path
+        ckpt.complete(host_state)
+        centroids, weights = host_state()
+        model = OnlineKMeansModel(centroids=centroids, weights=weights,
+                                  device=self._device)
+        return self.copy_params_to(model)
+
+
+# ---------------------------------------------------------------------------
+# OnlineStandardScaler
+# ---------------------------------------------------------------------------
+
+class OnlineStandardScalerModelParams(HasInputCol, HasOutputCol,
+                                      HasModelVersionCol,
+                                      HasMaxAllowedModelDelayMs):
+    pass
+
+
+class OnlineStandardScalerParams(OnlineStandardScalerModelParams, HasWindows):
+    WITH_MEAN = BooleanParam(
+        "withMean", "Whether centers the data with mean before scaling.",
+        False)
+    WITH_STD = BooleanParam(
+        "withStd", "Whether scales the data with standard deviation.", True)
+
+
+def _standardize(x, mean, std, with_mean: bool, with_std: bool):
+    if with_mean:
+        x = x - mean
+    if with_std:
+        x = x / torch.where(std > 0, std, torch.ones_like(std))
+    return x
+
+
+class OnlineStandardScalerModel(Model, OnlineStandardScalerModelParams):
+    def __init__(self, mean=None, std=None, model_version: int = 0,
+                 timestamp: int = 0, with_mean=False, with_std=True,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.mean = None if mean is None else np.asarray(mean, np.float64)
+        self.std = None if std is None else np.asarray(std, np.float64)
+        self.model_version = int(model_version)
+        self.timestamp = int(timestamp)
+        self._with_mean, self._with_std = with_mean, with_std
+        self.history: List[Tuple[int, np.ndarray, np.ndarray]] = []
+        #: per-snapshot timestamps (the window end for time windows): the
+        #: (timestamp, version, data) stream the model-delay join consumes
+        self.history_timestamps: List[int] = []
+
+    def transform(self, table: Table) -> Tuple[Table]:
+        """The scaled column as a float32 tensor on this model's device
+        (a tensor column is scaled where it is), as StandardScalerModel
+        gives it; the version column on the host."""
+        if self.mean is None:
+            raise ValueError("OnlineStandardScalerModel has no model data")
+        device = self.device
+        x = columnar.input_vectors(table, self.input_col, device)
+        out = {self.output_col: columnar.apply(
+            _standardize, x, (self.mean, self.std),
+            (bool(self._with_mean), bool(self._with_std)), device)}
+        if self.model_version_col is not None:
+            out[self.model_version_col] = np.full(
+                table.num_rows, self.model_version, np.int64)
+        return (table.with_columns(**out),)
+
+    def set_model_data(self, model_data: Table):
+        self.mean = model_data.vectors("mean", np.float64)[0]
+        self.std = model_data.vectors("std", np.float64)[0]
+        if "modelVersion" in model_data:
+            self.model_version = int(
+                model_data.scalars("modelVersion", np.int64)[0])
+        if "timestamp" in model_data:
+            self.timestamp = int(model_data.scalars("timestamp", np.int64)[0])
+        # ref OnlineStandardScalerModel.java:202-210: consuming model data
+        # publishes the ml.model version/timestamp gauges
+        metrics.report_model(self.model_version, self.timestamp)
+        return self
+
+    def get_model_data(self) -> Tuple[Table]:
+        return (Table.from_columns(
+            mean=self.mean[None, :], std=self.std[None, :],
+            modelVersion=np.asarray([self.model_version], np.int64),
+            timestamp=np.asarray([self.timestamp], np.int64)),)
+
+    def _save_extra(self, path: str) -> None:
+        rw.save_model_arrays(path, "model", {
+            "mean": self.mean, "std": self.std,
+            "version": np.asarray([self.model_version]),
+            "timestamp": np.asarray([self.timestamp]),
+            "flags": np.asarray([self._with_mean, self._with_std])})
+
+    def _load_extra(self, path: str, meta: dict) -> None:
+        arrays = rw.load_model_arrays(path, "model")
+        self.mean, self.std = arrays["mean"], arrays["std"]
+        self.model_version = int(arrays["version"][0])
+        self.timestamp = int(arrays["timestamp"][0])
+        self._with_mean, self._with_std = (bool(v) for v in arrays["flags"])
+
+
+def _window_sums(chunk: Table, col: str):
+    """A window's per-column (Σx, Σx², rows), float64, where the column
+    lives: a tensor column on its device (each value widened before it is
+    squared, so each square is exact), a host column in numpy."""
+    raw = chunk.column(col)
+    if isinstance(raw, torch.Tensor):
+        x = (raw if raw.ndim == 2 else raw[:, None]).to(torch.float64)
+    else:
+        x = chunk.vectors(col, np.float64)
+    return x.sum(0), (x * x).sum(0), x.shape[0]
+
+
+def _add(total, part):
+    """``total + part``; a host total joins a tensor part on its device
+    (a restored checkpoint's totals meet the first tensor window)."""
+    if total is None:
+        return part
+    if isinstance(part, torch.Tensor) and not isinstance(total, torch.Tensor):
+        total = torch.as_tensor(total, dtype=torch.float64,
+                                device=part.device)
+    return total + part
+
+
+class OnlineStandardScaler(Estimator, OnlineStandardScalerParams,
+                           IterationRuntimeMixin):
+    def fit(self, data: Union[Table, StreamTable],
+            batch_size: int = 1000,
+            timestamp_col: Optional[str] = None
+            ) -> OnlineStandardScalerModel:
+        """One versioned model per window of ``data``: count windows of
+        ``windows.size`` rows (a pre-chunked stream is regrouped to that
+        size), tumbling or session time windows (``timestamp_col`` names
+        the event time), or, under GlobalWindows, one per chunk of
+        ``batch_size`` rows of a Table and one per chunk of a stream."""
+        windows = self.windows
+        timed = isinstance(windows, (W.EventTimeTumblingWindows,
+                                     W.ProcessingTimeTumblingWindows,
+                                     W.EventTimeSessionWindows,
+                                     W.ProcessingTimeSessionWindows))
+        count_windows = isinstance(windows, W.CountTumblingWindows)
+        if count_windows:
+            batch_size = windows.size
+        if isinstance(data, Table):
+            data = StreamTable.from_table(data, batch_size)
+        elif count_windows:
+            data = StreamTable(generate_batches(data, batch_size,
+                                                drop_remainder=False))
+        if timed:
+            data = window_stream(data, windows, timestamp_col,
+                                 with_end_ts=True)
+
+        total = sq_total = None
+        count = 0
+        version = 0
+        history = []
+        history_timestamps = []
+        ckpt = StreamCheckpointer(self._iteration_config,
+                                  self._iteration_listeners)
+
+        def moments():
+            m = total / count
+            if count > 1:
+                var = (sq_total - count * m * m) / (count - 1)
+                s = (torch.sqrt(torch.clamp_min(var, 0.0))
+                     if isinstance(var, torch.Tensor)
+                     else np.sqrt(np.maximum(var, 0.0)))
+            else:
+                s = (torch.zeros_like(m) if isinstance(m, torch.Tensor)
+                     else np.zeros_like(m))
+            return m, s
+
+        def host(a):
+            return a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+
+        def pack():
+            hv = np.asarray([v for v, _, _ in history], np.int64)
+            hm = (np.stack([m for _, m, _ in history])
+                  if history else np.zeros((0, 0)))
+            hs = (np.stack([s for _, _, s in history])
+                  if history else np.zeros((0, 0)))
+            hts = np.asarray(history_timestamps, np.int64)
+            return (host(total), host(sq_total), count, version, hv, hm, hs,
+                    hts)
+
+        # restore before the stream is read (the arrays' shapes come from
+        # the snapshot; the template fixes the tree's structure only)
+        restored = ckpt.restore(
+            (np.zeros(0), np.zeros(0), 0, 0,
+             np.zeros(0, np.int64), np.zeros((0, 0)), np.zeros((0, 0)),
+             np.zeros(0, np.int64)))
+        if restored is not None:
+            total, sq_total, count, version, hv, hm, hs, hts = restored[0]
+            count, version = int(count), int(version)
+            history[:] = [(int(v), m, s) for v, m, s in zip(hv, hm, hs)]
+            history_timestamps[:] = [int(t) for t in hts]
+
+        for item in data:
+            window_end_ms, chunk = item if timed else (None, item)
+            s1, s2, rows = _window_sums(chunk, self.input_col)
+            total, sq_total = _add(total, s1), _add(sq_total, s2)
+            count += rows
+            m, s = moments()
+            if isinstance(m, torch.Tensor):
+                m, s = torch.stack([m, s]).cpu().numpy()  # the window's copy
+            history.append((version, m.copy(), s.copy()))
+            # per-model timestamp: the window end for time windows (what
+            # the reference stamps and the model-delay join consumes), the
+            # wall clock otherwise
+            history_timestamps.append(
+                window_end_ms if window_end_ms is not None
+                else int(time.time() * 1000))
+            version += 1
+            ckpt.after_batch(pack)
+        if count == 0:
+            raise ValueError("empty input stream")
+        if history:
+            _, mean, std = history[-1]
+        else:  # resumed onto an already exhausted stream
+            mean, std = (host(a) for a in moments())
+        ckpt.complete(pack)
+        model = OnlineStandardScalerModel(
+            mean=mean, std=std, model_version=version - 1,
+            timestamp=(history_timestamps[-1] if history_timestamps
+                       else int(time.time() * 1000)),
+            with_mean=self.with_mean, with_std=self.with_std,
+            device=self._device)
+        self.copy_params_to(model)
+        model.history = history
+        model.history_timestamps = history_timestamps
+        return model

@@ -2,7 +2,8 @@
 
 The port of ``flink_ml_tpu/native/__init__.py``: the host-side kernels that
 are neither device work nor fast in Python. The sources are the port's own
-copies under ``csrc/host/`` (``factorize_kernel.cpp``, ``csv_kernel.cpp``);
+copies under ``csrc/host/`` (``factorize_kernel.cpp``, ``csv_kernel.cpp``,
+``swing_kernel.cpp``);
 ``ops/_build.py`` compiles them with ``g++`` at first use into the
 gitignored ``_build/`` and they are bound with ctypes.
 
@@ -14,7 +15,7 @@ limits (a distinct set past ``FACTORIZE_UNIQ_CAP``, a domain past
 ``ROWWISE_DOMAIN_CAP``, an out-of-domain code, a dtype without a kernel
 variant, a CSV buffer that is not all numeric), and the callers handle
 them as the JAX package's do. Every entry point is a ``native-kernel``
-chaos site. Swing's kernel comes with Swing.
+chaos site.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ from flink_ml_tpu_torch.ops import _build
 from flink_ml_tpu_torch.resilience import faults
 
 __all__ = ["factorize_i64", "doc_freq_i64", "rowwise_counts",
-           "csv_parse_numeric", "native_threads", "FACTORIZE_UNIQ_CAP",
+           "csv_parse_numeric", "swing_similarity", "native_threads",
+           "FACTORIZE_UNIQ_CAP",
            "ROWWISE_DOMAIN_CAP", "NATIVE_THREADS_ENV"]
 
 #: distinct-set cap for the native factorizer: past this many distinct
@@ -56,6 +58,7 @@ _NATIVE_THREADS_MAX = 256
 _threads_warned = False
 
 _I64P = ctypes.POINTER(ctypes.c_int64)
+_F64P = ctypes.POINTER(ctypes.c_double)
 
 
 @functools.lru_cache(maxsize=None)
@@ -63,6 +66,22 @@ def _lib() -> ctypes.CDLL:
     """The built library with its signatures set; raises
     ``KernelBuildError`` when it cannot be built."""
     lib = _build.load_host()
+    lib.swing_similarity.restype = ctypes.c_int
+    lib.swing_similarity.argtypes = [
+        _I64P,            # user_items
+        _I64P,            # user_offsets
+        _F64P,            # user_weights
+        ctypes.c_int64,   # n_users
+        _I64P,            # item_users
+        _I64P,            # item_offsets
+        _I64P,            # item_ids
+        ctypes.c_int64,   # n_items
+        ctypes.c_double,  # alpha2
+        ctypes.c_int64,   # k
+        _I64P,            # out_items
+        _F64P,            # out_scores
+        _I64P,            # out_counts
+    ]
     lib.csv_parse_numeric.restype = ctypes.c_int64
     lib.csv_parse_numeric.argtypes = [
         ctypes.c_char_p, ctypes.c_int64, ctypes.c_char,
@@ -106,6 +125,45 @@ def native_threads() -> int:
                 "single-threaded", NATIVE_THREADS_ENV, raw)
         return 1
     return min(value, _NATIVE_THREADS_MAX)
+
+
+def swing_similarity(user_items: np.ndarray, user_offsets: np.ndarray,
+                     user_weights: np.ndarray, item_users: np.ndarray,
+                     item_offsets: np.ndarray, item_ids: np.ndarray,
+                     alpha2: float, k: int):
+    """Swing scoring over the CSR-packed groupings (sorted item ids per
+    user with the users' weights; user indices per item) → (out_items
+    (n_items, k), out_scores (n_items, k), out_counts (n_items,)): each
+    item's up to k most similar items, by score descending, ties to the
+    lower item id."""
+    faults.inject("native-kernel", kernel="swing_similarity")
+    lib = _lib()
+    user_items = np.ascontiguousarray(user_items, np.int64)
+    user_offsets = np.ascontiguousarray(user_offsets, np.int64)
+    user_weights = np.ascontiguousarray(user_weights, np.float64)
+    item_users = np.ascontiguousarray(item_users, np.int64)
+    item_offsets = np.ascontiguousarray(item_offsets, np.int64)
+    item_ids = np.ascontiguousarray(item_ids, np.int64)
+    n_users, n_items = len(user_offsets) - 1, len(item_ids)
+    if (len(user_weights) != n_users or len(item_offsets) != n_items + 1
+            or user_offsets[-1] != len(user_items)
+            or item_offsets[-1] != len(item_users)
+            or (len(item_users) and not 0 <= item_users.min()
+                <= item_users.max() < n_users)):
+        raise ValueError("swing_similarity: the offsets or user indices do "
+                         "not match the packed arrays")
+    out_items = np.zeros((n_items, k), np.int64)
+    out_scores = np.zeros((n_items, k), np.float64)
+    out_counts = np.zeros(n_items, np.int64)
+    rc = lib.swing_similarity(
+        _ptr(user_items), _ptr(user_offsets),
+        user_weights.ctypes.data_as(_F64P), ctypes.c_int64(n_users),
+        _ptr(item_users), _ptr(item_offsets), _ptr(item_ids),
+        ctypes.c_int64(n_items), ctypes.c_double(alpha2), ctypes.c_int64(k),
+        _ptr(out_items), out_scores.ctypes.data_as(_F64P), _ptr(out_counts))
+    if rc != 0:
+        raise RuntimeError(f"swing_similarity failed with code {rc}")
+    return out_items, out_scores, out_counts
 
 
 def csv_parse_numeric(data: bytes, n_cols: int, delimiter: str = ","):

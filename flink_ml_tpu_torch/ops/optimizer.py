@@ -46,8 +46,20 @@ listener that fetches them once at termination (host rounds), so no round
 waits for the device on their account, and the series lands in
 ``ml.health``. Unarmed, no row is computed.
 
-Dense features only: tensor parallelism over a ``model`` axis and the CSR
-path come with later slices of the port, and asking for them raises.
+Sparse features (a scipy CSR matrix, :meth:`SGD.optimize_csr`) run the same
+rounds, schedule and update tail: the matrix goes to the device once per
+fit, split into the same row shards (``indptr`` int64, ``indices`` int32,
+``data`` float32 and each stored value's row id), and a shard's window of
+rows is one contiguous range of stored values. Its terms are two
+``segment_reduce_sum`` launches (``ops/kernels.py``): the per-row dots
+(values ``data·coeffs[indices]`` by the row ids local to the window), then,
+after the loss terms, the gradient (values ``data·mult[row]`` by
+``indices``, over the feature width). The JAX package computes this path in
+float64 scipy on the host; here it is float32 on the device (``cuda-csr``),
+and on the CPU the segment sums' plain versions (``torch-csr``).
+
+Tensor parallelism over a ``model`` axis comes with a later slice of the
+port.
 """
 
 from __future__ import annotations
@@ -56,6 +68,7 @@ import dataclasses
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from flink_ml_tpu_torch.device import DeviceLike
@@ -237,10 +250,72 @@ class ShardData(NamedTuple):
     @classmethod
     def place(cls, mesh, features, labels, weights=None) -> "ShardData":
         x = C.ensure_on_mesh(mesh, features)
+        return cls(x, *cls._labels(mesh, x.n, labels, weights))
+
+    @classmethod
+    def place_csr(cls, mesh, features, labels, weights=None) -> "ShardData":
+        """A scipy CSR matrix split as :meth:`place` splits dense rows:
+        each local shard's rows as one :class:`CsrShard` on its device."""
+        n = features.shape[0]
+        ls = C.shard_len(n, mesh.size)
+        real = [max(0, min(ls, n - s * ls)) for s in range(mesh.size)]
+        m = features.tocsr()
+        parts = [CsrShard(m[s * ls:s * ls + real[s]], mesh.devices[s])
+                 for s in mesh.local_shards]
+        x = C.RowShards(parts, n, ls, real)
+        return cls(x, *cls._labels(mesh, n, labels, weights))
+
+    @staticmethod
+    def _labels(mesh, n: int, labels, weights):
         y = C.ensure_on_mesh(mesh, labels)
-        w = (C.ones_on_mesh(mesh, x.n) if weights is None
+        w = (C.ones_on_mesh(mesh, n) if weights is None
              else C.ensure_on_mesh(mesh, weights))
-        return cls(x, y, w)
+        return y, w
+
+
+class CsrShard:
+    """One shard's rows of a CSR matrix on its device: ``indices`` int32,
+    ``data`` float32 and ``rows`` int32, the shard-local row of each stored
+    value (from ``indptr``, which goes to the device for that). The host
+    keeps ``indptr_host`` (int64), where the rounds' windows are cut.
+    ``shape`` and ``device`` are those of the dense rows it stands for."""
+
+    def __init__(self, m, device: torch.device):
+        m = m.tocsr()
+        self.shape = m.shape
+        self.device = device
+        self.indptr_host = np.asarray(m.indptr, np.int64)
+        indptr = torch.as_tensor(self.indptr_host, device=device)
+        self.indices = torch.as_tensor(m.indices.astype(np.int32),
+                                       device=device)
+        self.data = torch.as_tensor(m.data.astype(np.float32), device=device)
+        self.rows = torch.repeat_interleave(
+            torch.arange(m.shape[0], dtype=torch.int32, device=device),
+            indptr[1:] - indptr[:-1])
+
+
+def csr_batch_terms(x: CsrShard, yl: torch.Tensor, wl: torch.Tensor,
+                    coeffs: torch.Tensor, start: int, clip: int, lb: int,
+                    loss_name: str) -> torch.Tensor:
+    """:func:`kernels.sgd_batch_terms` of a CSR shard: the window's real
+    rows ``[start + clip, start + lb)`` are one range of stored values, and
+    its ``[Σ mult·x | Σ w | Σ loss]`` comes from two segment sums, the
+    per-row dots (ids local to the window) and the gradient (ids the
+    feature indices)."""
+    a, b = start + clip, start + lb
+    if b <= a:  # no real row in the window
+        return torch.zeros(x.shape[1] + 2, dtype=torch.float32,
+                           device=x.device)
+    lo, hi = int(x.indptr_host[a]), int(x.indptr_host[b])
+    vals, cols = x.data[lo:hi], x.indices[lo:hi]
+    local = x.rows[lo:hi] - a
+    dots = kernels.segment_reduce_sum(vals * coeffs.index_select(0, cols),
+                                      local, b - a)
+    yb, wb = yl[a:b], wl[a:b]
+    loss_sum, mult = LossFunc.by_name(loss_name).terms(dots, yb, wb)
+    grad = kernels.segment_reduce_sum(vals * mult.index_select(0, local),
+                                      cols, x.shape[1])
+    return torch.cat([grad, wb.sum()[None], loss_sum[None]])
 
 
 def _round_partials(batch_terms: BatchTerms, loss_name: str, shards,
@@ -392,8 +467,9 @@ class SGD:
         self.params = params
         self.last_execution_path = None
 
-    def _iterate(self, loss_name: str, mesh, sharded: bool, data: ShardData,
-                 init, seg_k: int, config, listeners, algo: str,
+    def _iterate(self, batch_terms: BatchTerms, loss_name: str, mesh,
+                 sharded: bool, data: ShardData, init, seg_k: int, config,
+                 listeners, algo: str,
                  health_on: bool) -> Tuple[torch.Tensor, torch.Tensor, dict]:
         """The rounds through the iteration runtime → (coeffs, mean_loss,
         health state), device tensors. The carry is the JAX package's, leaf
@@ -414,7 +490,6 @@ class SGD:
         prm = self.params
         sched = ShardSchedule(prm.global_batch_size, mesh.size, data.x.ls,
                               data.x.real)
-        batch_terms = kernels.sgd_batch_terms
         hstate = {"hist": None, "first": None, "epoch": 0}
 
         if seg_k:
@@ -496,6 +571,8 @@ class SGD:
         launch per shard, and its plain PyTorch version on the CPU
         (``torch-sgd``).
 
+        A scipy CSR ``features`` matrix takes :meth:`optimize_csr`.
+
         With ``config``/``listeners`` (an ``IterationConfig`` with host
         hooks) the rounds run through the iteration runtime, resumable from
         a checkpoint with the all-device fit's results: K-round segments
@@ -505,15 +582,52 @@ class SGD:
         state-bytes record (the estimator's class name; ``SGD[<loss>]`` by
         default).
         """
-        prm = self.params
-        _check_method(prm)
+        _check_method(self.params)
+        if sp.issparse(features):
+            return self.optimize_csr(loss_func, init_coeffs, features, labels,
+                                     weights, device=device, config=config,
+                                     listeners=listeners, tag=tag, mesh=mesh)
         if not isinstance(features, (np.ndarray, torch.Tensor)):
-            raise NotImplementedError(
-                "sparse (CSR) features come with a later slice of the port; "
-                "this slice fits dense features only")
+            raise TypeError("features must be a numpy array, a tensor or a "
+                            f"scipy CSR matrix, got {type(features).__name__}")
         mesh = resolve_mesh(mesh, device)
-        p = mesh.size
         data = ShardData.place(mesh, features, labels, weights)
+        return self._fit(loss_func, init_coeffs, mesh, data,
+                         kernels.sgd_batch_terms, "sgd", config, listeners,
+                         tag)
+
+    def optimize_csr(self, loss_func: LossFunc, init_coeffs, features_csr,
+                     labels, weights=None, device: DeviceLike = None,
+                     config=None, listeners=(), tag: Optional[str] = None,
+                     mesh=None) -> Tuple[np.ndarray, float]:
+        """:meth:`optimize` of a scipy CSR ``features_csr`` (n, d): wide
+        sparse input (HashingTF at 2^18 dims) is never densified (ref:
+        SGD.java trains SparseVector natively, BLAS.java:78).
+
+        The same rounds as the dense fit on the same mesh: the same
+        ``ceil(n/p)`` row shards, per-shard batch share, clip at the shard
+        end and offset wrap (:class:`ShardSchedule`), the same update tail,
+        tol stop, iteration modes and checkpoints. The matrix goes to the
+        shards' devices once; each round runs two ``segment_reduce_sum``
+        launches per shard whose window holds a stored value
+        (:func:`csr_batch_terms`): ``cuda-csr`` on the card (``-segments``
+        / ``-rounds`` with hooks), ``torch-csr`` with the plain segment sums
+        on the CPU. The JAX package runs this path in float64 on the host;
+        the port's is float32, as its dense path is."""
+        _check_method(self.params)
+        mesh = resolve_mesh(mesh, device)
+        data = ShardData.place_csr(mesh, features_csr, labels, weights)
+        return self._fit(loss_func, init_coeffs, mesh, data, csr_batch_terms,
+                         "csr", config, listeners, tag)
+
+    def _fit(self, loss_func: LossFunc, init_coeffs, mesh, data: ShardData,
+             batch_terms: BatchTerms, kind: str, config, listeners,
+             tag: Optional[str]) -> Tuple[np.ndarray, float]:
+        """The fit of :meth:`optimize` and :meth:`optimize_csr` on placed
+        data, each round's terms from ``batch_terms``; the execution path
+        is ``cuda-<kind>`` or ``torch-<kind>``, with its mode's suffix."""
+        prm = self.params
+        p = mesh.size
         d = data.x.parts[0].shape[1]
         device = mesh.devices[mesh.local_shards[0]]
         coeffs = _on_device(init_coeffs, device)
@@ -538,7 +652,7 @@ class SGD:
             _upd.record_state_bytes(f"{algo}.moments", opt_leaves, p, sharded)
         _upd.record_state_bytes(algo, [coeffs] + opt_leaves, p, sharded)
 
-        base = "cuda-sgd" if device.type == "cuda" else "torch-sgd"
+        base = ("cuda-" if device.type == "cuda" else "torch-") + kind
         health_on = _health.armed()
         seg_k = iteration.device_checkpoint_segment(config, listeners)
         hstate = {"hist": None, "first": None, "epoch": 0}
@@ -548,13 +662,13 @@ class SGD:
         if not seg_k and not host_rounds:
             rows = [] if health_on and prm.max_iter > 0 else None
             coeffs, _, mean_loss, ran, _ = _masked_rounds(
-                kernels.sgd_batch_terms, loss_func.NAME, prm, mesh, sharded,
-                data, init[0], init[3], init[1], prm.max_iter, rows)
+                batch_terms, loss_func.NAME, prm, mesh, sharded, data,
+                init[0], init[3], init[1], prm.max_iter, rows)
             path = base
         else:
             coeffs, mean_loss, hstate = self._iterate(
-                loss_func.NAME, mesh, sharded, data, init, seg_k, config,
-                listeners, algo, health_on)
+                batch_terms, loss_func.NAME, mesh, sharded, data, init, seg_k,
+                config, listeners, algo, health_on)
             path = base + ("-segments" if seg_k else "-rounds")
         # benchmark provenance (runner.py executionPath)
         self.last_execution_path = path

@@ -12,7 +12,6 @@ The port's copy of ``flink_ml_tpu/params/param.py``. Reference behavior
 
 The JSON written here is byte-for-byte what the JAX package writes for the
 same params, so saved models and benchmark configs cross the two packages.
-The window-valued param comes with the slice that uses it.
 """
 
 from __future__ import annotations
@@ -278,6 +277,26 @@ class VectorParam(Param):
         if isinstance(value, dict):
             return Vectors.dense(value["values"])
         return Vectors.dense(value)
+
+
+
+class WindowsParam(Param):
+    """Param holding a Windows spec (ref: param/WindowsParam.java JSON codec)."""
+
+    def coerce(self, value):
+        from flink_ml_tpu_torch.common.window import Windows
+        if value is None or isinstance(value, Windows):
+            return value
+        return Windows.from_json(value)
+
+    def json_encode(self, value):
+        return None if value is None else value.to_json()
+
+    def json_decode(self, value):
+        if value is None:
+            return None
+        from flink_ml_tpu_torch.common.window import Windows
+        return Windows.from_json(value)
 
 
 class WithParams:

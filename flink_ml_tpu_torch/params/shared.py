@@ -1,11 +1,8 @@
 """Shared ``Has*`` param mixins.
 
-The port's copy of the mixins from ``flink_ml_tpu/params/shared.py`` that the
-ported stages use (KMeans, the linear models, KNN, FTRL, the feature
-transformers, selectors, statistical tests, the evaluator, NaiveBayes and
-the benchmark generators, the text, discrete and misc transformers). The names,
-descriptions, defaults and validators are the JAX package's, so the JSON
-param maps match. The other mixins come with the slices that use them.
+The port's copy of ``flink_ml_tpu/params/shared.py``: every mixin of the JAX
+package, flink-ml-lib's HasWindows included. The names, descriptions, defaults and validators are
+the JAX package's, so the JSON param maps match.
 """
 
 from __future__ import annotations
@@ -20,17 +17,19 @@ from flink_ml_tpu_torch.params.param import (
     ParamValidators,
     StringArrayParam,
     StringParam,
+    WindowsParam,
     WithParams,
 )
 
 __all__ = [
-    "HasBatchStrategy", "HasCategoricalCols", "HasDistanceMeasure", "HasElasticNet",
+    "HasBatchStrategy", "HasCategoricalCols", "HasDecayFactor",
+    "HasDistanceMeasure", "HasElasticNet",
     "HasFeaturesCol", "HasFlatten", "HasGlobalBatchSize", "HasHandleInvalid",
     "HasInputCol", "HasInputCols", "HasLabelCol", "HasLearningRate",
     "HasMaxAllowedModelDelayMs", "HasMaxIter", "HasModelVersionCol",
     "HasMultiClass", "HasNumFeatures", "HasOptimizerMethod", "HasOutputCol", "HasOutputCols",
     "HasPredictionCol", "HasRawPredictionCol", "HasReg", "HasRelativeError",
-    "HasSeed", "HasTol", "HasWeightCol",
+    "HasSeed", "HasTol", "HasWeightCol", "HasWindows",
 ]
 
 
@@ -44,6 +43,12 @@ class HasBatchStrategy(WithParams):
 class HasCategoricalCols(WithParams):
     CATEGORICAL_COLS = StringArrayParam(
         "categoricalCols", "Categorical column names.", (), ParamValidators.not_null())
+
+
+class HasDecayFactor(WithParams):
+    DECAY_FACTOR = FloatParam(
+        "decayFactor", "The forgetfulness of the previous centroids.", 0.0,
+        ParamValidators.in_range(0, 1))
 
 
 class HasDistanceMeasure(WithParams):
@@ -214,3 +219,15 @@ class HasTol(WithParams):
 
 class HasWeightCol(WithParams):
     WEIGHT_COL = StringParam("weightCol", "Weight column name.", None)
+
+
+def _global_windows_default():
+    from flink_ml_tpu_torch.common.window import GlobalWindows
+    return GlobalWindows.get_instance()
+
+
+class HasWindows(WithParams):
+    """Ref: flink-ml-lib/.../common/param/HasWindows.java:30 (default GlobalWindows)."""
+    WINDOWS = WindowsParam(
+        "windows", "Windowing strategy that determines how to create "
+        "mini-batches from input data.", _global_windows_default())

@@ -22,7 +22,8 @@ from flink_ml_tpu_torch.resilience.policy import InjectedFault, KernelBuildError
 REPO_NATIVE = _build.CSRC_DIR.parent.parent / "flink_ml_tpu" / "native"
 
 
-@pytest.mark.parametrize("name", ["factorize_kernel.cpp", "csv_kernel.cpp"])
+@pytest.mark.parametrize("name", ["factorize_kernel.cpp", "csv_kernel.cpp",
+                                  "swing_kernel.cpp"])
 def test_sources_are_the_jax_packages_byte_for_byte(name):
     assert (_build.HOST_CSRC_DIR / name).read_bytes() == \
         (REPO_NATIVE / name).read_bytes()

@@ -821,3 +821,594 @@ def test_runner_on_a_shrunken_ftrl_config(one_device_mesh):
         **{n: table.column(n) for n in table.column_names}))
     _check_fit(got, want, RTOL, ATOL)
     assert got.model_version == 5
+
+
+# -- OnlineKMeans -----------------------------------------------------------------
+#
+# Tolerances: the port's batch partials are float32 sums (the Lloyd kernel's
+# plain version here) where the JAX package sums float64, and its state is
+# float64 as the JAX package's is: centroids and weights rtol 1e-5, atol
+# 1e-6. The seeded clusters are well separated, so both assign every row
+# alike. Resumed and rerun port fits equal the uninterrupted one exactly.
+
+KM_RTOL, KM_ATOL = 1e-5, 1e-6
+
+
+def _clusters(seed, n, d, k, spread=8.0):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(k, d)) * spread
+    x = centers[rng.integers(0, k, n)] + rng.normal(size=(n, d))
+    return x, centers + rng.normal(size=(k, d))
+
+
+def _kmeans_both(x, init_c, init_w, stream_chunk=None, **params):
+    from flink_ml_tpu.models.clustering import KMeansModel as JaxKMeansModel
+
+    from flink_ml_tpu_torch.models.clustering import KMeansModel
+
+    jax_est = jax_online.OnlineKMeans(**params).set_initial_model_data(
+        JaxKMeansModel(centroids=init_c, weights=init_w).get_model_data()[0])
+    est = online.OnlineKMeans(device="cpu", **params).set_initial_model_data(
+        KMeansModel(centroids=init_c, weights=init_w).get_model_data()[0])
+    if stream_chunk is None:
+        want = jax_est.fit(JaxTable.from_columns(features=x))
+        got = est.fit(Table.from_columns(features=x))
+    else:
+        want = jax_est.fit(jax_streaming.StreamTable.from_table(
+            JaxTable.from_columns(features=x), stream_chunk))
+        got = est.fit(streaming.StreamTable.from_table(
+            Table.from_columns(features=x), stream_chunk))
+    return est, got, want
+
+
+@pytest.mark.parametrize("case", ["drift", "three-clusters", "ragged-stream",
+                                  "decay-one"])
+def test_online_kmeans_matches_jax(case):
+    if case == "drift":
+        # the stream sits at +10: one centroid follows it, the other keeps
+        # its position with a decayed weight
+        x = np.random.default_rng(0).normal(size=(1000, 2)) + 10.0
+        init_c, init_w = np.array([[0.0, 0.0], [1.0, 1.0]]), np.ones(2)
+        params = dict(global_batch_size=100, decay_factor=0.5, k=2)
+    else:
+        x, init_c = _clusters(1, 1200, 6, 3)
+        init_w = np.array([1.0, 2.0, 3.0])
+        params = dict(global_batch_size=150, decay_factor=0.3, k=3)
+        if case == "decay-one":
+            params["decay_factor"] = 1.0
+    est, got, want = _kmeans_both(
+        x, init_c, init_w, stream_chunk=70 if case == "ragged-stream"
+        else None, **params)
+    assert est.last_execution_path == "torch-lloyd-stream"
+    assert isinstance(got, online.OnlineKMeansModel)
+    assert got.centroids.dtype == np.float64 and got.weights.dtype == np.float64
+    np.testing.assert_allclose(got.centroids, want.centroids, rtol=KM_RTOL,
+                               atol=KM_ATOL)
+    np.testing.assert_allclose(got.weights, want.weights, rtol=KM_RTOL,
+                               atol=KM_ATOL)
+    assert got.params_to_json_str() == want.params_to_json_str()
+    if case == "drift":
+        assert np.linalg.norm(got.centroids - 10.0, axis=1).min() < 0.5
+        assert got.weights.max() > 100 and got.weights.min() < 1
+
+
+def test_online_kmeans_decay_zero_forgets_history():
+    x = np.concatenate([np.full((50, 1), 5.0), np.full((50, 1), -5.0)])
+    est, got, want = _kmeans_both(
+        x, np.array([[100.0], [-100.0]]), np.array([1e9, 1e9]),
+        global_batch_size=100, decay_factor=0.0, k=2)
+    np.testing.assert_array_equal(sorted(got.centroids.ravel()), [-5.0, 5.0])
+    np.testing.assert_array_equal(got.centroids, want.centroids)
+
+
+@pytest.mark.parametrize("measure", ["manhattan", "cosine"])
+def test_online_kmeans_other_measures_take_plain_partials(measure):
+    x, init_c = _clusters(2, 600, 4, 3)
+    x += 20.0  # cosine needs directions that differ; keep them apart
+    init_c = x[:3].copy()
+    est, got, want = _kmeans_both(x, init_c, np.zeros(3),
+                                  global_batch_size=200, decay_factor=0.5,
+                                  k=3, distance_measure=measure)
+    assert est.last_execution_path == "torch-lloyd-stream"
+    np.testing.assert_allclose(got.centroids, want.centroids, rtol=KM_RTOL,
+                               atol=KM_ATOL)
+
+
+def test_online_kmeans_state_stays_on_the_device_until_the_end(monkeypatch):
+    """One Lloyd partials call a batch, on the batch's float32 rows and the
+    float32 view of the float64 state; the state is fetched once."""
+    x, init_c = _clusters(3, 500, 5, 4)
+    calls = []
+    real = kernels.lloyd_partial_sums
+
+    def spy(xb, v, c):
+        calls.append((tuple(xb.shape), xb.dtype, c.dtype, float(v.sum())))
+        return real(xb, v, c)
+
+    monkeypatch.setattr(kernels, "lloyd_partial_sums", spy)
+    from flink_ml_tpu_torch.models.clustering import KMeansModel
+
+    est = online.OnlineKMeans(global_batch_size=100, decay_factor=0.2, k=4,
+                              device="cpu").set_initial_model_data(
+        KMeansModel(centroids=init_c, weights=np.ones(4)).get_model_data()[0])
+    tensor_x = torch.from_numpy(x.astype(np.float32))
+    got = est.fit(Table.from_columns(features=tensor_x))
+    assert calls == [((100, 5), torch.float32, torch.float32, 100.0)] * 5
+    again = est.fit(Table.from_columns(features=tensor_x))
+    np.testing.assert_array_equal(again.centroids, got.centroids)
+    np.testing.assert_array_equal(again.weights, got.weights)
+
+
+def test_online_kmeans_requires_initial_model():
+    with pytest.raises(ValueError, match="initial model"):
+        online.OnlineKMeans(device="cpu").fit(
+            Table.from_columns(features=np.zeros((4, 2))))
+
+
+def test_online_kmeans_checkpoint_resume(tmp_path):
+    """Crash after two batches, rerun the stream's tail: the resumed fit
+    continues from the checkpointed float64 (centroids, weights) and equals
+    the uninterrupted fit bit for bit; the JAX package's snapshot of the
+    same state restores in the port."""
+    x, _ = _clusters(4, 400, 3, 2)
+    init = x[:2].copy()
+    from flink_ml_tpu_torch.models.clustering import KMeansModel
+
+    def est():
+        return online.OnlineKMeans(
+            global_batch_size=100, decay_factor=1.0, seed=0, device="cpu"
+        ).set_initial_model_data(
+            KMeansModel(centroids=init, weights=np.zeros(2)).get_model_data()[0])
+
+    t = Table.from_columns(features=x)
+    expected = est().fit(streaming.StreamTable.from_table(t, 100))
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    cfg = IterationConfig(mode="host", checkpoint_interval=1,
+                          checkpoint_manager=mgr)
+    with pytest.raises(_Crash):
+        est().set_iteration_config(cfg, listeners=[_CrashAt(1)]).fit(
+            streaming.StreamTable.from_table(t, 100))
+    resumed = est().set_iteration_config(cfg).fit(
+        streaming.StreamTable.from_table(t.take(slice(100, 400)), 100))
+    np.testing.assert_array_equal(resumed.centroids, expected.centroids)
+    np.testing.assert_array_equal(resumed.weights, expected.weights)
+    assert not mgr.list_checkpoints()
+
+    # the JAX package's checkpoint of the first batch resumes in the port
+    from flink_ml_tpu.iteration import CheckpointManager as JaxManager
+    from flink_ml_tpu.iteration import IterationConfig as JaxConfig
+    from flink_ml_tpu.models.clustering import KMeansModel as JaxKMeansModel
+
+    jmgr = JaxManager(str(tmp_path / "jck"))
+    jcfg = JaxConfig(mode="host", checkpoint_interval=1,
+                     checkpoint_manager=jmgr)
+
+    class _Die:
+        def on_epoch_watermark_incremented(self, batch_idx, state):
+            if batch_idx == 1:
+                raise _Crash()
+
+        def on_iteration_terminated(self, state):
+            pass
+
+    jax_est = jax_online.OnlineKMeans(
+        global_batch_size=100, decay_factor=1.0, seed=0
+    ).set_initial_model_data(
+        JaxKMeansModel(centroids=init, weights=np.zeros(2)).get_model_data()[0])
+    with pytest.raises(_Crash):
+        jax_est.set_iteration_config(jcfg, listeners=[_Die()]).fit(
+            jax_streaming.StreamTable.from_table(
+                JaxTable.from_columns(features=x), 100))
+    cross = est().set_iteration_config(IterationConfig(
+        mode="host", checkpoint_interval=1,
+        checkpoint_manager=CheckpointManager(str(tmp_path / "jck")))).fit(
+        streaming.StreamTable.from_table(t.take(slice(100, 400)), 100))
+    np.testing.assert_allclose(cross.centroids, expected.centroids,
+                               rtol=KM_RTOL, atol=KM_ATOL)
+
+
+def test_online_kmeans_model_transform_save_load(tmp_path):
+    from flink_ml_tpu_torch.convert import online_kmeans_model_from_arrays
+
+    x, init_c = _clusters(5, 300, 4, 3)
+    _, got, want = _kmeans_both(x, init_c, np.ones(3),
+                                global_batch_size=100, decay_factor=0.5, k=3)
+    pred = got.transform(Table.from_columns(features=x))[0]["prediction"]
+    want_pred = want.transform(JaxTable.from_columns(features=x))[0][
+        "prediction"]
+    np.testing.assert_array_equal(_np(pred), np.asarray(want_pred))
+    # a JAX-saved OnlineKMeansModel loads in the port
+    want.save(str(tmp_path / "jax"))
+    loaded = rw.load_stage(str(tmp_path / "jax"), device="cpu")
+    assert type(loaded) is online.OnlineKMeansModel
+    np.testing.assert_array_equal(loaded.centroids, want.centroids)
+    got.save(str(tmp_path / "port"))
+    again = online.OnlineKMeansModel.load(str(tmp_path / "port"),
+                                          device="cpu")
+    np.testing.assert_array_equal(again.centroids, got.centroids)
+    made = online_kmeans_model_from_arrays(want.centroids, want.weights,
+                                           device="cpu", k=3)
+    np.testing.assert_array_equal(_np(made.transform(Table.from_columns(
+        features=x))[0]["prediction"]), np.asarray(want_pred))
+
+
+# -- OnlineStandardScaler ---------------------------------------------------------
+#
+# Tolerances: a host column sums in float64 numpy as the JAX package does,
+# so means, stds and history equal its bits; a tensor column sums in
+# float64 where it lives, in another order: rtol 1e-12. The transform's
+# float32 output against the JAX package's float64: rtol 1e-6, atol 1e-7.
+# Versions, window assignment and timestamps exactly.
+
+SCALER_RTOL = 1e-12
+
+
+def _scaler_both(x, windows=None, chunk=None, fit_kwargs=None, cols=None,
+                 tensor=False, **params):
+    from flink_ml_tpu.common import window as jax_window
+
+    from flink_ml_tpu_torch.common import window
+
+    cols = dict(cols or {})
+    jax_est = jax_online.OnlineStandardScaler(**params)
+    est = online.OnlineStandardScaler(device="cpu", **params)
+    if windows is not None:
+        jax_est.set_windows(jax_window.Windows.from_json(windows.to_json()))
+        est.set_windows(windows)
+    jt = JaxTable.from_columns(input=x, **cols)
+    pt = Table.from_columns(
+        input=torch.from_numpy(x.astype(np.float32)) if tensor else x, **cols)
+    if tensor:
+        jt = JaxTable.from_columns(input=x.astype(np.float32).astype(
+            np.float64), **cols)
+    if chunk is not None:
+        jt = jax_streaming.StreamTable.from_table(jt, chunk)
+        pt = streaming.StreamTable.from_table(pt, chunk)
+    want = jax_est.fit(jt, **(fit_kwargs or {}))
+    got = est.fit(pt, **(fit_kwargs or {}))
+    return got, want
+
+
+def _check_scaler(got, want, rtol=0.0, timed=False):
+    """Versions, statistics and history; with ``timed`` (time windows) the
+    window-end timestamps too (other windows stamp the wall clock)."""
+    assert got.model_version == want.model_version
+    if timed:
+        assert got.timestamp == want.timestamp
+        assert got.history_timestamps == want.history_timestamps
+    np.testing.assert_allclose(got.mean, want.mean, rtol=rtol, atol=0)
+    np.testing.assert_allclose(got.std, want.std, rtol=rtol, atol=0)
+    assert [v for v, _, _ in got.history] == [v for v, _, _ in want.history]
+    for (_, gm, gs), (_, wm, ws) in zip(got.history, want.history):
+        np.testing.assert_allclose(gm, wm, rtol=rtol, atol=0)
+        np.testing.assert_allclose(gs, ws, rtol=rtol, atol=0)
+
+
+@pytest.mark.parametrize("tensor", [False, True])
+def test_online_scaler_count_windows_match_jax(tensor):
+    from flink_ml_tpu_torch.common.window import CountTumblingWindows
+
+    x = np.random.default_rng(0).normal(size=(1000, 3)) * [1, 5, 10] + \
+        [0, 2, -4]
+    got, want = _scaler_both(x, CountTumblingWindows.of(250), tensor=tensor,
+                             with_mean=True)
+    assert got.model_version == 3 and len(got.history) == 4
+    _check_scaler(got, want, SCALER_RTOL if tensor else 0.0)
+    out = got.transform(Table.from_columns(input=x))[0]
+    jout = want.transform(JaxTable.from_columns(input=x))[0]
+    assert out["output"].dtype == torch.float32
+    np.testing.assert_allclose(_np(out["output"]), jout["output"], rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_array_equal(out["version"], jout["version"])
+
+
+def test_online_scaler_sums_are_float64_where_the_column_lives():
+    """The cancellation case: |mean| ≫ std in a float32 tensor column. The
+    float64 sums of the exact squares keep the std to float64 accuracy of
+    the float32 values themselves."""
+    rng = np.random.default_rng(1)
+    x = (rng.normal(size=(20_000, 4)) + 1e3).astype(np.float32)
+    from flink_ml_tpu_torch.common.window import CountTumblingWindows
+
+    model = online.OnlineStandardScaler(
+        windows=CountTumblingWindows.of(5000), device="cpu").fit(
+        Table.from_columns(input=torch.from_numpy(x)))
+    x64 = x.astype(np.float64)
+    np.testing.assert_allclose(model.mean, x64.mean(0), rtol=1e-12)
+    np.testing.assert_allclose(model.std, x64.std(0, ddof=1), rtol=1e-6)
+    assert len(model.history) == 4
+
+
+def test_online_scaler_event_time_windows_match_jax():
+    from flink_ml_tpu_torch.common.window import EventTimeTumblingWindows
+
+    x = np.random.default_rng(2).normal(size=(60, 2)) * 3 + 2
+    ts = np.arange(60, dtype=np.int64) * 100
+    got, want = _scaler_both(x, EventTimeTumblingWindows.of(1000), chunk=25,
+                             cols=dict(ts=ts),
+                             fit_kwargs=dict(timestamp_col="ts"),
+                             input_col="input", output_col="o")
+    assert got.history_timestamps == want.history_timestamps == \
+        [1000, 2000, 3000, 4000, 5000, 6000]
+    assert got.timestamp == 6000
+    _check_scaler(got, want, timed=True)
+    with pytest.raises(ValueError, match="timestamp_col"):
+        online.OnlineStandardScaler(device="cpu").set_windows(
+            EventTimeTumblingWindows.of(1000)).fit(
+            streaming.StreamTable.from_table(
+                Table.from_columns(input=x, ts=ts), 25))
+
+
+def test_online_scaler_session_windows_match_jax():
+    from flink_ml_tpu_torch.common.window import EventTimeSessionWindows
+
+    x = np.random.default_rng(3).normal(size=(60, 2)) * 3 + 2
+    ts = np.concatenate([np.arange(20, dtype=np.int64) * 10,
+                         5000 + np.arange(20, dtype=np.int64) * 10,
+                         9000 + np.arange(20, dtype=np.int64) * 10])
+    got, want = _scaler_both(x, EventTimeSessionWindows.with_gap(1000),
+                             chunk=7, cols=dict(ts=ts),
+                             fit_kwargs=dict(timestamp_col="ts"))
+    assert got.history_timestamps == [1190, 6190, 10190]
+    _check_scaler(got, want, timed=True)
+
+
+def test_online_scaler_tensor_event_time_windows():
+    """A tensor stream is split on its device; only the timestamps come to
+    the host."""
+    from flink_ml_tpu_torch.common.window import EventTimeTumblingWindows
+
+    x = np.random.default_rng(4).normal(size=(90, 3))
+    ts = np.arange(90, dtype=np.int64) * 37
+    got, want = _scaler_both(x, EventTimeTumblingWindows.of(500), chunk=20,
+                             cols=dict(ts=ts), tensor=True,
+                             fit_kwargs=dict(timestamp_col="ts"))
+    _check_scaler(got, want, SCALER_RTOL, timed=True)
+
+
+def test_online_scaler_count_windows_rechunk_stream():
+    from flink_ml_tpu_torch.common.window import CountTumblingWindows
+
+    x = np.random.default_rng(5).normal(size=(230, 2))
+    got, want = _scaler_both(x, CountTumblingWindows.of(100), chunk=25)
+    assert len(got.history) == 3  # the last window holds 30 rows
+    _check_scaler(got, want)
+
+
+def test_online_scaler_global_windows_chunks_match_jax():
+    x = np.random.default_rng(6).normal(size=(400, 3)) * 2 + 1
+    got, want = _scaler_both(x, chunk=100)
+    assert got.model_version == want.model_version == 3
+    _check_scaler(got, want)
+    got, want = _scaler_both(x, fit_kwargs=dict(batch_size=150))
+    assert len(got.history) == 3
+    _check_scaler(got, want)
+
+
+def test_online_scaler_processing_time_windows(monkeypatch):
+    import time as time_mod
+
+    from flink_ml_tpu_torch.common.window import ProcessingTimeTumblingWindows
+
+    x = np.random.default_rng(7).normal(size=(50, 2))
+    arrivals = iter([0.0, 0.5, 1.2, 1.4, 3.1])  # seconds
+    monkeypatch.setattr(time_mod, "time", lambda: next(arrivals, 10.0))
+    model = online.OnlineStandardScaler(device="cpu").set_windows(
+        ProcessingTimeTumblingWindows.of(1000)).fit(
+        streaming.StreamTable.from_table(Table.from_columns(input=x), 10))
+    # windows [0, 1 s) holds two chunks, [1, 2 s) two, [3, 4 s) one
+    assert model.history_timestamps == [1000, 2000, 4000]
+    np.testing.assert_allclose(model.mean, x.mean(0), rtol=1e-12)
+
+
+def test_online_scaler_checkpoint_resume(tmp_path):
+    x = np.random.default_rng(8).normal(size=(400, 3)) * 2 + 1
+    t = Table.from_columns(input=x)
+
+    def est():
+        return online.OnlineStandardScaler(input_col="input", output_col="o",
+                                           device="cpu")
+
+    expected = est().fit(streaming.StreamTable.from_table(t, 100))
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    cfg = IterationConfig(mode="host", checkpoint_interval=1,
+                          checkpoint_manager=mgr)
+    with pytest.raises(_Crash):
+        est().set_iteration_config(cfg, listeners=[_CrashAt(1)]).fit(
+            streaming.StreamTable.from_table(t, 100))
+    resumed = est().set_iteration_config(cfg).fit(
+        streaming.StreamTable.from_table(t.take(slice(100, 400)), 100))
+    np.testing.assert_array_equal(resumed.mean, expected.mean)
+    np.testing.assert_array_equal(resumed.std, expected.std)
+    assert resumed.model_version == expected.model_version
+    assert [v for v, _, _ in resumed.history] == [0, 1, 2, 3]
+
+
+def test_online_scaler_save_load_and_jax_models(tmp_path):
+    from flink_ml_tpu.common import window as jax_window
+
+    from flink_ml_tpu_torch.common.metrics import metrics
+    from flink_ml_tpu_torch.common.window import CountTumblingWindows
+    from flink_ml_tpu_torch.convert import (
+        online_standard_scaler_model_from_arrays,
+    )
+
+    x = np.random.default_rng(9).normal(size=(100, 2))
+    got, want = _scaler_both(x, with_mean=True, model_version_col="v")
+    got.save(str(tmp_path / "port"))
+    again = online.OnlineStandardScalerModel.load(str(tmp_path / "port"),
+                                                  device="cpu")
+    np.testing.assert_array_equal(again.mean, got.mean)
+    assert again.model_version == got.model_version and again._with_mean
+    # a JAX-saved model, and a JAX-saved estimator with a windows param
+    want.save(str(tmp_path / "jax"))
+    loaded = rw.load_stage(str(tmp_path / "jax"), device="cpu")
+    assert type(loaded) is online.OnlineStandardScalerModel
+    np.testing.assert_array_equal(loaded.std, want.std)
+    jest = jax_online.OnlineStandardScaler(
+        windows=jax_window.CountTumblingWindows.of(7))
+    jest.save(str(tmp_path / "jest"))
+    pest = rw.load_stage(str(tmp_path / "jest"), device="cpu")
+    assert pest.windows == CountTumblingWindows.of(7)
+    assert pest.params_to_json_str() == jest.params_to_json_str()
+    # model data in, gauges out (OnlineStandardScalerModel.java:202-210)
+    data = want.get_model_data()[0]
+    port_data = Table.from_columns(
+        **{n: data.column(n) for n in data.column_names})
+    model = online.OnlineStandardScalerModel(device="cpu").set_model_data(
+        port_data)
+    assert metrics.model_group().get_gauge("version") == want.model_version
+    assert metrics.model_group().get_gauge("timestamp") == want.timestamp
+    np.testing.assert_array_equal(model.mean, want.mean)
+    made = online_standard_scaler_model_from_arrays(
+        want.mean, want.std, want.model_version, with_mean=True,
+        device="cpu", model_version_col="v")
+    out = made.transform(Table.from_columns(input=x))[0]
+    jout = want.transform(JaxTable.from_columns(input=x))[0]
+    np.testing.assert_allclose(_np(out["output"]), jout["output"], rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_array_equal(out["v"], jout["v"])
+
+
+def test_online_scaler_empty_stream_raises():
+    with pytest.raises(ValueError, match="empty"):
+        online.OnlineStandardScaler(device="cpu").fit(
+            streaming.StreamTable([]))
+
+
+# -- window_stream, iterate_unbounded ----------------------------------------------
+
+def _windows_both(name, *args):
+    from flink_ml_tpu.common import window as jax_window
+
+    from flink_ml_tpu_torch.common import window
+
+    return getattr(window, name)(*args), getattr(jax_window, name)(*args)
+
+
+def _window_rows(wins, with_end):
+    if with_end:
+        return [(end, _np(w.column("v")).tolist()) for end, w in wins]
+    return [_np(w.column("v")).tolist() for w in wins]
+
+
+@pytest.mark.parametrize("tensor", [False, True])
+@pytest.mark.parametrize("chunk", [1, 2, 3, 7])
+@pytest.mark.parametrize("spec", [("EventTimeTumblingWindows", 1000),
+                                  ("EventTimeSessionWindows", 500)])
+def test_window_stream_event_time_matches_jax(spec, chunk, tensor):
+    """Tumbling and session windows over the same rows in chunks of any
+    size: the same rows in the same windows, the same window ends."""
+    port_w, jax_w = _windows_both(*spec)
+    ts = np.array([0, 100, 400, 450, 1500, 1600, 3000, 3100], np.int64)
+    v = np.arange(8.0)
+    pt = Table.from_columns(v=torch.from_numpy(v) if tensor else v,
+                            ts=torch.from_numpy(ts) if tensor else ts)
+    got = list(streaming.window_stream(
+        streaming.StreamTable.from_table(pt, chunk), port_w, "ts",
+        with_end_ts=True))
+    want = list(jax_streaming.window_stream(
+        jax_streaming.StreamTable.from_table(
+            JaxTable.from_columns(v=v, ts=ts), chunk), jax_w, "ts",
+        with_end_ts=True))
+    assert _window_rows(got, True) == _window_rows(want, True)
+    if tensor:
+        assert all(isinstance(w.column("v"), torch.Tensor) for _, w in got)
+    with pytest.raises(ValueError, match="timestamp_col"):
+        list(streaming.window_stream(streaming.StreamTable.from_table(pt, 3),
+                                     port_w))
+
+
+def test_window_stream_out_of_order_rows_match_jax():
+    port_w, jax_w = _windows_both("EventTimeTumblingWindows", 1000)
+    ts = np.array([0, 1200, 300, 1300, 2500, 100], np.int64)
+    v = np.arange(6.0)
+    got = list(streaming.window_stream(streaming.StreamTable.from_table(
+        Table.from_columns(v=v, ts=ts), 3), port_w, "ts"))
+    want = list(jax_streaming.window_stream(
+        jax_streaming.StreamTable.from_table(JaxTable.from_columns(v=v, ts=ts),
+                                             3), jax_w, "ts"))
+    assert _window_rows(got, False) == _window_rows(want, False)
+
+
+@pytest.mark.parametrize("session", [False, True])
+def test_window_stream_processing_time_matches_jax(monkeypatch, session):
+    import time as time_mod
+
+    port_w, jax_w = _windows_both(
+        "ProcessingTimeSessionWindows" if session
+        else "ProcessingTimeTumblingWindows", 1000)
+    v = np.arange(10.0)
+    out = []
+    for mod, table_cls, w in ((streaming, Table, port_w),
+                              (jax_streaming, JaxTable, jax_w)):
+        arrivals = iter([0.0, 0.1, 5.0, 5.2, 20.0])  # seconds
+        monkeypatch.setattr(time_mod, "time", lambda: next(arrivals))
+        out.append(_window_rows(list(mod.window_stream(
+            mod.StreamTable.from_table(table_cls.from_columns(v=v), 2), w,
+            with_end_ts=True)), True))
+    assert out[0] == out[1]
+    if session:
+        assert [rows for _, rows in out[0]] == \
+            [[0, 1, 2, 3], [4, 5, 6, 7], [8, 9]]
+
+
+def test_window_stream_refuses_count_windows():
+    from flink_ml_tpu_torch.common.window import CountTumblingWindows
+
+    with pytest.raises(ValueError, match="tumbling and session"):
+        list(streaming.window_stream(streaming.StreamTable([]),
+                                     CountTumblingWindows.of(3)))
+
+
+def test_windows_json_matches_jax():
+    from flink_ml_tpu_torch.common import window
+
+    specs = [("GlobalWindows",), ("CountTumblingWindows", 5),
+             ("EventTimeTumblingWindows", 10),
+             ("ProcessingTimeTumblingWindows", 20),
+             ("EventTimeSessionWindows", 30),
+             ("ProcessingTimeSessionWindows", 40)]
+    for spec in specs:
+        got, want = _windows_both(*spec)
+        assert got.to_json() == want.to_json()
+        assert window.Windows.from_json(want.to_json()) == got
+    est = online.OnlineStandardScaler(device="cpu")
+    assert est.windows == window.GlobalWindows.get_instance()
+    jest = jax_online.OnlineStandardScaler()
+    assert est.params_to_json_str() == jest.params_to_json_str()
+    est.params_from_json({"windows": {"kind": "event_time_session",
+                                      "gap_ms": 7}})
+    assert est.windows == window.EventTimeSessionWindows.with_gap(7)
+
+
+def test_iterate_unbounded_checkpointer(tmp_path):
+    """The JAX package's case: resume restores (model, version) with native
+    Python types; completion clears the checkpoints."""
+    from flink_ml_tpu_torch.iteration import Iterations
+
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    cfg = IterationConfig(mode="host", checkpoint_interval=1,
+                          checkpoint_manager=mgr)
+
+    def step(model, batch):
+        return model + batch
+
+    out = list(streaming.iterate_unbounded(
+        0.0, [1.0, 2.0], step, checkpointer=streaming.StreamCheckpointer(cfg)))
+    assert out[-1] == (3.0, 2)
+    assert not mgr.list_checkpoints()
+    gen = streaming.iterate_unbounded(
+        0.0, [1.0, 2.0, 4.0], step,
+        checkpointer=streaming.StreamCheckpointer(cfg))
+    assert next(gen) == (1.0, 1) and next(gen) == (3.0, 2)
+    del gen  # abandoned mid-stream: the checkpoints survive
+    assert mgr.list_checkpoints()
+    (model, ver), = list(Iterations.iterate_unbounded_streams(
+        0.0, [4.0], step, checkpointer=streaming.StreamCheckpointer(cfg)))
+    assert (model, ver) == (7.0, 3) and type(ver) is int
+    seen = []
+    assert list(streaming.iterate_unbounded(
+        1, [2, 3], step, on_model=lambda m, v: seen.append((m, v)),
+        initial_version=5)) == [(3, 6), (6, 7)]
+    assert seen == [(3, 6), (6, 7)]

@@ -203,7 +203,7 @@ def test_load_class_maps_jax_paths_without_importing_them(monkeypatch):
         "flink_ml_tpu_torch.models.clustering.kmeans.KMeans") is KMeans
     assert {m for m in sys.modules if m.startswith("flink_ml_tpu.")} == before
     with pytest.raises(ValueError, match="not part of the port"):
-        rw.load_class("flink_ml_tpu.models.recommendation.swing.Swing")
+        rw.load_class("flink_ml_tpu.parallel.elastic.ElasticCheckpointManager")
 
 
 def test_non_finite_final_state_raises():

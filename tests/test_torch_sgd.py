@@ -309,10 +309,15 @@ def test_sgd_fit_keeps_float32_and_device_tensors():
     coeffs, loss = sgd.optimize(losses.BinaryLogisticLoss(), np.zeros(3), xt,
                                 yt, None, device="cpu")
     assert isinstance(loss, float) and coeffs.dtype == np.float64
+    # a CSR matrix takes the segment-sum rounds (optimize_csr), float32 on
+    # the device as the dense fit is
     csr = scipy.sparse.csr_matrix(x)
-    with pytest.raises(NotImplementedError, match="sparse"):
-        sgd.optimize(losses.BinaryLogisticLoss(), np.zeros(3), csr, y, None,
-                     device="cpu")
+    csr_coeffs, csr_loss = sgd.optimize(losses.BinaryLogisticLoss(),
+                                        np.zeros(3), csr, y, None,
+                                        device="cpu")
+    assert sgd.last_execution_path == "torch-csr"
+    assert isinstance(csr_loss, float) and csr_coeffs.dtype == np.float64
+    np.testing.assert_allclose(csr_coeffs, coeffs, rtol=1e-5, atol=1e-6)
     with pytest.raises(ValueError, match="coefficients"):
         sgd.optimize(losses.BinaryLogisticLoss(), np.zeros(4), x, y, None,
                      device="cpu")

@@ -484,11 +484,15 @@ def test_sparse_text_chain_at_300_docs(monkeypatch):
 # -- the examples -------------------------------------------------------------
 
 EXAMPLES = (
-    "count_vectorizer", "feature_hasher", "feature_ops", "hashingtf", "idf",
-    "imputer", "index_to_string", "kbins_discretizer", "minhash_lsh",
-    "ngram", "one_hot_encoder", "random_splitter", "regex_tokenizer",
-    "sparse_text_pipeline", "sql_transformer", "stop_words_remover",
-    "string_indexer", "tokenizer", "vector_indexer")
+    "agglomerative_clustering", "count_vectorizer", "feature_hasher",
+    "feature_ops", "hashingtf", "idf", "imputer", "index_to_string",
+    "kbins_discretizer", "minhash_lsh", "ngram", "one_hot_encoder",
+    "online_kmeans", "online_standard_scaler", "random_splitter",
+    "regex_tokenizer", "sparse_text_pipeline", "sql_transformer",
+    "stop_words_remover", "string_indexer", "swing", "tokenizer",
+    "vector_indexer")
+#: OnlineKMeans's centroids: float32 batch partials against float64 ones
+CENTROID_RTOL, CENTROID_ATOL = 1e-5, 1e-6
 
 
 def _example_main(name, port):
@@ -523,10 +527,12 @@ def _host_values(col):
 
 @pytest.mark.parametrize("name", EXAMPLES)
 def test_examples_run_on_the_port_as_on_jax(monkeypatch, capsys, name):
-    """Each example of this slice's stages, its imports mapped onto the
-    port and its stages on the CPU, returns what it returns on the JAX
-    package: the same columns, token and index values equal, floats within
-    rtol 1e-6 (float32 device outputs against float64 host ones)."""
+    """Each example of the text, discrete and misc ops, OnlineKMeans,
+    OnlineStandardScaler, AgglomerativeClustering and Swing, its imports
+    mapped onto the port and its stages on the CPU, returns what it returns
+    on the JAX package: the same columns, token, index and "item,score"
+    values equal, floats within rtol 1e-6 (float32 device outputs against
+    float64 host ones), centroids within CENTROID_RTOL/ATOL."""
     import jax
 
     from flink_ml_tpu.models import online as jax_online
@@ -556,5 +562,11 @@ def test_examples_run_on_the_port_as_on_jax(monkeypatch, capsys, name):
     elif hasattr(want, "coefficients"):
         np.testing.assert_allclose(got.coefficients, want.coefficients,
                                    rtol=CSR_RTOL, atol=CSR_ATOL)
+    elif hasattr(want, "centroids"):
+        assert type(got).__name__ == type(want).__name__, name
+        np.testing.assert_allclose(got.centroids, want.centroids,
+                                   rtol=CENTROID_RTOL, atol=CENTROID_ATOL)
+        np.testing.assert_allclose(got.weights, want.weights,
+                                   rtol=CENTROID_RTOL, atol=CENTROID_ATOL)
     else:
         assert type(got).__name__ == type(want).__name__, name
