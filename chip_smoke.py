@@ -304,7 +304,38 @@ Phases, each of which fails the run (no result line, nonzero exit):
     SWING_USERS x SWING_PER_USER purchases: the native scorer equal to the
     Python oracle on the first SWING_PREFIX_USERS users' groupings, and
     timed on the whole log; (d) and (e) launch no kernel;
-18. print one ``{"kernels": [...]}`` line with every kernel's launches in
+18. mesh telemetry, mesh-sharded serving and the trace CLI
+    (``observability/{meshstats,shards,path,lockstats,diff,cli}.py``,
+    ``servable/lr.py``), with the counts at 0: (a) the KMeans config in
+    host rounds and the LR config in segments of MESH_SEGMENT rounds, each
+    on MESH_SHARDS virtual shards of the card, fitted unarmed, then three
+    times traced with the lock watchdog armed (each into its own trace
+    dir), then unarmed again: every armed fit bit-identical to the
+    unarmed one; ``mesh.json`` names MESH_SHARDS shards on platform
+    ``gpu``, ``rows`` is 125,000 and 1,250,000 a shard, KMeans'
+    ``nonFinite`` all 0, one ``readyMs`` observation a shard a round
+    (KMeans) or a segment (LR); then the KMeans model's transform, and
+    ``record_input_health`` on a placed copy of its table with NaNs in
+    shard 5 only, naming shard 5; a profiled LR fit on the mesh; (b)
+    phase 13's servable (an LR fit of SERVE_FIT_ROWS seeded rows with
+    hyperplane labels, at the FTRL config's width) and traffic (400
+    requests of 1, 2 and 4 rows from 64 callers) through a micro-batcher
+    (buckets 8, 32, 128) on SERVE_SHARDS shards and on one, traced and
+    warmed on the device thread: every response within SERVE_RTOL /
+    SERVE_ATOL of the host float64 predict, every bucket sharded on
+    SERVE_SHARDS shards, and the request paths reconstructed with at
+    least 0.9 coverage; (c) the port's ``flink-ml-tpu-torch-trace`` over
+    those dirs, each view's exit code and wall ms: ``summary --check``,
+    ``shards --check`` (0 on the meshes, 2 on the one-shard serving dir),
+    ``path --check``, ``locks --check`` on the serving dir, ``health
+    --check`` on the fits, ``efficiency`` on the profiled fit, ``diff A B
+    --budget DIFF_BUDGET_PCT --min-ms DIFF_MIN_MS`` of each fit's two warm
+    armed runs (0), and ``python -m flink_ml_tpu_torch.observability.cli
+    shards --check`` as a process; prints armed against unarmed fit ms,
+    the ready waits per observation and shard, requests/s, p50/p99 and
+    tick ms on each mesh, and the launches of ``PATH_KERNELS[
+    "mesh_observability"]``, each at least once;
+19. print one ``{"kernels": [...]}`` line with every kernel's launches in
     its main-path runs (in all and by path), error, times and bound, then
     the result line.
 
@@ -436,6 +467,10 @@ PATH_KERNELS = {
     # LogisticRegression and LinearSVC on a CSR column: two segment sums a
     # round (the per-row dots, then the gradient)
     "sparse_linear": ("segment_reduce_sum",),
+    # the traced 8-shard KMeans fit (Lloyd and its cross-shard sums), its
+    # transform, the 8-shard LR fits and the serving producer's LR fit
+    "mesh_observability": ("sgd_batch_terms", "lloyd_partial_sums",
+                           "reduce_partials", "assign_nearest"),
 }
 # phase 15's configs, run uncut through the runner
 FEATURE_CONFIGS = (
@@ -533,6 +568,16 @@ SCALER_OFFSET_STD_RTOL = 1e-6
 SPARSE_CKPT_INTERVAL = 5
 SPARSE_CRASH_ROUND = 12
 SPARSE_ACCURACY = 0.75
+# phase 18: the virtual shards of the fits and of the sharded serving run,
+# the LR fit's segment, the serving producer's rows, and the `diff` gate
+# between the two warm armed runs of each fit (a span name regresses only
+# past both: DIFF_BUDGET_PCT percent and DIFF_MIN_MS ms of self time)
+MESH_SHARDS = 8
+MESH_SEGMENT = 5
+SERVE_SHARDS = 4
+SERVE_FIT_ROWS = 1_000_000
+DIFF_BUDGET_PCT = 100
+DIFF_MIN_MS = 25
 SWING_SEED = 17
 SWING_USERS, SWING_ITEMS, SWING_PER_USER = 20_000, 10_000, 20
 SWING_PREFIX_USERS = 2_000
@@ -2489,45 +2534,56 @@ class _Counting(logging.Handler):
             self.faults.append(msg)
 
 
-def _recording_loader(served, ticks, coefs=None, device="cuda"):
-    """The registry loader of phases 13 and 14: a device-predict LR
-    servable whose transform records, for each request of the batch, the
-    version that served it and its dots (``served[ordinal]``), and for
-    each transform (version, thread, rows, ms, device-product ms)
-    (``ticks``); ``coefs[version]`` keeps each loaded coefficient."""
+def _recording_servable(coef, version, served, ticks, device="cuda"):
+    """A device-predict LR servable whose transform records, for each
+    request of the batch, the version that served it and its dots
+    (``served[ordinal]``), and for each transform (version, thread, rows,
+    ms, device-product ms) (``ticks``); the product is the one-device or,
+    on a mesh whose shards divide the batch, the row-sharded one."""
     from flink_ml_tpu_torch.servable import LogisticRegressionModelServable
     from flink_ml_tpu_torch.servable.lr import LogisticRegressionModelData
+
+    sv = LogisticRegressionModelServable().set_device_predict(
+        True, device=device)
+    sv.model_data = LogisticRegressionModelData(coef, version)
+    inner_dots, inner_sharded = sv._device_dots, sv._sharded_dots
+    inner_transform = sv.transform
+    last = {}
+
+    def timed(fn, *args, **kwargs):
+        t = time.perf_counter()
+        last["dots"] = fn(*args, **kwargs)
+        last["ms"] = (time.perf_counter() - t) * 1e3
+        return last["dots"]
+
+    def transform(df):
+        t = time.perf_counter()
+        out = inner_transform(df)
+        ms = (time.perf_counter() - t) * 1e3
+        ticks.append((version, threading.current_thread().name,
+                      df.num_rows(), ms, last["ms"]))
+        offset = 0
+        for seq, rows in getattr(df, "request_segments", None) or ():
+            served[seq] = (version, last["dots"][offset:offset + rows])
+            offset += rows
+        return out
+
+    sv._device_dots = lambda xb: timed(inner_dots, xb)
+    sv._sharded_dots = lambda *a, **kw: timed(inner_sharded, *a, **kw)
+    sv.transform = transform
+    return sv
+
+
+def _recording_loader(served, ticks, coefs=None, device="cuda"):
+    """The registry loader of phases 13 and 14: a
+    :func:`_recording_servable` per version; ``coefs[version]`` keeps
+    each loaded coefficient."""
 
     def loader(leaves, version):
         coef = np.asarray(leaves[0], np.float64)
         if coefs is not None:
             coefs[version] = coef
-        sv = LogisticRegressionModelServable().set_device_predict(
-            True, device=device)
-        sv.model_data = LogisticRegressionModelData(coef, version)
-        inner_dots, inner_transform = sv._device_dots, sv.transform
-        last = {}
-
-        def device_dots(xb):
-            t = time.perf_counter()
-            last["dots"] = inner_dots(xb)
-            last["ms"] = (time.perf_counter() - t) * 1e3
-            return last["dots"]
-
-        def transform(df):
-            t = time.perf_counter()
-            out = inner_transform(df)
-            ms = (time.perf_counter() - t) * 1e3
-            ticks.append((version, threading.current_thread().name,
-                          df.num_rows(), ms, last["ms"]))
-            offset = 0
-            for seq, rows in getattr(df, "request_segments", None) or ():
-                served[seq] = (version, last["dots"][offset:offset + rows])
-                offset += rows
-            return out
-
-        sv._device_dots, sv.transform = device_dots, transform
-        return sv
+        return _recording_servable(coef, version, served, ticks, device)
 
     return loader
 
@@ -4792,6 +4848,341 @@ def phase_host_algorithms(K, runner, Table, device="cuda"):
     return {"agglomerative": agg, "swing": swing}
 
 
+def _cli(argv):
+    """(exit code, ms) of one ``flink-ml-tpu-torch-trace`` view, run in
+    this process with its output kept off the smoke's stdout."""
+    import io
+
+    from flink_ml_tpu_torch.observability import cli
+
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(out):
+        rc = cli.main(list(argv))
+    return rc, (time.perf_counter() - t) * 1e3
+
+
+def _shard_series(snap, name, kind="gauges"):
+    """``{shard: value}`` of one ``ml.shard`` series of a snapshot."""
+    from flink_ml_tpu_torch.observability.health import _parse_labels
+
+    out = {}
+    for key, value in ((snap.get("ml.shard") or {}).get(kind) or {}).items():
+        base, _, rest = key.partition("{")
+        if base == name:
+            out[int(_parse_labels(rest[:-1])["shard"])] = value
+    return out
+
+
+def phase_mesh_observability(K, runner, card_line, device="cuda"):
+    """Phase 18: mesh telemetry, mesh-sharded serving and the trace CLI.
+    (a) the KMeans config in host rounds and the LR config in segments of
+    MESH_SEGMENT rounds, each fitted on MESH_SHARDS virtual shards traced
+    with the lock watchdog armed, bit-identical to the same fit unarmed,
+    then a KMeans transform; (b) phase 13's servable and traffic on
+    SERVE_SHARDS shards and on one, traced; (c) the port's CLI over those
+    trace dirs. Returns the path's launches."""
+    from flink_ml_tpu_torch import Table
+    from flink_ml_tpu_torch.common.locks import LOCKCHECK_ENV
+    from flink_ml_tpu_torch.iteration.checkpoint import CheckpointManager
+    from flink_ml_tpu_torch.iteration.iteration import IterationConfig
+    from flink_ml_tpu_torch.linalg.vectors import DenseVector
+    from flink_ml_tpu_torch.models.classification import LogisticRegression
+    from flink_ml_tpu_torch.observability import (exporters, meshstats, path,
+                                                  profiling, tracing)
+    from flink_ml_tpu_torch.parallel import collective as C
+    from flink_ml_tpu_torch.parallel import create_mesh
+    from flink_ml_tpu_torch.servable import DataFrame, DataTypes, Row
+    from flink_ml_tpu_torch.serving import (BatcherConfig, LoadGenConfig,
+                                            MicroBatcher, run_loadgen, warm)
+
+    log("phase 18: mesh telemetry, sharded serving and the trace CLI")
+    started = time.perf_counter()
+    dev = torch.device(device)
+    platform = "gpu" if dev.type == "cuda" else dev.type
+    mesh = create_mesh((MESH_SHARDS,), devices=[dev] * MESH_SHARDS)
+    tracer = tracing.tracer
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    dirs = {}
+    summary = {"card": card_line}
+    K.reset_launch_counts()
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def traced(tag, call, **env):
+        """``call()`` into the trace dir ``tag`` (lock watchdog armed), from
+        an empty registry → (result, host ms, ended by a synchronize)."""
+        trace_dir = dirs[tag] = os.path.join(workdir, tag)
+        exporters.metrics.clear()
+        armed = {tracing.TRACE_DIR_ENV: trace_dir, LOCKCHECK_ENV: 1, **env}
+        with _armed(**armed):
+            sync()
+            t = time.perf_counter()
+            result = call()
+            sync()
+            ms = (time.perf_counter() - t) * 1e3
+        tracer.shutdown()
+        return result, ms
+
+    def untraced(call):
+        sync()
+        t = time.perf_counter()
+        result = call()
+        sync()
+        return result, (time.perf_counter() - t) * 1e3
+
+    try:
+        # (a) the two fits: unarmed, armed three times (the last two are
+        # the warm pair `diff` holds), unarmed
+        fits = {}
+        cases = [
+            ("kmeans", runner.load_config(str(CONFIG))["KMeans"],
+             lambda est: est.set_iteration_config(IterationConfig(
+                 mode="host"))),
+            ("lr", runner.load_config(
+                str(LINEAR_CONFIGS["logisticregression"]))[
+                    "logisticregression"],
+             None),
+        ]
+        for name, spec, setup in cases:
+            table = runner.build_generator(spec, device=device).get_data()
+            max_iter = spec["stage"]["paramMap"]["maxIter"]
+            n = table.num_rows
+            seq = itertools.count()
+
+            def fit():
+                est = runner.build_stage(spec, device=device, mesh=mesh)
+                if setup is not None:
+                    est = setup(est)
+                else:
+                    est.set_iteration_config(IterationConfig(
+                        checkpoint_interval=MESH_SEGMENT,
+                        checkpoint_manager=CheckpointManager(os.path.join(
+                            workdir, f"{name}-ckpt-{next(seq)}"))))
+                model = est.fit(table)
+                return (np.concatenate([model.centroids.ravel(),
+                                        model.weights])
+                        if name == "kmeans" else model.coefficients), model
+
+            (want, _), unarmed0 = untraced(fit)
+            armed = []
+            for i in range(3):
+                (got, model), ms = traced(f"{name}-{i}", fit)
+                assert np.array_equal(got, want), (
+                    f"{name}: the armed fit differs from the unarmed one")
+                armed.append(ms)
+            (again, _), unarmed1 = untraced(fit)
+            assert np.array_equal(again, want)
+            trace = dirs[f"{name}-0"]
+            snap = exporters.read_metrics(trace)
+            topo = meshstats.read_mesh(trace)
+            assert topo["device_count"] == MESH_SHARDS and \
+                topo["platform"] == platform, topo
+            rows = _shard_series(snap, "rows")
+            assert rows == {s: n // MESH_SHARDS
+                            for s in range(MESH_SHARDS)}, rows
+            ready = _shard_series(snap, "readyMs", "histograms")
+            rounds = (max_iter if name == "kmeans"
+                      else max_iter // MESH_SEGMENT)
+            assert sorted(ready) == list(range(MESH_SHARDS)) and all(
+                h["count"] == rounds for h in ready.values()), ready
+            ready_ms = sum(h["sum"] for h in ready.values())
+            fits[name] = {
+                "rows": n, "rows_per_shard": rows[0],
+                "unarmed_ms": min(unarmed0, unarmed1),
+                "armed_ms": min(armed), "armed_runs_ms": armed,
+                "unarmed_runs_ms": [unarmed0, unarmed1],
+                "ready_observations": rounds,
+                "ready_wait_ms_per_observation": ready_ms / rounds,
+                "ready_ms_by_shard": {s: h["sum"] / rounds
+                                      for s, h in sorted(ready.items())}}
+            if name == "kmeans":
+                bad = _shard_series(snap, "nonFinite")
+                assert bad == {s: 0 for s in range(MESH_SHARDS)}, bad
+                # the transform of the fitted model (assign_nearest)
+                labels = model.transform(table)[0].column(
+                    model.prediction_col)
+                assert labels.shape == (n,) and labels.device.type == \
+                    dev.type
+                # a placed copy with NaNs in shard 5 only
+                x = table.vectors("features").clone()
+                per = n // MESH_SHARDS
+                x[5 * per + 7, 3] = float("nan")
+                x[5 * per + per - 1, 0] = float("nan")
+                counts = meshstats.record_input_health(
+                    "KMeans", mesh, C.ensure_on_mesh(mesh, x))
+                assert counts == [2 if s == 5 else 0
+                                  for s in range(MESH_SHARDS)], counts
+                fits[name]["nan_probe"] = counts
+                del x
+            log(f"  (a) {name} on {MESH_SHARDS} shards: "
+                + json.dumps(fits[name], sort_keys=True))
+            del table
+        summary["fits"] = fits
+
+        # the profiled LR fit on the mesh (efficiency)
+        spec = cases[1][1]
+        table = runner.build_generator(spec, device=device).get_data()
+        profiling.reset()
+        traced("lr-profiled", lambda: runner.build_stage(
+            spec, device=device, mesh=mesh).fit(table),
+            **{profiling.CAPTURE_ENV: 1})
+        del table
+
+        # (b) phase 13's servable and traffic, on SERVE_SHARDS shards and
+        # one: an LR fit of 1,000,000 seeded rows with hyperplane labels
+        spec = runner.load_config(str(FTRL_CONFIG))["OnlineLogisticRegression"]
+        d = spec["inputData"]["paramMap"]["vectorDim"]
+        lr_params = cases[1][1]["stage"]["paramMap"]
+        gen = torch.Generator(device=dev).manual_seed(31)
+        x = torch.randn(SERVE_FIT_ROWS, d, generator=gen, device=dev)
+        truth = np.random.default_rng(37).normal(size=d)
+        margin = x @ torch.as_tensor(truth, dtype=torch.float32, device=dev)
+        table = Table.from_columns(
+            features=x, label=(margin > margin.median()).to(torch.float32))
+        coef = np.asarray(LogisticRegression(
+            device=device, max_iter=lr_params["maxIter"],
+            global_batch_size=lr_params["globalBatchSize"],
+            learning_rate=lr_params["learningRate"]).fit(table).coefficients,
+            np.float64)
+        del table, x, margin
+
+        def frame_rows(i):
+            return np.random.default_rng(1000 + i).normal(
+                size=(SERVE_SIZES[i % len(SERVE_SIZES)], d))
+
+        def frame(i):
+            return DataFrame(["features"], [DataTypes.vector()],
+                             [Row([DenseVector(r)]) for r in frame_rows(i)])
+
+        # alternated, so neither mesh alone pays the first run's costs
+        serving = {SERVE_SHARDS: [], 1: []}
+        for run, shards in enumerate((SERVE_SHARDS, 1, 1, SERVE_SHARDS)):
+            served, ticks, results = {}, [], {}
+            sv = _recording_servable(coef, 1, served, ticks, device)
+            sv.serving_name = f"lr@shards{shards}"
+            smesh = create_mesh((shards,), devices=[dev] * shards)
+
+            def feedback(i, frm, fut, results=results):
+                results[i] = (fut.request_id, fut.result())
+
+            def serve():
+                batcher = MicroBatcher(sv, BatcherConfig(
+                    buckets=(8, 32, 128), window_ms=1.0), mesh=smesh).start()
+                try:
+                    report = warm(batcher, gate=False)
+                    start = len(ticks)
+                    res = run_loadgen(batcher.submit, frame, LoadGenConfig(
+                        mode="closed", requests=400, concurrency=64),
+                        feedback=feedback)
+                    return report, res, ticks[start:], batcher.status()
+                finally:
+                    batcher.stop()
+                    # serving opens no stage span: snapshot the registry
+                    # (and the lock dump) into the dir here
+                    exporters.dump_metrics(tracer.trace_dir)
+
+            (report, res, load_ticks, status), _ = traced(
+                f"serve-{shards}-{run}", serve)
+            assert res["ok"] == 400 and res["errors"] == 0 and \
+                res["rejected"] == 0, res
+            assert sorted(results) == list(range(400)), len(results)
+            versions, near_zero, worst = _check_responses(
+                [(seq, frame_rows(i), out)
+                 for i, (seq, out) in results.items()], served, {1: coef})
+            assert report["mesh_devices"] == shards, report
+            assert report["sharded_buckets"] == (
+                [8, 32, 128] if shards > 1 else []), report
+            assert status["sharded_dispatch"] == (shards > 1), status
+            tick_ms = [t[3] for t in load_ticks]
+            serving[shards].append({
+                "requests_per_s": res["throughput_rps"],
+                "rows_per_s": res["rows_per_s"],
+                "latency_ms": res["latency_ms"], "wall_s": res["wall_s"],
+                "ticks": len(tick_ms),
+                "tick_median_ms": statistics.median(tick_ms),
+                "tick_max_ms": max(tick_ms),
+                "product_median_ms": statistics.median(
+                    t[4] for t in load_ticks),
+                "near_zero_rows": near_zero, "max_abs_dot_err": worst,
+                "warmup_ms": report["total_ms"]})
+            lat = res["latency_ms"]
+            log(f"  (b) run {run}, {shards} shard(s): "
+                f"{res['throughput_rps']} requests/s, p50 {lat['p50']} ms, "
+                f"p99 {lat['p99']} ms, tick median "
+                f"{statistics.median(tick_ms):.3f} ms over {len(tick_ms)} "
+                f"ticks; max |dot err| {worst:.3g}")
+        paths = {}
+        for tag in (f"serve-{SERVE_SHARDS}-0", f"serve-{SERVE_SHARDS}-3"):
+            report = path.analyze_paths(exporters.read_spans(dirs[tag]))
+            assert report["requests"]["count"] == 400, report["requests"]
+            assert report["requests"]["coverage"] >= 0.9, report["requests"]
+            snap = exporters.read_metrics(dirs[tag])
+            assert sorted(_shard_series(snap, "rows")) == list(
+                range(SERVE_SHARDS))
+            paths[tag] = {k: report["requests"][k] for k in (
+                "count", "coverage", "queue_share", "segment_share")}
+        summary["serving"] = {
+            **{f"{k}_shards": v for k, v in serving.items()},
+            "path": paths}
+
+        # (c) the CLI over those dirs, each view's exit code and wall ms
+        fit_dirs = [dirs["kmeans-0"], dirs["lr-0"]]
+        serve_dir = dirs[f"serve-{SERVE_SHARDS}-0"]
+        gates = [
+            (["summary", dirs["kmeans-0"], "--check"], 0),
+            (["summary", serve_dir, "--check"], 0),
+            *[(["shards", d_, "--check"], 0) for d_ in fit_dirs],
+            (["shards", serve_dir, "--check"], 0),
+            (["shards", dirs["serve-1-1"], "--check"], 2),
+            (["path", serve_dir, "--check"], 0),
+            (["path", dirs["kmeans-0"], "--json"], 0),
+            (["locks", serve_dir, "--check"], 0),
+            *[(["health", d_, "--check"], 0) for d_ in fit_dirs],
+            (["efficiency", dirs["lr-profiled"]], 0),
+            (["diff", dirs["kmeans-1"], dirs["kmeans-2"], "--budget",
+              str(DIFF_BUDGET_PCT), "--min-ms", str(DIFF_MIN_MS)], 0),
+            (["diff", dirs["lr-1"], dirs["lr-2"], "--budget",
+              str(DIFF_BUDGET_PCT), "--min-ms", str(DIFF_MIN_MS)], 0),
+        ]
+        views = []
+        for argv, want in gates:
+            rc, ms = _cli(argv)
+            views.append({"view": argv[0], "dir": os.path.basename(argv[1]),
+                          "rc": rc, "ms": ms})
+            assert rc == want, (argv, rc, want)
+        # the module entry point, as a user runs it
+        proc = subprocess.run(
+            [sys.executable, "-m", "flink_ml_tpu_torch.observability.cli",
+             "shards", dirs["kmeans-0"], "--check"],
+            capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                [str(REPO)] + [p for p in os.environ.get(
+                    "PYTHONPATH", "").split(os.pathsep) if p])))
+        assert proc.returncode == 0, proc.stderr
+        assert f"{MESH_SHARDS} device(s)" in proc.stdout, proc.stdout
+        for tag in ("kmeans-0", "lr-0"):
+            rc, _ = _cli(["locks", dirs[tag]])
+            views.append({"view": "locks", "dir": tag, "rc": rc,
+                          "ms": None})
+        summary["cli"] = views
+        log("  (c) CLI: " + json.dumps(views))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+        profiling.reset()
+    counts = dict(K.launch_counts)
+    if dev.type == "cuda":  # the CPU runs the plain versions: no launches
+        for kern in PATH_KERNELS["mesh_observability"]:
+            assert counts[kern] >= 1, (kern, counts)
+    summary["launches"] = {k: v for k, v in counts.items() if v}
+    summary["seconds"] = time.perf_counter() - started
+    log("  mesh observability:", json.dumps(summary, sort_keys=True,
+                                            default=str))
+    return counts
+
+
 def _serving_group():
     from flink_ml_tpu_torch.common.metrics import metrics
 
@@ -4843,6 +5234,7 @@ def main() -> int:
     counts["online"] = phase_online(K, runner, Table)
     counts["sparse_linear"] = phase_sparse_linear(K, runner, Table, keep=keep)
     phase_host_algorithms(K, runner, Table)
+    counts["mesh_observability"] = phase_mesh_observability(K, runner, card)
 
     line = {"kernels": [
         {"name": name, **{key: K.KERNELS[name][key]

@@ -41,15 +41,19 @@ previous segment) and each host round in an ``epoch`` span (``host_ms``,
 ``device_ms``); the ``ml.iteration`` group counts ``boundaries``,
 ``boundaryFetches`` and ``rounds`` and keeps ``lastSegmentMs``,
 ``lastRoundMs`` and the ``epochMs{mode=}`` / ``segmentMs{mode=}``
-histograms; a boundary samples device memory. Where the JAX package
-records the metrics on every fit, the port records them only while the
-tracer is armed (``FLINK_ML_TPU_TRACE_DIR``, or the live ring): unarmed, a
-boundary costs one env check. The mesh statistics and elastic hooks of the
-JAX drivers come with the port's multi-process slice.
+histograms; a boundary samples device memory and, with a trace dir, each
+shard's time-to-ready (``observability/meshstats.py``: the per-shard loops
+mark each shard's work while the driver collects, and the boundary times
+the waits, ``ml.shard readyMs{phase=segment|epoch}``). Where the JAX
+package records the metrics on every fit, the port records them only while
+the tracer is armed (``FLINK_ML_TPU_TRACE_DIR``, or the live ring):
+unarmed, a boundary costs one env check. The elastic hooks of the JAX
+drivers come with the port's multi-process slice.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, Optional, Sequence
@@ -60,7 +64,7 @@ import torch
 from flink_ml_tpu_torch.common.metrics import ML_GROUP, metrics
 from flink_ml_tpu_torch.device import DeviceLike, resolve_device
 from flink_ml_tpu_torch.iteration.checkpoint import tree_flatten
-from flink_ml_tpu_torch.observability import compilestats, tracing
+from flink_ml_tpu_torch.observability import compilestats, meshstats, tracing
 from flink_ml_tpu_torch.resilience import faults
 
 Carry = Any
@@ -208,43 +212,56 @@ def run_segmented(run_segment, initial_carry, max_iter: int, K: int, mgr):
         carry, epoch = restored
     stop = False
     prev_ctx = None
-    while epoch < max_iter and not stop:
-        # realign to the K-grid so `epoch % K == 0` keeps firing after an
-        # off-phase restore
-        limit = min(epoch + K - epoch % K, max_iter)
-        seg_start = time.perf_counter()
-        # each segment follows from the previous one: the carry-handoff
-        # edge of the trace
-        with tracer.span("segment", epoch_from=epoch, epoch_to=limit,
-                         links=[prev_ctx] if prev_ctx else None) as sp:
-            carry, e, s = run_segment(carry, epoch, limit)
-            rounds = int(e) - epoch
-            epoch, stop = int(e), bool(s)
-            sp.set_attribute("rounds", rounds)
+    with _collecting(tracer.enabled):
+        while epoch < max_iter and not stop:
+            # realign to the K-grid so `epoch % K == 0` keeps firing after
+            # an off-phase restore
+            limit = min(epoch + K - epoch % K, max_iter)
+            seg_start = time.perf_counter()
+            # each segment follows from the previous one: the carry-handoff
+            # edge of the trace
+            with tracer.span("segment", epoch_from=epoch, epoch_to=limit,
+                             links=[prev_ctx] if prev_ctx else None) as sp:
+                carry, e, s = run_segment(carry, epoch, limit)
+                if tracer.enabled:
+                    # per-shard time-to-ready at the boundary: the boundary
+                    # fetch already waited for the device, so this reads
+                    # the residual drain of the shards' marks
+                    meshstats.observe_shard_ready(span=sp, phase="segment")
+                rounds = int(e) - epoch
+                epoch, stop = int(e), bool(s)
+                sp.set_attribute("rounds", rounds)
+                if armed:
+                    _iteration_group().counter("boundaries")
+                # chaos site: the segment boundary is this mode's epoch
+                # boundary
+                faults.inject("epoch-boundary", epoch=epoch)
+                done = epoch >= max_iter or stop
+                if epoch % K == 0 and not done:
+                    mgr.save(carry, epoch)
+                if tracer.enabled:
+                    # the boundary already waited for the device: the
+                    # sample costs no extra synchronisation
+                    compilestats.sample_memory("segment", span=sp)
+                prev_ctx = tracing.context_of(sp)
             if armed:
-                _iteration_group().counter("boundaries")
-            # chaos site: the segment boundary is this mode's epoch boundary
-            faults.inject("epoch-boundary", epoch=epoch)
-            done = epoch >= max_iter or stop
-            if epoch % K == 0 and not done:
-                mgr.save(carry, epoch)
-            if tracer.enabled:
-                # the boundary already waited for the device: the sample
-                # costs no extra synchronisation
-                compilestats.sample_memory("segment", span=sp)
-            prev_ctx = tracing.context_of(sp)
-        if armed:
-            seg_ms = (time.perf_counter() - seg_start) * 1000.0
-            group = _iteration_group()
-            group.counter("rounds", rounds)
-            group.gauge("lastSegmentMs", seg_ms)
-            group.gauge("lastRoundMs", seg_ms / max(rounds, 1))
-            mode = {"mode": "device-segment"}
-            group.histogram("epochMs", labels=mode).observe(
-                seg_ms / max(rounds, 1))
-            group.histogram("segmentMs", labels=mode).observe(seg_ms)
+                seg_ms = (time.perf_counter() - seg_start) * 1000.0
+                group = _iteration_group()
+                group.counter("rounds", rounds)
+                group.gauge("lastSegmentMs", seg_ms)
+                group.gauge("lastRoundMs", seg_ms / max(rounds, 1))
+                mode = {"mode": "device-segment"}
+                group.histogram("epochMs", labels=mode).observe(
+                    seg_ms / max(rounds, 1))
+                group.histogram("segmentMs", labels=mode).observe(seg_ms)
     mgr.clear()
     return carry
+
+
+def _collecting(on: bool):
+    """Collect the shards' ready marks (``meshstats.collect_ready``) when
+    ``on``: a trace dir is armed and the rounds run on the device."""
+    return meshstats.collect_ready() if on else contextlib.nullcontext()
 
 
 def _carry_device(carry, device: DeviceLike) -> torch.device:
@@ -345,50 +362,55 @@ def _host_loop(initial_carry, body, max_iter, terminate, config, listeners,
             carry, start_epoch = restored
 
     prev_ctx = None
-    for epoch in range(start_epoch, max_iter):
-        round_start = time.perf_counter()
-        # epoch N follows from epoch N-1: the carry-handoff edge
-        with tracer.span("epoch", epoch=epoch,
-                         links=[prev_ctx] if prev_ctx else None) as sp:
-            if config.per_round_init is not None:
-                carry = config.per_round_init(carry, epoch)
-            carry = body(carry, epoch)
-            stop = terminate(carry, epoch) if terminate is not None else False
-            if not jit_round:
+    with _collecting(tracer.enabled and jit_round):
+        for epoch in range(start_epoch, max_iter):
+            round_start = time.perf_counter()
+            # epoch N follows from epoch N-1: the carry-handoff edge
+            with tracer.span("epoch", epoch=epoch,
+                             links=[prev_ctx] if prev_ctx else None) as sp:
+                if config.per_round_init is not None:
+                    carry = config.per_round_init(carry, epoch)
+                carry = body(carry, epoch)
+                stop = terminate(carry, epoch) if terminate is not None else False
+                if not jit_round:
+                    stop = bool(stop)
+                faults.inject("epoch-boundary", epoch=epoch)
+                # listeners and checkpoints run while the round's device work
+                # may still be in flight
+                host_start = time.perf_counter()
+                for lst in listeners:
+                    lst.on_epoch_watermark_incremented(epoch, carry)
+                if mgr is not None and config.checkpoint_interval and \
+                        (epoch + 1) % config.checkpoint_interval == 0:
+                    mgr.save(carry, epoch + 1)
+                host_ms = (time.perf_counter() - host_start) * 1000.0
+                if jit_round and tracer.enabled:
+                    # per-shard time-to-ready while the round drains:
+                    # per-shard epoch attribution and straggler detection
+                    meshstats.observe_shard_ready(span=sp, phase="epoch")
                 stop = bool(stop)
-            faults.inject("epoch-boundary", epoch=epoch)
-            # listeners and checkpoints run while the round's device work
-            # may still be in flight
-            host_start = time.perf_counter()
-            for lst in listeners:
-                lst.on_epoch_watermark_incremented(epoch, carry)
-            if mgr is not None and config.checkpoint_interval and \
-                    (epoch + 1) % config.checkpoint_interval == 0:
-                mgr.save(carry, epoch + 1)
-            host_ms = (time.perf_counter() - host_start) * 1000.0
-            stop = bool(stop)
-            # the round's wall time: host_ms is listener and checkpoint
-            # work, device_ms the enqueue and the residual wait on the
-            # stop bit
-            total_ms = (time.perf_counter() - round_start) * 1000.0
-            sp.set_attribute("host_ms", round(host_ms, 3))
-            sp.set_attribute("device_ms", round(total_ms - host_ms, 3))
-            if tracer.enabled:
-                compilestats.sample_memory("epoch", span=sp)
-            prev_ctx = tracing.context_of(sp)
-        if armed:
-            group = _iteration_group()
-            mode = {"mode": "host"}
-            group.gauge("lastRoundMs", total_ms)
-            group.gauge("lastRoundHostMs", host_ms)
-            group.gauge("lastRoundDeviceMs", total_ms - host_ms)
-            group.histogram("epochMs", labels=mode).observe(total_ms)
-            group.histogram("epochHostMs", labels=mode).observe(host_ms)
-            group.histogram("epochDeviceMs", labels=mode).observe(
-                total_ms - host_ms)
-            group.counter("rounds")
-        if stop:
-            break
+                # the round's wall time: host_ms is listener and checkpoint
+                # work, device_ms the enqueue and the residual wait on the
+                # stop bit
+                total_ms = (time.perf_counter() - round_start) * 1000.0
+                sp.set_attribute("host_ms", round(host_ms, 3))
+                sp.set_attribute("device_ms", round(total_ms - host_ms, 3))
+                if tracer.enabled:
+                    compilestats.sample_memory("epoch", span=sp)
+                prev_ctx = tracing.context_of(sp)
+            if armed:
+                group = _iteration_group()
+                mode = {"mode": "host"}
+                group.gauge("lastRoundMs", total_ms)
+                group.gauge("lastRoundHostMs", host_ms)
+                group.gauge("lastRoundDeviceMs", total_ms - host_ms)
+                group.histogram("epochMs", labels=mode).observe(total_ms)
+                group.histogram("epochHostMs", labels=mode).observe(host_ms)
+                group.histogram("epochDeviceMs", labels=mode).observe(
+                    total_ms - host_ms)
+                group.counter("rounds")
+            if stop:
+                break
     for lst in listeners:
         lst.on_iteration_terminated(carry)
     if mgr is not None:

@@ -52,6 +52,7 @@ from flink_ml_tpu_torch.iteration import iteration
 from flink_ml_tpu_torch.linalg.distance import DistanceMeasure
 from flink_ml_tpu_torch.models.common import IterationRuntimeMixin
 from flink_ml_tpu_torch.observability import health as _health
+from flink_ml_tpu_torch.observability import meshstats, tracing
 from flink_ml_tpu_torch.ops import kernels
 from flink_ml_tpu_torch.parallel import collective as C
 from flink_ml_tpu_torch.parallel import update_sharding as _upd
@@ -116,12 +117,15 @@ def lloyd_round(partials_fn: Partials, x, v, centroids: torch.Tensor,
     cross-replica sharded: the (k, d+1) partials reduce-scatter over
     centroid rows padded to the shard multiple (padded rows count 0), each
     shard renormalizes its own rows, and the centroids all-gather and are
-    trimmed to k."""
+    trimmed to k. Each shard's partials are followed by its ready mark
+    (``meshstats.mark_shard_ready``, armed only)."""
     if isinstance(x, torch.Tensor):
         x, v = [x], [v]
     mesh = mesh if mesh is not None else Mesh([centroids.device])
-    parts = [partials_fn(xs, vs, centroids.to(xs.device))
-             for xs, vs in zip(x, v)]
+    parts = []
+    for s, xs, vs in zip(mesh.local_shards, x, v):
+        parts.append(partials_fn(xs, vs, centroids.to(xs.device)))
+        meshstats.mark_shard_ready(mesh, s, parts[-1])
     if not sharded:
         packed = C.sum_shards(parts, mesh)
         sums, counts = packed[:, :-1], packed[:, -1]
@@ -223,6 +227,12 @@ class KMeans(Estimator, KMeansParams, IterationRuntimeMixin):
         mesh = self.mesh
         features = table.vectors(self.features_col)
         rows = C.ensure_on_mesh(mesh, features)
+        if tracing.tracer.enabled:
+            # mesh telemetry at the fit boundary: per-shard row counts and
+            # non-finite input counts, so a bad shard is identifiable
+            # before the fit consumes it
+            meshstats.record_shard_rows(mesh, rows.n)
+            meshstats.record_input_health("KMeans", mesh, rows)
         x = rows.parts
         device = x[0].device
         dim = x[0].shape[1]

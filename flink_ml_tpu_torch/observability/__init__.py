@@ -23,7 +23,11 @@ with multi-window burn rates (``slo``), the flight recorder
 (``flightrecorder``) that dumps ``incident-<seq>/`` evidence bundles on
 SLO violations, drift, quality regressions, divergence and rollbacks,
 and the fleet plane (``fleet``: per-process beacons folded into
-membership and fleet-level windowed quantiles).
+membership and fleet-level windowed quantiles). The mesh dimension:
+``meshstats`` records the topology (``mesh.json``), per-shard rows,
+non-finite inputs and time-to-ready, and ``ml.skew`` stragglers. The
+readers: ``flink-ml-tpu-torch-trace`` (``cli``) with its ``shards``,
+``path``, ``locks`` and ``diff`` views and every other module's ``main``.
 """
 
 from flink_ml_tpu_torch.observability.compilestats import (
@@ -53,6 +57,17 @@ from flink_ml_tpu_torch.observability.exporters import (
     resolve_trace_dir,
     write_chrome_trace,
 )
+from flink_ml_tpu_torch.observability.meshstats import (
+    SKEW_EVENT,
+    detect_skew,
+    ensure_mesh_recorded,
+    mesh_snapshot,
+    observe_shard_ready,
+    read_mesh,
+    record_input_health,
+    record_shard_rows,
+)
+from flink_ml_tpu_torch.observability.path import analyze_paths
 from flink_ml_tpu_torch.observability.flightrecorder import (
     INCIDENT_EVENT,
     acknowledge,
@@ -110,6 +125,15 @@ from flink_ml_tpu_torch.observability.tracing import (
 
 __all__ = [
     "INCIDENT_EVENT",
+    "SKEW_EVENT",
+    "analyze_paths",
+    "detect_skew",
+    "ensure_mesh_recorded",
+    "mesh_snapshot",
+    "observe_shard_ready",
+    "read_mesh",
+    "record_input_health",
+    "record_shard_rows",
     "SLO",
     "SLO_EVENT",
     "SLO_SPEC_ENV",

@@ -38,8 +38,9 @@ Three stages:
   ``violations{servable=}`` counters past the thresholds, and feeding
   the ``/drift`` live route (observability/server.py).
 
-The trace-dir reader and the ``flink-ml-tpu-trace drift`` view
-(``read_state``, ``render_drift``, ``main``) come with the port's CLI. An
+:func:`read_state` merges a trace dir's ``drift-*.json`` artifacts and
+:func:`main` is the ``flink-ml-tpu-torch-trace drift`` view over them
+(``--check``: 4 when a servable drifted, 2 on missing artifacts). An
 emitting evaluation that reads drifted records a ``drift`` incident bundle
 (observability/flightrecorder.py).
 """
@@ -49,6 +50,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import sys
 import threading
 import time
 from typing import Dict, List, Optional, Sequence
@@ -89,6 +91,9 @@ __all__ = [
     "reseed_child",
     "dump_state",
     "clear",
+    "read_state",
+    "render_drift",
+    "main",
 ]
 
 #: "0" disables the whole layer (live sketching AND fit-time capture);
@@ -113,6 +118,12 @@ SAMPLE_ROWS_ENV = "FLINK_ML_TPU_DRIFT_SAMPLE_ROWS"
 
 #: instant-event name for detected drift in the trace
 DRIFT_EVENT = "ml.drift"
+
+#: exit codes (the convention of diff/slo/quality: 4 = gate fired,
+#: 2 = broken artifacts)
+EXIT_OK = 0
+EXIT_INVALID = 2
+EXIT_DRIFTED = 4
 
 #: the baseline artifact filename beside a checkpoint's manifest.json
 BASELINE_FILENAME = "drift-baseline.json"
@@ -1102,3 +1113,220 @@ def dump_state(trace_dir: str) -> Optional[str]:
         json.dump(doc, f, default=str)
     os.replace(tmp, path)
     return path
+
+
+def read_state(trace_dir: str) -> Dict[str, dict]:
+    """Merge every ``drift-*.json`` in a trace dir:
+    ``{servable: {"live": SketchGroup-json, "baseline": json|None,
+    "results": json|None}}`` — the CLI's artifact reader. Torn files
+    are skipped, like the metrics reader."""
+    import glob
+
+    merged: Dict[str, dict] = {}
+    for path in sorted(glob.glob(os.path.join(trace_dir,
+                                              "drift-*.json"))):
+        if os.path.basename(path).startswith("drift-baseline-"):
+            continue  # fit-side baseline artifacts have their own shape
+        try:
+            with open(path, "r", encoding="utf-8") as f:
+                doc = json.load(f)
+        except (OSError, json.JSONDecodeError):
+            continue
+        for name, entry in (doc.get("servables") or {}).items():
+            row = merged.setdefault(
+                name, {"live": SketchGroup(), "baseline": None,
+                       "results": None})
+            try:
+                row["live"].merge(entry.get("live") or {})
+            except ValueError:
+                continue
+            if entry.get("baseline"):
+                row["baseline"] = entry["baseline"]
+            if entry.get("results"):
+                row["results"] = entry["results"]
+    return merged
+
+
+# -- the `flink-ml-tpu-torch-trace drift` view --------------------------------------
+
+def _artifact_verdicts(state: Dict[str, dict],
+                       override: Optional[DriftBaseline],
+                       thr: Dict[str, float],
+                       min_count: int) -> List[dict]:
+    verdicts = []
+    for name in sorted(state):
+        entry = state[name]
+        base_doc = entry.get("baseline")
+        baseline = override
+        if baseline is None and base_doc:
+            baseline = DriftBaseline.from_json(base_doc)
+        live = entry["live"].to_json()
+        row = {"servable": name,
+               "source": "baseline" if baseline is not None
+               else "missing",
+               "baselineVersion": (baseline.version
+                                   if baseline is not None else None),
+               "series": {}, "drifted": []}
+        if baseline is not None:
+            for sname, bsnap in sorted(
+                    baseline.group.to_json().items()):
+                stats = compare_sketches(bsnap, live.get(sname, {}))
+                if stats is None:
+                    continue
+                fresh = stats["live_n"] >= min_count
+                over = [s for s in STAT_NAMES
+                        if math.isfinite(stats[s])
+                        and stats[s] > thr[s]]
+                srow = dict(stats)
+                srow["drifted"] = bool(fresh and over)
+                srow["thin"] = not fresh
+                srow["over"] = over if fresh else []
+                row["series"][sname] = srow
+                if srow["drifted"]:
+                    row["drifted"].append(sname)
+        verdicts.append(row)
+    return verdicts
+
+
+def _fmt_stat(v) -> str:
+    try:
+        f = float(v)
+    except (TypeError, ValueError):
+        return "-"
+    if math.isnan(f):
+        return "nan"
+    return f"{f:.4f}"
+
+
+def render_drift(verdicts: List[dict], thr: Dict[str, float]) -> str:
+    drifted = sum(1 for v in verdicts if v["drifted"])
+    out = [f"{len(verdicts)} servable(s), {drifted} drifted  "
+           f"(thresholds: psi>{thr['psi']:g} js>{thr['js']:g} "
+           f"ks>{thr['ks']:g})"]
+    for v in verdicts:
+        out.append("")
+        ver = (f" baseline v{v['baselineVersion']}"
+               if v.get("baselineVersion") is not None else "")
+        flag = "DRIFTED" if v["drifted"] else (
+            "no baseline" if v["source"] == "missing" else "ok")
+        out.append(f"servable {v['servable']}{ver}  [{flag}]")
+        if v["source"] == "missing":
+            out.append("  source: missing — published without a "
+                       "training-time baseline")
+            continue
+        out.append(f"  {'series':<14} {'psi':>8} {'js':>8} {'ks':>8} "
+                   f"{'base n':>8} {'live n':>8}  verdict")
+        for name, st in v["series"].items():
+            # "thin" = below the sample floor: the truthful answer is
+            # "not enough samples yet", never "ok"
+            verdict = ("DRIFTED(" + ",".join(st["over"]) + ")"
+                       if st["drifted"] else
+                       ("thin" if st.get("thin") else "ok"))
+            out.append(
+                f"  {name:<14} {_fmt_stat(st['psi']):>8} "
+                f"{_fmt_stat(st['js']):>8} {_fmt_stat(st['ks']):>8} "
+                f"{st['baseline_n']:>8} {st['live_n']:>8}  {verdict}")
+    return "\n".join(out)
+
+
+def main(argv=None) -> int:
+    """``flink-ml-tpu-torch-trace drift <dir>`` — live-vs-baseline drift
+    verdicts from a trace dir's ``drift-*.json`` artifacts.
+    ``--baseline F`` overrides the artifact baselines with a serialized
+    :class:`DriftBaseline` file (e.g. a fit's
+    ``drift-baseline-<algo>.json``). ``--check`` exits 4 when any
+    servable drifted, 2 on missing/broken artifacts; a servable that
+    shipped without a baseline reports ``source: missing`` and exits 0
+    — the absence of a baseline is a publishing gap, not drift."""
+    import argparse
+
+    from flink_ml_tpu_torch.observability.exporters import (
+        pipe_guard,
+        resolve_trace_dir,
+    )
+
+    parser = argparse.ArgumentParser(
+        prog="flink-ml-tpu-torch-trace drift",
+        description="Drift verdicts (PSI / JS distance / KS) from a "
+                    "FLINK_ML_TPU_TRACE_DIR's drift artifacts.")
+    parser.add_argument("trace_dir")
+    parser.add_argument("--baseline", metavar="FILE",
+                        help="serialized DriftBaseline overriding the "
+                             "artifact baselines for every servable")
+    parser.add_argument("--json", action="store_true",
+                        help="machine-readable output")
+    parser.add_argument("--check", action="store_true",
+                        help="exit 4 when any servable drifted, 2 on "
+                             "broken artifacts")
+    parser.add_argument("--latest", action="store_true",
+                        help="treat TRACE_DIR as a root and pick the "
+                             "newest trace dir under it")
+    parser.add_argument("--psi", type=float, default=None,
+                        help="PSI threshold (default env/0.25)")
+    parser.add_argument("--js", type=float, default=None,
+                        help="JS-distance threshold (default env/0.2)")
+    parser.add_argument("--ks", type=float, default=None,
+                        help="KS threshold (default env/0.25)")
+    parser.add_argument("--min-count", type=int, default=None,
+                        help="min live samples per series before a "
+                             "verdict (default env/100)")
+    args = parser.parse_args(argv)
+
+    try:
+        trace_dir = resolve_trace_dir(args.trace_dir, args.latest)
+        state = read_state(trace_dir)
+    except OSError as e:
+        print(f"flink-ml-tpu-torch-trace drift: cannot read "
+              f"{args.trace_dir}: {e}", file=sys.stderr)
+        return EXIT_INVALID
+    override = None
+    if args.baseline:
+        try:
+            override = load_baseline_file(args.baseline)
+            if override is None:
+                raise ValueError(f"{args.baseline}: no such file")
+        except ValueError as e:
+            print(f"flink-ml-tpu-torch-trace drift: {e}", file=sys.stderr)
+            return EXIT_INVALID
+    if not state:
+        print(f"flink-ml-tpu-torch-trace drift: no drift-*.json artifacts "
+              f"in {trace_dir}", file=sys.stderr)
+        return EXIT_INVALID
+    thr = thresholds()
+    for stat in STAT_NAMES:
+        flag = getattr(args, stat)
+        if flag is not None:
+            thr[stat] = float(flag)
+    min_count = (args.min_count if args.min_count is not None
+                 else _min_count())
+    try:
+        verdicts = _artifact_verdicts(state, override, thr, min_count)
+    except ValueError as e:
+        print(f"flink-ml-tpu-torch-trace drift: {e}", file=sys.stderr)
+        return EXIT_INVALID
+
+    with pipe_guard():
+        if args.json:
+            # strict JSON: a baseline series never observed live has
+            # NaN stats, and the bare NaN token breaks jq exactly when
+            # someone is debugging coverage — render as strings (the
+            # health --json precedent)
+            from flink_ml_tpu_torch.observability.health import _json_safe
+
+            print(json.dumps(_json_safe({"trace_dir": trace_dir,
+                                         "thresholds": thr,
+                                         "min_count": min_count,
+                                         "verdicts": verdicts}),
+                             indent=2, default=str))
+        else:
+            print(render_drift(verdicts, thr))
+    drifted = [v["servable"] for v in verdicts if v["drifted"]]
+    if args.check and drifted:
+        print(f"flink-ml-tpu-torch-trace drift: {len(drifted)} drifted "
+              f"servable(s): {', '.join(drifted)}", file=sys.stderr)
+        return EXIT_DRIFTED
+    return EXIT_OK
+
+
+if __name__ == "__main__":  # pragma: no cover
+    sys.exit(main())

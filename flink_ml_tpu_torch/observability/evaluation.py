@@ -28,8 +28,9 @@ Three layers:
   :data:`QUALITY_EVENT` instant events, and the ``/quality`` live route
   (observability/server.py).
 
-The trace-dir reader and the ``flink-ml-tpu-trace quality`` view
-(``read_state``, ``render_quality``, ``main``) come with the port's CLI.
+:func:`read_state` merges a trace dir's ``quality-*.json`` artifacts and
+:func:`main` is the ``flink-ml-tpu-torch-trace quality`` view over them
+(``--check``: 4 when a servable degraded, 2 on missing artifacts).
 The quality SLO kind (observability/slo.py) and the ops controller's canary
 stage (serving/controller.py) read these verdicts, and an emitting
 evaluation that reads degraded records a ``quality`` incident bundle
@@ -41,6 +42,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import sys
 import time
 from collections import OrderedDict, deque
 from typing import Dict, List, Optional, Sequence
@@ -78,6 +80,9 @@ __all__ = [
     "reseed_child",
     "dump_state",
     "clear",
+    "read_state",
+    "render_quality",
+    "main",
 ]
 
 #: "0" disables the whole layer (join ring AND fit-time capture); any
@@ -101,6 +106,12 @@ THRESHOLD_ENV = "FLINK_ML_TPU_QUALITY_THRESHOLD"
 
 #: instant-event name for detected quality degradation in the trace
 QUALITY_EVENT = "ml.quality"
+
+#: exit codes (the convention of diff/slo/drift: 4 = gate fired,
+#: 2 = broken artifacts)
+EXIT_OK = 0
+EXIT_INVALID = 2
+EXIT_DEGRADED = 4
 
 #: the baseline artifact filename beside a checkpoint's manifest.json
 #: (rides ``CheckpointManager.save(extras=)`` next to drift-baseline)
@@ -989,3 +1000,243 @@ def dump_state(trace_dir: str) -> Optional[str]:
         json.dump(doc, f, default=str)
     os.replace(tmp, path)
     return path
+
+
+def read_state(trace_dir: str) -> Dict[str, dict]:
+    """Merge every ``quality-*.json`` in a trace dir:
+    ``{servable: {"sketch": QualitySketch, "coverage": {...},
+    "baseline": json|None, "results": json|None}}`` — the CLI's
+    artifact reader. Torn files are skipped, like the metrics
+    reader."""
+    import glob
+
+    merged: Dict[str, dict] = {}
+    for path in sorted(glob.glob(os.path.join(trace_dir,
+                                              "quality-*.json"))):
+        if os.path.basename(path).startswith("quality-baseline-"):
+            continue  # fit-side baseline artifacts have their own shape
+        try:
+            with open(path, "r", encoding="utf-8") as f:
+                doc = json.load(f)
+        except (OSError, json.JSONDecodeError):
+            continue
+        for name, entry in (doc.get("servables") or {}).items():
+            row = merged.setdefault(
+                name, {"sketch": QualitySketch(), "baseline": None,
+                       "coverage": {"predictions": 0, "joined": 0,
+                                    "evicted": 0, "late": 0},
+                       "results": None})
+            try:
+                row["sketch"].merge(entry.get("sketch") or {})
+            except ValueError:
+                continue
+            for key, val in (entry.get("coverage") or {}).items():
+                if key in row["coverage"]:
+                    row["coverage"][key] += int(val)
+            if entry.get("baseline"):
+                row["baseline"] = entry["baseline"]
+            if entry.get("results"):
+                row["results"] = entry["results"]
+    return merged
+
+
+# -- the `flink-ml-tpu-torch-trace quality` view ------------------------------------
+
+def _artifact_verdicts(state: Dict[str, dict],
+                       override: Optional[QualityBaseline],
+                       thr: Dict[str, float],
+                       min_labels: int) -> List[dict]:
+    verdicts = []
+    for name in sorted(state):
+        entry = state[name]
+        base_doc = entry.get("baseline")
+        baseline = override
+        if baseline is None and base_doc:
+            baseline = QualityBaseline.from_json(base_doc)
+        sketch: QualitySketch = entry["sketch"]
+        live = sketch.quality_metrics()
+        base_metrics = (baseline.sketch.quality_metrics()
+                        if baseline is not None else None)
+        fresh = live["n"] >= min_labels
+        over = []
+        auc = live["auc"]
+        if fresh and math.isfinite(auc):
+            if auc < thr["minAuc"]:
+                over.append("min-auc")
+            if (base_metrics is not None
+                    and math.isfinite(base_metrics["auc"])
+                    and base_metrics["auc"] - auc
+                    > thr["maxAucDelta"]):
+                over.append("auc-delta")
+        verdicts.append(
+            {"servable": name,
+             "source": ("baseline" if baseline is not None
+                        else "missing"),
+             "baselineVersion": (baseline.version
+                                 if baseline is not None else None),
+             "live": live,
+             "baseline": base_metrics,
+             "coverage": _coverage_row(entry.get("coverage") or {}),
+             "degraded": bool(fresh and over),
+             "thin": not fresh,
+             "over": over if fresh else []})
+    return verdicts
+
+
+def _fmt(v) -> str:
+    try:
+        f = float(v)
+    except (TypeError, ValueError):
+        return "-"
+    if math.isnan(f):
+        return "nan"
+    return f"{f:.4f}"
+
+
+def render_quality(verdicts: List[dict], thr: Dict[str, float]) -> str:
+    degraded = sum(1 for v in verdicts if v["degraded"])
+    out = [f"{len(verdicts)} servable(s), {degraded} degraded  "
+           f"(auc floor {thr['minAuc']:g}, max delta "
+           f"{thr['maxAucDelta']:g})"]
+    for v in verdicts:
+        out.append("")
+        ver = (f" baseline v{v['baselineVersion']}"
+               if v.get("baselineVersion") is not None else "")
+        flag = "DEGRADED" if v["degraded"] else (
+            "thin" if v.get("thin") else (
+                "no baseline" if v["source"] == "missing" else "ok"))
+        out.append(f"servable {v['servable']}{ver}  [{flag}]")
+        live = v["live"]
+        base = v.get("baseline")
+        cov = v.get("coverage") or {}
+        out.append(
+            f"  {'':<10} {'auc':>8} {'logloss':>8} {'acc':>8} "
+            f"{'prec':>8} {'recall':>8} {'ece':>8} {'n':>8}")
+        out.append(
+            f"  {'live':<10} {_fmt(live['auc']):>8} "
+            f"{_fmt(live['logloss']):>8} {_fmt(live['accuracy']):>8} "
+            f"{_fmt(live['precision']):>8} {_fmt(live['recall']):>8} "
+            f"{_fmt(live['calibrationError']):>8} {live['n']:>8}")
+        if base is not None:
+            out.append(
+                f"  {'baseline':<10} {_fmt(base['auc']):>8} "
+                f"{_fmt(base['logloss']):>8} "
+                f"{_fmt(base['accuracy']):>8} "
+                f"{_fmt(base['precision']):>8} "
+                f"{_fmt(base['recall']):>8} "
+                f"{_fmt(base['calibrationError']):>8} "
+                f"{base['n']:>8}")
+        covr = cov.get("coverage")
+        out.append(
+            f"  coverage {_fmt(covr) if covr is not None else '-'} "
+            f"({cov.get('joined', 0)}/{cov.get('predictions', 0)} "
+            f"joined, {cov.get('evicted', 0)} evicted, "
+            f"{cov.get('late', 0)} late)")
+        if v["over"]:
+            out.append(f"  over: {', '.join(v['over'])}")
+    return "\n".join(out)
+
+
+def main(argv=None) -> int:
+    """``flink-ml-tpu-torch-trace quality <dir>`` — live-vs-baseline quality
+    verdicts from a trace dir's ``quality-*.json`` artifacts.
+    ``--baseline F`` overrides the artifact baselines with a serialized
+    :class:`QualityBaseline` file (e.g. a fit's
+    ``quality-baseline-<algo>.json``). ``--check`` exits 4 when any
+    servable degraded, 2 on missing/broken artifacts; a servable that
+    shipped without a baseline reports ``source: missing`` and its AUC
+    is judged against the floor alone — the absence of a baseline is a
+    publishing gap, not a regression."""
+    import argparse
+
+    from flink_ml_tpu_torch.observability.exporters import (
+        pipe_guard,
+        resolve_trace_dir,
+    )
+
+    parser = argparse.ArgumentParser(
+        prog="flink-ml-tpu-torch-trace quality",
+        description="Continuous-evaluation quality verdicts (AUC / "
+                    "logloss / calibration) from a "
+                    "FLINK_ML_TPU_TRACE_DIR's quality artifacts.")
+    parser.add_argument("trace_dir")
+    parser.add_argument("--baseline", metavar="FILE",
+                        help="serialized QualityBaseline overriding "
+                             "the artifact baselines for every "
+                             "servable")
+    parser.add_argument("--json", action="store_true",
+                        help="machine-readable output")
+    parser.add_argument("--check", action="store_true",
+                        help="exit 4 when any servable degraded, 2 on "
+                             "broken artifacts")
+    parser.add_argument("--latest", action="store_true",
+                        help="treat TRACE_DIR as a root and pick the "
+                             "newest trace dir under it")
+    parser.add_argument("--min-auc", type=float, default=None,
+                        help="live AUC floor (default env/0.6)")
+    parser.add_argument("--max-delta", type=float, default=None,
+                        help="max baseline-minus-live AUC delta "
+                             "(default env/0.1)")
+    parser.add_argument("--min-labels", type=int, default=None,
+                        help="min joined labels per servable before a "
+                             "verdict (default env/100)")
+    args = parser.parse_args(argv)
+
+    try:
+        trace_dir = resolve_trace_dir(args.trace_dir, args.latest)
+        state = read_state(trace_dir)
+    except OSError as e:
+        print(f"flink-ml-tpu-torch-trace quality: cannot read "
+              f"{args.trace_dir}: {e}", file=sys.stderr)
+        return EXIT_INVALID
+    override = None
+    if args.baseline:
+        try:
+            override = load_baseline_file(args.baseline)
+            if override is None:
+                raise ValueError(f"{args.baseline}: no such file")
+        except ValueError as e:
+            print(f"flink-ml-tpu-torch-trace quality: {e}", file=sys.stderr)
+            return EXIT_INVALID
+    if not state:
+        print(f"flink-ml-tpu-torch-trace quality: no quality-*.json "
+              f"artifacts in {trace_dir}", file=sys.stderr)
+        return EXIT_INVALID
+    thr = quality_thresholds()
+    if args.min_auc is not None:
+        thr["minAuc"] = float(args.min_auc)
+    if args.max_delta is not None:
+        thr["maxAucDelta"] = float(args.max_delta)
+    min_labels = (args.min_labels if args.min_labels is not None
+                  else _min_labels())
+    try:
+        verdicts = _artifact_verdicts(state, override, thr, min_labels)
+    except ValueError as e:
+        print(f"flink-ml-tpu-torch-trace quality: {e}", file=sys.stderr)
+        return EXIT_INVALID
+
+    with pipe_guard():
+        if args.json:
+            # strict JSON: an empty window's AUC is NaN, and the bare
+            # NaN token breaks jq exactly when someone is debugging
+            # coverage — render as strings (the health --json
+            # precedent)
+            from flink_ml_tpu_torch.observability.health import _json_safe
+
+            print(json.dumps(_json_safe({"trace_dir": trace_dir,
+                                         "thresholds": thr,
+                                         "min_labels": min_labels,
+                                         "verdicts": verdicts}),
+                             indent=2, default=str))
+        else:
+            print(render_quality(verdicts, thr))
+    degraded = [v["servable"] for v in verdicts if v["degraded"]]
+    if args.check and degraded:
+        print(f"flink-ml-tpu-torch-trace quality: {len(degraded)} degraded "
+              f"servable(s): {', '.join(degraded)}", file=sys.stderr)
+        return EXIT_DEGRADED
+    return EXIT_OK
+
+
+if __name__ == "__main__":  # pragma: no cover
+    sys.exit(main())

@@ -22,8 +22,9 @@ metric names and events:
 
 The serving helpers (:func:`observe_serving` and its siblings) are pure
 host code that the servables' ``_served`` wrapper and the micro-batcher
-call. The ``flink-ml-tpu-trace health`` view (``health_summary``,
-``render_health``, ``main``) comes with the port's CLI.
+call. :func:`main` is the ``flink-ml-tpu-torch-trace health`` view of a
+trace dir (:func:`health_summary`, :func:`render_health`): ``--check``
+exits 3 when an ``ml.health`` event is present, 2 on empty artifacts.
 """
 
 from __future__ import annotations
@@ -649,6 +650,136 @@ def _parse_labels(label_str: str) -> Dict[str, str]:
     return out
 
 
+# -- the `flink-ml-tpu-torch-trace health` view --------------------------------
+
+def _fmtv(v) -> str:
+    if v is None:
+        return "-"
+    try:
+        f = float(v)
+    except (TypeError, ValueError):
+        return str(v)
+    if math.isnan(f):
+        return "nan"
+    if abs(f) >= 1e5 or (f != 0 and abs(f) < 1e-3):
+        return f"{f:.3e}"
+    return f"{f:.4g}"
+
+
+def health_summary(spans: List[dict],
+                   snapshot: Dict[str, dict]) -> dict:
+    """Structured model-health view of a trace dir: per-fit convergence
+    tables (from ``ml.convergence`` events, grouped per trace+algo),
+    the ``ml.health`` divergence timeline, and the ``ml.serving``
+    summary from the metrics snapshot."""
+    fits: Dict[tuple, dict] = {}
+    health_events: List[dict] = []
+    for sp in spans:
+        for ev in sp.get("events", ()):
+            attrs = ev.get("attrs", {})
+            if ev.get("name") == CONVERGENCE_EVENT:
+                key = (sp.get("trace"), attrs.get("algo", "?"))
+                fit = fits.setdefault(key, {
+                    "algo": attrs.get("algo", "?"),
+                    "trace": sp.get("trace"),
+                    "epochs": []})
+                row = {k: attrs[k] for k in attrs if k != "algo"}
+                fit["epochs"].append(row)
+            elif ev.get("name") == HEALTH_EVENT:
+                health_events.append({"ts_us": ev.get("ts_us", 0),
+                                      "attrs": attrs})
+    fit_rows = []
+    for fit in fits.values():
+        epochs = sorted(fit["epochs"],
+                        key=lambda r: r.get("epoch", 0))
+        row = {"algo": fit["algo"], "trace": fit["trace"],
+               "epochs": len(epochs), "series": {}}
+        names = {k for e in epochs for k in e if k != "epoch"}
+        for name in sorted(names):
+            vals = [float(e[name]) for e in epochs if name in e]
+            finite = [v for v in vals if math.isfinite(v)]
+            row["series"][name] = {
+                "first": vals[0] if vals else None,
+                "last": vals[-1] if vals else None,
+                "min": min(finite) if finite else None,
+                "nonfinite": len(vals) - len(finite)}
+        fit_rows.append(row)
+    fit_rows.sort(key=lambda r: r["algo"])
+    health_events.sort(key=lambda e: e["ts_us"])
+
+    serving = {}
+    sgroup = snapshot.get(f"{ML_GROUP}.serving", {})
+    for key, value in sgroup.get("counters", {}).items():
+        name = key.partition("{")[0]
+        servable = _parse_labels(key).get("servable", "?")
+        serving.setdefault(servable, {})[name] = value
+    from flink_ml_tpu_torch.common.metrics import histogram_quantile
+    for key, hist in sgroup.get("histograms", {}).items():
+        name = key.partition("{")[0]
+        servable = _parse_labels(key).get("servable", "?")
+        row = serving.setdefault(servable, {})
+        if name == "transformMs" and hist.get("count"):
+            row["transformMs_p50"] = histogram_quantile(hist, 0.5)
+            row["transformMs_p99"] = histogram_quantile(hist, 0.99)
+    for key, value in sgroup.get("gauges", {}).items():
+        name = key.partition("{")[0]
+        servable = _parse_labels(key).get("servable", "?")
+        serving.setdefault(servable, {})[name] = value
+
+    divergences = {}
+    hgroup = snapshot.get(f"{ML_GROUP}.health", {})
+    for key, value in hgroup.get("counters", {}).items():
+        if key.partition("{")[0] == "divergences":
+            labels = _parse_labels(key)
+            divergences[f"{labels.get('algo', '?')}/"
+                        f"{labels.get('kind', '?')}"] = value
+
+    return {"fits": fit_rows, "health_events": health_events,
+            "serving": serving, "divergences": divergences}
+
+
+def render_health(summary: dict) -> str:
+    out = []
+    fits = summary["fits"]
+    out.append(f"{len(fits)} fit(s) with convergence telemetry, "
+               f"{len(summary['health_events'])} health event(s)")
+    for fit in fits:
+        out.append("")
+        out.append(f"fit {fit['algo']}  ({fit['epochs']} epoch sample(s))")
+        out.append(f"  {'series':<14} {'first':>12} {'last':>12} "
+                   f"{'min':>12} {'non-finite':>11}")
+        for name, st in fit["series"].items():
+            out.append(
+                f"  {name:<14} {_fmtv(st['first']):>12} "
+                f"{_fmtv(st['last']):>12} {_fmtv(st['min']):>12} "
+                f"{st['nonfinite']:>11}")
+    if summary["health_events"]:
+        out.append("")
+        out.append("health event timeline:")
+        t0 = summary["health_events"][0]["ts_us"]
+        for ev in summary["health_events"]:
+            attrs = " ".join(f"{k}={v}" for k, v in ev["attrs"].items())
+            out.append(f"  +{(ev['ts_us'] - t0) / 1000.0:>10.3f} ms  "
+                       f"{HEALTH_EVENT}  {attrs}")
+    if summary["divergences"]:
+        out.append("")
+        out.append("divergence counters:")
+        for key, value in sorted(summary["divergences"].items()):
+            out.append(f"  {key}: {value}")
+    if summary["serving"]:
+        out.append("")
+        out.append("serving metrics:")
+        for servable, row in sorted(summary["serving"].items()):
+            out.append(f"  {servable}:")
+            for name in ("transforms", "rowsTotal", "transformMs_p50",
+                         "transformMs_p99", "predictionMin",
+                         "predictionMean", "predictionMax",
+                         "predictionFiniteFraction"):
+                if name in row:
+                    out.append(f"    {name}: {_fmtv(row[name])}")
+    return "\n".join(out)
+
+
 def _json_safe(obj):
     """Recursively replace non-finite floats with their string names so
     the structure serializes as STRICT JSON (the text format has no
@@ -661,3 +792,73 @@ def _json_safe(obj):
     if isinstance(obj, (list, tuple)):
         return [_json_safe(v) for v in obj]
     return obj
+
+
+def main(argv=None) -> int:
+    """``flink-ml-tpu-torch-trace health <dir>`` — model-health view of a
+    trace directory (``--json`` is strict JSON: non-finite floats render
+    as the strings "NaN"/"Infinity"/"-Infinity"). ``--check`` exits 3
+    (the sweep's correctness class) when any ``ml.health`` event is
+    present, 2 on unreadable/empty artifacts."""
+    import argparse
+    import json
+    import sys
+
+    from flink_ml_tpu_torch.observability.exporters import (
+        read_metrics,
+        read_spans,
+        resolve_trace_dir,
+    )
+
+    parser = argparse.ArgumentParser(
+        prog="flink-ml-tpu-torch-trace health",
+        description="Model-health view of a FLINK_ML_TPU_TRACE_DIR: "
+                    "per-fit convergence, divergence events, serving "
+                    "metrics.")
+    parser.add_argument("trace_dir")
+    parser.add_argument("--json", action="store_true",
+                        help="machine-readable output")
+    parser.add_argument("--check", action="store_true",
+                        help="exit 3 when a health event is present, "
+                             "2 on empty/unreadable artifacts")
+    parser.add_argument("--latest", action="store_true",
+                        help="treat TRACE_DIR as a root and pick the "
+                             "newest trace dir under it")
+    args = parser.parse_args(argv)
+
+    try:
+        args.trace_dir = resolve_trace_dir(args.trace_dir, args.latest)
+        spans = read_spans(args.trace_dir)
+    except OSError as e:
+        print(f"flink-ml-tpu-torch-trace health: cannot read "
+              f"{args.trace_dir}: {e}", file=sys.stderr)
+        return 2
+    snapshot = read_metrics(args.trace_dir)
+    if args.check and not spans and not snapshot:
+        print(f"flink-ml-tpu-torch-trace health: no artifacts in "
+              f"{args.trace_dir}", file=sys.stderr)
+        return 2
+    summary = health_summary(spans, snapshot)
+    from flink_ml_tpu_torch.observability.exporters import pipe_guard
+
+    with pipe_guard():  # `... | head` closing the pipe is not an error
+        if args.json:
+            # strict-JSON output: json.dumps would render float('nan')
+            # as the bare non-standard `NaN` token — unparseable by jq
+            # et al. exactly when a fit diverged, which is this view's
+            # whole point. Non-finite floats become strings.
+            print(json.dumps(_json_safe(summary), indent=2, default=str))
+        else:
+            print(render_health(summary))
+    if args.check and summary["health_events"]:
+        print(f"flink-ml-tpu-torch-trace health: "
+              f"{len(summary['health_events'])} health event(s) present",
+              file=sys.stderr)
+        return 3
+    return 0
+
+
+if __name__ == "__main__":  # pragma: no cover
+    import sys
+
+    sys.exit(main())

@@ -16,8 +16,10 @@ and artifact names:
   live ``/profilez`` route (observability/server.py).
   :func:`capture_incident_profile` grabs a short window into a flight
   recorder incident bundle (observability/flightrecorder.py).
-  ``CAPTURE_ENV=0`` is the kill-switch for every path. The ``efficiency``
-  view of the trace CLI comes with that module.
+  ``CAPTURE_ENV=0`` is the kill-switch for every path. :func:`main` is
+  the ``flink-ml-tpu-torch-trace efficiency`` view (``--check --min-util
+  F``: 4 when a measured kernel's share sits below F, 2 on missing or torn
+  artifacts, 0 on an honest ``host-fallback`` profile).
 
 - **Attribution.** A stdlib-only parser of the exported trace
   (:func:`parse_profile_dir`) folds the device-lane events (``cat:
@@ -45,11 +47,13 @@ histograms, and :func:`mark_ready` latches ``bootToReadyMs``.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import gzip
 import json
 import os
 import re
+import sys
 import tempfile
 import time
 from typing import Dict, List, Optional, Tuple
@@ -94,6 +98,12 @@ DEFAULT_PEAK_BW = 3.35e12
 
 #: the attribution artifact written beside spans-*/metrics-* files
 PROFILE_ARTIFACT = "profile.json"
+
+#: ``efficiency`` exit codes: 4 a kernel below the --min-util floor, 2
+#: missing or torn artifacts
+EXIT_OK = 0
+EXIT_INVALID = 2
+EXIT_BELOW_FLOOR = 4
 
 # module state: arming latches, live tick capture, boot latches — all
 # guarded by _lock (short holds only; profiler calls stay outside)
@@ -703,6 +713,91 @@ def efficiency_report(trace_dir: Optional[str],
             "ridge": pf / pb, "fns": rows}
 
 
+def _fmt(val, pattern: str = "{:.3g}") -> str:
+    return "—" if val is None else pattern.format(val)
+
+
+def render_efficiency(report: dict) -> str:
+    """The human rendering: one roofline header + one row per fn."""
+    lines = [
+        "source: {}  peaks {:.3g} FLOP/s / {:.3g} B/s  "
+        "ridge {:.4g} FLOP/B".format(report["source"], report["peakFlops"],
+                                     report["peakBw"], report["ridge"]),
+        "{:<24} {:>10} {:>14} {:>12} {:>8}  {}".format(
+            "fn", "deviceMs", "achievedFlops", "achievedBw", "util",
+            "bound"),
+    ]
+    for row in report["fns"]:
+        util = row["utilization"]
+        lines.append("{:<24} {:>10.3f} {:>14} {:>12} {:>8}  {}".format(
+            row["fn"], row["deviceMs"], _fmt(row["achievedFlops"]),
+            _fmt(row["achievedBw"]),
+            "—" if util is None else f"{util * 100.0:.1f}%",
+            row["bound"] or "—"))
+    if not report["fns"]:
+        lines.append("(no per-fn device time attributed)")
+    if report["source"] != "device":
+        lines.append("host-fallback profile: no device lanes — achieved "
+                     "rates and utilization are not claimed")
+    return "\n".join(lines)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    """``flink-ml-tpu-torch-trace efficiency <dir> [--json|--check
+    --min-util F]`` — exit 0 ok (including honest host-fallback), 2 on
+    missing/torn artifacts, 4 when any measured fn's utilization sits
+    below the floor."""
+    parser = argparse.ArgumentParser(
+        prog="flink-ml-tpu-torch-trace efficiency",
+        description="Measured device time against each kernel's bytes "
+                    "and operations: achieved rates and roofline share "
+                    "per kernel.")
+    parser.add_argument("dir", help="trace dir holding profile.json "
+                                    "and metrics-*.json")
+    parser.add_argument("--latest", action="store_true",
+                        help="treat DIR as a root; use its newest trace dir")
+    parser.add_argument("--json", action="store_true", dest="as_json",
+                        help="machine-readable report on stdout")
+    parser.add_argument("--check", action="store_true",
+                        help="gate: exit 4 when a measured fn's "
+                             "utilization is below --min-util")
+    parser.add_argument("--min-util", type=float, default=0.0,
+                        metavar="F",
+                        help="utilization floor as a fraction (0.4 = 40%%)")
+    parser.add_argument("--peak-flops", type=float, default=None,
+                        help=f"override {PEAK_FLOPS_ENV}")
+    parser.add_argument("--peak-bw", type=float, default=None,
+                        help=f"override {PEAK_BW_ENV}")
+    args = parser.parse_args(argv)
+
+    from flink_ml_tpu_torch.observability.exporters import resolve_trace_dir
+
+    try:
+        trace_dir = resolve_trace_dir(args.dir, latest=args.latest)
+        report = efficiency_report(trace_dir, pf=args.peak_flops,
+                                   pb=args.peak_bw)
+    except (ProfileParseError, OSError) as exc:
+        print(f"efficiency: {exc}", file=sys.stderr)
+        return EXIT_INVALID
+    if args.as_json:
+        print(json.dumps(report, indent=2, sort_keys=True))
+    else:
+        print(render_efficiency(report))
+    if args.check:
+        low = [r for r in report["fns"]
+               if r["utilization"] is not None
+               and r["utilization"] < args.min_util]
+        if low:
+            for row in low:
+                print("efficiency: {} utilization {:.1f}% below floor "
+                      "{:.1f}%".format(row["fn"],
+                                       row["utilization"] * 100.0,
+                                       args.min_util * 100.0),
+                      file=sys.stderr)
+            return EXIT_BELOW_FLOOR
+    return EXIT_OK
+
+
 # -- boot-to-ready phase telemetry --------------------------------------------
 #: the cold-start ladder, in boot order (docs/observability.md)
 BOOT_PHASES = ("distributed-init", "mesh-build", "warmup-compile",
@@ -764,3 +859,7 @@ def reset_boot() -> None:
     with _lock:
         _boot_t0 = None
         _boot_ready_ms = None
+
+
+if __name__ == "__main__":
+    sys.exit(main())

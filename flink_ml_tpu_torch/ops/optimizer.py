@@ -74,6 +74,7 @@ import torch
 from flink_ml_tpu_torch.device import DeviceLike
 from flink_ml_tpu_torch.iteration import iteration
 from flink_ml_tpu_torch.observability import health as _health
+from flink_ml_tpu_torch.observability import meshstats, tracing
 from flink_ml_tpu_torch.ops import kernels
 from flink_ml_tpu_torch.ops.losses import LossFunc
 from flink_ml_tpu_torch.ops.regularization import regularize
@@ -318,14 +319,17 @@ def csr_batch_terms(x: CsrShard, yl: torch.Tensor, wl: torch.Tensor,
     return torch.cat([grad, wb.sum()[None], loss_sum[None]])
 
 
-def _round_partials(batch_terms: BatchTerms, loss_name: str, shards,
+def _round_partials(batch_terms: BatchTerms, loss_name: str, mesh, shards,
                     windows, coeffs: torch.Tensor) -> list:
     """Every local shard's ``[Σ grad | Σ w | Σ loss]`` for one round: one
     ``batch_terms`` launch per shard whose window holds a real row, zeros
-    for the others. ``shards`` are the local shards' (x, y, w) rows,
-    ``windows`` their ``(start, clip, lb)`` this round."""
+    for the others, each followed by the shard's ready mark
+    (``meshstats.mark_shard_ready``, armed only). ``shards`` are the local
+    shards' (x, y, w) rows, ``windows`` their ``(start, clip, lb)`` this
+    round."""
     parts = []
-    for (x, y, w), (start, clip, lb) in zip(shards, windows):
+    for s, (x, y, w), (start, clip, lb) in zip(mesh.local_shards, shards,
+                                               windows):
         d = x.shape[1]
         if lb > clip:
             # the kernel sees the true width: coeffs may carry the sharded
@@ -337,6 +341,7 @@ def _round_partials(batch_terms: BatchTerms, loss_name: str, shards,
         else:
             parts.append(torch.zeros(d + 2, dtype=torch.float32,
                                      device=x.device))
+        meshstats.mark_shard_ready(mesh, s, parts[-1])
     return parts
 
 
@@ -397,8 +402,8 @@ def _masked_rounds(batch_terms: BatchTerms, loss_name: str, prm: SGDParams,
     ran = torch.zeros((), dtype=torch.int32, device=coeffs.device)
     stop = torch.zeros((), dtype=torch.bool, device=coeffs.device)
     for windows in sched.windows(mesh.local_shards, offsets, rounds):
-        parts = _round_partials(batch_terms, loss_name, shards, windows,
-                                coeffs)
+        parts = _round_partials(batch_terms, loss_name, mesh, shards,
+                                windows, coeffs)
         updated, new_opt, new_loss = _apply_round(prm, rule, mesh, sharded,
                                                   coeffs, opt, parts)
         # the tol stop as a mask: a round after it changes nothing
@@ -629,6 +634,10 @@ class SGD:
         prm = self.params
         p = mesh.size
         d = data.x.parts[0].shape[1]
+        if tracing.tracer.enabled:
+            # per-shard row counts at the fit boundary (the JAX package
+            # records them for KMeans; the port for every mesh fit)
+            meshstats.record_shard_rows(mesh, data.x.n)
         device = mesh.devices[mesh.local_shards[0]]
         coeffs = _on_device(init_coeffs, device)
         if coeffs.shape != (d,):

@@ -27,7 +27,8 @@ arithmetic of the fits.
 
 Accounting, the JAX package's host-collective one (``_HostOp``): inside a
 traced call (a span open on the thread), each cross-shard primitive and
-each placement opens a
+each placement records the mesh's topology once
+(``observability/meshstats.py``, ``mesh.json``) and opens a
 ``collective.host`` span (``op``, ``devices``, ``payload_bytes``: one
 shard's bytes) on the caller's thread and records ``ml.collective
 opMs{op=,devices=}`` and ``payloadBytes{op=,devices=}`` (a primitive on
@@ -45,7 +46,7 @@ from typing import List, NamedTuple, Sequence
 import torch
 
 from flink_ml_tpu_torch.common.metrics import ML_GROUP, metrics
-from flink_ml_tpu_torch.observability import tracing
+from flink_ml_tpu_torch.observability import meshstats, tracing
 from flink_ml_tpu_torch.ops import kernels
 from flink_ml_tpu_torch.parallel.mesh import Mesh
 
@@ -57,17 +58,23 @@ PAYLOAD_BUCKETS = (256.0, 4096.0, 65536.0, 1048576.0, 16777216.0,
 class _HostOp:
     """Time one host-side collective or placement op into ``ml.collective
     opMs{op=,devices=}`` (+ ``payloadBytes``), inside a ``collective.host``
-    span when a trace dir is armed."""
+    span when a trace dir is armed. Also the seam that records the mesh
+    topology: a host op is proof the mesh is in use."""
 
-    __slots__ = ("op", "devices", "nbytes", "_t0", "_span_cm")
+    __slots__ = ("op", "mesh", "devices", "nbytes", "_t0", "_span_cm")
 
     def __init__(self, op: str, mesh: Mesh, nbytes: int = 0):
         self.op = op
+        self.mesh = mesh
         self.devices = mesh.size
         self.nbytes = int(nbytes)
         self._span_cm = None
 
     def __enter__(self):
+        try:  # an unwritable trace dir must not sink the data path
+            meshstats.ensure_mesh_recorded(self.mesh)
+        except Exception:
+            pass
         if tracing.tracer.enabled:
             self._span_cm = tracing.tracer.span(
                 "collective.host", op=self.op, devices=self.devices,

@@ -33,6 +33,7 @@ from typing import Callable, Optional
 
 import torch
 
+from flink_ml_tpu_torch.observability import meshstats
 from flink_ml_tpu_torch.parallel import collective as _c
 from flink_ml_tpu_torch.parallel.mesh import Mesh, default_mesh
 
@@ -104,11 +105,16 @@ def map_shards(fn: Callable, mesh: Mesh) -> Callable:
     ``fn(shard, *shard_args[i], *shared)`` once per local shard ``shard =
     mesh.local_shards[i]`` and returns the list of results. ``shard_args``
     holds each local shard's own arguments (its rows, from
-    ``collective.ensure_on_mesh``); ``shared`` are replicated values."""
+    ``collective.ensure_on_mesh``); ``shared`` are replicated values.
+    While the iteration runtime collects ready times (armed), each shard's
+    call is followed by its ready mark (``meshstats.mark_shard_ready``)."""
 
     def mapped(shard_args, *shared):
-        return [fn(s, *args, *shared)
-                for s, args in zip(mesh.local_shards, shard_args)]
+        out = []
+        for s, args in zip(mesh.local_shards, shard_args):
+            out.append(fn(s, *args, *shared))
+            meshstats.mark_shard_ready(mesh, s)
+        return out
 
     return mapped
 

@@ -16,6 +16,18 @@ JAX package's ``jnp`` product (its ``lr.py:262-271``). That product is not
 a Pallas kernel in the JAX package, so it stays a PyTorch call here. The
 device path never falls back to host predict: without a card,
 ``set_device_predict(True)`` raises.
+
+Mesh-sharded dispatch (JAX ``lr.py:149-220``): with :meth:`set_mesh` of an
+in-process mesh of N > 1 shards, a batch whose row count N divides (the
+micro-batcher's padded buckets) is split by rows over the shards
+(``parallel/mapreduce.map_rows``): one product a shard against the
+coefficient placed once per (version, mesh) on the shards' devices, the
+dots concatenated in row order. Each such dispatch records the real rows a
+shard holds (``meshstats.record_shard_rows``, ``bucket / N`` rows a shard,
+the real rows filling from shard 0) and the serving view of the same split
+(``health.observe_serving_shards``; its ``device`` label is the shard
+ordinal, the JAX device id of a one-process JAX mesh, since virtual shards
+share one device). Other row counts keep the one-device product.
 """
 
 from __future__ import annotations
@@ -27,13 +39,19 @@ import torch
 
 from flink_ml_tpu_torch.device import DeviceLike, resolve_device
 from flink_ml_tpu_torch.linalg.vectors import DenseVector, Vector
-from flink_ml_tpu_torch.observability import health
+from flink_ml_tpu_torch.observability import health, meshstats
+from flink_ml_tpu_torch.parallel import mapreduce
 from flink_ml_tpu_torch.params.shared import (
     HasFeaturesCol,
     HasPredictionCol,
     HasRawPredictionCol,
 )
-from flink_ml_tpu_torch.servable.api import DataFrame, DataTypes, ModelServable
+from flink_ml_tpu_torch.servable.api import (
+    DataFrame,
+    DataTypes,
+    ModelServable,
+    serving_name,
+)
 from flink_ml_tpu_torch.utils import io as rw
 
 
@@ -71,6 +89,10 @@ class LogisticRegressionModelServable(ModelServable, HasFeaturesCol,
         self.model_data: LogisticRegressionModelData = None
         self._coef_dev = None
         self._coef_of = None
+        self._mesh = None
+        self._n_shards = 1
+        self._coef_mesh = None
+        self._coef_mesh_of = None
 
     def set_model_data(self, *streams) -> "LogisticRegressionModelServable":
         (stream,) = streams
@@ -96,17 +118,29 @@ class LogisticRegressionModelServable(ModelServable, HasFeaturesCol,
         return self
 
     def set_mesh(self, mesh) -> "LogisticRegressionModelServable":
-        """``None`` or a one-shard mesh keeps single-device predict (the
-        JAX rule ``_use_sharded``: a bucket is sharded only over more than
-        one data shard). The row-sharded dispatch over more shards waits
-        for the port's ``meshstats.record_shard_rows``, which it records
-        per tick."""
-        if mesh is not None and mesh.size > 1:
-            raise NotImplementedError(
-                "mesh-sharded serving predict needs observability/"
-                "meshstats.py, which the port does not have yet "
-                "(ROADMAP.md Queue 1, item 2)")
+        """Mesh-sharded dispatch: batches whose row count divides the
+        mesh's N > 1 shards predict row-sharded (:meth:`_sharded_dots`),
+        other shapes (bucket 1 on 8 shards) keep the one-device product.
+        ``None`` or a one-shard mesh reverts to the one-device product.
+        Idempotent on the same mesh object, so the micro-batcher re-asserts
+        it every tick without moving the coefficient. The shards are this
+        process's: a ``torch.distributed`` mesh (one shard a rank, each
+        rank serving its own traffic) is refused."""
+        if mesh is self._mesh:
+            return self
+        if mesh is not None and mesh.distributed:
+            raise ValueError(
+                "serving shards a batch over an in-process mesh; under "
+                "torch.distributed each rank serves its own traffic "
+                "(parallel.local_mesh())")
+        self._mesh = mesh
+        self._coef_mesh = None
+        self._n_shards = 1 if mesh is None else mesh.size
         return self
+
+    def _use_sharded(self, rows: int) -> bool:
+        return (self._mesh is not None and self._n_shards > 1
+                and rows % self._n_shards == 0)
 
     def _device_coef(self) -> torch.Tensor:
         # one host-to-device copy per model version, not one per request;
@@ -126,17 +160,57 @@ class LogisticRegressionModelServable(ModelServable, HasFeaturesCol,
             self.device)
         return (xd @ self._device_coef()).cpu().numpy().astype(np.float64)
 
+    def _mesh_coef(self) -> dict:
+        # the sharded products' coefficient: one float32 copy on each of
+        # the shards' devices, once per (model version, mesh)
+        data = self.model_data
+        if self._coef_mesh is None or self._coef_mesh_of is not data:
+            self._coef_mesh = {
+                str(dev): torch.as_tensor(data.coefficient,
+                                          dtype=torch.float32, device=dev)
+                for dev in self._mesh.devices}
+            self._coef_mesh_of = data
+        return self._coef_mesh
+
+    def _sharded_dots(self, x: np.ndarray, real_rows: int,
+                      record: bool = True) -> np.ndarray:
+        """One row-sharded dispatch: the float32 batch split by rows over
+        the mesh (``mapreduce.map_rows``), one product a shard, the dots
+        concatenated in row order and fetched once, widened to float64.
+        With ``record`` the shards' real rows are recorded (a synthetic
+        warm batch records nothing)."""
+        coefs = self._mesh_coef()
+        dots = mapreduce.map_rows(
+            lambda rows: rows @ coefs[str(rows.device)], self._mesh)(
+                np.ascontiguousarray(x, np.float32))
+        out = dots.cpu().numpy().astype(np.float64)
+        if record:
+            mesh = self._mesh
+            counts = meshstats.record_shard_rows(
+                mesh, int(real_rows), local_n=x.shape[0] // self._n_shards,
+                skew=False)
+            health.observe_serving_shards(serving_name(self), counts,
+                                          list(range(mesh.size)))
+        return out
+
     def aot_warm(self, rows: int) -> None:
         """Run the device product once for a ``(rows, dim)`` batch now
         (serving/warmup.py calls this once per bucket shape at server
         start, on the thread that will dispatch that bucket): the
         coefficient's placement, the first launch and the per-thread
-        library handles are paid before the first real request. No-op
-        without model data or with host predict."""
+        library handles are paid before the first real request, on the
+        path this shape takes (row-sharded when the mesh's shards divide
+        it). No-op without model data or with host predict."""
         if not self.device_predict or self.model_data is None:
             return
         dim = self.model_data.coefficient.shape[0]
-        self._device_dots(np.zeros((int(rows), dim), np.float32))
+        zeros = np.zeros((int(rows), dim), np.float32)
+        if self._use_sharded(int(rows)):
+            # the sharded shape warms the path it will take; record=False:
+            # a warm batch must not write the per-shard row series
+            self._sharded_dots(zeros, int(rows), record=False)
+        else:
+            self._device_dots(zeros)
 
     def transform(self, df: DataFrame) -> DataFrame:
         if self.model_data is None:
@@ -145,7 +219,12 @@ class LogisticRegressionModelServable(ModelServable, HasFeaturesCol,
         x = np.stack([f.to_array() if isinstance(f, Vector)
                       else np.asarray(f, np.float64) for f in features])
         if self.device_predict:
-            dots = self._device_dots(x)
+            if self._use_sharded(x.shape[0]):
+                real = getattr(df, "drift_real_rows", None)
+                dots = self._sharded_dots(
+                    x, int(real) if real is not None else x.shape[0])
+            else:
+                dots = self._device_dots(x)
         else:
             dots = x @ self.model_data.coefficient
         prob = 1.0 - 1.0 / (1.0 + np.exp(dots))

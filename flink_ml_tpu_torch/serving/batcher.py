@@ -47,9 +47,10 @@ tick's pad/batch spans record explicit ``follows_from`` links back to the
 requests they serve (and the batch to the pad that prepared it), and a
 ``serving.resolve`` span in the request's own trace closes the
 submit→pad→batch→resolve chain. While it runs, the batcher writes a
-``serving`` fleet beacon (observability/fleet.py). The JAX package's
-mesh-sharded dispatch (a mesh of more than one data shard) waits for the
-port's ``meshstats`` module.
+``serving`` fleet beacon (observability/fleet.py). Mesh-sharded dispatch:
+given a mesh of N > 1 shards, the servable splits each bucket that N
+divides by rows over the shards (servable/lr.py) and records the real rows
+each shard held.
 """
 
 from __future__ import annotations
@@ -305,9 +306,8 @@ class MicroBatcher:
     inside one.
 
     ``mesh`` (optional) is asserted on the resolved servable each device
-    tick (``set_mesh``, idempotent); the port's servables take a mesh of
-    one data shard, the JAX package's row-sharded dispatch over more
-    waits for the port's ``meshstats``."""
+    tick (``set_mesh``, idempotent): buckets its shard count divides are
+    served row-sharded over it."""
 
     def __init__(self, target, config: Optional[BatcherConfig] = None,
                  mesh=None):
@@ -904,11 +904,11 @@ class MicroBatcher:
                                     None)}
 
     def mesh_device_count(self) -> int:
-        """Shards of the dispatch mesh (1 without one) — provenance for
-        the ``/serving`` route."""
+        """Data shards of the dispatch mesh (1 without one; a JAX mesh's
+        devices) — provenance for the ``/serving`` route."""
         return self._mesh.size if self._mesh is not None else 1
 
     def sharded_dispatch(self) -> bool:
-        """True when ticks would shard: a mesh of more than one data
-        shard (which the port's servables refuse, see ``set_mesh``)."""
+        """True when ticks can shard: the data-shard count decides, as
+        the servable's routing does."""
         return self.mesh_device_count() > 1

@@ -249,13 +249,25 @@ def test_device_predict_defaults_to_the_card_and_never_falls_back(
 
 
 def test_set_mesh_keeps_single_device_and_refuses_sharding():
-    from flink_ml_tpu_torch.parallel import create_mesh
+    """None or one shard keeps the one-device product; eight in-process
+    shards route the shapes eight divides row-sharded (the JAX rule
+    ``_use_sharded``); a torch.distributed mesh, whose ranks each serve
+    their own traffic, is refused."""
+    from flink_ml_tpu_torch.parallel import Mesh, create_mesh
 
     sv = servable(PORT, np.ones(3), device=True)
     assert sv.set_mesh(None) is sv
     assert sv.set_mesh(create_mesh((1,), devices=["cpu"])) is sv
-    with pytest.raises(NotImplementedError, match="meshstats"):
-        sv.set_mesh(create_mesh((8,), devices=["cpu"] * 8))
+    assert not sv._use_sharded(8)
+    mesh = create_mesh((8,), devices=["cpu"] * 8)
+    assert sv.set_mesh(mesh) is sv and sv.set_mesh(mesh) is sv
+    assert [sv._use_sharded(r) for r in (8, 16, 3, 1)] == [
+        True, True, False, False]
+    x = np.arange(24, dtype=np.float64).reshape(8, 3)
+    np.testing.assert_array_equal(outputs(sv.transform(make_df(PORT, x)))[0],
+                                  np.ones(8))
+    with pytest.raises(ValueError, match="torch.distributed"):
+        sv.set_mesh(Mesh(["cpu"] * 2, group=object(), rank=0))
 
 
 def test_no_model_data_raises(pkg):

@@ -920,3 +920,138 @@ def test_traced_fit_starts_the_endpoint(port, monkeypatch):
     assert srv is not None and srv.port > 0
     assert json.loads(_get(srv, "/healthz")[1])["status"] == "ok"
     assert port.tracing.tracer.keep_recent
+
+
+# -- mesh-sharded dispatch ----------------------------------------------------------
+
+def _mesh(ns, n):
+    if ns.name == "jax":
+        from flink_ml_tpu.parallel import create_mesh
+
+        return create_mesh(devices=jax.devices()[:n])
+    from flink_ml_tpu_torch.parallel import create_mesh
+
+    return create_mesh((n,), devices=["cpu"] * n)
+
+
+def _rows_by_shard(ns, servable):
+    """The ``ml.shard rows`` gauges by shard, and the ``ml.serving
+    shardRows`` gauges of ``servable`` by their device label."""
+    from flink_ml_tpu_torch.observability.health import _parse_labels
+
+    shard = {int(_parse_labels(k)["shard"]): v for k, v in ns.metrics.group(
+        ns.ML_GROUP, "shard").snapshot()["gauges"].items()
+        if k.startswith("rows{")}
+    serving = {k: v for k, v in serving_group(ns).snapshot()[
+        "gauges"].items() if k.startswith("shard")
+        and f'servable="{servable}"' in k}
+    return shard, serving
+
+
+SHARD_SIZES = (8, 32, 3, 16, 8, 1, 5)
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_sharded_dots_match_one_shard_and_jax(n):
+    """Row-sharded dots on n virtual shards: within rtol 1e-6 of the
+    one-shard product (float32 products of other row counts) and within
+    1e-5 of the JAX package's sharded servable on n devices; the same
+    per-shard rows for the same bucket and real rows."""
+    dim = 12
+    coef = np.linspace(-1.0, 1.0, dim)
+    port_ns, jax_ns = _namespace("torch"), _namespace("jax")
+    one = lr_servable(port_ns, dim, coef=coef)
+    sv = lr_servable(port_ns, dim, coef=coef).set_mesh(_mesh(port_ns, n))
+    jsv = lr_servable(jax_ns, dim, coef=coef).set_mesh(_mesh(jax_ns, n))
+    for name, s in (("port", sv), ("jax", jsv)):
+        s.serving_name = f"lr@shards{n}-{name}"
+    rng = np.random.default_rng(3 + n)
+    for bucket, real in ((8, 8), (8, 3), (16, 13), (32, 1)):
+        x = np.zeros((bucket, dim), np.float32)
+        x[:real] = rng.normal(size=(real, dim))
+        assert sv._use_sharded(bucket) and jsv._use_sharded(bucket)
+        got = sv._sharded_dots(x, real)
+        np.testing.assert_allclose(got, one._device_dots(x), rtol=1e-6,
+                                   atol=1e-6)
+        np.testing.assert_allclose(got, jsv._sharded_dots(x, real),
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got, x.astype(np.float64) @ coef,
+                                   rtol=1e-5, atol=1e-6)
+        port_rows, port_serving = _rows_by_shard(port_ns, sv.serving_name)
+        jax_rows, jax_serving = _rows_by_shard(jax_ns, jsv.serving_name)
+        assert port_rows == jax_rows
+        assert port_rows == {
+            s: min(max(real - s * (bucket // n), 0), bucket // n)
+            for s in range(n)}
+        assert {k.replace("-port", "") for k in port_serving} == {
+            k.replace("-jax", "") for k in jax_serving}
+        assert list(port_serving.values()) == list(jax_serving.values())
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_sharded_batcher_serves_what_one_shard_serves(pkg, n):
+    """The same request stream through a one-shard and an n-shard batcher
+    (warmed: every bucket × the mesh): identical predictions,
+    probabilities within 1e-6, buckets n divides reported sharded."""
+    dim = 12
+    outs = {}
+    for shards in (1, n):
+        # transform adds its columns to the request frames: fresh ones
+        frames = [feature_frame(pkg, r, dim=dim, seed=97 + i)
+                  for i, r in enumerate(SHARD_SIZES)]
+        mesh = _mesh(pkg, shards)
+        sv = lr_servable(pkg, dim, coef=np.linspace(-1.0, 1.0, dim))
+        sv.serving_name = f"lr@b{shards}"
+        with pkg.serving.MicroBatcher(sv, pkg.serving.BatcherConfig(
+                buckets=(8, 32), window_ms=1.0), mesh=mesh) as b:
+            report = pkg.serving.warm(
+                b, frame_factory=lambda r: feature_frame(pkg, r, dim=dim),
+                gate=False)
+            assert report["mesh_devices"] == shards
+            assert report["sharded_buckets"] == (
+                [] if shards == 1 else [8, 32])
+            assert b.status()["sharded_dispatch"] == (shards > 1)
+            outs[shards] = [b.submit(f).result(timeout=10) for f in frames]
+    for a, b_ in zip(outs[1], outs[n]):
+        assert a.get("prediction").values == b_.get("prediction").values
+        np.testing.assert_allclose(
+            np.asarray([v.to_array() for v in a.get("rawPrediction").values]),
+            np.asarray([v.to_array()
+                        for v in b_.get("rawPrediction").values]),
+            rtol=0, atol=1e-6)
+
+
+def test_sharded_serving_path_coverage(port, tmp_path, monkeypatch):
+    """A traced batcher on 4 shards: every request's path reconstructs,
+    each at least 0.9 attributed, and the trace dir reads as a 4-shard
+    mesh with the bucket's rows per shard."""
+    from flink_ml_tpu_torch.observability import meshstats, path, shards
+
+    monkeypatch.setenv(port.tracing.TRACE_DIR_ENV, str(tmp_path))
+    port.metrics.clear()  # the snapshot holds this run's series alone
+    dim = 6
+    sv = lr_servable(port, dim, coef=np.linspace(-1.0, 1.0, dim))
+    sv.serving_name = "lr@traced"
+    mesh = _mesh(port, 4)
+    with port.serving.MicroBatcher(sv, port.serving.BatcherConfig(
+            buckets=(8, 32), window_ms=1.0), mesh=mesh) as b:
+        port.serving.warm(b, gate=False)
+        futures = [b.submit(feature_frame(port, 1 + i % 4, dim=dim, seed=i))
+                   for i in range(24)]
+        for fut in futures:
+            fut.result(timeout=10)
+    port.tracing.tracer.shutdown()
+    port.exporters.dump_metrics(str(tmp_path))
+    spans = port.exporters.read_spans(str(tmp_path))
+    report = path.analyze_paths(spans)
+    assert report["requests"]["count"] == 24
+    for row in report["slowest"]:
+        assert row["coverage"] >= 0.9, row
+    rows = path._request_rows(spans)
+    assert len(rows) == 24 and min(r["coverage"] for r in rows) >= 0.9
+    snap = port.exporters.read_metrics(str(tmp_path))
+    assert meshstats.read_mesh(str(tmp_path))["device_count"] == 4
+    summary = shards.shards_summary(spans, snap,
+                                    meshstats.read_mesh(str(tmp_path)))
+    assert [r["shard"] for r in summary["shards"]] == [0, 1, 2, 3]
+    assert shards.main([str(tmp_path), "--check"]) == 0
