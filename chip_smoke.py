@@ -335,7 +335,37 @@ Phases, each of which fails the run (no result line, nonzero exit):
     the ready waits per observation and shard, requests/s, p50/p99 and
     tick ms on each mesh, and the launches of ``PATH_KERNELS[
     "mesh_observability"]``, each at least once;
-19. print one ``{"kernels": [...]}`` line with every kernel's launches in
+19. the rest of the parallel layer (``parallel/{mesh,collective,
+    shardmap,sequence,distributed,elastic}.py``, the tensor-parallel SGD
+    of ``ops/optimizer.py``), with the counts at 0: (a) the LR config on a
+    (data 4, model 2) mesh of virtual shards: one ``reduce_partials`` a
+    data shard a round for the model-axis margins and one for the data
+    axes, no batch-terms call; its coefficients within COEFF_RTOL/ATOL of
+    the 1-D fit over the same 4 data shards (the same rows a round), fit
+    ms beside the 1-D 4- and 8-shard fits; (b) the KMeans and LR configs
+    on a (dcn 2, data 4) mesh: with ``FLINK_ML_TPU_HIER_REDUCE=0`` bit for
+    bit the 1-D 8-shard fits, with ``=1`` within CENTROID_ATOL /
+    COEFF_RTOL-ATOL of them, the inter-level payload a sum
+    ``ceil(w / 4) / w`` of the flat one (w, dim 0 of the summed value,
+    padded to the 4 inner shards), two ``reduce_partials`` a sum; the
+    KMeans model's transform; (c) ring and Ulysses attention, causal and
+    not, over SEQ_SHARDS ``seq`` shards at L = SEQ_LEN, H = SEQ_HEADS, Dh
+    = SEQ_DIM float32, each within SEQ_RTOL/SEQ_ATOL of full attention on
+    the card, with ms and peak device memory (ring's under a quarter of
+    full's); (d) ``scripts/port_gloo_cuda_probe.py`` on two ranks that
+    share the card (the launcher picks gloo): every op of
+    ``collective.GLOO_CUDA_OPS`` (the gloo collectives the port calls on
+    CUDA tensors) takes them; then ``run_elastic``
+    launches two gloo ranks of ``scripts/port_elastic_worker.py`` on the
+    LR config (5,000,000 rows a rank, segments of ELASTIC_INTERVAL rounds,
+    ``sgd_batch_terms`` in each rank); the worker-loss fault kills rank 1
+    at boundary ELASTIC_KILL_AT; the driver names it, relaunches one rank,
+    which resumes from the newest checkpoint (offsets rescaled, 2 shards →
+    1), bit for bit a one-rank fit resumed here from the same snapshot;
+    the trace holds ``elastic.worker-lost`` and ``elastic.relaunch``, a
+    beacon's load carries ``provenance()``; prints detection, relaunch and
+    resume ms;
+20. print one ``{"kernels": [...]}`` line with every kernel's launches in
     its main-path runs (in all and by path), error, times and bound, then
     the result line.
 
@@ -386,6 +416,12 @@ Tolerances (float32 throughout, TF32 off):
   FEATURE_RTOL/FEATURE_ATOL of the CPU's on the same rows and statistics
   (float32 products and sums in another order); discrete outputs exact
   but within EDGE_ATOL of an edge;
+- phase 19: the tensor-parallel fit against the 1-D 4-shard fit and the
+  two-level hybrid LR fit against the flat one by COEFF_RTOL/ATOL (float32
+  sums in another order over the same rows); the two-level KMeans fit by
+  CENTROID_ATOL; attention by SEQ_RTOL/SEQ_ATOL (the JAX package's
+  tolerance for its long causal sequence), online softmax against one
+  softmax over 16,384 keys;
 - phase 11: a fit on eight shards differs from the one-shard fit only in
   the order its sums are added (per shard, then across the shards), so
   it is held as the fits that add in another order are: the KMeans fit
@@ -471,6 +507,11 @@ PATH_KERNELS = {
     # transform, the 8-shard LR fits and the serving producer's LR fit
     "mesh_observability": ("sgd_batch_terms", "lloyd_partial_sums",
                            "reduce_partials", "assign_nearest"),
+    # the tensor-parallel LR fit (its model- and data-axis sums), the
+    # hybrid-mesh KMeans and LR fits and the KMeans transform, and the
+    # elastic ranks' LR fits (their launches counted in the ranks)
+    "parallel_layer": ("sgd_batch_terms", "lloyd_partial_sums",
+                       "reduce_partials", "assign_nearest"),
 }
 # phase 15's configs, run uncut through the runner
 FEATURE_CONFIGS = (
@@ -584,6 +625,15 @@ SWING_PREFIX_USERS = 2_000
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W): device
 # memory bytes per second and fp32 (non-tensor-core) operations per second
+# phase 19: attention at a long-context size (the full score matrix, 8 x
+# 16,384^2 float32, is 8.6 GB), held at the JAX test's tolerance; the
+# elastic fit's checkpoint interval and the boundary whose worker-loss
+# fault kills rank 1
+SEQ_LEN, SEQ_HEADS, SEQ_DIM, SEQ_SHARDS = 16_384, 8, 64, 8
+SEQ_RANK_LEN = 2_048  # the same over two gloo ranks
+SEQ_RTOL, SEQ_ATOL = 5e-4, 5e-5
+ELASTIC_INTERVAL = 5
+ELASTIC_KILL_AT = 2
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 
@@ -5183,6 +5233,410 @@ def phase_mesh_observability(K, runner, card_line, device="cuda"):
     return counts
 
 
+def _fit_ms(est, table, reps=2):
+    """(model, best host ms of ``reps`` fits, launches of one fit)."""
+    from flink_ml_tpu_torch.ops import kernels
+
+    runs = []
+    for _ in range(reps):
+        before = dict(kernels.launch_counts)
+        model, ms = _timed_fit(est, table)
+        runs.append((ms, model, {k: v - before[k]
+                                 for k, v in kernels.launch_counts.items()
+                                 if v - before[k]}))
+    ms, model, launched = min(runs, key=lambda r: r[0])
+    return model, ms, launched
+
+
+def _level_bytes():
+    """(inter-level payload bytes, inter-level sums) recorded so far
+    (``ml.collective levelPayloadBytes`` / ``levelOps``, level inter)."""
+    from flink_ml_tpu_torch.common.metrics import metrics
+
+    snap = metrics.snapshot().get("ml.collective", {})
+    nbytes = sum(float(h.get("sum", 0.0))
+                 for k, h in snap.get("histograms", {}).items()
+                 if k.startswith("levelPayloadBytes")
+                 and 'level="inter"' in k)
+    ops = sum(float(v) for k, v in snap.get("counters", {}).items()
+              if k.startswith("levelOps") and 'level="inter"' in k)
+    return nbytes, ops
+
+
+def _within(got, want, rtol, atol):
+    """The largest excess of |got - want| over atol + rtol * |want| (<= 0
+    when within), and max |got - want|."""
+    diff = (got - want).abs()
+    return (float((diff - (atol + rtol * want.abs())).max()),
+            float(diff.max()))
+
+
+def _attention_run(fn, reps=2):
+    """(output, best ms, peak bytes above the memory held before)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, times = None, []
+    for _ in range(reps):
+        out = None
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    return out, min(times), torch.cuda.max_memory_allocated() - base
+
+
+_SEQ_RANK_PROGRAM = r"""
+import json, os, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from flink_ml_tpu_torch.common.metrics import metrics
+from flink_ml_tpu_torch.parallel import distributed
+from flink_ml_tpu_torch.parallel.mesh import Mesh
+from flink_ml_tpu_torch.parallel.sequence import sharded_attention
+
+assert distributed.init_from_env()
+rank = distributed.process_index()
+dev = torch.device(os.environ[distributed.DEVICE_ENV])
+mesh = Mesh([dev] * 2, ("seq",), group=dist.group.WORLD, rank=rank,
+            processes=2)
+data = np.load(sys.argv[1])
+q, k, v = (torch.as_tensor(data[n], device=dev) for n in "qkv")
+out = {}
+for kind in ("ring", "ulysses"):
+    for causal in (False, True):
+        got = sharded_attention(mesh, q, k, v, kind=kind, causal=causal)
+        out[f"{kind}-{int(causal)}"] = got.cpu().numpy()
+np.savez(sys.argv[2] + f"-{rank}.npz", **out)
+snap = metrics.snapshot().get("ml.collective", {}).get("counters", {})
+print(json.dumps({"send_recv": int(sum(
+    v for key, v in snap.items()
+    if key.startswith("stagedOps") and 'op="send_recv"' in key))}))
+dist.destroy_process_group()
+"""
+
+
+def phase_parallel_layer(K, runner, Table, card_line, device="cuda"):
+    """Phase 19: the rest of the parallel layer, with the counts at 0:
+    (a) the LR config on a (data 4, model 2) mesh of virtual shards; (b)
+    the KMeans and LR configs on a (dcn 2, data 4) mesh, flat and
+    two-level; (c) ring and Ulysses attention over SEQ_SHARDS ``seq``
+    shards against full attention; (d) the gloo probe on two ranks that
+    share the card, then ``run_elastic``: two ranks fit the LR config,
+    rank 1 is killed at a boundary, one rank resumes. Returns the path's
+    launches (the ranks' included)."""
+    from flink_ml_tpu_torch.iteration.iteration import IterationConfig
+    from flink_ml_tpu_torch.observability import exporters, fleet, tracing
+    from flink_ml_tpu_torch.parallel import collective as C
+    from flink_ml_tpu_torch.parallel import (create_hybrid_mesh, create_mesh,
+                                             distributed, elastic)
+    from flink_ml_tpu_torch.parallel.sequence import (full_attention,
+                                                      sharded_attention)
+    from flink_ml_tpu_torch.resilience import RetryPolicy
+
+    log("phase 19: tensor-parallel and hybrid meshes, sequence attention, "
+        "the elastic multi-process fit")
+    started = time.perf_counter()
+    dev = torch.device(device)
+    K.reset_launch_counts()
+    summary = {"card": card_line}
+    lr_spec = runner.load_config(str(LINEAR_CONFIGS["logisticregression"]))[
+        "logisticregression"]
+    rounds = lr_spec["stage"]["paramMap"]["maxIter"]
+    lr_table = runner.build_generator(lr_spec).get_data()
+    n, d = lr_table.num_rows, lr_table.vectors("features").shape[1]
+
+    def lr_fit(mesh, reps=2):
+        return _fit_ms(runner.build_stage(lr_spec, mesh=mesh), lr_table, reps)
+
+    # (a) tensor parallelism: the 4 data shards each split over 2 model
+    # shards; its rows per round are the 1-D 4-shard fit's, so that fit is
+    # the one it equals up to the float32 reduce order
+    tp_mesh = create_mesh((4, 2), ("data", "model"), devices=[dev] * 8)
+    tp, tp_ms, tp_l = lr_fit(tp_mesh)
+    # the CPU runs the plain versions: launches are counted on the card
+    on_card = dev.type == "cuda"
+    assert tp_l == {"reduce_partials": rounds * (4 + 1)} or not on_card, tp_l
+    four, four_ms, four_l = lr_fit(create_mesh((4,), devices=[dev] * 4))
+    eight, eight_ms, _ = lr_fit(create_mesh((8,), devices=[dev] * 8))
+    diff = np.abs(tp.coefficients - four.coefficients)
+    assert np.all(diff <= COEFF_RTOL * np.abs(four.coefficients)
+                  + COEFF_ATOL), diff.max()
+    summary["a"] = {
+        "tp_ms": tp_ms, "p4_ms": four_ms, "p8_ms": eight_ms,
+        "tp_launches": tp_l, "p4_launches": four_l,
+        "max_diff_vs_p4": float(diff.max()),
+        "max_diff_vs_p8": float(np.abs(tp.coefficients
+                                       - eight.coefficients).max())}
+    log(f"  (a) LR {n} x {d}, {rounds} rounds on (data 4, model 2): fit ms "
+        f"{tp_ms:.3f} (1-D 4 shards {four_ms:.3f}, 8 shards "
+        f"{eight_ms:.3f}); launches {tp_l}; max|diff| against 4 shards "
+        f"{diff.max():.3g}, against 8 shards "
+        f"{summary['a']['max_diff_vs_p8']:.3g} (other batches)")
+
+    # (b) the hybrid mesh: flat equals the 1-D 8-shard fit bit for bit;
+    # two-level within reassociation, its inter level 1/4 of the padded
+    # flat payload
+    hybrid = create_hybrid_mesh((4,), (2,), devices=[dev] * 8)
+    flat8 = create_mesh((8,), devices=[dev] * 8)
+    km_spec = runner.load_config(str(CONFIG))["KMeans"]
+    km_table = runner.build_generator(km_spec).get_data()
+    k_clusters = km_spec["stage"]["paramMap"]["k"]
+
+    def km_fit(mesh, reps=2):
+        return _fit_ms(runner.build_stage(km_spec, mesh=mesh), km_table,
+                       reps)
+
+    hyb, models = {}, {}
+    for name, fit, width in (("KMeans", km_fit, k_clusters),
+                             ("LR", lr_fit, d + 2)):
+        with mock.patch.dict(os.environ, {C.HIER_ENV: "0"}):
+            one_d, one_d_ms, _ = fit(flat8)
+            before = _level_bytes()
+            flat, flat_ms, flat_l = fit(hybrid, reps=1)
+            after = _level_bytes()
+        flat_bytes, flat_sums = (after[0] - before[0], after[1] - before[1])
+        with mock.patch.dict(os.environ, {C.HIER_ENV: "1"}):
+            before = _level_bytes()
+            two, two_ms, two_l = fit(hybrid, reps=1)
+            after = _level_bytes()
+            _, two_best, _ = fit(hybrid, reps=1)
+        two_bytes, two_sums = (after[0] - before[0], after[1] - before[1])
+        if name == "KMeans":
+            got_f, want_f = flat.centroids, one_d.centroids
+            got_h = two.centroids
+        else:
+            got_f, want_f = flat.coefficients, one_d.coefficients
+            got_h = two.coefficients
+        assert np.array_equal(got_f, want_f), f"{name} flat hybrid differs"
+        h_diff = float(np.abs(got_h - want_f).max())
+        if name == "KMeans":
+            assert h_diff <= CENTROID_ATOL, h_diff
+        else:
+            assert np.all(np.abs(got_h - want_f) <= COEFF_RTOL * np.abs(
+                want_f) + COEFF_ATOL), h_diff
+        # one inter-level observation a cross-shard sum; the two-level
+        # route records ceil(width / 4) / width of the flat payload (dim 0
+        # of the summed value padded to the 4 inner shards). In-process
+        # nothing crosses a slow link: this is the JAX package's per-shard
+        # accounting of a mesh of separate devices, not measured traffic
+        assert two_sums == flat_sums >= 1, (flat_sums, two_sums)
+        per_flat, per_two = flat_bytes / flat_sums, two_bytes / two_sums
+        want_ratio = math.ceil(width / 4) / width
+        assert abs(per_two / per_flat - want_ratio) < 1e-12, (
+            per_two, per_flat, want_ratio)
+        if name == "LR" and on_card:
+            assert flat_l == {"sgd_batch_terms": 8 * rounds,
+                              "reduce_partials": rounds}, flat_l
+            assert two_l == {"sgd_batch_terms": 8 * rounds,
+                             "reduce_partials": 2 * rounds}, two_l
+        models[name] = flat
+        hyb[name] = {"p8_ms": one_d_ms, "flat_ms": flat_ms,
+                     "hier_ms": min(two_ms, two_best),
+                     "flat_launches": flat_l, "hier_launches": two_l,
+                     "per_shard_inter_bytes_flat": per_flat,
+                     "per_shard_inter_bytes_hier": per_two,
+                     "per_shard_inter_ratio": per_two / per_flat,
+                     "hier_max_diff": h_diff}
+        log(f"  (b) {name} on (dcn 2, data 4): flat {flat_ms:.3f} ms, "
+            f"bit-identical to 8 shards ({one_d_ms:.3f} ms); two-level "
+            f"{hyb[name]['hier_ms']:.3f} ms, max|diff| {h_diff:.3g}; "
+            f"per-shard accounting of the inter level (not measured "
+            f"traffic): {per_flat:g} B a sum flat, {per_two:g} B two-level "
+            f"({per_two / per_flat:.4f}); launches flat {flat_l}, "
+            f"two-level {two_l}")
+    # the hybrid KMeans model's transform: one assignment
+    before = K.launch_counts["assign_nearest"]
+    labels = models["KMeans"].transform(km_table)[0]["prediction"]
+    assert K.launch_counts["assign_nearest"] == before + on_card
+    assert tuple(labels.shape) == (km_table.num_rows,)
+    summary["b"] = hyb
+
+    # (c) sequence parallelism on SEQ_SHARDS seq shards of the card
+    del lr_table, km_table, labels, models
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(19)
+    q, k, v = (torch.randn((SEQ_LEN, SEQ_HEADS, SEQ_DIM), generator=gen,
+                           device=dev) for _ in range(3))
+    seq = create_mesh((SEQ_SHARDS,), ("seq",), devices=[dev] * SEQ_SHARDS)
+    att = {}
+    for causal in (False, True):
+        want, full_ms, full_mem = _attention_run(
+            lambda: full_attention(q, k, v, causal=causal))
+        row = {"full_ms": full_ms, "full_peak_bytes": full_mem}
+        for kind in ("ring", "ulysses"):
+            got, ms, mem = _attention_run(lambda: sharded_attention(
+                seq, q, k, v, kind=kind, causal=causal))
+            excess, worst = _within(got, want, SEQ_RTOL, SEQ_ATOL)
+            assert excess <= 0.0, (kind, causal, excess, worst)
+            row.update({f"{kind}_ms": ms, f"{kind}_peak_bytes": mem,
+                        f"{kind}_max_abs_err": worst})
+            del got
+        del want
+        torch.cuda.empty_cache()
+        att["causal" if causal else "full"] = row
+        log(f"  (c) attention L={SEQ_LEN} H={SEQ_HEADS} Dh={SEQ_DIM} "
+            f"causal={causal} on {SEQ_SHARDS} seq shards: full "
+            f"{full_ms:.2f} ms, peak {full_mem / 2**30:.2f} GiB; ring "
+            f"{row['ring_ms']:.2f} ms, peak "
+            f"{row['ring_peak_bytes'] / 2**30:.2f} GiB, max|err| "
+            f"{row['ring_max_abs_err']:.3g}; ulysses {row['ulysses_ms']:.2f}"
+            f" ms, peak {row['ulysses_peak_bytes'] / 2**30:.2f} GiB, max|err|"
+            f" {row['ulysses_max_abs_err']:.3g}")
+    assert all(r["ring_peak_bytes"] < r["full_peak_bytes"] / 4
+               for r in att.values()) or not on_card, att
+    summary["c"] = att
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # (d) ranks that share the card: the launcher picks gloo; which gloo
+    # collectives take CUDA tensors; then the elastic fit
+    child_env = {"PYTHONPATH": os.pathsep.join(
+        [str(REPO)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p])}
+    probe = distributed.launch(
+        [sys.executable, str(REPO / "scripts" / "port_gloo_cuda_probe.py"),
+         "--ops", ",".join(sorted(C.GLOO_CUDA_OPS))],
+        2, env=child_env, timeout=180.0, device=device)
+    assert [r["returncode"] for r in probe] == [0, 0], probe[0]["stderr"]
+    table = json.loads(probe[0]["stdout"].strip().splitlines()[-1])
+    assert table["backend"] == "gloo", table
+    took = {op for op, res in table["ops"].items() if res == "ok"}
+    assert took == C.GLOO_CUDA_OPS, (C.GLOO_CUDA_OPS, table)
+    log("  (d) gloo on CUDA tensors: " + json.dumps(table["ops"]))
+    summary["gloo_cuda"] = table
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    # sequence attention over two gloo ranks that share the card: ring's
+    # send/recv staged through pinned host buffers (gloo aborts on CUDA
+    # send/recv), Ulysses' all-to-all direct
+    gen = torch.Generator(device=dev).manual_seed(23)
+    q, k, v = (torch.randn((SEQ_RANK_LEN, SEQ_HEADS, SEQ_DIM), generator=gen,
+                           device=dev) for _ in range(3))
+    np.savez(f"{workdir}/qkv.npz", q=q.cpu().numpy(), k=k.cpu().numpy(),
+             v=v.cpu().numpy())
+    ranks = distributed.launch(
+        [sys.executable, "-c", _SEQ_RANK_PROGRAM, f"{workdir}/qkv.npz",
+         f"{workdir}/seq"], 2, env=child_env, timeout=180.0, device=device)
+    assert [r["returncode"] for r in ranks] == [0, 0], ranks[0]["stderr"]
+    seq_ranks = {}
+    for causal in (False, True):
+        want = full_attention(q, k, v, causal=causal)
+        for rank in range(2):
+            with np.load(f"{workdir}/seq-{rank}.npz") as got:
+                for kind in ("ring", "ulysses"):
+                    excess, worst = _within(torch.as_tensor(
+                        got[f"{kind}-{int(causal)}"], device=dev), want,
+                        SEQ_RTOL, SEQ_ATOL)
+                    assert excess <= 0.0, (kind, causal, rank, worst)
+                    seq_ranks[f"{kind}-{int(causal)}-err"] = max(
+                        worst, seq_ranks.get(f"{kind}-{int(causal)}-err", 0))
+    staged = json.loads(ranks[0]["stdout"].strip().splitlines()[-1])
+    # one staged send/recv a ring hop on the card: (P - 1) hops a call,
+    # two calls (masked and not); CPU tensors are never staged
+    assert staged == {"send_recv": 2 * on_card}, staged
+    seq_ranks["staged"] = staged
+    summary["seq_ranks"] = seq_ranks
+    log(f"  (d) attention L={SEQ_RANK_LEN} over two gloo ranks on the card: "
+        f"ring and Ulysses within tolerance on both ranks "
+        f"({json.dumps(seq_ranks)})")
+    del q, k, v, want
+    trace = f"{workdir}/trace"
+    elastic.reset_stats()
+    tracing.tracer.configure(trace)
+    try:
+        t0 = time.time()
+        records = elastic.run_elastic(
+            [sys.executable, str(REPO / "scripts" / "port_elastic_worker.py"),
+             "--config", str(LINEAR_CONFIGS["logisticregression"]),
+             "--interval", str(ELASTIC_INTERVAL), "--ckpt", f"{workdir}/ck",
+             "--out", f"{workdir}/out"],
+            num_processes=2, min_processes=1,
+            env=dict(child_env, FLINK_ML_TPU_CHAOS="1",
+                     FLINK_ML_TPU_CHAOS_AT=f"worker-loss:{ELASTIC_KILL_AT}"),
+            policy=RetryPolicy(max_restarts=2, backoff_s=0.05),
+            timeout=300.0, child_grace_s=10.0, device=device,
+            heartbeat_dir=f"{workdir}/hb")
+        wall_s = time.time() - t0
+        beacon = fleet.write_beacon(f"{workdir}/fleet", role="driver")
+    finally:
+        tracing.tracer.configure(None)
+    assert len(records) == 1 and records[0]["returncode"] == 0, records
+    prov = elastic.provenance()
+    assert prov["elasticEvents"] == 2, prov
+    load = json.loads(open(beacon).read())["load"]
+    assert load["elasticEvents"] == prov["elasticEvents"] and \
+        load["participation"] == prov["participationMin"], load
+    events = {}
+    for sp in exporters.read_spans(trace):
+        for ev in sp.get("events", []):
+            events.setdefault(ev["name"], []).append(ev)
+    assert "elastic.worker-lost" in events and "elastic.relaunch" in events
+    lost = events["elastic.worker-lost"][0]
+    assert lost["attrs"]["process"] == 1, lost
+    relaunch = events["elastic.relaunch"][0]
+    out = Path(workdir) / "out"
+    result = json.loads((out / "result-attempt-1.json").read_text())
+    assert result["processes"] == 1 and result["path"] == (
+        "cuda" if on_card else "torch") + "-sgd-segments", result
+    hb = sorted(Path(workdir, "hb", "attempt-0").glob("fleet-p1-*.json"))
+    victim = json.loads(hb[0].read_text())
+    assert victim["epoch"] == ELASTIC_INTERVAL * ELASTIC_KILL_AT, victim
+    # each rank's launches as far as it wrote them (at each save and after
+    # its fit): all three ranks launched the batch-terms kernel
+    counts = dict(K.launch_counts)
+    rank_launches = {}
+    for path in sorted(out.glob("launches-attempt-*.json")):
+        got = json.loads(path.read_text())
+        rank_launches[path.stem] = got
+        assert got.get("sgd_batch_terms", 0) >= on_card, (path.name, got)
+        for kern, c in got.items():
+            counts[kern] += c
+    assert len(rank_launches) == 3, rank_launches
+    # a one-rank fit in this process resumed from the snapshot the
+    # relaunched rank resumed from: the same bits
+    saved = dict(K.launch_counts)
+    resumed = Path(workdir) / "resume"
+    shutil.copytree(out / "frozen-attempt-1", resumed)
+    mgr = elastic.ElasticCheckpointManager(str(resumed))
+    est = runner.build_stage(lr_spec, mesh=create_mesh((1,), devices=[dev]))
+    est.set_iteration_config(IterationConfig(
+        checkpoint_interval=ELASTIC_INTERVAL, checkpoint_manager=mgr))
+    ref = est.fit(runner.build_generator(lr_spec).get_data())
+    K.launch_counts.update(saved)
+    got = np.asarray(result["coef_bits"], np.int32).view(np.float32)
+    assert np.array_equal(got, np.asarray(ref.coefficients, np.float32)), \
+        "the resumed rank differs from a one-rank resume of its snapshot"
+    assert not mgr.list_checkpoints()
+    detect_ms = lost["ts_us"] / 1e3 - victim["time"] * 1e3
+    relaunch_ms = result["started"] * 1e3 - relaunch["ts_us"] / 1e3
+    summary["d"] = {
+        "wall_s": wall_s, "detection_ms": detect_ms,
+        "relaunch_to_start_ms": relaunch_ms,
+        "lost_to_relaunch_ms": (relaunch["ts_us"] - lost["ts_us"]) / 1e3,
+        "resume_fit_ms": result["fit_ms"], "rank_launches": rank_launches,
+        "provenance": prov, "beacon_load": {
+            k: load[k] for k in ("participation", "elasticEvents")}}
+    log(f"  (d) run_elastic, 2 gloo ranks on one card, LR config: rank 1 "
+        f"killed at epoch {victim['epoch']}, named; relaunched as 1 rank, "
+        f"resumed bit-identical to a one-rank resume of its snapshot; "
+        f"detection {detect_ms:.1f} ms, lost→relaunch "
+        f"{summary['d']['lost_to_relaunch_ms']:.1f} ms, relaunch→start "
+        f"{relaunch_ms:.1f} ms, resumed fit {result['fit_ms']:.1f} ms, "
+        f"wall {wall_s:.1f} s; rank launches {rank_launches}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    if on_card:
+        for kern in PATH_KERNELS["parallel_layer"]:
+            assert counts[kern] >= 1, (kern, counts)
+    summary["launches"] = {k: v for k, v in counts.items() if v}
+    summary["seconds"] = time.perf_counter() - started
+    log("  parallel layer:", json.dumps(summary, sort_keys=True,
+                                        default=str))
+    return counts
+
+
 def _serving_group():
     from flink_ml_tpu_torch.common.metrics import metrics
 
@@ -5235,6 +5689,7 @@ def main() -> int:
     counts["sparse_linear"] = phase_sparse_linear(K, runner, Table, keep=keep)
     phase_host_algorithms(K, runner, Table)
     counts["mesh_observability"] = phase_mesh_observability(K, runner, card)
+    counts["parallel_layer"] = phase_parallel_layer(K, runner, Table, card)
 
     line = {"kernels": [
         {"name": name, **{key: K.KERNELS[name][key]

@@ -43,7 +43,7 @@ from flink_ml_tpu_torch.benchmark.datagen import resolve_generator
 from flink_ml_tpu_torch.device import DeviceLike, resolve_device, synchronize
 from flink_ml_tpu_torch.linalg.sparse import is_csr_column
 from flink_ml_tpu_torch.observability import compilestats, tracing
-from flink_ml_tpu_torch.parallel import update_sharding
+from flink_ml_tpu_torch.parallel import elastic, update_sharding
 
 _STAGES: Dict[str, type] = {}
 
@@ -163,7 +163,9 @@ def run_benchmark(name: str, spec: dict, device: DeviceLike = None,
 def _run_benchmark(name: str, spec: dict, device: DeviceLike,
                    mesh) -> dict:
     device = resolve_device(device)
+    # a row carries only its own run's update-state and elastic provenance
     update_sharding.reset_last()
+    elastic.reset_stats()
     stage = build_stage(spec, device, mesh)
     if not isinstance(stage, (Estimator, AlgoOperator)):
         raise ValueError(f"{name}: unsupported stage class {type(stage)}")

@@ -418,6 +418,12 @@ class CheckpointManager:
             return torch.as_tensor(host, dtype=tmpl.dtype, device=tmpl.device)
         return host
 
+    def _repad(self, host: np.ndarray, target_shape) -> np.ndarray:
+        """One restored leaf onto the template's shape under ``repad_dim0``
+        (:func:`repad_leading`; the elastic manager also rescales per-shard
+        progress, ``parallel/elastic.py``)."""
+        return repad_leading(host, target_shape)
+
     def restore(self, template_carry: Any) -> Optional[Tuple[Any, int]]:
         """Newest checkpoint that passes integrity validation, restored onto
         the template's structure, devices and dtypes; corrupt checkpoints are
@@ -433,8 +439,8 @@ class CheckpointManager:
                                                         len(t_leaves))
                     if self.repad_dim0:
                         host_leaves = [
-                            repad_leading(h, t.shape if hasattr(t, "shape")
-                                          else np.shape(t))
+                            self._repad(h, t.shape if hasattr(t, "shape")
+                                        else np.shape(t))
                             for h, t in zip(host_leaves, t_leaves)]
                 except CorruptCheckpoint as e:
                     quarantine_checkpoint(ckpt_dir, str(e))

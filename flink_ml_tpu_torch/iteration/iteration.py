@@ -47,8 +47,14 @@ mark each shard's work while the driver collects, and the boundary times
 the waits, ``ml.shard readyMs{phase=segment|epoch}``). Where the JAX
 package records the metrics on every fit, the port records them only while
 the tracer is armed (``FLINK_ML_TPU_TRACE_DIR``, or the live ring):
-unarmed, a boundary costs one env check. The elastic hooks of the JAX
-drivers come with the port's multi-process slice.
+unarmed, a boundary costs one env check.
+
+The elastic hooks of the JAX drivers (``parallel/elastic.py``): a segment's
+boundary fetch and a host round's stop bit go through ``elastic.guard_fetch``
+(a watchdog past ``FLINK_ML_TPU_COLLECTIVE_TIMEOUT_S`` turns a wedged peer
+into a retryable ``WorkerLost``), and every epoch or segment boundary calls
+``elastic.on_boundary`` (the heartbeat beacon and the worker-loss /
+worker-hang chaos sites). Unarmed each costs an env read.
 """
 
 from __future__ import annotations
@@ -82,6 +88,11 @@ def read_boundary(boundary) -> list:
     the one device→host transfer of a boundary, counted into ``ml.iteration
     boundaryFetches`` inside a traced call. Returns numpy scalars in
     order."""
+    from flink_ml_tpu_torch.parallel import elastic
+
+    # a wedged inter-process sum surfaces at the boundary fetch: with the
+    # collective deadline armed the wait runs under a watchdog
+    boundary = elastic.guard_fetch(boundary, what="segment boundary")
     if isinstance(boundary, torch.Tensor):
         boundary = boundary.cpu().numpy()
     if tracing.tracer.current() is not None:  # inside a traced segment
@@ -204,6 +215,8 @@ def run_segmented(run_segment, initial_carry, max_iter: int, K: int, mgr):
     A restore off the K-grid (a snapshot of another interval or mode)
     realigns at the first segment, so later boundaries checkpoint on-grid.
     """
+    from flink_ml_tpu_torch.parallel import elastic
+
     tracer = tracing.tracer
     armed = tracer.active
     carry, epoch = initial_carry, 0
@@ -236,6 +249,8 @@ def run_segmented(run_segment, initial_carry, max_iter: int, K: int, mgr):
                 # chaos site: the segment boundary is this mode's epoch
                 # boundary
                 faults.inject("epoch-boundary", epoch=epoch)
+                # heartbeat + worker-loss / worker-hang sites (multi-process)
+                elastic.on_boundary(epoch)
                 done = epoch >= max_iter or stop
                 if epoch % K == 0 and not done:
                     mgr.save(carry, epoch)
@@ -351,6 +366,8 @@ def _host_loop(initial_carry, body, max_iter, terminate, config, listeners,
     checkpoint run; then one fetch reads it, the only host wait of a round
     beyond what a listener or a save asks for. With ``jit_round=False`` the
     body is plain host code and its stop is read at once."""
+    from flink_ml_tpu_torch.parallel import elastic
+
     tracer = tracing.tracer
     armed = tracer.active
     carry = initial_carry
@@ -375,6 +392,7 @@ def _host_loop(initial_carry, body, max_iter, terminate, config, listeners,
                 if not jit_round:
                     stop = bool(stop)
                 faults.inject("epoch-boundary", epoch=epoch)
+                elastic.on_boundary(epoch)
                 # listeners and checkpoints run while the round's device work
                 # may still be in flight
                 host_start = time.perf_counter()
@@ -388,7 +406,9 @@ def _host_loop(initial_carry, body, max_iter, terminate, config, listeners,
                     # per-shard time-to-ready while the round drains:
                     # per-shard epoch attribution and straggler detection
                     meshstats.observe_shard_ready(span=sp, phase="epoch")
-                stop = bool(stop)
+                # the guarded host sync of the round: a wedged peer becomes
+                # WorkerLost past the collective deadline
+                stop = bool(elastic.guard_fetch(stop, what="round stop bit"))
                 # the round's wall time: host_ms is listener and checkpoint
                 # work, device_ms the enqueue and the residual wait on the
                 # stop bit

@@ -189,21 +189,19 @@ def write_chrome_trace(trace_dir: str, out_path: str) -> int:
 
 # -- metrics snapshots in the trace dir --------------------------------------
 def safe_process_label() -> Optional[int]:
-    """This process's rank when it runs in a ``torch.distributed`` group
-    of more than one process (``parallel/mesh.py`` ``init_distributed``),
-    else None; never raises — THE wrapper every artifact writer (span
-    sink, metrics dumps, span-record attribution) shares: labeling must
-    never sink a write. Recomputed per call: cheap next to the disk write
-    it accompanies."""
+    """This process's index in a multi-process runtime
+    (``parallel/distributed.py`` ``process_label``: the launcher's env
+    mapping, else a ``torch.distributed`` group of more than one), else
+    None; never raises — THE wrapper every artifact writer (span sink,
+    metrics dumps, span-record attribution) shares: labeling must never
+    sink a write. Recomputed per call: cheap next to the disk write it
+    accompanies."""
     try:
-        import torch.distributed as dist
+        from flink_ml_tpu_torch.parallel import distributed
 
-        if dist.is_available() and dist.is_initialized() \
-                and dist.get_world_size() > 1:
-            return int(dist.get_rank())
+        return distributed.process_label()
     except Exception:  # noqa: BLE001 — see above
-        pass
-    return None
+        return None
 
 
 def artifact_suffix() -> str:

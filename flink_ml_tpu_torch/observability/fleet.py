@@ -59,9 +59,8 @@ from flink_ml_tpu_torch.common.metrics import (
     metrics,
 )
 
-#: the elastic heartbeat dir's env var, under the JAX package's name
-#: (flink_ml_tpu/parallel/elastic.py) — the port's elastic runtime is not
-#: ported yet, but a runtime that sets it shares one liveness plane
+#: the elastic heartbeat dir's env var (``parallel/elastic.py``): the
+#: elastic watchdog and the fleet view read the same beacons
 HEARTBEAT_DIR_ENV = "FLINK_ML_TPU_HEARTBEAT_DIR"
 #: this process's 0-based index in a multi-process runtime, under the JAX
 #: package's name (flink_ml_tpu/parallel/distributed.py)
@@ -237,12 +236,14 @@ def _load_payload() -> dict:
             load["canary"] = st.get("canary")
     except Exception:
         pass
-    # elastic participation: the port runs no elastic fit yet, so these
-    # are what the JAX package's provenance() reports for a process that
-    # ran none (flink_ml_tpu/parallel/elastic.py _STATS) — constants
-    # until the port's elastic runtime lands
-    load["participation"] = 1.0
-    load["elasticEvents"] = 0
+    try:
+        from flink_ml_tpu_torch.parallel import elastic
+
+        prov = elastic.provenance()
+        load["participation"] = prov.get("participationMin")
+        load["elasticEvents"] = prov.get("elasticEvents")
+    except Exception:
+        pass
     try:
         from flink_ml_tpu_torch.observability import profiling
 

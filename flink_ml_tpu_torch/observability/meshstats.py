@@ -131,17 +131,19 @@ def _platform(device: torch.device) -> str:
 # -- topology -----------------------------------------------------------------
 
 def mesh_snapshot(mesh) -> dict:
-    """The JSON-ready topology of one mesh: shard count, axis layout,
-    platform and, per shard, its device index and owning process (the
-    rank under ``torch.distributed``, else 0)."""
-    devices = list(mesh.devices)
+    """The JSON-ready topology of one mesh: position count, axis layout,
+    platform and, per grid position (row-major over the axes), its device
+    index and owning process (the rank under ``torch.distributed``, else
+    0)."""
+    devices = list(mesh.grid)
+    per = max(mesh.size // max(mesh.processes, 1), 1)
     return {
         "device_count": len(devices),
         "axis_names": list(mesh.axis_names),
         "shape": {name: int(mesh.shape[name]) for name in mesh.axis_names},
         "platform": _platform(devices[0]) if devices else None,
         "devices": [{"id": _device_id(d),
-                     "process": s if mesh.distributed else 0,
+                     "process": s // per if mesh.distributed else 0,
                      "platform": _platform(d)}
                     for s, d in enumerate(devices)],
     }
@@ -149,7 +151,8 @@ def mesh_snapshot(mesh) -> dict:
 
 def _mesh_key(mesh, trace_dir: str):
     return (os.getpid(), trace_dir, tuple(mesh.axis_names),
-            tuple(str(d) for d in mesh.devices), mesh.distributed)
+            tuple(mesh.axis_sizes), tuple(str(d) for d in mesh.grid),
+            mesh.distributed)
 
 
 def ensure_mesh_recorded(mesh) -> None:
@@ -256,8 +259,8 @@ def shard_row_counts(mesh, n: int,
     shard, the short shards at the tail), in shard order. ``local_n``
     overrides the rows a shard owns: the serving micro-batcher pads to a
     bucket, so each shard owns ``bucket / N`` rows and the real rows fill
-    from shard 0. (The port's meshes have the one ``data`` axis, so the
-    JAX function's ``axis_name`` has no counterpart.)"""
+    from shard 0. (The port's shards are the positions along the data
+    axes, so the JAX function's ``axis_name`` has no counterpart.)"""
     shards = mesh.size
     if local_n is None:
         local_n = -(-n // shards)

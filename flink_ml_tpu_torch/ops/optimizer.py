@@ -58,8 +58,22 @@ after the loss terms, the gradient (values ``data·mult[row]`` by
 float64 scipy on the host; here it is float32 on the device (``cuda-csr``),
 and on the CPU the segment sums' plain versions (``torch-csr``).
 
-Tensor parallelism over a ``model`` axis comes with a later slice of the
-port.
+Tensor parallelism (a mesh with a ``model`` axis, ``optimizer.py:211-219``
+and ``:741-800`` of the JAX package): the feature dimension is padded to a
+multiple of the model-axis size and split over it; model shard ``m`` of data
+shard ``s`` holds the columns ``[m*dm, (m+1)*dm)`` of the shard's rows (a
+view on the shard's device) and the same slice of the coefficients and of
+the moments. Per round each model shard computes its partial margins
+``xb_m @ coeffs_m``; they are summed over the model axis
+(``collective.all_reduce_sum(..., axes=("model",))``: ``reduce_partials``
+on the card), the loss terms run, each model shard computes its local
+gradient ``xb_m.T @ mult``, and the data shard's ``[grad | Σw | Σloss]`` is
+summed over the data axes only. The JAX package launches no Pallas kernel
+on this path (its ``use_kernel and model_axis is None``), so the partial
+dots and the gradient products are ``torch.matmul`` here too: the path is
+``cuda-tp`` / ``torch-tp``, and its kernels are the ``reduce_partials``
+launches of the sums. The cross-replica sharded update stays off on such a
+mesh, as in the JAX package (the model axis already splits the state).
 """
 
 from __future__ import annotations
@@ -80,7 +94,8 @@ from flink_ml_tpu_torch.ops.losses import LossFunc
 from flink_ml_tpu_torch.ops.regularization import regularize
 from flink_ml_tpu_torch.parallel import collective as C
 from flink_ml_tpu_torch.parallel import update_sharding as _upd
-from flink_ml_tpu_torch.parallel.mesh import Mesh, resolve_mesh
+from flink_ml_tpu_torch.parallel.mesh import (MODEL_AXIS, Mesh,
+                                              model_axis_of, resolve_mesh)
 
 #: ``batch_terms(xl, yl, wl, coeffs, start, clip, lb, loss_name) -> (d+2,)``
 BatchTerms = Callable[..., torch.Tensor]
@@ -345,6 +360,63 @@ def _round_partials(batch_terms: BatchTerms, loss_name: str, mesh, shards,
     return parts
 
 
+class TPColumns:
+    """The model-axis column blocks of a fit's rows: ``blocks[i][m]`` is
+    model shard ``m``'s columns ``[m*dm, min((m+1)*dm, d))`` of local data
+    shard ``i``'s rows, on the model shard's device (a view when that is
+    the rows' device); ``dm`` is ``dp / M`` with ``dp`` the padded feature
+    width."""
+
+    def __init__(self, mesh, x: C.RowShards):
+        self.m = mesh.model_size
+        self.d = x.parts[0].shape[1]
+        self.dp = _upd.padded_len(self.d, self.m)
+        self.dm = self.dp // self.m
+        self.blocks = []
+        for s, part in zip(mesh.local_shards, x.parts):
+            devs = mesh.model_devices(s)
+            self.blocks.append([
+                part[:, min(m * self.dm, self.d):
+                     min((m + 1) * self.dm, self.d)].to(devs[m])
+                for m in range(self.m)])
+
+
+def _tp_round_partials(loss_name: str, mesh, cols: TPColumns, shards,
+                       windows, coeffs: torch.Tensor) -> list:
+    """Every local data shard's ``[grad | Σ w | Σ loss]`` (dp + 2) for one
+    round on a tensor-parallel mesh: the model shards' partial margins
+    summed over the model axis, the loss terms, then each model shard's
+    gradient slice (zeros past the true width), as the JAX package's
+    ``_sgd_update_math`` computes them under ``model_axis``."""
+    loss = LossFunc.by_name(loss_name)
+    parts = []
+    for i, (s, (_, y, w), (start, clip, lb)) in enumerate(zip(
+            mesh.local_shards, shards, windows)):
+        dev = y.device
+        if lb <= clip:  # no real row in the window
+            parts.append(torch.zeros(cols.dp + 2, dtype=torch.float32,
+                                     device=dev))
+            meshstats.mark_shard_ready(mesh, s, parts[-1])
+            continue
+        yb, wb = y[start:start + lb], w[start:start + lb]
+        if clip:
+            wb = torch.where(torch.arange(lb, device=dev) >= clip, wb, 0.0)
+        xbs = [blk[start:start + lb] for blk in cols.blocks[i]]
+        cms = [coeffs[m * cols.dm:m * cols.dm + xb.shape[1]].to(xb.device)
+               for m, xb in enumerate(xbs)]
+        dots = C.all_reduce_sum(
+            torch.stack([(xb @ c).to(dev) for xb, c in zip(xbs, cms)]),
+            mesh, axes=(MODEL_AXIS,))
+        loss_sum, mult = loss.terms(dots, yb, wb)
+        grads = []
+        for xb in xbs:
+            g = (xb.T @ mult.to(xb.device)).to(dev)
+            grads.append(_upd.pad_leading(g, cols.dm))
+        parts.append(torch.cat(grads + [wb.sum()[None], loss_sum[None]]))
+        meshstats.mark_shard_ready(mesh, s, parts[-1])
+    return parts
+
+
 def _apply_round(prm: SGDParams, rule, mesh, sharded: bool,
                  coeffs: torch.Tensor, opt: tuple, parts: list):
     """The update tail of a round from the local shards' (d+2,) partials →
@@ -386,13 +458,16 @@ def _where(active: torch.Tensor, new, old):
 def _masked_rounds(batch_terms: BatchTerms, loss_name: str, prm: SGDParams,
                    mesh, sharded: bool, data: ShardData,
                    coeffs: torch.Tensor, opt: tuple, offsets, rounds: int,
-                   rows: Optional[list] = None):
+                   rows: Optional[list] = None,
+                   tp: Optional[TPColumns] = None):
     """``rounds`` rounds from the shards' window ``offsets`` with the tol
     stop as a mask → (coeffs, opt, mean_loss at the stopping round, rounds
     run, stop), all tensors on the device; nothing here waits for the
     device. A round after the stop changes nothing. With ``rows`` (health
     armed) each round appends its :func:`~health.health_row` as a device
-    tensor; the caller keeps the rows of the rounds run."""
+    tensor; the caller keeps the rows of the rounds run. With ``tp`` (a
+    tensor-parallel mesh) each round's partials come from
+    :func:`_tp_round_partials` instead of ``batch_terms``."""
     sched = ShardSchedule(prm.global_batch_size, mesh.size, data.x.ls,
                           data.x.real)
     shards = list(zip(data.x.parts, data.y.parts, data.w.parts))
@@ -402,8 +477,12 @@ def _masked_rounds(batch_terms: BatchTerms, loss_name: str, prm: SGDParams,
     ran = torch.zeros((), dtype=torch.int32, device=coeffs.device)
     stop = torch.zeros((), dtype=torch.bool, device=coeffs.device)
     for windows in sched.windows(mesh.local_shards, offsets, rounds):
-        parts = _round_partials(batch_terms, loss_name, mesh, shards,
-                                windows, coeffs)
+        if tp is not None:
+            parts = _tp_round_partials(loss_name, mesh, tp, shards, windows,
+                                       coeffs)
+        else:
+            parts = _round_partials(batch_terms, loss_name, mesh, shards,
+                                    windows, coeffs)
         updated, new_opt, new_loss = _apply_round(prm, rule, mesh, sharded,
                                                   coeffs, opt, parts)
         # the tol stop as a mask: a round after it changes nothing
@@ -474,8 +553,9 @@ class SGD:
 
     def _iterate(self, batch_terms: BatchTerms, loss_name: str, mesh,
                  sharded: bool, data: ShardData, init, seg_k: int, config,
-                 listeners, algo: str,
-                 health_on: bool) -> Tuple[torch.Tensor, torch.Tensor, dict]:
+                 listeners, algo: str, health_on: bool,
+                 tp: Optional[TPColumns] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
         """The rounds through the iteration runtime → (coeffs, mean_loss,
         health state), device tensors. The carry is the JAX package's, leaf
         for leaf: ``(coeffs f32, offsets (p,) int32, mean_loss f32, opt)``,
@@ -509,7 +589,7 @@ class SGD:
                 rows = [] if health_on else None
                 coeffs, opt, mean_loss, ran, stop = _masked_rounds(
                     batch_terms, loss_name, prm, mesh, sharded, data, coeffs,
-                    opt, offsets, limit - epoch0, rows)
+                    opt, offsets, limit - epoch0, rows, tp)
                 # the boundary's one fetch: [epoch, stop], then the
                 # segment's health rows as their float32 bits
                 boundary = torch.stack([ran + epoch0, stop.to(torch.int32)])
@@ -539,7 +619,7 @@ class SGD:
                 coeffs, offsets, _, opt = carry
                 coeffs, opt, mean_loss, _, _ = _masked_rounds(
                     batch_terms, loss_name, prm, mesh, sharded, data, coeffs,
-                    opt, offsets, 1)
+                    opt, offsets, 1, tp=tp)
                 return coeffs, sched.advance(offsets), mean_loss, opt
 
             if health_on:
@@ -644,10 +724,16 @@ class SGD:
             raise ValueError(f"features are ({data.x.n}, {d}), so the "
                              f"coefficients must be ({d},), got "
                              f"{tuple(coeffs.shape)}")
+        # tensor parallelism (dense rows on a mesh with a model axis): the
+        # feature dim padded to the model-axis size and split over it; the
+        # sharded update stays off there, as in the JAX package
+        tp = (TPColumns(mesh, data.x)
+              if kind == "sgd" and model_axis_of(mesh) is not None else None)
         # the cross-replica sharded update: the coefficient carry padded to
         # the shard multiple (padded coordinates stay exactly zero)
-        sharded = _upd.enabled()
-        dp = _upd.padded_len(d, p) if sharded else d
+        sharded = _upd.enabled() and tp is None
+        dp = (tp.dp if tp is not None
+              else _upd.padded_len(d, p) if sharded else d)
         coeffs = _upd.pad_leading(coeffs, dp)
         algo = tag or f"SGD[{loss_func.NAME}]"
         # a fresh carry per call, the JAX package's make_init: the opt tuple
@@ -657,9 +743,15 @@ class SGD:
                            device=device),
                 _init_opt(prm, dp, device, mesh, sharded))
         opt_leaves = list(init[3])
+        state_leaves = [coeffs] + opt_leaves
+        if tp is not None:
+            # a model shard holds its dm-slice of each vector
+            state_leaves = [v[:tp.dm] if v.ndim else v for v in state_leaves]
+            kind = "tp"
         if opt_leaves:
-            _upd.record_state_bytes(f"{algo}.moments", opt_leaves, p, sharded)
-        _upd.record_state_bytes(algo, [coeffs] + opt_leaves, p, sharded)
+            _upd.record_state_bytes(f"{algo}.moments", state_leaves[1:], p,
+                                    sharded)
+        _upd.record_state_bytes(algo, state_leaves, p, sharded)
 
         base = ("cuda-" if device.type == "cuda" else "torch-") + kind
         health_on = _health.armed()
@@ -672,12 +764,12 @@ class SGD:
             rows = [] if health_on and prm.max_iter > 0 else None
             coeffs, _, mean_loss, ran, _ = _masked_rounds(
                 batch_terms, loss_func.NAME, prm, mesh, sharded, data,
-                init[0], init[3], init[1], prm.max_iter, rows)
+                init[0], init[3], init[1], prm.max_iter, rows, tp)
             path = base
         else:
             coeffs, mean_loss, hstate = self._iterate(
                 batch_terms, loss_func.NAME, mesh, sharded, data, init, seg_k,
-                config, listeners, algo, health_on)
+                config, listeners, algo, health_on, tp)
             path = base + ("-segments" if seg_k else "-rounds")
         # benchmark provenance (runner.py executionPath)
         self.last_execution_path = path

@@ -1,13 +1,16 @@
-"""Collectives over a mesh's data shards, and row placement.
+"""Collectives over a mesh's shards, and row placement.
 
-The port of ``flink_ml_tpu/parallel/collective.py:184-297,432-479`` (ref:
+The port of ``flink_ml_tpu/parallel/collective.py:100-297,432-479`` (ref:
 AllReduceImpl.java:71-102 for the sum, BroadcastUtils.java:65 for broadcast,
 SharedProgressAligner.java:277-292 for the termination vote).
 
 A primitive takes the values of this process's shards, stacked on dim 0: all
-N shards on an in-process mesh, the one shard of the rank under
-``torch.distributed`` (so ``x[i]`` is the value of shard
-``mesh.local_shards[i]``). The two backends behind the one interface:
+N shards on an in-process mesh, the rank's own under ``torch.distributed``
+(so ``x[i]`` is the value of shard ``mesh.local_shards[i]``). A sum may name
+the axes it runs over (``axes``, default the mesh's data axes): on an
+in-process N-D mesh the stack then holds the positions along those axes,
+row-major, e.g. the model shards of one data shard for a sum over
+``("model",)``. The two backends behind the one interface:
 
 - **in-process**: the cross-shard sum of float32 values is
   ``kernels.reduce_partials`` on the stack: the hand-written kernel on the
@@ -16,9 +19,36 @@ N shards on an in-process mesh, the one shard of the rank under
   ``reduce_scatter`` is that sum cut into N dim-0 slices in
   :func:`shard_index` order, and ``all_gather`` a concatenation. At one
   shard every primitive is the identity and launches nothing.
-- **torch.distributed**: ``all_reduce``, ``all_gather_into_tensor`` and
-  ``reduce_scatter_tensor`` on NCCL; gloo takes ``all_reduce`` plus the
-  owned slice for the scatter and ``all_gather`` of a list for the gather.
+- **torch.distributed**: a rank first sums its own shards (as above), then
+  ``all_reduce``, ``all_gather_into_tensor`` and ``reduce_scatter_tensor``
+  on NCCL; gloo takes ``all_reduce`` plus the owned slices for the scatter
+  and ``all_gather`` of a list for the gather. CUDA tensors go to gloo as
+  they are: every gloo collective the port calls takes them
+  (:data:`GLOO_CUDA_OPS`). The one gloo op that does not, ring attention's
+  send/recv, is staged in ``sequence.py``.
+
+**The two-level reduce** (``_hier_psum`` of the JAX package,
+arXiv:1903.06701): a sum over two or more axes, the slow outer one first
+(``("dcn", "data")``), may reduce near the data: a reduce-scatter over the
+inner axes, a sum over the outer axis at ``1/local_N`` of the payload (the
+only inter-level traffic), an all-gather over the inner axes.
+``FLINK_ML_TPU_HIER_REDUCE`` forces it on (``1``) or off (``0``); unset, it
+is on exactly when the runtime spans processes. In-process the legs are two
+``reduce_partials`` launches (the inner sums of every outer row at once,
+then the outer sum); the all-gather is the identity. It equals the flat sum
+up to float reassociation. Across processes the port's flat sum is already
+two-level: a rank holds its whole inner row, sums it in-process and puts
+the full payload on the process group's ``all_reduce``, so both routes are
+that one sum there.
+
+Each reduce over two or more axes records its per-level payload,
+``ml.collective levelOps{op=,level=,axis=}`` and ``levelPayloadBytes{...}``.
+Across processes the inter level is what the rank hands to the group: the
+full payload, whichever route. In-process nothing crosses a slow link, and
+the record is the JAX package's per-shard accounting of a mesh whose shards
+are devices of their own: the full payload on the inter level when flat,
+the ``1/local_N`` slice when hierarchical. That ratio is a model of such a
+mesh, not traffic the port measured.
 
 Placement (:func:`ensure_on_mesh`) never pads a tensor by copying it: shard
 ``s`` is the contiguous row view ``x[s*ls : min((s+1)*ls, n)]`` with ``ls =
@@ -40,8 +70,10 @@ counterpart. Unarmed, a call costs one env check.
 from __future__ import annotations
 
 import functools
+import math
+import os
 import time
-from typing import List, NamedTuple, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -54,6 +86,22 @@ from flink_ml_tpu_torch.parallel.mesh import Mesh
 #: buckets are latency-shaped)
 PAYLOAD_BUCKETS = (256.0, 4096.0, 65536.0, 1048576.0, 16777216.0,
                    268435456.0, 4294967296.0)
+
+#: env var: force the two-level reduce on ("1") or off ("0"); unset or
+#: other = auto (on when the runtime spans processes); the JAX package's
+HIER_ENV = "FLINK_ML_TPU_HIER_REDUCE"
+
+#: the gloo collectives the port calls on CUDA tensors as they are, by the
+#: names of ``scripts/port_gloo_cuda_probe.py``; ``chip_smoke.py`` phase 19
+#: checks on the card that gloo takes each of them (torch 2.11 on the H100
+#: does; its send/recv does not, and aborts its process with "Bad address",
+#: so ``sequence.py`` stages the ring's hops through pinned host buffers)
+GLOO_CUDA_OPS = frozenset({
+    "all_reduce", "broadcast", "all_gather", "all_to_all_single"})
+
+
+def _collective_group():
+    return metrics.group(ML_GROUP, "collective")
 
 class _HostOp:
     """Time one host-side collective or placement op into ``ml.collective
@@ -127,6 +175,16 @@ def _is_nccl(mesh: Mesh) -> bool:
     return dist.get_backend(mesh.group) == "nccl"
 
 
+def _dist_all_reduce(t: torch.Tensor, mesh: Mesh, op=None) -> torch.Tensor:
+    import torch.distributed as dist
+
+    if op is None:
+        dist.all_reduce(t, group=mesh.group)
+    else:
+        dist.all_reduce(t, op=op, group=mesh.group)
+    return t
+
+
 def _stack_sum(x: torch.Tensor) -> torch.Tensor:
     """The sum over dim 0 of an in-process stack, in a fixed order."""
     n = x.shape[0]
@@ -149,17 +207,109 @@ def stack_shards(mesh: Mesh, values: Sequence[torch.Tensor]) -> torch.Tensor:
     return values[0][None] if len(values) == 1 else torch.stack(values)
 
 
-@_accounted("all_reduce_sum")
-def all_reduce_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The sum over every shard of the mesh, the same on each (ref:
-    AllReduceImpl.java:54 allReduceSum)."""
-    if not mesh.distributed:
-        return _stack_sum(x)
+# -- the two-level reduce -----------------------------------------------------
+
+def hier_reduce_forced() -> Optional[bool]:
+    """The ``FLINK_ML_TPU_HIER_REDUCE`` override: True/False when the env
+    forces the two-level or the flat sum, None for auto."""
+    raw = os.environ.get(HIER_ENV, "").strip().lower()
+    if raw in ("1", "true", "on", "yes"):
+        return True
+    if raw in ("0", "false", "off", "no"):
+        return False
+    return None
+
+
+def _hier_active(axes) -> bool:
+    """Whether a sum over ``axes`` takes the two-level route: it needs a
+    (slow, fast) split of two or more axes; then the env decides, else it
+    is on exactly when the runtime spans processes (one process's outer
+    axis is as fast as its inner one, so the flat sum is as good there)."""
+    if len(axes) < 2:
+        return False
+    forced = hier_reduce_forced()
+    if forced is not None:
+        return forced
     import torch.distributed as dist
 
-    out = x[0].clone()
-    dist.all_reduce(out, group=mesh.group)
-    return out
+    return bool(dist.is_available() and dist.is_initialized()
+                and dist.get_world_size() > 1)
+
+
+def _note_level(op: str, level: str, nbytes: int, axes) -> None:
+    """Per-level payload accounting of a sum over two or more axes
+    (``ml.collective levelOps`` / ``levelPayloadBytes{op=,level=,axis=}``):
+    ``inter`` bytes cross the slow outer axis, ``intra`` bytes stay on
+    the inner ones; ``nbytes`` is one shard's payload of the leg (across
+    processes, the rank's payload on the group)."""
+    labels = {"op": op, "level": level, "axis": ",".join(axes)}
+    group = _collective_group()
+    group.counter("levelOps", labels=labels)
+    group.histogram("levelPayloadBytes", buckets=PAYLOAD_BUCKETS,
+                    labels=labels).observe(nbytes)
+
+
+def _sum_axes(mesh: Mesh, axes) -> tuple:
+    if axes is None:
+        return mesh.shard_axes
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    missing = [a for a in axes if a not in mesh.axis_names]
+    if missing:
+        raise ValueError(f"axes {missing} are not axes of {mesh}")
+    if mesh.distributed and set(axes) != set(mesh.shard_axes):
+        raise ValueError(f"a mesh over processes sums over its shard axes "
+                         f"{mesh.shard_axes}, got {axes}")
+    return axes
+
+
+def _hier_sum(x: torch.Tensor, mesh: Mesh, axes: tuple) -> torch.Tensor:
+    """The two-level sum of an in-process stack ``x`` over ``axes`` (outer
+    axis first): the inner sums of every outer row in one
+    ``reduce_partials`` call, then their sum over the outer axis in
+    another; recorded with the per-shard accounting of the module
+    docstring."""
+    value = tuple(x.shape[1:])
+    itemsize = x.element_size()
+    local_n = math.prod(mesh.shape[a] for a in axes[1:])
+    if local_n <= 1 or not value:
+        # no fast axis to scatter over, or a scalar: one flat sum with the
+        # full payload on the inter level
+        _note_level("psum", "inter", math.prod(value) * itemsize, axes)
+        return _flat_sum(x, mesh)
+    n0 = value[0]
+    rest = math.prod(value[1:])
+    padded = n0 + (-n0) % local_n
+    chunk_bytes = padded // local_n * rest * itemsize
+    _note_level("reduce_scatter", "intra", padded * rest * itemsize, axes)
+    _note_level("psum", "inter", chunk_bytes, axes)
+    _note_level("all_gather", "intra", chunk_bytes, axes)
+    outer = x.shape[0] // local_n
+    m = math.prod(value)
+    inner = x.reshape(outer, local_n, m).transpose(0, 1).reshape(
+        local_n, outer * m)
+    return _stack_sum(_stack_sum(inner).reshape(outer, m)).reshape(value)
+
+
+def _flat_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    if not mesh.distributed:
+        return _stack_sum(x)
+    return _dist_all_reduce(_stack_sum(x).clone(), mesh)
+
+
+@_accounted("all_reduce_sum")
+def all_reduce_sum(x: torch.Tensor, mesh: Mesh, axes=None) -> torch.Tensor:
+    """The sum over ``axes`` (default: the data axes; every axis of a mesh
+    without one), the same on each shard (ref: AllReduceImpl.java:54
+    allReduceSum). Over two or more axes it may take the two-level route
+    (see the module docstring)."""
+    axes = _sum_axes(mesh, axes)
+    if _hier_active(axes) and not mesh.distributed:
+        return _hier_sum(x, mesh, axes)
+    if len(axes) > 1:
+        # the flat sum over a mesh with a slow outer axis, or any sum over
+        # processes: the full payload crosses the inter level
+        _note_level("psum", "inter", x[0].numel() * x.element_size(), axes)
+    return _flat_sum(x, mesh)
 
 
 def sum_shards(values: Sequence[torch.Tensor], mesh: Mesh) -> torch.Tensor:
@@ -177,13 +327,12 @@ def all_reduce_mean(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 @_accounted("all_reduce_max")
 def all_reduce_max(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    local = x[0] if x.shape[0] == 1 else x.amax(dim=0)
     if not mesh.distributed:
-        return x[0] if x.shape[0] == 1 else x.amax(dim=0)
+        return local
     import torch.distributed as dist
 
-    out = x[0].clone()
-    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=mesh.group)
-    return out
+    return _dist_all_reduce(local.clone(), mesh, op=dist.ReduceOp.MAX)
 
 
 @_accounted("reduce_scatter")
@@ -200,16 +349,20 @@ def reduce_scatter(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
         raise ValueError(f"reduce_scatter: dim 0 of {rows} is not a multiple "
                          f"of the {p} shards (pad it with padded_len)")
     chunk = rows // p
+    tail = tuple(x.shape[2:])
     if not mesh.distributed:
-        return _stack_sum(x).reshape((p, chunk) + tuple(x.shape[2:]))
+        return _stack_sum(x).reshape((p, chunk) + tail)
     import torch.distributed as dist
 
+    local = _stack_sum(x).contiguous()
+    per = len(mesh.local_shards)
     if _is_nccl(mesh):
-        out = x.new_empty((chunk,) + tuple(x.shape[2:]))
-        dist.reduce_scatter_tensor(out, x[0].contiguous(), group=mesh.group)
-        return out[None]
-    total = all_reduce_sum.__wrapped__(x, mesh)  # accounted as this op
-    return total[mesh.rank * chunk:(mesh.rank + 1) * chunk][None]
+        out = x.new_empty((per * chunk,) + tail)
+        dist.reduce_scatter_tensor(out, local, group=mesh.group)
+        return out.reshape((per, chunk) + tail)
+    total = _dist_all_reduce(local.clone(), mesh)
+    lo = mesh.local_shards[0] * chunk
+    return total[lo:lo + per * chunk].reshape((per, chunk) + tail)
 
 
 @_accounted("all_gather")
@@ -217,18 +370,19 @@ def all_gather(x, mesh: Mesh) -> torch.Tensor:
     """This process's (L, chunk, ...) slices (a stack or a list) gathered
     over every shard into the (N * chunk, ...) whole, in shard order."""
     parts = list(x)
+    block = parts[0] if len(parts) == 1 else torch.cat(parts)
     if not mesh.distributed:
-        return parts[0] if len(parts) == 1 else torch.cat(parts)
+        return block
     import torch.distributed as dist
 
-    part = parts[0].contiguous()
+    block = block.contiguous()
     if _is_nccl(mesh):
-        out = part.new_empty((mesh.size * part.shape[0],)
-                             + tuple(part.shape[1:]))
-        dist.all_gather_into_tensor(out, part, group=mesh.group)
+        out = block.new_empty((mesh.processes * block.shape[0],)
+                              + tuple(block.shape[1:]))
+        dist.all_gather_into_tensor(out, block, group=mesh.group)
         return out
-    gathered = [torch.empty_like(part) for _ in range(mesh.size)]
-    dist.all_gather(gathered, part, group=mesh.group)
+    gathered = [torch.empty_like(block) for _ in range(mesh.processes)]
+    dist.all_gather(gathered, block, group=mesh.group)
     return torch.cat(gathered)
 
 
@@ -245,8 +399,11 @@ def broadcast_from(x: torch.Tensor, mesh: Mesh, src: int = 0) -> torch.Tensor:
         return x[src]
     import torch.distributed as dist
 
-    out = x[0].clone()
-    dist.broadcast(out, src, group=mesh.group)
+    per = len(mesh.local_shards)
+    owner = src // per
+    out = (x[src - mesh.local_shards[0]] if owner == mesh.rank
+           else x[0]).clone()
+    dist.broadcast(out, owner, group=mesh.group)
     return out
 
 
@@ -271,7 +428,7 @@ def renormalized_sum(x: torch.Tensor, include: torch.Tensor,
     return total * (mesh.size / torch.clamp_min(participants, 1.0))
 
 
-# -- row placement ---------------------------------------------------------------
+# -- row placement ------------------------------------------------------------
 
 def shard_len(n: int, n_shards: int) -> int:
     """Rows per shard, the last one padded: ``ceil(n / p)`` (1 for n = 0)."""

@@ -18,13 +18,16 @@ The phases are split, not fused: an in-process mesh cannot run one SPMD body
 with a collective in its middle, so a program runs ``map_fn`` on each local
 shard, stacks the partials, reduces them leaf by leaf, then runs
 ``update_fn`` once on the reduced values. Under ``torch.distributed`` the
-same program runs ``map_fn`` on the rank's own shard and the reduce crosses
+same program runs ``map_fn`` on the rank's own shards and the reduce crosses
 the ranks. At one shard the reduce is the identity, so the layer costs a
 1-shard fit nothing.
 
-``flink_ml_tpu/parallel/shardmap.py`` has no twin: it is the JAX package's
-seam over the moving location of ``jax.shard_map`` across JAX versions, and
-nothing here needs one.
+On an N-D mesh the shards are the positions along the data axes (``dcn``
+then ``data``; ``Mesh.shard_axes``), each replicated over a ``model`` axis,
+as the JAX programs' ``P(data_axes)`` specs place them; the reduces run over
+the data axes, through the two-level route where it is armed
+(``collective.py``). ``shardmap.py`` is the name seam over :func:`map_shards`
+with the JAX package's ``shard_map(f, mesh, in_specs, out_specs)`` shape.
 """
 
 from __future__ import annotations
@@ -51,9 +54,10 @@ def broadcast(x: torch.Tensor, mesh: Mesh, src: int = 0) -> torch.Tensor:
     return _c.broadcast_from(x, mesh, src=src)
 
 
-def reduce_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Sum of the per-shard partials (map → reduce)."""
-    return _c.all_reduce_sum(x, mesh)
+def reduce_sum(x: torch.Tensor, mesh: Mesh, axes=None) -> torch.Tensor:
+    """Sum of the per-shard partials (map → reduce) over ``axes`` (default:
+    the data axes)."""
+    return _c.all_reduce_sum(x, mesh, axes=axes)
 
 
 def reduce_mean(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:

@@ -1,95 +1,196 @@
-"""The mesh: the data shards a fit splits its rows over, and their devices.
+"""The mesh: the shards a fit splits its work over, their axes and devices.
 
 The port of ``flink_ml_tpu/parallel/mesh.py:120,166-291``. The reference's
 "parallelism" knob (the number of subtasks) becomes the number of shards on
-the ``data`` axis. A :class:`Mesh` names one ``torch.device`` per shard, and
-runs its collectives on one of two backends:
+the data axes. A :class:`Mesh` is a grid of ``torch.device`` entries with
+named axes, as ``jax.sharding.Mesh`` is:
+
+- ``("data",)``: data parallelism, the reference's only parallelism;
+- ``("data", "model")``: tensor parallelism, the feature dimension of a
+  linear fit split over the ``model`` axis (``ops/optimizer.py``);
+- ``("dcn", "data")``: the hybrid mesh (:func:`create_hybrid_mesh`), the
+  slow outer axis first; the fits shard rows over both axes
+  (:func:`data_axes`), and the cross-shard sum may take the two-level
+  route (``collective.py``);
+- ``("seq",)``: sequence parallelism for attention (``sequence.py``).
+
+A mesh runs its collectives on one of two backends:
 
 - **in-process** (no process group): every shard lives in this process.
   Shards may name the same device, which gives N virtual shards on one card
   (``create_mesh((8,), devices=[dev] * 8)``): the per-shard semantics of an
   N-device fit, with the work of all N shards on one device.
-- **torch.distributed** (:func:`init_distributed`): one shard per rank, the
-  rank's own device; the collectives go through the process group (NCCL on
-  CUDA, gloo on the CPU).
+- **torch.distributed** (:func:`init_distributed`): the data shards are
+  split over the ranks, ``mesh.size // mesh.processes`` consecutive shards
+  to a rank, all on the rank's device; the collectives go through the
+  process group (NCCL for a rank alone on its card, gloo for the CPU and for
+  ranks that share a card, ``distributed.py``). Such a mesh has no
+  ``model`` axis.
 
 The default mesh is one shard on the default device (``device.py``), so a fit
 that asks for no mesh runs as it did before the mesh existed; after
-:func:`init_distributed` it is one shard per rank. Tensor parallelism (a
-``model`` axis) and the hybrid multi-slice mesh (a ``dcn`` axis) are not
-ported yet and raise. There is no silent CPU fallback: an unusable device
-raises where it is named.
+:func:`init_distributed` it is every rank's shards on the ``data`` axis.
+There is no silent CPU fallback: an unusable device raises where it is
+named.
 """
 
 from __future__ import annotations
 
 import datetime
-from typing import Optional, Sequence, Tuple
+import math
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from flink_ml_tpu_torch.device import DeviceLike, resolve_device
 
 DATA_AXIS = "data"    # data parallelism (the reference's only parallelism)
-MODEL_AXIS = "model"  # tensor parallelism: not ported yet
-DCN_AXIS = "dcn"      # the cross-slice axis of a hybrid mesh: not ported yet
+MODEL_AXIS = "model"  # tensor parallelism: the feature dim of a linear fit
+DCN_AXIS = "dcn"      # the slow outer axis of a hybrid mesh
+SEQ_AXIS = "seq"      # sequence parallelism of attention (sequence.py)
+
+_AXES = (DCN_AXIS, DATA_AXIS, MODEL_AXIS, SEQ_AXIS)
+#: a mesh's stand-in for the default process group (see :class:`Mesh`)
+_WORLD = "WORLD"
 
 
 class Mesh:
-    """The data shards of a fit: ``devices[s]`` holds shard ``s``.
+    """A grid of shards with named axes: ``grid`` lists one device per
+    position in row-major order over ``axis_names`` (sizes ``axis_sizes``).
 
-    ``group`` is the ``torch.distributed`` process group of a mesh with one
-    shard per rank (``rank`` is this process's shard), or ``None`` for an
-    in-process mesh, whose shards all live here."""
+    The *shards* of a fit are the positions along its data axes
+    (:func:`data_axes`, the outer axis first), or along every axis of a
+    mesh without one: ``size`` of them, shard ``s`` on ``devices[s]`` (the
+    device at its coordinates, 0 on the other axes), so that the fits see a
+    ``("data", "model")`` mesh as its data shards, each replicated over the
+    model axis, as the JAX package's ``P(data_axes)`` specs do.
+
+    ``group`` is the ``torch.distributed`` process group of a mesh split
+    over ``processes`` ranks (``rank`` is this process), or ``None`` for an
+    in-process mesh, whose shards all live here. A mesh over the default
+    group does not hold it: :attr:`group` looks it up where it is used, so
+    no mesh keeps the group alive after ``destroy_process_group`` (a gloo
+    group freed only at interpreter exit can abort the process there)."""
 
     def __init__(self, devices: Sequence[DeviceLike],
                  axis_names: Sequence[str] = (DATA_AXIS,), group=None,
-                 rank: int = 0):
+                 rank: int = 0, shape: Optional[Sequence[int]] = None,
+                 processes: Optional[int] = None):
         axis_names = _check_axes(axis_names)
+        devices = list(devices)
         if not devices:
             raise ValueError("a mesh needs at least one shard")
-        self.devices: Tuple[torch.device, ...] = tuple(
+        if shape is None:
+            if len(axis_names) != 1:
+                raise ValueError(f"a mesh over the axes {axis_names} needs "
+                                 "its shape")
+            shape = (len(devices),)
+        shape = tuple(int(n) for n in shape)
+        if len(shape) != len(axis_names):
+            raise ValueError(f"shape {shape} does not match the axes "
+                             f"{axis_names}")
+        if math.prod(shape) != len(devices) or min(shape) < 1:
+            raise ValueError(f"shape {shape} needs {math.prod(shape)} "
+                             f"devices, got {len(devices)}")
+        self.grid: Tuple[torch.device, ...] = tuple(
             _indexed(d) for d in devices)
         self.axis_names = axis_names
-        self.group = group
+        self.axis_sizes = shape
+        self.shard_axes = tuple(
+            a for a in axis_names if a in (DCN_AXIS, DATA_AXIS)) or axis_names
+        #: the number of shards (the reference's parallelism)
+        self.size = math.prod(self.shape[a] for a in self.shard_axes)
+        self.devices: Tuple[torch.device, ...] = tuple(
+            self.grid[self._flat(self.shard_coords(s))]
+            for s in range(self.size))
+        self._group = group
+        if group is not None:
+            import torch.distributed as dist
+
+            if group is dist.group.WORLD:
+                self._group = _WORLD
         self.rank = int(rank)
-        if group is not None and not 0 <= self.rank < len(self.devices):
-            raise ValueError(f"rank {rank} is not a shard of a "
-                             f"{len(self.devices)}-shard mesh")
-        #: the shards this process computes: all of them in-process, the
-        #: rank's own under ``torch.distributed``
-        self.local_shards: Tuple[int, ...] = (
-            (self.rank,) if group is not None
-            else tuple(range(len(self.devices))))
+        if group is None:
+            self.processes = 1
+            #: the shards this process computes: all of them in-process,
+            #: the rank's own under ``torch.distributed``
+            self.local_shards: Tuple[int, ...] = tuple(range(self.size))
+            return
+        if MODEL_AXIS in axis_names:
+            raise ValueError(f"a mesh over processes has no {MODEL_AXIS!r} "
+                             f"axis, got {axis_names}")
+        self.processes = self.size if processes is None else int(processes)
+        if self.processes < 1 or self.size % self.processes:
+            raise ValueError(f"{self.size} shards do not split over "
+                             f"{self.processes} processes")
+        if not 0 <= self.rank < self.processes:
+            raise ValueError(f"rank {rank} is not a process of a "
+                             f"{self.processes}-process mesh")
+        per = self.size // self.processes
+        self.local_shards = tuple(range(self.rank * per,
+                                        (self.rank + 1) * per))
 
     @property
-    def size(self) -> int:
-        """The number of data shards (the reference's parallelism)."""
-        return len(self.devices)
-
-    @property
-    def shape(self) -> dict:
+    def shape(self) -> Dict[str, int]:
         """Axis name → size, as ``jax.sharding.Mesh.shape`` gives it."""
-        return {DATA_AXIS: self.size}
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def model_size(self) -> int:
+        """Shards on the ``model`` axis (1 without one)."""
+        return self.shape.get(MODEL_AXIS, 1)
+
+    @property
+    def group(self):
+        """The mesh's process group (None in-process); the default group
+        as ``torch.distributed`` holds it now (None once destroyed)."""
+        if self._group is _WORLD:
+            import torch.distributed as dist
+
+            return dist.group.WORLD
+        return self._group
 
     @property
     def distributed(self) -> bool:
-        """True when the shards are the ranks of a process group."""
-        return self.group is not None
+        """True when the shards are split over the ranks of a process
+        group."""
+        return self._group is not None
 
     @property
     def device_count(self) -> int:
         """Distinct physical devices under the shards: one per rank under
-        ``torch.distributed``, the distinct ``devices`` in-process (1 for
-        virtual shards on one card)."""
+        ``torch.distributed``, the distinct ``grid`` devices in-process (1
+        for virtual shards on one card)."""
         if self.distributed:
-            return self.size
-        return len({str(d) for d in self.devices})
+            return self.processes
+        return len({str(d) for d in self.grid})
+
+    def _flat(self, coords: Dict[str, int]) -> int:
+        index = 0
+        for axis, n in zip(self.axis_names, self.axis_sizes):
+            index = index * n + int(coords.get(axis, 0))
+        return index
+
+    def shard_coords(self, shard: int) -> Dict[str, int]:
+        """Axis → coordinate of shard ``shard`` on the shard axes (the
+        outer axis first, as :func:`data_axes` orders them)."""
+        out = {}
+        for axis in reversed(self.shard_axes):
+            shard, out[axis] = divmod(shard, self.shape[axis])
+        return {a: out[a] for a in self.shard_axes}
+
+    def model_devices(self, shard: int) -> Tuple[torch.device, ...]:
+        """The devices of shard ``shard`` along the model axis, in model
+        order (the one shard device on a mesh without one)."""
+        coords = self.shard_coords(shard)
+        return tuple(self.grid[self._flat({**coords, MODEL_AXIS: m})]
+                     for m in range(self.model_size))
 
     def __repr__(self) -> str:
-        kind = f"rank {self.rank} of a process group" if self.distributed \
-            else "in-process"
-        return f"Mesh({DATA_AXIS}={self.size}, {kind}, {list(self.devices)})"
+        kind = (f"rank {self.rank} of {self.processes} processes"
+                if self.distributed else "in-process")
+        axes = ", ".join(f"{a}={n}" for a, n in self.shape.items())
+        return f"Mesh({axes}, {kind}, {list(self.grid)})"
 
 
 def _indexed(device: DeviceLike) -> torch.device:
@@ -103,56 +204,96 @@ def _indexed(device: DeviceLike) -> torch.device:
 
 def _check_axes(axis_names: Sequence[str]) -> tuple:
     axis_names = tuple(axis_names)
-    unported = [a for a in axis_names if a in (MODEL_AXIS, DCN_AXIS)]
-    if unported:
-        raise NotImplementedError(
-            f"mesh axes {unported}: tensor parallelism and the hybrid mesh "
-            "come with a later slice of the port; use a 1-D "
-            f"({DATA_AXIS!r},) mesh")
-    if axis_names != (DATA_AXIS,):
-        raise ValueError(f"a mesh has the one axis {DATA_AXIS!r}, got "
-                         f"{axis_names}")
+    unknown = [a for a in axis_names if a not in _AXES]
+    if unknown or len(set(axis_names)) != len(axis_names) or not axis_names:
+        raise ValueError(f"mesh axes must be distinct names among {_AXES}, "
+                         f"got {axis_names}")
+    if SEQ_AXIS in axis_names and len(axis_names) > 1:
+        raise ValueError(f"the {SEQ_AXIS!r} axis makes a mesh of its own, "
+                         f"got {axis_names}")
     return axis_names
 
 
 _default_mesh: Optional[Mesh] = None
 
 
+def _cuda_devices(devices):
+    if devices is not None:
+        return list(devices)
+    resolve_device(None)  # raises without a card
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 def create_mesh(shape: Optional[Sequence[int]] = None,
                 axis_names: Sequence[str] = (DATA_AXIS,),
                 devices: Optional[Sequence[DeviceLike]] = None) -> Mesh:
-    """An in-process mesh over ``devices`` (default: every CUDA device).
+    """An in-process mesh over ``devices`` (default: every CUDA device),
+    laid out row-major over ``shape``.
 
     ``create_mesh()`` is one shard per card; ``create_mesh((8,),
     devices=["cuda"] * 8)`` is eight virtual shards on one card, and
-    ``devices=["cpu"] * 8`` the same on the CPU."""
-    axis_names = _check_axes(axis_names)
-    if devices is None:
-        resolve_device(None)  # raises without a card
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
-    devices = list(devices)
-    if shape is not None:
-        shape = tuple(int(s) for s in shape)
-        if len(shape) != len(axis_names):
-            raise ValueError(f"shape {shape} does not match the axes "
-                             f"{axis_names}")
-        if shape[0] != len(devices):
-            raise ValueError(f"shape {shape} needs {shape[0]} devices, got "
-                             f"{len(devices)}")
-    return Mesh(devices, axis_names)
+    ``devices=["cpu"] * 8`` the same on the CPU; ``create_mesh((4, 2),
+    ("data", "model"), devices=...)`` a tensor-parallel mesh and
+    ``create_mesh((8,), ("seq",), devices=...)`` a sequence mesh."""
+    devices = _cuda_devices(devices)
+    return Mesh(devices, axis_names,
+                shape=(len(devices),) if shape is None else shape)
+
+
+def create_hybrid_mesh(ici_shape: Optional[Sequence[int]] = None,
+                       dcn_shape: Optional[Sequence[int]] = None,
+                       axis_names: Optional[Sequence[str]] = None,
+                       devices: Optional[Sequence[DeviceLike]] = None
+                       ) -> Mesh:
+    """A mesh with the slow outer axis first: ``create_hybrid_mesh(
+    ici_shape=(4,), dcn_shape=(2,))`` over 8 devices is a ``("dcn",
+    "data")`` mesh of shape (2, 4) (``flink_ml_tpu/parallel/mesh.py:181``).
+    The fits shard rows over both axes and sum over both; the two-level
+    reduce (``collective.py``) uses the split. One process has no slice
+    topology, so the axes are laid over the device list as given (the JAX
+    package's single-slice branch)."""
+    devices = _cuda_devices(devices)
+    dcn_shape = tuple(int(n) for n in (dcn_shape or (1,)))
+    if ici_shape is None:
+        ici_shape = (len(devices) // max(math.prod(dcn_shape), 1),)
+    ici_shape = tuple(int(n) for n in ici_shape)
+    if axis_names is None:
+        if len(dcn_shape) != 1 or len(ici_shape) != 1:
+            raise ValueError(
+                "default axis_names only cover 1 dcn + 1 ici axis; pass "
+                "axis_names explicitly for higher-rank hybrid meshes")
+        axis_names = (DCN_AXIS, DATA_AXIS)
+    return create_mesh(dcn_shape + ici_shape, axis_names, devices)
 
 
 def data_axes(mesh: Mesh) -> tuple:
-    """The axes that form the data-parallel domain: ``("data",)``."""
-    if DATA_AXIS not in mesh.axis_names:
-        raise ValueError(f"mesh has no data-parallel axis {DATA_AXIS!r}")
-    return (DATA_AXIS,)
+    """The axes that together form the data-parallel domain, the ``dcn``
+    axis first: a flat ``("data",)`` mesh and a ``("dcn", "data")`` mesh of
+    as many shards run the same fit."""
+    axes = tuple(a for a in (DCN_AXIS, DATA_AXIS) if a in mesh.axis_names)
+    if not axes:
+        raise ValueError(
+            f"mesh has no data-parallel axis: expected {DATA_AXIS!r} "
+            f"(optionally with {DCN_AXIS!r}) among {mesh.axis_names}")
+    return axes
 
 
 def data_shard_count(mesh: Mesh) -> int:
     """Total data-parallel shard count (the reference's parallelism)."""
-    return mesh.size
+    return math.prod(mesh.shape[a] for a in data_axes(mesh))
+
+
+def data_pspec(mesh: Mesh):
+    """The dim-0 entry of a row-sharded operand's partition spec in the
+    JAX package: the one data axis of a flat mesh, the ``(dcn, data)``
+    tuple of a hybrid one."""
+    axes = data_axes(mesh)
+    return axes[0] if len(axes) == 1 else axes
+
+
+def model_axis_of(mesh: Mesh) -> Optional[str]:
+    """The tensor-parallel axis name, or None on a mesh without one."""
+    return MODEL_AXIS if MODEL_AXIS in mesh.axis_names else None
 
 
 def default_mesh() -> Mesh:
@@ -189,7 +330,15 @@ def local_mesh() -> Mesh:
     mesh = default_mesh()
     if not mesh.distributed:
         return mesh
-    return Mesh([mesh.devices[mesh.rank]])
+    return Mesh([mesh.devices[s] for s in mesh.local_shards])
+
+
+def _rank_mesh(dev: torch.device, world: int, rank: int,
+               local_shards: int, group) -> Mesh:
+    """The default mesh of a rank: ``world * local_shards`` shards on the
+    ``data`` axis, ``local_shards`` of them this rank's, all on ``dev``."""
+    return Mesh([dev] * (int(world) * int(local_shards)), group=group,
+                rank=int(rank), processes=int(world))
 
 
 def init_distributed(init_method: Optional[str] = None,
@@ -197,27 +346,31 @@ def init_distributed(init_method: Optional[str] = None,
                      rank: Optional[int] = None,
                      device: DeviceLike = None,
                      store=None,
-                     timeout_s: float = 600.0) -> bool:
+                     timeout_s: float = 600.0,
+                     local_shards: int = 1,
+                     backend: Optional[str] = None) -> bool:
     """Join a ``torch.distributed`` process group and make the default mesh
-    one shard per rank. Returns True when the group spans processes.
+    the ranks' shards on the ``data`` axis (``local_shards`` virtual shards
+    a rank, one by default). Returns True when the group spans processes.
 
     ``init_method`` is a rendezvous URL (``file:///path`` works without a
     port; ``tcp://host:port`` too) or ``store`` a ``torch.distributed``
     store (a ``FileStore``); ``world_size`` and ``rank`` are required with
-    either. ``device`` is this rank's device (default: the card): NCCL for
-    a CUDA device, gloo for the CPU. A failed join raises; it never falls
-    back to the in-process mesh. Calling it again in a process that already
-    joined is a no-op. Child processes must be started by spawn, not fork,
-    once CUDA is initialized."""
+    either. ``device`` is this rank's device (default: the card).
+    ``backend`` is the process group's backend; by default NCCL for a CUDA
+    device and gloo for the CPU. Ranks that share one card must ask for
+    ``"gloo"``: NCCL refuses two ranks on one device. A failed join raises;
+    it never falls back to the in-process mesh. Calling it again in a
+    process that already joined is a no-op. Child processes must be started
+    by spawn, not fork, once CUDA is initialized."""
     import torch.distributed as dist
 
     global _default_mesh
     if dist.is_initialized():
         if _default_mesh is None or not _default_mesh.distributed:
-            dev = resolve_device(device)
-            _default_mesh = Mesh([dev] * dist.get_world_size(),
-                                 group=dist.group.WORLD,
-                                 rank=dist.get_rank())
+            _default_mesh = _rank_mesh(
+                resolve_device(device), dist.get_world_size(),
+                dist.get_rank(), local_shards, dist.group.WORLD)
         return dist.get_world_size() > 1
     if world_size is None or rank is None:
         raise ValueError("init_distributed needs world_size and rank")
@@ -225,24 +378,46 @@ def init_distributed(init_method: Optional[str] = None,
         raise ValueError("init_distributed needs one of init_method (a "
                          "file:// or tcp:// URL) and store")
     dev = resolve_device(device)
-    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"backend must be 'nccl' or 'gloo', got {backend!r}")
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError(f"NCCL needs a CUDA device, got {dev}")
     if dev.type == "cuda" and dev.index is not None:
         torch.cuda.set_device(dev)
     dist.init_process_group(
         backend, init_method=init_method, store=store,
         world_size=int(world_size), rank=int(rank),
         timeout=datetime.timedelta(seconds=timeout_s))
-    _default_mesh = Mesh([dev] * int(world_size), group=dist.group.WORLD,
-                         rank=int(rank))
+    _default_mesh = _rank_mesh(dev, world_size, rank, local_shards,
+                               dist.group.WORLD)
     return int(world_size) > 1
 
 
-def shutdown_distributed() -> None:
-    """Leave the process group and restore the one-shard default mesh."""
+def shutdown_distributed(barrier_timeout_s: float = 60.0) -> None:
+    """Leave the process group and restore the one-shard default mesh.
+
+    Across gloo processes every rank first waits at a ``monitored_barrier``
+    of at most ``barrier_timeout_s``, so that no rank tears its connections
+    down while a peer is still finishing its last collective. A rank whose
+    peer is gone raises there, naming the missing ranks, within that bound,
+    and has left the group all the same. An NCCL group is left without a
+    barrier."""
     import torch.distributed as dist
 
     global _default_mesh
-    if dist.is_initialized():
-        dist.destroy_process_group()
-    if _default_mesh is not None and _default_mesh.distributed:
-        _default_mesh = None
+    try:
+        if dist.is_initialized():
+            try:
+                if (dist.get_world_size() > 1
+                        and dist.get_backend() == "gloo"):
+                    dist.monitored_barrier(
+                        timeout=datetime.timedelta(
+                            seconds=barrier_timeout_s),
+                        wait_all_ranks=True)
+            finally:
+                dist.destroy_process_group()
+    finally:
+        if _default_mesh is not None and _default_mesh.distributed:
+            _default_mesh = None

@@ -245,12 +245,15 @@ def reset_last() -> None:
 
 
 def provenance() -> dict:
-    """Benchmark-row provenance: whether the sharded update is armed and
-    the last recorded per-replica state bytes (absent if nothing has
-    recorded yet). The JAX package's elastic-run fields come with the
-    multi-process slice."""
+    """Benchmark-row provenance: whether the sharded update is armed, the
+    last recorded per-replica state bytes (absent if nothing has recorded
+    yet), and the elastic-run fields (``elasticEvents`` /
+    ``participationMin``, ``parallel/elastic.py``)."""
     out = {"updateSharding": enabled()}
     b = last_state_bytes()
     if b is not None:
         out["optStateBytesPerReplica"] = b
+    from flink_ml_tpu_torch.parallel import elastic
+
+    out.update(elastic.provenance())
     return out

@@ -33,9 +33,14 @@ caller's refit) and ``controller-publish`` (each publish attempt)
 (serving/controller.py), the host pool's ``hostpool-child`` (a forked
 worker raises ``InjectedFault``) and ``hostpool-hang`` (a forked worker
 wedges until its deadline kills it) (common/hostpool.py, decided in the
-parent before each fork), and ``native-kernel`` (entry of every native
-host kernel, native/__init__.py). The JAX package's other sites name
-layers that later slices port.
+parent before each fork), ``native-kernel`` (entry of every native host
+kernel, native/__init__.py), and the multi-process sites ``worker-loss``
+(a launched training child SIGKILLs itself at an epoch boundary: the
+elastic shrink-and-resume path) and ``worker-hang`` (the child stalls at
+the boundary past the collective deadline: the ``WorkerLost`` detection
+path). Every process advances the same schedule of the two, and only the
+victim process acts (``parallel/elastic.py`` ``_chaos_probe``, decided at
+``on_boundary``; never in a single-process run).
 """
 
 from __future__ import annotations
@@ -48,6 +53,12 @@ from typing import Dict, Iterable, Optional, Sequence
 
 from flink_ml_tpu_torch.common.locks import make_lock
 from flink_ml_tpu_torch.resilience.policy import InjectedFault
+
+#: every injection site, the JAX package's list
+SITES = ("checkpoint-save", "checkpoint-publish", "epoch-boundary",
+         "hostpool-child", "hostpool-hang", "native-kernel",
+         "controller-retrain", "controller-publish", "canary-probe",
+         "model-swap", "model-rollback", "worker-loss", "worker-hang")
 
 #: the ops-loop subset (serving/controller.py + registry canary/swap/
 #: rollback seams) — what a chaos drive of the ops loop arms

@@ -202,8 +202,14 @@ def test_load_class_maps_jax_paths_without_importing_them(monkeypatch):
     assert rw.load_class(
         "flink_ml_tpu_torch.models.clustering.kmeans.KMeans") is KMeans
     assert {m for m in sys.modules if m.startswith("flink_ml_tpu.")} == before
+    from flink_ml_tpu_torch.parallel import elastic
+
+    assert rw.load_class("flink_ml_tpu.parallel.elastic."
+                         "ElasticCheckpointManager") \
+        is elastic.ElasticCheckpointManager
+    assert {m for m in sys.modules if m.startswith("flink_ml_tpu.")} == before
     with pytest.raises(ValueError, match="not part of the port"):
-        rw.load_class("flink_ml_tpu.parallel.elastic.ElasticCheckpointManager")
+        rw.load_class("flink_ml_tpu.analysis.core.Finding")
 
 
 def test_non_finite_final_state_raises():

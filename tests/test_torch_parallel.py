@@ -675,10 +675,13 @@ def test_benchmark_row_carries_mesh_provenance(sharding):
 # -- the mesh, the estimators, the checkpoint --------------------------------------------
 
 def test_mesh_api(monkeypatch, port_default_mesh):
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        create_mesh((4, 2), ("data", "model"), devices=["cpu"] * 8)
-    with pytest.raises(NotImplementedError):
-        create_mesh((2, 4), ("dcn", "data"), devices=["cpu"] * 8)
+    # the model and dcn axes: a mesh's shards are its data-axis positions
+    tp = create_mesh((4, 2), ("data", "model"), devices=["cpu"] * 8)
+    assert tp.size == 4 and tp.model_size == 2 and len(tp.grid) == 8
+    hybrid = create_mesh((2, 4), ("dcn", "data"), devices=["cpu"] * 8)
+    assert hybrid.size == 8 and mesh_mod.data_axes(hybrid) == ("dcn", "data")
+    with pytest.raises(ValueError, match="axes"):
+        create_mesh((8,), ("rows",), devices=["cpu"] * 8)
     with pytest.raises(ValueError, match="needs 8 devices"):
         create_mesh((8,), devices=["cpu"] * 4)
     mesh = port_mesh(8)
