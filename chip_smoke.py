@@ -365,7 +365,20 @@ Phases, each of which fails the run (no result line, nonzero exit):
     the trace holds ``elastic.worker-lost`` and ``elastic.relaunch``, a
     beacon's load carries ``provenance()``; prints detection, relaunch and
     resume ms;
-20. print one ``{"kernels": [...]}`` line with every kernel's launches in
+20. static checks on the card's host: (1) the port's linter
+    (``flink_ml_tpu_torch/analysis/``, torchlint) in this process over
+    ``flink_ml_tpu_torch/``, ``chip_smoke.py`` and ``scripts/port_*.py``:
+    exit 0 and 0 unsuppressed findings, its counts printed, and neither
+    ``jax`` nor ``flink_ml_tpu`` in ``sys.modules`` afterwards; (2) one line
+    with the count of justified ``host-sync`` suppressions per module, from
+    its ``--suppressions`` audit; (3) ``benchmark/visualize.load_results``
+    on a results JSON of the runner rows phases 5 and 16 returned (the
+    three linear configs, ``benchmark-demo.json`` with its two broken
+    rows), equal to those rows' results; (4) a chart of them where
+    ``matplotlib`` imports, else the ``ImportError`` naming it and nothing
+    written; wall ms beside the card's name and power limit; launches no
+    kernel;
+21. print one ``{"kernels": [...]}`` line with every kernel's launches in
     its main-path runs (in all and by path), error, times and bound, then
     the result line.
 
@@ -435,6 +448,7 @@ Tolerances (float32 throughout, TF32 off):
 """
 
 import contextlib
+import io
 import itertools
 import json
 import logging
@@ -1105,7 +1119,7 @@ def _small_linear_table(Table, seed, n, d, regression):
     return Table.from_columns(features=x, label=y, weight=rng.random(n) + 0.5)
 
 
-def phase_linear_main_path(K, runner, optimizer, Table):
+def phase_linear_main_path(K, runner, optimizer, Table, keep=None):
     log("phase 5: the linear-model main path through the port's entry points")
     specs = {name: runner.load_config(str(path))[name]
              for name, path in LINEAR_CONFIGS.items()}
@@ -1125,6 +1139,11 @@ def phase_linear_main_path(K, runner, optimizer, Table):
         log(f"  benchmark row {name}:", json.dumps(row, sort_keys=True))
         assert row["executionPath"] == "cuda-sgd", (name, row["executionPath"])
         assert row["inputRecordNum"] == n and row["outputRecordNum"] == 1
+    if keep is not None:  # phase 20 draws them, in the runner's schema
+        keep.setdefault("runner_results", {}).update({
+            name: {"stage": specs[name]["stage"],
+                   "inputData": specs[name]["inputData"], "results": row}
+            for name, row in rows.items()})
 
     table = runner.build_generator(spec).get_data()
     estimator = runner.build_stage(spec)
@@ -4264,8 +4283,12 @@ def _host_machinery(K, runner, cv_table):
     row = {}
     keys = np.random.default_rng(16).integers(-(1 << 40), 1 << 40,
                                               HOST_KEYS) % 1_000_003
-    (uniq, codes), row["factorize_ms"] = _synced_ms(
-        lambda: native.factorize_i64(keys))
+    def factorize():
+        got = native.factorize_i64(keys)
+        assert got is not None, "factorize_i64: past its distinct cap"
+        return got
+
+    (uniq, codes), row["factorize_ms"] = _synced_ms(factorize)
     u, first, inv = np.unique(keys, return_index=True, return_inverse=True)
     order = np.argsort(first, kind="stable")
     rank = np.empty(len(order), np.int64)
@@ -4288,8 +4311,12 @@ def _host_machinery(K, runner, cv_table):
         with open(path, "rb") as f:
             raw = f.read()
         body = raw[raw.index(b"\n") + 1:]
-        parsed, row["csv_parse_ms"] = _synced_ms(
-            lambda: native.csv_parse_numeric(body, 5))
+        def parse():
+            got = native.csv_parse_numeric(body, 5)
+            assert got is not None, "csv_parse_numeric: not all numeric"
+            return got
+
+        parsed, row["csv_parse_ms"] = _synced_ms(parse)
         assert np.array_equal(parsed, want), "csv_parse_numeric"
         t = PortTable.from_csv(path)
         assert all(np.array_equal(t.column(f"c{i}"), want[:, i])
@@ -4340,7 +4367,7 @@ def _host_machinery(K, runner, cv_table):
     return row
 
 
-def _benchmark_demo(K, runner, device):
+def _benchmark_demo(K, runner, device, keep=None):
     """``benchmark-demo.json`` through the port's runner: its KMeans rows
     run, and its two broken rows are reported as the JAX runner reports
     them. Its KMeans launches are phase 4's path, not counted here."""
@@ -4348,6 +4375,8 @@ def _benchmark_demo(K, runner, device):
         results = runner.run_benchmarks(
             runner.load_config(str(CONFIGS / "benchmark-demo.json")),
             device=device)
+    if keep is not None:  # phase 20 draws them, broken rows included
+        keep.setdefault("runner_results", {}).update(results)
     failed = {name: e["exception"] for name, e in results.items()
               if "exception" in e}
     assert failed == DEMO_FAILURES, failed
@@ -4398,7 +4427,7 @@ def phase_text(K, runner, Table, device="cuda", keep=None):
         HOST_POOL_ROWS, cv_spec["inputData"]["paramMap"]["numValues"])
     cv_table = runner.build_generator(cv_spec, device).get_data()
     summary["host"] = _host_machinery(K, runner, cv_table)
-    summary["demo"] = _benchmark_demo(K, runner, device)
+    summary["demo"] = _benchmark_demo(K, runner, device, keep=keep)
     assert dict(K.launch_counts) == counts, (counts, dict(K.launch_counts))
     log(f"  launches in the text run: {counts}")
     log(f"  phase 16: {time.perf_counter() - started:.1f} s")
@@ -5637,6 +5666,92 @@ def phase_parallel_layer(K, runner, Table, card_line, device="cuda"):
     return counts
 
 
+def _lint_json(lint_cli, argv):
+    """One in-process run of the port's linter CLI: (exit code, its JSON
+    report)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = lint_cli.main([*argv, "--format", "json"])
+    return rc, json.loads(out.getvalue())
+
+
+def phase_static_checks(card_line, keep):
+    """Phase 20: the port's own static checks and the results chart, on
+    the card's host. Launches no kernel."""
+    log("phase 20: static checks on the card's host")
+    started = time.perf_counter()
+    from flink_ml_tpu_torch.analysis import cli as lint_cli
+    from flink_ml_tpu_torch.benchmark import visualize
+
+    targets = [str(REPO / "flink_ml_tpu_torch"), str(REPO / "chip_smoke.py"),
+               *sorted(str(p) for p in (REPO / "scripts").glob("port_*.py"))]
+    t0 = time.perf_counter()
+    rc, report = _lint_json(lint_cli, targets)
+    lint_ms = (time.perf_counter() - t0) * 1e3
+    _, audit = _lint_json(lint_cli, ["--suppressions", *targets])
+    unsuppressed = [f for f in report["findings"] if not f["suppressed"]]
+    assert rc == 0 and report["counts"]["unsuppressed"] == 0, (
+        "torchlint findings on the port: " + "; ".join(
+            f"{f['path']}:{f['line']}: {f['rule']}" for f in unsuppressed))
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "flink_ml_tpu"))
+    assert not leaked, f"the linter loaded {leaked}"
+    by_rule = {}
+    for f in report["findings"]:
+        by_rule[f["rule"]] = by_rule.get(f["rule"], 0) + 1
+    log(f"  (1) torchlint over {len(targets)} targets: exit {rc}, "
+        f"counts {json.dumps(report['counts'], sort_keys=True)}, "
+        f"suppressed by rule {json.dumps(by_rule, sort_keys=True)}, "
+        f"{lint_ms:.1f} ms; no jax or flink_ml_tpu module loaded")
+    stale = [s for s in audit["suppressions"] if not s["used"]]
+    assert not stale and all(s["justification"]
+                             for s in audit["suppressions"]), stale
+    host_sync = {}
+    for s in audit["suppressions"]:
+        if "host-sync" in s["rules"]:
+            rel = os.path.relpath(s["path"], REPO)
+            host_sync[rel] = host_sync.get(rel, 0) + 1
+    log("  (2) justified host-sync suppressions by module: "
+        + json.dumps(host_sync, sort_keys=True))
+
+    rows = keep["runner_results"]
+    want = json.loads(json.dumps(
+        {name: e["results"] for name, e in rows.items() if "results" in e}))
+    broken = sorted(name for name, e in rows.items() if "exception" in e)
+    assert want and broken, (sorted(want), broken)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "results.json")
+        with open(path, "w") as f:
+            json.dump(rows, f)
+        loaded = visualize.load_results(path)
+        assert loaded == want, sorted(loaded)
+        log(f"  (3) visualize.load_results: {len(loaded)} rows of "
+            f"{len(rows)} ({', '.join(sorted(loaded))}), the broken "
+            f"{broken} skipped, each equal to its runner row")
+        chart = os.path.join(tmp, "chart.png")
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            try:
+                visualize.main([path, "--output-file", chart])
+            except ImportError as e:
+                assert "matplotlib" in str(e) and "viz" in str(e), e
+                assert not os.path.exists(chart)
+                drawn = f"no matplotlib here: the named ImportError ({e})"
+            else:
+                raise AssertionError("visualize drew without matplotlib")
+        else:
+            assert visualize.main([path, "--output-file", chart]) == 0
+            assert os.path.getsize(chart) > 0
+            drawn = f"a {os.path.getsize(chart)}-byte PNG"
+    log(f"  (4) the chart: {drawn}")
+    summary = {"lint_ms": lint_ms, "counts": report["counts"],
+               "host_sync": host_sync,
+               "seconds": time.perf_counter() - started}
+    log("  static checks:", json.dumps(summary, sort_keys=True),
+        f"on the host of {card_line}")
+
+
 def _serving_group():
     from flink_ml_tpu_torch.common.metrics import metrics
 
@@ -5671,8 +5786,10 @@ def main() -> int:
     measured.update(phase_sgd_kernels(K))
     # each path is driven with the counts at 0 and read just after; a
     # path's count of another path's kernels is 0
+    keep = {}
     counts = {"kmeans": phase_main_path(K, runner, kmeans_mod),
-              "linear": phase_linear_main_path(K, runner, optimizer, Table)}
+              "linear": phase_linear_main_path(K, runner, optimizer, Table,
+                                               keep=keep)}
     measured.update(phase_knn_kernel(K))
     measured.update(phase_segment_kernel(K))
     counts["knn"] = phase_knn_main_path(K, runner, Table)
@@ -5683,14 +5800,15 @@ def main() -> int:
     counts["serving"] = phase_serving(K, runner, card)
     counts["ops"] = phase_ops_loop(K, runner, card)
     counts["pipeline"] = phase_pipelines(K, runner, Table)
-    keep = {}
     counts["text"] = phase_text(K, runner, Table, keep=keep)
     counts["online"] = phase_online(K, runner, Table)
     counts["sparse_linear"] = phase_sparse_linear(K, runner, Table, keep=keep)
     phase_host_algorithms(K, runner, Table)
     counts["mesh_observability"] = phase_mesh_observability(K, runner, card)
     counts["parallel_layer"] = phase_parallel_layer(K, runner, Table, card)
+    phase_static_checks(card, keep)
 
+    # step 21: the kernels line
     line = {"kernels": [
         {"name": name, **{key: K.KERNELS[name][key]
                           for key in ("route", "source", "replaces")},

@@ -655,7 +655,7 @@ class MetricsRegistry:
         worker. Post-fork the child is single-threaded, so plain
         reassignment is safe."""
         self._lock = threading.Lock()
-        self._groups = {}
+        self._groups = {}  # torchlint: disable=unguarded-shared-state -- single-threaded post-fork; the stale guard was just replaced above
 
 
 #: default process-wide registry

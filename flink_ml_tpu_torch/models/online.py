@@ -1051,7 +1051,7 @@ class OnlineStandardScaler(Estimator, OnlineStandardScalerParams,
             count += rows
             m, s = moments()
             if isinstance(m, torch.Tensor):
-                m, s = torch.stack([m, s]).cpu().numpy()  # the window's copy
+                m, s = torch.stack([m, s]).cpu().numpy()  # torchlint: disable=host-sync -- one copy a window, not a batch: the scaler's model history is host data the model-delay join reads
             history.append((version, m.copy(), s.copy()))
             # per-model timestamp: the window end for time windows (what
             # the reference stamps and the model-delay join consumes), the

@@ -73,12 +73,12 @@ class CompileStats:
 
     @property
     def enabled(self) -> bool:
-        return self._enabled
+        return self._enabled  # torchlint: disable=unguarded-shared-state -- one atomic bool read; a stale value is as good as a read an instant earlier
 
     def note_build(self, source: str, ms: float, cached: bool) -> None:
         """Record one source's build (``cached``: its library was on disk
         and nothing compiled). A no-op until :func:`install`."""
-        if not self._enabled:
+        if not self._enabled:  # torchlint: disable=unguarded-shared-state -- lock-free bool fast path on the per-build hook; a stale read delays disarm by one build
             return
         grp = self._registry.group(ML_GROUP, COMPILE_GROUP)
         labels = {"fn": source}

@@ -521,9 +521,9 @@ class Tracer:
         # the child is single-threaded here, and the inherited
         # _sink_lock may have been snapshotted HELD by a parent thread
         # — taking it could deadlock; it is replaced two lines down
-        self._sink = None
-        self._sink_pid = None
-        self._sink_path = None
+        self._sink = None  # torchlint: disable=unguarded-shared-state -- single-threaded post-fork; the guard itself is stale and replaced below
+        self._sink_pid = None  # torchlint: disable=unguarded-shared-state -- single-threaded post-fork; the guard itself is stale and replaced below
+        self._sink_path = None  # torchlint: disable=unguarded-shared-state -- single-threaded post-fork; the guard itself is stale and replaced below
         self._sink_lock = threading.Lock()
         # the live endpoint is driver-only (observability/server.py) and
         # the child's incident evidence merges through its own span

@@ -193,20 +193,20 @@ class ModelRegistry:
     def active(self):
         """The committed serving servable (None before the first
         successful swap). One atomic read — safe from any thread."""
-        return self._active
+        return self._active  # torchlint: disable=unguarded-shared-state -- one atomic reference read; swaps replace the object under the lock
 
     @property
     def version(self) -> Optional[int]:
-        return self._version
+        return self._version  # torchlint: disable=unguarded-shared-state -- one atomic int read; the serving path tolerates a stale version
 
     @property
     def canary_version(self) -> Optional[int]:
-        canary = self._canary
+        canary = self._canary  # torchlint: disable=unguarded-shared-state -- one atomic tuple read, unpacked from the local snapshot
         return canary[1] if canary is not None else None
 
     @property
     def canary_fraction(self) -> float:
-        return self._canary_fraction if self._canary is not None else 0.0
+        return self._canary_fraction if self._canary is not None else 0.0  # torchlint: disable=unguarded-shared-state -- per-tick routing reads a snapshot; a stale fraction skews one tick
 
     def resolve(self):
         """The servable for ONE dispatch tick: the canary for
@@ -215,14 +215,14 @@ class ModelRegistry:
         ``active`` — a staged rollout needs per-tick routing, and the
         batcher already resolves once per tick so in-flight batches
         complete on the version they were dispatched with."""
-        canary = self._canary
+        canary = self._canary  # torchlint: disable=unguarded-shared-state -- resolve snapshots the canary tuple once; ticks tolerate staleness
         if canary is not None:
-            fraction = self._canary_fraction
+            fraction = self._canary_fraction  # torchlint: disable=unguarded-shared-state -- a stale fraction mis-routes at most the current tick
             if fraction >= 1.0 or (fraction > 0.0
                                    and self._canary_rng.random()
                                    < fraction):
                 return canary[0]
-        return self._active
+        return self._active  # torchlint: disable=unguarded-shared-state -- fallback is the same atomic read the active property makes
 
     # -- candidate discovery -------------------------------------------------
     def _published_versions(self) -> List[int]:
@@ -449,7 +449,7 @@ class ModelRegistry:
         staged rollout); returns the promoted version. Retryable on an
         injected ``model-swap`` fault — nothing is mutated until the
         commit."""
-        canary = self._canary
+        canary = self._canary  # torchlint: disable=unguarded-shared-state -- snapshot-then-commit: _commit takes the lock before mutating
         if canary is None:
             raise ValueError("no canary to promote")
         candidate, version = canary

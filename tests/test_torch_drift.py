@@ -58,16 +58,18 @@ def _namespace(name):
     if name in _NS:
         return _NS[name]
     if name == "jax":
+        from flink_ml_tpu.common import locks
         from flink_ml_tpu.common import metrics as metrics_mod
         from flink_ml_tpu.observability import (drift, evaluation,
                                                 exporters, tracing)
     else:
+        from flink_ml_tpu_torch.common import locks
         from flink_ml_tpu_torch.common import metrics as metrics_mod
         from flink_ml_tpu_torch.observability import (drift, evaluation,
                                                       exporters, tracing)
     ns = types.SimpleNamespace(name=name, drift=drift, evaluation=evaluation,
                                exporters=exporters, tracing=tracing,
-                               metrics=metrics_mod.metrics)
+                               metrics=metrics_mod.metrics, locks=locks)
     _NS[name] = ns
     return ns
 
@@ -90,6 +92,9 @@ def _clean(monkeypatch):
         ns.drift.clear()
         ns.evaluation.clear()
         ns.metrics.clear()
+        # a lock watchdog another test armed in this worker must not add
+        # its acquisitions (a locks file) to this file's metric dumps
+        ns.locks.reseed_child()
     yield
     for ns in BOTH:
         ns.drift.clear()

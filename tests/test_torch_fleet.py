@@ -13,6 +13,7 @@ intervals. The JAX package's elastic ``beat()`` writes beacons the port's
 liveness view reads.
 """
 
+import functools
 import json
 import os
 import time
@@ -476,19 +477,40 @@ def test_member_that_stops_beating_flips_check_within_two_intervals(
         tmp_path, monkeypatch, writer, reader):
     """One real beacon, then silence: with the stale threshold at one
     beacon interval, ``--check`` reads 0 at once and 4 once two intervals
-    passed (dead = twice the stale threshold)."""
+    passed (dead = twice the stale threshold). Both fleet modules read a
+    fake clock stepped by the test, so a loaded machine cannot stretch the
+    window."""
     interval = 0.25
     monkeypatch.setenv("FLINK_ML_TPU_FLEET_BEACON_S", str(interval))
     w, r = _namespace(writer), _namespace(reader)
+    now = [1.7e9]
+    _fake_clock(monkeypatch, (w.fleet, r.fleet), lambda: now[0])
     path = w.fleet.write_beacon(str(tmp_path), role="serving")
     with open(path) as f:
         stamp = json.load(f)["time"]
+    assert stamp == now[0]
     argv = [str(tmp_path), "--check", "--stale-s", str(interval)]
     assert r.fleet.main(argv) == 0
     while r.fleet.main(argv) != 4:
-        assert time.time() - stamp < 2 * interval + 0.5, "never flipped"
-        time.sleep(0.02)
-    assert time.time() - stamp > 2 * interval
+        assert now[0] - stamp < 2 * interval + 0.5, "never flipped"
+        now[0] += 0.02
+    assert now[0] - stamp > 2 * interval
+
+
+def _fake_clock(monkeypatch, modules, clock):
+    """Point the ``time.time`` a fleet module reads at runtime — its
+    ``time`` global and its ``FleetView``'s default clock — at ``clock``,
+    without touching the module's source or the process-wide time."""
+    class _Time:
+        def __getattr__(self, name):
+            return getattr(time, name)
+
+    fake = _Time()
+    fake.time = clock
+    for mod in modules:
+        monkeypatch.setattr(mod, "time", fake)
+        monkeypatch.setattr(mod, "FleetView", functools.partial(
+            mod.FleetView, clock=clock))
 
 
 # -- elastic liveness and provenance --------------------------------------------

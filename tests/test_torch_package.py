@@ -208,8 +208,15 @@ def test_load_class_maps_jax_paths_without_importing_them(monkeypatch):
                          "ElasticCheckpointManager") \
         is elastic.ElasticCheckpointManager
     assert {m for m in sys.modules if m.startswith("flink_ml_tpu.")} == before
+    from flink_ml_tpu_torch.analysis import core as lint_core
+
+    assert rw.load_class("flink_ml_tpu.analysis.core.Finding") \
+        is lint_core.Finding
+    assert {m for m in sys.modules if m.startswith("flink_ml_tpu.")} == before
+    # no twin by the kernel-or-raise rule: the port never asks whether a
+    # kernel may fall back
     with pytest.raises(ValueError, match="not part of the port"):
-        rw.load_class("flink_ml_tpu.analysis.core.Finding")
+        rw.load_class("flink_ml_tpu.ops.pallas_kernels.pallas_supported")
 
 
 def test_non_finite_final_state_raises():

@@ -58,7 +58,8 @@ def _ns(name):
         from flink_ml_tpu.models.classification import LogisticRegression
         from flink_ml_tpu.models.clustering import KMeans
         from flink_ml_tpu.observability import (cli, diff, drift, evaluation,
-                                                exporters, health, lockstats,
+                                                exporters, flightrecorder,
+                                                health, lockstats,
                                                 meshstats, path, profiling,
                                                 shards, tracing)
         from flink_ml_tpu.parallel import create_mesh, set_default_mesh
@@ -83,6 +84,7 @@ def _ns(name):
         from flink_ml_tpu_torch.models.clustering import KMeans
         from flink_ml_tpu_torch.observability import (cli, diff, drift,
                                                       evaluation, exporters,
+                                                      flightrecorder,
                                                       health, lockstats,
                                                       meshstats, path,
                                                       profiling, shards,
@@ -102,7 +104,8 @@ def _ns(name):
         IterationConfig=IterationConfig, DenseVector=DenseVector,
         LogisticRegression=LogisticRegression, KMeans=KMeans, cli=cli,
         diff=diff, drift=drift, evaluation=evaluation, exporters=exporters,
-        health=health, lockstats=lockstats, meshstats=meshstats, path=path,
+        flightrecorder=flightrecorder, health=health, lockstats=lockstats,
+        meshstats=meshstats, path=path,
         profiling=profiling, shards=shards, tracing=tracing, mesh=mesh,
         fit_kwargs=fit_kwargs, set_default_mesh=set_default_mesh, api=api,
         lr=lr)
@@ -221,8 +224,17 @@ def dirs(tmp_path_factory):
         _traced(ns, d["fit-b"],
                 lambda: _kmeans_fit(ns, root / f"{name}-c2"))
         _traced(ns, d["one"], lambda: _lr_fit(ns, root / f"{name}-c3"))
-        _traced(ns, d["nan"],
-                lambda: _kmeans_fit(ns, root / f"{name}-c4", nans=True))
+        with pytest.MonkeyPatch.context() as mp:
+            # the nan run's incident bundle depends on that run alone,
+            # whatever ran before in this worker: both flight recorders
+            # start with no bundle behind them (no debounce window open,
+            # none of the cap spent) and nothing is debounced. The runs
+            # after it keep the default window, as they always had it.
+            mp.setenv(ns.flightrecorder.DEBOUNCE_ENV, "0")
+            for other in NS.values():
+                other.flightrecorder.reset()
+            _traced(ns, d["nan"],
+                    lambda: _kmeans_fit(ns, root / f"{name}-c4", nans=True))
         _traced(ns, d["serve"], lambda: _serve(ns, d["serve"]),
                 env={"FLINK_ML_TPU_DRIFT": "1", "FLINK_ML_TPU_QUALITY": "1",
                      "FLINK_ML_TPU_LOCKCHECK": "1"})
