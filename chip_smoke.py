@@ -378,7 +378,25 @@ Phases, each of which fails the run (no result line, nonzero exit):
     ``matplotlib`` imports, else the ``ImportError`` naming it and nothing
     written; wall ms beside the card's name and power limit; launches no
     kernel;
-21. print one ``{"kernels": [...]}`` line with every kernel's launches in
+21. meshes over processes (``parallel/{mesh,collective,sequence,
+    distributed}.py`` and the tensor-parallel SGD over ranks), with the
+    counts at 0: ``scripts/port_mesh_worker.py`` ranks that share the card
+    over gloo fit the LR config (10,000,000 x 100, 20 rounds of 100,000,
+    uncut) on (a) four ranks of a (data 2, model 2) mesh, one position a
+    rank (5,000,000 rows x 50 columns placed a rank; both axes' subgroups
+    carry the sums), and (b) two ranks of two positions each on (data 2,
+    model 2), whose model axis lies inside a rank (``reduce_partials``
+    launches there), and on (data 1, model 2), whose model axis spans the
+    ranks; each fit's coefficients against the in-process fit on the same
+    mesh shape in this process: printed whether bit-equal, held within
+    MESH_PROC_RTOL; (c) the same two ranks run ring and Ulysses attention,
+    causal and not, at L = SEQ_LEN, H = SEQ_HEADS, Dh = SEQ_DIM on (seq
+    4), two shards a rank: within MESH_PROC_ATT_ATOL of full attention,
+    printed whether bit-equal to the in-process (seq 4) result; both ranks
+    gather the same bits. Prints each fit's ms, attention ms and
+    ``max_memory_allocated`` a rank, and the staged send/recv hops; every
+    rank exits 0;
+22. print one ``{"kernels": [...]}`` line with every kernel's launches in
     its main-path runs (in all and by path), error, times and bound, then
     the result line.
 
@@ -435,6 +453,10 @@ Tolerances (float32 throughout, TF32 off):
   CENTROID_ATOL; attention by SEQ_RTOL/SEQ_ATOL (the JAX package's
   tolerance for its long causal sequence), online softmax against one
   softmax over 16,384 keys;
+- phase 21: fits over ranks against the same mesh shape in-process by
+  MESH_PROC_RTOL (every sum there has two operands, so the bits are
+  expected equal, and the line says whether they are); attention against
+  full attention by MESH_PROC_ATT_ATOL (max-abs);
 - phase 11: a fit on eight shards differs from the one-shard fit only in
   the order its sums are added (per shard, then across the shards), so
   it is held as the fits that add in another order are: the KMeans fit
@@ -526,6 +548,9 @@ PATH_KERNELS = {
     # elastic ranks' LR fits (their launches counted in the ranks)
     "parallel_layer": ("sgd_batch_terms", "lloyd_partial_sums",
                        "reduce_partials", "assign_nearest"),
+    # the tensor-parallel LR fits over ranks (counted in the ranks): the
+    # in-process part of a sum over an axis a rank holds two shards of
+    "meshes_processes": ("reduce_partials",),
 }
 # phase 15's configs, run uncut through the runner
 FEATURE_CONFIGS = (
@@ -648,6 +673,12 @@ SEQ_RANK_LEN = 2_048  # the same over two gloo ranks
 SEQ_RTOL, SEQ_ATOL = 5e-4, 5e-5
 ELASTIC_INTERVAL = 5
 ELASTIC_KILL_AT = 2
+# phase 21: fits over ranks against the in-process fit on the same mesh
+# shape (relative), and attention over ranks against full attention
+# (max-abs)
+MESH_PROC_RTOL = 1e-6
+MESH_PROC_ATT_ATOL = 1e-5
+SEQ_SHARDS_PROC = 4
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 
@@ -5752,6 +5783,183 @@ def phase_static_checks(card_line, keep):
         f"on the host of {card_line}")
 
 
+def _rank_results(out, n):
+    return [json.loads((Path(out) / f"result-p{r}.json").read_text())
+            for r in range(n)]
+
+
+def _launch_mesh_worker(distributed, jobs, n, local, workdir, tag, env,
+                        device):
+    """``scripts/port_mesh_worker.py`` on ``n`` ranks of ``local``
+    positions each → every rank's result, after every rank exited 0."""
+    path = Path(workdir) / f"{tag}.json"
+    path.write_text(json.dumps(jobs))
+    records = distributed.launch(
+        [sys.executable, str(REPO / "scripts" / "port_mesh_worker.py"),
+         "--jobs", str(path), "--out", f"{workdir}/{tag}"], n,
+        local_devices=local, env=env, timeout=300.0, device=device)
+    assert [r["returncode"] for r in records] == [0] * n, (
+        tag, [r["stderr"][-2000:] for r in records])
+    return _rank_results(f"{workdir}/{tag}", n)
+
+
+def phase_meshes_over_processes(K, runner, card_line, device="cuda"):
+    """Phase 21: meshes over processes, with the counts at 0: (a) the LR
+    config on four gloo ranks of a (data 2, model 2) mesh, one position a
+    rank; (b) on two ranks of two positions on (data 2, model 2) and of
+    one on (data 1, model 2); (c) ring and Ulysses attention on (seq 4)
+    over the same two ranks. Each against the same mesh shape in this
+    process. Returns the ranks' launches."""
+    from flink_ml_tpu_torch.parallel import create_mesh, distributed
+    from flink_ml_tpu_torch.parallel.sequence import (full_attention,
+                                                      sharded_attention)
+
+    log("phase 21: meshes over processes: tensor-parallel fits and "
+        "sequence attention over gloo ranks that share the card")
+    started = time.perf_counter()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    K.reset_launch_counts()
+    summary = {"card": card_line}
+    config = str(LINEAR_CONFIGS["logisticregression"])
+    lr_spec = runner.load_config(config)["logisticregression"]
+    rounds = lr_spec["stage"]["paramMap"]["maxIter"]
+    shapes = {"a": (2, 2), "b_data2": (2, 2), "b_data1": (1, 2)}
+
+    # the in-process fits on the same mesh shapes, the references; their
+    # launches are not the path's
+    saved = dict(K.launch_counts)
+    table = runner.build_generator(lr_spec, dev).get_data()
+    n, d = table.num_rows, table.vectors("features").shape[1]
+    refs = {}
+    for shape in set(shapes.values()):
+        mesh = create_mesh(shape, ("data", "model"),
+                           devices=[dev] * math.prod(shape))
+        model, ms, _ = _fit_ms(runner.build_stage(lr_spec, dev, mesh), table)
+        refs[shape] = (np.asarray(model.coefficients, np.float32), ms)
+    del table, model
+    torch.cuda.empty_cache()
+    K.launch_counts.update(saved)
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_meshes_")
+    env = {"PYTHONPATH": os.pathsep.join(
+        [str(REPO)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p])}
+    fit = dict(kind="fit", config=config, reps=2)
+    four = _launch_mesh_worker(
+        distributed, [dict(fit, name="a", shape=[2, 2], local=1)], 4, 1,
+        workdir, "four", env, device)
+    two = _launch_mesh_worker(
+        distributed,
+        [dict(fit, name="b_data2", shape=[2, 2], local=2),
+         dict(fit, name="b_data1", shape=[1, 2], local=1),
+         dict(kind="attention", name="c", shape=[SEQ_SHARDS_PROC], local=2,
+              L=SEQ_LEN, H=SEQ_HEADS, D=SEQ_DIM, seed=21, reps=2)],
+        2, 2, workdir, "two", env, device)
+    counts = dict(K.launch_counts)
+    fits = {}
+    for name, ranks in (("a", four), ("b_data2", two), ("b_data1", two)):
+        shape = shapes[name]
+        want, ref_ms = refs[shape]
+        rows = {"mesh": {"data": shape[0], "model": shape[1]},
+                "ranks": len(ranks), "in_process_ms": ref_ms, "rank_ms": [],
+                "rank_peak_bytes": [], "launches": {}}
+        for res in ranks:
+            rec = res["jobs"][name]
+            assert rec["path"] == ("cuda-tp" if on_card else "torch-tp"), rec
+            got = np.asarray(rec["coef_bits"], np.int32).view(np.float32)
+            diff = np.abs(got - want)
+            assert np.all(diff <= MESH_PROC_RTOL * np.abs(want) + 1e-9), (
+                name, res["process"], float(diff.max()))
+            rows.setdefault("bit_equal", True)
+            rows["bit_equal"] &= bool(np.array_equal(got, want))
+            rows["max_abs_diff"] = max(rows.get("max_abs_diff", 0.0),
+                                       float(diff.max()))
+            rows["rank_ms"].append(rec["runs_ms"])
+            rows["rank_peak_bytes"].append(rec["peak_bytes"])
+            for kern, c in rec["launches"].items():
+                rows["launches"][kern] = rows["launches"].get(kern, 0) + c
+                counts[kern] += c
+        # the column blocks a rank placed: its data shards' rows times its
+        # model shards' columns (d = 100 splits evenly over 2)
+        rec = ranks[0]["jobs"][name]
+        rows["placed_bytes_a_rank"] = (
+            len(rec["local_shards"]) * math.ceil(n / shape[0])
+            * len(rec["local_models"]) * (d // shape[1]) * 4)
+        rows["groups"] = rec["groups"]
+        fits[name] = rows
+        log(f"  ({name}) LR {n} x {d}, {rounds} rounds on (data "
+            f"{shape[0]}, model {shape[1]}) over {len(ranks)} gloo ranks: "
+            f"fit ms a rank, two runs each {rows['rank_ms']} "
+            f"(in-process {ref_ms:.3f}); bit-equal to the in-process fit: "
+            f"{rows['bit_equal']} (max|diff| {rows['max_abs_diff']:.3g}); "
+            f"placed {rows['placed_bytes_a_rank'] / 1e9:.3f} GB a rank, peak "
+            f"{[round(b / 2**30, 3) for b in rows['rank_peak_bytes']]} GiB; "
+            f"launches {rows['launches']}; groups {rows['groups']}")
+    assert fits["b_data2"]["launches"].get("reduce_partials", 0) >= (
+        2 * rounds if on_card else 0), fits["b_data2"]["launches"]
+    four_groups = fits["a"]["groups"]
+    assert four_groups["data"]["group"] and four_groups["model"]["group"], \
+        four_groups
+    summary["fits"] = fits
+
+    # (c) attention: the ranks' gathered output against full attention and
+    # the in-process (seq 4) result on the same inputs
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q, k, v = (torch.randn((SEQ_LEN, SEQ_HEADS, SEQ_DIM), generator=gen,
+                           device=dev) for _ in range(3))
+    seq = create_mesh((SEQ_SHARDS_PROC,), ("seq",),
+                      devices=[dev] * SEQ_SHARDS_PROC)
+    att = {}
+    with np.load(f"{workdir}/two/c.npz") as saved_out:
+        got_all = {key: saved_out[key] for key in saved_out.files}
+    for causal in (False, True):
+        want = full_attention(q, k, v, causal=causal)
+        for kind in ("ring", "ulysses"):
+            key = f"{kind}-{int(causal)}"
+            got = torch.as_tensor(got_all[key], device=dev)
+            worst = float((got - want).abs().max())
+            assert worst <= MESH_PROC_ATT_ATOL, (key, worst)
+            local = sharded_attention(seq, q, k, v, kind=kind, causal=causal)
+            recs = [res["jobs"]["c"][key] for res in two]
+            assert len({r["sha256"] for r in recs}) == 1, key
+            att[key] = {"max_abs_err": worst,
+                        "bit_equal_in_process": bool(torch.equal(got, local)),
+                        "rank_ms": [r["ms"] for r in recs],
+                        "rank_peak_bytes": [r["peak_bytes"] for r in recs],
+                        "staged_send_recv": [r["staged_send_recv"]
+                                             for r in recs]}
+            del got, local
+        del want
+        torch.cuda.empty_cache()
+    # one staged hop a ring step across ranks, (P - 1) steps a call, each
+    # variant run twice; the all-to-all takes CUDA tensors as they are;
+    # CPU tensors never stage
+    for key, row in att.items():
+        hops = (2 * (SEQ_SHARDS_PROC - 1) * on_card if key.startswith("ring")
+                else 0)
+        assert row["staged_send_recv"] == [hops, hops], (key, row)
+        log(f"  (c) {key} attention L={SEQ_LEN} H={SEQ_HEADS} Dh={SEQ_DIM} "
+            f"on (seq {SEQ_SHARDS_PROC}) over 2 gloo ranks, 2 shards a rank: "
+            f"ms a rank {[round(x, 2) for x in row['rank_ms']]}, peak "
+            f"{[round(b / 2**30, 3) for b in row['rank_peak_bytes']]} GiB, "
+            f"max|err| {row['max_abs_err']:.3g} against full attention, "
+            f"bit-equal to in-process: {row['bit_equal_in_process']}, "
+            f"staged send/recv {row['staged_send_recv']}")
+    summary["attention"] = att
+    del q, k, v
+    torch.cuda.empty_cache()
+    shutil.rmtree(workdir, ignore_errors=True)
+    if on_card:
+        for kern in PATH_KERNELS["meshes_processes"]:
+            assert counts[kern] >= 1, (kern, counts)
+    summary["launches"] = {k: v for k, v in counts.items() if v}
+    summary["seconds"] = time.perf_counter() - started
+    log("  meshes over processes:", json.dumps(summary, sort_keys=True,
+                                               default=str))
+    return counts
+
+
 def _serving_group():
     from flink_ml_tpu_torch.common.metrics import metrics
 
@@ -5807,8 +6015,10 @@ def main() -> int:
     counts["mesh_observability"] = phase_mesh_observability(K, runner, card)
     counts["parallel_layer"] = phase_parallel_layer(K, runner, Table, card)
     phase_static_checks(card, keep)
+    counts["meshes_processes"] = phase_meshes_over_processes(K, runner,
+                                                             card)
 
-    # step 21: the kernels line
+    # step 22: the kernels line
     line = {"kernels": [
         {"name": name, **{key: K.KERNELS[name][key]
                           for key in ("route", "source", "replaces")},

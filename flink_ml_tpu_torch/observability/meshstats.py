@@ -136,7 +136,7 @@ def mesh_snapshot(mesh) -> dict:
     index and owning process (the rank under ``torch.distributed``, else
     0)."""
     devices = list(mesh.grid)
-    per = max(mesh.size // max(mesh.processes, 1), 1)
+    per = max(len(devices) // max(mesh.processes, 1), 1)
     return {
         "device_count": len(devices),
         "axis_names": list(mesh.axis_names),

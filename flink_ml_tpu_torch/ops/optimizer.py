@@ -74,6 +74,17 @@ dots and the gradient products are ``torch.matmul`` here too: the path is
 ``cuda-tp`` / ``torch-tp``, and its kernels are the ``reduce_partials``
 launches of the sums. The cross-replica sharded update stays off on such a
 mesh, as in the JAX package (the model axis already splits the state).
+
+Over processes (a ``torch.distributed`` mesh with a ``model`` axis) a rank
+places only its own (data shard, model shard) column blocks, as a
+data-parallel rank places only its rows. The margins' sum over the model
+axis is ``reduce_partials`` over the rank's model shards, then an
+``all_reduce`` on the ranks that hold the data shard's other model shards;
+the data shards' ``[grad | Σw | Σloss]`` sum runs on the ranks that hold
+the same model shards. A rank that holds only some model shards has zeros
+in the other slices of its gradient, so one more sum over the model axis
+(:meth:`TPColumns.gather`) gives every rank the whole gradient, exactly,
+and the coefficients stay replicated: every rank applies the same update.
 """
 
 from __future__ import annotations
@@ -361,24 +372,64 @@ def _round_partials(batch_terms: BatchTerms, loss_name: str, mesh, shards,
 
 
 class TPColumns:
-    """The model-axis column blocks of a fit's rows: ``blocks[i][m]`` is
-    model shard ``m``'s columns ``[m*dm, min((m+1)*dm, d))`` of local data
-    shard ``i``'s rows, on the model shard's device (a view when that is
-    the rows' device); ``dm`` is ``dp / M`` with ``dp`` the padded feature
-    width."""
+    """The model-axis column blocks of a fit's rows: ``blocks[i][j]`` is
+    model shard ``models[j]``'s columns ``[m*dm, min((m+1)*dm, d))`` of
+    local data shard ``i``'s rows, on the model shard's device; ``dm`` is
+    ``dp / M`` with ``dp`` the padded feature width. ``models`` are the
+    model shards this process holds: all of them in-process, where a block
+    is a view of the placed rows when it lives on their device; a rank's
+    own under ``torch.distributed``, where only its blocks are placed
+    (:meth:`place`)."""
 
-    def __init__(self, mesh, x: C.RowShards):
+    def __init__(self, mesh, d: int, blocks: list):
         self.m = mesh.model_size
-        self.d = x.parts[0].shape[1]
+        self.models = mesh.local_models
+        self.d = int(d)
         self.dp = _upd.padded_len(self.d, self.m)
         self.dm = self.dp // self.m
-        self.blocks = []
-        for s, part in zip(mesh.local_shards, x.parts):
+        self.blocks = blocks
+
+    def cols(self, m: int) -> slice:
+        """Model shard ``m``'s columns of the true width."""
+        return slice(min(m * self.dm, self.d), min((m + 1) * self.dm, self.d))
+
+    @classmethod
+    def place(cls, mesh, features) -> Tuple["TPColumns", C.RowShards]:
+        """The rows of ``features`` (n, d) split over the data shards and
+        their columns over the model shards → (columns, the row split
+        whose ``parts[i]`` is ``blocks[i]``). In-process the rows are
+        placed as for a data-parallel fit and cut into views; under
+        ``torch.distributed`` each local (data, model) block of a host
+        array or tensor goes to the device on its own."""
+        cols = cls(mesh, features.shape[1], [])
+        if not mesh.distributed:
+            x = C.ensure_on_mesh(mesh, features)
+            for s, part in zip(mesh.local_shards, x.parts):
+                devs = mesh.model_devices(s)
+                cols.blocks.append([part[:, cols.cols(m)].to(devs[m])
+                                    for m in cols.models])
+            return cols, x
+        n = int(features.shape[0])
+        ls = C.shard_len(n, mesh.size)
+        real = [max(0, min(ls, n - s * ls)) for s in range(mesh.size)]
+        for s in mesh.local_shards:
             devs = mesh.model_devices(s)
-            self.blocks.append([
-                part[:, min(m * self.dm, self.d):
-                     min((m + 1) * self.dm, self.d)].to(devs[m])
-                for m in range(self.m)])
+            cols.blocks.append([torch.as_tensor(
+                features[s * ls:s * ls + real[s], cols.cols(m)],
+                dtype=torch.float32, device=devs[m]).contiguous()
+                for m in cols.models])
+        return cols, C.RowShards(cols.blocks, n, ls, real)
+
+    def gather(self, mesh, packed: torch.Tensor) -> torch.Tensor:
+        """The data-summed ``[grad | Σ w | Σ loss]`` with every model
+        shard's gradient slice: a rank that holds some of the model shards
+        has zeros in the others' slices, so their sum over the model axis
+        is exact; ``Σ w`` and ``Σ loss`` are the same on every model
+        shard."""
+        if len(self.models) == self.m:
+            return packed
+        grad = C.all_reduce_sum(packed[None, :-2], mesh, axes=(MODEL_AXIS,))
+        return torch.cat([grad, packed[-2:]])
 
 
 def _tp_round_partials(loss_name: str, mesh, cols: TPColumns, shards,
@@ -403,31 +454,37 @@ def _tp_round_partials(loss_name: str, mesh, cols: TPColumns, shards,
             wb = torch.where(torch.arange(lb, device=dev) >= clip, wb, 0.0)
         xbs = [blk[start:start + lb] for blk in cols.blocks[i]]
         cms = [coeffs[m * cols.dm:m * cols.dm + xb.shape[1]].to(xb.device)
-               for m, xb in enumerate(xbs)]
+               for m, xb in zip(cols.models, xbs)]
         dots = C.all_reduce_sum(
             torch.stack([(xb @ c).to(dev) for xb, c in zip(xbs, cms)]),
             mesh, axes=(MODEL_AXIS,))
         loss_sum, mult = loss.terms(dots, yb, wb)
-        grads = []
-        for xb in xbs:
+        # the slices of model shards held elsewhere stay zero here
+        grads = [torch.zeros(cols.dm, dtype=torch.float32, device=dev)
+                 ] * cols.m
+        for m, xb in zip(cols.models, xbs):
             g = (xb.T @ mult.to(xb.device)).to(dev)
-            grads.append(_upd.pad_leading(g, cols.dm))
+            grads[m] = _upd.pad_leading(g, cols.dm)
         parts.append(torch.cat(grads + [wb.sum()[None], loss_sum[None]]))
         meshstats.mark_shard_ready(mesh, s, parts[-1])
     return parts
 
 
 def _apply_round(prm: SGDParams, rule, mesh, sharded: bool,
-                 coeffs: torch.Tensor, opt: tuple, parts: list):
+                 coeffs: torch.Tensor, opt: tuple, parts: list,
+                 tp: Optional[TPColumns] = None):
     """The update tail of a round from the local shards' (d+2,) partials →
-    (coeffs, opt, mean_loss): the stack all-reduced and
-    :func:`_apply_packed`; or, with ``sharded``, the JAX package's sharded
-    tail: ``[Σ w | Σ loss]`` all-reduced, the gradient reduce-scattered,
-    each shard's coefficient and moment slices updated, the coefficients
-    all-gathered."""
+    (coeffs, opt, mean_loss): the stack all-reduced (over the data axes,
+    then, with ``tp``, the gradient slices over the model axis:
+    :meth:`TPColumns.gather`) and :func:`_apply_packed`; or, with
+    ``sharded``, the JAX package's sharded tail: ``[Σ w | Σ loss]``
+    all-reduced, the gradient reduce-scattered, each shard's coefficient
+    and moment slices updated, the coefficients all-gathered."""
     if not sharded:
-        return _apply_packed(prm, rule, coeffs, opt,
-                             C.sum_shards(parts, mesh))
+        packed = C.sum_shards(parts, mesh)
+        if tp is not None:
+            packed = tp.gather(mesh, packed)
+        return _apply_packed(prm, rule, coeffs, opt, packed)
     stack = C.stack_shards(mesh, parts)
     tail = C.all_reduce_sum(stack[:, -2:], mesh)
     total_w, total_loss = tail[0], tail[1]
@@ -484,7 +541,7 @@ def _masked_rounds(batch_terms: BatchTerms, loss_name: str, prm: SGDParams,
             parts = _round_partials(batch_terms, loss_name, mesh, shards,
                                     windows, coeffs)
         updated, new_opt, new_loss = _apply_round(prm, rule, mesh, sharded,
-                                                  coeffs, opt, parts)
+                                                  coeffs, opt, parts, tp)
         # the tol stop as a mask: a round after it changes nothing
         active = torch.logical_not(stop)
         if rows is not None:
@@ -676,10 +733,18 @@ class SGD:
             raise TypeError("features must be a numpy array, a tensor or a "
                             f"scipy CSR matrix, got {type(features).__name__}")
         mesh = resolve_mesh(mesh, device)
-        data = ShardData.place(mesh, features, labels, weights)
+        tp = None
+        if model_axis_of(mesh) is not None:
+            # tensor parallelism: the feature dim padded to the model-axis
+            # size and split over it
+            tp, x = TPColumns.place(mesh, features)
+            data = ShardData(x, *ShardData._labels(mesh, x.n, labels,
+                                                   weights))
+        else:
+            data = ShardData.place(mesh, features, labels, weights)
         return self._fit(loss_func, init_coeffs, mesh, data,
                          kernels.sgd_batch_terms, "sgd", config, listeners,
-                         tag)
+                         tag, tp)
 
     def optimize_csr(self, loss_func: LossFunc, init_coeffs, features_csr,
                      labels, weights=None, device: DeviceLike = None,
@@ -707,13 +772,15 @@ class SGD:
 
     def _fit(self, loss_func: LossFunc, init_coeffs, mesh, data: ShardData,
              batch_terms: BatchTerms, kind: str, config, listeners,
-             tag: Optional[str]) -> Tuple[np.ndarray, float]:
+             tag: Optional[str], tp: Optional[TPColumns] = None
+             ) -> Tuple[np.ndarray, float]:
         """The fit of :meth:`optimize` and :meth:`optimize_csr` on placed
-        data, each round's terms from ``batch_terms``; the execution path
-        is ``cuda-<kind>`` or ``torch-<kind>``, with its mode's suffix."""
+        data, each round's terms from ``batch_terms`` (from ``tp``'s
+        column blocks on a tensor-parallel mesh); the execution path is
+        ``cuda-<kind>`` or ``torch-<kind>``, with its mode's suffix."""
         prm = self.params
         p = mesh.size
-        d = data.x.parts[0].shape[1]
+        d = tp.d if tp is not None else data.x.parts[0].shape[1]
         if tracing.tracer.enabled:
             # per-shard row counts at the fit boundary (the JAX package
             # records them for KMeans; the port for every mesh fit)
@@ -724,13 +791,9 @@ class SGD:
             raise ValueError(f"features are ({data.x.n}, {d}), so the "
                              f"coefficients must be ({d},), got "
                              f"{tuple(coeffs.shape)}")
-        # tensor parallelism (dense rows on a mesh with a model axis): the
-        # feature dim padded to the model-axis size and split over it; the
-        # sharded update stays off there, as in the JAX package
-        tp = (TPColumns(mesh, data.x)
-              if kind == "sgd" and model_axis_of(mesh) is not None else None)
         # the cross-replica sharded update: the coefficient carry padded to
-        # the shard multiple (padded coordinates stay exactly zero)
+        # the shard multiple (padded coordinates stay exactly zero); off on
+        # a tensor-parallel mesh, as in the JAX package
         sharded = _upd.enabled() and tp is None
         dp = (tp.dp if tp is not None
               else _upd.padded_len(d, p) if sharded else d)

@@ -22,8 +22,13 @@ row-major, e.g. the model shards of one data shard for a sum over
 - **torch.distributed**: a rank first sums its own shards (as above), then
   ``all_reduce``, ``all_gather_into_tensor`` and ``reduce_scatter_tensor``
   on NCCL; gloo takes ``all_reduce`` plus the owned slices for the scatter
-  and ``all_gather`` of a list for the gather. CUDA tensors go to gloo as
-  they are: every gloo collective the port calls takes them
+  and ``all_gather`` of a list for the gather. Each runs on the ranks that
+  share this rank's coordinates off the axes it spans
+  (``Mesh.axis_group``): the whole group for a sum over every axis, a
+  subgroup for a subset (the model axis of a tensor-parallel fit, its data
+  axis), and no call at all when this rank is alone on them, so a sum over
+  axes whose shards all live here is ``reduce_partials`` only. CUDA tensors
+  go to gloo as they are: every gloo collective the port calls takes them
   (:data:`GLOO_CUDA_OPS`). The one gloo op that does not, ring attention's
   send/recv, is staged in ``sequence.py``.
 
@@ -175,13 +180,13 @@ def _is_nccl(mesh: Mesh) -> bool:
     return dist.get_backend(mesh.group) == "nccl"
 
 
-def _dist_all_reduce(t: torch.Tensor, mesh: Mesh, op=None) -> torch.Tensor:
+def _dist_all_reduce(t: torch.Tensor, group, op=None) -> torch.Tensor:
     import torch.distributed as dist
 
     if op is None:
-        dist.all_reduce(t, group=mesh.group)
+        dist.all_reduce(t, group=group)
     else:
-        dist.all_reduce(t, op=op, group=mesh.group)
+        dist.all_reduce(t, op=op, group=group)
     return t
 
 
@@ -256,9 +261,6 @@ def _sum_axes(mesh: Mesh, axes) -> tuple:
     missing = [a for a in axes if a not in mesh.axis_names]
     if missing:
         raise ValueError(f"axes {missing} are not axes of {mesh}")
-    if mesh.distributed and set(axes) != set(mesh.shard_axes):
-        raise ValueError(f"a mesh over processes sums over its shard axes "
-                         f"{mesh.shard_axes}, got {axes}")
     return axes
 
 
@@ -275,7 +277,7 @@ def _hier_sum(x: torch.Tensor, mesh: Mesh, axes: tuple) -> torch.Tensor:
         # no fast axis to scatter over, or a scalar: one flat sum with the
         # full payload on the inter level
         _note_level("psum", "inter", math.prod(value) * itemsize, axes)
-        return _flat_sum(x, mesh)
+        return _flat_sum(x, mesh, axes)
     n0 = value[0]
     rest = math.prod(value[1:])
     padded = n0 + (-n0) % local_n
@@ -290,10 +292,14 @@ def _hier_sum(x: torch.Tensor, mesh: Mesh, axes: tuple) -> torch.Tensor:
     return _stack_sum(_stack_sum(inner).reshape(outer, m)).reshape(value)
 
 
-def _flat_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    if not mesh.distributed:
-        return _stack_sum(x)
-    return _dist_all_reduce(_stack_sum(x).clone(), mesh)
+def _flat_sum(x: torch.Tensor, mesh: Mesh, axes: tuple) -> torch.Tensor:
+    """This process's stack summed, then over the ranks that share its
+    coordinates off ``axes`` (none when it is alone on them)."""
+    local = _stack_sum(x)
+    group = mesh.axis_group(axes) if mesh.distributed else None
+    if group is None:
+        return local
+    return _dist_all_reduce(local.clone(), group)
 
 
 @_accounted("all_reduce_sum")
@@ -309,7 +315,7 @@ def all_reduce_sum(x: torch.Tensor, mesh: Mesh, axes=None) -> torch.Tensor:
         # the flat sum over a mesh with a slow outer axis, or any sum over
         # processes: the full payload crosses the inter level
         _note_level("psum", "inter", x[0].numel() * x.element_size(), axes)
-    return _flat_sum(x, mesh)
+    return _flat_sum(x, mesh, axes)
 
 
 def sum_shards(values: Sequence[torch.Tensor], mesh: Mesh) -> torch.Tensor:
@@ -328,11 +334,12 @@ def all_reduce_mean(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 @_accounted("all_reduce_max")
 def all_reduce_max(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     local = x[0] if x.shape[0] == 1 else x.amax(dim=0)
-    if not mesh.distributed:
+    group = mesh.axis_group() if mesh.distributed else None
+    if group is None:
         return local
     import torch.distributed as dist
 
-    return _dist_all_reduce(local.clone(), mesh, op=dist.ReduceOp.MAX)
+    return _dist_all_reduce(local.clone(), group, op=dist.ReduceOp.MAX)
 
 
 @_accounted("reduce_scatter")
@@ -350,7 +357,8 @@ def reduce_scatter(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
                          f"of the {p} shards (pad it with padded_len)")
     chunk = rows // p
     tail = tuple(x.shape[2:])
-    if not mesh.distributed:
+    group = mesh.axis_group() if mesh.distributed else None
+    if group is None:
         return _stack_sum(x).reshape((p, chunk) + tail)
     import torch.distributed as dist
 
@@ -358,31 +366,36 @@ def reduce_scatter(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     per = len(mesh.local_shards)
     if _is_nccl(mesh):
         out = x.new_empty((per * chunk,) + tail)
-        dist.reduce_scatter_tensor(out, local, group=mesh.group)
+        dist.reduce_scatter_tensor(out, local, group=group)
         return out.reshape((per, chunk) + tail)
-    total = _dist_all_reduce(local.clone(), mesh)
+    total = _dist_all_reduce(local.clone(), group)
     lo = mesh.local_shards[0] * chunk
     return total[lo:lo + per * chunk].reshape((per, chunk) + tail)
 
 
 @_accounted("all_gather")
-def all_gather(x, mesh: Mesh) -> torch.Tensor:
+def all_gather(x, mesh: Mesh, axes=None) -> torch.Tensor:
     """This process's (L, chunk, ...) slices (a stack or a list) gathered
-    over every shard into the (N * chunk, ...) whole, in shard order."""
+    over ``axes`` (default: the shard axes) into the whole, in row-major
+    order over those axes: the ranks of a gather hold consecutive
+    positions along them, in rank order."""
     parts = list(x)
     block = parts[0] if len(parts) == 1 else torch.cat(parts)
-    if not mesh.distributed:
+    group = (mesh.axis_group(_sum_axes(mesh, axes)) if mesh.distributed
+             else None)
+    if group is None:
         return block
     import torch.distributed as dist
 
+    ranks = len(mesh.axis_ranks(_sum_axes(mesh, axes)))
     block = block.contiguous()
     if _is_nccl(mesh):
-        out = block.new_empty((mesh.processes * block.shape[0],)
+        out = block.new_empty((ranks * block.shape[0],)
                               + tuple(block.shape[1:]))
-        dist.all_gather_into_tensor(out, block, group=mesh.group)
+        dist.all_gather_into_tensor(out, block, group=group)
         return out
-    gathered = [torch.empty_like(block) for _ in range(mesh.processes)]
-    dist.all_gather(gathered, block, group=mesh.group)
+    gathered = [torch.empty_like(block) for _ in range(ranks)]
+    dist.all_gather(gathered, block, group=group)
     return torch.cat(gathered)
 
 
@@ -395,15 +408,16 @@ def shard_index(mesh: Mesh) -> tuple:
 @_accounted("broadcast")
 def broadcast_from(x: torch.Tensor, mesh: Mesh, src: int = 0) -> torch.Tensor:
     """Shard ``src``'s value, on every shard (ref: the .broadcast() edges)."""
-    if not mesh.distributed:
-        return x[src]
+    group = mesh.axis_group() if mesh.distributed else None
+    if group is None:
+        return x[src - mesh.local_shards[0]]
     import torch.distributed as dist
 
     per = len(mesh.local_shards)
-    owner = src // per
+    owner = mesh.axis_ranks()[src // per]
     out = (x[src - mesh.local_shards[0]] if owner == mesh.rank
            else x[0]).clone()
-    dist.broadcast(out, owner, group=mesh.group)
+    dist.broadcast(out, owner, group=group)
     return out
 
 

@@ -16,7 +16,10 @@ whose shards are split over the ranks. Three pieces:
   mesh with one row per process (``L`` virtual shards a rank on the rank's
   device, ``FLINK_ML_TPU_LOCAL_DEVICES``), so the fits shard and sum over
   both axes (``data_axes``) and the two-level reduce (``collective.py``)
-  keeps the inner leg inside the process; in one process the flat mesh.
+  keeps the inner leg inside the process; or any shape whose positions
+  are the ranks' ``L`` each (a ``(data, model)`` mesh whose model axis
+  spans ranks or lies inside one, a ``seq`` mesh of several shards a
+  rank); in one process the flat mesh.
 - :func:`launch`: N child processes of one command, each a fresh
   interpreter (``subprocess``: never a fork of a process that has CUDA up),
   with the env mapping below, a rendezvous file in a fresh temporary
@@ -205,17 +208,25 @@ def process_label() -> Optional[int]:
     return None
 
 
-def build_mesh(local_axis: Optional[int] = None):
+def build_mesh(local_axis: Optional[int] = None,
+               shape: Optional[Sequence[int]] = None,
+               axis_names: Optional[Sequence[str]] = None):
     """The global mesh for this runtime.
 
     Across processes: a ``(dcn, data)`` mesh, the process axis outermost
     with one row per process in rank order and the rank's ``L`` virtual
     shards on its device inside (``local_axis`` overrides ``L``, which
-    defaults to ``FLINK_ML_TPU_LOCAL_DEVICES``, else 1).
+    defaults to ``FLINK_ML_TPU_LOCAL_DEVICES``, else 1). With ``shape``
+    and ``axis_names``, a mesh of that shape instead (``(2, 2), ("data",
+    "model")``, ``(4,), ("seq",)``): its ``prod(shape)`` positions must be
+    the ranks' ``L`` each, split over the ranks row-major (``mesh.py``).
 
-    In one process: the flat mesh, ``L`` virtual shards on
-    ``FLINK_ML_TPU_DIST_DEVICE`` when the launcher set them, else one shard
-    per card (``create_mesh()``), so callers invoke this unconditionally."""
+    In one process: the flat mesh (or ``shape`` over ``axis_names``), ``L``
+    virtual shards on ``FLINK_ML_TPU_DIST_DEVICE`` when the launcher set
+    them, else one shard per card (``create_mesh()``), so callers invoke
+    this unconditionally."""
+    import math
+
     import torch.distributed as dist
 
     from flink_ml_tpu_torch.observability import profiling
@@ -223,19 +234,29 @@ def build_mesh(local_axis: Optional[int] = None):
         DATA_AXIS, DCN_AXIS, Mesh, create_mesh, default_mesh)
 
     per = int(local_axis) if local_axis is not None else _local_devices()
+    if (shape is None) != (axis_names is None):
+        raise ValueError("build_mesh takes shape and axis_names together")
     with profiling.boot_phase("mesh-build"):
         if not (dist.is_available() and dist.is_initialized()
                 and dist.get_world_size() > 1):
             device = os.environ.get(DEVICE_ENV)
+            if shape is not None:
+                return create_mesh(shape, axis_names, devices=[
+                    device or "cuda"] * math.prod(shape))
             if device is None and local_axis is None \
                     and _env_int(LOCAL_DEVICES_ENV) is None:
                 return create_mesh()
             return create_mesh((per,), devices=[device or "cuda"] * per)
         n = dist.get_world_size()
+        if shape is None:
+            shape, axis_names = (n, per), (DCN_AXIS, DATA_AXIS)
+        elif math.prod(shape) != n * per:
+            raise ValueError(f"a mesh of shape {tuple(shape)} over {n} "
+                             f"ranks of {per} shards needs {n * per} "
+                             f"positions")
         dev = default_mesh().devices[default_mesh().local_shards[0]]
-        return Mesh([dev] * (n * per), (DCN_AXIS, DATA_AXIS),
-                    group=dist.group.WORLD, rank=dist.get_rank(),
-                    shape=(n, per), processes=n)
+        return Mesh([dev] * (n * per), axis_names, group=dist.group.WORLD,
+                    rank=dist.get_rank(), shape=shape, processes=n)
 
 
 # -- the launcher -------------------------------------------------------------

@@ -20,12 +20,21 @@ A mesh runs its collectives on one of two backends:
   Shards may name the same device, which gives N virtual shards on one card
   (``create_mesh((8,), devices=[dev] * 8)``): the per-shard semantics of an
   N-device fit, with the work of all N shards on one device.
-- **torch.distributed** (:func:`init_distributed`): the data shards are
-  split over the ranks, ``mesh.size // mesh.processes`` consecutive shards
-  to a rank, all on the rank's device; the collectives go through the
-  process group (NCCL for a rank alone on its card, gloo for the CPU and for
-  ranks that share a card, ``distributed.py``). Such a mesh has no
-  ``model`` axis.
+- **torch.distributed** (:func:`init_distributed`): the grid positions are
+  split over the ranks in row-major order over the axes, ``len(grid) //
+  processes`` consecutive positions to a rank, all on the rank's device
+  (the JAX package's device order, where a process's devices are
+  consecutive); the collectives go through the process group (NCCL for a
+  rank alone on its card, gloo for the CPU and for ranks that share a card,
+  ``distributed.py``). A rank holds whole rows of the model axis or some
+  model shards of one data shard, so its positions are its data shards
+  (``local_shards``) times its model shards (``local_models``). A sum over
+  a subset of the axes runs on the ranks that share the other coordinates
+  (:meth:`Mesh.axis_ranks`): a ``torch.distributed`` subgroup made for
+  every such rank set of two or more ranks, short of the whole world, when
+  the mesh is built, by every rank in the same order. The mesh keeps only
+  the rank sets; :meth:`Mesh.axis_group` looks the group up where it is
+  used, and :func:`shutdown_distributed` destroys every subgroup.
 
 The default mesh is one shard on the default device (``device.py``), so a fit
 that asks for no mesh runs as it did before the mesh existed; after
@@ -110,25 +119,47 @@ class Mesh:
             if group is dist.group.WORLD:
                 self._group = _WORLD
         self.rank = int(rank)
+        #: this rank's group's ranks for each axis subset (sorted axes)
+        self._axis_ranks: Dict[tuple, Tuple[int, ...]] = {}
         if group is None:
             self.processes = 1
+            #: the grid positions this process holds, row-major
+            self.positions: Tuple[int, ...] = tuple(range(len(self.grid)))
             #: the shards this process computes: all of them in-process,
             #: the rank's own under ``torch.distributed``
             self.local_shards: Tuple[int, ...] = tuple(range(self.size))
+            #: the model-axis coordinates this process holds
+            self.local_models: Tuple[int, ...] = tuple(
+                range(self.model_size))
             return
-        if MODEL_AXIS in axis_names:
-            raise ValueError(f"a mesh over processes has no {MODEL_AXIS!r} "
-                             f"axis, got {axis_names}")
-        self.processes = self.size if processes is None else int(processes)
-        if self.processes < 1 or self.size % self.processes:
-            raise ValueError(f"{self.size} shards do not split over "
-                             f"{self.processes} processes")
+        self.processes = (len(self.grid) if processes is None
+                          else int(processes))
+        if self.processes < 1 or len(self.grid) % self.processes:
+            raise ValueError(f"{len(self.grid)} grid positions do not split "
+                             f"over {self.processes} processes")
         if not 0 <= self.rank < self.processes:
             raise ValueError(f"rank {rank} is not a process of a "
                              f"{self.processes}-process mesh")
-        per = self.size // self.processes
-        self.local_shards = tuple(range(self.rank * per,
-                                        (self.rank + 1) * per))
+        for r in range(self.processes):
+            held = self._held(r)
+            shards = tuple(sorted({s for s, _ in held}))
+            models = tuple(sorted({m for _, m in held}))
+            if len(shards) * len(models) != len(held):
+                raise ValueError(
+                    f"rank {r} of {self} would hold positions that are "
+                    f"neither whole model rows nor model shards of one data "
+                    f"shard")
+            if r == self.rank:
+                self.positions = self._rank_positions(r)
+                self.local_shards, self.local_models = shards, models
+        for axes in _axis_subsets(self.axis_names):
+            parts = self._partition(axes)
+            self._axis_ranks[axes] = next(
+                p for p in parts if self.rank in p)
+            if self._group is _WORLD:
+                for ranks in parts:
+                    if 1 < len(ranks) < self.processes:
+                        _subgroup(ranks)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -165,6 +196,82 @@ class Mesh:
             return self.processes
         return len({str(d) for d in self.grid})
 
+    def _rank_positions(self, rank: int) -> Tuple[int, ...]:
+        per = len(self.grid) // self.processes
+        return tuple(range(rank * per, (rank + 1) * per))
+
+    def _coords(self, position: int) -> Dict[str, int]:
+        out = {}
+        for axis, n in zip(reversed(self.axis_names),
+                           reversed(self.axis_sizes)):
+            position, out[axis] = divmod(position, n)
+        return out
+
+    def _held(self, rank: int) -> list:
+        """The (data shard, model coordinate) of each grid position rank
+        ``rank`` holds, row-major."""
+        out = []
+        for pos in self._rank_positions(rank):
+            coords = self._coords(pos)
+            shard = 0
+            for axis in self.shard_axes:
+                shard = shard * self.shape[axis] + coords[axis]
+            out.append((shard, coords.get(MODEL_AXIS, 0)))
+        return out
+
+    def _partition(self, axes: tuple) -> list:
+        """The ranks grouped by the coordinates off ``axes`` they hold: the
+        rank sets a sum over ``axes`` runs on, in order of their lowest
+        rank. Raises when two ranks hold overlapping, unequal sets."""
+        others = [a for a in self.axis_names if a not in axes]
+        held = {}
+        for r in range(self.processes):
+            held[r] = frozenset(
+                tuple(self._coords(p)[a] for a in others)
+                for p in self._rank_positions(r))
+        parts = []
+        for r in range(self.processes):
+            for part in parts:
+                if held[part[0]] == held[r]:
+                    part.append(r)
+                    break
+                if held[part[0]] & held[r]:
+                    raise ValueError(f"the ranks of {self} do not split "
+                                     f"evenly over the axes {axes}")
+            else:
+                parts.append([r])
+        return [tuple(p) for p in parts]
+
+    def axis_ranks(self, axes=None) -> Tuple[int, ...]:
+        """The ranks a sum over ``axes`` (default: the shard axes) runs on
+        from this rank: those that hold the same coordinates on the other
+        axes, sorted (this process alone in-process)."""
+        if axes is None:
+            axes = self.shard_axes
+        key = tuple(a for a in self.axis_names if a in axes)
+        if not self.distributed:
+            return (self.rank,)
+        return self._axis_ranks[key]
+
+    def axis_group(self, axes=None):
+        """The process group of :meth:`axis_ranks`, looked up where it is
+        used: the mesh's own group for every rank (a world of one too),
+        None for a rank alone among several (no call is made), else the
+        subgroup made when the mesh was built."""
+        ranks = self.axis_ranks(axes)
+        if len(ranks) == self.processes:
+            return self.group
+        if len(ranks) == 1:
+            return None
+        if self._group is not _WORLD:
+            raise ValueError(f"{self} sums over a subset of its axes only "
+                             f"over the default process group")
+        group = _SUBGROUPS.get(ranks)
+        if group is None:
+            raise RuntimeError(f"the subgroup of ranks {ranks} is gone "
+                               f"(shutdown_distributed destroyed it)")
+        return group
+
     def _flat(self, coords: Dict[str, int]) -> int:
         index = 0
         for axis, n in zip(self.axis_names, self.axis_sizes):
@@ -191,6 +298,30 @@ class Mesh:
                 if self.distributed else "in-process")
         axes = ", ".join(f"{a}={n}" for a, n in self.shape.items())
         return f"Mesh({axes}, {kind}, {list(self.grid)})"
+
+
+def _axis_subsets(axis_names: tuple) -> list:
+    """Every non-empty subset of ``axis_names``, in a fixed order, each in
+    the mesh's axis order."""
+    n = len(axis_names)
+    return [tuple(a for i, a in enumerate(axis_names) if bits >> i & 1)
+            for bits in range(1, 1 << n)]
+
+
+#: the subgroups of meshes over processes, by their sorted ranks; a mesh
+#: keeps only rank sets, so :func:`shutdown_distributed` leaves none alive
+_SUBGROUPS: Dict[Tuple[int, ...], object] = {}
+
+
+def _subgroup(ranks: Tuple[int, ...]) -> None:
+    """Make the subgroup of ``ranks`` once. Every rank of the world calls
+    this for every rank set, its own or not, in the same order:
+    ``new_group`` is a collective of the whole world."""
+    if ranks in _SUBGROUPS:
+        return
+    import torch.distributed as dist
+
+    _SUBGROUPS[ranks] = dist.new_group(list(ranks))
 
 
 def _indexed(device: DeviceLike) -> torch.device:
@@ -417,7 +548,11 @@ def shutdown_distributed(barrier_timeout_s: float = 60.0) -> None:
                             seconds=barrier_timeout_s),
                         wait_all_ranks=True)
             finally:
+                while _SUBGROUPS:
+                    dist.destroy_process_group(
+                        _SUBGROUPS.popitem()[1])
                 dist.destroy_process_group()
     finally:
+        _SUBGROUPS.clear()
         if _default_mesh is not None and _default_mesh.distributed:
             _default_mesh = None

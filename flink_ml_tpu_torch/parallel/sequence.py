@@ -18,12 +18,16 @@ The functions take and return lists of this process's shards' (L/P, H, Dh)
 blocks. On an in-process mesh (virtual shards on one card or on the CPU)
 the rotation and the all-to-all are re-indexing of the shards' tensors: the
 block resident at shard ``i`` after ``j`` steps is shard ``(i - j) % P``'s.
-Under ``torch.distributed`` (one shard a rank) the rotation is
-``batch_isend_irecv`` to the next rank and from the previous one, and the
-all-to-all is ``all_to_all_single``. gloo takes CUDA tensors for the
-all-to-all but not for send/recv, so on a gloo group the ring's hops of CUDA
-blocks go through pinned host buffers, each counted in ``ml.collective
-stagedOps{op="send_recv"}``.
+Under ``torch.distributed`` a rank holds ``P / ranks`` consecutive shards.
+A ring hop between two shards of one rank is a re-index; the hop across
+ranks is one ``batch_isend_irecv`` a step, which sends the rank's last
+shard's block to the next rank and receives its first shard's from the
+previous one, every send and receive of the step posted in one batch.
+Ulysses' all-to-all is one ``all_to_all_single`` a step over the rank's
+shard chunks, laid out in the global shard order. gloo takes CUDA tensors
+for the all-to-all but not for send/recv, so on a gloo group the ring's
+hops of CUDA blocks go through pinned host buffers, each counted in
+``ml.collective stagedOps{op="send_recv"}``.
 No Pallas kernel exists for this path in the JAX package, so the port's
 einsum and softmax are plain PyTorch, as the JAX package's are plain XLA.
 """
@@ -97,6 +101,16 @@ def _rotate(mesh: Mesh, k_blk, v_blk):
     return recv[0], recv[1]
 
 
+def _hop(mesh: Mesh, resident: list) -> list:
+    """One hop of the ring over this rank's shards' resident (k, v)
+    blocks: each moves to the next shard, a re-index inside the rank; the
+    last shard's goes to the next rank and the first shard takes the
+    previous rank's (the rank's own last block when it is alone)."""
+    first = (_rotate(mesh, *resident[-1]) if mesh.processes > 1
+             else resident[-1])
+    return [first] + resident[:-1]
+
+
 def ring_attention(q: List[torch.Tensor], k: List[torch.Tensor],
                    v: List[torch.Tensor], mesh: Mesh,
                    axis_name: str = SEQ_AXIS,
@@ -107,33 +121,36 @@ def ring_attention(q: List[torch.Tensor], k: List[torch.Tensor],
     online-softmax state, then the blocks rotate one hop; the last resident
     block folds without a rotation after it."""
     p = _axis_size(mesh, axis_name)
-    out = []
-    for i, (qi, ki, vi) in enumerate(zip(q, k, v)):
-        me = mesh.local_shards[i]
-        l_local, heads, d_head = qi.shape
-        scale = 1.0 / math.sqrt(d_head)
-        q_pos = me * l_local + torch.arange(l_local, device=qi.device)
-        m = torch.full((heads, l_local), float("-inf"), dtype=qi.dtype,
-                       device=qi.device)
-        l = torch.zeros((heads, l_local), dtype=qi.dtype, device=qi.device)
-        o = torch.zeros((heads, l_local, d_head), dtype=qi.dtype,
-                        device=qi.device)
-        k_blk, v_blk = ki, vi
-        for step in range(p):
+    l_local, heads, d_head = q[0].shape
+    scale = 1.0 / math.sqrt(d_head)
+    states = [(torch.full((heads, l_local), float("-inf"), dtype=qi.dtype,
+                          device=qi.device),
+               torch.zeros((heads, l_local), dtype=qi.dtype,
+                           device=qi.device),
+               torch.zeros((heads, l_local, d_head), dtype=qi.dtype,
+                           device=qi.device)) for qi in q]
+    resident = list(zip(k, v))
+    for step in range(p):
+        for i, qi in enumerate(q):
+            me = mesh.local_shards[i]
             src = (me - step) % p  # where the resident block started
-            if not mesh.distributed:
+            if mesh.distributed:
+                k_blk, v_blk = resident[i]
+            else:
                 k_blk, v_blk = k[src].to(qi.device), v[src].to(qi.device)
             mask = None
             if causal:
+                q_pos = me * l_local + torch.arange(l_local,
+                                                    device=qi.device)
                 k_pos = src * l_local + torch.arange(l_local,
                                                      device=qi.device)
                 mask = (q_pos[:, None] >= k_pos[None, :])[None]
-            m, l, o = _fold(qi, k_blk, v_blk, m, l, o, scale, mask)
-            if mesh.distributed and step < p - 1:
-                k_blk, v_blk = _rotate(mesh, k_blk, v_blk)
-        res = o / torch.clamp_min(l, 1e-30)[:, :, None]
-        out.append(res.permute(1, 0, 2).contiguous())  # back to (L, H, Dh)
-    return out
+            states[i] = _fold(qi, k_blk, v_blk, *states[i], scale, mask)
+        if mesh.distributed and step < p - 1:
+            resident = _hop(mesh, resident)
+    # back to (L, H, Dh)
+    return [(o / torch.clamp_min(l, 1e-30)[:, :, None]).permute(
+        1, 0, 2).contiguous() for _, l, o in states]
 
 
 def _all_to_all(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
@@ -170,6 +187,7 @@ def ulysses_attention(q: List[torch.Tensor], k: List[torch.Tensor],
     p = _axis_size(mesh, axis_name)
     l_local, heads, d_head = q[0].shape
     hp = heads // p
+    per, ranks = len(q), p // len(q)
     if not mesh.distributed:
         def head_group(blocks, j):
             dev = blocks[j].device
@@ -181,15 +199,24 @@ def ulysses_attention(q: List[torch.Tensor], k: List[torch.Tensor],
         return [torch.cat([outs[j][i * l_local:(i + 1) * l_local].to(
             q[i].device) for j in range(p)], dim=1) for i in range(p)]
 
-    def to_heads(x):
-        # (L_local, H, Dh) → (P, L_local, H/P, Dh) → all-to-all →
-        # (L_global, H/P, Dh)
-        parts = x.reshape(l_local, p, hp, d_head).permute(1, 0, 2, 3)
-        return _all_to_all(mesh, parts).reshape(p * l_local, hp, d_head)
+    def to_heads(blocks):
+        # this rank's shards i, head group (rank, j) → send[rank][j][i]; the
+        # received [rank][j][i] is, for each local head group j, the whole
+        # sequence in global shard order (rank, i)
+        x = torch.stack(blocks).reshape(per, l_local, ranks, per, hp, d_head)
+        recv = _all_to_all(mesh, x.permute(2, 3, 0, 1, 4, 5))
+        return recv.permute(1, 0, 2, 3, 4, 5).reshape(
+            per, ranks * per * l_local, hp, d_head)
 
-    out = _dense(to_heads(q[0]), to_heads(k[0]), to_heads(v[0]), causal)
-    back = _all_to_all(mesh, out.reshape(p, l_local, hp, d_head))
-    return [back.permute(1, 0, 2, 3).reshape(l_local, heads, d_head)]
+    qh, kh, vh = to_heads(q), to_heads(k), to_heads(v)
+    out = torch.stack([_dense(qh[j], kh[j], vh[j], causal)
+                       for j in range(per)])
+    # head group j's rows of shard (rank, i) → send[rank][j][i]; the
+    # received [rank][j][i] is shard i's head group (rank, j)
+    back = _all_to_all(mesh, out.reshape(
+        per, ranks, per, l_local, hp, d_head).permute(1, 0, 2, 3, 4, 5))
+    return list(back.permute(2, 3, 0, 1, 4, 5).reshape(
+        per, l_local, heads, d_head).unbind(0))
 
 
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -220,9 +247,6 @@ def sharded_attention(mesh: Mesh, q, k, v, kind: str = "ring",
         raise ValueError(
             f"ulysses attention needs heads ({q.shape[1]}) divisible by the "
             f"{axis_name!r} axis size {p}; use kind='ring' instead")
-    if mesh.distributed and len(mesh.local_shards) != 1:
-        raise ValueError("sequence attention over processes takes one "
-                         "shard a rank")
     blocks = [_c.ensure_on_mesh(mesh, t, dtype=(
         t.dtype if isinstance(t, torch.Tensor) else torch.float32)).parts
         for t in (q, k, v)]

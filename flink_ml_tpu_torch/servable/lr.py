@@ -124,15 +124,20 @@ class LogisticRegressionModelServable(ModelServable, HasFeaturesCol,
         ``None`` or a one-shard mesh reverts to the one-device product.
         Idempotent on the same mesh object, so the micro-batcher re-asserts
         it every tick without moving the coefficient. The shards are this
-        process's: a ``torch.distributed`` mesh (one shard a rank, each
-        rank serving its own traffic) is refused."""
+        process's: a ``torch.distributed`` mesh is refused, as the JAX
+        package's prediction tier places batches on ``local_mesh()`` only:
+        each process scores its own traffic, and a prediction sharded over
+        other processes could never be fetched by its local caller."""
         if mesh is self._mesh:
             return self
         if mesh is not None and mesh.distributed:
             raise ValueError(
-                "serving shards a batch over an in-process mesh; under "
-                "torch.distributed each rank serves its own traffic "
-                "(parallel.local_mesh())")
+                "a torch.distributed mesh is refused: serving shards a "
+                "batch over this process's shards only "
+                "(parallel.local_mesh(), as the JAX package's prediction "
+                "tier), since each process scores its own traffic and a "
+                "prediction sharded over other processes could never be "
+                "fetched by its local caller")
         self._mesh = mesh
         self._coef_mesh = None
         self._n_shards = 1 if mesh is None else mesh.size

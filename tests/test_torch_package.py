@@ -245,3 +245,45 @@ def test_linear_models_run_on_the_card_by_default(monkeypatch):
     listener = IterationListener()
     assert est.set_iteration_config(None, listeners=[listener]) is est
     assert est._iteration_listeners == (listener,)
+
+
+# -- the package root and the console scripts ---------------------------------
+
+def _port_scripts():
+    import tomllib
+
+    with open(REPO / "pyproject.toml", "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    return {name: target for name, target in scripts.items()
+            if target.startswith("flink_ml_tpu_torch.")}
+
+
+def test_benchmark_console_script_is_registered():
+    assert _port_scripts()["flink-ml-tpu-torch-benchmark"] == \
+        "flink_ml_tpu_torch.benchmark.runner:main"
+
+
+@pytest.mark.parametrize("name", sorted(_port_scripts()))
+def test_port_console_scripts_import(name):
+    """Every ``[project.scripts]`` target of the port imports and names a
+    callable."""
+    import importlib
+
+    module, _, attr = _port_scripts()[name].partition(":")
+    assert callable(getattr(importlib.import_module(module), attr))
+
+
+def test_root_exports_what_the_jax_root_exports():
+    """The names ``flink_ml_tpu/__init__.py`` exports, read from its
+    source, are the port root's, each the port's own."""
+    src = (REPO / "flink_ml_tpu" / "__init__.py").read_text()
+    names = {alias.asname or alias.name
+             for node in ast.parse(src).body
+             if isinstance(node, ast.ImportFrom)
+             for alias in node.names}
+    assert names == {"AlgoOperator", "Estimator", "Model", "Stage",
+                     "Transformer", "Table", "array_to_vector",
+                     "vector_to_array"}
+    for name in names:
+        assert getattr(flink_ml_tpu_torch, name).__module__.startswith(
+            "flink_ml_tpu_torch."), name

@@ -109,8 +109,22 @@ def test_shard_coordinates_are_row_major():
         M.create_mesh((2, 2), ("data", "data"), devices=cpu(4))
     with pytest.raises(ValueError, match="own"):
         M.create_mesh((2, 2), ("data", "seq"), devices=cpu(4))
-    with pytest.raises(ValueError, match="no 'model' axis"):
-        M.Mesh(cpu(4), ("data", "model"), shape=(2, 2), group=object())
+    # over processes: positions to ranks row-major, one a rank here; the
+    # model-axis sum runs on the ranks of one data shard, the data-axis sum
+    # on the ranks of one model shard
+    ranks = [M.Mesh(cpu(4), ("data", "model"), shape=(2, 2), group=object(),
+                    rank=r) for r in range(4)]
+    assert [(m.positions, m.local_shards, m.local_models) for m in ranks] \
+        == [((0,), (0,), (0,)), ((1,), (0,), (1,)), ((2,), (1,), (0,)),
+            ((3,), (1,), (1,))]
+    assert [m.axis_ranks(("model",)) for m in ranks] == [
+        (0, 1), (0, 1), (2, 3), (2, 3)]
+    assert [m.axis_ranks() for m in ranks] == [(0, 2), (1, 3), (0, 2),
+                                               (1, 3)]
+    assert ranks[0].axis_ranks(("data", "model")) == (0, 1, 2, 3)
+    with pytest.raises(ValueError, match="neither whole model rows"):
+        M.Mesh(cpu(6), ("data", "model"), shape=(2, 3), group=object(),
+               processes=3)
 
 
 def test_flat_mesh_is_unchanged():

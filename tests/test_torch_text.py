@@ -479,94 +479,3 @@ def test_sparse_text_chain_at_300_docs(monkeypatch):
             assert pacc == jacc and pacc > 0.9
     finally:
         set_default_mesh(None)
-
-
-# -- the examples -------------------------------------------------------------
-
-EXAMPLES = (
-    "agglomerative_clustering", "count_vectorizer", "feature_hasher",
-    "feature_ops", "hashingtf", "idf", "imputer", "index_to_string",
-    "kbins_discretizer", "minhash_lsh", "ngram", "one_hot_encoder",
-    "online_kmeans", "online_standard_scaler", "random_splitter",
-    "regex_tokenizer", "sparse_text_pipeline", "sql_transformer",
-    "stop_words_remover", "string_indexer", "swing", "tokenizer",
-    "vector_indexer")
-#: OnlineKMeans's centroids: float32 batch partials against float64 ones
-CENTROID_RTOL, CENTROID_ATOL = 1e-5, 1e-6
-
-
-def _example_main(name, port):
-    """The example's ``main``, its imports mapped onto the port when
-    ``port`` (the examples themselves are the JAX package's)."""
-    import pathlib
-    import re
-    import types
-
-    path = pathlib.Path(__file__).resolve().parent.parent / "examples" / \
-        f"{name}_example.py"
-    src = path.read_text()
-    if port:
-        src = re.sub(r"\bflink_ml_tpu\b(?!_torch)", "flink_ml_tpu_torch", src)
-    module = types.ModuleType(f"example_{name}_{'port' if port else 'jax'}")
-    module.__file__ = str(path)
-    exec(compile(src, str(path), "exec"), module.__dict__)
-    return module.main
-
-
-def _host_values(col):
-    if isinstance(col, torch.Tensor):
-        return col.numpy()
-    if getattr(col, "is_csr_vector_column", False):
-        return col.to_csr().toarray()
-    col = np.asarray(col) if not isinstance(col, np.ndarray) else col
-    if col.dtype == object:
-        return [str(np.asarray(v.to_array() if hasattr(v, "to_array")
-                               else v).tolist()) for v in col]
-    return col
-
-
-@pytest.mark.parametrize("name", EXAMPLES)
-def test_examples_run_on_the_port_as_on_jax(monkeypatch, capsys, name):
-    """Each example of the text, discrete and misc ops, OnlineKMeans,
-    OnlineStandardScaler, AgglomerativeClustering and Swing, its imports
-    mapped onto the port and its stages on the CPU, returns what it returns
-    on the JAX package: the same columns, token, index and "item,score"
-    values equal, floats within rtol 1e-6 (float32 device outputs against
-    float64 host ones), centroids within CENTROID_RTOL/ATOL."""
-    import jax
-
-    from flink_ml_tpu.models import online as jax_online
-    from flink_ml_tpu.parallel import create_mesh, set_default_mesh
-    from flink_ml_tpu_torch import device as port_device
-
-    monkeypatch.setattr(port_device, "default_device",
-                        lambda: torch.device("cpu"))
-    monkeypatch.setattr(jax_online, "_ftrl_sparse_broken", False)
-    set_default_mesh(create_mesh(devices=jax.devices()[:1]))
-    try:
-        want = _example_main(name, port=False)()
-    finally:
-        set_default_mesh(None)
-    got = _example_main(name, port=True)()
-    capsys.readouterr()
-    if hasattr(want, "column_names"):
-        assert got.column_names == want.column_names
-        for c in want.column_names:
-            g, w = _host_values(got.column(c)), _host_values(want.column(c))
-            if isinstance(w, list) or np.asarray(w).dtype.kind in "OUS":
-                assert list(map(str, g)) == list(map(str, w)), (name, c)
-            else:
-                np.testing.assert_allclose(
-                    np.asarray(g, np.float64), np.asarray(w, np.float64),
-                    rtol=TENSOR_RTOL, atol=1e-7, equal_nan=True)
-    elif hasattr(want, "coefficients"):
-        np.testing.assert_allclose(got.coefficients, want.coefficients,
-                                   rtol=CSR_RTOL, atol=CSR_ATOL)
-    elif hasattr(want, "centroids"):
-        assert type(got).__name__ == type(want).__name__, name
-        np.testing.assert_allclose(got.centroids, want.centroids,
-                                   rtol=CENTROID_RTOL, atol=CENTROID_ATOL)
-        np.testing.assert_allclose(got.weights, want.weights,
-                                   rtol=CENTROID_RTOL, atol=CENTROID_ATOL)
-    else:
-        assert type(got).__name__ == type(want).__name__, name
