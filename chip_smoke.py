@@ -396,7 +396,25 @@ Phases, each of which fails the run (no result line, nonzero exit):
     gather the same bits. Prints each fit's ms, attention ms and
     ``max_memory_allocated`` a rank, and the staged send/recv hops; every
     rank exits 0;
-22. print one ``{"kernels": [...]}`` line with every kernel's launches in
+22. feature columns over the mesh's data shards (``ops/columnar.py``,
+    ``parallel/collective.ShardedColumn``), with the counts at 0: at the
+    StandardScaler config's width (10,000,000 x 100, generated on the
+    card, seed 2) once with no mesh and once under an 8-shard default
+    mesh, (a) StandardScaler (withMean, withStd) → Normalizer → KMeans
+    (the KMeans config's params), fit and transform, and (b) StandardScaler
+    → LogisticRegression on the LR config's table and params: every
+    stage's output split over 8 shards; the scaler and normalizer outputs
+    bit-equal to the no-mesh run's on the same statistics; the scaler's
+    mean and std within FEATURE_MESH_STAT_RTOL; the scaler's fit launches
+    ``reduce_partials``; the KMeans and LR fits read the split column's
+    parts (their storage, spied at the kernel wrappers) and placing it for
+    them grows ``memory_allocated`` by under 1% of the column; the fits
+    against the no-mesh run's (given the same 8 shards): bit for bit on
+    the same statistics; on the run's own, LR within FEATURE_MESH_FIT_RTOL
+    and COEFF_ATOL, KMeans within CENTROID_ATOL and LABEL_AGREEMENT; prints
+    each stage's ms on 8 shards and with no mesh (line ``feature mesh:
+    {...}``);
+23. print one ``{"kernels": [...]}`` line with every kernel's launches in
     its main-path runs (in all and by path), error, times and bound, then
     the result line.
 
@@ -457,6 +475,14 @@ Tolerances (float32 throughout, TF32 off):
   MESH_PROC_RTOL (every sum there has two operands, so the bits are
   expected equal, and the line says whether they are); attention against
   full attention by MESH_PROC_ATT_ATOL (max-abs);
+- phase 22: the scaler's statistics on 8 shards (two passes, the shards'
+  sums added by ``reduce_partials``) against one ``var_mean`` pass by
+  FEATURE_MESH_STAT_RTOL; on the mesh run's own column (its statistics
+  differ from the reference's by that much) the LR fit by
+  FEATURE_MESH_FIT_RTOL and COEFF_ATOL, the KMeans fit by CENTROID_ATOL
+  and LABEL_AGREEMENT (a relative drift of 2e-7 in the scaled rows moves
+  a few labels of the structureless table, as summation order does in
+  phase 11); everything on the same statistics bit for bit;
 - phase 11: a fit on eight shards differs from the one-shard fit only in
   the order its sums are added (per shard, then across the shards), so
   it is held as the fits that add in another order are: the KMeans fit
@@ -551,6 +577,10 @@ PATH_KERNELS = {
     # the tensor-parallel LR fits over ranks (counted in the ranks): the
     # in-process part of a sum over an axis a rank holds two shards of
     "meshes_processes": ("reduce_partials",),
+    # the feature pipelines over 8 shards and with no mesh: the scaler's
+    # cross-shard sums, KMeans fit and transform, the LR fit
+    "feature_mesh": ("reduce_partials", "lloyd_partial_sums",
+                     "assign_nearest", "sgd_batch_terms"),
 }
 # phase 15's configs, run uncut through the runner
 FEATURE_CONFIGS = (
@@ -678,6 +708,8 @@ ELASTIC_KILL_AT = 2
 # (max-abs)
 MESH_PROC_RTOL = 1e-6
 MESH_PROC_ATT_ATOL = 1e-5
+FEATURE_MESH_STAT_RTOL = 1e-5
+FEATURE_MESH_FIT_RTOL = 1e-4
 SEQ_SHARDS_PROC = 4
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
@@ -5960,6 +5992,304 @@ def phase_meshes_over_processes(K, runner, card_line, device="cuda"):
     return counts
 
 
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _best_ms(fn, dev, reps=2):
+    """(result of the last run, best host ms of ``reps`` synchronized
+    runs)."""
+    best, out = None, None
+    for _ in range(reps):
+        out = None
+        _sync(dev)
+        start = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        ms = (time.perf_counter() - start) * 1e3
+        best = ms if best is None else min(best, ms)
+    return out, best
+
+
+def _launches_of(K, fn):
+    """(fn(), the launches it made by kernel)."""
+    before = dict(K.launch_counts)
+    out = fn()
+    return out, {k: v - before.get(k, 0) for k, v in K.launch_counts.items()
+                 if v - before.get(k, 0)}
+
+
+def _parts_read(K, names):
+    """Patch kernel wrappers ``names`` to record the storage pointer of the
+    rows each launch reads; → (records by name, undo)."""
+    seen = {name: [] for name in names}
+    real = {name: getattr(K, name) for name in names}
+
+    def spy(name):
+        def wrapped(x, *args, **kwargs):
+            seen[name].append(x.data_ptr())
+            return real[name](x, *args, **kwargs)
+        return wrapped
+
+    for name in names:
+        setattr(K, name, spy(name))
+
+    def undo():
+        for name, fn in real.items():
+            setattr(K, name, fn)
+
+    return seen, undo
+
+
+def _placement_growth(C, mesh, col, dev):
+    """Bytes ``memory_allocated`` grew by across ``ensure_on_mesh`` of a
+    split column for ``mesh``, and whether the parts came back as they
+    are (0 and True on the CPU's allocator-free count)."""
+    _sync(dev)
+    before = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    rows = C.ensure_on_mesh(mesh, col)
+    _sync(dev)
+    after = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    same = rows.parts is col.parts and all(
+        a.data_ptr() == b.data_ptr() for a, b in zip(rows.parts, col.parts))
+    return after - before, same
+
+
+def phase_feature_mesh(K, runner, card_line, device="cuda", rows=None):
+    """Phase 22: feature columns placed over the mesh's data shards, with
+    the counts at 0. At the StandardScaler config's width (10,000,000 x
+    100 float32, generated on the card, seed 2; ``rows`` cuts it for a
+    rehearsal), once with no mesh and once under an 8-shard default mesh:
+    (a) StandardScaler (withMean, withStd) → Normalizer → KMeans (the
+    KMeans config's params), fit and transform; (b) StandardScaler →
+    LogisticRegression on the LR config's table and params. Every stage's
+    output is split over the 8 shards; the elementwise outputs are bit-equal
+    to the no-mesh run's given the same statistics; the scaler's mean and
+    std within FEATURE_MESH_STAT_RTOL; the fits take the split column's
+    parts as they are (the kernels read the parts' storage, placement grows
+    the card's memory by under 1% of the column) and agree with the no-mesh
+    run's fits, whose estimators get an 8-shard mesh of their own so that
+    both add the same shards' sums (SGD on one shard would also take other
+    rows each round): bit for bit on the column made with the no-mesh
+    statistics; on the mesh run's own, whose statistics differ by float32
+    rounding, the LR fit within FEATURE_MESH_FIT_RTOL and COEFF_ATOL and
+    the KMeans fit as phase 11 holds 8 shards against one (CENTROID_ATOL,
+    LABEL_AGREEMENT: on the structureless table that rounding moves a few
+    labels), its FEATURE_MESH_FIT_RTOL reported.
+    Prints each stage's ms on 8 shards against no mesh (host clock,
+    synchronized, best of two)."""
+    from flink_ml_tpu_torch import Table
+    from flink_ml_tpu_torch.models.feature import Normalizer, StandardScaler
+    from flink_ml_tpu_torch.parallel import collective as C
+    from flink_ml_tpu_torch.parallel import create_mesh, set_default_mesh
+
+    log("phase 22: feature mesh: scaler, normalizer, KMeans and LR stages "
+        "on columns split over 8 shards against no mesh")
+    started = time.perf_counter()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    K.reset_launch_counts()
+    summary = {"card": card_line, "ms": {}}
+
+    def spec_of(path, key):
+        spec = runner.load_config(str(path))[key]
+        if rows is not None:
+            spec = json.loads(json.dumps(spec))
+            spec["inputData"]["paramMap"]["numValues"] = rows
+        return spec
+
+    ss_spec = spec_of(CONFIGS / "standardscaler-benchmark.json",
+                      "standardscaler10000000")
+    km_spec = spec_of(CONFIG, "KMeans")
+    lr_spec = spec_of(LINEAR_CONFIGS["logisticregression"],
+                      "logisticregression")
+    eight = create_mesh((8,), devices=[dev] * 8)
+
+    def scaler():
+        return StandardScaler(device=dev, input_col="input",
+                              output_col="scaled", with_mean=True,
+                              with_std=True)
+
+    def kmeans(mesh):
+        est = runner.build_stage(km_spec, dev, mesh)
+        est.set_features_col("normalized")
+        return est
+
+    def logistic(mesh):
+        est = runner.build_stage(lr_spec, dev, mesh)
+        est.set_features_col("scaled")
+        return est
+
+    def pipeline_a(tag, fit_mesh):
+        ms = summary["ms"].setdefault(tag, {})
+        table = runner.build_generator(ss_spec, dev).get_data()
+        model, ms["scaler_fit"] = _best_ms(lambda: scaler().fit(table), dev)
+        scaled, ms["scaler_transform"] = _best_ms(
+            lambda: model.transform(table)[0], dev)
+        norm, ms["normalizer"] = _best_ms(
+            lambda: Normalizer(device=dev, input_col="scaled",
+                               output_col="normalized").transform(scaled)[0],
+            dev)
+        km, ms["kmeans_fit"] = _best_ms(
+            lambda: kmeans(fit_mesh).fit(norm), dev)
+        pred, ms["kmeans_transform"] = _best_ms(
+            lambda: km.transform(norm)[0], dev)
+        return table, model, scaled, norm, km, pred
+
+    # -- (a), no mesh: the reference run
+    set_default_mesh(None)
+    table0, sc0, scaled0, norm0, km0, pred0 = pipeline_a("none", eight)
+    n = table0.num_rows
+    col_bytes = n * table0.column("input").shape[1] * 4
+    del table0
+    # -- (a), under the 8-shard default mesh
+    set_default_mesh(eight)
+    try:
+        seen, undo = _parts_read(K, ("lloyd_partial_sums",))
+        try:
+            (table1, sc1, scaled1, norm1, km1, pred1), launched = \
+                _launches_of(K, lambda: pipeline_a("eight", None))
+        finally:
+            undo()
+        _, fit_launched = _launches_of(K, lambda: scaler().fit(table1))
+        assert fit_launched.get("reduce_partials", 0) >= (2 if on_card
+                                                          else 0), \
+            fit_launched
+        for name, col in (("input", table1.column("input")),
+                          ("scaled", scaled1.column("scaled")),
+                          ("normalized", norm1.column("normalized")),
+                          ("prediction", pred1.column("prediction"))):
+            assert isinstance(col, C.ShardedColumn) and col.mesh is eight \
+                and len(col.parts) == 8 and len(col) == n, (name, col)
+        for stat in ("mean", "std"):
+            got, want = getattr(sc1, stat), getattr(sc0, stat)
+            err = float(np.max(np.abs(got - want) / np.maximum(
+                np.abs(want), 1e-30)))
+            summary[f"scaler_{stat}_max_rel_diff"] = err
+            assert err <= FEATURE_MESH_STAT_RTOL, (stat, err)
+        # the elementwise stages on the same statistics: bit for bit
+        same_scaled = sc0.transform(table1)[0]
+        same_norm = Normalizer(device=dev, input_col="scaled",
+                               output_col="normalized").transform(
+                                   same_scaled)[0]
+        bits = {}
+        for name, got, want in (
+                ("scaled", same_scaled.column("scaled"),
+                 scaled0.column("scaled")),
+                ("normalized", same_norm.column("normalized"),
+                 norm0.column("normalized"))):
+            bits[name] = bool(all(torch.equal(p, want[s * got.rows.ls:
+                                                       s * got.rows.ls
+                                                       + p.shape[0]])
+                                  for s, p in enumerate(got.parts)))
+            assert bits[name], name
+        summary["elementwise_bit_equal"] = bits
+        del same_scaled
+        # the fit reads the parts as they are: no copy
+        norm_col = norm1.column("normalized")
+        ptrs = {p.data_ptr() for p in norm_col.parts}
+        assert seen["lloyd_partial_sums"] and set(
+            seen["lloyd_partial_sums"]) <= ptrs, "KMeans read a copy"
+        grew, same = _placement_growth(C, eight, norm_col, dev)
+        assert same and grew < 0.01 * col_bytes, (grew, same)
+        summary["kmeans_placement_growth_bytes"] = grew
+        # fits against the reference: the same-statistics column bit for
+        # bit, the run's own within FEATURE_MESH_FIT_RTOL
+        same_km = kmeans(None).fit(same_norm)
+        summary["kmeans_same_stats_bit_equal"] = bool(np.array_equal(
+            same_km.centroids, km0.centroids))
+        assert summary["kmeans_same_stats_bit_equal"]
+        rel = float(np.max(np.abs(km1.centroids - km0.centroids)
+                           / np.maximum(np.abs(km0.centroids), 1e-30)))
+        agree = float(np.mean(np.asarray(pred1.column("prediction"))
+                              == pred0.column("prediction").cpu().numpy()))
+        summary["kmeans_centroid_max_rel_diff"] = rel
+        summary["kmeans_centroid_max_abs_diff"] = float(
+            np.max(np.abs(km1.centroids - km0.centroids)))
+        summary["kmeans_label_agreement"] = agree
+        # reported, not gated: on the structureless table the drift of the
+        # run's own statistics moves a few labels (phase 11's KMeans gate)
+        summary["kmeans_within_fit_rtol"] = bool(np.all(
+            np.abs(km1.centroids - km0.centroids)
+            <= FEATURE_MESH_FIT_RTOL * np.abs(km0.centroids) + COEFF_ATOL))
+        assert summary["kmeans_centroid_max_abs_diff"] <= CENTROID_ATOL \
+            and agree >= LABEL_AGREEMENT, summary
+        summary["launches_a"] = launched
+        del (table1, scaled1, norm1, pred1, same_norm, same_km, norm_col,
+             scaled0, norm0, pred0)
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # -- (b) StandardScaler → LogisticRegression
+        def pipeline_b(tag, fit_mesh):
+            ms = summary["ms"].setdefault(tag, {})
+            table = runner.build_generator(lr_spec, dev).get_data()
+            est = StandardScaler(device=dev, input_col="features",
+                                 output_col="scaled", with_mean=True,
+                                 with_std=True)
+            model, ms["lr_scaler_fit"] = _best_ms(lambda: est.fit(table),
+                                                  dev)
+            scaled, ms["lr_scaler_transform"] = _best_ms(
+                lambda: model.transform(table)[0], dev)
+            lr, ms["lr_fit"] = _best_ms(
+                lambda: logistic(fit_mesh).fit(scaled), dev)
+            return table, scaled, model, lr
+
+        set_default_mesh(None)
+        table0, scaled0, lsc0, lr0 = pipeline_b("none", eight)
+        coef0 = np.asarray(lr0.coefficients)
+        del table0, scaled0
+        if on_card:
+            torch.cuda.empty_cache()
+        set_default_mesh(eight)
+        seen, undo = _parts_read(K, ("sgd_batch_terms",))
+        try:
+            (table1, scaled1, lsc1, lr1), launched = _launches_of(
+                K, lambda: pipeline_b("eight", None))
+        finally:
+            undo()
+        col = scaled1.column("scaled")
+        assert isinstance(col, C.ShardedColumn) and len(col.parts) == 8
+        # each round reads a window of a part: its pointer lies in a part
+        spans = [(p.data_ptr(), p.data_ptr() + p.numel() * 4)
+                 for p in col.parts]
+        assert seen["sgd_batch_terms"] and all(
+            any(lo <= q < hi for lo, hi in spans)
+            for q in seen["sgd_batch_terms"]), "LR read a copy"
+        grew, same = _placement_growth(C, eight, col, dev)
+        assert same and grew < 0.01 * col_bytes, (grew, same)
+        summary["lr_placement_growth_bytes"] = grew
+        coef1 = np.asarray(lr1.coefficients)
+        lr_rel = float(np.max(np.abs(coef1 - coef0)
+                              / np.maximum(np.abs(coef0), 1e-30)))
+        summary["lr_coef_max_rel_diff"] = lr_rel
+        summary["lr_coef_max_abs_diff"] = float(np.max(np.abs(coef1 - coef0)))
+        assert np.all(np.abs(coef1 - coef0) <= FEATURE_MESH_FIT_RTOL
+                      * np.abs(coef0) + COEFF_ATOL), lr_rel
+        del scaled1, col
+        # on the no-mesh statistics: the split fit bit for bit
+        same = lsc0.transform(table1)[0]
+        same_lr = logistic(None).fit(same)
+        summary["lr_same_stats_bit_equal"] = bool(np.array_equal(
+            np.asarray(same_lr.coefficients), coef0))
+        assert summary["lr_same_stats_bit_equal"]
+        summary["launches_b"] = launched
+        del table1, same
+    finally:
+        set_default_mesh(None)
+    if on_card:
+        torch.cuda.empty_cache()
+    counts = dict(K.launch_counts)
+    if on_card:
+        for kern in PATH_KERNELS["feature_mesh"]:
+            assert counts[kern] >= 1, (kern, counts)
+    summary["launches"] = {k: v for k, v in counts.items() if v}
+    summary["seconds"] = time.perf_counter() - started
+    log("  feature mesh:", json.dumps(summary, sort_keys=True, default=str))
+    return counts
+
+
 def _serving_group():
     from flink_ml_tpu_torch.common.metrics import metrics
 
@@ -6017,8 +6347,9 @@ def main() -> int:
     phase_static_checks(card, keep)
     counts["meshes_processes"] = phase_meshes_over_processes(K, runner,
                                                              card)
+    counts["feature_mesh"] = phase_feature_mesh(K, runner, card)
 
-    # step 22: the kernels line
+    # step 23: the kernels line
     line = {"kernels": [
         {"name": name, **{key: K.KERNELS[name][key]
                           for key in ("route", "source", "replaces")},

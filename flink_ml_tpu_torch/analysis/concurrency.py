@@ -253,6 +253,12 @@ def class_infos(ctx: FileContext) -> List[ClassInfo]:
 
 
 # -- lock-order analysis (TL110 machinery) -----------------------------------
+def iter_self_accesses(info: ClassInfo) -> Iterator[Access]:
+    """The ``self.<attr>`` reads and writes :func:`class_infos` recorded
+    for one class, in source order."""
+    yield from info.accesses
+
+
 def _qualify(lock_name: str, ctx: FileContext,
              node: ast.AST) -> Optional[str]:
     """File-scope identity for a lock name: ``self.X`` becomes

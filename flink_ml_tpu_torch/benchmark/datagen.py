@@ -15,7 +15,11 @@ it is generated on the generator's device (by default the CUDA card) with a
 ``torch.Generator`` seeded from ``seed`` (one stream per column): float32,
 uniform in [0, 1), never crossing the host link. Those numbers are torch's,
 not ``jax.random``'s: the two packages draw different large tables from the
-same seed. The string generators stay on the host at every size and draw
+same seed. Under a default mesh of several shards a device table is split
+over the local mesh's shards (``ops/columnar.py``), as the JAX package
+generates it sharded over its default mesh: drawn as one tensor on the
+shards' device, with the values it has without a mesh, and split into row
+views of it. The string generators stay on the host at every size and draw
 the JAX package's numbers: their columns are fixed-width ``<U`` numpy
 arrays (an ``(n, arraySize)`` token matrix for the array generator), the
 form the text transformers' vectorized paths consume.
@@ -29,6 +33,8 @@ import torch
 from flink_ml_tpu_torch.common.functions import narrow_uint
 from flink_ml_tpu_torch.common.table import Table, as_dense_vector_column
 from flink_ml_tpu_torch.device import DeviceLike, resolve_device
+from flink_ml_tpu_torch.parallel import collective as C
+from flink_ml_tpu_torch.parallel.mesh import column_mesh
 from flink_ml_tpu_torch.params.param import (
     ArrayArrayParam,
     IntParam,
@@ -62,6 +68,24 @@ def resolve_generator(class_name: str):
     except KeyError:
         raise ValueError(f"unknown data generator {class_name!r}; "
                          f"known: {sorted(_GENERATORS)}")
+
+
+def _gen_device(device: DeviceLike) -> torch.device:
+    """Where a device table is drawn: the column mesh's first local shard
+    under a default mesh, else ``device`` (default: the card)."""
+    mesh = column_mesh()
+    if mesh is None:
+        return resolve_device(device)
+    return mesh.devices[mesh.local_shards[0]]
+
+
+def _placed(columns: dict) -> dict:
+    """Generated tensor columns split over the column mesh when it has
+    several shards (row views, no copy); as they are otherwise."""
+    mesh = column_mesh()
+    if mesh is None or mesh.size == 1:
+        return columns
+    return {name: C.split_column(mesh, t) for name, t in columns.items()}
 
 
 class InputTableGenerator(HasSeed):
@@ -110,10 +134,10 @@ class DenseVectorGenerator(InputTableGenerator, HasVectorDim):
         (name,) = self._col_names()
         n, d = self.num_values, self.vector_dim
         if n * d * 4 >= _DEVICE_DATAGEN_MIN_BYTES:
-            device = resolve_device(self._device)
+            device = _gen_device(self._device)
             values = torch.rand((n, d), generator=self._torch_generator(device),
                                 dtype=torch.float32, device=device)
-            return Table.from_columns(**{name: values})
+            return Table.from_columns(**_placed({name: values}))
         values = self._rng().random((n, d), dtype=np.float64)
         # raw (n, d) array IS a vector column — no per-row objects
         return Table.from_columns(**{name: values})
@@ -136,17 +160,17 @@ class LabeledPointWithWeightGenerator(InputTableGenerator, HasVectorDim):
         n, d = self.num_values, self.vector_dim
         f_name, l_name, w_name = self._col_names()
         if n * (d + 2) * 4 >= _DEVICE_DATAGEN_MIN_BYTES:
-            device = resolve_device(self._device)
+            device = _gen_device(self._device)
 
             def column(shape, arity, stream):
                 u = torch.rand(shape, dtype=torch.float32, device=device,
                                generator=self._torch_generator(device, stream))
                 return torch.floor_(u.mul_(arity)) if arity else u
 
-            return Table.from_columns(**{
+            return Table.from_columns(**_placed({
                 f_name: column((n, d), self.feature_arity, 0),
                 l_name: column((n,), self.label_arity, 1),
-                w_name: column((n,), 0, 2)})
+                w_name: column((n,), 0, 2)}))
         # the JAX package's host order: features, then label, then weight
         rng = self._rng()
 
@@ -179,15 +203,15 @@ class DoubleGenerator(InputTableGenerator):
         names = self._col_names()
         n = self.num_values
         if n * len(names) * 4 >= _DEVICE_DATAGEN_MIN_BYTES:
-            device = resolve_device(self._device)
+            device = _gen_device(self._device)
 
             def column(stream):
                 u = torch.rand((n,), dtype=torch.float32, device=device,
                                generator=self._torch_generator(device, stream))
                 return torch.floor_(u.mul_(arity)) if arity else u
 
-            return Table.from_columns(**{
-                name: column(stream) for stream, name in enumerate(names)})
+            return Table.from_columns(**_placed({
+                name: column(stream) for stream, name in enumerate(names)}))
         rng = self._rng()
         if arity > 0:
             cols = {name: rng.integers(0, arity, n).astype(np.float64)
@@ -200,6 +224,24 @@ class DoubleGenerator(InputTableGenerator):
 class HasArraySize(WithParams):
     ARRAY_SIZE = IntParam("arraySize", "Size of generated arrays.", 1,
                           ParamValidators.gt(0))
+
+
+@_register
+class DenseVectorArrayGenerator(InputTableGenerator, HasVectorDim,
+                                HasArraySize):
+    """Each row an array of arraySize uniform [0,1) dense vectors of
+    vectorDim dims (ref: DenseVectorArrayGenerator.java): a host object
+    column of lists of DenseVectors, drawn from numpy's stream row by row
+    as the JAX package draws it."""
+
+    def get_data(self) -> Table:
+        rng = self._rng()
+        (name,) = self._col_names()
+        col = np.empty(self.num_values, dtype=object)
+        for i in range(self.num_values):
+            col[i] = list(as_dense_vector_column(
+                rng.random((self.array_size, self.vector_dim))))
+        return Table.from_columns(**{name: col})
 
 
 class HasNumDistinctValues(WithParams):

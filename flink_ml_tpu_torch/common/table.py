@@ -4,7 +4,13 @@ The port of ``flink_ml_tpu/common/table.py``. A column is a host numpy array
 (numeric, or an object column of vectors), a CSR-backed sparse vector column
 (``linalg/sparse.py``), or a ``torch.Tensor`` — a device column, kept as it
 is so that chained stages hand tensors to each other without a round trip
-through the host. CSV files take the native all-numeric parser
+through the host, or a split column (``parallel.collective.ShardedColumn``:
+the rows split over a mesh's shards, which the feature stages give under a
+default mesh of several shards). Every read of a split column gives what
+the one tensor it stands for gives: ``take`` and ``concat`` keep it split
+over its mesh, ``vectors`` keeps it as it is at its dtype, and the host
+reads (``rows``, ``to_dict``, ``scalars``, ``np.asarray``) copy it to the
+host once. CSV files take the native all-numeric parser
 (``native.csv_parse_numeric``) first, and are parsed per column (float64
 or object) when a cell is not numeric.
 """
@@ -30,6 +36,12 @@ def _is_device_column(values) -> bool:
     return isinstance(values, torch.Tensor)
 
 
+def _is_sharded_column(values) -> bool:
+    """A ShardedColumn (``parallel/collective.py``), duck-typed so that
+    this module needs no parallel layer."""
+    return getattr(values, "is_sharded_column", False)
+
+
 def _is_csr_column(values) -> bool:
     """A CsrVectorColumn (``linalg/sparse.py``), duck-typed so that this
     module needs no scipy."""
@@ -41,7 +53,7 @@ def _as_column(values):
     IS a vector column (row i = vector i), which avoids materializing n
     DenseVector objects for large tables."""
     if (isinstance(values, np.ndarray) or _is_device_column(values)
-            or _is_csr_column(values)):
+            or _is_csr_column(values) or _is_sharded_column(values)):
         return values
     values = list(values)
     if values and isinstance(values[0], Vector):
@@ -69,7 +81,10 @@ def _as_column(values):
 
 def _take_rows(col, indices):
     """Rows ``indices`` (a host array, or an int64 tensor) of one column: a
-    tensor column gathers on its device, a host column on the host."""
+    tensor column gathers on its device, a host column on the host, a split
+    column on its shards' device and stays split."""
+    if _is_sharded_column(col):
+        return col.take(indices)
     if _is_device_column(col):
         return col[torch.as_tensor(indices, dtype=torch.int64,
                                    device=col.device)]
@@ -79,6 +94,10 @@ def _take_rows(col, indices):
 
 
 def _concat_columns(a, b):
+    if _is_sharded_column(a):
+        return a.concat(b)
+    if _is_sharded_column(b):
+        return b.concat_after(a)
     if _is_csr_column(a):
         return a.concat(b)
     if _is_csr_column(b):
@@ -236,6 +255,11 @@ class Table:
         col = self.column(name)
         if _is_csr_column(col):
             return col.to_dense(dtype)
+        if _is_sharded_column(col):
+            if col.dtype == _TORCH_DTYPES.get(np.dtype(dtype)):
+                return col if col.ndim == 2 else col.as_vectors()
+            arr = np.asarray(col).astype(dtype)
+            return arr[:, None] if arr.ndim == 1 else arr
         if _is_device_column(col):
             if col.dtype == _TORCH_DTYPES.get(np.dtype(dtype)):
                 return col if col.ndim == 2 else col[:, None]
@@ -281,7 +305,8 @@ class Table:
         if isinstance(indices, slice):
             start, stop, step = indices.indices(self._num_rows)
             if step == 1:
-                return Table({n: c[start:stop]
+                return Table({n: (c.take(slice(start, stop))
+                                  if _is_sharded_column(c) else c[start:stop])
                               for n, c in self._columns.items()})
             indices = np.arange(start, stop, step)
         if not isinstance(indices, torch.Tensor):
@@ -312,6 +337,8 @@ class Table:
         col = self._columns[name]
         if _is_csr_column(col):
             return col.to_object_column()
+        if _is_sharded_column(col):
+            return np.asarray(col)
         return col.cpu().numpy() if _is_device_column(col) else col
 
     def rows(self) -> List[tuple]:

@@ -4,13 +4,27 @@ The port of ``flink_ml_tpu/linalg/distance.py`` (ref:
 flink-ml-servable-core/.../common/distance/DistanceMeasure.java and its
 Euclidean/Manhattan/Cosine implementations). Every measure provides a
 batched ``pairwise(X, C) -> (n, k)`` on torch tensors, computed on the
-tensors' device with the same formulas as the JAX package. These are plain
-PyTorch: the fused euclidean assignment lives in ``ops/kernels.py``.
+tensors' device with the same formulas as the JAX package, and the
+reference's per-point host calls ``distance`` and ``find_closest`` (float64
+on the CPU). These are plain PyTorch: the fused euclidean assignment lives
+in ``ops/kernels.py``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from flink_ml_tpu_torch.linalg.vectors import Vector, VectorWithNorm
+
+
+def _host_row(v) -> torch.Tensor:
+    """A vector (a Vector, a VectorWithNorm or an array) as a float64 CPU
+    row."""
+    if isinstance(v, VectorWithNorm):
+        v = v.vector
+    arr = v.to_array() if isinstance(v, Vector) else np.asarray(v)
+    return torch.as_tensor(np.asarray(arr, np.float64))
 
 
 class DistanceMeasure:
@@ -32,6 +46,20 @@ class DistanceMeasure:
             raise ValueError(f"Unknown distance measure {name!r}; "
                              f"choose from {sorted(DistanceMeasure._registry)}")
 
+    # -- host scalar path (servable parity) ---------------------------------
+    def distance(self, a, b) -> float:
+        """The distance of two vectors (ref: DistanceMeasure.distance)."""
+        return float(self.pairwise(_host_row(a)[None, :],
+                                   _host_row(b)[None, :])[0, 0])
+
+    def find_closest(self, centroids, point) -> int:
+        """Index of the closest centroid, the first on ties (ref:
+        DistanceMeasure.findClosest)."""
+        c = torch.stack([_host_row(x) for x in centroids])
+        return int(torch.argmin(self.pairwise(_host_row(point)[None, :],
+                                              c)[0]))
+
+    # -- batched device path ------------------------------------------------
     def pairwise(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         """(n, d), (k, d) → (n, k) distances, on the inputs' device."""
         raise NotImplementedError

@@ -23,7 +23,7 @@ import torch
 
 from flink_ml_tpu_torch.api.stage import Estimator, Model
 from flink_ml_tpu_torch.common.table import Table
-from flink_ml_tpu_torch.ops import kernels
+from flink_ml_tpu_torch.ops import columnar, kernels
 from flink_ml_tpu_torch.params.param import IntParam, ParamValidators
 from flink_ml_tpu_torch.params.shared import (
     HasFeaturesCol,
@@ -58,6 +58,27 @@ def _vote(idx: torch.Tensor, label_idx: torch.Tensor,
     return torch.argmax(votes, dim=1)
 
 
+def _knn_predict(x, train, label_idx, classes, k: int):
+    """The (n,) float64 predicted labels of the rows ``x``: the k nearest
+    train rows' majority vote."""
+    x = x.to(torch.float32).contiguous()
+    train = train.contiguous()
+    n, n_train = x.shape[0], train.shape[0]
+    k = min(k, n_train)
+    if x.device.type == "cuda":
+        # fused distance + top-k over the whole batch
+        chunk, topk = max(n, 1), kernels.knn_topk_indices
+    else:
+        # memory-bounded: no (chunk, n_train) block past _MAX_DIST_ELEMS
+        chunk = max(1, _MAX_DIST_ELEMS // max(n_train, 1))
+        topk = kernels.knn_topk_indices_plain
+    parts = [_vote(topk(x[s:s + chunk], train, k), label_idx, len(classes))
+             for s in range(0, n, chunk)]
+    pred_idx = (torch.cat(parts) if parts
+                else torch.zeros(0, dtype=torch.int64, device=x.device))
+    return classes[pred_idx]
+
+
 class KnnModel(Model, KnnModelParams):
     def __init__(self, features: Optional[np.ndarray] = None,
                  labels: Optional[np.ndarray] = None, **kwargs):
@@ -71,32 +92,20 @@ class KnnModel(Model, KnnModelParams):
         model's device."""
         if self.features is None:
             raise ValueError("KnnModel has no model data")
-        device = self.device
-        x = torch.as_tensor(table.vectors(self.features_col),
-                            dtype=torch.float32, device=device).contiguous()
-        train = torch.as_tensor(self.features, dtype=torch.float32,
-                                device=device).contiguous()
         classes, label_idx = np.unique(self.labels, return_inverse=True)
-        label_idx = torch.as_tensor(label_idx.reshape(-1), device=device)
-        n, n_train = x.shape[0], train.shape[0]
-        k = min(self.k, n_train)
-
-        on_card = device.type == "cuda"
-        if on_card:
-            # fused distance + top-k over the whole batch
-            chunk, topk = max(n, 1), kernels.knn_topk_indices
-        else:
-            # memory-bounded: no (chunk, n_train) block past _MAX_DIST_ELEMS
-            chunk = max(1, _MAX_DIST_ELEMS // max(n_train, 1))
-            topk = kernels.knn_topk_indices_plain
-        parts = [_vote(topk(x[s:s + chunk], train, k), label_idx, len(classes))
-                 for s in range(0, n, chunk)]
-        pred_idx = (torch.cat(parts) if parts
-                    else torch.zeros(0, dtype=torch.int64, device=device))
+        # where the feature column goes (ops/columnar.py): one tensor on
+        # this model's device, or once a shard of a split column, the
+        # predictions split alike; the train rows on each shard's device
+        pred = columnar.apply(
+            _knn_predict, table.vectors(self.features_col),
+            (torch.as_tensor(self.features, dtype=torch.float32),
+             torch.as_tensor(label_idx.reshape(-1)),
+             torch.as_tensor(classes, dtype=torch.float64)),
+            (int(self.k),), self.device)
         # benchmark provenance (runner.py executionPath)
-        self.last_execution_path = "cuda-knn" if on_card else "torch-knn"
-        pred = torch.as_tensor(classes, dtype=torch.float64, device=device)
-        return (table.with_column(self.prediction_col, pred[pred_idx]),)
+        self.last_execution_path = ("cuda-knn" if pred.device.type == "cuda"
+                                    else "torch-knn")
+        return (table.with_column(self.prediction_col, pred),)
 
     def set_model_data(self, model_data: Table):
         self.features = model_data.vectors("packedFeatures", np.float64)

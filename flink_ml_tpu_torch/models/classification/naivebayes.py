@@ -70,8 +70,8 @@ class NaiveBayesModel(Model, NaiveBayesModelParams):
             raise ValueError("NaiveBayesModel has no model data")
         if columnar.is_device_array(table.column(self.features_col)):
             x = columnar.input_vectors(table, self.features_col, self.device)
-            return (table.with_column(self.prediction_col,
-                                      self._predict_device(x)),)
+            return (table.with_column(self.prediction_col, columnar.apply(
+                self._predict_device, x, (), (), self.device)),)
         x = table.vectors(self.features_col, np.float64)
         n, d = x.shape
         num_labels = len(self.labels)
@@ -162,6 +162,15 @@ def _integral_bounds_kernel(x, y):
                         both_int.to(x.dtype)])
 
 
+def _neg_bounds_kernel(x, y):
+    lo, x_hi, y_hi, integral = _integral_bounds_kernel(x, y)
+    return torch.stack([-lo, x_hi, y_hi, -integral])
+
+
+def _cast_kernel(y, dtype):
+    return y.to(dtype)
+
+
 def _category_counts_kernel(x, y, d, L, V):
     """(d·L·V,) count vector in ONE device bincount: flat key
     (dim·L + label)·V + value over the (n, d) grid."""
@@ -203,8 +212,15 @@ class NaiveBayes(Estimator, NaiveBayesParams):
         when the data does not qualify (non-integral / negative /
         too-wide value range)."""
         n, d = x.shape
-        lo, x_hi, y_hi, integral = _integral_bounds_kernel(x, y) \
-            .cpu().numpy().astype(np.float64)
+        if columnar.is_sharded(x):
+            # per shard that holds rows: [-min, max x, max y, -integral],
+            # the shards' extremes combined exactly
+            neg_lo, x_hi, y_hi, neg_int = columnar.max_over_shards(
+                _neg_bounds_kernel, [x, y]).cpu().numpy().astype(np.float64)
+            lo, integral = -neg_lo, -neg_int
+        else:
+            lo, x_hi, y_hi, integral = _integral_bounds_kernel(x, y) \
+                .cpu().numpy().astype(np.float64)
         if not integral or lo < 0 or max(x_hi, y_hi) + 1 > \
                 _MAX_DEVICE_ARITY:
             return None
@@ -213,8 +229,13 @@ class NaiveBayes(Estimator, NaiveBayesParams):
             return None
         # labels/values 0..max may be sparse: count every candidate, then
         # keep the ones actually present
-        counts = _category_counts_kernel(x, y, d, L, V).cpu().numpy() \
-            .astype(np.float64).reshape(d, L, V)  # (dim, label, value)
+        if columnar.is_sharded(x):
+            counts = columnar.sum_over_shards(
+                _category_counts_kernel, [x, y], (), (d, L, V))
+        else:
+            counts = _category_counts_kernel(x, y, d, L, V)
+        counts = counts.cpu().numpy().astype(np.float64).reshape(
+            d, L, V)  # (dim, label, value)
         label_totals = counts[0].sum(axis=1)  # per-label doc counts
         present = np.nonzero(label_totals > 0)[0]
         labels = present.astype(np.float64)
@@ -254,12 +275,19 @@ class NaiveBayes(Estimator, NaiveBayesParams):
         xd, xp = columnar.fit_vectors(table, self.features_col)
         if xp is torch:
             # a tensor column is counted on its device; a host label
-            # column joins it there
-            y = columnar.input_scalars(table, self.label_col, xd.device)
-            y = y.to(xd.dtype)
+            # column joins it there (split alike a split column)
+            if columnar.is_sharded(xd):
+                y = columnar.to_device(columnar.input_scalars(
+                    table, self.label_col, xd.device), xd.mesh)
+                y = columnar.map_split(_cast_kernel, y, (), (xd.dtype,))
+            else:
+                y = columnar.input_scalars(table, self.label_col, xd.device)
+                y = y.to(xd.dtype)
             model = self._fit_device(xd, y)
-            return model if model is not None else \
-                self._fit_device_unique(xd, y)
+            if model is not None:
+                return model
+            return self._fit_device_unique(columnar.joined(xd),
+                                           columnar.joined(y))
         x = xd
         y = table.scalars(self.label_col, np.float64)
         n, d = x.shape

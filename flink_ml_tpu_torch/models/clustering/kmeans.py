@@ -53,7 +53,7 @@ from flink_ml_tpu_torch.linalg.distance import DistanceMeasure
 from flink_ml_tpu_torch.models.common import IterationRuntimeMixin
 from flink_ml_tpu_torch.observability import health as _health
 from flink_ml_tpu_torch.observability import meshstats, tracing
-from flink_ml_tpu_torch.ops import kernels
+from flink_ml_tpu_torch.ops import columnar, kernels
 from flink_ml_tpu_torch.parallel import collective as C
 from flink_ml_tpu_torch.parallel import update_sharding as _upd
 from flink_ml_tpu_torch.parallel.mesh import Mesh
@@ -81,10 +81,18 @@ class KMeansParams(KMeansModelParams, HasSeed, HasMaxIter):
         ParamValidators.in_array("random"))
 
 
-def _on_device(x, device: torch.device) -> torch.Tensor:
-    """Features as a contiguous float32 tensor on ``device``: host arrays are
-    placed once; a tensor already there is used as it is."""
-    return torch.as_tensor(x, dtype=torch.float32, device=device).contiguous()
+def _assign_kernel(x, c, fused: bool, measure: str):
+    """(n,) int64 nearest-centroid labels of the float32 rows ``x``: the
+    fused distance + argmin kernel (no (n, k) distances in device memory),
+    or the measure's distances and an argmin."""
+    x = x.to(torch.float32).contiguous()
+    c = c.to(torch.float32).contiguous()
+    if fused:
+        labels = kernels.assign_nearest(x, c)
+    else:
+        labels = torch.argmin(
+            DistanceMeasure.get_instance(measure).pairwise(x, c), dim=1)
+    return labels.to(torch.int64)
 
 
 def _measure_partials(measure: DistanceMeasure) -> Partials:
@@ -155,7 +163,9 @@ def initial_centroids(x, k: int, seed: int,
     idx = rng.choice(n, size=min(k, n), replace=False)
     if len(idx) < k:
         idx = np.resize(idx, k)
-    if isinstance(x, torch.Tensor):
+    if isinstance(x, C.ShardedColumn):
+        rows = x.select_rows(idx)
+    elif isinstance(x, torch.Tensor):
         rows = x[torch.as_tensor(idx, device=x.device)]
     else:
         rows = torch.as_tensor(np.asarray(x)[idx])
@@ -177,20 +187,21 @@ class KMeansModel(Model, KMeansModelParams):
         if self.centroids is None:
             raise ValueError("KMeansModel has no model data")
         device = self.device
-        x = _on_device(table.vectors(self.features_col), device)
-        c = _on_device(self.centroids, device)
-        if (self.distance_measure == "euclidean"
-                and kernels.assign_kernel_fits(c.shape[0], c.shape[1])):
-            # fused distance + argmin: no (n, k) distances in device memory
-            labels = kernels.assign_nearest(x, c)
-            path = "cuda-assign" if device.type == "cuda" else "torch-assign"
-        else:
-            measure = DistanceMeasure.get_instance(self.distance_measure)
-            labels = torch.argmin(measure.pairwise(x, c), dim=1)
-            path = "torch-assign"
+        k, d = np.shape(self.centroids)
+        fused = (self.distance_measure == "euclidean"
+                 and kernels.assign_kernel_fits(k, d))
+        # where the feature column goes (ops/columnar.py): one tensor on
+        # this model's device, or once a shard of a split column, the
+        # labels split alike
+        labels = columnar.apply(
+            _assign_kernel, table.vectors(self.features_col),
+            (np.asarray(self.centroids),),
+            (fused, self.distance_measure), device)
         # benchmark provenance (runner.py executionPath)
-        self.last_execution_path = path
-        return (table.with_column(self.prediction_col, labels.to(torch.int64)),)
+        self.last_execution_path = (
+            "cuda-assign" if fused and labels.device.type == "cuda"
+            else "torch-assign")
+        return (table.with_column(self.prediction_col, labels),)
 
     # -- model data (ref: KMeansModelData = centroids[] + weights) ----------
     def set_model_data(self, model_data: Table):

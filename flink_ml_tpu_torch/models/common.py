@@ -22,9 +22,10 @@ import numpy as np
 import torch
 
 from flink_ml_tpu_torch.api.stage import Estimator, Model
-from flink_ml_tpu_torch.common.table import Table
+from flink_ml_tpu_torch.common.table import Table, as_dense_vector_column
 from flink_ml_tpu_torch.linalg import sparse
 from flink_ml_tpu_torch.linalg.vectors import DenseVector
+from flink_ml_tpu_torch.ops import columnar
 from flink_ml_tpu_torch.ops.losses import LossFunc
 from flink_ml_tpu_torch.ops.optimizer import SGD, SGDParams
 from flink_ml_tpu_torch.params.shared import (
@@ -83,10 +84,11 @@ class IterationRuntimeMixin:
 
 
 def scalar_column(table: Table, name: str):
-    """A scalar column: a tensor column as it is, on its device (a device
-    label column never goes to the host); a host column as float32 numpy."""
+    """A scalar column: a tensor or split column as it is, on its device
+    (a device label column never goes to the host); a host column as
+    float32 numpy."""
     col = table.column(name)
-    return col if isinstance(col, torch.Tensor) else table.scalars(name)
+    return col if columnar.is_device_array(col) else table.scalars(name)
 
 
 def extract_labeled_points(stage, table: Table):
@@ -115,18 +117,36 @@ def to_host(a):
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else a
 
 
+def _dots_kernel(x, c):
+    return x.to(torch.float32) @ c
+
+
 def predict_dots(x, coefficients, device: torch.device):
     """Margins ``x @ coefficients`` (ref LogisticRegressionModelServable.java
-    :106 dot). A dense batch gives a float32 tensor on ``device``: one plain
-    matrix-vector product, as the JAX package leaves it to XLA. A scipy CSR
-    batch stays a host matvec and gives a float64 numpy array (ref BLAS.hDot,
-    sparse branch)."""
+    :106 dot). A dense batch goes through the columnar path
+    (``ops/columnar.py``): the rows placed where the feature columns go
+    (on ``device``, or split over the local mesh's shards under a default
+    mesh), the coefficients replicated, one plain float32 matrix-vector
+    product a shard, as the JAX package leaves it to XLA; the margins are
+    a tensor or a split column. A scipy CSR batch stays a host matvec and
+    gives a float64 numpy array (ref BLAS.hDot, sparse branch)."""
     if sparse.is_csr(x):
         return np.asarray(x @ np.asarray(coefficients, np.float64))
-    xd = torch.as_tensor(x, dtype=torch.float32, device=device)
-    cd = torch.as_tensor(np.asarray(coefficients), dtype=torch.float32,
-                         device=device)
-    return xd @ cd
+    return columnar.apply(_dots_kernel, x, (np.asarray(coefficients),), (),
+                          device)
+
+
+def prediction_output(table: Table, name: str, values) -> Table:
+    """``table`` with the prediction column ``name`` (the JAX package's
+    helper)."""
+    return table.with_column(name, values)
+
+
+def raw_prediction_vectors(pairs: np.ndarray) -> np.ndarray:
+    """(n, k) float array → object column of DenseVectors for
+    rawPrediction: the row-oriented off-ramp of the servable path (the
+    batch transform keeps rawPrediction an (n, k) tensor column)."""
+    return as_dense_vector_column(np.asarray(pairs, np.float64))
 
 
 def _capture_drift_baseline(estimator, model, x) -> None:
@@ -224,7 +244,8 @@ class LinearModelBase(Model, LinearTrainParams):
         if self.coefficients is None:
             raise ValueError(f"{type(self).__name__} has no model data")
         x = sparse.features_matrix(table, self.features_col)
-        return (table.with_columns(**self._predict_columns(self._dots(x))),)
+        return (table.with_columns(**columnar.apply(
+            self._predict_columns, self._dots(x), (), (), self.device)),)
 
     def _dots(self, x) -> torch.Tensor:
         """The (n,) float32 margins of dense or CSR rows, on this model's

@@ -26,6 +26,7 @@ import torch
 from flink_ml_tpu_torch.api.stage import AlgoOperator
 from flink_ml_tpu_torch.common.table import Table
 from flink_ml_tpu_torch.linalg.vectors import Vector
+from flink_ml_tpu_torch.ops import columnar
 from flink_ml_tpu_torch.params.param import ParamValidators, StringArrayParam
 from flink_ml_tpu_torch.params.shared import (
     HasLabelCol,
@@ -138,7 +139,7 @@ class BinaryClassificationEvaluator(AlgoOperator, HasLabelCol,
                                    AREA_UNDER_LORENZ))
 
     def _scores(self, table: Table):
-        col = table.column(self.raw_prediction_col)
+        col = columnar.joined(table.column(self.raw_prediction_col))
         if isinstance(col, torch.Tensor):
             return col[:, -1] if col.ndim == 2 else col
         if col.dtype == object:
@@ -153,11 +154,11 @@ class BinaryClassificationEvaluator(AlgoOperator, HasLabelCol,
 
     def transform(self, table: Table) -> Tuple[Table]:
         scores = self._scores(table)
-        labels = table.column(self.label_col)
+        labels = columnar.joined(table.column(self.label_col))
         n = len(scores)
         if n == 0:
             raise ValueError("empty input")
-        weights = (table.column(self.weight_col)
+        weights = (columnar.joined(table.column(self.weight_col))
                    if self.weight_col is not None and self.weight_col in table
                    else None)
         if isinstance(scores, torch.Tensor) or \

@@ -22,6 +22,7 @@ import torch
 
 from flink_ml_tpu_torch.api.stage import Estimator, Model
 from flink_ml_tpu_torch.common.table import Table
+from flink_ml_tpu_torch.ops import columnar
 from flink_ml_tpu_torch.params.param import (
     BooleanParam,
     IntParam,
@@ -39,9 +40,9 @@ from flink_ml_tpu_torch.utils import io as rw
 
 
 def _host_column(col):
-    """A column as a host array (a tensor column's one host copy)."""
-    return col.detach().cpu().numpy() if isinstance(col, torch.Tensor) \
-        else col
+    """A column as a host array (a tensor or split column's one host
+    copy)."""
+    return columnar.to_host(col) if columnar.is_device_array(col) else col
 
 
 # ---------------------------------------------------------------------------
@@ -385,18 +386,9 @@ class KBinsDiscretizerModel(Model, KBinsDiscretizerModelParams):
         if self.bin_edges is None:
             raise ValueError("KBinsDiscretizerModel has no model data")
         raw = table.column(self.input_col)
-        if isinstance(raw, torch.Tensor):
-            # on the column's device: each value widens to float64 (exact)
-            # and is placed among the float64 interior edges, as the host
-            # path places it; bin ids are exact in float32
-            x = raw if raw.ndim == 2 else raw[:, None]
-            out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-            for j, edges in enumerate(self.bin_edges):
-                inner = torch.as_tensor(edges[1:-1], dtype=torch.float64,
-                                        device=x.device)
-                out[:, j] = torch.searchsorted(
-                    inner, x[:, j].to(torch.float64).contiguous(),
-                    right=True).to(torch.float32)
+        if columnar.is_device_array(raw):
+            out = columnar.apply(_kbins_kernel, raw, (), (self.bin_edges,),
+                                 raw.device)
             return (table.with_column(self.output_col, out),)
         x = table.vectors(self.input_col, np.float64)
         out = np.empty_like(x)
@@ -426,13 +418,26 @@ class KBinsDiscretizerModel(Model, KBinsDiscretizerModelParams):
                           rw.load_model_json(path, "model")["binEdges"]]
 
 
+def _kbins_kernel(x, bin_edges):
+    """Bin ids on the column's device: each value widens to float64
+    (exact) and is placed among the float64 interior edges, as the host
+    path places it; bin ids are exact in float32."""
+    x = x if x.ndim == 2 else x[:, None]
+    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    for j, edges in enumerate(bin_edges):
+        inner = torch.as_tensor(edges[1:-1], dtype=torch.float64,
+                                device=x.device)
+        out[:, j] = torch.searchsorted(
+            inner, x[:, j].to(torch.float64).contiguous(),
+            right=True).to(torch.float32)
+    return out
+
+
 class KBinsDiscretizer(Estimator, KBinsDiscretizerParams):
     """Per-dimension binning by uniform width / quantiles / 1-D k-means
     (ref: KBinsDiscretizer.java; fit on at most subSamples rows)."""
 
     def fit(self, table: Table) -> KBinsDiscretizerModel:
-        from flink_ml_tpu_torch.ops import columnar
-
         raw = table.column(self.input_col)
         if columnar.is_device_array(raw):
             # slice before the host off-ramp: only subSamples rows leave
@@ -508,50 +513,34 @@ class VectorIndexerModel(Model, VectorIndexerModelParams):
         if self.category_maps is None:
             raise ValueError("VectorIndexerModel has no model data")
         raw = table.column(self.input_col)
-        on_device = isinstance(raw, torch.Tensor)
-        if on_device:
-            x = (raw if raw.ndim == 2 else raw[:, None]).clone()
-            invalid_any = torch.zeros(x.shape[0], dtype=torch.bool,
-                                      device=x.device)
+        items = [(dim, _sorted_map(mapping))
+                 for dim, mapping in self.category_maps.items()]
+        if columnar.is_device_array(raw):
+            x, invalid = columnar.apply(_index_kernel, raw, (), (items,),
+                                        raw.device)
+            invalid_any = columnar.joined(invalid)
         else:
             x = table.vectors(self.input_col, np.float64).copy()
             invalid_any = np.zeros(x.shape[0], bool)
-        for dim, mapping in self.category_maps.items():
-            # NaN keys (which never match) sort last, as searchsorted
-            # expects
-            items = sorted(mapping.items(),
-                           key=lambda kv: (np.isnan(kv[0]), kv[0]))
-            keys = np.asarray([kv[0] for kv in items], np.float64)
-            ids = np.asarray([kv[1] for kv in items], np.float64)
-            if on_device:
-                col = x[:, dim].to(torch.float64)
-                keys_t = torch.as_tensor(keys, device=x.device)
-                pos = torch.searchsorted(keys_t, col).clamp_(
-                    max=max(len(keys) - 1, 0))
-                hit = (keys_t[pos] == col) if len(keys) else \
-                    torch.zeros_like(col, dtype=torch.bool)
-                new = torch.where(hit, torch.as_tensor(
-                    ids, device=x.device)[pos] if len(keys) else col,
-                    float(len(mapping)))
-                x[:, dim] = new.to(x.dtype)
-            else:
+            for dim, (keys, ids, size) in items:
                 col = x[:, dim]
                 pos = np.minimum(np.searchsorted(keys, col),
                                  max(len(keys) - 1, 0))
                 hit = (keys[pos] == col) if len(keys) else \
                     np.zeros(len(col), bool)
                 x[:, dim] = np.where(hit, ids[pos] if len(keys) else col,
-                                     float(len(mapping)))
-            invalid_any |= ~hit
+                                     float(size))
+                invalid_any |= ~hit
         if bool(invalid_any.any()):
             if self.handle_invalid == self.ERROR_INVALID:
                 raise ValueError("unseen categorical values encountered "
                                  "(handleInvalid=error)")
             if self.handle_invalid == self.SKIP_INVALID:
-                if on_device:
+                if isinstance(invalid_any, torch.Tensor):
                     keep = torch.nonzero(~invalid_any).squeeze(1)
-                else:
-                    keep = np.nonzero(~invalid_any)[0]
+                    return (table.take(keep).with_column(
+                        self.output_col, columnar.take_rows(x, keep)),)
+                keep = np.nonzero(~invalid_any)[0]
                 return (table.take(keep).with_column(self.output_col,
                                                      x[keep]),)
         return (table.with_column(self.output_col, x),)
@@ -580,6 +569,33 @@ class VectorIndexerModel(Model, VectorIndexerModelParams):
             for d, m in raw.items()}
 
 
+def _sorted_map(mapping):
+    """A category map as (sorted keys, their ids, size) float64 arrays;
+    NaN keys (which never match) sort last, as searchsorted expects."""
+    items = sorted(mapping.items(), key=lambda kv: (np.isnan(kv[0]), kv[0]))
+    return (np.asarray([kv[0] for kv in items], np.float64),
+            np.asarray([kv[1] for kv in items], np.float64), len(mapping))
+
+
+def _index_kernel(raw, items):
+    """VectorIndexer on the column's device → (indexed copy, each row's
+    unseen flag): an unseen value (NaN included) takes the keep bucket."""
+    x = (raw if raw.ndim == 2 else raw[:, None]).clone()
+    invalid_any = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    for dim, (keys, ids, size) in items:
+        col = x[:, dim].to(torch.float64)
+        keys_t = torch.as_tensor(keys, device=x.device)
+        pos = torch.searchsorted(keys_t, col).clamp_(
+            max=max(len(keys) - 1, 0))
+        hit = (keys_t[pos] == col) if len(keys) else \
+            torch.zeros_like(col, dtype=torch.bool)
+        new = torch.where(hit, torch.as_tensor(
+            ids, device=x.device)[pos] if len(keys) else col, float(size))
+        x[:, dim] = new.to(x.dtype)
+        invalid_any |= ~hit
+    return x, invalid_any
+
+
 def _distinct_per_dim(x: torch.Tensor, k: int):
     """The categorical-discovery pass on the column's device: each
     dimension sorted, its changes marked (equal neighbours are one value,
@@ -600,8 +616,6 @@ def _distinct_per_dim(x: torch.Tensor, k: int):
 
 class VectorIndexer(Estimator, VectorIndexerParams):
     def fit(self, table: Table) -> VectorIndexerModel:
-        from flink_ml_tpu_torch.ops import columnar
-
         x, xp = columnar.fit_vectors(table, self.input_col)
         k = self.max_categories
         maps = {}
@@ -622,7 +636,7 @@ class VectorIndexer(Estimator, VectorIndexerParams):
                 # directly; dims with non-finite or fractional values
                 # re-fit from one shared host copy so NaN/inf and
                 # fractional keys get exact np.unique semantics.
-                sub = columnar.take_dims(x, possible)
+                sub = columnar.joined(columnar.take_dims(x, possible))
                 counts, nonfinite, cand = _distinct_per_dim(sub, k)
                 sub_h = None
                 for j, dim in enumerate(possible):

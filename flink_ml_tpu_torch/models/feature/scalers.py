@@ -18,8 +18,13 @@ applies an affine map through ``ops/columnar.py``.
 The fit statistics follow the column: a host column gives float64 numpy
 statistics by the reference's formulas, a tensor column float32
 statistics computed where it lives (one pass each: ``var_mean``,
-``aminmax``; RobustScaler's rank selection is exact on both). A CSR column
-keeps its O(nnz) branches.
+``aminmax``; RobustScaler's rank selection is exact on both). A column
+split over a mesh's shards (``ops/columnar.py``) gives per-shard partials
+combined across the shards: two passes for the mean and the centered sum
+of squares, each a ``reduce_partials`` of the shards' sums, and the
+shards' extremes (exact); RobustScaler gathers the column onto the first
+shard's device and selects there, with the same bits. A CSR column keeps
+its O(nnz) branches.
 """
 
 from __future__ import annotations
@@ -169,6 +174,26 @@ def _mean_varsum_kernel(x):
     return torch.stack([mean, var * x.shape[0]])
 
 
+def _sum_kernel(x):
+    return x.sum(dim=0)
+
+
+def _centered_sq_kernel(x, mean):
+    centered = x - mean
+    return (centered * centered).sum(dim=0)
+
+
+def mean_varsum(x) -> torch.Tensor:
+    """(2, d): per-dimension mean and centered sum of squares of a tensor
+    (one ``var_mean`` pass) or of a split column (two passes over its
+    shards, the shards' sums added by ``collective.all_reduce_sum``)."""
+    if not columnar.is_sharded(x):
+        return _mean_varsum_kernel(x)
+    mean = columnar.sum_over_shards(_sum_kernel, [x]) / max(x.shape[0], 1)
+    varsum = columnar.sum_over_shards(_centered_sq_kernel, [x], (mean,))
+    return torch.stack([mean, varsum])
+
+
 def mean_and_std(table, input_col):
     """Per-dimension (mean, unbiased std): on the tensor's device for a
     tensor column; the float64 host branch keeps the reference's exact
@@ -188,7 +213,7 @@ def mean_and_std(table, input_col):
     x, xp = columnar.fit_vectors(table, input_col)
     n = x.shape[0]
     if xp is torch:
-        stats = _stat_to_host(_mean_varsum_kernel(x))
+        stats = _stat_to_host(mean_varsum(x))
         mean, varsum = stats[0], stats[1]
         std = (np.sqrt(varsum / (n - 1)) if n > 1
                else np.zeros_like(mean))
@@ -241,6 +266,19 @@ def _minmax_kernel(x):
     return torch.stack([lo, hi])
 
 
+def _neg_min_max_kernel(x):
+    lo, hi = torch.aminmax(x, dim=0)
+    return torch.stack([-lo, hi])
+
+
+def min_max(x) -> torch.Tensor:
+    """(2, d) per-dimension min and max of a tensor or a split column."""
+    if not columnar.is_sharded(x):
+        return _minmax_kernel(x)
+    neg_lo, hi = columnar.max_over_shards(_neg_min_max_kernel, [x])
+    return torch.stack([-neg_lo, hi])
+
+
 class MinMaxScaler(Estimator, MinMaxScalerParams):
     def fit(self, table: Table) -> MinMaxScalerModel:
         col = table.column(self.input_col)
@@ -254,7 +292,7 @@ class MinMaxScaler(Estimator, MinMaxScalerParams):
             return self.copy_params_to(model)
         x, xp = columnar.fit_vectors(table, self.input_col)
         if xp is torch:
-            lo, hi = _stat_to_host(_minmax_kernel(x))
+            lo, hi = _stat_to_host(min_max(x))
         else:
             lo, hi = x.min(axis=0), x.max(axis=0)
         model = MinMaxScalerModel(data_min=lo, data_max=hi,
@@ -307,8 +345,13 @@ class MaxAbsScaler(Estimator, MaxAbsScalerParams):
             return self.copy_params_to(
                 MaxAbsScalerModel(max_abs=max_abs, device=self._device))
         x, xp = columnar.fit_vectors(table, self.input_col)
-        max_abs = (_stat_to_host(_maxabs_kernel(x)) if xp is torch
-                   else np.abs(x).max(axis=0))
+        if xp is not torch:
+            max_abs = np.abs(x).max(axis=0)
+        elif columnar.is_sharded(x):
+            max_abs = _stat_to_host(
+                columnar.max_over_shards(_maxabs_kernel, [x]))
+        else:
+            max_abs = _stat_to_host(_maxabs_kernel(x))
         model = MaxAbsScalerModel(max_abs=max_abs, device=self._device)
         return self.copy_params_to(model)
 

@@ -17,7 +17,7 @@ import torch
 from flink_ml_tpu_torch.api.stage import Estimator, Model
 from flink_ml_tpu_torch.common.table import Table
 from flink_ml_tpu_torch.linalg import sparse as sp_mod
-from flink_ml_tpu_torch.models.feature.scalers import _mean_varsum_kernel
+from flink_ml_tpu_torch.models.feature.scalers import mean_varsum
 from flink_ml_tpu_torch.models.feature.vectorops import _gather_cols_kernel
 from flink_ml_tpu_torch.ops import columnar
 from flink_ml_tpu_torch.ops.stats import anova_f_test, chi_square_test, f_value_test
@@ -149,7 +149,7 @@ class UnivariateFeatureSelector(Estimator, UnivariateFeatureSelectorParams):
         # contingency counts too), and a label tensor stays there
         x, _ = columnar.fit_vectors(table, self.features_col)
         y = table.column(self.label_col)
-        if not isinstance(y, torch.Tensor):
+        if not columnar.is_device_array(y):
             y = np.asarray(y)
         if ftype == self.CATEGORICAL and ltype == self.CATEGORICAL:
             _, p_values, _ = chi_square_test(x, y)
@@ -157,7 +157,8 @@ class UnivariateFeatureSelector(Estimator, UnivariateFeatureSelectorParams):
             _, p_values, _ = anova_f_test(x, y)
         elif ftype == self.CONTINUOUS and ltype == self.CONTINUOUS:
             _, p_values, _ = f_value_test(
-                x, y if isinstance(y, torch.Tensor) else y.astype(np.float64))
+                x, y if columnar.is_device_array(y)
+                else y.astype(np.float64))
         else:
             raise ValueError(
                 f"unsupported featureType={ftype!r} labelType={ltype!r}")
@@ -233,7 +234,8 @@ class VarianceThresholdSelector(Estimator, VarianceThresholdSelectorParams):
                 indices=indices, device=self._device))
 
         # a stable variance on both paths (two-pass on the host, one
-        # Welford pass on the device; the host Σx²−n·mean² form belongs to
+        # Welford pass on the device, two passes over a split column's
+        # shards; the host Σx²−n·mean² form belongs to
         # StandardScaler's reference-formula parity only); a tensor column
         # stays on its device
         x, xp = columnar.fit_vectors(table, self.input_col)
@@ -242,7 +244,7 @@ class VarianceThresholdSelector(Estimator, VarianceThresholdSelectorParams):
             variances = x.var(axis=0, ddof=1) if n > 1 \
                 else np.zeros(x.shape[1])
         else:
-            varsum = _mean_varsum_kernel(x)[1].cpu().numpy().astype(
+            varsum = mean_varsum(x)[1].cpu().numpy().astype(
                 np.float64)
             variances = varsum / (n - 1) if n > 1 else np.zeros(x.shape[1])
         indices = np.nonzero(variances > self.variance_threshold)[0]

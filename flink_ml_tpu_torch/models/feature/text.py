@@ -1313,6 +1313,10 @@ class IDFModel(Model, IDFModelParams):
         self.num_docs = int(arrays["numDocs"][0])
 
 
+def _doc_freq_kernel(x):
+    return (x != 0).sum(dim=0)
+
+
 class IDF(Estimator, IDFParams):
     """Inverse document frequency: idf = log((m+1)/(df+1)); dims with
     df < minDocFreq get idf 0 (ref: feature/idf/IDF.java)."""
@@ -1333,8 +1337,11 @@ class IDF(Estimator, IDFParams):
 
             x, xp = columnar.fit_vectors(table, self.input_col)
             m = x.shape[0]
-            if xp is not np:  # a tensor column: df where it lives
-                df = (x != 0).sum(dim=0).cpu().numpy().astype(np.float64)
+            if columnar.is_sharded(x):  # per shard, summed across them
+                df = columnar.sum_over_shards(_doc_freq_kernel, [x]) \
+                    .cpu().numpy().astype(np.float64)
+            elif xp is not np:  # a tensor column: df where it lives
+                df = _doc_freq_kernel(x).cpu().numpy().astype(np.float64)
             else:
                 df = (x != 0).sum(axis=0)
         idf = np.log((m + 1.0) / (df + 1.0))

@@ -3,9 +3,10 @@
 The port of ``flink_ml_tpu/models/feature/vectorops.py`` (ref: flink-ml-lib
 feature/{normalizer,elementwiseproduct,polynomialexpansion,dct,interaction,
 vectorassembler,vectorslicer,binarizer,bucketizer}/): record-wise transforms
-in the reference, here one torch function per op over the whole column on
-the stage's device (``ops/columnar.py``), the output left a tensor for the
-next stage. CSR columns keep their O(nnz) host branches.
+in the reference, here one torch function per op over the column where
+``ops/columnar.py`` places it (the stage's device, or once per shard of a
+column split over a default mesh), the output left a tensor or a split
+column for the next stage. CSR columns keep their O(nnz) host branches.
 
 Two ops go further than the JAX package on tensor columns, so that a column
 on the card never goes to the host: VectorAssembler concatenates tensor
@@ -210,7 +211,8 @@ class DCT(Transformer, HasInputCol, HasOutputCol):
 def _interaction_kernel(*mats):
     out = mats[0]
     for m in mats[1:]:
-        out = (out[:, :, None] * m[:, None, :]).reshape(out.shape[0], -1)
+        out = (out[:, :, None] * m[:, None, :]).reshape(
+            out.shape[0], out.shape[1] * m.shape[1])
     return out
 
 
@@ -253,7 +255,7 @@ class Interaction(Transformer, HasInputCols, HasOutputCol):
         for name in self.input_cols:
             col = table.column(name)
             if columnar.is_device_array(col):
-                mats.append(col if col.ndim == 2 else col[:, None])
+                mats.append(columnar.as_matrix(col))
             elif col.dtype == object or col.ndim == 2:
                 mats.append(table.vectors(name, np.float32))
             else:
@@ -284,8 +286,9 @@ class Interaction(Transformer, HasInputCols, HasOutputCol):
 
 
 def _assemble_kernel(*cols):
-    """Tensor columns side by side, and each row's NaN flag."""
-    out = torch.cat([c if c.ndim == 2 else c[:, None] for c in cols], dim=1)
+    """Tensor columns side by side as float32, and each row's NaN flag."""
+    out = torch.cat([(c if c.ndim == 2 else c[:, None]).to(torch.float32)
+                     for c in cols], dim=1)
     return out, torch.isnan(out).any(dim=1)
 
 
@@ -398,18 +401,20 @@ class VectorAssembler(Transformer, HasInputCols, HasOutputCol,
                     empty = table.take(slice(0, 0))
                     return (empty.with_column(self.output_col, torch.zeros(
                         (0, sum(sizes)), device=self.device)),)
-        out, invalid = columnar.apply_multi(
-            _assemble_kernel, [c.to(torch.float32) for c in cols],
-            device=self.device)
-        if self.handle_invalid == self.KEEP_INVALID or \
-                not bool(invalid.any()):
+        out, invalid = columnar.apply_multi(_assemble_kernel, cols,
+                                            device=self.device)
+        if self.handle_invalid == self.KEEP_INVALID:
+            return (table.with_column(self.output_col, out),)
+        invalid = columnar.joined(invalid)
+        if not bool(invalid.any()):
             return (table.with_column(self.output_col, out),)
         if self.handle_invalid == self.ERROR_INVALID:
             rows = torch.nonzero(invalid).flatten()[:5].tolist()
             raise ValueError(f"Encountered NaN while assembling rows "
                              f"{rows}... (handleInvalid=error)")
         keep = torch.nonzero(~invalid).flatten()
-        return (table.take(keep).with_column(self.output_col, out[keep]),)
+        return (table.take(keep).with_column(
+            self.output_col, columnar.take_rows(out, keep)),)
 
     def _assemble_sparse(self, table: Table, sparse_flags) -> Tuple[Table]:
         """Any sparse input → CSR output via block hstack, O(total nnz);
@@ -584,15 +589,16 @@ class Bucketizer(Transformer, HasInputCols, HasOutputCols, HasHandleInvalid):
             outs[out_name] = bucket
             invalids.append(invalid)
         if self.handle_invalid != self.KEEP_INVALID:
-            invalid_any = invalids[0]
+            invalid_any = columnar.joined(invalids[0])
             for inv in invalids[1:]:
-                invalid_any = invalid_any | inv
+                invalid_any = invalid_any | columnar.joined(inv)
             if bool(invalid_any.any()):
                 if self.handle_invalid == self.ERROR_INVALID:
                     raise ValueError(
                         "invalid values encountered in Bucketizer "
                         "(handleInvalid=error)")
                 keep = torch.nonzero(~invalid_any).flatten()
-                kept = {k: v[keep] for k, v in outs.items()}
+                kept = {k: columnar.take_rows(v, keep)
+                        for k, v in outs.items()}
                 return (table.take(keep).with_columns(**kept),)
         return (table.with_columns(**outs),)

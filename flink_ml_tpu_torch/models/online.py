@@ -839,8 +839,9 @@ class OnlineKMeans(Estimator, OnlineKMeansParams, IterationRuntimeMixin):
             path = "torch-lloyd-stream"
         ones = None
         for batch in _as_stream(data, self.global_batch_size):
-            x = torch.as_tensor(batch.vectors(self.features_col),
-                                dtype=torch.float32, device=device)
+            x = torch.as_tensor(
+                columnar.joined(batch.vectors(self.features_col)),
+                dtype=torch.float32, device=device)
             if ones is None or ones.shape[0] != x.shape[0]:
                 ones = torch.ones(x.shape[0], dtype=torch.float32,
                                   device=device)
@@ -952,7 +953,7 @@ def _window_sums(chunk: Table, col: str):
     """A window's per-column (Σx, Σx², rows), float64, where the column
     lives: a tensor column on its device (each value widened before it is
     squared, so each square is exact), a host column in numpy."""
-    raw = chunk.column(col)
+    raw = columnar.joined(chunk.column(col))
     if isinstance(raw, torch.Tensor):
         x = (raw if raw.ndim == 2 else raw[:, None]).to(torch.float64)
     else:

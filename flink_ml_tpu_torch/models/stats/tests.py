@@ -7,7 +7,8 @@ flatten=false emits a single row ("pValues" vector, "degreesOfFreedom",
 "statistics"); flatten=true emits one row per feature ("featureIndex",
 "pValue", "degreeOfFreedom", "statistic"). The numeric cores are
 ``ops/stats.py``: a host column is tested in float64 on the host, as the
-JAX package tests every column; a tensor column on its device.
+JAX package tests every column; a tensor column on its device, a split
+column per shard.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ class _StatTestBase(AlgoOperator, HasFeaturesCol, HasLabelCol, HasFlatten):
     def transform(self, table: Table) -> Tuple[Table]:
         x, _ = columnar.fit_vectors(table, self.features_col)
         y = table.column(self.label_col)
-        if not isinstance(y, torch.Tensor):
+        if not columnar.is_device_array(y):
             y = np.asarray(y)
         statistics, p_values, dofs = type(self)._test(x, y)
         if self.flatten:

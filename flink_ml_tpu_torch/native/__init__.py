@@ -31,7 +31,7 @@ import numpy as np
 from flink_ml_tpu_torch.ops import _build
 from flink_ml_tpu_torch.resilience import faults
 
-__all__ = ["factorize_i64", "doc_freq_i64", "rowwise_counts",
+__all__ = ["available", "factorize_i64", "doc_freq_i64", "rowwise_counts",
            "csv_parse_numeric", "swing_similarity", "native_threads",
            "FACTORIZE_UNIQ_CAP",
            "ROWWISE_DOMAIN_CAP", "NATIVE_THREADS_ENV"]
@@ -99,6 +99,18 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                        ctypes.c_int64, _I64P, _I64P, _I64P, ctypes.c_int64]
     return lib
+
+
+def available() -> bool:
+    """Whether the host library builds and loads here (a probe: the entry
+    points themselves raise ``KernelBuildError`` when it does not)."""
+    from flink_ml_tpu_torch.resilience.policy import KernelBuildError
+
+    try:
+        _lib()
+    except KernelBuildError:
+        return False
+    return True
 
 
 def _ptr(arr: np.ndarray):

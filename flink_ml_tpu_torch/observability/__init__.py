@@ -95,6 +95,8 @@ from flink_ml_tpu_torch.observability.profiling import (
     maybe_profile_fit,
     parse_profile_dir,
     profile_window,
+    provenance,
+    read_profile,
 )
 from flink_ml_tpu_torch.observability.slo import (
     SLO,
@@ -124,6 +126,8 @@ from flink_ml_tpu_torch.observability.tracing import (
 )
 
 __all__ = [
+    "provenance",
+    "read_profile",
     "INCIDENT_EVENT",
     "SKEW_EVENT",
     "analyze_paths",

@@ -634,6 +634,10 @@ def sample_rows(x, cap: Optional[int] = None):
     bounded work at fit end regardless of training-set size. Works on
     ndarray/jax arrays and CSR matrices alike."""
     cap = cap if cap is not None else _env_int(SAMPLE_ROWS_ENV, 4096)
+    if getattr(x, "is_sharded_column", False):
+        # a split column's leading rows as one tensor (a copy of those
+        # rows only)
+        return x.rows_range(0, cap)
     try:
         n = x.shape[0]
     except (AttributeError, IndexError):

@@ -861,5 +861,30 @@ def reset_boot() -> None:
         _boot_ready_ms = None
 
 
+# -- bench provenance ---------------------------------------------------------
+def provenance(trace_dir: Optional[str] = None) -> dict:
+    """A bench row's provenance: the hottest measured kernel's utilization
+    and achieved operations a second, from the trace dir's profile
+    (:func:`efficiency_report`). Never raises; every field is None without
+    a profile or on a ``host-fallback`` one (the CPU's honest answer)."""
+    out = {"profileSource": None, "utilization": None,
+           "achievedFlops": None}
+    try:
+        d = trace_dir or tracing.tracer.trace_dir
+        if not d:
+            return out
+        report = efficiency_report(d)
+        out["profileSource"] = report["source"]
+        rows = [r for r in report["fns"]
+                if r.get("utilization") is not None]
+        if rows:
+            top = max(rows, key=lambda r: r["deviceMs"])
+            out["utilization"] = top["utilization"]
+            out["achievedFlops"] = top["achievedFlops"]
+    except Exception:  # noqa: BLE001 — provenance must never sink a row
+        pass
+    return out
+
+
 if __name__ == "__main__":
     sys.exit(main())

@@ -402,6 +402,8 @@ class TPColumns:
         ``torch.distributed`` each local (data, model) block of a host
         array or tensor goes to the device on its own."""
         cols = cls(mesh, features.shape[1], [])
+        if isinstance(features, C.ShardedColumn) and mesh.distributed:
+            features = features.whole()
         if not mesh.distributed:
             x = C.ensure_on_mesh(mesh, features)
             for s, part in zip(mesh.local_shards, x.parts):
@@ -699,8 +701,10 @@ class SGD:
                  mesh=None) -> Tuple[np.ndarray, float]:
         """Returns (coeffs (d,) float64 np.ndarray, final mean loss float).
 
-        ``features`` (n, d), ``labels`` and ``weights`` (n,) are numpy arrays
-        or tensors; ``weights=None`` means ones. The rows are split over
+        ``features`` (n, d), ``labels`` and ``weights`` (n,) are numpy arrays,
+        tensors or split columns (``collective.ShardedColumn``: one split
+        as ``mesh`` splits rows is used as it is, another is split again on
+        the device); ``weights=None`` means ones. The rows are split over
         ``mesh`` (``parallel/mesh.py``; default :func:`resolve_mesh`: the
         default mesh when one was set, else one shard on ``device``, the
         CUDA card by default) as contiguous views: a tensor already on the
@@ -729,8 +733,10 @@ class SGD:
             return self.optimize_csr(loss_func, init_coeffs, features, labels,
                                      weights, device=device, config=config,
                                      listeners=listeners, tag=tag, mesh=mesh)
-        if not isinstance(features, (np.ndarray, torch.Tensor)):
-            raise TypeError("features must be a numpy array, a tensor or a "
+        if not isinstance(features, (np.ndarray, torch.Tensor,
+                                     C.ShardedColumn)):
+            raise TypeError("features must be a numpy array, a tensor, a "
+                            "split column or a "
                             f"scipy CSR matrix, got {type(features).__name__}")
         mesh = resolve_mesh(mesh, device)
         tp = None

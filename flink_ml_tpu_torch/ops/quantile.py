@@ -8,7 +8,9 @@ util/QuantileSummary.java:42, the Greenwald-Khanna summary behind the
 - :func:`approx_quantiles`: the batch path on the host, exact numpy
   quantiles with ``method='lower'`` (an exact answer meets any ε bound);
 - :func:`rank_select_device`: the same order statistics of a tensor, on
-  its device, by bisection on the bits of float32.
+  its device, from a sort of the order-preserving int32 keys of float32;
+  a column split over a mesh's shards is gathered onto its first shard's
+  device first (rank selection does not decompose over shards).
 """
 
 from __future__ import annotations
@@ -178,7 +180,14 @@ def rank_select_device(x, probs: Sequence[float]) -> torch.Tensor:
     as a sort-based quantile's ends would. The JAX package finds the same
     keys by 32 bisection rounds a rank; on an H100 at 10,000,000 × 100,
     three ranks, the rounds took 867 ms and the sort 97 ms
-    (``scripts/port_rank_select_ab.py``)."""
+    (``scripts/port_rank_select_ab.py``). A split column is gathered onto
+    its first shard's device (``collective.all_gather``) and selected
+    there, with the bits of the one-tensor column."""
+    if getattr(x, "is_sharded_column", False):
+        from flink_ml_tpu_torch.parallel import collective as C
+
+        dev = x.device
+        x = C.all_gather([p.to(dev) for p in x.parts], x.mesh)
     x = x if x.dtype == torch.float32 else x.to(torch.float32)
     n, d = int(x.shape[0]), int(x.shape[1])
     ranks = torch.as_tensor(

@@ -11,7 +11,11 @@ reduces on its own device, as the JAX package's device arrays do (ANOVA
 and F-value in two float32 passes); the chi-squared contingency tables are
 counted there too (the JAX package counts them on the host). Only (c, d)
 or (d,)-sized statistics cross to the host, where the F, χ² and p math
-runs in float64. A label tensor stays on its device.
+runs in float64. A label tensor stays on its device. A feature column
+split over a mesh's shards (``ops/columnar.py``) reduces per shard, the
+shards' partials added by ``collective.all_reduce_sum`` (ANOVA and
+F-value; the labels are split alike on the way); the chi-squared tables
+are counted over the joined column.
 """
 
 from __future__ import annotations
@@ -22,16 +26,18 @@ import numpy as np
 import torch
 from scipy import stats as sstats
 
+from flink_ml_tpu_torch.ops import columnar
+
 Arrays = Tuple[np.ndarray, np.ndarray, np.ndarray]
 
 
 def _is_device(x) -> bool:
-    return isinstance(x, torch.Tensor)
+    return columnar.is_device_array(x)
 
 
 def _labels_on(labels, device: torch.device) -> torch.Tensor:
-    if isinstance(labels, torch.Tensor):
-        return labels.to(device)
+    if columnar.is_device_array(labels):
+        return columnar.joined(labels).to(device)
     return torch.as_tensor(np.asarray(labels), device=device)
 
 
@@ -48,6 +54,7 @@ def chi_square_test(features, labels) -> Arrays:
     host."""
     stats_, ps, dofs = [], [], []
     if _is_device(features):
+        features = columnar.joined(features)
         y = _labels_on(labels, features.device)
         l_vals, l_idx = torch.unique(y, return_inverse=True)
         n_l = int(l_vals.shape[0])
@@ -77,6 +84,16 @@ def chi_square_test(features, labels) -> Arrays:
     return np.asarray(stats_), np.asarray(ps), np.asarray(dofs, np.int64)
 
 
+def _reduced(kernel, x, y, consts=(), static=()):
+    """``kernel(x, y, *consts, *static)`` over a tensor, or its per-shard
+    partials over a split ``x`` (``y`` split alike) added across the
+    shards."""
+    if not columnar.is_sharded(x):
+        return kernel(x, y, *consts, *static)
+    return columnar.sum_over_shards(
+        kernel, [x, columnar.to_device(y, x.mesh)], consts, static)
+
+
 def _group_sums_kernel(x, y, c):
     """(c, d+1): per class [count | feature sums], one one-hot product."""
     oh = torch.nn.functional.one_hot(y, c).to(x.dtype)  # (n, c)
@@ -101,14 +118,13 @@ def anova_f_test(features, labels) -> Arrays:
         y = _labels_on(labels, features.device)
         classes, y_idx = torch.unique(y, return_inverse=True)
         c = int(classes.shape[0])
-        packed = _group_sums_kernel(features, y_idx, c) \
+        packed = _reduced(_group_sums_kernel, features, y_idx, (), (c,)) \
             .cpu().numpy().astype(np.float64)
         counts, sums = packed[:, 0], packed[:, 1:]
         means = sums / np.maximum(counts[:, None], 1.0)
-        ssw = _group_ssw_kernel(
-            features, y_idx,
+        ssw = _reduced(_group_ssw_kernel, features, y_idx, (
             torch.as_tensor(means, dtype=features.dtype,
-                            device=features.device)
+                            device=features.device),)
         ).cpu().numpy().astype(np.float64)
         grand = sums.sum(axis=0) / n
         ssb = (counts[:, None] * (means - grand[None, :]) ** 2).sum(axis=0)
@@ -163,14 +179,14 @@ def f_value_test(features, labels) -> Arrays:
     if _is_device(features):
         n, d = features.shape
         y = _labels_on(labels, features.device).to(features.dtype)
-        sums = _sums_kernel(features, y).cpu().numpy().astype(np.float64)
+        sums = _reduced(_sums_kernel, features, y).cpu().numpy().astype(
+            np.float64)
         xmean, ymean = sums[:-1] / n, sums[-1] / n
-        packed = _centered_products_kernel(
-            features, y,
+        packed = _reduced(_centered_products_kernel, features, y, (
             torch.as_tensor(xmean, dtype=features.dtype,
                             device=features.device),
             torch.as_tensor(ymean, dtype=features.dtype,
-                            device=features.device),
+                            device=features.device)),
         ).cpu().numpy().astype(np.float64)
         sxy, sxx, syy = packed[0], packed[1], packed[2][0]
         dof = n - 2

@@ -58,7 +58,12 @@ mesh, not traffic the port measured.
 Placement (:func:`ensure_on_mesh`) never pads a tensor by copying it: shard
 ``s`` is the contiguous row view ``x[s*ls : min((s+1)*ls, n)]`` with ``ls =
 ceil(n / p)``, and the rows a padded last shard lacks are left to the window
-arithmetic of the fits.
+arithmetic of the fits. :class:`ShardedColumn` is such a split with the mesh
+it was made for: the feature layer's column under a default mesh of several
+shards (``ops/columnar.py``), which ``ensure_on_mesh`` gives back as it is
+to a fit whose mesh splits rows alike. :func:`shard_batch` and
+:func:`replicate` are the JAX package's placement calls over the same
+split (no padding) and one copy a device.
 
 Accounting, the JAX package's host-collective one (``_HostOp``): inside a
 traced call (a span open on the thread), each cross-shard primitive and
@@ -85,7 +90,7 @@ import torch
 from flink_ml_tpu_torch.common.metrics import ML_GROUP, metrics
 from flink_ml_tpu_torch.observability import meshstats, tracing
 from flink_ml_tpu_torch.ops import kernels
-from flink_ml_tpu_torch.parallel.mesh import Mesh
+from flink_ml_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
 
 #: byte-shaped histogram bounds for collective payloads (the default
 #: buckets are latency-shaped)
@@ -465,21 +470,39 @@ def _real_rows(n: int, ls: int, n_shards: int) -> List[int]:
     return [max(0, min(ls, n - s * ls)) for s in range(n_shards)]
 
 
+def same_split(a: Mesh, b: Mesh) -> bool:
+    """Whether two meshes split rows alike in this process: the same mesh,
+    or two in-process meshes with the same shards on the same devices (a
+    column split over one is split as the other would split it)."""
+    if a is b:
+        return True
+    return (not a.distributed and not b.distributed and a.size == b.size
+            and a.devices == b.devices)
+
+
 def ensure_on_mesh(mesh: Mesh, array, dtype=torch.float32) -> RowShards:
     """Place a host array or a tensor on the mesh, split by rows. A tensor
     already on the shards' device with ``dtype`` is viewed, not copied; a
     host array goes to the device once (under ``torch.distributed``, only
-    the rank's own rows)."""
+    the rank's own rows). A :class:`ShardedColumn` split as ``mesh`` splits
+    gives its parts as they are; one split otherwise is joined and split
+    again on the device, never through the host. ``dtype=None`` keeps the
+    input's."""
     if tracing.tracer.current() is None:
         return _ensure_on_mesh(mesh, array, dtype)
     nbytes = (array.numel() * array.element_size()
-              if isinstance(array, torch.Tensor)
+              if isinstance(array, (torch.Tensor, ShardedColumn))
               else int(getattr(array, "nbytes", 0)))
     with _HostOp("ensure_on_mesh", mesh, nbytes):
         return _ensure_on_mesh(mesh, array, dtype)
 
 
 def _ensure_on_mesh(mesh: Mesh, array, dtype) -> RowShards:
+    if isinstance(array, ShardedColumn):
+        if same_split(array.mesh, mesh) and (
+                dtype is None or array.dtype == dtype):
+            return array.rows
+        array = array.whole()
     n = int(array.shape[0])
     p = mesh.size
     if p == 1 and not mesh.distributed:
@@ -511,3 +534,272 @@ def ones_on_mesh(mesh: Mesh, n: int, dtype=torch.float32) -> RowShards:
              for s in mesh.local_shards]
     return RowShards(parts, int(n), ls, real)
 
+
+
+# -- split columns ------------------------------------------------------------
+
+def _contiguous_strides(shape) -> tuple:
+    strides, step = [], 1
+    for size in reversed(shape):
+        strides.append(step)
+        step *= max(int(size), 1)
+    return tuple(reversed(strides))
+
+
+def _joined_view(parts: Sequence[torch.Tensor], n: int):
+    """The one tensor that ``parts`` are consecutive row views of (the
+    placement of a whole tensor on one device), or None when they are not:
+    separate allocations, several devices, or no rows."""
+    first = parts[0]
+    if n == 0 or first.shape[0] == 0:
+        return None
+    tail = tuple(first.shape[1:])
+    row = math.prod(tail) * first.element_size()
+    storage = first.untyped_storage().data_ptr()
+    ptr = first.data_ptr()
+    for p in parts:
+        if p.shape[0] == 0:
+            continue
+        if (p.device != first.device or not p.is_contiguous()
+                or p.untyped_storage().data_ptr() != storage
+                or p.data_ptr() != ptr):
+            return None
+        ptr += p.shape[0] * row
+    shape = (int(n),) + tail
+    return first.as_strided(shape, _contiguous_strides(shape),
+                            first.storage_offset())
+
+
+class ShardedColumn:
+    """A table column split by rows over a mesh: the :class:`RowShards`
+    ``rows`` (``rows.parts[i]`` the rows of shard ``mesh.local_shards[i]``,
+    on its device) and the ``mesh`` they were split over. The feature
+    stages hand it from one to the next under a default mesh of several
+    shards (``ops/columnar.py``), and a fit whose mesh splits rows alike
+    takes its parts as they are (:func:`ensure_on_mesh`).
+
+    It reads as the one tensor it stands for: ``len``, ``shape``,
+    ``ndim``, ``dtype``, ``device`` (the first shard's), ``np.asarray``
+    (one copy to the host), :meth:`whole` (one tensor on the first shard's
+    device: a view when the parts are consecutive rows of one tensor,
+    else their concatenation there), :meth:`take` and :meth:`concat`,
+    which give a column split over the same mesh."""
+
+    is_sharded_column = True
+    __slots__ = ("rows", "mesh")
+
+    def __init__(self, rows: RowShards, mesh: Mesh):
+        self.rows = rows
+        self.mesh = mesh
+
+    @property
+    def parts(self) -> List[torch.Tensor]:
+        return self.rows.parts
+
+    def __len__(self) -> int:
+        return self.rows.n
+
+    @property
+    def shape(self) -> tuple:
+        return (self.rows.n,) + tuple(self.rows.parts[0].shape[1:])
+
+    @property
+    def ndim(self) -> int:
+        return self.rows.parts[0].ndim
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.rows.parts[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.rows.parts[0].device
+
+    def numel(self) -> int:
+        return math.prod(self.shape)
+
+    def element_size(self) -> int:
+        return self.rows.parts[0].element_size()
+
+    def whole(self) -> torch.Tensor:
+        parts = self.rows.parts
+        if len(parts) == 1:
+            return parts[0]
+        view = _joined_view(parts, self.rows.n)
+        if view is not None:
+            return view
+        dev = parts[0].device
+        return torch.cat([p.to(dev) for p in parts])
+
+    def __array__(self, dtype=None, copy=None):
+        out = self.whole().detach().cpu().numpy()
+        return out if dtype is None else out.astype(dtype, copy=False)
+
+    def as_vectors(self) -> "ShardedColumn":
+        """A 1-D column as (n, 1) rows: a view of each part."""
+        if self.ndim == 2:
+            return self
+        rows = self.rows._replace(parts=[p[:, None] for p in self.parts])
+        return ShardedColumn(rows, self.mesh)
+
+    def rows_range(self, start: int, stop: int) -> torch.Tensor:
+        """Rows ``[start, stop)`` as one tensor on the first shard's device:
+        a view when the parts are views of one tensor, else a copy of just
+        those rows."""
+        start, stop = max(0, int(start)), min(self.rows.n, int(stop))
+        stop = max(start, stop)
+        view = _joined_view(self.rows.parts, self.rows.n)
+        if view is not None:
+            return view[start:stop]
+        dev = self.device
+        pieces = []
+        for s, part in zip(self.mesh.local_shards, self.rows.parts):
+            lo = s * self.rows.ls
+            a, b = max(start, lo), min(stop, lo + part.shape[0])
+            if a < b:
+                pieces.append(part[a - lo:b - lo].to(dev))
+        if not pieces:
+            return self.rows.parts[0][:0].to(dev)
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+
+    def select_rows(self, indices) -> torch.Tensor:
+        """Rows ``indices`` (host ints) as one tensor on the first shard's
+        device, each read from the shard that holds it (a copy of those
+        rows only)."""
+        import numpy as np
+
+        idx = np.asarray(indices, np.int64).reshape(-1)
+        ls = self.rows.ls
+        first = self.rows.parts[0]
+        out = torch.empty((len(idx),) + tuple(first.shape[1:]),
+                          dtype=first.dtype, device=first.device)
+        at = {s: i for i, s in enumerate(self.mesh.local_shards)}
+        shard, offset = idx // ls, idx % ls
+        for s in np.unique(shard):
+            sel = np.nonzero(shard == s)[0]
+            part = self.rows.parts[at[int(s)]]
+            rows = part[torch.as_tensor(offset[sel], device=part.device)]
+            out[torch.as_tensor(sel, device=first.device)] = rows.to(
+                first.device)
+        return out
+
+    def take(self, indices) -> "ShardedColumn":
+        """Rows ``indices`` (a unit-step slice, host indices or an int64
+        tensor) as a column split over the same mesh."""
+        if isinstance(indices, slice):
+            start, stop, step = indices.indices(self.rows.n)
+            if step == 1:
+                return split_column(self.mesh, self.rows_range(start, stop))
+            indices = range(start, stop, step)
+        whole = self.whole()
+        idx = torch.as_tensor(indices if isinstance(indices, torch.Tensor)
+                              else list(indices) if isinstance(indices, range)
+                              else indices, dtype=torch.int64,
+                              device=whole.device)
+        return split_column(self.mesh, whole[idx])
+
+    def concat(self, other) -> "ShardedColumn":
+        """These rows, then ``other``'s (a split column, a tensor or a host
+        array), split over this column's mesh."""
+        return self._joined(self, other)
+
+    def concat_after(self, other) -> "ShardedColumn":
+        """``other``'s rows (a tensor or a host array), then these, split
+        over this column's mesh."""
+        return self._joined(other, self)
+
+    def _joined(self, first, second) -> "ShardedColumn":
+        dev = self.device
+        rows = [(c.whole() if isinstance(c, ShardedColumn)
+                 else torch.as_tensor(c)).to(dev) for c in (first, second)]
+        return split_column(self.mesh, torch.cat(rows))
+
+    def __repr__(self) -> str:
+        return (f"ShardedColumn(shape={self.shape}, dtype={self.dtype}, "
+                f"real={self.rows.real}, mesh={self.mesh})")
+
+
+def split_column(mesh: Mesh, x, dtype=None) -> ShardedColumn:
+    """``x`` (a host array, a tensor or a split column) split by rows over
+    ``mesh`` as :func:`ensure_on_mesh` splits them; a column already split
+    alike passes through, and a tensor on the shards' device is viewed."""
+    if isinstance(x, ShardedColumn) and same_split(x.mesh, mesh) and (
+            dtype is None or x.dtype == dtype):
+        return x
+    return ShardedColumn(ensure_on_mesh(mesh, x, dtype), mesh)
+
+
+def _host_dtype(array):
+    """The dtype a host array is placed at: float32 for floats (the feature
+    layer's policy), its own otherwise; tensors keep theirs."""
+    if isinstance(array, (torch.Tensor, ShardedColumn)):
+        return None
+    kind = getattr(array, "dtype", None)
+    return torch.float32 if kind is not None and kind.kind == "f" else None
+
+
+def shard_batch(mesh: Mesh, array, axis_name=DATA_AXIS):
+    """Place a batch on the mesh split by rows (the reference's scatter of
+    a global batch over subtasks) → ``(placed, n)``: ``placed`` the
+    :class:`ShardedColumn` :func:`ensure_on_mesh` makes, ``n`` the rows.
+    Host floats are placed as float32. The port never pads: the last
+    shard is short and shards past the end are empty (``placed.rows.real``
+    counts each one's rows). ``axis_name`` names the axes the rows split
+    over, which must be the mesh's shard axes."""
+    import numpy as np
+
+    axes = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+    if set(axes) != set(mesh.shard_axes):
+        raise ValueError(f"rows split over the shard axes "
+                         f"{mesh.shard_axes} of {mesh}, not {axes}")
+    if not isinstance(array, (torch.Tensor, ShardedColumn)):
+        array = np.asarray(array)
+    dtype = _host_dtype(array)
+    nbytes = (array.numel() * array.element_size()
+              if isinstance(array, (torch.Tensor, ShardedColumn))
+              else int(array.nbytes))
+    with _HostOp("shard_batch", mesh, nbytes):
+        placed = ShardedColumn(_ensure_on_mesh(mesh, array, dtype), mesh)
+    return placed, placed.rows.n
+
+
+def replicate(mesh: Mesh, tree):
+    """Broadcast-variable placement: every leaf of ``tree`` (dicts, lists
+    and tuples of arrays, tensors or scalars) as a tensor on the local
+    shards' device, host floats as float32. On a mesh whose local shards
+    sit on several devices a leaf becomes a tuple, one copy a local
+    shard."""
+    import numpy as np
+
+    devices = [mesh.devices[s] for s in mesh.local_shards]
+    one = len({str(d) for d in devices}) == 1
+
+    def leaf(v):
+        if not isinstance(v, torch.Tensor):
+            a = np.asarray(v)
+            if a.dtype.kind == "f" and a.dtype != np.float32:
+                a = a.astype(np.float32)
+            v = torch.as_tensor(a)
+        if one:
+            return v.to(devices[0])
+        copies = {}
+        return tuple(copies.setdefault(str(d), v.to(d)) for d in devices)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return leaf(node)
+
+    def nbytes(node) -> int:
+        if isinstance(node, dict):
+            return sum(nbytes(v) for v in node.values())
+        if isinstance(node, (list, tuple)):
+            return sum(nbytes(v) for v in node)
+        if isinstance(node, torch.Tensor):
+            return node.numel() * node.element_size()
+        return int(getattr(node, "nbytes", 0))
+
+    with _HostOp("replicate", mesh, nbytes(tree)):
+        return walk(tree)

@@ -197,6 +197,20 @@ class MapReduceProgram:
         """A batch split over the mesh by rows (contiguous views)."""
         return _c.ensure_on_mesh(self.mesh, array, dtype)
 
+    def replicate(self, tree):
+        """Broadcast-variable placement: ``tree`` on the local shards'
+        device(s) (``collective.replicate``)."""
+        return _c.replicate(self.mesh, tree)
+
+    def data_spec(self, ndim: int = 1):
+        """The partition spec of a dim-0-split operand of rank ``ndim``,
+        ``shardmap.P`` over the mesh's data axes (the JAX package's
+        ``P(data_pspec(mesh), None, ...)``)."""
+        from flink_ml_tpu_torch.parallel.mesh import data_pspec
+        from flink_ml_tpu_torch.parallel.shardmap import P
+
+        return P(data_pspec(self.mesh), *([None] * (ndim - 1)))
+
     def build(self, map_fn: Callable, update_fn: Callable, *,
               reduce=None) -> Callable:
         reducers = reduce if reduce is not None else reduce_sum

@@ -355,6 +355,13 @@ def _cuda_devices(devices):
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
+def local_device_count() -> int:
+    """The CUDA cards this process sees (every card, as
+    :func:`create_mesh` lays them out by default); raises without one, as
+    every entry point does."""
+    return len(_cuda_devices(None))
+
+
 def create_mesh(shape: Optional[Sequence[int]] = None,
                 axis_names: Sequence[str] = (DATA_AXIS,),
                 devices: Optional[Sequence[DeviceLike]] = None) -> Mesh:
@@ -438,8 +445,9 @@ def default_mesh() -> Mesh:
 def set_default_mesh(mesh: Optional[Mesh]) -> None:
     """Make ``mesh`` every fit's default (``None`` restores one shard on the
     default device)."""
-    global _default_mesh
+    global _default_mesh, _local_mesh
     _default_mesh = mesh
+    _local_mesh = None
 
 
 def resolve_mesh(mesh: Optional[Mesh] = None,
@@ -454,14 +462,35 @@ def resolve_mesh(mesh: Optional[Mesh] = None,
     return Mesh([resolve_device(device)])
 
 
+#: the local mesh of a distributed default mesh, made once for it
+_local_mesh: Optional[Tuple[Mesh, Mesh]] = None
+
+
 def local_mesh() -> Mesh:
     """The mesh the transform tier places batches on: the default mesh in
-    one process, this rank's own device under ``torch.distributed`` (each
-    process scores its own traffic)."""
+    one process, an in-process mesh of this rank's own shards under
+    ``torch.distributed`` (each process scores its own traffic), made once
+    for a default mesh."""
+    global _local_mesh
     mesh = default_mesh()
     if not mesh.distributed:
         return mesh
-    return Mesh([mesh.devices[s] for s in mesh.local_shards])
+    if _local_mesh is None or _local_mesh[0] is not mesh:
+        _local_mesh = (mesh, Mesh([mesh.devices[s]
+                                   for s in mesh.local_shards]))
+    return _local_mesh[1]
+
+
+def column_mesh() -> Optional[Mesh]:
+    """The mesh the feature columns are placed on (``ops/columnar.py``):
+    :func:`local_mesh` once a default mesh is set (by
+    :func:`set_default_mesh` or :func:`init_distributed`), so that under
+    ``torch.distributed`` a rank's columns split over its own shards only;
+    None without one, and a column is then one tensor on its stage's
+    device."""
+    if _default_mesh is None:
+        return None
+    return local_mesh()
 
 
 def _rank_mesh(dev: torch.device, world: int, rank: int,

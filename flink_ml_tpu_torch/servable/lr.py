@@ -185,9 +185,11 @@ class LogisticRegressionModelServable(ModelServable, HasFeaturesCol,
         With ``record`` the shards' real rows are recorded (a synthetic
         warm batch records nothing)."""
         coefs = self._mesh_coef()
+        if not getattr(x, "is_sharded_column", False):
+            x = np.ascontiguousarray(x, np.float32)
+        # a column split as the mesh splits rows is used as it is
         dots = mapreduce.map_rows(
-            lambda rows: rows @ coefs[str(rows.device)], self._mesh)(
-                np.ascontiguousarray(x, np.float32))
+            lambda rows: rows @ coefs[str(rows.device)], self._mesh)(x)
         out = dots.cpu().numpy().astype(np.float64)
         if record:
             mesh = self._mesh
@@ -221,8 +223,13 @@ class LogisticRegressionModelServable(ModelServable, HasFeaturesCol,
         if self.model_data is None:
             raise ValueError("servable has no model data")
         features = df.get(self.features_col).values
-        x = np.stack([f.to_array() if isinstance(f, Vector)
-                      else np.asarray(f, np.float64) for f in features])
+        if getattr(features, "is_sharded_column", False):
+            # a feature column split over a mesh's shards (a pipeline's
+            # output): the sharded product takes it as it is
+            x = features
+        else:
+            x = np.stack([f.to_array() if isinstance(f, Vector)
+                          else np.asarray(f, np.float64) for f in features])
         if self.device_predict:
             if self._use_sharded(x.shape[0]):
                 real = getattr(df, "drift_real_rows", None)
@@ -231,7 +238,7 @@ class LogisticRegressionModelServable(ModelServable, HasFeaturesCol,
             else:
                 dots = self._device_dots(x)
         else:
-            dots = x @ self.model_data.coefficient
+            dots = np.asarray(x, np.float64) @ self.model_data.coefficient
         prob = 1.0 - 1.0 / (1.0 + np.exp(dots))
         # probability-distribution drift baseline (observability/
         # health.py): the 0/1 prediction column the _served wrapper

@@ -19,6 +19,13 @@ jobs of ``--jobs`` (a JSON list) in order, every rank the same list:
   ``"batch"``, ``"lr"``, ``"reg"``, ``"elastic_net"``, ``"method"``),
   fitted ``"reps"`` times (1 by default; each rerun must give the same
   bits, ``ms`` is the best and the launches are all the fits').
+- ``{"kind": "features", "name", "rows", "cols", "seed"}``: a feature
+  pipeline on the rank's own rows (seeded normal features, ``seed`` plus
+  the rank), StandardScaler (withMean) → Normalizer → MinMaxScaler, fitted
+  and applied under the rank's default mesh: each column split over the
+  rank's local shards only (``mesh.column_mesh()``). Every rank saves the
+  three outputs to ``<out>/<name>-p<k>.npz`` and reports each output's
+  type and shard rows.
 - ``{"kind": "attention", "name", "shape", "local", "L", "H", "D",
   "seed", "reps"}``: ring and Ulysses attention, causal and not, on a
   ``seq`` mesh of ``local`` shards a rank, over q, k, v drawn from a
@@ -145,6 +152,36 @@ def _fit(job, mesh, device, run, cache):
     return rec
 
 
+def _features(job, device, run):
+    from flink_ml_tpu_torch import Table
+    from flink_ml_tpu_torch.models.feature import (MinMaxScaler, Normalizer,
+                                                   StandardScaler)
+    from flink_ml_tpu_torch.parallel import distributed
+
+    rng = np.random.default_rng(job["seed"] + distributed.process_index())
+    x = rng.normal(size=(job["rows"], job["cols"])).astype(np.float32)
+
+    def pipeline():
+        t = Table.from_columns(x=x)
+        t = StandardScaler(device=device, with_mean=True, input_col="x",
+                           output_col="s").fit(t).transform(t)[0]
+        t = Normalizer(device=device, input_col="s",
+                       output_col="n").transform(t)[0]
+        return MinMaxScaler(device=device, input_col="n",
+                            output_col="m").fit(t).transform(t)[0]
+
+    table, rec = run(pipeline)
+    outs = {}
+    for name in ("s", "n", "m"):
+        col = table.column(name)
+        rec[name] = {"type": type(col).__name__,
+                     "real": [int(col.rows.real[s])
+                              for s in col.mesh.local_shards]
+                     if hasattr(col, "rows") else None}
+        outs[name] = np.asarray(col)
+    return rec, outs
+
+
 def _attention(job, mesh, device, run):
     from flink_ml_tpu_torch.parallel.sequence import sharded_attention
 
@@ -195,6 +232,12 @@ def main(argv=None) -> int:
     run = _Run(device, kernels, metrics)
     results, meshes, cache = {}, [], {}
     for job in jobs:
+        if job["kind"] == "features":
+            rec, outs = _features(job, device, run)
+            np.savez(os.path.join(args.out, f"{job['name']}-p{me}.npz"),
+                     **outs)
+            results[job["name"]] = rec
+            continue
         axes = job.get("axes", ["seq"] if job["kind"] == "attention"
                        else ["data", "model"])
         mesh = distributed.build_mesh(job["local"], job["shape"], axes)
