@@ -30,15 +30,22 @@ Phases, each of which fails the run (no result line, nonzero exit):
 3. the same for the SGD kernel, for each loss: the main-path window (the
    first 100,000 rows of a 10,000,000 x 100 table), a window in the middle,
    the clipped window at the end, a ragged window, a one-row window,
-   zero-weight rows, an odd width, rows so wide that the kernel stages
-   them in column chunks (d = 1,500, and an odd d = 6,001), and margins
-   that overflow exp for the logistic loss, printing each case's launch
-   plan (register or chunked instance, grid); the C entry's output must
-   equal ``reduce_partials_plain`` of the partials the same call wrote, bit
-   for bit; time the whole call and its first stage alone, eagerly and as
+   zero-weight rows, an odd width, and margins that overflow exp for the
+   logistic loss, printing each case's launch plan (register, staged or
+   chunked instance, grid); rows wider than 512 columns: the staged
+   instance at d = 513, 1,500, 2,000 and 6,001 and the chunked one at d =
+   16,000, at full, ragged, end-clipped and one-row windows, the staged
+   instance from an x 4 bytes off alignment and the chunked instance run
+   by hand at its widths; the C entry's output must equal
+   ``reduce_partials_plain`` of the partials the same call wrote, bit for
+   bit; time the whole call and its first stage alone, eagerly and as
    device times (``device_ms``, ``stage1_device_ms`` and
-   ``library_device_ms`` of its row in the kernels line); the timed calls
-   move their window on by lb each call, so none finds its rows in L2;
+   ``library_device_ms`` of its row in the kernels line), the staged
+   instance at lb = 100,000 and d = 2,000 (its own row), 1,500 and 6,001
+   beside the chunked instance at the same windows and the library pair
+   (``x @ c``, then ``xᵀ @ mult`` with the multipliers given); the timed
+   calls move their window on by lb each call, so none finds its rows in
+   L2;
 4. drive the KMeans main path as a user would: the benchmark runner on
    ``flink_ml_tpu/benchmark/configs/kmeans-benchmark.json`` (KMeans fit at
    full size), then transform of the same table, save, load and transform
@@ -55,15 +62,20 @@ Phases, each of which fails the run (no result line, nonzero exit):
    each case's launch plan and the tiled kernel's blocks per SM: a ragged
    n, a ragged n_train, k > n_train, k = 1, duplicate train rows, n = 0, an
    odd d, d = 64, d = 128 with k = 32, d = 256 and an odd d = 769 (x
-   streamed in chunks), and the wide instance (k > 32): k = 50 and k = 300,
-   k > n_train and duplicate train rows; then the train split: 1,000 and
-   16,384 rows against 50,000 train rows (the 16,384 block also forced to 2
-   and 3 splits), duplicate train rows on both sides of a split boundary,
-   and k larger than a split's rows; reruns must be bit-identical, and a
-   split run identical to the same rows in one split; time kernel, plain
-   version and the library's ``torch.topk(torch.addmm(...))`` on a 16,384
-   x 50,000 x 32 block, the wide instance on the same block (k = 33), and
-   the kernel a few times at the main path's 10,000,000 rows;
+   streamed in chunks), the long-list instance (32 < k <= 256): k = 50,
+   k > n_train, duplicate train rows, every capacity (64, 128, 256) and
+   its edges, x tiles resident and streamed, and the wide instance past it
+   (k = 257 and 300); then the train split: 1,000 and 16,384 rows against
+   50,000 train rows (the 16,384 block also forced to 2 and 3 splits),
+   duplicate train rows on both sides of a split boundary, k larger than
+   a split's rows, and the long-list instance's split at k = 40, 100 and
+   200; reruns must be bit-identical, and a split run identical to the
+   same rows in one split; time kernel, plain version and the library's
+   ``torch.topk(torch.addmm(...))`` on a 16,384 x 50,000 x 32 block, the
+   long-list instance there at k = 33 to 256 (eager and device times
+   beside the library call's; its own row at k = 50), the wide instance
+   there (its first design) at k = 33, 50 and 300, and the kernel a few
+   times at the main path's 10,000,000 rows, at k = 10 and k = 50;
 7. the same for the segment-sum kernels: 1-D and 2-D values, -1 and
    out-of-range ids, n = 0, a ragged n, one chunk, hashed 2^18 domains
    (c = 1 and c = 2), a domain of more than 65,535 segment tiles, values of
@@ -80,7 +92,7 @@ Phases, each of which fails the run (no result line, nonzero exit):
    of the same table, save, load and transform again; hold 113,333 of its
    predictions (first, middle and ragged last rows) against the plain
    version's neighbours, and small models on the card against the CPU (one
-   of them 300 wide with k = 40, through the wide instance);
+   of them 300 wide with k = 40, through the long-list instance);
 9. drive the FTRL main path: the runner on
    ``onlinelogisticregression-benchmark.json`` at full size (10,000,000 x
    100, 100 dense batches), then a sparse stream of the same widths and
@@ -414,9 +426,17 @@ Phases, each of which fails the run (no result line, nonzero exit):
     and COEFF_ATOL, KMeans within CENTROID_ATOL and LABEL_AGREEMENT; prints
     each stage's ms on 8 shards and with no mesh (line ``feature mesh:
     {...}``);
-23. print one ``{"kernels": [...]}`` line with every kernel's launches in
-    its main-path runs (in all and by path), error, times and bound, then
-    the result line.
+23. the long-list KNN and the staged SGD instances through the port's
+    entry points, each with the counts at 0: the runner on
+    ``knn-benchmark.json`` with k = 50 (10,000,000 x 32 against 50,000),
+    then transform of the same table, 73,333 of its predictions against
+    the plain version's neighbours; the runner on the LR config's shape at
+    2,000 features (1,000,000 rows, 20 rounds of 100,000), then a fit of
+    the same table held against a plain PyTorch fit on the card;
+24. print one ``{"kernels": [...]}`` line with every kernel's launches in
+    its main-path runs (in all and by path), error, times and bound, and
+    rows of their own for the long-list KNN and staged SGD instances
+    (launches from phase 23), then the result line.
 
 Tolerances (float32 throughout, TF32 off):
 - labels: identical, except rows whose two nearest centroids are closer than
@@ -581,7 +601,18 @@ PATH_KERNELS = {
     # cross-shard sums, KMeans fit and transform, the LR fit
     "feature_mesh": ("reduce_partials", "lloyd_partial_sums",
                      "assign_nearest", "sgd_batch_terms"),
+    # phase 23: a KNN transform at k = 50 (the long-list instance), and an
+    # LR fit at 2,000 features (the staged instance)
+    "knn_long": ("knn_topk_indices",),
+    "linear_wide": ("sgd_batch_terms",),
 }
+#: the kernels line's rows of single instances: (row name, wrapper, path)
+INSTANCE_ROWS = (("knn_topk_indices[long]", "knn_topk_indices", "knn_long"),
+                 ("sgd_batch_terms[staged]", "sgd_batch_terms",
+                  "linear_wide"))
+# phase 23: the KNN transform's k, and the LR fit's width and rows
+LONG_PATH_K = 50
+WIDE_PATH_D, WIDE_PATH_ROWS = 2_000, 1_000_000
 # phase 15's configs, run uncut through the runner
 FEATURE_CONFIGS = (
     "standardscaler", "minmaxscaler", "maxabsscaler", "robustscaler",
@@ -826,15 +857,36 @@ def within_sum_tol(got, want, tag):
     return float((got - want).abs().max())
 
 
+def _kernel_instance(mangled):
+    """``name<args>`` of a mangled kernel symbol of the port's sources, as
+    ptxas names it (``..._kernelILi0ELi4ELb1EEEv...`` → ``name<0,4,1>``)."""
+    import re
+
+    base = re.search(r"\d+([a-z][a-z_]*_kernel)(?=[IE])", mangled)
+    if base is None:
+        return mangled
+    args = re.findall(r"L[ib](\d+)E", mangled[base.end():])
+    return base.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
+def log_ptxas(text):
+    """ptxas' register and spill lines of one source's build, each with the
+    kernel instance it is about."""
+    kernel = ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            kernel = _kernel_instance(line.split("'")[1])
+        elif "registers" in line or "spill" in line:
+            log(f"  ptxas {kernel}:", line.strip())
+
+
 def phase_build(K):
     start = time.perf_counter()
     logs = K.build_kernels()
     log(f"phase 1: built {sorted(logs) or 'cached library'} in "
         f"{time.perf_counter() - start:.1f} s")
     for text in logs.values():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log("  ptxas:", line.strip())
+        log_ptxas(text)
 
 
 def phase_kernels(K):
@@ -1006,21 +1058,18 @@ def phase_sgd_kernels(K):
                                   ws[keep].contiguous(), c, 0, 0,
                                   int(keep.sum()), loss)
         within_sum_tol(got, alone, "zero-weights against the kept rows")
-        # an odd width, and rows so wide that the kernel stages them in
-        # column chunks (one aligned, one odd with a ragged last chunk)
-        for dd, rows, tag in [(7, 10_007, "odd-d"), (1_500, 5_000, "chunked-d"),
-                              (6_001, 3_000, "chunked-odd-d")]:
-            xd = rand(rows, dd)
-            cd = (rand(dd) - 0.5) / dd ** 0.5
-            check_sgd(K, xd, y[:rows].contiguous(), w[:rows].contiguous(), cd,
-                      5, 3, rows - 9, loss, tag)
-            wide_row = dd > K.SGD_REG_COLS
-            assert K._sgd_card_plan(xd, rows - 9, loss).instance == (
-                "chunked" if wide_row else "registers"), tag
+        # an odd width (wider rows: check_wide_sgd below)
+        xd = rand(10_007, 7)
+        cd = (rand(7) - 0.5) / 7 ** 0.5
+        check_sgd(K, xd, y[:10_007].contiguous(), w[:10_007].contiguous(),
+                  cd, 5, 3, 10_007 - 9, loss, "odd-d")
+        assert K._sgd_card_plan(xd, 10_007 - 9, loss).instance == "registers"
     # margins far past exp's float32 range: the multipliers must come out
     # as +-0 or +-w, and the loss finite
     big = c * 1000
     got, want, _ = check_sgd(K, x, y, w, big, 0, 0, lb, "logistic", "overflow")
+
+    measured = check_wide_sgd(K, rand, y, w)
 
     # the C entry's second stage against the plain order of its own
     # partials, for every loss
@@ -1054,7 +1103,6 @@ def phase_sgd_kernels(K):
             library=library,
             cost=K.launch_cost("sgd_batch_terms", lb=lb, d=d)),
     }
-    measured = {}
     for name, r in rows.items():
         b_ms, b_by = bound_ms(*r["cost"])
         measured[name] = {
@@ -1082,20 +1130,169 @@ def phase_sgd_kernels(K):
         other_start = rolling_starts(n, lb)
         log(f"  sgd_batch_terms {other}: " + "%.4f ms" % time_ms(
             lambda: K.sgd_batch_terms(x, y, w, c, other_start(), 0, lb, other)))
-    # a wide row: the chunked kernel against its plain version, timed
-    wide_d, wide_rows = 2_000, 100_000
-    xw = rand(wide_rows, wide_d)
-    cw = (rand(wide_d) - 0.5) / wide_d ** 0.5
-    yw, ww = y[:wide_rows].contiguous(), w[:wide_rows].contiguous()
-    log(f"  sgd_batch_terms chunked @ {wide_rows} x {wide_d}: "
-        + "%.4f ms (plain %.4f ms)" % (
-            time_ms(lambda: K.sgd_batch_terms(xw, yw, ww, cw, 0, 0, wide_rows,
-                                              loss)),
-            time_ms(lambda: K.sgd_batch_terms_plain(xw, yw, ww, cw, 0, 0,
-                                                    wide_rows, loss))))
-    del x, y, w, mult, ws, xw
+    del x, y, w, mult, ws
     torch.cuda.empty_cache()
+    measured["sgd_batch_terms[staged]"].update(time_wide_sgd(K, rand))
     return measured
+
+
+def chunked_sgd_plan(K, x, lb, loss):
+    """The chunked instance's plan for x, at any width past the register
+    instance's (the one the card plan gives past the staged widths)."""
+    d = x.shape[1]
+    rows, dc, smem = K._sgd_layout(d)
+    vec4 = int(d % 4 == 0 and x.data_ptr() % 16 == 0)
+    resident = K._sgd_resident_blocks(0, K.SGD_LOSSES[loss], 0, vec4, d, dc,
+                                      smem)
+    return K._sgd_chunked_plan(lb, d, resident, vec4)
+
+
+def check_wide_sgd(K, rand, y, w):
+    """Rows wider than the register instance takes: the staged instance at
+    d = 513, 1,500, 2,000 and 6,001, and the chunked one past the staged
+    widths (d = 16,000), for every loss, at full, ragged, end-clipped and
+    one-row windows, each against its plain version, rerun bit for bit,
+    the C entry's combine bit for bit against reduce_partials_plain of its
+    partials; the staged instance from an x 4 bytes off 16-byte alignment
+    too, and the chunked instance run at a staged width beside it."""
+    measured = {}
+    errs = []
+    for dd, rows in [(513, 6_000), (1_500, 5_000), (2_000, 4_000),
+                     (6_001, 3_000), (16_000, 1_000)]:
+        xd = rand(rows, dd)
+        cd = (rand(dd) - 0.5) / dd ** 0.5
+        yd, wd = y[:rows].contiguous(), w[:rows].contiguous()
+        instance = "staged" if K._sgd_staged_layout(dd) else "chunked"
+        # the same rows from an x whose rows start 4 bytes off alignment
+        flat = torch.empty(rows * dd + 1, device="cuda")
+        xu = flat[1:].view(rows, dd)
+        xu.copy_(xd)
+        for loss in LOSSES:
+            for start, clip, this_lb, tag in [
+                    (0, 0, rows, "full"), (5, 3, rows - 9, "ragged"),
+                    (rows // 2, rows // 4, rows - rows // 2, "end-clipped"),
+                    (17, 0, 1, "lb=1")]:
+                plan = K._sgd_card_plan(xd, this_lb, loss)
+                assert plan.instance == instance, (dd, plan)
+                _, _, err = check_sgd(K, xd, yd, wd, cd, start, clip, this_lb,
+                                      loss, f"d={dd} {tag}")
+                if instance == "staged":
+                    errs.append(err)
+            ws = K._launch_sgd_terms(xd, yd, wd, cd, 5, 3, rows - 9, loss)
+            assert torch.equal(ws[-1], K.reduce_partials_plain(ws[:-1])), (
+                f"d={dd} {loss}: the combine differs from "
+                "reduce_partials_plain")
+            if instance == "staged":
+                plan = K._sgd_card_plan(xu, rows - 9, loss)
+                assert plan.vec4 == 0, plan
+                got = K.sgd_batch_terms(xu, yd, wd, cd, 5, 3, rows - 9, loss)
+                within_sum_tol(got, K.sgd_batch_terms_plain(
+                    xu, yd, wd, cd, 5, 3, rows - 9, loss), f"d={dd} unaligned")
+                # the first design, run by hand at this width
+                chunked = K._launch_sgd_terms(
+                    xd, yd, wd, cd, 5, 3, rows - 9, loss,
+                    plan=chunked_sgd_plan(K, xd, rows - 9, loss))
+                within_sum_tol(chunked[-1], K.sgd_batch_terms_plain(
+                    xd, yd, wd, cd, 5, 3, rows - 9, loss),
+                    f"d={dd} chunked by hand")
+        log(f"  sgd_batch_terms d={dd}: {instance} instance, every loss and "
+            "window against its plain version, the combine bit for bit"
+            + (", unaligned x and the chunked instance too"
+               if instance == "staged" else ""))
+        del xd, xu, flat
+    measured["sgd_batch_terms[staged]"] = {"max_abs_err": max(errs)}
+    return measured
+
+
+def time_wide_sgd(K, rand):
+    """The kernels line's row of the staged instance, at d = 2,000. Times
+    the staged instance at lb = 100,000 (each call the next
+    window of a 400,000-row table, cold in L2) at d = 2,000, eagerly and
+    as device time, the whole call and stage 1, beside the chunked
+    instance at the same windows (its first design), the plain version
+    and the library pair (x @ c, then xᵀ @ mult given the multipliers); at
+    d = 1,500 and 6,001 its eager and device times; the chunked instance
+    past the staged widths (d = 16,000, lb = 20,000) eagerly."""
+    from flink_ml_tpu_torch.ops.losses import LossFunc
+
+    loss, lb = "logistic", 100_000
+    measured = {}
+    for dd, n in [(2_000, 400_000), (1_500, 400_000), (6_001, 200_000)]:
+        x = rand(n, dd)
+        y = torch.floor(rand(n) * 2)
+        w = rand(n)
+        c = (rand(dd) - 0.5) / dd ** 0.5
+        plan = K._sgd_card_plan(x, lb, loss)
+        assert plan.instance == "staged", plan
+        starts = {kind: rolling_starts(n, lb) for kind in
+                  ("kernel", "stage1", "chunked", "chunked1", "plain", "lib")}
+        cplan = chunked_sgd_plan(K, x, lb, loss)
+
+        def kernel():
+            return K.sgd_batch_terms(x, y, w, c, starts["kernel"](), 0, lb,
+                                     loss)
+
+        def stage1():
+            return K._launch_sgd_terms(x, y, w, c, starts["stage1"](), 0, lb,
+                                       loss, combine=False)
+
+        def chunked():
+            return K._launch_sgd_terms(x, y, w, c, starts["chunked"](), 0, lb,
+                                       loss, plan=cplan)
+
+        def chunked1():
+            return K._launch_sgd_terms(x, y, w, c, starts["chunked1"](), 0,
+                                       lb, loss, combine=False, plan=cplan)
+
+        b_ms, b_by = bound_ms(*K.launch_cost("sgd_batch_terms", lb=lb, d=dd))
+        row = {"ms": time_ms(kernel), "device_ms": graph_ms(kernel),
+               "stage1_ms": time_ms(stage1),
+               "stage1_device_ms": graph_ms(stage1),
+               "before_ms": time_ms(chunked),
+               "before_device_ms": graph_ms(chunked),
+               "before_stage1_device_ms": graph_ms(chunked1),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "blocks": plan.blocks, "resident": plan.resident,
+               "rows_per_stage": plan.rows}
+        if dd == 2_000:
+            mult = LossFunc.by_name(loss).terms(x @ c, y, w)[1]
+
+            def library():
+                s = starts["lib"]()
+                xb = x[s:s + lb]
+                torch.mv(xb, c)  # the forward dots, then the gradient
+                return torch.mv(xb.T, mult[s:s + lb])
+
+            row.update({
+                "plain_ms": time_ms(lambda: K.sgd_batch_terms_plain(
+                    x, y, w, c, starts["plain"](), 0, lb, loss)),
+                "library_ms": time_ms(library),
+                "library_device_ms": graph_ms(library)})
+            del mult
+        log(f"  sgd_batch_terms staged @ lb={lb:,} of {n:,} x {dd:,}: "
+            f"{json.dumps(row)}; stage 1 at "
+            f"{b_ms / row['stage1_device_ms']:.1%} of its bound")
+        measured[dd] = row
+        del x, y, w
+        torch.cuda.empty_cache()
+    # past the staged widths: the chunked instance, planned
+    dd, n, wide_lb = 16_000, 40_000, 20_000
+    x, y, w = rand(n, dd), torch.floor(rand(n) * 2), rand(n)
+    c = (rand(dd) - 0.5) / dd ** 0.5
+    assert K._sgd_card_plan(x, wide_lb, loss).instance == "chunked"
+    chunk_start = rolling_starts(n, wide_lb)
+    ms = time_ms(lambda: K.sgd_batch_terms(x, y, w, c, chunk_start(), 0,
+                                           wide_lb, loss))
+    b_ms, _ = bound_ms(*K.launch_cost("sgd_batch_terms", lb=wide_lb, d=dd))
+    log(f"  sgd_batch_terms chunked @ lb={wide_lb:,} of {n:,} x {dd:,}: "
+        f"{ms:.4f} ms (bound {b_ms:.4f} ms by bytes)")
+    del x, y, w
+    torch.cuda.empty_cache()
+    main = measured[2_000]
+    return {key: main[key] for key in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
+        "stage1_device_ms", "library_device_ms", "before_ms",
+        "before_device_ms", "before_stage1_device_ms")}
 
 
 def phase_main_path(K, runner, kmeans_mod):
@@ -1342,15 +1539,97 @@ def check_knn(K, x, train, k, tag, block=16_384):
 
 def knn_plan_line(K, x, nt, k):
     plan = K._knn_card_plan(x, nt, min(k, nt))
-    return plan, (f"{plan.route}" + (
-        f" kcap={plan.kcap} dpad={plan.dpad} splits={plan.splits} "
-        f"smem={K.knn_tile_smem_bytes(plan.dpad)} B "
-        f"scratch={plan.scratch_bytes} B"
-        if plan.route == "tiled" else f" scratch={plan.scratch_bytes} B"))
+    if plan.route == "wide":
+        return plan, f"wide scratch={plan.scratch_bytes} B"
+    smem = (K.knn_tile_smem_bytes(plan.dpad) if plan.route == "tiled"
+            else K.knn_long_smem_bytes(plan.kcap, plan.dpad))
+    return plan, (f"{plan.route} kcap={plan.kcap} dpad={plan.dpad} "
+                  f"splits={plan.splits} smem={smem} B "
+                  f"scratch={plan.scratch_bytes} B")
+
+
+def check_long_splits(K, rand, train):
+    """The long-list instance's train split: at every capacity, 1,000 test
+    rows (which the plan splits) against the main path's train set give the
+    same lists in the plan's splits, in one and in two and three; twin train
+    rows on both sides of a split boundary come lower index first."""
+    nt, d = train.shape
+    for k in (40, 100, 200):
+        x = rand(1_000, d)
+        plan, line = knn_plan_line(K, x, nt, k)
+        log(f"  plan long split k={k}: {line}")
+        assert plan.route == "long" and plan.splits > 1, line
+        got, _, _ = check_knn(K, x, train, k, f"long split k={k}")
+        for splits in sorted({1, 2, 3} - {plan.splits}):
+            assert torch.equal(got, K._launch_knn(x, train, k, splits)), (
+                f"k={k}: {splits} splits differ from {plan.splits}")
+    x = rand(1_000, d)
+    lo = K.knn_split_bounds(nt, K._knn_card_plan(x, nt, 40).splits)[1][0]
+    twins = train.clone()
+    twins[lo - 50:lo] = twins[lo:lo + 50]
+    x[:50] = twins[lo:lo + 50] + 1e-3 * rand(50, d)
+    got, _, _ = check_knn(K, x, twins, 40, "long duplicates across a split")
+    want = torch.stack([torch.arange(lo - 50, lo), torch.arange(lo, lo + 50)],
+                       1).to(torch.int32).cuda()
+    assert torch.equal(got[:50, :2], want), "twins across a split: order"
+
+
+#: list lengths the long-list instance is timed at, on the timed block
+LONG_TIMED_K = (33, 50, 64, 100, 128, 200, 256)
+
+
+def time_long_knn(K, x, train, tsq):
+    """The long-list instance on the timed block at every k of
+    LONG_TIMED_K: checked against its plain version, eager and device time
+    beside torch.topk(torch.addmm(...)) at the same k (eager and device);
+    the wide instance (the first design) at k = 33 and 50, and above the
+    long-list capacities at k = 300. Returns the kernels line's row of the
+    long-list instance, at k = 50."""
+    n, d = x.shape
+    nt = train.shape[0]
+    row = {}
+    for k in LONG_TIMED_K:
+        _, _, err = check_knn(K, x, train, k, f"long timed block k={k}")
+
+        def kernel():
+            return K.knn_topk_indices(x, train, k)
+
+        def library():
+            return torch.topk(torch.addmm(tsq, x, train.T, alpha=-2), k,
+                              largest=False)
+
+        b_ms, b_by = bound_ms(*K.launch_cost("knn_topk_indices", n=n, nt=nt,
+                                             d=d, k=k))
+        ms = {"ms": time_ms(kernel, batches=3, per_batch=3, warmup=1),
+              "device_ms": graph_ms(kernel, reps=3),
+              "library_ms": time_ms(library, batches=3, per_batch=3,
+                                    warmup=1),
+              "library_device_ms": graph_ms(library, reps=3),
+              "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+        if k in (33, 50):
+            ms["before_ms"] = time_ms(
+                lambda: K._launch_knn(x, train, k, wide=True), batches=1,
+                per_batch=2, warmup=1)
+        faster = ms["ms"] < ms["library_ms"]
+        log(f"  knn_topk_indices long-list @ {n} x {nt} x {d}, k={k}: "
+            f"{json.dumps(ms)}; {'faster' if faster else 'SLOWER'} than "
+            "topk(addmm)")
+        if k == 50:
+            row = dict(ms, plain_ms=time_ms(
+                lambda: K.knn_topk_indices_plain(x, train, k), batches=3,
+                per_batch=1, warmup=1))
+    wide = time_ms(lambda: K.knn_topk_indices(x, train, 300), batches=1,
+                   per_batch=1, warmup=1)
+    log(f"  knn_topk_indices wide instance @ {n} x {nt} x {d}, k=300: "
+        f"{wide:.3f} ms")
+    return {"knn_topk_indices[long]": row}
 
 
 def phase_knn_kernel(K):
+    from flink_ml_tpu_torch.ops import _build
+
     log("phase 6: the KNN kernels against their plain version on the card")
+    log_ptxas(_build.BUILD_LOGS.get(K.KNN_SOURCE, ""))  # as phase 1 built it
     g = torch.Generator(device="cuda").manual_seed(13)
 
     def rand(*shape):
@@ -1363,6 +1642,12 @@ def phase_knn_kernel(K):
                 f"{K._knn_resident_blocks(0, kcap, dpad) // sms} block(s) "
                 f"per SM ({K.knn_tile_smem_bytes(dpad)} bytes of shared "
                 f"memory)")
+    for kcap in K.KNN_LONG_KCAPS:
+        for dpad in (32, 128, 256):
+            log(f"  knn_long_kernel<{kcap}> at dpad={dpad}: "
+                f"{K._knn_resident_blocks(0, kcap, dpad) // sms} block(s) "
+                f"per SM ({K.knn_long_smem_bytes(kcap, dpad)} bytes of "
+                f"shared memory)")
     dup = rand(5_000, 32)
     dup[100:200] = dup[4_000:4_100]  # exact ties across train tiles
     dup_wide = rand(5_000, 160)
@@ -1379,14 +1664,28 @@ def phase_knn_kernel(K):
             (4_000, rand(6_000, 128), 32, "d=128 k=32"),
             (3_000, rand(6_000, 256), 10, "d=256"),
             (2_000, rand(5_000, 769), 7, "odd d=769"),
-            (3_000, rand(6_001, 32), 50, "wide k=50"),
+            # lists past 32: the long-list instance at every capacity and
+            # its edges, resident and streamed x tiles; the wide one past 256
+            (3_000, rand(6_001, 32), 50, "long k=50"),
             (1_000, rand(3_000, 200), 300, "wide d=200 k=300"),
-            (500, rand(40, 300), 64, "wide k>n_train"),
-            (5_000, dup_wide, 40, "wide duplicates"),
+            (500, rand(40, 300), 64, "long k>n_train"),
+            (5_000, dup_wide, 40, "long duplicates"),
+            (3_000, rand(6_001, 32), 33, "long k=33"),
+            (3_000, rand(6_001, 32), 63, "long k=63"),
+            (3_000, rand(6_001, 32), 64, "long k=64"),
+            (3_000, rand(6_001, 32), 65, "long k=65"),
+            (3_000, rand(6_001, 96), 127, "long k=127 d=96"),
+            (3_000, rand(6_001, 128), 128, "long k=128 d=128"),
+            (3_000, rand(6_001, 32), 129, "long k=129"),
+            (3_000, rand(6_001, 200), 255, "long k=255 d=200"),
+            (3_000, rand(6_001, 32), 256, "long k=256"),
+            (1_000, rand(6_001, 32), 257, "wide k=257"),
+            (10_007, rand(9_999, 7), 100, "long odd-d"),
     ]:
         x = rand(n, train.shape[1])
         plan, line = knn_plan_line(K, x, train.shape[0], k)
-        assert (plan.route == "wide") == tag.startswith("wide"), (tag, line)
+        route = tag.split()[0] if tag.split()[0] in ("long", "wide") else "tiled"
+        assert plan.route == route, (tag, line)
         log(f"  plan {tag}: {line}")
         got, _, _ = check_knn(K, x, train, k, tag)
         if tag.endswith("duplicates"):
@@ -1427,6 +1726,7 @@ def phase_knn_kernel(K):
     log(f"  plan k>split rows: {line}")
     assert plan.splits == 2, line
     check_knn(K, x, small, 32, "k>split rows")
+    check_long_splits(K, rand, train)
 
     # times and bounds on a block of test rows the library call can hold,
     # at the main path's widths (50,000 train rows, d = 32, k = 10)
@@ -1449,11 +1749,7 @@ def phase_knn_kernel(K):
     }}
     log(f"  knn_topk_indices @ {n} x {nt} x {d}, k={k}: "
         f"{measured['knn_topk_indices']}")
-    # the wide instance on the same block: k = 33 is past the tiled lists
-    wide_ms = time_ms(lambda: K.knn_topk_indices(x, train, 33), batches=3,
-                      per_batch=3, warmup=1)
-    log(f"  knn_topk_indices wide instance @ {n} x {nt} x {d}, k=33: "
-        f"{wide_ms:.3f} ms")
+    measured.update(time_long_knn(K, x, train, tsq))
     # the main path's shape: a few calls, each of them about a second
     big = rand(10_000_000, d)
     main = time_ms(lambda: K.knn_topk_indices(big, train, k), batches=3,
@@ -1463,6 +1759,12 @@ def phase_knn_kernel(K):
     log(f"  knn_topk_indices @ 10,000,000 x {nt} x {d}: {main:.3f} ms "
         f"(bound {main_bound:.3f} ms by operations, "
         f"{main_bound / main:.1%} of it)")
+    long_main = time_ms(lambda: K.knn_topk_indices(big, train, 50), batches=1,
+                        per_batch=1, warmup=1)
+    measured["knn_topk_indices[long]"]["main_path_k50_ms"] = long_main
+    log(f"  knn_topk_indices long-list instance @ 10,000,000 x {nt} x {d}, "
+        f"k=50: {long_main:.3f} ms ({main_bound / long_main:.1%} of the "
+        "operation bound)")
     # the split at work: a serving-size batch and the block, planned and
     # forced into another number of splits
     for rows in (1_000, n):
@@ -1637,7 +1939,7 @@ def phase_knn_main_path(K, runner, Table):
     # small models give the same predictions on the card and on the CPU
     # (blobs far apart: no row near a tie)
     rng = np.random.default_rng(5)
-    for d, k in [(9, 7), (300, 40)]:  # the tiled and the wide instance
+    for d, k in [(9, 7), (300, 40)]:  # the tiled and the long-list instance
         centers = rng.normal(size=(4, d)) * 10
         which = rng.integers(0, 4, 600)
         xs = centers[which] + rng.normal(size=(600, d))
@@ -1654,6 +1956,116 @@ def phase_knn_main_path(K, runner, Table):
     log("  small models (d = 9, k = 7; d = 300, k = 40): card and CPU agree")
     assert counts["knn_topk_indices"] >= 3 + 2, counts  # runs + transforms
     return counts
+
+
+def phase_long_instances(K, runner, optimizer):
+    """Phase 23: the long-list KNN and staged SGD instances through the
+    runner and the estimators, each path with the counts at 0 just before
+    it and read just after; returns the two paths' counts."""
+    import copy
+
+    from flink_ml_tpu_torch.models.classification import knn as knn_mod
+
+    log("phase 23: the long-list KNN and staged SGD instances through the "
+        "port's entry points")
+    started = time.perf_counter()
+    spec = copy.deepcopy(
+        runner.load_config(str(KNN_CONFIG))["KnnModel-predict"])
+    spec["stage"]["paramMap"]["k"] = LONG_PATH_K
+    n, k = spec["inputData"]["paramMap"]["numValues"], LONG_PATH_K
+    K.reset_launch_counts()
+    row = runner.run_benchmark("KnnModel-predict-k50", spec)
+    log("  benchmark row (k = 50):", json.dumps(row, sort_keys=True))
+    assert row["executionPath"] == "cuda-knn", row["executionPath"]
+    assert row["inputRecordNum"] == n and row["outputRecordNum"] == n
+    table = runner.build_generator(spec).get_data()
+    model = runner.build_stage(spec).set_model_data(
+        runner.build_generator(spec, key="modelData").get_data())
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    pred = model.transform(table)[0][model.prediction_col]
+    torch.cuda.synchronize()
+    transform_ms = (time.perf_counter() - start) * 1e3
+    assert model.last_execution_path == "cuda-knn"
+    knn_counts = dict(K.launch_counts)
+    x = table.vectors(model.features_col)
+    train = torch.as_tensor(model.features, dtype=torch.float32, device="cuda")
+    plan, line = knn_plan_line(K, x, train.shape[0], k)
+    assert plan.route == "long", line
+    log(f"  transform at k = {k}: {transform_ms:.3f} ms for {n} rows; plan "
+        f"{line}; launches {knn_counts}")
+    labels = torch.as_tensor(np.unique(model.labels), device="cuda")
+    _, label_idx = np.unique(model.labels, return_inverse=True)
+    label_idx = torch.as_tensor(label_idx, device="cuda")
+    flips = 0
+    for lo, hi in [(0, 40_000), (n - 33_333, n)]:
+        got = K.knn_topk_indices(x[lo:hi], train, k)
+        want = torch.cat([K.knn_topk_indices_plain(x[s:min(s + 16_384, hi)],
+                                                   train, k)
+                          for s in range(lo, hi, 16_384)])
+        f, _ = knn_tie_check(x[lo:hi], train, got, want, f"rows {lo}:{hi}")
+        vote = knn_mod._vote(got, label_idx, len(labels))
+        assert torch.equal(pred[lo:hi], labels.double()[vote]), (
+            f"rows {lo}:{hi}: transform differs from its kernel's neighbours")
+        differ = int((vote != knn_mod._vote(want, label_idx,
+                                            len(labels))).sum())
+        assert differ <= f, f"rows {lo}:{hi}: {differ} votes off the plain ones"
+        flips += f
+    log(f"  73,333 predictions against the plain version: tie-rows={flips}")
+    assert knn_counts["knn_topk_indices"] >= 2, knn_counts
+    del x, table, pred
+    torch.cuda.empty_cache()
+
+    spec = copy.deepcopy(runner.load_config(
+        str(LINEAR_CONFIGS["logisticregression"]))["logisticregression"])
+    spec["inputData"]["paramMap"].update(vectorDim=WIDE_PATH_D,
+                                         numValues=WIDE_PATH_ROWS)
+    max_iter = spec["stage"]["paramMap"]["maxIter"]
+    lb = spec["stage"]["paramMap"]["globalBatchSize"]
+    K.reset_launch_counts()
+    row = runner.run_benchmark("logisticregression-d2000", spec)
+    log("  benchmark row (d = 2,000):", json.dumps(row, sort_keys=True))
+    assert row["executionPath"] == "cuda-sgd", row["executionPath"]
+    table = runner.build_generator(spec).get_data()
+    estimator = runner.build_stage(spec)
+    model = estimator.fit(table)
+    assert estimator.last_execution_path == "cuda-sgd"
+    linear_counts = dict(K.launch_counts)
+    x = table.vectors(estimator.features_col)
+    y = table.column(estimator.label_col)
+    plan = K._sgd_card_plan(x, lb, "logistic")
+    assert plan.instance == "staged", plan
+    log(f"  LR fit at d = {WIDE_PATH_D}: plan {plan}; launches "
+        f"{linear_counts}")
+    w = torch.ones(WIDE_PATH_ROWS, device="cuda")
+    prm = optimizer.SGDParams(
+        learning_rate=estimator.learning_rate,
+        global_batch_size=estimator.global_batch_size, max_iter=max_iter,
+        tol=estimator.tol, reg=estimator.reg,
+        elastic_net=estimator.elastic_net)
+    with _uncounted(K):
+        plain, plain_loss, _ = optimizer.sgd_rounds(
+            K.sgd_batch_terms_plain, "logistic", prm, x, y, w,
+            torch.zeros(WIDE_PATH_D, device="cuda"))
+        kern, kern_loss, _ = optimizer.sgd_rounds(
+            K.sgd_batch_terms, "logistic", prm, x, y, w,
+            torch.zeros(WIDE_PATH_D, device="cuda"))
+    coeffs = model.coefficients
+    assert np.array_equal(kern.double().cpu().numpy(), coeffs), (
+        "the estimator's fit differs from the same rounds run directly")
+    plain = plain.double().cpu().numpy()
+    diff = np.abs(coeffs - plain)
+    log(f"  against the plain fit: max|coeff diff|={diff.max():.3g} "
+        f"(max|coeff|={np.abs(plain).max():.3g}), loss {float(kern_loss):.7g} "
+        f"vs {float(plain_loss):.7g}")
+    assert np.all(diff <= COEFF_RTOL * np.abs(plain) + COEFF_ATOL)
+    assert abs(float(kern_loss) - float(plain_loss)) <= COEFF_RTOL * abs(
+        float(plain_loss))
+    assert linear_counts["sgd_batch_terms"] >= 2 * max_iter, linear_counts
+    del x, y, w, table
+    torch.cuda.empty_cache()
+    log(f"  phase 23: {time.perf_counter() - started:.1f} s")
+    return knn_counts, linear_counts
 
 
 def _sparse_stream(Table, sparse, n, d, nnz_per_row, seed, striped=False):
@@ -6348,8 +6760,10 @@ def main() -> int:
     counts["meshes_processes"] = phase_meshes_over_processes(K, runner,
                                                              card)
     counts["feature_mesh"] = phase_feature_mesh(K, runner, card)
+    counts["knn_long"], counts["linear_wide"] = phase_long_instances(
+        K, runner, optimizer)
 
-    # step 23: the kernels line
+    # step 24: the kernels line
     line = {"kernels": [
         {"name": name, **{key: K.KERNELS[name][key]
                           for key in ("route", "source", "replaces")},
@@ -6358,6 +6772,13 @@ def main() -> int:
                               if c[name]},
          **measured[name]}
         for name in K.KERNELS]}
+    line["kernels"] += [
+        {"name": name, **{key: K.KERNELS[wrapper][key]
+                          for key in ("route", "source", "replaces")},
+         "launches": counts[path][wrapper],
+         "launches_by_path": {path: counts[path][wrapper]},
+         **measured[name]}
+        for name, wrapper, path in INSTANCE_ROWS]
     missing = [r["name"] for r in line["kernels"] if r["launches"] < 1]
     assert not missing, f"kernels the main paths never launched: {missing}"
     for path, path_counts in counts.items():

@@ -2,7 +2,8 @@
 // train set, in plain fp32 CUDA C++.
 //
 // Replaces, in flink_ml_tpu/ops/pallas_kernels.py:
-//   knn_tile_kernel<KCAP>, knn_merge_kernel<KCAP>, knn_topk_wide_kernel
+//   knn_tile_kernel<KCAP>, knn_merge_kernel<KCAP>, knn_long_kernel<KCAP>,
+//   knn_long_merge_kernel<KCAP>, knn_topk_wide_kernel
 //     <- _knn_kernel (:421), pallas_call at :482
 //
 // Output: for each test row x_i of x (n, d), the indices of the k train rows
@@ -84,7 +85,13 @@
 //   steps for knn_phase_cycles_read, and with -DKNN_NO_SELECTION the tiles
 //   skip selection: scripts/port_knn_phases.py builds and times both.
 //
-// Lists longer than 32 take knn_topk_wide_kernel, with the same insertion
+// Lists of 33 to 256 entries take knn_long_kernel<KCAP> (KCAP 64, 128 or
+// 256; its comment below): the same engine, split and TMA copies, with the
+// lists and a buffer of candidates a row in shared memory, merged in
+// batches, and ordered by the key (distance, index), so that any merge
+// order, and so any split, gives the same lists.
+//
+// Lists longer than 256 take knn_topk_wide_kernel, with the same insertion
 // rule: the block stages its 128 test rows and a tile of kWideT train rows
 // through shared memory kWideD columns at a time (the test chunk
 // transposed, so that each thread reads its own row without bank
@@ -626,7 +633,610 @@ cudaError_t launch_tiled(const CUtensorMap& train_map, const float* x,
   return cudaGetLastError();
 }
 
-// -- wide kernel (k > 32) -------------------------------------------------
+// -- long-list kernel (32 < k <= 256) ---------------------------------------
+
+constexpr int kLongPad = 4;  // floats after each row's list and buffer
+constexpr int kNoIndex = 0x7fffffff;  // index of an empty list entry
+constexpr int64_t kSmemBlockMax = 232448;  // dynamic shared memory a block may use
+
+// Test rows a thread scores and a block holds: the tiled kernel's 8 and 128
+// for lists of up to 64 entries; longer lists of 128 rows with their
+// buffers would not fit a block's shared memory, so those instances score
+// 64 rows a block, 4 a thread, against the same 128-row train tiles.
+__host__ __device__ constexpr int long_rows_per_thread(int kcap) {
+  return kcap <= 64 ? 8 : 4;
+}
+__host__ __device__ constexpr int long_tile_rows(int kcap) {
+  return 16 * long_rows_per_thread(kcap);
+}
+// Keys a row's buffer holds before they are merged into its list: 32 for
+// lists of up to 64 entries, 64 for longer ones, whose merges cost more a
+// list entry (scripts/port_knn_phases.py times the phases).
+__host__ __device__ constexpr int long_buffer(int kcap) {
+  return kcap <= 64 ? 32 : 64;
+}
+
+__host__ __device__ constexpr int64_t long_smem_bytes_for(int kcap, int dpad,
+                                                          bool xres) {
+  return 4 * ((int64_t)(xres ? dpad * long_tile_rows(kcap)
+                             : 2 * kDK * long_tile_rows(kcap)) +
+              2 * kDK * kTN + 2 * kTN) +
+         8 * (int64_t)long_tile_rows(kcap) *
+             (kcap + long_buffer(kcap) + 2 * kLongPad) +
+         16;  // two mbarriers
+}
+
+// The x tile stays resident where it and the lists fit beside the train
+// chunks; else it streams beside them, as in the tiled kernel past kXResMax.
+__host__ __device__ constexpr bool long_x_resident(int kcap, int dpad) {
+  return dpad <= kXResMax &&
+         long_smem_bytes_for(kcap, dpad, true) <= kSmemBlockMax;
+}
+
+__host__ __device__ constexpr int64_t long_smem_bytes(int kcap, int dpad) {
+  return long_smem_bytes_for(kcap, dpad, long_x_resident(kcap, dpad));
+}
+
+// Key order: distance, then train index. Every list is the k smallest keys
+// it has seen, in key order, so the order in which candidates or lists
+// arrive cannot change it.
+__device__ __forceinline__ bool key_less(float da, int ia, float db, int ib) {
+  return da < db || (da == db && ia < ib);
+}
+
+struct Key {
+  float d;
+  int i;
+};
+
+// Merges one row's buffer of nb keys (bd, bi; nb <= CB, in no order) into
+// its sorted list of k keys (rd, ri), keeping the k smallest, and returns
+// the new k-th key. The 16 lanes of the half-warp that owns the
+// row call it together (lane hl of the half-warp; every lane of the warp
+// calls it at once, for its half's own row): the buffer is sorted by a
+// bitonic network over 16 lanes (CB / 16 keys a lane, empty keys last),
+// written back, then each lane finds by binary search (merge path) how many
+// of the outputs before its own ceil(k / 16) come from the list, merges its
+// outputs in registers and writes them once every lane has read.
+template <int KCAP, int CB>
+__device__ __forceinline__ Key long_merge(float* rd, int* ri, float* bd,
+                                          int* bi, int nb, int k, int hl) {
+  constexpr int EL = CB / 16, PER = KCAP / 16;
+  const float inf = __int_as_float(0x7f800000);
+  __syncwarp();  // the lanes' appends to the buffer are visible
+  float ed[EL];
+  int ei[EL];
+#pragma unroll
+  for (int s = 0; s < EL; ++s) {
+    const int i = 16 * s + hl;
+    ed[s] = i < nb ? bd[i] : inf;
+    ei[s] = i < nb ? bi[i] : kNoIndex;
+  }
+  // key 16 s + hl of the network in slot s of lane hl
+#pragma unroll
+  for (int size = 2; size <= CB; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      float nd[EL];
+      int ni[EL];
+#pragma unroll
+      for (int s = 0; s < EL; ++s) {
+        const int i = 16 * s + hl;
+        float od;
+        int oi;
+        if (stride >= 16) {  // slot s ^ (stride / 16) of this lane
+          od = ed[(s ^ (stride >> 4)) & (EL - 1)];
+          oi = ei[(s ^ (stride >> 4)) & (EL - 1)];
+        } else {
+          od = __shfl_xor_sync(kFull, ed[s], stride, 16);
+          oi = __shfl_xor_sync(kFull, ei[s], stride, 16);
+        }
+        // the lower key of a pair keeps the smaller where its run ascends
+        const bool want_min = ((i & stride) == 0) == ((i & size) == 0);
+        const bool take = want_min ? key_less(od, oi, ed[s], ei[s])
+                                   : key_less(ed[s], ei[s], od, oi);
+        nd[s] = take ? od : ed[s];
+        ni[s] = take ? oi : ei[s];
+      }
+#pragma unroll
+      for (int s = 0; s < EL; ++s) {
+        ed[s] = nd[s];
+        ei[s] = ni[s];
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < EL; ++s) {
+    bd[16 * s + hl] = ed[s];
+    bi[16 * s + hl] = ei[s];
+  }
+  __syncwarp();
+  // outputs [o0, o1) of this lane; the list wins equal keys (only empty
+  // ones are equal)
+  const int per = (k + 15) / 16;
+  const int o0 = min(k, hl * per), o1 = min(k, o0 + per);
+  int lo = max(0, o0 - nb), hi = o0;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (!key_less(bd[o0 - 1 - mid], bi[o0 - 1 - mid], rd[mid], ri[mid]))
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  int ia = lo, ib = o0 - lo;  // ia stays below k: o1 <= k outputs
+  float od[PER];
+  int oi[PER];
+#pragma unroll
+  for (int e = 0; e < PER; ++e) {
+    if (o0 + e < o1) {
+      const bool from_a =
+          ib >= nb || !key_less(bd[ib], bi[ib], rd[ia], ri[ia]);
+      od[e] = from_a ? rd[ia] : bd[ib];
+      oi[e] = from_a ? ri[ia] : bi[ib];
+      ia += from_a;
+      ib += !from_a;
+    }
+  }
+  __syncwarp();  // every lane has read the old list
+#pragma unroll
+  for (int e = 0; e < PER; ++e) {
+    if (o0 + e < o1) {
+      rd[o0 + e] = od[e];
+      ri[o0 + e] = oi[e];
+    }
+  }
+  __syncwarp();
+  return Key{rd[k - 1], ri[k - 1]};
+}
+
+// knn_long_kernel<KCAP>: 32 < k <= KCAP (64, 128 or 256). The tiled
+// kernel's engine: blocks of (test tile, train split), train chunks of 32 x
+// 128 by TMA on an mbarrier into a double buffer, the next one in flight
+// while the FMAs run, PM x 8 dots a thread in registers (test rows p of a
+// thread: (p / 4) * 64 + ty * 4 + p % 4; train rows tx * 4 + {0..3} and 64
+// + tx * 4 + {0..3}; PM = 8, 128 x 128 tiles, for lists of up to 64, PM =
+// 4 and 64 x 128 tiles for longer ones), one fma chain per dot in column
+// order. What differs is the list: each test row's sorted list of k keys
+// lives in shared memory beside a buffer of CB keys (long_buffer), both
+// owned by the 16 lanes of the half-warp that holds the row's candidates;
+// each lane keeps its rows' k-th keys and buffer counts in registers.
+// After a tile, the candidates below a row's k-th key (every one on a
+// split's first tiles, a handful a row once the lists are full) go to its
+// buffer a column of the tile at a time (at most 16 keys: a ballot gives
+// each its slot). Where a column's keys would overflow the buffer of
+// either half's row, both rows' buffers are merged into their lists
+// (long_merge), the rest of the row's keys are held against the lowered
+// k-th keys, and appended. So a key costs a few instructions and a merge
+// handles up to CB of them, where inserting keys one at a time into a list
+// of up to 256 cost a pass over the list each. The rows and columns with
+// keys are walked in loops, not unrolled, and the merge has one call site
+// in the tile loop: unrolled over every (row, column), the kernel's code
+// outgrew the instruction cache and every phase of the tile loop ran two
+// to six times slower (scripts/port_knn_phases.py). Shared memory, in this
+// order: the tiled kernel's x tile, train chunks and norms; the lists
+// ([TM][KCAP + kLongPad] distances, then as many indices); the buffers
+// ([TM][CB + kLongPad], the same); two mbarriers. The pads put the rows of
+// a warp's two halves (4 apart) 16 banks apart. Train rows past nt (the
+// padding) are no candidates. With one split the lanes write the indices;
+// with more, each (test tile, split) writes its list to a (splits, n, k)
+// scratch and knn_long_merge_kernel<KCAP> merges them; a split holding
+// fewer than k rows leaves empty keys (+inf, kNoIndex) that never outrank
+// a real one. Built with -DKNN_PHASE_CLOCKS or -DKNN_NO_SELECTION, it
+// keeps phase cycles or skips selection as the tiled kernel does.
+template <int KCAP>
+__global__ void __launch_bounds__(kTileThreads, 1)
+    knn_long_kernel(const __grid_constant__ CUtensorMap train_map,
+                    const float* __restrict__ x,
+                    const float* __restrict__ tsq, int* __restrict__ out,
+                    float* __restrict__ sd, int* __restrict__ si, int64_t n,
+                    int d, int dpad, int ntp, int nt, int k, int splits) {
+  constexpr int PM = long_rows_per_thread(KCAP), TM = long_tile_rows(KCAP);
+  constexpr int CB = long_buffer(KCAP);
+  constexpr int LS = KCAP + kLongPad, BS = CB + kLongPad, SL = KCAP / 16;
+  extern __shared__ __align__(128) float smem[];
+  const bool xres = long_x_resident(KCAP, dpad);
+  const int nchunks = dpad / kDK;
+  float* xs = smem;
+  float* ts = xs + (xres ? dpad * TM : 2 * kDK * TM);
+  float* tsq_s = ts + 2 * kDK * kTN;
+  float* ld = tsq_s + 2 * kTN;
+  int* li = reinterpret_cast<int*>(ld + TM * LS);
+  float* bd = reinterpret_cast<float*>(li + TM * LS);
+  int* bi = reinterpret_cast<int*>(bd + TM * BS);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(bi + TM * BS);
+  const float inf = __int_as_float(0x7f800000);
+
+  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
+  const int half = t & 16;
+  const int64_t i0 = (int64_t)blockIdx.x * TM;
+  const int tiles = ntp / kTN;
+  const int tile0 = (int)((int64_t)blockIdx.y * tiles / splits);
+  const int tile1 = (int)((int64_t)(blockIdx.y + 1) * tiles / splits);
+  const int nsteps = (tile1 - tile0) * nchunks;
+
+  auto issue = [&](int s) {
+    const int tile = tile0 + s / nchunks, c = s - (s / nchunks) * nchunks;
+    const int b = s & 1, j0 = tile * kTN;
+    if (t == 0)
+      tma_chunk(ts + b * kDK * kTN, &train_map, j0, c * kDK, &bars[b]);
+    if (c == 0 && t < kTN / 4)
+      cp_async16(tsq_s + (tile & 1) * kTN + 4 * t, tsq + j0 + 4 * t);
+    if (!xres) {
+      float* xdst = xs + b * kDK * TM;
+      for (int e = t; e < kDK * TM; e += kTileThreads) {
+        const int f = e / TM, i = e - f * TM, col = c * kDK + f;
+        const bool ok = i0 + i < n && col < d;
+        cp_async4(xdst + e, ok ? x + (i0 + i) * d + col : x, ok ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  if (t == 0) {
+    mbar_init(&bars[0]);
+    mbar_init(&bars[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int e = t; e < TM * LS; e += kTileThreads) {
+    ld[e] = inf;
+    li[e] = kNoIndex;
+  }
+  __syncthreads();
+  if (nsteps > 0) issue(0);
+  if (xres) {
+    for (int e = t; e < dpad * TM; e += kTileThreads) {
+      const int f = e / TM, i = e - f * TM;
+      xs[e] = (i0 + i < n && f < d) ? x[(i0 + i) * d + f] : 0.f;
+    }
+  }
+
+  float kd[PM];  // the k-th key of each of this thread's rows
+  int ki[PM];
+  int nb[PM];  // the keys in each row's buffer
+#pragma unroll
+  for (int p = 0; p < PM; ++p) {
+    kd[p] = inf;
+    ki[p] = kNoIndex;
+    nb[p] = 0;
+  }
+  float acc[PM][8];
+#pragma unroll
+  for (int p = 0; p < PM; ++p)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
+
+#ifdef KNN_PHASE_CLOCKS
+  long long phase_c_[kPhases] = {0, 0, 0, 0, 0, 0};
+#endif
+  for (int s = 0; s < nsteps; ++s) {
+    PHASE_START();
+    mbar_wait(&bars[s & 1], (s >> 1) & 1);
+    cp_async_wait_all();
+    PHASE_END(0);
+    __syncthreads();  // step s is in shared memory; step s - 1 is read
+    PHASE_END(1);
+    if (s + 1 < nsteps) issue(s + 1);  // in flight during these FMAs
+    PHASE_END(2);
+    const int c = s % nchunks, b = s & 1;
+    const float* xc = xs + (xres ? c : b) * kDK * TM;
+    const float* tc = ts + b * kDK * kTN;
+#pragma unroll
+    for (int kk = 0; kk < kDK; ++kk) {
+      float a[PM];
+      const float4 a0 = *reinterpret_cast<const float4*>(xc + kk * TM + ty * 4);
+      a[0] = a0.x;
+      a[1] = a0.y;
+      a[2] = a0.z;
+      a[3] = a0.w;
+      if constexpr (PM == 8) {
+        const float4 a1 =
+            *reinterpret_cast<const float4*>(xc + kk * TM + 64 + ty * 4);
+        a[4] = a1.x;
+        a[5] = a1.y;
+        a[6] = a1.z;
+        a[7] = a1.w;
+      }
+      const float4 b0 = *reinterpret_cast<const float4*>(tc + kk * kTN + tx * 4);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(tc + kk * kTN + 64 + tx * 4);
+      const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int p = 0; p < PM; ++p)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) acc[p][q] = fmaf(a[p], bb[q], acc[p][q]);
+    }
+    PHASE_END(3);
+    if (c != nchunks - 1) continue;
+#ifdef KNN_NO_SELECTION
+    {  // the distance tiles alone: fold the dots into a sink
+      float z = 0.f;
+#pragma unroll
+      for (int p = 0; p < PM; ++p)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          z += acc[p][q];
+          acc[p][q] = 0.f;
+        }
+      if (z == 1234.5f) out[0] = 7;
+      continue;
+    }
+#endif
+
+    // the tile is done: distances, then the keys below each row's k-th
+    // into its buffer
+    const int tile = tile0 + s / nchunks, j0 = tile * kTN;
+    const float* tq = tsq_s + (tile & 1) * kTN;
+    const float4 q0 = *reinterpret_cast<const float4*>(tq + tx * 4);
+    const float4 q1 = *reinterpret_cast<const float4*>(tq + 64 + tx * 4);
+    const float tn[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+    // row p's keys below its k-th: bit q of byte p % 4 of keep[p / 4];
+    // column q of this lane is train row j0 + (q & 4) * 16 + 4 * tx + (q &
+    // 3). One warp reduction finds the rows with keys in either half; their
+    // keys go to the row's buffer a column at a time, while it has room,
+    // and a row whose column does not fit keeps the rest in keep, for the
+    // merge below.
+    unsigned keep[PM / 4], rows = 0, pending = 0;
+#pragma unroll
+    for (int h = 0; h < PM / 4; ++h) keep[h] = 0u;
+#pragma unroll
+    for (int p = 0; p < PM; ++p) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) acc[p][q] = fmaf(-2.f, acc[p][q], tn[q]);
+      unsigned m = 0;
+      if (row_min(acc[p]) <= kd[p]) {  // rare once the lists are full
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int j = j0 + (q & 4) * 16 + 4 * tx + (q & 3);
+          m |= (unsigned)(j < nt && key_less(acc[p][q], j, kd[p], ki[p])) << q;
+        }
+      }
+      keep[p >> 2] |= m << (8 * (p & 3));
+      rows |= (unsigned)(m != 0) << p;
+    }
+    rows = __reduce_or_sync(kFull, rows);  // rows with keys in either half
+#pragma unroll
+    for (int p = 0; p < PM; ++p) {
+      if (!((rows >> p) & 1u)) continue;
+      unsigned m = (keep[p >> 2] >> (8 * (p & 3))) & 0xffu;
+      // the columns with keys of row p in either half, in a loop (one copy
+      // of its code a row keeps the kernel in the instruction cache)
+      unsigned cols = __reduce_or_sync(kFull, m);
+      const int rl = (p >> 2) * 64 + ty * 4 + (p & 3);
+      while (cols) {
+        const int q = __ffs(cols) - 1;
+        cols &= cols - 1;
+        const bool in = (m >> q) & 1u;
+        const unsigned mine = (__ballot_sync(kFull, in) >> half) & 0xffffu;
+        if (__any_sync(kFull, nb[p] + __popc(mine) > CB)) break;
+        if (in) {
+          float val = acc[p][0];
+#pragma unroll
+          for (int r = 1; r < 8; ++r) val = q == r ? acc[p][r] : val;
+          const int at = rl * BS + nb[p] + __popc(mine & ((1u << tx) - 1u));
+          bd[at] = val;
+          bi[at] = j0 + (q & 4) * 16 + 4 * tx + (q & 3);
+        }
+        nb[p] += __popc(mine);
+        m &= ~(1u << q);
+      }
+      keep[p >> 2] = (keep[p >> 2] & ~(0xffu << (8 * (p & 3)))) |
+                     (m << (8 * (p & 3)));
+      pending |= (unsigned)(m != 0) << p;
+    }
+    pending = __reduce_or_sync(kFull, pending);
+    PHASE_END(4);
+    // rows whose buffer filled (every row on a split's first tiles, rare
+    // after): merge, hold the rest of the keys against the new k-th, append
+    // them, and again while they do not fit; a loop over the rows, so that
+    // one copy of the merge keeps the kernel in the instruction cache
+    while (pending) {
+      const int p = __ffs(pending) - 1;
+      pending &= pending - 1;
+      float v[8], rkd = kd[0];
+      int rki = ki[0], rnb = nb[0];
+      unsigned mm = keep[0] & 0xffu;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v[q] = acc[0][q];
+#pragma unroll
+      for (int r = 1; r < PM; ++r) {
+        if (p == r) {
+#pragma unroll
+          for (int q = 0; q < 8; ++q) v[q] = acc[r][q];
+          rkd = kd[r];
+          rki = ki[r];
+          rnb = nb[r];
+          mm = (keep[r >> 2] >> (8 * (r & 3))) & 0xffu;
+        }
+      }
+      const int rl = (p >> 2) * 64 + ty * 4 + (p & 3);
+      for (;;) {
+        const Key kth = long_merge<KCAP, CB>(ld + rl * LS, li + rl * LS,
+                                             bd + rl * BS, bi + rl * BS, rnb,
+                                             k, tx);
+        rkd = kth.d;
+        rki = kth.i;
+        rnb = 0;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int j = j0 + (q & 4) * 16 + 4 * tx + (q & 3);
+          if (!key_less(v[q], j, rkd, rki)) mm &= ~(1u << q);
+        }
+        const unsigned cols = __reduce_or_sync(kFull, mm);
+        bool full = false;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          if (!((cols >> q) & 1u)) continue;
+          const bool in = (mm >> q) & 1u;
+          const unsigned mine = (__ballot_sync(kFull, in) >> half) & 0xffffu;
+          if (__any_sync(kFull, rnb + __popc(mine) > CB)) {
+            full = true;
+            break;
+          }
+          if (in) {
+            const int at = rl * BS + rnb + __popc(mine & ((1u << tx) - 1u));
+            bd[at] = v[q];
+            bi[at] = j0 + (q & 4) * 16 + 4 * tx + (q & 3);
+          }
+          rnb += __popc(mine);
+          mm &= ~(1u << q);
+        }
+        if (!full) break;  // the same in every lane
+      }
+#pragma unroll
+      for (int r = 0; r < PM; ++r) {
+        if (p == r) {
+          kd[r] = rkd;
+          ki[r] = rki;
+          nb[r] = rnb;
+        }
+      }
+    }
+    PHASE_END(5);
+#pragma unroll
+    for (int p = 0; p < PM; ++p)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
+  }
+#ifdef KNN_PHASE_CLOCKS
+  if (blockIdx.x == 0 && blockIdx.y == 0)
+    for (int q = 0; q < kPhases; ++q)
+      knn_phase_cycles[t * kPhases + q] = phase_c_[q];
+#endif
+  // what the buffers still hold
+  unsigned rows = 0;
+#pragma unroll
+  for (int p = 0; p < PM; ++p) rows |= (unsigned)(nb[p] > 0) << p;
+  rows = __reduce_or_sync(kFull, rows);
+  while (rows) {
+    const int p = __ffs(rows) - 1;
+    rows &= rows - 1;
+    int rnb = nb[0];
+#pragma unroll
+    for (int r = 1; r < PM; ++r) rnb = p == r ? nb[r] : rnb;
+    const int rl = (p >> 2) * 64 + ty * 4 + (p & 3);
+    long_merge<KCAP, CB>(ld + rl * LS, li + rl * LS, bd + rl * BS,
+                         bi + rl * BS, rnb, k, tx);
+  }
+
+  // each lane writes its entries of its rows
+#pragma unroll
+  for (int p = 0; p < PM; ++p) {
+    const int rl = (p >> 2) * 64 + ty * 4 + (p & 3);
+    const int64_t row = i0 + rl;
+    if (row >= n) continue;
+#pragma unroll
+    for (int s = 0; s < SL; ++s) {
+      const int j = 16 * s + tx;
+      if (j >= k) continue;
+      if (splits == 1) {
+        out[row * k + j] = li[rl * LS + j];
+      } else {
+        const int64_t at = ((int64_t)blockIdx.y * n + row) * k + j;
+        sd[at] = ld[rl * LS + j];
+        si[at] = li[rl * LS + j];
+      }
+    }
+  }
+}
+
+constexpr int kLongMergeWarps = 4;  // rows of a merge block, a warp each
+
+// Each row's splits' sorted lists of k keys, (splits, n, k), folded in split
+// order into the row's k smallest keys: a warp per row, each fold a
+// merge-path merge of two sorted lists of which the first k keys are kept
+// (lane l writes outputs [l * ceil(k / 32), ...) after a binary search for
+// how many of the outputs before them come from each list).
+template <int KCAP>
+__global__ void __launch_bounds__(32 * kLongMergeWarps)
+    knn_long_merge_kernel(const float* __restrict__ sd,
+                          const int* __restrict__ si, int* __restrict__ out,
+                          int64_t n, int k, int splits) {
+  __shared__ float md[kLongMergeWarps][3][KCAP];
+  __shared__ int mi[kLongMergeWarps][3][KCAP];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int64_t row = (int64_t)blockIdx.x * kLongMergeWarps + warp;
+  if (row >= n) return;  // the whole warp
+  int a = 0, c = 2;  // the kept list and the fold's output; 1 the split's
+  for (int j = lane; j < k; j += 32) {
+    md[warp][0][j] = sd[row * k + j];
+    mi[warp][0][j] = si[row * k + j];
+  }
+  const int per = (k + 31) / 32;
+  const int o0 = min(k, lane * per), o1 = min(k, o0 + per);
+  for (int s = 1; s < splits; ++s) {
+    const int64_t base = ((int64_t)s * n + row) * k;
+    for (int j = lane; j < k; j += 32) {
+      md[warp][1][j] = sd[base + j];
+      mi[warp][1][j] = si[base + j];
+    }
+    __syncwarp();
+    const float* ad = md[warp][a];
+    const int* ai = mi[warp][a];
+    const float* bd = md[warp][1];
+    const int* bi = mi[warp][1];
+    // how many of the first o0 outputs come from the kept list (which wins
+    // equal keys: only empty ones are equal)
+    int lo = 0, hi = o0;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (!key_less(bd[o0 - 1 - mid], bi[o0 - 1 - mid], ad[mid], ai[mid]))
+        lo = mid + 1;
+      else
+        hi = mid;
+    }
+    int ia = lo, ib = o0 - lo;  // both stay below k: o1 <= k outputs
+    for (int o = o0; o < o1; ++o) {
+      const bool from_a = !key_less(bd[ib], bi[ib], ad[ia], ai[ia]);
+      md[warp][c][o] = from_a ? ad[ia] : bd[ib];
+      mi[warp][c][o] = from_a ? ai[ia] : bi[ib];
+      if (from_a)
+        ++ia;
+      else
+        ++ib;
+    }
+    __syncwarp();
+    const int tmp = a;
+    a = c;
+    c = tmp;
+  }
+  for (int j = lane; j < k; j += 32) out[row * k + j] = mi[warp][a][j];
+}
+
+template <int KCAP>
+cudaError_t launch_long(const CUtensorMap& train_map, const float* x,
+                        const float* tsq, int* out, float* scratch, int64_t n,
+                        int d, int dpad, int ntp, int nt, int k, int splits,
+                        cudaStream_t stream) {
+  const int smem = (int)long_smem_bytes(KCAP, dpad);
+  cudaError_t e = cudaFuncSetAttribute(
+      knn_long_kernel<KCAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return e;
+  float* sd = splits > 1 ? scratch : nullptr;
+  int* si = splits > 1 ? reinterpret_cast<int*>(scratch + splits * n * k)
+                       : nullptr;
+  constexpr int TM = long_tile_rows(KCAP);
+  const dim3 grid((unsigned)((n + TM - 1) / TM), (unsigned)splits);
+  knn_long_kernel<KCAP><<<grid, kTileThreads, smem, stream>>>(
+      train_map, x, tsq, out, sd, si, n, d, dpad, ntp, nt, k, splits);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  knn_long_merge_kernel<KCAP>
+      <<<(unsigned)((n + kLongMergeWarps - 1) / kLongMergeWarps),
+         32 * kLongMergeWarps, 0, stream>>>(sd, si, out, n, k, splits);
+  return cudaGetLastError();
+}
+
+const void* long_kernel_of(int kcap) {
+  switch (kcap) {
+    case 64: return (const void*)knn_long_kernel<64>;
+    case 128: return (const void*)knn_long_kernel<128>;
+    case 256: return (const void*)knn_long_kernel<256>;
+    default: return nullptr;
+  }
+}
+
+// -- wide kernel (k > 256) ------------------------------------------------
 
 constexpr int kThreads = 128;  // test rows per block, one per thread
 
@@ -791,6 +1401,57 @@ int knn_topk_tiled(const float* x, const float* trainT, const float* tsq,
     return (int)launch_tiled<32>(map, x, tsq, out, scratch, (int64_t)n, d,
                                  dpad, ntp, k, splits, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Shared memory of a knn_long_kernel<kcap> block at this padded width.
+long long knn_long_smem_bytes(int kcap, int dpad) {
+  return long_smem_bytes(kcap, dpad);
+}
+
+// Resident blocks of one SM for knn_long_kernel<kcap> at this padded width.
+int knn_long_blocks_per_sm(int kcap, int dpad, int* out) {
+  const void* fn = long_kernel_of(kcap);
+  if (fn == nullptr || dpad < kDK || dpad % kDK != 0)
+    return (int)cudaErrorInvalidValue;
+  const int smem = (int)long_smem_bytes(kcap, dpad);
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, fn, kTileThreads, (size_t)smem);
+}
+
+// The (n, k) int32 indices of the k nearest train rows of each test row,
+// 1 <= k <= kcap (64, 128 or 256), through the long-list kernel: trainT,
+// tsq and the splits as for knn_topk_tiled, nt the real train rows (k <=
+// nt <= ntp), with a scratch of 2 splits n k floats when splits > 1.
+int knn_topk_long(const float* x, const float* trainT, const float* tsq,
+                  int* out, float* scratch, long long n, int d, int dpad,
+                  int ntp, int nt, int k, int kcap, int splits,
+                  void* stream) {
+  if (n < 1 || d < 1 || dpad < d || dpad % kDK != 0 || ntp < kTN ||
+      ntp % kTN != 0 || nt < 1 || nt > ntp || k < 1 || k > kcap ||
+      k > nt || long_kernel_of(kcap) == nullptr || splits < 1 ||
+      splits > 65535 || splits > ntp / kTN || (splits > 1 && !scratch) ||
+      (int64_t)(n + long_tile_rows(kcap) - 1) / long_tile_rows(kcap) >
+          0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  CUtensorMap map;
+  const cudaError_t e = encode_train_map(&map, trainT, dpad, ntp);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t rows = (int64_t)n;
+  switch (kcap) {
+    case 64:
+      return (int)launch_long<64>(map, x, tsq, out, scratch, rows, d, dpad,
+                                  ntp, nt, k, splits, s);
+    case 128:
+      return (int)launch_long<128>(map, x, tsq, out, scratch, rows, d, dpad,
+                                   ntp, nt, k, splits, s);
+    default:
+      return (int)launch_long<256>(map, x, tsq, out, scratch, rows, d, dpad,
+                                   ntp, nt, k, splits, s);
+  }
 }
 
 // The same for any k <= nt through the wide instance, with a scratch of

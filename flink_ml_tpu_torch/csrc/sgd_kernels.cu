@@ -4,8 +4,10 @@
 //
 // Replaces, in flink_ml_tpu/ops/pallas_kernels.py:
 //   sgd_rows_kernel<LOSS, V, VEC4>  <- _sgd_terms_kernel (:206), pallas_call
-//   sgd_terms_kernel<LOSS>             at :282 (rows of at most kRegCols
-//                                      columns, and wider rows)
+//   sgd_staged_kernel<LOSS, NREG>      at :282 (rows of at most kRegCols
+//   sgd_terms_kernel<LOSS>             columns; wider rows as far as shared
+//                                      memory holds a ring of them; wider
+//                                      still)
 //   sgd_combine_kernel              <- the accumulation of _sgd_terms_kernel
 //                                      into out_ref across sequential grid
 //                                      steps (:231)
@@ -39,13 +41,37 @@
 // memory written but the block's partial: the warps' sums meet in shared
 // memory once and are added in warp order.
 //
-// Stage 1, wider rows (sgd_terms_kernel, the kernel of the port's first
-// slice): a block stages a tile of rows `dc` columns at a time in shared
-// memory, builds each row's dot across the column chunks, then takes a
-// second pass over the chunks for mult * x (the last chunk is still staged,
-// so it is read once; the others twice, the second time mostly from L2).
-// Column j of the block's partial is only ever touched by thread j % 256 (dc
-// is d or a multiple of 256), the weight and loss sums by thread 0.
+// Stage 1, rows of kRegCols + 1 up to about 13,000 columns
+// (sgd_staged_kernel): a persistent grid, each block owning one contiguous
+// run of window rows (the runs differ by at most one row; `sgd_runs`
+// mirrors them), which it streams through a ring of kRing stages in shared
+// memory, `rows` whole rows a stage. A stage is one contiguous run of x, so
+// it comes by 16-byte cp.async (where x is 16-byte aligned: the copies start
+// at the aligned address at or before the stage's first float, and the last
+// one stops at its last float) or 4-byte cp.async, with the stage's labels
+// and masked weights, kRing - 1 stages in flight while one is consumed (at d
+// = 2,000 a block keeps 64 KB in flight). Every byte of the window is read
+// from device memory once, and both uses read the one staged copy: thread t
+// owns columns t + 256 j, keeping their coefficients and running sums in
+// registers for j < NREG (4, 8 or 16 from the row width; ptxas' report,
+// printed by chip_smoke.py's phase 1, shows no spills at two blocks per
+// SM) and in shared memory past that, 4,096 columns. Per stage: each
+// thread's partial dots of the
+// stage's rows, four rows summed over the warp together (rows_sum), the
+// warps' sums added in warp order by thread r for row r, which evaluates
+// its terms; then every thread adds mult * x into its columns in row order.
+// Each column's sum has one owner, so the block's partial needs no
+// reduction; thread r keeps row slot r's loss and weight sums, added in
+// slot order at the end.
+//
+// Stage 1, rows wider than the ring holds (sgd_terms_kernel, the kernel of
+// the port's first slice): a block stages a tile of rows `dc` columns at a
+// time in shared memory, builds each row's dot across the column chunks,
+// then takes a second pass over the chunks for mult * x (the last chunk is
+// still staged, so it is read once; the others twice, the second time
+// mostly from L2). Column j of the block's partial is only ever touched by
+// thread j % 256 (dc is d or a multiple of 256), the weight and loss sums
+// by thread 0.
 //
 // Stage 2 (sgd_combine_kernel): the per-block partials summed in the fixed
 // two-level order of reduce_partials (kmeans_kernels.cu, kept here as its
@@ -64,6 +90,17 @@
 //
 // Shared memory, in floats:
 //   sgd_rows_kernel: part [kWarps][d + 2], the warps' partials;
+//   sgd_staged_kernel, in this order (staged_smem_floats; ops/kernels.py
+//   `_sgd_staged_layout` mirrors it and passes rows and the byte count):
+//     ring [kRing][stage]  the stages, each up to 3 floats before its
+//                          first row, then its rows (stage_floats)
+//     ys, wv [kRing][rows] each stage's labels and masked weights
+//     red  [rows4][kWarps] the warps' sums of each row's dot (rows4: rows
+//                          rounded up to a multiple of 4)
+//     mult [rows]          the stage's multipliers
+//     slot [2][rows]       the row slots' weight and loss sums at the end
+//     gs, cs [over]        the running sums and the coefficients of the
+//                          columns past the registers (staged_over)
 //   sgd_terms_kernel, in this order (ops/kernels.py `_sgd_layout` sizes it
 //   and passes rows, dc and the byte count):
 //     xs   [rows][dc]  a column chunk of the row tile; first, so 16-byte
@@ -460,6 +497,229 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// Stage 1 for rows wider than kRegCols, streamed whole through a ring of
+// shared memory.
+
+constexpr int kRing = 3;           // stages of the ring
+constexpr int kStageMaxRows = 16;  // rows of a stage at most
+constexpr int64_t kSmemBlockMax = 232448;  // dynamic shared memory a block
+
+// Columns of a row a thread keeps in registers, kThreads apart: NREG of the
+// staged instance for rows of width d. At most 16: with 32, ptxas held
+// the instance to 128 registers and spilled, and d = 6,001 ran slower on
+// an H100 than with the columns past 4,096 in shared memory.
+__host__ __device__ constexpr int staged_nreg(int d) {
+  return d <= 4 * kThreads ? 4 : d <= 8 * kThreads ? 8 : 16;
+}
+
+// Floats of one ring stage of `rows` rows: up to 3 before its first row
+// (the 16-byte copies start at an aligned address), rounded up to 4.
+__host__ __device__ constexpr int64_t stage_floats(int d, int rows) {
+  return ((int64_t)rows * d + 6) / 4 * 4;
+}
+
+// Columns a thread owns past its registers, over all threads.
+__host__ __device__ constexpr int64_t staged_over(int d) {
+  return ((int64_t)d + kThreads - 1) / kThreads * kThreads >
+                 (int64_t)kThreads * staged_nreg(d)
+             ? ((int64_t)d + kThreads - 1) / kThreads * kThreads -
+                   (int64_t)kThreads * staged_nreg(d)
+             : 0;
+}
+
+__host__ __device__ constexpr int64_t staged_smem_floats(int d, int rows) {
+  return kRing * stage_floats(d, rows) + 2 * kRing * (int64_t)rows +
+         (int64_t)(rows + 3) / 4 * 4 * kWarps + 3 * (int64_t)rows +
+         2 * staged_over(d);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes to shared memory, of which the first `bytes` from src and the
+// rest zeros (src 16-byte aligned; nothing past src + bytes is read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// 4 bytes to shared memory, from src where `bytes` is 4, a zero where 0.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <int LOSS, int NREG>
+__global__ void __launch_bounds__(kThreads, 2)
+    sgd_staged_kernel(const float* __restrict__ x,
+                      const float* __restrict__ y,
+                      const float* __restrict__ w,
+                      const float* __restrict__ coeffs,
+                      float* __restrict__ partials, int64_t start, int64_t lb,
+                      int64_t clip, int d, int rows, int vec4) {
+  extern __shared__ __align__(16) float smem[];
+  const int64_t sf = stage_floats(d, rows), over = staged_over(d);
+  float* ring = smem;
+  float* ys = ring + kRing * sf;
+  float* wv = ys + kRing * rows;
+  float* red = wv + kRing * rows;
+  float* mult = red + (rows + 3) / 4 * 4 * kWarps;
+  float* slot = mult + rows;
+  float* gs = slot + 2 * rows;
+  float* cs = gs + over;
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  constexpr int kOwn = kThreads * NREG;  // first column past the registers
+
+  // the block's run of window rows [r0, r0 + len), in stages of `rows`
+  const int64_t nb = gridDim.x, b = blockIdx.x;
+  const int64_t q = lb / nb, rem = lb % nb;
+  const int64_t r0 = b * q + min(b, rem);
+  const int64_t len = q + (b < rem ? 1 : 0);
+  const int64_t nstages = (len + rows - 1) / rows;
+
+  float c[NREG], g[NREG];
+#pragma unroll
+  for (int j = 0; j < NREG; ++j) {
+    const int col = t + kThreads * j;
+    c[j] = col < d ? __ldg(coeffs + col) : 0.f;
+    g[j] = 0.f;
+  }
+  for (int64_t e = t; e < over; e += kThreads) {  // this thread's own
+    gs[e] = 0.f;
+    cs[e] = kOwn + e < d ? __ldg(coeffs + kOwn + e) : 0.f;
+  }
+  float lsum = 0.f, wsum = 0.f;  // thread r < rows: row slot r's
+
+  // stage s into ring buffer s % kRing (an empty group past the last, so
+  // that every thread counts one group a stage)
+  auto issue = [&](int64_t s) {
+    if (s < nstages) {
+      const int nr = (int)min((int64_t)rows, len - s * rows);
+      const int64_t i = r0 + s * rows;  // window index of the first row
+      const int64_t g0 = (start + i) * d, g1 = g0 + (int64_t)nr * d;
+      float* dst = ring + (s % kRing) * sf;
+      if (vec4) {
+        const int64_t a0 = g0 & ~(int64_t)3;
+        const int64_t granules = (g1 - a0 + 3) / 4;
+        for (int64_t e = t; e < granules; e += kThreads) {
+          const int64_t at = a0 + 4 * e;
+          cp_async16(dst + 4 * e, x + at, (int)(4 * min((int64_t)4, g1 - at)));
+        }
+      } else {
+        for (int64_t e = t; e < g1 - g0; e += kThreads)
+          cp_async4(dst + e, x + g0 + e, 4);
+      }
+      if (t < nr) {
+        float* yd = ys + (s % kRing) * rows;
+        float* wd = wv + (s % kRing) * rows;
+        cp_async4(yd + t, y + start + i + t, 4);
+        cp_async4(wd + t, w + start + i + t, i + t >= clip ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int s = 0; s < kRing - 1; ++s) issue(s);
+  for (int64_t s = 0; s < nstages; ++s) {
+    cp_async_wait<kRing - 2>();  // this thread's copies of stage s
+    __syncthreads();  // everyone's; and stage s - 1's buffer is read
+    issue(s + kRing - 1);
+    const int nr = (int)min((int64_t)rows, len - s * rows);
+    const int at = (int)(s % kRing);
+    const float* xr =
+        ring + at * sf + (vec4 ? (int)(((start + r0 + s * rows) * d) & 3) : 0);
+    // each row's dot: this thread's columns in order, then four rows
+    // summed over the warp together, then the warps in order
+    for (int rb = 0; rb < nr; rb += 4) {
+      float v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float acc = 0.f;
+        if (rb + u < nr) {  // the same in every thread; past nr: zeros
+          const float* xrow = xr + (int64_t)(rb + u) * d;
+#pragma unroll
+          for (int j = 0; j < NREG; ++j) {
+            const int col = t + kThreads * j;
+            if (col < d) acc = fmaf(xrow[col], c[j], acc);
+          }
+          for (int col = kOwn + t; col < d; col += kThreads)
+            acc = fmaf(xrow[col], cs[col - kOwn], acc);
+        }
+        v[u] = acc;
+      }
+      const float dot = rows_sum<4>(v, lane);  // row rb + lane / 8
+      if ((lane & 7) == 0 && rb + lane / 8 < nr)
+        red[(rb + lane / 8) * kWarps + warp] = dot;
+    }
+    __syncthreads();
+    if (t < nr) {
+      float dot = red[t * kWarps];
+#pragma unroll
+      for (int q2 = 1; q2 < kWarps; ++q2) dot += red[t * kWarps + q2];
+      const float wt = wv[at * rows + t];
+      float loss, m;
+      row_terms<LOSS>(dot, ys[at * rows + t], wt, loss, m);
+      mult[t] = m;
+      lsum += loss;
+      wsum += wt;
+    }
+    __syncthreads();
+    for (int r = 0; r < nr; ++r) {
+      const float m = mult[r];
+      const float* xrow = xr + (int64_t)r * d;
+#pragma unroll
+      for (int j = 0; j < NREG; ++j) {
+        const int col = t + kThreads * j;
+        if (col < d) g[j] = fmaf(m, xrow[col], g[j]);
+      }
+      for (int col = kOwn + t; col < d; col += kThreads)
+        gs[col - kOwn] = fmaf(m, xrow[col], gs[col - kOwn]);
+    }
+  }
+  cp_async_wait<0>();
+
+  float* dst = partials + blockIdx.x * (int64_t)(d + 2);
+#pragma unroll
+  for (int j = 0; j < NREG; ++j) {
+    const int col = t + kThreads * j;
+    if (col < d) dst[col] = g[j];
+  }
+  for (int col = kOwn + t; col < d; col += kThreads) dst[col] = gs[col - kOwn];
+  if (t < rows) {
+    slot[t] = wsum;
+    slot[rows + t] = lsum;
+  }
+  __syncthreads();
+  if (t == 0) {
+    float ws_ = 0.f, ls_ = 0.f;
+    for (int r = 0; r < rows; ++r) {
+      ws_ += slot[r];
+      ls_ += slot[rows + r];
+    }
+    dst[d] = ws_;
+    dst[d + 1] = ls_;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Stage 2: out[i] = the sum over b of partials[b][i] in reduce_partials'
 // fixed two-level order (kmeans_kernels.cu): the B rows cut into Q
 // contiguous slices of L = ceil(B / 32) rows, each added in row order from
@@ -537,46 +797,73 @@ const void* rows_kernel_of(int v, int vec4) {
   }
 }
 
-// The stage-1 instance: sgd_rows_kernel<loss, v, vec4> for v = 1..4, or
-// sgd_terms_kernel<loss> for v = 0.
-const void* kernel_of(int loss, int v, int vec4) {
+template <int LOSS>
+const void* staged_kernel_of(int d) {
+  switch (staged_nreg(d)) {
+    case 4: return (const void*)sgd_staged_kernel<LOSS, 4>;
+    case 8: return (const void*)sgd_staged_kernel<LOSS, 8>;
+    default: return (const void*)sgd_staged_kernel<LOSS, 16>;
+  }
+}
+
+// Whether a launch of width d > kRegCols stages whole rows (dc == d): the
+// staged instance; else the chunked one.
+bool staged(int d, int dc) { return d > kRegCols && dc == d; }
+
+// The stage-1 instance: sgd_rows_kernel<loss, v, vec4> for v = 1..4, else
+// sgd_staged_kernel<loss, staged_nreg(d)> where whole rows are staged, else
+// sgd_terms_kernel<loss>.
+const void* kernel_of(int loss, int v, int vec4, int d, int dc) {
   switch (loss) {
     case kLogistic:
       return v ? rows_kernel_of<kLogistic>(v, vec4)
-               : (const void*)sgd_terms_kernel<kLogistic>;
+             : staged(d, dc) ? staged_kernel_of<kLogistic>(d)
+                             : (const void*)sgd_terms_kernel<kLogistic>;
     case kHinge:
       return v ? rows_kernel_of<kHinge>(v, vec4)
-               : (const void*)sgd_terms_kernel<kHinge>;
+             : staged(d, dc) ? staged_kernel_of<kHinge>(d)
+                             : (const void*)sgd_terms_kernel<kHinge>;
     case kLeastSquare:
       return v ? rows_kernel_of<kLeastSquare>(v, vec4)
-               : (const void*)sgd_terms_kernel<kLeastSquare>;
+             : staged(d, dc) ? staged_kernel_of<kLeastSquare>(d)
+                             : (const void*)sgd_terms_kernel<kLeastSquare>;
     default:
       return nullptr;
   }
 }
 
 // Dynamic shared memory of a stage-1 block: the warps' partials for the
-// register instance, the Python side's tile layout for the other.
+// register instance, the Python side's layout for the others.
 int stage1_smem(int v, int d, int smem) {
   return v ? 4 * kWarps * (d + 2) : smem;
 }
 
 // The launch the Python side planned must be one these kernels were
-// written for: v = ceil(d / 128) up to kRegCols columns, else the chunked
-// instance with dc = d or a multiple of the block's threads below d and
-// tiles that cover the window; vec4 only for 16-byte rows at an aligned x.
+// written for: v = ceil(d / 128) up to kRegCols columns (vec4 for 16-byte
+// rows at an aligned x); wider rows staged whole (dc = d) with the ring's
+// shared memory, or the chunked instance with dc a multiple of the block's
+// threads below d (vec4 for 16-byte rows) and tiles that cover the window;
+// vec4 of the staged instance needs only an aligned x.
 cudaError_t check_config(const float* x, long long start, long long lb,
                          long long clip, int d, int v, int vec4, int blocks,
                          int rows, int dc, int smem,
                          long long tiles_per_block, int loss) {
-  if (kernel_of(loss, v, vec4) == nullptr || d < 1 || blocks < 1 ||
-      start < 0 || lb < 1 || clip < 0 || clip > lb ||
-      (vec4 && (d % 4 != 0 || (uintptr_t)x % 16 != 0)))
+  const bool aligned = (uintptr_t)x % 16 == 0;
+  if (kernel_of(loss, v, vec4, d, dc) == nullptr || d < 1 || blocks < 1 ||
+      start < 0 || lb < 1 || clip < 0 || clip > lb || (vec4 && !aligned))
     return cudaErrorInvalidValue;
-  if (d <= kRegCols) return v == (d + 127) / 128 ? cudaSuccess
-                                                 : cudaErrorInvalidValue;
-  if (v != 0 || rows < 1 || dc < 1 || tiles_per_block < 1 ||
-      !(dc == d || (dc < d && dc % kThreads == 0)) ||
+  if (d <= kRegCols)
+    return v == (d + 127) / 128 && !(vec4 && d % 4 != 0)
+               ? cudaSuccess
+               : cudaErrorInvalidValue;
+  if (v != 0 || rows < 1) return cudaErrorInvalidValue;
+  if (staged(d, dc))
+    return rows <= kStageMaxRows && smem <= kSmemBlockMax &&
+                   (int64_t)smem >= 4 * staged_smem_floats(d, rows)
+               ? cudaSuccess
+               : cudaErrorInvalidValue;
+  if ((vec4 && d % 4 != 0) || dc < 1 || tiles_per_block < 1 ||
+      !(dc < d && dc % kThreads == 0) ||
       (int64_t)smem < 4 * smem_floats(dc, rows) ||
       (int64_t)blocks * tiles_per_block * rows < lb)
     return cudaErrorInvalidValue;
@@ -591,17 +878,20 @@ const char* sgd_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Resident blocks of one SM for a stage-1 instance (v and vec4 as in
-// sgd_batch_terms; smem is the chunked instance's, 0 for the other). Lets
-// the instance use its dynamic shared memory first: the one place the
-// attribute is set, so a process sets it once per instance (the Python side
-// caches the answer).
-int sgd_blocks_per_sm(int loss, int v, int vec4, int d, int smem, int* out) {
-  const void* fn = kernel_of(loss, v, vec4);
+// Resident blocks of one SM for a stage-1 instance (v, vec4 and dc as in
+// sgd_batch_terms, d the row width; smem is the staged or chunked
+// instance's, 0 for the other). Lets the instance use its dynamic shared
+// memory first (the staged instances all a block may have, as their
+// widths differ): the one place the attribute is set, so a process sets it
+// once per instance (the Python side caches the answer).
+int sgd_blocks_per_sm(int loss, int v, int vec4, int d, int dc, int smem,
+                      int* out) {
+  const void* fn = kernel_of(loss, v, vec4, d, dc);
   if (fn == nullptr || d < 1) return (int)cudaErrorInvalidValue;
   const int bytes = stage1_smem(v, d, smem);
   cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      !v && staged(d, dc) ? (int)kSmemBlockMax : bytes);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       out, fn, kThreads, (size_t)bytes);
@@ -609,8 +899,9 @@ int sgd_blocks_per_sm(int loss, int v, int vec4, int d, int smem, int* out) {
 
 // One SGD round's terms: stage 1 writes `blocks` partial rows of d + 2
 // floats to ws, then (where `combine`) stage 2 writes their sum to the d + 2
-// floats after them; both on `stream`. v, vec4, blocks and the chunked
-// layout (rows, dc, smem, tiles_per_block) are ops/kernels.py's plan.
+// floats after them; both on `stream`. v, vec4, blocks and the staged or
+// chunked layout (rows, dc, smem, tiles_per_block) are ops/kernels.py's
+// plan.
 int sgd_batch_terms(const float* x, const float* y, const float* w,
                     const float* coeffs, float* ws, long long start,
                     long long lb, long long clip, int d, int v, int vec4,
@@ -621,7 +912,7 @@ int sgd_batch_terms(const float* x, const float* y, const float* w,
                                dc, smem, tiles_per_block, loss);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = (cudaStream_t)stream;
-  const void* fn = kernel_of(loss, v, vec4);
+  const void* fn = kernel_of(loss, v, vec4, d, dc);
   int64_t start64 = start, lb64 = lb, clip64 = clip, tpb64 = tiles_per_block;
   float* partials = ws;
   if (v) {
@@ -629,6 +920,11 @@ int sgd_batch_terms(const float* x, const float* y, const float* w,
                     &d};
     e = cudaLaunchKernel(fn, dim3(blocks), dim3(kThreads), args,
                          (size_t)stage1_smem(v, d, smem), s);
+  } else if (staged(d, dc)) {
+    void* args[] = {&x,      &y,      &w, &coeffs, &partials, &start64,
+                    &lb64,   &clip64, &d, &rows,   &vec4};
+    e = cudaLaunchKernel(fn, dim3(blocks), dim3(kThreads), args,
+                         (size_t)smem, s);
   } else {
     void* args[] = {&x,       &y,    &w,  &coeffs, &partials, &start64,
                     &lb64,    &clip64, &d, &dc,     &rows,     &tpb64,

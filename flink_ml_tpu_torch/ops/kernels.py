@@ -91,6 +91,7 @@ KERNEL_SYMBOLS = {
     "reduce_rows_kernel": "reduce_partials",
     "reduce_tile_kernel": "reduce_partials",
     "sgd_rows_kernel": "sgd_batch_terms",
+    "sgd_staged_kernel": "sgd_batch_terms",
     "sgd_terms_kernel": "sgd_batch_terms",
     "sgd_combine_kernel": "sgd_batch_terms",
     "segment_ranges_kernel": "segment_reduce_sum",
@@ -98,6 +99,8 @@ KERNEL_SYMBOLS = {
     "segment_combine_kernel": "segment_reduce_sum",
     "knn_tile_kernel": "knn_topk_indices",
     "knn_merge_kernel": "knn_topk_indices",
+    "knn_long_kernel": "knn_topk_indices",
+    "knn_long_merge_kernel": "knn_topk_indices",
     "knn_topk_wide_kernel": "knn_topk_indices",
 }
 
@@ -220,8 +223,8 @@ SGD_LOSSES = {"logistic": 0, "hinge": 1, "least_square": 2}
 #: warps of an sgd stage-1 block (``kWarps`` of ``sgd_kernels.cu``)
 SGD_WARPS = 8
 #: widest row the register instance of stage 1 takes (``kRegCols``): a lane
-#: holds V = ⌈d / 128⌉ ≤ 4 float4s of a row; wider rows take the chunked
-#: instance
+#: holds V = ⌈d / 128⌉ ≤ 4 float4s of a row; wider rows take the staged
+#: instance, or the chunked one past what its ring holds
 SGD_REG_COLS = 512
 #: rows a warp of the register instance takes at least before the grid
 #: grows (up to the blocks the card holds at once): its double-buffered
@@ -237,6 +240,46 @@ SGD_CHUNK_COLS = 512
 SGD_TILE_FLOATS = 8192
 #: window rows of a chunked tile at most
 SGD_MAX_ROWS = 64
+#: threads of an sgd stage-1 block (``kThreads``); a staged block's thread t
+#: owns columns t + 256·j
+SGD_THREADS = 256
+#: stages of a staged block's ring (``kRing``), floats of x a stage holds at
+#: most (32 KB; a row wider than that is a stage alone) and its rows at most
+#: (``kStageMaxRows``)
+SGD_RING = 3
+SGD_STAGE_FLOATS = 8192
+SGD_STAGE_MAX_ROWS = 16
+#: stages a staged block takes at least before the grid grows (up to the
+#: blocks the card holds at once)
+SGD_BLOCK_STAGES = 4
+
+
+def _sgd_nreg(d: int) -> int:
+    """Columns of a row a thread of the staged instance keeps in registers
+    (``staged_nreg``): 4, 8 or 16, the fewest that hold all its columns up
+    to d = 4,096; past that the rest sit in shared memory."""
+    for nreg in (4, 8):
+        if d <= nreg * SGD_THREADS:
+            return nreg
+    return 16
+
+
+def _sgd_staged_layout(d: int) -> Optional[Tuple[int, int]]:
+    """``(rows, smem_bytes)`` of a staged :func:`sgd_batch_terms` block at
+    width ``d``, or None where its ring does not fit a block's shared
+    memory (past about 13,200 columns: the chunked instance). The sizes are
+    the ones the layout comment in ``sgd_kernels.cu`` lists
+    (``staged_smem_floats``): ``SGD_RING`` stages of ``rows`` whole rows
+    (up to 3 floats before the first, rounded up to 4 floats), each
+    stage's labels and weights, the warps' dot sums (rows rounded up to 4),
+    the multipliers, the row slots' sums, and the sums and coefficients of
+    the columns past the registers."""
+    rows = max(1, min(SGD_STAGE_MAX_ROWS, SGD_STAGE_FLOATS // d))
+    stage = (rows * d + 6) // 4 * 4
+    over = max(0, -(-d // SGD_THREADS) * SGD_THREADS - SGD_THREADS * _sgd_nreg(d))
+    floats = (SGD_RING * stage + 2 * SGD_RING * rows
+              + -(-rows // 4) * 4 * SGD_WARPS + 3 * rows + 2 * over)
+    return (rows, 4 * floats) if 4 * floats <= SMEM_BLOCK_BYTES else None
 
 
 def _sgd_layout(d: int) -> Tuple[int, int, int]:
@@ -255,7 +298,7 @@ def _sgd_layout(d: int) -> Tuple[int, int, int]:
 def _sgd_width_class(d: int) -> int:
     """V, the float4s of a row a lane of the register instance holds
     (⌈d / 128⌉), or 0 for rows wider than :data:`SGD_REG_COLS`, which the
-    chunked instance takes."""
+    staged or the chunked instance takes."""
     return -(-d // 128) if d <= SGD_REG_COLS else 0
 
 
@@ -263,10 +306,14 @@ class SgdPlan(NamedTuple):
     """How :func:`sgd_batch_terms` launches stage 1 (the C entry checks it):
     ``instance`` "registers" (``sgd_rows_kernel<loss, v, vec4>``, d ≤
     :data:`SGD_REG_COLS`: each warp a contiguous run of rows, one row in
-    registers) or "chunked" (``sgd_terms_kernel<loss>``: each block
-    ``tiles_per_block`` tiles of ``rows`` rows, staged ``dc`` columns at a
-    time in ``smem`` bytes); ``blocks`` of the grid, of the ``resident``
-    the card holds at once; ``vec4`` where rows are read as float4s."""
+    registers), "staged" (``sgd_staged_kernel<loss, nreg>``, wider rows
+    while :func:`_sgd_staged_layout` fits: each block a contiguous run of
+    rows, streamed ``rows`` whole rows a stage, ``dc`` = d, through a ring
+    in ``smem`` bytes) or "chunked" (``sgd_terms_kernel<loss>``, wider
+    still: each block ``tiles_per_block`` tiles of ``rows`` rows, staged
+    ``dc`` columns at a time in ``smem`` bytes); ``blocks`` of the grid, of
+    the ``resident`` the card holds at once; ``vec4`` where rows are read
+    by 16 bytes (the staged instance: where x is 16-byte aligned)."""
     instance: str
     v: int
     vec4: int
@@ -284,12 +331,27 @@ def _sgd_plan(lb: int, d: int, resident: int, vec4: int = 0) -> SgdPlan:
     at once. The register instance runs a persistent grid: enough blocks
     that every warp has :data:`SGD_WARP_ROWS` rows, up to ``resident``
     (lb = 100,000 fills the card: about 30 rows a warp on an H100). The
-    chunked one cuts the window into tiles, at most ``resident`` blocks of
-    them, and no block without rows."""
+    staged one runs a persistent grid too: enough blocks that every block
+    has :data:`SGD_BLOCK_STAGES` stages, up to ``resident``. The chunked
+    one cuts the window into tiles, at most ``resident`` blocks of them,
+    and no block without rows."""
     v = _sgd_width_class(d)
     if v:
         blocks = max(1, min(resident, -(-lb // (SGD_WARPS * SGD_WARP_ROWS))))
         return SgdPlan("registers", v, vec4, blocks, resident, 0, 0, 0, 0)
+    staged = _sgd_staged_layout(d)
+    if staged is not None:
+        rows, smem = staged
+        blocks = max(1, min(resident, -(-lb // (SGD_BLOCK_STAGES * rows))))
+        return SgdPlan("staged", 0, vec4, blocks, resident, rows, d, smem, 0)
+    return _sgd_chunked_plan(lb, d, resident, vec4)
+
+
+def _sgd_chunked_plan(lb: int, d: int, resident: int,
+                      vec4: int = 0) -> SgdPlan:
+    """The chunked instance's launch (:func:`_sgd_plan` past the staged
+    instance's widths; the card check also runs it at narrower widths
+    beside the staged one, with ``resident`` its own)."""
     rows, dc, smem = _sgd_layout(d)
     ntiles = -(-lb // rows)
     tiles_per_block = -(-ntiles // min(ntiles, resident))
@@ -301,13 +363,16 @@ def sgd_runs(plan: SgdPlan, lb: int) -> list:
     """The window rows ``(r0, r1)`` each worker of a plan's stage 1 takes,
     in order: every warp of the register instance (``sgd_rows_kernel``: W
     warps in all, warp g the ⌊lb / W⌋ rows from g·⌊lb / W⌋ + min(g, lb mod
-    W), one more for the first lb mod W warps), or every block of the
-    chunked one (``tiles_per_block`` contiguous tiles, the last ragged)."""
-    if plan.instance == "registers":
-        warps = plan.blocks * SGD_WARPS
-        q, rem = divmod(lb, warps)
+    W), one more for the first lb mod W warps), every block of the staged
+    one (``sgd_staged_kernel``: the same rule over its blocks), or every
+    block of the chunked one (``tiles_per_block`` contiguous tiles, the
+    last ragged)."""
+    if plan.instance != "chunked":
+        workers = plan.blocks * (SGD_WARPS if plan.instance == "registers"
+                                 else 1)
+        q, rem = divmod(lb, workers)
         return [(g * q + min(g, rem), g * q + min(g, rem) + q + (g < rem))
-                for g in range(warps)]
+                for g in range(workers)]
     span = plan.tiles_per_block * plan.rows
     return [(b * span, min(lb, (b + 1) * span)) for b in range(plan.blocks)]
 
@@ -439,18 +504,30 @@ KNN_TILE_ROWS = 128
 #: columns a tiled KNN step stages (``kDK``); d is padded to a multiple
 KNN_CHUNK_COLS = 32
 #: list capacities of the tiled instances (``knn_tile_kernel<KCAP>``);
-#: longer lists take the wide instance
+#: longer lists take the long-list instances
 KNN_KCAPS = (16, 32)
+#: list capacities of the long-list instances (``knn_long_kernel<KCAP>``,
+#: lists in shared memory); longer lists take the wide instance
+KNN_LONG_KCAPS = (64, 128, 256)
+
+
+def knn_test_rows(kcap: int) -> int:
+    """Test rows of a tiled or long-list KNN block (``long_tile_rows``):
+    :data:`KNN_TILE_ROWS`, but 64 for lists of 128 and 256 entries, whose
+    128 rows' lists and buffers would not fit a block's shared memory."""
+    return KNN_TILE_ROWS if kcap <= 64 else KNN_TILE_ROWS // 2
 
 
 class KnnPlan(NamedTuple):
     """How :func:`knn_topk_indices` launches: ``route`` "tiled"
     (``knn_tile_kernel<kcap>``, then ``knn_merge_kernel`` when ``splits``
-    > 1) or "wide" (``knn_topk_wide_kernel``, k > 32); the train set
-    transposed to (``dpad``, ``ntp``), ``tiles`` train tiles cut into
-    ``splits`` contiguous ranges; the scratch the wrapper allocates, in
-    bytes. The kernel sizes its own shared memory (``knn_tile_smem_bytes``
-    of ``knn_kernels.cu``)."""
+    > 1; k ≤ 32), "long" (``knn_long_kernel<kcap>``, then
+    ``knn_long_merge_kernel`` when ``splits`` > 1; 32 < k ≤ 256) or "wide"
+    (``knn_topk_wide_kernel``, k > 256); the train set transposed to
+    (``dpad``, ``ntp``), ``tiles`` train tiles cut into ``splits``
+    contiguous ranges; the scratch the wrapper allocates, in bytes. The
+    kernel sizes its own shared memory (``knn_tile_smem_bytes`` and
+    ``knn_long_smem_bytes`` of ``knn_kernels.cu``)."""
     route: str
     kcap: int
     dpad: int
@@ -476,24 +553,27 @@ def _knn_splits(test_tiles: int, tiles: int, resident: int) -> int:
 def _knn_plan(n: int, nt: int, d: int, k: int, resident: int) -> KnnPlan:
     """The launch of :func:`knn_topk_indices` for ``k`` neighbours among
     ``nt`` train rows of ``n`` test rows of width ``d``, on a card that
-    holds ``resident`` tiled blocks at once (132 on an H100: one block per
-    SM, bound by registers).
+    holds ``resident`` blocks of the chosen instance at once (132 on an
+    H100: one block per SM, bound by registers or by the lists' shared
+    memory).
 
-    Lists up to 32 long take the tiled kernel, any d. Its blocks are (test
-    tile, train split), the splits chosen by :func:`_knn_splits`: the
-    10,000,000-row benchmark and a 16,384-row block (128 test tiles) take
-    S = 1, 1,000 rows S = 33 on an H100. With S > 1 each split writes its
-    (n, k) distances and indices to a scratch of 8·S·n·k bytes that the
-    merge stage reads. Longer lists take the wide instance, whose (k, n)
-    list scratch is 8·k·n bytes."""
-    if k > KNN_KCAPS[-1]:  # its shared memory is the kernel's own affair
+    Lists up to 32 long take the tiled kernel, lists of 33 to 256 the
+    long-list kernel (capacity 64, 128 or 256, the smallest that holds k),
+    any d. Their blocks are (test tile, train split), the splits chosen by
+    :func:`_knn_splits`: the 10,000,000-row benchmark and a 16,384-row
+    block (128 test tiles) take S = 1, 1,000 rows S = 33 on an H100. With
+    S > 1 each split writes its (n, k) distances and indices to a scratch
+    of 8·S·n·k bytes that the merge stage reads. Longer lists take the wide
+    instance, whose (k, n) list scratch is 8·k·n bytes."""
+    if k > KNN_LONG_KCAPS[-1]:  # its shared memory is the kernel's own affair
         return KnnPlan("wide", 0, d, nt, 0, 1, 8 * k * n)
-    kcap = next(c for c in KNN_KCAPS if k <= c)
+    route = "tiled" if k <= KNN_KCAPS[-1] else "long"
+    kcap = next(c for c in KNN_KCAPS + KNN_LONG_KCAPS if k <= c)
     dpad = -(-d // KNN_CHUNK_COLS) * KNN_CHUNK_COLS
     tiles = -(-nt // KNN_TILE_ROWS)
-    splits = _knn_splits(-(-n // KNN_TILE_ROWS), tiles, resident)
+    splits = _knn_splits(-(-n // knn_test_rows(kcap)), tiles, resident)
     scratch = 8 * splits * n * k if splits > 1 else 0
-    return KnnPlan("tiled", kcap, dpad, tiles * KNN_TILE_ROWS, tiles, splits,
+    return KnnPlan(route, kcap, dpad, tiles * KNN_TILE_ROWS, tiles, splits,
                    scratch)
 
 
@@ -890,7 +970,8 @@ _SIGNATURES = {
     },
     SGD_SOURCE: {
         "sgd_error_string": ([_I], ctypes.c_char_p),
-        "sgd_blocks_per_sm": ([_I, _I, _I, _I, _I, ctypes.POINTER(_I)], _I),
+        "sgd_blocks_per_sm": ([_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)],
+                              _I),
         "sgd_batch_terms": ([_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I,
                              _I, _I, _I, _L, _I, _I, _P], _I),
     },
@@ -906,6 +987,10 @@ _SIGNATURES = {
         "knn_tile_blocks_per_sm": ([_I, _I, ctypes.POINTER(_I)], _I),
         "knn_topk_tiled": ([_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I,
                             _P], _I),
+        "knn_long_smem_bytes": ([_I, _I], _L),
+        "knn_long_blocks_per_sm": ([_I, _I, ctypes.POINTER(_I)], _I),
+        "knn_topk_long": ([_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
+                           _P], _I),
         "knn_topk_wide": ([_P, _P, _P, _P, _P, _L, _L, _I, _I, _P], _I),
     },
 }
@@ -953,17 +1038,18 @@ def _resident_blocks(device_index: int, lloyd: bool, rows: int, smem: int) -> in
 
 @functools.lru_cache(maxsize=None)
 def _sgd_resident_blocks(device_index: int, loss: int, v: int, vec4: int,
-                         smem: int) -> int:
+                         d: int, dc: int, smem: int) -> int:
     """Blocks of an sgd stage-1 instance the card holds at once: the
-    register instance ``v`` (sized for its widest rows, 128·v columns) or
-    the chunked one (v = 0) at ``smem`` bytes. The query also lets the
-    instance use its dynamic shared memory, once per process."""
+    register instance ``v`` (sized for its widest rows, d = 128·v), or for
+    v = 0 the staged one (dc = d) or the chunked one, at ``smem`` bytes.
+    The query also lets the instance use its dynamic shared memory, once
+    per process."""
     per_sm = ctypes.c_int(0)
     _raise_on_error(SGD_SOURCE, _lib(SGD_SOURCE).sgd_blocks_per_sm(
-        loss, v, vec4, 128 * v or 1, smem, ctypes.byref(per_sm)),
+        loss, v, vec4, d, dc, smem, ctypes.byref(per_sm)),
         "occupancy query")
     return _blocks_on_card(device_index, per_sm.value,
-                           f"sgd stage 1 (v={v}, {smem} bytes)")
+                           f"sgd stage 1 (v={v}, d={d}, {smem} bytes)")
 
 
 def _device_index(t: torch.Tensor) -> int:
@@ -1052,27 +1138,42 @@ def _sgd_plan_on(device_index: int, loss: int, d: int, lb: int,
     """:func:`_sgd_plan` on one card, cached: a fit asks for the same
     window shape every round."""
     v = _sgd_width_class(d)
-    resident = _sgd_resident_blocks(device_index, loss, v, vec4,
-                                    0 if v else _sgd_layout(d)[2])
+    staged = None if v else _sgd_staged_layout(d)
+    if v:
+        shape = (128 * v, 0, 0)
+    elif staged is not None:
+        shape = (d, d, staged[1])
+    else:
+        shape = (d,) + _sgd_layout(d)[1:]
+    resident = _sgd_resident_blocks(device_index, loss, v, vec4, *shape)
     return _sgd_plan(lb, d, resident, vec4)
 
 
 def _sgd_card_plan(xl: torch.Tensor, lb: int, loss_name: str) -> SgdPlan:
-    """:func:`_sgd_plan` for ``xl``'s card and alignment."""
+    """:func:`_sgd_plan` for ``xl``'s card and alignment: rows are read by
+    16 bytes from an aligned x at a width that is a multiple of 4, or at
+    any width by the staged instance, which copies each stage as one run
+    from the aligned address at or before it."""
     d = xl.shape[1]
+    staged = d > SGD_REG_COLS and _sgd_staged_layout(d) is not None
     return _sgd_plan_on(_device_index(xl), SGD_LOSSES[loss_name], d, lb,
-                        int(d % 4 == 0 and xl.data_ptr() % 16 == 0))
+                        int((d % 4 == 0 or staged)
+                            and xl.data_ptr() % 16 == 0))
 
 
 def _launch_sgd_terms(xl: torch.Tensor, yl: torch.Tensor, wl: torch.Tensor,
                       coeffs: torch.Tensor, start: int, clip: int, lb: int,
-                      loss_name: str, combine: bool = True) -> torch.Tensor:
+                      loss_name: str, combine: bool = True,
+                      plan: Optional[SgdPlan] = None) -> torch.Tensor:
     """One C call: the (blocks + 1, d + 2) workspace, stage 1's per-block
     partials in its first rows and (where ``combine``, else left unwritten)
-    their fixed-order sum in the last."""
+    their fixed-order sum in the last. ``plan`` overrides the card's plan
+    (the card check runs the chunked instance at the staged one's widths
+    with it; the C entry refuses a plan its kernels were not written
+    for)."""
     d = xl.shape[1]
     with _on_card(xl):
-        plan = _sgd_card_plan(xl, lb, loss_name)
+        plan = plan or _sgd_card_plan(xl, lb, loss_name)
         ws = torch.empty((plan.blocks + 1, d + 2), dtype=torch.float32,
                          device=xl.device)
         _raise_on_error(SGD_SOURCE, _lib(SGD_SOURCE).sgd_batch_terms(
@@ -1123,18 +1224,29 @@ def _launch_segment(values: torch.Tensor, ids: torch.Tensor, u: int, c: int,
 
 @functools.lru_cache(maxsize=None)
 def _knn_resident_blocks(device_index: int, kcap: int, dpad: int) -> int:
-    """Blocks of the tiled KNN kernel the whole card holds at once."""
+    """Blocks of the tiled (kcap ≤ 32) or long-list KNN kernel the whole
+    card holds at once."""
     per_sm = ctypes.c_int(0)
-    _raise_on_error(KNN_SOURCE, _lib(KNN_SOURCE).knn_tile_blocks_per_sm(
-        kcap, dpad, ctypes.byref(per_sm)), "occupancy query")
+    lib = _lib(KNN_SOURCE)
+    query = (lib.knn_tile_blocks_per_sm if kcap <= KNN_KCAPS[-1]
+             else lib.knn_long_blocks_per_sm)
+    _raise_on_error(KNN_SOURCE, query(kcap, dpad, ctypes.byref(per_sm)),
+                    "occupancy query")
+    kind = "tile" if kcap <= KNN_KCAPS[-1] else "long"
     return _blocks_on_card(device_index, per_sm.value,
-                           f"knn_tile_kernel<{kcap}> at dpad={dpad}")
+                           f"knn_{kind}_kernel<{kcap}> at dpad={dpad}")
 
 
 def knn_tile_smem_bytes(dpad: int) -> int:
     """Shared memory of a tiled KNN block at padded width ``dpad``, as the
     kernel sizes it (CUDA only: it asks the built library)."""
     return _lib(KNN_SOURCE).knn_tile_smem_bytes(dpad)
+
+
+def knn_long_smem_bytes(kcap: int, dpad: int) -> int:
+    """Shared memory of a long-list KNN block of capacity ``kcap`` at
+    padded width ``dpad``, as the kernel sizes it (CUDA only)."""
+    return _lib(KNN_SOURCE).knn_long_smem_bytes(kcap, dpad)
 
 
 def _knn_card_plan(x: torch.Tensor, nt: int, k: int) -> KnnPlan:
@@ -1148,14 +1260,18 @@ def _knn_card_plan(x: torch.Tensor, nt: int, k: int) -> KnnPlan:
 
 
 def _launch_knn(x: torch.Tensor, train: torch.Tensor, k: int,
-                splits: Optional[int] = None) -> torch.Tensor:
+                splits: Optional[int] = None,
+                wide: bool = False) -> torch.Tensor:
     """Launches the KNN kernels as :func:`_knn_plan` says; ``splits``
-    overrides the plan's train split (1 to its train tiles), which the card
-    check uses to hold split and unsplit runs against each other."""
+    overrides the plan's train split (1 to its train tiles) of the tiled
+    and long-list kernels, which the card check uses to hold split and
+    unsplit runs against each other, and ``wide`` takes the wide instance
+    whatever k (the card check times it beside the long-list one)."""
     n, d = x.shape
     nt = train.shape[0]
     with _on_card(x):
-        plan = _knn_card_plan(x, nt, k)
+        plan = (KnnPlan("wide", 0, d, nt, 0, 1, 8 * k * n) if wide
+                else _knn_card_plan(x, nt, k))
         tsq = torch.sum(train * train, dim=1)
         out = torch.empty((n, k), dtype=torch.int32, device=x.device)
         stream = _stream(x)
@@ -1184,9 +1300,13 @@ def _launch_knn(x: torch.Tensor, train: torch.Tensor, k: int,
         tsq_p[:nt] = tsq
         scratch = (torch.empty(plan.scratch_bytes // 4, dtype=torch.float32,
                                device=x.device) if plan.splits > 1 else None)
-        _raise_on_error(KNN_SOURCE, lib.knn_topk_tiled(
-            x.data_ptr(), train_t.data_ptr(), tsq_p.data_ptr(), out.data_ptr(),
-            0 if scratch is None else scratch.data_ptr(), n, d, plan.dpad,
-            plan.ntp, k, plan.kcap, plan.splits, stream),
-            "knn_topk_indices")
+        args = (x.data_ptr(), train_t.data_ptr(), tsq_p.data_ptr(),
+                out.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
+                n, d, plan.dpad, plan.ntp)
+        if plan.route == "long":
+            rc = lib.knn_topk_long(*args, nt, k, plan.kcap, plan.splits,
+                                   stream)
+        else:
+            rc = lib.knn_topk_tiled(*args, k, plan.kcap, plan.splits, stream)
+        _raise_on_error(KNN_SOURCE, rc, "knn_topk_indices")
     return out

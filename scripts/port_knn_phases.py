@@ -1,23 +1,25 @@
 #!/usr/bin/env python3
-"""Where a tile's time goes in the port's tiled KNN kernel
-(``knn_tile_kernel`` of ``flink_ml_tpu_torch/csrc/knn_kernels.cu``), on one
-CUDA card.
+"""Where a tile's time goes in the port's tiled and long-list KNN kernels
+(``knn_tile_kernel`` and ``knn_long_kernel`` of
+``flink_ml_tpu_torch/csrc/knn_kernels.cu``), on one CUDA card.
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
-    python3 scripts/port_knn_phases.py [--out FILE]
+    python3 scripts/port_knn_phases.py [--k 10,50,256] [--out FILE]
 
 Builds the committed source twice more beside the real library, with the
 source's own switches: ``-DKNN_PHASE_CLOCKS`` reads ``clock64()`` between
 the phases of each step of the main loop (copy wait, barrier, copy issue,
-FMAs, the tile's epilogue of distances and survivor masks, and the
-insertion rounds), whose per-thread totals the first block keeps; and
-``-DKNN_NO_SELECTION`` folds each finished tile into a sink (no
-selection), which times the distance tiles alone. All three
-run on the 16,384 x 50,000 x 32, k = 10 block of the card check with one
-train split. Prints ptxas' registers and spills of the two copies' k <= 16
-instance, the blocks per SM of the real one, the times (CUDA events) and
-the mean cycles per tile of each phase.
+FMAs, then for the tiled kernel the tile's epilogue of distances and
+survivor masks and the insertion rounds, for the long-list kernel the
+distances and filter and the buffer appends and merges), whose per-thread
+totals the first block keeps; and ``-DKNN_NO_SELECTION`` folds each
+finished tile into a sink (no selection), which times the distance tiles
+alone. All three run on the 16,384 x 50,000 x 32 block of the card check
+with one train split, at each k of ``--k`` (k <= 32 the tiled kernel, 32 <
+k <= 256 the long-list one). Prints ptxas' registers and spills of the two
+copies' instances, the blocks per SM of the real one, the times (CUDA
+events) and the mean cycles per tile of each phase.
 """
 
 import argparse
@@ -37,17 +39,23 @@ from flink_ml_tpu_torch.ops import _build  # noqa: E402
 from flink_ml_tpu_torch.ops import kernels as K  # noqa: E402
 
 PHASES = ("copy wait", "barrier", "copy issue", "FMAs", "epilogue", "rounds")
+LONG_PHASES = ("copy wait", "barrier", "copy issue", "FMAs",
+               "distances and filter", "buffers and merges")
 
 
 def tile_ptxas(log):
-    """ptxas' stack, spill and register lines of knn_tile_kernel<16>."""
-    lines, current = [], ""
+    """ptxas' stack, spill and register lines of each instance of
+    knn_tile_kernel and knn_long_kernel, by instance."""
+    lines, current = {}, ""
     for line in log.splitlines():
         if "Compiling entry function" in line or "Function properties" in line:
             current = line
-        elif ("knn_tile_kernelILi16E" in current
-              and ("registers" in line or "spill" in line)):
-            lines.append(line.strip())
+        elif "registers" in line or "spill" in line:
+            for kind in ("tile", "long"):
+                marker = f"knn_{kind}_kernelILi"
+                if marker in current:
+                    cap = current.split(marker)[1].split("E")[0]
+                    lines.setdefault(f"{kind}<{cap}>", []).append(line.strip())
     return lines
 
 
@@ -85,8 +93,55 @@ def time_ms(fn, batches=5, per_batch=5, warmup=2):
     return statistics.median(times)
 
 
+def one_k(real, timed, sink, x, train, k):
+    """The three libraries' times at list length k, and the timed copy's
+    cycles per tile of each phase."""
+    n, d = x.shape
+    nt = train.shape[0]
+    plan = K._knn_plan(n, nt, d, k, 1)
+    assert plan.route in ("tiled", "long"), plan
+    train_t = torch.zeros((plan.dpad, plan.ntp), device="cuda")
+    train_t[:d, :nt] = train.T
+    tsq = torch.full((plan.ntp,), float("inf"), device="cuda")
+    tsq[:nt] = torch.sum(train * train, dim=1)
+    out = torch.empty((n, k), dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(lib):
+        args = (x.data_ptr(), train_t.data_ptr(), tsq.data_ptr(),
+                out.data_ptr(), 0, n, d, plan.dpad, plan.ntp)
+        if plan.route == "long":
+            rc = lib.knn_topk_long(*args, nt, k, plan.kcap, 1, stream)
+        else:
+            rc = lib.knn_topk_tiled(*args, k, plan.kcap, 1, stream)
+        assert rc == 0, rc
+
+    per_sm = ctypes.c_int(0)
+    query = (real.knn_long_blocks_per_sm if plan.route == "long"
+             else real.knn_tile_blocks_per_sm)
+    assert query(plan.kcap, plan.dpad, ctypes.byref(per_sm)) == 0
+    row = {"route": plan.route, "kcap": plan.kcap,
+           "blocks_per_sm": per_sm.value,
+           "ms": {name: time_ms(lambda: launch(lib))
+                  for name, lib in (("real", real), ("timed", timed),
+                                    ("no_selection", sink))}}
+    launch(timed)
+    torch.cuda.synchronize()
+    buf = (ctypes.c_longlong * (256 * 6))()
+    timed.knn_phase_cycles_read.argtypes = [ctypes.c_void_p]
+    assert timed.knn_phase_cycles_read(buf) == 0
+    cycles = [statistics.mean(buf[t * 6 + q] for t in range(256)) / plan.tiles
+              for q in range(6)]
+    names = LONG_PHASES if plan.route == "long" else PHASES
+    row["cycles_per_tile"] = dict(zip(names, cycles))
+    print(f"k={k}:", json.dumps(row), flush=True)
+    return row
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--k", default="10",
+                        help="comma-separated list lengths (default 10)")
     parser.add_argument("--out", help="also write the result as JSON here")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -102,42 +157,15 @@ def main() -> int:
                           text=True).stdout.strip()
     print("card:", card)
 
-    n, nt, d, k = 16_384, 50_000, 32, 10
+    n, nt, d = 16_384, 50_000, 32
     g = torch.Generator(device="cuda").manual_seed(13)
     x = torch.rand((n, d), generator=g, device="cuda")
     train = torch.rand((nt, d), generator=g, device="cuda")
-    plan = K._knn_plan(n, nt, d, k, 1)
-    train_t = torch.zeros((plan.dpad, plan.ntp), device="cuda")
-    train_t[:d, :nt] = train.T
-    tsq = torch.full((plan.ntp,), float("inf"), device="cuda")
-    tsq[:nt] = torch.sum(train * train, dim=1)
-    out = torch.empty((n, k), dtype=torch.int32, device="cuda")
-
-    def launch(lib):
-        rc = lib.knn_topk_tiled(
-            x.data_ptr(), train_t.data_ptr(), tsq.data_ptr(), out.data_ptr(),
-            0, n, d, plan.dpad, plan.ntp, k, plan.kcap, 1,
-            torch.cuda.current_stream().cuda_stream)
-        assert rc == 0, rc
-
-    per_sm = ctypes.c_int(0)
-    assert real.knn_tile_blocks_per_sm(plan.kcap, plan.dpad,
-                                       ctypes.byref(per_sm)) == 0
-    result = {"card": card, "shape": [n, nt, d, k], "splits": 1,
-              "blocks_per_sm": per_sm.value,
+    result = {"card": card, "shape": [n, nt, d], "splits": 1,
               "ptxas": {"timed": timed_ptxas, "no_selection": sink_ptxas},
-              "ms": {name: time_ms(lambda: launch(lib))
-                     for name, lib in (("real", real), ("timed", timed),
-                                       ("no_selection", sink))}}
-    launch(timed)
-    torch.cuda.synchronize()
-    buf = (ctypes.c_longlong * (256 * 6))()
-    timed.knn_phase_cycles_read.argtypes = [ctypes.c_void_p]
-    assert timed.knn_phase_cycles_read(buf) == 0
-    tiles = plan.tiles
-    cycles = [statistics.mean(buf[t * 6 + q] for t in range(256)) / tiles
-              for q in range(6)]
-    result["cycles_per_tile"] = dict(zip(PHASES, cycles))
+              "by_k": {}}
+    for k in (int(v) for v in args.k.split(",")):
+        result["by_k"][k] = one_k(real, timed, sink, x, train, k)
     print(json.dumps(result, indent=1))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

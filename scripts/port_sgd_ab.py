@@ -41,9 +41,9 @@ on where the allocator placed it. The shapes:
 - ``d=512``: lb = 100,000 of 1,000,000 x 512 rows;
 - ``chunked-d`` and ``chunked-odd-d``: d = 1,500 (lb = 4,991) and 6,001
   (lb = 2,991), start 5, clip 3, the windows of ``chip_smoke.py`` phase
-  3;
-- ``d=2000``: all 100,000 rows of 100,000 x 2,000, as ``chip_smoke.py``
-  times the chunked kernel.
+  3 (the chunked instance's on a tree without the staged one, the staged
+  instance's on a tree with it);
+- ``d=2000``: all 100,000 rows of 100,000 x 2,000 (likewise).
 
 It prints one JSON line: the tree, the card's name and power limit, ptxas'
 registers and spills of each kernel of ``sgd_kernels.cu``, and each

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Times the port's chunked ``sgd_batch_terms`` kernel over tile layouts and
-widths.
+widths, beside the staged instance the plan gives those widths.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -9,15 +9,17 @@ Run from the repository root on a machine with one CUDA card:
 Rows of up to ``SGD_REG_COLS`` columns take the register instance, which
 has no tile layout; for each wider feature width d it builds a table of two
 400 MB windows on the card and times the logistic instance of the chunked
-kernel (stage 1 and the fixed-order combine) at every (rows, chunk
-columns) layout of the sweep, and at the layout ``ops/kernels.py``
-chooses, with CUDA events; the calls take the
-two windows in turn, so none finds its rows in L2. Beside each time: the
-plain PyTorch version's time and the byte bound (the window's x, y and w,
-the coefficients and the output, read or written once, at 3.35 TB/s).
-Every layout's result is held against the plain version (rtol 1e-4 +
-atol 1e-3, sums over up to 1e6 rows). It prints the card and one JSON
-line per width. Exits nonzero without a card or on a wrong result.
+kernel (stage 1 and the fixed-order combine, launched by hand with
+``_sgd_chunked_plan``) at every (rows, chunk columns) layout of the sweep,
+and at the layout ``ops/kernels.py`` chooses for it, and the call as the
+card plan launches it (``planned``: the staged instance up to about 13,200
+columns), with CUDA events; the calls take the two windows in turn, so
+none finds its rows in L2. Beside each time: the plain PyTorch version's
+time and the byte bound (the window's x, y and w, the coefficients and the
+output, read or written once, at 3.35 TB/s). Every result is held against
+the plain version (rtol 1e-4 + atol 1e-3, sums over up to 1e6 rows). It
+prints the card and one JSON line per width. Exits nonzero without a card
+or on a wrong result.
 """
 
 import argparse
@@ -90,41 +92,47 @@ def main(argv=None) -> int:
             return K.sgd_batch_terms_plain(x, y, w, c, next(starts), 0, lb,
                                            "logistic")
 
-        def kernel():
-            return K.sgd_batch_terms(x, y, w, c, next(starts), 0, lb,
-                                     "logistic")
+        def kernel(plan):
+            return K._launch_sgd_terms(x, y, w, c, next(starts), 0, lb,
+                                       "logistic", plan=plan)[-1]
 
         want = K.sgd_batch_terms_plain(x, y, w, c, 0, 0, lb, "logistic")
         line = {"d": d, "lb": lb,
                 "bound_ms": 4 * (lb * d + 2 * lb + 2 * d + 2)
                 / PEAK_BYTES_PER_S * 1e3,
                 "plain_ms": time_ms(plain), "chosen": None, "ms": {}}
-        for rows, chunk in LAYOUTS + ((None, None),):
-            if rows is None:
-                K._sgd_layout = chosen_layout
-                rows, dc, _ = chosen_layout(d)
-                key = "chosen"
+        vec4 = int(d % 4 == 0 and x.data_ptr() % 16 == 0)
+        for rows, chunk in LAYOUTS + ((None, None), ("planned", None)):
+            if rows == "planned":
+                plan, key = K._sgd_card_plan(x, lb, "logistic"), "planned"
             else:
-                dc = min(d, chunk)
-                smem = 4 * (rows * dc + dc + 3 * rows)
+                if rows is None:
+                    rows, dc, smem = chosen_layout(d)
+                    key = "chosen"
+                else:
+                    dc = min(d, chunk)
+                    smem = 4 * (rows * dc + dc + 3 * rows)
+                    key = f"{rows}x{chunk}"
                 K._sgd_layout = lambda _d, r=(rows, dc, smem): r
-                key = f"{rows}x{chunk}"
-            # plans are cached by shape, and the occupancy query that lets
-            # the kernel use a layout's shared memory by instance
-            K._sgd_plan_on.cache_clear()
-            K._sgd_resident_blocks.cache_clear()
-            got = K.sgd_batch_terms(x, y, w, c, 0, 0, lb, "logistic")
+                # the occupancy query, which lets the kernel use this
+                # layout's shared memory, is cached by layout: ask anew
+                K._sgd_resident_blocks.cache_clear()
+                resident = K._sgd_resident_blocks(0, 0, 0, vec4, d, dc, smem)
+                plan = K._sgd_chunked_plan(lb, d, resident, vec4)
+                K._sgd_layout = chosen_layout
+            got = K._launch_sgd_terms(x, y, w, c, 0, 0, lb, "logistic",
+                                      plan=plan)[-1]
             if not bool(((got - want).abs()
                          <= 1e-4 * want.abs() + 1e-3).all()):
                 ok = False
                 key += " WRONG"
-            ms = time_ms(kernel)
+            ms = time_ms(lambda: kernel(plan))
             if key == "chosen":
                 line["chosen"] = {"rows": rows, "dc": dc, "ms": ms}
+            elif key.startswith("planned"):
+                line[key] = {"instance": plan.instance, "ms": ms}
             else:
                 line["ms"][key] = ms
-        K._sgd_layout = chosen_layout
-        K._sgd_plan_on.cache_clear()
         K._sgd_resident_blocks.cache_clear()
         text = json.dumps(line)
         print(text, flush=True)

@@ -9,7 +9,9 @@ each minibatch, a different schedule from the port's single device.
 Tolerances, all float32 against float32:
 - batch terms against the Pallas kernel in interpret mode: rtol 2e-5,
   atol 1e-5, the bound of the JAX package's own kernel test (sums of 16
-  rows added in another order);
+  rows added in another order), at widths past 512 too (dots of up to
+  1,500 terms, the coefficients scaled by 1/√d so that the margins stay
+  near 1);
 - elementwise terms, regularization and the update rules: rtol 1e-6,
   atol 1e-7 (the same float32 operations, at most an ulp apart where the
   two frameworks round a Python scalar differently);
@@ -74,6 +76,25 @@ def test_plain_batch_terms_match_the_pallas_kernel(loss_name, start, clip):
     yl = (rng.random(n) > 0.5).astype(np.float32)
     wl = (rng.random(n) + 0.5).astype(np.float32)
     coeffs = rng.normal(size=d).astype(np.float32)
+    want = np.asarray(pallas_terms(xl, yl, wl, coeffs, start, clip, lb, tile,
+                                   loss_name, interpret=True))
+    got = kernels.sgd_batch_terms(_t(xl), _t(yl), _t(wl), _t(coeffs), start,
+                                  clip, lb, loss_name)
+    assert got.dtype == torch.float32 and got.shape == (d + 2,)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("loss_name", LOSSES)
+@pytest.mark.parametrize("d", [513, 1_500])
+def test_wide_plain_batch_terms_match_the_pallas_kernel(loss_name, d):
+    """Rows wider than the register instance takes (the staged instance's
+    widths on the card): a clipped window at a tile-aligned start."""
+    rng = np.random.default_rng(d)
+    n, lb, tile, start, clip = 64, 16, 8, 24, 3
+    xl = rng.normal(size=(n, d)).astype(np.float32)
+    yl = (rng.random(n) > 0.5).astype(np.float32)
+    wl = (rng.random(n) + 0.5).astype(np.float32)
+    coeffs = (rng.normal(size=d) / np.sqrt(d)).astype(np.float32)
     want = np.asarray(pallas_terms(xl, yl, wl, coeffs, start, clip, lb, tile,
                                    loss_name, interpret=True))
     got = kernels.sgd_batch_terms(_t(xl), _t(yl), _t(wl), _t(coeffs), start,
@@ -332,15 +353,23 @@ def test_sgd_fit_keeps_float32_and_device_tensors():
 def test_the_sgd_layout_takes_any_width():
     """No width is refused: rows of up to 512 columns take the register
     instance (V = ⌈d / 128⌉ float4s a lane) on a persistent grid, wider
-    rows the chunked one, staged in chunks of columns that keep a column on
-    one thread (a multiple of 256)."""
+    rows the staged one while its ring fits a block (whole rows, dc = d),
+    wider still the chunked one, staged in chunks of columns that keep a
+    column on one thread (a multiple of 256)."""
     for d in (1, 7, 100, 128, 129, 256, 300, 511, 512):
         plan = kernels._sgd_plan(100_000, d, 396)
         assert plan.instance == "registers" and plan.v == -(-d // 128)
         assert plan.blocks == 396 and plan.tiles_per_block == 0
     assert kernels._sgd_plan(1_000, 100, 396).blocks == 8  # 16 rows a warp
     assert kernels._sgd_layout(1_500) == (16, 512, 4 * (16 * 512 + 512 + 48))
-    for d in (513, 1_500, 6_001, 10 ** 5, 10 ** 7):
+    for d in (513, 1_500, 6_001, 13_209):
+        plan = kernels._sgd_plan(100_000, d, 792)
+        rows, smem = kernels._sgd_staged_layout(d)
+        assert plan.instance == "staged" and plan.v == 0 and plan.dc == d
+        assert (plan.rows, plan.smem, plan.tiles_per_block) == (rows, smem, 0)
+        assert 1 <= rows <= 16 and smem <= kernels.SMEM_BLOCK_BYTES
+        assert plan.blocks <= 792
+    for d in (13_210, 10 ** 5, 10 ** 7):
         plan = kernels._sgd_plan(100_000, d, 792)
         rows, dc, smem = kernels._sgd_layout(d)
         assert plan.instance == "chunked" and plan.v == 0
@@ -351,16 +380,18 @@ def test_the_sgd_layout_takes_any_width():
         assert dc % 256 == 0 and plan.blocks <= 792
 
 
-@pytest.mark.parametrize("d", [7, 100, 512, 513, 6_001])
+@pytest.mark.parametrize("d", [7, 100, 512, 513, 2_000, 6_001, 20_000])
 @pytest.mark.parametrize("lb", [1, 31, 100, 100_003])
 def test_the_sgd_plan_covers_the_window_once(lb, d):
     """Stage 1's workers (warps of the register instance, blocks of the
-    chunked one) take contiguous runs that cover [0, lb) once, in order;
-    the register instance's runs differ by at most one row, and its grid
-    gives every warp SGD_WARP_ROWS rows or fills the card."""
+    staged and the chunked one) take contiguous runs that cover [0, lb)
+    once, in order; the register and staged instances' runs differ by at
+    most one row, and their grids give every warp SGD_WARP_ROWS rows (every
+    staged block SGD_BLOCK_STAGES stages) or fill the card."""
     resident = 396
     plan = kernels._sgd_plan(lb, d, resident)
-    assert plan.instance == ("registers" if d <= 512 else "chunked")
+    assert plan.instance == ("registers" if d <= 512 else
+                             "staged" if d <= 13_209 else "chunked")
     assert 1 <= plan.blocks <= resident
     runs = kernels.sgd_runs(plan, lb)
     assert runs[0][0] == 0 and runs[-1][1] == lb
@@ -371,10 +402,61 @@ def test_the_sgd_plan_covers_the_window_once(lb, d):
         assert max(lengths) - min(lengths) <= 1
         assert (plan.blocks == resident or plan.blocks == -(-lb // (
             kernels.SGD_WARPS * kernels.SGD_WARP_ROWS)))
+    elif plan.instance == "staged":
+        assert len(runs) == plan.blocks and min(lengths) >= 1
+        assert max(lengths) - min(lengths) <= 1
+        assert (plan.blocks == resident or plan.blocks == -(-lb // (
+            kernels.SGD_BLOCK_STAGES * plan.rows)))
     else:
         span = plan.tiles_per_block * plan.rows
         assert len(runs) == plan.blocks and min(lengths) >= 1
         assert all(n == span for n in lengths[:-1])
+
+
+@pytest.mark.parametrize("d,instance,nreg,rows", [
+    (512, "registers", 0, 0), (513, "staged", 4, 15), (1_024, "staged", 4, 8),
+    (1_025, "staged", 8, 7), (2_000, "staged", 8, 4), (2_048, "staged", 8, 4),
+    (2_049, "staged", 16, 3), (4_096, "staged", 16, 2),
+    (4_097, "staged", 16, 1), (8_192, "staged", 16, 1),
+    (8_193, "staged", 16, 1), (13_209, "staged", 16, 1),
+    (13_210, "chunked", 0, 16)])
+def test_the_sgd_plan_routes_each_width(d, instance, nreg, rows):
+    """Which stage-1 instance each width takes, at the edges: the staged
+    instance's columns a thread keeps in registers (4, 8, 16: past 4,096
+    columns the rest sit in shared memory), its rows a stage (32 KB
+    of x, 16 rows at most, one row past 8,192 floats), and the widest row
+    whose three-stage ring fits a block's 232,448 bytes."""
+    plan = kernels._sgd_plan(100_000, d, 264)
+    assert plan.instance == instance and plan.rows == rows
+    if instance != "staged":
+        return
+    assert kernels._sgd_nreg(d) == nreg
+    stage = (rows * d + 6) // 4 * 4  # up to 3 floats before the first row
+    over = max(0, -(-d // 256) * 256 - 256 * nreg)
+    floats = 3 * stage + 6 * rows + -(-rows // 4) * 4 * 8 + 3 * rows + 2 * over
+    assert plan.smem == 4 * floats <= kernels.SMEM_BLOCK_BYTES
+    assert plan.dc == d and plan.blocks == 264
+
+
+def test_the_staged_instance_reads_any_width_by_16_bytes(monkeypatch):
+    """The card plan reads rows by 16 bytes from an aligned x at a width
+    that is a multiple of 4, and at any width the staged instance takes
+    (a stage is one contiguous run, copied from the aligned address at or
+    before it); never from an unaligned x."""
+    monkeypatch.setattr(kernels, "_device_index", lambda t: 0)
+    monkeypatch.setattr(kernels, "_sgd_resident_blocks", lambda *a: 264)
+    kernels._sgd_plan_on.cache_clear()
+    try:
+        for d, vec4 in [(7, 0), (100, 1), (513, 1), (514, 1), (6_001, 1),
+                        (13_210, 0), (13_212, 1)]:
+            x = torch.zeros(3 * d + 1)
+            assert x.data_ptr() % 16 == 0
+            plan = kernels._sgd_card_plan(x[:3 * d].view(3, d), 2, "hinge")
+            assert plan.vec4 == vec4, d
+            shifted = x[1:].view(3, d)  # 4 bytes off
+            assert kernels._sgd_card_plan(shifted, 2, "hinge").vec4 == 0
+    finally:
+        kernels._sgd_plan_on.cache_clear()
 
 
 def test_a_wide_row_on_the_card_launches_the_kernel(monkeypatch):
