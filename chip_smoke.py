@@ -12,8 +12,10 @@ Phases, each of which fails the run (no result line, nonzero exit):
    power limit;
 2. hold every KMeans kernel against its plain PyTorch version on the card,
    at the main-path shape (1,000,000 x 100, k = 10), a ragged n, n = 0,
-   zero-weight rows, a wide k that makes the kernels stage centroids in
-   chunks, and an odd width; reruns must be bit-identical; time kernel,
+   zero-weight rows, a wide k, fused tiles that stage centroids in chunks
+   (assign at d = 400 and k = 25, Lloyd at d = 310 and k = 32), and an odd
+   width; reruns
+   must be bit-identical; time kernel,
    plain version and a one-call PyTorch yardstick, and Lloyd's first stage
    alone, eagerly and as device time (``stage1_device_ms`` of its row in
    the kernels line); then hold
@@ -26,7 +28,23 @@ Phases, each of which fails the run (no result line, nonzero exit):
    ``torch.sum`` there, eagerly (what a fit's loop pays, host enqueue
    included) and as device times (calls captured in a CUDA graph and
    replayed: the host takes longer to enqueue one call than the card to run
-   it);
+   it); then the tiled route (``ops/kernels.py`` ``kmeans_plan``: every
+   shape the fused tile does not take), printing each case's plan: 1,000,000
+   x 768 with k = 64, 1,000,000 x 100 with k = 1,000, 200,000 x 1,536 with
+   k = 1,024, an odd 10,007 x 1,537 with k = 1,025, n = 0, zero-weight rows
+   and a skewed table (97% of 500,000 x 512 rows around one of 100
+   centroids), each through ``check_assign`` / ``check_lloyd`` and, stage by
+   stage from one call's workspace, its labels bit-equal to
+   ``assign_nearest``'s, its sort equal to ``sort_by_label_plain`` and its
+   sums and piece parts against ``piece_sums_plain``; kernel, plain version
+   and library call (``torch.addmm(csq, x, c.T, alpha=-2).argmin(1)``; the
+   one-hot product given the labels) timed eagerly and as device time at the
+   first three shapes (the kernels line's ``[tiled]`` rows at the first);
+   and both routes launched by hand where the fused tile fits, at the
+   hand-over shapes (1,000,000 rows; d = 100 with k = 10 to 300, d = 128
+   to 300 with k = 32 and 64, d = 375 with k = 10, d = 16 with k = 500):
+   labels bit-equal, sums within tolerance, device times and the planner's
+   pick printed;
 3. the same for the SGD kernel, for each loss: the main-path window (the
    first 100,000 rows of a 10,000,000 x 100 table), a window in the middle,
    the clipped window at the end, a ragged window, a one-row window,
@@ -433,10 +451,28 @@ Phases, each of which fails the run (no result line, nonzero exit):
     the plain version's neighbours; the runner on the LR config's shape at
     2,000 features (1,000,000 rows, 20 rounds of 100,000), then a fit of
     the same table held against a plain PyTorch fit on the card;
-24. print one ``{"kernels": [...]}`` line with every kernel's launches in
+24. KMeans at embedding widths through the runner and the estimators, with
+    the counts at 0: ``kmeans-benchmark.json`` with only ``vectorDim`` and
+    ``k`` changed (1,000,000 rows, maxIter 10, seed 2, generated on the
+    card), (a) d = 768, k = 64 and (b) d = 1,536, k = 1,024, both on the
+    tiled route: for each a runner row, a fit, a transform of the same
+    table, save, load and transform again (the same labels); the transform
+    against the plain assignment but for ties; the fit equal bit for bit to
+    its ten rounds run through the kernels from the same initial
+    centroids, each round's partials held against the one-hot product of
+    the kernel's labels (SUM_RTOL/SUM_ATOL, counts exact) and those labels
+    against the plain ones but for ties; the whole plain fit's centroid
+    difference and label agreement are reported, not held (see the
+    tolerances). At (a) OnlineKMeans from the fitted model over
+    WIDE_STREAM_BATCHES batches of STREAM_BATCH rows: ``cuda-lloyd-stream``,
+    one Lloyd launch a batch, each batch's partials held the same way and
+    its recorded update within STEP_ATOL of the float64 update of them.
+    Launches ``PATH_KERNELS["kmeans_wide"]``, no ``reduce_partials``;
+25. print one ``{"kernels": [...]}`` line with every kernel's launches in
     its main-path runs (in all and by path), error, times and bound, and
     rows of their own for the long-list KNN and staged SGD instances
-    (launches from phase 23), then the result line.
+    (launches from phase 23) and the tiled KMeans route (launches from
+    phase 24), then the result line.
 
 Tolerances (float32 throughout, TF32 off):
 - labels: identical, except rows whose two nearest centroids are closer than
@@ -445,6 +481,12 @@ Tolerances (float32 throughout, TF32 off):
   SUM_ATOL: sums over up to 1e5 rows of float32 terms, added in another
   order (per block, then across blocks) than the plain version adds them;
   counts exact wherever the labels agree;
+- phase 24's fits at 768 and 1,536 columns are held round by round, not
+  by their end state: with 64 to 1,024 clusters of the structureless rows,
+  one row that flips at a tie moves its two centroids by up to 1/(rows in
+  the cluster), past CENTROID_ATOL, and the fits then part; so each
+  round's labels are held against the plain ones but for ties and its
+  partials against the one-hot product of the kernel's own labels;
 - the KMeans main-path fit: centroids within CENTROID_ATOL of the plain
   fit's, and at least LABEL_AGREEMENT of its labels equal to the plain
   fit's. The benchmark's rows are uniform in [0, 1)^100 and have no cluster
@@ -605,14 +647,44 @@ PATH_KERNELS = {
     # LR fit at 2,000 features (the staged instance)
     "knn_long": ("knn_topk_indices",),
     "linear_wide": ("sgd_batch_terms",),
+    # phase 24: KMeans fits, transforms and an OnlineKMeans stream at
+    # embedding widths, all on the tiled route (no reduce_partials)
+    "kmeans_wide": ("assign_nearest", "lloyd_partial_sums"),
 }
 #: the kernels line's rows of single instances: (row name, wrapper, path)
 INSTANCE_ROWS = (("knn_topk_indices[long]", "knn_topk_indices", "knn_long"),
                  ("sgd_batch_terms[staged]", "sgd_batch_terms",
-                  "linear_wide"))
+                  "linear_wide"),
+                 ("assign_nearest[tiled]", "assign_nearest", "kmeans_wide"),
+                 ("lloyd_partial_sums[tiled]", "lloyd_partial_sums",
+                  "kmeans_wide"))
 # phase 23: the KNN transform's k, and the LR fit's width and rows
 LONG_PATH_K = 50
 WIDE_PATH_D, WIDE_PATH_ROWS = 2_000, 1_000_000
+# phase 2's tiled KMeans route: the cases (n, d, k, share of zero weights,
+# tag); the skewed table (n, d, k, share of rows drawn around centroid 0);
+# the shape its kernels line rows are timed at (phase 24 (a)); the shapes
+# timed on both routes, to place the hand-over ((n, d, k, Lloyd or assign))
+TILED_CASES = (
+    (1_000_000, 768, 64, 0.0, "d=768 k=64"),
+    (1_000_000, 100, 1_000, 0.0, "d=100 k=1000"),
+    (200_000, 1_536, 1_024, 0.0, "d=1536 k=1024"),
+    (10_007, 1_537, 1_025, 0.0, "odd d=1537 k=1025"),
+    (0, 768, 64, 0.0, "n=0"),
+    (200_000, 768, 64, 0.3, "zero-weights"))
+TILED_SKEWED = (500_000, 512, 100, 0.97)
+TILED_ROW_SHAPE = (1_000_000, 768, 64)
+HANDOVER_SHAPES = tuple(
+    (1_000_000, d, k, lloyd) for lloyd in (True, False)
+    for d, k in ((100, 10), (100, 32), (100, 64), (128, 64), (160, 64),
+                 (100, 100), (100, 300), (256, 32), (256, 64), (300, 32),
+                 (375, 10), (16, 500)))
+# phase 24: the KMeans config at embedding widths, (tag, vectorDim, k):
+# BERT-base / all-mpnet-base-v2 rows with 64 clusters, and
+# text-embedding-3-small rows under an IVF1024 coarse quantizer; the
+# OnlineKMeans batches of (a)
+KMEANS_WIDE = (("a", 768, 64), ("b", 1_536, 1_024))
+WIDE_STREAM_BATCHES = 5
 # phase 15's configs, run uncut through the runner
 FEATURE_CONFIGS = (
     "standardscaler", "minmaxscaler", "maxabsscaler", "robustscaler",
@@ -896,20 +968,24 @@ def phase_kernels(K):
     def rand(*shape):
         return torch.rand(shape, generator=g, device="cuda")
 
-    # ragged n, n = 0, zero-weight rows, wide k (chunked centroids), odd d
+    # ragged n, n = 0, zero-weight rows, wide k (the tiled route), fused
+    # tiles that stage centroids in chunks (assign at d = 400, Lloyd at
+    # d = 310), odd d
     for n, d, k, zero_share, tag in [
             (100_003, 100, 10, 0.0, "ragged-n"),
             (0, 100, 10, 0.0, "n=0"),
             (200_000, 100, 10, 0.3, "zero-weights"),
             (50_000, 100, 300, 0.0, "wide-k"),
+            (50_000, 400, 25, 0.0, "chunked-k assign"),
+            (50_000, 310, 32, 0.0, "chunked-k Lloyd"),
             (10_007, 7, 5, 0.0, "odd-d")]:
         x, c = rand(n, d), rand(k, d)
         v = (rand(n) >= zero_share).float()
         check_assign(K, x, c, tag)
         got, _ = check_lloyd(K, x, v, c, tag)
-        if tag == "wide-k":
-            assert K._layout(k, d, False)[1] < k, "wide-k did not chunk (assign)"
-            assert K._layout(k, d, True)[1] < k, "wide-k did not chunk (Lloyd)"
+        if tag.startswith("chunked-k"):
+            plan = K.kmeans_plan(n, k, d, tag.endswith("Lloyd"))
+            assert plan.route == "fused" and plan.kchunk < k, (tag, plan)
         if tag == "zero-weights":
             keep = v > 0
             alone = K.lloyd_partial_sums(x[keep].contiguous(),
@@ -1004,6 +1080,318 @@ def phase_kernels(K):
     log(f"  reduce_partials @ Lloyd: {measured['reduce_partials']}")
     del shapes
     return measured
+
+
+def timed(fn):
+    """(eager ms, device ms) of fn: ``time_ms`` and ``graph_ms``, with fewer
+    calls where one takes over 5 ms."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    if (time.perf_counter() - start) * 1e3 < 5:
+        return time_ms(fn), graph_ms(fn)
+    return (time_ms(fn, batches=3, per_batch=2, warmup=1),
+            graph_ms(fn, reps=2))
+
+
+def check_tiled_stages(K, x, v, c, tag):
+    """The tiled Lloyd route's stages, from the workspace of one call: its
+    labels bit-equal to ``assign_nearest``'s on the same rows (either
+    route: both form the same distance bits) and to the plain ones but for
+    ties; its offsets and order equal to ``sort_by_label_plain`` of those
+    labels; its sums and written scratch slots within SUM_RTOL/ATOL of
+    ``piece_sums_plain`` on that order. → (plan, max |sums err|)."""
+    n, d = x.shape
+    k = c.shape[0]
+    plan = K.tiled_plan(n, k, d, True)
+    out, ws = K._launch_lloyd_sorted(x, v, c, plan)
+    labels = ws["labels"]
+    assert torch.equal(labels, K.assign_nearest(x, c)), (
+        f"{tag}: Lloyd's labels differ from assign_nearest's")
+    ties = tie_rows_ok(x, c, labels, K.assign_nearest_plain(x, c))
+    offs, order = K.sort_by_label_plain(labels, k, plan.chunk_rows)
+    assert torch.equal(ws["offs"], offs), f"{tag}: sort offsets differ"
+    assert torch.equal(ws["order"], order), f"{tag}: sorted order differs"
+    want, scratch = K.piece_sums_plain(x, v, labels, order, offs,
+                                       plan.nchunks, plan.piece_rows)
+    err = within_sum_tol(out, want, f"{tag} sums")
+    written = ~torch.isnan(scratch)
+    within_sum_tol(ws["scratch"][written], scratch[written],
+                   f"{tag} piece parts")
+    log(f"  tiled Lloyd stages {tag}: labels = assign_nearest's "
+        f"(tie-flips against plain {ties}), sort exact, sums max|err|="
+        f"{err:.3g}, {int(written.sum()) // (d + 1)} piece parts")
+    return plan, err
+
+
+def phase_tiled_kernels(K):
+    """Phase 2, the tiled route: every case against the plain versions
+    (bit-identical reruns), the stages one by one, the routes' labels
+    against each other, times of kernel, plain and library eagerly and as
+    device time, and both routes timed at the hand-over shapes; returns
+    the kernels line's rows for the tiled instances."""
+    log("phase 2 (tiled route): KMeans kernels at every (k, d)")
+    g = torch.Generator(device="cuda").manual_seed(24)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device="cuda")
+
+    for n, d, k, zero_share, tag in TILED_CASES:
+        x, c = rand(n, d), rand(k, d)
+        v = (rand(n) >= zero_share).float()
+        plans = [K.kmeans_plan(max(n, 1), k, d, lloyd) for lloyd in (0, 1)]
+        log(f"  plan {tag}: assign {plans[0]}; Lloyd {plans[1]}")
+        assert plans[1].route == "tiled", (tag, plans[1])
+        check_assign(K, x, c, tag)
+        got, _ = check_lloyd(K, x, v, c, tag)
+        if n == 0:
+            assert not got.any(), "n=0 must give zeros"
+            continue
+        check_tiled_stages(K, x, v, c, tag)
+        if zero_share:
+            keep = v > 0
+            alone = K.lloyd_partial_sums(
+                x[keep].contiguous(), torch.ones(int(keep.sum()),
+                                                 device="cuda"), c)
+            within_sum_tol(got, alone, f"{tag}: zero-weight rows")
+        del x, c, v
+    # nearly every row around centroid 0: one label holds most sorted rows
+    n, d, k, share = TILED_SKEWED
+    c = rand(k, d)
+    x = torch.where(rand(n, 1) < share, c[0] + 0.01 * rand(n, d), rand(n, d))
+    v = torch.ones(n, device="cuda")
+    got, _ = check_lloyd(K, x, v, c, "skewed")
+    plan, _ = check_tiled_stages(K, x, v, c, "skewed")
+    top = int(got[:, -1].max())
+    log(f"  skewed: {top} of {n} rows in one cluster over {plan.pieces} "
+        f"pieces of {plan.piece_rows}")
+    assert top >= share * n * 0.99, top
+    del x, c, v
+
+    measured = {}
+    for n, d, k, _, tag in TILED_CASES[:3]:
+        x, c, v = rand(n, d), rand(k, d), torch.ones(n, device="cuda")
+        csq = torch.sum(c * c, dim=1)
+        labels = K.assign_nearest_plain(x, c).long()
+        one_hot = torch.nn.functional.one_hot(labels, k).float()
+        x_aug = torch.cat([x, torch.ones(n, 1, device="cuda")], dim=1)
+        a_got, a_want = K.assign_nearest(x, c), labels.int()
+        p_got = K.lloyd_partial_sums(x, v, c)
+        p_want = K.lloyd_partial_sums_plain(x, v, c)
+        cases = {
+            "assign_nearest": (
+                lambda: K.assign_nearest(x, c),
+                lambda: K.assign_nearest_plain(x, c),
+                # one PyTorch call for the same labels
+                lambda: torch.addmm(csq, x, c.T, alpha=-2).argmin(1),
+                float((a_got - a_want).abs().max())),
+            "lloyd_partial_sums": (
+                lambda: K.lloyd_partial_sums(x, v, c),
+                lambda: K.lloyd_partial_sums_plain(x, v, c),
+                # the one-hot product alone, given the labels
+                lambda: torch.matmul(one_hot.T, x_aug),
+                float((p_got - p_want).abs().max()))}
+        for name, (kernel, plain, library, err) in cases.items():
+            ms, device_ms = timed(kernel)
+            plain_ms, _ = timed(plain)
+            library_ms, library_device_ms = timed(library)
+            b_ms, b_by = bound_ms(*K.launch_cost(name, n=n, k=k, d=d))
+            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": library_ms, "device_ms": device_ms,
+                   "library_device_ms": library_device_ms}
+            log(f"  {name} tiled @ {n} x {d}, k={k}: {row}")
+            if (n, d, k) == TILED_ROW_SHAPE:
+                measured[f"{name}[tiled]"] = row
+        del x, c, v, one_hot, x_aug, labels
+
+    # the hand-over: both routes where the fused tile fits, each launched
+    # by hand, device times; the routes' labels are the same bits, their
+    # sums within SUM tolerance; the planner's pick beside the faster one
+    for n, d, k, lloyd in HANDOVER_SHAPES:
+        x, c, v = rand(n, d), rand(k, d), torch.ones(n, device="cuda")
+        tiled = K.tiled_plan(n, k, d, lloyd)
+        if lloyd:
+            fused_fn = lambda: K.reduce_partials(  # noqa: E731
+                K._launch_lloyd_partials(x, v, c))
+            tiled_fn = lambda: K._launch_lloyd_sorted(  # noqa: E731
+                x, v, c, tiled)[0]
+            within_sum_tol(tiled_fn(), fused_fn(), f"hand-over {n}x{d} k={k}")
+        else:
+            fused_fn = lambda: K._launch_assign(x, c)  # noqa: E731
+            tiled_fn = lambda: K._launch_assign_tiled(  # noqa: E731
+                x, c, tiled)
+            assert torch.equal(tiled_fn(), fused_fn()), (
+                f"hand-over {n}x{d} k={k}: the routes' labels differ")
+        f_ms, t_ms = timed(fused_fn)[1], timed(tiled_fn)[1]
+        log(f"  hand-over {'lloyd_partial_sums' if lloyd else 'assign_nearest'}"
+            f" @ {n} x {d}, k={k}: fused device {f_ms:.5f} ms, tiled device "
+            f"{t_ms:.5f} ms ({'fused' if f_ms <= t_ms else 'tiled'} faster; "
+            f"planned {K.kmeans_plan(n, k, d, lloyd).route})")
+        del x, c, v
+    torch.cuda.empty_cache()
+    return measured
+
+
+def held_partials(K, x, v, c):
+    """One Lloyd call's partials held against the plain ones given the
+    kernel's own labels: labels that differ from the plain assignment must
+    be ties (TIE_RTOL), the sums lie within SUM_RTOL/SUM_ATOL of the one-hot
+    product of the kernel's labels, the counts equal. Independent fits of
+    the structureless tables part at their first tie flip, and at these
+    widths one flipped row moves a centroid of a few hundred rows past
+    CENTROID_ATOL, so the labels and the arithmetic are held apart.
+    → (partials, tie rows)."""
+    packed = K.lloyd_partial_sums(x, v, c)
+    labels = K.assign_nearest(x, c)
+    ties = tie_rows_ok(x, c, labels, K.assign_nearest_plain(x, c))
+    one_hot = torch.nn.functional.one_hot(
+        labels.long(), c.shape[0]).float() * v[:, None]
+    want = torch.cat([one_hot.T @ x, one_hot.sum(0)[:, None]], dim=1)
+    within_sum_tol(packed, want, "partials given the kernel's labels")
+    assert torch.equal(packed[:, -1], want[:, -1]), "counts differ"
+    return packed, ties
+
+
+def _kmeans_steps(K, kmeans_mod, x, init, rounds):
+    """The fit's rounds from ``init``, each call's partials held by
+    :func:`held_partials`; → (final centroids, the largest difference of a
+    round from the plain round from the same centroids (reported), tie
+    rows in all)."""
+    v = torch.ones(x.shape[0], device="cuda")
+    c, worst, flips = init, 0.0, 0
+    for _ in range(rounds):
+        packed, ties = held_partials(K, x, v, c)
+        got, _ = kmeans_mod.lloyd_round(lambda *_: packed, x, v, c)
+        want, _ = kmeans_mod.lloyd_round(K.lloyd_partial_sums_plain, x, v, c)
+        worst = max(worst, float((got - want).abs().max()))
+        flips, c = flips + ties, got
+    return c, worst, flips
+
+
+def _stream_steps(K, x, init_c, init_w, states):
+    """An OnlineKMeans fit's batches from its recorded states: each batch's
+    partials held by :func:`held_partials` on the float32 centroids the fit
+    scored, and the recorded state equal to the float64 update of those
+    partials within STEP_ATOL. → tie rows in all."""
+    prev_c, prev_w, flips = init_c, init_w, 0
+    ones = torch.ones(STREAM_BATCH, device="cuda")
+    for b, (c, w) in enumerate(states):
+        xb = x[b * STREAM_BATCH:(b + 1) * STREAM_BATCH]
+        c32 = torch.as_tensor(prev_c, dtype=torch.float32, device="cuda")
+        packed, ties = held_partials(K, xb, ones, c32)
+        packed = packed.double().cpu().numpy()
+        want_c, _ = _decayed_update(prev_c, prev_w, packed[:, :-1],
+                                    packed[:, -1], STREAM_DECAY)
+        assert float(np.abs(c - want_c).max()) <= STEP_ATOL, b
+        prev_c, prev_w, flips = c, w, flips + ties
+    return flips
+
+
+def phase_kmeans_wide(K, runner, kmeans_mod, Table):
+    """Phase 24: KMeans at embedding widths through the runner and the
+    estimators, with the counts at 0 just before and read just after;
+    returns the path's counts."""
+    import copy
+
+    from flink_ml_tpu_torch.models import online
+
+    log("phase 24: KMeans at embedding widths through the port's entry "
+        "points")
+    started = time.perf_counter()
+    base = runner.load_config(str(CONFIG))["KMeans"]
+    K.reset_launch_counts()
+    for tag, d, k in KMEANS_WIDE:
+        spec = copy.deepcopy(base)
+        spec["inputData"]["paramMap"]["vectorDim"] = d
+        spec["stage"]["paramMap"]["k"] = k
+        n = spec["inputData"]["paramMap"]["numValues"]
+        max_iter = spec["stage"]["paramMap"]["maxIter"]
+        routes = {lloyd: K.kmeans_plan(n, k, d, lloyd).route
+                  for lloyd in (False, True)}
+        assert routes == {False: "tiled", True: "tiled"}, routes
+        row = runner.run_benchmark(f"KMeans-d{d}-k{k}", spec)
+        log(f"  ({tag}) benchmark row (d = {d}, k = {k}):",
+            json.dumps(row, sort_keys=True))
+        assert row["executionPath"] == "cuda-lloyd", row["executionPath"]
+        table = runner.build_generator(spec).get_data()
+        estimator = runner.build_stage(spec)
+        model, fit_ms = _synced_ms(lambda: estimator.fit(table))
+        out, transform_ms = _synced_ms(lambda: model.transform(table)[0])
+        labels = out[model.prediction_col]
+        assert estimator.last_execution_path == "cuda-lloyd"
+        assert model.last_execution_path == "cuda-assign"
+        with tempfile.TemporaryDirectory() as tmp:
+            model.save(tmp)
+            loaded = type(model).load(tmp)
+            again = loaded.transform(table)[0][loaded.prediction_col]
+        assert loaded.last_execution_path == "cuda-assign"
+        assert torch.equal(labels, again), "the loaded model predicts otherwise"
+        assert labels.dtype == torch.int64 and labels.shape == (n,)
+        assert model.centroids.shape == (k, d)
+        assert np.isfinite(model.centroids).all() and model.weights.sum() == n
+        x = table.vectors(estimator.features_col)
+        fitted = torch.as_tensor(model.centroids, dtype=torch.float32,
+                                 device="cuda")
+        with _uncounted(K):
+            ties = tie_rows_ok(x, fitted, labels,
+                               K.assign_nearest_plain(x, fitted).long())
+            init = kmeans_mod.initial_centroids(
+                x, k, estimator.get_seed_or_default())
+            final, worst, flips = _kmeans_steps(K, kmeans_mod, x, init,
+                                                max_iter)
+            assert np.array_equal(final.double().cpu().numpy(),
+                                  model.centroids), (
+                "the estimator's fit differs from its rounds run directly")
+            # the whole plain fit, reported: independent fits of these
+            # structureless rows part at their first tie flip
+            plain_c = init
+            v = torch.ones(n, device="cuda")
+            for _ in range(max_iter):
+                plain_c, _ = kmeans_mod.lloyd_round(
+                    K.lloyd_partial_sums_plain, x, v, plain_c)
+            whole = float(np.abs(plain_c.cpu().numpy()
+                                 - model.centroids).max())
+            agree = float((K.assign_nearest_plain(x, plain_c).long()
+                           == labels).float().mean())
+        log(f"  ({tag}) fit {fit_ms:.1f} ms, transform {transform_ms:.1f} ms "
+            f"for {n} rows; transform against the plain assignment: "
+            f"tie-flips={ties}; every round's partials held, tie rows="
+            f"{flips}; reported: rounds against the plain rounds from the "
+            f"same centroids max|diff|={worst:.3g}, the whole plain fit "
+            f"max|centroid diff|={whole:.3g}, label agreement={agree:.6f}")
+        if tag == "a":
+            batch = STREAM_BATCH
+            head = table.take(slice(0, WIDE_STREAM_BATCHES * batch))
+            est = online.OnlineKMeans(
+                k=k, global_batch_size=batch, decay_factor=STREAM_DECAY,
+                device="cuda").set_initial_model_data(model.get_model_data()[0])
+            before = K.launch_counts["lloyd_partial_sums"]
+            recorder = _StateRecorder()
+            streamed, stream_ms = _synced_ms(lambda: est.set_iteration_config(
+                None, listeners=[recorder]).fit(head))
+            assert est.last_execution_path == "cuda-lloyd-stream", (
+                est.last_execution_path)
+            assert (K.launch_counts["lloyd_partial_sums"] - before
+                    == WIDE_STREAM_BATCHES)
+            assert np.isfinite(streamed.centroids).all()
+            with _uncounted(K):
+                flips = _stream_steps(K, head.column("features"),
+                                      model.centroids, model.weights,
+                                      recorder.states)
+            log(f"  ({tag}) OnlineKMeans: {WIDE_STREAM_BATCHES} batches of "
+                f"{batch} in {stream_ms:.1f} ms, cuda-lloyd-stream; every "
+                f"batch's partials held, tie rows={flips}")
+        del table, x, labels, again, out
+        torch.cuda.empty_cache()
+    counts = dict(K.launch_counts)
+    log(f"  launches: {counts}; phase 24: "
+        f"{time.perf_counter() - started:.1f} s")
+    assert counts["reduce_partials"] == 0, counts
+    assert counts["lloyd_partial_sums"] >= 2 * 10, counts
+    assert counts["assign_nearest"] >= 4, counts
+    return counts
 
 
 def check_sgd(K, x, y, w, c, start, clip, lb, loss, tag):
@@ -6733,6 +7121,7 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     log("card:", card)
     measured = phase_kernels(K)
+    measured.update(phase_tiled_kernels(K))
     measured.update(phase_sgd_kernels(K))
     # each path is driven with the counts at 0 and read just after; a
     # path's count of another path's kernels is 0
@@ -6762,8 +7151,9 @@ def main() -> int:
     counts["feature_mesh"] = phase_feature_mesh(K, runner, card)
     counts["knn_long"], counts["linear_wide"] = phase_long_instances(
         K, runner, optimizer)
+    counts["kmeans_wide"] = phase_kmeans_wide(K, runner, kmeans_mod, Table)
 
-    # step 24: the kernels line
+    # step 25: the kernels line
     line = {"kernels": [
         {"name": name, **{key: K.KERNELS[name][key]
                           for key in ("route", "source", "replaces")},

@@ -60,10 +60,30 @@
 //   acc [k][d+1]        Lloyd only: the block's [sums | counts]
 // Every array before acc starts 16-byte aligned (kchunk is a multiple of
 // 16 and rows of 32). Centroids beyond the staged chunk are scored chunk by
-// chunk, so any k works; the gate on d is the tile's shared memory.
+// chunk, so any k works; but the x tile, and for Lloyd the whole (k, d+1)
+// accumulator, must fit one block's shared memory beside it. These fused
+// kernels run where a 128-row tile fits (ops/kernels.py `kmeans_plan`,
+// the main path among them); every other shape takes the tiled route.
+//
+// The tiled route (any k and d; its comment below):
+//   assign_tile_kernel     <- _assign_kernel (:26), pallas_call at :41
+//   lloyd_label_kernel,    <- _lloyd_accum_kernel (:132), pallas_call at
+//   label_sort_kernel,        :165, with its accumulation across grid
+//   scan_*_kernel,            steps (:141-157)
+//   piece_sums_kernel,
+//   piece_combine_kernel
+// labels each row by the register-blocked tile engine of tile_engine.cuh
+// (the one knn_kernels.cu runs), then, for Lloyd, sorts the row ids by
+// label (a stable counting sort) and adds each label's rows in ascending
+// row order, in fixed pieces of the sorted rows: no (k, d+1) accumulator in
+// shared memory and no (blocks, k, d+1) partials in device memory.
 
+#include <climits>
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tile_engine.cuh"
 
 namespace {
 
@@ -505,6 +525,492 @@ __global__ void __launch_bounds__(256)
   *reinterpret_cast<float4*>(out + col) = v[0];
 }
 
+// -- the tiled route -----------------------------------------------------
+//
+// What bounds it on an H100: fp32 operations where k is large (the 2 n k d
+// of the distances: at 1,000,000 x 1,536 and k = 1,024, 3.15 TFLOP, 47 ms
+// at 67 TFLOP/s, against 1.8 ms for the bytes of x), device-memory bytes
+// where it is not (d = 768, k = 64: 98 GFLOP, 1.5 ms, against 0.9 ms to
+// read x once). Each stage, in launch order:
+//
+// - Labels (assign_tile_kernel for assign_nearest, lloyd_label_kernel for
+//   Lloyd: one body, two symbols, so that a profile tells them apart): the
+//   KNN tile engine of tile_engine.cuh with the list replaced by one
+//   running key a row. A block of 256 threads owns 128 rows of x and walks
+//   the centroids, transposed and zero-padded to (dpad, kp) with norms +inf
+//   past k, in tiles of 128 a step of 32 columns by TMA into a double
+//   buffer; each thread keeps an 8 x 8 micro-tile of dots in registers,
+//   one fma chain per dot in column order from 0, as score_chunk adds
+//   them, so a distance fmaf(-2, dot, ||c||^2) has the bits of the fused
+//   kernel's ||c||^2 - 2 dot (-2 dot is exact). Each of a thread's 8 rows
+//   keeps the smallest key (distance, index) it has seen; after the last
+//   tile the 16 lanes of the half-warp that share a row take the smallest
+//   of their keys. The smallest key is the first minimum over ascending j,
+//   the rule of _assign_kernel and the fused kernel, in any order of
+//   comparison. Padded centroids score +inf with a higher index than any
+//   real one, so they never win.
+// - A stable counting sort of the row ids by label (label_sort_kernel,
+//   twice, around an exclusive scan): block (c, t) takes chunk c of
+//   chunk_rows rows and labels [t * label_tile, ...); each of its 8 warps
+//   counts the labels of a contiguous eighth of the chunk into a private
+//   row of shared memory, 32 rows at a time (__match_any_sync groups a
+//   batch's equal labels; the lowest lane of a group adds the group's
+//   size: no two lanes write one counter, and no atomics). The counts go
+//   to offs[label][chunk]; scan_reduce_kernel, scan_top_kernel and
+//   scan_down_kernel turn them into their exclusive prefix sum in that
+//   order (integer sums: exact in any order); then the same blocks count
+//   again, take each warp's first place from offs and the warps before it,
+//   and write each row id to its place, the lanes of a batch by lane. So
+//   order[] holds the rows label by label, ascending within a label, and
+//   offs[l * nchunks] is where label l begins. chunk_rows >= k, so offs
+//   holds at most n + k ints.
+// - Sums (piece_sums_kernel): the sorted places are cut into pieces of
+//   piece_rows; block (q, g) owns piece q and column group g of [x | 1],
+//   a thread a column. It stages kPieceBatch row ids, weights and labels
+//   at a time in shared memory and walks them in order, kPieceLoads rows'
+//   loads of x issued before their adds, adding each run of one label with
+//   fmaf(weight, x, a) from a = 0 in ascending row order. A label whose
+//   rows lie in one piece is written to out[label] there; a longer one
+//   leaves the piece's part in scratch slot (q, 0) if its run begins the
+//   piece, else (q, 1) (it then ends the piece). piece_combine_kernel
+//   writes zeros for empty labels and adds the parts of each long label in
+//   piece order, so one cluster holding most rows is still spread over
+//   every piece, and no add order depends on the launch. The scratch is 2
+//   (d + 1) floats a piece, and ops/kernels.py cuts at most n / (d + 1) + k
+//   pieces, so it holds at most 2 (n + k (d + 1)) floats.
+//
+// Every stage's offsets are 32-bit where they count rows or labels (n
+// below 2^31, which the entries check) and 64-bit where they address the
+// k * nchunks sort offsets or floats of x, scratch or out. No atomics: the same inputs on the
+// same card give the same bits.
+
+// The key (distance, index) order: the first minimum over ascending index.
+__device__ __forceinline__ bool key_less(float da, int ia, float db, int ib) {
+  return da < db || (da == db && ia < ib);
+}
+
+// The nearest of the kp padded centroids (cT (dpad, kp) by `cmap`, norms
+// csq) for each of the block's kTM rows of x -> out.
+__device__ __forceinline__ void nearest_tiles(const CUtensorMap* cmap,
+                                              const float* __restrict__ x,
+                                              const float* __restrict__ csq,
+                                              int* __restrict__ out,
+                                              int64_t n, int d, int dpad,
+                                              int kp) {
+  extern __shared__ __align__(128) float tile_smem[];
+  const bool xres = dpad <= kXResMax;
+  const int nchunks = dpad / kDK;
+  float* xs = tile_smem;
+  float* ts = xs + (xres ? dpad * kTM : 2 * kDK * kTM);
+  float* csq_s = ts + 2 * kDK * kTN;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(csq_s + 2 * kTN);
+  const float inf = __int_as_float(0x7f800000);
+
+  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
+  const int64_t i0 = (int64_t)blockIdx.x * kTM;
+  const int nsteps = kp / kTN * nchunks;
+
+  // step s: centroid tile s / nchunks, columns of chunk s % nchunks, into
+  // buffer s & 1
+  auto issue = [&](int s) {
+    const int tile = s / nchunks, c = s - tile * nchunks;
+    const int b = s & 1, j0 = tile * kTN;
+    if (t == 0) tma_chunk(ts + b * kDK * kTN, cmap, j0, c * kDK, &bars[b]);
+    if (c == 0 && t < kTN / 4)
+      cp_async16(csq_s + (tile & 1) * kTN + 4 * t, csq + j0 + 4 * t);
+    if (!xres) {
+      float* xdst = xs + b * kDK * kTM;
+      for (int e = t; e < kDK * kTM; e += kTileThreads) {
+        const int f = e / kTM, i = e - f * kTM, col = c * kDK + f;
+        const bool ok = i0 + i < n && col < d;
+        cp_async4(xdst + e, ok ? x + (i0 + i) * d + col : x, ok ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  if (t == 0) {
+    mbar_init(&bars[0]);
+    mbar_init(&bars[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  issue(0);  // nsteps >= 1: kp >= kTN and dpad >= kDK
+  if (xres) {
+    for (int e = t; e < dpad * kTM; e += kTileThreads) {
+      const int f = e / kTM, i = e - f * kTM;
+      xs[e] = (i0 + i < n && f < d) ? x[(i0 + i) * d + f] : 0.f;
+    }
+  }
+
+  // rows p of this thread: (p < 4 ? 0 : 64) + ty * 4 + p % 4; each one's
+  // smallest key so far
+  float bd[8];
+  int bi[8];
+  float acc[8][8];
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    bd[p] = inf;
+    bi[p] = 0;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
+  }
+
+  for (int s = 0; s < nsteps; ++s) {
+    mbar_wait(&bars[s & 1], (s >> 1) & 1);
+    cp_async_wait_all();
+    __syncthreads();  // step s is in shared memory; step s - 1 is read
+    if (s + 1 < nsteps) issue(s + 1);  // in flight during these FMAs
+    const int c = s % nchunks, b = s & 1;
+    const float* xc = xs + (xres ? c : b) * kDK * kTM;
+    const float* tc = ts + b * kDK * kTN;
+#pragma unroll
+    for (int kk = 0; kk < kDK; ++kk) {
+      const float4 a0 =
+          *reinterpret_cast<const float4*>(xc + kk * kTM + ty * 4);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(xc + kk * kTM + 64 + ty * 4);
+      const float4 b0 =
+          *reinterpret_cast<const float4*>(tc + kk * kTN + tx * 4);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(tc + kk * kTN + 64 + tx * 4);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int p = 0; p < 8; ++p)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) acc[p][q] = fmaf(a[p], bb[q], acc[p][q]);
+    }
+    if (c != nchunks - 1) continue;
+    // the tile is done: its distances against each row's smallest key
+    const int tile = s / nchunks, j0 = tile * kTN;
+    const float* tq = csq_s + (tile & 1) * kTN;
+    const float4 q0 = *reinterpret_cast<const float4*>(tq + tx * 4);
+    const float4 q1 = *reinterpret_cast<const float4*>(tq + 64 + tx * 4);
+    const float tn[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+#pragma unroll
+    for (int p = 0; p < 8; ++p)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const float dist = fmaf(-2.f, acc[p][q], tn[q]);
+        const int j = j0 + (q & 4) * 16 + 4 * tx + (q & 3);
+        if (key_less(dist, j, bd[p], bi[p])) {
+          bd[p] = dist;
+          bi[p] = j;
+        }
+        acc[p][q] = 0.f;
+      }
+  }
+
+  // the smallest key of the 16 lanes that share each row
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) {
+      const float od = __shfl_xor_sync(kFull, bd[p], off, 16);
+      const int oi = __shfl_xor_sync(kFull, bi[p], off, 16);
+      if (key_less(od, oi, bd[p], bi[p])) {
+        bd[p] = od;
+        bi[p] = oi;
+      }
+    }
+    const int64_t row = i0 + (p < 4 ? 0 : 64) + ty * 4 + (p & 3);
+    if (tx == 0 && row < n) out[row] = bi[p];
+  }
+}
+
+constexpr int kTileBlocksPerSm = 2;  // the register budget it is built for
+
+__global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm)
+    assign_tile_kernel(const __grid_constant__ CUtensorMap cmap,
+                       const float* __restrict__ x,
+                       const float* __restrict__ csq, int* __restrict__ out,
+                       int64_t n, int d, int dpad, int kp) {
+  nearest_tiles(&cmap, x, csq, out, n, d, dpad, kp);
+}
+
+__global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm)
+    lloyd_label_kernel(const __grid_constant__ CUtensorMap cmap,
+                       const float* __restrict__ x,
+                       const float* __restrict__ csq, int* __restrict__ out,
+                       int64_t n, int d, int dpad, int kp) {
+  nearest_tiles(&cmap, x, csq, out, n, d, dpad, kp);
+}
+
+constexpr int kSortWarps = 8;
+constexpr int kSortThreads = 32 * kSortWarps;
+
+// Count (scatter = 0) or place (scatter = 1) the rows of chunk blockIdx.x
+// whose labels lie in tile blockIdx.y (its comment above). A warp's rows
+// are [r0, r1); a batch of 32 of them groups its equal labels with
+// __match_any_sync, lanes outside the tile in a group of their own.
+__global__ void __launch_bounds__(kSortThreads)
+    label_sort_kernel(const int* __restrict__ labels, int* __restrict__ offs,
+                      int* __restrict__ order, int64_t n, int k,
+                      int chunk_rows, int nchunks, int label_tile,
+                      int scatter) {
+  extern __shared__ int sort_counts[];  // [kSortWarps][label_tile]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = blockIdx.x, l0 = blockIdx.y * label_tile;
+  const int lt = min(label_tile, k - l0);
+  int* mine = sort_counts + warp * label_tile;
+  for (int i = threadIdx.x; i < kSortWarps * label_tile; i += kSortThreads)
+    sort_counts[i] = 0;
+  __syncthreads();
+  const int span = chunk_rows / kSortWarps;
+  const int64_t r0 = (int64_t)c * chunk_rows + (int64_t)warp * span;
+  const int64_t r1 = min(n, r0 + span);
+  for (int64_t base = r0; base < r1; base += 32) {
+    const int64_t r = base + lane;
+    const int lab = r < r1 ? labels[r] - l0 : -1;
+    const bool in = lab >= 0 && lab < lt;
+    const unsigned peers = __match_any_sync(kFull, in ? lab : -1);
+    if (in && lane == __ffs(peers) - 1) mine[lab] += __popc(peers);
+    __syncwarp();
+  }
+  __syncthreads();
+  if (!scatter) {
+    for (int l = threadIdx.x; l < lt; l += kSortThreads) {
+      int s = 0;
+      for (int w = 0; w < kSortWarps; ++w)
+        s += sort_counts[w * label_tile + l];
+      offs[(int64_t)(l0 + l) * nchunks + c] = s;
+    }
+    return;
+  }
+  // each warp's first place for each label: the chunk's, past the warps
+  // before it
+  for (int l = threadIdx.x; l < lt; l += kSortThreads) {
+    int s = offs[(int64_t)(l0 + l) * nchunks + c];
+    for (int w = 0; w < kSortWarps; ++w) {
+      const int e = sort_counts[w * label_tile + l];
+      sort_counts[w * label_tile + l] = s;
+      s += e;
+    }
+  }
+  __syncthreads();
+  for (int64_t base = r0; base < r1; base += 32) {
+    const int64_t r = base + lane;
+    const int lab = r < r1 ? labels[r] - l0 : -1;
+    const bool in = lab >= 0 && lab < lt;
+    const unsigned peers = __match_any_sync(kFull, in ? lab : -1);
+    if (in) order[mine[lab] + __popc(peers & ((1u << lane) - 1u))] = (int)r;
+    __syncwarp();
+    if (in && lane == __ffs(peers) - 1) mine[lab] += __popc(peers);
+    __syncwarp();
+  }
+}
+
+constexpr int kScanThreads = 256;
+constexpr int kScanPerThread = 4;  // block sums a scan_top_kernel thread takes
+constexpr int kScanMaxBlocks = kScanThreads * kScanPerThread;
+
+// The exclusive prefix of each thread's v over the block, and the block's
+// total; every thread of the block calls it.
+__device__ __forceinline__ int block_exclusive_scan(int v, int& total) {
+  __shared__ int warp_sums[kScanThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += u;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  int before = 0;
+  total = 0;
+#pragma unroll
+  for (int w = 0; w < kScanThreads / 32; ++w) {
+    const int s = warp_sums[w];
+    before += w < warp ? s : 0;
+    total += s;
+  }
+  __syncthreads();  // warp_sums is free for the next call
+  return before + incl - v;
+}
+
+// bsum[b] = the sum of data[b * span, (b + 1) * span)
+__global__ void __launch_bounds__(kScanThreads)
+    scan_reduce_kernel(const int* __restrict__ data, int* __restrict__ bsum,
+                       int64_t m, int span) {
+  const int64_t lo = (int64_t)blockIdx.x * span;
+  const int64_t hi = min(m, lo + span);
+  int s = 0;
+  for (int64_t i = lo + threadIdx.x; i < hi; i += kScanThreads) s += data[i];
+  int total;
+  block_exclusive_scan(s, total);
+  if (threadIdx.x == 0) bsum[blockIdx.x] = total;
+}
+
+// bsum[0, blocks) -> its exclusive prefix sums (one block)
+__global__ void __launch_bounds__(kScanThreads)
+    scan_top_kernel(int* __restrict__ bsum, int blocks) {
+  int v[kScanPerThread], s = 0;
+#pragma unroll
+  for (int i = 0; i < kScanPerThread; ++i) {
+    const int b = threadIdx.x * kScanPerThread + i;
+    v[i] = b < blocks ? bsum[b] : 0;
+    s += v[i];
+  }
+  int total;
+  int before = block_exclusive_scan(s, total);
+#pragma unroll
+  for (int i = 0; i < kScanPerThread; ++i) {
+    const int b = threadIdx.x * kScanPerThread + i;
+    if (b < blocks) bsum[b] = before;
+    before += v[i];
+  }
+}
+
+// data[b * span, (b + 1) * span) -> its exclusive prefix sums, from bsum[b]
+__global__ void __launch_bounds__(kScanThreads)
+    scan_down_kernel(int* __restrict__ data, const int* __restrict__ bsum,
+                     int64_t m, int span) {
+  const int64_t lo = (int64_t)blockIdx.x * span;
+  const int64_t hi = min(m, lo + span);
+  int carry = bsum[blockIdx.x];
+  for (int64_t base = lo; base < hi; base += kScanThreads) {
+    const int64_t i = base + threadIdx.x;
+    const int v = i < hi ? data[i] : 0;
+    int total;
+    const int before = block_exclusive_scan(v, total);
+    if (i < hi) data[i] = carry + before;
+    carry += total;
+  }
+}
+
+constexpr int kPieceBatch = 256;  // sorted places a piece block stages at once
+constexpr int kPieceLoads = 8;    // rows whose loads a thread issues first
+
+// Label l's sorted places [s, e), from the sort's offsets.
+__device__ __forceinline__ void label_span(const int* __restrict__ offs, int l,
+                                           int k, int nchunks, int64_t n,
+                                           int& s, int& e) {
+  s = offs[(int64_t)l * nchunks];
+  e = l + 1 < k ? offs[(int64_t)(l + 1) * nchunks] : (int)n;
+}
+
+// Piece blockIdx.x of the sorted rows, column blockIdx.y * blockDim.x +
+// threadIdx.x of [x | 1] (its comment above).
+__global__ void __launch_bounds__(256)
+    piece_sums_kernel(const float* __restrict__ x, const float* __restrict__ v,
+                      const int* __restrict__ labels,
+                      const int* __restrict__ order,
+                      const int* __restrict__ offs, float* __restrict__ out,
+                      float* __restrict__ scratch, int64_t n, int k, int d,
+                      int nchunks, int piece_rows) {
+  __shared__ int rid_s[kPieceBatch];
+  __shared__ float w_s[kPieceBatch];
+  __shared__ int lab_s[kPieceBatch];
+  const int w = d + 1;
+  const int f = blockIdx.y * blockDim.x + threadIdx.x;
+  const bool live = f < w, xcol = f < d;
+  const int q = blockIdx.x;
+  const int64_t p0 = (int64_t)q * piece_rows;
+  const int64_t p1 = min(n, p0 + piece_rows);
+  int cur = -1;       // the label of the run being added
+  bool head = false;  // whether that run began the piece
+  float a = 0.f;
+  auto flush = [&]() {
+    int s, e;
+    label_span(offs, cur, k, nchunks, n, s, e);
+    if (s / piece_rows == (e - 1) / piece_rows)
+      out[(int64_t)cur * w + f] = a;
+    else
+      scratch[((int64_t)q * 2 + (head ? 0 : 1)) * w + f] = a;
+  };
+  for (int64_t b0 = p0; b0 < p1; b0 += kPieceBatch) {
+    const int nb = (int)min((int64_t)kPieceBatch, p1 - b0);
+    __syncthreads();  // every thread is done with the last batch
+    for (int i = threadIdx.x; i < nb; i += blockDim.x) {
+      const int r = order[b0 + i];
+      rid_s[i] = r;
+      w_s[i] = v[r];
+      lab_s[i] = labels[r];
+    }
+    __syncthreads();
+    if (!live) continue;
+    for (int i = 0; i < nb; i += kPieceLoads) {
+      float val[kPieceLoads];
+#pragma unroll
+      for (int u = 0; u < kPieceLoads; ++u)
+        val[u] =
+            (i + u < nb && xcol) ? x[(int64_t)rid_s[i + u] * d + f] : 1.f;
+#pragma unroll
+      for (int u = 0; u < kPieceLoads; ++u) {
+        if (i + u < nb) {
+          const int lab = lab_s[i + u];
+          if (lab != cur) {
+            if (cur >= 0) flush();
+            cur = lab;
+            a = 0.f;
+            head = b0 + i + u == p0;
+          }
+          a = fmaf(w_s[i + u], val[u], a);
+        }
+      }
+    }
+  }
+  if (live && cur >= 0) flush();
+}
+
+// Label blockIdx.x, column blockIdx.y * blockDim.x + threadIdx.x of [x | 1]:
+// zeros for an empty label, the sum of a long label's piece parts in piece
+// order; a label within one piece was written by piece_sums_kernel.
+__global__ void __launch_bounds__(256)
+    piece_combine_kernel(const int* __restrict__ offs,
+                         const float* __restrict__ scratch,
+                         float* __restrict__ out, int64_t n, int k, int d,
+                         int nchunks, int piece_rows) {
+  const int l = blockIdx.x, w = d + 1;
+  const int f = blockIdx.y * blockDim.x + threadIdx.x;
+  if (f >= w) return;
+  int s, e;
+  label_span(offs, l, k, nchunks, n, s, e);
+  float* dst = out + (int64_t)l * w + f;
+  if (s == e) {
+    *dst = 0.f;
+    return;
+  }
+  const int q0 = s / piece_rows, q1 = (e - 1) / piece_rows;
+  if (q0 == q1) return;
+  const int slot = s == q0 * piece_rows ? 0 : 1;
+  float a = scratch[((int64_t)q0 * 2 + slot) * w + f];
+#pragma unroll 8
+  for (int q = q0 + 1; q <= q1; ++q) a += scratch[(int64_t)q * 2 * w + f];
+  *dst = a;
+}
+
+// The tiled labels of n rows into out, through the assign or the Lloyd
+// instance.
+cudaError_t launch_labels(bool lloyd, const float* x, const float* cT,
+                          const float* csq, int* out, int64_t n, int d,
+                          int dpad, int kp, cudaStream_t stream) {
+  CUtensorMap map;
+  cudaError_t e = encode_tile_map(&map, cT, dpad, kp);
+  if (e != cudaSuccess) return e;
+  const int smem = (int)tile_smem_bytes(dpad);
+  const void* fn = lloyd ? (const void*)lloyd_label_kernel
+                         : (const void*)assign_tile_kernel;
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e != cudaSuccess) return e;
+  const unsigned grid = (unsigned)((n + kTM - 1) / kTM);
+  if (lloyd)
+    lloyd_label_kernel<<<grid, kTileThreads, smem, stream>>>(
+        map, x, csq, out, n, d, dpad, kp);
+  else
+    assign_tile_kernel<<<grid, kTileThreads, smem, stream>>>(
+        map, x, csq, out, n, d, dpad, kp);
+  return cudaGetLastError();
+}
+
+bool tiled_ok(long long n, int k, int d, int dpad, int kp) {
+  return n >= 1 && (n + kTM - 1) / kTM <= INT_MAX && k >= 1 && d >= 1 &&
+         dpad >= d && dpad % kDK == 0 && kp >= k && kp % kTN == 0;
+}
+
 int64_t smem_floats(int lloyd, int k, int d, int rows, int kchunk) {
   int64_t f = (int64_t)kchunk * d + kchunk + (int64_t)rows * x_stride(d);
   if (lloyd) f += (int64_t)k * (d + 1) + 2 * rows;
@@ -593,6 +1099,76 @@ int kmeans_reduce_partials(const float* partials, float* out, int blocks,
     reduce_tile_kernel<<<(width + kRedCols - 1) / kRedCols, kRedThreads, 0,
                          s>>>(partials, out, blocks, width,
                               (blocks + kRedSlices - 1) / kRedSlices);
+  return (int)cudaGetLastError();
+}
+
+// The tiled route's labels: cT the (dpad, kp) transposed centroids, zero
+// past d and k, csq their (kp,) norms, +inf past k (ops/kernels.py
+// `kmeans_plan` sizes dpad and kp).
+int kmeans_assign_tiled(const float* x, const float* cT, const float* csq,
+                        int* out, long long n, int k, int d, int dpad, int kp,
+                        void* stream) {
+  if (!tiled_ok(n, k, d, dpad, kp)) return (int)cudaErrorInvalidValue;
+  return (int)launch_labels(false, x, cT, csq, out, (int64_t)n, d, dpad, kp,
+                            (cudaStream_t)stream);
+}
+
+// One Lloyd round's (k, d+1) [sums | counts] by the tiled route, every stage
+// launched here in order; labels (n), offs (k * nchunks), bsum
+// (scan_blocks), order (n) and scratch (2 (d + 1) ceil(n / piece_rows)
+// floats) are its workspace, left as the stages wrote them.
+int kmeans_lloyd_sorted(const float* x, const float* v, const float* cT,
+                        const float* csq, int* labels, int* offs, int* bsum,
+                        int* order, float* scratch, float* out, long long n,
+                        int k, int d, int dpad, int kp, int chunk_rows,
+                        int nchunks, int label_tile, int scan_span,
+                        int scan_blocks, int piece_rows, int col_threads,
+                        void* stream) {
+  const int64_t m = (int64_t)k * nchunks;
+  const int64_t sort_smem = 4LL * kSortWarps * label_tile;
+  if (!tiled_ok(n, k, d, dpad, kp) || n > INT_MAX ||
+      chunk_rows < kSortThreads || chunk_rows % kSortThreads != 0 ||
+      (int64_t)nchunks != (n + chunk_rows - 1) / chunk_rows ||
+      label_tile < 1 || sort_smem > 232448 ||
+      (k + label_tile - 1) / label_tile > 65535 || scan_blocks < 1 ||
+      scan_blocks > kScanMaxBlocks || scan_span < 1 ||
+      (int64_t)scan_blocks * scan_span < m ||
+      (int64_t)(scan_blocks - 1) * scan_span >= m || piece_rows < 1 ||
+      col_threads < 32 || col_threads > 256 || col_threads % 32 != 0 ||
+      (d + col_threads) / col_threads > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = launch_labels(true, x, cT, csq, labels, (int64_t)n, d, dpad,
+                                kp, s);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(label_sort_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)sort_smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 sort_grid((unsigned)nchunks,
+                       (unsigned)((k + label_tile - 1) / label_tile));
+  label_sort_kernel<<<sort_grid, kSortThreads, (int)sort_smem, s>>>(
+      labels, offs, order, (int64_t)n, k, chunk_rows, nchunks, label_tile, 0);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  scan_reduce_kernel<<<scan_blocks, kScanThreads, 0, s>>>(offs, bsum, m,
+                                                          scan_span);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  scan_top_kernel<<<1, kScanThreads, 0, s>>>(bsum, scan_blocks);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  scan_down_kernel<<<scan_blocks, kScanThreads, 0, s>>>(offs, bsum, m,
+                                                        scan_span);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  label_sort_kernel<<<sort_grid, kSortThreads, (int)sort_smem, s>>>(
+      labels, offs, order, (int64_t)n, k, chunk_rows, nchunks, label_tile, 1);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const unsigned groups = (unsigned)((d + col_threads) / col_threads);
+  const unsigned pieces = (unsigned)((n + piece_rows - 1) / piece_rows);
+  piece_sums_kernel<<<dim3(pieces, groups), col_threads, 0, s>>>(
+      x, v, labels, order, offs, out, scratch, (int64_t)n, k, d, nchunks,
+      piece_rows);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  piece_combine_kernel<<<dim3((unsigned)k, groups), col_threads, 0, s>>>(
+      offs, scratch, out, (int64_t)n, k, d, nchunks, piece_rows);
   return (int)cudaGetLastError();
 }
 

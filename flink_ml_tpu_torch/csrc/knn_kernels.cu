@@ -112,87 +112,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tile_engine.cuh"
+
 namespace {
 
 // -- tiled kernel ---------------------------------------------------------
-
-constexpr int kTM = 128;             // test rows per block
-constexpr int kTN = 128;             // train rows per tile
-constexpr int kDK = 32;              // columns per step
-constexpr int kTileThreads = 256;    // 16 x 16 threads, 8 x 8 dots each
-constexpr int kXResMax = 128;        // widest dpad whose x tile stays resident
-constexpr unsigned kFull = 0xffffffffu;
-
-__host__ __device__ constexpr int64_t tile_smem_bytes(int dpad) {
-  return 4 * ((int64_t)(dpad <= kXResMax ? dpad * kTM : 2 * kDK * kTM) +
-              2 * kDK * kTN + 2 * kTN) +
-         16;  // two mbarriers
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-// The train chunks come by TMA: thread 0 arms an mbarrier with the bytes
-// it expects and issues one 2D tensor copy, which completes them; every
-// thread waits on the barrier's phase.
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// rows [row, row + kDK) and columns [col, col + kTN) of the (dpad, ntp)
-// tensor `map` describes -> dst, [kDK][kTN]
-__device__ __forceinline__ void tma_chunk(float* dst, const CUtensorMap* map,
-                                          int col, int row, uint64_t* bar) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(4 * kDK * kTN)
-      : "memory");
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row),
-      "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
 
 // Inserts (dist, j) into the sorted register list (bd, bi) of capacity
 // KCAP, of which the first k entries count, and refreshes kth (its k-th
@@ -567,46 +491,6 @@ __global__ void __launch_bounds__(kMergeThreads)
     if (q < k) out[row * k + q] = bi[q];
 }
 
-// The (dpad, ntp) transposed train set as a TMA tensor, read in boxes of
-// kDK rows by kTN columns. cuTensorMapEncodeTiled comes from the driver
-// through the runtime, so the library links no libcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-cudaError_t encode_train_map(CUtensorMap* map, const float* trainT, int dpad,
-                             int ntp) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                            cudaEnableDefault, &found);
-#endif
-    if (e != cudaSuccess) return e;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
-  const cuuint64_t dims[2] = {(cuuint64_t)ntp, (cuuint64_t)dpad};
-  const cuuint64_t strides[1] = {(cuuint64_t)ntp * sizeof(float)};
-  const cuuint32_t box[2] = {kTN, kDK};
-  const cuuint32_t elems[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
-                const_cast<float*>(trainT), dims, strides, box, elems,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
-             ? cudaSuccess
-             : cudaErrorInvalidValue;
-}
 
 template <int KCAP>
 cudaError_t launch_tiled(const CUtensorMap& train_map, const float* x,
@@ -1392,7 +1276,7 @@ int knn_topk_tiled(const float* x, const float* trainT, const float* tsq,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   CUtensorMap map;
-  const cudaError_t e = encode_train_map(&map, trainT, dpad, ntp);
+  const cudaError_t e = encode_tile_map(&map, trainT, dpad, ntp);
   if (e != cudaSuccess) return (int)e;
   if (kcap == 16)
     return (int)launch_tiled<16>(map, x, tsq, out, scratch, (int64_t)n, d,
@@ -1438,7 +1322,7 @@ int knn_topk_long(const float* x, const float* trainT, const float* tsq,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   CUtensorMap map;
-  const cudaError_t e = encode_train_map(&map, trainT, dpad, ntp);
+  const cudaError_t e = encode_tile_map(&map, trainT, dpad, ntp);
   if (e != cudaSuccess) return (int)e;
   const int64_t rows = (int64_t)n;
   switch (kcap) {

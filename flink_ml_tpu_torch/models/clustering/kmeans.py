@@ -25,8 +25,8 @@ the same rounds in the same order, so every mode gives the same bits. For
 the euclidean measure each round's partials come from the hand-written
 ``lloyd_partial_sums`` kernel in every mode, host rounds included (where
 the JAX package's host rounds use XLA partials), and transform from
-``assign_nearest`` (``ops/kernels.py``). The other measures, and shapes
-whose tile does not fit a block's shared memory, run plain PyTorch
+``assign_nearest`` (``ops/kernels.py``), at every k and d (the kernels
+pick their route by shape). The other measures run plain PyTorch
 (``torch-lloyd``), as the JAX package runs them in XLA.
 
 With health telemetry armed (``observability/health.py``) each round also
@@ -81,13 +81,13 @@ class KMeansParams(KMeansModelParams, HasSeed, HasMaxIter):
         ParamValidators.in_array("random"))
 
 
-def _assign_kernel(x, c, fused: bool, measure: str):
-    """(n,) int64 nearest-centroid labels of the float32 rows ``x``: the
-    fused distance + argmin kernel (no (n, k) distances in device memory),
-    or the measure's distances and an argmin."""
+def _assign_kernel(x, c, measure: str):
+    """(n,) int64 nearest-centroid labels of the float32 rows ``x``: for the
+    euclidean measure the distance + argmin kernel (no (n, k) distances in
+    device memory), else the measure's distances and an argmin."""
     x = x.to(torch.float32).contiguous()
     c = c.to(torch.float32).contiguous()
-    if fused:
+    if measure == "euclidean":
         labels = kernels.assign_nearest(x, c)
     else:
         labels = torch.argmin(
@@ -96,8 +96,8 @@ def _assign_kernel(x, c, fused: bool, measure: str):
 
 
 def _measure_partials(measure: DistanceMeasure) -> Partials:
-    """Plain PyTorch partials for any measure (the JAX package's
-    ``local_partials``)."""
+    """Plain PyTorch partials for the measures other than euclidean (the
+    JAX package's ``local_partials``)."""
 
     def partials(x, v, centroids):
         k = centroids.shape[0]
@@ -187,20 +187,17 @@ class KMeansModel(Model, KMeansModelParams):
         if self.centroids is None:
             raise ValueError("KMeansModel has no model data")
         device = self.device
-        k, d = np.shape(self.centroids)
-        fused = (self.distance_measure == "euclidean"
-                 and kernels.assign_kernel_fits(k, d))
+        measure = self.distance_measure
         # where the feature column goes (ops/columnar.py): one tensor on
         # this model's device, or once a shard of a split column, the
         # labels split alike
         labels = columnar.apply(
             _assign_kernel, table.vectors(self.features_col),
-            (np.asarray(self.centroids),),
-            (fused, self.distance_measure), device)
+            (np.asarray(self.centroids),), (measure,), device)
         # benchmark provenance (runner.py executionPath)
         self.last_execution_path = (
-            "cuda-assign" if fused and labels.device.type == "cuda"
-            else "torch-assign")
+            "cuda-assign" if measure == "euclidean"
+            and labels.device.type == "cuda" else "torch-assign")
         return (table.with_column(self.prediction_col, labels),)
 
     # -- model data (ref: KMeansModelData = centroids[] + weights) ----------
@@ -253,8 +250,7 @@ class KMeans(Estimator, KMeansParams, IterationRuntimeMixin):
         # the carry stays (k, d) either way
         sharded = _upd.enabled()
 
-        if (self.distance_measure == "euclidean"
-                and kernels.lloyd_kernel_fits(k, dim)):
+        if self.distance_measure == "euclidean":
             partials_fn = kernels.lloyd_partial_sums
             path = "cuda-lloyd" if device.type == "cuda" else "torch-lloyd"
         else:

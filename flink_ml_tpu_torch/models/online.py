@@ -13,10 +13,10 @@ decay/parallelism); a cluster the batch hits gains its row count, λ =
 count/weight, centroid = (1−λ)·centroid + λ·mean of its rows; a cluster the
 batch misses keeps its weight and position. The batch's per-centroid
 ``[Σ x | count]`` comes from the hand-written ``lloyd_partial_sums`` kernel
-on the card (``cuda-lloyd-stream``; one launch and its ``reduce_partials``
-per batch) under the euclidean measure when ``lloyd_kernel_fits``; other
-measures and shapes take KMeans's plain partials (``torch-lloyd-stream``,
-as the CPU does). The partials are float32; the centroids and weights are
+on the card (``cuda-lloyd-stream``; one launch per batch, and its
+``reduce_partials`` where the fused route runs) under the euclidean measure,
+at every k and d; other measures take KMeans's plain partials
+(``torch-lloyd-stream``, as the CPU does). The partials are float32; the centroids and weights are
 float64 tensors on the batch's device, updated by ``torch.where`` with no
 host copy per batch (the JAX package keeps float64 numpy and assigns by
 float64 distances, so near-ties may split differently).
@@ -812,7 +812,6 @@ class OnlineKMeans(Estimator, OnlineKMeansParams, IterationRuntimeMixin):
         seed_model = KMeansModel().set_model_data(self._initial_model_data)
         centroids = np.array(seed_model.centroids, np.float64)
         weights = np.array(seed_model.weights, np.float64)
-        k, d = centroids.shape
         device = self.device
         decay = self.decay_factor
 
@@ -828,8 +827,7 @@ class OnlineKMeans(Estimator, OnlineKMeansParams, IterationRuntimeMixin):
         def host_state():
             return tuple(a.cpu().numpy() for a in state)
 
-        if (self.distance_measure == "euclidean"
-                and kernels.lloyd_kernel_fits(k, d)):
+        if self.distance_measure == "euclidean":
             partials_fn = kernels.lloyd_partial_sums
             path = ("cuda-lloyd-stream" if device.type == "cuda"
                     else "torch-lloyd-stream")

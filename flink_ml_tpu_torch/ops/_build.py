@@ -4,8 +4,9 @@ with ctypes.
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain C interface, under ``flink_ml_tpu_torch/_build/``
 (listed in ``.gitignore``). The library's file name carries a hash of the
-source and the flags, so an edited source builds anew and an unchanged one
-is loaded from the earlier build. Nothing here runs at import time. Each
+source, the headers of ``csrc/`` (``*.cuh``) and the flags, so an edited
+source or header builds anew and an unchanged one is loaded from the
+earlier build. Nothing here runs at import time. Each
 source's build, or the library found from an earlier one, is reported once
 per process to ``observability/compilestats.py`` (``ml.compile`` under
 ``fn=<source>``), which records it once compile accounting is installed.
@@ -73,10 +74,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (content-addressed)."""
-    source = (CSRC_DIR / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{key[:16]}.so"
+    """Where ``csrc/<name>.cu`` builds to: content-addressed over the source,
+    every header of ``csrc/`` (``*.cuh``, each by name: a source may include
+    any of them) and the flags, so an edited header builds anew."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes()
+                            + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

@@ -1,4 +1,4 @@
-"""The port's kernels: wrappers, plain versions, launch counts, shape gates.
+"""The port's kernels: wrappers, plain versions, launch counts, launch plans.
 
 The Pallas kernels of ``flink_ml_tpu/ops/pallas_kernels.py`` that the ported
 slices run, written by hand in CUDA C++ for Hopper and built by ``_build.py``
@@ -8,8 +8,17 @@ at first use, one library per source:
   row, ``argmin_j(‖c_j‖² − 2·x·c_j)``, first minimum; only the argmin is
   written.
 - :func:`lloyd_partial_sums` (same source): the same assignment, then the
-  weighted ``[one_hotᵀ·x | Σ one_hot]`` of one Lloyd round, in two stages
-  in a fixed order (per-block partials, then :func:`reduce_partials`).
+  weighted ``[one_hotᵀ·x | Σ one_hot]`` of one Lloyd round.
+- Both run at every ``(k, d)``, by the route :func:`kmeans_plan` picks:
+  the fused kernels where k·d is small and their 128-row tile fits a
+  block's shared memory (the main path among those shapes; Lloyd in two
+  fixed-order stages, per-block partials, then :func:`reduce_partials`),
+  else the tiled route (the tile engine of ``csrc/tile_engine.cuh`` for
+  the labels; for Lloyd
+  then a stable counting sort of the rows by label and fixed pieces of the
+  sorted rows, all from one C call; its stages' plain twins are
+  :func:`assign_nearest_plain`, :func:`sort_by_label_plain` and
+  :func:`piece_sums_plain`).
 - :func:`sgd_batch_terms` (``csrc/sgd_kernels.cu``): one SGD round's
   ``[Σ mult·x | Σ w | Σ loss]`` over the minibatch window, forward dots and
   loss terms fused into the gradient pass, for any feature width, in two
@@ -87,7 +96,15 @@ KERNELS = {
 #: (device-time attribution of a profile, observability/profiling.py)
 KERNEL_SYMBOLS = {
     "assign_kernel": "assign_nearest",
+    "assign_tile_kernel": "assign_nearest",
     "lloyd_partials_kernel": "lloyd_partial_sums",
+    "lloyd_label_kernel": "lloyd_partial_sums",
+    "label_sort_kernel": "lloyd_partial_sums",
+    "scan_reduce_kernel": "lloyd_partial_sums",
+    "scan_top_kernel": "lloyd_partial_sums",
+    "scan_down_kernel": "lloyd_partial_sums",
+    "piece_sums_kernel": "lloyd_partial_sums",
+    "piece_combine_kernel": "lloyd_partial_sums",
     "reduce_rows_kernel": "reduce_partials",
     "reduce_tile_kernel": "reduce_partials",
     "sgd_rows_kernel": "sgd_batch_terms",
@@ -160,49 +177,164 @@ def _capture_cost(name: str, **dims: int) -> None:
     compilestats.capture_cost(name, *launch_cost(name, **dims))
 
 
-# -- shape gates -------------------------------------------------------------
+# -- KMeans launch plans ------------------------------------------------------
 
 #: dynamic shared memory one block may use on Hopper (227 KB of the SM's 228)
 SMEM_BLOCK_BYTES = 232448
-#: shared memory for one staged chunk of centroids; more centroids than
-#: fit are scored chunk by chunk
+#: shared memory for one staged chunk of centroids of the fused kernels;
+#: more centroids than fit are scored chunk by chunk
 CENTROID_CHUNK_BYTES = 64 << 10
-#: centroids the kernel scores together in registers; chunks are multiples
+#: centroids the fused kernels score together in registers; chunks are
+#: multiples
 _KG = 16
-#: row tiles (= threads per block) to try, largest first
-_TILE_ROWS = (128, 64, 32)
+#: rows of a fused tile (= threads per block): the fused kernels run where
+#: a tile of this many rows fits a block's shared memory
+FUSED_TILE_ROWS = 128
+#: most k·d the fused kernels take: their thread scores its row against
+#: every centroid from shared memory, 16 FMAs for each 5 loads, where a
+#: tiled thread does 64 for 4 but pads k to 128 and d to 32. At 1,000,000
+#: rows on an H100 (chip_smoke.py phase 2's hand-over lines, PERF.md) the
+#: fused kernels were faster up to k·d = 10,240 (d = 100 with k up to 64,
+#: d = 160 and k = 64, d = 256 and 300 with k = 32, d = 375 with k = 10)
+#: and the tiled ones from 16,384 (d = 256, k = 64) and 30,000 (d = 100,
+#: k = 300); between, at k·d = 8,000-10,000 the two were within 15%
+FUSED_MAX_KD = 10_240
+#: bits of a fused Lloyd block's offsets into its accumulator and x tile
+#: (``kOffBits``)
+FUSED_OFF_BITS = 16
+#: rows of x of a tiled block and centroids of one of its tiles (``kTM``,
+#: ``kTN`` of ``tile_engine.cuh``); columns of one of its steps (``kDK``)
+TILE_ROWS, TILE_CENTROIDS, TILE_COLS = 128, 128, 32
+#: widest padded row whose x tile stays in shared memory (``kXResMax``)
+TILE_X_RESIDENT = 128
+#: warps of a label-sort block (``kSortWarps``); a chunk of rows is a
+#: multiple of their 32-row batches, and at least the larger of
+#: SORT_MIN_CHUNK_ROWS and k (so the offsets hold at most n + k ints)
+SORT_WARPS = 8
+SORT_MIN_CHUNK_ROWS = 2048
+#: labels a sort block counts at once (8 warps' counters: 64 KB)
+SORT_LABEL_TILE = 2048
+#: threads of a scan block (``kScanThreads``), scan blocks at most
+#: (``kScanMaxBlocks``), and offsets a scan block takes at least
+SCAN_THREADS = 256
+SCAN_MAX_BLOCKS = 1024
+SCAN_MIN_SPAN = 1024
+#: sorted rows of a piece at least, and columns of [x | 1] a piece block
+#: adds at most (one a thread)
+PIECE_MIN_ROWS = 256
+PIECE_MAX_COLS = 256
+#: signed 32-bit fields: row ids, places and label offsets of the tiled
+#: route; TMA coordinates
+INT32_MAX = 2 ** 31 - 1
 
 
-def _layout(k: int, d: int, lloyd: bool) -> Optional[Tuple[int, int, int]]:
-    """``(rows, kchunk, smem_bytes)`` of a launch, or None when no tile fits
-    one block's shared memory. The sizes are the ones the layout comment
-    in ``kmeans_kernels.cu`` lists: a transposed chunk of ``kchunk``
-    centroids and their norms, a ``rows`` × ``(d | 1)`` x tile and, for
-    Lloyd, the tile's ``rows`` (label and row, weight) pairs in label
-    order and the ``k`` × ``(d + 1)`` accumulator."""
+def _fused_layout(k: int, d: int,
+                  lloyd: bool) -> Optional[Tuple[int, int, int]]:
+    """``(rows, kchunk, smem_bytes)`` of a fused launch with a
+    :data:`FUSED_TILE_ROWS`-row tile, or None where none fits one block's
+    shared memory. The sizes are the ones the layout comment in
+    ``kmeans_kernels.cu`` lists: a transposed chunk of ``kchunk`` centroids
+    and their norms, a ``rows`` × ``(d | 1)`` x tile and, for Lloyd, the
+    tile's ``rows`` (label and row, weight) pairs in label order and the
+    ``k`` × ``(d + 1)`` accumulator. Where it fits, both the accumulator
+    and the x tile hold fewer than 2^16 floats, as the 16-bit offsets ask."""
     cap = max(_KG, CENTROID_CHUNK_BYTES // (4 * (d + 1)) // _KG * _KG)
     want = min(-(-k // _KG) * _KG, cap)
-    for rows in _TILE_ROWS:
-        for kchunk in dict.fromkeys((want, _KG)):
-            floats = kchunk * d + kchunk + rows * (d | 1)
-            if lloyd:
-                floats += k * (d + 1) + 2 * rows
-            if 4 * floats <= SMEM_BLOCK_BYTES:
-                return rows, kchunk, 4 * floats
+    rows = FUSED_TILE_ROWS
+    for kchunk in dict.fromkeys((want, _KG)):
+        floats = kchunk * d + kchunk + rows * (d | 1)
+        if lloyd:
+            floats += k * (d + 1) + 2 * rows
+        if 4 * floats <= SMEM_BLOCK_BYTES:
+            return rows, kchunk, 4 * floats
     return None
 
 
-def assign_kernel_fits(k: int, d: int) -> bool:
-    """True when :func:`assign_nearest` has a tile for these shapes on
-    Hopper: any k (centroids are chunked); d up to about 1,400."""
-    return _layout(k, d, lloyd=False) is not None
+def tile_smem_bytes(dpad: int) -> int:
+    """Shared memory of a tiled block at padded width ``dpad``
+    (``tile_smem_bytes`` of ``tile_engine.cuh``): the x tile (resident up
+    to :data:`TILE_X_RESIDENT` columns, else two streamed steps), two
+    steps of centroids and two tiles of norms, two mbarriers."""
+    xs = (dpad * TILE_ROWS if dpad <= TILE_X_RESIDENT
+          else 2 * TILE_COLS * TILE_ROWS)
+    return 4 * (xs + 2 * TILE_COLS * TILE_CENTROIDS + 2 * TILE_CENTROIDS) + 16
 
 
-def lloyd_kernel_fits(k: int, d: int) -> bool:
-    """True when :func:`lloyd_partial_sums` has a tile for these shapes on
-    Hopper: the block's (k, d+1) accumulator must fit in shared memory
-    beside the x tile — the gate ``KMeans.fit`` applies."""
-    return _layout(k, d, lloyd=True) is not None
+class KMeansPlan(NamedTuple):
+    """How :func:`assign_nearest` or :func:`lloyd_partial_sums` launches
+    (the C entries check it). ``route`` "fused": ``assign_kernel`` /
+    ``lloyd_partials_kernel`` with a ``rows``-row tile and ``kchunk``
+    centroids staged at once in ``smem`` bytes. ``route`` "tiled": the
+    labels by the tile engine over the centroids transposed and padded to
+    (``dpad``, ``kp``), in ``smem`` bytes at most a block; for Lloyd then
+    the stable counting sort of the rows by label over ``nchunks`` chunks
+    of ``chunk_rows`` rows and label tiles of ``label_tile``, the
+    exclusive scan of its ``k · nchunks`` offsets by ``scan_blocks`` blocks
+    of ``scan_span``, and the sums over ``pieces`` pieces of
+    ``piece_rows`` sorted rows, ``col_threads`` columns a block."""
+    route: str
+    rows: int = 0
+    kchunk: int = 0
+    smem: int = 0
+    dpad: int = 0
+    kp: int = 0
+    chunk_rows: int = 0
+    nchunks: int = 0
+    label_tile: int = 0
+    scan_span: int = 0
+    scan_blocks: int = 0
+    piece_rows: int = 0
+    pieces: int = 0
+    col_threads: int = 0
+
+
+@functools.lru_cache(maxsize=256)
+def kmeans_plan(n: int, k: int, d: int, lloyd: bool) -> KMeansPlan:
+    """The launch of a KMeans kernel over ``n`` >= 1 rows of width ``d``
+    and ``k`` centroids. The fused route where k·d <= :data:`FUSED_MAX_KD`
+    and its 128-row tile fits (:func:`_fused_layout`; the main path,
+    1,000,000 × 100 and k = 10, among them; rows up to 403 wide for assign
+    and 375 for Lloyd at k = 10); the tiled route everywhere else, any k
+    and d:
+
+    - the sort's chunks hold max(:data:`SORT_MIN_CHUNK_ROWS`, k) rows
+      (rounded up to the 256-row batches of its 8 warps), so its k·nchunks
+      offsets are at most n + k ints;
+    - pieces hold ⌈n / (k + ⌈n / (d + 1)⌉)⌉ sorted rows, at least
+      :data:`PIECE_MIN_ROWS` and a multiple of 32, so there are at most
+      k + n / (d + 1) + 1 of them, and their scratch of 2(d + 1) floats a
+      piece at most 2(n + (k + 1)(d + 1)) floats: device memory stays
+      O(n + k·d) whatever the shape."""
+    fused = _fused_layout(k, d, lloyd) if k * d <= FUSED_MAX_KD else None
+    if fused is not None:
+        return KMeansPlan("fused", *fused)
+    return tiled_plan(n, k, d, lloyd)
+
+
+def tiled_plan(n: int, k: int, d: int, lloyd: bool) -> KMeansPlan:
+    """The tiled route's launch at any shape (:func:`kmeans_plan` past the
+    fused tile; the card check also runs it where the fused one fits, to
+    time the hand-over)."""
+    dpad = -(-d // TILE_COLS) * TILE_COLS
+    kp = -(-k // TILE_CENTROIDS) * TILE_CENTROIDS
+    smem = tile_smem_bytes(dpad)
+    if not lloyd:
+        return KMeansPlan("tiled", smem=smem, dpad=dpad, kp=kp)
+    batch = 32 * SORT_WARPS
+    chunk_rows = max(SORT_MIN_CHUNK_ROWS, -(-k // batch) * batch)
+    nchunks = -(-n // chunk_rows)
+    label_tile = min(SORT_LABEL_TILE, -(-k // 32) * 32)
+    m = k * nchunks
+    span = max(SCAN_MIN_SPAN,
+               -(-(-(-m // SCAN_MAX_BLOCKS)) // SCAN_THREADS) * SCAN_THREADS)
+    piece_rows = max(PIECE_MIN_ROWS, -(-n // (k + -(-n // (d + 1)))))
+    piece_rows = -(-piece_rows // 32) * 32
+    return KMeansPlan(
+        "tiled", smem=max(smem, 4 * SORT_WARPS * label_tile), dpad=dpad,
+        kp=kp, chunk_rows=chunk_rows, nchunks=nchunks, label_tile=label_tile,
+        scan_span=span, scan_blocks=-(-m // span), piece_rows=piece_rows,
+        pieces=-(-n // piece_rows),
+        col_threads=min(PIECE_MAX_COLS, -(-(d + 1) // 32) * 32))
 
 
 #: most slices of the :func:`reduce_partials` order (``kRedSlices`` of
@@ -607,6 +739,63 @@ def lloyd_partial_sums_plain(x: torch.Tensor, v: torch.Tensor,
     return torch.cat([one_hot.T @ x, one_hot.sum(0)[:, None]], dim=1)
 
 
+def sort_by_label_plain(labels: torch.Tensor, k: int,
+                        chunk_rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of the tiled route's label sort
+    (``label_sort_kernel`` and the scan): ``(offs, order)``, int32. offs
+    (k·nchunks,) is the exclusive prefix sum, in (label, chunk) order, of
+    the rows of each label in each chunk of ``chunk_rows`` rows, so
+    ``offs[l·nchunks]`` is where label l begins; order (n,) holds the row
+    ids by label, ascending within a label (a stable sort)."""
+    n = labels.shape[0]
+    nchunks = -(-n // chunk_rows)
+    lab = labels.long()
+    chunk = torch.arange(n, device=labels.device) // chunk_rows
+    counts = torch.bincount(lab * nchunks + chunk, minlength=k * nchunks)
+    offs = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    order = torch.sort(lab, stable=True).indices.to(torch.int32)
+    return offs, order
+
+
+def piece_sums_plain(x: torch.Tensor, v: torch.Tensor, labels: torch.Tensor,
+                     order: torch.Tensor, offs: torch.Tensor, nchunks: int,
+                     piece_rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of the tiled route's sums (``piece_sums_kernel``
+    and ``piece_combine_kernel``) given the sort's ``order`` and ``offs``:
+    ``(out, scratch)``. out (k, d+1) = ``[Σ v·x | Σ v]`` by label; scratch
+    (pieces, 2, d+1) holds, for each label whose sorted rows lie in more
+    than one piece of ``piece_rows``, its part in each piece, in slot 0 of
+    that piece if the part begins it, else slot 1; slots no label takes are
+    NaN (the kernel leaves them unwritten)."""
+    n, d = x.shape
+    k = offs.shape[0] // nchunks
+    o = order.long()
+    vals = torch.cat([x[o], torch.ones((n, 1), dtype=x.dtype,
+                                       device=x.device)], 1) * v[o][:, None]
+    lab = labels.long()[o]
+    pos = torch.arange(n, device=x.device)
+    piece = pos // piece_rows
+    begins = torch.ones(n, dtype=torch.bool, device=x.device)
+    begins[1:] = (lab[1:] != lab[:-1]) | (piece[1:] != piece[:-1])
+    run = torch.cumsum(begins, 0) - 1
+    sums = torch.zeros((int(run[-1]) + 1 if n else 0, d + 1), dtype=x.dtype,
+                       device=x.device).index_add_(0, run, vals)
+    first = pos[begins]
+    run_lab = lab[first]
+    starts = offs.view(k, nchunks)[:, 0].long()
+    ends = torch.cat([starts[1:], torch.tensor([n], device=x.device)])
+    long_label = (ends > starts) & (
+        starts // piece_rows != (ends - 1).clamp_min(0) // piece_rows)
+    out = torch.zeros((k, d + 1), dtype=x.dtype, device=x.device)
+    out.index_add_(0, run_lab, sums)
+    scratch = torch.full((-(-n // piece_rows), 2, d + 1), float("nan"),
+                         dtype=x.dtype, device=x.device)
+    part = long_label[run_lab]
+    scratch[piece[first][part], (first[part] % piece_rows != 0).long()] = (
+        sums[part])
+    return out, scratch
+
+
 def reduce_partials_plain(partials: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch :func:`reduce_partials`: the sum over the first axis in
     the kernel's fixed two-level order. The B rows are cut into contiguous
@@ -773,14 +962,18 @@ def assign_nearest(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
 
     x: (n, d) float32; centroids: (k, d) float32, on one device → (n,) int32.
     Ties go to the lowest index. Replaces ``assign_nearest`` of
-    ``flink_ml_tpu/ops/pallas_kernels.py``; no host padding is needed.
+    ``flink_ml_tpu/ops/pallas_kernels.py``; every k and d runs a kernel
+    (:func:`kmeans_plan` picks the route).
     """
     _check_points("assign_nearest", x, centroids)
     if not _is_cuda(x):
         return assign_nearest_plain(x, centroids)
-    if x.shape[0] == 0:
+    n, d = x.shape
+    if n == 0:
         return torch.empty(0, dtype=torch.int32, device=x.device)
-    out = _launch_assign(x, centroids)
+    plan = kmeans_plan(n, centroids.shape[0], d, False)
+    out = (_launch_assign(x, centroids) if plan.route == "fused"
+           else _launch_assign_tiled(x, centroids, plan))
     launch_counts["assign_nearest"] += 1
     if _tracer.current() is not None:
         _capture_cost("assign_nearest", n=x.shape[0],
@@ -795,19 +988,27 @@ def lloyd_partial_sums(x: torch.Tensor, v: torch.Tensor,
     x: (n, d) float32; v: (n,) float32 row weights (0 adds nothing);
     centroids: (k, d) float32 → (k, d+1) float32 = [weighted sums | counts],
     assigned by the same rule as :func:`assign_nearest`. n == 0 gives zeros.
-    Replaces ``lloyd_partial_sums`` of ``flink_ml_tpu/ops/pallas_kernels.py``.
+    Replaces ``lloyd_partial_sums`` of ``flink_ml_tpu/ops/pallas_kernels.py``;
+    every k and d runs the kernels (:func:`kmeans_plan` picks the route:
+    the fused one ends in :func:`reduce_partials`, the tiled one launches
+    every stage from one C call).
     """
     _check_points("lloyd_partial_sums", x, centroids, v)
     if not _is_cuda(x):
         return lloyd_partial_sums_plain(x, v, centroids)
     k, d = centroids.shape
-    if x.shape[0] == 0:
+    n = x.shape[0]
+    if n == 0:
         return torch.zeros((k, d + 1), dtype=torch.float32, device=x.device)
-    partials = _launch_lloyd_partials(x, v, centroids)
+    plan = kmeans_plan(n, k, d, True)
+    fused = plan.route == "fused"
+    out = (_launch_lloyd_partials(x, v, centroids) if fused
+           else _launch_lloyd_sorted(x, v, centroids, plan)[0])
     launch_counts["lloyd_partial_sums"] += 1
     if _tracer.current() is not None:
-        _capture_cost("lloyd_partial_sums", n=x.shape[0], k=k, d=d)
-    return reduce_partials(partials)
+        _capture_cost("lloyd_partial_sums", n=n, k=k, d=d)
+    # the fused route's per-block partials end in their fixed-order sum
+    return reduce_partials(out) if fused else out
 
 
 def reduce_partials(partials: torch.Tensor) -> torch.Tensor:
@@ -967,6 +1168,8 @@ _SIGNATURES = {
         "kmeans_lloyd_partials": ([_P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
                                    _I, _I, _I, _L, _P], _I),
         "kmeans_reduce_partials": ([_P, _P, _I, _I, _P], _I),
+        "kmeans_assign_tiled": ([_P, _P, _P, _P, _L, _I, _I, _I, _I, _P], _I),
+        "kmeans_lloyd_sorted": ([_P] * 10 + [_L] + [_I] * 11 + [_P], _I),
     },
     SGD_SOURCE: {
         "sgd_error_string": ([_I], ctypes.c_char_p),
@@ -1079,10 +1282,11 @@ def _stream(t: torch.Tensor) -> int:
 
 def _launch_setup(x: torch.Tensor, k: int, d: int, lloyd: bool):
     what = "lloyd_partial_sums" if lloyd else "assign_nearest"
-    layout = _layout(k, d, lloyd)
+    layout = _fused_layout(k, d, lloyd)
     if layout is None:
-        raise ValueError(f"{what}: no tile for k={k}, d={d} fits a block's "
-                         "shared memory; check the shape gate first")
+        raise ValueError(f"{what}: the fused kernel has no "
+                         f"{FUSED_TILE_ROWS}-row tile for k={k}, d={d}; "
+                         "kmeans_plan takes the tiled route there")
     vec4 = int(d % 4 == 0 and x.data_ptr() % 16 == 0)
     stream = _stream(x)
     return layout, _device_index(x), vec4, stream
@@ -1120,6 +1324,65 @@ def _launch_lloyd_partials(x: torch.Tensor, v: torch.Tensor,
             partials.data_ptr(), n, k, d, rows, kchunk, smem, vec4, blocks,
             tiles_per_block, stream), "lloyd_partial_sums")
     return partials
+
+
+def _tiled_centroids(centroids: torch.Tensor, plan: KMeansPlan
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tile engine's operand: the centroids transposed and zero-padded
+    to (dpad, kp), and their norms (one torch op, as the fused launch
+    computes them), +inf past k, so the padded centroids never win."""
+    k, d = centroids.shape
+    c_t = torch.zeros((plan.dpad, plan.kp), dtype=torch.float32,
+                      device=centroids.device)
+    c_t[:d, :k] = centroids.T
+    csq = torch.full((plan.kp,), float("inf"), device=centroids.device)
+    csq[:k] = torch.sum(centroids * centroids, dim=1)
+    return c_t, csq
+
+
+def _launch_assign_tiled(x: torch.Tensor, centroids: torch.Tensor,
+                         plan: KMeansPlan) -> torch.Tensor:
+    n, d = x.shape
+    with _on_card(x):
+        c_t, csq = _tiled_centroids(centroids, plan)
+        out = torch.empty(n, dtype=torch.int32, device=x.device)
+        _raise_on_error(KMEANS_SOURCE, _lib(KMEANS_SOURCE).kmeans_assign_tiled(
+            x.data_ptr(), c_t.data_ptr(), csq.data_ptr(), out.data_ptr(), n,
+            centroids.shape[0], d, plan.dpad, plan.kp, _stream(x)),
+            "assign_nearest")
+    return out
+
+
+def _launch_lloyd_sorted(x: torch.Tensor, v: torch.Tensor,
+                         centroids: torch.Tensor, plan: KMeansPlan
+                         ) -> Tuple[torch.Tensor, dict]:
+    """The tiled Lloyd route, one C call: ``(out, workspace)``, the (k, d+1)
+    sums and the stages' outputs as they left them: ``labels`` (n,),
+    ``offs`` (k·nchunks,) and ``order`` (n,) int32, and the pieces'
+    ``scratch`` (pieces, 2, d+1) float32 (unwritten slots hold whatever
+    the allocator gave)."""
+    n, d = x.shape
+    k = centroids.shape[0]
+    dev = x.device
+    with _on_card(x):
+        c_t, csq = _tiled_centroids(centroids, plan)
+        ws = {"labels": torch.empty(n, dtype=torch.int32, device=dev),
+              "offs": torch.empty(k * plan.nchunks, dtype=torch.int32,
+                                  device=dev),
+              "order": torch.empty(n, dtype=torch.int32, device=dev),
+              "scratch": torch.empty((plan.pieces, 2, d + 1),
+                                     dtype=torch.float32, device=dev)}
+        bsum = torch.empty(plan.scan_blocks, dtype=torch.int32, device=dev)
+        out = torch.empty((k, d + 1), dtype=torch.float32, device=dev)
+        _raise_on_error(KMEANS_SOURCE, _lib(KMEANS_SOURCE).kmeans_lloyd_sorted(
+            x.data_ptr(), v.data_ptr(), c_t.data_ptr(), csq.data_ptr(),
+            ws["labels"].data_ptr(), ws["offs"].data_ptr(), bsum.data_ptr(),
+            ws["order"].data_ptr(), ws["scratch"].data_ptr(), out.data_ptr(),
+            n, k, d, plan.dpad, plan.kp, plan.chunk_rows, plan.nchunks,
+            plan.label_tile, plan.scan_span, plan.scan_blocks,
+            plan.piece_rows, plan.col_threads, _stream(x)),
+            "lloyd_partial_sums")
+    return out, ws
 
 
 def _launch_reduce(partials: torch.Tensor) -> torch.Tensor:

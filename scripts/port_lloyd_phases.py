@@ -125,7 +125,8 @@ def main() -> int:
     x = torch.rand((n, d), generator=g, device="cuda")
     c = torch.rand((k, d), generator=g, device="cuda")
     v = torch.ones(n, device="cuda")
-    rows, kchunk, smem = K._layout(k, d, True)
+    rows, kchunk, smem = (getattr(K, "_fused_layout", None) or K._layout)(
+        k, d, True)
     dev = torch.cuda.current_device()
     ntiles = -(-n // rows)
     tiles_per_block = -(-ntiles // min(ntiles, K._resident_blocks(

@@ -42,6 +42,9 @@ def _labels(table, col="prediction"):
 @pytest.mark.parametrize("n,d,k,max_iter,measure", [
     (300, 8, 3, 5, "euclidean"),
     (250, 16, 4, 10, "euclidean"),
+    # 768-wide rows: the port's tiled route, the JAX package's Pallas
+    # kernel
+    (1024, 768, 64, 3, "euclidean"),
     (200, 6, 3, 4, "manhattan"),
     (200, 6, 3, 4, "cosine"),
 ])
@@ -59,6 +62,53 @@ def test_fit_transform_matches_jax(n, d, k, max_iter, measure):
     jax_labels = _labels(want.transform(JaxTable.from_columns(features=x))[0])
     np.testing.assert_array_equal(labels, jax_labels)
     assert model.last_execution_path == "torch-assign"
+
+
+@pytest.mark.parametrize("n,d,k", [(1200, 100, 1000), (300, 768, 64),
+                                   (200, 1536, 40)])
+def test_euclidean_paths_call_the_kernel_wrappers_at_every_shape(
+        monkeypatch, n, d, k):
+    """KMeans fit, its model's transform and an OnlineKMeans stream call the
+    kernel wrappers at shapes of the tiled route (k = 1,000 at d = 100,
+    768- and 1,536-wide rows), never the plain measure partials: on the card
+    the wrappers launch the kernels there."""
+    from flink_ml_tpu_torch.models import online
+    from flink_ml_tpu_torch.models.clustering import kmeans as kmeans_mod
+    from flink_ml_tpu_torch.ops import kernels
+
+    calls = {"lloyd": 0, "assign": 0}
+    lloyd, assign = kernels.lloyd_partial_sums, kernels.assign_nearest
+
+    def spy_lloyd(*args):
+        calls["lloyd"] += 1
+        return lloyd(*args)
+
+    def spy_assign(*args):
+        calls["assign"] += 1
+        return assign(*args)
+
+    def refuse(measure):
+        raise AssertionError("a euclidean path took the plain partials")
+
+    monkeypatch.setattr(kernels, "lloyd_partial_sums", spy_lloyd)
+    monkeypatch.setattr(kernels, "assign_nearest", spy_assign)
+    monkeypatch.setattr(kmeans_mod, "_measure_partials", refuse)
+    monkeypatch.setattr(online, "_measure_partials", refuse)
+    x = _blobs(n + d + k, n, d, min(k, 20)).astype(np.float32)
+    table = Table.from_columns(features=x)
+    est = KMeans(k=k, seed=3, max_iter=2, device="cpu")
+    model = est.fit(table)
+    assert (calls, est.last_execution_path) == (
+        {"lloyd": 2, "assign": 0}, "torch-lloyd")
+    labels = _labels(model.transform(table)[0])
+    assert calls["assign"] == 1 and model.last_execution_path == "torch-assign"
+    assert labels.shape == (n,) and labels.max() < k
+    stream = online.OnlineKMeans(k=k, global_batch_size=n // 2,
+                                 device="cpu").set_initial_model_data(
+        model.get_model_data()[0])
+    stream.fit(table)
+    assert calls["lloyd"] == 4
+    assert stream.last_execution_path == "torch-lloyd-stream"
 
 
 def test_fit_execution_path_names_the_plain_version_on_cpu():
