@@ -13,7 +13,7 @@ Phases, each of which fails the run (no result line, nonzero exit):
 2. hold every KMeans kernel against its plain PyTorch version on the card,
    at the main-path shape (1,000,000 x 100, k = 10), a ragged n, n = 0,
    zero-weight rows, a wide k, fused tiles that stage centroids in chunks
-   (assign at d = 400 and k = 25, Lloyd at d = 310 and k = 32), and an odd
+   (assign at d = 370 and k = 17, Lloyd at d = 340 and k = 18), and an odd
    width; reruns
    must be bit-identical; time kernel,
    plain version and a one-call PyTorch yardstick, and Lloyd's first stage
@@ -80,20 +80,23 @@ Phases, each of which fails the run (no result line, nonzero exit):
    each case's launch plan and the tiled kernel's blocks per SM: a ragged
    n, a ragged n_train, k > n_train, k = 1, duplicate train rows, n = 0, an
    odd d, d = 64, d = 128 with k = 32, d = 256 and an odd d = 769 (x
-   streamed in chunks), the long-list instance (32 < k <= 256): k = 50,
-   k > n_train, duplicate train rows, every capacity (64, 128, 256) and
-   its edges, x tiles resident and streamed, and the wide instance past it
-   (k = 257 and 300); then the train split: 1,000 and 16,384 rows against
-   50,000 train rows (the 16,384 block also forced to 2 and 3 splits),
-   duplicate train rows on both sides of a split boundary, k larger than
-   a split's rows, and the long-list instance's split at k = 40, 100 and
-   200; reruns must be bit-identical, and a split run identical to the
-   same rows in one split; time kernel, plain version and the library's
+   streamed in chunks), the long-list instance (32 < k <= 80): k = 50,
+   k > n_train, duplicate train rows, both capacities (64, 128) and their
+   edges, x tiles resident and streamed, and the radix route past it (k =
+   81 to 256, an odd d; its own cases: ragged n, k = n_train, duplicates,
+   d = 200, k = 4,096, several chunks of a small scratch cap); then the
+   train split: 1,000 and 16,384 rows against 50,000 train rows (the
+   16,384 block also forced to 2 and 3 splits), duplicate train rows on
+   both sides of a split boundary, k larger than a split's rows, and the
+   long-list instance's split at k = 40, 65 and 80; reruns must be
+   bit-identical, and a split run identical to the same rows in one split;
+   time kernel, plain version and the library's
    ``torch.topk(torch.addmm(...))`` on a 16,384 x 50,000 x 32 block, the
-   long-list instance there at k = 33 to 256 (eager and device times
-   beside the library call's; its own row at k = 50), the wide instance
-   there (its first design) at k = 33, 50 and 300, and the kernel a few
-   times at the main path's 10,000,000 rows, at k = 10 and k = 50;
+   long-list instance there at k = 33 to 80 (eager and device times
+   beside the library call's; its own row at k = 50), the radix route
+   there at k = 64 to 4,096 (beside the long-list instance at 64 and 80;
+   its own row at k = 300), and the kernel a few times at the main path's
+   10,000,000 rows, at k = 10 and k = 50;
 7. the same for the segment-sum kernels: 1-D and 2-D values, -1 and
    out-of-range ids, n = 0, a ragged n, one chunk, hashed 2^18 domains
    (c = 1 and c = 2), a domain of more than 65,535 segment tiles, values of
@@ -448,7 +451,9 @@ Phases, each of which fails the run (no result line, nonzero exit):
     entry points, each with the counts at 0: the runner on
     ``knn-benchmark.json`` with k = 50 (10,000,000 x 32 against 50,000),
     then transform of the same table, 73,333 of its predictions against
-    the plain version's neighbours; the runner on the LR config's shape at
+    the plain version's neighbours; the same at k = 300 (the radix route),
+    the lists of its first 4,096 test rows against the plain version and
+    their votes against the transform's; the runner on the LR config's shape at
     2,000 features (1,000,000 rows, 20 rounds of 100,000), then a fit of
     the same table held against a plain PyTorch fit on the card;
 24. KMeans at embedding widths through the runner and the estimators, with
@@ -470,9 +475,9 @@ Phases, each of which fails the run (no result line, nonzero exit):
     Launches ``PATH_KERNELS["kmeans_wide"]``, no ``reduce_partials``;
 25. print one ``{"kernels": [...]}`` line with every kernel's launches in
     its main-path runs (in all and by path), error, times and bound, and
-    rows of their own for the long-list KNN and staged SGD instances
-    (launches from phase 23) and the tiled KMeans route (launches from
-    phase 24), then the result line.
+    rows of their own for the long-list KNN, radix KNN and staged SGD
+    instances (launches from phase 23) and the tiled KMeans route
+    (launches from phase 24), then the result line.
 
 Tolerances (float32 throughout, TF32 off):
 - labels: identical, except rows whose two nearest centroids are closer than
@@ -643,9 +648,11 @@ PATH_KERNELS = {
     # cross-shard sums, KMeans fit and transform, the LR fit
     "feature_mesh": ("reduce_partials", "lloyd_partial_sums",
                      "assign_nearest", "sgd_batch_terms"),
-    # phase 23: a KNN transform at k = 50 (the long-list instance), and an
-    # LR fit at 2,000 features (the staged instance)
+    # phase 23: a KNN transform at k = 50 (the long-list instance), one at
+    # k = 300 (the radix route), and an LR fit at 2,000 features (the
+    # staged instance)
     "knn_long": ("knn_topk_indices",),
+    "knn_wide": ("knn_topk_indices",),
     "linear_wide": ("sgd_batch_terms",),
     # phase 24: KMeans fits, transforms and an OnlineKMeans stream at
     # embedding widths, all on the tiled route (no reduce_partials)
@@ -653,13 +660,16 @@ PATH_KERNELS = {
 }
 #: the kernels line's rows of single instances: (row name, wrapper, path)
 INSTANCE_ROWS = (("knn_topk_indices[long]", "knn_topk_indices", "knn_long"),
+                 ("knn_topk_indices[wide]", "knn_topk_indices", "knn_wide"),
                  ("sgd_batch_terms[staged]", "sgd_batch_terms",
                   "linear_wide"),
                  ("assign_nearest[tiled]", "assign_nearest", "kmeans_wide"),
                  ("lloyd_partial_sums[tiled]", "lloyd_partial_sums",
                   "kmeans_wide"))
-# phase 23: the KNN transform's k, and the LR fit's width and rows
-LONG_PATH_K = 50
+# phase 23: the KNN transforms' k (the long-list instance and the radix
+# route), the test rows whose lists are held against the plain version at
+# k = 300, and the LR fit's width and rows
+LONG_PATH_K, WIDE_PATH_K, WIDE_PATH_CHECKED = 50, 300, 4_096
 WIDE_PATH_D, WIDE_PATH_ROWS = 2_000, 1_000_000
 # phase 2's tiled KMeans route: the cases (n, d, k, share of zero weights,
 # tag); the skewed table (n, d, k, share of rows drawn around centroid 0);
@@ -941,14 +951,15 @@ def _kernel_instance(mangled):
     return base.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
-def log_ptxas(text):
+def log_ptxas(text, only=()):
     """ptxas' register and spill lines of one source's build, each with the
-    kernel instance it is about."""
+    kernel instance it is about (those named in ``only``, where given)."""
     kernel = ""
     for line in text.splitlines():
         if "Compiling entry function" in line:
             kernel = _kernel_instance(line.split("'")[1])
-        elif "registers" in line or "spill" in line:
+        elif (("registers" in line or "spill" in line)
+              and (not only or kernel.split("<")[0] in only)):
             log(f"  ptxas {kernel}:", line.strip())
 
 
@@ -969,15 +980,15 @@ def phase_kernels(K):
         return torch.rand(shape, generator=g, device="cuda")
 
     # ragged n, n = 0, zero-weight rows, wide k (the tiled route), fused
-    # tiles that stage centroids in chunks (assign at d = 400, Lloyd at
-    # d = 310), odd d
+    # tiles that stage centroids in chunks (assign at d = 370, Lloyd at
+    # d = 340), odd d
     for n, d, k, zero_share, tag in [
             (100_003, 100, 10, 0.0, "ragged-n"),
             (0, 100, 10, 0.0, "n=0"),
             (200_000, 100, 10, 0.3, "zero-weights"),
             (50_000, 100, 300, 0.0, "wide-k"),
-            (50_000, 400, 25, 0.0, "chunked-k assign"),
-            (50_000, 310, 32, 0.0, "chunked-k Lloyd"),
+            (50_000, 370, 17, 0.0, "chunked-k assign"),
+            (50_000, 340, 18, 0.0, "chunked-k Lloyd"),
             (10_007, 7, 5, 0.0, "odd-d")]:
         x, c = rand(n, d), rand(k, d)
         v = (rand(n) >= zero_share).float()
@@ -1131,7 +1142,24 @@ def phase_tiled_kernels(K):
     against each other, times of kernel, plain and library eagerly and as
     device time, and both routes timed at the hand-over shapes; returns
     the kernels line's rows for the tiled instances."""
+    import ctypes
+
+    from flink_ml_tpu_torch.ops import _build
+
     log("phase 2 (tiled route): KMeans kernels at every (k, d)")
+    log_ptxas(_build.BUILD_LOGS.get(K.KMEANS_SOURCE, ""),
+              only=("assign_tile_kernel", "lloyd_label_kernel"))
+    lib = K._lib(K.KMEANS_SOURCE)
+    for kp, dpad in ((64, 128), (64, 768), (128, 128), (128, 768)):
+        per_sm = ctypes.c_int(0)
+        K._raise_on_error(K.KMEANS_SOURCE, lib.kmeans_label_blocks_per_sm(
+            dpad, kp, ctypes.byref(per_sm)), "label occupancy")
+        smem = K.label_smem_bytes(kp, dpad)
+        assert lib.kmeans_label_smem_bytes(kp, dpad) == smem, (kp, dpad)
+        log(f"  label body, {kp}-centroid tile at dpad={dpad}: "
+            f"{per_sm.value} block(s) per SM ({smem} bytes of shared "
+            "memory)")
+        assert per_sm.value == 2, per_sm.value
     g = torch.Generator(device="cuda").manual_seed(24)
 
     def rand(*shape):
@@ -1218,6 +1246,10 @@ def phase_tiled_kernels(K):
             tiled_fn = lambda: K._launch_lloyd_sorted(  # noqa: E731
                 x, v, c, tiled)[0]
             within_sum_tol(tiled_fn(), fused_fn(), f"hand-over {n}x{d} k={k}")
+            # Lloyd's tiled labels are the fused assignment's bits too
+            assert torch.equal(K._launch_lloyd_sorted(x, v, c, tiled)[1][
+                "labels"], K._launch_assign(x, c)), (
+                f"hand-over {n}x{d} k={k}: Lloyd's tiled labels differ")
         else:
             fused_fn = lambda: K._launch_assign(x, c)  # noqa: E731
             tiled_fn = lambda: K._launch_assign_tiled(  # noqa: E731
@@ -1600,7 +1632,9 @@ def time_wide_sgd(K, rand):
     instance at the same windows (its first design), the plain version
     and the library pair (x @ c, then xᵀ @ mult given the multipliers); at
     d = 1,500 and 6,001 its eager and device times; the chunked instance
-    past the staged widths (d = 16,000, lb = 20,000) eagerly."""
+    past the staged widths (d = 16,000, lb = 20,000) against its plain
+    version, eagerly and as device time, beside the plain version and the
+    library pair at that shape."""
     from flink_ml_tpu_torch.ops.losses import LossFunc
 
     loss, lb = "logistic", 100_000
@@ -1668,13 +1702,37 @@ def time_wide_sgd(K, rand):
     x, y, w = rand(n, dd), torch.floor(rand(n) * 2), rand(n)
     c = (rand(dd) - 0.5) / dd ** 0.5
     assert K._sgd_card_plan(x, wide_lb, loss).instance == "chunked"
-    chunk_start = rolling_starts(n, wide_lb)
-    ms = time_ms(lambda: K.sgd_batch_terms(x, y, w, c, chunk_start(), 0,
-                                           wide_lb, loss))
-    b_ms, _ = bound_ms(*K.launch_cost("sgd_batch_terms", lb=wide_lb, d=dd))
+    starts = {kind: rolling_starts(n, wide_lb)
+              for kind in ("kernel", "device", "plain", "lib", "lib_device")}
+    mult = LossFunc.by_name(loss).terms(x @ c, y, w)[1]
+
+    def chunked_call(kind):
+        return lambda: K.sgd_batch_terms(x, y, w, c, starts[kind](), 0,
+                                         wide_lb, loss)
+
+    def library(kind):
+        def run():
+            s = starts[kind]()
+            xb = x[s:s + wide_lb]
+            torch.mv(xb, c)  # the forward dots, then the gradient
+            return torch.mv(xb.T, mult[s:s + wide_lb])
+        return run
+
+    got = K.sgd_batch_terms(x, y, w, c, 0, 0, wide_lb, loss)
+    want = K.sgd_batch_terms_plain(x, y, w, c, 0, 0, wide_lb, loss)
+    b_ms, b_by = bound_ms(*K.launch_cost("sgd_batch_terms", lb=wide_lb,
+                                         d=dd))
+    row = {"ms": time_ms(chunked_call("kernel")),
+           "device_ms": graph_ms(chunked_call("device")),
+           "plain_ms": time_ms(lambda: K.sgd_batch_terms_plain(
+               x, y, w, c, starts["plain"](), 0, wide_lb, loss)),
+           "library_ms": time_ms(library("lib")),
+           "library_device_ms": graph_ms(library("lib_device")),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "max_abs_err": within_sum_tol(got, want, "chunked d=16,000")}
     log(f"  sgd_batch_terms chunked @ lb={wide_lb:,} of {n:,} x {dd:,}: "
-        f"{ms:.4f} ms (bound {b_ms:.4f} ms by bytes)")
-    del x, y, w
+        f"{json.dumps(row)}")
+    del x, y, w, mult
     torch.cuda.empty_cache()
     main = measured[2_000]
     return {key: main[key] for key in (
@@ -1927,8 +1985,13 @@ def check_knn(K, x, train, k, tag, block=16_384):
 
 def knn_plan_line(K, x, nt, k):
     plan = K._knn_card_plan(x, nt, min(k, nt))
-    if plan.route == "wide":
-        return plan, f"wide scratch={plan.scratch_bytes} B"
+    if plan.route == "radix":
+        smem = K.knn_select_smem_bytes(min(k, nt), plan.cap_w,
+                                       plan.pairs_smem)
+        return plan, (f"radix dpad={plan.dpad} splits={plan.splits} "
+                      f"chunk_rows={plan.chunk_rows} cap_w={plan.cap_w} "
+                      f"pairs_smem={plan.pairs_smem} "
+                      f"select smem={smem} B scratch={plan.scratch_bytes} B")
     smem = (K.knn_tile_smem_bytes(plan.dpad) if plan.route == "tiled"
             else K.knn_long_smem_bytes(plan.kcap, plan.dpad))
     return plan, (f"{plan.route} kcap={plan.kcap} dpad={plan.dpad} "
@@ -1942,7 +2005,7 @@ def check_long_splits(K, rand, train):
     same lists in the plan's splits, in one and in two and three; twin train
     rows on both sides of a split boundary come lower index first."""
     nt, d = train.shape
-    for k in (40, 100, 200):
+    for k in (40, 65, 80):
         x = rand(1_000, d)
         plan, line = knn_plan_line(K, x, nt, k)
         log(f"  plan long split k={k}: {line}")
@@ -1963,16 +2026,15 @@ def check_long_splits(K, rand, train):
 
 
 #: list lengths the long-list instance is timed at, on the timed block
-LONG_TIMED_K = (33, 50, 64, 100, 128, 200, 256)
+LONG_TIMED_K = (33, 50, 64, 65, 72, 80)
 
 
 def time_long_knn(K, x, train, tsq):
     """The long-list instance on the timed block at every k of
     LONG_TIMED_K: checked against its plain version, eager and device time
-    beside torch.topk(torch.addmm(...)) at the same k (eager and device);
-    the wide instance (the first design) at k = 33 and 50, and above the
-    long-list capacities at k = 300. Returns the kernels line's row of the
-    long-list instance, at k = 50."""
+    beside torch.topk(torch.addmm(...)) at the same k (eager and device).
+    Returns the kernels line's row of the long-list instance, at k =
+    50."""
     n, d = x.shape
     nt = train.shape[0]
     row = {}
@@ -1994,10 +2056,6 @@ def time_long_knn(K, x, train, tsq):
                                     warmup=1),
               "library_device_ms": graph_ms(library, reps=3),
               "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
-        if k in (33, 50):
-            ms["before_ms"] = time_ms(
-                lambda: K._launch_knn(x, train, k, wide=True), batches=1,
-                per_batch=2, warmup=1)
         faster = ms["ms"] < ms["library_ms"]
         log(f"  knn_topk_indices long-list @ {n} x {nt} x {d}, k={k}: "
             f"{json.dumps(ms)}; {'faster' if faster else 'SLOWER'} than "
@@ -2006,11 +2064,114 @@ def time_long_knn(K, x, train, tsq):
             row = dict(ms, plain_ms=time_ms(
                 lambda: K.knn_topk_indices_plain(x, train, k), batches=3,
                 per_batch=1, warmup=1))
-    wide = time_ms(lambda: K.knn_topk_indices(x, train, 300), batches=1,
-                   per_batch=1, warmup=1)
-    log(f"  knn_topk_indices wide instance @ {n} x {nt} x {d}, k=300: "
-        f"{wide:.3f} ms")
     return {"knn_topk_indices[long]": row}
+
+
+#: list lengths the radix route is timed at on the timed block: at 64 and
+#: 80 beside the long-list kernel, which the plan takes there (the
+#: hand-over, KNN_LONG_MAX_K)
+RADIX_TIMED_K = (64, 80, 200, 256, 257, 300, 512, 1_024, 4_096)
+
+
+def time_radix_knn(K, x, train, tsq):
+    """The radix route on the timed block at every k of RADIX_TIMED_K:
+    its lists against the plain version (and where the plan takes the
+    long-list kernel bit-equal to its lists), eager and device time beside
+    torch.topk(torch.addmm(...)) (eager and device) and the bound; at k <=
+    KNN_LONG_MAX_K the long-list kernel's device time beside it (the
+    hand-over).
+    Returns the kernels line's row of the radix route, at k = 300."""
+    n, d = x.shape
+    nt = train.shape[0]
+    row = {}
+    for k in RADIX_TIMED_K:
+        planned = K._knn_card_plan(x, nt, k).route
+        if planned == "radix":
+            _, _, err = check_knn(K, x, train, k, f"radix timed block k={k}")
+
+            def kernel():
+                return K.knn_topk_indices(x, train, k)
+        else:
+            lists = K._launch_knn(x, train, k, cap=K.KNN_KEY_CAP_BYTES)
+            assert torch.equal(lists, K.knn_topk_indices(x, train, k)), (
+                f"k={k}: the radix route's lists differ from the "
+                f"{planned} kernel's")
+            _, err = knn_tie_check(x, train, lists,
+                                   K.knn_topk_indices_plain(x, train, k),
+                                   f"radix k={k}")
+
+            def kernel():
+                return K._launch_knn(x, train, k, cap=K.KNN_KEY_CAP_BYTES)
+
+        def library():
+            return torch.topk(torch.addmm(tsq, x, train.T, alpha=-2), k,
+                              largest=False)
+
+        b_ms, b_by = bound_ms(*K.launch_cost("knn_topk_indices", n=n, nt=nt,
+                                             d=d, k=k))
+        ms = {"ms": time_ms(kernel, batches=3, per_batch=3, warmup=1),
+              "device_ms": graph_ms(kernel, reps=3),
+              "library_ms": time_ms(library, batches=3, per_batch=3,
+                                    warmup=1),
+              "library_device_ms": graph_ms(library, reps=3),
+              "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+        if planned != "radix":
+            ms[f"{planned}_device_ms"] = graph_ms(
+                lambda: K.knn_topk_indices(x, train, k), reps=3)
+        faster = ms["device_ms"] < ms["library_device_ms"]
+        log(f"  knn_topk_indices radix @ {n} x {nt} x {d}, k={k} (plan "
+            f"{planned}): {json.dumps(ms)}; "
+            f"{'faster' if faster else 'SLOWER'} than topk(addmm)")
+        if k == WIDE_PATH_K:
+            row = dict(ms, plain_ms=time_ms(
+                lambda: K.knn_topk_indices_plain(x, train, k), batches=3,
+                per_batch=1, warmup=1))
+    return {"knn_topk_indices[wide]": row}
+
+
+def check_radix_cases(K, rand):
+    """The radix route against the plain version where its edges lie:
+    ragged n, train rows no multiple of 128, k = n_train, planted
+    duplicates, d = 200 (x streamed), and a scratch cap of a few rows that
+    runs several chunks (the lists bit-equal to one chunk's)."""
+    lib = K._lib(K.KNN_SOURCE)
+    for nt, k in ((50_000, 300), (50_000, 4_096), (3_000, 3_000), (1_000, 257),
+                  (6_001, 1_000), (200_000, 50_000)):
+        cap_w, pairs, smem = K.knn_select_layout(nt, k)
+        assert lib.knn_select_smem_bytes(k, cap_w, pairs) == smem, (nt, k)
+        assert lib.knn_sample_rank(nt, k) == K.knn_sample_rank(nt, k), (nt, k)
+    dup = rand(5_000, 32)
+    dup[100:200] = dup[4_000:4_100]  # exact ties across train tiles
+    for n, train, k, tag in [
+            (10_007, rand(6_001, 32), 300, "radix ragged-n"),
+            (1_000, rand(3_000, 32), 3_000, "radix k=n_train"),
+            (20_000, dup, 300, "radix duplicates"),
+            (1_000, rand(3_000, 200), 300, "radix d=200 k=300"),
+            (3_000, rand(6_001, 32), 257, "radix k=257"),
+            (2_000, rand(60_000, 32), 4_096, "radix k=4096")]:
+        x = rand(n, train.shape[1])
+        plan, line = knn_plan_line(K, x, train.shape[0], k)
+        assert plan.route == "radix", (tag, line)
+        log(f"  plan {tag}: {line}")
+        got, _, _ = check_knn(K, x, train, k, tag)
+        if tag.endswith("duplicates"):
+            # of two identical train rows, the lower index comes first;
+            # in a list of 300 other rows may tie them by chance (equal
+            # float32 distances), and those come between in index order
+            rows, pos = torch.nonzero(got == 4_050, as_tuple=True)
+            assert rows.numel() and bool((pos > 0).all()), tag
+            for row, p in zip(rows.tolist(), pos.tolist()):
+                lower = torch.nonzero(got[row, :p] == 150).flatten()
+                assert lower.numel() == 1, (tag, row)
+                between = got[row, int(lower) + 1:p]
+                assert bool(((between > 150) & (between < 4_050)).all()), (
+                    tag, row, between)
+        cap = 3 * 4 * plan.ntp  # three rows' keys a chunk
+        chunks = -(-n // K.knn_radix_plan(n, train.shape[0], x.shape[1], k,
+                                          cap).chunk_rows)
+        assert torch.equal(K._launch_knn(x, train, k, cap=cap), got), (
+            f"{tag}: {chunks} chunks differ from one")
+        log(f"  {tag}: {chunks} chunks of a small cap give the same lists")
 
 
 def phase_knn_kernel(K):
@@ -2053,26 +2214,29 @@ def phase_knn_kernel(K):
             (3_000, rand(6_000, 256), 10, "d=256"),
             (2_000, rand(5_000, 769), 7, "odd d=769"),
             # lists past 32: the long-list instance at every capacity and
-            # its edges, resident and streamed x tiles; the wide one past 256
+            # its edges, resident and streamed x tiles (the radix route
+            # past k = 80 below)
             (3_000, rand(6_001, 32), 50, "long k=50"),
-            (1_000, rand(3_000, 200), 300, "wide d=200 k=300"),
             (500, rand(40, 300), 64, "long k>n_train"),
             (5_000, dup_wide, 40, "long duplicates"),
             (3_000, rand(6_001, 32), 33, "long k=33"),
             (3_000, rand(6_001, 32), 63, "long k=63"),
             (3_000, rand(6_001, 32), 64, "long k=64"),
             (3_000, rand(6_001, 32), 65, "long k=65"),
-            (3_000, rand(6_001, 96), 127, "long k=127 d=96"),
-            (3_000, rand(6_001, 128), 128, "long k=128 d=128"),
-            (3_000, rand(6_001, 32), 129, "long k=129"),
-            (3_000, rand(6_001, 200), 255, "long k=255 d=200"),
-            (3_000, rand(6_001, 32), 256, "long k=256"),
-            (1_000, rand(6_001, 32), 257, "wide k=257"),
-            (10_007, rand(9_999, 7), 100, "long odd-d"),
+            (3_000, rand(6_001, 96), 80, "long k=80 d=96"),
+            (10_007, rand(9_999, 7), 72, "long odd-d"),
+            # past the hand-over (k = 80) the radix route
+            (3_000, rand(6_001, 32), 81, "radix k=81"),
+            (3_000, rand(6_001, 96), 127, "radix k=127 d=96"),
+            (3_000, rand(6_001, 128), 128, "radix k=128 d=128"),
+            (3_000, rand(6_001, 200), 255, "radix k=255 d=200"),
+            (3_000, rand(6_001, 32), 256, "radix k=256"),
+            (10_007, rand(9_999, 7), 100, "radix odd-d"),
     ]:
         x = rand(n, train.shape[1])
         plan, line = knn_plan_line(K, x, train.shape[0], k)
-        route = tag.split()[0] if tag.split()[0] in ("long", "wide") else "tiled"
+        route = (tag.split()[0] if tag.split()[0] in ("long", "radix")
+                 else "tiled")
         assert plan.route == route, (tag, line)
         log(f"  plan {tag}: {line}")
         got, _, _ = check_knn(K, x, train, k, tag)
@@ -2115,6 +2279,7 @@ def phase_knn_kernel(K):
     assert plan.splits == 2, line
     check_knn(K, x, small, 32, "k>split rows")
     check_long_splits(K, rand, train)
+    check_radix_cases(K, rand)
 
     # times and bounds on a block of test rows the library call can hold,
     # at the main path's widths (50,000 train rows, d = 32, k = 10)
@@ -2138,6 +2303,7 @@ def phase_knn_kernel(K):
     log(f"  knn_topk_indices @ {n} x {nt} x {d}, k={k}: "
         f"{measured['knn_topk_indices']}")
     measured.update(time_long_knn(K, x, train, tsq))
+    measured.update(time_radix_knn(K, x, train, tsq))
     # the main path's shape: a few calls, each of them about a second
     big = rand(10_000_000, d)
     main = time_ms(lambda: K.knn_topk_indices(big, train, k), batches=3,
@@ -2346,10 +2512,66 @@ def phase_knn_main_path(K, runner, Table):
     return counts
 
 
+def _knn_wide_path(K, runner, knn_mod):
+    """Phase 23's KNN config at k = WIDE_PATH_K (the radix route) through
+    the runner and a KnnModel transform, with the counts at 0 just before
+    and read just after; the lists of the first WIDE_PATH_CHECKED test
+    rows held against the plain version and the transform's votes against
+    the lists. Returns the path's counts."""
+    import copy
+
+    spec = copy.deepcopy(
+        runner.load_config(str(KNN_CONFIG))["KnnModel-predict"])
+    spec["stage"]["paramMap"]["k"] = WIDE_PATH_K
+    n, k = spec["inputData"]["paramMap"]["numValues"], WIDE_PATH_K
+    K.reset_launch_counts()
+    row = runner.run_benchmark(f"KnnModel-predict-k{k}", spec)
+    log(f"  benchmark row (k = {k}):", json.dumps(row, sort_keys=True))
+    assert row["executionPath"] == "cuda-knn", row["executionPath"]
+    assert row["inputRecordNum"] == n and row["outputRecordNum"] == n
+    table = runner.build_generator(spec).get_data()
+    model = runner.build_stage(spec).set_model_data(
+        runner.build_generator(spec, key="modelData").get_data())
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    pred = model.transform(table)[0][model.prediction_col]
+    torch.cuda.synchronize()
+    transform_ms = (time.perf_counter() - start) * 1e3
+    assert model.last_execution_path == "cuda-knn"
+    counts = dict(K.launch_counts)
+    x = table.vectors(model.features_col)
+    train = torch.as_tensor(model.features, dtype=torch.float32, device="cuda")
+    plan, line = knn_plan_line(K, x, train.shape[0], k)
+    assert plan.route == "radix", line
+    log(f"  transform at k = {k}: {transform_ms:.3f} ms for {n} rows; plan "
+        f"{line}; launches {counts}")
+    labels = torch.as_tensor(np.unique(model.labels), device="cuda")
+    _, label_idx = np.unique(model.labels, return_inverse=True)
+    label_idx = torch.as_tensor(label_idx, device="cuda")
+    with _uncounted(K):
+        head = x[:WIDE_PATH_CHECKED]
+        got = K.knn_topk_indices(head, train, k)
+        want = K.knn_topk_indices_plain(head, train, k)
+        flips, _ = knn_tie_check(head, train, got, want, f"k={k} head")
+        vote = knn_mod._vote(got, label_idx, len(labels))
+        assert torch.equal(pred[:WIDE_PATH_CHECKED], labels.double()[vote]), (
+            "the transform differs from its kernel's neighbours")
+        differ = int((vote != knn_mod._vote(want, label_idx,
+                                            len(labels))).sum())
+        assert differ <= flips, f"{differ} votes off the plain ones"
+    log(f"  the lists of the first {WIDE_PATH_CHECKED} rows against the "
+        f"plain version: tie-rows={flips}")
+    assert counts["knn_topk_indices"] >= 2, counts
+    del x, table, pred
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_long_instances(K, runner, optimizer):
-    """Phase 23: the long-list KNN and staged SGD instances through the
-    runner and the estimators, each path with the counts at 0 just before
-    it and read just after; returns the two paths' counts."""
+    """Phase 23: the long-list KNN and staged SGD instances, and the KNN
+    radix route, through the runner and the estimators, each path with the
+    counts at 0 just before it and read just after; returns the three
+    paths' counts."""
     import copy
 
     from flink_ml_tpu_torch.models.classification import knn as knn_mod
@@ -2403,6 +2625,7 @@ def phase_long_instances(K, runner, optimizer):
     assert knn_counts["knn_topk_indices"] >= 2, knn_counts
     del x, table, pred
     torch.cuda.empty_cache()
+    wide_counts = _knn_wide_path(K, runner, knn_mod)
 
     spec = copy.deepcopy(runner.load_config(
         str(LINEAR_CONFIGS["logisticregression"]))["logisticregression"])
@@ -2453,7 +2676,7 @@ def phase_long_instances(K, runner, optimizer):
     del x, y, w, table
     torch.cuda.empty_cache()
     log(f"  phase 23: {time.perf_counter() - started:.1f} s")
-    return knn_counts, linear_counts
+    return knn_counts, wide_counts, linear_counts
 
 
 def _sparse_stream(Table, sparse, n, d, nnz_per_row, seed, striped=False):
@@ -7149,8 +7372,8 @@ def main() -> int:
     counts["meshes_processes"] = phase_meshes_over_processes(K, runner,
                                                              card)
     counts["feature_mesh"] = phase_feature_mesh(K, runner, card)
-    counts["knn_long"], counts["linear_wide"] = phase_long_instances(
-        K, runner, optimizer)
+    (counts["knn_long"], counts["knn_wide"],
+     counts["linear_wide"]) = phase_long_instances(K, runner, optimizer)
     counts["kmeans_wide"] = phase_kmeans_wide(K, runner, kmeans_mod, Table)
 
     # step 25: the kernels line

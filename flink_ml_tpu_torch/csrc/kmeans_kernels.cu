@@ -533,22 +533,41 @@ __global__ void __launch_bounds__(256)
 // where it is not (d = 768, k = 64: 98 GFLOP, 1.5 ms, against 0.9 ms to
 // read x once). Each stage, in launch order:
 //
-// - Labels (assign_tile_kernel for assign_nearest, lloyd_label_kernel for
-//   Lloyd: one body, two symbols, so that a profile tells them apart): the
-//   KNN tile engine of tile_engine.cuh with the list replaced by one
-//   running key a row. A block of 256 threads owns 128 rows of x and walks
-//   the centroids, transposed and zero-padded to (dpad, kp) with norms +inf
-//   past k, in tiles of 128 a step of 32 columns by TMA into a double
-//   buffer; each thread keeps an 8 x 8 micro-tile of dots in registers,
-//   one fma chain per dot in column order from 0, as score_chunk adds
-//   them, so a distance fmaf(-2, dot, ||c||^2) has the bits of the fused
-//   kernel's ||c||^2 - 2 dot (-2 dot is exact). Each of a thread's 8 rows
-//   keeps the smallest key (distance, index) it has seen; after the last
-//   tile the 16 lanes of the half-warp that share a row take the smallest
-//   of their keys. The smallest key is the first minimum over ascending j,
-//   the rule of _assign_kernel and the fused kernel, in any order of
-//   comparison. Padded centroids score +inf with a higher index than any
-//   real one, so they never win.
+// - Labels (assign_tile_kernel<TN, XRES> for assign_nearest,
+//   lloyd_label_kernel<TN, XRES> for Lloyd: one body, two symbols, so that
+//   a profile tells them apart): the KNN tile engine's micro-tile with the
+//   list replaced by one running key a row. A block of 256 threads owns 128
+//   rows of x and walks the centroids, transposed and zero-padded to (dpad,
+//   kp) with norms +inf past k, in tiles of TN (64 where k <= 64, so small
+//   k pads no centroid to 128; else 128), a step of 32 columns at a time.
+//   A step's x box (128 rows x 32 columns) and centroid box (32 x TN) come
+//   by TMA into one stage of a ring (label_stages: 4 for TN = 64, 3 for
+//   128), counted by the stage's full mbarrier; each warp releases the
+//   stage on its empty mbarrier when it has read it, and thread 0 refills
+//   it for the step label_lead ahead once every warp has, so no block
+//   barrier stands between steps.
+//   The x box lands with the 128-byte swizzle (16-byte chunk c of row r at
+//   chunk c ^ (r % 8)), so the two half-warps' reads of rows 4 apart meet
+//   no bank conflict. Rows whose stride is no multiple of 16 bytes (d % 4
+//   != 0), which TMA cannot describe, come by cp.async in the same swizzled
+//   layout, a warp along a row's 32 columns (coalesced), each thread's
+//   copies arriving on the full mbarrier. Rows of up to kXResMax padded
+//   columns (XRES) keep the block's x tile resident instead, loaded once
+//   and transposed, [column][row], as the KNN kernels hold it (a float4
+//   spans four rows); the ring then carries the centroid boxes alone.
+//   Each thread keeps an 8 x TN / 16
+//   micro-tile of dots in registers, one fma chain per dot in column order
+//   from 0, as score_chunk adds them, so a distance fmaf(-2, dot, ||c||^2)
+//   has the bits of the fused kernel's ||c||^2 - 2 dot (-2 dot is exact).
+//   Each of a thread's 8 rows keeps the smallest key (distance, index) it
+//   has seen; after the last tile the 16 lanes of the half-warp that share
+//   a row take the smallest of their keys. The smallest key is the first
+//   minimum over ascending j, the rule of _assign_kernel and the fused
+//   kernel, in any order of comparison. Padded centroids score +inf with a
+//   higher index than any real one, so they never win. Where kp > 128 x is
+//   copied again for each centroid tile; the phase split
+//   (scripts/port_label_phases.py) shows its copies waited on for under 3%
+//   of a step at k = 1,024, so the blocks do not share x in a cluster.
 // - A stable counting sort of the row ids by label (label_sort_kernel,
 //   twice, around an exclusive scan): block (c, t) takes chunk c of
 //   chunk_rows rows and labels [t * label_tile, ...); each of its 8 warps
@@ -589,118 +608,272 @@ __device__ __forceinline__ bool key_less(float da, int ia, float db, int ib) {
   return da < db || (da == db && ia < ib);
 }
 
+#ifdef LABEL_PHASE_CLOCKS
+// per thread of block 0: cycles in the copy wait, the stage release, the
+// copy issue, the FMAs and the tile epilogue of all its steps
+constexpr int kLabelPhases = 5;
+__device__ long long label_phase_cycles[kTileThreads * kLabelPhases];
+#define LABEL_PHASE_START() long long label_t_ = clock64()
+#define LABEL_PHASE_END(q)                \
+  do {                                    \
+    const long long now_ = clock64();     \
+    label_c_[q] += now_ - label_t_;       \
+    label_t_ = now_;                      \
+  } while (0)
+#else
+#define LABEL_PHASE_START() \
+  do {                      \
+  } while (0)
+#define LABEL_PHASE_END(q) \
+  do {                     \
+  } while (0)
+#endif
+
+// Stages of the label body's ring, and the shared memory of a block of
+// the TN-centroid instance at padded width dpad: up to kXResMax columns the
+// x tile stays resident (transposed, [dpad][kTM]) beside the stages'
+// centroid boxes (kDK x TN); wider rows stream an x box (kTM x kDK,
+// 1024-byte aligned for the swizzle) in each stage too; a full and an empty
+// mbarrier a stage, and room to align the start.
+// Stages of the ring: four for the 64-centroid tile, three for the
+// 128-centroid one (so that two blocks share an SM). A step's copies go out
+// label_lead steps ahead, into the stage of the step label_stages -
+// label_lead before it: two ahead where x streams from device memory, one
+// where only the centroid boxes (which stay in L2) come, so that with a
+// resident x tile the stage refilled is one released two steps back.
+__host__ __device__ constexpr int label_stages(int tn) {
+  return tn == 64 ? 4 : 3;
+}
+__host__ __device__ constexpr int label_lead(bool xres) {
+  return xres ? 1 : 2;
+}
+
+__host__ __device__ constexpr int64_t label_smem_bytes(int tn, int dpad) {
+  return dpad <= kXResMax
+             ? 128 + 4 * ((int64_t)dpad * kTM +
+                          (int64_t)label_stages(tn) * kDK * tn) +
+                   16 * label_stages(tn)
+             : 1024 +
+                   4 * (int64_t)label_stages(tn) * (kTM * kDK + kDK * tn) +
+                   16 * label_stages(tn);
+}
+
 // The nearest of the kp padded centroids (cT (dpad, kp) by `cmap`, norms
-// csq) for each of the block's kTM rows of x -> out.
+// csq) for each of the block's kTM rows of x -> out. x: resident where
+// XRES (dpad <= kXResMax), else streamed by `xmap` where tma_x, else by
+// cp.async; one instance a mode, each with one FMA loop, keeps the
+// registers under the two blocks' budget. TN (64 or 128) centroids a
+// tile; a thread scores rows (p < 4 ? 0 : 64) + ty * 4 + p % 4 against
+// centroids (q / 4) * 64 + tx * 4 + q % 4 of each tile, QN = TN / 16 of
+// them.
+template <int TN, bool XRES>
 __device__ __forceinline__ void nearest_tiles(const CUtensorMap* cmap,
+                                              const CUtensorMap* xmap,
                                               const float* __restrict__ x,
                                               const float* __restrict__ csq,
                                               int* __restrict__ out,
                                               int64_t n, int d, int dpad,
-                                              int kp) {
-  extern __shared__ __align__(128) float tile_smem[];
-  const bool xres = dpad <= kXResMax;
-  const int nchunks = dpad / kDK;
-  float* xs = tile_smem;
-  float* ts = xs + (xres ? dpad * kTM : 2 * kDK * kTM);
-  float* csq_s = ts + 2 * kDK * kTN;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(csq_s + 2 * kTN);
+                                              int kp, int tma_x) {
+  constexpr int QN = TN / 16;
+  constexpr int kLabelStages = label_stages(TN);
+  constexpr int kLabelLead = label_lead(XRES);
+  constexpr int XS = kTM * kDK;  // floats of a stage's x box
+  constexpr int CS = kDK * TN;   // floats of its centroid box
+  extern __shared__ __align__(128) unsigned char label_raw[];
+  constexpr bool xres = XRES;
+  const unsigned align = xres ? 128u : 1024u;
+  float* xs = reinterpret_cast<float*>(
+      label_raw + ((align - (smem_addr(label_raw) & (align - 1))) &
+                   (align - 1)));
+  float* cs = xs + (xres ? dpad * kTM : kLabelStages * XS);
+  uint64_t* full = reinterpret_cast<uint64_t*>(cs + kLabelStages * CS);
+  uint64_t* empty = full + kLabelStages;
   const float inf = __int_as_float(0x7f800000);
 
-  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
+  const int t = threadIdx.x, tx = t & 15, ty = t >> 4, lane = t & 31;
   const int64_t i0 = (int64_t)blockIdx.x * kTM;
-  const int nsteps = kp / kTN * nchunks;
+  const int nchunks = dpad / kDK;
+  const int nsteps = kp / TN * nchunks;
+  // the stages' copies are thread 0's alone, unless x streams by cp.async
+  const bool solo = xres || tma_x;
+  const unsigned bytes = 4 * (CS + (!xres && tma_x ? XS : 0));
 
-  // step s: centroid tile s / nchunks, columns of chunk s % nchunks, into
-  // buffer s & 1
+  // step s's copies: centroid tile s / nchunks, columns of chunk s %
+  // nchunks, into stage s % kLabelStages once every warp has released the
+  // step that held it (kLabelStages steps before); whoever copies waits
+  // for that
   auto issue = [&](int s) {
-    const int tile = s / nchunks, c = s - tile * nchunks;
-    const int b = s & 1, j0 = tile * kTN;
-    if (t == 0) tma_chunk(ts + b * kDK * kTN, cmap, j0, c * kDK, &bars[b]);
-    if (c == 0 && t < kTN / 4)
-      cp_async16(csq_s + (tile & 1) * kTN + 4 * t, csq + j0 + 4 * t);
-    if (!xres) {
-      float* xdst = xs + b * kDK * kTM;
-      for (int e = t; e < kDK * kTM; e += kTileThreads) {
-        const int f = e / kTM, i = e - f * kTM, col = c * kDK + f;
-        const bool ok = i0 + i < n && col < d;
-        cp_async4(xdst + e, ok ? x + (i0 + i) * d + col : x, ok ? 4 : 0);
-      }
+    const int st = s % kLabelStages, tile = s / nchunks;
+    const int c = s - tile * nchunks;
+    if (s >= kLabelStages && (t == 0 || !solo))
+      mbar_wait(&empty[st], (s / kLabelStages - 1) & 1);
+    if (t == 0) {
+      mbar_arrive_expect_tx(&full[st], bytes);
+      tma_load_2d(cs + st * CS, cmap, tile * TN, c * kDK, &full[st]);
+      if (!xres && tma_x)
+        tma_load_2d(xs + st * XS, xmap, c * kDK, (int)i0, &full[st]);
     }
-    cp_async_commit();
+    if (!solo) {  // lanes along a row's columns; the swizzle TMA would give
+      float* dst = xs + st * XS;
+      for (int e = t; e < XS; e += kTileThreads) {
+        const int i = e >> 5, f = e & 31, col = c * kDK + f;
+        const bool ok = i0 + i < n && col < d;
+        cp_async4(dst + i * kDK + ((((f >> 2) ^ (i & 7))) << 2) + (f & 3),
+                  ok ? x + (i0 + i) * d + col : x, ok ? 4 : 0);
+      }
+      cp_async_mbar_arrive_noinc(&full[st]);
+    }
   };
 
   if (t == 0) {
-    mbar_init(&bars[0]);
-    mbar_init(&bars[1]);
+    for (int st = 0; st < kLabelStages; ++st) {
+      mbar_init(&full[st], solo ? 1 : 1 + kTileThreads);
+      mbar_init(&empty[st], kTileThreads / 32);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  issue(0);  // nsteps >= 1: kp >= kTN and dpad >= kDK
-  if (xres) {
+  for (int s = 0; s < kLabelLead && s < nsteps; ++s) issue(s);
+  if (xres) {  // the x tile, transposed and zero-padded, once
     for (int e = t; e < dpad * kTM; e += kTileThreads) {
       const int f = e / kTM, i = e - f * kTM;
       xs[e] = (i0 + i < n && f < d) ? x[(i0 + i) * d + f] : 0.f;
     }
+    __syncthreads();
   }
 
-  // rows p of this thread: (p < 4 ? 0 : 64) + ty * 4 + p % 4; each one's
-  // smallest key so far
+  // each of this thread's 8 rows: the smallest key so far
   float bd[8];
   int bi[8];
-  float acc[8][8];
+  float acc[8][QN];
 #pragma unroll
   for (int p = 0; p < 8; ++p) {
     bd[p] = inf;
     bi[p] = 0;
 #pragma unroll
-    for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
+    for (int q = 0; q < QN; ++q) acc[p][q] = 0.f;
   }
+  // a streamed box's swizzle of row p: (row & 7) is ty % 2 * 4 + p % 4
+  const int sw = (ty & 1) * 4;
 
+#ifdef LABEL_PHASE_CLOCKS
+  long long label_c_[kLabelPhases] = {0, 0, 0, 0, 0};
+#endif
   for (int s = 0; s < nsteps; ++s) {
-    mbar_wait(&bars[s & 1], (s >> 1) & 1);
-    cp_async_wait_all();
-    __syncthreads();  // step s is in shared memory; step s - 1 is read
-    if (s + 1 < nsteps) issue(s + 1);  // in flight during these FMAs
-    const int c = s % nchunks, b = s & 1;
-    const float* xc = xs + (xres ? c : b) * kDK * kTM;
-    const float* tc = ts + b * kDK * kTN;
+    LABEL_PHASE_START();
+    if (s + kLabelLead < nsteps) issue(s + kLabelLead);
+    LABEL_PHASE_END(2);
+    const int st = s % kLabelStages;
+    mbar_wait(&full[st], (s / kLabelStages) & 1);
+    LABEL_PHASE_END(0);
+    const int tile = s / nchunks, c = s - tile * nchunks;
+    const float* cb = cs + st * CS;
+    if constexpr (XRES) {
+      const float* xc = xs + c * kDK * kTM;
 #pragma unroll
-    for (int kk = 0; kk < kDK; ++kk) {
-      const float4 a0 =
-          *reinterpret_cast<const float4*>(xc + kk * kTM + ty * 4);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(xc + kk * kTM + 64 + ty * 4);
-      const float4 b0 =
-          *reinterpret_cast<const float4*>(tc + kk * kTN + tx * 4);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(tc + kk * kTN + 64 + tx * 4);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      for (int kk = 0; kk < kDK; ++kk) {
+        const float4 a0 =
+            *reinterpret_cast<const float4*>(xc + kk * kTM + ty * 4);
+        const float4 a1 =
+            *reinterpret_cast<const float4*>(xc + kk * kTM + 64 + ty * 4);
+        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        float bb[QN];
 #pragma unroll
-      for (int p = 0; p < 8; ++p)
+        for (int g = 0; g < QN / 4; ++g) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              cb + kk * TN + g * 64 + tx * 4);
+          bb[4 * g] = v.x;
+          bb[4 * g + 1] = v.y;
+          bb[4 * g + 2] = v.z;
+          bb[4 * g + 3] = v.w;
+        }
 #pragma unroll
-        for (int q = 0; q < 8; ++q) acc[p][q] = fmaf(a[p], bb[q], acc[p][q]);
+        for (int p = 0; p < 8; ++p)
+#pragma unroll
+          for (int q = 0; q < QN; ++q)
+            acc[p][q] = fmaf(a[p], bb[q], acc[p][q]);
+      }
+    } else {
+      // a row's x in loads of AW columns (four with the 64-centroid tile,
+      // whose thread holds fewer dots; two else, to stay in registers)
+      constexpr int AW = QN == 4 ? 4 : 2;
+      const float* xa = xs + st * XS;
+#pragma unroll
+      for (int kk = 0; kk < kDK; kk += AW) {
+        float a[8][AW];
+#pragma unroll
+        for (int p = 0; p < 8; ++p) {
+          const int r = (p < 4 ? 0 : 64) + ty * 4 + (p & 3);
+          const float* src =
+              xa + r * kDK + (((kk >> 2) ^ (sw + (p & 3))) << 2) + (kk & 3);
+          if constexpr (AW == 4) {
+            const float4 v = *reinterpret_cast<const float4*>(src);
+            a[p][0] = v.x;
+            a[p][1] = v.y;
+            a[p][2] = v.z;
+            a[p][3] = v.w;
+          } else {
+            const float2 v = *reinterpret_cast<const float2*>(src);
+            a[p][0] = v.x;
+            a[p][1] = v.y;
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < AW; ++h) {
+          float bb[QN];
+#pragma unroll
+          for (int g = 0; g < QN / 4; ++g) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                cb + (kk + h) * TN + g * 64 + tx * 4);
+            bb[4 * g] = v.x;
+            bb[4 * g + 1] = v.y;
+            bb[4 * g + 2] = v.z;
+            bb[4 * g + 3] = v.w;
+          }
+#pragma unroll
+          for (int p = 0; p < 8; ++p)
+#pragma unroll
+            for (int q = 0; q < QN; ++q)
+              acc[p][q] = fmaf(a[p][h], bb[q], acc[p][q]);
+        }
+      }
     }
+    LABEL_PHASE_END(3);
+    __syncwarp();  // the warp's reads of the stage are done
+    if (lane == 0) mbar_arrive(&empty[st]);
+    LABEL_PHASE_END(1);
     if (c != nchunks - 1) continue;
     // the tile is done: its distances against each row's smallest key
-    const int tile = s / nchunks, j0 = tile * kTN;
-    const float* tq = csq_s + (tile & 1) * kTN;
-    const float4 q0 = *reinterpret_cast<const float4*>(tq + tx * 4);
-    const float4 q1 = *reinterpret_cast<const float4*>(tq + 64 + tx * 4);
-    const float tn[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+    const int j0 = tile * TN;
+    float tn[QN];
+#pragma unroll
+    for (int g = 0; g < QN / 4; ++g) {
+      const float4 v =
+          __ldg(reinterpret_cast<const float4*>(csq + j0 + g * 64 + tx * 4));
+      tn[4 * g] = v.x;
+      tn[4 * g + 1] = v.y;
+      tn[4 * g + 2] = v.z;
+      tn[4 * g + 3] = v.w;
+    }
 #pragma unroll
     for (int p = 0; p < 8; ++p)
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
+      for (int q = 0; q < QN; ++q) {
         const float dist = fmaf(-2.f, acc[p][q], tn[q]);
-        const int j = j0 + (q & 4) * 16 + 4 * tx + (q & 3);
+        const int j = j0 + (q >> 2) * 64 + 4 * tx + (q & 3);
         if (key_less(dist, j, bd[p], bi[p])) {
           bd[p] = dist;
           bi[p] = j;
         }
         acc[p][q] = 0.f;
       }
+    LABEL_PHASE_END(4);
   }
+#ifdef LABEL_PHASE_CLOCKS
+  if (blockIdx.x == 0)
+    for (int q = 0; q < kLabelPhases; ++q)
+      label_phase_cycles[t * kLabelPhases + q] = label_c_[q];
+#endif
 
   // the smallest key of the 16 lanes that share each row
 #pragma unroll
@@ -721,20 +894,24 @@ __device__ __forceinline__ void nearest_tiles(const CUtensorMap* cmap,
 
 constexpr int kTileBlocksPerSm = 2;  // the register budget it is built for
 
+template <int TN, bool XRES>
 __global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm)
     assign_tile_kernel(const __grid_constant__ CUtensorMap cmap,
+                       const __grid_constant__ CUtensorMap xmap,
                        const float* __restrict__ x,
                        const float* __restrict__ csq, int* __restrict__ out,
-                       int64_t n, int d, int dpad, int kp) {
-  nearest_tiles(&cmap, x, csq, out, n, d, dpad, kp);
+                       int64_t n, int d, int dpad, int kp, int tma_x) {
+  nearest_tiles<TN, XRES>(&cmap, &xmap, x, csq, out, n, d, dpad, kp, tma_x);
 }
 
+template <int TN, bool XRES>
 __global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm)
     lloyd_label_kernel(const __grid_constant__ CUtensorMap cmap,
+                       const __grid_constant__ CUtensorMap xmap,
                        const float* __restrict__ x,
                        const float* __restrict__ csq, int* __restrict__ out,
-                       int64_t n, int d, int dpad, int kp) {
-  nearest_tiles(&cmap, x, csq, out, n, d, dpad, kp);
+                       int64_t n, int d, int dpad, int kp, int tma_x) {
+  nearest_tiles<TN, XRES>(&cmap, &xmap, x, csq, out, n, d, dpad, kp, tma_x);
 }
 
 constexpr int kSortWarps = 8;
@@ -982,33 +1159,83 @@ __global__ void __launch_bounds__(256)
   *dst = a;
 }
 
+// The label kernel (the Lloyd or the assign symbol) of the instance that
+// kp and dpad ask for: 64 centroids a tile where kp is 64, else 128; x
+// resident up to kXResMax columns.
+const void* label_kernel_of(bool lloyd, int kp, int dpad) {
+  const bool res = dpad <= kXResMax;
+  if (kp == 64) {
+    if (res)
+      return lloyd ? (const void*)lloyd_label_kernel<64, true>
+                   : (const void*)assign_tile_kernel<64, true>;
+    return lloyd ? (const void*)lloyd_label_kernel<64, false>
+                 : (const void*)assign_tile_kernel<64, false>;
+  }
+  if (res)
+    return lloyd ? (const void*)lloyd_label_kernel<128, true>
+                 : (const void*)assign_tile_kernel<128, true>;
+  return lloyd ? (const void*)lloyd_label_kernel<128, false>
+               : (const void*)assign_tile_kernel<128, false>;
+}
+
+template <int TN, bool XRES>
+void launch_label_instance(bool lloyd, const CUtensorMap& cmap,
+                           const CUtensorMap& xmap, const float* x,
+                           const float* csq, int* out, int64_t n, int d,
+                           int dpad, int kp, int tma_x, int smem,
+                           cudaStream_t stream) {
+  const unsigned grid = (unsigned)((n + kTM - 1) / kTM);
+  if (lloyd)
+    lloyd_label_kernel<TN, XRES><<<grid, kTileThreads, smem, stream>>>(
+        cmap, xmap, x, csq, out, n, d, dpad, kp, tma_x);
+  else
+    assign_tile_kernel<TN, XRES><<<grid, kTileThreads, smem, stream>>>(
+        cmap, xmap, x, csq, out, n, d, dpad, kp, tma_x);
+}
+
 // The tiled labels of n rows into out, through the assign or the Lloyd
 // instance.
 cudaError_t launch_labels(bool lloyd, const float* x, const float* cT,
                           const float* csq, int* out, int64_t n, int d,
                           int dpad, int kp, cudaStream_t stream) {
-  CUtensorMap map;
-  cudaError_t e = encode_tile_map(&map, cT, dpad, kp);
+  const int tn = kp == 64 ? 64 : 128;
+  CUtensorMap cmap, xmap;
+  cudaError_t e = encode_tile_map(&cmap, cT, dpad, kp, tn);
   if (e != cudaSuccess) return e;
-  const int smem = (int)tile_smem_bytes(dpad);
-  const void* fn = lloyd ? (const void*)lloyd_label_kernel
-                         : (const void*)assign_tile_kernel;
-  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem);
+  // TMA takes rows whose stride is a multiple of 16 bytes; a box no
+  // larger than the tensor
+  const int tma_x = d % 4 == 0 && d >= kDK && n >= kTM &&
+                    reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  if (tma_x) {
+    e = encode_rows_map(&xmap, x, n, d);
+    if (e != cudaSuccess) return e;
+  } else {
+    xmap = cmap;  // unread
+  }
+  const int smem = (int)label_smem_bytes(tn, dpad);
+  e = cudaFuncSetAttribute(label_kernel_of(lloyd, kp, dpad),
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  const unsigned grid = (unsigned)((n + kTM - 1) / kTM);
-  if (lloyd)
-    lloyd_label_kernel<<<grid, kTileThreads, smem, stream>>>(
-        map, x, csq, out, n, d, dpad, kp);
+  const bool res = dpad <= kXResMax;
+  if (tn == 64 && res)
+    launch_label_instance<64, true>(lloyd, cmap, xmap, x, csq, out, n, d,
+                                    dpad, kp, tma_x, smem, stream);
+  else if (tn == 64)
+    launch_label_instance<64, false>(lloyd, cmap, xmap, x, csq, out, n, d,
+                                     dpad, kp, tma_x, smem, stream);
+  else if (res)
+    launch_label_instance<128, true>(lloyd, cmap, xmap, x, csq, out, n, d,
+                                     dpad, kp, tma_x, smem, stream);
   else
-    assign_tile_kernel<<<grid, kTileThreads, smem, stream>>>(
-        map, x, csq, out, n, d, dpad, kp);
+    launch_label_instance<128, false>(lloyd, cmap, xmap, x, csq, out, n, d,
+                                      dpad, kp, tma_x, smem, stream);
   return cudaGetLastError();
 }
 
 bool tiled_ok(long long n, int k, int d, int dpad, int kp) {
   return n >= 1 && (n + kTM - 1) / kTM <= INT_MAX && k >= 1 && d >= 1 &&
-         dpad >= d && dpad % kDK == 0 && kp >= k && kp % kTN == 0;
+         dpad >= d && dpad % kDK == 0 && kp >= k &&
+         (kp == 64 || kp % kTN == 0);
 }
 
 int64_t smem_floats(int lloyd, int k, int d, int rows, int kchunk) {
@@ -1102,6 +1329,26 @@ int kmeans_reduce_partials(const float* partials, float* out, int blocks,
   return (int)cudaGetLastError();
 }
 
+// Resident blocks of one SM for the tiled label kernel of the instance kp
+// asks for at this padded width.
+int kmeans_label_blocks_per_sm(int dpad, int kp, int* out) {
+  if (dpad < kDK || dpad % kDK != 0 || kp < 1 || (kp != 64 && kp % kTN != 0))
+    return (int)cudaErrorInvalidValue;
+  const int smem = (int)label_smem_bytes(kp == 64 ? 64 : 128, dpad);
+  const void* fn = label_kernel_of(false, kp, dpad);
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, fn, kTileThreads, (size_t)smem);
+}
+
+// Shared memory of a label block of the instance kp asks for at this
+// padded width.
+long long kmeans_label_smem_bytes(int kp, int dpad) {
+  return label_smem_bytes(kp == 64 ? 64 : 128, dpad);
+}
+
 // The tiled route's labels: cT the (dpad, kp) transposed centroids, zero
 // past d and k, csq their (kp,) norms, +inf past k (ops/kernels.py
 // `kmeans_plan` sizes dpad and kp).
@@ -1171,6 +1418,14 @@ int kmeans_lloyd_sorted(const float* x, const float* v, const float* cT,
       offs, scratch, out, (int64_t)n, k, d, nchunks, piece_rows);
   return (int)cudaGetLastError();
 }
+
+#ifdef LABEL_PHASE_CLOCKS
+// Block 0's label_phase_cycles of the last label launch, into host memory.
+int kmeans_label_phase_cycles_read(long long* host) {
+  return (int)cudaMemcpyFromSymbol(host, label_phase_cycles,
+                                   sizeof(label_phase_cycles));
+}
+#endif
 
 #ifdef LLOYD_PHASE_CLOCKS
 // Block 0's lloyd_phase_cycles of the last launch, into host memory.

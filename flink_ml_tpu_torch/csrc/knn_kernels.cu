@@ -3,7 +3,7 @@
 //
 // Replaces, in flink_ml_tpu/ops/pallas_kernels.py:
 //   knn_tile_kernel<KCAP>, knn_merge_kernel<KCAP>, knn_long_kernel<KCAP>,
-//   knn_long_merge_kernel<KCAP>, knn_topk_wide_kernel
+//   knn_long_merge_kernel<KCAP>, knn_key_tile_kernel, knn_select_kernel
 //     <- _knn_kernel (:421), pallas_call at :482
 //
 // Output: for each test row x_i of x (n, d), the indices of the k train rows
@@ -85,22 +85,19 @@
 //   steps for knn_phase_cycles_read, and with -DKNN_NO_SELECTION the tiles
 //   skip selection: scripts/port_knn_phases.py builds and times both.
 //
-// Lists of 33 to 256 entries take knn_long_kernel<KCAP> (KCAP 64, 128 or
-// 256; its comment below): the same engine, split and TMA copies, with the
+// Lists of 33 to 80 entries take knn_long_kernel<KCAP> (KCAP 64 or 128;
+// its comment below): the same engine, split and TMA copies, with the
 // lists and a buffer of candidates a row in shared memory, merged in
 // batches, and ordered by the key (distance, index), so that any merge
 // order, and so any split, gives the same lists.
 //
-// Lists longer than 256 take knn_topk_wide_kernel, with the same insertion
-// rule: the block stages its 128 test rows and a tile of kWideT train rows
-// through shared memory kWideD columns at a time (the test chunk
-// transposed, so that each thread reads its own row without bank
-// conflicts), each thread carries kWideT partial dots in registers across
-// the column chunks, one fma chain per dot in column order, and merges the
-// finished tile into its sorted list, which lives in a (k, n) scratch in
-// device memory (entry q of row i at q * n + i, so that a warp's accesses
-// coalesce). Its shared memory, in floats: xs [kWideD][kThreads + 1], ts
-// [kWideT][kWideD], tsq [kWideT].
+// Longer lists take the radix route (its comment below; ops/kernels.py
+// `KNN_LONG_MAX_K` holds the measured hand-over): the
+// same engine writes every distance as a sortable uint32 key to a scratch,
+// and a block a test row selects the k-th key by radix passes, compacts
+// the keys at or below it in index order and sorts them by a stable radix
+// sort, so that a list of any length costs a few passes over its row, not
+// an insertion into a list in device memory per candidate.
 //
 // Arithmetic: full fp32 FMA, no TF32 and no tensor cores (TF32 would move
 // distances far past the tie tolerance the card check allows and flip
@@ -517,7 +514,7 @@ cudaError_t launch_tiled(const CUtensorMap& train_map, const float* x,
   return cudaGetLastError();
 }
 
-// -- long-list kernel (32 < k <= 256) ---------------------------------------
+// -- long-list kernel (32 < k <= 128) ---------------------------------------
 
 constexpr int kLongPad = 4;  // floats after each row's list and buffer
 constexpr int kNoIndex = 0x7fffffff;  // index of an empty list entry
@@ -673,7 +670,7 @@ __device__ __forceinline__ Key long_merge(float* rd, int* ri, float* bd,
   return Key{rd[k - 1], ri[k - 1]};
 }
 
-// knn_long_kernel<KCAP>: 32 < k <= KCAP (64, 128 or 256). The tiled
+// knn_long_kernel<KCAP>: 32 < k <= KCAP (64 or 128). The tiled
 // kernel's engine: blocks of (test tile, train split), train chunks of 32 x
 // 128 by TMA on an mbarrier into a double buffer, the next one in flight
 // while the FMAs run, PM x 8 dots a thread in registers (test rows p of a
@@ -692,7 +689,7 @@ __device__ __forceinline__ Key long_merge(float* rd, int* ri, float* bd,
 // (long_merge), the rest of the row's keys are held against the lowered
 // k-th keys, and appended. So a key costs a few instructions and a merge
 // handles up to CB of them, where inserting keys one at a time into a list
-// of up to 256 cost a pass over the list each. The rows and columns with
+// of up to 128 cost a pass over the list each. The rows and columns with
 // keys are walked in loops, not unrolled, and the merge has one call site
 // in the tile loop: unrolled over every (row, column), the kernel's code
 // outgrew the instruction cache and every phase of the tile loop ran two
@@ -1115,124 +1112,553 @@ const void* long_kernel_of(int kcap) {
   switch (kcap) {
     case 64: return (const void*)knn_long_kernel<64>;
     case 128: return (const void*)knn_long_kernel<128>;
-    case 256: return (const void*)knn_long_kernel<256>;
     default: return nullptr;
   }
 }
 
-// -- wide kernel (k > 256) ------------------------------------------------
+// -- long lists: distance keys, radix select, compaction, sort -----------
+//
+// knn_key_tile_kernel: the tiled kernel's engine (blocks of (test tile,
+// train split), TMA train chunks into a double buffer, 8 x 8 dots a thread,
+// one fma chain per dot in column order, fmaf(-2, dot, tsq)), so its
+// distances have the bits of the other instances; it selects nothing, and
+// writes each finished tile's distances as order-preserving uint32 keys
+// into a (rows, ntp) scratch, a uint4 a thread and row (a half-warp's 16
+// stores are 256 contiguous bytes). -0 is made +0 first, so the two tie as
+// the float compare does.
+//
+// knn_select_kernel: one block of kSelThreads per test row, over its nt
+// keys in the scratch (warp w takes a contiguous segment of them):
+// - a threshold from a sample: kSample keys of the row (kSampleRuns runs
+//   of 32, spread over it; the whole row where it is no longer), and the
+//   key tau of rank sel_sample_rank among them, by the radix select below;
+// - candidates: one pass over the row, each warp writing the keys at or
+//   below tau of its segment, with their indices, to its own region of
+//   cap_w pairs in shared memory, in index order (a ballot places them).
+//   Where at least k keys are candidates and no region overflowed, the k
+//   smallest keys and every key equal to the k-th are among them, so the
+//   steps below run over the candidates; else over the whole row (the
+//   exact route, only slower). cap_w = 0 (set where the regions would not
+//   fit) takes the whole row always;
+// - radix select: four passes of an 8-bit digit, most significant first,
+//   each a histogram of the digit over the keys that share the prefix
+//   chosen so far. Each warp counts its keys into its own row of counters,
+//   32 keys at a time: __match_any_sync groups the batch's equal digits
+//   and the lowest lane of a group adds its size, so no two lanes write one
+//   counter and there are no atomics. The bin that holds the k-th key
+//   extends the prefix. After four passes the prefix is the k-th smallest
+//   key K, and `need` of the keys equal to K belong to the list (the first
+//   ones by train index);
+// - compaction: the keys below K and the first `need` keys equal to K, in
+//   ascending train index (two sweeps of ballots: each warp's counts, then
+//   the places), k (key, index) pairs;
+// - a stable LSD radix sort of the pairs by key, 8 bits a pass, counted
+//   the same way (a pass whose digit is one value for all k is skipped):
+//   equal keys keep ascending index, the order of lax.top_k.
+// The pairs live in shared memory where they fit (the sort's second
+// buffer in the candidates' place), else in a (rows, 4, k) part of the
+// scratch. ops/kernels.py `knn_select_layout` mirrors sel_smem_bytes and
+// sizes cap_w, and `knn_radix_plan` cuts the test rows into chunks whose
+// scratch stays under a fixed cap; knn_topk_radix launches both kernels
+// for each chunk.
+//
+// What bounds it on an H100: the distances' fp32 operations (2 n nt d) and
+// the keys' bytes, written once and read once (4 n nt each way); the
+// selection reads each key once and touches a few candidates a row.
 
-constexpr int kThreads = 128;  // test rows per block, one per thread
+constexpr int kSelWarps = 16;
+constexpr int kSelThreads = 32 * kSelWarps;
+constexpr int kRadixBins = 256;
+// shared ints before the pairs: the warps' counters, then kSelMisc slots
+// (warp sums of the scans, the warps' counts, the chosen bin)
+constexpr int kSelMisc = 64;
+constexpr int kSelHead = kSelWarps * kRadixBins + kSelMisc;
+constexpr int kSampleRuns = 64;
+constexpr int kSample = 32 * kSampleRuns;
 
-constexpr int kWideT = 32;              // train rows per tile, wide kernel
-constexpr int kWideD = 64;              // columns staged at once
-constexpr int kXPitch = kThreads + 1;   // floats per staged test column
-
-constexpr int wide_smem_bytes() {
-  return 4 * (kWideD * kXPitch + kWideT * kWideD + kWideT);
+// The rank in the sample of the candidates' threshold: k where the sample
+// is the row; else twice the sample's share of k, and 32 more, so that
+// about 2 k + 32 nt / kSample keys of the row lie at or below it.
+__host__ __device__ constexpr int sel_sample_rank(int nt, int k) {
+  return nt <= kSample
+             ? k
+             : (2 * (int)(((int64_t)k * kSample + nt - 1) / nt) + 32 <
+                        kSample
+                    ? 2 * (int)(((int64_t)k * kSample + nt - 1) / nt) + 32
+                    : kSample);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    knn_topk_wide_kernel(const float* __restrict__ x,
-                         const float* __restrict__ train,
-                         const float* __restrict__ tsq, int* __restrict__ out,
-                         float* __restrict__ dl, int* __restrict__ il,
-                         int64_t n, int64_t nt, int d, int k) {
-  extern __shared__ __align__(16) float smem[];
+// ints of the region before the first pair buffer: the candidates (two
+// ints a pair, cap_w pairs a warp), the sample, the sort's second buffer
+__host__ __device__ constexpr int64_t sel_region_ints(int k, int cap_w) {
+  return (int64_t)2 * kSelWarps * cap_w > 2 * (int64_t)k
+             ? (int64_t)2 * kSelWarps * cap_w
+             : 2 * (int64_t)k;
+}
+
+// shared memory of a select block: the head, then with candidates their
+// region and one buffer of k (key, index) pairs; without, both buffers
+// where pairs_smem, else none
+__host__ __device__ constexpr int64_t sel_smem_bytes(int k, int cap_w,
+                                                     int pairs_smem) {
+  return 4 * ((int64_t)kSelHead +
+              (cap_w > 0 ? sel_region_ints(k, cap_w) + 2 * (int64_t)k
+                         : (pairs_smem ? 4 * (int64_t)k : 0)));
+}
+
+__device__ __forceinline__ unsigned dist_key(float v) {
+  unsigned u = __float_as_uint(v);
+  if (u == 0x80000000u) u = 0u;  // -0 ties +0
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__global__ void __launch_bounds__(kTileThreads, 2)
+    knn_key_tile_kernel(const __grid_constant__ CUtensorMap train_map,
+                        const float* __restrict__ x,
+                        const float* __restrict__ tsq,
+                        unsigned* __restrict__ keys, int64_t n, int d,
+                        int dpad, int ntp, int splits) {
+  extern __shared__ __align__(128) float smem[];
+  const bool xres = dpad <= kXResMax;
+  const int nchunks = dpad / kDK;
   float* xs = smem;
-  float* ts = xs + kWideD * kXPitch;
-  float* tsq_s = ts + kWideT * kWideD;
-  const float inf = __int_as_float(0x7f800000);
+  float* ts = xs + (xres ? dpad * kTM : 2 * kDK * kTM);
+  float* tsq_s = ts + 2 * kDK * kTN;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(tsq_s + 2 * kTN);
 
-  const int64_t row0 = (int64_t)blockIdx.x * kThreads;
-  const int64_t row = row0 + threadIdx.x;
-  const bool live = row < n;
-  const int xrows = (int)min((int64_t)kThreads, n - row0);
-  if (live) {
-    for (int q = 0; q < k; ++q) {
-      dl[q * n + row] = inf;
-      il[q * n + row] = 0;
+  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
+  const int64_t i0 = (int64_t)blockIdx.x * kTM;
+  const int tiles = ntp / kTN;
+  const int tile0 = (int)((int64_t)blockIdx.y * tiles / splits);
+  const int tile1 = (int)((int64_t)(blockIdx.y + 1) * tiles / splits);
+  const int nsteps = (tile1 - tile0) * nchunks;
+
+  auto issue = [&](int s) {
+    const int tile = tile0 + s / nchunks, c = s - (s / nchunks) * nchunks;
+    const int b = s & 1, j0 = tile * kTN;
+    if (t == 0)
+      tma_chunk(ts + b * kDK * kTN, &train_map, j0, c * kDK, &bars[b]);
+    if (c == 0 && t < kTN / 4)
+      cp_async16(tsq_s + (tile & 1) * kTN + 4 * t, tsq + j0 + 4 * t);
+    if (!xres) {
+      float* xdst = xs + b * kDK * kTM;
+      for (int e = t; e < kDK * kTM; e += kTileThreads) {
+        const int f = e / kTM, i = e - f * kTM, col = c * kDK + f;
+        const bool ok = i0 + i < n && col < d;
+        cp_async4(xdst + e, ok ? x + (i0 + i) * d + col : x, ok ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  if (t == 0) {
+    mbar_init(&bars[0]);
+    mbar_init(&bars[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (nsteps > 0) issue(0);
+  if (xres) {
+    for (int e = t; e < dpad * kTM; e += kTileThreads) {
+      const int f = e / kTM, i = e - f * kTM;
+      xs[e] = (i0 + i < n && f < d) ? x[(i0 + i) * d + f] : 0.f;
     }
   }
-  float kth = inf;  // the k-th smallest distance so far
+  float acc[8][8];
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
 
-  for (int64_t j0 = 0; j0 < nt; j0 += kWideT) {
-    const int rows = (int)min((int64_t)kWideT, nt - j0);
-    float acc[kWideT];
+  for (int s = 0; s < nsteps; ++s) {
+    mbar_wait(&bars[s & 1], (s >> 1) & 1);
+    cp_async_wait_all();
+    __syncthreads();  // step s is in shared memory; step s - 1 is read
+    if (s + 1 < nsteps) issue(s + 1);  // in flight during these FMAs
+    const int c = s % nchunks, b = s & 1;
+    const float* xc = xs + (xres ? c : b) * kDK * kTM;
+    const float* tc = ts + b * kDK * kTN;
 #pragma unroll
-    for (int t = 0; t < kWideT; ++t) acc[t] = 0.f;
-    for (int f0 = 0; f0 < d; f0 += kWideD) {
-      const int fc = min(kWideD, d - f0);
-      __syncthreads();  // every thread is done with the last chunk
-      for (int i = threadIdx.x; i < kThreads * kWideD; i += kThreads) {
-        const int r = i / kWideD, f = i - r * kWideD;
-        xs[f * kXPitch + r] =
-            (r < xrows && f < fc) ? x[(row0 + r) * d + f0 + f] : 0.f;
-      }
-      for (int i = threadIdx.x; i < kWideT * kWideD; i += kThreads) {
-        const int r = i / kWideD, f = i - r * kWideD;
-        ts[i] = (r < rows && f < fc) ? train[(j0 + r) * d + f0 + f] : 0.f;
-      }
-      if (f0 == 0 && threadIdx.x < kWideT)
-        tsq_s[threadIdx.x] = (threadIdx.x < rows) ? tsq[j0 + threadIdx.x] : 0.f;
-      __syncthreads();
-      // zero past fc on both sides: the padded columns add exact zeros
-      for (int q = 0; q < kWideD / 4; ++q) {
-        const float x0 = xs[(4 * q + 0) * kXPitch + threadIdx.x];
-        const float x1 = xs[(4 * q + 1) * kXPitch + threadIdx.x];
-        const float x2 = xs[(4 * q + 2) * kXPitch + threadIdx.x];
-        const float x3 = xs[(4 * q + 3) * kXPitch + threadIdx.x];
+    for (int kk = 0; kk < kDK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(xc + kk * kTM + ty * 4);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(xc + kk * kTM + 64 + ty * 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(tc + kk * kTN + tx * 4);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(tc + kk * kTN + 64 + tx * 4);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-        for (int t = 0; t < kWideT; ++t) {
-          const float4 tv = reinterpret_cast<const float4*>(ts + t * kWideD)[q];
-          acc[t] = fmaf(x0, tv.x, acc[t]);
-          acc[t] = fmaf(x1, tv.y, acc[t]);
-          acc[t] = fmaf(x2, tv.z, acc[t]);
-          acc[t] = fmaf(x3, tv.w, acc[t]);
-        }
+      for (int p = 0; p < 8; ++p)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) acc[p][q] = fmaf(a[p], bb[q], acc[p][q]);
+    }
+    if (c != nchunks - 1) continue;
+    // the tile is done: its keys into the scratch
+    const int tile = tile0 + s / nchunks, j0 = tile * kTN;
+    const float* tq = tsq_s + (tile & 1) * kTN;
+    const float4 q0 = *reinterpret_cast<const float4*>(tq + tx * 4);
+    const float4 q1 = *reinterpret_cast<const float4*>(tq + 64 + tx * 4);
+    const float tn[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      const int64_t row = i0 + (p < 4 ? 0 : 64) + ty * 4 + (p & 3);
+      unsigned u[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        u[q] = dist_key(fmaf(-2.f, acc[p][q], tn[q]));
+        acc[p][q] = 0.f;
+      }
+      if (row < n) {
+        unsigned* dst = keys + row * ntp + j0 + tx * 4;
+        *reinterpret_cast<uint4*>(dst) = make_uint4(u[0], u[1], u[2], u[3]);
+        *reinterpret_cast<uint4*>(dst + 64) =
+            make_uint4(u[4], u[5], u[6], u[7]);
       }
     }
-    if (!live) continue;
-    // the tile's train rows in index order: strict "less than" keeps the
-    // lower index ahead among equal distances
-#pragma unroll
-    for (int t = 0; t < kWideT; ++t) {
-      if (t >= rows) break;
-      const float dist = tsq_s[t] - 2.0f * acc[t];
-      if (dist < kth) {
-        int p = k - 1;
-        while (p > 0) {
-          const float prev = dl[(p - 1) * n + row];
-          if (!(dist < prev)) break;
-          dl[p * n + row] = prev;
-          il[p * n + row] = il[(p - 1) * n + row];
-          --p;
-        }
-        dl[p * n + row] = dist;
-        il[p * n + row] = (int)(j0 + t);
-        kth = dl[(k - 1) * n + row];
-      }
-    }
-  }
-  if (live) {
-    for (int q = 0; q < k; ++q) out[row * k + q] = il[q * n + row];
   }
 }
 
-cudaError_t launch_wide(const float* x, const float* train, const float* tsq,
-                        int* out, float* scratch, int64_t n, int64_t nt,
-                        int d, int k, cudaStream_t stream) {
-  if (scratch == nullptr) return cudaErrorInvalidValue;
-  const int smem = wide_smem_bytes();
+// The exclusive prefix of each thread's v over the select block, and the
+// block's total; every thread of the block calls it (sums: kSelWarps
+// shared ints).
+__device__ __forceinline__ int sel_scan(int v, int& total, int* sums) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += u;
+  }
+  if (lane == 31) sums[warp] = incl;
+  __syncthreads();
+  int before = 0;
+  total = 0;
+#pragma unroll
+  for (int w = 0; w < kSelWarps; ++w) {
+    const int s = sums[w];
+    before += w < warp ? s : 0;
+    total += s;
+  }
+  __syncthreads();  // sums is free for the next call
+  return before + incl - v;
+}
+
+#ifdef KNN_PHASE_CLOCKS
+// block 0 of the last select launch: cycles from its start to the end of
+// the sample's threshold, the candidates, the radix select, the
+// compaction, the sort and the output
+constexpr int kSelPhases = 6;
+__device__ long long knn_select_cycles[kSelPhases];
+#define SEL_CLOCK(q)                                              \
+  do {                                                            \
+    if (blockIdx.x == 0 && threadIdx.x == 0) sel_t_[q] = clock64(); \
+  } while (0)
+#else
+#define SEL_CLOCK(q) \
+  do {               \
+  } while (0)
+#endif
+
+// The warp's counts of the digit (key >> shift) & 255 over its keys wk[0,
+// wn) whose bits under `mask` equal `prefix`, into its own counters h
+// (zeroed here). A batch of 32 with no such key costs a load and a vote.
+__device__ __forceinline__ void count_digits(const unsigned* wk, int wn,
+                                             unsigned prefix, unsigned mask,
+                                             int shift, int* h, int lane) {
+  for (int b = lane; b < kRadixBins; b += 32) h[b] = 0;
+  __syncwarp();
+  for (int base = 0; base < wn; base += 32) {
+    const int j = base + lane;
+    const unsigned key = j < wn ? wk[j] : 0u;
+    const bool in = j < wn && (key & mask) == prefix;
+    if (!__any_sync(kFull, in)) continue;
+    const int dig = in ? (int)((key >> shift) & 255u) : kRadixBins;
+    const unsigned peers = __match_any_sync(kFull, dig);
+    if (in && lane == __ffs(peers) - 1) h[dig] += __popc(peers);
+    __syncwarp();
+  }
+}
+
+// The k-th smallest key over the block's keys (each warp's wk[0, wn)) by
+// four radix passes, and in `need` how many of the keys equal to it lie
+// among the k smallest. Every thread of the block calls it.
+__device__ unsigned radix_kth(const unsigned* wk, int wn, int k, int& need,
+                              int* counters, int* misc, int lane) {
+  int* h = counters + (threadIdx.x >> 5) * kRadixBins;
+  unsigned prefix = 0u, mask = 0u;
+  int want = k;  // the rank, among the keys under the prefix, of the k-th
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    count_digits(wk, wn, prefix, mask, shift, h, lane);
+    __syncthreads();
+    int cnt = 0;
+    if (threadIdx.x < kRadixBins)
+      for (int w = 0; w < kSelWarps; ++w)
+        cnt += counters[w * kRadixBins + threadIdx.x];
+    int total;
+    const int before = sel_scan(cnt, total, misc);
+    if (threadIdx.x < kRadixBins && before < want && want <= before + cnt) {
+      misc[48] = threadIdx.x;
+      misc[49] = before;
+    }
+    __syncthreads();
+    want -= misc[49];
+    prefix |= (unsigned)misc[48] << shift;
+    mask |= 255u << shift;
+    __syncthreads();  // misc and the counters are read
+  }
+  need = want;
+  return prefix;
+}
+
+// The k nearest train rows of test row blockIdx.x of the chunk, from its
+// keys (a row of `keys`, stride ntp) into out[blockIdx.x * k ...].
+__global__ void __launch_bounds__(kSelThreads)
+    knn_select_kernel(const unsigned* __restrict__ keys,
+                      int* __restrict__ out, unsigned* __restrict__ pairs,
+                      int nt, int ntp, int k, int cap_w, int pairs_smem) {
+  extern __shared__ __align__(16) int sel_smem[];
+  int* misc = sel_smem + kSelWarps * kRadixBins;
+  unsigned* region = reinterpret_cast<unsigned*>(sel_smem + kSelHead);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned lt = (1u << lane) - 1u;
+  int* h = sel_smem + warp * kRadixBins;
+  const int64_t r = blockIdx.x;
+  const unsigned* row = keys + r * ntp;
+#ifdef KNN_PHASE_CLOCKS
+  long long sel_t_[kSelPhases + 1];
+#endif
+  SEL_CLOCK(0);
+  // warp w's segment of the row: whole batches of 32, in index order
+  const int seg = (nt + 32 * kSelWarps - 1) / (32 * kSelWarps) * 32;
+  const int lo = min(nt, warp * seg), hi = min(nt, lo + seg);
+  // the keys the warp selects over: its segment, or its candidates
+  const unsigned* wk = row + lo;
+  const unsigned* wi = nullptr;  // their indices; lo + position if null
+  int wn = hi - lo;
+
+  // the pairs' two buffers
+  unsigned *ak, *ai, *bk, *bi;
+  if (cap_w > 0) {
+    bk = region;
+    bi = bk + k;
+    ak = region + sel_region_ints(k, cap_w);
+    ai = ak + k;
+  } else if (pairs_smem) {
+    ak = region;
+    ai = ak + k;
+    bk = ai + k;
+    bi = bk + k;
+  } else {
+    ak = pairs + r * 4 * (int64_t)k;
+    ai = ak + k;
+    bk = ai + k;
+    bi = bk + k;
+  }
+
+  if (cap_w > 0) {
+    // the sample and its threshold
+    const int ns = nt < kSample ? nt : kSample;
+    unsigned* sample = region;
+    for (int e = threadIdx.x; e < ns; e += kSelThreads) {
+      const int64_t j =
+          nt <= kSample ? e
+                        : (int64_t)(e >> 5) * (nt - 32) / (kSampleRuns - 1) +
+                              (e & 31);
+      sample[e] = __ldg(row + j);
+    }
+    __syncthreads();
+    const int sseg = (ns + 32 * kSelWarps - 1) / (32 * kSelWarps) * 32;
+    const int slo = min(ns, warp * sseg), shi = min(ns, slo + sseg);
+    int sneed;
+    const unsigned tau = radix_kth(sample + slo, shi - slo,
+                                   sel_sample_rank(nt, k), sneed, sel_smem,
+                                   misc, lane);
+    SEL_CLOCK(1);
+    // the candidates: the keys at or below tau, four batches a step
+    unsigned* ck = region + 2 * warp * cap_w;
+    unsigned* ci = ck + cap_w;
+    int c = 0;
+    for (int base = lo; base < hi; base += 128) {
+      unsigned kv[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int j = base + 32 * u + lane;
+        kv[u] = j < hi ? __ldg(row + j) : 0xffffffffu;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int j = base + 32 * u + lane;
+        const bool in = j < hi && kv[u] <= tau;
+        const unsigned m = __ballot_sync(kFull, in);
+        const int pos = c + __popc(m & lt);
+        if (in && pos < cap_w) {
+          ck[pos] = kv[u];
+          ci[pos] = (unsigned)j;
+        }
+        c += __popc(m);
+      }
+    }
+    if (lane == 0) misc[16 + warp] = c;
+    __syncthreads();
+    int total = 0;
+    bool over = false;
+    for (int w = 0; w < kSelWarps; ++w) {
+      total += misc[16 + w];
+      over |= misc[16 + w] > cap_w;
+    }
+    if (total >= k && !over) {
+      wk = ck;
+      wi = ci;
+      wn = c;
+    }
+    __syncthreads();  // the counts are read
+  } else {
+    SEL_CLOCK(1);
+  }
+  SEL_CLOCK(2);
+
+  int need;
+  const unsigned kth = radix_kth(wk, wn, k, need, sel_smem, misc, lane);
+  SEL_CLOCK(3);
+
+  // compaction: each warp's counts below and at kth, then the places
+  {
+    int nb = 0, ne = 0;
+    for (int base = 0; base < wn; base += 32) {
+      const int p = base + lane;
+      const unsigned key = p < wn ? wk[p] : 0xffffffffu;
+      nb += __popc(__ballot_sync(kFull, p < wn && key < kth));
+      ne += __popc(__ballot_sync(kFull, p < wn && key == kth));
+    }
+    if (lane == 0) {
+      misc[16 + warp] = nb;
+      misc[32 + warp] = ne;
+    }
+    __syncthreads();
+    int pb = 0, pe = 0;
+    for (int w = 0; w < warp; ++w) {
+      pb += misc[16 + w];
+      pe += misc[32 + w];
+    }
+    for (int base = 0; base < wn; base += 32) {
+      const int p = base + lane;
+      const unsigned key = p < wn ? wk[p] : 0xffffffffu;
+      const bool below = p < wn && key < kth, at = p < wn && key == kth;
+      const unsigned mb = __ballot_sync(kFull, below);
+      const unsigned me = __ballot_sync(kFull, at);
+      const int eb = pb + __popc(mb & lt), ee = pe + __popc(me & lt);
+      if (below || (at && ee < need)) {
+        const int pos = eb + min(ee, need);
+        ak[pos] = key;
+        ai[pos] = wi ? wi[p] : (unsigned)(lo + p);
+      }
+      pb += __popc(mb);
+      pe += __popc(me);
+    }
+    __syncthreads();  // the pairs are written; the candidates are read
+  }
+  SEL_CLOCK(4);
+
+  // stable LSD radix sort of the k pairs by key
+  const int seg2 = (k + 32 * kSelWarps - 1) / (32 * kSelWarps) * 32;
+  const int lo2 = min(k, warp * seg2), hi2 = min(k, lo2 + seg2);
+  constexpr int kPer = kSelWarps * kRadixBins / kSelThreads;
+  for (int shift = 0; shift < 32; shift += 8) {
+    count_digits(ak + lo2, hi2 - lo2, 0u, 0u, shift, h, lane);
+    if (threadIdx.x == 0) misc[50] = 0;
+    __syncthreads();
+    if (threadIdx.x < kRadixBins) {
+      int tot = 0;
+      for (int w = 0; w < kSelWarps; ++w)
+        tot += sel_smem[w * kRadixBins + threadIdx.x];
+      if (tot == k) misc[50] = 1;  // one digit for all: nothing moves
+    }
+    // each digit's first place for each warp, in (digit, warp) order:
+    // thread t takes entries [t * kPer, (t + 1) * kPer), entry e being
+    // digit e / kSelWarps of warp e % kSelWarps
+    int v[kPer], sum = 0;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int e = threadIdx.x * kPer + i;
+      v[i] = sel_smem[(e % kSelWarps) * kRadixBins + e / kSelWarps];
+      sum += v[i];
+    }
+    int total;
+    int at = sel_scan(sum, total, misc);  // its barriers order the reads
+    const bool skip = misc[50] != 0;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int e = threadIdx.x * kPer + i;
+      sel_smem[(e % kSelWarps) * kRadixBins + e / kSelWarps] = at;
+      at += v[i];
+    }
+    __syncthreads();
+    if (skip) continue;  // the same in every thread
+    for (int base = lo2; base < hi2; base += 32) {
+      const int j = base + lane;
+      const bool in = j < hi2;
+      const unsigned key = in ? ak[j] : 0u;
+      const int dig = in ? (int)((key >> shift) & 255u) : kRadixBins;
+      const unsigned peers = __match_any_sync(kFull, dig);
+      if (in) {
+        const int pos = h[dig] + __popc(peers & lt);
+        bk[pos] = key;
+        bi[pos] = ai[j];
+      }
+      __syncwarp();
+      if (in && lane == __ffs(peers) - 1) h[dig] += __popc(peers);
+      __syncwarp();
+    }
+    __syncthreads();
+    unsigned* tk = ak;
+    unsigned* ti = ai;
+    ak = bk;
+    ai = bi;
+    bk = tk;
+    bi = ti;
+  }
+  SEL_CLOCK(5);
+  for (int j = threadIdx.x; j < k; j += kSelThreads)
+    out[r * k + j] = (int)ai[j];
+  __syncthreads();
+  SEL_CLOCK(6);
+#ifdef KNN_PHASE_CLOCKS
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    for (int q = 0; q < kSelPhases; ++q)
+      knn_select_cycles[q] = sel_t_[q + 1] - sel_t_[q];
+#endif
+}
+
+cudaError_t launch_radix(const CUtensorMap& train_map, const float* x,
+                         const float* tsq, int* out, unsigned* scratch,
+                         int64_t n, int d, int dpad, int ntp, int nt, int k,
+                         int splits, int64_t chunk_rows, int cap_w,
+                         int pairs_smem, cudaStream_t stream) {
+  const int tile_smem = (int)tile_smem_bytes(dpad);
+  const int sel_smem = (int)sel_smem_bytes(k, cap_w, pairs_smem);
   cudaError_t e = cudaFuncSetAttribute(
-      knn_topk_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      knn_key_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tile_smem);
   if (e != cudaSuccess) return e;
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  knn_topk_wide_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
-      x, train, tsq, out, scratch, reinterpret_cast<int*>(scratch + k * n),
-      n, nt, d, k);
-  return cudaGetLastError();
+  e = cudaFuncSetAttribute(knn_select_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           sel_smem);
+  if (e != cudaSuccess) return e;
+  unsigned* pairs = pairs_smem ? nullptr : scratch + chunk_rows * ntp;
+  for (int64_t r0 = 0; r0 < n; r0 += chunk_rows) {
+    const int64_t rows = n - r0 < chunk_rows ? n - r0 : chunk_rows;
+    const dim3 grid((unsigned)((rows + kTM - 1) / kTM), (unsigned)splits);
+    knn_key_tile_kernel<<<grid, kTileThreads, tile_smem, stream>>>(
+        train_map, x + r0 * d, tsq, scratch, rows, d, dpad, ntp, splits);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+#ifndef KNN_NO_SELECTION  // the keys alone (scripts/port_knn_phases.py)
+    knn_select_kernel<<<(unsigned)rows, kSelThreads, sel_smem, stream>>>(
+        scratch, out + r0 * k, pairs, nt, ntp, k, cap_w, pairs_smem);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+#endif
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -1306,7 +1732,7 @@ int knn_long_blocks_per_sm(int kcap, int dpad, int* out) {
 }
 
 // The (n, k) int32 indices of the k nearest train rows of each test row,
-// 1 <= k <= kcap (64, 128 or 256), through the long-list kernel: trainT,
+// 1 <= k <= kcap (64 or 128), through the long-list kernel: trainT,
 // tsq and the splits as for knn_topk_tiled, nt the real train rows (k <=
 // nt <= ntp), with a scratch of 2 splits n k floats when splits > 1.
 int knn_topk_long(const float* x, const float* trainT, const float* tsq,
@@ -1325,31 +1751,58 @@ int knn_topk_long(const float* x, const float* trainT, const float* tsq,
   const cudaError_t e = encode_tile_map(&map, trainT, dpad, ntp);
   if (e != cudaSuccess) return (int)e;
   const int64_t rows = (int64_t)n;
-  switch (kcap) {
-    case 64:
-      return (int)launch_long<64>(map, x, tsq, out, scratch, rows, d, dpad,
-                                  ntp, nt, k, splits, s);
-    case 128:
-      return (int)launch_long<128>(map, x, tsq, out, scratch, rows, d, dpad,
-                                   ntp, nt, k, splits, s);
-    default:
-      return (int)launch_long<256>(map, x, tsq, out, scratch, rows, d, dpad,
-                                   ntp, nt, k, splits, s);
-  }
+  if (kcap == 64)
+    return (int)launch_long<64>(map, x, tsq, out, scratch, rows, d, dpad,
+                                ntp, nt, k, splits, s);
+  return (int)launch_long<128>(map, x, tsq, out, scratch, rows, d, dpad, ntp,
+                               nt, k, splits, s);
 }
 
-// The same for any k <= nt through the wide instance, with a scratch of
-// 2 k n floats.
-int knn_topk_wide(const float* x, const float* train, const float* tsq,
-                  int* out, float* scratch, long long n, long long nt, int d,
-                  int k, void* stream) {
-  if (n < 1 || nt < 1 || nt > 0x7fffffffLL || d < 1 || k < 1 || k > nt)
+// Shared memory of a select block (knn_select_kernel) for lists of k, with
+// candidate regions of cap_w pairs a warp (0: none), the pairs in shared
+// memory or not.
+long long knn_select_smem_bytes(int k, int cap_w, int pairs_smem) {
+  return sel_smem_bytes(k, cap_w, pairs_smem);
+}
+
+// The rank in the sample of the select block's threshold.
+int knn_sample_rank(int nt, int k) { return sel_sample_rank(nt, k); }
+
+// The (n, k) int32 indices of the k nearest train rows of each test row,
+// any 1 <= k <= nt, through the radix route: trainT and tsq as for
+// knn_topk_tiled, nt the real train rows; for each chunk of chunk_rows
+// test rows, knn_key_tile_kernel (train tiles in `splits` ranges) writes
+// the chunk's keys to scratch ((chunk_rows, ntp) uint32, then, unless
+// pairs_smem, (chunk_rows, 4, k) uint32 of pairs) and knn_select_kernel
+// turns each row's keys into its list (cap_w: the candidates a warp's
+// region holds; 0, none).
+int knn_topk_radix(const float* x, const float* trainT, const float* tsq,
+                   int* out, void* scratch, long long n, int d, int dpad,
+                   int ntp, int nt, int k, int splits, long long chunk_rows,
+                   int cap_w, int pairs_smem, void* stream) {
+  if (n < 1 || d < 1 || dpad < d || dpad % kDK != 0 || ntp < kTN ||
+      ntp % kTN != 0 || nt < 1 || nt > ntp || k < 1 || k > nt ||
+      splits < 1 || splits > 65535 || splits > ntp / kTN ||
+      chunk_rows < 1 || chunk_rows > 0x7fffffffLL || scratch == nullptr ||
+      cap_w < 0 || (cap_w > 0 && 2 * kSelWarps * cap_w < kSample) ||
+      sel_smem_bytes(k, cap_w, pairs_smem) > kSmemBlockMax)
     return (int)cudaErrorInvalidValue;
-  return (int)launch_wide(x, train, tsq, out, scratch, (int64_t)n,
-                          (int64_t)nt, d, k, (cudaStream_t)stream);
+  CUtensorMap map;
+  const cudaError_t e = encode_tile_map(&map, trainT, dpad, ntp);
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_radix(map, x, tsq, out,
+                           reinterpret_cast<unsigned*>(scratch), (int64_t)n,
+                           d, dpad, ntp, nt, k, splits, (int64_t)chunk_rows,
+                           cap_w, pairs_smem != 0, (cudaStream_t)stream);
 }
 
 #ifdef KNN_PHASE_CLOCKS
+// Block 0's knn_select_cycles of the last select launch, into host memory.
+int knn_select_cycles_read(long long* host) {
+  return (int)cudaMemcpyFromSymbol(host, knn_select_cycles,
+                                   sizeof(knn_select_cycles));
+}
+
 // Block (0, 0)'s knn_phase_cycles of the last launch, into host memory.
 int knn_phase_cycles_read(long long* host) {
   return (int)cudaMemcpyFromSymbol(host, knn_phase_cycles,

@@ -1,14 +1,17 @@
 // The register-blocked fp32 tile engine's building blocks, shared by
-// knn_kernels.cu (knn_tile_kernel, knn_long_kernel) and kmeans_kernels.cu
-// (assign_tile_kernel, lloyd_label_kernel): the tile shape, the shared
-// memory of a block, cp.async and TMA copies counted by mbarriers, and the
-// TMA descriptor of a transposed, zero-padded (dpad, ntp) operand.
+// knn_kernels.cu (knn_tile_kernel, knn_long_kernel, knn_key_tile_kernel)
+// and kmeans_kernels.cu (assign_tile_kernel, lloyd_label_kernel): the tile
+// shape, the shared memory of a KNN block, cp.async and TMA copies counted
+// by mbarriers, and the TMA descriptors of a transposed, zero-padded (dpad,
+// ntp) operand and of x's rows (the labels' swizzled boxes).
 //
 // A block of kTileThreads threads owns kTM rows of x and walks tiles of kTN
 // rows of the other operand (train rows, or centroids), kDK columns a step:
 // the operand's (kDK, kTN) box of a step comes by one TMA copy into a
 // double buffer, the x rows by cp.async beside it where they do not stay
-// resident (dpad > kXResMax). ops/_build.py hashes this header into the
+// resident (dpad > kXResMax); the KMeans label body keeps the micro-tile
+// but runs its own ring of stages (kmeans_kernels.cu). ops/_build.py
+// hashes this header into the
 // name of every library built from a source of csrc/, so an edited header
 // builds them anew.
 
@@ -54,8 +57,34 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
 // The train chunks come by TMA: thread 0 arms an mbarrier with the bytes
 // it expects and issues one 2D tensor copy, which completes them; every
 // thread waits on the barrier's phase.
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// One arrival that also expects `bytes` of copies to complete on the
+// barrier.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// The thread's cp.async copies issued so far arrive on the barrier when
+// they complete, as one of its expected arrivals.
+__device__ __forceinline__ void cp_async_mbar_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
                    smem_addr(bar))
                : "memory");
 }
@@ -74,21 +103,24 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
       : "memory");
 }
 
+// The box of the 2D tensor `map` describes at (inner coordinate c0, outer
+// c1) -> dst, completing its bytes on the barrier.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
 // rows [row, row + kDK) and columns [col, col + kTN) of the (dpad, ntp)
 // tensor `map` describes -> dst, [kDK][kTN]
 __device__ __forceinline__ void tma_chunk(float* dst, const CUtensorMap* map,
                                           int col, int row, uint64_t* bar) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(4 * kDK * kTN)
-      : "memory");
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row),
-      "r"(smem_addr(bar))
-      : "memory");
+  mbar_arrive_expect_tx(bar, 4 * kDK * kTN);
+  tma_load_2d(dst, map, col, row, bar);
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -99,8 +131,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
-// The (dpad, ntp) transposed operand (train set or centroids) as a TMA
-// tensor, read in boxes of kDK rows by kTN columns. cuTensorMapEncodeTiled comes from the driver
+// 2D float32 TMA tensors. cuTensorMapEncodeTiled comes from the driver
 // through the runtime, so the library links no libcuda.
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
@@ -109,8 +140,9 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
 
-cudaError_t encode_tile_map(CUtensorMap* map, const float* opT, int dpad,
-                            int ntp) {
+cudaError_t encode_2d(CUtensorMap* map, const float* base, uint64_t inner,
+                      uint64_t outer, uint32_t box_inner, uint32_t box_outer,
+                      CUtensorMapSwizzle swizzle) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -127,17 +159,36 @@ cudaError_t encode_tile_map(CUtensorMap* map, const float* opT, int dpad,
       return cudaErrorNotSupported;
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
-  const cuuint64_t dims[2] = {(cuuint64_t)ntp, (cuuint64_t)dpad};
-  const cuuint64_t strides[1] = {(cuuint64_t)ntp * sizeof(float)};
-  const cuuint32_t box[2] = {kTN, kDK};
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * sizeof(float)};
+  const cuuint32_t box[2] = {box_inner, box_outer};
   const cuuint32_t elems[2] = {1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
-                const_cast<float*>(opT), dims, strides, box, elems,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                const_cast<float*>(base), dims, strides, box, elems,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
              ? cudaSuccess
              : cudaErrorInvalidValue;
+}
+
+// The (dpad, ntp) transposed operand, in boxes of kDK rows by box_cols
+// columns (kTN unless given).
+cudaError_t encode_tile_map(CUtensorMap* map, const float* opT, int dpad,
+                            int ntp, int box_cols = kTN) {
+  return encode_2d(map, opT, (uint64_t)ntp, (uint64_t)dpad,
+                   (uint32_t)box_cols, kDK, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+// The (n, d) rows of x, in boxes of kTM rows by kDK columns (128 bytes a
+// row) with the 128-byte swizzle: 16-byte chunk c of box row r lands at
+// chunk c ^ (r & 7) of the row, in a box 1024-byte aligned; zeros past n
+// and d. TMA takes a row stride that is a multiple of 16 bytes only: d % 4
+// == 0, x 16-byte aligned.
+cudaError_t encode_rows_map(CUtensorMap* map, const float* x, int64_t n,
+                            int d) {
+  return encode_2d(map, x, (uint64_t)d, (uint64_t)n, kDK, kTM,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace

@@ -31,8 +31,12 @@ at first use, one library per source:
   only the segment tiles a chunk meets, then a fixed-order combine of them
   (:func:`segment_plan_plain` mirrors the plan).
 - :func:`knn_topk_indices` (``csrc/knn_kernels.cu``): the k nearest train
-  rows of every test row, fused distance and top-k over the streamed train
-  set, ties to the lowest index.
+  rows of every test row, ties to the lowest index: fused distance and
+  top-k over the streamed train set up to k = 80; past it the radix route
+  (distance keys written by the tile engine, then per test row a radix
+  select, a compaction and a stable radix sort; its stages' plain twins
+  are :func:`knn_distance_keys_plain`, :func:`knn_radix_select_plain`,
+  :func:`knn_compact_plain` and :func:`knn_radix_sort_plain`).
 
 No kernel uses atomics, so a call gives the same bits every time.
 
@@ -118,7 +122,8 @@ KERNEL_SYMBOLS = {
     "knn_merge_kernel": "knn_topk_indices",
     "knn_long_kernel": "knn_topk_indices",
     "knn_long_merge_kernel": "knn_topk_indices",
-    "knn_topk_wide_kernel": "knn_topk_indices",
+    "knn_key_tile_kernel": "knn_topk_indices",
+    "knn_select_kernel": "knn_topk_indices",
 }
 
 #: kernel launches by wrapper since the last :func:`reset_launch_counts`
@@ -192,13 +197,14 @@ _KG = 16
 FUSED_TILE_ROWS = 128
 #: most k·d the fused kernels take: their thread scores its row against
 #: every centroid from shared memory, 16 FMAs for each 5 loads, where a
-#: tiled thread does 64 for 4 but pads k to 128 and d to 32. At 1,000,000
-#: rows on an H100 (chip_smoke.py phase 2's hand-over lines, PERF.md) the
-#: fused kernels were faster up to k·d = 10,240 (d = 100 with k up to 64,
-#: d = 160 and k = 64, d = 256 and 300 with k = 32, d = 375 with k = 10)
-#: and the tiled ones from 16,384 (d = 256, k = 64) and 30,000 (d = 100,
-#: k = 300); between, at k·d = 8,000-10,000 the two were within 15%
-FUSED_MAX_KD = 10_240
+#: tiled thread does 64 (32 with the 64-centroid tile) for 4 but pads k
+#: to 64 or 128 and d to 32. At 1,000,000 rows on an H100 (chip_smoke.py
+#: phase 2's hand-over lines, PERF.md) the fused kernels were faster at
+#: every timed k·d up to 6,400 (d = 100 with k up to 64, d = 375 with
+#: k = 10); from 8,000 the tiled Lloyd was faster at all six timed shapes
+#: and the tiled assign at four of six (the fused one by 7% at d = 16,
+#: k = 500 and 13% at d = 128, k = 64)
+FUSED_MAX_KD = 6_400
 #: bits of a fused Lloyd block's offsets into its accumulator and x tile
 #: (``kOffBits``)
 FUSED_OFF_BITS = 16
@@ -207,6 +213,9 @@ FUSED_OFF_BITS = 16
 TILE_ROWS, TILE_CENTROIDS, TILE_COLS = 128, 128, 32
 #: widest padded row whose x tile stays in shared memory (``kXResMax``)
 TILE_X_RESIDENT = 128
+#: centroids of the label body's small tile, which k <= 64 takes (its other
+#: instance scores TILE_CENTROIDS a tile)
+TILE_CENTROIDS_SMALL = 64
 #: warps of a label-sort block (``kSortWarps``); a chunk of rows is a
 #: multiple of their 32-row batches, and at least the larger of
 #: SORT_MIN_CHUNK_ROWS and k (so the offsets hold at most n + k ints)
@@ -250,14 +259,27 @@ def _fused_layout(k: int, d: int,
     return None
 
 
-def tile_smem_bytes(dpad: int) -> int:
-    """Shared memory of a tiled block at padded width ``dpad``
-    (``tile_smem_bytes`` of ``tile_engine.cuh``): the x tile (resident up
-    to :data:`TILE_X_RESIDENT` columns, else two streamed steps), two
-    steps of centroids and two tiles of norms, two mbarriers."""
-    xs = (dpad * TILE_ROWS if dpad <= TILE_X_RESIDENT
-          else 2 * TILE_COLS * TILE_ROWS)
-    return 4 * (xs + 2 * TILE_COLS * TILE_CENTROIDS + 2 * TILE_CENTROIDS) + 16
+def label_stages(tn: int) -> int:
+    """Stages of the label body's ring of copies (``label_stages`` of
+    ``kmeans_kernels.cu``): four with 64-centroid tiles, three with 128,
+    so that two blocks share an SM."""
+    return 4 if tn == TILE_CENTROIDS_SMALL else 3
+
+
+def label_smem_bytes(tn: int, dpad: int) -> int:
+    """Shared memory of a tiled label block whose tiles hold ``tn``
+    centroids, at padded width ``dpad`` (``label_smem_bytes`` of
+    ``kmeans_kernels.cu``): up to :data:`TILE_X_RESIDENT` columns the x
+    tile stays resident beside the ring's centroid boxes of TILE_COLS × tn
+    (128 bytes to align); wider rows stream a TILE_ROWS × TILE_COLS x box
+    in each stage too (1 KB to align the first for the copy's swizzle);
+    two mbarriers a stage."""
+    stages = label_stages(tn)
+    if dpad <= TILE_X_RESIDENT:
+        return (128 + 4 * (dpad * TILE_ROWS + stages * TILE_COLS * tn)
+                + 16 * stages)
+    return (1024 + 4 * stages * (TILE_ROWS * TILE_COLS + TILE_COLS * tn)
+            + 16 * stages)
 
 
 class KMeansPlan(NamedTuple):
@@ -266,7 +288,7 @@ class KMeansPlan(NamedTuple):
     ``lloyd_partials_kernel`` with a ``rows``-row tile and ``kchunk``
     centroids staged at once in ``smem`` bytes. ``route`` "tiled": the
     labels by the tile engine over the centroids transposed and padded to
-    (``dpad``, ``kp``), in ``smem`` bytes at most a block; for Lloyd then
+    (``dpad``, ``kp``; kp = 64 takes the 64-centroid tile), in ``smem`` bytes at most a block; for Lloyd then
     the stable counting sort of the rows by label over ``nchunks`` chunks
     of ``chunk_rows`` rows and label tiles of ``label_tile``, the
     exclusive scan of its ``k · nchunks`` offsets by ``scan_blocks`` blocks
@@ -314,10 +336,15 @@ def kmeans_plan(n: int, k: int, d: int, lloyd: bool) -> KMeansPlan:
 def tiled_plan(n: int, k: int, d: int, lloyd: bool) -> KMeansPlan:
     """The tiled route's launch at any shape (:func:`kmeans_plan` past the
     fused tile; the card check also runs it where the fused one fits, to
-    time the hand-over)."""
+    time the hand-over). Up to :data:`TILE_CENTROIDS_SMALL` centroids take
+    the label body's 64-centroid tile (kp = 64), so small k pads no
+    centroid to 128; more pad to a multiple of 128."""
     dpad = -(-d // TILE_COLS) * TILE_COLS
-    kp = -(-k // TILE_CENTROIDS) * TILE_CENTROIDS
-    smem = tile_smem_bytes(dpad)
+    if k <= TILE_CENTROIDS_SMALL:
+        kp = TILE_CENTROIDS_SMALL
+    else:
+        kp = -(-k // TILE_CENTROIDS) * TILE_CENTROIDS
+    smem = label_smem_bytes(min(kp, TILE_CENTROIDS), dpad)
     if not lloyd:
         return KMeansPlan("tiled", smem=smem, dpad=dpad, kp=kp)
     batch = 32 * SORT_WARPS
@@ -639,13 +666,30 @@ KNN_CHUNK_COLS = 32
 #: longer lists take the long-list instances
 KNN_KCAPS = (16, 32)
 #: list capacities of the long-list instances (``knn_long_kernel<KCAP>``,
-#: lists in shared memory); longer lists take the wide instance
-KNN_LONG_KCAPS = (64, 128, 256)
+#: lists in shared memory), and the longest list they take: past it the
+#: radix route was faster on the 16,384 × 50,000 × 32 block of an H100
+#: (``chip_smoke.py`` phase 6's hand-over lines: the two tie at k = 80, the
+#: radix route 4.22 against 4.46 ms at k = 96), and at 1,000 and 4,096 test
+#: rows from k = 64
+KNN_LONG_KCAPS = (64, 128)
+KNN_LONG_MAX_K = 80
+#: the radix route's scratch of one chunk of test rows (their keys, and
+#: their pairs where those leave shared memory) stays under this many
+#: bytes; the test rows are cut into chunks to keep it so
+KNN_KEY_CAP_BYTES = 1 << 30
+#: train tiles a distance-key block walks (its grid's train ranges)
+KNN_KEY_TILES_PER_BLOCK = 8
+#: warps of a select block, bins of its radix digit, and the ints of its
+#: shared head (``kSelWarps``, ``kRadixBins``, ``kSelHead``)
+KNN_SELECT_WARPS, KNN_RADIX_BINS = 16, 256
+KNN_SELECT_HEAD = KNN_SELECT_WARPS * KNN_RADIX_BINS + 64
+#: keys of a select block's sample (``kSample``: 64 runs of 32)
+KNN_SAMPLE = 2048
 
 
 def knn_test_rows(kcap: int) -> int:
     """Test rows of a tiled or long-list KNN block (``long_tile_rows``):
-    :data:`KNN_TILE_ROWS`, but 64 for lists of 128 and 256 entries, whose
+    :data:`KNN_TILE_ROWS`, but 64 for lists of 128 entries, whose
     128 rows' lists and buffers would not fit a block's shared memory."""
     return KNN_TILE_ROWS if kcap <= 64 else KNN_TILE_ROWS // 2
 
@@ -654,12 +698,17 @@ class KnnPlan(NamedTuple):
     """How :func:`knn_topk_indices` launches: ``route`` "tiled"
     (``knn_tile_kernel<kcap>``, then ``knn_merge_kernel`` when ``splits``
     > 1; k ≤ 32), "long" (``knn_long_kernel<kcap>``, then
-    ``knn_long_merge_kernel`` when ``splits`` > 1; 32 < k ≤ 256) or "wide"
-    (``knn_topk_wide_kernel``, k > 256); the train set transposed to
+    ``knn_long_merge_kernel`` when ``splits`` > 1; 32 < k ≤ 80) or
+    "radix" (k > 80: ``knn_key_tile_kernel`` over ``splits`` train
+    ranges, then ``knn_select_kernel``, for each chunk of ``chunk_rows``
+    test rows, with candidate regions of ``cap_w`` pairs a warp (0: the
+    whole row) and the pairs in shared memory where ``pairs_smem``); the
+    train set transposed to
     (``dpad``, ``ntp``), ``tiles`` train tiles cut into ``splits``
     contiguous ranges; the scratch the wrapper allocates, in bytes. The
-    kernel sizes its own shared memory (``knn_tile_smem_bytes`` and
-    ``knn_long_smem_bytes`` of ``knn_kernels.cu``)."""
+    kernels size their own shared memory (``knn_tile_smem_bytes``,
+    ``knn_long_smem_bytes`` and ``knn_select_smem_bytes`` of
+    ``knn_kernels.cu``; :func:`knn_select_layout` mirrors the last)."""
     route: str
     kcap: int
     dpad: int
@@ -667,6 +716,9 @@ class KnnPlan(NamedTuple):
     tiles: int
     splits: int
     scratch_bytes: int
+    chunk_rows: int = 0
+    cap_w: int = 0
+    pairs_smem: int = 0
 
 
 def _knn_splits(test_tiles: int, tiles: int, resident: int) -> int:
@@ -682,6 +734,77 @@ def _knn_splits(test_tiles: int, tiles: int, resident: int) -> int:
                key=lambda s: (-(-test_tiles * s // resident) / s, s))
 
 
+def knn_sample_rank(nt: int, k: int) -> int:
+    """The rank in a select block's sample of its candidates' threshold
+    (``sel_sample_rank``): k where the sample is the whole row, else twice
+    the sample's share of k and 32 more, so that about 2k + 32·nt /
+    KNN_SAMPLE keys of the row lie at or below it."""
+    if nt <= KNN_SAMPLE:
+        return k
+    return min(KNN_SAMPLE, 2 * -(-k * KNN_SAMPLE // nt) + 32)
+
+
+def knn_candidate_cap(nt: int, k: int) -> int:
+    """Pairs a select block's warp keeps of its candidates: twice the
+    expected share of a warp, and 64 more, in whole batches of 32, but no
+    more than the warp's segment of the row (which then cannot overflow)
+    and no fewer than 64 (the regions hold the sample)."""
+    ns = min(nt, KNN_SAMPLE)
+    expect = -(-knn_sample_rank(nt, k) * nt // ns)
+    per_warp = -(-expect // KNN_SELECT_WARPS)
+    seg = -(-nt // (32 * KNN_SELECT_WARPS)) * 32
+    cap = min(seg, -(-(2 * per_warp + 64) // 32) * 32)
+    return max(KNN_SAMPLE // (2 * KNN_SELECT_WARPS), cap)
+
+
+def knn_select_smem_bytes(k: int, cap_w: int, pairs: int) -> int:
+    """Shared memory of a select block (``sel_smem_bytes`` of
+    ``knn_kernels.cu``): its head of counters, then with candidate regions
+    of ``cap_w`` pairs a warp those (at least 2k ints: the sort's second
+    buffer takes their place) and one buffer of k (key, index) pairs;
+    without, both buffers where ``pairs``, else none."""
+    if cap_w:
+        return 4 * (KNN_SELECT_HEAD
+                    + max(2 * KNN_SELECT_WARPS * cap_w, 2 * k) + 2 * k)
+    return 4 * (KNN_SELECT_HEAD + (4 * k if pairs else 0))
+
+
+def knn_select_layout(nt: int, k: int) -> Tuple[int, int, int]:
+    """``(cap_w, pairs_smem, smem_bytes)`` of a select block: candidate
+    regions (:func:`knn_candidate_cap`) and the pairs in shared memory
+    where they fit a block; else the pairs alone there, the selection
+    running over the whole row; else neither."""
+    for cap_w, pairs in ((knn_candidate_cap(nt, k), 1), (0, 1), (0, 0)):
+        smem = knn_select_smem_bytes(k, cap_w, pairs)
+        if smem <= SMEM_BLOCK_BYTES:
+            return cap_w, pairs, smem
+    raise AssertionError("the select block's head always fits")
+
+
+def knn_radix_plan(n: int, nt: int, d: int, k: int,
+                   cap: int = KNN_KEY_CAP_BYTES) -> KnnPlan:
+    """The radix route's launch at any k ≤ nt (:func:`_knn_plan` past
+    :data:`KNN_LONG_MAX_K`; the card check also runs it below, to time the
+    hand-over, and under a small ``cap``, to run several chunks): the test
+    rows go in chunks whose scratch (4·ntp bytes of keys a row, and 16·k of
+    pairs where those do not fit the select block's shared memory) stays
+    under ``cap`` bytes (a multiple of 128 rows where the cap allows more
+    than one tile, at least one row), the key blocks walking
+    :data:`KNN_KEY_TILES_PER_BLOCK` train tiles each."""
+    dpad = -(-d // KNN_CHUNK_COLS) * KNN_CHUNK_COLS
+    tiles = -(-nt // KNN_TILE_ROWS)
+    ntp = tiles * KNN_TILE_ROWS
+    cap_w, pairs, _ = knn_select_layout(nt, k)
+    per_row = 4 * ntp + (0 if pairs else 16 * k)
+    chunk = max(1, cap // per_row)
+    if chunk >= KNN_TILE_ROWS:
+        chunk -= chunk % KNN_TILE_ROWS
+    chunk = min(chunk, max(n, 1))
+    return KnnPlan("radix", 0, dpad, ntp, tiles,
+                   -(-tiles // KNN_KEY_TILES_PER_BLOCK), chunk * per_row,
+                   chunk, cap_w, pairs)
+
+
 def _knn_plan(n: int, nt: int, d: int, k: int, resident: int) -> KnnPlan:
     """The launch of :func:`knn_topk_indices` for ``k`` neighbours among
     ``nt`` train rows of ``n`` test rows of width ``d``, on a card that
@@ -689,24 +812,25 @@ def _knn_plan(n: int, nt: int, d: int, k: int, resident: int) -> KnnPlan:
     H100: one block per SM, bound by registers or by the lists' shared
     memory).
 
-    Lists up to 32 long take the tiled kernel, lists of 33 to 256 the
-    long-list kernel (capacity 64, 128 or 256, the smallest that holds k),
+    Lists up to 32 long take the tiled kernel, lists of 33 to
+    :data:`KNN_LONG_MAX_K` the long-list kernel (capacity 64 or 128, the
+    smallest that holds k),
     any d. Their blocks are (test tile, train split), the splits chosen by
     :func:`_knn_splits`: the 10,000,000-row benchmark and a 16,384-row
     block (128 test tiles) take S = 1, 1,000 rows S = 33 on an H100. With
     S > 1 each split writes its (n, k) distances and indices to a scratch
-    of 8·S·n·k bytes that the merge stage reads. Longer lists take the wide
-    instance, whose (k, n) list scratch is 8·k·n bytes."""
-    if k > KNN_LONG_KCAPS[-1]:  # its shared memory is the kernel's own affair
-        return KnnPlan("wide", 0, d, nt, 0, 1, 8 * k * n)
-    route = "tiled" if k <= KNN_KCAPS[-1] else "long"
-    kcap = next(c for c in KNN_KCAPS + KNN_LONG_KCAPS if k <= c)
+    of 8·S·n·k bytes that the merge stage reads. Longer lists take the
+    radix route (:func:`knn_radix_plan`)."""
+    if k > KNN_LONG_MAX_K:
+        return knn_radix_plan(n, nt, d, k)
     dpad = -(-d // KNN_CHUNK_COLS) * KNN_CHUNK_COLS
     tiles = -(-nt // KNN_TILE_ROWS)
+    ntp = tiles * KNN_TILE_ROWS
+    route = "tiled" if k <= KNN_KCAPS[-1] else "long"
+    kcap = next(c for c in KNN_KCAPS + KNN_LONG_KCAPS if k <= c)
     splits = _knn_splits(-(-n // knn_test_rows(kcap)), tiles, resident)
     scratch = 8 * splits * n * k if splits > 1 else 0
-    return KnnPlan(route, kcap, dpad, tiles * KNN_TILE_ROWS, tiles, splits,
-                   scratch)
+    return KnnPlan(route, kcap, dpad, ntp, tiles, splits, scratch)
 
 
 def knn_split_bounds(nt: int, splits: int) -> list:
@@ -913,6 +1037,93 @@ def knn_merge_topk_plain(dists: torch.Tensor, idx: torch.Tensor,
     flat_i = idx.permute(1, 0, 2).reshape(n, s * kk)
     order = torch.sort(flat_d, dim=1, stable=True).indices[:, :k]
     return flat_i.gather(1, order)
+
+
+def knn_distance_keys_plain(d2: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the radix route's keys (``dist_key`` of
+    ``knn_kernels.cu``): each float32 distance of ``d2`` as an
+    order-preserving uint32 key, held in int64. -0 is made +0 first, so
+    that the two tie as the float compare does."""
+    u = d2.contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    u = torch.where(u == 0x80000000, torch.zeros_like(u), u)
+    return torch.where(u >= 0x80000000, 0xFFFFFFFF - u, u | 0x80000000)
+
+
+def knn_radix_select_plain(keys: torch.Tensor, k: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of the select block's radix passes: for each row of
+    ``keys`` (n, nt), ``(kth, need)``: its k-th smallest key, found by four
+    8-bit digits from the most significant, each the bin of a histogram
+    over the keys that share the prefix so far; and how many of the keys
+    equal to it belong to the k smallest."""
+    n = keys.shape[0]
+    prefix = torch.zeros(n, dtype=torch.int64, device=keys.device)
+    want = torch.full((n,), int(k), dtype=torch.int64, device=keys.device)
+    mask = 0
+    for shift in (24, 16, 8, 0):
+        match = (keys & mask) == prefix[:, None]
+        digit = (keys >> shift) & 0xFF
+        counts = torch.zeros((n, KNN_RADIX_BINS), dtype=torch.int64,
+                             device=keys.device)
+        counts.scatter_add_(1, digit, match.long())
+        upto = torch.cumsum(counts, 1)
+        bin_ = (upto < want[:, None]).sum(1)
+        before = upto.gather(1, bin_[:, None])[:, 0] - counts.gather(
+            1, bin_[:, None])[:, 0]
+        want = want - before
+        prefix = prefix | (bin_ << shift)
+        mask |= 0xFF << shift
+    return prefix, want
+
+
+def knn_compact_plain(keys: torch.Tensor, kth: torch.Tensor,
+                      need: torch.Tensor, k: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of the select block's compaction: for each row, the keys
+    below its ``kth`` and the first ``need`` keys equal to it, in ascending
+    train index → (n, k) keys and (n, k) int64 indices."""
+    n = keys.shape[0]
+    below = keys < kth[:, None]
+    at = keys == kth[:, None]
+    before = torch.cumsum(at.long(), 1) - at.long()
+    keep = below | (at & (before < need[:, None]))
+    cols = torch.nonzero(keep)[:, 1].view(n, k)
+    return keys.gather(1, cols), cols
+
+
+def knn_radix_sort_plain(keys: torch.Tensor, idx: torch.Tensor
+                         ) -> torch.Tensor:
+    """Plain twin of the select block's stable LSD radix sort: the pairs
+    of each row ordered by key, 8 bits a pass from the least significant,
+    each pass stable, so equal keys keep their order (ascending index) →
+    the indices, int32."""
+    for shift in (0, 8, 16, 24):
+        order = torch.sort((keys >> shift) & 0xFF, dim=1, stable=True).indices
+        keys, idx = keys.gather(1, order), idx.gather(1, order)
+    return idx.to(torch.int32)
+
+
+def knn_topk_radix_plain(x: torch.Tensor, train: torch.Tensor, k: int,
+                         cap: int = KNN_KEY_CAP_BYTES) -> torch.Tensor:
+    """The radix route's stages composed in plain PyTorch, over the test
+    rows in the chunks :func:`knn_radix_plan` cuts under ``cap`` bytes:
+    each chunk's distances as keys (the same ‖t‖² − 2·x·t as
+    :func:`knn_topk_indices_plain`), the k-th key, the compaction and the
+    sort → (n, k) int32, 1 ≤ k ≤ n_train."""
+    n, d = x.shape
+    nt = train.shape[0]
+    chunk = knn_radix_plan(n, nt, d, k, cap).chunk_rows
+    tsq = torch.sum(train * train, dim=1)
+    parts = []
+    for r0 in range(0, n, chunk):
+        keys = knn_distance_keys_plain(
+            tsq[None, :] - 2.0 * (x[r0:r0 + chunk] @ train.T))
+        kth, need = knn_radix_select_plain(keys, k)
+        parts.append(knn_radix_sort_plain(*knn_compact_plain(keys, kth,
+                                                             need, k)))
+    if not parts:
+        return torch.empty((0, k), dtype=torch.int32, device=x.device)
+    return torch.cat(parts)
 
 
 # -- wrappers ------------------------------------------------------------------
@@ -1169,6 +1380,8 @@ _SIGNATURES = {
                                    _I, _I, _I, _L, _P], _I),
         "kmeans_reduce_partials": ([_P, _P, _I, _I, _P], _I),
         "kmeans_assign_tiled": ([_P, _P, _P, _P, _L, _I, _I, _I, _I, _P], _I),
+        "kmeans_label_blocks_per_sm": ([_I, _I, ctypes.POINTER(_I)], _I),
+        "kmeans_label_smem_bytes": ([_I, _I], _L),
         "kmeans_lloyd_sorted": ([_P] * 10 + [_L] + [_I] * 11 + [_P], _I),
     },
     SGD_SOURCE: {
@@ -1194,7 +1407,10 @@ _SIGNATURES = {
         "knn_long_blocks_per_sm": ([_I, _I, ctypes.POINTER(_I)], _I),
         "knn_topk_long": ([_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
                            _P], _I),
-        "knn_topk_wide": ([_P, _P, _P, _P, _P, _L, _L, _I, _I, _P], _I),
+        "knn_select_smem_bytes": ([_I, _I, _I], _L),
+        "knn_sample_rank": ([_I, _I], _I),
+        "knn_topk_radix": ([_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I,
+                            _L, _I, _I, _P], _I),
     },
 }
 #: the C function that names a CUDA error code, by source
@@ -1516,7 +1732,7 @@ def _knn_card_plan(x: torch.Tensor, nt: int, k: int) -> KnnPlan:
     """:func:`_knn_plan` for this card."""
     n, d = x.shape
     plan = _knn_plan(n, nt, d, k, 1)
-    if plan.route == "wide":
+    if plan.route == "radix":
         return plan
     resident = _knn_resident_blocks(_device_index(x), plan.kcap, plan.dpad)
     return _knn_plan(n, nt, d, k, resident)
@@ -1524,33 +1740,26 @@ def _knn_card_plan(x: torch.Tensor, nt: int, k: int) -> KnnPlan:
 
 def _launch_knn(x: torch.Tensor, train: torch.Tensor, k: int,
                 splits: Optional[int] = None,
-                wide: bool = False) -> torch.Tensor:
+                cap: Optional[int] = None) -> torch.Tensor:
     """Launches the KNN kernels as :func:`_knn_plan` says; ``splits``
     overrides the plan's train split (1 to its train tiles) of the tiled
     and long-list kernels, which the card check uses to hold split and
-    unsplit runs against each other, and ``wide`` takes the wide instance
-    whatever k (the card check times it beside the long-list one)."""
+    unsplit runs against each other, and ``cap`` takes the radix route at
+    any k with that scratch cap (the card check runs several chunks with a
+    small one, and times the hand-over from the long-list kernel)."""
     n, d = x.shape
     nt = train.shape[0]
     with _on_card(x):
-        plan = (KnnPlan("wide", 0, d, nt, 0, 1, 8 * k * n) if wide
-                else _knn_card_plan(x, nt, k))
+        plan = (_knn_card_plan(x, nt, k) if cap is None
+                else knn_radix_plan(n, nt, d, k, cap))
         tsq = torch.sum(train * train, dim=1)
         out = torch.empty((n, k), dtype=torch.int32, device=x.device)
         stream = _stream(x)
         lib = _lib(KNN_SOURCE)
-        if plan.route == "wide":
-            # the wide instance's top-k lists: (k, n) distances and indices
-            scratch = torch.empty((2, k, n), dtype=torch.float32,
-                                  device=x.device)
-            _raise_on_error(KNN_SOURCE, lib.knn_topk_wide(
-                x.data_ptr(), train.data_ptr(), tsq.data_ptr(), out.data_ptr(),
-                scratch.data_ptr(), n, nt, d, k, stream), "knn_topk_indices")
-            return out
         if splits is not None:
-            if not 1 <= splits <= plan.tiles:
+            if plan.route == "radix" or not 1 <= splits <= plan.tiles:
                 raise ValueError(f"knn_topk_indices: splits={splits} outside "
-                                 f"[1, {plan.tiles}]")
+                                 f"[1, {plan.tiles}] or on the radix route")
             plan = plan._replace(
                 splits=splits, scratch_bytes=8 * splits * n * k if splits > 1
                 else 0)
@@ -1562,11 +1771,15 @@ def _launch_knn(x: torch.Tensor, train: torch.Tensor, k: int,
         tsq_p = torch.full((plan.ntp,), float("inf"), device=x.device)
         tsq_p[:nt] = tsq
         scratch = (torch.empty(plan.scratch_bytes // 4, dtype=torch.float32,
-                               device=x.device) if plan.splits > 1 else None)
+                               device=x.device) if plan.scratch_bytes else None)
         args = (x.data_ptr(), train_t.data_ptr(), tsq_p.data_ptr(),
                 out.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
                 n, d, plan.dpad, plan.ntp)
-        if plan.route == "long":
+        if plan.route == "radix":
+            rc = lib.knn_topk_radix(*args, nt, k, plan.splits,
+                                    plan.chunk_rows, plan.cap_w,
+                                    plan.pairs_smem, stream)
+        elif plan.route == "long":
             rc = lib.knn_topk_long(*args, nt, k, plan.kcap, plan.splits,
                                    stream)
         else:

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where a tile's time goes in the port's tiled and long-list KNN kernels
 (``knn_tile_kernel`` and ``knn_long_kernel`` of
-``flink_ml_tpu_torch/csrc/knn_kernels.cu``), on one CUDA card.
+``flink_ml_tpu_torch/csrc/knn_kernels.cu``), and a row's in its radix
+route (``knn_key_tile_kernel``, ``knn_select_kernel``), on one CUDA card.
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
-    python3 scripts/port_knn_phases.py [--k 10,50,256] [--out FILE]
+    python3 scripts/port_knn_phases.py [--k 10,50,256,300] [--radix-k 200]
+        [--out FILE]
 
 Builds the committed source twice more beside the real library, with the
 source's own switches: ``-DKNN_PHASE_CLOCKS`` reads ``clock64()`` between
@@ -17,9 +19,14 @@ totals the first block keeps; and ``-DKNN_NO_SELECTION`` folds each
 finished tile into a sink (no selection), which times the distance tiles
 alone. All three run on the 16,384 x 50,000 x 32 block of the card check
 with one train split, at each k of ``--k`` (k <= 32 the tiled kernel, 32 <
-k <= 256 the long-list one). Prints ptxas' registers and spills of the two
-copies' instances, the blocks per SM of the real one, the times (CUDA
-events) and the mean cycles per tile of each phase.
+k <= 256 the long-list one, past 256 the radix route; ``--radix-k`` takes
+the radix route at lists of 256 or fewer too). Prints ptxas' registers and
+spills of the two copies' instances, the blocks per SM of the real one,
+the times (CUDA events) and the mean cycles per tile of each phase; for
+the radix route, the keys alone (``-DKNN_NO_SELECTION`` skips the select
+kernel) and the select block's cycles from its start to the end of each
+phase (the sample's threshold, the candidates, the radix select, the
+compaction, the sort, the output) for block 0 of the last chunk.
 """
 
 import argparse
@@ -93,12 +100,50 @@ def time_ms(fn, batches=5, per_batch=5, warmup=2):
     return statistics.median(times)
 
 
+SELECT_PHASES = ("threshold", "candidates", "select", "compaction", "sort",
+                 "output")
+
+
+def radix_k(real, timed, sink, x, train, k):
+    """The radix route's times at list length k with each library (the
+    sink's is the distance keys alone), and block 0's select cycles."""
+    n, d = x.shape
+    nt = train.shape[0]
+    plan = K.knn_radix_plan(n, nt, d, k)
+
+    def launch(lib):
+        saved = K._lib
+        K._lib = lambda source: lib
+        try:
+            return K._launch_knn(x, train, k, cap=K.KNN_KEY_CAP_BYTES)
+        finally:
+            K._lib = saved
+
+    assert torch.equal(launch(timed), launch(real)), "clocked lists differ"
+    row = {"route": "radix", "plan": plan._asdict(),
+           "select_smem": K.knn_select_smem_bytes(k, plan.cap_w,
+                                                  plan.pairs_smem),
+           "ms": {name: time_ms(lambda: launch(lib), batches=3, per_batch=2)
+                  for name, lib in (("real", real), ("timed", timed),
+                                    ("keys_only", sink))}}
+    launch(timed)
+    torch.cuda.synchronize()
+    buf = (ctypes.c_longlong * len(SELECT_PHASES))()
+    timed.knn_select_cycles_read.argtypes = [ctypes.c_void_p]
+    assert timed.knn_select_cycles_read(buf) == 0
+    row["select_cycles"] = dict(zip(SELECT_PHASES, buf))
+    print(f"radix k={k}:", json.dumps(row), flush=True)
+    return row
+
+
 def one_k(real, timed, sink, x, train, k):
     """The three libraries' times at list length k, and the timed copy's
     cycles per tile of each phase."""
     n, d = x.shape
     nt = train.shape[0]
     plan = K._knn_plan(n, nt, d, k, 1)
+    if plan.route == "radix":
+        return radix_k(real, timed, sink, x, train, k)
     assert plan.route in ("tiled", "long"), plan
     train_t = torch.zeros((plan.dpad, plan.ntp), device="cuda")
     train_t[:d, :nt] = train.T
@@ -142,6 +187,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--k", default="10",
                         help="comma-separated list lengths (default 10)")
+    parser.add_argument("--radix-k", default="",
+                        help="comma-separated list lengths to run through "
+                             "the radix route whatever their length")
     parser.add_argument("--out", help="also write the result as JSON here")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -166,6 +214,8 @@ def main() -> int:
               "by_k": {}}
     for k in (int(v) for v in args.k.split(",")):
         result["by_k"][k] = one_k(real, timed, sink, x, train, k)
+    for k in (int(v) for v in args.radix_k.split(",") if v):
+        result["by_k"][f"radix {k}"] = radix_k(real, timed, sink, x, train, k)
     print(json.dumps(result, indent=1))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

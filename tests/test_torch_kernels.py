@@ -199,13 +199,14 @@ def test_layout_gate_main_path_and_limits():
     # room for 3 such blocks in an SM
     assert 3 * (plan.smem + BLOCK_RESERVED_BYTES) <= SM_SMEM_BYTES
     assert kernels.kmeans_plan(1_000_000, 10, 100, False).route == "fused"
-    # the hand-over in k·d, measured on the card: up to 10,240 fused, more
+    # the hand-over in k·d, measured on the card: up to 6,400 fused, more
     # tiled, for both kernels
-    assert kernels.FUSED_MAX_KD == 10_240
+    assert kernels.FUSED_MAX_KD == 6_400
     for lloyd in (False, True):
-        for k, d, route in [(102, 100, "fused"), (103, 100, "tiled"),
-                            (40, 256, "fused"), (41, 256, "tiled"),
-                            (5000, 100, "tiled"), (5000, 2, "fused")]:
+        for k, d, route in [(64, 100, "fused"), (65, 100, "tiled"),
+                            (25, 256, "fused"), (26, 256, "tiled"),
+                            (5000, 100, "tiled"), (3200, 2, "fused"),
+                            (3201, 2, "tiled")]:
             assert kernels.kmeans_plan(50_000, k, d, lloyd).route == route
     # the hand-over in d: a 128-row x tile and a 16-centroid chunk fit one
     # block up to d = 403 (assign) and d = 375 (Lloyd, k = 10); wider rows
@@ -216,13 +217,13 @@ def test_layout_gate_main_path_and_limits():
     assert kernels.kmeans_plan(10_000, 10, 376, True).route == "tiled"
     # fused tiles whose 32-centroid chunk does not fit beside the x tile
     # score their centroids in chunks of 16
-    assert kernels.kmeans_plan(50_000, 25, 400, False)[:2] == ("fused", 128)
-    assert kernels.kmeans_plan(50_000, 25, 400, False).kchunk == 16
-    assert kernels.kmeans_plan(50_000, 32, 310, True)[:2] == ("fused", 128)
-    assert kernels.kmeans_plan(50_000, 32, 310, True).kchunk == 16
+    assert kernels.kmeans_plan(50_000, 17, 370, False)[:2] == ("fused", 128)
+    assert kernels.kmeans_plan(50_000, 17, 370, False).kchunk == 16
+    assert kernels.kmeans_plan(50_000, 18, 340, True)[:2] == ("fused", 128)
+    assert kernels.kmeans_plan(50_000, 18, 340, True).kchunk == 16
     tiled = kernels.kmeans_plan(10_000, 10, 4096, False)
-    assert (tiled.route, tiled.dpad, tiled.kp) == ("tiled", 4096, 128)
-    assert tiled.smem == kernels.tile_smem_bytes(4096) <= \
+    assert (tiled.route, tiled.dpad, tiled.kp) == ("tiled", 4096, 64)
+    assert tiled.smem == kernels.label_smem_bytes(64, 4096) <= \
         kernels.SMEM_BLOCK_BYTES
     for k, d in [(3, 7), (300, 100), (64, 512)]:
         for lloyd in (False, True):
@@ -233,22 +234,21 @@ def test_layout_gate_main_path_and_limits():
 
 
 def test_layout_largest_lloyd_k_at_d100():
-    # at d = 100 the fused Lloyd kernel takes 102 centroids at most (k·d up
-    # to the measured 10,240), staged in one chunk of 112; its (k, d+1)
-    # accumulator would fit beside the 128-row tile up to k = 428, but the
-    # tiled route is as fast from k = 100 and faster beyond; one more
-    # centroid takes the tiled route
-    plan = kernels.kmeans_plan(1_000_000, 102, 100, True)
-    assert (plan.route, plan.rows, plan.kchunk) == ("fused", 128, 112)
-    assert plan.smem == 4 * (112 * 100 + 112 + 128 * 101 + 2 * 128
-                             + 102 * 101)
+    # at d = 100 the fused Lloyd kernel takes 64 centroids at most (k·d up
+    # to the measured 6,400), staged in one chunk; its (k, d+1) accumulator
+    # would fit beside the 128-row tile up to k = 428, but the tiled route
+    # is faster from k·d = 8,000; one more centroid takes the tiled route
+    plan = kernels.kmeans_plan(1_000_000, 64, 100, True)
+    assert (plan.route, plan.rows, plan.kchunk) == ("fused", 128, 64)
+    assert plan.smem == 4 * (64 * 100 + 64 + 128 * 101 + 2 * 128
+                             + 64 * 101)
     assert plan.smem <= kernels.SMEM_BLOCK_BYTES
     assert kernels._fused_layout(428, 100, True) is not None
     assert kernels._fused_layout(429, 100, True) is None
-    tiled = kernels.kmeans_plan(1_000_000, 103, 100, True)
+    tiled = kernels.kmeans_plan(1_000_000, 65, 100, True)
     assert tiled.route == "tiled"
     assert (tiled.dpad, tiled.kp, tiled.chunk_rows, tiled.label_tile) == (
-        128, 128, 2048, 128)
+        128, 128, 2048, 96)
 
 
 # (k, d) up to k = 65,536 and d = 8,192: the main shape, the hand-overs,
@@ -278,8 +278,12 @@ def test_kmeans_plan_fits_every_shape(k, d):
                 continue
             assert p.route == "tiled"
             assert p.dpad % 32 == 0 and d <= p.dpad < d + 32
-            assert p.kp % 128 == 0 and k <= p.kp < k + 128
-            assert p.smem >= kernels.tile_smem_bytes(p.dpad)
+            if k <= 64:  # the label body's 64-centroid tile
+                assert p.kp == 64
+            else:
+                assert p.kp % 128 == 0 and k <= p.kp < k + 128
+            assert p.smem >= kernels.label_smem_bytes(min(p.kp, 128),
+                                                      p.dpad)
             # TMA coordinates and the labels' grid are 32-bit
             assert p.kp <= kernels.INT32_MAX and p.dpad <= kernels.INT32_MAX
             assert -(-n // kernels.TILE_ROWS) <= kernels.INT32_MAX
@@ -396,9 +400,38 @@ def test_the_tiled_stages_compose_to_lloyd_plain():
     np.testing.assert_array_equal(out[:, -1].numpy(), want[:, -1].numpy())
 
 
-# shapes of the tiled route, where the fused tile does not fit: (n, d, k)
-TILED_ASSIGN = [(2048, 768, 64), (1030, 1536, 40)]
-TILED_LLOYD = [(2048, 768, 64), (1500, 512, 100)]
+@pytest.mark.parametrize("k,kp", [(1, 64), (10, 64), (64, 64), (65, 128),
+                                  (128, 128), (129, 256), (1024, 1024)])
+def test_kmeans_plan_small_tile_at_wide_rows(k, kp):
+    """Up to 64 centroids take the label body's 64-centroid tile at wide
+    rows, so none is padded past 64; more pad to a multiple of 128. Both
+    instances keep two blocks on an SM: their shared memory (a ring of four
+    (64-centroid tile) or three stages of an x box and a centroid box, or
+    the resident x tile of up to 128 columns and the centroid boxes) fits
+    half of one."""
+    for d in (768, 770, 1536):
+        for lloyd in (False, True):
+            plan = kernels.kmeans_plan(1_000_000, k, d, lloyd)
+            assert (plan.route, plan.kp) == ("tiled", kp)
+    tn = min(kp, kernels.TILE_CENTROIDS)
+    stages = kernels.label_stages(tn)
+    assert stages == (4 if tn == 64 else 3)
+    smem = kernels.label_smem_bytes(tn, 768)
+    assert smem == 1024 + 4 * stages * (128 * 32 + 32 * tn) + 16 * stages
+    assert 2 * (smem + BLOCK_RESERVED_BYTES) <= SM_SMEM_BYTES
+    for dpad in (32, 128):
+        smem = kernels.label_smem_bytes(tn, dpad)
+        assert smem == 128 + 4 * (dpad * 128 + stages * 32 * tn) + 16 * stages
+        assert 2 * (smem + BLOCK_RESERVED_BYTES) <= SM_SMEM_BYTES
+
+
+# shapes of the tiled route, where the fused tile does not fit: (n, d, k);
+# d = 770 rows are no multiple of 16 bytes, which the card copies by
+# cp.async in place of TMA
+TILED_ASSIGN = [(2048, 768, 64), (1030, 1536, 40), (1030, 770, 1),
+                (1030, 770, 65)]
+TILED_LLOYD = [(2048, 768, 64), (1500, 512, 100), (1030, 770, 1),
+               (1030, 770, 65)]
 
 
 @pytest.mark.parametrize("n,d,k", TILED_ASSIGN)

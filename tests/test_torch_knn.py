@@ -60,12 +60,22 @@ def _without_near_ties(x, train, k):
     return np.ascontiguousarray(x[keep])
 
 
-def _knn_inputs(seed, n, nt, d, k, duplicates=()):
+def _knn_inputs(seed, n, nt, d, k, duplicates=(), exact=False):
+    """Seeded inputs; with ``exact``, small integers, whose distances both
+    sides compute exactly in float32, so every tie is an exact one and no
+    row is left out (lists past 256 among a few thousand rows keep no row
+    GAP apart throughout)."""
     rng = np.random.default_rng(seed)
-    x = rng.normal(size=(n, d)).astype(np.float32)
-    train = rng.normal(size=(nt, d)).astype(np.float32)
+    if exact:
+        x = rng.integers(-8, 9, size=(n, d)).astype(np.float32)
+        train = rng.integers(-8, 9, size=(nt, d)).astype(np.float32)
+    else:
+        x = rng.normal(size=(n, d)).astype(np.float32)
+        train = rng.normal(size=(nt, d)).astype(np.float32)
     for dst, src in duplicates:
         train[dst] = train[src]
+    if exact:
+        return x, train
     return _without_near_ties(x, train, min(k, nt)), train
 
 
@@ -80,11 +90,16 @@ def _knn_inputs(seed, n, nt, d, k, duplicates=()):
     ("long k=64", 200, 700, 4, 64),
     ("long k=100", 200, 700, 4, 100),
     ("long duplicates", 200, pk.KNN_TILE_T + 300, 4, 40),
+    # lists past 256: the radix route, on integer inputs (exact ties)
+    ("wide k=257", 300, pk.KNN_TILE_T + 300, 4, 257),
+    ("wide k=300", 200, pk.KNN_TILE_T + 300, 4, 300),
+    ("wide duplicates", 200, pk.KNN_TILE_T + 300, 4, 300),
 ])
 def test_knn_topk_plain_matches_pallas(case, n, nt, d, k):
     dups = (((50, nt - 7), (51, nt // 2), (52, 53))
             if case.endswith("duplicates") else ())
-    x, train = _knn_inputs(n + nt + d, n, nt, d, k, dups)
+    x, train = _knn_inputs(n + nt + d, n, nt, d, k, dups,
+                           exact=case.startswith("wide"))
     n = x.shape[0]
     want = np.asarray(pk.knn_topk_indices(x, train, k, interpret=True))
     got = kernels.knn_topk_indices(torch.from_numpy(x), torch.from_numpy(train),
@@ -141,13 +156,18 @@ def test_knn_layout():
         assert (plan.route, plan.kcap, plan.dpad) == ("tiled", kcap, dpad)
         assert plan.ntp == 1024 and plan.tiles == 8
     # lists of 33 to 256 take the long-list kernel, padded as the tiled
-    # one; longer lists the wide instance, with its (k, n) list scratch
+    # one; longer lists the radix route, with its scratch of keys (its
+    # 100 rows' pairs fit the select block's shared memory)
     plan = kernels._knn_plan(100, 1000, 32, 33, 132)
     assert (plan.route, plan.kcap, plan.dpad, plan.ntp) == ("long", 64, 32,
                                                             1024)
-    for k, d in [(257, 32), (500, 768)]:
+    for k, d, dpad in [(257, 32, 32), (500, 768, 768)]:
         plan = kernels._knn_plan(100, 1000, d, k, 132)
-        assert plan.route == "wide" and plan.scratch_bytes == 8 * k * 100
+        assert (plan.route, plan.dpad, plan.ntp) == ("radix", dpad, 1024)
+        # 1,000 train rows lie in 16 segments of 64: a warp's candidates
+        # always fit its region
+        assert (plan.chunk_rows, plan.cap_w, plan.pairs_smem) == (100, 64, 1)
+        assert plan.scratch_bytes == 4 * 1024 * 100
 
 
 def test_cuda_tensors_take_the_kernel(monkeypatch):
@@ -169,8 +189,9 @@ def test_cuda_tensors_take_the_kernel(monkeypatch):
     # wide rows and long lists take the kernel too
     kernels.knn_topk_indices(torch.rand((3, 200)), torch.rand((5, 200)), 2)
     kernels.knn_topk_indices(torch.rand((3, 4)), torch.rand((90, 4)), 40)
-    assert calls == [((10, 4), 6), ((3, 200), 2), ((3, 4), 40)]
-    assert kernels.launch_counts["knn_topk_indices"] == 3
+    kernels.knn_topk_indices(torch.rand((3, 4)), torch.rand((900, 4)), 300)
+    assert calls == [((10, 4), 6), ((3, 200), 2), ((3, 4), 40), ((3, 4), 300)]
+    assert kernels.launch_counts["knn_topk_indices"] == 4
     kernels.reset_launch_counts()
 
 
@@ -203,18 +224,47 @@ def test_knn_launch_plan():
 @pytest.mark.parametrize("k,kcap,route", [
     (1, 16, "tiled"), (16, 16, "tiled"), (17, 32, "tiled"), (32, 32, "tiled"),
     (33, 64, "long"), (50, 64, "long"), (64, 64, "long"), (65, 128, "long"),
-    (128, 128, "long"), (129, 256, "long"), (256, 256, "long"),
-    (257, 0, "wide"), (300, 0, "wide")])
+    (80, 128, "long"), (81, 0, "radix"), (128, 0, "radix"), (256, 0, "radix"),
+    (257, 0, "radix"), (300, 0, "radix"), (4096, 0, "radix"),
+    (50_000, 0, "radix")])
 def test_knn_plan_routes_each_list_length(k, kcap, route):
     """Which instance each k takes, at the capacities and their edges:
-    the tiled kernel up to 32, the long-list kernel up to 256 (128 test
-    rows a block, 64 for 128- and 256-entry lists), the wide instance past
-    it."""
+    the tiled kernel up to 32, the long-list kernel up to the measured
+    hand-over KNN_LONG_MAX_K = 80 (128 test rows a block, 64 for
+    128-entry lists), the radix route past it, in chunks of test rows whose
+    scratch stays under the cap."""
+    assert kernels.KNN_LONG_MAX_K == 80 and kernels.KNN_LONG_KCAPS == (64,
+                                                                       128)
     n, nt, d = 1_000, 50_000, 32
     plan = kernels._knn_plan(n, nt, d, k, 132)
     assert (plan.route, plan.kcap) == (route, kcap)
-    if route == "wide":
-        assert plan.splits == 1 and plan.scratch_bytes == 8 * k * n
+    if route == "radix":
+        assert plan.ntp == 50_048 and plan.tiles == 391 and plan.dpad == 32
+        assert plan.splits == -(-391 // kernels.KNN_KEY_TILES_PER_BLOCK)
+        # the candidates' regions and the pairs in shared memory up to
+        # k = 4,096 and more; at k = n_train the whole row, pairs in device
+        # memory
+        cap_w, pairs, smem = kernels.knn_select_layout(nt, k)
+        assert (plan.cap_w, plan.pairs_smem) == (cap_w, pairs)
+        assert (cap_w > 0) == (pairs == 1) == (k <= 4_096)
+        assert smem <= kernels.SMEM_BLOCK_BYTES
+        if cap_w:
+            # twice a warp's share of about 2k + 32·nt/2,048 keys, and 64
+            rank = kernels.knn_sample_rank(nt, k)
+            assert rank == 2 * -(-k * 2_048 // nt) + 32
+            share = -(-(-(-rank * nt // 2_048)) // 16)
+            assert cap_w == -(-(2 * share + 64) // 32) * 32
+        per_row = 4 * 50_048 + (0 if pairs else 16 * k)
+        assert plan.chunk_rows == n and plan.scratch_bytes == n * per_row
+        # the 10,000,000 rows of the benchmark go in chunks of whole test
+        # tiles, each chunk's scratch under the cap
+        big = kernels._knn_plan(10_000_000, nt, d, k, 132)
+        assert big.chunk_rows % 128 == 0 and big.chunk_rows >= 128
+        assert big.scratch_bytes == big.chunk_rows * per_row
+        assert big.scratch_bytes <= kernels.KNN_KEY_CAP_BYTES
+        assert (big.chunk_rows + 128) * per_row > kernels.KNN_KEY_CAP_BYTES
+        # a cap below one row's scratch still runs one row a chunk
+        assert kernels.knn_radix_plan(n, nt, d, k, cap=1).chunk_rows == 1
         return
     rows = 64 if kcap > 64 else 128
     assert kernels.knn_test_rows(kcap) == rows
@@ -224,6 +274,56 @@ def test_knn_plan_routes_each_list_length(k, kcap, route):
     assert plan.scratch_bytes == 8 * plan.splits * n * k
     # the benchmark's 10,000,000 rows fill the card without a split
     assert kernels._knn_plan(10_000_000, nt, d, k, 132).splits == 1
+
+
+def _planted_distances(seed, n, nt):
+    """(n, nt) float32 distances with planted exact ties: runs of equal
+    values, +0.0 and -0.0 (which tie), negative values and a row of one
+    value throughout."""
+    rng = np.random.default_rng(seed)
+    d2 = rng.integers(-50, 200, size=(n, nt)).astype(np.float32) / 4
+    d2[:, ::7] = 0.0
+    d2[:, 3::11] = -0.0
+    d2[1] = 2.5
+    d2[2, :] = np.where(np.arange(nt) % 2, -0.0, 0.0)
+    return torch.from_numpy(d2)
+
+
+@pytest.mark.parametrize("k", [257, 1000, "nt"])
+def test_knn_radix_stages_compose_to_plain(k):
+    """The radix route's stages, each by its plain twin (keys, radix
+    select, compaction, stable radix sort), give the lists of
+    knn_topk_indices_plain bit for bit: on distances with planted equal
+    values and -0.0 against +0.0, and from x and train over several chunks
+    of test rows (a cap of a few rows' scratch)."""
+    nt = 2 * kernels.KNN_TILE_ROWS + 37
+    k = nt if k == "nt" else k
+    if k > nt:
+        nt = k + 13
+    d2 = _planted_distances(k, 9, nt)
+    keys = kernels.knn_distance_keys_plain(d2)
+    # -0.0 and +0.0 take one key; the keys order as the floats do
+    assert int(keys[2].unique().numel()) == 1
+    flat = d2.flatten().double()
+    order = torch.sort(keys.flatten(), stable=True).indices
+    assert bool((flat[order][1:] >= flat[order][:-1]).all())
+    kth, need = kernels.knn_radix_select_plain(keys, k)
+    assert bool((need >= 1).all())
+    ckeys, cidx = kernels.knn_compact_plain(keys, kth, need, k)
+    # in ascending train index, every key at or below the k-th
+    assert bool((cidx[:, 1:] > cidx[:, :-1]).all())
+    assert bool((ckeys <= kth[:, None]).all())
+    got = kernels.knn_radix_sort_plain(ckeys, cidx)
+    assert torch.equal(got, kernels._topk_lowest_index(d2, k))
+    rng = np.random.default_rng(k)
+    x = torch.from_numpy(rng.integers(-4, 5, (300, 3)).astype(np.float32))
+    train = torch.from_numpy(rng.integers(-4, 5, (nt, 3)).astype(np.float32))
+    cap = 7 * 4 * (-(-nt // 128) * 128)  # seven rows' keys a chunk
+    plan = kernels.knn_radix_plan(300, nt, 3, k, cap=cap)
+    assert plan.route == "radix" and plan.chunk_rows == 7
+    want = kernels.knn_topk_indices_plain(x, train, k)
+    assert torch.equal(kernels.knn_topk_radix_plain(x, train, k, cap), want)
+    assert torch.equal(kernels.knn_topk_radix_plain(x, train, k), want)
 
 
 @pytest.mark.parametrize("splits", [1, 2, 3, 7])
