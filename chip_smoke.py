@@ -49,21 +49,25 @@ Phases, each of which fails the run (no result line, nonzero exit):
    first 100,000 rows of a 10,000,000 x 100 table), a window in the middle,
    the clipped window at the end, a ragged window, a one-row window,
    zero-weight rows, an odd width, and margins that overflow exp for the
-   logistic loss, printing each case's launch plan (register, staged or
-   chunked instance, grid); rows wider than 512 columns: the staged
-   instance at d = 513, 1,500, 2,000 and 6,001 and the chunked one at d =
-   16,000, at full, ragged, end-clipped and one-row windows, the staged
-   instance from an x 4 bytes off alignment and the chunked instance run
-   by hand at its widths; the C entry's output must equal
-   ``reduce_partials_plain`` of the partials the same call wrote, bit for
-   bit; time the whole call and its first stage alone, eagerly and as
-   device times (``device_ms``, ``stage1_device_ms`` and
-   ``library_device_ms`` of its row in the kernels line), the staged
-   instance at lb = 100,000 and d = 2,000 (its own row), 1,500 and 6,001
-   beside the chunked instance at the same windows and the library pair
-   (``x @ c``, then ``xᵀ @ mult`` with the multipliers given); the timed
-   calls move their window on by lb each call, so none finds its rows in
-   L2;
+   logistic loss, printing each case's launch plan (register, staged,
+   cluster or chunked instance, grid); rows wider than 512 columns: the
+   staged instance at d = 513, 1,500, 2,000 and 6,001, the cluster one at
+   d = 13,210, 16,000, 50,001 and 100,000 (clusters of 2, 4, 8 and 8) and
+   the chunked one at d = 106,000, at full, ragged, end-clipped and
+   one-row windows, the staged and cluster instances from an x 4 bytes
+   off alignment too, the chunked instance run by hand at the staged
+   widths and at 16,000, and at 16,000 every cluster size by hand; the C
+   entry's output must equal ``reduce_partials_plain`` of the partials
+   the same call wrote, bit for bit; time the whole call and its first
+   stage alone, eagerly and as device times (``device_ms``,
+   ``stage1_device_ms`` and ``library_device_ms`` of its row in the
+   kernels line), the staged instance at lb = 100,000 and d = 2,000 (its
+   own row), 1,500 and 6,001, and the cluster instance at d = 16,000, lb
+   = 20,000 (its own row) and at 13,210, 50,001 and 100,000 (windows of
+   the same 1.28 GB), each beside the chunked instance at the same
+   windows and the library pair (``x @ c``, then ``xᵀ @ mult`` with the
+   multipliers given); the timed calls move their window on by lb each
+   call, so none finds its rows in L2;
 4. drive the KMeans main path as a user would: the benchmark runner on
    ``flink_ml_tpu/benchmark/configs/kmeans-benchmark.json`` (KMeans fit at
    full size), then transform of the same table, save, load and transform
@@ -447,15 +451,17 @@ Phases, each of which fails the run (no result line, nonzero exit):
     and COEFF_ATOL, KMeans within CENTROID_ATOL and LABEL_AGREEMENT; prints
     each stage's ms on 8 shards and with no mesh (line ``feature mesh:
     {...}``);
-23. the long-list KNN and the staged SGD instances through the port's
-    entry points, each with the counts at 0: the runner on
+23. the long-list KNN and the staged and cluster SGD instances through
+    the port's entry points, each with the counts at 0: the runner on
     ``knn-benchmark.json`` with k = 50 (10,000,000 x 32 against 50,000),
     then transform of the same table, 73,333 of its predictions against
     the plain version's neighbours; the same at k = 300 (the radix route),
     the lists of its first 4,096 test rows against the plain version and
-    their votes against the transform's; the runner on the LR config's shape at
-    2,000 features (1,000,000 rows, 20 rounds of 100,000), then a fit of
-    the same table held against a plain PyTorch fit on the card;
+    their votes against the transform's; the runner on the LR config's
+    shape at 2,000 features (1,000,000 rows, 20 rounds of 100,000), then
+    a fit of the same table held against a plain PyTorch fit on the card;
+    the same at 16,000 features over 100,000 rows (the cluster instance:
+    every round takes all the rows, 6.4 GB), its fit time printed;
 24. KMeans at embedding widths through the runner and the estimators, with
     the counts at 0: ``kmeans-benchmark.json`` with only ``vectorDim`` and
     ``k`` changed (1,000,000 rows, maxIter 10, seed 2, generated on the
@@ -475,8 +481,9 @@ Phases, each of which fails the run (no result line, nonzero exit):
     Launches ``PATH_KERNELS["kmeans_wide"]``, no ``reduce_partials``;
 25. print one ``{"kernels": [...]}`` line with every kernel's launches in
     its main-path runs (in all and by path), error, times and bound, and
-    rows of their own for the long-list KNN, radix KNN and staged SGD
-    instances (launches from phase 23) and the tiled KMeans route
+    rows of their own for the long-list KNN, radix KNN, staged and
+    cluster SGD instances (launches from phase 23) and the tiled KMeans
+    route
     (launches from phase 24), then the result line.
 
 Tolerances (float32 throughout, TF32 off):
@@ -649,11 +656,12 @@ PATH_KERNELS = {
     "feature_mesh": ("reduce_partials", "lloyd_partial_sums",
                      "assign_nearest", "sgd_batch_terms"),
     # phase 23: a KNN transform at k = 50 (the long-list instance), one at
-    # k = 300 (the radix route), and an LR fit at 2,000 features (the
-    # staged instance)
+    # k = 300 (the radix route), and LR fits at 2,000 features (the staged
+    # instance) and at 16,000 (the cluster instance)
     "knn_long": ("knn_topk_indices",),
     "knn_wide": ("knn_topk_indices",),
     "linear_wide": ("sgd_batch_terms",),
+    "linear_cluster": ("sgd_batch_terms",),
     # phase 24: KMeans fits, transforms and an OnlineKMeans stream at
     # embedding widths, all on the tiled route (no reduce_partials)
     "kmeans_wide": ("assign_nearest", "lloyd_partial_sums"),
@@ -663,14 +671,18 @@ INSTANCE_ROWS = (("knn_topk_indices[long]", "knn_topk_indices", "knn_long"),
                  ("knn_topk_indices[wide]", "knn_topk_indices", "knn_wide"),
                  ("sgd_batch_terms[staged]", "sgd_batch_terms",
                   "linear_wide"),
+                 ("sgd_batch_terms[cluster]", "sgd_batch_terms",
+                  "linear_cluster"),
                  ("assign_nearest[tiled]", "assign_nearest", "kmeans_wide"),
                  ("lloyd_partial_sums[tiled]", "lloyd_partial_sums",
                   "kmeans_wide"))
 # phase 23: the KNN transforms' k (the long-list instance and the radix
 # route), the test rows whose lists are held against the plain version at
-# k = 300, and the LR fit's width and rows
+# k = 300, and the LR fits' widths and rows (the staged instance's, then
+# the cluster instance's: the config's globalBatchSize takes every row)
 LONG_PATH_K, WIDE_PATH_K, WIDE_PATH_CHECKED = 50, 300, 4_096
 WIDE_PATH_D, WIDE_PATH_ROWS = 2_000, 1_000_000
+CLUSTER_PATH_D, CLUSTER_PATH_ROWS = 16_000, 100_000
 # phase 2's tiled KMeans route: the cases (n, d, k, share of zero weights,
 # tag); the skewed table (n, d, k, share of rows drawn around centroid 0);
 # the shape its kernels line rows are timed at (phase 24 (a)); the shapes
@@ -1552,13 +1564,15 @@ def phase_sgd_kernels(K):
             lambda: K.sgd_batch_terms(x, y, w, c, other_start(), 0, lb, other)))
     del x, y, w, mult, ws
     torch.cuda.empty_cache()
-    measured["sgd_batch_terms[staged]"].update(time_wide_sgd(K, rand))
+    staged, cluster = time_wide_sgd(K, rand)
+    measured["sgd_batch_terms[staged]"].update(staged)
+    measured["sgd_batch_terms[cluster]"].update(cluster)
     return measured
 
 
 def chunked_sgd_plan(K, x, lb, loss):
     """The chunked instance's plan for x, at any width past the register
-    instance's (the one the card plan gives past the staged widths)."""
+    instance's (the one the card plan gives past a cluster of 8)."""
     d = x.shape[1]
     rows, dc, smem = K._sgd_layout(d)
     vec4 = int(d % 4 == 0 and x.data_ptr() % 16 == 0)
@@ -1567,22 +1581,37 @@ def chunked_sgd_plan(K, x, lb, loss):
     return K._sgd_chunked_plan(lb, d, resident, vec4)
 
 
+def cluster_sgd_plan(K, x, lb, loss, c):
+    """The cluster instance's plan for x in clusters of ``c`` CTAs, the
+    clusters the card holds its own."""
+    d = x.shape[1]
+    ds = K._sgd_cluster_slice(d, c)
+    smem = K._sgd_cluster_layout(ds)[1]
+    resident = K._sgd_resident_clusters(0, K.SGD_LOSSES[loss], d, c, smem)
+    return K._sgd_cluster_plan(lb, d, resident, int(x.data_ptr() % 16 == 0),
+                               c)
+
+
 def check_wide_sgd(K, rand, y, w):
     """Rows wider than the register instance takes: the staged instance at
-    d = 513, 1,500, 2,000 and 6,001, and the chunked one past the staged
-    widths (d = 16,000), for every loss, at full, ragged, end-clipped and
-    one-row windows, each against its plain version, rerun bit for bit,
-    the C entry's combine bit for bit against reduce_partials_plain of its
-    partials; the staged instance from an x 4 bytes off 16-byte alignment
-    too, and the chunked instance run at a staged width beside it."""
+    d = 513, 1,500, 2,000 and 6,001, the cluster one at 13,210, 16,000,
+    50,001 and 100,000, and the chunked one past a cluster of 8 (d =
+    106,000), for every loss, at full, ragged, end-clipped and one-row
+    windows, each against its plain version, rerun bit for bit, the C
+    entry's combine bit for bit against reduce_partials_plain of its
+    partials; the staged and cluster instances from an x 4 bytes off
+    16-byte alignment too (rerun bit for bit), the chunked instance run by
+    hand at the staged widths and at 16,000 beside them, and at 16,000
+    every cluster size by hand."""
     measured = {}
-    errs = []
+    errs = {"staged": [], "cluster": []}
     for dd, rows in [(513, 6_000), (1_500, 5_000), (2_000, 4_000),
-                     (6_001, 3_000), (16_000, 1_000)]:
+                     (6_001, 3_000), (13_210, 1_200), (16_000, 1_000),
+                     (50_001, 400), (100_000, 300), (106_000, 200)]:
         xd = rand(rows, dd)
         cd = (rand(dd) - 0.5) / dd ** 0.5
         yd, wd = y[:rows].contiguous(), w[:rows].contiguous()
-        instance = "staged" if K._sgd_staged_layout(dd) else "chunked"
+        instance = K._sgd_instance(dd)
         # the same rows from an x whose rows start 4 bytes off alignment
         flat = torch.empty(rows * dd + 1, device="cuda")
         xu = flat[1:].view(rows, dd)
@@ -1596,18 +1625,23 @@ def check_wide_sgd(K, rand, y, w):
                 assert plan.instance == instance, (dd, plan)
                 _, _, err = check_sgd(K, xd, yd, wd, cd, start, clip, this_lb,
                                       loss, f"d={dd} {tag}")
-                if instance == "staged":
-                    errs.append(err)
+                if instance in errs:
+                    errs[instance].append(err)
             ws = K._launch_sgd_terms(xd, yd, wd, cd, 5, 3, rows - 9, loss)
             assert torch.equal(ws[-1], K.reduce_partials_plain(ws[:-1])), (
                 f"d={dd} {loss}: the combine differs from "
                 "reduce_partials_plain")
-            if instance == "staged":
-                plan = K._sgd_card_plan(xu, rows - 9, loss)
-                assert plan.vec4 == 0, plan
-                got = K.sgd_batch_terms(xu, yd, wd, cd, 5, 3, rows - 9, loss)
-                within_sum_tol(got, K.sgd_batch_terms_plain(
-                    xu, yd, wd, cd, 5, 3, rows - 9, loss), f"d={dd} unaligned")
+            if instance == "chunked":
+                continue
+            plan = K._sgd_card_plan(xu, rows - 9, loss)
+            assert plan.vec4 == 0 and plan.instance == instance, plan
+            got = K.sgd_batch_terms(xu, yd, wd, cd, 5, 3, rows - 9, loss)
+            assert torch.equal(got, K.sgd_batch_terms(
+                xu, yd, wd, cd, 5, 3, rows - 9, loss)), (
+                f"d={dd} unaligned: rerun not bit-identical")
+            errs[instance].append(within_sum_tol(got, K.sgd_batch_terms_plain(
+                xu, yd, wd, cd, 5, 3, rows - 9, loss), f"d={dd} unaligned"))
+            if instance == "staged" or dd == 16_000:
                 # the first design, run by hand at this width
                 chunked = K._launch_sgd_terms(
                     xd, yd, wd, cd, 5, 3, rows - 9, loss,
@@ -1615,26 +1649,37 @@ def check_wide_sgd(K, rand, y, w):
                 within_sum_tol(chunked[-1], K.sgd_batch_terms_plain(
                     xd, yd, wd, cd, 5, 3, rows - 9, loss),
                     f"d={dd} chunked by hand")
+            if dd == 16_000:
+                for size in K.SGD_CLUSTER_SIZES:
+                    by_hand = K._launch_sgd_terms(
+                        xd, yd, wd, cd, 5, 3, rows - 9, loss,
+                        plan=cluster_sgd_plan(K, xd, rows - 9, loss, size))
+                    errs["cluster"].append(within_sum_tol(
+                        by_hand[-1], K.sgd_batch_terms_plain(
+                            xd, yd, wd, cd, 5, 3, rows - 9, loss),
+                        f"d={dd} clusters of {size}"))
         log(f"  sgd_batch_terms d={dd}: {instance} instance, every loss and "
             "window against its plain version, the combine bit for bit"
-            + (", unaligned x and the chunked instance too"
-               if instance == "staged" else ""))
+            + ("" if instance == "chunked" else ", unaligned x too")
+            + (", the chunked instance by hand" if instance == "staged"
+               or dd == 16_000 else "")
+            + (", every cluster size by hand" if dd == 16_000 else ""))
         del xd, xu, flat
-    measured["sgd_batch_terms[staged]"] = {"max_abs_err": max(errs)}
+        torch.cuda.empty_cache()
+    for instance, e in errs.items():
+        measured[f"sgd_batch_terms[{instance}]"] = {"max_abs_err": max(e)}
     return measured
 
 
 def time_wide_sgd(K, rand):
-    """The kernels line's row of the staged instance, at d = 2,000. Times
-    the staged instance at lb = 100,000 (each call the next
-    window of a 400,000-row table, cold in L2) at d = 2,000, eagerly and
-    as device time, the whole call and stage 1, beside the chunked
-    instance at the same windows (its first design), the plain version
-    and the library pair (x @ c, then xᵀ @ mult given the multipliers); at
-    d = 1,500 and 6,001 its eager and device times; the chunked instance
-    past the staged widths (d = 16,000, lb = 20,000) against its plain
-    version, eagerly and as device time, beside the plain version and the
-    library pair at that shape."""
+    """The kernels line's rows of the staged instance, at d = 2,000, and
+    of the cluster instance (``time_cluster_sgd``). Times the staged
+    instance at lb = 100,000 (each call the next window of a 400,000-row
+    table, cold in L2) at d = 2,000, eagerly and as device time, the
+    whole call and stage 1, beside the chunked instance at the same
+    windows (its first design), the plain version and the library pair
+    (x @ c, then xᵀ @ mult given the multipliers); at d = 1,500 and 6,001
+    its eager and device times."""
     from flink_ml_tpu_torch.ops.losses import LossFunc
 
     loss, lb = "logistic", 100_000
@@ -1697,48 +1742,84 @@ def time_wide_sgd(K, rand):
         measured[dd] = row
         del x, y, w
         torch.cuda.empty_cache()
-    # past the staged widths: the chunked instance, planned
-    dd, n, wide_lb = 16_000, 40_000, 20_000
-    x, y, w = rand(n, dd), torch.floor(rand(n) * 2), rand(n)
-    c = (rand(dd) - 0.5) / dd ** 0.5
-    assert K._sgd_card_plan(x, wide_lb, loss).instance == "chunked"
-    starts = {kind: rolling_starts(n, wide_lb)
-              for kind in ("kernel", "device", "plain", "lib", "lib_device")}
-    mult = LossFunc.by_name(loss).terms(x @ c, y, w)[1]
-
-    def chunked_call(kind):
-        return lambda: K.sgd_batch_terms(x, y, w, c, starts[kind](), 0,
-                                         wide_lb, loss)
-
-    def library(kind):
-        def run():
-            s = starts[kind]()
-            xb = x[s:s + wide_lb]
-            torch.mv(xb, c)  # the forward dots, then the gradient
-            return torch.mv(xb.T, mult[s:s + wide_lb])
-        return run
-
-    got = K.sgd_batch_terms(x, y, w, c, 0, 0, wide_lb, loss)
-    want = K.sgd_batch_terms_plain(x, y, w, c, 0, 0, wide_lb, loss)
-    b_ms, b_by = bound_ms(*K.launch_cost("sgd_batch_terms", lb=wide_lb,
-                                         d=dd))
-    row = {"ms": time_ms(chunked_call("kernel")),
-           "device_ms": graph_ms(chunked_call("device")),
-           "plain_ms": time_ms(lambda: K.sgd_batch_terms_plain(
-               x, y, w, c, starts["plain"](), 0, wide_lb, loss)),
-           "library_ms": time_ms(library("lib")),
-           "library_device_ms": graph_ms(library("lib_device")),
-           "bound_ms": b_ms, "bound_by": b_by,
-           "max_abs_err": within_sum_tol(got, want, "chunked d=16,000")}
-    log(f"  sgd_batch_terms chunked @ lb={wide_lb:,} of {n:,} x {dd:,}: "
-        f"{json.dumps(row)}")
-    del x, y, w, mult
-    torch.cuda.empty_cache()
     main = measured[2_000]
-    return {key: main[key] for key in (
+    staged = {key: main[key] for key in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
         "stage1_device_ms", "library_device_ms", "before_ms",
         "before_device_ms", "before_stage1_device_ms")}
+    return staged, time_cluster_sgd(K, rand)
+
+
+def time_cluster_sgd(K, rand):
+    """The kernels line's row of the cluster instance: at d = 16,000, lb =
+    20,000 (each call the next window of a 40,000-row table, cold in L2),
+    eagerly and as device time, the whole call and stage 1, beside the
+    chunked instance at the same windows (its first design, ``before_*``),
+    the plain version and the library pair (x @ c, then xᵀ @ mult given
+    the multipliers); then the same device times, bound and library pair
+    at d = 13,210, 50,001 and 100,000, windows of the same 1.28 GB."""
+    from flink_ml_tpu_torch.ops.losses import LossFunc
+
+    loss = "logistic"
+    out = {}
+    for dd, lb in [(16_000, 20_000), (13_210, 24_224), (50_001, 6_400),
+                   (100_000, 3_200)]:
+        n = 2 * lb
+        x, y, w = rand(n, dd), torch.floor(rand(n) * 2), rand(n)
+        c = (rand(dd) - 0.5) / dd ** 0.5
+        plan = K._sgd_card_plan(x, lb, loss)
+        assert plan.instance == "cluster", plan
+        mult = LossFunc.by_name(loss).terms(x @ c, y, w)[1]
+
+        def call(plan=None, combine=True):
+            starts = rolling_starts(n, lb)
+            return lambda: K._launch_sgd_terms(x, y, w, c, starts(), 0, lb,
+                                               loss, combine=combine,
+                                               plan=plan)
+
+        def library():
+            starts = rolling_starts(n, lb)
+
+            def run():
+                s = starts()
+                xb = x[s:s + lb]
+                torch.mv(xb, c)  # the forward dots, then the gradient
+                return torch.mv(xb.T, mult[s:s + lb])
+            return run
+
+        b_ms, b_by = bound_ms(*K.launch_cost("sgd_batch_terms", lb=lb,
+                                             d=dd))
+        row = {"device_ms": graph_ms(call()),
+               "stage1_device_ms": graph_ms(call(combine=False)),
+               "library_device_ms": graph_ms(library()),
+               "bound_ms": b_ms, "bound_by": b_by, "lb": lb,
+               "clusters": plan.blocks, "cluster": plan.cluster,
+               "resident": plan.resident}
+        if dd == 16_000:
+            starts = rolling_starts(n, lb)
+            got = K.sgd_batch_terms(x, y, w, c, 0, 0, lb, loss)
+            want = K.sgd_batch_terms_plain(x, y, w, c, 0, 0, lb, loss)
+            cplan = chunked_sgd_plan(K, x, lb, loss)
+            row.update({
+                "ms": time_ms(lambda: K.sgd_batch_terms(
+                    x, y, w, c, starts(), 0, lb, loss)),
+                "plain_ms": time_ms(lambda s=rolling_starts(n, lb): (
+                    K.sgd_batch_terms_plain(x, y, w, c, s(), 0, lb, loss))),
+                "library_ms": time_ms(library()),
+                "before_ms": time_ms(call(cplan)),
+                "before_device_ms": graph_ms(call(cplan)),
+                "before_stage1_device_ms": graph_ms(call(cplan, False)),
+                "max_abs_err": within_sum_tol(got, want, "cluster d=16,000")})
+            out = {key: row[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "device_ms", "stage1_device_ms", "library_device_ms",
+                "before_ms", "before_device_ms", "before_stage1_device_ms")}
+        log(f"  sgd_batch_terms cluster @ lb={lb:,} of {n:,} x {dd:,}: "
+            f"{json.dumps(row)}; at {b_ms / row['device_ms']:.1%} of its "
+            "bound")
+        del x, y, w, mult
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_main_path(K, runner, kmeans_mod):
@@ -2568,16 +2649,16 @@ def _knn_wide_path(K, runner, knn_mod):
 
 
 def phase_long_instances(K, runner, optimizer):
-    """Phase 23: the long-list KNN and staged SGD instances, and the KNN
-    radix route, through the runner and the estimators, each path with the
-    counts at 0 just before it and read just after; returns the three
-    paths' counts."""
+    """Phase 23: the long-list KNN, the staged and cluster SGD instances,
+    and the KNN radix route, through the runner and the estimators, each
+    path with the counts at 0 just before it and read just after; returns
+    the four paths' counts."""
     import copy
 
     from flink_ml_tpu_torch.models.classification import knn as knn_mod
 
-    log("phase 23: the long-list KNN and staged SGD instances through the "
-        "port's entry points")
+    log("phase 23: the long-list KNN and the staged and cluster SGD "
+        "instances through the port's entry points")
     started = time.perf_counter()
     spec = copy.deepcopy(
         runner.load_config(str(KNN_CONFIG))["KnnModel-predict"])
@@ -2627,28 +2708,48 @@ def phase_long_instances(K, runner, optimizer):
     torch.cuda.empty_cache()
     wide_counts = _knn_wide_path(K, runner, knn_mod)
 
+    linear_counts = _wide_lr_fit(K, runner, optimizer, WIDE_PATH_D,
+                                 WIDE_PATH_ROWS, "staged")
+    cluster_counts = _wide_lr_fit(K, runner, optimizer, CLUSTER_PATH_D,
+                                  CLUSTER_PATH_ROWS, "cluster")
+    log(f"  phase 23: {time.perf_counter() - started:.1f} s")
+    return knn_counts, wide_counts, linear_counts, cluster_counts
+
+
+def _wide_lr_fit(K, runner, optimizer, d, rows, instance):
+    """The LR config's params at ``d`` features over ``rows`` rows through
+    the runner and the estimator, with the counts at 0 just before and read
+    just after: ``cuda-sgd`` on the stage-1 ``instance``, at least two
+    launches a round; the fit equal to its rounds run through the kernel
+    and held against the same rounds through the plain version (COEFF_RTOL,
+    COEFF_ATOL). Returns the path's counts."""
+    import copy
+
     spec = copy.deepcopy(runner.load_config(
         str(LINEAR_CONFIGS["logisticregression"]))["logisticregression"])
-    spec["inputData"]["paramMap"].update(vectorDim=WIDE_PATH_D,
-                                         numValues=WIDE_PATH_ROWS)
+    spec["inputData"]["paramMap"].update(vectorDim=d, numValues=rows)
     max_iter = spec["stage"]["paramMap"]["maxIter"]
-    lb = spec["stage"]["paramMap"]["globalBatchSize"]
+    lb = min(spec["stage"]["paramMap"]["globalBatchSize"], rows)
     K.reset_launch_counts()
-    row = runner.run_benchmark("logisticregression-d2000", spec)
-    log("  benchmark row (d = 2,000):", json.dumps(row, sort_keys=True))
+    row = runner.run_benchmark(f"logisticregression-d{d}", spec)
+    log(f"  benchmark row (d = {d:,}):", json.dumps(row, sort_keys=True))
     assert row["executionPath"] == "cuda-sgd", row["executionPath"]
     table = runner.build_generator(spec).get_data()
     estimator = runner.build_stage(spec)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
     model = estimator.fit(table)
+    torch.cuda.synchronize()
+    fit_ms = (time.perf_counter() - start) * 1e3
     assert estimator.last_execution_path == "cuda-sgd"
-    linear_counts = dict(K.launch_counts)
+    counts = dict(K.launch_counts)
     x = table.vectors(estimator.features_col)
     y = table.column(estimator.label_col)
     plan = K._sgd_card_plan(x, lb, "logistic")
-    assert plan.instance == "staged", plan
-    log(f"  LR fit at d = {WIDE_PATH_D}: plan {plan}; launches "
-        f"{linear_counts}")
-    w = torch.ones(WIDE_PATH_ROWS, device="cuda")
+    assert plan.instance == instance, plan
+    log(f"  LR fit at d = {d:,} over {rows:,} rows: {fit_ms:.2f} ms; plan "
+        f"{plan}; launches {counts}")
+    w = torch.ones(rows, device="cuda")
     prm = optimizer.SGDParams(
         learning_rate=estimator.learning_rate,
         global_batch_size=estimator.global_batch_size, max_iter=max_iter,
@@ -2657,10 +2758,10 @@ def phase_long_instances(K, runner, optimizer):
     with _uncounted(K):
         plain, plain_loss, _ = optimizer.sgd_rounds(
             K.sgd_batch_terms_plain, "logistic", prm, x, y, w,
-            torch.zeros(WIDE_PATH_D, device="cuda"))
+            torch.zeros(d, device="cuda"))
         kern, kern_loss, _ = optimizer.sgd_rounds(
             K.sgd_batch_terms, "logistic", prm, x, y, w,
-            torch.zeros(WIDE_PATH_D, device="cuda"))
+            torch.zeros(d, device="cuda"))
     coeffs = model.coefficients
     assert np.array_equal(kern.double().cpu().numpy(), coeffs), (
         "the estimator's fit differs from the same rounds run directly")
@@ -2672,11 +2773,10 @@ def phase_long_instances(K, runner, optimizer):
     assert np.all(diff <= COEFF_RTOL * np.abs(plain) + COEFF_ATOL)
     assert abs(float(kern_loss) - float(plain_loss)) <= COEFF_RTOL * abs(
         float(plain_loss))
-    assert linear_counts["sgd_batch_terms"] >= 2 * max_iter, linear_counts
+    assert counts["sgd_batch_terms"] >= 2 * max_iter, counts
     del x, y, w, table
     torch.cuda.empty_cache()
-    log(f"  phase 23: {time.perf_counter() - started:.1f} s")
-    return knn_counts, wide_counts, linear_counts
+    return counts
 
 
 def _sparse_stream(Table, sparse, n, d, nnz_per_row, seed, striped=False):
@@ -7372,8 +7472,8 @@ def main() -> int:
     counts["meshes_processes"] = phase_meshes_over_processes(K, runner,
                                                              card)
     counts["feature_mesh"] = phase_feature_mesh(K, runner, card)
-    (counts["knn_long"], counts["knn_wide"],
-     counts["linear_wide"]) = phase_long_instances(K, runner, optimizer)
+    (counts["knn_long"], counts["knn_wide"], counts["linear_wide"],
+     counts["linear_cluster"]) = phase_long_instances(K, runner, optimizer)
     counts["kmeans_wide"] = phase_kmeans_wide(K, runner, kmeans_mod, Table)
 
     # step 25: the kernels line

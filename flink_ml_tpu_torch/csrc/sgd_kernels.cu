@@ -5,9 +5,10 @@
 // Replaces, in flink_ml_tpu/ops/pallas_kernels.py:
 //   sgd_rows_kernel<LOSS, V, VEC4>  <- _sgd_terms_kernel (:206), pallas_call
 //   sgd_staged_kernel<LOSS, NREG>      at :282 (rows of at most kRegCols
-//   sgd_terms_kernel<LOSS>             columns; wider rows as far as shared
-//                                      memory holds a ring of them; wider
-//                                      still)
+//   sgd_cluster_kernel<LOSS, NREG>     columns; wider rows as far as shared
+//   sgd_terms_kernel<LOSS>             memory holds a ring of them; wider
+//                                      rows split over a cluster of 2, 4 or
+//                                      8 CTAs; wider still)
 //   sgd_combine_kernel              <- the accumulation of _sgd_terms_kernel
 //                                      into out_ref across sequential grid
 //                                      steps (:231)
@@ -64,8 +65,43 @@
 // reduction; thread r keeps row slot r's loss and weight sums, added in
 // slot order at the end.
 //
-// Stage 1, rows wider than the ring holds (sgd_terms_kernel, the kernel of
-// the port's first slice): a block stages a tile of rows `dc` columns at a
+// Stage 1, rows wider than one block's ring holds, up to what a cluster of
+// kClusterMax CTAs holds (sgd_cluster_kernel; 105,568 columns): a thread
+// block cluster of c CTAs (c = 2, 4 or 8: the smallest whose CTAs fit two
+// an SM, else the smallest whose slice fits; ops/kernels.py
+// `_sgd_cluster_size`) owns a contiguous run of window rows, as a staged
+// block does, and CTA r of it the columns [r ds, (r + 1) ds) of every row
+// (ds = ceil(d / c) rounded up to 4; the last CTA the rest). Each CTA
+// streams its slice of the run's rows through a ring of kRing stages, a
+// row's slice `row_pitch` floats apart: where x is 16-byte aligned, one
+// bulk copy a row from the aligned address at or before the slice to the
+// last 16-byte boundary in it, issued by one thread and completed on the
+// stage's mbarrier, and the up to 3 floats after it by cp.async (with 16-
+// byte cp.async by every thread, the issue took a third of a stage, the
+// threads stalled on the copies' queue); else 4-byte cp.async. Its
+// thread t owns the slice's columns t + 256 j as a staged thread owns a
+// row's. Per stage: each warp's partial dots of the stage's rows
+// over its columns, in the staged order, into the CTA's sums of the
+// stage's parity; the cluster barrier's arrive (release), the copies of a
+// later stage, its wait (acquire); then thread r of every CTA reads row
+// r's kWarps sums of every CTA from the cluster's shared memory (mapa) and
+// adds them, each CTA's in warp order and the CTAs' in rank order, so
+// every CTA holds the same float for every dot, evaluates the row's
+// terms, and every thread adds mult * x into its own columns. The sums
+// alternate by stage parity: a CTA writes stage s + 1's only after every
+// CTA has arrived at stage s's barrier, which each does only after
+// reading stage s - 1's. Rank 0 alone keeps the weight and loss sums. A
+// cluster writes one partial row, each CTA its slice, so stage 2 is
+// unchanged, every byte of the window is read once, and no atomics are
+// used. Two CTAs an SM hide one CTA's barrier behind the other's work (at
+// d = 16,000 clusters of 4, two an SM, ran in two thirds of the time of
+// clusters of 2, one an SM; PERF.md). With -DSGD_PHASE_CLOCKS, CTA 0 adds
+// up clock64() per phase of its stages (sgd_phase_cycles_read;
+// scripts/port_sgd_cluster.py builds and reads it).
+//
+// Stage 1, rows wider than a cluster of kClusterMax holds (sgd_terms_kernel,
+// the kernel of the port's first slice): a block stages a tile of rows `dc`
+// columns at a
 // time in shared memory, builds each row's dot across the column chunks,
 // then takes a second pass over the chunks for mult * x (the last chunk is
 // still staged, so it is read once; the others twice, the second time
@@ -101,6 +137,17 @@
 //     slot [2][rows]       the row slots' weight and loss sums at the end
 //     gs, cs [over]        the running sums and the coefficients of the
 //                          columns past the registers (staged_over)
+//   sgd_cluster_kernel, in this order (cluster_smem_floats; ops/kernels.py
+//   `_sgd_cluster_layout` mirrors it and passes rows and the byte count):
+//     ring [kRing][rows][row_pitch(ds)]  the stages, a row's slice up to 3
+//                          floats after the start of its pitch
+//     full [kRing]         the stages' mbarriers (2 floats each)
+//     ys, wv [kRing][rows] each stage's labels and masked weights
+//     red  [2][rows4][kWarps]  the warps' sums of each row's partial dot,
+//                          by stage parity (read by the whole cluster)
+//     mult [rows]          the stage's multipliers
+//     slot [2][rows]       the row slots' weight and loss sums at the end
+//     gs, cs [over]        as the staged instance's, over the slice
 //   sgd_terms_kernel, in this order (ops/kernels.py `_sgd_layout` sizes it
 //   and passes rows, dc and the byte count):
 //     xs   [rows][dc]  a column chunk of the row tile; first, so 16-byte
@@ -720,6 +767,402 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // ---------------------------------------------------------------------------
+// Stage 1 for rows past one block's ring: a cluster of CTAs splits each
+// row's columns.
+
+constexpr int kClusterMax = 8;  // CTAs of a cluster at most (portable)
+
+// Columns of a cluster CTA's slice at width d in clusters of c: ceil(d / c)
+// rounded up to a multiple of 4; the last CTA takes the rest.
+__host__ __device__ constexpr int cluster_slice(int d, int c) {
+  return ((d + c - 1) / c + 3) / 4 * 4;
+}
+
+// Floats between two rows' slices in a cluster stage: up to 3 before the
+// slice (its 16-byte copies start at an aligned address), rounded up to 4.
+__host__ __device__ constexpr int row_pitch(int ds) { return (ds + 6) / 4 * 4; }
+
+__host__ __device__ constexpr int64_t cluster_smem_floats(int ds, int rows) {
+  return kRing * (int64_t)rows * row_pitch(ds) + 2 * kRing +
+         2 * kRing * (int64_t)rows +
+         2 * ((int64_t)(rows + 3) / 4 * 4 * kWarps) + 3 * (int64_t)rows +
+         2 * staged_over(ds);
+}
+
+__device__ __forceinline__ unsigned cluster_ctarank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ unsigned cluster_nctarank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster barrier in two halves, each for every thread of the
+// cluster: what a thread wrote to shared memory before its arrive
+// (release) is seen by every thread of the cluster after its wait
+// (acquire); work between the two overlaps the barrier.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// The barrier's one arrival, which also expects `bytes` of copies.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from src to dst (both 16-byte aligned) by the
+// copy engine, completing on the mbarrier bar.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The float at p in the shared memory of the cluster's CTA `rank`.
+__device__ __forceinline__ float ld_cluster(const float* p, unsigned rank) {
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_addr(p)), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+#ifdef SGD_PHASE_CLOCKS
+// per thread of CTA 0: cycles in the copy wait and barrier, the partial
+// dots, the cluster arrive, the copy issue after it, the cluster wait, the
+// dots' sum and terms (to the barrier after them) and mult * x, over all
+// its stages
+constexpr int kPhases = 7;
+__device__ long long sgd_phase_cycles[kThreads * kPhases];
+#define PHASE_START() long long phase_t_ = clock64()
+#define PHASE_END(q)                  \
+  do {                                \
+    const long long now_ = clock64(); \
+    phase_c_[q] += now_ - phase_t_;   \
+    phase_t_ = now_;                  \
+  } while (0)
+#else
+#define PHASE_START() \
+  do {                \
+  } while (0)
+#define PHASE_END(q) \
+  do {               \
+  } while (0)
+#endif
+
+// The columns a thread owns past its registers (kOwn + t, kOwn + t + 256,
+// ... below wd), four at a time with their loads issued first: the dot
+// acc + x * c over them in column order ...
+__device__ __forceinline__ float over_dot(const float* xrow,
+                                          const float* cs, float acc, int t,
+                                          int kOwn, int wd) {
+  int col = kOwn + t;
+  for (; col + 3 * kThreads < wd; col += 4 * kThreads) {
+    float xv[4], cv[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      xv[u] = xrow[col + u * kThreads];
+      cv[u] = cs[col - kOwn + u * kThreads];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc = fmaf(xv[u], cv[u], acc);
+  }
+  for (; col < wd; col += kThreads) acc = fmaf(xrow[col], cs[col - kOwn], acc);
+  return acc;
+}
+
+// ... and gs += m * x over them (the sums in shared memory, which the
+// compiler would otherwise not load ahead of the stores)
+__device__ __forceinline__ void over_axpy(const float* xrow, float* gs,
+                                          float m, int t, int kOwn, int wd) {
+  int col = kOwn + t;
+  for (; col + 3 * kThreads < wd; col += 4 * kThreads) {
+    float xv[4], gv[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      xv[u] = xrow[col + u * kThreads];
+      gv[u] = gs[col - kOwn + u * kThreads];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      gs[col - kOwn + u * kThreads] = fmaf(m, xv[u], gv[u]);
+  }
+  for (; col < wd; col += kThreads)
+    gs[col - kOwn] = fmaf(m, xrow[col], gs[col - kOwn]);
+}
+
+template <int LOSS, int NREG>
+__global__ void __launch_bounds__(kThreads, 2)
+    sgd_cluster_kernel(const float* __restrict__ x,
+                       const float* __restrict__ y,
+                       const float* __restrict__ w,
+                       const float* __restrict__ coeffs,
+                       float* __restrict__ partials, int64_t start,
+                       int64_t lb, int64_t clip, int d, int ds, int rows,
+                       int vec4) {
+  extern __shared__ __align__(16) float smem[];
+  const int pitch = row_pitch(ds);
+  const int64_t sf = (int64_t)rows * pitch, over = staged_over(ds);
+  const int rs = (rows + 3) / 4 * 4 * kWarps;  // floats of one red
+  float* ring = smem;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kRing * sf);
+  float* ys = ring + kRing * sf + 2 * kRing;
+  float* wv = ys + kRing * rows;
+  float* red = wv + kRing * rows;  // [2][rs], by stage parity
+  float* mult = red + 2 * rs;
+  float* slot = mult + rows;
+  float* gs = slot + 2 * rows;
+  float* cs = gs + over;
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  constexpr int kOwn = kThreads * NREG;  // first column past the registers
+  const unsigned rank = cluster_ctarank(), csize = cluster_nctarank();
+  const int c0 = (int)rank * ds;     // the slice's first column
+  const int wd = min(ds, d - c0);    // and its width
+
+  // the cluster's run of window rows [r0, r0 + len), in stages of `rows`
+  const int64_t nb = gridDim.x / csize, b = blockIdx.x / csize;
+  const int64_t q = lb / nb, rem = lb % nb;
+  const int64_t r0 = b * q + min(b, rem);
+  const int64_t len = q + (b < rem ? 1 : 0);
+  const int64_t nstages = (len + rows - 1) / rows;
+
+  float c[NREG], g[NREG];
+#pragma unroll
+  for (int j = 0; j < NREG; ++j) {
+    const int col = t + kThreads * j;
+    c[j] = col < wd ? __ldg(coeffs + c0 + col) : 0.f;
+    g[j] = 0.f;
+  }
+  for (int64_t e = t; e < over; e += kThreads) {  // this thread's own
+    gs[e] = 0.f;
+    cs[e] = kOwn + e < wd ? __ldg(coeffs + c0 + kOwn + e) : 0.f;
+  }
+  float lsum = 0.f, wsum = 0.f;  // rank 0's thread r < rows: row slot r's
+
+  // floats before the slice of table row `row` in its pitch
+  auto lead = [&](int64_t row) {
+    return vec4 ? (int)((row * d + c0) & 3) : 0;
+  };
+  if (t == 0) {
+    for (int k = 0; k < kRing; ++k) mbar_init(&full[k]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // stage s into ring buffer s % kRing: where x is 16-byte aligned, thread
+  // 0 arms the buffer's mbarrier and copies each row's slice from the
+  // aligned address at or before it to the last 16-byte boundary in it by
+  // one bulk copy, and lanes of warp 1 copy the up to 3 floats after that
+  // by cp.async; else 4-byte cp.async copies all (thread 0 arms the
+  // barrier for no bytes). Labels and weights by cp.async; every thread
+  // commits one cp.async group a stage (an empty one past the last).
+  auto issue = [&](int64_t s) {
+    if (s < nstages) {
+      const int nr = (int)min((int64_t)rows, len - s * rows);
+      const int64_t i = r0 + s * rows;  // window index of the first row
+      const int buf = (int)(s % kRing);
+      float* dst = ring + buf * sf;
+      if (vec4) {
+        if (t == 0) {
+          unsigned bytes = 0;
+          for (int r = 0; r < nr; ++r) {
+            const int64_t g0 = (start + i + r) * d + c0;
+            bytes += (unsigned)(4 * (((g0 + wd) & ~(int64_t)3) -
+                                     (g0 & ~(int64_t)3)));
+          }
+          mbar_arrive_expect_tx(&full[buf], bytes);
+          for (int r = 0; r < nr; ++r) {
+            const int64_t g0 = (start + i + r) * d + c0;
+            const int64_t a0 = g0 & ~(int64_t)3, a1 = (g0 + wd) & ~(int64_t)3;
+            bulk_copy(dst + r * pitch, x + a0, (unsigned)(4 * (a1 - a0)),
+                      &full[buf]);
+          }
+        } else if (warp == 1) {
+          for (int r = 0; r < nr; ++r) {
+            const int64_t g0 = (start + i + r) * d + c0;
+            const int64_t a0 = g0 & ~(int64_t)3, a1 = (g0 + wd) & ~(int64_t)3;
+            if (lane < (int)(g0 + wd - a1))
+              cp_async4(dst + r * pitch + (a1 - a0) + lane, x + a1 + lane, 4);
+          }
+        }
+      } else {
+        if (t == 0) mbar_arrive_expect_tx(&full[buf], 0);
+        for (int r = 0; r < nr; ++r) {
+          const int64_t g0 = (start + i + r) * d + c0;  // the slice's first
+          for (int f = t; f < wd; f += kThreads)
+            cp_async4(dst + r * pitch + f, x + g0 + f, 4);
+        }
+      }
+      if (t < nr) {
+        float* yd = ys + (s % kRing) * rows;
+        float* wdst = wv + (s % kRing) * rows;
+        cp_async4(yd + t, y + start + i + t, 4);
+        cp_async4(wdst + t, w + start + i + t, i + t >= clip ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+#ifdef SGD_PHASE_CLOCKS
+  long long phase_c_[kPhases] = {0, 0, 0, 0, 0, 0, 0};
+#endif
+#pragma unroll
+  for (int s = 0; s < kRing - 1; ++s) issue(s);
+  for (int64_t s = 0; s < nstages; ++s) {
+    PHASE_START();
+    const int at = (int)(s % kRing);
+    cp_async_wait<kRing - 2>();  // this thread's copies of stage s
+    mbar_wait(&full[at], (unsigned)(s / kRing) & 1);  // its bulk copies
+    __syncthreads();  // everyone's; and stage s - 1's buffer is read
+    PHASE_END(0);
+    const int nr = (int)min((int64_t)rows, len - s * rows);
+    const float* xs = ring + at * sf;
+    const int64_t row0 = start + r0 + s * rows;  // table row of the first
+    float* part = red + (s & 1) * rs;  // this stage's warp sums
+    // each row's partial dot over the slice: this thread's columns in
+    // order, then four rows summed over the warp together; the warps'
+    // sums go to part, which the whole cluster reads
+    for (int rb = 0; rb < nr; rb += 4) {
+      float v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float acc = 0.f;
+        if (rb + u < nr) {  // the same in every thread; past nr: zeros
+          const float* xrow = xs + (rb + u) * pitch + lead(row0 + rb + u);
+#pragma unroll
+          for (int j = 0; j < NREG; ++j) {
+            const int col = t + kThreads * j;
+            if (col < wd) acc = fmaf(xrow[col], c[j], acc);
+          }
+          acc = over_dot(xrow, cs, acc, t, kOwn, wd);
+        }
+        v[u] = acc;
+      }
+      const float dot = rows_sum<4>(v, lane);  // row rb + lane / 8
+      if ((lane & 7) == 0 && rb + lane / 8 < nr)
+        part[(rb + lane / 8) * kWarps + warp] = dot;
+    }
+    PHASE_END(1);
+    cluster_arrive();  // this thread's sums of stage s are written
+    PHASE_END(2);
+    issue(s + kRing - 1);  // while the cluster's other CTAs arrive
+    PHASE_END(3);
+    cluster_wait();  // every CTA's sums of stage s are in its part
+    PHASE_END(4);
+    if (t < nr) {
+      // row t's dot: each CTA's warps added in warp order, the CTAs' sums
+      // in rank order
+      float dot = 0.f;
+      for (unsigned q2 = 0; q2 < csize; ++q2) {
+        float w8[kWarps];
+#pragma unroll
+        for (int k = 0; k < kWarps; ++k)
+          w8[k] = ld_cluster(part + t * kWarps + k, q2);
+        float p = w8[0];
+#pragma unroll
+        for (int k = 1; k < kWarps; ++k) p += w8[k];
+        dot = q2 == 0 ? p : dot + p;
+      }
+      const float wt = wv[at * rows + t];
+      float loss, m;
+      row_terms<LOSS>(dot, ys[at * rows + t], wt, loss, m);
+      mult[t] = m;
+      if (rank == 0) {
+        lsum += loss;
+        wsum += wt;
+      }
+    }
+    __syncthreads();
+    PHASE_END(5);
+    for (int r = 0; r < nr; ++r) {
+      const float m = mult[r];
+      const float* xrow = xs + r * pitch + lead(row0 + r);
+#pragma unroll
+      for (int j = 0; j < NREG; ++j) {
+        const int col = t + kThreads * j;
+        if (col < wd) g[j] = fmaf(m, xrow[col], g[j]);
+      }
+      over_axpy(xrow, gs, m, t, kOwn, wd);
+    }
+    PHASE_END(6);
+  }
+  cp_async_wait<0>();
+  cluster_arrive();  // no CTA leaves while another may read its sums
+  cluster_wait();
+
+  float* dst = partials + b * (int64_t)(d + 2) + c0;
+#pragma unroll
+  for (int j = 0; j < NREG; ++j) {
+    const int col = t + kThreads * j;
+    if (col < wd) dst[col] = g[j];
+  }
+  for (int col = kOwn + t; col < wd; col += kThreads)
+    dst[col] = gs[col - kOwn];
+  if (rank == 0) {
+    if (t < rows) {
+      slot[t] = wsum;
+      slot[rows + t] = lsum;
+    }
+    __syncthreads();
+    if (t == 0) {
+      float ws_ = 0.f, ls_ = 0.f;
+      for (int r = 0; r < rows; ++r) {
+        ws_ += slot[r];
+        ls_ += slot[rows + r];
+      }
+      dst[d - c0] = ws_;
+      dst[d - c0 + 1] = ls_;
+    }
+  }
+#ifdef SGD_PHASE_CLOCKS
+  if (blockIdx.x == 0)
+    for (int k = 0; k < kPhases; ++k)
+      sgd_phase_cycles[t * kPhases + k] = phase_c_[k];
+#endif
+}
+
+// ---------------------------------------------------------------------------
 // Stage 2: out[i] = the sum over b of partials[b][i] in reduce_partials'
 // fixed two-level order (kmeans_kernels.cu): the B rows cut into Q
 // contiguous slices of L = ceil(B / 32) rows, each added in row order from
@@ -806,27 +1249,43 @@ const void* staged_kernel_of(int d) {
   }
 }
 
+// The cluster instance for slices of ds > 4 * kThreads columns (every
+// planned slice is wider than 13,209 / 8).
+template <int LOSS>
+const void* cluster_kernel_of(int ds) {
+  switch (staged_nreg(ds)) {
+    case 8: return (const void*)sgd_cluster_kernel<LOSS, 8>;
+    case 16: return (const void*)sgd_cluster_kernel<LOSS, 16>;
+    default: return nullptr;
+  }
+}
+
 // Whether a launch of width d > kRegCols stages whole rows (dc == d): the
-// staged instance; else the chunked one.
+// staged instance; else, with no cluster, the chunked one.
 bool staged(int d, int dc) { return d > kRegCols && dc == d; }
 
+template <int LOSS>
+const void* wide_kernel_of(int d, int dc, int cluster) {
+  if (cluster) return cluster_kernel_of<LOSS>(dc);
+  return staged(d, dc) ? staged_kernel_of<LOSS>(d)
+                       : (const void*)sgd_terms_kernel<LOSS>;
+}
+
 // The stage-1 instance: sgd_rows_kernel<loss, v, vec4> for v = 1..4, else
+// sgd_cluster_kernel<loss, staged_nreg(dc)> in clusters (dc the slice),
 // sgd_staged_kernel<loss, staged_nreg(d)> where whole rows are staged, else
 // sgd_terms_kernel<loss>.
-const void* kernel_of(int loss, int v, int vec4, int d, int dc) {
+const void* kernel_of(int loss, int v, int vec4, int d, int dc, int cluster) {
   switch (loss) {
     case kLogistic:
       return v ? rows_kernel_of<kLogistic>(v, vec4)
-             : staged(d, dc) ? staged_kernel_of<kLogistic>(d)
-                             : (const void*)sgd_terms_kernel<kLogistic>;
+               : wide_kernel_of<kLogistic>(d, dc, cluster);
     case kHinge:
       return v ? rows_kernel_of<kHinge>(v, vec4)
-             : staged(d, dc) ? staged_kernel_of<kHinge>(d)
-                             : (const void*)sgd_terms_kernel<kHinge>;
+               : wide_kernel_of<kHinge>(d, dc, cluster);
     case kLeastSquare:
       return v ? rows_kernel_of<kLeastSquare>(v, vec4)
-             : staged(d, dc) ? staged_kernel_of<kLeastSquare>(d)
-                             : (const void*)sgd_terms_kernel<kLeastSquare>;
+               : wide_kernel_of<kLeastSquare>(d, dc, cluster);
     default:
       return nullptr;
   }
@@ -841,22 +1300,34 @@ int stage1_smem(int v, int d, int smem) {
 // The launch the Python side planned must be one these kernels were
 // written for: v = ceil(d / 128) up to kRegCols columns (vec4 for 16-byte
 // rows at an aligned x); wider rows staged whole (dc = d) with the ring's
-// shared memory, or the chunked instance with dc a multiple of the block's
-// threads below d (vec4 for 16-byte rows) and tiles that cover the window;
-// vec4 of the staged instance needs only an aligned x.
+// shared memory; or split over clusters of 2, 4 or 8 CTAs whose slice dc is
+// cluster_slice(d, cluster), wider than 4 * kThreads, with every CTA some
+// columns, and the ring's shared memory; or the chunked instance with dc a
+// multiple of the block's threads below d (vec4 for 16-byte rows) and tiles
+// that cover the window; vec4 of the staged and cluster instances needs
+// only an aligned x.
 cudaError_t check_config(const float* x, long long start, long long lb,
                          long long clip, int d, int v, int vec4, int blocks,
                          int rows, int dc, int smem,
-                         long long tiles_per_block, int loss) {
+                         long long tiles_per_block, int cluster, int loss) {
   const bool aligned = (uintptr_t)x % 16 == 0;
-  if (kernel_of(loss, v, vec4, d, dc) == nullptr || d < 1 || blocks < 1 ||
-      start < 0 || lb < 1 || clip < 0 || clip > lb || (vec4 && !aligned))
+  if (kernel_of(loss, v, vec4, d, dc, cluster) == nullptr || d < 1 ||
+      blocks < 1 || start < 0 || lb < 1 || clip < 0 || clip > lb ||
+      (vec4 && !aligned) || cluster < 0)
     return cudaErrorInvalidValue;
   if (d <= kRegCols)
-    return v == (d + 127) / 128 && !(vec4 && d % 4 != 0)
+    return v == (d + 127) / 128 && !(vec4 && d % 4 != 0) && !cluster
                ? cudaSuccess
                : cudaErrorInvalidValue;
   if (v != 0 || rows < 1) return cudaErrorInvalidValue;
+  if (cluster)
+    return (cluster == 2 || cluster == 4 || cluster == kClusterMax) &&
+                   dc == cluster_slice(d, cluster) && dc > 4 * kThreads &&
+                   (int64_t)(cluster - 1) * dc < d &&
+                   rows <= kStageMaxRows && smem <= kSmemBlockMax &&
+                   (int64_t)smem >= 4 * cluster_smem_floats(dc, rows)
+               ? cudaSuccess
+               : cudaErrorInvalidValue;
   if (staged(d, dc))
     return rows <= kStageMaxRows && smem <= kSmemBlockMax &&
                    (int64_t)smem >= 4 * staged_smem_floats(d, rows)
@@ -868,6 +1339,23 @@ cudaError_t check_config(const float* x, long long start, long long lb,
       (int64_t)blocks * tiles_per_block * rows < lb)
     return cudaErrorInvalidValue;
   return cudaSuccess;
+}
+
+// The launch of a cluster of `cluster` CTAs a grid of blocks * cluster.
+cudaLaunchConfig_t cluster_config(int blocks, int cluster, int smem,
+                                  cudaStream_t s, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks * cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 }  // namespace
@@ -886,7 +1374,7 @@ const char* sgd_error_string(int err) {
 // once per instance (the Python side caches the answer).
 int sgd_blocks_per_sm(int loss, int v, int vec4, int d, int dc, int smem,
                       int* out) {
-  const void* fn = kernel_of(loss, v, vec4, d, dc);
+  const void* fn = kernel_of(loss, v, vec4, d, dc, 0);
   if (fn == nullptr || d < 1) return (int)cudaErrorInvalidValue;
   const int bytes = stage1_smem(v, d, smem);
   cudaError_t e = cudaFuncSetAttribute(
@@ -897,22 +1385,41 @@ int sgd_blocks_per_sm(int loss, int v, int vec4, int d, int dc, int smem,
       out, fn, kThreads, (size_t)bytes);
 }
 
+// Clusters of the cluster instance the whole card holds at once (slice ds
+// of width d, `cluster` CTAs of smem bytes each), from
+// cudaOccupancyMaxActiveClusters. Lets the instance use all the dynamic
+// shared memory a block may have first, as sgd_blocks_per_sm does for the
+// others.
+int sgd_clusters_on_card(int loss, int d, int ds, int cluster, int smem,
+                         int* out) {
+  const void* fn = kernel_of(loss, 0, 0, d, ds, cluster);
+  if (fn == nullptr || d < 1 || cluster < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBlockMax);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(1, cluster, smem, 0, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(out, fn, &cfg);
+}
+
 // One SGD round's terms: stage 1 writes `blocks` partial rows of d + 2
 // floats to ws, then (where `combine`) stage 2 writes their sum to the d + 2
-// floats after them; both on `stream`. v, vec4, blocks and the staged or
-// chunked layout (rows, dc, smem, tiles_per_block) are ops/kernels.py's
-// plan.
+// floats after them; both on `stream`. v, vec4, blocks and the staged,
+// cluster or chunked layout (rows, dc, smem, tiles_per_block, cluster) are
+// ops/kernels.py's plan; the cluster instance runs `blocks` clusters of
+// `cluster` CTAs, one partial row each. A launch the card refuses returns
+// its error: there is no other instance to fall back to.
 int sgd_batch_terms(const float* x, const float* y, const float* w,
                     const float* coeffs, float* ws, long long start,
                     long long lb, long long clip, int d, int v, int vec4,
                     int blocks, int rows, int dc, int smem,
-                    long long tiles_per_block, int loss, int combine,
-                    void* stream) {
+                    long long tiles_per_block, int cluster, int loss,
+                    int combine, void* stream) {
   cudaError_t e = check_config(x, start, lb, clip, d, v, vec4, blocks, rows,
-                               dc, smem, tiles_per_block, loss);
+                               dc, smem, tiles_per_block, cluster, loss);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = (cudaStream_t)stream;
-  const void* fn = kernel_of(loss, v, vec4, d, dc);
+  const void* fn = kernel_of(loss, v, vec4, d, dc, cluster);
   int64_t start64 = start, lb64 = lb, clip64 = clip, tpb64 = tiles_per_block;
   float* partials = ws;
   if (v) {
@@ -920,6 +1427,13 @@ int sgd_batch_terms(const float* x, const float* y, const float* w,
                     &d};
     e = cudaLaunchKernel(fn, dim3(blocks), dim3(kThreads), args,
                          (size_t)stage1_smem(v, d, smem), s);
+  } else if (cluster) {
+    void* args[] = {&x,      &y,      &w, &coeffs, &partials, &start64,
+                    &lb64,   &clip64, &d, &dc,     &rows,     &vec4};
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg =
+        cluster_config(blocks, cluster, smem, s, &attr);
+    e = cudaLaunchKernelExC(&cfg, fn, args);
   } else if (staged(d, dc)) {
     void* args[] = {&x,      &y,      &w, &coeffs, &partials, &start64,
                     &lb64,   &clip64, &d, &rows,   &vec4};
@@ -939,5 +1453,12 @@ int sgd_batch_terms(const float* x, const float* y, const float* w,
                             (blocks + kCombSlices - 1) / kCombSlices);
   return (int)cudaGetLastError();
 }
+
+#ifdef SGD_PHASE_CLOCKS
+int sgd_phase_cycles_read(long long* host) {
+  return (int)cudaMemcpyFromSymbol(host, sgd_phase_cycles,
+                                   sizeof(sgd_phase_cycles));
+}
+#endif
 
 }  // extern "C"

@@ -22,9 +22,9 @@ at first use, one library per source:
 - :func:`sgd_batch_terms` (``csrc/sgd_kernels.cu``): one SGD round's
   ``[Σ mult·x | Σ w | Σ loss]`` over the minibatch window, forward dots and
   loss terms fused into the gradient pass, for any feature width, in two
-  fixed-order stages launched by one C entry (per-block partials, then
-  their sum in :func:`reduce_partials`' order; :func:`_sgd_plan` and
-  :func:`sgd_runs` mirror the launch).
+  fixed-order stages launched by one C entry (per-block or per-cluster
+  partials, then their sum in :func:`reduce_partials`' order;
+  :func:`_sgd_plan` and :func:`sgd_runs` mirror the launch).
 - :func:`segment_reduce_sum` (``csrc/segment_kernels.cu``): per-segment sums
   of 1-D or 2-D values, ids outside the domain dropped, in three stages
   launched by one C entry: each row chunk's id range, per-item partials of
@@ -113,6 +113,7 @@ KERNEL_SYMBOLS = {
     "reduce_tile_kernel": "reduce_partials",
     "sgd_rows_kernel": "sgd_batch_terms",
     "sgd_staged_kernel": "sgd_batch_terms",
+    "sgd_cluster_kernel": "sgd_batch_terms",
     "sgd_terms_kernel": "sgd_batch_terms",
     "sgd_combine_kernel": "sgd_batch_terms",
     "segment_ranges_kernel": "segment_reduce_sum",
@@ -383,7 +384,8 @@ SGD_LOSSES = {"logistic": 0, "hinge": 1, "least_square": 2}
 SGD_WARPS = 8
 #: widest row the register instance of stage 1 takes (``kRegCols``): a lane
 #: holds V = ⌈d / 128⌉ ≤ 4 float4s of a row; wider rows take the staged
-#: instance, or the chunked one past what its ring holds
+#: instance, past what its ring holds the cluster one, and past what a
+#: cluster of 8 holds the chunked one
 SGD_REG_COLS = 512
 #: rows a warp of the register instance takes at least before the grid
 #: grows (up to the blocks the card holds at once): its double-buffered
@@ -408,9 +410,15 @@ SGD_THREADS = 256
 SGD_RING = 3
 SGD_STAGE_FLOATS = 8192
 SGD_STAGE_MAX_ROWS = 16
-#: stages a staged block takes at least before the grid grows (up to the
-#: blocks the card holds at once)
+#: stages a staged block (a cluster of the cluster instance) takes at least
+#: before the grid grows (up to what the card holds at once)
 SGD_BLOCK_STAGES = 4
+#: CTAs of a cluster of the cluster instance: Hopper's portable sizes
+#: (``kClusterMax`` the largest)
+SGD_CLUSTER_SIZES = (2, 4, 8)
+#: dynamic shared memory of a CTA at most for two to share an SM: the
+#: SM's 228 KB less 1 KB the runtime keeps a block, halved
+SGD_TWO_PER_SM_BYTES = (233_472 - 2 * 1_024) // 2
 
 
 def _sgd_nreg(d: int) -> int:
@@ -441,6 +449,50 @@ def _sgd_staged_layout(d: int) -> Optional[Tuple[int, int]]:
     return (rows, 4 * floats) if 4 * floats <= SMEM_BLOCK_BYTES else None
 
 
+def _sgd_cluster_slice(d: int, c: int) -> int:
+    """Columns of a cluster CTA's slice at width ``d`` in clusters of ``c``
+    (``cluster_slice``): ⌈d / c⌉ rounded up to a multiple of 4; the last
+    CTA takes the rest."""
+    return (-(-d // c) + 3) // 4 * 4
+
+
+def _sgd_cluster_layout(ds: int) -> Optional[Tuple[int, int]]:
+    """``(rows, smem_bytes)`` of a CTA of the cluster instance whose slice
+    is ``ds`` columns wide, or None where its ring does not fit a block's
+    shared memory (past 13,196 columns). The sizes are the ones the layout
+    comment in ``sgd_kernels.cu`` lists (``cluster_smem_floats``): the
+    staged instance's rows a stage at width ``ds``, ``SGD_RING`` stages of
+    them, each row's slice in a pitch of ⌈(ds + 3) / 4⌉·4 floats (up to 3
+    before it), the stages' mbarriers, each stage's labels and weights,
+    the warps' dot sums of two stages, the multipliers, the row slots'
+    sums, and the sums and coefficients of the slice's columns past the
+    registers."""
+    rows = max(1, min(SGD_STAGE_MAX_ROWS, SGD_STAGE_FLOATS // ds))
+    pitch = (ds + 6) // 4 * 4
+    over = max(0, -(-ds // SGD_THREADS) * SGD_THREADS
+               - SGD_THREADS * _sgd_nreg(ds))
+    floats = (SGD_RING * rows * pitch + 2 * SGD_RING + 2 * SGD_RING * rows
+              + 2 * -(-rows // 4) * 4 * SGD_WARPS + 3 * rows + 2 * over)
+    return (rows, 4 * floats) if 4 * floats <= SMEM_BLOCK_BYTES else None
+
+
+def _sgd_cluster_size(d: int) -> Optional[int]:
+    """CTAs of a cluster of the cluster instance at width ``d``: the
+    smallest of :data:`SGD_CLUSTER_SIZES` whose CTAs fit two an SM
+    (:data:`SGD_TWO_PER_SM_BYTES`; up to 59,136 columns), else the
+    smallest whose slice fits :func:`_sgd_cluster_layout` at all, or None
+    past what a cluster of 8 holds (d > 105,568: the chunked instance).
+    Two an SM hide one CTA's cluster barrier behind the other's work: at d
+    = 16,000 on an H100 clusters of 4 (two an SM) took 0.545 ms where
+    clusters of 2 (one an SM) took 0.818 (scripts/port_sgd_cluster.py,
+    PERF.md)."""
+    layouts = {c: _sgd_cluster_layout(_sgd_cluster_slice(d, c))
+               for c in SGD_CLUSTER_SIZES}
+    fits = [c for c, layout in layouts.items() if layout is not None]
+    two = [c for c in fits if layouts[c][1] <= SGD_TWO_PER_SM_BYTES]
+    return (two or fits or [None])[0]
+
+
 def _sgd_layout(d: int) -> Tuple[int, int, int]:
     """``(rows, dc, smem_bytes)`` of a chunked :func:`sgd_batch_terms`
     block at feature width ``d``: ``dc`` columns staged at once (d itself up
@@ -457,7 +509,7 @@ def _sgd_layout(d: int) -> Tuple[int, int, int]:
 def _sgd_width_class(d: int) -> int:
     """V, the float4s of a row a lane of the register instance holds
     (⌈d / 128⌉), or 0 for rows wider than :data:`SGD_REG_COLS`, which the
-    staged or the chunked instance takes."""
+    staged, the cluster or the chunked instance takes."""
     return -(-d // 128) if d <= SGD_REG_COLS else 0
 
 
@@ -468,11 +520,16 @@ class SgdPlan(NamedTuple):
     registers), "staged" (``sgd_staged_kernel<loss, nreg>``, wider rows
     while :func:`_sgd_staged_layout` fits: each block a contiguous run of
     rows, streamed ``rows`` whole rows a stage, ``dc`` = d, through a ring
-    in ``smem`` bytes) or "chunked" (``sgd_terms_kernel<loss>``, wider
-    still: each block ``tiles_per_block`` tiles of ``rows`` rows, staged
-    ``dc`` columns at a time in ``smem`` bytes); ``blocks`` of the grid, of
-    the ``resident`` the card holds at once; ``vec4`` where rows are read
-    by 16 bytes (the staged instance: where x is 16-byte aligned)."""
+    in ``smem`` bytes), "cluster" (``sgd_cluster_kernel<loss, nreg>``,
+    wider rows while a cluster of 8 holds them: ``blocks`` clusters of
+    ``cluster`` CTAs, each cluster a contiguous run of rows, CTA r the
+    columns [r·dc, (r + 1)·dc) of them, streamed ``rows`` rows a stage
+    through a ring in ``smem`` bytes; ``resident`` counts clusters) or
+    "chunked" (``sgd_terms_kernel<loss>``, wider still: each block
+    ``tiles_per_block`` tiles of ``rows`` rows, staged ``dc`` columns at a
+    time in ``smem`` bytes); ``blocks`` of the grid, of the ``resident``
+    the card holds at once; ``vec4`` where rows are read by 16 bytes (the
+    staged and cluster instances: where x is 16-byte aligned)."""
     instance: str
     v: int
     vec4: int
@@ -482,6 +539,7 @@ class SgdPlan(NamedTuple):
     dc: int
     smem: int
     tiles_per_block: int
+    cluster: int = 0
 
 
 def _sgd_plan(lb: int, d: int, resident: int, vec4: int = 0) -> SgdPlan:
@@ -491,9 +549,11 @@ def _sgd_plan(lb: int, d: int, resident: int, vec4: int = 0) -> SgdPlan:
     that every warp has :data:`SGD_WARP_ROWS` rows, up to ``resident``
     (lb = 100,000 fills the card: about 30 rows a warp on an H100). The
     staged one runs a persistent grid too: enough blocks that every block
-    has :data:`SGD_BLOCK_STAGES` stages, up to ``resident``. The chunked
-    one cuts the window into tiles, at most ``resident`` blocks of them,
-    and no block without rows."""
+    has :data:`SGD_BLOCK_STAGES` stages, up to ``resident``; the cluster
+    one likewise with clusters (``resident`` clusters, in clusters of
+    :func:`_sgd_cluster_size`). The chunked one cuts the window into
+    tiles, at most ``resident`` blocks of them, and no block without
+    rows."""
     v = _sgd_width_class(d)
     if v:
         blocks = max(1, min(resident, -(-lb // (SGD_WARPS * SGD_WARP_ROWS))))
@@ -503,7 +563,27 @@ def _sgd_plan(lb: int, d: int, resident: int, vec4: int = 0) -> SgdPlan:
         rows, smem = staged
         blocks = max(1, min(resident, -(-lb // (SGD_BLOCK_STAGES * rows))))
         return SgdPlan("staged", 0, vec4, blocks, resident, rows, d, smem, 0)
+    c = _sgd_cluster_size(d)
+    if c is not None:
+        return _sgd_cluster_plan(lb, d, resident, vec4, c)
     return _sgd_chunked_plan(lb, d, resident, vec4)
+
+
+def _sgd_cluster_plan(lb: int, d: int, resident: int, vec4: int,
+                      c: int) -> SgdPlan:
+    """The cluster instance's launch in clusters of ``c`` CTAs
+    (:func:`_sgd_plan` past the staged widths with c =
+    :func:`_sgd_cluster_size`; the card check and the sweep also run other
+    sizes, with ``resident`` their own clusters): enough clusters that each
+    has :data:`SGD_BLOCK_STAGES` stages, up to ``resident``."""
+    ds = _sgd_cluster_slice(d, c)
+    layout = _sgd_cluster_layout(ds)
+    if layout is None or c not in SGD_CLUSTER_SIZES:
+        raise ValueError(f"sgd_batch_terms: no cluster of {c} CTAs holds "
+                         f"rows of {d} columns")
+    rows, smem = layout
+    blocks = max(1, min(resident, -(-lb // (SGD_BLOCK_STAGES * rows))))
+    return SgdPlan("cluster", 0, vec4, blocks, resident, rows, ds, smem, 0, c)
 
 
 def _sgd_chunked_plan(lb: int, d: int, resident: int,
@@ -523,9 +603,10 @@ def sgd_runs(plan: SgdPlan, lb: int) -> list:
     in order: every warp of the register instance (``sgd_rows_kernel``: W
     warps in all, warp g the ⌊lb / W⌋ rows from g·⌊lb / W⌋ + min(g, lb mod
     W), one more for the first lb mod W warps), every block of the staged
-    one (``sgd_staged_kernel``: the same rule over its blocks), or every
-    block of the chunked one (``tiles_per_block`` contiguous tiles, the
-    last ragged)."""
+    one (``sgd_staged_kernel``: the same rule over its blocks), every
+    cluster of the cluster one (``sgd_cluster_kernel``: the same rule over
+    its clusters), or every block of the chunked one (``tiles_per_block``
+    contiguous tiles, the last ragged)."""
     if plan.instance != "chunked":
         workers = plan.blocks * (SGD_WARPS if plan.instance == "registers"
                                  else 1)
@@ -1388,8 +1469,10 @@ _SIGNATURES = {
         "sgd_error_string": ([_I], ctypes.c_char_p),
         "sgd_blocks_per_sm": ([_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)],
                               _I),
+        "sgd_clusters_on_card": ([_I, _I, _I, _I, _I, ctypes.POINTER(_I)],
+                                 _I),
         "sgd_batch_terms": ([_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I,
-                             _I, _I, _I, _L, _I, _I, _P], _I),
+                             _I, _I, _I, _L, _I, _I, _I, _P], _I),
     },
     SEGMENT_SOURCE: {
         "segment_error_string": ([_I], ctypes.c_char_p),
@@ -1469,6 +1552,24 @@ def _sgd_resident_blocks(device_index: int, loss: int, v: int, vec4: int,
         "occupancy query")
     return _blocks_on_card(device_index, per_sm.value,
                            f"sgd stage 1 (v={v}, d={d}, {smem} bytes)")
+
+
+@functools.lru_cache(maxsize=None)
+def _sgd_resident_clusters(device_index: int, loss: int, d: int, c: int,
+                           smem: int) -> int:
+    """Clusters of ``c`` CTAs of the sgd cluster instance at width ``d``
+    (``smem`` bytes a CTA) the card holds at once
+    (``cudaOccupancyMaxActiveClusters``). The query also lets the instance
+    use its dynamic shared memory, once per process."""
+    count = ctypes.c_int(0)
+    _raise_on_error(SGD_SOURCE, _lib(SGD_SOURCE).sgd_clusters_on_card(
+        loss, d, _sgd_cluster_slice(d, c), c, smem, ctypes.byref(count)),
+        "occupancy query")
+    if count.value < 1:
+        raise KernelLaunchError(
+            f"no cluster of {c} CTAs of sgd stage 1 ({smem} bytes each) "
+            "fits this card")
+    return count.value
 
 
 def _device_index(t: torch.Tensor) -> int:
@@ -1616,27 +1717,42 @@ def _sgd_plan_on(device_index: int, loss: int, d: int, lb: int,
                  vec4: int) -> SgdPlan:
     """:func:`_sgd_plan` on one card, cached: a fit asks for the same
     window shape every round."""
+    instance = _sgd_instance(d)
+    if instance == "cluster":
+        c = _sgd_cluster_size(d)
+        resident = _sgd_resident_clusters(
+            device_index, loss, d, c,
+            _sgd_cluster_layout(_sgd_cluster_slice(d, c))[1])
+        return _sgd_plan(lb, d, resident, vec4)
     v = _sgd_width_class(d)
-    staged = None if v else _sgd_staged_layout(d)
     if v:
         shape = (128 * v, 0, 0)
-    elif staged is not None:
-        shape = (d, d, staged[1])
+    elif instance == "staged":
+        shape = (d, d, _sgd_staged_layout(d)[1])
     else:
         shape = (d,) + _sgd_layout(d)[1:]
     resident = _sgd_resident_blocks(device_index, loss, v, vec4, *shape)
     return _sgd_plan(lb, d, resident, vec4)
 
 
+def _sgd_instance(d: int) -> str:
+    """The stage-1 instance :func:`_sgd_plan` takes at width ``d``."""
+    if d <= SGD_REG_COLS:
+        return "registers"
+    if _sgd_staged_layout(d) is not None:
+        return "staged"
+    return "cluster" if _sgd_cluster_size(d) is not None else "chunked"
+
+
 def _sgd_card_plan(xl: torch.Tensor, lb: int, loss_name: str) -> SgdPlan:
     """:func:`_sgd_plan` for ``xl``'s card and alignment: rows are read by
     16 bytes from an aligned x at a width that is a multiple of 4, or at
-    any width by the staged instance, which copies each stage as one run
-    from the aligned address at or before it."""
+    any width by the staged and cluster instances, which copy each stage
+    (each row's slice) from the aligned address at or before it."""
     d = xl.shape[1]
-    staged = d > SGD_REG_COLS and _sgd_staged_layout(d) is not None
+    any_width = _sgd_instance(d) in ("staged", "cluster")
     return _sgd_plan_on(_device_index(xl), SGD_LOSSES[loss_name], d, lb,
-                        int((d % 4 == 0 or staged)
+                        int((d % 4 == 0 or any_width)
                             and xl.data_ptr() % 16 == 0))
 
 
@@ -1645,11 +1761,11 @@ def _launch_sgd_terms(xl: torch.Tensor, yl: torch.Tensor, wl: torch.Tensor,
                       loss_name: str, combine: bool = True,
                       plan: Optional[SgdPlan] = None) -> torch.Tensor:
     """One C call: the (blocks + 1, d + 2) workspace, stage 1's per-block
-    partials in its first rows and (where ``combine``, else left unwritten)
-    their fixed-order sum in the last. ``plan`` overrides the card's plan
-    (the card check runs the chunked instance at the staged one's widths
-    with it; the C entry refuses a plan its kernels were not written
-    for)."""
+    (per-cluster) partials in its first rows and (where ``combine``, else
+    left unwritten) their fixed-order sum in the last. ``plan`` overrides
+    the card's plan (the card check runs the chunked instance at narrower
+    widths and the cluster one in other sizes with it; the C entry refuses
+    a plan its kernels were not written for)."""
     d = xl.shape[1]
     with _on_card(xl):
         plan = plan or _sgd_card_plan(xl, lb, loss_name)
@@ -1659,7 +1775,7 @@ def _launch_sgd_terms(xl: torch.Tensor, yl: torch.Tensor, wl: torch.Tensor,
             xl.data_ptr(), yl.data_ptr(), wl.data_ptr(), coeffs.data_ptr(),
             ws.data_ptr(), start, lb, clip, d, plan.v, plan.vec4, plan.blocks,
             plan.rows, plan.dc, plan.smem, plan.tiles_per_block,
-            SGD_LOSSES[loss_name], int(combine), _stream(xl)),
+            plan.cluster, SGD_LOSSES[loss_name], int(combine), _stream(xl)),
             "sgd_batch_terms")
     return ws
 

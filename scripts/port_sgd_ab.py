@@ -43,7 +43,10 @@ on where the allocator placed it. The shapes:
   (lb = 2,991), start 5, clip 3, the windows of ``chip_smoke.py`` phase
   3 (the chunked instance's on a tree without the staged one, the staged
   instance's on a tree with it);
-- ``d=2000``: all 100,000 rows of 100,000 x 2,000 (likewise).
+- ``d=2000``: all 100,000 rows of 100,000 x 2,000 (likewise);
+- ``d=16000``: lb = 20,000 of 40,000 x 16,000 rows (the chunked
+  instance's on a tree without the cluster one, the cluster instance's on
+  a tree with it).
 
 It prints one JSON line: the tree, the card's name and power limit, ptxas'
 registers and spills of each kernel of ``sgd_kernels.cu``, and each
@@ -69,7 +72,8 @@ LOSSES = ("logistic", "hinge", "least_square")
 #: table name -> (rows, d)
 TABLES = {"main": (10_000_000, 100), "d=7": (200_000, 7),
           "d=512": (1_000_000, 512), "d=1500": (100_000, 1_500),
-          "d=6001": (60_000, 6_001), "d=2000": (100_000, 2_000)}
+          "d=6001": (60_000, 6_001), "d=2000": (100_000, 2_000),
+          "d=16000": (40_000, 16_000)}
 #: shape -> (table, start, clip, lb)
 SHAPES = {
     "main": ("main", 0, 0, 100_000),
@@ -81,6 +85,7 @@ SHAPES = {
     "chunked-d": ("d=1500", 5, 3, 4_991),
     "chunked-odd-d": ("d=6001", 5, 3, 2_991),
     "d=2000": ("d=2000", 0, 0, 100_000),
+    "d=16000": ("d=16000", 0, 0, 20_000),
 }
 
 

@@ -485,7 +485,10 @@ def test_member_that_stops_beating_flips_check_within_two_intervals(
     w, r = _namespace(writer), _namespace(reader)
     now = [1.7e9]
     _fake_clock(monkeypatch, (w.fleet, r.fleet), lambda: now[0])
-    path = w.fleet.write_beacon(str(tmp_path), role="serving")
+    # a registry of its own: the process-wide one carries whatever windows
+    # earlier tests left, which --check's fleet SLOs would read
+    path = w.fleet.write_beacon(str(tmp_path), role="serving",
+                                registry=w.mm.MetricsRegistry())
     with open(path) as f:
         stamp = json.load(f)["time"]
     assert stamp == now[0]

@@ -11,7 +11,10 @@ Tolerances, all float32 against float32:
   atol 1e-5, the bound of the JAX package's own kernel test (sums of 16
   rows added in another order), at widths past 512 too (dots of up to
   1,500 terms, the coefficients scaled by 1/√d so that the margins stay
-  near 1);
+  near 1); at 13,210 and 16,000 columns atol 5e-5: a dot of that many
+  terms is about 1.6e-6 off its float64 value, the least-square
+  multiplier (dot − y) passes that on unscaled, and a column sums 32 rows
+  of such products (32 × 1.6e-6 ≈ 5e-5 where the errors share a sign);
 - elementwise terms, regularization and the update rules: rtol 1e-6,
   atol 1e-7 (the same float32 operations, at most an ulp apart where the
   two frameworks round a Python scalar differently);
@@ -101,6 +104,29 @@ def test_wide_plain_batch_terms_match_the_pallas_kernel(loss_name, d):
                                   clip, lb, loss_name)
     assert got.dtype == torch.float32 and got.shape == (d + 2,)
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("loss_name", LOSSES)
+@pytest.mark.parametrize("d", [13_210, 16_000])
+def test_cluster_width_plain_batch_terms_match_the_pallas_kernel(loss_name,
+                                                                 d):
+    """Rows past the staged instance's widths (the cluster instance's on
+    the card): 48 seeded rows, a clipped window of 32 at a tile-aligned
+    start, against the Pallas kernel in interpret mode (rtol 2e-5, atol
+    5e-5: dots of d terms with margins near 1, each about 1.6e-6 off, sums
+    of 32 rows; the module docstring)."""
+    rng = np.random.default_rng(d + 1)
+    n, lb, tile, start, clip = 48, 32, 8, 8, 3
+    xl = rng.normal(size=(n, d)).astype(np.float32)
+    yl = (rng.random(n) > 0.5).astype(np.float32)
+    wl = (rng.random(n) + 0.5).astype(np.float32)
+    coeffs = (rng.normal(size=d) / np.sqrt(d)).astype(np.float32)
+    want = np.asarray(pallas_terms(xl, yl, wl, coeffs, start, clip, lb, tile,
+                                   loss_name, interpret=True))
+    got = kernels.sgd_batch_terms(_t(xl), _t(yl), _t(wl), _t(coeffs), start,
+                                  clip, lb, loss_name)
+    assert got.dtype == torch.float32 and got.shape == (d + 2,)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=5e-5)
 
 
 @pytest.mark.parametrize("loss_name", LOSSES)
@@ -354,8 +380,10 @@ def test_the_sgd_layout_takes_any_width():
     """No width is refused: rows of up to 512 columns take the register
     instance (V = ⌈d / 128⌉ float4s a lane) on a persistent grid, wider
     rows the staged one while its ring fits a block (whole rows, dc = d),
-    wider still the chunked one, staged in chunks of columns that keep a
-    column on one thread (a multiple of 256)."""
+    wider rows the cluster one while a cluster of 8 CTAs holds them (each
+    CTA a slice of dc columns), wider still the chunked one, staged in
+    chunks of columns that keep a column on one thread (a multiple of
+    256)."""
     for d in (1, 7, 100, 128, 129, 256, 300, 511, 512):
         plan = kernels._sgd_plan(100_000, d, 396)
         assert plan.instance == "registers" and plan.v == -(-d // 128)
@@ -369,7 +397,17 @@ def test_the_sgd_layout_takes_any_width():
         assert (plan.rows, plan.smem, plan.tiles_per_block) == (rows, smem, 0)
         assert 1 <= rows <= 16 and smem <= kernels.SMEM_BLOCK_BYTES
         assert plan.blocks <= 792
-    for d in (13_210, 10 ** 5, 10 ** 7):
+    for d in (13_210, 16_000, 10 ** 5, 105_568):
+        plan = kernels._sgd_plan(100_000, d, 66)
+        c = kernels._sgd_cluster_size(d)
+        rows, smem = kernels._sgd_cluster_layout(plan.dc)
+        assert plan.instance == "cluster" and plan.v == 0 and plan.cluster == c
+        assert plan.dc == kernels._sgd_cluster_slice(d, c) and plan.dc % 4 == 0
+        assert (c - 1) * plan.dc < d <= c * plan.dc
+        assert (plan.rows, plan.smem, plan.tiles_per_block) == (rows, smem, 0)
+        assert 1 <= rows <= 16 and smem <= kernels.SMEM_BLOCK_BYTES
+        assert plan.blocks <= 66
+    for d in (105_569, 10 ** 6, 10 ** 7):
         plan = kernels._sgd_plan(100_000, d, 792)
         rows, dc, smem = kernels._sgd_layout(d)
         assert plan.instance == "chunked" and plan.v == 0
@@ -380,18 +418,21 @@ def test_the_sgd_layout_takes_any_width():
         assert dc % 256 == 0 and plan.blocks <= 792
 
 
-@pytest.mark.parametrize("d", [7, 100, 512, 513, 2_000, 6_001, 20_000])
+@pytest.mark.parametrize("d", [7, 100, 512, 513, 2_000, 6_001, 20_000,
+                               60_001, 120_000])
 @pytest.mark.parametrize("lb", [1, 31, 100, 100_003])
 def test_the_sgd_plan_covers_the_window_once(lb, d):
     """Stage 1's workers (warps of the register instance, blocks of the
-    staged and the chunked one) take contiguous runs that cover [0, lb)
-    once, in order; the register and staged instances' runs differ by at
-    most one row, and their grids give every warp SGD_WARP_ROWS rows (every
-    staged block SGD_BLOCK_STAGES stages) or fill the card."""
+    staged and the chunked one, clusters of the cluster one) take
+    contiguous runs that cover [0, lb) once, in order; the register,
+    staged and cluster instances' runs differ by at most one row, and
+    their grids give every warp SGD_WARP_ROWS rows (every staged block or
+    cluster SGD_BLOCK_STAGES stages) or fill the card."""
     resident = 396
     plan = kernels._sgd_plan(lb, d, resident)
     assert plan.instance == ("registers" if d <= 512 else
-                             "staged" if d <= 13_209 else "chunked")
+                             "staged" if d <= 13_209 else
+                             "cluster" if d <= 105_568 else "chunked")
     assert 1 <= plan.blocks <= resident
     runs = kernels.sgd_runs(plan, lb)
     assert runs[0][0] == 0 and runs[-1][1] == lb
@@ -402,7 +443,7 @@ def test_the_sgd_plan_covers_the_window_once(lb, d):
         assert max(lengths) - min(lengths) <= 1
         assert (plan.blocks == resident or plan.blocks == -(-lb // (
             kernels.SGD_WARPS * kernels.SGD_WARP_ROWS)))
-    elif plan.instance == "staged":
+    elif plan.instance in ("staged", "cluster"):
         assert len(runs) == plan.blocks and min(lengths) >= 1
         assert max(lengths) - min(lengths) <= 1
         assert (plan.blocks == resident or plan.blocks == -(-lb // (
@@ -419,15 +460,19 @@ def test_the_sgd_plan_covers_the_window_once(lb, d):
     (2_049, "staged", 16, 3), (4_096, "staged", 16, 2),
     (4_097, "staged", 16, 1), (8_192, "staged", 16, 1),
     (8_193, "staged", 16, 1), (13_209, "staged", 16, 1),
-    (13_210, "chunked", 0, 16)])
+    (13_210, "cluster", 16, 1), (105_665, "chunked", 0, 16)])
 def test_the_sgd_plan_routes_each_width(d, instance, nreg, rows):
     """Which stage-1 instance each width takes, at the edges: the staged
     instance's columns a thread keeps in registers (4, 8, 16: past 4,096
     columns the rest sit in shared memory), its rows a stage (32 KB
     of x, 16 rows at most, one row past 8,192 floats), and the widest row
-    whose three-stage ring fits a block's 232,448 bytes."""
+    whose three-stage ring fits a block's 232,448 bytes; past it the
+    cluster instance (the next test), past a cluster of 8 the chunked
+    one."""
     plan = kernels._sgd_plan(100_000, d, 264)
     assert plan.instance == instance and plan.rows == rows
+    if instance == "cluster":
+        assert kernels._sgd_nreg(plan.dc) == nreg and plan.cluster == 2
     if instance != "staged":
         return
     assert kernels._sgd_nreg(d) == nreg
@@ -438,17 +483,88 @@ def test_the_sgd_plan_routes_each_width(d, instance, nreg, rows):
     assert plan.dc == d and plan.blocks == 264
 
 
+@pytest.mark.parametrize("d,c,ds", [
+    (13_210, 2, 6_608), (14_784, 2, 7_392), (14_785, 4, 3_700),
+    (16_000, 4, 4_000), (29_568, 4, 7_392), (29_569, 8, 3_700),
+    (59_136, 8, 7_392), (59_137, 8, 7_396), (100_000, 8, 12_500),
+    (105_568, 8, 13_196), (105_569, None, 0)])
+def test_the_cluster_plan_routes_each_width(d, c, ds):
+    """Past the staged widths each width takes the smallest cluster (2, 4
+    or 8 CTAs) whose CTAs, each a slice of ⌈d / c⌉ columns rounded up to
+    4, fit two an SM (a three-stage ring beside the warps' sums of two
+    stages, in at most half the SM's shared memory); where none does, the
+    smallest whose CTA fits at all. At the edges: two an SM up to a slice
+    of 7,392 columns, one up to 13,196, and past a cluster of 8 the
+    chunked instance."""
+    assert kernels._sgd_cluster_size(d) == c
+    plan = kernels._sgd_plan(100_000, d, 66)
+    if c is None:
+        assert plan.instance == "chunked" and plan.cluster == 0
+        assert kernels._sgd_cluster_layout(
+            kernels._sgd_cluster_slice(d, 8)) is None
+        return
+    assert plan.instance == "cluster" and plan.cluster == c and plan.dc == ds
+    rows = max(1, min(16, 8192 // ds))
+    pitch = (ds + 6) // 4 * 4  # up to 3 floats before a row's slice
+    over = max(0, -(-ds // 256) * 256 - 256 * kernels._sgd_nreg(ds))
+    floats = (3 * rows * pitch + 6 + 6 * rows + 2 * -(-rows // 4) * 4 * 8
+              + 3 * rows + 2 * over)
+    assert plan.rows == rows and plan.smem == 4 * floats
+    assert plan.smem <= kernels.SMEM_BLOCK_BYTES and plan.blocks == 66
+    two = kernels.SGD_TWO_PER_SM_BYTES
+    assert two == (228 * 1024 - 2 * 1024) // 2
+    # no smaller cluster takes the row two an SM (or at all, where this
+    # one does not fit two)
+    for smaller in (s for s in kernels.SGD_CLUSTER_SIZES if s < c):
+        layout = kernels._sgd_cluster_layout(kernels._sgd_cluster_slice(
+            d, smaller))
+        assert layout is None or (plan.smem <= two < layout[1])
+    if plan.smem > two:
+        assert c == 8
+    assert kernels._sgd_cluster_layout(13_196) is not None
+    assert kernels._sgd_cluster_layout(13_200) is None
+
+
+@pytest.mark.parametrize("c", [2, 4, 8])
+@pytest.mark.parametrize("lb", [1, 7, 4_999, 100_003])
+@pytest.mark.parametrize("d", [16_000, 50_001])
+def test_the_cluster_plan_covers_the_window_once(d, lb, c):
+    """Any cluster size the card check runs by hand: the clusters' runs
+    cover [0, lb) once, in order, at most one row apart, as many clusters
+    as give each SGD_BLOCK_STAGES stages or as the card holds; each CTA's
+    slice of the row is nonempty and the slices cover [0, d)."""
+    ds = kernels._sgd_cluster_slice(d, c)
+    if kernels._sgd_cluster_layout(ds) is None:
+        with pytest.raises(ValueError, match="no cluster"):
+            kernels._sgd_cluster_plan(lb, d, 66, 1, c)
+        return
+    plan = kernels._sgd_cluster_plan(lb, d, 66, 1, c)
+    assert plan.instance == "cluster" and plan.cluster == c and plan.vec4 == 1
+    runs = kernels.sgd_runs(plan, lb)
+    assert len(runs) == plan.blocks and runs[0][0] == 0 and runs[-1][1] == lb
+    assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+    lengths = [r1 - r0 for r0, r1 in runs]
+    assert min(lengths) >= 1 and max(lengths) - min(lengths) <= 1
+    assert plan.blocks == min(66, -(-lb // (kernels.SGD_BLOCK_STAGES
+                                            * plan.rows)))
+    slices = [(r * ds, min(d, (r + 1) * ds)) for r in range(c)]
+    assert all(a < b for a, b in slices) and slices[-1][1] == d
+
+
 def test_the_staged_instance_reads_any_width_by_16_bytes(monkeypatch):
     """The card plan reads rows by 16 bytes from an aligned x at a width
-    that is a multiple of 4, and at any width the staged instance takes
-    (a stage is one contiguous run, copied from the aligned address at or
-    before it); never from an unaligned x."""
+    that is a multiple of 4, and at any width the staged and cluster
+    instances take (a stage is one contiguous run, a row's slice too,
+    copied from the aligned address at or before it); never from an
+    unaligned x."""
     monkeypatch.setattr(kernels, "_device_index", lambda t: 0)
     monkeypatch.setattr(kernels, "_sgd_resident_blocks", lambda *a: 264)
+    monkeypatch.setattr(kernels, "_sgd_resident_clusters", lambda *a: 66)
     kernels._sgd_plan_on.cache_clear()
     try:
         for d, vec4 in [(7, 0), (100, 1), (513, 1), (514, 1), (6_001, 1),
-                        (13_210, 0), (13_212, 1)]:
+                        (13_210, 1), (13_212, 1), (50_001, 1),
+                        (105_665, 0), (105_668, 1)]:
             x = torch.zeros(3 * d + 1)
             assert x.data_ptr() % 16 == 0
             plan = kernels._sgd_card_plan(x[:3 * d].view(3, d), 2, "hinge")
@@ -500,10 +616,11 @@ class _FakeSgdLibrary:
         self.n, self.calls = n, []
 
     def sgd_batch_terms(self, x, y, w, coeffs, ws, start, lb, clip, d, v,
-                        vec4, blocks, rows, dc, smem, tiles_per_block, loss,
-                        combine, stream):
+                        vec4, blocks, rows, dc, smem, tiles_per_block,
+                        cluster, loss, combine, stream):
         self.calls.append(dict(start=start, lb=lb, clip=clip, d=d, v=v,
-                               blocks=blocks, loss=loss, combine=combine))
+                               blocks=blocks, cluster=cluster, loss=loss,
+                               combine=combine))
 
         def tensor(ptr, count):
             arr = (ctypes.c_float * count).from_address(ptr)
@@ -518,7 +635,7 @@ class _FakeSgdLibrary:
         return 0
 
 
-@pytest.mark.parametrize("d", [5, 600])
+@pytest.mark.parametrize("d", [5, 600, 16_000])
 def test_one_c_call_per_round_on_the_card_path(monkeypatch, d):
     """On the card path every round is one call of the C entry, with both
     stages (combine = 1) and the plan's instance, and no reduce_partials
@@ -533,6 +650,7 @@ def test_one_c_call_per_round_on_the_card_path(monkeypatch, d):
     monkeypatch.setattr(kernels, "_stream", lambda t: 0)
     monkeypatch.setattr(kernels, "_device_index", lambda t: 0)
     monkeypatch.setattr(kernels, "_sgd_resident_blocks", lambda *a: 264)
+    monkeypatch.setattr(kernels, "_sgd_resident_clusters", lambda *a: 264)
     kernels.reset_launch_counts()
     prm = optimizer.SGDParams(max_iter=5, global_batch_size=30, reg=0.01)
     card = optimizer.sgd_rounds(kernels.sgd_batch_terms, "logistic", prm,
@@ -545,7 +663,10 @@ def test_one_c_call_per_round_on_the_card_path(monkeypatch, d):
     for call in fake.calls:
         assert call["combine"] == 1 and call["d"] == d and call["v"] == v
         assert call["loss"] == kernels.SGD_LOSSES["logistic"]
-        assert call["blocks"] == kernels._sgd_plan(call["lb"], d, 264).blocks
+        plan = kernels._sgd_plan(call["lb"], d, 264)
+        assert call["blocks"] == plan.blocks
+        assert call["cluster"] == plan.cluster
+        assert (plan.cluster > 0) == (d > 13_209)
     monkeypatch.setattr(kernels, "_is_cuda", lambda t: False)
     plain = optimizer.sgd_rounds(kernels.sgd_batch_terms, "logistic", prm,
                                  _t(x), _t(y), _t(w), torch.zeros(d))
