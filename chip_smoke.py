@@ -50,23 +50,28 @@ Phases, each of which fails the run (no result line, nonzero exit):
    the clipped window at the end, a ragged window, a one-row window,
    zero-weight rows, an odd width, and margins that overflow exp for the
    logistic loss, printing each case's launch plan (register, staged,
-   cluster or chunked instance, grid); rows wider than 512 columns: the
-   staged instance at d = 513, 1,500, 2,000 and 6,001, the cluster one at
-   d = 13,210, 16,000, 50,001 and 100,000 (clusters of 2, 4, 8 and 8) and
-   the chunked one at d = 106,000, at full, ragged, end-clipped and
-   one-row windows, the staged and cluster instances from an x 4 bytes
-   off alignment too, the chunked instance run by hand at the staged
-   widths and at 16,000, and at 16,000 every cluster size by hand; the C
-   entry's output must equal ``reduce_partials_plain`` of the partials
-   the same call wrote, bit for bit; time the whole call and its first
-   stage alone, eagerly and as device times (``device_ms``,
+   cluster, grid or chunked instance, grid); rows wider than 512 columns:
+   the staged instance at d = 513, 1,500, 2,000 and 6,001, the cluster
+   one at d = 13,210, 16,000, 50,001 and 100,000 (clusters of 2, 4, 8 and
+   8), the grid one at d = 106,000, 131,072, 150,001, 262,144 and
+   1,048,576 and the chunked one past the grid's widths at d = 2,500,000,
+   at full, ragged, end-clipped and one-row windows, the staged, cluster
+   and grid instances from an x 4 bytes off alignment too, the chunked
+   instance run by hand at the staged widths and at 16,000, and at 16,000
+   every cluster size by hand; the C entry's output must equal
+   ``reduce_partials_plain`` of the partials the same call wrote, bit for
+   bit (the grid's one partial row too); time the whole call and its
+   first stage alone, eagerly and as device times (``device_ms``,
    ``stage1_device_ms`` and ``library_device_ms`` of its row in the
    kernels line), the staged instance at lb = 100,000 and d = 2,000 (its
-   own row), 1,500 and 6,001, and the cluster instance at d = 16,000, lb
-   = 20,000 (its own row) and at 13,210, 50,001 and 100,000 (windows of
-   the same 1.28 GB), each beside the chunked instance at the same
-   windows and the library pair (``x @ c``, then ``xᵀ @ mult`` with the
-   multipliers given); the timed calls move their window on by lb each
+   own row), 1,500 and 6,001, the cluster instance at d = 16,000, lb =
+   20,000 (its own row) and at 13,210, 50,001 and 100,000 (windows of the
+   same 1.28 GB), and the grid instance at d = 262,144, lb = 1,220 (its
+   own row) and at 106,000, 131,072 and 1,048,576 (windows of the same
+   1.28 GB), each beside the chunked instance at the same windows and the
+   library pair (``x @ c``, then ``xᵀ @ mult`` with the multipliers
+   given), and the grid instance by hand at 50,001 and 100,000 beside the
+   cluster instance; the timed calls move their window on by lb each
    call, so none finds its rows in L2;
 4. drive the KMeans main path as a user would: the benchmark runner on
    ``flink_ml_tpu/benchmark/configs/kmeans-benchmark.json`` (KMeans fit at
@@ -451,7 +456,7 @@ Phases, each of which fails the run (no result line, nonzero exit):
     and COEFF_ATOL, KMeans within CENTROID_ATOL and LABEL_AGREEMENT; prints
     each stage's ms on 8 shards and with no mesh (line ``feature mesh:
     {...}``);
-23. the long-list KNN and the staged and cluster SGD instances through
+23. the long-list KNN and the staged, cluster and grid SGD instances through
     the port's entry points, each with the counts at 0: the runner on
     ``knn-benchmark.json`` with k = 50 (10,000,000 x 32 against 50,000),
     then transform of the same table, 73,333 of its predictions against
@@ -461,7 +466,10 @@ Phases, each of which fails the run (no result line, nonzero exit):
     shape at 2,000 features (1,000,000 rows, 20 rounds of 100,000), then
     a fit of the same table held against a plain PyTorch fit on the card;
     the same at 16,000 features over 100,000 rows (the cluster instance:
-    every round takes all the rows, 6.4 GB), its fit time printed;
+    every round takes all the rows, 6.4 GB), and at 262,144 features over
+    10,000 rows (the grid instance: 2^18, a 512 × 512 image flattened, or
+    Flink ML's HashingTF default width; every round all the rows, 10.5
+    GB), each fit's time printed;
 24. KMeans at embedding widths through the runner and the estimators, with
     the counts at 0: ``kmeans-benchmark.json`` with only ``vectorDim`` and
     ``k`` changed (1,000,000 rows, maxIter 10, seed 2, generated on the
@@ -481,8 +489,8 @@ Phases, each of which fails the run (no result line, nonzero exit):
     Launches ``PATH_KERNELS["kmeans_wide"]``, no ``reduce_partials``;
 25. print one ``{"kernels": [...]}`` line with every kernel's launches in
     its main-path runs (in all and by path), error, times and bound, and
-    rows of their own for the long-list KNN, radix KNN, staged and
-    cluster SGD instances (launches from phase 23) and the tiled KMeans
+    rows of their own for the long-list KNN, radix KNN, staged, cluster
+    and grid SGD instances (launches from phase 23) and the tiled KMeans
     route
     (launches from phase 24), then the result line.
 
@@ -657,11 +665,13 @@ PATH_KERNELS = {
                      "assign_nearest", "sgd_batch_terms"),
     # phase 23: a KNN transform at k = 50 (the long-list instance), one at
     # k = 300 (the radix route), and LR fits at 2,000 features (the staged
-    # instance) and at 16,000 (the cluster instance)
+    # instance), at 16,000 (the cluster instance) and at 262,144 (the grid
+    # instance)
     "knn_long": ("knn_topk_indices",),
     "knn_wide": ("knn_topk_indices",),
     "linear_wide": ("sgd_batch_terms",),
     "linear_cluster": ("sgd_batch_terms",),
+    "linear_grid": ("sgd_batch_terms",),
     # phase 24: KMeans fits, transforms and an OnlineKMeans stream at
     # embedding widths, all on the tiled route (no reduce_partials)
     "kmeans_wide": ("assign_nearest", "lloyd_partial_sums"),
@@ -673,16 +683,19 @@ INSTANCE_ROWS = (("knn_topk_indices[long]", "knn_topk_indices", "knn_long"),
                   "linear_wide"),
                  ("sgd_batch_terms[cluster]", "sgd_batch_terms",
                   "linear_cluster"),
+                 ("sgd_batch_terms[grid]", "sgd_batch_terms", "linear_grid"),
                  ("assign_nearest[tiled]", "assign_nearest", "kmeans_wide"),
                  ("lloyd_partial_sums[tiled]", "lloyd_partial_sums",
                   "kmeans_wide"))
 # phase 23: the KNN transforms' k (the long-list instance and the radix
 # route), the test rows whose lists are held against the plain version at
 # k = 300, and the LR fits' widths and rows (the staged instance's, then
-# the cluster instance's: the config's globalBatchSize takes every row)
+# the cluster and grid instances': the config's globalBatchSize takes
+# every row)
 LONG_PATH_K, WIDE_PATH_K, WIDE_PATH_CHECKED = 50, 300, 4_096
 WIDE_PATH_D, WIDE_PATH_ROWS = 2_000, 1_000_000
 CLUSTER_PATH_D, CLUSTER_PATH_ROWS = 16_000, 100_000
+GRID_PATH_D, GRID_PATH_ROWS = 262_144, 10_000
 # phase 2's tiled KMeans route: the cases (n, d, k, share of zero weights,
 # tag); the skewed table (n, d, k, share of rows drawn around centroid 0);
 # the shape its kernels line rows are timed at (phase 24 (a)); the shapes
@@ -1506,10 +1519,9 @@ def phase_sgd_kernels(K):
     # the C entry's second stage against the plain order of its own
     # partials, for every loss
     for loss in LOSSES:
-        ws = K._launch_sgd_terms(x, y, w, c, 0, 0, lb, loss)
-        assert torch.equal(ws[-1], K.reduce_partials_plain(ws[:-1])), (
+        assert combine_matches_plain(K, x, y, w, c, 0, 0, lb, loss), (
             f"{loss}: the combine differs from reduce_partials_plain")
-    blocks = ws.shape[0] - 1
+    blocks = K._sgd_card_plan(x, lb, loss).blocks
     log(f"  sgd combine of ({blocks}, {d + 2}) partials: bit-identical to "
         "reduce_partials_plain for every loss")
     loss = "logistic"
@@ -1567,6 +1579,7 @@ def phase_sgd_kernels(K):
     staged, cluster = time_wide_sgd(K, rand)
     measured["sgd_batch_terms[staged]"].update(staged)
     measured["sgd_batch_terms[cluster]"].update(cluster)
+    measured["sgd_batch_terms[grid]"].update(time_grid_sgd(K, rand))
     return measured
 
 
@@ -1592,26 +1605,39 @@ def cluster_sgd_plan(K, x, lb, loss, c):
                                c)
 
 
+def combine_matches_plain(K, *call):
+    """True where the C entry's output row equals reduce_partials_plain of
+    its stage 1's partial rows (a second call, which stops after stage 1)
+    bit for bit. Where stage 1 writes one row (the grid instance), it
+    writes it as the output itself and no combine runs."""
+    part = K._launch_sgd_terms(*call, combine=False)[:-1]
+    return torch.equal(K._launch_sgd_terms(*call)[-1],
+                       K.reduce_partials_plain(part))
+
+
 def check_wide_sgd(K, rand, y, w):
     """Rows wider than the register instance takes: the staged instance at
     d = 513, 1,500, 2,000 and 6,001, the cluster one at 13,210, 16,000,
-    50,001 and 100,000, and the chunked one past a cluster of 8 (d =
-    106,000), for every loss, at full, ragged, end-clipped and one-row
-    windows, each against its plain version, rerun bit for bit, the C
-    entry's combine bit for bit against reduce_partials_plain of its
-    partials; the staged and cluster instances from an x 4 bytes off
-    16-byte alignment too (rerun bit for bit), the chunked instance run by
-    hand at the staged widths and at 16,000 beside them, and at 16,000
-    every cluster size by hand."""
+    50,001 and 100,000, the grid one past a cluster of 8 at 106,000,
+    131,072, 150,001 (d % 4 = 1), 262,144 and 1,048,576, and the chunked
+    one past the grid's widths (d = 2,500,000), for every loss, at full,
+    ragged, end-clipped and one-row windows, each against its plain
+    version, rerun bit for bit, the C entry's combine bit for bit against
+    reduce_partials_plain of its partials; the staged, cluster and grid
+    instances from an x 4 bytes off 16-byte alignment too (rerun bit for
+    bit), the chunked instance run by hand at the staged widths and at
+    16,000 beside them, and at 16,000 every cluster size by hand."""
     measured = {}
-    errs = {"staged": [], "cluster": []}
+    errs = {"staged": [], "cluster": [], "grid": []}
     for dd, rows in [(513, 6_000), (1_500, 5_000), (2_000, 4_000),
                      (6_001, 3_000), (13_210, 1_200), (16_000, 1_000),
-                     (50_001, 400), (100_000, 300), (106_000, 200)]:
+                     (50_001, 400), (100_000, 300), (106_000, 400),
+                     (131_072, 320), (150_001, 280), (262_144, 160),
+                     (1_048_576, 48), (2_500_000, 40)]:
         xd = rand(rows, dd)
         cd = (rand(dd) - 0.5) / dd ** 0.5
         yd, wd = y[:rows].contiguous(), w[:rows].contiguous()
-        instance = K._sgd_instance(dd)
+        instance = K._sgd_card_instance(0, dd)[0]
         # the same rows from an x whose rows start 4 bytes off alignment
         flat = torch.empty(rows * dd + 1, device="cuda")
         xu = flat[1:].view(rows, dd)
@@ -1627,8 +1653,8 @@ def check_wide_sgd(K, rand, y, w):
                                       loss, f"d={dd} {tag}")
                 if instance in errs:
                     errs[instance].append(err)
-            ws = K._launch_sgd_terms(xd, yd, wd, cd, 5, 3, rows - 9, loss)
-            assert torch.equal(ws[-1], K.reduce_partials_plain(ws[:-1])), (
+            assert combine_matches_plain(
+                K, xd, yd, wd, cd, 5, 3, rows - 9, loss), (
                 f"d={dd} {loss}: the combine differs from "
                 "reduce_partials_plain")
             if instance == "chunked":
@@ -1817,6 +1843,107 @@ def time_cluster_sgd(K, rand):
         log(f"  sgd_batch_terms cluster @ lb={lb:,} of {n:,} x {dd:,}: "
             f"{json.dumps(row)}; at {b_ms / row['device_ms']:.1%} of its "
             "bound")
+        del x, y, w, mult
+        torch.cuda.empty_cache()
+    return out
+
+
+def grid_sgd_plan(K, x, loss):
+    """The grid instance's plan for x at any width a grid of one CTA an SM
+    holds (run by hand at the cluster instance's widths): one CTA on each
+    of the card's SMs, once the occupancy query finds that one fits."""
+    d, sms = x.shape[1], K._card_sms(0)
+    K._sgd_resident_grid(0, K.SGD_LOSSES[loss], d,
+                         K._sgd_grid_layout(d, sms)[1])
+    return K._sgd_grid_plan(d, sms, int(x.data_ptr() % 16 == 0))
+
+
+def time_grid_sgd(K, rand):
+    """The kernels line's row of the grid instance: at d = 262,144, lb =
+    1,220 (each call the next window of a 2,440-row table, cold in L2),
+    eagerly and as device time, the whole call and stage 1, beside the
+    chunked instance at the same windows (the earlier design at these
+    widths, ``before_*``), the plain version and the library pair (x @ c,
+    then xᵀ @ mult given the multipliers); then the same device times,
+    bound, library pair and chunked instance at d = 106,000, 131,072 and
+    1,048,576, windows of the same 1.28 GB; and the grid instance by hand
+    at d = 50,001 and 100,000 beside the cluster instance the plan takes
+    there."""
+    from flink_ml_tpu_torch.ops.losses import LossFunc
+
+    loss = "logistic"
+    out = {}
+    for dd, lb in [(262_144, 1_220), (106_000, 3_019), (131_072, 2_441),
+                   (1_048_576, 305), (50_001, 6_400), (100_000, 3_200)]:
+        n = 2 * lb
+        x, y, w = rand(n, dd), torch.floor(rand(n) * 2), rand(n)
+        c = (rand(dd) - 0.5) / dd ** 0.5
+        plan = K._sgd_card_plan(x, lb, loss)
+        mult = LossFunc.by_name(loss).terms(x @ c, y, w)[1]
+
+        def call(plan=None, combine=True):
+            starts = rolling_starts(n, lb)
+            return lambda: K._launch_sgd_terms(x, y, w, c, starts(), 0, lb,
+                                               loss, combine=combine,
+                                               plan=plan)
+
+        def library():
+            starts = rolling_starts(n, lb)
+
+            def run():
+                s = starts()
+                xb = x[s:s + lb]
+                torch.mv(xb, c)  # the forward dots, then the gradient
+                return torch.mv(xb.T, mult[s:s + lb])
+            return run
+
+        b_ms, b_by = bound_ms(*K.launch_cost("sgd_batch_terms", lb=lb,
+                                             d=dd))
+        row = {"device_ms": graph_ms(call()),
+               "stage1_device_ms": graph_ms(call(combine=False)),
+               "library_device_ms": graph_ms(library()),
+               "bound_ms": b_ms, "bound_by": b_by, "lb": lb,
+               "instance": plan.instance, "grid": plan.grid,
+               "rows_per_stage": plan.rows, "slice": plan.dc}
+        if plan.instance == "cluster":
+            gplan = grid_sgd_plan(K, x, loss)
+            got = K._launch_sgd_terms(x, y, w, c, 0, 0, lb, loss, plan=gplan)
+            row.update({
+                "grid_by_hand_device_ms": graph_ms(call(gplan)),
+                "grid_by_hand_stage1_device_ms": graph_ms(call(gplan, False)),
+                "grid_by_hand_max_abs_err": within_sum_tol(
+                    got[-1], K.sgd_batch_terms_plain(x, y, w, c, 0, 0, lb,
+                                                     loss),
+                    f"grid by hand d={dd:,}")})
+        else:
+            assert plan.instance == "grid", plan
+            cplan = chunked_sgd_plan(K, x, lb, loss)
+            # the chunked instance takes 2.5-21 ms a call here: fewer
+            # calls a graph keep phase 3 short
+            row.update({
+                "before_device_ms": graph_ms(call(cplan), reps=4),
+                "before_stage1_device_ms": graph_ms(call(cplan, False),
+                                                    reps=4)})
+        if dd == 262_144:
+            starts = rolling_starts(n, lb)
+            got = K.sgd_batch_terms(x, y, w, c, 0, 0, lb, loss)
+            want = K.sgd_batch_terms_plain(x, y, w, c, 0, 0, lb, loss)
+            cplan = chunked_sgd_plan(K, x, lb, loss)
+            row.update({
+                "ms": time_ms(lambda: K.sgd_batch_terms(
+                    x, y, w, c, starts(), 0, lb, loss)),
+                "plain_ms": time_ms(lambda s=rolling_starts(n, lb): (
+                    K.sgd_batch_terms_plain(x, y, w, c, s(), 0, lb, loss))),
+                "library_ms": time_ms(library()),
+                "before_ms": time_ms(call(cplan)),
+                "max_abs_err": within_sum_tol(got, want, "grid d=262,144")})
+            out = {key: row[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "device_ms", "stage1_device_ms", "library_device_ms",
+                "before_ms", "before_device_ms", "before_stage1_device_ms")}
+        log(f"  sgd_batch_terms grid @ lb={lb:,} of {n:,} x {dd:,}: "
+            f"{json.dumps(row)}; the planned {plan.instance} instance at "
+            f"{b_ms / row['device_ms']:.1%} of its bound")
         del x, y, w, mult
         torch.cuda.empty_cache()
     return out
@@ -2649,15 +2776,15 @@ def _knn_wide_path(K, runner, knn_mod):
 
 
 def phase_long_instances(K, runner, optimizer):
-    """Phase 23: the long-list KNN, the staged and cluster SGD instances,
-    and the KNN radix route, through the runner and the estimators, each
-    path with the counts at 0 just before it and read just after; returns
-    the four paths' counts."""
+    """Phase 23: the long-list KNN, the staged, cluster and grid SGD
+    instances, and the KNN radix route, through the runner and the
+    estimators, each path with the counts at 0 just before it and read
+    just after; returns the five paths' counts."""
     import copy
 
     from flink_ml_tpu_torch.models.classification import knn as knn_mod
 
-    log("phase 23: the long-list KNN and the staged and cluster SGD "
+    log("phase 23: the long-list KNN and the staged, cluster and grid SGD "
         "instances through the port's entry points")
     started = time.perf_counter()
     spec = copy.deepcopy(
@@ -2712,8 +2839,10 @@ def phase_long_instances(K, runner, optimizer):
                                  WIDE_PATH_ROWS, "staged")
     cluster_counts = _wide_lr_fit(K, runner, optimizer, CLUSTER_PATH_D,
                                   CLUSTER_PATH_ROWS, "cluster")
+    grid_counts = _wide_lr_fit(K, runner, optimizer, GRID_PATH_D,
+                               GRID_PATH_ROWS, "grid")
     log(f"  phase 23: {time.perf_counter() - started:.1f} s")
-    return knn_counts, wide_counts, linear_counts, cluster_counts
+    return knn_counts, wide_counts, linear_counts, cluster_counts, grid_counts
 
 
 def _wide_lr_fit(K, runner, optimizer, d, rows, instance):
@@ -7473,7 +7602,8 @@ def main() -> int:
                                                              card)
     counts["feature_mesh"] = phase_feature_mesh(K, runner, card)
     (counts["knn_long"], counts["knn_wide"], counts["linear_wide"],
-     counts["linear_cluster"]) = phase_long_instances(K, runner, optimizer)
+     counts["linear_cluster"],
+     counts["linear_grid"]) = phase_long_instances(K, runner, optimizer)
     counts["kmeans_wide"] = phase_kmeans_wide(K, runner, kmeans_mod, Table)
 
     # step 25: the kernels line

@@ -6,9 +6,10 @@
 //   sgd_rows_kernel<LOSS, V, VEC4>  <- _sgd_terms_kernel (:206), pallas_call
 //   sgd_staged_kernel<LOSS, NREG>      at :282 (rows of at most kRegCols
 //   sgd_cluster_kernel<LOSS, NREG>     columns; wider rows as far as shared
-//   sgd_terms_kernel<LOSS>             memory holds a ring of them; wider
-//                                      rows split over a cluster of 2, 4 or
-//                                      8 CTAs; wider still)
+//   sgd_grid_kernel<LOSS, NREG, ROWS>  memory holds a ring of them; wider
+//   sgd_terms_kernel<LOSS>             rows split over a cluster of 2, 4 or
+//                                      8 CTAs; wider rows split over every
+//                                      CTA the card holds; wider still)
 //   sgd_combine_kernel              <- the accumulation of _sgd_terms_kernel
 //                                      into out_ref across sequential grid
 //                                      steps (:231)
@@ -99,7 +100,59 @@
 // up clock64() per phase of its stages (sgd_phase_cycles_read;
 // scripts/port_sgd_cluster.py builds and reads it).
 //
-// Stage 1, rows wider than a cluster of kClusterMax holds (sgd_terms_kernel,
+// Stage 1, rows wider than a cluster of kClusterMax holds, up to what a
+// grid of one CTA an SM holds (sgd_grid_kernel; 1,959,936 columns on an
+// H100's 132 SMs): every CTA the card holds at once (G, from the occupancy
+// query; the layout takes more than half an SM's shared memory, so one CTA
+// an SM) owns the columns [g ds, (g + 1) ds) of every window row (ds =
+// ceil(d / G) rounded up to 4; the last CTA the rest) for the whole call.
+// A CTA has kGridThreads = 512 threads. Slices of at most kGridRowCols =
+// 1,024 columns are taken by warps that own rows: lane l keeps the
+// coefficients and running sums of the slice's columns l + 32 j in
+// registers, a row's partial dot is one warp's, and the 16 warps' sums of
+// each column are added in warp order once at the end. Wider slices are
+// split over the threads: thread t owns columns t + 512 j, in registers
+// for j < NREG (4, 8 or 16) and in shared memory past that, four rows'
+// dots summed over each warp together and the warps' sums added in warp
+// order. (At 8 columns a row or fewer a thread, the fixed work of a row
+// led; the warps owning rows took 106,000 columns from 1.30 to 0.90 ms.)
+// The window's rows stream through a ring of kRing stages of `rows` rows'
+// slices (the most rows, up to kGridMaxRows, whose ring fits the block:
+// about 74 KB a stage, a wave of G stages about 9.8 MB), lane r of warp 0
+// copying row r's slice by one bulk copy on the stage's mbarrier where x
+// is 16-byte aligned (from the aligned address at or before it; the up to
+// 3 floats after its last 16-byte boundary by cp.async), 4-byte cp.async
+// else, so every byte of the window is read once and both uses read the
+// staged copy. The dots meet through device memory: each CTA stores its
+// partial dots of a stage (the scratch `dots`, [2][rows][G] by stage
+// parity) and arrives at the stage's first grid barrier (a block barrier,
+// then one thread's acq_rel fence and add to an integer counter); after
+// its wait (that thread spins on an acquire load until all G CTAs have
+// arrived) row r's owner, CTA (s rows + r) % G, reads the row's G
+// partials with one warp, every load issued at once (lane l adds those of
+// CTAs l, l + 32, ... in order, then the lanes' sums by the fixed
+// butterfly), and stores the dot; after a second grid barrier thread r of
+// every CTA reads row r's dot, the same float in every CTA, and takes its
+// terms. (With every CTA reading every row's partials, the 132 CTAs' reads
+// of the same few L2 lines took 6,000 cycles a stage; with every CTA
+// reading its own copy of them instead, written by all, one barrier a
+// stage, 106,000 columns ran 1.11-1.26 ms against 0.90 here.)
+// The loop is pipelined: iteration k takes the owners' sums of stage k -
+// 1, then stage k's partial dots, then stage k - 1's terms and mult * x,
+// so that each barrier's latency lies behind a stage's work. The partials
+// and dots alternate by stage parity: a CTA writes stage s + 2's partials
+// only after every CTA has arrived at stage s + 1's second barrier, long
+// after every owner read stage s's before stage s's second barrier; an
+// owner writes stage s + 2's dots only after every CTA has arrived at
+// stage s + 2's first barrier, which each does only after reading stage
+// s's dots. CTA 0 alone keeps the weight and loss sums. The grid writes
+// one partial row, each CTA its slice, so stage 2 over one row is its
+// copy. The launch is cooperative: a grid the card cannot hold at once is
+// refused, never left spinning. With -DSGD_PHASE_CLOCKS, CTA 0 adds up
+// clock64() per phase of its iterations (sgd_grid_phase_cycles_read;
+// scripts/port_sgd_grid.py reads it).
+//
+// Stage 1, rows wider than a grid of one CTA an SM holds (sgd_terms_kernel,
 // the kernel of the port's first slice): a block stages a tile of rows `dc`
 // columns at a
 // time in shared memory, builds each row's dot across the column chunks,
@@ -113,11 +166,14 @@
 // two-level order of reduce_partials (kmeans_kernels.cu, kept here as its
 // own copy): at most 32 contiguous slices, each added in row order from 0,
 // then a fixed pairwise tree. So the output equals reduce_partials_plain of
-// the partials, bit for bit.
+// the partials, bit for bit. Where stage 1 writes one row, it writes it as
+// the output and stage 2 does not run (reduce_partials_plain's 0 + p is p
+// but for the sign of a zero).
 //
-// Determinism, with no atomics: every sum has a fixed order given the
-// launch plan, which depends only on (lb, d, the card), so the same inputs
-// on the same card give the same bits.
+// Determinism: every sum has a fixed order given the launch plan, which
+// depends only on (lb, d, the card), so the same inputs on the same card
+// give the same bits. The one atomic is the grid barrier's add to its
+// integer arrival counter; no float passes through an atomic.
 //
 // Arithmetic: full fp32 (FMA), no TF32, no fast-math intrinsics. The logistic
 // loss is softplus(-m) = max(-m, 0) + log1p(exp(-|m|)), which never
@@ -148,6 +204,17 @@
 //     mult [rows]          the stage's multipliers
 //     slot [2][rows]       the row slots' weight and loss sums at the end
 //     gs, cs [over]        as the staged instance's, over the slice
+//   sgd_grid_kernel, in this order (grid_smem_floats; ops/kernels.py
+//   `_sgd_grid_layout` mirrors it and passes rows and the byte count):
+//     ring [kRing][rows][row_pitch(ds)]  the stages, as the cluster
+//                          instance's
+//     full [kRing]         the stages' mbarriers (2 floats each)
+//     ys, wv [kRing][rows] each stage's labels and masked weights
+//     red  [rows4][kGridWarps]  the warps' sums of each row's partial dot
+//     mult [rows]          the stage's multipliers
+//     slot [2][rows]       the row slots' weight and loss sums at the end
+//     gs, cs [over]        the running sums and the coefficients of the
+//                          slice's columns past the registers (grid_over)
 //   sgd_terms_kernel, in this order (ops/kernels.py `_sgd_layout` sizes it
 //   and passes rows, dc and the byte count):
 //     xs   [rows][dc]  a column chunk of the row tile; first, so 16-byte
@@ -875,9 +942,14 @@ __device__ __forceinline__ float ld_cluster(const float* p, unsigned rank) {
 // its stages
 constexpr int kPhases = 7;
 __device__ long long sgd_phase_cycles[kThreads * kPhases];
+// ptxas moves a clock read that follows a block barrier above it (on an
+// H100 the warps that had waited read the time they arrived); a volatile
+// load of the kernel's shared memory between them keeps the read after
+// the barrier.
 #define PHASE_START() long long phase_t_ = clock64()
 #define PHASE_END(q)                  \
   do {                                \
+    asm volatile("" ::"f"(((volatile float*)smem)[0])); \
     const long long now_ = clock64(); \
     phase_c_[q] += now_ - phase_t_;   \
     phase_t_ = now_;                  \
@@ -891,44 +963,46 @@ __device__ long long sgd_phase_cycles[kThreads * kPhases];
   } while (0)
 #endif
 
-// The columns a thread owns past its registers (kOwn + t, kOwn + t + 256,
-// ... below wd), four at a time with their loads issued first: the dot
-// acc + x * c over them in column order ...
+// The columns a thread owns past its registers (kOwn + t, kOwn + t + T,
+// ... below wd; T the block's threads), four at a time with their loads
+// issued first: the dot acc + x * c over them in column order ...
+template <int T = kThreads>
 __device__ __forceinline__ float over_dot(const float* xrow,
                                           const float* cs, float acc, int t,
                                           int kOwn, int wd) {
   int col = kOwn + t;
-  for (; col + 3 * kThreads < wd; col += 4 * kThreads) {
+  for (; col + 3 * T < wd; col += 4 * T) {
     float xv[4], cv[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      xv[u] = xrow[col + u * kThreads];
-      cv[u] = cs[col - kOwn + u * kThreads];
+      xv[u] = xrow[col + u * T];
+      cv[u] = cs[col - kOwn + u * T];
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u) acc = fmaf(xv[u], cv[u], acc);
   }
-  for (; col < wd; col += kThreads) acc = fmaf(xrow[col], cs[col - kOwn], acc);
+  for (; col < wd; col += T) acc = fmaf(xrow[col], cs[col - kOwn], acc);
   return acc;
 }
 
 // ... and gs += m * x over them (the sums in shared memory, which the
 // compiler would otherwise not load ahead of the stores)
+template <int T = kThreads>
 __device__ __forceinline__ void over_axpy(const float* xrow, float* gs,
                                           float m, int t, int kOwn, int wd) {
   int col = kOwn + t;
-  for (; col + 3 * kThreads < wd; col += 4 * kThreads) {
+  for (; col + 3 * T < wd; col += 4 * T) {
     float xv[4], gv[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      xv[u] = xrow[col + u * kThreads];
-      gv[u] = gs[col - kOwn + u * kThreads];
+      xv[u] = xrow[col + u * T];
+      gv[u] = gs[col - kOwn + u * T];
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u)
-      gs[col - kOwn + u * kThreads] = fmaf(m, xv[u], gv[u]);
+      gs[col - kOwn + u * T] = fmaf(m, xv[u], gv[u]);
   }
-  for (; col < wd; col += kThreads)
+  for (; col < wd; col += T)
     gs[col - kOwn] = fmaf(m, xrow[col], gs[col - kOwn]);
 }
 
@@ -1163,6 +1237,453 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // ---------------------------------------------------------------------------
+// Stage 1 for rows past what a cluster of kClusterMax holds: every CTA the
+// card holds at once splits each row's columns, the partial dots meeting
+// through device memory once a stage.
+
+constexpr int kGridThreads = 512;  // threads of a grid CTA: 16 warps
+constexpr int kGridWarps = kGridThreads / 32;
+constexpr int kGridMaxRows = 32;  // rows of a grid stage at most
+// widest slice whose columns warps that own rows keep in registers (32 a
+// lane)
+constexpr int kGridRowCols = 32 * 32;
+static_assert(kGridMaxRows <= 32, "a stage's rows are copied a lane each");
+// partials a lane of an owner's warp loads for a row at once: 32 *
+// kGridLoads CTAs a pass
+constexpr int kGridLoads = 5;
+// Clock cycles thread 0 of a grid CTA spins at a barrier before it traps
+// (about 20 s at the H100's clocks): the cooperative launch makes every CTA
+// resident, so the bound is only ever met by a fault, which it turns into
+// a launch error instead of a hang.
+constexpr long long kGridSpinCycles = 1LL << 35;
+
+// Columns of a row a thread of the grid instance keeps in registers,
+// kGridThreads apart: 4, 8 or 16.
+__host__ __device__ constexpr int grid_nreg(int ds) {
+  return ds <= 4 * kGridThreads ? 4 : ds <= 8 * kGridThreads ? 8 : 16;
+}
+
+// Columns of a grid CTA's slice past its threads' registers.
+__host__ __device__ constexpr int64_t grid_over(int ds) {
+  return ((int64_t)ds + kGridThreads - 1) / kGridThreads * kGridThreads >
+                 (int64_t)kGridThreads * grid_nreg(ds)
+             ? ((int64_t)ds + kGridThreads - 1) / kGridThreads *
+                       kGridThreads -
+                   (int64_t)kGridThreads * grid_nreg(ds)
+             : 0;
+}
+
+__host__ __device__ constexpr int64_t grid_smem_floats(int ds, int rows) {
+  return kRing * (int64_t)rows * row_pitch(ds) + 2 * kRing +
+         2 * kRing * (int64_t)rows +
+         (int64_t)(rows + 3) / 4 * 4 * kGridWarps + 3 * (int64_t)rows +
+         2 * grid_over(ds);
+}
+
+// The grid barriers' halves, as CUTLASS's generic barrier: the arrive, a
+// block barrier (every thread's writes before it are made) then one
+// thread's acq_rel fence and add to the barrier's counter; the wait, that
+// thread's spin on an acquire load until every CTA has arrived, then a
+// block barrier. Work between the two overlaps the barrier. A counter counts
+// arrivals over the whole launch (the k-th wait of a barrier waits for G
+// k), compared modulo 2^32.
+
+// The thread that arrives at and waits for the grid barriers: lane 0 of the
+// last warp, which issues no copies (a gpu-scope fence in the warp that
+// issued the stage copies ran about 5% slower end to end).
+constexpr int kGridBarrierThread = kGridThreads - 32;
+
+__device__ __forceinline__ void grid_arrive(unsigned* counter) {
+  __syncthreads();
+  if (threadIdx.x == kGridBarrierThread)
+    asm volatile(
+        "fence.acq_rel.gpu;\n"
+        "red.relaxed.gpu.global.add.u32 [%0], 1;\n" ::"l"(counter)
+        : "memory");
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void grid_wait(const unsigned* counter,
+                                          unsigned target) {
+  if (threadIdx.x == kGridBarrierThread) {
+    const long long t0 = clock64();
+    while ((int)(ld_acquire(counter) - target) < 0)
+      if (clock64() - t0 > kGridSpinCycles) __trap();
+  }
+  __syncthreads();
+}
+
+// gs += m[0] x[0] + m[1] x[1] + ... over the four rows' columns past the
+// registers, the rows added in order, each column's loads issued first.
+__device__ __forceinline__ void over_axpy4(const float* const* xr,
+                                           float* gs, const float* m, int t,
+                                           int kOwn, int wd) {
+  for (int col = kOwn + t; col < wd; col += kGridThreads) {
+    float xv[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) xv[u] = xr[u][col];
+    float a = gs[col - kOwn];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) a = fmaf(m[u], xv[u], a);
+    gs[col - kOwn] = a;
+  }
+}
+
+#ifdef SGD_PHASE_CLOCKS
+// per thread of CTA 0: cycles in the wait at stage k - 1's first barrier,
+// the owners' sums of its partials and the second arrive, the copy wait
+// of stage k, its partial dots (to their store), the first arrive, the
+// wait at stage k - 1's second barrier, its dots' reads and terms, its
+// mult * x, and the copy issue of stage k + 2, over all iterations
+constexpr int kGridPhases = 9;
+__device__ long long sgd_grid_phase_cycles[kGridThreads * kGridPhases];
+#endif
+
+template <int LOSS, int NREG, bool ROWS>
+__global__ void __launch_bounds__(kGridThreads, 1)
+    sgd_grid_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                    const float* __restrict__ w,
+                    const float* __restrict__ coeffs, float* __restrict__ out,
+                    float* __restrict__ dots, unsigned* __restrict__ counters,
+                    int64_t start, int64_t lb, int64_t clip, int d, int ds,
+                    int rows, int vec4) {
+  extern __shared__ __align__(16) float smem[];
+  const int pitch = row_pitch(ds);
+  const int64_t sf = (int64_t)rows * pitch, over = grid_over(ds);
+  float* ring = smem;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kRing * sf);
+  float* ys = ring + kRing * sf + 2 * kRing;
+  float* wv = ys + kRing * rows;
+  float* red = wv + kRing * rows;  // [rows4][kGridWarps]
+  float* mult = red + (rows + 3) / 4 * 4 * kGridWarps;
+  float* slot = mult + rows;
+  float* gs = slot + 2 * rows;
+  float* cs = gs + over;
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  constexpr int kOwn = kGridThreads * NREG;  // first column past registers
+  const int G = gridDim.x, g = blockIdx.x;
+  const int c0 = g * ds;           // the slice's first column
+  const int wd = min(ds, d - c0);  // and its width
+  const int64_t nstages = (lb + rows - 1) / rows;
+  unsigned* first = counters;       // the stages' first barrier
+  unsigned* second = counters + 1;  // and their second
+  // the slice's column of this thread's j-th coefficient and sum: lane +
+  // 32 j of the whole slice where warps own rows, t + 512 j else
+  auto column = [&](int j) {
+    return ROWS ? lane + 32 * j : t + kGridThreads * j;
+  };
+
+  float c[NREG], gr[NREG];
+#pragma unroll
+  for (int j = 0; j < NREG; ++j) {
+    const int col = column(j);
+    c[j] = col < wd ? __ldg(coeffs + c0 + col) : 0.f;
+    gr[j] = 0.f;
+  }
+  for (int64_t e = t; e < over; e += kGridThreads) {  // this thread's own
+    gs[e] = 0.f;
+    cs[e] = kOwn + e < wd ? __ldg(coeffs + c0 + kOwn + e) : 0.f;
+  }
+  float lsum = 0.f, wsum = 0.f;  // CTA 0's thread r < rows: row slot r's
+
+  if (t == 0) {
+    for (int k = 0; k < kRing; ++k) mbar_init(&full[k]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // rows of stage s, and the floats before its row r's slice in the
+  // row's pitch: (lead(s) + r (d & 3)) & 3
+  auto stage_rows = [&](int64_t s) {
+    return (int)min((int64_t)rows, lb - s * rows);
+  };
+  auto lead = [&](int64_t s) {
+    return vec4 ? (int)(((start + s * rows) * d + c0) & 3) : 0;
+  };
+  const int dlead = vec4 ? d & 3 : 0;
+
+  // stage s into ring buffer s % kRing: where x is 16-byte aligned, lane r
+  // of warp 0 copies row r's slice from the aligned address at or before
+  // it to the last 16-byte boundary in it by one bulk copy (none where that
+  // is empty) on the buffer's mbarrier, which lane 0 arms first with the
+  // stage's bytes, and the up to 3 floats after it by cp.async (one lane
+  // issuing every row's copies, as the cluster instance does, took up to
+  // 3,800 cycles a stage of 23 rows); else 4-byte cp.async copies all.
+  // Labels and weights by cp.async; every thread commits one cp.async
+  // group a stage.
+  auto issue = [&](int64_t s) {
+    if (s < nstages) {
+      const int nr = stage_rows(s);
+      const int64_t i = s * rows;  // window index of the stage's first row
+      const int buf = (int)(s % kRing);
+      float* dst = ring + buf * sf;
+      if (vec4) {
+        if (warp == 0) {
+          const int64_t g0 = (start + i + lane) * d + c0;
+          const int64_t a0 = g0 & ~(int64_t)3, a1 = (g0 + wd) & ~(int64_t)3;
+          int bytes = lane < nr ? (int)(4 * (a1 - a0)) : 0;
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            bytes += __shfl_xor_sync(kAll, bytes, off);
+          if (lane == 0) mbar_arrive_expect_tx(&full[buf], (unsigned)bytes);
+          __syncwarp();
+          if (lane < nr) {
+            if (a1 > a0)
+              bulk_copy(dst + lane * pitch, x + a0, (unsigned)(4 * (a1 - a0)),
+                        &full[buf]);
+            for (int f = 0; f < (int)(g0 + wd - a1); ++f)
+              cp_async4(dst + lane * pitch + (a1 - a0) + f, x + a1 + f, 4);
+          }
+        }
+      } else {
+        if (t == 0) mbar_arrive_expect_tx(&full[buf], 0);
+        for (int r = 0; r < nr; ++r) {
+          const int64_t g0 = (start + i + r) * d + c0;  // the slice's first
+          for (int f = t; f < wd; f += kGridThreads)
+            cp_async4(dst + r * pitch + f, x + g0 + f, 4);
+        }
+      }
+      if (t < nr) {
+        cp_async4(ys + buf * rows + t, y + start + i + t, 4);
+        cp_async4(wv + buf * rows + t, w + start + i + t, i + t >= clip ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+#ifdef SGD_PHASE_CLOCKS
+  long long phase_c_[kGridPhases] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
+#endif
+#pragma unroll
+  for (int s = 0; s < kRing - 1; ++s) issue(s);
+  // iteration k: the owners' sums of stage k - 1, then stage k's partial
+  // dots, then stage k - 1's terms and mult * x, so that each grid
+  // barrier's latency lies behind a stage's work
+  for (int64_t k = 0; k <= nstages; ++k) {
+    PHASE_START();
+    if (k >= 1) {
+      const int64_t p = k - 1;
+      grid_wait(first, (unsigned)G * (unsigned)k);
+      PHASE_END(0);
+      // row r of stage p is owned by CTA (p rows + r) % G, whose warp (its
+      // j-th owned row) % 16 sums the row's G partials: every load issued
+      // at once, lane l adding those of CTAs l, l + 32, ... in order, then
+      // the lanes' sums by the fixed butterfly; lane 0 stores the dot
+      const int np = stage_rows(p);
+      const float* part = dots + (p & 1) * (int64_t)rows * G;
+      float* rdot = dots + 2 * (int64_t)rows * G + (p & 1) * rows;
+      const int own0 = (int)((g - p * rows % G + G) % G);
+      for (int r = own0 + G * warp; r < np; r += G * kGridWarps) {
+        const float* pr = part + (int64_t)r * G;
+        float acc = 0.f;
+        for (int q0 = 0; q0 < G; q0 += 32 * kGridLoads) {
+          float pv[kGridLoads];
+#pragma unroll
+          for (int j = 0; j < kGridLoads; ++j) {
+            const int q = q0 + lane + 32 * j;
+            pv[j] = q < G ? __ldcg(pr + q) : 0.f;
+          }
+#pragma unroll
+          for (int j = 0; j < kGridLoads; ++j) acc += pv[j];
+        }
+        acc = warp_sum(acc);
+        if (lane == 0) __stcg(rdot + r, acc);
+      }
+      grid_arrive(second);  // the rows of stage p this CTA owns are summed
+      PHASE_END(1);
+    }
+    if (k < nstages) {
+      const int at = (int)(k % kRing);
+      cp_async_wait<kRing - 2>();  // this thread's copies of stage k
+      mbar_wait(&full[at], (unsigned)(k / kRing) & 1);  // its bulk copies
+      __syncthreads();  // everyone's
+      PHASE_END(2);
+      const int nr = stage_rows(k);
+      const float* xs = ring + at * sf;
+      const int lead0 = lead(k);
+      float* part = dots + (k & 1) * (int64_t)rows * G;  // [rows][G]
+      if (ROWS) {
+        // warp r % 16 takes row r's partial dot over the whole slice: each
+        // lane its columns in order, then the fixed butterfly; lane 0
+        // stores it for the grid
+        for (int r = warp; r < nr; r += kGridWarps) {
+          const float* xrow = xs + r * pitch + ((lead0 + r * dlead) & 3);
+          float acc = 0.f;
+#pragma unroll
+          for (int j = 0; j < NREG; ++j)
+            if (column(j) < wd) acc = fmaf(xrow[column(j)], c[j], acc);
+          acc = warp_sum(acc);
+          if (lane == 0) __stcg(part + (int64_t)r * G + g, acc);
+        }
+      }
+      // else each row's partial dot over the slice: this thread's columns
+      // in order, four rows summed over the warp together, the warps' sums
+      // in warp order by thread r for row r, which stores it for the grid
+      for (int rb = 0; !ROWS && rb < nr; rb += 4) {
+        float v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          float acc = 0.f;
+          if (rb + u < nr) {  // the same in every thread; past nr: zeros
+            const float* xrow =
+                xs + (rb + u) * pitch + ((lead0 + (rb + u) * dlead) & 3);
+#pragma unroll
+            for (int j = 0; j < NREG; ++j) {
+              const int col = t + kGridThreads * j;
+              if (col < wd) acc = fmaf(xrow[col], c[j], acc);
+            }
+            acc = over_dot<kGridThreads>(xrow, cs, acc, t, kOwn, wd);
+          }
+          v[u] = acc;
+        }
+        const float dot = rows_sum<4>(v, lane);  // row rb + lane / 8
+        if ((lane & 7) == 0 && rb + lane / 8 < nr)
+          red[(rb + lane / 8) * kGridWarps + warp] = dot;
+      }
+      if (!ROWS) {
+        __syncthreads();
+        if (t < nr) {
+          float sum = red[t * kGridWarps];
+#pragma unroll
+          for (int q2 = 1; q2 < kGridWarps; ++q2)
+            sum += red[t * kGridWarps + q2];
+          __stcg(part + (int64_t)t * G + g, sum);
+        }
+      }
+      PHASE_END(3);
+      grid_arrive(first);  // this CTA's partial dots of stage k are stored
+      PHASE_END(4);
+    }
+    if (k >= 1) {
+      const int64_t p = k - 1;
+      grid_wait(second, (unsigned)G * (unsigned)k);
+      PHASE_END(5);
+      // thread r takes row r's dot, the same float in every CTA, and its
+      // terms
+      const int np = stage_rows(p);
+      const int at = (int)(p % kRing);
+      const float* rdot = dots + 2 * (int64_t)rows * G + (p & 1) * rows;
+      if (t < np) {
+        const float wt = wv[at * rows + t];
+        float loss, m;
+        row_terms<LOSS>(__ldcg(rdot + t), ys[at * rows + t], wt, loss, m);
+        mult[t] = m;
+        if (g == 0) {
+          lsum += loss;
+          wsum += wt;
+        }
+      }
+      __syncthreads();
+      PHASE_END(6);
+      // mult * x into this thread's columns, rows in order (where warps
+      // own rows, the rows of warp w: r = w, w + 16, ...), four rows'
+      // loads issued before their FMAs
+      const float* xs = ring + at * sf;
+      const int lead0 = lead(p);
+      for (int r = warp; ROWS && r < np; r += kGridWarps) {
+        const float m = mult[r];
+        const float* xrow = xs + r * pitch + ((lead0 + r * dlead) & 3);
+#pragma unroll
+        for (int j = 0; j < NREG; ++j)
+          if (column(j) < wd) gr[j] = fmaf(m, xrow[column(j)], gr[j]);
+      }
+      int r4 = ROWS ? np : 0;
+      for (; r4 + 4 <= np; r4 += 4) {
+        float m[4];
+        const float* xr[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          m[u] = mult[r4 + u];
+          xr[u] = xs + (r4 + u) * pitch + ((lead0 + (r4 + u) * dlead) & 3);
+        }
+#pragma unroll
+        for (int j = 0; j < NREG; ++j) {
+          const int col = t + kGridThreads * j;
+          if (col < wd) {
+            float xv[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) xv[u] = xr[u][col];
+            float a = gr[j];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) a = fmaf(m[u], xv[u], a);
+            gr[j] = a;
+          }
+        }
+        over_axpy4(xr, gs, m, t, kOwn, wd);
+      }
+      for (; r4 < np; ++r4) {
+        const float m = mult[r4];
+        const float* xrow = xs + r4 * pitch + ((lead0 + r4 * dlead) & 3);
+#pragma unroll
+        for (int j = 0; j < NREG; ++j) {
+          const int col = t + kGridThreads * j;
+          if (col < wd) gr[j] = fmaf(m, xrow[col], gr[j]);
+        }
+        over_axpy<kGridThreads>(xrow, gs, m, t, kOwn, wd);
+      }
+      PHASE_END(7);
+    }
+    __syncthreads();  // stage k - 1's buffer is read, and mult with it
+    issue(k + 2);     // into that buffer
+    PHASE_END(8);
+  }
+  cp_async_wait<0>();
+
+  float* dst = out + c0;
+  if (ROWS) {
+    // the warps' sums of each column, through the ring (every stage is
+    // consumed), added in warp order
+    float* fin = ring;  // [kGridWarps][ds]
+#pragma unroll
+    for (int j = 0; j < NREG; ++j)
+      if (column(j) < wd) fin[warp * ds + column(j)] = gr[j];
+    __syncthreads();
+    for (int col = t; col < wd; col += kGridThreads) {
+      float sum = fin[col];
+      for (int q = 1; q < kGridWarps; ++q) sum += fin[q * ds + col];
+      dst[col] = sum;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < NREG; ++j) {
+      const int col = t + kGridThreads * j;
+      if (col < wd) dst[col] = gr[j];
+    }
+    for (int col = kOwn + t; col < wd; col += kGridThreads)
+      dst[col] = gs[col - kOwn];
+  }
+  if (g == 0) {
+    if (t < rows) {
+      slot[t] = wsum;
+      slot[rows + t] = lsum;
+    }
+    __syncthreads();
+    if (t == 0) {
+      float ws_ = 0.f, ls_ = 0.f;
+      for (int q = 0; q < rows; ++q) {
+        ws_ += slot[q];
+        ls_ += slot[rows + q];
+      }
+      out[d] = ws_;
+      out[d + 1] = ls_;
+    }
+  }
+#ifdef SGD_PHASE_CLOCKS
+  if (g == 0)
+    for (int k = 0; k < kGridPhases; ++k)
+      sgd_grid_phase_cycles[t * kGridPhases + k] = phase_c_[k];
+#endif
+}
+
+// ---------------------------------------------------------------------------
 // Stage 2: out[i] = the sum over b of partials[b][i] in reduce_partials'
 // fixed two-level order (kmeans_kernels.cu): the B rows cut into Q
 // contiguous slices of L = ceil(B / 32) rows, each added in row order from
@@ -1260,32 +1781,47 @@ const void* cluster_kernel_of(int ds) {
   }
 }
 
+// The grid instance for a slice of ds columns: warps owning rows for
+// slices of at most kGridRowCols, else threads owning columns.
+template <int LOSS>
+const void* grid_kernel_of(int ds) {
+  if (ds <= kGridRowCols) return (const void*)sgd_grid_kernel<LOSS, 32, true>;
+  switch (grid_nreg(ds)) {
+    case 4: return (const void*)sgd_grid_kernel<LOSS, 4, false>;
+    case 8: return (const void*)sgd_grid_kernel<LOSS, 8, false>;
+    default: return (const void*)sgd_grid_kernel<LOSS, 16, false>;
+  }
+}
+
 // Whether a launch of width d > kRegCols stages whole rows (dc == d): the
-// staged instance; else, with no cluster, the chunked one.
+// staged instance; else, with no cluster and no grid, the chunked one.
 bool staged(int d, int dc) { return d > kRegCols && dc == d; }
 
 template <int LOSS>
-const void* wide_kernel_of(int d, int dc, int cluster) {
+const void* wide_kernel_of(int d, int dc, int cluster, int grid) {
+  if (grid) return grid_kernel_of<LOSS>(dc);
   if (cluster) return cluster_kernel_of<LOSS>(dc);
   return staged(d, dc) ? staged_kernel_of<LOSS>(d)
                        : (const void*)sgd_terms_kernel<LOSS>;
 }
 
 // The stage-1 instance: sgd_rows_kernel<loss, v, vec4> for v = 1..4, else
+// sgd_grid_kernel<loss, grid_nreg(dc)> over a grid of CTAs (dc the slice),
 // sgd_cluster_kernel<loss, staged_nreg(dc)> in clusters (dc the slice),
 // sgd_staged_kernel<loss, staged_nreg(d)> where whole rows are staged, else
 // sgd_terms_kernel<loss>.
-const void* kernel_of(int loss, int v, int vec4, int d, int dc, int cluster) {
+const void* kernel_of(int loss, int v, int vec4, int d, int dc, int cluster,
+                      int grid) {
   switch (loss) {
     case kLogistic:
       return v ? rows_kernel_of<kLogistic>(v, vec4)
-               : wide_kernel_of<kLogistic>(d, dc, cluster);
+               : wide_kernel_of<kLogistic>(d, dc, cluster, grid);
     case kHinge:
       return v ? rows_kernel_of<kHinge>(v, vec4)
-               : wide_kernel_of<kHinge>(d, dc, cluster);
+               : wide_kernel_of<kHinge>(d, dc, cluster, grid);
     case kLeastSquare:
       return v ? rows_kernel_of<kLeastSquare>(v, vec4)
-               : wide_kernel_of<kLeastSquare>(d, dc, cluster);
+               : wide_kernel_of<kLeastSquare>(d, dc, cluster, grid);
     default:
       return nullptr;
   }
@@ -1302,24 +1838,39 @@ int stage1_smem(int v, int d, int smem) {
 // rows at an aligned x); wider rows staged whole (dc = d) with the ring's
 // shared memory; or split over clusters of 2, 4 or 8 CTAs whose slice dc is
 // cluster_slice(d, cluster), wider than 4 * kThreads, with every CTA some
-// columns, and the ring's shared memory; or the chunked instance with dc a
+// columns, and the ring's shared memory; or split over a grid of `grid`
+// CTAs whose slice dc is cluster_slice(d, grid), every CTA some columns,
+// one partial row and the dots' scratch; or the chunked instance with dc a
 // multiple of the block's threads below d (vec4 for 16-byte rows) and tiles
-// that cover the window; vec4 of the staged and cluster instances needs
-// only an aligned x.
+// that cover the window; vec4 of the staged, cluster and grid instances
+// needs only an aligned x.
 cudaError_t check_config(const float* x, long long start, long long lb,
                          long long clip, int d, int v, int vec4, int blocks,
                          int rows, int dc, int smem,
-                         long long tiles_per_block, int cluster, int loss) {
+                         long long tiles_per_block, int cluster, int grid,
+                         const float* scratch, int loss) {
   const bool aligned = (uintptr_t)x % 16 == 0;
-  if (kernel_of(loss, v, vec4, d, dc, cluster) == nullptr || d < 1 ||
+  if (kernel_of(loss, v, vec4, d, dc, cluster, grid) == nullptr || d < 1 ||
       blocks < 1 || start < 0 || lb < 1 || clip < 0 || clip > lb ||
-      (vec4 && !aligned) || cluster < 0)
+      (vec4 && !aligned) || cluster < 0 || grid < 0 || (cluster && grid))
     return cudaErrorInvalidValue;
   if (d <= kRegCols)
-    return v == (d + 127) / 128 && !(vec4 && d % 4 != 0) && !cluster
+    return v == (d + 127) / 128 && !(vec4 && d % 4 != 0) && !cluster &&
+                   !grid
                ? cudaSuccess
                : cudaErrorInvalidValue;
   if (v != 0 || rows < 1) return cudaErrorInvalidValue;
+  if (grid)
+    return blocks == 1 && scratch != nullptr &&
+                   dc == cluster_slice(d, grid) &&
+                   (int64_t)(grid - 1) * dc < d && rows <= kGridMaxRows &&
+                   (dc > kGridRowCols ||
+                    kRing * (int64_t)rows * row_pitch(dc) >=
+                        (int64_t)kGridWarps * dc) &&
+                   smem <= kSmemBlockMax &&
+                   (int64_t)smem >= 4 * grid_smem_floats(dc, rows)
+               ? cudaSuccess
+               : cudaErrorInvalidValue;
   if (cluster)
     return (cluster == 2 || cluster == 4 || cluster == kClusterMax) &&
                    dc == cluster_slice(d, cluster) && dc > 4 * kThreads &&
@@ -1374,7 +1925,7 @@ const char* sgd_error_string(int err) {
 // once per instance (the Python side caches the answer).
 int sgd_blocks_per_sm(int loss, int v, int vec4, int d, int dc, int smem,
                       int* out) {
-  const void* fn = kernel_of(loss, v, vec4, d, dc, 0);
+  const void* fn = kernel_of(loss, v, vec4, d, dc, 0, 0);
   if (fn == nullptr || d < 1) return (int)cudaErrorInvalidValue;
   const int bytes = stage1_smem(v, d, smem);
   cudaError_t e = cudaFuncSetAttribute(
@@ -1392,7 +1943,7 @@ int sgd_blocks_per_sm(int loss, int v, int vec4, int d, int dc, int smem,
 // others.
 int sgd_clusters_on_card(int loss, int d, int ds, int cluster, int smem,
                          int* out) {
-  const void* fn = kernel_of(loss, 0, 0, d, ds, cluster);
+  const void* fn = kernel_of(loss, 0, 0, d, ds, cluster, 0);
   if (fn == nullptr || d < 1 || cluster < 1) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBlockMax);
@@ -1402,31 +1953,83 @@ int sgd_clusters_on_card(int loss, int d, int ds, int cluster, int smem,
   return (int)cudaOccupancyMaxActiveClusters(out, fn, &cfg);
 }
 
+// CTAs of the grid instance the whole card holds at once (slice ds of width
+// d, smem bytes a CTA): the SMs times the CTAs an SM holds, from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor. Lets the instance use all
+// the dynamic shared memory a block may have first, as sgd_blocks_per_sm
+// does for the others.
+int sgd_grid_ctas_on_card(int loss, int d, int ds, int smem, int* out) {
+  const void* fn = kernel_of(loss, 0, 0, d, ds, 0, 1);
+  if (fn == nullptr || d < 1 || ds < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBlockMax);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0, device = 0, sms = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
+                                                    kGridThreads, (size_t)smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  *out = per_sm * sms;
+  return (int)e;
+}
+
 // One SGD round's terms: stage 1 writes `blocks` partial rows of d + 2
 // floats to ws, then (where `combine`) stage 2 writes their sum to the d + 2
-// floats after them; both on `stream`. v, vec4, blocks and the staged,
-// cluster or chunked layout (rows, dc, smem, tiles_per_block, cluster) are
-// ops/kernels.py's plan; the cluster instance runs `blocks` clusters of
-// `cluster` CTAs, one partial row each. A launch the card refuses returns
-// its error: there is no other instance to fall back to.
+// floats after them; both on `stream`. Where `combine` and blocks = 1 (the
+// grid instance always, the others at short windows) stage 1 writes its one
+// row there itself and stage 2 is not launched: the sum of one row is that
+// row, and the first row of ws is left unwritten. v, vec4, blocks and the staged,
+// cluster, grid or chunked layout (rows, dc, smem, tiles_per_block,
+// cluster, grid) are ops/kernels.py's plan; the cluster instance runs
+// `blocks` clusters of `cluster` CTAs, one partial row each; the grid
+// instance `grid` CTAs launched cooperatively (so a grid the card cannot
+// hold at once is refused, never left waiting at its barrier), one partial
+// row in all (blocks = 1), its dots exchanged through `scratch`: two
+// stages' partial dots (2 * rows * grid floats) and dots (2 * rows), then
+// its two barriers' uint32 counters, zeroed here before the launch. A
+// launch the card refuses returns its error: there is no other instance to
+// fall back to.
 int sgd_batch_terms(const float* x, const float* y, const float* w,
                     const float* coeffs, float* ws, long long start,
                     long long lb, long long clip, int d, int v, int vec4,
                     int blocks, int rows, int dc, int smem,
-                    long long tiles_per_block, int cluster, int loss,
-                    int combine, void* stream) {
-  cudaError_t e = check_config(x, start, lb, clip, d, v, vec4, blocks, rows,
-                               dc, smem, tiles_per_block, cluster, loss);
+                    long long tiles_per_block, int cluster, int grid,
+                    float* scratch, int loss, int combine, void* stream) {
+  cudaError_t e =
+      check_config(x, start, lb, clip, d, v, vec4, blocks, rows, dc, smem,
+                   tiles_per_block, cluster, grid, scratch, loss);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = (cudaStream_t)stream;
-  const void* fn = kernel_of(loss, v, vec4, d, dc, cluster);
+  const void* fn = kernel_of(loss, v, vec4, d, dc, cluster, grid);
   int64_t start64 = start, lb64 = lb, clip64 = clip, tpb64 = tiles_per_block;
-  float* partials = ws;
+  const int width = d + 2;
+  const bool one_row = combine && blocks == 1;
+  float* partials = one_row ? ws + width : ws;
   if (v) {
     void* args[] = {&x, &y, &w, &coeffs, &partials, &start64, &lb64, &clip64,
                     &d};
     e = cudaLaunchKernel(fn, dim3(blocks), dim3(kThreads), args,
                          (size_t)stage1_smem(v, d, smem), s);
+  } else if (grid) {
+    unsigned* counters = reinterpret_cast<unsigned*>(
+        scratch + 2 * (int64_t)rows * (grid + 1));
+    e = cudaMemsetAsync(counters, 0, 2 * sizeof(unsigned), s);
+    if (e != cudaSuccess) return (int)e;
+    void* args[] = {&x,       &y,    &w,      &coeffs, &partials,
+                    &scratch, &counters, &start64, &lb64, &clip64,
+                    &d,       &dc,   &rows,   &vec4};
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeCooperative;
+    attr.val.cooperative = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(grid);
+    cfg.blockDim = dim3(kGridThreads);
+    cfg.dynamicSmemBytes = (size_t)smem;
+    cfg.stream = s;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    e = cudaLaunchKernelExC(&cfg, fn, args);
   } else if (cluster) {
     void* args[] = {&x,      &y,      &w, &coeffs, &partials, &start64,
                     &lb64,   &clip64, &d, &dc,     &rows,     &vec4};
@@ -1446,8 +2049,7 @@ int sgd_batch_terms(const float* x, const float* y, const float* w,
     e = cudaLaunchKernel(fn, dim3(blocks), dim3(kThreads), args,
                          (size_t)smem, s);
   }
-  if (e != cudaSuccess || !combine) return (int)e;
-  const int width = d + 2;
+  if (e != cudaSuccess || !combine || one_row) return (int)e;
   sgd_combine_kernel<<<(width + kCombCols - 1) / kCombCols, kCombThreads, 0,
                        s>>>(ws, ws + (int64_t)blocks * width, blocks, width,
                             (blocks + kCombSlices - 1) / kCombSlices);
@@ -1458,6 +2060,11 @@ int sgd_batch_terms(const float* x, const float* y, const float* w,
 int sgd_phase_cycles_read(long long* host) {
   return (int)cudaMemcpyFromSymbol(host, sgd_phase_cycles,
                                    sizeof(sgd_phase_cycles));
+}
+
+int sgd_grid_phase_cycles_read(long long* host) {
+  return (int)cudaMemcpyFromSymbol(host, sgd_grid_phase_cycles,
+                                   sizeof(sgd_grid_phase_cycles));
 }
 #endif
 

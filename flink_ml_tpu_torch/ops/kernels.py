@@ -38,7 +38,9 @@ at first use, one library per source:
   are :func:`knn_distance_keys_plain`, :func:`knn_radix_select_plain`,
   :func:`knn_compact_plain` and :func:`knn_radix_sort_plain`).
 
-No kernel uses atomics, so a call gives the same bits every time.
+No float passes through an atomic (the one atomic is the SGD grid
+instance's integer barrier counter), so a call gives the same bits every
+time.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else. For a CUDA tensor it launches its kernel on the current
@@ -114,6 +116,7 @@ KERNEL_SYMBOLS = {
     "sgd_rows_kernel": "sgd_batch_terms",
     "sgd_staged_kernel": "sgd_batch_terms",
     "sgd_cluster_kernel": "sgd_batch_terms",
+    "sgd_grid_kernel": "sgd_batch_terms",
     "sgd_terms_kernel": "sgd_batch_terms",
     "sgd_combine_kernel": "sgd_batch_terms",
     "segment_ranges_kernel": "segment_reduce_sum",
@@ -384,8 +387,9 @@ SGD_LOSSES = {"logistic": 0, "hinge": 1, "least_square": 2}
 SGD_WARPS = 8
 #: widest row the register instance of stage 1 takes (``kRegCols``): a lane
 #: holds V = ⌈d / 128⌉ ≤ 4 float4s of a row; wider rows take the staged
-#: instance, past what its ring holds the cluster one, and past what a
-#: cluster of 8 holds the chunked one
+#: instance, past what its ring holds the cluster one, past what a cluster
+#: of 8 holds the grid one, and past what a grid of one CTA an SM holds the
+#: chunked one
 SGD_REG_COLS = 512
 #: rows a warp of the register instance takes at least before the grid
 #: grows (up to the blocks the card holds at once): its double-buffered
@@ -419,6 +423,16 @@ SGD_CLUSTER_SIZES = (2, 4, 8)
 #: dynamic shared memory of a CTA at most for two to share an SM: the
 #: SM's 228 KB less 1 KB the runtime keeps a block, halved
 SGD_TWO_PER_SM_BYTES = (233_472 - 2 * 1_024) // 2
+#: threads of a CTA of the grid instance (``kGridThreads``: 16 warps); its
+#: thread t owns columns t + 512·j of the CTA's slice
+SGD_GRID_THREADS = 512
+SGD_GRID_WARPS = SGD_GRID_THREADS // 32
+#: rows of a stage of the grid instance at most (``kGridMaxRows``)
+SGD_GRID_MAX_ROWS = 32
+#: widest slice of the grid instance whose columns are kept by warps that
+#: own rows (``kGridRowCols``: 32 columns a lane); wider slices are split
+#: over the CTA's threads
+SGD_GRID_ROW_COLS = 1_024
 
 
 def _sgd_nreg(d: int) -> int:
@@ -493,6 +507,49 @@ def _sgd_cluster_size(d: int) -> Optional[int]:
     return (two or fits or [None])[0]
 
 
+def _sgd_grid_nreg(ds: int) -> int:
+    """Columns of a row a thread of the grid instance keeps in registers
+    (``grid_nreg``): 4, 8 or 16, the fewest that hold all its columns up to
+    a slice of 8,192; past that the rest sit in shared memory."""
+    for nreg in (4, 8):
+        if ds <= nreg * SGD_GRID_THREADS:
+            return nreg
+    return 16
+
+
+def _sgd_grid_layout(d: int, ctas: int) -> Optional[Tuple[int, int]]:
+    """``(rows, smem_bytes)`` of a CTA of the grid instance at width ``d``
+    over ``ctas`` CTAs, or None where one row's slice does not fit a
+    block's shared memory or some CTA would get no columns (past 1,959,936
+    columns over 132 CTAs: the chunked instance). The sizes are the ones
+    the layout comment in ``sgd_kernels.cu`` lists (``grid_smem_floats``):
+    ``SGD_RING`` stages of ``rows`` rows' slices (:func:`_sgd_cluster_slice`
+    of ``ctas``, each in a pitch of ⌈(ds + 3) / 4⌉·4 floats), the stages'
+    mbarriers, each stage's labels and weights, the 16 warps' dot sums,
+    the multipliers, the row slots' sums, and the sums and coefficients of
+    the slice's columns past the registers; ``rows`` is the most, up to
+    :data:`SGD_GRID_MAX_ROWS`, that fit the block's shared memory (a stage
+    of about 74 KB, a wave of 132 stages about 9.8 MB: the fewer stages,
+    the fewer grid barriers). At every width it takes over 132 CTAs the
+    layout takes more than half an SM's shared memory, so an H100 holds
+    one CTA an SM."""
+    ds = _sgd_cluster_slice(d, ctas)
+    if (ctas - 1) * ds >= d:
+        return None
+    pitch = (ds + 6) // 4 * 4
+    over = max(0, -(-ds // SGD_GRID_THREADS) * SGD_GRID_THREADS
+               - SGD_GRID_THREADS * _sgd_grid_nreg(ds))
+
+    def nbytes(rows):
+        return 4 * (SGD_RING * rows * pitch + 2 * SGD_RING
+                    + 2 * SGD_RING * rows + -(-rows // 4) * 4 * SGD_GRID_WARPS
+                    + 3 * rows + 2 * over)
+
+    fit = [rows for rows in range(1, SGD_GRID_MAX_ROWS + 1)
+           if nbytes(rows) <= SMEM_BLOCK_BYTES]
+    return (fit[-1], nbytes(fit[-1])) if fit else None
+
+
 def _sgd_layout(d: int) -> Tuple[int, int, int]:
     """``(rows, dc, smem_bytes)`` of a chunked :func:`sgd_batch_terms`
     block at feature width ``d``: ``dc`` columns staged at once (d itself up
@@ -509,7 +566,7 @@ def _sgd_layout(d: int) -> Tuple[int, int, int]:
 def _sgd_width_class(d: int) -> int:
     """V, the float4s of a row a lane of the register instance holds
     (⌈d / 128⌉), or 0 for rows wider than :data:`SGD_REG_COLS`, which the
-    staged, the cluster or the chunked instance takes."""
+    staged, the cluster, the grid or the chunked instance takes."""
     return -(-d // 128) if d <= SGD_REG_COLS else 0
 
 
@@ -524,12 +581,18 @@ class SgdPlan(NamedTuple):
     wider rows while a cluster of 8 holds them: ``blocks`` clusters of
     ``cluster`` CTAs, each cluster a contiguous run of rows, CTA r the
     columns [r·dc, (r + 1)·dc) of them, streamed ``rows`` rows a stage
-    through a ring in ``smem`` bytes; ``resident`` counts clusters) or
-    "chunked" (``sgd_terms_kernel<loss>``, wider still: each block
+    through a ring in ``smem`` bytes; ``resident`` counts clusters),
+    "grid" (``sgd_grid_kernel<loss, nreg, rows>``, wider rows while a grid of
+    one CTA an SM holds them: ``grid`` CTAs, every CTA the card holds at
+    once (= ``resident``), CTA g the columns [g·dc, (g + 1)·dc) of every
+    window row, streamed ``rows`` rows a stage through a ring in ``smem``
+    bytes; one partial row, ``blocks`` = 1) or "chunked"
+    (``sgd_terms_kernel<loss>``, wider still: each block
     ``tiles_per_block`` tiles of ``rows`` rows, staged ``dc`` columns at a
-    time in ``smem`` bytes); ``blocks`` of the grid, of the ``resident``
-    the card holds at once; ``vec4`` where rows are read by 16 bytes (the
-    staged and cluster instances: where x is 16-byte aligned)."""
+    time in ``smem`` bytes); ``blocks`` of the grid (partial rows), of the
+    ``resident`` the card holds at once; ``vec4`` where rows are read by 16
+    bytes (the staged, cluster and grid instances: where x is 16-byte
+    aligned)."""
     instance: str
     v: int
     vec4: int
@@ -540,20 +603,25 @@ class SgdPlan(NamedTuple):
     smem: int
     tiles_per_block: int
     cluster: int = 0
+    grid: int = 0
 
 
-def _sgd_plan(lb: int, d: int, resident: int, vec4: int = 0) -> SgdPlan:
+def _sgd_plan(lb: int, d: int, resident: int, vec4: int = 0, *,
+              sms: int) -> SgdPlan:
     """The launch of :func:`sgd_batch_terms` for a window of ``lb`` ≥ 1 rows
-    of width ``d`` on a card that holds ``resident`` blocks of the instance
-    at once. The register instance runs a persistent grid: enough blocks
-    that every warp has :data:`SGD_WARP_ROWS` rows, up to ``resident``
-    (lb = 100,000 fills the card: about 30 rows a warp on an H100). The
-    staged one runs a persistent grid too: enough blocks that every block
-    has :data:`SGD_BLOCK_STAGES` stages, up to ``resident``; the cluster
-    one likewise with clusters (``resident`` clusters, in clusters of
-    :func:`_sgd_cluster_size`). The chunked one cuts the window into
-    tiles, at most ``resident`` blocks of them, and no block without
-    rows."""
+    of width ``d`` on a card of ``sms`` SMs that holds ``resident`` blocks
+    of the instance at once (the instance is :func:`_sgd_instance` of
+    ``sms``). The register instance runs a
+    persistent grid: enough blocks that every warp has
+    :data:`SGD_WARP_ROWS` rows, up to ``resident`` (lb = 100,000 fills the
+    card: about 30 rows a warp on an H100). The staged one runs a
+    persistent grid too: enough blocks that every block has
+    :data:`SGD_BLOCK_STAGES` stages, up to ``resident``; the cluster one
+    likewise with clusters (``resident`` clusters, in clusters of
+    :func:`_sgd_cluster_size`). The grid one runs one CTA on each of the
+    ``sms`` SMs at any window (its layout takes more than half an SM's
+    shared memory, so the card holds no more). The chunked one cuts the window into tiles, at most
+    ``resident`` blocks of them, and no block without rows."""
     v = _sgd_width_class(d)
     if v:
         blocks = max(1, min(resident, -(-lb // (SGD_WARPS * SGD_WARP_ROWS))))
@@ -566,6 +634,8 @@ def _sgd_plan(lb: int, d: int, resident: int, vec4: int = 0) -> SgdPlan:
     c = _sgd_cluster_size(d)
     if c is not None:
         return _sgd_cluster_plan(lb, d, resident, vec4, c)
+    if _sgd_grid_layout(d, sms) is not None:
+        return _sgd_grid_plan(d, sms, vec4)
     return _sgd_chunked_plan(lb, d, resident, vec4)
 
 
@@ -584,6 +654,18 @@ def _sgd_cluster_plan(lb: int, d: int, resident: int, vec4: int,
     rows, smem = layout
     blocks = max(1, min(resident, -(-lb // (SGD_BLOCK_STAGES * rows))))
     return SgdPlan("cluster", 0, vec4, blocks, resident, rows, ds, smem, 0, c)
+
+
+def _sgd_grid_plan(d: int, sms: int, vec4: int = 0) -> SgdPlan:
+    """The grid instance's launch: one CTA on each of the card's ``sms``
+    SMs (all it holds at once), one partial row, whatever the window."""
+    layout = _sgd_grid_layout(d, sms)
+    if layout is None:
+        raise ValueError(f"sgd_batch_terms: no grid of {sms} CTAs holds "
+                         f"rows of {d} columns")
+    rows, smem = layout
+    return SgdPlan("grid", 0, vec4, 1, sms, rows,
+                   _sgd_cluster_slice(d, sms), smem, 0, 0, sms)
 
 
 def _sgd_chunked_plan(lb: int, d: int, resident: int,
@@ -605,8 +687,11 @@ def sgd_runs(plan: SgdPlan, lb: int) -> list:
     W), one more for the first lb mod W warps), every block of the staged
     one (``sgd_staged_kernel``: the same rule over its blocks), every
     cluster of the cluster one (``sgd_cluster_kernel``: the same rule over
-    its clusters), or every block of the chunked one (``tiles_per_block``
-    contiguous tiles, the last ragged)."""
+    its clusters), the grid one as one worker (``sgd_grid_kernel``: every
+    CTA takes every row, a slice of its columns), or every block of the
+    chunked one (``tiles_per_block`` contiguous tiles, the last ragged)."""
+    if plan.instance == "grid":
+        return [(0, lb)]
     if plan.instance != "chunked":
         workers = plan.blocks * (SGD_WARPS if plan.instance == "registers"
                                  else 1)
@@ -1471,8 +1556,9 @@ _SIGNATURES = {
                               _I),
         "sgd_clusters_on_card": ([_I, _I, _I, _I, _I, ctypes.POINTER(_I)],
                                  _I),
+        "sgd_grid_ctas_on_card": ([_I, _I, _I, _I, ctypes.POINTER(_I)], _I),
         "sgd_batch_terms": ([_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I,
-                             _I, _I, _I, _L, _I, _I, _I, _P], _I),
+                             _I, _I, _I, _L, _I, _I, _P, _I, _I, _P], _I),
     },
     SEGMENT_SOURCE: {
         "segment_error_string": ([_I], ctypes.c_char_p),
@@ -1570,6 +1656,30 @@ def _sgd_resident_clusters(device_index: int, loss: int, d: int, c: int,
             f"no cluster of {c} CTAs of sgd stage 1 ({smem} bytes each) "
             "fits this card")
     return count.value
+
+
+@functools.lru_cache(maxsize=None)
+def _sgd_resident_grid(device_index: int, loss: int, d: int, smem: int) -> int:
+    """CTAs of the sgd grid instance at width ``d`` (``smem`` bytes a CTA)
+    the card holds at once (SMs × CTAs an SM). The query also lets the
+    instance use its dynamic shared memory, once per process."""
+    count = ctypes.c_int(0)
+    _raise_on_error(SGD_SOURCE, _lib(SGD_SOURCE).sgd_grid_ctas_on_card(
+        loss, d, _sgd_cluster_slice(d, _card_sms(device_index)), smem,
+        ctypes.byref(count)), "occupancy query")
+    if count.value < 1:
+        raise KernelLaunchError(
+            f"no CTA of sgd stage 1's grid instance ({smem} bytes) fits an SM "
+            "of this card")
+    return count.value
+
+
+@functools.lru_cache(maxsize=None)
+@functools.lru_cache(maxsize=None)
+def _card_sms(device_index: int) -> int:
+    """The SMs of the card: the CTAs the grid instance's layout is sized
+    for (one an SM)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _device_index(t: torch.Tensor) -> int:
@@ -1717,13 +1827,17 @@ def _sgd_plan_on(device_index: int, loss: int, d: int, lb: int,
                  vec4: int) -> SgdPlan:
     """:func:`_sgd_plan` on one card, cached: a fit asks for the same
     window shape every round."""
-    instance = _sgd_instance(d)
+    instance, sms = _sgd_card_instance(device_index, d)
+    if instance == "grid":
+        # raises where no CTA of the layout fits an SM
+        _sgd_resident_grid(device_index, loss, d, _sgd_grid_layout(d, sms)[1])
+        return _sgd_plan(lb, d, sms, vec4, sms=sms)
     if instance == "cluster":
         c = _sgd_cluster_size(d)
         resident = _sgd_resident_clusters(
             device_index, loss, d, c,
             _sgd_cluster_layout(_sgd_cluster_slice(d, c))[1])
-        return _sgd_plan(lb, d, resident, vec4)
+        return _sgd_plan(lb, d, resident, vec4, sms=sms)
     v = _sgd_width_class(d)
     if v:
         shape = (128 * v, 0, 0)
@@ -1732,25 +1846,35 @@ def _sgd_plan_on(device_index: int, loss: int, d: int, lb: int,
     else:
         shape = (d,) + _sgd_layout(d)[1:]
     resident = _sgd_resident_blocks(device_index, loss, v, vec4, *shape)
-    return _sgd_plan(lb, d, resident, vec4)
+    return _sgd_plan(lb, d, resident, vec4, sms=sms)
 
 
-def _sgd_instance(d: int) -> str:
-    """The stage-1 instance :func:`_sgd_plan` takes at width ``d``."""
+def _sgd_instance(d: int, sms: int) -> str:
+    """The stage-1 instance :func:`_sgd_plan` takes at width ``d`` on a card
+    of ``sms`` SMs (the grid instance runs one CTA an SM)."""
     if d <= SGD_REG_COLS:
         return "registers"
     if _sgd_staged_layout(d) is not None:
         return "staged"
-    return "cluster" if _sgd_cluster_size(d) is not None else "chunked"
+    if _sgd_cluster_size(d) is not None:
+        return "cluster"
+    return "grid" if _sgd_grid_layout(d, sms) is not None else "chunked"
+
+
+def _sgd_card_instance(device_index: int, d: int) -> Tuple[str, int]:
+    """:func:`_sgd_instance` on one card, and the card's SMs."""
+    sms = _card_sms(device_index)
+    return _sgd_instance(d, sms), sms
 
 
 def _sgd_card_plan(xl: torch.Tensor, lb: int, loss_name: str) -> SgdPlan:
     """:func:`_sgd_plan` for ``xl``'s card and alignment: rows are read by
     16 bytes from an aligned x at a width that is a multiple of 4, or at
-    any width by the staged and cluster instances, which copy each stage
-    (each row's slice) from the aligned address at or before it."""
+    any width by the staged, cluster and grid instances, which copy each
+    stage (each row's slice) from the aligned address at or before it."""
     d = xl.shape[1]
-    any_width = _sgd_instance(d) in ("staged", "cluster")
+    any_width = _sgd_card_instance(_device_index(xl), d)[0] in (
+        "staged", "cluster", "grid")
     return _sgd_plan_on(_device_index(xl), SGD_LOSSES[loss_name], d, lb,
                         int((d % 4 == 0 or any_width)
                             and xl.data_ptr() % 16 == 0))
@@ -1761,21 +1885,30 @@ def _launch_sgd_terms(xl: torch.Tensor, yl: torch.Tensor, wl: torch.Tensor,
                       loss_name: str, combine: bool = True,
                       plan: Optional[SgdPlan] = None) -> torch.Tensor:
     """One C call: the (blocks + 1, d + 2) workspace, stage 1's per-block
-    (per-cluster) partials in its first rows and (where ``combine``, else
-    left unwritten) their fixed-order sum in the last. ``plan`` overrides
-    the card's plan (the card check runs the chunked instance at narrower
-    widths and the cluster one in other sizes with it; the C entry refuses
-    a plan its kernels were not written for)."""
+    (per-cluster; the grid's one) partials in its first rows and (where
+    ``combine``, else left unwritten) their fixed-order sum in the last;
+    where ``combine`` and blocks = 1, stage 1 writes its one row into the
+    last itself and the first is left unwritten. The grid instance also gets its scratch: two stages' partial dots (2 ×
+    rows × grid floats) and dots (2 × rows), then its two barriers'
+    counters, which the C entry zeroes. ``plan`` overrides the card's plan
+    (the card check runs the chunked instance at other widths, the cluster
+    one in other sizes and the grid one at the cluster's widths with it;
+    the C entry refuses a plan its kernels were not written for)."""
     d = xl.shape[1]
     with _on_card(xl):
         plan = plan or _sgd_card_plan(xl, lb, loss_name)
         ws = torch.empty((plan.blocks + 1, d + 2), dtype=torch.float32,
                          device=xl.device)
+        scratch = (torch.empty(2 * plan.rows * (plan.grid + 1) + 2,
+                               dtype=torch.float32, device=xl.device)
+                   if plan.grid else None)
         _raise_on_error(SGD_SOURCE, _lib(SGD_SOURCE).sgd_batch_terms(
             xl.data_ptr(), yl.data_ptr(), wl.data_ptr(), coeffs.data_ptr(),
             ws.data_ptr(), start, lb, clip, d, plan.v, plan.vec4, plan.blocks,
             plan.rows, plan.dc, plan.smem, plan.tiles_per_block,
-            plan.cluster, SGD_LOSSES[loss_name], int(combine), _stream(xl)),
+            plan.cluster, plan.grid,
+            scratch.data_ptr() if plan.grid else None,
+            SGD_LOSSES[loss_name], int(combine), _stream(xl)),
             "sgd_batch_terms")
     return ws
 

@@ -5,7 +5,7 @@ can be held against each other on one card in one call.
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
-    python3 scripts/port_sgd_ab.py --tree DIR [--out FILE]
+    python3 scripts/port_sgd_ab.py --tree DIR [--shapes A,B,...] [--out FILE]
 
 Imports ``flink_ml_tpu_torch`` from DIR (the repository itself, or a
 ``git archive`` of another commit unpacked somewhere), builds its kernels
@@ -46,7 +46,11 @@ on where the allocator placed it. The shapes:
 - ``d=2000``: all 100,000 rows of 100,000 x 2,000 (likewise);
 - ``d=16000``: lb = 20,000 of 40,000 x 16,000 rows (the chunked
   instance's on a tree without the cluster one, the cluster instance's on
-  a tree with it).
+  a tree with it);
+- ``d=262144``: lb = 1,220 of 2,440 x 262,144 rows (likewise the chunked
+  instance's or the grid instance's).
+
+``--shapes`` runs only the named shapes (all by default).
 
 It prints one JSON line: the tree, the card's name and power limit, ptxas'
 registers and spills of each kernel of ``sgd_kernels.cu``, and each
@@ -73,7 +77,7 @@ LOSSES = ("logistic", "hinge", "least_square")
 TABLES = {"main": (10_000_000, 100), "d=7": (200_000, 7),
           "d=512": (1_000_000, 512), "d=1500": (100_000, 1_500),
           "d=6001": (60_000, 6_001), "d=2000": (100_000, 2_000),
-          "d=16000": (40_000, 16_000)}
+          "d=16000": (40_000, 16_000), "d=262144": (2_440, 262_144)}
 #: shape -> (table, start, clip, lb)
 SHAPES = {
     "main": ("main", 0, 0, 100_000),
@@ -86,6 +90,7 @@ SHAPES = {
     "chunked-odd-d": ("d=6001", 5, 3, 2_991),
     "d=2000": ("d=2000", 0, 0, 100_000),
     "d=16000": ("d=16000", 0, 0, 20_000),
+    "d=262144": ("d=262144", 0, 0, 1_220),
 }
 
 
@@ -182,8 +187,14 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--tree", required=True,
                         help="root of the repository tree to import")
+    parser.add_argument("--shapes", default=",".join(SHAPES),
+                        help="comma-separated shapes to run (default: all)")
     parser.add_argument("--out", help="also append the JSON line to FILE")
     args = parser.parse_args()
+    shapes = args.shapes.split(",")
+    unknown = sorted(set(shapes) - set(SHAPES))
+    if unknown:
+        parser.error(f"unknown shapes {unknown}; known: {sorted(SHAPES)}")
     if not torch.cuda.is_available():
         print("port_sgd_ab: no CUDA device", file=sys.stderr)
         return 2
@@ -203,6 +214,8 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(23)
     results = {}
     for table_name, (n, d) in TABLES.items():
+        if not any(SHAPES[shape][0] == table_name for shape in shapes):
+            continue
         x = torch.rand((n, d), generator=g, device="cuda")
         y = torch.floor(torch.rand(n, generator=g, device="cuda") * 2)
         w = torch.rand(n, generator=g, device="cuda")
@@ -210,7 +223,7 @@ def main() -> int:
         for loss in LOSSES:
             mult = LossFunc.by_name(loss).terms(x @ c, y, w)[1]
             for shape, (tname, start, clip, lb) in SHAPES.items():
-                if tname != table_name:
+                if tname != table_name or shape not in shapes:
                     continue
                 call = (x, y, w, c, start, clip, lb, loss)
                 got = K.sgd_batch_terms(*call)
@@ -225,10 +238,8 @@ def main() -> int:
                 row = {"plan": plan_of(K, x, lb, loss),
                        "max_abs_err": float((got - want).abs().max())}
                 if one_entry(K):
-                    ws = K._launch_sgd_terms(*call)
-                    assert torch.equal(ws[-1], got), f"{shape} {loss}"
-                    assert torch.equal(ws[-1], K.reduce_partials_plain(
-                        ws[:-1])), f"{shape} {loss}: combine differs"
+                    assert torch.equal(got, K.reduce_partials_plain(
+                        stage1(K, call)[:-1])), f"{shape} {loss}: combine differs"
                     row["combine_bit_identical"] = True
 
                 def at(fn):

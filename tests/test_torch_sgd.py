@@ -15,6 +15,9 @@ Tolerances, all float32 against float32:
   terms is about 1.6e-6 off its float64 value, the least-square
   multiplier (dot − y) passes that on unscaled, and a column sums 32 rows
   of such products (32 × 1.6e-6 ≈ 5e-5 where the errors share a sign);
+  past 16,000 columns atol 5e-5·√(d / 16,000): a dot's rounding errors
+  add up as a random walk over its d terms, so its error grows as √d
+  (1.3e-4 at 106,000 columns, 2.0e-4 at 262,144);
 - elementwise terms, regularization and the update rules: rtol 1e-6,
   atol 1e-7 (the same float32 operations, at most an ulp apart where the
   two frameworks round a Python scalar differently);
@@ -22,7 +25,9 @@ Tolerances, all float32 against float32:
   rounds of sums reassociated by another matrix-vector product differ by
   less than 1e-6 relative on these inputs; the bound leaves a factor of 10
   for other BLAS builds, and is ten times tighter than the 1e-4 that float32
-  reassociation over a long fit could ask for.
+  reassociation over a long fit could ask for. The same bound holds the
+  fit at 262,144 columns, whose three rounds of dots over that many terms
+  move its coefficients (up to 4e-4) by about 1e-10.
 """
 
 import contextlib
@@ -107,14 +112,16 @@ def test_wide_plain_batch_terms_match_the_pallas_kernel(loss_name, d):
 
 
 @pytest.mark.parametrize("loss_name", LOSSES)
-@pytest.mark.parametrize("d", [13_210, 16_000])
+@pytest.mark.parametrize("d", [13_210, 16_000, 106_000, 262_144])
 def test_cluster_width_plain_batch_terms_match_the_pallas_kernel(loss_name,
                                                                  d):
     """Rows past the staged instance's widths (the cluster instance's on
-    the card): 48 seeded rows, a clipped window of 32 at a tile-aligned
-    start, against the Pallas kernel in interpret mode (rtol 2e-5, atol
-    5e-5: dots of d terms with margins near 1, each about 1.6e-6 off, sums
-    of 32 rows; the module docstring)."""
+    the card, and past 105,568 columns the grid instance's): 48 seeded
+    rows, a clipped window of 32 at a tile-aligned start, against the
+    Pallas kernel in interpret mode (rtol 2e-5, atol 5e-5 up to 16,000
+    columns: dots of d terms with margins near 1, each about 1.6e-6 off,
+    sums of 32 rows; wider, atol 5e-5·√(d / 16,000): the dots' errors grow
+    as √d; the module docstring)."""
     rng = np.random.default_rng(d + 1)
     n, lb, tile, start, clip = 48, 32, 8, 8, 3
     xl = rng.normal(size=(n, d)).astype(np.float32)
@@ -126,7 +133,8 @@ def test_cluster_width_plain_batch_terms_match_the_pallas_kernel(loss_name,
     got = kernels.sgd_batch_terms(_t(xl), _t(yl), _t(wl), _t(coeffs), start,
                                   clip, lb, loss_name)
     assert got.dtype == torch.float32 and got.shape == (d + 2,)
-    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=5e-5)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5,
+                               atol=5e-5 * max(1.0, (d / 16_000) ** 0.5))
 
 
 @pytest.mark.parametrize("loss_name", LOSSES)
@@ -381,24 +389,27 @@ def test_the_sgd_layout_takes_any_width():
     instance (V = ⌈d / 128⌉ float4s a lane) on a persistent grid, wider
     rows the staged one while its ring fits a block (whole rows, dc = d),
     wider rows the cluster one while a cluster of 8 CTAs holds them (each
-    CTA a slice of dc columns), wider still the chunked one, staged in
+    CTA a slice of dc columns), wider rows the grid one while a grid of
+    132 CTAs (an H100's, one an SM) holds them (each CTA a slice of dc
+    columns, one partial row), wider still the chunked one, staged in
     chunks of columns that keep a column on one thread (a multiple of
     256)."""
     for d in (1, 7, 100, 128, 129, 256, 300, 511, 512):
-        plan = kernels._sgd_plan(100_000, d, 396)
+        plan = kernels._sgd_plan(100_000, d, 396, sms=132)
         assert plan.instance == "registers" and plan.v == -(-d // 128)
         assert plan.blocks == 396 and plan.tiles_per_block == 0
-    assert kernels._sgd_plan(1_000, 100, 396).blocks == 8  # 16 rows a warp
+    # 16 rows a warp
+    assert kernels._sgd_plan(1_000, 100, 396, sms=132).blocks == 8
     assert kernels._sgd_layout(1_500) == (16, 512, 4 * (16 * 512 + 512 + 48))
     for d in (513, 1_500, 6_001, 13_209):
-        plan = kernels._sgd_plan(100_000, d, 792)
+        plan = kernels._sgd_plan(100_000, d, 792, sms=132)
         rows, smem = kernels._sgd_staged_layout(d)
         assert plan.instance == "staged" and plan.v == 0 and plan.dc == d
         assert (plan.rows, plan.smem, plan.tiles_per_block) == (rows, smem, 0)
         assert 1 <= rows <= 16 and smem <= kernels.SMEM_BLOCK_BYTES
         assert plan.blocks <= 792
     for d in (13_210, 16_000, 10 ** 5, 105_568):
-        plan = kernels._sgd_plan(100_000, d, 66)
+        plan = kernels._sgd_plan(100_000, d, 66, sms=132)
         c = kernels._sgd_cluster_size(d)
         rows, smem = kernels._sgd_cluster_layout(plan.dc)
         assert plan.instance == "cluster" and plan.v == 0 and plan.cluster == c
@@ -407,8 +418,16 @@ def test_the_sgd_layout_takes_any_width():
         assert (plan.rows, plan.smem, plan.tiles_per_block) == (rows, smem, 0)
         assert 1 <= rows <= 16 and smem <= kernels.SMEM_BLOCK_BYTES
         assert plan.blocks <= 66
-    for d in (105_569, 10 ** 6, 10 ** 7):
-        plan = kernels._sgd_plan(100_000, d, 792)
+    for d in (105_569, 10 ** 6, 1_959_936):
+        plan = kernels._sgd_plan(100_000, d, 132, sms=132)
+        rows, smem = kernels._sgd_grid_layout(d, 132)
+        assert plan.instance == "grid" and plan.v == 0 and plan.grid == 132
+        assert plan.dc == kernels._sgd_cluster_slice(d, 132)
+        assert plan.dc % 4 == 0 and 131 * plan.dc < d <= 132 * plan.dc
+        assert (plan.rows, plan.smem, plan.blocks) == (rows, smem, 1)
+        assert 1 <= rows <= 32 and smem <= kernels.SMEM_BLOCK_BYTES
+    for d in (1_959_937, 10 ** 7):
+        plan = kernels._sgd_plan(100_000, d, 792, sms=132)
         rows, dc, smem = kernels._sgd_layout(d)
         assert plan.instance == "chunked" and plan.v == 0
         assert (plan.rows, plan.dc, plan.smem) == (rows, dc, smem)
@@ -419,26 +438,32 @@ def test_the_sgd_layout_takes_any_width():
 
 
 @pytest.mark.parametrize("d", [7, 100, 512, 513, 2_000, 6_001, 20_000,
-                               60_001, 120_000])
+                               60_001, 120_000, 2_000_000])
 @pytest.mark.parametrize("lb", [1, 31, 100, 100_003])
 def test_the_sgd_plan_covers_the_window_once(lb, d):
     """Stage 1's workers (warps of the register instance, blocks of the
-    staged and the chunked one, clusters of the cluster one) take
-    contiguous runs that cover [0, lb) once, in order; the register,
-    staged and cluster instances' runs differ by at most one row, and
-    their grids give every warp SGD_WARP_ROWS rows (every staged block or
-    cluster SGD_BLOCK_STAGES stages) or fill the card."""
-    resident = 396
-    plan = kernels._sgd_plan(lb, d, resident)
+    staged and the chunked one, clusters of the cluster one, the one grid
+    of the grid one) take contiguous runs that cover [0, lb) once, in
+    order; the register, staged and cluster instances' runs differ by at
+    most one row, and their grids give every warp SGD_WARP_ROWS rows
+    (every staged block or cluster SGD_BLOCK_STAGES stages) or fill the
+    card; the grid instance runs every CTA the card holds (132 here) at
+    any window."""
+    resident = 132 if 105_568 < d <= 1_959_936 else 396
+    plan = kernels._sgd_plan(lb, d, resident, sms=132)
     assert plan.instance == ("registers" if d <= 512 else
                              "staged" if d <= 13_209 else
-                             "cluster" if d <= 105_568 else "chunked")
+                             "cluster" if d <= 105_568 else
+                             "grid" if d <= 1_959_936 else "chunked")
     assert 1 <= plan.blocks <= resident
     runs = kernels.sgd_runs(plan, lb)
     assert runs[0][0] == 0 and runs[-1][1] == lb
     assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
     lengths = [r1 - r0 for r0, r1 in runs]
-    if plan.instance == "registers":
+    if plan.instance == "grid":
+        assert runs == [(0, lb)] and plan.blocks == 1
+        assert plan.grid == plan.resident == resident
+    elif plan.instance == "registers":
         assert len(runs) == plan.blocks * kernels.SGD_WARPS
         assert max(lengths) - min(lengths) <= 1
         assert (plan.blocks == resident or plan.blocks == -(-lb // (
@@ -460,19 +485,23 @@ def test_the_sgd_plan_covers_the_window_once(lb, d):
     (2_049, "staged", 16, 3), (4_096, "staged", 16, 2),
     (4_097, "staged", 16, 1), (8_192, "staged", 16, 1),
     (8_193, "staged", 16, 1), (13_209, "staged", 16, 1),
-    (13_210, "cluster", 16, 1), (105_665, "chunked", 0, 16)])
+    (13_210, "cluster", 16, 1), (105_665, "grid", 4, 23),
+    (1_959_936, "grid", 16, 1), (1_959_937, "chunked", 0, 16)])
 def test_the_sgd_plan_routes_each_width(d, instance, nreg, rows):
     """Which stage-1 instance each width takes, at the edges: the staged
     instance's columns a thread keeps in registers (4, 8, 16: past 4,096
     columns the rest sit in shared memory), its rows a stage (32 KB
     of x, 16 rows at most, one row past 8,192 floats), and the widest row
     whose three-stage ring fits a block's 232,448 bytes; past it the
-    cluster instance (the next test), past a cluster of 8 the chunked
-    one."""
-    plan = kernels._sgd_plan(100_000, d, 264)
+    cluster instance (the next test), past a cluster of 8 the grid one
+    (over an H100's 132 CTAs; the grid tests below), past a grid of 132
+    the chunked one."""
+    plan = kernels._sgd_plan(100_000, d, 264, sms=132)
     assert plan.instance == instance and plan.rows == rows
     if instance == "cluster":
         assert kernels._sgd_nreg(plan.dc) == nreg and plan.cluster == 2
+    if instance == "grid":
+        assert kernels._sgd_grid_nreg(plan.dc) == nreg and plan.grid == 132
     if instance != "staged":
         return
     assert kernels._sgd_nreg(d) == nreg
@@ -494,12 +523,12 @@ def test_the_cluster_plan_routes_each_width(d, c, ds):
     4, fit two an SM (a three-stage ring beside the warps' sums of two
     stages, in at most half the SM's shared memory); where none does, the
     smallest whose CTA fits at all. At the edges: two an SM up to a slice
-    of 7,392 columns, one up to 13,196, and past a cluster of 8 the
-    chunked instance."""
+    of 7,392 columns, one up to 13,196, and past a cluster of 8 the grid
+    instance."""
     assert kernels._sgd_cluster_size(d) == c
-    plan = kernels._sgd_plan(100_000, d, 66)
+    plan = kernels._sgd_plan(100_000, d, 66, sms=132)
     if c is None:
-        assert plan.instance == "chunked" and plan.cluster == 0
+        assert plan.instance == "grid" and plan.cluster == 0
         assert kernels._sgd_cluster_layout(
             kernels._sgd_cluster_slice(d, 8)) is None
         return
@@ -551,20 +580,82 @@ def test_the_cluster_plan_covers_the_window_once(d, lb, c):
     assert all(a < b for a, b in slices) and slices[-1][1] == d
 
 
+@pytest.mark.parametrize("d,ds,nreg,rows", [
+    (105_569, 800, 4, 23), (106_000, 804, 4, 23), (131_072, 996, 4, 19),
+    (150_001, 1_140, 4, 16), (262_144, 1_988, 4, 9), (270_336, 2_048, 4, 9),
+    (270_337, 2_052, 8, 9), (540_672, 4_096, 8, 4), (540_673, 4_100, 16, 4),
+    (1_048_576, 7_944, 16, 2), (1_081_345, 8_196, 16, 2),
+    (1_959_936, 14_848, 16, 1), (1_959_937, None, 0, 0)])
+def test_the_grid_plan_routes_each_width(d, ds, nreg, rows):
+    """Past a cluster of 8 each width takes the grid instance over an
+    H100's 132 CTAs while one row's slice (⌈d / 132⌉ rounded up to 4)
+    fits a CTA: a three-stage ring of the most rows (up to 32) that fit
+    the block's 232,448 bytes beside the stages' mbarriers, labels and
+    weights, the 16 warps' dot sums, the multipliers, the row slots' sums
+    and the sums and coefficients of the columns past a thread's 4, 8 or
+    16 registers (512 threads); past 1,959,936 columns (a slice of 14,848)
+    the chunked
+    instance. Every width's layout takes more than half an SM's shared
+    memory, so the card holds one CTA an SM and the grid's 132 CTAs are
+    all of them; every CTA gets columns."""
+    plan = kernels._sgd_plan(3_000, d, 132, sms=132)
+    if ds is None:
+        assert kernels._sgd_grid_layout(d, 132) is None
+        assert plan.instance == "chunked" and plan.grid == 0
+        return
+    assert plan.instance == "grid" and plan.dc == ds and plan.rows == rows
+    assert kernels._sgd_grid_nreg(ds) == nreg
+    assert (plan.grid, plan.resident, plan.blocks, plan.cluster) == (
+        132, 132, 1, 0)
+    pitch = (ds + 6) // 4 * 4  # up to 3 floats before a row's slice
+    over = max(0, -(-ds // 512) * 512 - 512 * nreg)
+
+    def floats(r):
+        return (3 * r * pitch + 6 + 6 * r + -(-r // 4) * 4 * 16 + 3 * r
+                + 2 * over)
+    assert plan.smem == 4 * floats(rows) <= kernels.SMEM_BLOCK_BYTES
+    assert rows == 32 or 4 * floats(rows + 1) > kernels.SMEM_BLOCK_BYTES
+    assert plan.smem > kernels.SGD_TWO_PER_SM_BYTES  # one CTA an SM
+    assert 131 * ds < d <= 132 * ds
+    if ds <= kernels.SGD_GRID_ROW_COLS:  # the warps' column sums fit the ring
+        assert 3 * rows * pitch >= 16 * ds
+
+
+@pytest.mark.parametrize("ctas", [114, 132])
+@pytest.mark.parametrize("lb", [1, 7, 3_019, 100_003])
+@pytest.mark.parametrize("d", [105_569, 262_144, 1_048_576])
+def test_the_grid_plan_covers_the_window_once(d, lb, ctas):
+    """The grid instance at any window runs one worker over [0, lb) and
+    all the CTAs the card holds (an H100 SXM's 132 or a PCIe card's 114);
+    the CTAs' slices are nonempty, 4-column aligned and cover [0, d)."""
+    plan = kernels._sgd_plan(lb, d, ctas, 1, sms=ctas)
+    assert plan.instance == "grid" and plan.grid == ctas and plan.vec4 == 1
+    assert kernels.sgd_runs(plan, lb) == [(0, lb)] and plan.blocks == 1
+    slices = [(g * plan.dc, min(d, (g + 1) * plan.dc)) for g in range(ctas)]
+    assert all(a < b for a, b in slices) and slices[-1][1] == d
+    assert all(a % 4 == 0 for a, _ in slices)
+    assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+    with pytest.raises(ValueError, match="no grid"):
+        kernels._sgd_grid_plan(d, 10 ** 6)
+
+
 def test_the_staged_instance_reads_any_width_by_16_bytes(monkeypatch):
     """The card plan reads rows by 16 bytes from an aligned x at a width
-    that is a multiple of 4, and at any width the staged and cluster
+    that is a multiple of 4, and at any width the staged, cluster and grid
     instances take (a stage is one contiguous run, a row's slice too,
     copied from the aligned address at or before it); never from an
     unaligned x."""
     monkeypatch.setattr(kernels, "_device_index", lambda t: 0)
+    monkeypatch.setattr(kernels, "_card_sms", lambda i: 132)
     monkeypatch.setattr(kernels, "_sgd_resident_blocks", lambda *a: 264)
     monkeypatch.setattr(kernels, "_sgd_resident_clusters", lambda *a: 66)
+    monkeypatch.setattr(kernels, "_sgd_resident_grid", lambda *a: 132)
     kernels._sgd_plan_on.cache_clear()
     try:
         for d, vec4 in [(7, 0), (100, 1), (513, 1), (514, 1), (6_001, 1),
                         (13_210, 1), (13_212, 1), (50_001, 1),
-                        (105_665, 0), (105_668, 1)]:
+                        (105_665, 1), (105_668, 1), (1_959_937, 0),
+                        (1_959_940, 1)]:
             x = torch.zeros(3 * d + 1)
             assert x.data_ptr() % 16 == 0
             plan = kernels._sgd_card_plan(x[:3 * d].view(3, d), 2, "hinge")
@@ -617,9 +708,10 @@ class _FakeSgdLibrary:
 
     def sgd_batch_terms(self, x, y, w, coeffs, ws, start, lb, clip, d, v,
                         vec4, blocks, rows, dc, smem, tiles_per_block,
-                        cluster, loss, combine, stream):
+                        cluster, grid, scratch, loss, combine, stream):
         self.calls.append(dict(start=start, lb=lb, clip=clip, d=d, v=v,
-                               blocks=blocks, cluster=cluster, loss=loss,
+                               blocks=blocks, cluster=cluster, grid=grid,
+                               scratch=scratch, rows=rows, loss=loss,
                                combine=combine))
 
         def tensor(ptr, count):
@@ -635,13 +727,13 @@ class _FakeSgdLibrary:
         return 0
 
 
-@pytest.mark.parametrize("d", [5, 600, 16_000])
+@pytest.mark.parametrize("d", [5, 600, 16_000, 120_000])
 def test_one_c_call_per_round_on_the_card_path(monkeypatch, d):
     """On the card path every round is one call of the C entry, with both
     stages (combine = 1) and the plan's instance, and no reduce_partials
-    launch; the fit it gives is the plain fit (a stand-in library computes
-    the terms with the plain version and writes them where the kernel
-    would)."""
+    launch; the grid instance's call gets its scratch, the rest none; the
+    fit it gives is the plain fit (a stand-in library computes the terms
+    with the plain version and writes them where the kernel would)."""
     x, y, w = _data(81, 70, d)
     fake = _FakeSgdLibrary(70)
     monkeypatch.setattr(kernels, "_is_cuda", lambda t: True)
@@ -651,6 +743,9 @@ def test_one_c_call_per_round_on_the_card_path(monkeypatch, d):
     monkeypatch.setattr(kernels, "_device_index", lambda t: 0)
     monkeypatch.setattr(kernels, "_sgd_resident_blocks", lambda *a: 264)
     monkeypatch.setattr(kernels, "_sgd_resident_clusters", lambda *a: 264)
+    monkeypatch.setattr(kernels, "_card_sms", lambda i: 132)
+    monkeypatch.setattr(kernels, "_sgd_resident_grid", lambda *a: 132)
+    kernels._sgd_plan_on.cache_clear()
     kernels.reset_launch_counts()
     prm = optimizer.SGDParams(max_iter=5, global_batch_size=30, reg=0.01)
     card = optimizer.sgd_rounds(kernels.sgd_batch_terms, "logistic", prm,
@@ -659,19 +754,41 @@ def test_one_c_call_per_round_on_the_card_path(monkeypatch, d):
     kernels.reset_launch_counts()
     assert counts["sgd_batch_terms"] == 5 and counts["reduce_partials"] == 0
     assert len(fake.calls) == 5
+    kernels._sgd_plan_on.cache_clear()
     v = 0 if d > 512 else 1
     for call in fake.calls:
         assert call["combine"] == 1 and call["d"] == d and call["v"] == v
         assert call["loss"] == kernels.SGD_LOSSES["logistic"]
-        plan = kernels._sgd_plan(call["lb"], d, 264)
-        assert call["blocks"] == plan.blocks
-        assert call["cluster"] == plan.cluster
-        assert (plan.cluster > 0) == (d > 13_209)
+        plan = kernels._sgd_plan(call["lb"], d, 264, sms=132)
+        assert call["blocks"] == plan.blocks and call["rows"] == plan.rows
+        assert call["cluster"] == plan.cluster and call["grid"] == plan.grid
+        assert (plan.cluster > 0) == (13_209 < d <= 105_568)
+        assert (plan.grid > 0) == (d > 105_568) == (call["scratch"] is not None)
     monkeypatch.setattr(kernels, "_is_cuda", lambda t: False)
     plain = optimizer.sgd_rounds(kernels.sgd_batch_terms, "logistic", prm,
                                  _t(x), _t(y), _t(w), torch.zeros(d))
     for got, want in zip(card, plain):
         assert torch.equal(torch.as_tensor(got), torch.as_tensor(want))
+
+
+def test_lr_fit_at_262144_columns_matches_jax(mesh1):
+    """A small LR fit at 262,144 dense columns (2^18, the grid instance's
+    width on the card): 64 rows, every round all of them, 3 rounds,
+    against the JAX fit, which takes its XLA rounds at this width (its
+    Pallas kernel stops near 110,000 columns). The learning rate keeps the
+    margins near 1 over so many columns. FIT_RTOL/FIT_ATOL (module
+    docstring)."""
+    d = 262_144
+    x, y, w = _data(91, 64, d)
+    prm = dict(learning_rate=1e-3, global_batch_size=64, max_iter=3,
+               tol=0.0)
+    want, want_loss, path = _jax_fit(mesh1, "logistic", prm, x, y, w)
+    assert path == "xla-unrolled"
+    got, got_loss = _port_fit("logistic", prm, x, y, w)
+    assert 0.01 < got_loss < 0.7 and np.abs(want).max() > 1e-4
+    np.testing.assert_allclose(got, want, rtol=FIT_RTOL, atol=FIT_ATOL)
+    np.testing.assert_allclose(got_loss, want_loss, rtol=FIT_RTOL,
+                               atol=FIT_ATOL)
 
 
 def test_every_round_runs_the_kernel_wrapper(monkeypatch):
