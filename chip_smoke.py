@@ -50,15 +50,15 @@ Phases, each of which fails the run (no result line, nonzero exit):
    the clipped window at the end, a ragged window, a one-row window,
    zero-weight rows, an odd width, and margins that overflow exp for the
    logistic loss, printing each case's launch plan (register, staged,
-   cluster, grid or chunked instance, grid); rows wider than 512 columns:
+   cluster, grid or two-pass instance, grid); rows wider than 512 columns:
    the staged instance at d = 513, 1,500, 2,000 and 6,001, the cluster
    one at d = 13,210, 16,000, 50,001 and 100,000 (clusters of 2, 4, 8 and
    8), the grid one at d = 106,000, 131,072, 150,001, 262,144 and
-   1,048,576 and the chunked one past the grid's widths at d = 2,500,000,
-   at full, ragged, end-clipped and one-row windows, the staged, cluster
-   and grid instances from an x 4 bytes off alignment too, the chunked
-   instance run by hand at the staged widths and at 16,000, and at 16,000
-   every cluster size by hand; the C entry's output must equal
+   1,048,576 and the two-pass set past the grid's widths at d = 2,000,001,
+   2,097,152, 2,500,000 and 4,194,304 (a ragged last band), at full,
+   ragged clipped, end-clipped and one-row windows, every instance from an
+   x 4 bytes off alignment too, and at 16,000 every cluster size by hand;
+   the C entry's output must equal
    ``reduce_partials_plain`` of the partials the same call wrote, bit for
    bit (the grid's one partial row too); time the whole call and its
    first stage alone, eagerly and as device times (``device_ms``,
@@ -68,7 +68,9 @@ Phases, each of which fails the run (no result line, nonzero exit):
    20,000 (its own row) and at 13,210, 50,001 and 100,000 (windows of the
    same 1.28 GB), and the grid instance at d = 262,144, lb = 1,220 (its
    own row) and at 106,000, 131,072 and 1,048,576 (windows of the same
-   1.28 GB), each beside the chunked instance at the same windows and the
+   1.28 GB), each beside the two-pass set by hand at the same windows,
+   and the two-pass set at d = 2,097,152, lb = 152 (its own row),
+   2,500,000 and 4,194,304 (windows of the same 1.28 GB), each beside the
    library pair (``x @ c``, then ``xᵀ @ mult`` with the multipliers
    given), and the grid instance by hand at 50,001 and 100,000 beside the
    cluster instance; the timed calls move their window on by lb each
@@ -456,8 +458,8 @@ Phases, each of which fails the run (no result line, nonzero exit):
     and COEFF_ATOL, KMeans within CENTROID_ATOL and LABEL_AGREEMENT; prints
     each stage's ms on 8 shards and with no mesh (line ``feature mesh:
     {...}``);
-23. the long-list KNN and the staged, cluster and grid SGD instances through
-    the port's entry points, each with the counts at 0: the runner on
+23. the long-list KNN and the staged, cluster, grid and two-pass SGD
+    instances through the port's entry points, each with the counts at 0: the runner on
     ``knn-benchmark.json`` with k = 50 (10,000,000 x 32 against 50,000),
     then transform of the same table, 73,333 of its predictions against
     the plain version's neighbours; the same at k = 300 (the radix route),
@@ -469,7 +471,10 @@ Phases, each of which fails the run (no result line, nonzero exit):
     every round takes all the rows, 6.4 GB), and at 262,144 features over
     10,000 rows (the grid instance: 2^18, a 512 × 512 image flattened, or
     Flink ML's HashingTF default width; every round all the rows, 10.5
-    GB), each fit's time printed;
+    GB), and, once the grid fit's table is freed, at 2,097,152 features
+    over 1,250 rows (the two-pass set: 2^21, Vowpal Wabbit's ``-b 21``
+    feature space or a 1,024 × 2,048 image flattened; every round all the
+    rows, 10.49 GB), each fit's time printed;
 24. KMeans at embedding widths through the runner and the estimators, with
     the counts at 0: ``kmeans-benchmark.json`` with only ``vectorDim`` and
     ``k`` changed (1,000,000 rows, maxIter 10, seed 2, generated on the
@@ -490,7 +495,8 @@ Phases, each of which fails the run (no result line, nonzero exit):
 25. print one ``{"kernels": [...]}`` line with every kernel's launches in
     its main-path runs (in all and by path), error, times and bound, and
     rows of their own for the long-list KNN, radix KNN, staged, cluster
-    and grid SGD instances (launches from phase 23) and the tiled KMeans
+    and grid SGD instances and the SGD two-pass set (launches from phase
+    23) and the tiled KMeans
     route
     (launches from phase 24), then the result line.
 
@@ -578,6 +584,7 @@ Tolerances (float32 throughout, TF32 off):
 """
 
 import contextlib
+import gc
 import io
 import itertools
 import json
@@ -665,13 +672,14 @@ PATH_KERNELS = {
                      "assign_nearest", "sgd_batch_terms"),
     # phase 23: a KNN transform at k = 50 (the long-list instance), one at
     # k = 300 (the radix route), and LR fits at 2,000 features (the staged
-    # instance), at 16,000 (the cluster instance) and at 262,144 (the grid
-    # instance)
+    # instance), at 16,000 (the cluster instance), at 262,144 (the grid
+    # instance) and at 2,097,152 (the two-pass set)
     "knn_long": ("knn_topk_indices",),
     "knn_wide": ("knn_topk_indices",),
     "linear_wide": ("sgd_batch_terms",),
     "linear_cluster": ("sgd_batch_terms",),
     "linear_grid": ("sgd_batch_terms",),
+    "linear_twopass": ("sgd_batch_terms",),
     # phase 24: KMeans fits, transforms and an OnlineKMeans stream at
     # embedding widths, all on the tiled route (no reduce_partials)
     "kmeans_wide": ("assign_nearest", "lloyd_partial_sums"),
@@ -684,18 +692,21 @@ INSTANCE_ROWS = (("knn_topk_indices[long]", "knn_topk_indices", "knn_long"),
                  ("sgd_batch_terms[cluster]", "sgd_batch_terms",
                   "linear_cluster"),
                  ("sgd_batch_terms[grid]", "sgd_batch_terms", "linear_grid"),
+                 ("sgd_batch_terms[twopass]", "sgd_batch_terms",
+                  "linear_twopass"),
                  ("assign_nearest[tiled]", "assign_nearest", "kmeans_wide"),
                  ("lloyd_partial_sums[tiled]", "lloyd_partial_sums",
                   "kmeans_wide"))
 # phase 23: the KNN transforms' k (the long-list instance and the radix
 # route), the test rows whose lists are held against the plain version at
 # k = 300, and the LR fits' widths and rows (the staged instance's, then
-# the cluster and grid instances': the config's globalBatchSize takes
-# every row)
+# the cluster and grid instances' and the two-pass set's: the config's
+# globalBatchSize takes every row)
 LONG_PATH_K, WIDE_PATH_K, WIDE_PATH_CHECKED = 50, 300, 4_096
 WIDE_PATH_D, WIDE_PATH_ROWS = 2_000, 1_000_000
 CLUSTER_PATH_D, CLUSTER_PATH_ROWS = 16_000, 100_000
 GRID_PATH_D, GRID_PATH_ROWS = 262_144, 10_000
+TWOPASS_PATH_D, TWOPASS_PATH_ROWS = 2_097_152, 1_250
 # phase 2's tiled KMeans route: the cases (n, d, k, share of zero weights,
 # tag); the skewed table (n, d, k, share of rows drawn around centroid 0);
 # the shape its kernels line rows are timed at (phase 24 (a)); the shapes
@@ -1580,18 +1591,16 @@ def phase_sgd_kernels(K):
     measured["sgd_batch_terms[staged]"].update(staged)
     measured["sgd_batch_terms[cluster]"].update(cluster)
     measured["sgd_batch_terms[grid]"].update(time_grid_sgd(K, rand))
+    measured["sgd_batch_terms[twopass]"].update(time_twopass_sgd(K, rand))
     return measured
 
 
-def chunked_sgd_plan(K, x, lb, loss):
-    """The chunked instance's plan for x, at any width past the register
-    instance's (the one the card plan gives past a cluster of 8)."""
-    d = x.shape[1]
-    rows, dc, smem = K._sgd_layout(d)
-    vec4 = int(d % 4 == 0 and x.data_ptr() % 16 == 0)
-    resident = K._sgd_resident_blocks(0, K.SGD_LOSSES[loss], 0, vec4, d, dc,
-                                      smem)
-    return K._sgd_chunked_plan(lb, d, resident, vec4)
+def twopass_sgd_plan(K, x):
+    """The two-pass set's plan for x at any width past the register
+    instance's (the one the card plan gives past a grid of one CTA an SM;
+    run by hand at the grid's widths): 16-byte reads from an aligned x."""
+    return K._sgd_twopass_plan(x.shape[1], K._card_sms(0),
+                               int(x.data_ptr() % 16 == 0))
 
 
 def cluster_sgd_plan(K, x, lb, loss, c):
@@ -1619,21 +1628,22 @@ def check_wide_sgd(K, rand, y, w):
     """Rows wider than the register instance takes: the staged instance at
     d = 513, 1,500, 2,000 and 6,001, the cluster one at 13,210, 16,000,
     50,001 and 100,000, the grid one past a cluster of 8 at 106,000,
-    131,072, 150,001 (d % 4 = 1), 262,144 and 1,048,576, and the chunked
-    one past the grid's widths (d = 2,500,000), for every loss, at full,
-    ragged, end-clipped and one-row windows, each against its plain
-    version, rerun bit for bit, the C entry's combine bit for bit against
-    reduce_partials_plain of its partials; the staged, cluster and grid
-    instances from an x 4 bytes off 16-byte alignment too (rerun bit for
-    bit), the chunked instance run by hand at the staged widths and at
-    16,000 beside them, and at 16,000 every cluster size by hand."""
+    131,072, 150,001 (d % 4 = 1), 262,144 and 1,048,576, and the two-pass
+    set past the grid's widths at 2,000,001 (d % 4 = 1), 2,097,152,
+    2,500,000 and 4,194,304 (45 or 40 rows: a ragged last band of its 32),
+    for every loss, at full, ragged clipped, end-clipped and one-row
+    windows, each against its plain version, rerun bit for bit, the C
+    entry's combine bit for bit against reduce_partials_plain of its
+    partials; every instance from an x 4 bytes off 16-byte alignment too
+    (rerun bit for bit), and at 16,000 every cluster size by hand."""
     measured = {}
-    errs = {"staged": [], "cluster": [], "grid": []}
+    errs = {"staged": [], "cluster": [], "grid": [], "twopass": []}
     for dd, rows in [(513, 6_000), (1_500, 5_000), (2_000, 4_000),
                      (6_001, 3_000), (13_210, 1_200), (16_000, 1_000),
                      (50_001, 400), (100_000, 300), (106_000, 400),
                      (131_072, 320), (150_001, 280), (262_144, 160),
-                     (1_048_576, 48), (2_500_000, 40)]:
+                     (1_048_576, 48), (2_000_001, 45), (2_097_152, 45),
+                     (2_500_000, 45), (4_194_304, 40)]:
         xd = rand(rows, dd)
         cd = (rand(dd) - 0.5) / dd ** 0.5
         yd, wd = y[:rows].contiguous(), w[:rows].contiguous()
@@ -1657,8 +1667,6 @@ def check_wide_sgd(K, rand, y, w):
                 K, xd, yd, wd, cd, 5, 3, rows - 9, loss), (
                 f"d={dd} {loss}: the combine differs from "
                 "reduce_partials_plain")
-            if instance == "chunked":
-                continue
             plan = K._sgd_card_plan(xu, rows - 9, loss)
             assert plan.vec4 == 0 and plan.instance == instance, plan
             got = K.sgd_batch_terms(xu, yd, wd, cd, 5, 3, rows - 9, loss)
@@ -1667,14 +1675,6 @@ def check_wide_sgd(K, rand, y, w):
                 f"d={dd} unaligned: rerun not bit-identical")
             errs[instance].append(within_sum_tol(got, K.sgd_batch_terms_plain(
                 xu, yd, wd, cd, 5, 3, rows - 9, loss), f"d={dd} unaligned"))
-            if instance == "staged" or dd == 16_000:
-                # the first design, run by hand at this width
-                chunked = K._launch_sgd_terms(
-                    xd, yd, wd, cd, 5, 3, rows - 9, loss,
-                    plan=chunked_sgd_plan(K, xd, rows - 9, loss))
-                within_sum_tol(chunked[-1], K.sgd_batch_terms_plain(
-                    xd, yd, wd, cd, 5, 3, rows - 9, loss),
-                    f"d={dd} chunked by hand")
             if dd == 16_000:
                 for size in K.SGD_CLUSTER_SIZES:
                     by_hand = K._launch_sgd_terms(
@@ -1685,10 +1685,8 @@ def check_wide_sgd(K, rand, y, w):
                             xd, yd, wd, cd, 5, 3, rows - 9, loss),
                         f"d={dd} clusters of {size}"))
         log(f"  sgd_batch_terms d={dd}: {instance} instance, every loss and "
-            "window against its plain version, the combine bit for bit"
-            + ("" if instance == "chunked" else ", unaligned x too")
-            + (", the chunked instance by hand" if instance == "staged"
-               or dd == 16_000 else "")
+            "window against its plain version, the combine bit for bit, "
+            "unaligned x too"
             + (", every cluster size by hand" if dd == 16_000 else ""))
         del xd, xu, flat
         torch.cuda.empty_cache()
@@ -1702,8 +1700,7 @@ def time_wide_sgd(K, rand):
     of the cluster instance (``time_cluster_sgd``). Times the staged
     instance at lb = 100,000 (each call the next window of a 400,000-row
     table, cold in L2) at d = 2,000, eagerly and as device time, the
-    whole call and stage 1, beside the chunked instance at the same
-    windows (its first design), the plain version and the library pair
+    whole call and stage 1, beside the plain version and the library pair
     (x @ c, then xᵀ @ mult given the multipliers); at d = 1,500 and 6,001
     its eager and device times."""
     from flink_ml_tpu_torch.ops.losses import LossFunc
@@ -1718,8 +1715,7 @@ def time_wide_sgd(K, rand):
         plan = K._sgd_card_plan(x, lb, loss)
         assert plan.instance == "staged", plan
         starts = {kind: rolling_starts(n, lb) for kind in
-                  ("kernel", "stage1", "chunked", "chunked1", "plain", "lib")}
-        cplan = chunked_sgd_plan(K, x, lb, loss)
+                  ("kernel", "stage1", "plain", "lib")}
 
         def kernel():
             return K.sgd_batch_terms(x, y, w, c, starts["kernel"](), 0, lb,
@@ -1729,21 +1725,10 @@ def time_wide_sgd(K, rand):
             return K._launch_sgd_terms(x, y, w, c, starts["stage1"](), 0, lb,
                                        loss, combine=False)
 
-        def chunked():
-            return K._launch_sgd_terms(x, y, w, c, starts["chunked"](), 0, lb,
-                                       loss, plan=cplan)
-
-        def chunked1():
-            return K._launch_sgd_terms(x, y, w, c, starts["chunked1"](), 0,
-                                       lb, loss, combine=False, plan=cplan)
-
         b_ms, b_by = bound_ms(*K.launch_cost("sgd_batch_terms", lb=lb, d=dd))
         row = {"ms": time_ms(kernel), "device_ms": graph_ms(kernel),
                "stage1_ms": time_ms(stage1),
                "stage1_device_ms": graph_ms(stage1),
-               "before_ms": time_ms(chunked),
-               "before_device_ms": graph_ms(chunked),
-               "before_stage1_device_ms": graph_ms(chunked1),
                "bound_ms": b_ms, "bound_by": b_by,
                "blocks": plan.blocks, "resident": plan.resident,
                "rows_per_stage": plan.rows}
@@ -1771,8 +1756,7 @@ def time_wide_sgd(K, rand):
     main = measured[2_000]
     staged = {key: main[key] for key in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
-        "stage1_device_ms", "library_device_ms", "before_ms",
-        "before_device_ms", "before_stage1_device_ms")}
+        "stage1_device_ms", "library_device_ms")}
     return staged, time_cluster_sgd(K, rand)
 
 
@@ -1780,10 +1764,9 @@ def time_cluster_sgd(K, rand):
     """The kernels line's row of the cluster instance: at d = 16,000, lb =
     20,000 (each call the next window of a 40,000-row table, cold in L2),
     eagerly and as device time, the whole call and stage 1, beside the
-    chunked instance at the same windows (its first design, ``before_*``),
-    the plain version and the library pair (x @ c, then xᵀ @ mult given
-    the multipliers); then the same device times, bound and library pair
-    at d = 13,210, 50,001 and 100,000, windows of the same 1.28 GB."""
+    plain version and the library pair (x @ c, then xᵀ @ mult given the
+    multipliers); then the same device times, bound and library pair at d
+    = 13,210, 50,001 and 100,000, windows of the same 1.28 GB."""
     from flink_ml_tpu_torch.ops.losses import LossFunc
 
     loss = "logistic"
@@ -1825,21 +1808,16 @@ def time_cluster_sgd(K, rand):
             starts = rolling_starts(n, lb)
             got = K.sgd_batch_terms(x, y, w, c, 0, 0, lb, loss)
             want = K.sgd_batch_terms_plain(x, y, w, c, 0, 0, lb, loss)
-            cplan = chunked_sgd_plan(K, x, lb, loss)
             row.update({
                 "ms": time_ms(lambda: K.sgd_batch_terms(
                     x, y, w, c, starts(), 0, lb, loss)),
                 "plain_ms": time_ms(lambda s=rolling_starts(n, lb): (
                     K.sgd_batch_terms_plain(x, y, w, c, s(), 0, lb, loss))),
                 "library_ms": time_ms(library()),
-                "before_ms": time_ms(call(cplan)),
-                "before_device_ms": graph_ms(call(cplan)),
-                "before_stage1_device_ms": graph_ms(call(cplan, False)),
                 "max_abs_err": within_sum_tol(got, want, "cluster d=16,000")})
             out = {key: row[key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "device_ms", "stage1_device_ms", "library_device_ms",
-                "before_ms", "before_device_ms", "before_stage1_device_ms")}
+                "device_ms", "stage1_device_ms", "library_device_ms")}
         log(f"  sgd_batch_terms cluster @ lb={lb:,} of {n:,} x {dd:,}: "
             f"{json.dumps(row)}; at {b_ms / row['device_ms']:.1%} of its "
             "bound")
@@ -1862,11 +1840,11 @@ def time_grid_sgd(K, rand):
     """The kernels line's row of the grid instance: at d = 262,144, lb =
     1,220 (each call the next window of a 2,440-row table, cold in L2),
     eagerly and as device time, the whole call and stage 1, beside the
-    chunked instance at the same windows (the earlier design at these
-    widths, ``before_*``), the plain version and the library pair (x @ c,
-    then xᵀ @ mult given the multipliers); then the same device times,
-    bound, library pair and chunked instance at d = 106,000, 131,072 and
-    1,048,576, windows of the same 1.28 GB; and the grid instance by hand
+    plain version and the library pair (x @ c, then xᵀ @ mult given the
+    multipliers); then the same device times, bound and library pair at d
+    = 106,000, 131,072 and 1,048,576, windows of the same 1.28 GB; at all
+    four the two-pass set by hand (``twopass_*``: checked against the
+    plain version, then its device time); and the grid instance by hand
     at d = 50,001 and 100,000 beside the cluster instance the plan takes
     there."""
     from flink_ml_tpu_torch.ops.losses import LossFunc
@@ -1917,33 +1895,101 @@ def time_grid_sgd(K, rand):
                     f"grid by hand d={dd:,}")})
         else:
             assert plan.instance == "grid", plan
-            cplan = chunked_sgd_plan(K, x, lb, loss)
-            # the chunked instance takes 2.5-21 ms a call here: fewer
-            # calls a graph keep phase 3 short
+            tplan = twopass_sgd_plan(K, x)
+            got = K._launch_sgd_terms(x, y, w, c, 0, 0, lb, loss, plan=tplan)
             row.update({
-                "before_device_ms": graph_ms(call(cplan), reps=4),
-                "before_stage1_device_ms": graph_ms(call(cplan, False),
-                                                    reps=4)})
+                "twopass_by_hand_device_ms": graph_ms(call(tplan)),
+                "twopass_by_hand_max_abs_err": within_sum_tol(
+                    got[-1], K.sgd_batch_terms_plain(x, y, w, c, 0, 0, lb,
+                                                     loss),
+                    f"two-pass by hand d={dd:,}")})
         if dd == 262_144:
             starts = rolling_starts(n, lb)
             got = K.sgd_batch_terms(x, y, w, c, 0, 0, lb, loss)
             want = K.sgd_batch_terms_plain(x, y, w, c, 0, 0, lb, loss)
-            cplan = chunked_sgd_plan(K, x, lb, loss)
             row.update({
                 "ms": time_ms(lambda: K.sgd_batch_terms(
                     x, y, w, c, starts(), 0, lb, loss)),
                 "plain_ms": time_ms(lambda s=rolling_starts(n, lb): (
                     K.sgd_batch_terms_plain(x, y, w, c, s(), 0, lb, loss))),
                 "library_ms": time_ms(library()),
-                "before_ms": time_ms(call(cplan)),
                 "max_abs_err": within_sum_tol(got, want, "grid d=262,144")})
             out = {key: row[key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "device_ms", "stage1_device_ms", "library_device_ms",
-                "before_ms", "before_device_ms", "before_stage1_device_ms")}
+                "device_ms", "stage1_device_ms", "library_device_ms")}
         log(f"  sgd_batch_terms grid @ lb={lb:,} of {n:,} x {dd:,}: "
             f"{json.dumps(row)}; the planned {plan.instance} instance at "
             f"{b_ms / row['device_ms']:.1%} of its bound")
+        del x, y, w, mult
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_twopass_sgd(K, rand):
+    """The kernels line's row of the two-pass set: at d = 2,097,152, lb =
+    152 (each call the next window of a 304-row table, cold in L2), eagerly
+    and as device time, the whole call and stage 1 (the same launches: one
+    partial row), beside the plain version and the library pair (x @ c,
+    then xᵀ @ mult given the multipliers); then the same device times,
+    bound and library pair at d = 2,500,000 and 4,194,304, windows of the
+    same 1.28 GB (lb = 128 and 76). Each window's two reads are the set's
+    floor (``two_read_floor_ms``, computed, so only in the log line)."""
+    from flink_ml_tpu_torch.ops.losses import LossFunc
+
+    loss = "logistic"
+    out = {}
+    for dd, lb in [(2_097_152, 152), (2_500_000, 128), (4_194_304, 76)]:
+        n = 2 * lb
+        x, y, w = rand(n, dd), torch.floor(rand(n) * 2), rand(n)
+        c = (rand(dd) - 0.5) / dd ** 0.5
+        plan = K._sgd_card_plan(x, lb, loss)
+        assert plan.instance == "twopass" and plan.vec4 == 1, plan
+        mult = LossFunc.by_name(loss).terms(x @ c, y, w)[1]
+
+        def call(combine=True):
+            starts = rolling_starts(n, lb)
+            return lambda: K._launch_sgd_terms(x, y, w, c, starts(), 0, lb,
+                                               loss, combine=combine)
+
+        def library():
+            starts = rolling_starts(n, lb)
+
+            def run():
+                s = starts()
+                xb = x[s:s + lb]
+                torch.mv(xb, c)  # the forward dots, then the gradient
+                return torch.mv(xb.T, mult[s:s + lb])
+            return run
+
+        b_ms, b_by = bound_ms(*K.launch_cost("sgd_batch_terms", lb=lb,
+                                             d=dd))
+        row = {"device_ms": graph_ms(call()),
+               "stage1_device_ms": graph_ms(call(combine=False)),
+               "library_device_ms": graph_ms(library()),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "two_read_floor_ms": bound_ms(4 * 2 * lb * dd, 0)[0],
+               "lb": lb, "segments": plan.segments,
+               "dots_ctas": plan.segments * -(-lb // plan.rows),
+               "owner_ctas": K.sgd_twopass_grids(plan, lb, dd)["owners"][0]}
+        if dd == 2_097_152:
+            starts = rolling_starts(n, lb)
+            got = K.sgd_batch_terms(x, y, w, c, 0, 0, lb, loss)
+            want = K.sgd_batch_terms_plain(x, y, w, c, 0, 0, lb, loss)
+            row.update({
+                "ms": time_ms(lambda: K.sgd_batch_terms(
+                    x, y, w, c, starts(), 0, lb, loss)),
+                "plain_ms": time_ms(lambda s=rolling_starts(n, lb): (
+                    K.sgd_batch_terms_plain(x, y, w, c, s(), 0, lb, loss))),
+                "library_ms": time_ms(library()),
+                "max_abs_err": within_sum_tol(got, want,
+                                              "two-pass d=2,097,152")})
+            out = {key: row[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "device_ms", "stage1_device_ms", "library_device_ms")}
+        log(f"  sgd_batch_terms twopass @ lb={lb:,} of {n:,} x {dd:,}: "
+            f"{json.dumps(row)}; at {b_ms / row['device_ms']:.1%} of its "
+            f"bound, {row['two_read_floor_ms'] / row['device_ms']:.1%} of "
+            "two reads")
         del x, y, w, mult
         torch.cuda.empty_cache()
     return out
@@ -2777,15 +2823,15 @@ def _knn_wide_path(K, runner, knn_mod):
 
 def phase_long_instances(K, runner, optimizer):
     """Phase 23: the long-list KNN, the staged, cluster and grid SGD
-    instances, and the KNN radix route, through the runner and the
-    estimators, each path with the counts at 0 just before it and read
-    just after; returns the five paths' counts."""
+    instances, the SGD two-pass set and the KNN radix route, through the
+    runner and the estimators, each path with the counts at 0 just before
+    it and read just after; returns the six paths' counts."""
     import copy
 
     from flink_ml_tpu_torch.models.classification import knn as knn_mod
 
-    log("phase 23: the long-list KNN and the staged, cluster and grid SGD "
-        "instances through the port's entry points")
+    log("phase 23: the long-list KNN and the staged, cluster, grid and "
+        "two-pass SGD instances through the port's entry points")
     started = time.perf_counter()
     spec = copy.deepcopy(
         runner.load_config(str(KNN_CONFIG))["KnnModel-predict"])
@@ -2841,8 +2887,15 @@ def phase_long_instances(K, runner, optimizer):
                                   CLUSTER_PATH_ROWS, "cluster")
     grid_counts = _wide_lr_fit(K, runner, optimizer, GRID_PATH_D,
                                GRID_PATH_ROWS, "grid")
+    # the grid fit's 10.5 GB table is gone (_wide_lr_fit frees it) before
+    # the two-pass fit makes its own
+    gc.collect()
+    torch.cuda.empty_cache()
+    twopass_counts = _wide_lr_fit(K, runner, optimizer, TWOPASS_PATH_D,
+                                  TWOPASS_PATH_ROWS, "twopass")
     log(f"  phase 23: {time.perf_counter() - started:.1f} s")
-    return knn_counts, wide_counts, linear_counts, cluster_counts, grid_counts
+    return (knn_counts, wide_counts, linear_counts, cluster_counts,
+            grid_counts, twopass_counts)
 
 
 def _wide_lr_fit(K, runner, optimizer, d, rows, instance):
@@ -7602,8 +7655,8 @@ def main() -> int:
                                                              card)
     counts["feature_mesh"] = phase_feature_mesh(K, runner, card)
     (counts["knn_long"], counts["knn_wide"], counts["linear_wide"],
-     counts["linear_cluster"],
-     counts["linear_grid"]) = phase_long_instances(K, runner, optimizer)
+     counts["linear_cluster"], counts["linear_grid"],
+     counts["linear_twopass"]) = phase_long_instances(K, runner, optimizer)
     counts["kmeans_wide"] = phase_kmeans_wide(K, runner, kmeans_mod, Table)
 
     # step 25: the kernels line

@@ -7,9 +7,11 @@
 //   sgd_staged_kernel<LOSS, NREG>      at :282 (rows of at most kRegCols
 //   sgd_cluster_kernel<LOSS, NREG>     columns; wider rows as far as shared
 //   sgd_grid_kernel<LOSS, NREG, ROWS>  memory holds a ring of them; wider
-//   sgd_terms_kernel<LOSS>             rows split over a cluster of 2, 4 or
-//                                      8 CTAs; wider rows split over every
-//                                      CTA the card holds; wider still)
+//   sgd_twopass_dots_kernel<VEC4>,     rows split over a cluster of 2, 4 or
+//   sgd_twopass_mult_kernel<LOSS>,     8 CTAs; wider rows split over every
+//   sgd_twopass_axpy_kernel<VEC4>      CTA the card holds; wider still,
+//                                      three kernels that read the window
+//                                      twice)
 //   sgd_combine_kernel              <- the accumulation of _sgd_terms_kernel
 //                                      into out_ref across sequential grid
 //                                      steps (:231)
@@ -152,15 +154,46 @@
 // clock64() per phase of its iterations (sgd_grid_phase_cycles_read;
 // scripts/port_sgd_grid.py reads it).
 //
-// Stage 1, rows wider than a grid of one CTA an SM holds (sgd_terms_kernel,
-// the kernel of the port's first slice): a block stages a tile of rows `dc`
-// columns at a
-// time in shared memory, builds each row's dot across the column chunks,
-// then takes a second pass over the chunks for mult * x (the last chunk is
-// still staged, so it is read once; the others twice, the second time
-// mostly from L2). Column j of the block's partial is only ever touched by
-// thread j % 256 (dc is d or a multiple of 256), the weight and loss sums
-// by thread 0.
+// Stage 1, rows wider than a grid of one CTA an SM holds (the two-pass
+// set; any width, used past 1,959,936 columns on 132 SMs): three kernels on
+// the caller's stream, the window read twice, no atomic, no grid barrier,
+// no cooperative launch. What bounds it is two reads of the window (at
+// 2,097,152 columns, lb = 152: 2 x 1.28 GB, 0.765 ms at 3.35 TB/s, where
+// the function's bound is one read, 0.382 ms); what the design does about
+// that is fill the card with bytes in flight in both passes and keep
+// everything but x out of device memory's way.
+//   (a) sgd_twopass_dots_kernel: a 2-D grid of (column segment, row band)
+//   CTAs, a segment kTwoSegCols columns of each of a band's kTwoBandRows
+//   rows (at 2,097,152 x 152: 512 x 5 CTAs, several waves where the grid
+//   instance's predecessor ran 10 blocks). A CTA holds its segment's
+//   coefficients in shared memory and streams its rows kTwoBatch at a time,
+//   each thread kTwoLoads 16-byte loads a row (from the aligned address at
+//   or before the row's first float where x is 16-byte aligned: a row is
+//   cut into segments of kTwoSegF4 float4s, up to 3 floats of the rows
+//   beside it masked off) or 4-byte loads (else), 64 KB of the CTA's rows
+//   in flight. The rows' partial dots are summed over each warp together
+//   (rows_sum), then over the warps in warp order, and stored, one float a
+//   (row, segment), to the scratch part [lb][segments].
+//   (b) sgd_twopass_mult_kernel: a warp a row: lane l adds the row's
+//   partials l, l + 32, ... in segment order, the lanes' sums meet by the
+//   fixed butterfly, and lane 0 takes the row's terms (rows below clip
+//   weigh 0) and writes mult[row]; each CTA adds its rows' weights and
+//   losses in row order. (With one CTA for the whole window, a latency
+//   chain of rows, it took 0.086-0.106 ms at lb = 2,441-3,019; PERF.md.)
+//   (c) sgd_twopass_axpy_kernel: CTA b owns a slice of 4 T columns for the
+//   whole window (T = 128 threads from 262,144 columns, fewer below:
+//   twopass_owner_threads), thread t four of them. It walks the rows in
+//   row order, kOwnerBatch rows' loads in flight a thread (16-byte loads
+//   where d % 4 = 0 and x is aligned, coalesced 4-byte loads else), and
+//   keeps its columns' sums in registers, as doubles (a float sum of a
+//   thousand rows in row order drifted a wide LR fit off its float64
+//   rounds; the bytes, not the double adds, bound the kernel). It writes out[slice] once: no
+//   partial row reaches device memory and no combine runs. Thread 0 of
+//   CTA 0 adds (b)'s CTAs' weight and loss sums in CTA order into out[d]
+//   and out[d + 1].
+// The multipliers pass between (b) and (c) through mult [lb], and (b)'s
+// weight and loss sums through sums [ceil(lb / 8)][2], after part in the
+// scratch the wrapper allocates.
 //
 // Stage 2 (sgd_combine_kernel): the per-block partials summed in the fixed
 // two-level order of reduce_partials (kmeans_kernels.cu, kept here as its
@@ -175,8 +208,9 @@
 // give the same bits. The one atomic is the grid barrier's add to its
 // integer arrival counter; no float passes through an atomic.
 //
-// Arithmetic: full fp32 (FMA), no TF32, no fast-math intrinsics. The logistic
-// loss is softplus(-m) = max(-m, 0) + log1p(exp(-|m|)), which never
+// Arithmetic: full fp32 (FMA; the two-pass owners' sums in fp64), no TF32,
+// no fast-math intrinsics. The logistic loss is softplus(-m) = max(-m, 0)
+// + log1p(exp(-|m|)), which never
 // overflows; its multiplier -w * ys / (exp(m) + 1) is +-0 once exp(m)
 // overflows to inf (|m| > 88), as in the reference.
 //
@@ -215,15 +249,10 @@
 //     slot [2][rows]       the row slots' weight and loss sums at the end
 //     gs, cs [over]        the running sums and the coefficients of the
 //                          slice's columns past the registers (grid_over)
-//   sgd_terms_kernel, in this order (ops/kernels.py `_sgd_layout` sizes it
-//   and passes rows, dc and the byte count):
-//     xs   [rows][dc]  a column chunk of the row tile; first, so 16-byte
-//                      aligned
-//     cs   [dc]        the same columns of the coefficients
-//     mult [rows]      the tile's dots, built up chunk by chunk, then its
-//                      multipliers
-//     wv   [rows]      the tile's masked weights
-//     lv   [rows]      the tile's weighted losses
+//   the two-pass set, static: (a) cs [kTwoSegCols + 8], its segment's
+//   coefficients from 4 columns before it (0 outside the row), red [2]
+//   [kTwoBatch][kTwoWarps], the warps' dot sums by batch parity; (b) wl
+//   [2][kTermsRows], its rows' weights and losses; (c) none.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -487,126 +516,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<V>)
 #pragma unroll
     for (int q2 = 1; q2 < kWarps; ++q2) s += part[q2 * (d + 2) + j];
     dst[j] = s;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Stage 1 for wider rows: tiles staged in shared memory, column chunk by
-// column chunk.
-
-// Columns [0, dw) of nr rows of stride ld at src -> dst[nr][dw]. With vec4,
-// src, ld and dw are multiples of 4 floats and src is 16-byte aligned.
-__device__ void stage_chunk(const float* __restrict__ src, int64_t ld,
-                            float* dst, int nr, int dw, bool vec4) {
-  if (dw == ld) {  // the whole rows: one contiguous run
-    const int count = nr * dw;
-    if (vec4) {
-      const float4* s4 = reinterpret_cast<const float4*>(src);
-      float4* d4 = reinterpret_cast<float4*>(dst);
-      for (int i = threadIdx.x; i < count / 4; i += blockDim.x) d4[i] = s4[i];
-    } else {
-      for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
-    }
-  } else if (vec4) {
-    const int w4 = dw / 4;
-    float4* d4 = reinterpret_cast<float4*>(dst);
-    for (int i = threadIdx.x; i < nr * w4; i += blockDim.x) {
-      const int r = i / w4, q = i - r * w4;
-      d4[i] = *reinterpret_cast<const float4*>(src + r * ld + 4 * q);
-    }
-  } else {
-    for (int i = threadIdx.x; i < nr * dw; i += blockDim.x) {
-      const int r = i / dw, f = i - r * dw;
-      dst[i] = src[r * ld + f];
-    }
-  }
-}
-
-template <int LOSS>
-__global__ void __launch_bounds__(kThreads)
-    sgd_terms_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                     const float* __restrict__ w,
-                     const float* __restrict__ coeffs,
-                     float* __restrict__ partials, int64_t start, int64_t lb,
-                     int64_t clip, int d, int dc, int rows,
-                     int64_t tiles_per_block, int vec4) {
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;
-  float* cs = xs + rows * dc;
-  float* mult = cs + dc;
-  float* wv = mult + rows;
-  float* lv = wv + rows;
-  const int T = blockDim.x;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nwarps = T / 32;
-  const int last_c0 = (d - 1) / dc * dc;  // first column of the last chunk
-
-  // the block's partial: column j belongs to thread j % T throughout
-  float* dst = partials + (int64_t)blockIdx.x * (d + 2);
-  for (int j = threadIdx.x; j < d; j += T) dst[j] = 0.f;
-  float w_sum = 0.f, loss_sum = 0.f;  // thread 0's
-
-  const int64_t ntiles = (lb + rows - 1) / rows;
-  const int64_t t0 = (int64_t)blockIdx.x * tiles_per_block;
-  const int64_t t1 = min(ntiles, t0 + tiles_per_block);
-  for (int64_t t = t0; t < t1; ++t) {
-    const int64_t r0 = t * rows;  // window index of the tile's first row
-    const int nr = (int)min((int64_t)rows, lb - r0);
-    const float* xt = x + (start + r0) * d;
-    // pass 1: the dots, chunk by chunk, then the rows' terms
-    for (int c0 = 0; c0 < d; c0 += dc) {
-      const int dw = min(dc, d - c0);
-      __syncthreads();  // every thread is done with the last chunk and terms
-      stage_chunk(xt + c0, d, xs, nr, dw, vec4 != 0);
-      for (int f = threadIdx.x; f < dw; f += T) cs[f] = coeffs[c0 + f];
-      __syncthreads();  // the chunk is in shared memory
-      for (int r = warp; r < nr; r += nwarps) {
-        const float* xrow = xs + r * dw;
-        float s = 0.f;
-        for (int f = lane; f < dw; f += 32) s = fmaf(xrow[f], cs[f], s);
-        s = warp_sum(s);
-        if (lane == 0) {
-          if (c0 > 0) s = mult[r] + s;
-          if (c0 == last_c0) {
-            const int64_t i = r0 + r;
-            const float wi = (i >= clip) ? w[start + i] : 0.f;
-            float loss, m;
-            row_terms<LOSS>(s, y[start + i], wi, loss, m);
-            mult[r] = m;
-            wv[r] = wi;
-            lv[r] = loss;
-          } else {
-            mult[r] = s;
-          }
-        }
-      }
-    }
-    __syncthreads();  // the tile's terms are in shared memory
-    // pass 2: mult * x, last chunk first (it is still staged); every column
-    // adds its rows in row order
-    for (int c0 = last_c0; c0 >= 0; c0 -= dc) {
-      const int dw = min(dc, d - c0);
-      if (c0 != last_c0) {
-        __syncthreads();  // every thread is done with the chunk before
-        stage_chunk(xt + c0, d, xs, nr, dw, vec4 != 0);
-        __syncthreads();
-      }
-      for (int f = threadIdx.x; f < dw; f += T) {
-        float a = dst[c0 + f];
-        for (int r = 0; r < nr; ++r) a = fmaf(mult[r], xs[r * dw + f], a);
-        dst[c0 + f] = a;
-      }
-    }
-    if (threadIdx.x == 0) {
-      for (int r = 0; r < nr; ++r) {
-        w_sum += wv[r];
-        loss_sum += lv[r];
-      }
-    }
-  }
-  if (threadIdx.x == 0) {
-    dst[d] = w_sum;
-    dst[d + 1] = loss_sum;
   }
 }
 
@@ -1280,6 +1189,12 @@ __host__ __device__ constexpr int64_t grid_smem_floats(int ds, int rows) {
          2 * grid_over(ds);
 }
 
+// The grid instance's scratch: two stages' partial dots (2 * rows * grid
+// floats) and dots (2 * rows), then its two barriers' uint32 counters.
+constexpr int64_t grid_scratch_floats(int rows, int grid) {
+  return 2 * (int64_t)rows * (grid + 1) + 2;
+}
+
 // The grid barriers' halves, as CUTLASS's generic barrier: the arrive, a
 // block barrier (every thread's writes before it are made) then one
 // thread's acq_rel fence and add to the barrier's counter; the wait, that
@@ -1740,11 +1655,300 @@ __global__ void __launch_bounds__(kCombThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Instances and launch checks.
+// Stage 1 for rows past what a grid of one CTA an SM holds: the two-pass
+// set, (a) the partial dots, (b) the terms, (c) mult * x by column owners.
 
-int64_t smem_floats(int dc, int rows) {
-  return (int64_t)rows * dc + dc + 3 * (int64_t)rows;
+constexpr int kTwoThreads = 256;  // threads of a dots CTA: 8 warps
+constexpr int kTwoWarps = kTwoThreads / 32;
+constexpr int kTwoLoads = 4;  // float4s of a row a dots thread loads
+constexpr int kTwoSegF4 = kTwoThreads * kTwoLoads;  // a segment's float4s
+constexpr int kTwoSegCols = 4 * kTwoSegF4;  // a segment's columns: 4,096
+constexpr int kTwoBandRows = 32;  // window rows of a dots CTA
+constexpr int kTwoBatch = 4;      // rows a dots CTA loads at once
+constexpr int kTwoMaxBands = 65535;  // row bands at most (gridDim.y)
+constexpr int kTermsThreads = 256;  // threads of a terms CTA: a row a warp
+constexpr int kTermsRows = kTermsThreads / 32;
+constexpr int kTermsLoads = 16;  // partials a lane loads at once
+constexpr int kOwnerThreads = 128;  // threads of an owner CTA at most
+constexpr int kOwnerBatch = 16;  // rows an owner thread loads at once
+static_assert(kTwoBatch == 4, "a batch's rows are summed by rows_sum<4>");
+
+// Segments of a row of width d: its float4s from the aligned address at or
+// before its first float where vec4 (up to 3 floats of the rows beside it:
+// (d + 6) / 4 where d % 4 != 0), its columns in fours else, in runs of
+// kTwoSegF4.
+__host__ __device__ constexpr int twopass_segments(int d, int vec4) {
+  return (int)(((vec4 && d % 4 ? ((int64_t)d + 6) / 4
+                               : ((int64_t)d + 3) / 4) +
+                kTwoSegF4 - 1) /
+               kTwoSegF4);
 }
+
+// Threads of an owner CTA of (c) at width d, four columns each: 128 from
+// 262,144 columns, 64 from 131,072 and 32 below, so that there are at
+// least 512 owner CTAs (a few an SM on an H100) down to 65,536 columns.
+__host__ __device__ constexpr int twopass_owner_threads(int d) {
+  return d >= 4 * 128 * 512 ? 128 : d >= 4 * 64 * 512 ? 64 : 32;
+}
+
+// The two-pass set's scratch for a window of lb rows: the partial dots
+// (lb * segments floats), the multipliers (lb), then the terms CTAs'
+// weight and loss sums (2 * ceil(lb / kTermsRows)).
+constexpr int64_t twopass_scratch_floats(int64_t lb, int segments) {
+  return lb * segments + lb + 2 * ((lb + kTermsRows - 1) / kTermsRows);
+}
+
+// a plus the products of a row's columns col .. col + 3 (in xv; those
+// outside [0, d) skipped) and cs[e .. e + 3], in column order.
+__device__ __forceinline__ float dot4_masked(float a, float4 xv,
+                                             const float* cs, int e, int col,
+                                             int d) {
+  a = fmaf((unsigned)col < (unsigned)d ? xv.x : 0.f, cs[e], a);
+  a = fmaf((unsigned)(col + 1) < (unsigned)d ? xv.y : 0.f, cs[e + 1], a);
+  a = fmaf((unsigned)(col + 2) < (unsigned)d ? xv.z : 0.f, cs[e + 2], a);
+  return fmaf((unsigned)(col + 3) < (unsigned)d ? xv.w : 0.f, cs[e + 3], a);
+}
+
+// The floats p[0 .. n) (n < 4) as a float4, 0 past them: the window's
+// last float4 where the window does not end on a 16-byte boundary, since
+// nothing past the window's last float need belong to x.
+__device__ __forceinline__ float4 ldcs_head(const float* p, int64_t n) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (n > 0) v.x = __ldcs(p);
+  if (n > 1) v.y = __ldcs(p + 1);
+  if (n > 2) v.z = __ldcs(p + 2);
+  return v;
+}
+
+// (a): CTA (s, b) stores part[j][s], the dot of window row j's segment s
+// with the coefficients, for the rows j of band b. With VEC4 (x 16-byte
+// aligned) segment s of a row is its float4s [s kTwoSegF4, (s + 1)
+// kTwoSegF4) counted from the aligned address at or before its first
+// float (o floats before it), thread t's the float4s s kTwoSegF4 + t +
+// kTwoThreads u, column 4i + k - o for element k of float4 i (the
+// window's last float4 read by 4-byte loads up to its last float where it
+// ends inside one); else its columns [s kTwoSegCols, (s + 1) kTwoSegCols),
+// thread t's s kTwoSegCols + t + kTwoThreads (4u + k), by 4-byte loads.
+template <bool VEC4>
+__global__ void __launch_bounds__(kTwoThreads, 2)
+    sgd_twopass_dots_kernel(const float* __restrict__ x,
+                            const float* __restrict__ coeffs,
+                            float* __restrict__ part, int64_t start,
+                            int64_t lb, int d, int segments) {
+  __shared__ __align__(16) float cs[kTwoSegCols + 8];
+  __shared__ float red[2][kTwoBatch][kTwoWarps];
+  const int s = blockIdx.x, t = threadIdx.x;
+  const int lane = t % 32, warp = t / 32;
+  const int c0 = s * kTwoSegCols;  // the column of the segment's float 0
+  // cs[e]: the coefficient of column c0 - 4 + e, 0 outside the row
+  for (int e = t; e < kTwoSegCols + 8; e += kTwoThreads) {
+    const int col = c0 - 4 + e;
+    cs[e] = col >= 0 && col < d ? coeffs[col] : 0.f;
+  }
+  __syncthreads();
+  const int64_t j0 = (int64_t)blockIdx.y * kTwoBandRows;
+  const int64_t j1 = min(lb, j0 + kTwoBandRows);
+  const int64_t end = (start + lb) * (int64_t)d;  // past the window's floats
+  int parity = 0;
+  for (int64_t j = j0; j < j1; j += kTwoBatch, parity ^= 1) {
+    float4 v[kTwoBatch][kTwoLoads];
+    int o[kTwoBatch];
+#pragma unroll
+    for (int r = 0; r < kTwoBatch; ++r) {
+      o[r] = 0;
+#pragma unroll
+      for (int u = 0; u < kTwoLoads; ++u)
+        v[r][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (j + r >= j1) continue;
+      const int64_t f = (start + j + r) * (int64_t)d;  // the row's float 0
+      if (VEC4) {
+        o[r] = (int)(f & 3);
+        const int64_t nq = ((int64_t)o[r] + d + 3) / 4;  // the row's float4s
+        const int64_t q = (f >> 2) + (int64_t)s * kTwoSegF4 + t;
+        const float4* p = reinterpret_cast<const float4*>(x) + q;
+#pragma unroll
+        for (int u = 0; u < kTwoLoads; ++u) {
+          if ((int64_t)s * kTwoSegF4 + t + kTwoThreads * u >= nq) continue;
+          const int64_t e0 = 4 * (q + kTwoThreads * u);  // its first float
+          v[r][u] = e0 + 4 <= end ? __ldcs(p + kTwoThreads * u)
+                                  : ldcs_head(x + e0, end - e0);
+        }
+      } else {
+        const float* p = x + f + c0 + t;
+#pragma unroll
+        for (int u = 0; u < kTwoLoads; ++u) {
+          const int col = c0 + t + 4 * kTwoThreads * u;
+          const float* q = p + 4 * kTwoThreads * u;
+          if (col < d) v[r][u].x = __ldcs(q);
+          if (col + kTwoThreads < d) v[r][u].y = __ldcs(q + kTwoThreads);
+          if (col + 2 * kTwoThreads < d)
+            v[r][u].z = __ldcs(q + 2 * kTwoThreads);
+          if (col + 3 * kTwoThreads < d)
+            v[r][u].w = __ldcs(q + 3 * kTwoThreads);
+        }
+      }
+    }
+    float acc[kTwoBatch];
+#pragma unroll
+    for (int r = 0; r < kTwoBatch; ++r) {
+      float a = 0.f;
+#pragma unroll
+      for (int u = 0; u < kTwoLoads; ++u) {
+        const float4 xv = v[r][u];
+        if (!VEC4) {  // columns past d read 0, and their coefficients are 0
+          const float* c = cs + 4 + t + 4 * kTwoThreads * u;
+          a = fmaf(xv.x, c[0], a);
+          a = fmaf(xv.y, c[kTwoThreads], a);
+          a = fmaf(xv.z, c[2 * kTwoThreads], a);
+          a = fmaf(xv.w, c[3 * kTwoThreads], a);
+          continue;
+        }
+        const int e = 4 * (t + kTwoThreads * u) - o[r] + 4;
+        const int col = c0 + e - 4;
+        if (o[r] == 0 && col + 4 <= d) {
+          const float4 cv = *reinterpret_cast<const float4*>(cs + e);
+          a = fmaf(xv.x, cv.x, a);
+          a = fmaf(xv.y, cv.y, a);
+          a = fmaf(xv.z, cv.z, a);
+          a = fmaf(xv.w, cv.w, a);
+        } else {
+          a = dot4_masked(a, xv, cs, e, col, d);
+        }
+      }
+      acc[r] = a;
+    }
+    // lane l holds row l / 8's sum over the warp
+    const float sum = rows_sum<kTwoBatch>(acc, lane);
+    if (lane % (32 / kTwoBatch) == 0)
+      red[parity][lane / (32 / kTwoBatch)][warp] = sum;
+    __syncthreads();
+    if (t < kTwoBatch && j + t < j1) {
+      float dot = red[parity][t][0];
+#pragma unroll
+      for (int k = 1; k < kTwoWarps; ++k) dot += red[parity][t][k];
+      part[(j + t) * segments + s] = dot;
+    }
+  }
+}
+
+// (b): CTA b's warp g takes window row j = kTermsRows b + g: lane l adds
+// the row's partials l, l + 32, ... in segment order, the lanes' sums
+// meet by the fixed butterfly, lane 0 takes the row's terms and writes its
+// multiplier; the CTA's weight and loss, its rows' in row order, go to
+// sums[b] for (c) to add.
+template <int LOSS>
+__global__ void __launch_bounds__(kTermsThreads)
+    sgd_twopass_mult_kernel(const float* __restrict__ part,
+                            const float* __restrict__ y,
+                            const float* __restrict__ w,
+                            float* __restrict__ mult, float* __restrict__ sums,
+                            int64_t start, int64_t lb, int64_t clip,
+                            int segments) {
+  __shared__ float wl[2][kTermsRows];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int64_t j = (int64_t)blockIdx.x * kTermsRows + warp;
+  float wi = 0.f, loss = 0.f;
+  if (j < lb) {
+    const float* p = part + j * segments;
+    float acc = 0.f;
+    for (int q0 = lane; q0 < segments; q0 += 32 * kTermsLoads) {
+      float v[kTermsLoads];
+#pragma unroll
+      for (int b = 0; b < kTermsLoads; ++b)
+        v[b] = q0 + 32 * b < segments ? p[q0 + 32 * b] : 0.f;
+#pragma unroll
+      for (int b = 0; b < kTermsLoads; ++b)
+        if (q0 + 32 * b < segments) acc += v[b];
+    }
+    const float dot = warp_sum(acc);
+    if (lane == 0) {
+      wi = j >= clip ? w[start + j] : 0.f;
+      float m;
+      row_terms<LOSS>(dot, y[start + j], wi, loss, m);
+      mult[j] = m;
+    }
+  }
+  if (lane == 0) {
+    wl[0][warp] = wi;
+    wl[1][warp] = loss;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float a = wl[0][0], c = wl[1][0];
+    for (int k = 1; k < kTermsRows; ++k) {
+      a += wl[0][k];
+      c += wl[1][k];
+    }
+    sums[2 * blockIdx.x] = a;
+    sums[2 * blockIdx.x + 1] = c;
+  }
+}
+
+// (c): CTA b of T threads owns the columns [4 T b, 4 T (b + 1)) of every
+// window row and adds mult[j] * x[j] into them for the rows j in order,
+// its sums in registers, kOwnerBatch rows' loads in flight a thread; first
+// thread 0 of CTA 0 adds (b)'s nsums weight and loss sums in CTA order
+// into out[d] and out[d + 1]. With
+// VEC4 (x 16-byte aligned and d % 4 == 0, so every slice starts aligned)
+// thread t owns the four columns from 4t, one 16-byte load a row; else
+// the columns t + T k (k < 4), four 4-byte loads a row, each coalesced.
+// The sums are doubles (each product exact, rounded to float once at the
+// end): float sums in row order drifted an LR fit at 2,097,152 columns
+// over 1,250 rows from its float64 rounds by 1.7 times chip_smoke.py's
+// fit tolerance, where float dots with double sums stayed within 0.07 of
+// it (scripts/port_sgd_fit_precision.py, PERF.md).
+template <bool VEC4>
+__global__ void __launch_bounds__(kOwnerThreads, 4)
+    sgd_twopass_axpy_kernel(const float* __restrict__ x,
+                            const float* __restrict__ mult,
+                            const float* __restrict__ sums,
+                            float* __restrict__ out, int64_t start,
+                            int64_t lb, int d, int nsums) {
+  const int t = threadIdx.x, T = blockDim.x;
+  if (blockIdx.x == 0 && t == 0) {
+    out[d] = slice_sum(sums, 2, 0, nsums);
+    out[d + 1] = slice_sum(sums + 1, 2, 0, nsums);
+  }
+  const int c0 = blockIdx.x * 4 * T;
+  const int width = min(4 * T, d - c0);  // the slice's columns
+  // the offsets of the thread's four columns in the slice
+  const int k0 = VEC4 ? 4 * t : t, step = VEC4 ? 1 : T;
+  double g[4] = {0.0, 0.0, 0.0, 0.0};
+  for (int64_t j = 0; j < lb; j += kOwnerBatch) {
+    float4 v[kOwnerBatch];
+    float m[kOwnerBatch];
+#pragma unroll
+    for (int r = 0; r < kOwnerBatch; ++r) {
+      v[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+      m[r] = 0.f;
+      if (j + r >= lb) continue;
+      m[r] = __ldg(mult + j + r);
+      const float* p = x + (start + j + r) * (int64_t)d + c0 + k0;
+      if (VEC4) {
+        if (k0 < width) v[r] = __ldcs(reinterpret_cast<const float4*>(p));
+      } else {
+        if (k0 < width) v[r].x = __ldcs(p);
+        if (k0 + T < width) v[r].y = __ldcs(p + T);
+        if (k0 + 2 * T < width) v[r].z = __ldcs(p + 2 * T);
+        if (k0 + 3 * T < width) v[r].w = __ldcs(p + 3 * T);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kOwnerBatch; ++r) {
+      const double mr = m[r];
+      g[0] = fma(mr, (double)v[r].x, g[0]);
+      g[1] = fma(mr, (double)v[r].y, g[1]);
+      g[2] = fma(mr, (double)v[r].z, g[2]);
+      g[3] = fma(mr, (double)v[r].w, g[3]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (k0 + k * step < width) out[c0 + k0 + k * step] = (float)g[k];
+}
+
+// ---------------------------------------------------------------------------
+// Instances and launch checks.
 
 template <int LOSS>
 const void* rows_kernel_of(int v, int vec4) {
@@ -1793,23 +1997,22 @@ const void* grid_kernel_of(int ds) {
   }
 }
 
-// Whether a launch of width d > kRegCols stages whole rows (dc == d): the
-// staged instance; else, with no cluster and no grid, the chunked one.
+// Whether a launch of width d > kRegCols with no cluster and no grid
+// stages whole rows (dc == d): the staged instance.
 bool staged(int d, int dc) { return d > kRegCols && dc == d; }
 
 template <int LOSS>
 const void* wide_kernel_of(int d, int dc, int cluster, int grid) {
   if (grid) return grid_kernel_of<LOSS>(dc);
   if (cluster) return cluster_kernel_of<LOSS>(dc);
-  return staged(d, dc) ? staged_kernel_of<LOSS>(d)
-                       : (const void*)sgd_terms_kernel<LOSS>;
+  return staged(d, dc) ? staged_kernel_of<LOSS>(d) : nullptr;
 }
 
-// The stage-1 instance: sgd_rows_kernel<loss, v, vec4> for v = 1..4, else
-// sgd_grid_kernel<loss, grid_nreg(dc)> over a grid of CTAs (dc the slice),
-// sgd_cluster_kernel<loss, staged_nreg(dc)> in clusters (dc the slice),
-// sgd_staged_kernel<loss, staged_nreg(d)> where whole rows are staged, else
-// sgd_terms_kernel<loss>.
+// The stage-1 instance of one kernel: sgd_rows_kernel<loss, v, vec4> for v
+// = 1..4, else sgd_grid_kernel<loss, grid_nreg(dc)> over a grid of CTAs (dc
+// the slice), sgd_cluster_kernel<loss, staged_nreg(dc)> in clusters (dc the
+// slice), sgd_staged_kernel<loss, staged_nreg(d)> where whole rows are
+// staged; nullptr for any other launch (the two-pass set has its own).
 const void* kernel_of(int loss, int v, int vec4, int d, int dc, int cluster,
                       int grid) {
   switch (loss) {
@@ -1827,6 +2030,17 @@ const void* kernel_of(int loss, int v, int vec4, int d, int dc, int cluster,
   }
 }
 
+// The two-pass set's terms kernel for a loss.
+const void* twopass_mult_kernel_of(int loss) {
+  switch (loss) {
+    case kLogistic: return (const void*)sgd_twopass_mult_kernel<kLogistic>;
+    case kHinge: return (const void*)sgd_twopass_mult_kernel<kHinge>;
+    case kLeastSquare:
+      return (const void*)sgd_twopass_mult_kernel<kLeastSquare>;
+    default: return nullptr;
+  }
+}
+
 // Dynamic shared memory of a stage-1 block: the warps' partials for the
 // register instance, the Python side's layout for the others.
 int stage1_smem(int v, int d, int smem) {
@@ -1840,19 +2054,34 @@ int stage1_smem(int v, int d, int smem) {
 // cluster_slice(d, cluster), wider than 4 * kThreads, with every CTA some
 // columns, and the ring's shared memory; or split over a grid of `grid`
 // CTAs whose slice dc is cluster_slice(d, grid), every CTA some columns,
-// one partial row and the dots' scratch; or the chunked instance with dc a
-// multiple of the block's threads below d (vec4 for 16-byte rows) and tiles
-// that cover the window; vec4 of the staged, cluster and grid instances
-// needs only an aligned x.
+// one partial row and a scratch of grid_scratch_floats; or the two-pass
+// set (`segments` > 0): segments of kTwoSegCols columns, bands of
+// kTwoBandRows rows, at most kTwoMaxBands of them, owner CTAs of
+// twopass_owner_threads(d) threads, one partial row and a scratch of
+// twopass_scratch_floats. `owner` is 0 for the other instances. vec4 of
+// the staged, cluster, grid and two-pass instances needs only an aligned x.
 cudaError_t check_config(const float* x, long long start, long long lb,
                          long long clip, int d, int v, int vec4, int blocks,
-                         int rows, int dc, int smem,
-                         long long tiles_per_block, int cluster, int grid,
-                         const float* scratch, int loss) {
+                         int rows, int dc, int smem, int segments, int owner,
+                         int cluster, int grid, const float* scratch,
+                         long long scratch_floats, int loss) {
   const bool aligned = (uintptr_t)x % 16 == 0;
-  if (kernel_of(loss, v, vec4, d, dc, cluster, grid) == nullptr || d < 1 ||
-      blocks < 1 || start < 0 || lb < 1 || clip < 0 || clip > lb ||
-      (vec4 && !aligned) || cluster < 0 || grid < 0 || (cluster && grid))
+  if (d < 1 || blocks < 1 || start < 0 || lb < 1 || clip < 0 || clip > lb ||
+      (vec4 && !aligned) || cluster < 0 || grid < 0 || segments < 0 ||
+      (cluster && grid) || (segments && (cluster || grid)) ||
+      (!segments && owner) || (!segments && !grid && scratch_floats) ||
+      twopass_mult_kernel_of(loss) == nullptr)
+    return cudaErrorInvalidValue;
+  if (segments)
+    return v == 0 && d > kRegCols && blocks == 1 && scratch != nullptr &&
+                   rows == kTwoBandRows && dc == kTwoSegCols &&
+                   segments == twopass_segments(d, vec4) &&
+                   owner == twopass_owner_threads(d) &&
+                   (lb + kTwoBandRows - 1) / kTwoBandRows <= kTwoMaxBands &&
+                   scratch_floats >= twopass_scratch_floats(lb, segments)
+               ? cudaSuccess
+               : cudaErrorInvalidValue;
+  if (kernel_of(loss, v, vec4, d, dc, cluster, grid) == nullptr)
     return cudaErrorInvalidValue;
   if (d <= kRegCols)
     return v == (d + 127) / 128 && !(vec4 && d % 4 != 0) && !cluster &&
@@ -1862,6 +2091,7 @@ cudaError_t check_config(const float* x, long long start, long long lb,
   if (v != 0 || rows < 1) return cudaErrorInvalidValue;
   if (grid)
     return blocks == 1 && scratch != nullptr &&
+                   scratch_floats >= grid_scratch_floats(rows, grid) &&
                    dc == cluster_slice(d, grid) &&
                    (int64_t)(grid - 1) * dc < d && rows <= kGridMaxRows &&
                    (dc > kGridRowCols ||
@@ -1879,17 +2109,10 @@ cudaError_t check_config(const float* x, long long start, long long lb,
                    (int64_t)smem >= 4 * cluster_smem_floats(dc, rows)
                ? cudaSuccess
                : cudaErrorInvalidValue;
-  if (staged(d, dc))
-    return rows <= kStageMaxRows && smem <= kSmemBlockMax &&
-                   (int64_t)smem >= 4 * staged_smem_floats(d, rows)
-               ? cudaSuccess
-               : cudaErrorInvalidValue;
-  if ((vec4 && d % 4 != 0) || dc < 1 || tiles_per_block < 1 ||
-      !(dc < d && dc % kThreads == 0) ||
-      (int64_t)smem < 4 * smem_floats(dc, rows) ||
-      (int64_t)blocks * tiles_per_block * rows < lb)
-    return cudaErrorInvalidValue;
-  return cudaSuccess;
+  return rows <= kStageMaxRows && smem <= kSmemBlockMax &&
+                 (int64_t)smem >= 4 * staged_smem_floats(d, rows)
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
 }
 
 // The launch of a cluster of `cluster` CTAs a grid of blocks * cluster.
@@ -1918,8 +2141,8 @@ const char* sgd_error_string(int err) {
 }
 
 // Resident blocks of one SM for a stage-1 instance (v, vec4 and dc as in
-// sgd_batch_terms, d the row width; smem is the staged or chunked
-// instance's, 0 for the other). Lets the instance use its dynamic shared
+// sgd_batch_terms, d the row width; smem is the staged instance's, 0 for
+// the register one). Lets the instance use its dynamic shared
 // memory first (the staged instances all a block may have, as their
 // widths differ): the one place the attribute is set, so a process sets it
 // once per instance (the Python side caches the answer).
@@ -1977,35 +2200,67 @@ int sgd_grid_ctas_on_card(int loss, int d, int ds, int smem, int* out) {
 // One SGD round's terms: stage 1 writes `blocks` partial rows of d + 2
 // floats to ws, then (where `combine`) stage 2 writes their sum to the d + 2
 // floats after them; both on `stream`. Where `combine` and blocks = 1 (the
-// grid instance always, the others at short windows) stage 1 writes its one
-// row there itself and stage 2 is not launched: the sum of one row is that
-// row, and the first row of ws is left unwritten. v, vec4, blocks and the staged,
-// cluster, grid or chunked layout (rows, dc, smem, tiles_per_block,
-// cluster, grid) are ops/kernels.py's plan; the cluster instance runs
-// `blocks` clusters of `cluster` CTAs, one partial row each; the grid
-// instance `grid` CTAs launched cooperatively (so a grid the card cannot
-// hold at once is refused, never left waiting at its barrier), one partial
-// row in all (blocks = 1), its dots exchanged through `scratch`: two
-// stages' partial dots (2 * rows * grid floats) and dots (2 * rows), then
-// its two barriers' uint32 counters, zeroed here before the launch. A
-// launch the card refuses returns its error: there is no other instance to
-// fall back to.
+// grid and two-pass instances always, the others at short windows) stage
+// 1 writes its one row there itself and stage 2 is not launched: the sum
+// of one row is that row, and the first row of ws is left unwritten. v,
+// vec4, blocks and the staged, cluster, grid or two-pass layout (rows, dc,
+// smem, segments, owner, cluster, grid) are ops/kernels.py's plan, and
+// scratch_floats the scratch's size, which must hold what the launch
+// writes there; the cluster
+// instance runs `blocks` clusters of `cluster` CTAs, one partial row each;
+// the grid instance `grid` CTAs launched cooperatively (so a grid the card
+// cannot hold at once is refused, never left waiting at its barrier), one
+// partial row in all (blocks = 1), its dots exchanged through `scratch`:
+// two stages' partial dots and dots, then its two barriers' uint32
+// counters, zeroed here before the launch (grid_scratch_floats); the
+// two-pass set (segments > 0) its three kernels in order, mult · x by owner
+// CTAs of `owner` threads, one partial row in all, `scratch` holding the
+// partial dots, the multipliers and the terms CTAs' weight and loss sums
+// (twopass_scratch_floats). A launch the card refuses returns its error:
+// there is no other instance to fall back to.
 int sgd_batch_terms(const float* x, const float* y, const float* w,
                     const float* coeffs, float* ws, long long start,
                     long long lb, long long clip, int d, int v, int vec4,
-                    int blocks, int rows, int dc, int smem,
-                    long long tiles_per_block, int cluster, int grid,
-                    float* scratch, int loss, int combine, void* stream) {
-  cudaError_t e =
-      check_config(x, start, lb, clip, d, v, vec4, blocks, rows, dc, smem,
-                   tiles_per_block, cluster, grid, scratch, loss);
+                    int blocks, int rows, int dc, int smem, int segments,
+                    int owner, int cluster, int grid, float* scratch,
+                    long long scratch_floats, int loss, int combine,
+                    void* stream) {
+  cudaError_t e = check_config(x, start, lb, clip, d, v, vec4, blocks, rows,
+                               dc, smem, segments, owner, cluster, grid,
+                               scratch, scratch_floats, loss);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = (cudaStream_t)stream;
-  const void* fn = kernel_of(loss, v, vec4, d, dc, cluster, grid);
-  int64_t start64 = start, lb64 = lb, clip64 = clip, tpb64 = tiles_per_block;
+  int64_t start64 = start, lb64 = lb, clip64 = clip;
   const int width = d + 2;
   const bool one_row = combine && blocks == 1;
   float* partials = one_row ? ws + width : ws;
+  if (segments) {
+    float* part = scratch;
+    float* mult = scratch + lb64 * segments;
+    float* sums = mult + lb64;
+    int nsums = (int)((lb + kTermsRows - 1) / kTermsRows);
+    void* dots_args[] = {&x, &coeffs, &part, &start64, &lb64, &d, &segments};
+    e = cudaLaunchKernel(
+        vec4 ? (const void*)sgd_twopass_dots_kernel<true>
+             : (const void*)sgd_twopass_dots_kernel<false>,
+        dim3(segments, (unsigned)((lb + rows - 1) / rows)),
+        dim3(kTwoThreads), dots_args, 0, s);
+    if (e != cudaSuccess) return (int)e;
+    void* mult_args[] = {&part, &y,    &w,      &mult,
+                         &sums, &start64, &lb64, &clip64, &segments};
+    e = cudaLaunchKernel(twopass_mult_kernel_of(loss), dim3(nsums),
+                         dim3(kTermsThreads), mult_args, 0, s);
+    if (e != cudaSuccess) return (int)e;
+    void* axpy_args[] = {&x,       &mult, &sums, &partials,
+                         &start64, &lb64, &d,    &nsums};
+    e = cudaLaunchKernel(
+        vec4 && d % 4 == 0 ? (const void*)sgd_twopass_axpy_kernel<true>
+                           : (const void*)sgd_twopass_axpy_kernel<false>,
+        dim3((d + 4 * owner - 1) / (4 * owner)), dim3(owner), axpy_args, 0,
+        s);
+    return (int)e;  // one partial row (blocks = 1): no combine
+  }
+  const void* fn = kernel_of(loss, v, vec4, d, dc, cluster, grid);
   if (v) {
     void* args[] = {&x, &y, &w, &coeffs, &partials, &start64, &lb64, &clip64,
                     &d};
@@ -2037,15 +2292,9 @@ int sgd_batch_terms(const float* x, const float* y, const float* w,
     const cudaLaunchConfig_t cfg =
         cluster_config(blocks, cluster, smem, s, &attr);
     e = cudaLaunchKernelExC(&cfg, fn, args);
-  } else if (staged(d, dc)) {
+  } else {
     void* args[] = {&x,      &y,      &w, &coeffs, &partials, &start64,
                     &lb64,   &clip64, &d, &rows,   &vec4};
-    e = cudaLaunchKernel(fn, dim3(blocks), dim3(kThreads), args,
-                         (size_t)smem, s);
-  } else {
-    void* args[] = {&x,       &y,    &w,  &coeffs, &partials, &start64,
-                    &lb64,    &clip64, &d, &dc,     &rows,     &tpb64,
-                    &vec4};
     e = cudaLaunchKernel(fn, dim3(blocks), dim3(kThreads), args,
                          (size_t)smem, s);
   }

@@ -117,7 +117,9 @@ KERNEL_SYMBOLS = {
     "sgd_staged_kernel": "sgd_batch_terms",
     "sgd_cluster_kernel": "sgd_batch_terms",
     "sgd_grid_kernel": "sgd_batch_terms",
-    "sgd_terms_kernel": "sgd_batch_terms",
+    "sgd_twopass_dots_kernel": "sgd_batch_terms",
+    "sgd_twopass_mult_kernel": "sgd_batch_terms",
+    "sgd_twopass_axpy_kernel": "sgd_batch_terms",
     "sgd_combine_kernel": "sgd_batch_terms",
     "segment_ranges_kernel": "segment_reduce_sum",
     "segment_tiles_kernel": "segment_reduce_sum",
@@ -389,22 +391,12 @@ SGD_WARPS = 8
 #: holds V = ⌈d / 128⌉ ≤ 4 float4s of a row; wider rows take the staged
 #: instance, past what its ring holds the cluster one, past what a cluster
 #: of 8 holds the grid one, and past what a grid of one CTA an SM holds the
-#: chunked one
+#: two-pass set
 SGD_REG_COLS = 512
 #: rows a warp of the register instance takes at least before the grid
 #: grows (up to the blocks the card holds at once): its double-buffered
 #: loads need a run to fill
 SGD_WARP_ROWS = 16
-#: columns of the row tile a chunked block stages at once; wider rows are
-#: staged in chunks of this many. A multiple of the kernel's 256 threads, so
-#: a column keeps its thread across chunks
-SGD_CHUNK_COLS = 512
-#: floats of x a chunked block stages at once (32 KB), so that about six
-#: blocks share an SM: the fastest tiles from d = 100 to 2,000 on an H100
-#: (scripts/port_sgd_layout_sweep.py, PERF.md)
-SGD_TILE_FLOATS = 8192
-#: window rows of a chunked tile at most
-SGD_MAX_ROWS = 64
 #: threads of an sgd stage-1 block (``kThreads``); a staged block's thread t
 #: owns columns t + 256·j
 SGD_THREADS = 256
@@ -433,6 +425,17 @@ SGD_GRID_MAX_ROWS = 32
 #: own rows (``kGridRowCols``: 32 columns a lane); wider slices are split
 #: over the CTA's threads
 SGD_GRID_ROW_COLS = 1_024
+#: the two-pass set (``sgd_twopass_*_kernel``): columns of a row segment a
+#: CTA of the partial dots reads (``kTwoSegCols``: its 256 threads' four
+#: float4s each, 1,024 float4s), window rows of its band
+#: (``kTwoBandRows``) and its bands at most (``kTwoMaxBands``, CUDA's grid
+#: height)
+SGD_TWOPASS_SEG_COLS = 4_096
+SGD_TWOPASS_BAND_ROWS = 32
+SGD_TWOPASS_MAX_BANDS = 65_535
+#: window rows of a terms CTA of the two-pass set (``kTermsRows``: a row a
+#: warp)
+SGD_TWOPASS_TERMS_ROWS = 8
 
 
 def _sgd_nreg(d: int) -> int:
@@ -448,7 +451,7 @@ def _sgd_nreg(d: int) -> int:
 def _sgd_staged_layout(d: int) -> Optional[Tuple[int, int]]:
     """``(rows, smem_bytes)`` of a staged :func:`sgd_batch_terms` block at
     width ``d``, or None where its ring does not fit a block's shared
-    memory (past about 13,200 columns: the chunked instance). The sizes are
+    memory (past about 13,200 columns: the cluster instance). The sizes are
     the ones the layout comment in ``sgd_kernels.cu`` lists
     (``staged_smem_floats``): ``SGD_RING`` stages of ``rows`` whole rows
     (up to 3 floats before the first, rounded up to 4 floats), each
@@ -495,7 +498,7 @@ def _sgd_cluster_size(d: int) -> Optional[int]:
     smallest of :data:`SGD_CLUSTER_SIZES` whose CTAs fit two an SM
     (:data:`SGD_TWO_PER_SM_BYTES`; up to 59,136 columns), else the
     smallest whose slice fits :func:`_sgd_cluster_layout` at all, or None
-    past what a cluster of 8 holds (d > 105,568: the chunked instance).
+    past what a cluster of 8 holds (d > 105,568: the grid instance).
     Two an SM hide one CTA's cluster barrier behind the other's work: at d
     = 16,000 on an H100 clusters of 4 (two an SM) took 0.545 ms where
     clusters of 2 (one an SM) took 0.818 (scripts/port_sgd_cluster.py,
@@ -521,7 +524,7 @@ def _sgd_grid_layout(d: int, ctas: int) -> Optional[Tuple[int, int]]:
     """``(rows, smem_bytes)`` of a CTA of the grid instance at width ``d``
     over ``ctas`` CTAs, or None where one row's slice does not fit a
     block's shared memory or some CTA would get no columns (past 1,959,936
-    columns over 132 CTAs: the chunked instance). The sizes are the ones
+    columns over 132 CTAs: the two-pass set). The sizes are the ones
     the layout comment in ``sgd_kernels.cu`` lists (``grid_smem_floats``):
     ``SGD_RING`` stages of ``rows`` rows' slices (:func:`_sgd_cluster_slice`
     of ``ctas``, each in a pitch of ⌈(ds + 3) / 4⌉·4 floats), the stages'
@@ -550,23 +553,21 @@ def _sgd_grid_layout(d: int, ctas: int) -> Optional[Tuple[int, int]]:
     return (fit[-1], nbytes(fit[-1])) if fit else None
 
 
-def _sgd_layout(d: int) -> Tuple[int, int, int]:
-    """``(rows, dc, smem_bytes)`` of a chunked :func:`sgd_batch_terms`
-    block at feature width ``d``: ``dc`` columns staged at once (d itself up
-    to :data:`SGD_CHUNK_COLS`) of ``rows`` rows, the power of two that
-    brings the staged floats nearest :data:`SGD_TILE_FLOATS` from below (16
-    to 64 rows). The sizes are the ones the layout comment in
-    ``sgd_kernels.cu`` lists: a ``rows`` × ``dc`` x chunk, the same columns
-    of the coefficients and three ``rows`` vectors of per-row terms."""
-    dc = min(d, SGD_CHUNK_COLS)
-    rows = min(SGD_MAX_ROWS, 1 << ((SGD_TILE_FLOATS // dc).bit_length() - 1))
-    return rows, dc, 4 * (rows * dc + dc + 3 * rows)
+def _sgd_twopass_segments(d: int, vec4: int) -> int:
+    """Segments of a row of width ``d`` in the two-pass set's partial dots
+    (``twopass_segments``): where ``vec4`` a row is read by 16 bytes from
+    the aligned address at or before its first float, so its float4s are
+    ⌈d / 4⌉, or ⌊(d + 6) / 4⌋ where d % 4 ≠ 0 (up to 3 floats of the rows
+    beside it), else its columns go in fours; either in runs of
+    :data:`SGD_TWOPASS_SEG_COLS` / 4 float4s."""
+    f4 = (d + 6) // 4 if vec4 and d % 4 else -(-d // 4)
+    return -(-f4 // (SGD_TWOPASS_SEG_COLS // 4))
 
 
 def _sgd_width_class(d: int) -> int:
     """V, the float4s of a row a lane of the register instance holds
     (⌈d / 128⌉), or 0 for rows wider than :data:`SGD_REG_COLS`, which the
-    staged, the cluster, the grid or the chunked instance takes."""
+    staged, the cluster, the grid or the two-pass instance takes."""
     return -(-d // 128) if d <= SGD_REG_COLS else 0
 
 
@@ -586,13 +587,16 @@ class SgdPlan(NamedTuple):
     one CTA an SM holds them: ``grid`` CTAs, every CTA the card holds at
     once (= ``resident``), CTA g the columns [g·dc, (g + 1)·dc) of every
     window row, streamed ``rows`` rows a stage through a ring in ``smem``
-    bytes; one partial row, ``blocks`` = 1) or "chunked"
-    (``sgd_terms_kernel<loss>``, wider still: each block
-    ``tiles_per_block`` tiles of ``rows`` rows, staged ``dc`` columns at a
-    time in ``smem`` bytes); ``blocks`` of the grid (partial rows), of the
+    bytes; one partial row, ``blocks`` = 1) or "twopass" (the
+    ``sgd_twopass_*_kernel`` set, wider still: the partial dots of
+    ``segments`` segments of ``dc`` columns of each row, CTAs of bands of
+    ``rows`` rows, then the rows' terms, then mult · x by CTAs of ``owner``
+    threads owning four columns a thread
+    (:func:`_sgd_twopass_owner_threads`); one partial row, ``blocks`` =
+    1); ``blocks`` of the grid (partial rows), of the
     ``resident`` the card holds at once; ``vec4`` where rows are read by 16
-    bytes (the staged, cluster and grid instances: where x is 16-byte
-    aligned)."""
+    bytes (the staged, cluster, grid and two-pass instances: where x is
+    16-byte aligned)."""
     instance: str
     v: int
     vec4: int
@@ -601,9 +605,10 @@ class SgdPlan(NamedTuple):
     rows: int
     dc: int
     smem: int
-    tiles_per_block: int
+    segments: int
     cluster: int = 0
     grid: int = 0
+    owner: int = 0
 
 
 def _sgd_plan(lb: int, d: int, resident: int, vec4: int = 0, *,
@@ -620,8 +625,8 @@ def _sgd_plan(lb: int, d: int, resident: int, vec4: int = 0, *,
     likewise with clusters (``resident`` clusters, in clusters of
     :func:`_sgd_cluster_size`). The grid one runs one CTA on each of the
     ``sms`` SMs at any window (its layout takes more than half an SM's
-    shared memory, so the card holds no more). The chunked one cuts the window into tiles, at most
-    ``resident`` blocks of them, and no block without rows."""
+    shared memory, so the card holds no more). The two-pass set runs its
+    three kernels at any window (:func:`sgd_twopass_grids`)."""
     v = _sgd_width_class(d)
     if v:
         blocks = max(1, min(resident, -(-lb // (SGD_WARPS * SGD_WARP_ROWS))))
@@ -636,7 +641,7 @@ def _sgd_plan(lb: int, d: int, resident: int, vec4: int = 0, *,
         return _sgd_cluster_plan(lb, d, resident, vec4, c)
     if _sgd_grid_layout(d, sms) is not None:
         return _sgd_grid_plan(d, sms, vec4)
-    return _sgd_chunked_plan(lb, d, resident, vec4)
+    return _sgd_twopass_plan(d, resident, vec4)
 
 
 def _sgd_cluster_plan(lb: int, d: int, resident: int, vec4: int,
@@ -668,16 +673,45 @@ def _sgd_grid_plan(d: int, sms: int, vec4: int = 0) -> SgdPlan:
                    _sgd_cluster_slice(d, sms), smem, 0, 0, sms)
 
 
-def _sgd_chunked_plan(lb: int, d: int, resident: int,
-                      vec4: int = 0) -> SgdPlan:
-    """The chunked instance's launch (:func:`_sgd_plan` past the staged
-    instance's widths; the card check also runs it at narrower widths
-    beside the staged one, with ``resident`` its own)."""
-    rows, dc, smem = _sgd_layout(d)
-    ntiles = -(-lb // rows)
-    tiles_per_block = -(-ntiles // min(ntiles, resident))
-    return SgdPlan("chunked", 0, vec4, -(-ntiles // tiles_per_block), resident,
-                   rows, dc, smem, tiles_per_block)
+def _sgd_twopass_owner_threads(d: int) -> int:
+    """Threads of an owner CTA of the two-pass set's mult · x at width
+    ``d``, four columns each (``twopass_owner_threads``, which the C entry
+    holds the plan to): 128 from 262,144 columns, 64 from 131,072, 32
+    below, so that narrower rows still give at least 512 owner CTAs (down
+    to 65,536 columns)."""
+    return 128 if d >= 262_144 else 64 if d >= 131_072 else 32
+
+
+def _sgd_twopass_plan(d: int, resident: int, vec4: int = 0) -> SgdPlan:
+    """The two-pass set's launch (:func:`_sgd_plan` past the grid
+    instance's widths; the card check also runs it by hand at the grid's):
+    whatever the window, one partial row."""
+    return SgdPlan("twopass", 0, vec4, 1, resident, SGD_TWOPASS_BAND_ROWS,
+                   SGD_TWOPASS_SEG_COLS, 0, _sgd_twopass_segments(d, vec4),
+                   owner=_sgd_twopass_owner_threads(d))
+
+
+def sgd_twopass_grids(plan: SgdPlan, lb: int, d: int) -> dict:
+    """The two-pass set's launches for a window of ``lb`` rows of width
+    ``d``: ``dots`` (segments, bands) CTAs of the partial dots, each
+    segment ``dc`` columns (by 16 bytes, ``dc`` / 4 float4s from the aligned
+    address at or before the row) of a band of ``rows`` rows; ``terms``
+    CTAs of the terms, a row a warp, 8 rows a CTA; ``owners``, (CTAs,
+    columns a CTA) of mult · x, CTA b the columns from b·columns, the last
+    the rest; and ``scratch``, its floats: lb × segments partial dots, lb
+    multipliers, then each terms CTA's weight and loss sums. The C entry
+    launches these from the plan's ``segments``, ``rows`` and ``owner``,
+    which it checks, and refuses a smaller scratch. Counted, not listed: a
+    wrapper call asks for it at every launch."""
+    bands = -(-lb // plan.rows)
+    if bands > SGD_TWOPASS_MAX_BANDS:
+        raise ValueError(f"sgd_batch_terms: a window of {lb} rows takes "
+                         f"{bands} bands of the two-pass set, past "
+                         f"{SGD_TWOPASS_MAX_BANDS}")
+    cols, terms = 4 * plan.owner, -(-lb // SGD_TWOPASS_TERMS_ROWS)
+    return {"dots": (plan.segments, bands), "terms": terms,
+            "owners": (-(-d // cols), cols),
+            "scratch": lb * plan.segments + lb + 2 * terms}
 
 
 def sgd_runs(plan: SgdPlan, lb: int) -> list:
@@ -687,19 +721,16 @@ def sgd_runs(plan: SgdPlan, lb: int) -> list:
     W), one more for the first lb mod W warps), every block of the staged
     one (``sgd_staged_kernel``: the same rule over its blocks), every
     cluster of the cluster one (``sgd_cluster_kernel``: the same rule over
-    its clusters), the grid one as one worker (``sgd_grid_kernel``: every
-    CTA takes every row, a slice of its columns), or every block of the
-    chunked one (``tiles_per_block`` contiguous tiles, the last ragged)."""
-    if plan.instance == "grid":
+    its clusters), or the grid one or the two-pass set as one worker
+    (``sgd_grid_kernel``: every CTA takes every row, a slice of its
+    columns; the two-pass set writes one row from all of them)."""
+    if plan.instance in ("grid", "twopass"):
         return [(0, lb)]
-    if plan.instance != "chunked":
-        workers = plan.blocks * (SGD_WARPS if plan.instance == "registers"
-                                 else 1)
-        q, rem = divmod(lb, workers)
-        return [(g * q + min(g, rem), g * q + min(g, rem) + q + (g < rem))
-                for g in range(workers)]
-    span = plan.tiles_per_block * plan.rows
-    return [(b * span, min(lb, (b + 1) * span)) for b in range(plan.blocks)]
+    workers = plan.blocks * (SGD_WARPS if plan.instance == "registers"
+                             else 1)
+    q, rem = divmod(lb, workers)
+    return [(g * q + min(g, rem), g * q + min(g, rem) + q + (g < rem))
+            for g in range(workers)]
 
 
 #: warps of a segment block (``kWarps`` of ``segment_kernels.cu``)
@@ -1558,7 +1589,8 @@ _SIGNATURES = {
                                  _I),
         "sgd_grid_ctas_on_card": ([_I, _I, _I, _I, ctypes.POINTER(_I)], _I),
         "sgd_batch_terms": ([_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I,
-                             _I, _I, _I, _L, _I, _I, _P, _I, _I, _P], _I),
+                             _I, _I, _I, _I, _I, _I, _I, _P, _L, _I, _I, _P],
+                            _I),
     },
     SEGMENT_SOURCE: {
         "segment_error_string": ([_I], ctypes.c_char_p),
@@ -1629,7 +1661,7 @@ def _sgd_resident_blocks(device_index: int, loss: int, v: int, vec4: int,
                          d: int, dc: int, smem: int) -> int:
     """Blocks of an sgd stage-1 instance the card holds at once: the
     register instance ``v`` (sized for its widest rows, d = 128·v), or for
-    v = 0 the staged one (dc = d) or the chunked one, at ``smem`` bytes.
+    v = 0 the staged one (dc = d), at ``smem`` bytes.
     The query also lets the instance use its dynamic shared memory, once
     per process."""
     per_sm = ctypes.c_int(0)
@@ -1828,6 +1860,8 @@ def _sgd_plan_on(device_index: int, loss: int, d: int, lb: int,
     """:func:`_sgd_plan` on one card, cached: a fit asks for the same
     window shape every round."""
     instance, sms = _sgd_card_instance(device_index, d)
+    if instance == "twopass":  # ordinary launches: no occupancy to ask
+        return _sgd_plan(lb, d, sms, vec4, sms=sms)
     if instance == "grid":
         # raises where no CTA of the layout fits an SM
         _sgd_resident_grid(device_index, loss, d, _sgd_grid_layout(d, sms)[1])
@@ -1839,12 +1873,8 @@ def _sgd_plan_on(device_index: int, loss: int, d: int, lb: int,
             _sgd_cluster_layout(_sgd_cluster_slice(d, c))[1])
         return _sgd_plan(lb, d, resident, vec4, sms=sms)
     v = _sgd_width_class(d)
-    if v:
-        shape = (128 * v, 0, 0)
-    elif instance == "staged":
-        shape = (d, d, _sgd_staged_layout(d)[1])
-    else:
-        shape = (d,) + _sgd_layout(d)[1:]
+    shape = ((128 * v, 0, 0) if v else
+             (d, d, _sgd_staged_layout(d)[1]))
     resident = _sgd_resident_blocks(device_index, loss, v, vec4, *shape)
     return _sgd_plan(lb, d, resident, vec4, sms=sms)
 
@@ -1858,7 +1888,7 @@ def _sgd_instance(d: int, sms: int) -> str:
         return "staged"
     if _sgd_cluster_size(d) is not None:
         return "cluster"
-    return "grid" if _sgd_grid_layout(d, sms) is not None else "chunked"
+    return "grid" if _sgd_grid_layout(d, sms) is not None else "twopass"
 
 
 def _sgd_card_instance(device_index: int, d: int) -> Tuple[str, int]:
@@ -1870,11 +1900,11 @@ def _sgd_card_instance(device_index: int, d: int) -> Tuple[str, int]:
 def _sgd_card_plan(xl: torch.Tensor, lb: int, loss_name: str) -> SgdPlan:
     """:func:`_sgd_plan` for ``xl``'s card and alignment: rows are read by
     16 bytes from an aligned x at a width that is a multiple of 4, or at
-    any width by the staged, cluster and grid instances, which copy each
-    stage (each row's slice) from the aligned address at or before it."""
+    any width by the staged, cluster, grid and two-pass instances, which
+    read each stage (each row's slice, segment or float4s) from the
+    aligned address at or before it."""
     d = xl.shape[1]
-    any_width = _sgd_card_instance(_device_index(xl), d)[0] in (
-        "staged", "cluster", "grid")
+    any_width = _sgd_card_instance(_device_index(xl), d)[0] != "registers"
     return _sgd_plan_on(_device_index(xl), SGD_LOSSES[loss_name], d, lb,
                         int((d % 4 == 0 or any_width)
                             and xl.data_ptr() % 16 == 0))
@@ -1885,30 +1915,33 @@ def _launch_sgd_terms(xl: torch.Tensor, yl: torch.Tensor, wl: torch.Tensor,
                       loss_name: str, combine: bool = True,
                       plan: Optional[SgdPlan] = None) -> torch.Tensor:
     """One C call: the (blocks + 1, d + 2) workspace, stage 1's per-block
-    (per-cluster; the grid's one) partials in its first rows and (where
-    ``combine``, else left unwritten) their fixed-order sum in the last;
-    where ``combine`` and blocks = 1, stage 1 writes its one row into the
-    last itself and the first is left unwritten. The grid instance also gets its scratch: two stages' partial dots (2 ×
-    rows × grid floats) and dots (2 × rows), then its two barriers'
-    counters, which the C entry zeroes. ``plan`` overrides the card's plan
-    (the card check runs the chunked instance at other widths, the cluster
-    one in other sizes and the grid one at the cluster's widths with it;
+    (per-cluster; the grid's or two-pass set's one) partials in its first
+    rows and (where ``combine``, else left unwritten) their fixed-order sum
+    in the last; where ``combine`` and blocks = 1, stage 1 writes its one
+    row into the last itself and the first is left unwritten. The grid
+    instance also gets its scratch: two stages' partial dots (2 × rows ×
+    grid floats) and dots (2 × rows), then its two barriers' counters,
+    which the C entry zeroes; the two-pass set its partial dots and
+    multipliers (:func:`sgd_twopass_grids`). ``plan`` overrides the card's
+    plan (the card check runs the cluster instance in other sizes, the grid
+    one at the cluster's widths and the two-pass set at the grid's with it;
     the C entry refuses a plan its kernels were not written for)."""
     d = xl.shape[1]
     with _on_card(xl):
         plan = plan or _sgd_card_plan(xl, lb, loss_name)
         ws = torch.empty((plan.blocks + 1, d + 2), dtype=torch.float32,
                          device=xl.device)
-        scratch = (torch.empty(2 * plan.rows * (plan.grid + 1) + 2,
-                               dtype=torch.float32, device=xl.device)
-                   if plan.grid else None)
+        floats = (2 * plan.rows * (plan.grid + 1) + 2 if plan.grid else
+                  sgd_twopass_grids(plan, lb, d)["scratch"] if plan.segments
+                  else 0)
+        scratch = (torch.empty(floats, dtype=torch.float32, device=xl.device)
+                   if floats else None)
         _raise_on_error(SGD_SOURCE, _lib(SGD_SOURCE).sgd_batch_terms(
             xl.data_ptr(), yl.data_ptr(), wl.data_ptr(), coeffs.data_ptr(),
             ws.data_ptr(), start, lb, clip, d, plan.v, plan.vec4, plan.blocks,
-            plan.rows, plan.dc, plan.smem, plan.tiles_per_block,
-            plan.cluster, plan.grid,
-            scratch.data_ptr() if plan.grid else None,
-            SGD_LOSSES[loss_name], int(combine), _stream(xl)),
+            plan.rows, plan.dc, plan.smem, plan.segments, plan.owner,
+            plan.cluster, plan.grid, scratch.data_ptr() if floats else None,
+            floats, SGD_LOSSES[loss_name], int(combine), _stream(xl)),
             "sgd_batch_terms")
     return ws
 

@@ -48,9 +48,17 @@ on where the allocator placed it. The shapes:
   instance's on a tree without the cluster one, the cluster instance's on
   a tree with it);
 - ``d=262144``: lb = 1,220 of 2,440 x 262,144 rows (likewise the chunked
-  instance's or the grid instance's).
+  instance's or the grid instance's);
+- ``d=2097152``, ``d=2500000`` and ``d=4194304``: windows of 1.28 GB, lb =
+  152 of 304, 128 of 256 and 76 of 152 rows (the chunked instance's on a
+  tree without the two-pass set, the two-pass set's on a tree with it);
+- ``fit-2097152``: lb = 1,250, all the rows of 1,250 x 2,097,152 (10.49 GB:
+  phase 23's LR fit at 2^21 columns, every round all the rows).
 
-``--shapes`` runs only the named shapes (all by default).
+``--shapes`` runs only the named shapes (all by default), ``--losses`` only
+the named losses; ``--reps R`` captures R calls in each timed graph and
+times R calls in each eager batch (20 and 10 by default: fewer keep a tree
+whose call takes tens of milliseconds within a call's time limit).
 
 It prints one JSON line: the tree, the card's name and power limit, ptxas'
 registers and spills of each kernel of ``sgd_kernels.cu``, and each
@@ -77,7 +85,9 @@ LOSSES = ("logistic", "hinge", "least_square")
 TABLES = {"main": (10_000_000, 100), "d=7": (200_000, 7),
           "d=512": (1_000_000, 512), "d=1500": (100_000, 1_500),
           "d=6001": (60_000, 6_001), "d=2000": (100_000, 2_000),
-          "d=16000": (40_000, 16_000), "d=262144": (2_440, 262_144)}
+          "d=16000": (40_000, 16_000), "d=262144": (2_440, 262_144),
+          "d=2097152": (304, 2_097_152), "d=2500000": (256, 2_500_000),
+          "d=4194304": (152, 4_194_304), "fit": (1_250, 2_097_152)}
 #: shape -> (table, start, clip, lb)
 SHAPES = {
     "main": ("main", 0, 0, 100_000),
@@ -91,6 +101,10 @@ SHAPES = {
     "d=2000": ("d=2000", 0, 0, 100_000),
     "d=16000": ("d=16000", 0, 0, 20_000),
     "d=262144": ("d=262144", 0, 0, 1_220),
+    "d=2097152": ("d=2097152", 0, 0, 152),
+    "d=2500000": ("d=2500000", 0, 0, 128),
+    "d=4194304": ("d=4194304", 0, 0, 76),
+    "fit-2097152": ("fit", 0, 0, 1_250),
 }
 
 
@@ -189,9 +203,18 @@ def main() -> int:
                         help="root of the repository tree to import")
     parser.add_argument("--shapes", default=",".join(SHAPES),
                         help="comma-separated shapes to run (default: all)")
+    parser.add_argument("--losses", default=",".join(LOSSES),
+                        help="comma-separated losses to run (default: all)")
+    parser.add_argument("--reps", type=int, default=20,
+                        help="calls in each timed graph (eager batches: "
+                             "half as many, at least one)")
     parser.add_argument("--out", help="also append the JSON line to FILE")
     args = parser.parse_args()
     shapes = args.shapes.split(",")
+    losses = args.losses.split(",")
+    if sorted(set(losses) - set(LOSSES)):
+        parser.error(f"unknown losses; known: {LOSSES}")
+    reps, per_batch = args.reps, max(1, args.reps // 2)
     unknown = sorted(set(shapes) - set(SHAPES))
     if unknown:
         parser.error(f"unknown shapes {unknown}; known: {sorted(SHAPES)}")
@@ -220,7 +243,7 @@ def main() -> int:
         y = torch.floor(torch.rand(n, generator=g, device="cuda") * 2)
         w = torch.rand(n, generator=g, device="cuda")
         c = (torch.rand(d, generator=g, device="cuda") - 0.5) * (10 / d ** 0.5)
-        for loss in LOSSES:
+        for loss in losses:
             mult = LossFunc.by_name(loss).terms(x @ c, y, w)[1]
             for shape, (tname, start, clip, lb) in SHAPES.items():
                 if tname != table_name or shape not in shapes:
@@ -257,14 +280,14 @@ def main() -> int:
                     return torch.mv(x[s:s + lb].T, mult[s:s + lb])
 
                 row.update({
-                    "ms": time_ms(at(whole)),
-                    "device_ms": graph_ms(at(whole)),
-                    "stage1_ms": time_ms(at(first)),
-                    "stage1_device_ms": graph_ms(at(first)),
+                    "ms": time_ms(at(whole), per_batch=per_batch),
+                    "device_ms": graph_ms(at(whole), reps),
+                    "stage1_ms": time_ms(at(first), per_batch=per_batch),
+                    "stage1_device_ms": graph_ms(at(first), reps),
                     "bound_ms": 4 * (lb * d + 2 * lb + 2 * d + 2)
                                 / PEAK_BYTES_PER_S * 1e3,
-                    "library_ms": time_ms(at(library)),
-                    "library_device_ms": graph_ms(at(library))})
+                    "library_ms": time_ms(at(library), per_batch=per_batch),
+                    "library_device_ms": graph_ms(at(library), reps)})
                 results.setdefault(shape, {})[loss] = row
                 print(f"{shape} {loss}: {json.dumps(row)}", file=sys.stderr,
                       flush=True)

@@ -25,9 +25,8 @@ Run from the repository root on a machine with a CUDA card and nvcc:
    (cold in L2): at d = 106,000, 131,072, 262,144 and 1,048,576 over
    windows of the same 1.28 GB (lb = 3,019, 2,441, 1,220, 305), the
    planned grid instance (whole call and stage 1, device and eager), the
-   library pair (``x @ c``, then ``xᵀ @ mult`` given the multipliers), the
-   chunked instance by hand (the earlier design at these widths) and, at
-   262,144, the plain version; each with the byte bound (x, y, w, the
+   library pair (``x @ c``, then ``xᵀ @ mult`` given the multipliers) and,
+   at 262,144, the plain version; each with the byte bound (x, y, w, the
    coefficients and the output once at 3.35 TB/s). Then the grid instance
    by hand at d = 50,001 and 100,000 (lb = 6,400 and 3,200) beside the
    cluster instance the plan takes there.
@@ -144,15 +143,6 @@ def grid_plan(K, x, loss):
     K._sgd_resident_grid(0, K.SGD_LOSSES[loss], d,
                          K._sgd_grid_layout(d, sms)[1])
     return K._sgd_grid_plan(d, sms, int(x.data_ptr() % 16 == 0))
-
-
-def chunked_plan(K, x, lb, loss):
-    d = x.shape[1]
-    rows, dc, smem = K._sgd_layout(d)
-    vec4 = int(d % 4 == 0 and x.data_ptr() % 16 == 0)
-    resident = K._sgd_resident_blocks(0, K.SGD_LOSSES[loss], 0, vec4, d, dc,
-                                      smem)
-    return K._sgd_chunked_plan(lb, d, resident, vec4)
 
 
 def table(g, n, d):
@@ -274,10 +264,6 @@ def timed(K, g, LossFunc, device_ms):
                 "grid_stage1_device_ms": device_ms(call(gp, False))})
         else:
             assert plan.instance == "grid", plan
-            cp = chunked_plan(K, x, lb, loss)
-            row.update({"chunked_device_ms": device_ms(call(cp)),
-                        "chunked_stage1_device_ms": device_ms(call(cp,
-                                                                   False))})
             if d == 262_144:
                 row["plain_ms"] = time_ms(lambda s=rolling(n, lb): (
                     K.sgd_batch_terms_plain(x, y, w, c, s(), 0, lb, loss)))

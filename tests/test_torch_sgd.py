@@ -391,21 +391,19 @@ def test_the_sgd_layout_takes_any_width():
     wider rows the cluster one while a cluster of 8 CTAs holds them (each
     CTA a slice of dc columns), wider rows the grid one while a grid of
     132 CTAs (an H100's, one an SM) holds them (each CTA a slice of dc
-    columns, one partial row), wider still the chunked one, staged in
-    chunks of columns that keep a column on one thread (a multiple of
-    256)."""
+    columns, one partial row), wider still the two-pass set (segments of
+    4,096 columns over bands of 32 rows, one partial row)."""
     for d in (1, 7, 100, 128, 129, 256, 300, 511, 512):
         plan = kernels._sgd_plan(100_000, d, 396, sms=132)
         assert plan.instance == "registers" and plan.v == -(-d // 128)
-        assert plan.blocks == 396 and plan.tiles_per_block == 0
+        assert plan.blocks == 396 and plan.segments == 0
     # 16 rows a warp
     assert kernels._sgd_plan(1_000, 100, 396, sms=132).blocks == 8
-    assert kernels._sgd_layout(1_500) == (16, 512, 4 * (16 * 512 + 512 + 48))
     for d in (513, 1_500, 6_001, 13_209):
         plan = kernels._sgd_plan(100_000, d, 792, sms=132)
         rows, smem = kernels._sgd_staged_layout(d)
         assert plan.instance == "staged" and plan.v == 0 and plan.dc == d
-        assert (plan.rows, plan.smem, plan.tiles_per_block) == (rows, smem, 0)
+        assert (plan.rows, plan.smem, plan.segments) == (rows, smem, 0)
         assert 1 <= rows <= 16 and smem <= kernels.SMEM_BLOCK_BYTES
         assert plan.blocks <= 792
     for d in (13_210, 16_000, 10 ** 5, 105_568):
@@ -415,7 +413,7 @@ def test_the_sgd_layout_takes_any_width():
         assert plan.instance == "cluster" and plan.v == 0 and plan.cluster == c
         assert plan.dc == kernels._sgd_cluster_slice(d, c) and plan.dc % 4 == 0
         assert (c - 1) * plan.dc < d <= c * plan.dc
-        assert (plan.rows, plan.smem, plan.tiles_per_block) == (rows, smem, 0)
+        assert (plan.rows, plan.smem, plan.segments) == (rows, smem, 0)
         assert 1 <= rows <= 16 and smem <= kernels.SMEM_BLOCK_BYTES
         assert plan.blocks <= 66
     for d in (105_569, 10 ** 6, 1_959_936):
@@ -428,13 +426,10 @@ def test_the_sgd_layout_takes_any_width():
         assert 1 <= rows <= 32 and smem <= kernels.SMEM_BLOCK_BYTES
     for d in (1_959_937, 10 ** 7):
         plan = kernels._sgd_plan(100_000, d, 792, sms=132)
-        rows, dc, smem = kernels._sgd_layout(d)
-        assert plan.instance == "chunked" and plan.v == 0
-        assert (plan.rows, plan.dc, plan.smem) == (rows, dc, smem)
-        assert 16 <= rows <= 64 and rows & (rows - 1) == 0
-        assert rows * dc <= kernels.SGD_TILE_FLOATS
-        assert smem <= kernels.SMEM_BLOCK_BYTES
-        assert dc % 256 == 0 and plan.blocks <= 792
+        assert plan.instance == "twopass" and plan.v == 0
+        assert (plan.rows, plan.dc, plan.smem) == (32, 4_096, 0)
+        assert plan.segments == -(-d // 4_096)
+        assert (plan.blocks, plan.cluster, plan.grid) == (1, 0, 0)
 
 
 @pytest.mark.parametrize("d", [7, 100, 512, 513, 2_000, 6_001, 20_000,
@@ -442,19 +437,19 @@ def test_the_sgd_layout_takes_any_width():
 @pytest.mark.parametrize("lb", [1, 31, 100, 100_003])
 def test_the_sgd_plan_covers_the_window_once(lb, d):
     """Stage 1's workers (warps of the register instance, blocks of the
-    staged and the chunked one, clusters of the cluster one, the one grid
-    of the grid one) take contiguous runs that cover [0, lb) once, in
-    order; the register, staged and cluster instances' runs differ by at
-    most one row, and their grids give every warp SGD_WARP_ROWS rows
-    (every staged block or cluster SGD_BLOCK_STAGES stages) or fill the
-    card; the grid instance runs every CTA the card holds (132 here) at
-    any window."""
+    staged one, clusters of the cluster one, the one grid of the grid one,
+    the one partial row of the two-pass set) take contiguous runs that
+    cover [0, lb) once, in order; the register, staged and cluster
+    instances' runs differ by at most one row, and their grids give every
+    warp SGD_WARP_ROWS rows (every staged block or cluster
+    SGD_BLOCK_STAGES stages) or fill the card; the grid instance runs every
+    CTA the card holds (132 here) at any window."""
     resident = 132 if 105_568 < d <= 1_959_936 else 396
     plan = kernels._sgd_plan(lb, d, resident, sms=132)
     assert plan.instance == ("registers" if d <= 512 else
                              "staged" if d <= 13_209 else
                              "cluster" if d <= 105_568 else
-                             "grid" if d <= 1_959_936 else "chunked")
+                             "grid" if d <= 1_959_936 else "twopass")
     assert 1 <= plan.blocks <= resident
     runs = kernels.sgd_runs(plan, lb)
     assert runs[0][0] == 0 and runs[-1][1] == lb
@@ -463,20 +458,19 @@ def test_the_sgd_plan_covers_the_window_once(lb, d):
     if plan.instance == "grid":
         assert runs == [(0, lb)] and plan.blocks == 1
         assert plan.grid == plan.resident == resident
+    elif plan.instance == "twopass":
+        assert runs == [(0, lb)] and plan.blocks == 1 and plan.grid == 0
     elif plan.instance == "registers":
         assert len(runs) == plan.blocks * kernels.SGD_WARPS
         assert max(lengths) - min(lengths) <= 1
         assert (plan.blocks == resident or plan.blocks == -(-lb // (
             kernels.SGD_WARPS * kernels.SGD_WARP_ROWS)))
-    elif plan.instance in ("staged", "cluster"):
+    else:
+        assert plan.instance in ("staged", "cluster")
         assert len(runs) == plan.blocks and min(lengths) >= 1
         assert max(lengths) - min(lengths) <= 1
         assert (plan.blocks == resident or plan.blocks == -(-lb // (
             kernels.SGD_BLOCK_STAGES * plan.rows)))
-    else:
-        span = plan.tiles_per_block * plan.rows
-        assert len(runs) == plan.blocks and min(lengths) >= 1
-        assert all(n == span for n in lengths[:-1])
 
 
 @pytest.mark.parametrize("d,instance,nreg,rows", [
@@ -486,7 +480,7 @@ def test_the_sgd_plan_covers_the_window_once(lb, d):
     (4_097, "staged", 16, 1), (8_192, "staged", 16, 1),
     (8_193, "staged", 16, 1), (13_209, "staged", 16, 1),
     (13_210, "cluster", 16, 1), (105_665, "grid", 4, 23),
-    (1_959_936, "grid", 16, 1), (1_959_937, "chunked", 0, 16)])
+    (1_959_936, "grid", 16, 1), (1_959_937, "twopass", 0, 32)])
 def test_the_sgd_plan_routes_each_width(d, instance, nreg, rows):
     """Which stage-1 instance each width takes, at the edges: the staged
     instance's columns a thread keeps in registers (4, 8, 16: past 4,096
@@ -495,7 +489,7 @@ def test_the_sgd_plan_routes_each_width(d, instance, nreg, rows):
     whose three-stage ring fits a block's 232,448 bytes; past it the
     cluster instance (the next test), past a cluster of 8 the grid one
     (over an H100's 132 CTAs; the grid tests below), past a grid of 132
-    the chunked one."""
+    the two-pass set (bands of 32 rows; its tests below)."""
     plan = kernels._sgd_plan(100_000, d, 264, sms=132)
     assert plan.instance == instance and plan.rows == rows
     if instance == "cluster":
@@ -594,14 +588,14 @@ def test_the_grid_plan_routes_each_width(d, ds, nreg, rows):
     weights, the 16 warps' dot sums, the multipliers, the row slots' sums
     and the sums and coefficients of the columns past a thread's 4, 8 or
     16 registers (512 threads); past 1,959,936 columns (a slice of 14,848)
-    the chunked
-    instance. Every width's layout takes more than half an SM's shared
+    the two-pass set. Every width's layout takes more than half an SM's shared
     memory, so the card holds one CTA an SM and the grid's 132 CTAs are
     all of them; every CTA gets columns."""
     plan = kernels._sgd_plan(3_000, d, 132, sms=132)
     if ds is None:
         assert kernels._sgd_grid_layout(d, 132) is None
-        assert plan.instance == "chunked" and plan.grid == 0
+        assert plan.instance == "twopass" and plan.grid == 0
+        assert plan.segments == kernels._sgd_twopass_segments(d, 0)
         return
     assert plan.instance == "grid" and plan.dc == ds and plan.rows == rows
     assert kernels._sgd_grid_nreg(ds) == nreg
@@ -639,12 +633,82 @@ def test_the_grid_plan_covers_the_window_once(d, lb, ctas):
         kernels._sgd_grid_plan(d, 10 ** 6)
 
 
+@pytest.mark.parametrize("vec4", [0, 1])
+@pytest.mark.parametrize("lb", [1, 76, 1_250, 100_003])
+@pytest.mark.parametrize("d", [1_959_937, 2_097_152, 2_500_001, 10 ** 7])
+def test_the_twopass_plan_covers_every_column_and_row(d, lb, vec4):
+    """Past the grid's widths the two-pass set: every column has exactly
+    one owner CTA of mult · x (slices of 512 at these widths, nonempty, in
+    order); every
+    row of the window is read in the same S segments of 1,024 float4s (by
+    16 bytes from the aligned address at or before the row where vec4: o =
+    (row · d) mod 4 floats before it; by 4 bytes in fours of columns
+    else), the widest row's last segment nonempty; the bands of 32 rows
+    cover the window, the last nonempty; the scratch is lb × S partial dots,
+    then lb multipliers and the weight and loss sums of the terms CTAs (8
+    rows each, the last nonempty)."""
+    plan = kernels._sgd_plan(lb, d, 132, vec4, sms=132)
+    assert plan.instance == "twopass" and plan.vec4 == vec4
+    grids = kernels.sgd_twopass_grids(plan, lb, d)
+    count, cols = grids["owners"]
+    owners = [(c, min(d, c + cols)) for c in range(0, count * cols, cols)]
+    assert owners[0][0] == 0 and owners[-1][1] == d
+    assert all(a < b <= a + 512 for a, b in owners)
+    assert all(b - a == 512 for a, b in owners[:-1])
+    assert all(a[1] == b[0] for a, b in zip(owners, owners[1:]))
+    segments, bands = grids["dots"]
+    assert segments == plan.segments and plan.dc == 4 * 1_024
+    shifts = {(r * d) % 4 for r in range(min(lb, 4))} if vec4 else {0}
+    widest = max((o + d + 3) // 4 for o in shifts)  # float4s of a row
+    assert (segments - 1) * 1_024 < widest <= segments * 1_024
+    assert (bands - 1) * plan.rows < lb <= bands * plan.rows
+    assert plan.rows == 32 and bands <= kernels.SGD_TWOPASS_MAX_BANDS
+    terms = grids["terms"]
+    assert (terms - 1) * 8 < lb <= terms * 8
+    assert grids["scratch"] - lb - 2 * terms == lb * segments
+    assert kernels.sgd_runs(plan, lb) == [(0, lb)] and plan.blocks == 1
+
+
+@pytest.mark.parametrize("d,cols", [
+    (513, 128), (106_000, 128), (131_071, 128), (131_072, 256),
+    (262_143, 256), (262_144, 512), (1_048_576, 512)])
+def test_the_twopass_owners_narrow_on_narrow_rows(d, cols):
+    """Run by hand at narrower rows, the set's owner CTAs keep fewer
+    columns (128 threads from 262,144 columns, 64 from 131,072, 32
+    below), so the card still gets at least 512 of them from 65,536
+    columns; the slices cover [0, d) once."""
+    plan = kernels._sgd_twopass_plan(d, 132, 1)
+    count, width = kernels.sgd_twopass_grids(plan, 3_019, d)["owners"]
+    owners = [(c, min(d, c + width)) for c in range(0, count * width, width)]
+    assert 4 * plan.owner == cols == width
+    assert owners[0][0] == 0 and owners[-1][1] == d
+    assert all(b - a == cols for a, b in owners[:-1])
+    assert all(a[1] == b[0] for a, b in zip(owners, owners[1:]))
+    assert len(owners) >= 512 or d < 65_536
+
+
+@pytest.mark.parametrize("d", [1_000_000, 1_692_672, 1_692_673, 1_959_936,
+                               1_959_937])
+def test_a_card_with_fewer_sms_hands_over_to_twopass_sooner(d):
+    """The grid instance runs one CTA an SM, so on a card of 114 SMs its
+    range ends at 1,692,672 columns, not 1,959,936: past that the two-pass
+    set takes over, exactly where no grid layout fits."""
+    for sms in (114, 132):
+        plan = kernels._sgd_plan(1_250, d, sms, 1, sms=sms)
+        grid = kernels._sgd_grid_layout(d, sms)
+        assert plan.instance == ("grid" if grid else "twopass"), (d, sms)
+        assert kernels._sgd_instance(d, sms) == plan.instance
+        assert plan.grid == (sms if grid else 0)
+    assert (kernels._sgd_grid_layout(d, 114) is None) == (d > 1_692_672)
+    assert (kernels._sgd_grid_layout(d, 132) is None) == (d > 1_959_936)
+
+
 def test_the_staged_instance_reads_any_width_by_16_bytes(monkeypatch):
     """The card plan reads rows by 16 bytes from an aligned x at a width
-    that is a multiple of 4, and at any width the staged, cluster and grid
-    instances take (a stage is one contiguous run, a row's slice too,
-    copied from the aligned address at or before it); never from an
-    unaligned x."""
+    that is a multiple of 4, and at any width the staged, cluster, grid and
+    two-pass instances take (a stage is one contiguous run, a row's slice
+    or segment too, read from the aligned address at or before it); never
+    from an unaligned x."""
     monkeypatch.setattr(kernels, "_device_index", lambda t: 0)
     monkeypatch.setattr(kernels, "_card_sms", lambda i: 132)
     monkeypatch.setattr(kernels, "_sgd_resident_blocks", lambda *a: 264)
@@ -654,8 +718,8 @@ def test_the_staged_instance_reads_any_width_by_16_bytes(monkeypatch):
     try:
         for d, vec4 in [(7, 0), (100, 1), (513, 1), (514, 1), (6_001, 1),
                         (13_210, 1), (13_212, 1), (50_001, 1),
-                        (105_665, 1), (105_668, 1), (1_959_937, 0),
-                        (1_959_940, 1)]:
+                        (105_665, 1), (105_668, 1), (1_959_937, 1),
+                        (1_959_940, 1), (2_000_001, 1), (2_097_152, 1)]:
             x = torch.zeros(3 * d + 1)
             assert x.data_ptr() % 16 == 0
             plan = kernels._sgd_card_plan(x[:3 * d].view(3, d), 2, "hinge")
@@ -707,12 +771,14 @@ class _FakeSgdLibrary:
         self.n, self.calls = n, []
 
     def sgd_batch_terms(self, x, y, w, coeffs, ws, start, lb, clip, d, v,
-                        vec4, blocks, rows, dc, smem, tiles_per_block,
-                        cluster, grid, scratch, loss, combine, stream):
+                        vec4, blocks, rows, dc, smem, segments, owner,
+                        cluster, grid, scratch, scratch_floats, loss,
+                        combine, stream):
         self.calls.append(dict(start=start, lb=lb, clip=clip, d=d, v=v,
                                blocks=blocks, cluster=cluster, grid=grid,
                                scratch=scratch, rows=rows, loss=loss,
-                               combine=combine))
+                               combine=combine, owner=owner,
+                               scratch_floats=scratch_floats))
 
         def tensor(ptr, count):
             arr = (ctypes.c_float * count).from_address(ptr)
@@ -731,7 +797,8 @@ class _FakeSgdLibrary:
 def test_one_c_call_per_round_on_the_card_path(monkeypatch, d):
     """On the card path every round is one call of the C entry, with both
     stages (combine = 1) and the plan's instance, and no reduce_partials
-    launch; the grid instance's call gets its scratch, the rest none; the
+    launch; the grid instance's call gets its scratch, and its size, the
+    rest none; no call but the two-pass set's names an owner width; the
     fit it gives is the plain fit (a stand-in library computes the terms
     with the plain version and writes them where the kernel would)."""
     x, y, w = _data(81, 70, d)
@@ -764,6 +831,9 @@ def test_one_c_call_per_round_on_the_card_path(monkeypatch, d):
         assert call["cluster"] == plan.cluster and call["grid"] == plan.grid
         assert (plan.cluster > 0) == (13_209 < d <= 105_568)
         assert (plan.grid > 0) == (d > 105_568) == (call["scratch"] is not None)
+        assert call["scratch_floats"] == (
+            2 * plan.rows * (plan.grid + 1) + 2 if plan.grid else 0)
+        assert call["owner"] == plan.owner == 0
     monkeypatch.setattr(kernels, "_is_cuda", lambda t: False)
     plain = optimizer.sgd_rounds(kernels.sgd_batch_terms, "logistic", prm,
                                  _t(x), _t(y), _t(w), torch.zeros(d))
